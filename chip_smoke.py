@@ -13,10 +13,15 @@
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
-   40 tokens.  The launch counters are zeroed just before it and read
-   just after: every kernel must have run.  The kernel path and the plain
-   path then decode the same tokens (teacher forcing) and their logits
-   must agree.  Prints utt/s, the decode slope and peak memory.
+   40 tokens, each decode step one launch of the megakernel.  Then the
+   layer-by-layer (scanned) path, ``decode_megakernel=False``, at the same
+   widths with the depth cut to 8+8 layers and the recipe without
+   ``sqenc`` (its encoder takes the bf16 flash entry).  For each path the
+   launch counters are zeroed just before it and read just after: every
+   kernel of the path must have run.  The kernel path and the plain
+   scanned path then decode the same tokens (teacher forcing) and their
+   logits must agree.  Prints utt/s, the decode slope, the decoder step's
+   wall and device-busy time and peak memory.
 4. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
@@ -57,7 +62,23 @@ KERNELS = {
     "flash_attention": dict(
         route="cuda", source=f"{PKG}/csrc/flash_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/flash_attention.py:89"),
+    "flash_attention_f32": dict(
+        route="cuda", source=f"{PKG}/csrc/flash_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/flash_attention.py:89"),
+    "decoder_megakernel": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
 }
+# the path that drives each kernel: the main path (the bench recipe, the
+# megakernel decode) or the layer-by-layer path (decode_megakernel=False,
+# the recipe without sqenc, so the encoder takes the bf16 flash entry)
+PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
+           "decode_attention_int8": "scanned",
+           "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
+           "flash_attention": "scanned"}
+SCANNED_RECIPE = "woq8+ckv8+lmq8"
+SCANNED_DEPTH = 8        # encoder and decoder layers of the scanned path
 
 
 class SmokeFailure(Exception):
@@ -128,9 +149,10 @@ def queued_ms(torch, fn, iters, host_ms):
 
 def step_device_ms(torch, dec, run_step, host_ms):
     """Device time of one decoder step ``run_step()`` without the profiler.
-    A step launches more kernels than the queue behind one spin holds, so
-    forward hooks cut it at its blocks' boundaries into segments of one
-    block each; each segment is queued behind its own
+    A scanned step launches more kernels than the queue behind one spin
+    holds, so forward hooks cut it at its blocks' boundaries into segments
+    of one block each (a megakernel step, whose blocks are not called, is
+    one segment); each segment is queued behind its own
     :func:`spin` and timed by its own events, and the spins fall between
     the segments.  ``host_ms``, the host's time for the step, sizes the
     spins.  None if the host still fell behind a spin after two retries."""
@@ -159,6 +181,29 @@ def step_device_ms(torch, dec, run_step, host_ms):
         finally:
             for h in hooks:
                 h.remove()
+        torch.cuda.synchronize()
+        if not any(behind):
+            return sum(s.elapsed_time(e) for s, e in marks)
+        spin_ms *= 4
+    return None
+
+
+def segments_ms(torch, fns, host_ms):
+    """Device time of the calls ``fns`` run in order, each queued behind its
+    own :func:`spin` and timed by its own events, summed: for work that
+    launches more kernels than the launch queue holds.  ``host_ms``, the
+    host's time for all of them, sizes the spins.  None if the host still
+    fell behind a spin after two retries."""
+    spin_ms = 4 * host_ms / len(fns) + 1
+    for _ in range(3):
+        marks, behind = [], []
+        for fn in fns:
+            spin(torch, spin_ms)
+            marks.append((event(torch), event(torch)))
+            marks[-1][0].record()
+            fn()
+            marks[-1][1].record()
+            behind.append(marks[-1][0].query())
         torch.cuda.synchronize()
         if not any(behind):
             return sum(s.elapsed_time(e) for s, e in marks)
@@ -395,6 +440,157 @@ def kernel_phases(torch, results):
         max_abs_err=float((o.float() - o_ref32).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         host_call_ms=wall)
+    del qkv, qs, ks, vs, kc, vc, qc
+
+    # kernel 2, fp32-operand entry: the SmoothQuant encoder's fp32 q/k/v
+    qkv32 = torch.randn((1, Lq, 3, H, D), generator=gen, device=dev)
+    q32, k32, v32 = (qkv32[:, :, i].transpose(1, 2) for i in range(3))
+    o32 = fa.flash_mha(q32, k32, v32, scale=scale, kv_valid_len=valid)
+    o32_ref = fa.plain_flash_mha(q32, k32, v32, scale=scale,
+                                 kv_valid_len=valid)
+    o16 = fa.flash_mha(*(t.bfloat16() for t in (q32, k32, v32)),
+                       scale=scale, kv_valid_len=valid)
+    e32, e16 = rel_err(o32, o32_ref), rel_err(o16, o32_ref)
+    print(f"flash fp32 entry: rel err vs fp32 plain {e32:.3e} (the bf16 "
+          f"entry on the same inputs: {e16:.3e})")
+    check(o32.dtype == torch.float32 and e32 < 1e-4,
+          "flash attention fp32 entry [1,20,1536,64] valid 1500 within 1e-4 "
+          "of the fp32 plain version")
+    ms, wall = time_ms(torch, lambda i: fa.flash_mha(
+        q32, k32, v32, scale=scale, kv_valid_len=valid))
+    plain_ms, _ = time_ms(torch, lambda i: fa.plain_flash_mha(
+        q32, k32, v32, scale=scale, kv_valid_len=valid), iters=10)
+    kc, vc = k32[:, :, :valid].contiguous(), v32[:, :, :valid].contiguous()
+    qc = q32.contiguous()
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc, scale=scale))
+    # bound_ms: the function's operations at the peak of their type, fp32
+    # on the CUDA cores.  route_bound_ms: the kernel's own route, three
+    # bf16 tensor-core products per fp32 product, which its design can reach
+    n_bytes, flops = 4 * H * Lq * D * 4, 4 * H * Lq * valid * D
+    b_ms, b_by = bound(n_bytes, flops, PEAK_FP32_CUDA_CORES)
+    r_ms, r_by = bound(n_bytes, 3 * flops, PEAK_BF16_TENSOR)
+    print(f"flash fp32 entry: {ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us "
+          f"(fp32 type), {r_ms * 1e3:.2f} us (3 bf16 products, {r_by})")
+    results["flash_attention_f32"] = dict(
+        max_abs_err=float((o32 - o32_ref).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        route_bound_ms=r_ms, route_bound_by=r_by, host_call_ms=wall,
+        bf16_entry_rel_err=e16)
+    del qkv32, q32, k32, v32, kc, vc, qc
+    megakernel_phase(torch, results, gen)
+
+
+def random_blobs(torch, dev, gen, n_layer, d):
+    """A seeded random int8 weight image for the megakernel at width d
+    (ffn 4d), its scales set so that every GEMV output is of order one
+    (uniform int8 has std 73.6)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops.decoder_layer import \
+        MegakernelBlobs
+    L, nf = n_layer, 4
+    npan, nflat = 6 + 2 * nf, 3 + nf
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    wblob = torch.randint(-127, 128, (L, npan, d, d), generator=gen,
+                          device=dev, dtype=torch.int8)
+    pair_scale = (rand(L, 4, d // 128, 128) + 0.5) / (73.6 * d ** 0.5)
+    flat_scale = (rand(L, nflat, d) + 0.5) / (73.6 * d ** 0.5)
+    flat_scale[:, -1] /= 2.0                      # fc2 sums 4d rows
+    ln = randn(L, 6, d) * 0.1
+    ln[:, 0::2] += 1.0                            # LN weights near one
+    return MegakernelBlobs(
+        wblob, pair_scale, randn(L, 4, d // 128, 128) * 0.1, flat_scale,
+        randn(L, nflat, d) * 0.1, ln, torch.ones(L, device=dev),
+        torch.ones(L, device=dev), None)
+
+
+def megakernel_phase(torch, results, gen):
+    """Kernel 3, the whole-step decode megakernel, at large-v2 shapes
+    (32 layers, d 1280, bf16 self cache of 448 at sequence 44, int8 cross
+    cache of 1500): one layer against the plain version, then all 32."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    dev = torch.device("cuda")
+    L, H, D, d, S, Sc, n = 32, 20, 64, 1280, 448, 1500, 44
+    scale = D ** -0.5
+    blobs = random_blobs(torch, dev, gen, L, d)
+    x = torch.randn((1, d), generator=gen, device=dev).bfloat16()
+    self_c = torch.randn((L, 1, 2, H, D, S), generator=gen,
+                         device=dev).bfloat16()
+    cross = torch.randint(-127, 128, (L, 1, 2, H, D, Sc), generator=gen,
+                          device=dev, dtype=torch.int8)
+    cscale = torch.full((L,), 1 / 40.0, device=dev)
+    seq = torch.tensor([n], dtype=torch.int32, device=dev)
+    seq_host = seq.cpu()        # the plain version reads the length on the host
+
+    def run(n_layer, plain=False):
+        b = mk.MegakernelBlobs(*(t[:n_layer] for t in blobs[:8]), None)
+        if plain:
+            return mk.plain_fused_decoder_stack(
+                x, b, self_c[:n_layer], seq_host, scale, cross[:n_layer],
+                cscale[:n_layer])
+        return mk.fused_decoder_stack(x, b, self_c[:n_layer], seq, scale,
+                                      cross_cache=cross[:n_layer],
+                                      cross_scale=cscale[:n_layer])
+
+    errs = {}
+    for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
+        hid, fresh = run(n_layer)
+        hid_p, fresh_p = run(n_layer, plain=True)
+        torch.cuda.synchronize()
+        errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
+        print(f"megakernel, {n_layer} layer(s): rel err vs plain bf16: "
+              f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
+              f"{errs[n_layer][1]:.3e}")
+        check(bool(torch.isfinite(hid).all()) and max(errs[n_layer]) < tol,
+              f"decoder megakernel, {n_layer} layer(s), matches plain "
+              f"(rel {tol:g})")
+    ms, wall = time_ms(torch, lambda i: run(L), iters=20)
+    # the plain version launches some 300 kernels a layer, more than the
+    # launch queue holds for 32 layers: its 32 layers are timed as 32
+    # segments, each layer fed the previous one's hidden state
+    hid_box = [x]
+
+    def plain_layer(i):
+        b = mk.MegakernelBlobs(*(t[i:i + 1] for t in blobs[:8]), None)
+        hid_box[0] = mk.plain_fused_decoder_stack(
+            x if i == 0 else hid_box[0], b, self_c[i:i + 1], seq_host, scale,
+            cross[i:i + 1], cscale[i:i + 1])[0]
+
+    t = time.perf_counter()
+    run(L, plain=True)
+    torch.cuda.synchronize()
+    plain_host_ms = (time.perf_counter() - t) * 1e3
+    plain_runs = [segments_ms(torch, [lambda i=i: plain_layer(i)
+                                      for i in range(L)], plain_host_ms)
+                  for _ in range(3)]
+    if None in plain_runs:
+        raise SmokeFailure("the host could not queue the plain megakernel's "
+                           "layers ahead of the device")
+    plain_ms = sum(plain_runs) / len(plain_runs)
+    check(rel_err(hid_box[0], hid_p) < 1e-3,
+          "the plain megakernel timed layer by layer computes the 32-layer "
+          "result")
+    panel_bytes = L * 14 * d * d
+    aux_bytes = L * (4 * d * 4 * 2 + 7 * d * 4 * 2 + 6 * d * 4 + 4)
+    cache_bytes = L * 2 * H * D * (Sc + (n - 1) * 2)
+    io_bytes = 2 * d * 2 + L * 2 * H * D * 2 + 4
+    b_ms, b_by = bound(panel_bytes + aux_bytes + cache_bytes + io_bytes,
+                       2 * panel_bytes + L * 4 * H * D * (n + Sc),
+                       PEAK_FP32_CUDA_CORES)
+    print(f"megakernel step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
+          f"{b_by}); plain {plain_ms * 1e3:.1f} us (mean of "
+          + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
+    results["decoder_megakernel"] = dict(
+        max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, host_call_ms=wall,
+        grid_blocks=torch.cuda.get_device_properties(0).multi_processor_count,
+        rel_err_1_layer=max(errs[1]),
+        rel_err_32_layers=max(errs[L]))
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -465,9 +661,14 @@ def plain_kernels():
         la.fused_decode_attention, la.flash_mha = saved
 
 
-def main_path(torch, np, results, config=None, device="cuda"):
-    """The main path on ``device`` (a smaller ``config`` and the CPU
-    rehearse it without a card; the launch counts are then not checked)."""
+def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
+              recipe=None, label="main"):
+    """One path on ``device``: the model built with ``recipe`` (default the
+    bench recipe), transcription with ``decode_megakernel`` (None: the
+    pipeline's default, on with a card), the launch counts of that run,
+    the kernel-vs-plain checks and the timings.  A smaller ``config`` and
+    the CPU rehearse it without a card (the launch counts are then not
+    checked).  Returns (end-to-end numbers, launch counts)."""
     import torch.nn.functional as F
 
     from eddie_wang_hackathon2023_tpu_torch.functional import gelu
@@ -479,12 +680,15 @@ def main_path(torch, np, results, config=None, device="cuda"):
     from eddie_wang_hackathon2023_tpu_torch.models.whisper.pipeline import (
         DecodingOptions, WhisperPipeline)
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
     from eddie_wang_hackathon2023_tpu_torch.quantization.calibration import \
         calibrate_cross_kv_scales
 
     device = torch.device(device)
     on_card = device.type == "cuda"
+    recipe = recipe or BENCH_RECIPE
+    sqenc = "sqenc" in recipe
 
     def sync():
         if on_card:
@@ -501,7 +705,7 @@ def main_path(torch, np, results, config=None, device="cuda"):
     del sd
     # the recipe without ckv8 first: the static cross-KV scales are
     # calibrated on this utterance's encoder output
-    no_ckv = "woq8+lmq8+sqenc"
+    no_ckv = "+".join(p for p in recipe.split("+") if p != "ckv8")
     enc_q, dec_q, _ = quantize_states(enc_f, dec_f, ckv_f, no_ckv)
     del enc_f, dec_f
     enc, dec, _ = from_jax_state(enc_q, dec_q, ckv_f, config, recipe=no_ckv,
@@ -514,52 +718,68 @@ def main_path(torch, np, results, config=None, device="cuda"):
         xa = enc(mel_t)
     scales = calibrate_cross_kv_scales(ckv_f, [xa.float()], device=device)
     ckv = cross_kv_from_jax_state({**ckv_f, "kv_scale": scales}, config,
-                                  recipe=BENCH_RECIPE, device=device)
+                                  recipe=recipe, device=device)
     del ckv_f
     sync()
-    print(f"{BENCH_RECIPE} model built in {time.time() - t0:.1f} s")
+    print(f"[{label}] {recipe}, {config.n_audio_layer}+{config.n_text_layer}"
+          f" layers of width {config.n_text_state}, built in "
+          f"{time.time() - t0:.1f} s")
 
     tok_eot = 50257
     # EOT suppressed so every run decodes the full SAMPLE_LEN tokens (the
     # JAX bench gets the same effect from zero weights)
     opts = DecodingOptions(language="en", sample_len=SAMPLE_LEN,
                            suppress_tokens=f"-1,{tok_eot}")
-    pipe = WhisperPipeline(config, enc, dec, ckv, opts)
+    pipe = WhisperPipeline(config, enc, dec, ckv, opts,
+                           decode_megakernel=decode_megakernel)
+    blobs = pipe._megakernel_blobs()
+    mk_on = blobs is not None
+    print(f"[{label}] decode path: "
+          + ("the megakernel, one launch per step" if mk_on
+             else "layer by layer (scanned)"))
     pipe.transcribe(mel)                         # warm-up
     sync()
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    da.reset_launches()
-    fa.reset_launches()
+    for m in (da, fa, mk):
+        m.reset_launches()
     res = pipe.transcribe(mel)[0]
     sync()
-    counts = {**da.launches, **fa.launches}
+    counts = {**da.launches, **fa.launches, **mk.launches}
     peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
                 else float("nan"))
     steps = pipe.decode_steps
     n_layer = config.n_text_layer
-    print(f"main path: {len(res.tokens)} tokens, {steps} decode steps, "
+    print(f"[{label}] {len(res.tokens)} tokens, {steps} decode steps, "
           f"launches {counts}")
     check(steps == SAMPLE_LEN - 1 and len(res.tokens) == SAMPLE_LEN,
-          f"greedy transcription decoded {SAMPLE_LEN} tokens")
+          f"[{label}] greedy transcription decoded {SAMPLE_LEN} tokens")
     if on_card:
-        check(counts["decode_attention_int8"] == n_layer * steps
-              and counts["decode_attention_bf16"] == n_layer * steps
-              and counts["out_proj_gemv"] == 2 * n_layer * steps,
-              f"decode kernels launched 2 x {n_layer} per decode step "
-              f"(+ 2 x {n_layer} GEMV)")
-        check(counts["flash_attention"] == config.n_audio_layer,
-              f"flash kernel launched {config.n_audio_layer} times per "
-              "utterance")
+        if mk_on:
+            check(counts["decoder_megakernel"] == steps
+                  and counts["decode_attention_int8"] == 0
+                  and counts["decode_attention_bf16"] == 0
+                  and counts["out_proj_gemv"] == 0,
+                  f"[{label}] one megakernel launch per decode step, no "
+                  "decode-attention or GEMV launch in the decode loop")
+        else:
+            check(counts["decode_attention_int8"] == n_layer * steps
+                  and counts["decode_attention_bf16"] == n_layer * steps
+                  and counts["out_proj_gemv"] == 2 * n_layer * steps
+                  and counts["decoder_megakernel"] == 0,
+                  f"[{label}] decode kernels launched 2 x {n_layer} per "
+                  f"decode step (+ 2 x {n_layer} GEMV)")
+        entry = "flash_attention_f32" if sqenc else "flash_attention"
+        check(counts[entry] == config.n_audio_layer,
+              f"[{label}] flash kernel ({entry}) launched "
+              f"{config.n_audio_layer} times per utterance")
     check(all(0 <= t < config.n_vocab for t in res.tokens)
           and isinstance(res.text, str) and np.isfinite(res.avg_logprob),
-          "transcription tokens in range, finite log-probability")
-    for name in KERNELS:
-        results.setdefault(name, {})["launches"] = counts[name]
+          f"[{label}] transcription tokens in range, finite log-probability")
 
-    # teacher forcing: the kernel path and the plain path decode the same
-    # tokens from the same cross K/V; logits must agree
+    # teacher forcing: the kernel path and the plain scanned path decode
+    # the same tokens from the same cross K/V; logits must agree
     tokens = list(pipe.initial_tokens) + res.tokens
     n_check = 8
     with torch.inference_mode():
@@ -591,18 +811,19 @@ def main_path(torch, np, results, config=None, device="cuda"):
         e_xa = rel_err(xa_k, xa_p)
         rms_xa = float((xa_k.float() - xa_p.float()).norm()
                        / xa_p.float().norm())
-        print(f"encoder blocks, kernel vs plain on the same input: largest "
-              f"rms rel err {e_blk:.3e}; whole encoder: max rel err "
+        print(f"[{label}] encoder blocks, kernel vs plain on the same input: "
+              f"largest rms rel err {e_blk:.3e}; whole encoder: max rel err "
               f"{e_xa:.3e}, rms rel err {rms_xa:.3e}")
-        check(e_blk < 2e-2, "each encoder block, flash kernel vs plain "
-              "(rms rel 2e-2)")
+        check(e_blk < 2e-2, f"[{label}] each encoder block, flash kernel vs "
+              "plain (rms rel 2e-2)")
         check(bool(torch.isfinite(xa_k).all()) and rms_xa < 1e-1,
-              "encoder output finite, kernel path vs plain path (rms rel "
-              "1e-1)")
+              f"[{label}] encoder output finite, kernel path vs plain path "
+              "(rms rel 1e-1)")
         cross = ckv(xa_k)
 
         def run(plain):
             ctx = plain_kernels() if plain else contextlib.nullcontext()
+            kw = {} if plain else dict(megakernel_blobs=blobs)
             logits = []
             with ctx:
                 cache = dec.new_kv_cache(1)
@@ -613,25 +834,29 @@ def main_path(torch, np, results, config=None, device="cuda"):
                 for i in range(p, p + n_check):
                     lg, cache = dec(torch.tensor([[tokens[i]]],
                                                  device=device),
-                                    cache, cross, i, i + 1)
+                                    cache, cross, i, i + 1, **kw)
                     logits.append(lg[0, -1])
             return torch.stack(logits)
 
         lk, lp = run(False), run(True)
     e_lg = rel_err(lk, lp)
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    print(f"teacher-forced logits (prefill + {n_check} steps), kernel vs "
-          f"plain: rel err {e_lg:.3e}, argmax agreement {agree:.3f}")
-    check(bool(torch.isfinite(lk).all()), "decoder logits finite")
-    check(e_lg < 5e-2, "teacher-forced logits agree (rel 5e-2 of max |logit|)")
+    print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), "
+          f"kernel path vs plain scanned path: rel err {e_lg:.3e}, argmax "
+          f"agreement {agree:.3f}")
+    check(bool(torch.isfinite(lk).all()), f"[{label}] decoder logits finite")
+    check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
+          "max |logit|)")
 
     # where a decoder step's time goes: wall time of teacher-forced steps,
-    # their device time (CUDA events, block by block behind spins), and,
-    # where the profiler can trace the card, the device time of each kernel
+    # their device time (CUDA events behind spins: a scanned step is cut at
+    # its blocks, a megakernel step is one segment), and, where the
+    # profiler can trace the card, the device time of each kernel
     step_info = {}
     if on_card:
         p = len(pipe.initial_tokens)
         n_prof = 8
+        kw = dict(megakernel_blobs=blobs) if mk_on else {}
         with torch.inference_mode():
             cache = dec.new_kv_cache(1)
             _, cache = dec(torch.tensor([tokens[:p]], device=device), cache,
@@ -640,7 +865,7 @@ def main_path(torch, np, results, config=None, device="cuda"):
                     for i in range(p, p + n_prof)]
 
             def step(j):
-                dec(toks[j], cache, cross, p + j, p + j + 1)
+                dec(toks[j], cache, cross, p + j, p + j + 1, **kw)
 
             def steps():
                 for j in range(n_prof):
@@ -664,13 +889,13 @@ def main_path(torch, np, results, config=None, device="cuda"):
             device_idle_share=idle, lm_head_cast_ms_per_step=lm_cast_ms,
             kernel_ms_per_step=kern_ms, top_kernels_ms_per_step=top)
         if busy_ms is None:
-            print(f"decoder step (teacher-forced, no pipeline filters): "
-                  f"{step_ms:.3f} ms wall; device busy not measured (the "
-                  "host fell behind the timing spins)")
+            print(f"[{label}] decoder step (teacher-forced, no pipeline "
+                  f"filters): {step_ms:.3f} ms wall; device busy not "
+                  "measured (the host fell behind the timing spins)")
         else:
-            print(f"decoder step (teacher-forced, no pipeline filters): "
-                  f"{step_ms:.3f} ms wall, device busy {busy_ms:.3f} ms, "
-                  f"idle share {idle:.3f}")
+            print(f"[{label}] decoder step (teacher-forced, no pipeline "
+                  f"filters): {step_ms:.3f} ms wall, device busy "
+                  f"{busy_ms:.3f} ms, idle share {idle:.3f}")
         if top is None:
             print("  the profiler recorded no device time: per-kernel "
                   "breakdown not measured")
@@ -694,18 +919,58 @@ def main_path(torch, np, results, config=None, device="cuda"):
     t40 = best(pipe)
     pipe80 = WhisperPipeline(config, enc, dec, ckv, DecodingOptions(
         language="en", sample_len=2 * SAMPLE_LEN,
-        suppress_tokens=f"-1,{tok_eot}"))
+        suppress_tokens=f"-1,{tok_eot}"), decode_megakernel=decode_megakernel)
+    pipe80._mk_blobs = blobs          # the same weight image, packed once
     pipe80.transcribe(mel)
     t80 = best(pipe80)
     slope_ms = (t80 - t40) / SAMPLE_LEN * 1e3
-    print(f"end to end: {1 / t40:.4f} utt/s ({t40 * 1e3:.1f} ms per "
+    print(f"[{label}] end to end: {1 / t40:.4f} utt/s ({t40 * 1e3:.1f} ms per "
           f"utterance, {SAMPLE_LEN} tokens); decode slope {slope_ms:.3f} "
           f"ms/token (80-token call {t80 * 1e3:.1f} ms); peak memory "
           f"{peak_gib:.2f} GiB")
-    return dict(**step_info, utt_per_s=1 / t40, ms_per_utt=t40 * 1e3,
-                slope_ms_per_token=slope_ms, peak_gib=peak_gib,
-                logits_rel_err=e_lg, encoder_block_rms_rel_err=e_blk,
-                encoder_rel_err=e_xa, encoder_rms_rel_err=rms_xa)
+    e2e = dict(**step_info, recipe=recipe, megakernel=mk_on,
+               n_audio_layer=config.n_audio_layer,
+               n_text_layer=config.n_text_layer, utt_per_s=1 / t40,
+               ms_per_utt=t40 * 1e3, slope_ms_per_token=slope_ms,
+               peak_gib=peak_gib, logits_rel_err=e_lg,
+               logits_argmax_agreement=agree,
+               encoder_block_rms_rel_err=e_blk, encoder_rel_err=e_xa,
+               encoder_rms_rel_err=rms_xa)
+    return e2e, counts
+
+
+def paths(torch, np, results, config=None, device="cuda"):
+    """The main path (full depth, bench recipe, megakernel decode), then
+    the scanned path (decode_megakernel=False, recipe without sqenc, depth
+    cut to SCANNED_DEPTH layers to keep the run short).  Each kernel's
+    launches come from the path that drives it, and must be above 0 there
+    on the card."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
+        whisper_config
+    on_card = torch.device(device).type == "cuda"
+    config = config or whisper_config("large-v2", dtype="bfloat16")
+    # on the card the pipeline's default takes the megakernel; the CPU
+    # rehearsal asks for it (its plain version)
+    main_e2e, main_counts = main_path(
+        torch, np, config=config, device=device,
+        decode_megakernel=None if on_card else True, label="main")
+    cut = dataclasses.replace(
+        config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
+        n_text_layer=min(SCANNED_DEPTH, config.n_text_layer))
+    print(f"[scanned] the layer-by-layer path runs at depth "
+          f"{cut.n_audio_layer}+{cut.n_text_layer} (widths unchanged)")
+    scan_e2e, scan_counts = main_path(
+        torch, np, config=cut, device=device, decode_megakernel=False,
+        recipe=SCANNED_RECIPE, label="scanned")
+    counts = dict(main=main_counts, scanned=scan_counts)
+    for name in KERNELS:
+        n = counts[PATH_OF[name]][name]
+        results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
+        if on_card:
+            check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
+    return dict(main=main_e2e, scanned=scan_e2e)
 
 
 def main():
@@ -744,7 +1009,7 @@ def main():
         if "--kernels-only" in sys.argv[1:]:
             print(json.dumps(results))
             return 0
-        e2e = main_path(torch, np, results)
+        e2e = paths(torch, np, results)
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1

@@ -20,7 +20,9 @@
 //   * chunks past the valid length are neither read nor computed, and no
 //     column at or past S is read, so padding never reaches the sums;
 //   * for P*V each warp owns D/8 rows of V and its lanes read four
-//     consecutive columns each (coalesced along the seq-minor axis).
+//     consecutive columns each (coalesced along the seq-minor axis); the
+//     probabilities enter it rounded to bf16, the sum of the softmax
+//     denominator and the fresh column stay fp32, as in the TPU kernel.
 // The TPU kernel ran its epilogue GEMV inside the same kernel from a VMEM
 // panel.  A single block cannot read the 1.6 MB panel fast, so here it is a
 // second kernel spread over N: out[b, n] = (sum_k ctx[b, k] W[l, k, n]) *
@@ -146,12 +148,14 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
     const float m_loc = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
     const float m_new = fmaxf(m_run, block_reduce<true>(m_loc, red));
     // a masked column contributes nothing, even when the whole chunk is
-    // masked (exp(kNeg - kNeg) would be 1)
+    // masked (exp(kNeg - kNeg) would be 1).  The sum takes p in fp32; P*V
+    // takes p rounded to bf16, as the TPU kernel casts it to the
+    // activation dtype before that product (pallas_decode_attention.py:149)
     float p_loc = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float p = s[i] > 0.5f * kNeg ? __expf(s[i] - m_new) : 0.f;
-      p_s[4 * tid + i] = p;
+      p_s[4 * tid + i] = __bfloat162float(__float2bfloat16(p));
       p_loc += p;
     }
     const float alpha = __expf(m_run - m_new);

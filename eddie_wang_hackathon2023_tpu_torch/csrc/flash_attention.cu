@@ -1,5 +1,12 @@
-// Non-causal flash attention with a key-length mask, bf16 in and out,
-// fp32 online softmax: q, k, v [B, H, L, 64] -> o [B, H, Lq, 64].
+// Non-causal flash attention with a key-length mask and fp32 online
+// softmax: q, k, v [B, H, L, 64] -> o [B, H, Lq, 64], in two entries:
+//   * bf16 in and out (`flash_attention`), for the float recipes;
+//   * fp32 in and out (`flash_attention_f32`), for the SmoothQuant encoder,
+//     whose QKV projection emits fp32 q, k, v.  It computes at fp32
+//     accuracy on the tensor cores: each fp32 operand x is split into
+//     bf16 hi = bf16(x) and lo = bf16(x - hi), and every product is the sum
+//     of three bf16 products, lo*hi + hi*lo + hi*hi (the dropped lo*lo is
+//     below 2^-16 of the product), for Q*K^T and for P*V alike.
 //
 // Replaces the TPU flash-attention kernel reached from
 // eddie_wang_hackathon2023_tpu/ops/flash_attention.py:54 `flash_mha`
@@ -10,15 +17,17 @@
 // with the same algorithm.
 //
 // Bound: operations (4 * Lq * valid * D flops per head, against about
-// 4 * L * D * 2 bytes).  The [Lq, Lk] score matrix never reaches device
-// memory.  Design (simple first; wgmma and TMA are later work):
+// 4 * L * D * 2 bytes in bf16; three times the products in fp32).  The
+// [Lq, Lk] score matrix never reaches device memory.  Design (simple first;
+// wgmma and TMA are later work):
 //   * one 128-thread block per 64 query rows of one (batch, head); each of
 //     its 4 warps owns 16 rows and keeps its Q fragments in registers;
 //   * K and V tiles of 64 keys go through shared memory as they lie in
-//     memory, [key][d], rows padded by 8 elements so the fragment loads are
-//     free of bank conflicts; the P*V operand comes from V through
-//     ldmatrix.trans; two stages, filled with cp.async, so the next tile
-//     loads while this one is computed;
+//     memory, [key][d], rows padded so the fragment loads are free of bank
+//     conflicts; in bf16 the P*V operand comes from V through
+//     ldmatrix.trans, in fp32 from four scalar loads that are split on the
+//     way into registers; two stages, filled with cp.async, so the next
+//     tile loads while this one is computed;
 //   * both products are mma.sync m16n8k16 bf16 -> fp32; the probabilities
 //     stay in registers and become the A operand of P*V;
 //   * tiles wholly past `valid` are skipped, columns past it are masked.
@@ -29,18 +38,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kD = 64;
 constexpr int kBM = 64;                // query rows per block
 constexpr int kBN = 64;                // keys per tile
 constexpr int kThreads = 128;
-constexpr int kLd = kD + 8;            // padded row of the K and V tiles
 constexpr float kNeg = -1e30f;
+
+// padded row of the K and V tiles, in elements: 8 bf16 (16 bytes) keeps
+// ldmatrix conflict-free; 4 floats puts the 4 key rows a warp's P*V loads
+// touch on distinct banks
+template <typename T>
+__host__ __device__ constexpr int ld_of() {
+  return std::is_same<T, float>::value ? kD + 4 : kD + 8;
+}
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * 2 * kBN * ld_of<T>() * (int)sizeof(T);  // 2 stages x (K, V)
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi_a, b - hi_b)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -50,6 +82,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b at fp32 accuracy from split operands (small terms first)
+__device__ __forceinline__ void mma_split(float* c, const uint32_t* a_hi,
+                                          const uint32_t* a_lo, uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0,
+                                          uint32_t bl1) {
+  mma_bf16(c, a_lo, bh0, bh1);
+  mma_bf16(c, a_hi, bl0, bl1);
+  mma_bf16(c, a_hi, bh0, bh1);
 }
 
 // Two 8x8 b16 matrices per n-tile pair, transposed on the way in: the
@@ -76,34 +118,51 @@ struct Strides {
   long long b, h, l;                   // in elements; the last dim is 1
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
-                       int valid, Strides sq, Strides sk, Strides sv,
-                       Strides so, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 k_buf[2][kBN * kLd];  // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 v_buf[2][kBN * kLd];
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int H,
+                       int Lq, int Lk, int valid, Strides sq, Strides sk,
+                       Strides sv, Strides so, float scale_log2) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kLd = ld_of<T>();
+  constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const k_buf = reinterpret_cast<T*>(smem_raw);        // [2][kBN * kLd]
+  T* const v_buf = k_buf + 2 * kBN * kLd;                 // [key][d]
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * kBM + warp * 16 + g, r1 = r0 + 8;
 
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
 
-  // Q fragments (A operand, row-major 16x16 per k-step of 16 dims)
-  uint32_t qf[kD / 16][4];
+  // Q fragments (A operand, row-major 16x16 per k-step of 16 dims); in
+  // fp32 as hi and lo halves
+  uint32_t qf[kD / 16][4], ql[kD / 16][4];
 #pragma unroll
   for (int ks = 0; ks < kD / 16; ++ks) {
     const int c = ks * 16 + t * 2;
-    qf[ks][0] = r0 < Lq ? *reinterpret_cast<const uint32_t*>(qb + r0 * sq.l + c) : 0u;
-    qf[ks][1] = r1 < Lq ? *reinterpret_cast<const uint32_t*>(qb + r1 * sq.l + c) : 0u;
-    qf[ks][2] = r0 < Lq ? *reinterpret_cast<const uint32_t*>(qb + r0 * sq.l + c + 8) : 0u;
-    qf[ks][3] = r1 < Lq ? *reinterpret_cast<const uint32_t*>(qb + r1 * sq.l + c + 8) : 0u;
+    const int rows[4] = {r0, r1, r0, r1};
+    const int cols[4] = {c, c, c + 8, c + 8};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in = rows[i] < Lq;
+      if constexpr (kF32) {
+        const float2 x = in ? *reinterpret_cast<const float2*>(
+                                  qb + rows[i] * sq.l + cols[i])
+                            : make_float2(0.f, 0.f);
+        split_bf16(x.x, x.y, qf[ks][i], ql[ks][i]);
+      } else {
+        qf[ks][i] = in ? *reinterpret_cast<const uint32_t*>(
+                             qb + rows[i] * sq.l + cols[i])
+                       : 0u;
+        ql[ks][i] = 0u;
+      }
+    }
   }
 
   float acc[kD / 8][4];
@@ -115,12 +174,14 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // stage `st` <- keys [kt * kBN, kt * kBN + kBN); rows past Lk are zeros
   auto load_tile = [&](int st, int kt) {
     const int n0 = kt * kBN;
-    for (int i = tid; i < kBN * kD / 8; i += kThreads) {
-      const int row = i / (kD / 8), c8 = (i % (kD / 8)) * 8;
+    for (int i = tid; i < kBN * kD / kVec; i += kThreads) {
+      const int row = i / (kD / kVec), c = (i % (kD / kVec)) * kVec;
       const bool in = n0 + row < Lk;
       const int r = in ? n0 + row : 0;
-      cp_async16(&k_buf[st][row * kLd + c8], kb + r * sk.l + c8, in ? 16 : 0);
-      cp_async16(&v_buf[st][row * kLd + c8], vb + r * sv.l + c8, in ? 16 : 0);
+      cp_async16(&k_buf[st * kBN * kLd + row * kLd + c], kb + r * sk.l + c,
+                 in ? 16 : 0);
+      cp_async16(&v_buf[st * kBN * kLd + row * kLd + c], vb + r * sv.l + c,
+                 in ? 16 : 0);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -129,8 +190,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile(0, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int n0 = kt * kBN;
-    const __nv_bfloat16* k_s = k_buf[kt & 1];
-    const __nv_bfloat16* v_s = v_buf[kt & 1];
+    const T* k_s = k_buf + (kt & 1) * kBN * kLd;
+    const T* v_s = v_buf + (kt & 1) * kBN * kLd;
     if (kt + 1 < n_tiles) {
       // the other stage was consumed before the barrier that ended the
       // previous iteration
@@ -146,12 +207,23 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (nt * 8 + g) * kLd + t * 2;
+      const T* kr = k_s + (nt * 8 + g) * kLd + t * 2;
 #pragma unroll
       for (int ks = 0; ks < kD / 16; ++ks) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
-        mma_bf16(s[nt], qf[ks], b0, b1);
+        if constexpr (kF32) {
+          const float2 x0 = *reinterpret_cast<const float2*>(kr + ks * 16);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(kr + ks * 16 + 8);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_bf16(x0.x, x0.y, bh0, bl0);
+          split_bf16(x1.x, x1.y, bh1, bl1);
+          mma_split(s[nt], qf[ks], ql[ks], bh0, bh1, bl0, bl1);
+        } else {
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
+          const uint32_t b1 =
+              *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
+          mma_bf16(s[nt], qf[ks], b0, b1);
+        }
       }
     }
 
@@ -200,21 +272,40 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P V: the S accumulators of two key n-tiles form one A fragment
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // lanes 0-15 address keys kk*16 + 0..15 at d-tile dt, lanes 16-31
-      // the same keys at d-tile dt + 1
-      const __nv_bfloat16* vrow =
-          v_s + (kk * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+      if constexpr (kF32) {
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        // B fragment of d-tile dt: V[key][dt * 8 + g] at keys
+        // kk * 16 + 2t, +1 (b0) and +8, +9 (b1)
+        const float* vk = v_s + (kk * 16 + t * 2) * kLd + g;
 #pragma unroll
-      for (int dt = 0; dt < kD / 8; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vrow + dt * 8);
-        mma_bf16(acc[dt], pa, vf[0], vf[1]);
-        mma_bf16(acc[dt + 1], pa, vf[2], vf[3]);
+        for (int dt = 0; dt < kD / 8; ++dt) {
+          const float* vc = vk + dt * 8;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_bf16(vc[0], vc[kLd], bh0, bl0);
+          split_bf16(vc[8 * kLd], vc[9 * kLd], bh1, bl1);
+          mma_split(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      } else {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        // lanes 0-15 address keys kk*16 + 0..15 at d-tile dt, lanes 16-31
+        // the same keys at d-tile dt + 1
+        const __nv_bfloat16* vrow =
+            v_s + (kk * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+#pragma unroll
+        for (int dt = 0; dt < kD / 8; dt += 2) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vrow + dt * 8);
+          mma_bf16(acc[dt], pa, vf[0], vf[1]);
+          mma_bf16(acc[dt + 1], pa, vf[2], vf[3]);
+        }
       }
     }
     __syncthreads();                   // this stage is consumed
@@ -227,17 +318,50 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  T* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int dt = 0; dt < kD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
-    if (r0 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * so.l + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r1 < Lq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * so.l + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    if constexpr (kF32) {
+      if (r0 < Lq)
+        *reinterpret_cast<float2*>(ob + r0 * so.l + c) =
+            make_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<float2*>(ob + r1 * so.l + c) =
+            make_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    } else {
+      if (r0 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * so.l + c) =
+            pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+      if (r1 < Lq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * so.l + c) =
+            pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    }
   }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Lq, int Lk, int D, int valid, const long long* strides,
+           float scale, void* stream) {
+  if (D != kD || valid < 1 || valid > Lk) return (int)cudaErrorInvalidValue;
+  Strides s[4];
+  for (int i = 0; i < 4; ++i) s[i] = {strides[3 * i], strides[3 * i + 1],
+                                      strides[3 * i + 2]};
+  constexpr int smem = smem_bytes<T>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Lq + kBM - 1) / kBM, B * H);
+  flash_attention_kernel<T><<<grid, kThreads, smem,
+                              reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, valid, s[0],
+      s[1], s[2], s[3], scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -249,19 +373,16 @@ extern "C" {
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int Lq, int Lk, int D, int valid,
                     const long long* strides, float scale, void* stream) {
-  if (D != kD || valid < 1 || valid > Lk) return (int)cudaErrorInvalidValue;
-  Strides s[4];
-  for (int i = 0; i < 4; ++i) s[i] = {strides[3 * i], strides[3 * i + 1],
-                                      strides[3 * i + 2]};
-  dim3 grid((Lq + kBM - 1) / kBM, B * H);
-  flash_attention_kernel<<<grid, kThreads, 0,
-                           reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Lq, Lk, valid, s[0], s[1], s[2], s[3],
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, D, valid, strides,
+                               scale, stream);
+}
+
+// The same with fp32 q, k, v and output, at fp32 accuracy.
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Lq, int Lk, int D, int valid,
+                        const long long* strides, float scale, void* stream) {
+  return launch<float>(q, k, v, o, B, H, Lq, Lk, D, valid, strides, scale,
+                       stream);
 }
 
 }  // extern "C"

@@ -79,9 +79,12 @@ def linear_classes(quant_mode: QuantMode, dtype):
         return (WeightOnlyQuantQKVLinear, WeightOnlyQuantLinear,
                 WeightOnlyQuantRowLinear)
     if quant_mode.has_act_and_weight_quant():
-        def sq(cls):
-            return lambda *a, **kw: cls(*a, **kw, quant_mode=quant_mode)
-        return (sq(SmoothQuantQKVLinear), sq(SmoothQuantLinear),
+        def sq(cls, out_dtype=dtype):
+            return lambda *a, **kw: cls(*a, **{**kw, "dtype": out_dtype},
+                                        quant_mode=quant_mode)
+        # the QKV projection is built with dtype None (fp32 q/k/v and bias),
+        # as the JAX package's surgery builds it (surgery.py:152-155)
+        return (sq(SmoothQuantQKVLinear, None), sq(SmoothQuantLinear),
                 sq(SmoothQuantRowLinear))
     if quant_mode.is_weight_only() or quant_mode.has_any_quant():
         raise NotImplementedError(f"quant mode {quant_mode!r} is not ported")

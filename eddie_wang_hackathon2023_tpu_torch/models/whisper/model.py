@@ -5,9 +5,10 @@ The JAX package scans one block over weights stacked [n_layer, ...]; the
 port keeps one module per layer and loops over them in Python.  Layouts at
 the public functions are the JAX package's: the decoder self cache and the
 cross cache are stacked SEQ-MINOR, [n_layer, B, 2, H, head_dim, S].
-The decode path is the JAX package's scanned path (``model.py:394-447``):
-single-token steps with the fresh K/V of every layer stored after the
-layer loop.  The TPU megakernel path is not ported yet.
+Single-token decode steps take one of the JAX package's two paths: the
+scanned path (``model.py:394-447``), with the fresh K/V of every layer
+stored after the layer loop, or, given the packed weight image at batch 1,
+the whole-step megakernel (``model.py:359-393``, ``ops/decoder_layer.py``).
 """
 from __future__ import annotations
 
@@ -200,20 +201,80 @@ class WhisperDecoder(nn.Module):
              max_len or c.n_text_ctx), dtype=self.dtype,
             device=self.positional_embedding.device)
 
+    def megakernel_eligible(self, device=None) -> bool:
+        """Structure check for the whole-step megakernel
+        (``ops/decoder_layer.py``): lane-divisible widths and every block
+        int8 weight-only per output channel.  On a CUDA ``device`` (default:
+        the weights' device) also the types the kernel takes: bf16
+        activations and self cache (the cross cache, made in the same dtype
+        or int8, follows) and heads of 64.  (The JAX package also takes
+        plain float blocks; float panels are not ported.)"""
+        from ...ops.decoder_layer import HEAD_DIM, woq_block_eligible
+        c = self.config
+        b = self.blocks[0]
+        if device is None:
+            device = self.positional_embedding.device
+        if torch.device(device).type == "cuda" and (
+                self.dtype != torch.bfloat16 or c.head_dim != HEAD_DIM):
+            return False
+        if c.n_text_state % 128 or 128 % c.head_dim:
+            return False
+        if b.mlp1.out_features % c.n_text_state:
+            return False
+        mods = [b.attn.dense, b.cross_attn.q_linear, b.cross_attn.dense,
+                b.mlp1, b.mlp2]
+        return woq_block_eligible(b.attn.qkv, mods, c.n_text_state)
+
+    def megakernel_blobs(self):
+        """The megakernel's weight image, packed from this decoder's own
+        blocks (stacked into the JAX state layout first) on their device:
+        a second copy of the decoder's int8 weights."""
+        from ...ops.decoder_layer import pack_decoder_blobs
+        c = self.config
+        per_layer = [blk.state_dict() for blk in self.blocks]
+        state = {k: torch.stack([sd[k] for sd in per_layer])
+                 for k in per_layer[0]}
+        return pack_decoder_blobs(
+            state, n_layer=c.n_text_layer, hidden=c.n_text_state,
+            n_head=c.n_text_head, head_dim=c.head_dim,
+            ffn=self.blocks[0].mlp1.out_features, with_cross=True)
+
     def forward(self, tokens: torch.Tensor, kv_cache: torch.Tensor,
-                cross_kv, write_index: int, sequence_length
+                cross_kv, write_index: int, sequence_length,
+                megakernel_blobs=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, T]; kv_cache [L,B,2,H,D,S] (updated in place);
         cross_kv [L,B,2,H,D,S_audio] or (int8 cache, scales [L]);
         write_index: the cache column of tokens[:, 0]; sequence_length: the
         valid length including these tokens (int or [B] tensor; a
         single-token step makes an int a [B] tensor once for all layers).
+        ``megakernel_blobs`` (:meth:`megakernel_blobs`): a single-token
+        step at batch 1 runs every layer in one megakernel launch, as the
+        JAX package's gate (``model.py:359-393``) does.
         Returns (logits [B, T, n_vocab] fp32, kv_cache)."""
         c = self.config
         t = tokens.shape[1]
         x = self.token_embedding(tokens)
         pos = self.positional_embedding[write_index:write_index + t]
         x = x + pos.to(x.dtype)
+        if (megakernel_blobs is not None and t == 1 and tokens.shape[0] == 1
+                and self.megakernel_eligible(x.device)):
+            from ...ops.decoder_layer import fused_decoder_stack
+            cross, cscales = (cross_kv if isinstance(cross_kv, tuple)
+                              else (cross_kv, None))
+            # a fill, not a host-to-device copy, which would wait for the
+            # stream
+            seq1 = (torch.full((1,), sequence_length, dtype=torch.int32,
+                               device=x.device)
+                    if isinstance(sequence_length, int)
+                    else sequence_length.reshape(-1)[:1])
+            hid, fresh = fused_decoder_stack(
+                x[:, 0, :], megakernel_blobs, kv_cache, seq1,
+                self.blocks[0].attn.scale, cross_cache=cross,
+                cross_scale=cscales, head_dim=c.head_dim)
+            # [L, 2, H, D] -> [L, 1, 2, H, D, 1]
+            write_fresh_kv(kv_cache, fresh[:, None, ..., None], write_index)
+            return self._logits(self.ln(hid[:, None, :])), kv_cache
         if t == 1:
             if isinstance(sequence_length, int):
                 sequence_length = torch.full((tokens.shape[0],),

@@ -6,9 +6,11 @@ Port of the greedy path of the JAX package's ``models/whisper/pipeline.py``
 ``_apply_filters``, the greedy branch of ``_generate_impl``,
 ``post_process``, ``transcribe``).  The JAX package runs the loop as one
 ``lax.while_loop``; here it is a Python loop over single-token decoder
-steps.  Unlike the JAX loop it does not run the decoder once more after
-the last token is chosen (those logits were never read), so an utterance
-of n new tokens takes n - 1 decode steps.  Beam search, best_of,
+steps (at batch 1 on the card, each one megakernel launch for all layers,
+as the JAX package runs it on its accelerator).  Unlike the JAX loop it does
+not run the decoder once more after the last token is chosen (those logits
+were never read), so an utterance of n new tokens takes n - 1 decode
+steps.  Beam search, best_of,
 sampling, language detection and long-form transcription are not ported
 yet: the language must be given.
 """
@@ -67,7 +69,16 @@ class WhisperPipeline:
 
     def __init__(self, config: WhisperConfig, encoder: WhisperEncoder,
                  decoder: WhisperDecoder, cross_kv: CrossAttnKV,
-                 options: DecodingOptions = DecodingOptions()):
+                 options: DecodingOptions = DecodingOptions(),
+                 decode_megakernel: Optional[bool] = None):
+        """``decode_megakernel``: decode steps at batch 1 run every decoder
+        layer in one megakernel launch (``ops/decoder_layer.py``) when the
+        decoder is eligible (on a card that includes a bf16 model; any
+        other takes the layer-by-layer path).  None (the default) means on
+        when the
+        decoder's weights are on a CUDA card, off on the CPU (the JAX
+        package's default is on its accelerator only); False keeps the
+        layer-by-layer path."""
         if options.language is None:
             raise NotImplementedError(
                 "language detection is not ported yet: give a language")
@@ -80,6 +91,10 @@ class WhisperPipeline:
         self.cross_kv = cross_kv
         self.options = options
         self.device = decoder.positional_embedding.device
+        self.decode_megakernel = (self.device.type == "cuda"
+                                  if decode_megakernel is None
+                                  else decode_megakernel)
+        self._mk_blobs = None
         self.tokenizer = get_tokenizer(config.n_vocab >= 51865,
                                        language=options.language,
                                        task=options.task)
@@ -186,6 +201,17 @@ class WhisperPipeline:
         force_ts = (ts_logprob > max_text)[:, None]
         return logits.masked_fill(force_ts & (col < ts_begin), NEG_INF)
 
+    def _megakernel_blobs(self, batch: int = 1):
+        """The megakernel's weight image, packed once per pipeline; None
+        when the megakernel is off, the batch is above 1 or the decoder is
+        not eligible (the JAX package's ``_megakernel_blobs``)."""
+        if (not self.decode_megakernel or batch != 1
+                or not self.decoder.megakernel_eligible(self.device)):
+            return None
+        if self._mk_blobs is None:
+            self._mk_blobs = self.decoder.megakernel_blobs()
+        return self._mk_blobs
+
     @torch.inference_mode()
     def _generate(self, init_tokens: torch.Tensor, cross_kv, prompt_len: int,
                   max_new: int):
@@ -198,6 +224,7 @@ class WhisperPipeline:
         ts_begin = tok.timestamp_begin
         dev = self.device
         cache = self.decoder.new_kv_cache(b)
+        blobs = self._megakernel_blobs(b)
         logits_all, cache = self.decoder(init_tokens, cache, cross_kv, 0,
                                          prompt_len)
         probs_at_sot = torch.softmax(logits_all[:, self.sot_index].float(),
@@ -233,7 +260,8 @@ class WhisperPipeline:
             if cur >= max_total or bool(finished.all()):
                 break
             step_logits, cache = self.decoder(next_tok[:, None], cache,
-                                              cross_kv, cur - 1, cur)
+                                              cross_kv, cur - 1, cur,
+                                              megakernel_blobs=blobs)
             logits = step_logits[:, -1].float()
             steps += 1
         self.decode_steps = steps

@@ -33,6 +33,12 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
                             _P],
+        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                _F, _P],
+    },
+    "decoder_layer": {
+        # (const MegaArgs*, stream)
+        "decoder_megakernel": [_P, _P],
     },
 }
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``ops/flash_attention.py`` ``flash_mha`` in the JAX package.
 On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
-(non-causal, head dim 64, bf16); on a CPU tensor it runs the plain version,
+(non-causal, head dim 64; bf16 operands, or fp32 operands at fp32
+accuracy, as the SmoothQuant encoder gives them); on a CPU tensor it runs
+the plain version,
 ``multihead_attention`` with a length mask, as the JAX package does off the
 TPU.  ``kv_valid_len`` is the pad-once contract: the caller carries the
 sequence padded to the kernel's block multiple and only the first N keys
@@ -18,12 +20,14 @@ import torch
 from . import _build
 from .attention import length_mask_bias, multihead_attention
 
-# launches of the CUDA kernel, counted where the wrapper launches it
-launches = {"flash_attention": 0}
+# launches of the CUDA kernel, counted where the wrapper launches it, per
+# entry (bf16 operands, fp32 operands)
+launches = {"flash_attention": 0, "flash_attention_f32": 0}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def plain_flash_mha(q, k, v, causal: bool = False,
@@ -68,16 +72,22 @@ def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
     if D != 64:
         raise NotImplementedError(f"flash kernel is built for head dim 64, "
                                   f"got {D}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash kernel takes bf16 q, k, v")
+    if not (q.dtype == k.dtype == v.dtype
+            and q.dtype in (torch.bfloat16, torch.float32)):
+        raise TypeError("flash kernel takes bf16 or fp32 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    f32 = q.dtype == torch.float32
     valid = Lk if kv_valid_len is None else min(int(kv_valid_len), Lk)
     if out is None:
-        out = torch.empty((B, H, Lq, D), dtype=torch.bfloat16, device=q.device)
+        out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
+    if out.dtype != q.dtype:
+        raise TypeError(f"flash output must be {q.dtype}")
+    per16 = 16 // q.element_size()     # elements in 16 bytes
     strides = []
     for t in (q, k, v, out):
         if t.stride(3) != 1:
             raise ValueError("flash kernel needs a contiguous last dim")
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3]):
             raise ValueError("flash kernel needs 16-byte aligned rows")
         strides += list(t.stride()[:3])
     strides_arr = (ctypes.c_longlong * 12)(*strides)
@@ -85,11 +95,12 @@ def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
         scale = 1.0 / (D ** 0.5)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     lib = _build.load("flash_attention")
-    _build.check(lib.flash_attention(
+    entry = lib.flash_attention_f32 if f32 else lib.flash_attention
+    _build.check(entry(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         B, H, Lq, Lk, D, valid,
         ctypes.cast(strides_arr, ctypes.c_void_p), float(scale), stream),
         "flash_attention")
-    launches["flash_attention"] += 1
+    launches["flash_attention_f32" if f32 else "flash_attention"] += 1
     return out

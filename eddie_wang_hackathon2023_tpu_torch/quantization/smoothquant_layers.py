@@ -85,10 +85,10 @@ class SmoothQuantLayerNorm(nn.Module):
 class SmoothQuantQKVLinear(nn.Module):
     """Fused head-major SmoothQuant QKV projection: qweight [in, 3*H*hd].
 
-    ``dtype`` sets the dtype of q, k, v.  The JAX package builds this layer
-    with dtype None (fp32 out); the port's Whisper encoder passes the model
-    dtype, so on the card the flash kernel gets bf16 operands without an
-    extra cast pass.  With an fp32 model the two agree exactly."""
+    ``dtype`` sets the dtype of q, k, v and of the bias (fp32 when None).
+    Both packages build it with dtype None, so the SmoothQuant encoder hands
+    fp32 q, k, v to flash attention (the kernel's fp32-operand entry on the
+    card)."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  bias: bool = True, dtype=None,

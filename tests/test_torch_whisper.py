@@ -210,11 +210,13 @@ def test_transcribe_token_exact(recipe, without_timestamps, batch):
 
 
 def test_chip_smoke_main_path_on_cpu():
-    """``chip_smoke.py``'s main path, rehearsed on the CPU at a tiny size
-    with head dim 64 as on the card: model build with the bench recipe,
-    transcription, the teacher-forced kernel-vs-plain comparison (both
-    plain here, so they agree exactly) and the end-to-end timing.  No
-    kernel is launched from CPU tensors."""
+    """``chip_smoke.py``'s two paths, rehearsed on the CPU at a tiny size
+    with head dim 64 as on the card: model builds (the bench recipe with
+    the megakernel decode; the recipe without sqenc on the scanned path),
+    transcription, the teacher-forced comparison with the plain scanned
+    path (exact on the scanned path; the megakernel's plain version sums
+    in another order) and the end-to-end timing.  No kernel is launched
+    from CPU tensors."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
@@ -225,9 +227,12 @@ def test_chip_smoke_main_path_on_cpu():
                            "n_text_state": 128, "n_text_head": 2,
                            "n_text_ctx": 96})
     results = {}
-    e2e = smoke.main_path(torch, np, results, config=cfg, device="cpu")
+    e2e = smoke.paths(torch, np, results, config=cfg, device="cpu")
     assert {k: v["launches"] for k, v in results.items()} == {
         k: 0 for k in smoke.KERNELS}
-    assert e2e["logits_rel_err"] == 0.0
-    assert e2e["encoder_block_rms_rel_err"] == 0.0
-    assert e2e["utt_per_s"] > 0
+    assert e2e["main"]["megakernel"] and not e2e["scanned"]["megakernel"]
+    assert e2e["main"]["logits_rel_err"] < 1e-5
+    assert e2e["scanned"]["logits_rel_err"] == 0.0
+    for path in ("main", "scanned"):
+        assert e2e[path]["encoder_block_rms_rel_err"] == 0.0
+        assert e2e[path]["utt_per_s"] > 0

@@ -16,12 +16,18 @@
    40 tokens, each decode step one launch of the megakernel.  Then the
    layer-by-layer (scanned) path, ``decode_megakernel=False``, at the same
    widths with the depth cut to 8+8 layers and the recipe without
-   ``sqenc`` (its encoder takes the bf16 flash entry).  For each path the
-   launch counters are zeroed just before it and read just after: every
-   kernel of the path must have run.  The kernel path and the plain
-   scanned path then decode the same tokens (teacher forcing) and their
-   logits must agree.  Prints utt/s, the decode slope, the decoder step's
-   wall and device-busy time and peak memory.
+   ``sqenc`` (its encoder takes the bf16 flash entry).  Then the beam
+   path: beam search with 5 beams at full width and depth, recipe
+   ``woq8+ckv8+lmq8``, each decode step through the beam entry of the
+   decode kernel (self-attention through the cache-indirection table) and
+   kernel 1 at batch 5 (cross-attention).  For each path the launch
+   counters are zeroed just before it and read just after: every kernel
+   of the path must have run.  The decoder calls of one transcription
+   (tokens, and with beams the indirection tables that encode the chosen
+   parents) are replayed through the kernel path and through the plain
+   scanned path (teacher forcing), and their logits must agree.  Prints
+   utt/s, the decode slope (not for beams), the decoder step's wall and
+   device-busy time and peak memory.
 4. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
@@ -69,16 +75,31 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decoder_layer.py:306"),
+    "beam_decode_attention": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:213"),
+    # kernel 1's cross-attention call at batch 5 on the beam path, its own
+    # row: it reads the repeated int8 cross cache, 5 rows of 1500
+    "decode_attention_int8_b5": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
-# megakernel decode) or the layer-by-layer path (decode_megakernel=False,
-# the recipe without sqenc, so the encoder takes the bf16 flash entry)
+# megakernel decode), the layer-by-layer path (decode_megakernel=False,
+# the recipe without sqenc, so the encoder takes the bf16 flash entry) or
+# the beam path (beam 5, the recipe without sqenc)
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
-           "flash_attention": "scanned"}
+           "flash_attention": "scanned", "beam_decode_attention": "beam",
+           "decode_attention_int8_b5": "beam"}
+# the launch counter of a row named otherwise
+COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
 SCANNED_DEPTH = 8        # encoder and decoder layers of the scanned path
+BEAM_SIZE = 5
 
 
 class SmokeFailure(Exception):
@@ -478,6 +499,7 @@ def kernel_phases(torch, results):
         bf16_entry_rel_err=e16)
     del qkv32, q32, k32, v32, kc, vc, qc
     megakernel_phase(torch, results, gen)
+    beam_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -593,6 +615,164 @@ def megakernel_phase(torch, results, gen):
         rel_err_32_layers=max(errs[L]))
 
 
+def beam_phase(torch, results, gen):
+    """The beam entry of the decode kernel at the beam path's shapes (beam
+    5, 20 heads of 64, bf16 self cache of 448 at sequence 44, a table whose
+    rows change from position to position) against its plain version, then
+    an int8 cache and two groups; and kernel 1's cross call at batch 5 (the
+    repeated int8 cross cache of 1500), as the beam path makes it."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    L, bw, H, D, S, n = 32, BEAM_SIZE, 20, 64, 448, 44
+    scale = D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def table(groups):
+        return torch.randint(0, bw, (groups, bw, S), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def gathered(c, ind):
+        """One layer's cache [B, 2, H, D, S] read through the table: the
+        reordered copy that the kernel never builds"""
+        g = ind.shape[0]
+        idx = ind.long() + torch.arange(g, device=dev)[:, None, None] * bw
+        return torch.gather(c, 0, idx.reshape(g * bw, 1, 1, 1, S).expand(
+            c.shape))
+
+    q = randn(bw, H, 1, D)
+    cache = randn(L, bw, 2, H, D, S)           # 367 MB, past the 50 MB L2
+    fresh = (randn(bw, H, D, 1), randn(bw, H, D, 1))
+    ind = table(1)
+    seq = torch.full((bw,), n, dtype=torch.int32, device=dev)
+
+    def beam_call(c, layer, q_, seq_, fresh_, ind_, impl, **kw):
+        return impl(c, layer, q_, seq_, scale, fresh_kv=fresh_,
+                    beam_indirection=ind_, **kw)
+
+    cases = [("bf16, 1 group, seq 44", cache, q, seq, fresh, ind, {})]
+    c8 = torch.randint(-127, 128, (1, bw, 2, H, D, S), generator=gen,
+                       device=dev, dtype=torch.int8)
+    f8 = tuple(torch.randint(-127, 128, (bw, H, D, 1), generator=gen,
+                             device=dev, dtype=torch.int8) for _ in range(2))
+    cases.append(("int8, 1 group, seq 44", c8, q, seq, f8, ind,
+                  dict(kv_quant_orig_scale=torch.tensor(1 / 40.0,
+                                                        device=dev))))
+    q2 = randn(2 * bw, H, 1, D)
+    c2 = randn(1, 2 * bw, 2, H, D, S)
+    f2 = (randn(2 * bw, H, D, 1), randn(2 * bw, H, D, 1))
+    seq2 = torch.tensor([n, 300], dtype=torch.int32,
+                        device=dev).repeat_interleave(bw)
+    cases.append(("bf16, 2 groups, seq 44 and 300", c2, q2, seq2, f2,
+                  table(2), {}))
+    errs = {}
+    for what, c, q_, seq_, f_, ind_, kw in cases:
+        layer = min(3, c.shape[0] - 1)
+        out = beam_call(c, layer, q_, seq_, f_, ind_,
+                        da.fused_decode_attention, **kw)
+        ref = beam_call(c, layer, q_, seq_, f_, ind_,
+                        da.plain_beam_decode_attention, **kw)
+        f32 = (lambda t: t) if c.dtype == torch.int8 else (
+            lambda t: t.float())
+        ref32 = beam_call(f32(c), layer, q_.float(), seq_,
+                          tuple(f32(t) for t in f_), ind_,
+                          da.plain_beam_decode_attention, **kw)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        errs[what] = (e16, e32, float((out.float() - ref32).abs().max()))
+        print(f"beam decode ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(e16 < 2e-2 and e32 < 1e-2,
+              f"beam decode attention ({what}, beam {bw}, S={S}) matches "
+              "plain (rel 2e-2 bf16, 1e-2 fp32)")
+    del c8, f8, q2, c2, f2
+    # timed at the path's shapes, rotating over the 32 layers; the plain
+    # version and the gather launch some 40 kernels a call, so 10 calls of
+    # them fit in the launch queue behind the spin
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        cache, i % L, q, seq, scale, fresh_kv=fresh, beam_indirection=ind))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_beam_decode_attention(
+        cache, i % L, q, seq, scale, fresh_kv=fresh, beam_indirection=ind),
+        iters=10)
+
+    # library: SDPA over K/V gathered through the table beforehand, the
+    # fresh column appended; the gather (one layer) is timed on its own
+    def gather_kv(layer):
+        kv = gathered(cache[layer], ind)[..., :n - 1]     # [bw,2,H,D,n-1]
+        return tuple(torch.cat([kv[:, j], fresh[j]], dim=-1).transpose(
+            -1, -2).contiguous() for j in (0, 1))          # [bw,H,n,D]
+
+    gather_ms, _ = time_ms(torch, lambda i: gather_kv(i % L), iters=10)
+    k_g, v_g = (torch.stack(t) for t in zip(*(gather_kv(i)
+                                               for i in range(L))))
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_g[i % L], v_g[i % L],
+                                              scale=scale))
+    lib_err = rel_err(sdpa(q, k_g[3], v_g[3], scale=scale), beam_call(
+        cache, 3, q, seq, fresh, ind, da.fused_decode_attention))
+    del k_g, v_g
+    # group-once bytes: the valid columns of the 5 rows' K and V, q, the
+    # fresh K/V, the table's valid columns, the lengths, the output
+    n_bytes = (2 * bw * H * D * (n - 1) * 2 + bw * H * D * 2
+               + 2 * bw * H * D * 2 + bw * (n - 1) * 4 + bw * 4
+               + bw * H * D * 2)
+    b_ms, b_by = bound(n_bytes, 4 * bw * H * D * n, PEAK_FP32_CUDA_CORES)
+    print(f"beam decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
+          f"{b_by}, {n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; "
+          f"SDPA on the gathered K/V {lib_ms * 1e3:.2f} us (rel err vs the "
+          f"kernel {lib_err:.3e}) + the gather {gather_ms * 1e3:.2f} us")
+    first = errs["bf16, 1 group, seq 44"]
+    results["beam_decode_attention"] = dict(
+        max_abs_err=first[2], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, library_gather_ms=gather_ms,
+        host_call_ms=wall,
+        rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
+    del cache
+
+    # kernel 1, cross-attention at batch 5: the int8 cross cache repeated
+    # per beam, S=1500, no out-projection (batch > 1); 8 layers rotate
+    # (154 MB, past the L2)
+    Lc, Sc = 8, 1500
+    cross = torch.randint(-127, 128, (Lc, bw, 2, H, D, Sc), generator=gen,
+                          device=dev, dtype=torch.int8)
+    cscale = torch.full((Lc,), 1 / 40.0, device=dev)
+    s_full = torch.full((bw,), Sc, dtype=torch.int32, device=dev)
+    out = da.fused_decode_attention(cross, 3, q, s_full, scale,
+                                    kv_quant_orig_scale=cscale[3])
+    ref = da.plain_decode_attention(cross, 3, q, s_full, scale,
+                                    kv_quant_orig_scale=cscale[3])
+    ref32 = da.plain_decode_attention(cross, 3, q.float(), s_full, scale,
+                                      kv_quant_orig_scale=cscale[3])
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    print(f"decode cross at batch {bw}: rel err vs plain bf16 {e16:.3e}, "
+          f"vs fp32 {e32:.3e}")
+    check(e16 < 2e-2 and e32 < 1e-2,
+          f"decode attention (int8 cross, batch {bw}, S={Sc}) matches plain "
+          "(rel 2e-2 bf16, 1e-2 fp32)")
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        cross, i % Lc, q, s_full, scale, kv_quant_orig_scale=cscale[i % Lc]))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
+        cross, i % Lc, q, s_full, scale, kv_quant_orig_scale=cscale[i % Lc]))
+    kd = cross.float().mul(1 / 40.0).to(torch.bfloat16)   # [Lc,bw,2,H,D,S]
+    k_sd = kd[:, :, 0].transpose(-1, -2).contiguous()
+    v_sd = kd[:, :, 1].transpose(-1, -2).contiguous()
+    del kd
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % Lc], v_sd[i % Lc],
+                                              scale=scale))
+    del k_sd, v_sd, cross
+    n_bytes = 2 * bw * H * D * Sc + 2 * 2 * bw * H * D + bw * 4 + 4
+    b_ms, b_by = bound(n_bytes, 4 * bw * H * D * Sc, PEAK_FP32_CUDA_CORES)
+    print(f"decode cross at batch {bw}: {ms * 1e3:.2f} us (bound "
+          f"{b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.2f} MB); plain "
+          f"{plain_ms * 1e3:.2f} us; SDPA {lib_ms * 1e3:.2f} us")
+    results["decode_attention_int8_b5"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall)
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def random_openai_state(np, config, rng):
@@ -662,13 +842,14 @@ def plain_kernels():
 
 
 def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
-              recipe=None, label="main"):
+              recipe=None, label="main", beam=None):
     """One path on ``device``: the model built with ``recipe`` (default the
     bench recipe), transcription with ``decode_megakernel`` (None: the
-    pipeline's default, on with a card), the launch counts of that run,
-    the kernel-vs-plain checks and the timings.  A smaller ``config`` and
-    the CPU rehearse it without a card (the launch counts are then not
-    checked).  Returns (end-to-end numbers, launch counts)."""
+    pipeline's default, on with a card) and ``beam`` (the beam size; None
+    is greedy), the launch counts of that run, the kernel-vs-plain checks
+    and the timings.  A smaller ``config`` and the CPU rehearse it without
+    a card (the launch counts are then not checked).  Returns (end-to-end
+    numbers, launch counts)."""
     import torch.nn.functional as F
 
     from eddie_wang_hackathon2023_tpu_torch.functional import gelu
@@ -729,15 +910,27 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     # EOT suppressed so every run decodes the full SAMPLE_LEN tokens (the
     # JAX bench gets the same effect from zero weights)
     opts = DecodingOptions(language="en", sample_len=SAMPLE_LEN,
-                           suppress_tokens=f"-1,{tok_eot}")
+                           suppress_tokens=f"-1,{tok_eot}", beam_size=beam)
     pipe = WhisperPipeline(config, enc, dec, ckv, opts,
                            decode_megakernel=decode_megakernel)
-    blobs = pipe._megakernel_blobs()
+    rows = pipe.beam                     # decoder rows per utterance
+    blobs = pipe._megakernel_blobs(rows)
     mk_on = blobs is not None
     print(f"[{label}] decode path: "
           + ("the megakernel, one launch per step" if mk_on
-             else "layer by layer (scanned)"))
-    pipe.transcribe(mel)                         # warm-up
+             else "layer by layer (scanned)")
+          + (f", beam search with {beam} beams" if beam else ""))
+    # warm-up, recording every decoder call (tokens, cache column, length,
+    # and with beams the indirection table, which encodes the parents) for
+    # the teacher-forced replay below
+    calls = []
+    hook = dec.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
+        with_kwargs=True)
+    try:
+        pipe.transcribe(mel)
+    finally:
+        hook.remove()
     sync()
 
     if on_card:
@@ -753,10 +946,20 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     n_layer = config.n_text_layer
     print(f"[{label}] {len(res.tokens)} tokens, {steps} decode steps, "
           f"launches {counts}")
-    check(steps == SAMPLE_LEN - 1 and len(res.tokens) == SAMPLE_LEN,
-          f"[{label}] greedy transcription decoded {SAMPLE_LEN} tokens")
+    check(steps == SAMPLE_LEN - 1 and len(res.tokens) == SAMPLE_LEN
+          and len(calls) == SAMPLE_LEN,
+          f"[{label}] transcription decoded {SAMPLE_LEN} tokens")
     if on_card:
-        if mk_on:
+        if beam:
+            check(counts["beam_decode_attention"] == n_layer * steps
+                  and counts["decode_attention_int8"] == n_layer * steps
+                  and counts["decode_attention_bf16"] == 0
+                  and counts["out_proj_gemv"] == 0
+                  and counts["decoder_megakernel"] == 0,
+                  f"[{label}] beam decode kernel (self) and decode kernel at"
+                  f" batch {rows} (cross) launched {n_layer} times each per "
+                  "decode step, no megakernel or GEMV launch")
+        elif mk_on:
             check(counts["decoder_megakernel"] == steps
                   and counts["decode_attention_int8"] == 0
                   and counts["decode_attention_bf16"] == 0
@@ -778,10 +981,26 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
           and isinstance(res.text, str) and np.isfinite(res.avg_logprob),
           f"[{label}] transcription tokens in range, finite log-probability")
 
-    # teacher forcing: the kernel path and the plain scanned path decode
-    # the same tokens from the same cross K/V; logits must agree
-    tokens = list(pipe.initial_tokens) + res.tokens
+    # teacher forcing: the kernel path and the plain scanned path replay the
+    # recorded decoder calls (the same tokens, cross K/V and, with beams,
+    # indirection tables); logits must agree
     n_check = 8
+
+    def replay(plain, n_calls):
+        """Logits [n_calls, rows, vocab] of the first recorded calls, on a
+        fresh cache, through the kernels or through their plain versions
+        on the scanned path (no megakernel)."""
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        logits = []
+        with ctx:
+            cache = dec.new_kv_cache(rows)
+            for (tok, _, cross_kv, widx, seq), kw in calls[:n_calls]:
+                if plain:
+                    kw = {**kw, "megakernel_blobs": None}
+                lg, cache = dec(tok, cache, cross_kv, widx, seq, **kw)
+                logits.append(lg[:, -1])
+        return torch.stack(logits)
+
     with torch.inference_mode():
         # Per block: the same input through the block with the flash kernel
         # and with its plain version.  A bf16 rounding apart in the
@@ -819,26 +1038,7 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
         check(bool(torch.isfinite(xa_k).all()) and rms_xa < 1e-1,
               f"[{label}] encoder output finite, kernel path vs plain path "
               "(rms rel 1e-1)")
-        cross = ckv(xa_k)
-
-        def run(plain):
-            ctx = plain_kernels() if plain else contextlib.nullcontext()
-            kw = {} if plain else dict(megakernel_blobs=blobs)
-            logits = []
-            with ctx:
-                cache = dec.new_kv_cache(1)
-                p = len(pipe.initial_tokens)
-                lg, cache = dec(torch.tensor([tokens[:p]], device=device),
-                                cache, cross, 0, p)
-                logits.append(lg[0, -1])
-                for i in range(p, p + n_check):
-                    lg, cache = dec(torch.tensor([[tokens[i]]],
-                                                 device=device),
-                                    cache, cross, i, i + 1, **kw)
-                    logits.append(lg[0, -1])
-            return torch.stack(logits)
-
-        lk, lp = run(False), run(True)
+        lk, lp = replay(False, 1 + n_check), replay(True, 1 + n_check)
     e_lg = rel_err(lk, lp)
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), "
@@ -848,24 +1048,22 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
           "max |logit|)")
 
-    # where a decoder step's time goes: wall time of teacher-forced steps,
-    # their device time (CUDA events behind spins: a scanned step is cut at
-    # its blocks, a megakernel step is one segment), and, where the
-    # profiler can trace the card, the device time of each kernel
+    # where a decoder step's time goes: wall time of teacher-forced steps
+    # (recorded calls replayed), their device time (CUDA events behind
+    # spins: a scanned step is cut at its blocks, a megakernel step is one
+    # segment), and, where the profiler can trace the card, the device time
+    # of each kernel
     step_info = {}
     if on_card:
-        p = len(pipe.initial_tokens)
         n_prof = 8
-        kw = dict(megakernel_blobs=blobs) if mk_on else {}
         with torch.inference_mode():
-            cache = dec.new_kv_cache(1)
-            _, cache = dec(torch.tensor([tokens[:p]], device=device), cache,
-                           cross, 0, p)
-            toks = [torch.tensor([[tokens[i]]], device=device)
-                    for i in range(p, p + n_prof)]
+            cache = dec.new_kv_cache(rows)
+            (tok, _, cross_kv, widx, seq), kw = calls[0]
+            _, cache = dec(tok, cache, cross_kv, widx, seq, **kw)
 
             def step(j):
-                dec(toks[j], cache, cross, p + j, p + j + 1, **kw)
+                (tok, _, cross_kv, widx, seq), kw = calls[1 + j]
+                dec(tok, cache, cross_kv, widx, seq, **kw)
 
             def steps():
                 for j in range(n_prof):
@@ -905,7 +1103,8 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
                 print(f"  {ms * 1e3:9.1f} us/step  {name}")
         print(f"  int8 lm_head cast alone: {lm_cast_ms * 1e3:.1f} us/step")
 
-    # end-to-end timing: best of 3 at 40 tokens and at 80 tokens
+    # end-to-end timing: best of 3 at 40 tokens and, greedy only, at 80
+    # tokens for the decode slope
     def best(p, n=3):
         times = []
         for _ in range(n):
@@ -917,18 +1116,24 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
         return min(times)
 
     t40 = best(pipe)
-    pipe80 = WhisperPipeline(config, enc, dec, ckv, DecodingOptions(
-        language="en", sample_len=2 * SAMPLE_LEN,
-        suppress_tokens=f"-1,{tok_eot}"), decode_megakernel=decode_megakernel)
-    pipe80._mk_blobs = blobs          # the same weight image, packed once
-    pipe80.transcribe(mel)
-    t80 = best(pipe80)
-    slope_ms = (t80 - t40) / SAMPLE_LEN * 1e3
+    t80 = slope_ms = None
+    if not beam:
+        pipe80 = WhisperPipeline(config, enc, dec, ckv, DecodingOptions(
+            language="en", sample_len=2 * SAMPLE_LEN,
+            suppress_tokens=f"-1,{tok_eot}"),
+            decode_megakernel=decode_megakernel)
+        pipe80._mk_blobs = blobs      # the same weight image, packed once
+        pipe80.transcribe(mel)
+        t80 = best(pipe80)
+        slope_ms = (t80 - t40) / SAMPLE_LEN * 1e3
     print(f"[{label}] end to end: {1 / t40:.4f} utt/s ({t40 * 1e3:.1f} ms per "
-          f"utterance, {SAMPLE_LEN} tokens); decode slope {slope_ms:.3f} "
-          f"ms/token (80-token call {t80 * 1e3:.1f} ms); peak memory "
-          f"{peak_gib:.2f} GiB")
-    e2e = dict(**step_info, recipe=recipe, megakernel=mk_on,
+          f"utterance, {SAMPLE_LEN} tokens"
+          + (f", beam {beam}" if beam else "") + ")"
+          + ("" if slope_ms is None else
+             f"; decode slope {slope_ms:.3f} ms/token (80-token call "
+             f"{t80 * 1e3:.1f} ms)")
+          + f"; peak memory {peak_gib:.2f} GiB")
+    e2e = dict(**step_info, recipe=recipe, megakernel=mk_on, beam=beam,
                n_audio_layer=config.n_audio_layer,
                n_text_layer=config.n_text_layer, utt_per_s=1 / t40,
                ms_per_utt=t40 * 1e3, slope_ms_per_token=slope_ms,
@@ -942,7 +1147,8 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
 def paths(torch, np, results, config=None, device="cuda"):
     """The main path (full depth, bench recipe, megakernel decode), then
     the scanned path (decode_megakernel=False, recipe without sqenc, depth
-    cut to SCANNED_DEPTH layers to keep the run short).  Each kernel's
+    cut to SCANNED_DEPTH layers to keep the run short), then the beam path
+    (full depth, recipe without sqenc, BEAM_SIZE beams).  Each kernel's
     launches come from the path that drives it, and must be above 0 there
     on the card."""
     import dataclasses
@@ -964,13 +1170,19 @@ def paths(torch, np, results, config=None, device="cuda"):
     scan_e2e, scan_counts = main_path(
         torch, np, config=cut, device=device, decode_megakernel=False,
         recipe=SCANNED_RECIPE, label="scanned")
-    counts = dict(main=main_counts, scanned=scan_counts)
+    # the megakernel asked for as on the main path: at batch BEAM_SIZE the
+    # pipeline must not take it
+    beam_e2e, beam_counts = main_path(
+        torch, np, config=config, device=device,
+        decode_megakernel=None if on_card else True, recipe=SCANNED_RECIPE,
+        label="beam", beam=BEAM_SIZE)
+    counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts)
     for name in KERNELS:
-        n = counts[PATH_OF[name]][name]
+        n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
-    return dict(main=main_e2e, scanned=scan_e2e)
+    return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e)
 
 
 def main():

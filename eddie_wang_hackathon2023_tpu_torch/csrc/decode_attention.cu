@@ -23,6 +23,21 @@
 //     consecutive columns each (coalesced along the seq-minor axis); the
 //     probabilities enter it rounded to bf16, the sum of the softmax
 //     denominator and the fresh column stay fp32, as in the TPU kernel.
+// Beam search (the TPU kernel's `_beam_kernel`, :213, entry `_beam_call`
+// :320) is the same kernel instantiated with kBeam: query row b of group
+// g = b / bw reads each cache position s from row g*bw + ind[b][s] of its
+// group (ind is the [groups, bw, S] cache-indirection table), so the cache
+// is never reordered.  Row g*bw speaks for the group's length and start;
+// the fresh K/V is the row's own.  The block layout is kernel 1's (one block
+// per (head, query row)); the TPU kernel instead reads each source row of a
+// group once for all bw query beams.  Here the bw blocks of a group read the
+// same rows, and all but the first read can hit L2 (a layer's self cache at
+// the Whisper beam path's shapes is a few MB), so the bound counts the
+// group-once bytes.  Each column's source row may differ from its
+// neighbour's, so the loads are per column (2 or 1 bytes) instead of one
+// 4-column vector; the P*V pass reads the chunk's source rows from shared
+// memory.
+//
 // The TPU kernel ran its epilogue GEMV inside the same kernel from a VMEM
 // panel.  A single block cannot read the 1.6 MB panel fast, so here it is a
 // second kernel spread over N: out[b, n] = (sum_k ctx[b, k] W[l, k, n]) *
@@ -84,7 +99,31 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
                      __high2float(b));
 }
 
-template <typename CT>
+// One element of a cache row as a float.
+__device__ __forceinline__ float load1(const int8_t* p) { return (float)*p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// Four cache columns col..col+3 of row d (d_off = d*S elements past the
+// head's base): in beam mode each from its own cache row, src.x..src.w rows
+// past the base row; otherwise all from the base row, as one vector load.
+template <bool kBeam, typename CT>
+__device__ __forceinline__ float4 load_cols(const CT* base, size_t d_off,
+                                            int col, int4 src,
+                                            size_t row_stride) {
+  if constexpr (kBeam) {
+    const CT* p = base + d_off + col;
+    return make_float4(load1(p + src.x * row_stride),
+                       load1(p + 1 + src.y * row_stride),
+                       load1(p + 2 + src.z * row_stride),
+                       load1(p + 3 + src.w * row_stride));
+  } else {
+    return load4(base + d_off + col);
+  }
+}
+
+template <typename CT, bool kBeam>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
                         const CT* __restrict__ cache,  // [L,Bkv,2,H,D,S]
@@ -94,6 +133,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
                         const float* __restrict__ kscale_ptr, float scale,
                         const CT* __restrict__ fresh_k,        // [B,H,D]
                         const CT* __restrict__ fresh_v,
+                        const int* __restrict__ ind,   // kBeam: [B,S]
+                        int bw,                        // kBeam: beam width
                         __nv_bfloat16* __restrict__ out) {     // [B,H*D]
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -101,12 +142,19 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
   __shared__ float acc_s[kMaxD];
   __shared__ __align__(16) float p_s[kChunk];
   __shared__ float red[kWarps];
+  // kBeam: each column's source row (its beam in the group), for the P*V
+  // pass of the chunk
+  __shared__ __align__(16) int src_s[kBeam ? kChunk : 4];
 
+  // the row whose cache holds position s (without beams: b itself), and
+  // the row that speaks for the lengths (the group's first in beam mode)
+  const int row0 = kBeam ? b - b % bw : b;
   const float kscale = kscale_ptr ? *kscale_ptr : 1.0f;
-  const int total = seq_len[b];
+  const int total = seq_len[row0];
   const bool with_fresh = fresh_k != nullptr;
   const int cache_len = min(total - (with_fresh ? 1 : 0), S);
-  const int lo = start ? start[b] : 0;
+  const int lo = start ? start[row0] : 0;
+  const size_t row_stride = (size_t)2 * H * D * S;   // elements per row
 
   // q pre-multiplied by scale*kscale: scores come out ready for softmax
   for (int d = tid; d < D; d += kThreads) {
@@ -116,8 +164,11 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
   __syncthreads();
 
   const size_t head = (size_t)D * S;
-  const CT* kp = cache + ((((size_t)layer * Bkv + b) * 2 + 0) * H + h) * head;
-  const CT* vp = cache + ((((size_t)layer * Bkv + b) * 2 + 1) * H + h) * head;
+  const CT* kp =
+      cache + ((((size_t)layer * Bkv + row0) * 2 + 0) * H + h) * head;
+  const CT* vp =
+      cache + ((((size_t)layer * Bkv + row0) * 2 + 1) * H + h) * head;
+  const int* ind_b = kBeam ? ind + (size_t)b * S : nullptr;
 
   float m_run = kNeg, l_run = 0.f;
   const int n_chunks = (cache_len + kChunk - 1) / kChunk;
@@ -127,13 +178,25 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
     // that starts below cache_len <= S lies inside the row)
     const int col = c0 + 4 * tid;
     float s[4] = {kNeg, kNeg, kNeg, kNeg};
+    int4 src = make_int4(0, 0, 0, 0);
+    if constexpr (kBeam) {
+      if (col < cache_len) {
+        // columns at or past cache_len (<= S) keep beam 0: read, never used
+        src.x = ind_b[col];
+        if (col + 1 < cache_len) src.y = ind_b[col + 1];
+        if (col + 2 < cache_len) src.z = ind_b[col + 2];
+        if (col + 3 < cache_len) src.w = ind_b[col + 3];
+        *reinterpret_cast<int4*>(src_s + 4 * tid) = src;
+      }
+    }
     if (col < cache_len) {
       float4 dot = make_float4(0.f, 0.f, 0.f, 0.f);
       // unrolled so that many of the D independent row loads are in flight
       // at once (one at a time, each would wait a full memory latency)
 #pragma unroll 16
       for (int d = 0; d < D; ++d) {
-        const float4 kv = load4(kp + (size_t)d * S + col);
+        const float4 kv =
+            load_cols<kBeam>(kp, (size_t)d * S, col, src, row_stride);
         const float qd = q_s[d];
         dot.x += qd * kv.x;
         dot.y += qd * kv.y;
@@ -163,11 +226,13 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // [B,H,D]
     const int c_hi = min(kChunk, cache_len - c0);
     // P*V: each warp owns rows d; lanes read four consecutive columns
     for (int d = warp; d < D; d += kWarps) {
-      const CT* vr = vp + (size_t)d * S + c0;
       float part = 0.f;
 #pragma unroll 8
       for (int j = 4 * lane; j < c_hi; j += 128) {
-        const float4 v = load4(vr + j);
+        int4 src_j = make_int4(0, 0, 0, 0);
+        if constexpr (kBeam) src_j = *reinterpret_cast<const int4*>(src_s + j);
+        const float4 v =
+            load_cols<kBeam>(vp, (size_t)d * S, c0 + j, src_j, row_stride);
         const float4 p = *reinterpret_cast<const float4*>(p_s + j);
         // masked columns have p == 0; the select keeps a non-finite value
         // in a padding column out of the sum (0 * inf would be NaN)
@@ -263,6 +328,37 @@ out_proj_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [B,K]
   }
 }
 
+template <bool kBeam>
+int launch_decode_attention(const void* q, const void* cache,
+                            int cache_is_int8, int layer, int B, int Bkv,
+                            int H, int D, int S, const int* seq_len,
+                            const int* start, const float* kscale,
+                            float scale, const void* fresh_k,
+                            const void* fresh_v, const int* ind, int bw,
+                            void* out, void* stream) {
+  if (D > kMaxD || S % 4) return (int)cudaErrorInvalidValue;
+  dim3 grid(H, B);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (cache_is_int8) {
+    decode_attention_kernel<int8_t, kBeam><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const int8_t*>(cache), layer, Bkv, H, D, S, seq_len,
+        start, kscale, scale,
+        static_cast<const int8_t*>(fresh_k),
+        static_cast<const int8_t*>(fresh_v), ind, bw,
+        static_cast<__nv_bfloat16*>(out));
+  } else {
+    decode_attention_kernel<__nv_bfloat16, kBeam><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(cache), layer, Bkv, H, D, S,
+        seq_len, start, kscale, scale,
+        static_cast<const __nv_bfloat16*>(fresh_k),
+        static_cast<const __nv_bfloat16*>(fresh_v), ind, bw,
+        static_cast<__nv_bfloat16*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -273,27 +369,25 @@ int decode_attention(const void* q, const void* cache, int cache_is_int8,
                      const int* seq_len, const int* start,
                      const float* kscale, float scale, const void* fresh_k,
                      const void* fresh_v, void* out, void* stream) {
-  if (D > kMaxD || S % 4) return (int)cudaErrorInvalidValue;
-  dim3 grid(H, B);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (cache_is_int8) {
-    decode_attention_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const int8_t*>(cache), layer, Bkv, H, D, S, seq_len,
-        start, kscale, scale,
-        static_cast<const int8_t*>(fresh_k),
-        static_cast<const int8_t*>(fresh_v),
-        static_cast<__nv_bfloat16*>(out));
-  } else {
-    decode_attention_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(cache), layer, Bkv, H, D, S,
-        seq_len, start, kscale, scale,
-        static_cast<const __nv_bfloat16*>(fresh_k),
-        static_cast<const __nv_bfloat16*>(fresh_v),
-        static_cast<__nv_bfloat16*>(out));
-  }
-  return (int)cudaGetLastError();
+  return launch_decode_attention<false>(
+      q, cache, cache_is_int8, layer, B, Bkv, H, D, S, seq_len, start,
+      kscale, scale, fresh_k, fresh_v, nullptr, 1, out, stream);
+}
+
+// Beam search: B = groups * bw query rows over B cache rows; ind [B, S]
+// int32 (the [groups, bw, S] table) holds beams in [0, bw).  The fresh K/V
+// is required.
+int beam_decode_attention(const void* q, const void* cache,
+                          int cache_is_int8, int layer, int B, int H, int D,
+                          int S, const int* seq_len, const int* start,
+                          const float* kscale, float scale,
+                          const void* fresh_k, const void* fresh_v,
+                          const int* ind, int bw, void* out, void* stream) {
+  if (bw < 1 || B % bw || !fresh_k || !fresh_v || !ind)
+    return (int)cudaErrorInvalidValue;
+  return launch_decode_attention<true>(
+      q, cache, cache_is_int8, layer, B, B, H, D, S, seq_len, start, kscale,
+      scale, fresh_k, fresh_v, ind, bw, out, stream);
 }
 
 int out_proj_gemv(const void* x, const void* w, int layer,

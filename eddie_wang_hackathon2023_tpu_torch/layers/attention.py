@@ -7,13 +7,16 @@ Modes, as in the JAX package:
 * decoder self-attention over the stacked seq-minor cache
   ``[L, B, 2, H, D, S]``: prefill from an empty cache (``past_key_value =
   (cache, layer)``, written in place), and single-token decode with the
-  fresh K/V write deferred to the caller (``(cache, layer, "defer")``);
+  fresh K/V write deferred to the caller (``(cache, layer, "defer")``),
+  optionally read through a beam cache-indirection table
+  (``beam_indirection``);
 * cross-attention over the stacked cross cache (``cross_key_value =
   (cache, layer)`` or ``((cache, scales), layer)`` for int8 with per-layer
   scales).
 Single-token decode goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`), with the int8
-out-projection fused when the dense layer is weight-only int8 at batch 1.
+out-projection fused when the dense layer is weight-only int8 at batch 1
+(never with beams).
 """
 from __future__ import annotations
 
@@ -139,14 +142,16 @@ class Attention(nn.Module):
         return d.qweight, d.per_channel_scale, d.bias
 
     def _decode(self, cache, layer_idx, q, seq_len, kv_quant_orig_scale=None,
-                fresh_kv=None):
+                fresh_kv=None, beam_indirection=None):
         """Single-token attention + out-projection -> [B, 1, N]."""
         b = q.shape[0]
-        proj = self._decode_proj_operands(b)
+        proj = (None if beam_indirection is not None
+                else self._decode_proj_operands(b))
         res = fused_decode_attention(cache, layer_idx, q, seq_len,
                                      self.scale,
                                      kv_quant_orig_scale=kv_quant_orig_scale,
-                                     fresh_kv=fresh_kv, proj=proj)
+                                     fresh_kv=fresh_kv, proj=proj,
+                                     beam_indirection=beam_indirection)
         if proj is not None:
             return res[:, None, :]
         return self.dense(self._merge_heads(res))
@@ -154,7 +159,13 @@ class Attention(nn.Module):
     def forward(self, hidden_states: torch.Tensor, past_key_value=None,
                 sequence_length=None, cross_key_value=None,
                 cache_write_index: Optional[int] = None,
-                valid_len: Optional[int] = None, use_cache: bool = False):
+                valid_len: Optional[int] = None, use_cache: bool = False,
+                beam_indirection=None):
+        """``beam_indirection`` [groups, beams, S] (single-token decode of
+        the self-attention only): each query row reads the cache positions
+        through the table, as the JAX layer does (``layers/attention.py``
+        :576-614); cross-attention ignores it (its cache rows are the
+        repeated audio, the same for every beam)."""
         b, l, _ = hidden_states.shape
 
         if self.cross_attention:
@@ -187,7 +198,8 @@ class Attention(nn.Module):
                 raise ValueError("deferred-write decode is single-token")
             k_st, v_st = cast_kv_for_cache(k, v, full.dtype)
             out = self._decode(full, layer_idx, q, sequence_length,
-                               fresh_kv=(k_st, v_st))
+                               fresh_kv=(k_st, v_st),
+                               beam_indirection=beam_indirection)
             return (out, (k_st, v_st)) if use_cache else out
 
         if past_key_value is not None:

@@ -61,11 +61,12 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x, kv_cache=None, cross_kv=None, write_index=None,
                 sequence_length=None, valid_len=None,
-                use_cache: bool = False):
+                use_cache: bool = False, beam_indirection=None):
         attn_out = self.attn(self.attn_ln(x), past_key_value=kv_cache,
                              sequence_length=sequence_length,
                              cache_write_index=write_index,
-                             valid_len=valid_len, use_cache=use_cache)
+                             valid_len=valid_len, use_cache=use_cache,
+                             beam_indirection=beam_indirection)
         if use_cache:
             attn_out, kv_cache = attn_out
         x = x + attn_out
@@ -241,7 +242,7 @@ class WhisperDecoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, kv_cache: torch.Tensor,
                 cross_kv, write_index: int, sequence_length,
-                megakernel_blobs=None
+                megakernel_blobs=None, beam_indirection=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, T]; kv_cache [L,B,2,H,D,S] (updated in place);
         cross_kv [L,B,2,H,D,S_audio] or (int8 cache, scales [L]);
@@ -251,6 +252,9 @@ class WhisperDecoder(nn.Module):
         ``megakernel_blobs`` (:meth:`megakernel_blobs`): a single-token
         step at batch 1 runs every layer in one megakernel launch, as the
         JAX package's gate (``model.py:359-393``) does.
+        ``beam_indirection`` [groups, beams, S] (single-token steps): the
+        self-attention reads the cache through this beam table; such a step
+        never takes the megakernel (``model.py:363``).
         Returns (logits [B, T, n_vocab] fp32, kv_cache)."""
         c = self.config
         t = tokens.shape[1]
@@ -258,6 +262,7 @@ class WhisperDecoder(nn.Module):
         pos = self.positional_embedding[write_index:write_index + t]
         x = x + pos.to(x.dtype)
         if (megakernel_blobs is not None and t == 1 and tokens.shape[0] == 1
+                and beam_indirection is None
                 and self.megakernel_eligible(x.device)):
             from ...ops.decoder_layer import fused_decoder_stack
             cross, cscales = (cross_kv if isinstance(cross_kv, tuple)
@@ -286,7 +291,8 @@ class WhisperDecoder(nn.Module):
                 x, (k_new, v_new) = block(
                     x, kv_cache=(kv_cache, li, "defer"),
                     cross_kv=(cross_kv, li), write_index=write_index,
-                    sequence_length=sequence_length, use_cache=True)
+                    sequence_length=sequence_length, use_cache=True,
+                    beam_indirection=beam_indirection)
                 fresh.append(torch.stack([k_new, v_new], dim=1))
             write_fresh_kv(kv_cache, torch.stack(fresh), write_index)
         else:

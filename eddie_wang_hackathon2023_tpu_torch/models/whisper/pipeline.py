@@ -1,18 +1,25 @@
-"""Whisper greedy transcription: encode -> cross-KV precompute -> prefill
--> greedy decode loop with Whisper's logit filters -> text.
+"""Whisper transcription: encode -> cross-KV precompute -> prefill -> greedy
+or beam-search decode loop with Whisper's logit filters -> text.
 
-Port of the greedy path of the JAX package's ``models/whisper/pipeline.py``
-(``DecodingOptions``, ``_get_initial_tokens``, ``_get_suppress_tokens``,
-``_apply_filters``, the greedy branch of ``_generate_impl``,
-``post_process``, ``transcribe``).  The JAX package runs the loop as one
-``lax.while_loop``; here it is a Python loop over single-token decoder
-steps (at batch 1 on the card, each one megakernel launch for all layers,
-as the JAX package runs it on its accelerator).  Unlike the JAX loop it does
-not run the decoder once more after the last token is chosen (those logits
-were never read), so an utterance of n new tokens takes n - 1 decode
-steps.  Beam search, best_of,
-sampling, language detection and long-form transcription are not ported
-yet: the language must be given.
+Port of the greedy and beam paths of the JAX package's
+``models/whisper/pipeline.py`` (``DecodingOptions``, the option checks,
+``_get_initial_tokens``, ``_get_suppress_tokens``, ``_apply_filters``,
+the greedy and beam branches of ``_generate_impl``, the ``n_group`` tiling
+of ``main_loop``, ``post_process`` with ``_maximum_likelihood_rank``,
+``transcribe``).  The JAX package runs the loop as one ``lax.while_loop``;
+here it is a Python loop over single-token decoder steps (at batch 1 on
+the card, each one megakernel launch for all layers, as the JAX package
+runs it on its accelerator).  Unlike the JAX loop it does not run the
+decoder once more after the last token is chosen (those logits were never
+read), so an utterance of n new tokens takes n - 1 decode steps.
+
+Beam search (``beam_size``): each audio's ``beam_size`` rows expand
+jointly by cumulative log-probability; the KV cache stays put and a
+``[n_audio, beam, n_text_ctx]`` cache-indirection table, advanced each
+step, tells the decode attention which row wrote each position; tokens and
+the timestamp-filter state are reordered by parent.  ``best_of``, sampling
+(``temperature > 0``), language detection and long-form transcription are
+not ported yet: the language must be given.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ...runtime.sampling import (beam_search_step, gather_beams,
+                                 update_indirection)
 from ...text.tokenizer import get_tokenizer
 from .config import WhisperConfig
 from .model import CrossAttnKV, WhisperDecoder, WhisperEncoder
@@ -63,9 +72,25 @@ class DecodingResult:
     compression_ratio: float = np.nan
 
 
+def _maximum_likelihood_rank(tokens_groups, sum_logprobs_groups,
+                             length_penalty: Optional[float]) -> List[int]:
+    """The index of the best sequence of each group: sum of log-probs over
+    the length, or over the GNMT penalty ((5 + len) / 6) ** length_penalty
+    when it is given (the JAX package's ``_maximum_likelihood_rank``)."""
+    selected = []
+    for toks, lps in zip(tokens_groups, sum_logprobs_groups):
+        scores = []
+        for t, lp in zip(toks, lps):
+            penalty = (len(t) if length_penalty is None
+                       else ((5 + len(t)) / 6) ** length_penalty)
+            scores.append(lp / penalty)
+        selected.append(int(np.argmax(scores)))
+    return selected
+
+
 class WhisperPipeline:
-    """Greedy transcription over the port's three modules, on the device
-    that holds their weights."""
+    """Greedy or beam-search transcription over the port's three modules,
+    on the device that holds their weights."""
 
     def __init__(self, config: WhisperConfig, encoder: WhisperEncoder,
                  decoder: WhisperDecoder, cross_kv: CrossAttnKV,
@@ -79,12 +104,27 @@ class WhisperPipeline:
         decoder's weights are on a CUDA card, off on the CPU (the JAX
         package's default is on its accelerator only); False keeps the
         layer-by-layer path."""
+        # the JAX package's option checks, then what the port lacks
+        if options.beam_size is not None and options.best_of is not None:
+            raise ValueError("beam_size and best_of can't be given together")
+        if options.temperature == 0 and options.best_of is not None:
+            raise ValueError("best_of with greedy sampling is not compatible")
+        if options.patience is not None and options.beam_size is None:
+            raise ValueError("patience requires beam_size to be given")
+        if options.patience is not None and options.patience != 1.0:
+            raise NotImplementedError(
+                "patience != 1 is not supported (finished beams are kept "
+                "in-beam with frozen scores; extra finished-candidate "
+                "collection is not implemented)")
         if options.language is None:
             raise NotImplementedError(
                 "language detection is not ported yet: give a language")
-        if (options.beam_size is not None or options.best_of is not None
-                or options.temperature != 0):
-            raise NotImplementedError("only greedy decoding is ported")
+        if options.best_of is not None or options.temperature != 0:
+            raise NotImplementedError("sampling (temperature > 0, best_of) "
+                                      "is not ported yet")
+        # rows per audio (the JAX package's beam and n_group, which differ
+        # only with best_of); beam_size 1 is greedy
+        self.beam = options.beam_size or 1
         self.config = config
         self.encoder = encoder
         self.decoder = decoder
@@ -215,11 +255,15 @@ class WhisperPipeline:
     @torch.inference_mode()
     def _generate(self, init_tokens: torch.Tensor, cross_kv, prompt_len: int,
                   max_new: int):
-        """Greedy decode.  init_tokens [B, prompt_len] -> (tokens
+        """Greedy or beam-search decode.  init_tokens [B, prompt_len], in
+        groups of ``beam`` rows per audio with beams -> (tokens
         [B, prompt_len + max_new], cur_len, sum_logprobs [B],
-        no_speech_probs [B])."""
+        no_speech_probs [B]); with beams each row is one beam, its tokens
+        its whole history."""
         tok = self.tokenizer
         b = init_tokens.shape[0]
+        beam = self.beam
+        ng = b // beam
         max_total = prompt_len + max_new
         ts_begin = tok.timestamp_begin
         dev = self.device
@@ -240,18 +284,45 @@ class WhisperPipeline:
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         last_ts = torch.zeros((b,), dtype=torch.long, device=dev)
         has_ts = torch.zeros((b,), dtype=torch.bool, device=dev)
+        ind = None
+        if beam > 1:
+            # every beam of a group is a copy of the prefill, so before the
+            # first expansion only beam 0 may win: the rest start at -1e9
+            sum_lp = torch.where(bidx % beam != 0, -1e9, 0.0)
+            ind = torch.arange(beam, dtype=torch.int32, device=dev)[
+                None, :, None].expand(ng, beam, self.config.n_text_ctx)
         cur = prompt_len
         steps = 0
         while True:
             logits = self._apply_filters(logits, cur, tokens[:, cur - 1],
                                          tokens[:, cur - 2], last_ts, has_ts)
-            next_tok = torch.argmax(logits, dim=-1)
             logprobs = torch.log_softmax(logits, dim=-1)
-            cur_lp = logprobs[bidx, next_tok]
-            sum_lp = sum_lp + torch.where(finished, 0.0, cur_lp)
-            next_tok = torch.where(finished, tok.eot, next_tok)
-            was_finished = finished
-            finished = finished | (next_tok == tok.eot)
+            if beam > 1:
+                # the beams of a group expand jointly; state that belongs
+                # to a beam follows its parent; the cache stays put and
+                # the indirection table records where each history lives
+                parent, tok_b, cum, fin = beam_search_step(
+                    logprobs.reshape(ng, beam, -1),
+                    sum_lp.reshape(ng, beam), finished.reshape(ng, beam),
+                    beam, tok.eot)
+                tokens, last_ts, has_ts, was_finished = (
+                    x.reshape(b, *x.shape[2:]) for x in gather_beams(
+                        (tokens.reshape(ng, beam, -1),
+                         last_ts.reshape(ng, beam),
+                         has_ts.reshape(ng, beam),
+                         finished.reshape(ng, beam)), parent))
+                ind = update_indirection(ind, parent, cur)
+                next_tok = tok_b.reshape(b)
+                finished = fin.reshape(b)
+                sum_lp = cum.reshape(b)
+            else:
+                next_tok = torch.argmax(logits, dim=-1)
+                cur_lp = logprobs[bidx, next_tok]
+                sum_lp = sum_lp + torch.where(finished, 0.0, cur_lp)
+                was_finished = finished
+                finished = finished | (next_tok == tok.eot)
+            # a finished row carries the end token
+            next_tok = torch.where(was_finished, tok.eot, next_tok)
             live_ts = (next_tok >= ts_begin) & ~was_finished
             last_ts = torch.where(live_ts, next_tok, last_ts)
             has_ts = has_ts | live_ts
@@ -261,7 +332,8 @@ class WhisperPipeline:
                 break
             step_logits, cache = self.decoder(next_tok[:, None], cache,
                                               cross_kv, cur - 1, cur,
-                                              megakernel_blobs=blobs)
+                                              megakernel_blobs=blobs,
+                                              beam_indirection=ind)
             logits = step_logits[:, -1].float()
             steps += 1
         self.decode_steps = steps
@@ -280,16 +352,25 @@ class WhisperPipeline:
         return self.cross_kv(audio_features)
 
     def main_loop(self, audio_features, cross_kv=None):
-        """-> (tokens [B, T] np, lengths [B], sum_logprobs [B],
-        no_speech_probs [B])."""
+        """-> (tokens [R, T] np, lengths [R], sum_logprobs [R],
+        no_speech_probs [R]), R = n_audio * beam rows (each audio's beams
+        are consecutive)."""
         if cross_kv is None:
             cross_kv = self.precompute_cross_kv(audio_features)
-        b = audio_features.shape[0]
-        init = torch.tensor([list(self.initial_tokens)] * b,
+        rows = audio_features.shape[0] * self.beam
+        init = torch.tensor([list(self.initial_tokens)] * rows,
                             dtype=torch.long, device=self.device)
+        if self.beam > 1:
+            # each audio's cross K/V once per row of its group (the int8
+            # cache is repeated, its per-layer scales are not)
+            if isinstance(cross_kv, tuple):
+                cross_kv = (cross_kv[0].repeat_interleave(self.beam, dim=1),
+                            cross_kv[1])
+            else:
+                cross_kv = cross_kv.repeat_interleave(self.beam, dim=1)
         tokens, cur, sum_lp, ns = self._generate(
             init, cross_kv, len(self.initial_tokens), self.sample_len)
-        lengths = np.full((b,), cur, np.int32)
+        lengths = np.full((rows,), cur, np.int32)
         return (tokens.cpu().numpy(), lengths, sum_lp.cpu().numpy(),
                 ns.cpu().numpy())
 
@@ -303,6 +384,28 @@ class WhisperPipeline:
         tok = self.tokenizer
         if audio_features is not None:
             audio_features = audio_features.float().cpu().numpy()
+        g = self.beam
+        if g > 1:
+            # rank each audio's beams and keep the best
+            n_audio = tokens.shape[0] // g
+            groups_t, groups_lp = [], []
+            for i in range(n_audio):
+                rows = []
+                for j in range(g):
+                    seq = tokens[i * g + j,
+                                 self.sample_begin:lengths[i * g + j]]
+                    eot_pos = np.nonzero(seq == tok.eot)[0]
+                    rows.append(seq[:eot_pos[0]] if eot_pos.size else seq)
+                groups_t.append(rows)
+                groups_lp.append([float(sum_logprobs[i * g + j])
+                                  for j in range(g)])
+            best = _maximum_likelihood_rank(groups_t, groups_lp,
+                                            self.options.length_penalty)
+            idx = [i * g + best[i] for i in range(n_audio)]
+            tokens = tokens[idx]
+            lengths = np.asarray(lengths)[idx]
+            sum_logprobs = np.asarray(sum_logprobs)[idx]
+            no_speech_probs = np.asarray(no_speech_probs)[idx]
         results = []
         for i in range(tokens.shape[0]):
             seq = tokens[i, self.sample_begin:lengths[i]]

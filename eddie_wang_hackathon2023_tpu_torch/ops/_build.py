@@ -29,6 +29,8 @@ SIGNATURES = {
         "decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                              _F, _P, _P, _P, _P],
         "out_proj_gemv": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+        "beam_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                  _P, _F, _P, _P, _P, _I, _P, _P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,

@@ -171,3 +171,86 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
     probs = torch.softmax(scores, dim=-1)
     ctx = _mm_f32("bhqs,bhds->bhqd", probs.to(v.dtype), v)
     return ctx.to(q.dtype)
+
+
+def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
+                                   indirection: torch.Tensor,
+                                   scale: Optional[float] = None,
+                                   kv_quant_orig_scale=None,
+                                   start_index=None,
+                                   fresh_kv: Optional[Tuple] = None
+                                   ) -> torch.Tensor:
+    """One-token attention through a beam cache-indirection table, without
+    a reordered copy of the cache (the JAX package's
+    ``beam_indirect_decode_attention``, ``ops/attention.py:396``).
+
+    q [B, H, 1, D] with B = groups * beams, grouped by group; ``cache``
+    (k, v) [B, H, D, S] physical seq-minor views (or [B, 2, H, D, S]);
+    ``indirection`` [groups, beams, s_ind] maps each (query beam, position)
+    to the beam row of its group whose K/V wrote that position; a table
+    narrower than S is padded (positions past it are masked by seq_len).
+    Every (query beam, source beam) score is computed, the non-selected
+    ones are zeroed per position, and V is summed per source beam with the
+    masked probabilities: the selected terms equal those of a gathered
+    cache exactly; only the order of the fp32 P·V sum differs.
+    ``fresh_kv`` (k, v) [B, H, D, 1] is the current token's, each row's
+    own (no indirection).  int8 caches are dequantised; fp8 raises."""
+    b, h, lq, d = q.shape
+    if lq != 1:
+        raise ValueError("beam-indirect attention is a one-token decode op")
+    k, v = cache if isinstance(cache, tuple) else (cache[:, 0], cache[:, 1])
+    if k.shape[1] != h:
+        raise NotImplementedError("MQA/GQA caches are not ported")
+    if k.dtype.is_floating_point and k.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV cache is not ported yet")
+    s_max = k.shape[3]
+    bg, bw, s_ind = indirection.shape
+    if bg * bw != b:
+        raise ValueError(f"indirection {tuple(indirection.shape)} for {b} "
+                         "query rows")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if k.dtype == torch.int8:
+        k = dequantize_cache_values(k, kv_quant_orig_scale, q.dtype)
+        v = dequantize_cache_values(v, kv_quant_orig_scale, q.dtype)
+    ind = indirection
+    if s_ind < s_max:
+        ind = torch.nn.functional.pad(ind, (0, s_max - s_ind))
+    k5 = k.reshape(bg, bw, h, d, s_max)
+    v5 = v.reshape(bg, bw, h, d, s_max)
+    q4 = q[:, :, 0, :].reshape(bg, bw, h, d)
+    # every (query beam, source beam) score: [g, qb, kb, H, S]
+    s_all = _mm_f32("gqhd,gkhds->gqkhs", q4, k5) * scale
+    sel = (ind[:, :, None, :] == torch.arange(
+        bw, dtype=ind.dtype, device=ind.device)[None, None, :, None])
+    scores = torch.where(sel[:, :, :, None, :], s_all, 0.0).sum(2)
+    scores = scores.reshape(b, h, 1, s_max)
+    kpos = torch.arange(s_max, device=q.device)[None, None, None, :]
+    cache_len = torch.as_tensor(seq_len, dtype=torch.int32,
+                                device=q.device).reshape(-1, 1, 1, 1)
+    if fresh_kv is not None:
+        cache_len = cache_len - 1          # current token not in cache yet
+    valid = kpos < cache_len
+    if start_index is not None:
+        start = torch.as_tensor(start_index, dtype=torch.int32,
+                                device=q.device).reshape(-1, 1, 1, 1)
+        valid = valid & (kpos >= start)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG))
+
+    def pv(p):                              # p [B, H, 1, S] -> [B, H, 1, D]
+        p_m = torch.where(sel[:, :, :, None, :],
+                          p.reshape(bg, bw, 1, h, s_max), 0.0)
+        return _mm_f32("gqkhs,gkhds->gqhd", p_m.to(v.dtype),
+                       v5).reshape(b, h, 1, d)
+
+    if fresh_kv is not None:
+        k_f = dequantize_cache_values(fresh_kv[0], kv_quant_orig_scale,
+                                      q.dtype)
+        v_f = dequantize_cache_values(fresh_kv[1], kv_quant_orig_scale,
+                                      q.dtype)
+        s_f = _mm_f32("bhqd,bhds->bhqs", q, k_f) * scale
+        probs = torch.softmax(torch.cat([scores, s_f], dim=-1), dim=-1)
+        p_c, p_f = probs[..., :s_max], probs[..., s_max:]
+        ctx = pv(p_c) + _mm_f32("bhqs,bhds->bhqd", p_f.to(v_f.dtype), v_f)
+        return ctx.to(q.dtype)
+    return pv(torch.softmax(scores, dim=-1)).to(q.dtype)

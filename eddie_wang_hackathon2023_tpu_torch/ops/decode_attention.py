@@ -1,13 +1,17 @@
-"""Single-token decode attention with the fused int8 out-projection.
+"""Single-token decode attention with the fused int8 out-projection, and
+its beam-search mode.
 
 Counterpart of ``ops/pallas_decode_attention.py`` ``fused_decode_attention``
 (:767) in the JAX package, for the modes the Whisper decode path uses.  On
 a CUDA tensor the wrapper launches the kernels of
-``csrc/decode_attention.cu`` (attention, then the out-projection GEMV);
-on a CPU tensor it runs the plain version, :func:`plain_decode_attention`
-(``cached_decode_attention`` followed by ``weight_only_quant_matmul``).
-The tail, beam, GQA and group-shared-cache modes of the TPU kernel are not
-ported and raise ``NotImplementedError``.
+``csrc/decode_attention.cu`` (attention, then the out-projection GEMV; with
+``beam_indirection``, the beam entry that reads each position through the
+cache-indirection table, the TPU kernel's ``_beam_kernel`` :213); on a CPU
+tensor it runs the plain version, :func:`plain_decode_attention`
+(``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
+``beam_indirect_decode_attention``).  The tail, GQA, fp8 and
+group-shared-cache modes of the TPU kernel are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,13 +21,15 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import cached_decode_attention, layer_kv_views
+from .attention import (beam_indirect_decode_attention,
+                        cached_decode_attention, layer_kv_views)
 from .quant_matmul import weight_only_quant_matmul
 
 # launches of each CUDA kernel, counted where the wrapper launches it (the
-# attention kernel per cache dtype: each dtype is its own instantiation)
+# attention kernel per cache dtype: each dtype is its own instantiation; the
+# beam entry, whose main path has a bf16 cache, counts both of its dtypes)
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
-            "out_proj_gemv": 0}
+            "out_proj_gemv": 0, "beam_decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -35,14 +41,45 @@ def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def _check_beam_args(fresh_kv, proj) -> None:
+    """The beam mode's contract, as the JAX dispatch asserts it
+    (``pallas_decode_attention.py:835-838``)."""
+    if fresh_kv is None:
+        raise ValueError("beam decode is deferred-write only (fresh K/V "
+                         "required)")
+    if proj is not None:
+        raise ValueError("the out-projection fusion is batch-1 only; beam "
+                         "decode returns the context")
+
+
+def plain_beam_decode_attention(full_cache, layer_idx: int, q, seq_len,
+                                scale: float, kv_quant_orig_scale=None,
+                                fresh_kv: Optional[Tuple] = None,
+                                start_index=None, *,
+                                beam_indirection) -> torch.Tensor:
+    """The plain PyTorch version of the beam entry of
+    :func:`fused_decode_attention`: ``beam_indirect_decode_attention`` over
+    layer ``layer_idx`` of the stacked cache."""
+    return beam_indirect_decode_attention(
+        q, layer_kv_views(full_cache, layer_idx), seq_len, beam_indirection,
+        scale=scale, kv_quant_orig_scale=kv_quant_orig_scale,
+        start_index=start_index, fresh_kv=fresh_kv)
+
+
 def plain_decode_attention(full_cache, layer_idx: int, q, seq_len,
                            scale: float, kv_quant_orig_scale=None,
                            fresh_kv: Optional[Tuple] = None,
                            start_index=None,
-                           proj: Optional[Tuple] = None) -> torch.Tensor:
+                           proj: Optional[Tuple] = None,
+                           beam_indirection=None) -> torch.Tensor:
     """The plain PyTorch version of :func:`fused_decode_attention`."""
+    if beam_indirection is not None:
+        _check_beam_args(fresh_kv, proj)
+        return plain_beam_decode_attention(
+            full_cache, layer_idx, q, seq_len, scale, kv_quant_orig_scale,
+            fresh_kv, start_index, beam_indirection=beam_indirection)
     if full_cache.shape[1] != q.shape[0]:
-        raise NotImplementedError("group-shared (beam) caches are not ported")
+        raise NotImplementedError("group-shared caches are not ported")
     ctx = cached_decode_attention(
         q, layer_kv_views(full_cache, layer_idx), seq_len, scale=scale,
         kv_quant_orig_scale=kv_quant_orig_scale, start_index=start_index,
@@ -76,15 +113,23 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
     yet.  ``start_index`` [B]: keys below it are masked.  ``proj`` (weight
     int8 [L, H*D, N] or [H*D, N], scale [N] fp32, bias [N] or None): the
     out-projection, giving [B, N]; otherwise the result is the context
-    [B, H, 1, D].  The K-step ``tail_kv`` and ``beam_indirection`` modes of
-    the JAX function are not ported and raise."""
-    if tail_kv is not None or beam_indirection is not None:
-        raise NotImplementedError("the decode tail and beam modes are not "
-                                  "ported yet")
+    [B, H, 1, D].
+
+    ``beam_indirection`` [groups, beams, s_ind] integer tensor, groups *
+    beams = B: beam search.  Each (query beam, position) reads the cache
+    row of its group that the table names (rows of one group are
+    consecutive; row ``g * beams`` speaks for the group's length and
+    start); fresh K/V is required and is each row's own; no ``proj``.  A
+    table narrower than S is padded.  The K-step ``tail_kv`` mode of the
+    JAX function is not ported and raises."""
+    if tail_kv is not None:
+        raise NotImplementedError("the decode tail is not ported yet")
+    if beam_indirection is not None:
+        _check_beam_args(fresh_kv, proj)
     if not q.is_cuda:
         return plain_decode_attention(full_cache, layer_idx, q, seq_len,
                                       scale, kv_quant_orig_scale, fresh_kv,
-                                      start_index, proj)
+                                      start_index, proj, beam_indirection)
     L, b_kv, two, H, D, S = full_cache.shape
     B = q.shape[0]
     if q.shape != (B, H, 1, D):
@@ -92,9 +137,11 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
             f"q {tuple(q.shape)} vs cache heads {H}: GQA/multi-token "
             "decode is not ported")
     if b_kv != B:
-        raise NotImplementedError("group-shared (beam) caches are not ported")
+        raise NotImplementedError("group-shared caches are not ported")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"decode kernel takes bf16 q, got {q.dtype}")
+    if full_cache.dtype.is_floating_point and full_cache.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
     if full_cache.dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"decode kernel cache dtype {full_cache.dtype}")
     if not full_cache.is_contiguous() or S % 4:
@@ -125,16 +172,35 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         fk, fv = (t.contiguous() for t in fresh_kv)
         if fk.dtype != full_cache.dtype or fk.shape != (B, H, D, 1):
             raise ValueError("fresh K/V must be [B,H,D,1] in cache dtype")
+    is_int8 = full_cache.dtype == torch.int8
     ctx = torch.empty((B, H * D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.load("decode_attention")
+    if beam_indirection is not None:
+        ind = beam_indirection
+        if (not torch.is_tensor(ind) or ind.dim() != 3 or ind.device != dev
+                or ind.shape[0] * ind.shape[1] != B or ind.shape[2] > S):
+            raise ValueError(f"beam_indirection must be a [groups, beams, "
+                             f"<= {S}] tensor on {dev} with groups * beams "
+                             f"= {B}")
+        bw = ind.shape[1]
+        ind = ind.to(torch.int32)
+        if ind.shape[2] < S:
+            ind = torch.nn.functional.pad(ind, (0, S - ind.shape[2]))
+        ind = ind.contiguous()
+        _build.check(lib.beam_decode_attention(
+            _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
+            D, S, _ptr(seq_t), _ptr(start_t), _ptr(ks_t), float(scale),
+            _ptr(fk), _ptr(fv), _ptr(ind), bw, _ptr(ctx), stream),
+            "beam_decode_attention")
+        launches["beam_decode_attention"] += 1
+        return ctx.view(B, H, 1, D)
     _build.check(lib.decode_attention(
-        _ptr(q), _ptr(full_cache), int(full_cache.dtype == torch.int8),
+        _ptr(q), _ptr(full_cache), int(is_int8),
         int(layer_idx), B, b_kv, H, D, S, _ptr(seq_t), _ptr(start_t),
         _ptr(ks_t),
         float(scale), _ptr(fk), _ptr(fv), _ptr(ctx), stream),
         "decode_attention")
-    is_int8 = full_cache.dtype == torch.int8
     launches["decode_attention_int8" if is_int8 else
              "decode_attention_bf16"] += 1
     if proj is None:

@@ -14,7 +14,10 @@ rounding moves every output by a bf16 step.  The fp32 entry of
 the flash kernel is held to 1e-4 of the fp32 plain version (fp32 accuracy
 from split bf16 products).  The megakernel is held against its plain
 version in bf16 to 1e-2 on one layer and 3e-2 on three (roundings of the
-bf16 residual stream that differ by one step compound over layers)."""
+bf16 residual stream that differ by one step compound over layers).  The
+beam entry of kernel 1 is held to the same gates as kernel 1, and its
+rounding of P before P·V is pinned the same way, through a mixing
+indirection."""
 import numpy as np
 import pytest
 import torch
@@ -80,11 +83,14 @@ def test_decode_kernel_matches_plain(dev, kind):
     assert _rel(out, ref16) < 2e-2
 
 
-def _chunked_ctx(cache, layer, q, n, scale, kscale, round_p, chunk=1024):
+def _chunked_ctx(cache, layer, q, n, scale, kscale, round_p, chunk=1024,
+                 fresh=None):
     """Kernel 1's context [B, H, D] in fp64, with its online softmax over
     chunks of ``chunk`` columns: P·V takes the unnormalised exp(s - running
     max) rounded to bf16 (``round_p``, as ``pallas_decode_attention.py:149``
-    does) or kept unrounded; the denominator sums the unrounded values."""
+    does) or kept unrounded; the denominator sums the unrounded values.
+    ``fresh`` (k, v) [B, H, D] adds the current token's column last, in
+    full precision, as the kernel does."""
     k, v = (cache[layer, :, i, ..., :n].double() for i in (0, 1))
     s = torch.einsum("bhd,bhds->bhs", q[:, :, 0].double(), k) \
         * (scale * kscale)
@@ -101,6 +107,13 @@ def _chunked_ctx(cache, layer, q, n, scale, kscale, round_p, chunk=1024):
         acc = acc * alpha[..., None] + torch.einsum(
             "bhs,bhds->bhd", pv, v[..., c0:c0 + chunk])
         m = m_new
+    if fresh is not None:
+        fk, fv = (t.double() for t in fresh)
+        s_f = (q[:, :, 0].double() * fk).sum(-1) * (scale * kscale)
+        m_fin = torch.maximum(m, s_f)
+        alpha, p_f = torch.exp(m - m_fin), torch.exp(s_f - m_fin)
+        tot = tot * alpha + p_f
+        acc = acc * alpha[..., None] + p_f[..., None] * fv
     return acc / tot[..., None] * kscale
 
 
@@ -152,6 +165,140 @@ def test_decode_kernel_matches_chunked_reference(dev, cache_dtype):
     ref = _chunked_ctx(cache, 0, q, S, 0.125, kscale, True)
     torch.cuda.synchronize()
     assert _rel(out, ref) < 2.0 ** -8
+
+
+def _gathered(cache, ind):
+    """[L, B, 2, H, D, S] cache -> the same with each row's positions read
+    through the [groups, bw, S'] indirection (the reordered cache that the
+    beam kernel never builds)."""
+    L, B, _, H, D, S = cache.shape
+    g, bw, s_ind = ind.shape
+    idx = torch.nn.functional.pad(ind.long(), (0, S - s_ind))
+    idx = (idx + torch.arange(g, device=ind.device)[:, None, None] * bw)
+    idx = idx.reshape(1, B, 1, 1, 1, S).expand(L, B, 2, H, D, S)
+    return torch.gather(cache, 1, idx)
+
+
+@pytest.mark.parametrize("cache_dtype,groups",
+                         [(torch.bfloat16, 1), (torch.int8, 1),
+                          (torch.bfloat16, 2), (torch.int8, 2)])
+def test_beam_kernel_matches_plain(dev, cache_dtype, groups):
+    """Beam width 5, a table whose rows change from position to position,
+    group-uniform lengths (the second group longer, with a start index):
+    against the fp32 plain version (1e-2) and the bf16 one (2e-2), and the
+    fp32 plain version of kernel 1 on the gathered cache (1e-2)."""
+    g = torch.Generator(device=dev).manual_seed(5 + groups)
+    L, bw, H, D, S = 2, 5, 20, 64, 448
+    B = groups * bw
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    if cache_dtype == torch.int8:
+        cache = torch.randint(-127, 128, (L, B, 2, H, D, S), generator=g,
+                              device=dev, dtype=torch.int8)
+        fresh = tuple(torch.randint(-127, 128, (B, H, D, 1), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+        kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    else:
+        cache = torch.randn(L, B, 2, H, D, S, generator=g,
+                            device=dev).bfloat16()
+        fresh = tuple(torch.randn(B, H, D, 1, generator=g,
+                                  device=dev).bfloat16() for _ in range(2))
+        kw = {}
+    ind = torch.randint(0, bw, (groups, bw, S), generator=g, device=dev,
+                        dtype=torch.int32)
+    seq = torch.tensor([44, 300][:groups], device=dev).repeat_interleave(bw)
+    if groups == 2:
+        kw["start_index"] = torch.tensor([0, 9], device=dev) \
+            .repeat_interleave(bw)
+    before = da.launches["beam_decode_attention"]
+    out = da.fused_decode_attention(cache, 1, q, seq, D ** -0.5,
+                                    fresh_kv=fresh, beam_indirection=ind,
+                                    **kw)
+    assert da.launches["beam_decode_attention"] == before + 1
+    f32 = (lambda t: t) if cache_dtype == torch.int8 else (lambda t: t.float())
+    fresh32 = tuple(f32(t) for t in fresh)
+    ref = da.plain_beam_decode_attention(
+        f32(cache), 1, q.float(), seq, D ** -0.5, fresh_kv=fresh32,
+        beam_indirection=ind, **kw)
+    ref16 = da.plain_beam_decode_attention(
+        cache, 1, q, seq, D ** -0.5, fresh_kv=fresh, beam_indirection=ind,
+        **kw)
+    ref_gather = da.plain_decode_attention(
+        f32(_gathered(cache, ind)), 1, q.float(), seq, D ** -0.5,
+        fresh_kv=fresh32, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (B, H, 1, D)
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+    assert _rel(out, ref_gather) < 1e-2
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_beam_kernel_rounds_p_before_pv(dev, cache_dtype):
+    """The construction of test_decode_kernel_rounds_p_before_pv through
+    the beam entry: beam width 5, position 0 read from row 1 (the only row
+    whose key scores s0) by every query beam, the other 1499 positions from
+    rows that change with the position, every value column equal, and the
+    fresh column scoring 0 with the same value: the context is c (1 + 1499
+    bf16(p) + p) / (1 + 1500 p) = 0.9965 c with P rounded before P·V, and c
+    without.  A kernel that ignored the table would read score 0 at
+    position 0 for the query beams other than 1 and give c."""
+    bw, H, D, S = 5, 2, 64, 1500
+    p_other = 128.45 * 2.0 ** -9
+    scale = -float(np.log(p_other))
+    cache = torch.zeros(1, bw, 2, H, D, S, device=dev, dtype=cache_dtype)
+    cache[0, 1, 0, :, 0, 0] = 1
+    c = (torch.arange(D, device=dev) % 7 + 1).to(cache_dtype)
+    cache[0, :, 1] = c[None, None, :, None]
+    g = torch.Generator(device=dev).manual_seed(6)
+    ind = torch.randint(0, bw, (1, bw, S), generator=g, device=dev,
+                        dtype=torch.int32)
+    ind[..., 0] = 1
+    q = torch.zeros(bw, H, 1, D, device=dev, dtype=torch.bfloat16)
+    q[..., 0] = 1
+    fk = torch.zeros(bw, H, D, 1, device=dev, dtype=cache_dtype)
+    fv = c[None, None, :, None].expand(bw, H, D, 1).contiguous()
+    kw = (dict(kv_quant_orig_scale=torch.tensor(1.0, device=dev))
+          if cache_dtype == torch.int8 else {})
+    seq = torch.full((bw,), S + 1, dtype=torch.int32, device=dev)
+    out = da.fused_decode_attention(cache, 0, q, seq, scale,
+                                    fresh_kv=(fk, fv), beam_indirection=ind,
+                                    **kw)[:, :, 0]
+    ref16, ref32 = (_chunked_ctx(
+        _gathered(cache, ind), 0, q, S, scale, 1.0, r,
+        fresh=(fk[..., 0], fv[..., 0])).to(torch.bfloat16)
+        for r in (True, False))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref16)
+    assert bool((out != ref32).all())
+
+
+def test_beam_kernel_refuses_what_it_does_not_take(dev):
+    bw, H, D, S = 2, 2, 64, 16
+    cache = torch.zeros(1, bw, 2, H, D, S, device=dev).bfloat16()
+    q = torch.zeros(bw, H, 1, D, device=dev).bfloat16()
+    fresh = (torch.zeros(bw, H, D, 1, device=dev).bfloat16(),) * 2
+    seq = torch.full((bw,), 4, dtype=torch.int32, device=dev)
+    ind = torch.zeros(1, bw, S, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):       # fp8 cache
+        fp8 = torch.float8_e4m3fn
+        da.fused_decode_attention(cache.to(fp8), 0, q, seq, 0.125,
+                                  fresh_kv=tuple(t.to(fp8) for t in fresh),
+                                  beam_indirection=ind)
+    with pytest.raises(NotImplementedError):       # GQA: 4 query heads
+        da.fused_decode_attention(cache, 0, q.repeat(1, 2, 1, 1), seq, 0.125,
+                                  fresh_kv=fresh, beam_indirection=ind)
+    with pytest.raises(NotImplementedError):       # the K-step tail
+        da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
+                                  tail_kv=(cache, 0), beam_indirection=ind)
+    with pytest.raises(ValueError):                # no fresh K/V
+        da.fused_decode_attention(cache, 0, q, seq, 0.125,
+                                  beam_indirection=ind)
+    with pytest.raises(ValueError):                # table wider than S
+        da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
+                                  beam_indirection=torch.zeros(
+                                      1, bw, S + 4, dtype=torch.int32,
+                                      device=dev))
 
 
 def test_flash_kernel_matches_plain_strided(dev):

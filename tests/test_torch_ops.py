@@ -94,13 +94,12 @@ def test_decode_plain_matches_pallas_kernel(case):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["tail_kv", "beam_indirection",
-                                  "group_shared", "gqa"])
+@pytest.mark.parametrize("mode", ["tail_kv", "group_shared", "gqa"])
 def test_decode_modes_not_ported_raise(mode):
     cache = torch.zeros(1, 1, 2, 2, 16, 8)
     q = torch.zeros(1, 2, 1, 16)
     kw = {}
-    if mode in ("tail_kv", "beam_indirection"):
+    if mode == "tail_kv":
         kw[mode] = (cache, 0)
     elif mode == "group_shared":
         q = torch.zeros(2, 2, 1, 16)        # two rows share one cache row

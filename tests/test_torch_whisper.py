@@ -56,10 +56,10 @@ MEL = (np.random.RandomState(7).randn(1, 80, 2 * DIMS["n_audio_ctx"])
        .astype(np.float32))
 
 
-def _jax_build(recipe, without_timestamps=False):
-    """The JAX pipeline for ``recipe``, built as
-    examples/whisper/wer_matrix.py builds it, and the quantised numpy state
-    dicts it was loaded from."""
+def _jax_build(recipe, without_timestamps=False, **options):
+    """The JAX pipeline for ``recipe`` (and further ``DecodingOptions``),
+    built as examples/whisper/wer_matrix.py builds it, and the quantised
+    numpy state dicts it was loaded from."""
     parts = set(recipe.split("+")) - {"none"}
     enc_sd, dec_sd, ckv_sd = (dict(s) for s in FLOAT_STATES)
     qmode = (JQuantMode.use_weight_only() if "woq8" in parts
@@ -90,7 +90,8 @@ def _jax_build(recipe, without_timestamps=False):
     ckv.load_state_dict(ckv_sd)
     pipe = JPipeline(JCFG, enc, dec, ckv,
                      JOptions(language="en", sample_len=SAMPLE_LEN,
-                              without_timestamps=without_timestamps),
+                              without_timestamps=without_timestamps,
+                              **options),
                      qmode)
     pipe.bind_params()
     return pipe, (enc_sd, dec_sd, ckv_sd)
@@ -210,13 +211,14 @@ def test_transcribe_token_exact(recipe, without_timestamps, batch):
 
 
 def test_chip_smoke_main_path_on_cpu():
-    """``chip_smoke.py``'s two paths, rehearsed on the CPU at a tiny size
+    """``chip_smoke.py``'s three paths, rehearsed on the CPU at a tiny size
     with head dim 64 as on the card: model builds (the bench recipe with
-    the megakernel decode; the recipe without sqenc on the scanned path),
-    transcription, the teacher-forced comparison with the plain scanned
-    path (exact on the scanned path; the megakernel's plain version sums
-    in another order) and the end-to-end timing.  No kernel is launched
-    from CPU tensors."""
+    the megakernel decode; the recipe without sqenc on the scanned and
+    beam paths), transcription (greedy, and beam search with 5 beams), the
+    teacher-forced replay against the plain scanned path (exact on the
+    scanned and beam paths; the megakernel's plain version sums in another
+    order) and the end-to-end timing.  No kernel is launched from CPU
+    tensors, and the beam path does not take the megakernel it asks for."""
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
@@ -231,8 +233,11 @@ def test_chip_smoke_main_path_on_cpu():
     assert {k: v["launches"] for k, v in results.items()} == {
         k: 0 for k in smoke.KERNELS}
     assert e2e["main"]["megakernel"] and not e2e["scanned"]["megakernel"]
+    assert not e2e["beam"]["megakernel"] and e2e["beam"]["beam"] == 5
     assert e2e["main"]["logits_rel_err"] < 1e-5
     assert e2e["scanned"]["logits_rel_err"] == 0.0
-    for path in ("main", "scanned"):
+    assert e2e["beam"]["logits_rel_err"] == 0.0
+    assert e2e["beam"]["slope_ms_per_token"] is None
+    for path in ("main", "scanned", "beam"):
         assert e2e[path]["encoder_block_rms_rel_err"] == 0.0
         assert e2e[path]["utt_per_s"] > 0

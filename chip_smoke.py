@@ -27,7 +27,15 @@
    parents) are replayed through the kernel path and through the plain
    scanned path (teacher forcing), and their logits must agree.  Prints
    utt/s, the decode slope (not for beams), the decoder step's wall and
-   device-busy time and peak memory.
+   device-busy time and peak memory.  Last the decoder path: SantaCoder-1B
+   (24 layers, d 2048, 16 query heads of 128 over one KV head, vocab
+   49152) at full width and depth with random weights, recipe ``woq8``,
+   greedy generation of 20 tokens for 8 prompts of 60 tokens (bucketed to
+   64, left-padded) through the port's ``GenerationSession``, as the JAX
+   package's ``benchmarks/benchmark.py -m santacoder_1b --quant woq8`` runs
+   it; each decode step runs the grouped decode kernel once per layer.
+   Prints tokens/s, the decode step's wall and device-busy time and peak
+   memory.
 4. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
@@ -85,6 +93,10 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:45"),
+    "gqa_decode_attention": dict(
+        route="cuda", source=f"{PKG}/csrc/gqa_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:410"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
@@ -94,12 +106,16 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
            "flash_attention": "scanned", "beam_decode_attention": "beam",
-           "decode_attention_int8_b5": "beam"}
+           "decode_attention_int8_b5": "beam",
+           "gqa_decode_attention": "decoder"}
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
 SCANNED_DEPTH = 8        # encoder and decoder layers of the scanned path
 BEAM_SIZE = 5
+# the decoder path: benchmark.py's defaults (batch 8, 60 prompt tokens, 20
+# new ones)
+DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 60, 20
 
 
 class SmokeFailure(Exception):
@@ -276,6 +292,49 @@ def kernel_breakdown(torch, run, n, top=8):
                                 + e.self_device_time_total / n / 1e3)
     largest = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
     return sum(per_name.values()), dict(largest)
+
+
+def step_timing(torch, model, calls, cache, label, n_prof=8):
+    """Where a decoder step's time goes: the recorded ``calls`` of one run
+    (forward pre-hook: (args, kwargs), the cache second among the args)
+    replayed on ``cache``: call 0 (the prefill), then calls 1..n_prof timed
+    as steps: their wall time, their device-busy time (CUDA events behind
+    spins, a step cut at its blocks) and, where the profiler can trace the
+    card, the device time of each kernel.  Prints them; returns a dict."""
+    def call(j):
+        args, kw = calls[j]
+        model(args[0], cache, *args[2:], **kw)
+
+    def steps():
+        for j in range(n_prof):
+            call(1 + j)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        call(0)
+        steps()
+        t = time.perf_counter()
+        steps()
+        step_ms = (time.perf_counter() - t) / n_prof * 1e3
+        busy = [step_device_ms(torch, model, lambda j=j: call(1 + j),
+                               step_ms) for j in range(n_prof)]
+        busy_ms = None if None in busy else sum(busy) / n_prof
+        kern_ms, top = kernel_breakdown(torch, steps, n_prof)
+    idle = None if busy_ms is None else 1 - busy_ms / step_ms
+    print(f"[{label}] decoder step (teacher-forced): {step_ms:.3f} ms wall, "
+          "device busy " + ("not measured (the host fell behind the timing "
+                            "spins)" if busy_ms is None else
+                            f"{busy_ms:.3f} ms, idle share {idle:.3f}"))
+    if top is None:
+        print("  the profiler recorded no device time: per-kernel breakdown "
+              "not measured")
+    else:
+        print(f"  profiler: {kern_ms:.3f} ms of kernels per step")
+        for name, ms in top.items():
+            print(f"  {ms * 1e3:9.1f} us/step  {name}")
+    return dict(decoder_step_ms=step_ms, device_busy_ms_per_step=busy_ms,
+                device_idle_share=idle, kernel_ms_per_step=kern_ms,
+                top_kernels_ms_per_step=top)
 
 
 def rel_err(out, ref):
@@ -500,6 +559,7 @@ def kernel_phases(torch, results):
     del qkv32, q32, k32, v32, kc, vc, qc
     megakernel_phase(torch, results, gen)
     beam_phase(torch, results, gen)
+    gqa_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -771,6 +831,123 @@ def beam_phase(torch, results, gen):
         max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         host_call_ms=wall)
+
+
+def gqa_phase(torch, results, gen):
+    """The grouped (MQA/GQA) decode kernel against its plain version: at the
+    decoder path's shapes (batch 8, one KV head under 16 query heads of 128,
+    a bf16 cache of S = 64 + 20 = 84 at sequence 70, start 4), at a GQA
+    shape (4 KV heads under 4 query heads each, head dim 64, S = 83, two
+    rows of different lengths and starts) and with an int8 cache; then
+    timed at the path's shapes against its plain version and SDPA
+    (``enable_gqa``) on K/V transposed beforehand."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, B, Hkv, rep, D = 24, DEC_BATCH, 1, 16, 128
+    S, n, st = 64 + DEC_NEW, 70, 4
+    ks8 = 1 / 40.0
+
+    def rand(shape, int8):
+        if int8:
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def rows(vals, b):
+        return torch.tensor(vals, dtype=torch.int32, device=dev).repeat(
+            b // len(vals))
+
+    def case(b, hkv, r, d, s, seqs, starts, int8, layers=1):
+        """(cache, q, seq, fresh K/V, start, kwargs) of one call"""
+        fresh = tuple(rand((b, hkv, d, 1), int8) for _ in range(2))
+        kw = dict(scale=d ** -0.5, kv_quant_orig_scale=(
+            torch.tensor(ks8, device=dev) if int8 else None))
+        return (rand((layers, b, 2, hkv, d, s), int8),
+                rand((b, hkv * r, 1, d), False), rows(seqs, b), fresh,
+                rows(starts, b), kw)
+
+    def call(impl, c, layer, q, seq, fresh, start, kw):
+        return impl(c, layer, q, seq, kw["scale"],
+                    kv_quant_orig_scale=kw["kv_quant_orig_scale"],
+                    fresh_kv=fresh, start_index=start)
+
+    path = case(B, Hkv, rep, D, S, [n], [st], False, layers=L)
+    cases = {
+        "path: bf16, 1 KV head x 16, D 128, S 84, seq 70, start 4": path,
+        "GQA: bf16, 4 KV heads x 4, D 64, S 83, seq 30/83, start 0/7":
+            case(2, 4, 4, 64, 83, [30, 83], [0, 7], False),
+        "int8, 1 KV head x 16, D 128, S 84, seq 70, start 4":
+            case(B, Hkv, rep, D, S, [n], [st], True),
+    }
+    errs = {}
+    for what, (c, q, seq, fresh, start, kw) in cases.items():
+        layer = c.shape[0] - 1
+        out = call(da.fused_decode_attention, c, layer, q, seq, fresh, start,
+                   kw)
+        ref = call(da.plain_gqa_decode_attention, c, layer, q, seq, fresh,
+                   start, kw)
+        f32 = (lambda t: t) if c.dtype == torch.int8 else (
+            lambda t: t.float())
+        ref32 = call(da.plain_gqa_decode_attention, f32(c), layer, q.float(),
+                     seq, tuple(f32(t) for t in fresh), start, kw)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        errs[what] = (e16, e32, float((out.float() - ref32).abs().max()))
+        print(f"grouped decode ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(bool(torch.isfinite(out).all()) and e16 < 2e-2 and e32 < 1e-2,
+              f"grouped decode attention ({what}) matches plain (rel 2e-2 "
+              "bf16, 1e-2 fp32)")
+    # timed at the path's shapes, rotating over the 24 layers
+    cache, q, seq, fresh, start, kw = path
+    ms, wall = time_ms(torch, lambda i: call(
+        da.fused_decode_attention, cache, i % L, q, seq, fresh, start, kw))
+    plain_ms, _ = time_ms(torch, lambda i: call(
+        da.plain_gqa_decode_attention, cache, i % L, q, seq, fresh, start,
+        kw), iters=10)
+
+    # library: SDPA with enable_gqa over each layer's valid columns and the
+    # fresh one, transposed to [B, Hkv, n, D] beforehand (timed on its own),
+    # keys below the start masked
+    def transposed(layer):
+        return tuple(torch.cat([cache[layer, :, j, :, :, :n - 1], fresh[j]],
+                               dim=-1).transpose(-1, -2).contiguous()
+                     for j in (0, 1))
+
+    t_ms, _ = time_ms(torch, lambda i: transposed(i % L), iters=10)
+    k_t, v_t = (torch.stack(t) for t in zip(*(transposed(i)
+                                               for i in range(L))))
+    mask = (torch.arange(n, device=dev)[None, :] >= start[:, None])[
+        :, None, None, :]
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(
+        q, k_t[i % L], v_t[i % L], attn_mask=mask, scale=kw["scale"],
+        enable_gqa=True))
+    lib_err = rel_err(sdpa(q, k_t[L - 1], v_t[L - 1], attn_mask=mask,
+                           scale=kw["scale"], enable_gqa=True),
+                      call(da.fused_decode_attention, cache, L - 1, q, seq,
+                           fresh, start, kw))
+    del k_t, v_t
+    # bytes: each KV head's valid columns (start to seq - 2) of K and V read
+    # once for its rep query heads, the fresh K/V, q, the lengths and starts,
+    # the output; operations: 4 per (query head, key, d) over the valid keys
+    # and the fresh one
+    valid = n - 1 - st
+    n_bytes = (2 * B * Hkv * D * valid * 2 + 2 * B * Hkv * D * 2
+               + B * Hkv * rep * D * 2 * 2 + 2 * B * 4)
+    b_ms, b_by = bound(n_bytes, 4 * B * Hkv * rep * D * (valid + 1),
+                       PEAK_FP32_CUDA_CORES)
+    print(f"grouped decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
+          f"{b_by}, {n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; "
+          f"SDPA (enable_gqa) on the transposed K/V {lib_ms * 1e3:.2f} us "
+          f"(rel err vs the kernel {lib_err:.3e}) + the transpose "
+          f"{t_ms * 1e3:.2f} us")
+    first = errs[next(iter(cases))]
+    results["gqa_decode_attention"] = dict(
+        max_abs_err=first[2], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, library_transpose_ms=t_ms,
+        host_call_ms=wall,
+        rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -1048,59 +1225,16 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
           "max |logit|)")
 
-    # where a decoder step's time goes: wall time of teacher-forced steps
-    # (recorded calls replayed), their device time (CUDA events behind
-    # spins: a scanned step is cut at its blocks, a megakernel step is one
-    # segment), and, where the profiler can trace the card, the device time
-    # of each kernel
+    # where a decoder step's time goes (wall, device-busy, per kernel), and
+    # the share of the casts that is the int8 lm_head's
     step_info = {}
     if on_card:
-        n_prof = 8
+        step_info = step_timing(torch, dec, calls, dec.new_kv_cache(rows),
+                                label)
         with torch.inference_mode():
-            cache = dec.new_kv_cache(rows)
-            (tok, _, cross_kv, widx, seq), kw = calls[0]
-            _, cache = dec(tok, cache, cross_kv, widx, seq, **kw)
-
-            def step(j):
-                (tok, _, cross_kv, widx, seq), kw = calls[1 + j]
-                dec(tok, cache, cross_kv, widx, seq, **kw)
-
-            def steps():
-                for j in range(n_prof):
-                    step(j)
-                sync()
-
-            steps()
-            t = time.perf_counter()
-            steps()
-            step_ms = (time.perf_counter() - t) / n_prof * 1e3
-            busy = [step_device_ms(torch, dec, lambda j=j: step(j), step_ms)
-                    for j in range(n_prof)]
-            busy_ms = None if None in busy else sum(busy) / n_prof
-            kern_ms, top = kernel_breakdown(torch, steps, n_prof)
-            # the share of the casts that is the int8 lm_head's, per step
             lm_cast_ms, _ = time_ms(torch, lambda i: dec.lm_head_qweight.to(
                 dtype), iters=10)
-        idle = None if busy_ms is None else 1 - busy_ms / step_ms
-        step_info = dict(
-            decoder_step_ms=step_ms, device_busy_ms_per_step=busy_ms,
-            device_idle_share=idle, lm_head_cast_ms_per_step=lm_cast_ms,
-            kernel_ms_per_step=kern_ms, top_kernels_ms_per_step=top)
-        if busy_ms is None:
-            print(f"[{label}] decoder step (teacher-forced, no pipeline "
-                  f"filters): {step_ms:.3f} ms wall; device busy not "
-                  "measured (the host fell behind the timing spins)")
-        else:
-            print(f"[{label}] decoder step (teacher-forced, no pipeline "
-                  f"filters): {step_ms:.3f} ms wall, device busy "
-                  f"{busy_ms:.3f} ms, idle share {idle:.3f}")
-        if top is None:
-            print("  the profiler recorded no device time: per-kernel "
-                  "breakdown not measured")
-        else:
-            print(f"  profiler: {kern_ms:.3f} ms of kernels per step")
-            for name, ms in top.items():
-                print(f"  {ms * 1e3:9.1f} us/step  {name}")
+        step_info["lm_head_cast_ms_per_step"] = lm_cast_ms
         print(f"  int8 lm_head cast alone: {lm_cast_ms * 1e3:.1f} us/step")
 
     # end-to-end timing: best of 3 at 40 tokens and, greedy only, at 80
@@ -1144,13 +1278,192 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     return e2e, counts
 
 
-def paths(torch, np, results, config=None, device="cuda"):
+def santacoder_1b_config():
+    """SantaCoder-1B as the JAX package's ``benchmarks/benchmark.py``
+    defines it (gpt_bigcode topology, one KV head), bf16, int8 weight-only
+    (``--quant woq8``)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderConfig
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    return DecoderConfig(vocab_size=49152, hidden_size=2048, num_layers=24,
+                         num_heads=16, num_kv_heads=1,
+                         max_position_embeddings=2048, dtype="bfloat16",
+                         quant_mode=QuantMode.use_weight_only())
+
+
+def random_decoder_state(torch, np, config, rng):
+    """A seeded float state dict in the JAX ``DecoderLMHead`` layout
+    (per-layer tensors stacked [n_layer, ...]): LayerNorm weights
+    1 + N(0, 0.02), every other tensor N(0, 0.02).  The shapes come from
+    the port's float model built on the meta device."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    with torch.device("meta"):
+        shapes = DecoderLMHead(dataclasses.replace(
+            config, quant_mode=QuantMode(0))).state_dict()
+    state = {}
+    for key, t in shapes.items():
+        if key.startswith("blocks.0."):
+            key, shape = "blocks." + key[len("blocks.0."):], (
+                config.num_layers,) + tuple(t.shape)
+        elif key.startswith("blocks."):
+            continue
+        else:
+            shape = tuple(t.shape)
+        x = rng.standard_normal(shape, dtype=np.float32) * 0.02
+        if key.endswith("layernorm.weight") or key == "ln_f.weight":
+            x += 1.0
+        state[key] = x
+    return state
+
+
+def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
+    """The decoder-only path on ``device``: ``config`` (default
+    SantaCoder-1B, woq8) with random weights from the seed, greedy
+    generation of DEC_NEW tokens for DEC_BATCH prompts of DEC_PROMPT tokens
+    through the port's ``GenerationSession``, as the JAX package's
+    ``benchmarks/benchmark.py`` runs it; the launch counts of one such call,
+    the teacher-forced check against the plain path and the timings.  A
+    smaller ``config`` and the CPU rehearse it without a card (the launch
+    counts are then not checked).  Returns (numbers, launch counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import (
+        from_jax_state, quantize_state)
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig, bucket_length)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c = config or santacoder_1b_config()
+    t0 = time.time()
+    state = quantize_state(random_decoder_state(
+        torch, np, c, np.random.default_rng(SEED)), c)
+    model = from_jax_state(state, c, device=device)
+    del state
+    sync()
+    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} query heads over {c.num_kv_heads} KV head(s) of "
+          f"{c.head_dim}, vocab {c.vocab_size}, {c.quant_mode!r}, built in "
+          f"{time.time() - t0:.1f} s")
+    mc = ModelConfig(vocab_size=c.vocab_size, num_layers=c.num_layers,
+                     num_heads=c.num_heads, hidden_size=c.hidden_size,
+                     max_seq_len=c.max_position_embeddings,
+                     num_kv_heads=c.num_kv_heads)
+    # end_id outside the vocab: every row decodes every token
+    sess = GenerationSession(mc, model, SamplingConfig(end_id=-1, pad_id=0))
+    rs = np.random.RandomState(0)
+    lens = np.full((DEC_BATCH,), DEC_PROMPT, np.int32)
+
+    def prompts():
+        return rs.randint(0, c.vocab_size, (DEC_BATCH, DEC_PROMPT)).astype(
+            np.int32)
+
+    # warm-up, recording every model call (tokens, cache column, length,
+    # start) for the teacher-forced replay below
+    calls = []
+    hook = model.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
+        with_kwargs=True)
+    try:
+        sess.decode(prompts(), lens, max_new_tokens=DEC_NEW)
+    finally:
+        hook.remove()
+    sync()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for m in (da, fa, mk):
+        m.reset_launches()
+    tokens, seq_lens, cum = sess.decode(prompts(), lens,
+                                        max_new_tokens=DEC_NEW)
+    counts = {**da.launches, **fa.launches, **mk.launches}
+    peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+    steps = sess.decode_steps
+    print(f"[{label}] {DEC_NEW} tokens for {DEC_BATCH} prompts of "
+          f"{DEC_PROMPT} (bucket {bucket_length(DEC_PROMPT)}), {steps} decode "
+          f"steps, launches {counts}")
+    check(steps == DEC_NEW - 1 and len(calls) == DEC_NEW
+          and tokens.shape == (DEC_BATCH, 1, DEC_PROMPT + DEC_NEW)
+          and bool((seq_lens == DEC_PROMPT + DEC_NEW).all()),
+          f"[{label}] generation decoded {DEC_NEW} tokens for every row")
+    check(bool(((tokens >= 0) & (tokens < c.vocab_size)).all())
+          and bool(np.isfinite(cum).all()),
+          f"[{label}] tokens in range, finite log-probabilities")
+    if on_card:
+        check(counts["gqa_decode_attention"] == c.num_layers * steps
+              and all(n == 0 for k, n in counts.items()
+                      if k != "gqa_decode_attention"),
+              f"[{label}] grouped decode kernel launched {c.num_layers} "
+              "times per decode step, no other kernel")
+
+    # teacher forcing: the kernel path and the plain path replay the
+    # recorded calls (prefill and the first steps) on fresh caches
+    n_check = 8
+
+    def replay(plain):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        logits = []
+        with ctx, torch.inference_mode():
+            cache = model.new_kv_cache(DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW)
+            for (tok, _, widx, seq), kw in calls[:1 + n_check]:
+                lg, cache = model(tok, cache, widx, seq, **kw)
+                logits.append(lg[:, -1])
+        return torch.stack(logits)
+
+    lk, lp = replay(False), replay(True)
+    e_lg = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), "
+          f"kernel path vs plain path: rel err {e_lg:.3e}, argmax agreement "
+          f"{agree:.3f}")
+    check(bool(torch.isfinite(lk).all()), f"[{label}] logits finite")
+    check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
+          "max |logit|)")
+
+    step_info = (step_timing(torch, model, calls, model.new_kv_cache(
+        DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW), label) if on_card else {})
+
+    # end to end: the best of 3 whole decode calls (prefill included), each
+    # on prompts of its own, as benchmark.py times them
+    times = []
+    for ids in [prompts() for _ in range(3)]:
+        sync()
+        t = time.perf_counter()
+        sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+        sync()
+        times.append(time.perf_counter() - t)
+    best = min(times)
+    tps = DEC_BATCH * DEC_NEW / best
+    print(f"[{label}] end to end: {tps:.2f} tokens/s (batch {DEC_BATCH}, "
+          f"{DEC_PROMPT}+{DEC_NEW} tokens, best of 3: {best * 1e3:.1f} ms "
+          f"per call); peak memory {peak_gib:.2f} GiB")
+    e2e = dict(**step_info, tokens_per_s=tps, ms_per_call=best * 1e3,
+               batch=DEC_BATCH, prompt_len=DEC_PROMPT, new_tokens=DEC_NEW,
+               num_layers=c.num_layers, peak_gib=peak_gib,
+               logits_rel_err=e_lg, logits_argmax_agreement=agree)
+    return e2e, counts
+
+
+def paths(torch, np, results, config=None, device="cuda",
+          decoder_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the scanned path (decode_megakernel=False, recipe without sqenc, depth
     cut to SCANNED_DEPTH layers to keep the run short), then the beam path
-    (full depth, recipe without sqenc, BEAM_SIZE beams).  Each kernel's
-    launches come from the path that drives it, and must be above 0 there
-    on the card."""
+    (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
+    Whisper ``config``; then the decoder path with ``decoder_config``
+    (default SantaCoder-1B).  Each kernel's launches come from the path
+    that drives it, and must be above 0 there on the card."""
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
@@ -1176,13 +1489,17 @@ def paths(torch, np, results, config=None, device="cuda"):
         torch, np, config=config, device=device,
         decode_megakernel=None if on_card else True, recipe=SCANNED_RECIPE,
         label="beam", beam=BEAM_SIZE)
-    counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts)
+    dec_e2e, dec_counts = decoder_path(torch, np, config=decoder_config,
+                                       device=device)
+    counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts,
+                  decoder=dec_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
-    return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e)
+    return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e,
+                decoder=dec_e2e)
 
 
 def main():

@@ -1,6 +1,6 @@
 """Ops with numeric contracts, the subset of the JAX package's
-``functional.py`` that the Whisper path uses.  Plain PyTorch: none of
-these is a TPU kernel."""
+``functional.py`` that the Whisper and decoder-only paths use.  Plain
+PyTorch: none of these is a TPU kernel."""
 from __future__ import annotations
 
 import math
@@ -14,6 +14,13 @@ import torch.nn.functional as F
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximated GELU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+# the activations the decoder configs name (the part of the JAX package's
+# ``ACT2FN``, ``functional.py:81-93``, that its decoder megakernel takes):
+# "gelu" is the tanh approximation, "gelu_exact" the erf one
+ACT2FN = {"gelu": gelu, "gelu_exact": F.gelu, "relu": F.relu,
+          "silu": F.silu}
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,

@@ -1,22 +1,24 @@
-"""Self/cross attention layer (the Whisper part of the JAX package's
-``layers/attention.py``).
+"""Self/cross attention layer (the Whisper and decoder-only parts of the
+JAX package's ``layers/attention.py``).
 
 Modes, as in the JAX package:
 * encoder self-attention with the pad-once ``valid_len`` contract, through
   the flash kernel (:func:`..ops.flash_attention.flash_mha`);
 * decoder self-attention over the stacked seq-minor cache
-  ``[L, B, 2, H, D, S]``: prefill from an empty cache (``past_key_value =
-  (cache, layer)``, written in place), and single-token decode with the
-  fresh K/V write deferred to the caller (``(cache, layer, "defer")``),
-  optionally read through a beam cache-indirection table
-  (``beam_indirection``);
+  ``[L, B, 2, Hkv, D, S]``: prefill (``past_key_value = (cache, layer)``,
+  written in place; with ``attention_start``, left-padded prompts attend
+  over the cache causally), and single-token decode with the fresh K/V
+  write deferred to the caller (``(cache, layer, "defer")``), optionally
+  read through a beam cache-indirection table (``beam_indirection``);
+  MQA/GQA (``num_kv_heads``) keeps Hkv heads in the cache;
 * cross-attention over the stacked cross cache (``cross_key_value =
   (cache, layer)`` or ``((cache, scales), layer)`` for int8 with per-layer
   scales).
 Single-token decode goes through the decode kernel
-(:func:`..ops.decode_attention.fused_decode_attention`), with the int8
-out-projection fused when the dense layer is weight-only int8 at batch 1
-(never with beams).
+(:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
+when the cache has fewer heads), with the int8 out-projection fused when
+the dense layer is weight-only int8 at batch 1 with equal heads (never with
+beams).
 """
 from __future__ import annotations
 
@@ -55,25 +57,46 @@ def _full_lengths(batch: int, length: int, device: torch.device
 
 class QKVLinear(nn.Module):
     """Fused QKV projection with the head-major weight [3, H, hd, hidden]
-    (``convert._fuse_qkv``) and bias [3, H, hd]."""
+    (``convert._fuse_qkv``) and bias [3, H, hd].  With fewer KV heads
+    (MQA/GQA, the JAX package's ``layers/attention.py:135-149``) q and kv
+    are stored apart: ``weight`` [H, hd, hidden] + ``kv_weight``
+    [2, Hkv, hd, hidden], ``bias`` [H, hd] + ``kv_bias`` [2, Hkv, hd].
+    Returns q [B, L, H, hd], k and v [B, L, Hkv, hd]."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 bias: bool = True, dtype=torch.float32):
+                 bias: bool = True, dtype=torch.float32,
+                 num_kv_heads: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.num_kv_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
-        self.weight = frozen((3, num_heads, head_dim, hidden_size), dtype)
-        self.bias = frozen((3, num_heads, head_dim), dtype) if bias else None
+        hk = self.num_kv_heads
+        if hk == num_heads:
+            self.weight = frozen((3, num_heads, head_dim, hidden_size), dtype)
+            self.bias = (frozen((3, num_heads, head_dim), dtype) if bias
+                         else None)
+        else:
+            self.weight = frozen((num_heads, head_dim, hidden_size), dtype)
+            self.kv_weight = frozen((2, hk, head_dim, hidden_size), dtype)
+            self.bias = frozen((num_heads, head_dim), dtype) if bias else None
+            self.kv_bias = frozen((2, hk, head_dim), dtype) if bias else None
 
     def forward(self, x: torch.Tensor):
         b, l, hidden = x.shape
-        h, d = self.num_heads, self.head_dim
-        w = self.weight.reshape(3 * h * d, hidden)
-        qkv = torch.matmul(x, w.t()).reshape(b, l, 3, h, d)
+        h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
+        if hk == h:
+            w = self.weight.reshape(3 * h * d, hidden)
+            qkv = torch.matmul(x, w.t()).reshape(b, l, 3, h, d)
+            if self.bias is not None:
+                qkv = qkv + self.bias.to(qkv.dtype)
+            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q = torch.matmul(x, self.weight.reshape(h * d, hidden).t())
+        kv = torch.matmul(x, self.kv_weight.reshape(2 * hk * d, hidden).t())
+        q, kv = q.reshape(b, l, h, d), kv.reshape(b, l, 2, hk, d)
         if self.bias is not None:
-            qkv = qkv + self.bias.to(qkv.dtype)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            q = q + self.bias.to(q.dtype)
+            kv = kv + self.kv_bias.to(kv.dtype)
+        return q, kv[:, :, 0], kv[:, :, 1]
 
 
 def linear_classes(quant_mode: QuantMode, dtype):
@@ -95,27 +118,39 @@ def linear_classes(quant_mode: QuantMode, dtype):
 
 
 class Attention(nn.Module):
+    """``num_kv_heads`` < ``num_attention_heads``: MQA/GQA self-attention
+    (the separate-KV QKV layout, a cache of ``num_kv_heads`` heads, the
+    grouped mode of the decode kernel); the query heads of one KV head are
+    consecutive."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  cross_attention: bool = False, causal: bool = False,
                  bias: bool = True, dtype=torch.float32,
-                 quant_mode: QuantMode = QuantMode(0)):
+                 quant_mode: QuantMode = QuantMode(0),
+                 num_kv_heads: Optional[int] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
+        self.num_attention_kv_heads = num_kv_heads or num_attention_heads
         self.attention_head_size = hidden_size // num_attention_heads
         self.cross_attention = cross_attention
         self.causal = causal
         self.dtype = dtype
         qkv_cls, col_cls, row_cls = linear_classes(quant_mode, dtype)
+        grouped = self.num_attention_kv_heads != num_attention_heads
+        if grouped and (cross_attention
+                        or quant_mode.has_act_and_weight_quant()):
+            raise NotImplementedError("MQA/GQA is ported for float and int8 "
+                                      "weight-only self-attention only")
         if cross_attention:
             self.q_linear = col_cls(hidden_size, hidden_size, bias=bias,
                                     dtype=dtype)
             self.qkv = None
         else:
+            kw = dict(num_kv_heads=num_kv_heads) if grouped else {}
             self.qkv = qkv_cls(hidden_size, num_attention_heads,
                                self.attention_head_size, bias=bias,
-                               dtype=dtype)
+                               dtype=dtype, **kw)
             self.q_linear = None
         self.dense = row_cls(hidden_size, hidden_size, bias=bias, dtype=dtype)
 
@@ -133,16 +168,25 @@ class Attention(nn.Module):
         b, h, l, d = x.shape
         return x.transpose(1, 2).reshape(b, l, h * d)
 
+    def new_kv_cache(self, batch: int, max_len: int,
+                     device=None) -> torch.Tensor:
+        """A zeroed self cache [B, 2, Hkv, head_dim, S] (seq-minor), in the
+        layer's dtype."""
+        return torch.zeros((batch, 2, self.num_attention_kv_heads,
+                            self.attention_head_size, max_len),
+                           dtype=self.dtype, device=device)
+
     def _decode_proj_operands(self, batch: int):
         """(weight, scale, bias) of an int8 weight-only dense layer for the
-        fused out-projection at batch 1; None otherwise."""
+        fused out-projection at batch 1 with equal heads; None otherwise."""
         d = self.dense
-        if batch != 1 or not isinstance(d, WeightOnlyQuantLinear):
+        if (batch != 1 or not isinstance(d, WeightOnlyQuantLinear)
+                or self.num_attention_kv_heads != self.num_attention_heads):
             return None
         return d.qweight, d.per_channel_scale, d.bias
 
     def _decode(self, cache, layer_idx, q, seq_len, kv_quant_orig_scale=None,
-                fresh_kv=None, beam_indirection=None):
+                fresh_kv=None, beam_indirection=None, start_index=None):
         """Single-token attention + out-projection -> [B, 1, N]."""
         b = q.shape[0]
         proj = (None if beam_indirection is not None
@@ -150,7 +194,8 @@ class Attention(nn.Module):
         res = fused_decode_attention(cache, layer_idx, q, seq_len,
                                      self.scale,
                                      kv_quant_orig_scale=kv_quant_orig_scale,
-                                     fresh_kv=fresh_kv, proj=proj,
+                                     fresh_kv=fresh_kv, start_index=start_index,
+                                     proj=proj,
                                      beam_indirection=beam_indirection)
         if proj is not None:
             return res[:, None, :]
@@ -160,12 +205,16 @@ class Attention(nn.Module):
                 sequence_length=None, cross_key_value=None,
                 cache_write_index: Optional[int] = None,
                 valid_len: Optional[int] = None, use_cache: bool = False,
-                beam_indirection=None):
+                beam_indirection=None, attention_start=None):
         """``beam_indirection`` [groups, beams, S] (single-token decode of
         the self-attention only): each query row reads the cache positions
         through the table, as the JAX layer does (``layers/attention.py``
         :576-614); cross-attention ignores it (its cache rows are the
-        repeated audio, the same for every beam)."""
+        repeated audio, the same for every beam).  ``attention_start`` [B]
+        (left-padded prompts, self-attention over the stacked cache): keys
+        below it are masked; a prefill given it attends over the cache it
+        has just written, causally from ``cache_write_index``, as the JAX
+        layer does when its flash fast path is off (:683-698)."""
         b, l, _ = hidden_states.shape
 
         if self.cross_attention:
@@ -199,20 +248,36 @@ class Attention(nn.Module):
             k_st, v_st = cast_kv_for_cache(k, v, full.dtype)
             out = self._decode(full, layer_idx, q, sequence_length,
                                fresh_kv=(k_st, v_st),
-                               beam_indirection=beam_indirection)
+                               beam_indirection=beam_indirection,
+                               start_index=attention_start)
             return (out, (k_st, v_st)) if use_cache else out
 
         if past_key_value is not None:
-            # prefill: write the prompt's K/V into the stacked cache, then
-            # attend over the fresh K/V (the cache was empty before)
+            # prefill: write the prompt's K/V into the stacked cache
             full, layer_idx = past_key_value
-            if cache_write_index != 0 or l == 1 or not self.causal:
+            if l == 1 or not self.causal:
                 raise NotImplementedError(
-                    "only a causal prefill from an empty cache is ported")
-            append_kv_stacked(full, k, v, layer_idx, 0)
-            ctx = multihead_attention(
-                q, k, v, bias=causal_bias(l, l, device=q.device),
-                scale=self.scale)
+                    "only a causal multi-token prefill is ported")
+            append_kv_stacked(full, k, v, layer_idx, cache_write_index)
+            if attention_start is not None:
+                # left-padded prompts: attend over the cache just written,
+                # keys below the start masked, causal from the write index
+                ctx = cached_decode_attention(
+                    q, layer_kv_views(full, layer_idx), sequence_length,
+                    scale=self.scale, causal_offset=cache_write_index,
+                    start_index=attention_start)
+            else:
+                # the cache was empty before: attend over the fresh K/V
+                if cache_write_index != 0:
+                    raise NotImplementedError(
+                        "a prefill after earlier tokens needs "
+                        "attention_start")
+                rep = self.num_attention_heads // self.num_attention_kv_heads
+                if rep > 1:
+                    k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+                ctx = multihead_attention(
+                    q, k, v, bias=causal_bias(l, l, device=q.device),
+                    scale=self.scale)
             out = self.dense(self._merge_heads(ctx))
             return (out, full) if use_cache else out
 

@@ -1,1 +1,2 @@
-"""Models of the port (Whisper so far)."""
+"""Models of the port: Whisper, and the decoder-only LM
+(``decoder.DecoderLMHead``, the SantaCoder family so far)."""

@@ -23,6 +23,7 @@ from ...functional import sinusoids
 from ...quantization.mode import QuantMode
 from ...quantization.surgery import (smooth_quantize_state_dict,
                                      weight_only_quantize_state)
+from .._state import unstack_blocks
 from .config import WhisperConfig
 from .model import (DECODER_LINEARS, ENCODER_LINEARS, CrossAttnKV,
                     WhisperDecoder, WhisperEncoder, quantize_lm_head_state)
@@ -240,19 +241,6 @@ def quantize_states(enc_sd, dec_sd, ckv_sd, recipe: str = BENCH_RECIPE,
     return enc_sd, dec_sd, ckv_sd
 
 
-def _unstack(state) -> Dict[str, torch.Tensor]:
-    """{"blocks.x": [L, ...]} -> {"blocks.<i>.x": [...]} as tensors."""
-    out = {}
-    for k, v in state.items():
-        v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
-        if k.startswith("blocks."):
-            for i in range(v.shape[0]):
-                out[f"blocks.{i}.{k[len('blocks.'):]}"] = v[i]
-        else:
-            out[k] = v
-    return out
-
-
 def from_jax_state(enc_state, dec_state, ckv_state, config: WhisperConfig,
                    recipe: str = "", device=None
                    ) -> Tuple[WhisperEncoder, WhisperDecoder, CrossAttnKV]:
@@ -265,8 +253,8 @@ def from_jax_state(enc_state, dec_state, ckv_state, config: WhisperConfig,
     with torch.device(device):
         enc = WhisperEncoder(config, r.encoder)
         dec = WhisperDecoder(config, r.decoder, quantize_lm_head=r.lm_head)
-    enc.load_state_dict(_unstack(enc_state))
-    dec.load_state_dict(_unstack(dec_state))
+    enc.load_state_dict(unstack_blocks(enc_state))
+    dec.load_state_dict(unstack_blocks(dec_state))
     ckv = cross_kv_from_jax_state(ckv_state, config, recipe, device)
     return enc.eval(), dec.eval(), ckv
 

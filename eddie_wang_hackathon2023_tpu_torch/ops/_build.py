@@ -42,6 +42,10 @@ SIGNATURES = {
         # (const MegaArgs*, stream)
         "decoder_megakernel": [_P, _P],
     },
+    "gqa_decode_attention": {
+        "gqa_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                 _P, _F, _P, _P, _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

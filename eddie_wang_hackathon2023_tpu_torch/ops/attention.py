@@ -1,5 +1,5 @@
 """Attention formulations in plain PyTorch (the subset of the JAX
-package's ``ops/attention.py`` on the Whisper path).
+package's ``ops/attention.py`` on the Whisper and decoder-only paths).
 
 These are the plain versions: the CPU runs them, and the CUDA kernels in
 :mod:`.decode_attention` and :mod:`.flash_attention` are held against them
@@ -119,23 +119,41 @@ def layer_kv_views(full_cache: torch.Tensor, layer_idx: int
 def cached_decode_attention(q: torch.Tensor, cache, seq_len,
                             scale: Optional[float] = None,
                             kv_quant_orig_scale=None,
+                            causal_offset=None,
                             start_index=None,
-                            fresh_kv: Optional[Tuple] = None
-                            ) -> torch.Tensor:
+                            fresh_kv: Optional[Tuple] = None,
+                            group: int = 1) -> torch.Tensor:
     """Masked attention of q [B,H,Lq,D] against a seq-minor cache
-    [B,2,H,D,S] (or its (k, v) views), attending to positions < seq_len.
+    [B,2,Hkv,D,S] (or its (k, v) views), attending to positions < seq_len.
 
     ``seq_len`` [B] (or an int) is the valid length INCLUDING the current
-    tokens.  ``fresh_kv`` (k, v) [B,H,D,Lq] in cache dtype carries the
+    tokens.  ``fresh_kv`` (k, v) [B,Hkv,D,Lq] in cache dtype carries the
     current tokens when their cache write is deferred: the cache then holds
     ``seq_len - Lq`` valid columns.  ``start_index`` masks keys below it.
-    int8 caches are dequantised with the per-tensor ``kv_quant_orig_scale``.
-    (The JAX version's tail, GQA, bias and causal-offset modes are not on
-    this path and not ported.)"""
+    ``causal_offset`` (Lq > 1, a prefill written into the cache): query row
+    i attends keys <= causal_offset + i.  int8 caches are dequantised with
+    the per-tensor ``kv_quant_orig_scale``.
+
+    MQA/GQA (the JAX package's ``ops/attention.py:264-317``): a cache with
+    fewer KV heads than q is read without repeating its heads.  One KV head
+    rides the einsums' size-1 broadcast; 1 < Hkv < H folds the query head
+    groups onto the q-length axis (``group`` is the recursion's marker), so
+    masks index positions by ``row % true_lq``.  (The JAX version's tail
+    and bias modes are not ported.)"""
     b, h, lq, d = q.shape
     k, v = cache if isinstance(cache, tuple) else (cache[:, 0], cache[:, 1])
-    if k.shape[1] != h:
-        raise NotImplementedError("MQA/GQA caches are not ported")
+    hkv = k.shape[1]
+    if group == 1 and hkv not in (h, 1):
+        g = h // hkv
+        if g * hkv != h:
+            raise ValueError(f"{h} query heads over {hkv} KV heads")
+        out = cached_decode_attention(
+            q.reshape(b, hkv, g * lq, d), (k, v), seq_len, scale=scale,
+            kv_quant_orig_scale=kv_quant_orig_scale,
+            causal_offset=causal_offset, start_index=start_index,
+            fresh_kv=fresh_kv, group=g)
+        return out.reshape(b, h, lq, d)
+    lq_t = lq // group          # true token count (== lq unless grouped)
     s_max = k.shape[3]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -147,22 +165,32 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
     cache_len = torch.as_tensor(seq_len, dtype=torch.int32, device=q.device)
     cache_len = cache_len.reshape(-1, 1, 1, 1)
     if fresh_kv is not None:
-        cache_len = cache_len - lq          # current tokens not in cache yet
+        cache_len = cache_len - lq_t        # current tokens not in cache yet
     valid = kpos < cache_len
     if start_index is not None:
         start = torch.as_tensor(start_index, dtype=torch.int32,
                                 device=q.device).reshape(-1, 1, 1, 1)
         valid = valid & (kpos >= start)
-    # finite mask value: a fully-masked row yields finite probabilities
+    qpos = torch.arange(lq, device=q.device)[None, None, :, None] % lq_t
+    if lq_t > 1 and causal_offset is not None:
+        # causal within the appended block; grouped rows share a token
+        offset = torch.as_tensor(causal_offset, dtype=torch.int32,
+                                 device=q.device).reshape(-1, 1, 1, 1)
+        valid = valid & (kpos <= qpos + offset)
+    # finite mask value: a fully-masked row (a left-pad query position)
+    # yields finite probabilities, not NaN, which would poison the cache
+    # the next layer writes
     scores = torch.where(valid, scores, torch.full_like(scores, NEG))
     if fresh_kv is not None:
-        if lq != 1:
-            raise NotImplementedError("deferred write is single-token here")
         k_f = dequantize_cache_values(fresh_kv[0], kv_quant_orig_scale,
                                       q.dtype)
         v_f = dequantize_cache_values(fresh_kv[1], kv_quant_orig_scale,
                                       q.dtype)
         s_f = _mm_f32("bhqd,bhds->bhqs", q, k_f) * scale
+        if lq_t > 1:
+            # causal among the fresh tokens themselves
+            fpos = torch.arange(lq_t, device=q.device)[None, None, None, :]
+            s_f = torch.where(fpos <= qpos, s_f, torch.full_like(s_f, NEG))
         probs = torch.softmax(torch.cat([scores, s_f], dim=-1), dim=-1)
         p_c, p_f = probs[..., :s_max], probs[..., s_max:]
         ctx = (_mm_f32("bhqs,bhds->bhqd", p_c.to(v.dtype), v)

@@ -1,17 +1,18 @@
-"""Single-token decode attention with the fused int8 out-projection, and
-its beam-search mode.
+"""Single-token decode attention with the fused int8 out-projection, its
+beam-search mode and its MQA/GQA mode.
 
 Counterpart of ``ops/pallas_decode_attention.py`` ``fused_decode_attention``
-(:767) in the JAX package, for the modes the Whisper decode path uses.  On
-a CUDA tensor the wrapper launches the kernels of
+(:767) in the JAX package, for the modes the Whisper and decoder-only paths
+use.  On a CUDA tensor the wrapper launches the kernels of
 ``csrc/decode_attention.cu`` (attention, then the out-projection GEMV; with
 ``beam_indirection``, the beam entry that reads each position through the
-cache-indirection table, the TPU kernel's ``_beam_kernel`` :213); on a CPU
-tensor it runs the plain version, :func:`plain_decode_attention`
+cache-indirection table, the TPU kernel's ``_beam_kernel`` :213) or, when q
+has more heads than the cache, the grouped kernel of
+``csrc/gqa_decode_attention.cu`` (the TPU kernel's ``_gqa_kernel`` :410); on
+a CPU tensor it runs the plain version, :func:`plain_decode_attention`
 (``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
-``beam_indirect_decode_attention``).  The tail, GQA, fp8 and
-group-shared-cache modes of the TPU kernel are not ported and raise
-``NotImplementedError``.
+``beam_indirect_decode_attention``).  The tail, fp8 and group-shared-cache
+modes of the TPU kernel are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ from .quant_matmul import weight_only_quant_matmul
 
 # launches of each CUDA kernel, counted where the wrapper launches it (the
 # attention kernel per cache dtype: each dtype is its own instantiation; the
-# beam entry, whose main path has a bf16 cache, counts both of its dtypes)
+# beam entry and the grouped kernel, whose main paths have a bf16 cache,
+# count both of their dtypes)
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
-            "out_proj_gemv": 0, "beam_decode_attention": 0}
+            "out_proj_gemv": 0, "beam_decode_attention": 0,
+            "gqa_decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -50,6 +53,29 @@ def _check_beam_args(fresh_kv, proj) -> None:
     if proj is not None:
         raise ValueError("the out-projection fusion is batch-1 only; beam "
                          "decode returns the context")
+
+
+def _check_gqa_args(fresh_kv, proj) -> None:
+    """The grouped mode's contract, as the JAX dispatch asserts it
+    (``pallas_decode_attention.py:849-851``)."""
+    if fresh_kv is None:
+        raise ValueError("grouped decode is deferred-write only (fresh K/V "
+                         "required)")
+    if proj is not None:
+        raise ValueError("the out-projection fusion is equal-heads only")
+
+
+def plain_gqa_decode_attention(full_cache, layer_idx: int, q, seq_len,
+                               scale: float, kv_quant_orig_scale=None,
+                               fresh_kv: Optional[Tuple] = None,
+                               start_index=None) -> torch.Tensor:
+    """The plain PyTorch version of the grouped mode of
+    :func:`fused_decode_attention`: the grouped ``cached_decode_attention``
+    over layer ``layer_idx`` of the stacked cache."""
+    return cached_decode_attention(
+        q, layer_kv_views(full_cache, layer_idx), seq_len, scale=scale,
+        kv_quant_orig_scale=kv_quant_orig_scale, start_index=start_index,
+        fresh_kv=fresh_kv)
 
 
 def plain_beam_decode_attention(full_cache, layer_idx: int, q, seq_len,
@@ -80,6 +106,11 @@ def plain_decode_attention(full_cache, layer_idx: int, q, seq_len,
             fresh_kv, start_index, beam_indirection=beam_indirection)
     if full_cache.shape[1] != q.shape[0]:
         raise NotImplementedError("group-shared caches are not ported")
+    if q.shape[1] != full_cache.shape[3]:
+        _check_gqa_args(fresh_kv, proj)
+        return plain_gqa_decode_attention(
+            full_cache, layer_idx, q, seq_len, scale, kv_quant_orig_scale,
+            fresh_kv, start_index)
     ctx = cached_decode_attention(
         q, layer_kv_views(full_cache, layer_idx), seq_len, scale=scale,
         kv_quant_orig_scale=kv_quant_orig_scale, start_index=start_index,
@@ -120,22 +151,29 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
     row of its group that the table names (rows of one group are
     consecutive; row ``g * beams`` speaks for the group's length and
     start); fresh K/V is required and is each row's own; no ``proj``.  A
-    table narrower than S is padded.  The K-step ``tail_kv`` mode of the
-    JAX function is not ported and raises."""
+    table narrower than S is padded.
+
+    MQA/GQA: q [B, Hq, 1, D] over a cache of H = Hq / rep KV heads (query
+    head h reads KV head h // rep).  Fresh K/V [B, H, D, 1] is required and
+    there is no ``proj``, as in the JAX dispatch (:844-855); any S.  The
+    K-step ``tail_kv`` mode of the JAX function is not ported and raises."""
     if tail_kv is not None:
         raise NotImplementedError("the decode tail is not ported yet")
+    grouped = beam_indirection is None and q.shape[1] != full_cache.shape[3]
     if beam_indirection is not None:
         _check_beam_args(fresh_kv, proj)
+    elif grouped:
+        _check_gqa_args(fresh_kv, proj)
     if not q.is_cuda:
         return plain_decode_attention(full_cache, layer_idx, q, seq_len,
                                       scale, kv_quant_orig_scale, fresh_kv,
                                       start_index, proj, beam_indirection)
     L, b_kv, two, H, D, S = full_cache.shape
-    B = q.shape[0]
-    if q.shape != (B, H, 1, D):
+    B, Hq = q.shape[0], q.shape[1]
+    if q.shape != (B, Hq, 1, D) or Hq % H or (Hq != H and not grouped):
         raise NotImplementedError(
-            f"q {tuple(q.shape)} vs cache heads {H}: GQA/multi-token "
-            "decode is not ported")
+            f"q {tuple(q.shape)} vs cache heads {H}: multi-token decode and "
+            "beams over MQA/GQA caches are not ported")
     if b_kv != B:
         raise NotImplementedError("group-shared caches are not ported")
     if q.dtype != torch.bfloat16:
@@ -144,7 +182,7 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         raise NotImplementedError("fp8 KV caches are not ported yet")
     if full_cache.dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"decode kernel cache dtype {full_cache.dtype}")
-    if not full_cache.is_contiguous() or S % 4:
+    if not full_cache.is_contiguous() or (S % 4 and not grouped):
         raise ValueError("decode kernel needs a contiguous cache with S a "
                          "multiple of 4")
     dev = q.device
@@ -173,8 +211,16 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         if fk.dtype != full_cache.dtype or fk.shape != (B, H, D, 1):
             raise ValueError("fresh K/V must be [B,H,D,1] in cache dtype")
     is_int8 = full_cache.dtype == torch.int8
-    ctx = torch.empty((B, H * D), dtype=torch.bfloat16, device=dev)
+    ctx = torch.empty((B, Hq * D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if grouped:
+        _build.check(_build.load("gqa_decode_attention").gqa_decode_attention(
+            _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
+            Hq // H, D, S, _ptr(seq_t), _ptr(start_t), _ptr(ks_t),
+            float(scale), _ptr(fk), _ptr(fv), _ptr(ctx), stream),
+            "gqa_decode_attention")
+        launches["gqa_decode_attention"] += 1
+        return ctx.view(B, Hq, 1, D)
     lib = _build.load("decode_attention")
     if beam_indirection is not None:
         ind = beam_indirection

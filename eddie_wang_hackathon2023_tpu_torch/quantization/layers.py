@@ -3,6 +3,8 @@
 scale per output channel."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -36,24 +38,46 @@ class WeightOnlyQuantRowLinear(WeightOnlyQuantLinear):
 
 class WeightOnlyQuantQKVLinear(nn.Module):
     """Fused head-major QKV projection: qweight [in, 3*H*hd] int8, scales
-    [3*H*hd], bias [3, H, hd].  Returns q, k, v [B, L, H, hd]."""
+    [3*H*hd], bias [3, H, hd].  With fewer KV heads (MQA/GQA, the JAX
+    package's ``quantization/layers.py:87-151``) one fused qweight
+    [in, (H + 2*Hkv)*hd] with the columns ordered q | k | v, and the bias
+    split into ``bias`` [H, hd] and ``kv_bias`` [2, Hkv, hd] as in the float
+    layer.  Returns q [B, L, H, hd], k and v [B, L, Hkv, hd]."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
-                 bias: bool = True, dtype=torch.float32):
+                 bias: bool = True, dtype=torch.float32,
+                 num_kv_heads: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.num_kv_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
-        out = 3 * num_heads * head_dim
+        hk = self.num_kv_heads
+        if num_heads % hk:
+            raise ValueError(f"{num_heads} heads over {hk} KV heads")
+        equal = hk == num_heads
+        out = (3 * num_heads if equal else num_heads + 2 * hk) * head_dim
         self.qweight = frozen((hidden_size, out), torch.int8)
         self.per_channel_scale = frozen((out,), torch.float32)
-        self.bias = frozen((3, num_heads, head_dim), dtype) if bias else None
+        if equal:
+            self.bias = (frozen((3, num_heads, head_dim), dtype) if bias
+                         else None)
+        else:
+            self.bias = frozen((num_heads, head_dim), dtype) if bias else None
+            self.kv_bias = frozen((2, hk, head_dim), dtype) if bias else None
 
     def forward(self, x: torch.Tensor):
         b, l, _ = x.shape
+        h, hk, hd = self.num_heads, self.num_kv_heads, self.head_dim
         out = weight_only_quant_matmul(x, self.qweight,
                                        self.per_channel_scale)
-        qkv = out.reshape(b, l, 3, self.num_heads, self.head_dim)
+        if hk == h:
+            qkv = out.reshape(b, l, 3, h, hd)
+            if self.bias is not None:
+                qkv = qkv + self.bias.to(qkv.dtype)
+            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q = out[..., :h * hd].reshape(b, l, h, hd)
+        kv = out[..., h * hd:].reshape(b, l, 2, hk, hd)
         if self.bias is not None:
-            qkv = qkv + self.bias.to(qkv.dtype)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            q = q + self.bias.to(q.dtype)
+            kv = kv + self.kv_bias.to(kv.dtype)
+        return q, kv[:, :, 0], kv[:, :, 1]

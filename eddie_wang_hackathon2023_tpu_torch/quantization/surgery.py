@@ -19,11 +19,20 @@ from ..ops.quant_matmul import quantize_weights_int8
 from .mode import QuantMode
 
 
-def _flatten_qkv(path: str, w: np.ndarray) -> np.ndarray:
+def _flatten_qkv(path: str, w: np.ndarray, kv=None) -> np.ndarray:
     """A fused head-major QKV weight [*lead, 3, H, hd, in] becomes
-    [*lead, 3*H*hd, in]; other weights [*lead, out, in] pass through."""
+    [*lead, 3*H*hd, in]; a separate-KV one (MQA/GQA: q [*lead, H, hd, in]
+    and ``kv`` [*lead, 2, Hkv, hd, in]) becomes the q rows then the k and v
+    rows, [*lead, (H + 2*Hkv)*hd, in] (the JAX package's
+    ``surgery.py:291-301``); other weights [*lead, out, in] pass through."""
     if not path.endswith("qkv"):
         return w
+    if kv is not None:
+        lead = w.shape[:w.ndim - 3]
+        in_f = w.shape[-1]
+        return np.concatenate([w.reshape(lead + (-1, in_f)),
+                               np.asarray(kv, np.float32).reshape(
+                                   lead + (-1, in_f))], axis=-2)
     lead_ndim = w.ndim - 4
     three, h, hd, in_f = w.shape[lead_ndim:]
     return w.reshape(w.shape[:lead_ndim] + (three * h * hd, in_f))
@@ -46,7 +55,8 @@ def weight_only_quantize_state(state: Dict[str, np.ndarray],
                                quant_mode: QuantMode
                                ) -> Dict[str, np.ndarray]:
     """int8 weight-only: every ``<path>.weight`` becomes ``<path>.qweight``
-    [*lead, in, out] int8 + ``<path>.per_channel_scale`` [*lead, out]."""
+    [*lead, in, out] int8 + ``<path>.per_channel_scale`` [*lead, out] (a
+    separate-KV QKV's ``kv_weight`` joins its columns; ``kv_bias`` stays)."""
     if not quant_mode.is_int8_weight_only():
         raise NotImplementedError(f"{quant_mode!r}: only int8 weight-only "
                                   "is ported")
@@ -55,7 +65,8 @@ def weight_only_quantize_state(state: Dict[str, np.ndarray],
         key = f"{path}.weight"
         if key not in out:
             continue
-        w = _flatten_qkv(path, np.asarray(out.pop(key), np.float32))
+        w = _flatten_qkv(path, np.asarray(out.pop(key), np.float32),
+                         out.pop(f"{path}.kv_weight", None))
         q, s = _quantize_stacked(w, w.ndim - 2)
         out[f"{path}.qweight"] = q
         out[f"{path}.per_channel_scale"] = s

@@ -1,6 +1,7 @@
-"""Beam search (the beam part of the JAX package's ``runtime/sampling.py``:
-``beam_search_step`` :380, ``gather_beams`` :422, ``update_indirection``
-:437, ``finalize_beams`` :456).
+"""Decoding steps (the JAX package's ``runtime/sampling.py``): the greedy
+branch of ``dynamic_decode`` (:330-366) with its ``SamplingConfig``
+(:34-70), and beam search (``beam_search_step`` :380, ``gather_beams``
+:422, ``update_indirection`` :437, ``finalize_beams`` :456).
 
 Beams advance together: every tensor is ``[B, beam, ...]`` with B the
 number of groups (one per audio).  The KV cache is never reordered; the
@@ -8,15 +9,77 @@ number of groups (one per audio).  The KV cache is never reordered; the
 physical cache row that wrote it, and the decode attention reads through
 it.  Ties between equal scores go to the lower flat index first, the rule
 of ``jax.lax.top_k`` (``torch.topk`` promises no order among ties).
-Top-k/top-p sampling, penalties and stop words are not ported yet.
+Top-k/top-p sampling, penalties at other than their neutral values, and
+bad and stop words are not ported yet: they raise.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
+
+Scalar = Union[int, float]
+PerRequest = Union[Scalar, Sequence[Scalar], np.ndarray]
+
+
+@dataclasses.dataclass
+class SamplingConfig:
+    """The JAX package's ``SamplingConfig``, field for field: each knob a
+    scalar or one value per row."""
+    end_id: int = 50256
+    pad_id: int = 50256
+    num_beams: int = 1
+    temperature: PerRequest = 1.0
+    top_k: PerRequest = 1
+    top_p: PerRequest = 0.0
+    length_penalty: float = 1.0
+    repetition_penalty: PerRequest = 1.0
+    presence_penalty: PerRequest = 0.0
+    min_length: PerRequest = 0
+    random_seed: int = 0
+    bad_words_list: Optional[List[List[int]]] = None
+    stop_words_list: Optional[List[List[int]]] = None
+
+
+def all_greedy(sc: SamplingConfig) -> bool:
+    """True when every row is greedy: temperature 0, or top_k <= 1 with
+    top_p <= 0 (the JAX package's ``_all_greedy``)."""
+    t = np.asarray(sc.temperature, np.float32)
+    k = np.asarray(sc.top_k, np.int32)
+    p = np.asarray(sc.top_p, np.float32)
+    return bool(np.all((t == 0.0) | ((k <= 1) & (p <= 0.0))))
+
+
+def check_greedy_config(sc: SamplingConfig) -> None:
+    """Raise for what :func:`dynamic_decode` does not port: sampling,
+    penalties at other than their neutral values (where they are
+    identities), bad and stop words."""
+    if not all_greedy(sc):
+        raise NotImplementedError("top-k/top-p sampling is not ported")
+    if (np.any(np.asarray(sc.repetition_penalty) != 1.0)
+            or np.any(np.asarray(sc.presence_penalty) != 0.0)
+            or np.any(np.asarray(sc.min_length) > 0)):
+        raise NotImplementedError("repetition/presence penalties and "
+                                  "min_length are not ported")
+    if sc.bad_words_list or sc.stop_words_list:
+        raise NotImplementedError("bad and stop words are not ported")
+
+
+def dynamic_decode(logits: torch.Tensor, sc: SamplingConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One greedy decoding step on [B, V] logits: ([B] tokens, the first
+    of equal maxima, as ``jnp.argmax``; [B] fp32 log-probabilities of the
+    chosen tokens).  Every other mode of the JAX function raises
+    (:func:`check_greedy_config`)."""
+    check_greedy_config(sc)
+    logits = logits.float()
+    tok = torch.argmax(logits, dim=-1)
+    lp = torch.log_softmax(logits, dim=-1).gather(1, tok[:, None])[:, 0]
+    return tok, lp
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

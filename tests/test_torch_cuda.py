@@ -17,7 +17,7 @@ version in bf16 to 1e-2 on one layer and 3e-2 on three (roundings of the
 bf16 residual stream that differ by one step compound over layers).  The
 beam entry of kernel 1 is held to the same gates as kernel 1, and its
 rounding of P before P·V is pinned the same way, through a mixing
-indirection."""
+indirection; so is the grouped (MQA/GQA) kernel, with the fresh column."""
 import numpy as np
 import pytest
 import torch
@@ -418,3 +418,111 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         da.fused_decode_attention(cache, 0, q[:1, :, :1], 4, 0.125)
     with pytest.raises(TypeError):      # lengths are a [B] device tensor
         da.fused_decode_attention(cache[:, :1], 0, q[:1, :, :1], 4, 0.125)
+
+
+# columns per chunk of the grouped kernel at the shapes below
+# (``csrc/gqa_decode_attention.cu``: 128 where the shared memory allows)
+_GQA_CHUNK = 128
+
+
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_gqa_kernel_matches_plain(dev, cache_dtype, hkv):
+    """16 query heads over 1, 2 or 4 KV heads, S = 2063 (not a multiple of
+    4), per-row lengths at the chunk edges (nothing cached, one chunk and
+    one column, two chunks and one column, all of S) and starts (one of
+    them a whole chunk, which is skipped)."""
+    g = torch.Generator(device=dev).manual_seed(5 + hkv)
+    L, B, H, D, S = 2, 4, 16, 64, 2063
+    ch = _GQA_CHUNK
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    if cache_dtype == torch.int8:
+        cache = torch.randint(-127, 128, (L, B, 2, hkv, D, S), generator=g,
+                              device=dev, dtype=torch.int8)
+        fresh = tuple(torch.randint(-127, 128, (B, hkv, D, 1), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+        ks = torch.tensor(1 / 40.0, device=dev)
+    else:
+        cache = torch.randn(L, B, 2, hkv, D, S, generator=g,
+                            device=dev).bfloat16()
+        fresh = tuple(torch.randn(B, hkv, D, 1, generator=g,
+                                  device=dev).bfloat16() for _ in range(2))
+        ks = None
+    seq = torch.tensor([1, ch + 2, min(2 * ch + 2, S), S], dtype=torch.int32,
+                       device=dev)
+    start = torch.tensor([0, 3, min(ch, S - 40), 5], dtype=torch.int32,
+                         device=dev)
+    kw = dict(kv_quant_orig_scale=ks, start_index=start)
+    before = da.launches["gqa_decode_attention"]
+    out = da.fused_decode_attention(cache, 1, q, seq, 0.125, fresh_kv=fresh,
+                                    **kw)
+    assert da.launches["gqa_decode_attention"] == before + 1
+    f32 = (lambda t: t) if cache_dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_gqa_decode_attention(f32(cache), 1, q.float(), seq, 0.125,
+                                        fresh_kv=tuple(map(f32, fresh)), **kw)
+    ref16 = da.plain_gqa_decode_attention(cache, 1, q, seq, 0.125,
+                                          fresh_kv=fresh, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (B, H, 1, D)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_gqa_kernel_rounds_p_before_pv(dev, cache_dtype):
+    """As for kernel 1: 16 query heads over one KV head, one cached key
+    scores s0 above the other 1498 and the fresh one, whose probability
+    exp(-s0) = 0.25088 sits 0.45 of a bf16 step above 0.25, and every value
+    column is the same.  The context is then c (1 + 1498 bf16(p) + p) /
+    (1 + 1499 p) = 0.9965 c with P rounded before P·V (the fresh column is
+    added in fp32), and c without; the bf16 output must be the first."""
+    H, D, S = 16, 64, 1500
+    p_other = 128.45 * 2.0 ** -9
+    scale = -float(np.log(p_other))
+    cache = torch.zeros(1, 1, 2, 1, D, S, device=dev, dtype=cache_dtype)
+    cache[0, 0, 0, 0, 0, 0] = 1
+    c = (torch.arange(D, device=dev) % 7 + 1).to(cache_dtype)
+    cache[0, 0, 1, 0] = c[:, None]
+    fresh = (torch.zeros(1, 1, D, 1, device=dev, dtype=cache_dtype),
+             c.reshape(1, 1, D, 1).clone())
+    q = torch.zeros(1, H, 1, D, device=dev, dtype=torch.bfloat16)
+    q[..., 0] = 1
+    kw = (dict(kv_quant_orig_scale=torch.tensor(1.0, device=dev))
+          if cache_dtype == torch.int8 else {})
+    seq = torch.tensor([S], dtype=torch.int32, device=dev)
+    out = da.fused_decode_attention(cache, 0, q, seq, scale, fresh_kv=fresh,
+                                    **kw)[:, :, 0]
+    rep = cache.repeat_interleave(H, dim=3)     # the heads, repeated
+    ref16, ref32 = (_chunked_ctx(
+        rep, 0, q, S - 1, scale, 1.0, r, chunk=_GQA_CHUNK,
+        fresh=tuple(t[..., 0].repeat_interleave(H, dim=1) for t in fresh)
+    ).to(torch.bfloat16) for r in (True, False))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref16)
+    assert bool((out != ref32).all())
+
+
+def test_gqa_kernel_refuses_what_it_does_not_take(dev):
+    """fp8 caches and the K-step tail raise instead of falling back; the
+    grouped mode needs the fresh K/V and takes no out-projection, as the
+    JAX dispatch asserts."""
+    q = torch.zeros(2, 4, 1, 64, device=dev).bfloat16()
+    cache = torch.zeros(1, 2, 2, 1, 64, 16, device=dev).bfloat16()
+    fresh = (torch.zeros(2, 1, 64, 1, device=dev).bfloat16(),) * 2
+    seq = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):
+        da.fused_decode_attention(cache.to(torch.float8_e4m3fn), 0, q, seq,
+                                  0.125, fresh_kv=tuple(
+                                      t.to(torch.float8_e4m3fn)
+                                      for t in fresh))
+    with pytest.raises(NotImplementedError):
+        da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
+                                  tail_kv=(cache, 0))
+    with pytest.raises(ValueError):
+        da.fused_decode_attention(cache, 0, q, seq, 0.125)
+    w = torch.zeros(256, 256, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
+                                  proj=(w, torch.ones(256, device=dev), None))

@@ -31,9 +31,9 @@ from eddie_wang_hackathon2023_tpu.quantization.surgery import (
     weight_only_quantize_state as j_weight_only_quantize_state)
 from eddie_wang_hackathon2023_tpu_torch.layers.attention import (
     linear_classes)
+from eddie_wang_hackathon2023_tpu_torch.models._state import unstack_blocks
 from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
     BENCH_RECIPE, WhisperConfig, from_jax_state)
-from eddie_wang_hackathon2023_tpu_torch.models.whisper.convert import _unstack
 from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import (
     CrossAttnKV, WhisperDecoder, WhisperEncoder)
 from eddie_wang_hackathon2023_tpu_torch.models.whisper.pipeline import (
@@ -78,7 +78,7 @@ PACK_KW = dict(n_layer=L, hidden=D, n_head=H, head_dim=HD, ffn=4 * D,
 def _port_decoder():
     with torch.device("cpu"):
         dec = WhisperDecoder(PCFG, QuantMode.use_weight_only())
-    dec.load_state_dict(_unstack(DEC_SD))
+    dec.load_state_dict(unstack_blocks(DEC_SD))
     return dec.eval()
 
 

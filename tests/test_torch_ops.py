@@ -104,7 +104,11 @@ def test_decode_modes_not_ported_raise(mode):
     elif mode == "group_shared":
         q = torch.zeros(2, 2, 1, 16)        # two rows share one cache row
     else:
-        q = torch.zeros(1, 4, 1, 16)        # more query heads than KV heads
+        # more query heads than KV heads (the grouped mode, ported) with the
+        # K-step tail, which the grouped mode does not port either
+        q = torch.zeros(1, 4, 1, 16)
+        kw["fresh_kv"] = (torch.zeros(1, 2, 16, 1), torch.zeros(1, 2, 16, 1))
+        kw["tail_kv"] = (cache, 0)
     with pytest.raises(NotImplementedError):
         pdec.fused_decode_attention(cache, 0, q, 4, 0.25, **kw)
 

@@ -211,14 +211,16 @@ def test_transcribe_token_exact(recipe, without_timestamps, batch):
 
 
 def test_chip_smoke_main_path_on_cpu():
-    """``chip_smoke.py``'s three paths, rehearsed on the CPU at a tiny size
-    with head dim 64 as on the card: model builds (the bench recipe with
+    """``chip_smoke.py``'s paths, rehearsed on the CPU at a tiny size
+    with head dim 64 as on the card (the decoder path cut to 2 layers of
+    width 256, vocab 97): model builds (the bench recipe with
     the megakernel decode; the recipe without sqenc on the scanned and
     beam paths), transcription (greedy, and beam search with 5 beams), the
     teacher-forced replay against the plain scanned path (exact on the
     scanned and beam paths; the megakernel's plain version sums in another
     order) and the end-to-end timing.  No kernel is launched from CPU
     tensors, and the beam path does not take the megakernel it asks for."""
+    import dataclasses
     import importlib.util
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
@@ -229,7 +231,11 @@ def test_chip_smoke_main_path_on_cpu():
                            "n_text_state": 128, "n_text_head": 2,
                            "n_text_ctx": 96})
     results = {}
-    e2e = smoke.paths(torch, np, results, config=cfg, device="cpu")
+    dec_cfg = dataclasses.replace(
+        smoke.santacoder_1b_config(), vocab_size=97, hidden_size=256,
+        num_layers=2, num_heads=2, max_position_embeddings=128)
+    e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
+                      decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {
         k: 0 for k in smoke.KERNELS}
     assert e2e["main"]["megakernel"] and not e2e["scanned"]["megakernel"]
@@ -241,3 +247,4 @@ def test_chip_smoke_main_path_on_cpu():
     for path in ("main", "scanned", "beam"):
         assert e2e[path]["encoder_block_rms_rel_err"] == 0.0
         assert e2e[path]["utt_per_s"] > 0
+    assert e2e["decoder"]["logits_rel_err"] == 0.0

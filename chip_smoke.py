@@ -35,7 +35,15 @@
    package's ``benchmarks/benchmark.py -m santacoder_1b --quant woq8`` runs
    it; each decode step runs the grouped decode kernel once per layer.
    Prints tokens/s, the decode step's wall and device-busy time and peak
-   memory.
+   memory.  Last the serve path: GPT-350M (24 layers, d 1024, 16 heads of
+   64, vocab 51200, 128 positions, bf16, float weights) behind the port's
+   ``ContinuousBatchingManager`` with 8 slots over a block-paged KV pool of
+   32-token blocks, 64 requests of 60 prompt tokens and 20 new tokens each,
+   greedy, as the JAX package's ``benchmarks/serve_bench.py --paged`` runs
+   it; each decode tick runs the paged decode kernel once per layer.  Its
+   teacher-forced check replays the recorded prefills and first ticks on a
+   fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
+   wall and device-busy time and peak memory.
 4. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
@@ -97,6 +105,10 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/gqa_decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:410"),
+    "paged_decode_attention": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:612"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
@@ -107,7 +119,8 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
            "flash_attention": "scanned", "beam_decode_attention": "beam",
            "decode_attention_int8_b5": "beam",
-           "gqa_decode_attention": "decoder"}
+           "gqa_decode_attention": "decoder",
+           "paged_decode_attention": "serve"}
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
@@ -116,6 +129,10 @@ BEAM_SIZE = 5
 # the decoder path: benchmark.py's defaults (batch 8, 60 prompt tokens, 20
 # new ones)
 DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 60, 20
+# the serve path: serve_bench.py's defaults (64 requests through 8 slots, 60
+# prompt tokens, 20 new ones, max_seq_len 128, 32 tokens per block)
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 64, 8, 60, 20
+SERVE_MAX_SEQ, SERVE_BLOCK = 128, 32
 
 
 class SmokeFailure(Exception):
@@ -294,29 +311,36 @@ def kernel_breakdown(torch, run, n, top=8):
     return sum(per_name.values()), dict(largest)
 
 
-def step_timing(torch, model, calls, cache, label, n_prof=8):
-    """Where a decoder step's time goes: the recorded ``calls`` of one run
-    (forward pre-hook: (args, kwargs), the cache second among the args)
-    replayed on ``cache``: call 0 (the prefill), then calls 1..n_prof timed
-    as steps: their wall time, their device-busy time (CUDA events behind
-    spins, a step cut at its blocks) and, where the profiler can trace the
-    card, the device time of each kernel.  Prints them; returns a dict."""
+def replayer(model, calls, cache):
+    """``call(j)``: the recorded call j of one run (forward pre-hook:
+    (args, kwargs), the cache second among the args) replayed on
+    ``cache``."""
     def call(j):
         args, kw = calls[j]
-        model(args[0], cache, *args[2:], **kw)
+        return model(args[0], cache, *args[2:], **kw)
+    return call
 
+
+def step_timing(torch, model, call, label, first=1, n_prof=8):
+    """Where a decoder step's time goes: ``call(j)`` replays recorded call
+    j on a fresh cache; calls 0..first-1 (the prefills) run first, then
+    calls first..first+n_prof-1 are timed as steps: their wall time, their
+    device-busy time (CUDA events behind spins, a step cut at its blocks)
+    and, where the profiler can trace the card, the device time of each
+    kernel.  Prints them; returns a dict."""
     def steps():
         for j in range(n_prof):
-            call(1 + j)
+            call(first + j)
         torch.cuda.synchronize()
 
     with torch.inference_mode():
-        call(0)
+        for j in range(first):
+            call(j)
         steps()
         t = time.perf_counter()
         steps()
         step_ms = (time.perf_counter() - t) / n_prof * 1e3
-        busy = [step_device_ms(torch, model, lambda j=j: call(1 + j),
+        busy = [step_device_ms(torch, model, lambda j=j: call(first + j),
                                step_ms) for j in range(n_prof)]
         busy_ms = None if None in busy else sum(busy) / n_prof
         kern_ms, top = kernel_breakdown(torch, steps, n_prof)
@@ -560,6 +584,7 @@ def kernel_phases(torch, results):
     megakernel_phase(torch, results, gen)
     beam_phase(torch, results, gen)
     gqa_phase(torch, results, gen)
+    paged_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -950,6 +975,120 @@ def gqa_phase(torch, results, gen):
         rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
 
 
+def paged_phase(torch, results, gen):
+    """The paged decode kernel against its plain version: at the serve
+    path's shapes (8 rows, a bf16 pool of 24 layers x 32 blocks of 32
+    tokens, 16 KV heads of 64, ragged lengths 61-80, each row's blocks a
+    permuted draw, -1 past its length) and at MQA shapes with an int8 pool
+    (one KV head under 16 query heads of 128); then both timed against
+    their plain versions and SDPA on K/V gathered through the table
+    beforehand (the gather timed on its own)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, N, T, B, MB = 24, 32, SERVE_BLOCK, SERVE_SLOTS, SERVE_MAX_SEQ // \
+        SERVE_BLOCK
+
+    def case(hkv, rep, d, int8):
+        """(pool, q, table, seq, kwargs) of one call"""
+        shape = (L, N, 2, hkv, T, d)
+        pool = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) if int8 else
+                torch.randn(shape, generator=gen, device=dev).bfloat16())
+        q = torch.randn((B, hkv * rep, 1, d), generator=gen,
+                        device=dev).bfloat16()
+        seq = torch.randint(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
+                            (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        table = torch.randperm(N, generator=gen, device=dev).to(
+            torch.int32).reshape(B, MB)
+        need = (seq + T - 1) // T
+        table = torch.where(torch.arange(MB, device=dev)[None, :]
+                            < need[:, None], table, -1)
+        kw = dict(scale=d ** -0.5, kv_quant_orig_scale=(
+            torch.tensor(1 / 40.0, device=dev) if int8 else None))
+        return pool, q, table, seq, kw
+
+    def call(impl, pool, layer, q, table, seq, kw):
+        return impl(pool, layer, q, table, seq, kw["scale"],
+                    kv_quant_orig_scale=kw["kv_quant_orig_scale"])
+
+    def gathered(pool, layer, table, kw):
+        """one layer's K and V through the table, [B, Hkv, MB*T, D] bf16"""
+        blocks = pool[layer][table.long().clamp(min=0)]   # [B,MB,2,Hkv,T,D]
+        if pool.dtype == torch.int8:
+            blocks = (blocks.float() * kw["kv_quant_orig_scale"]).bfloat16()
+        b, mb, _, hkv, t, d = blocks.shape
+        return tuple(blocks[:, :, j].transpose(1, 2).reshape(
+            b, hkv, mb * t, d).contiguous() for j in (0, 1))
+
+    cases = {"path: bf16, 16 KV heads of 64, T 32, seq 61-80":
+             case(16, 1, 64, False),
+             "MQA: int8, 1 KV head x 16, D 128, T 32, seq 61-80":
+             case(1, 16, 128, True)}
+    timings = {}
+    for what, (pool, q, table, seq, kw) in cases.items():
+        out = call(da.fused_paged_decode_attention, pool, L - 1, q, table,
+                   seq, kw)
+        ref = call(da.plain_paged_decode_attention, pool, L - 1, q, table,
+                   seq, kw)
+        f32 = (lambda t: t) if pool.dtype == torch.int8 else (
+            lambda t: t.float())
+        ref32 = call(da.plain_paged_decode_attention, f32(pool), L - 1,
+                     q.float(), table, seq, kw)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        print(f"paged decode ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(bool(torch.isfinite(out).all()) and e16 < 2e-2 and e32 < 1e-2,
+              f"paged decode attention ({what}) matches plain (rel 2e-2 "
+              "bf16, 1e-2 fp32)")
+        # timed rotating over the 24 layers (100 MB of bf16 pool, past the
+        # 50 MB L2); the plain version and the gather launch some 30
+        # kernels a call, so 10 calls of them fit in the launch queue
+        ms, wall = time_ms(torch, lambda i: call(
+            da.fused_paged_decode_attention, pool, i % L, q, table, seq, kw))
+        plain_ms, _ = time_ms(torch, lambda i: call(
+            da.plain_paged_decode_attention, pool, i % L, q, table, seq, kw),
+            iters=10)
+        gather_ms, _ = time_ms(torch, lambda i: gathered(pool, i % L, table,
+                                                         kw), iters=10)
+        k_g, v_g = (torch.stack(t) for t in zip(*(
+            gathered(pool, i, table, kw) for i in range(L))))
+        mask = (torch.arange(MB * T, device=dev)[None, :]
+                < seq[:, None])[:, None, None, :]
+        gqa = q.shape[1] != pool.shape[3]
+        lib_ms, _ = time_ms(torch, lambda i: sdpa(
+            q, k_g[i % L], v_g[i % L], attn_mask=mask, scale=kw["scale"],
+            enable_gqa=gqa))
+        lib_err = rel_err(sdpa(q, k_g[L - 1], v_g[L - 1], attn_mask=mask,
+                               scale=kw["scale"], enable_gqa=gqa), out)
+        del k_g, v_g
+        # bytes: K and V of the valid tokens (the pool is token-major, so a
+        # partial block's tail need not be read), q, the output, the table
+        # and the lengths; operations: 4 per (query head, valid key, d)
+        hkv, d, h = pool.shape[3], pool.shape[5], q.shape[1]
+        n_bytes = (int(seq.sum()) * 2 * hkv * d * pool.element_size()
+                   + 2 * B * h * d * 2 + B * MB * 4 + B * 4)
+        b_ms, b_by = bound(n_bytes, 4 * h * d * int(seq.sum()),
+                           PEAK_FP32_CUDA_CORES)
+        print(f"paged decode ({what}): {ms * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f} MB); plain "
+              f"{plain_ms * 1e3:.2f} us; SDPA on the gathered K/V "
+              f"{lib_ms * 1e3:.2f} us (rel err vs the kernel {lib_err:.3e}) "
+              f"+ the gather {gather_ms * 1e3:.2f} us")
+        timings[what] = dict(
+            max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_gather_ms=gather_ms, host_call_ms=wall,
+            rel_err_vs_plain=(e16, e32))
+    path, mqa = (timings[k] for k in cases)
+    results["paged_decode_attention"] = dict(
+        **path, mqa_int8={k: mqa[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "library_gather_ms",
+            "rel_err_vs_plain")})
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def random_openai_state(np, config, rng):
@@ -1007,15 +1146,18 @@ def plain_kernels():
     from eddie_wang_hackathon2023_tpu_torch.layers import attention as la
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
-    saved = la.fused_decode_attention, la.flash_mha
+    saved = (la.fused_decode_attention, la.flash_mha,
+             la.fused_paged_decode_attention)
     la.fused_decode_attention = da.plain_decode_attention
     la.flash_mha = lambda q, k, v, causal=False, scale=None, \
         kv_valid_len=None, out=None: out.copy_(
             fa.plain_flash_mha(q, k, v, causal, scale, kv_valid_len))
+    la.fused_paged_decode_attention = da.plain_paged_decode_attention
     try:
         yield
     finally:
-        la.fused_decode_attention, la.flash_mha = saved
+        (la.fused_decode_attention, la.flash_mha,
+         la.fused_paged_decode_attention) = saved
 
 
 def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
@@ -1229,8 +1371,8 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     # the share of the casts that is the int8 lm_head's
     step_info = {}
     if on_card:
-        step_info = step_timing(torch, dec, calls, dec.new_kv_cache(rows),
-                                label)
+        step_info = step_timing(
+            torch, dec, replayer(dec, calls, dec.new_kv_cache(rows)), label)
         with torch.inference_mode():
             lm_cast_ms, _ = time_ms(torch, lambda i: dec.lm_head_qweight.to(
                 dtype), iters=10)
@@ -1431,8 +1573,10 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
     check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
           "max |logit|)")
 
-    step_info = (step_timing(torch, model, calls, model.new_kv_cache(
-        DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW), label) if on_card else {})
+    step_info = (step_timing(torch, model, replayer(
+        model, calls, model.new_kv_cache(
+            DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW)), label)
+        if on_card else {})
 
     # end to end: the best of 3 whole decode calls (prefill included), each
     # on prompts of its own, as benchmark.py times them
@@ -1455,15 +1599,207 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
     return e2e, counts
 
 
+def gpt_350m_config():
+    """GPT-350M as the JAX package's ``benchmarks/serve_bench.py:18-21,63-67``
+    defines it (24 layers, d 1024, 16 heads, vocab 51200, learned positions
+    as many as ``max_seq_len``), bf16, float weights."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderConfig
+    return DecoderConfig(vocab_size=51200, hidden_size=1024, num_layers=24,
+                         num_heads=16, max_position_embeddings=SERVE_MAX_SEQ,
+                         dtype="bfloat16")
+
+
+def serve_path(torch, np, config=None, device="cuda", label="serve"):
+    """The serve path on ``device``: ``config`` (default GPT-350M) with
+    random weights from the seed behind the port's
+    ``ContinuousBatchingManager`` (SERVE_SLOTS slots, a block-paged pool of
+    SERVE_BLOCK-token blocks, greedy, ``end_id=-1``), SERVE_REQUESTS
+    requests of SERVE_PROMPT tokens and SERVE_NEW new ones, as the JAX
+    package's ``benchmarks/serve_bench.py --paged`` runs them: a warm-up run
+    that records every model call, then three timed runs (the first one
+    counted), the teacher-forced check and the tick's timing.  A smaller
+    ``config`` and the CPU rehearse it without a card (the launch counts
+    are then not checked).  Returns (numbers, launch counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import \
+        PagedCacheState
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        ContinuousBatchingManager, InferenceRequest, SamplingConfig)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c = config or gpt_350m_config()
+    t0 = time.time()
+    model = from_jax_state(random_decoder_state(
+        torch, np, c, np.random.default_rng(SEED)), c, device=device)
+    sync()
+    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, vocab {c.vocab_size}, "
+          f"{c.dtype}, built in {time.time() - t0:.1f} s")
+    rs = np.random.RandomState(0)
+
+    def requests():
+        return [InferenceRequest(i, rs.randint(0, c.vocab_size, (
+            SERVE_PROMPT,)).astype(np.int32), max_new_tokens=SERVE_NEW,
+            end_id=-1) for i in range(SERVE_REQUESTS)]
+
+    mgr = ContinuousBatchingManager(
+        model, SamplingConfig(end_id=-1, pad_id=0),
+        max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ, paged=True,
+        tokens_per_block=SERVE_BLOCK, device=device)
+    print(f"[{label}] {SERVE_SLOTS} slots, a pool of {mgr.num_blocks} blocks "
+          f"of {SERVE_BLOCK} tokens, {SERVE_REQUESTS} requests of "
+          f"{SERVE_PROMPT}+{SERVE_NEW} tokens")
+
+    def run(queue):
+        """One drain of ``queue``, timed as serve_bench.py times it:
+        (responses, {request: pull-to-first-response seconds}, wall s).
+        Without streaming the first response is the finished one."""
+        done, admitted_at, first_tok = [], {}, {}
+
+        def pull(n):
+            out = [queue.pop(0) for _ in range(min(n, len(queue)))]
+            now = time.time()
+            for r in out:
+                admitted_at[r.request_id] = now
+            return out
+
+        def push(r):
+            if r.request_id not in first_tok and r.request_id in admitted_at:
+                first_tok[r.request_id] = time.time() - \
+                    admitted_at[r.request_id]
+            if r.finished:
+                done.append(r)
+
+        mgr.get_inference_requests, mgr.send_response = pull, push
+        sync()
+        t = time.time()
+        mgr.run()
+        sync()
+        return done, first_tok, time.time() - t
+
+    # warm-up, recording every model call (tokens, a copy of the table,
+    # write index, length) for the teacher-forced replay below
+    calls = []
+    hook = model.register_forward_pre_hook(
+        lambda mod, args: calls.append(
+            (args[0], args[1].block_table.clone(), args[2], args[3])))
+    try:
+        done, _, _ = run(requests())
+    finally:
+        hook.remove()
+    prefills = sum(tok.shape[1] > 1 for tok, *_ in calls)
+    check(len(done) == SERVE_REQUESTS and prefills == SERVE_REQUESTS
+          and all(len(r.output_ids) == SERVE_NEW
+                  and all(0 <= t < c.vocab_size for t in r.output_ids)
+                  for r in done),
+          f"[{label}] {SERVE_REQUESTS} requests served, {SERVE_NEW} tokens "
+          "each, in range")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for m in (da, fa, mk):
+        m.reset_launches()
+    ticks0 = mgr.decode_ticks
+    runs = [run(requests())]
+    counts = {**da.launches, **fa.launches, **mk.launches}
+    ticks = mgr.decode_ticks - ticks0
+    peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+    print(f"[{label}] {ticks} decode ticks, launches {counts}")
+    check(len(runs[0][0]) == SERVE_REQUESTS,
+          f"[{label}] the counted run served every request")
+    if on_card:
+        check(counts["paged_decode_attention"] == c.num_layers * ticks
+              and all(n == 0 for k, n in counts.items()
+                      if k != "paged_decode_attention"),
+              f"[{label}] paged decode kernel launched {c.num_layers} times "
+              "per decode tick, no other attention kernel")
+
+    # teacher forcing: the first tick's prefills and the first ticks, on a
+    # fresh pool, through the kernel and through its plain version
+    n_check = 8
+
+    def replay_call(pool):
+        def call(j):
+            tok, table, widx, seq = calls[j]
+            return model(tok, PagedCacheState(pool, table), widx, seq)
+        return call
+
+    def replay(plain):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        call = replay_call(model.new_paged_pool(mgr.num_blocks, SERVE_BLOCK))
+        logits = []
+        with ctx, torch.inference_mode():
+            for j in range(SERVE_SLOTS + n_check):
+                lg, _ = call(j)
+                seq = calls[j][3]
+                logits.append(lg[:, -1] if lg.shape[1] == 1
+                              else lg[:, int(seq[0]) - 1])
+        return torch.cat(logits)
+
+    check(all(calls[j][0].shape[1] > 1 for j in range(SERVE_SLOTS))
+          and all(calls[j][0].shape == (SERVE_SLOTS, 1) for j in range(
+              SERVE_SLOTS, SERVE_SLOTS + n_check)),
+          f"[{label}] the recorded run opens with {SERVE_SLOTS} prefills and "
+          f"{n_check} ticks")
+    lk, lp = replay(False), replay(True)
+    e_lg = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"[{label}] teacher-forced logits ({SERVE_SLOTS} prefills + "
+          f"{n_check} ticks), kernel path vs plain path: rel err {e_lg:.3e}, "
+          f"argmax agreement {agree:.3f}")
+    check(bool(torch.isfinite(lk).all()), f"[{label}] logits finite")
+    check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
+          "max |logit|)")
+
+    step_info = (step_timing(torch, model, replay_call(model.new_paged_pool(
+        mgr.num_blocks, SERVE_BLOCK)), label, first=SERVE_SLOTS)
+        if on_card else {})
+
+    # serve_bench's metrics, best of 3 timed runs (the counted one first)
+    runs += [run(requests()) for _ in range(2)]
+    walls = [dt for _, _, dt in runs]
+    done, first_tok, dt = min(runs, key=lambda r: r[2])
+    toks = sum(len(r.output_ids) for r in done)
+    lat = sorted(first_tok.values())
+    lat_mean = 1e3 * sum(lat) / len(lat)
+    lat_p95 = 1e3 * lat[int(0.95 * (len(lat) - 1))]
+    print(f"[{label}] end to end: req_per_s {len(done) / dt:.3f} "
+          f"tokens_per_sec {toks / dt:.2f} first_token_ms_mean {lat_mean:.1f} "
+          f"p95 {lat_p95:.1f} (best of 3: " + ", ".join(
+              f"{w:.3f}" for w in walls) + f" s); peak memory {peak_gib:.2f} "
+          "GiB")
+    e2e = dict(**step_info, requests=len(done), total_new_tokens=toks,
+               decode_ticks=ticks, prefills=prefills, wall_s=dt,
+               wall_s_runs=walls, req_per_s=len(done) / dt,
+               tokens_per_sec=toks / dt, first_token_ms_mean=lat_mean,
+               first_token_ms_p95=lat_p95, num_layers=c.num_layers,
+               peak_gib=peak_gib, logits_rel_err=e_lg,
+               logits_argmax_agreement=agree)
+    return e2e, counts
+
+
 def paths(torch, np, results, config=None, device="cuda",
-          decoder_config=None):
+          decoder_config=None, serve_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the scanned path (decode_megakernel=False, recipe without sqenc, depth
     cut to SCANNED_DEPTH layers to keep the run short), then the beam path
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
-    (default SantaCoder-1B).  Each kernel's launches come from the path
-    that drives it, and must be above 0 there on the card."""
+    (default SantaCoder-1B) and the serve path with ``serve_config``
+    (default GPT-350M).  Each kernel's launches come from the path that
+    drives it, and must be above 0 there on the card."""
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
@@ -1491,15 +1827,17 @@ def paths(torch, np, results, config=None, device="cuda",
         label="beam", beam=BEAM_SIZE)
     dec_e2e, dec_counts = decoder_path(torch, np, config=decoder_config,
                                        device=device)
+    serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
+                                         device=device)
     counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts,
-                  decoder=dec_counts)
+                  decoder=dec_counts, serve=serve_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
     return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e,
-                decoder=dec_e2e)
+                decoder=dec_e2e, serve=serve_e2e)
 
 
 def main():

@@ -13,8 +13,16 @@ Modes, as in the JAX package:
   MQA/GQA (``num_kv_heads``) keeps Hkv heads in the cache;
 * cross-attention over the stacked cross cache (``cross_key_value =
   (cache, layer)`` or ``((cache, scales), layer)`` for int8 with per-layer
-  scales).
-Single-token decode goes through the decode kernel
+  scales);
+* decoder self-attention over the block-paged pool (``past_key_value`` a
+  :class:`..ops.paged_attention.PagedKV`, paged serving): a single-token
+  step writes its K/V through the block table at each row's
+  ``cache_write_index`` and reads the pool through the paged decode kernel
+  (:func:`..ops.decode_attention.fused_paged_decode_attention`); a prompt
+  (write index 0) is stored with ``paged_prefill`` and attends causally
+  over its fresh K/V, with no length mask (prompts are right-padded).
+  Mixed windows (several tokens at per-row positions) raise.
+Single-token decode over the stacked cache goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
 when the cache has fewer heads), with the int8 out-projection fused when
 the dense layer is weight-only int8 at batch 1 with equal heads (never with
@@ -33,8 +41,10 @@ from ..functional import causal_bias
 from ..ops.attention import (append_kv_stacked, cached_decode_attention,
                              cast_kv_for_cache, layer_kv_views,
                              multihead_attention)
-from ..ops.decode_attention import fused_decode_attention
+from ..ops.decode_attention import (fused_decode_attention,
+                                    fused_paged_decode_attention)
 from ..ops.flash_attention import flash_mha
+from ..ops.paged_attention import PagedKV, paged_append_kv, paged_prefill
 from ..quantization.layers import (WeightOnlyQuantLinear,
                                    WeightOnlyQuantQKVLinear,
                                    WeightOnlyQuantRowLinear)
@@ -201,6 +211,38 @@ class Attention(nn.Module):
             return res[:, None, :]
         return self.dense(self._merge_heads(res))
 
+    def _paged(self, q, k, v, pk: PagedKV, sequence_length, write_index):
+        """Self-attention over the block pool (the JAX layer's paged
+        branch, ``layers/attention.py:474-551``): q [B, H, L, D], k/v
+        [B, Hkv, L, D].  Returns (the attention output [B, L, N], the
+        pool, updated in place)."""
+        if not self.causal:
+            raise NotImplementedError("paged attention is causal")
+        l = q.shape[2]
+        if l == 1:
+            # generation: the token's K/V first, then the pool through the
+            # kernel, which reads the token from the pool
+            paged_append_kv(pk.pool, k, v, pk.block_table, write_index,
+                            layer_idx=pk.layer_idx, slots=pk.slots)
+            ctx = fused_paged_decode_attention(
+                pk.pool, pk.layer_idx, q, pk.block_table, sequence_length,
+                self.scale)
+        elif torch.is_tensor(write_index) and write_index.dim() >= 1:
+            raise NotImplementedError("mixed context+generation windows "
+                                      "(paged_append_window) are not ported")
+        elif write_index != 0:
+            raise ValueError("a paged prompt is written from position 0")
+        else:
+            paged_prefill(pk.pool, k, v, pk.block_table,
+                          layer_idx=pk.layer_idx)
+            rep = self.num_attention_heads // self.num_attention_kv_heads
+            if rep > 1:
+                k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+            ctx = multihead_attention(
+                q, k, v, bias=causal_bias(l, l, device=q.device),
+                scale=self.scale)
+        return self.dense(self._merge_heads(ctx)), pk.pool
+
     def forward(self, hidden_states: torch.Tensor, past_key_value=None,
                 sequence_length=None, cross_key_value=None,
                 cache_write_index: Optional[int] = None,
@@ -238,6 +280,11 @@ class Attention(nn.Module):
 
         q, k, v = self.qkv(hidden_states)          # [B, L, H, D]
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+
+        if isinstance(past_key_value, PagedKV):
+            out, pool = self._paged(q, k, v, past_key_value, sequence_length,
+                                    cache_write_index)
+            return (out, pool) if use_cache else out
 
         if isinstance(past_key_value, tuple) and len(past_key_value) == 3:
             # deferred-write decode: the cache is read as it is, the current

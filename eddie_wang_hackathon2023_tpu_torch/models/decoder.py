@@ -3,20 +3,29 @@
 positions, LayerNorm, a plain MLP, the sequential pre-LN residual, tied
 word embeddings, and MQA/GQA attention (SantaCoder / StarCoder class).
 
-Forward contract (used by :mod:`..runtime.generation`)::
+Forward contract (used by :mod:`..runtime.generation` and
+:mod:`..runtime.batch_manager`)::
 
     logits, kv_cache = model(tokens, kv_cache, write_index,
                              sequence_length, attention_start)
 
-with the stacked seq-minor KV cache ``[L, B, 2, Hkv, head_dim, S]``, which
-the port updates in place.  The JAX package scans one block over weights
+with either the stacked seq-minor KV cache ``[L, B, 2, Hkv, head_dim, S]``
+and one ``write_index`` for all rows, or (paged serving) a
+:class:`..ops.paged_attention.PagedCacheState`: the block pool
+``[L, N + 1, 2, Hkv, T, head_dim]`` (``new_paged_pool``) with the block
+tables, and either a prompt written from position 0 or one token per row
+at the per-row positions ``write_index`` [B].  The port updates the cache
+or the pool in place.  The JAX package scans one block over weights
 stacked [n_layer, ...]; the port keeps one module per layer and loops over
-them in Python.  A single-token step stores every layer's fresh K/V once,
-after the loop (``models/decoder.py:458-460``); its self-attention goes
-through the decode kernel (the grouped mode when the cache has fewer heads
-than the query).  RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP,
-the parallel and deepnorm residuals, untied or biased LM heads, the paged
-pool, the K-step tail, beams and the megakernel are not ported and raise
+them in Python.  A single-token step over the stacked cache stores every
+layer's fresh K/V once, after the loop (``models/decoder.py:458-460``);
+its self-attention goes through the decode kernel (the grouped mode when
+the cache has fewer heads than the query); over the pool, each layer
+writes its token through the table and reads the pool through the paged
+decode kernel.  RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP, the
+parallel and deepnorm residuals, untied or biased LM heads, per-row write
+positions on the stacked cache, mixed prompt/decode windows on the pool,
+the K-step tail, beams and the megakernel are not ported and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,6 +40,8 @@ from .._utils import pad_vocab_size, str_dtype_to_torch
 from ..functional import matmul_fp32
 from ..layers import MLP, Attention, Embedding, LayerNorm
 from ..ops.attention import write_fresh_kv
+from ..ops.paged_attention import (PagedCacheState, PagedKV,
+                                   new_block_pool, token_slots)
 from ..quantization.mode import QuantMode
 
 # the linear layers of one block, as stacked state-dict paths (the
@@ -172,23 +183,40 @@ class DecoderLMHead(nn.Module):
                            dtype=per_layer.dtype,
                            device=self.vocab_embedding.weight.device)
 
-    def forward(self, tokens: torch.Tensor, kv_cache: torch.Tensor,
-                write_index: int, sequence_length, attention_start=None,
+    def new_paged_pool(self, num_blocks: int, tokens_per_block: int
+                       ) -> torch.Tensor:
+        """Zeroed stacked block pool [n_layer, N + 1, 2, Hkv, T, head_dim]
+        for paged serving (N blocks and the sink of the dropped writes,
+        :func:`..ops.paged_attention.new_block_pool`), in the model's dtype,
+        on its device."""
+        c = self.config
+        return new_block_pool(num_blocks, c.num_kv_heads, tokens_per_block,
+                              c.head_dim, dtype=self.dtype,
+                              num_layers=c.num_layers,
+                              device=self.vocab_embedding.weight.device)
+
+    def forward(self, tokens: torch.Tensor, kv_cache, write_index,
+                sequence_length, attention_start=None,
                 beam_indirection=None, kv_tail=None, megakernel_blobs=None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, object]:
         """tokens [B, T] (left-padded prompts use ``attention_start`` [B]);
-        ``write_index``: the cache column of tokens[:, 0], one for all rows;
-        ``sequence_length``: the valid length including these tokens (an int
-        or a [B] tensor; a single-token step makes an int a [B] tensor once
-        for all layers).  Returns (logits [B, T, vocab] fp32, kv_cache)."""
+        ``write_index``: the cache column of tokens[:, 0], one for all rows,
+        or over the paged pool a [B] tensor of per-row positions (one token
+        per row); ``sequence_length``: the valid length including these
+        tokens (an int or a [B] tensor; a single-token step makes an int a
+        [B] tensor once for all layers).  Returns (logits [B, T, vocab]
+        fp32, kv_cache)."""
         if beam_indirection is not None or kv_tail is not None \
                 or megakernel_blobs is not None:
             raise NotImplementedError("beams, the K-step tail and the "
                                       "megakernel are not ported for the "
                                       "decoder-only path")
+        if isinstance(kv_cache, PagedCacheState):
+            return self._paged_forward(tokens, kv_cache, write_index,
+                                       sequence_length, attention_start)
         if not torch.is_tensor(kv_cache) or not isinstance(write_index, int):
-            raise NotImplementedError("the paged pool and per-row write "
-                                      "positions are not ported")
+            raise NotImplementedError("per-row write positions are ported "
+                                      "for the paged pool only")
         c = self.config
         b, t = tokens.shape
         x = self.vocab_embedding(tokens)
@@ -219,6 +247,42 @@ class DecoderLMHead(nn.Module):
         if c.final_norm:
             x = self.ln_f(x)
         return self._logits(x), kv_cache
+
+    def _paged_forward(self, tokens, state: PagedCacheState, write_index,
+                       sequence_length, attention_start):
+        """The paged serving path (the JAX model's ``models/decoder.py``
+        :339-360): positions per row from ``write_index``, each layer given
+        ``PagedKV(pool, table, layer)`` and, for a one-token step, the write
+        slots of the rows' tokens, found once.  A slot that is not live still
+        rides the step at length 0, so its position is -1, which is clamped
+        here (the JAX gather wraps or clamps it); its output is discarded by
+        the caller."""
+        if attention_start is not None:
+            raise NotImplementedError("left-padded prompts (attention_start) "
+                                      "are not ported for the paged pool")
+        c = self.config
+        b, t = tokens.shape
+        x = self.vocab_embedding(tokens)
+        if c.position_embedding == "learned":
+            base = (write_index[:, None].long()
+                    if torch.is_tensor(write_index) else write_index)
+            pos = base + torch.arange(t, device=x.device)[None, :]
+            pos = pos.clamp(0, c.max_position_embeddings - 1)
+            x = x + self.position_embedding(pos.expand(b, t)
+                                            + c.position_offset)
+        pool, table = state.pool, state.block_table
+        slots = None
+        if t == 1:
+            # where each row's token lands: the same in every layer
+            pos = torch.as_tensor(write_index, device=x.device).reshape(-1)
+            slots = token_slots(table, pos.expand(b)[:, None],
+                                pool.shape[1] - 1, pool.shape[4])
+        for li, block in enumerate(self.blocks):
+            x, pool = block(x, PagedKV(pool, table, li, slots), write_index,
+                            sequence_length)
+        if c.final_norm:
+            x = self.ln_f(x)
+        return self._logits(x), PagedCacheState(pool, table)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied logits accumulated and returned in fp32

@@ -46,6 +46,10 @@ SIGNATURES = {
         "gqa_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                                  _P, _F, _P, _P, _P, _P],
     },
+    "paged_decode_attention": {
+        "paged_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P, _P, _P, _F, _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
 """Single-token decode attention with the fused int8 out-projection, its
-beam-search mode and its MQA/GQA mode.
+beam-search mode and its MQA/GQA mode, and paged decode attention.
 
 Counterpart of ``ops/pallas_decode_attention.py`` ``fused_decode_attention``
 (:767) in the JAX package, for the modes the Whisper and decoder-only paths
@@ -13,6 +13,12 @@ a CPU tensor it runs the plain version, :func:`plain_decode_attention`
 (``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
 ``beam_indirect_decode_attention``).  The tail, fp8 and group-shared-cache
 modes of the TPU kernel are not ported and raise ``NotImplementedError``.
+
+:func:`fused_paged_decode_attention` is the counterpart of
+``paged_decode_attention_pallas`` (:682): one-token attention off the
+block-paged pool through the block table, on a CUDA tensor by the kernel of
+``csrc/paged_decode_attention.cu`` (the TPU kernel's ``_paged_kernel``
+:612), on a CPU tensor by :func:`plain_paged_decode_attention`.
 """
 from __future__ import annotations
 
@@ -24,15 +30,16 @@ import torch
 from . import _build
 from .attention import (beam_indirect_decode_attention,
                         cached_decode_attention, layer_kv_views)
+from .paged_attention import paged_decode_attention
 from .quant_matmul import weight_only_quant_matmul
 
 # launches of each CUDA kernel, counted where the wrapper launches it (the
 # attention kernel per cache dtype: each dtype is its own instantiation; the
-# beam entry and the grouped kernel, whose main paths have a bf16 cache,
-# count both of their dtypes)
+# beam entry, the grouped kernel and the paged kernel, whose main paths have
+# a bf16 cache, count both of their dtypes)
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
             "out_proj_gemv": 0, "beam_decode_attention": 0,
-            "gqa_decode_attention": 0}
+            "gqa_decode_attention": 0, "paged_decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -286,4 +293,86 @@ def out_proj_gemv(x: torch.Tensor, layer_idx: int, weight: torch.Tensor,
         _ptr(x), _ptr(w), layer, _ptr(scale), _ptr(bias), _ptr(out), B, K, N,
         stream), "out_proj_gemv")
     launches["out_proj_gemv"] += 1
+    return out
+
+
+def plain_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
+                                 seq_len, scale: float,
+                                 kv_quant_orig_scale=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_paged_decode_attention`:
+    ``paged_decode_attention`` (the JAX XLA formulation) on layer
+    ``layer_idx`` of the stacked pool."""
+    return paged_decode_attention(q, full_pool[layer_idx], block_table,
+                                  seq_len, scale=scale,
+                                  kv_quant_orig_scale=kv_quant_orig_scale)
+
+
+def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
+                                 seq_len, scale: float,
+                                 kv_quant_orig_scale=None) -> torch.Tensor:
+    """One-token attention off layer ``layer_idx`` of the stacked block pool.
+
+    full_pool [L, N, 2, Hkv, T, D] bf16 or int8 (token-major); q
+    [B, H, 1, D]; block_table [B, max_blocks] integer, -1 padded; seq_len
+    [B] integer: the valid length INCLUDING the current token, whose K/V is
+    already in the pool.  MQA/GQA: H = rep * Hkv, query head h reads KV head
+    h // rep.  ``kv_quant_orig_scale``: the int8 pool's per-tensor dequant
+    scale (a 0-d or [1] fp32 tensor).  Returns [B, H, 1, D].  The kernel
+    takes any batch (the JAX layer's batch gate came from a TPU
+    measurement).  A row with seq_len 0 gives zeros on the card (the plain
+    version's context of a fully masked row is of no use either).  fp8
+    pools raise."""
+    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV pools are not ported yet")
+    if not q.is_cuda:
+        return plain_paged_decode_attention(full_pool, layer_idx, q,
+                                            block_table, seq_len, scale,
+                                            kv_quant_orig_scale)
+    L, N, two, Hkv, T, D = full_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    if q.shape != (B, H, 1, D) or H % Hkv:
+        raise NotImplementedError(
+            f"q {tuple(q.shape)} over {Hkv} KV heads of {D}: only one query "
+            "token per row and H a multiple of Hkv are ported")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"paged decode kernel takes bf16 q, got {q.dtype}")
+    if full_pool.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"paged decode kernel pool dtype {full_pool.dtype}")
+    if (not full_pool.is_contiguous() or full_pool.data_ptr() % 16
+            or D % 16 or D > 128 or two != 2):
+        raise ValueError("paged decode kernel needs a contiguous, 16-byte "
+                         "aligned [L, N, 2, Hkv, T, D] pool with D a multiple "
+                         "of 16 up to 128")
+    if not 0 <= layer_idx < L:
+        raise IndexError(f"layer {layer_idx} of a {L}-layer pool")
+    dev = q.device
+    if (not torch.is_tensor(block_table) or block_table.dim() != 2
+            or block_table.shape[0] != B or block_table.device != dev
+            or block_table.dtype.is_floating_point):
+        raise TypeError(f"block_table must be a [{B}, max_blocks] integer "
+                        f"tensor on {dev}")
+    if (not torch.is_tensor(seq_len) or seq_len.shape != (B,)
+            or seq_len.device != dev):
+        raise TypeError(f"seq_len must be a [{B}] tensor on {dev}")
+    is_int8 = full_pool.dtype == torch.int8
+    ks_t = None
+    if kv_quant_orig_scale is not None:
+        ks_t = torch.as_tensor(kv_quant_orig_scale, dtype=torch.float32,
+                               device=dev).reshape(-1)
+        if ks_t.numel() != 1:
+            raise ValueError("kv_quant_orig_scale must be one value")
+    elif is_int8:
+        raise ValueError("an int8 pool needs kv_quant_orig_scale")
+    # operands held in locals until the launch is enqueued (see above)
+    q = q.contiguous()
+    table_t = block_table.to(torch.int32).contiguous()
+    seq_t = seq_len.to(torch.int32).contiguous()
+    out = torch.empty((B, H, 1, D), dtype=torch.bfloat16, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(_build.load("paged_decode_attention").paged_decode_attention(
+        _ptr(q), _ptr(full_pool), int(is_int8), int(layer_idx), N, Hkv,
+        H // Hkv, T, D, B, table_t.shape[1], _ptr(table_t), _ptr(seq_t),
+        _ptr(ks_t), float(scale), _ptr(out), stream),
+        "paged_decode_attention")
+    launches["paged_decode_attention"] += 1
     return out

@@ -17,7 +17,8 @@ version in bf16 to 1e-2 on one layer and 3e-2 on three (roundings of the
 bf16 residual stream that differ by one step compound over layers).  The
 beam entry of kernel 1 is held to the same gates as kernel 1, and its
 rounding of P before P·V is pinned the same way, through a mixing
-indirection; so is the grouped (MQA/GQA) kernel, with the fresh column."""
+indirection; so is the grouped (MQA/GQA) kernel, with the fresh column, and
+the paged kernel, through a permuted block table."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,8 @@ import torch
 from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
 from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
 from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import (
+    paged_append_kv, paged_prefill)
 
 pytestmark = pytest.mark.cuda
 
@@ -526,3 +529,189 @@ def test_gqa_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
                                   proj=(w, torch.ones(256, device=dev), None))
+
+
+# -- the paged decode kernel ---------------------------------------------------
+
+def _paged_inputs(g, dev, hkv, rep, D, T, seq, pool_dtype, L=2, N=64):
+    """(pool, q, table, seq, kwargs): a stacked pool [L, N, 2, hkv, T, D]
+    whose rows own permuted draws of its blocks (non-monotonic), -1 past
+    each row's length (all -1 for a row of length 0).  No table names the
+    last block, the sink of the pool writes (``new_block_pool``)."""
+    shape = (L, N, 2, hkv, T, D)
+    if pool_dtype == torch.int8:
+        pool = torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+        kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    else:
+        pool = torch.randn(shape, generator=g, device=dev).bfloat16()
+        kw = {}
+    mb = max(-(-n // T) for n in seq)
+    perm = torch.randperm(N - 1, generator=g, device=dev).tolist()
+    table = torch.full((len(seq), mb), -1, dtype=torch.int32)
+    for i, n in enumerate(seq):
+        need = -(-n // T)
+        table[i, :need] = torch.tensor(perm[:need])
+        perm = perm[need:]
+    q = torch.randn(len(seq), hkv * rep, 1, D, generator=g,
+                    device=dev).bfloat16()
+    return (pool, q, table.to(dev),
+            torch.tensor(seq, dtype=torch.int32, device=dev), kw)
+
+
+@pytest.mark.parametrize("shape", ["serve", "mqa", "gqa"])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+def test_paged_kernel_matches_plain(dev, pool_dtype, shape):
+    """Serve shapes (16 KV heads of 64, T 32), MQA (one KV head under 16
+    query heads of 128, T 32) and GQA (4 KV heads x 4, T 16); lengths 0,
+    1, T-1, T, T+1, 2T+5 and a full table of 9 blocks (two chunks of the
+    kernel at T 32).  The live rows are within the gates of the other
+    kernels; the row of length 0 is zeros."""
+    hkv, rep, D, T = {"serve": (16, 1, 64, 32), "mqa": (1, 16, 128, 32),
+                      "gqa": (4, 4, 64, 16)}[shape]
+    g = torch.Generator(device=dev).manual_seed(11)
+    seq = [0, 1, T - 1, T, T + 1, 2 * T + 5, 9 * T]
+    pool, q, table, seq_t, kw = _paged_inputs(g, dev, hkv, rep, D, T, seq,
+                                              pool_dtype)
+    before = da.launches["paged_decode_attention"]
+    out = da.fused_paged_decode_attention(pool, 1, q, table, seq_t, 0.125,
+                                          **kw)
+    assert da.launches["paged_decode_attention"] == before + 1
+    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_paged_decode_attention(f32(pool), 1, q.float(), table,
+                                          seq_t, 0.125, **kw)
+    ref16 = da.plain_paged_decode_attention(pool, 1, q, table, seq_t, 0.125,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[0] == 0).all())
+    assert _rel(out[1:], ref[1:]) < 1e-2
+    assert _rel(out[1:], ref16[1:]) < 2e-2
+
+
+def test_paged_kernel_offsets_past_2_31(dev):
+    """An int8 pool of 2 layers x 262160 blocks of [2, 1, 32, 128] (4.3 GB):
+    every block of layer 1 lies past element 2^31, and the rows read blocks
+    at the end of the pool (32-bit offsets would wrap)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    per_block = 2 * 1 * 32 * 128
+    N = 2 ** 31 // per_block + 16
+    pool = torch.empty((2, N, 2, 1, 32, 128), dtype=torch.int8, device=dev)
+    table = torch.tensor([[N - 1, N - 7, N - 3], [N - 2, N - 16, -1]],
+                         dtype=torch.int32, device=dev)
+    used = table[table >= 0].long()
+    pool[1, used] = torch.randint(-127, 128, (len(used), 2, 1, 32, 128),
+                                  generator=g, device=dev, dtype=torch.int8)
+    q = torch.randn(2, 16, 1, 128, generator=g, device=dev).bfloat16()
+    seq = torch.tensor([90, 40], dtype=torch.int32, device=dev)
+    ks = torch.tensor(1 / 40.0, device=dev)
+    out = da.fused_paged_decode_attention(pool, 1, q, table, seq, 0.1,
+                                          kv_quant_orig_scale=ks)
+    ref = da.plain_paged_decode_attention(pool, 1, q.float(), table, seq,
+                                          0.1, kv_quant_orig_scale=ks)
+    torch.cuda.synchronize()
+    assert (1 * N + int(used.min())) * per_block > 2 ** 31
+    assert _rel(out, ref) < 1e-2
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+def test_paged_kernel_rounds_p_before_pv(dev, pool_dtype):
+    """As for kernel 1, through a permuted table: 16 query heads over one
+    KV head, 8 blocks of 32 (256 tokens, one chunk of the kernel); the first
+    token scores s0 above the other 255, whose probability exp(-s0) =
+    0.25088 sits 0.45 of a bf16 step above 0.25, and every value column is
+    the same.  The context is then c (1 + 255 bf16(p)) / (1 + 255 p) =
+    0.9966 c with P rounded before P·V, and c without; the bf16 output must
+    be the first."""
+    H, D, T, NB = 16, 64, 32, 8
+    p_other = 128.45 * 2.0 ** -9
+    scale = -float(np.log(p_other))
+    table = torch.tensor([[5, 2, 7, 0, 3, 6, 1, 4]], dtype=torch.int32,
+                         device=dev)
+    pool = torch.zeros(1, NB, 2, 1, T, D, device=dev, dtype=pool_dtype)
+    pool[0, 5, 0, 0, 0, 0] = 1                 # position 0 is block 5, row 0
+    c = (torch.arange(D, device=dev) % 7 + 1).to(pool_dtype)
+    pool[0, :, 1, 0] = c
+    q = torch.zeros(1, H, 1, D, device=dev, dtype=torch.bfloat16)
+    q[..., 0] = 1
+    kw = (dict(kv_quant_orig_scale=torch.tensor(1.0, device=dev))
+          if pool_dtype == torch.int8 else {})
+    seq = torch.tensor([NB * T], dtype=torch.int32, device=dev)
+    out = da.fused_paged_decode_attention(pool, 0, q, table, seq, scale,
+                                          **kw)[:, :, 0]
+    # the same cache, dense and seq-minor [1, 1, 2, H, D, S], heads repeated
+    blocks = pool[0][table[0].long()]               # [NB, 2, 1, T, D]
+    dense = blocks.permute(1, 2, 4, 0, 3).reshape(2, 1, D, NB * T)
+    dense = dense.repeat_interleave(H, dim=1)[None, None]
+    ref16, ref32 = (_chunked_ctx(dense, 0, q, NB * T, scale, 1.0, r,
+                                 chunk=NB * T).to(torch.bfloat16)
+                    for r in (True, False))
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref16)
+    assert bool((out != ref32).all())
+
+
+def test_paged_step_does_not_wait_for_the_device(dev):
+    """The pool writes (rows through -1 slots among them, and a call where
+    no row is valid), the kernel's wrapper and a whole one-token model step
+    over the pool run without a host synchronisation: a serving tick makes
+    all its calls on the host before it fetches its tokens."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import \
+        PagedCacheState
+    g = torch.Generator(device=dev).manual_seed(13)
+    pool, q, table, seq, _ = _paged_inputs(g, dev, 4, 2, 64, 16,
+                                           [0, 5, 40], torch.bfloat16)
+    k = torch.randn(3, 4, 6, 64, generator=g, device=dev).bfloat16()
+    with torch.device(dev):
+        model = DecoderLMHead(DecoderConfig(
+            vocab_size=97, hidden_size=256, num_layers=2, num_heads=4,
+            num_kv_heads=4, max_position_embeddings=64)).eval()
+    tok = torch.zeros((3, 1), dtype=torch.long, device=dev)
+    step = dict(tokens=tok, write_index=seq - 1, sequence_length=seq)
+    with torch.inference_mode():
+        model(kv_cache=PagedCacheState(pool, table), **step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        paged_prefill(pool, k, k, table, layer_idx=1)
+        paged_append_kv(pool, k[:, :, :1], k[:, :, :1], table, seq - 1,
+                        layer_idx=1)
+        paged_append_kv(pool, k[:1, :, :1], k[:1, :, :1], table[:1], seq[:1],
+                        layer_idx=0)
+        out = da.fused_paged_decode_attention(pool, 1, q, table, seq, 0.125)
+        with torch.inference_mode():
+            model(kv_cache=PagedCacheState(pool, table), **step)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(dev):
+    """fp8 pools, non-bf16 q, float32 pools, head dims that are not a
+    multiple of 16, a table on another device, an int8 pool without its
+    scale and several query tokens raise instead of falling back."""
+    pool = torch.zeros(1, 4, 2, 1, 8, 64, device=dev).bfloat16()
+    q = torch.zeros(2, 4, 1, 64, device=dev).bfloat16()
+    table = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=dev)
+    seq = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    fpd = da.fused_paged_decode_attention
+    with pytest.raises(NotImplementedError):
+        fpd(pool.to(torch.float8_e4m3fn), 0, q, table, seq, 0.125)
+    with pytest.raises(TypeError):
+        fpd(pool, 0, q.float(), table, seq, 0.125)
+    with pytest.raises(TypeError):
+        fpd(pool.float(), 0, q, table, seq, 0.125)
+    with pytest.raises(ValueError):
+        fpd(pool[..., :24].contiguous(), 0, q[..., :24].contiguous(), table,
+            seq, 0.125)
+    with pytest.raises(TypeError):
+        fpd(pool, 0, q, table.cpu(), seq, 0.125)
+    with pytest.raises(ValueError):
+        fpd(pool.to(torch.int8), 0, q, table, seq, 0.125)
+    with pytest.raises(NotImplementedError):
+        fpd(pool, 0, torch.zeros(2, 4, 2, 64, device=dev).bfloat16(), table,
+            seq, 0.125)

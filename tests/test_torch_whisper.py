@@ -210,10 +210,22 @@ def test_transcribe_token_exact(recipe, without_timestamps, batch):
         assert abs(out.no_speech_prob - ref.no_speech_prob) < 1e-5
 
 
-def test_chip_smoke_main_path_on_cpu():
+@pytest.fixture
+def one_cpu_thread():
+    """One intra-op thread for a rehearsal of thousands of tiny ops: under
+    the test runner's parallel workers, several threads per op oversubscribe
+    the cores and slow such a test some twentyfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     """``chip_smoke.py``'s paths, rehearsed on the CPU at a tiny size
     with head dim 64 as on the card (the decoder path cut to 2 layers of
-    width 256, vocab 97): model builds (the bench recipe with
+    width 256, vocab 97; the serve path is rehearsed on its own in
+    ``test_torch_serving.py`` and stubbed here): model builds (the bench recipe with
     the megakernel decode; the recipe without sqenc on the scanned and
     beam paths), transcription (greedy, and beam search with 5 beams), the
     teacher-forced replay against the plain scanned path (exact on the
@@ -234,6 +246,8 @@ def test_chip_smoke_main_path_on_cpu():
     dec_cfg = dataclasses.replace(
         smoke.santacoder_1b_config(), vocab_size=97, hidden_size=256,
         num_layers=2, num_heads=2, max_position_embeddings=128)
+    monkeypatch.setattr(smoke, "serve_path", lambda *a, **k: (
+        {}, {"paged_decode_attention": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

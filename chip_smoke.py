@@ -35,10 +35,15 @@
    package's ``benchmarks/benchmark.py -m santacoder_1b --quant woq8`` runs
    it; each decode step runs the grouped decode kernel once per layer.
    Prints tokens/s, the decode step's wall and device-busy time and peak
-   memory.  Last the serve path: GPT-350M (24 layers, d 1024, 16 heads of
-   64, vocab 51200, 128 positions, bf16, float weights) behind the port's
-   ``ContinuousBatchingManager`` with 8 slots over a block-paged KV pool of
-   32-token blocks, 64 requests of 60 prompt tokens and 20 new tokens each,
+   memory.  Then the same decoder path with int4 weight-only weights
+   (``--quant woq4``: groups of 128 rows, the same seeded float weights
+   quantised again), each linear through the int4 dequant matmul kernel
+   (four a layer in the prefill and in each step); its numbers are printed
+   beside the woq8 path's of the same run.  Last the serve path: GPT-350M
+   (24 layers, d 1024, 16 heads of 64, vocab 51200, 128 positions, bf16,
+   float weights) behind the port's ``ContinuousBatchingManager`` with 8
+   slots over a block-paged KV pool of 32-token blocks, 64 requests of 60
+   prompt tokens and 20 new tokens each,
    greedy, as the JAX package's ``benchmarks/serve_bench.py --paged`` runs
    it; each decode tick runs the paged decode kernel once per layer.  Its
    teacher-forced check replays the recorded prefills and first ticks on a
@@ -109,6 +114,10 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:612"),
+    "int4_quant_matmul": dict(
+        route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_quant_matmul.py:25"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
@@ -120,7 +129,8 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "flash_attention": "scanned", "beam_decode_attention": "beam",
            "decode_attention_int8_b5": "beam",
            "gqa_decode_attention": "decoder",
-           "paged_decode_attention": "serve"}
+           "paged_decode_attention": "serve",
+           "int4_quant_matmul": "decoder_woq4"}
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
@@ -585,6 +595,7 @@ def kernel_phases(torch, results):
     beam_phase(torch, results, gen)
     gqa_phase(torch, results, gen)
     paged_phase(torch, results, gen)
+    int4_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -1091,6 +1102,166 @@ def paged_phase(torch, results, gen):
 
 # -- phase 3: the main path ---------------------------------------------------
 
+# the four linears of a SantaCoder-1B layer (K x N, groups of 128 rows)
+INT4_SHAPES = (("qkv", 2048, 2304), ("dense", 2048, 2048),
+               ("fc", 2048, 8192), ("proj", 8192, 2048))
+INT4_GROUP = 128
+
+
+def int4_phase(torch, results, gen):
+    """The int4 dequant matmul against its plain version: the four linears
+    of SantaCoder-1B (INT4_SHAPES) at decode (M 8) and at the prefill (M
+    512, 8 prompts of bucket 64) in groups of 128; M 1; per-channel scales;
+    one group ([1, N] scales: the accumulator takes the scale); N 1280, 1040
+    and 1000 (the edges of the kernel's 128-column tiles and of its 16-byte
+    loads); K 384 in groups of 128 (the two nibbles of a byte in different
+    groups); an fp32 x raises.  The two rounding rules are pinned bit for
+    bit with one-hot rows of x (row m of the output is then the dequantised
+    weight row, no sum involved), with and without a split of K.  Each path
+    shape is timed against its plain version and against ``F.linear`` on the
+    weight dequantised beforehand, with the dequantisation's own time (what
+    a path that dequantises per call pays)."""
+    import torch.nn.functional as F
+
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import \
+        unpack_int4
+    dev = torch.device("cuda")
+
+    def operands(k, n, groups, copies=1):
+        """packed weights [copies, K/2, N] (every byte value) and scales:
+        [copies, N] for groups 0 (per channel), else [copies, groups, N],
+        sized so that an output is of order one"""
+        qw = torch.randint(-128, 128, (copies, k // 2, n), generator=gen,
+                           device=dev, dtype=torch.int8)
+        shape = (copies, n) if groups == 0 else (copies, groups, n)
+        sc = (torch.rand(shape, generator=gen, device=dev) + 0.5) / (
+            4.6 * k ** 0.5)
+        return qw, sc
+
+    def randx(m, k):
+        return torch.randn((m, k), generator=gen, device=dev).bfloat16()
+
+    errs = {}
+
+    def case(what, m, k, n, groups):
+        qw, sc = (t[0] for t in operands(k, n, groups))
+        x = randx(m, k)
+        out = iq.quant_matmul_int4(x, qw, sc)
+        ref = iq.plain_quant_matmul_int4(x, qw, sc)
+        ref32 = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        errs[what] = (e16, e32, float((out.float() - ref32).abs().max()))
+        print(f"int4 matmul ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(out.shape == (m, n) and out.dtype == torch.bfloat16
+              and bool(torch.isfinite(out).all()) and e16 < 2e-2
+              and e32 < 1e-2,
+              f"int4 matmul ({what}) matches plain (rel 2e-2 bf16, 1e-2 "
+              "fp32)")
+
+    for name, k, n in INT4_SHAPES:
+        for m in (DEC_BATCH, DEC_BATCH * 64):
+            case(f"{name}: M {m}, K {k}, N {n}, groups of {INT4_GROUP}", m,
+                 k, n, k // INT4_GROUP)
+    case("M 1, K 2048, N 2048, groups of 128", 1, 2048, 2048, 16)
+    case("per channel: M 8, K 2048, N 2048", 8, 2048, 2048, 0)
+    case("one group [1, N]: M 8, K 128, N 256", 8, 128, 256, 1)
+    case("N 1280: M 20, K 1280, per channel", 20, 1280, 1280, 0)
+    case("N 1040: M 8, K 2048, groups of 128", 8, 2048, 1040, 16)
+    case("N 1000: M 8, K 256, groups of 128", 8, 256, 1000, 2)
+    case("K 384 in groups of 128: M 8, N 256", 8, 384, 256, 3)
+    try:
+        iq.quant_matmul_int4(randx(8, 256).float(), *(
+            t[0] for t in operands(256, 256, 2)))
+        raised = False
+    except TypeError:
+        raised = True
+    check(raised, "int4 matmul raises for fp32 x on the card (no fallback)")
+
+    # one-hot pins: x row m is e_{k_m}, so output row m is row k_m of the
+    # dequantised weight exactly.  Rows in both halves of K (both nibbles),
+    # three groups, and proj's shape, whose K is split over blocks
+    for k, n, rows in ((384, 256, [0, 150, 191, 192, 342, 383, 64, 300]),
+                       (8192, 2048, [0, 4095, 4096, 8191, 1000, 5000, 2047,
+                                     6143])):
+        groups = k // INT4_GROUP
+        qw, sc = (t[0] for t in operands(k, n, groups))
+        rows_t = torch.tensor(rows, device=dev)
+        x = torch.zeros((len(rows), k), device=dev, dtype=torch.bfloat16)
+        x[torch.arange(len(rows), device=dev), rows_t] = 1
+        q = unpack_int4(qw)[rows_t].float()                    # [8, N]
+        s_g = sc[rows_t // INT4_GROUP]                         # [8, N]
+        grouped = (q * s_g.bfloat16().float()).bfloat16()
+        out = iq.quant_matmul_int4(x, qw, sc)
+        check(torch.equal(out, grouped)
+              and not torch.equal(grouped, (q * s_g).bfloat16()),
+              f"int4 matmul, K {k} N {n}, groups of {INT4_GROUP}, one-hot x: "
+              "each weight is bf16(q * bf16(scale)), bit for bit (a scale "
+              "not rounded first gives other values)")
+        s_c = sc[0]                                            # [N]
+        channel = (q * s_c).bfloat16()
+        out = iq.quant_matmul_int4(x, qw, s_c)
+        check(torch.equal(out, channel)
+              and not torch.equal(channel, (q * s_c.bfloat16().float())
+                                  .bfloat16()),
+              f"int4 matmul, K {k} N {n}, per channel, one-hot x: bf16(q * "
+              "scale) with the fp32 scale on the accumulator, bit for bit")
+
+    # timings at the path's shapes, rotating over copies of the weights that
+    # together exceed the 50 MB L2, as each layer's weights are read once a
+    # step
+    shapes = {}
+    for name, k, n in INT4_SHAPES:
+        groups = k // INT4_GROUP
+        copies = -(-120_000_000 // (k // 2 * n))
+        qw, sc = operands(k, n, groups, copies)
+
+        def deq(i):
+            w = unpack_int4(qw[i]).bfloat16().reshape(groups, k // groups, n)
+            return (w * sc[i][:, None, :].bfloat16()).reshape(k, n)
+
+        lib_copies = -(-120_000_000 // (k * n * 2))
+        w_lin = [deq(i).t() for i in range(lib_copies)]        # [N, K] views
+        for m in (DEC_BATCH, DEC_BATCH * 64):
+            x = randx(m, k)
+            ms, wall = time_ms(torch, lambda i: iq.quant_matmul_int4(
+                x, qw[i % copies], sc[i % copies]))
+            plain_ms, _ = time_ms(torch, lambda i: iq.plain_quant_matmul_int4(
+                x, qw[i % copies], sc[i % copies]), iters=10)
+            deq_ms, _ = time_ms(torch, lambda i: deq(i % copies), iters=10)
+            lib_ms, _ = time_ms(torch, lambda i: F.linear(
+                x, w_lin[i % lib_copies]))
+            # bytes: the packed weights, the fp32 group scales, x and out;
+            # operations: 2 M N K on the tensor cores (bf16 products)
+            n_bytes = k // 2 * n + groups * n * 4 + m * k * 2 + m * n * 2
+            b_ms, b_by = bound(n_bytes, 2 * m * n * k, PEAK_BF16_TENSOR)
+            shapes[f"{name} M{m}"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_dequant_ms=deq_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=n_bytes, host_call_ms=wall,
+                splits=iq.split_plan(m, n, k, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)[1])
+            print(f"int4 matmul {name} M {m} (K {k}, N {n}): {ms * 1e3:.2f} "
+                  f"us (bound {b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f}"
+                  f" MB); plain {plain_ms * 1e3:.2f} us; F.linear on the "
+                  f"dequantised weight {lib_ms * 1e3:.2f} us + the "
+                  f"dequantisation {deq_ms * 1e3:.2f} us")
+        del qw, sc, w_lin
+    # the row: one layer's four calls at decode (M 8), summed
+    dec = [v for key, v in shapes.items() if key.endswith(f"M{DEC_BATCH}")]
+    results["int4_quant_matmul"] = dict(
+        max_abs_err=max(e[2] for e in errs.values()),
+        ms=sum(v["ms"] for v in dec), plain_ms=sum(v["plain_ms"] for v in dec),
+        bound_ms=sum(v["bound_ms"] for v in dec),
+        bound_by="/".join(sorted({v["bound_by"] for v in dec})),
+        library_ms=sum(v["library_ms"] for v in dec),
+        library_dequant_ms=sum(v["library_dequant_ms"] for v in dec),
+        times_are="the four linears of one layer at decode (M 8), summed",
+        shapes=shapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
+
+
 def random_openai_state(np, config, rng):
     """A seeded OpenAI-format Whisper state dict: linear weights N(0, 0.02),
     LayerNorm weights 1 + N(0, 0.02), biases N(0, 0.02)."""
@@ -1146,18 +1317,20 @@ def plain_kernels():
     from eddie_wang_hackathon2023_tpu_torch.layers import attention as la
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     saved = (la.fused_decode_attention, la.flash_mha,
-             la.fused_paged_decode_attention)
+             la.fused_paged_decode_attention, iq.quant_matmul_int4)
     la.fused_decode_attention = da.plain_decode_attention
     la.flash_mha = lambda q, k, v, causal=False, scale=None, \
         kv_valid_len=None, out=None: out.copy_(
             fa.plain_flash_mha(q, k, v, causal, scale, kv_valid_len))
     la.fused_paged_decode_attention = da.plain_paged_decode_attention
+    iq.quant_matmul_int4 = iq.plain_quant_matmul_int4
     try:
         yield
     finally:
         (la.fused_decode_attention, la.flash_mha,
-         la.fused_paged_decode_attention) = saved
+         la.fused_paged_decode_attention, iq.quant_matmul_int4) = saved
 
 
 def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
@@ -1462,20 +1635,24 @@ def random_decoder_state(torch, np, config, rng):
     return state
 
 
-def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
+def decoder_path(torch, np, config=None, device="cuda", label="decoder",
+                 float_state=None):
     """The decoder-only path on ``device``: ``config`` (default
-    SantaCoder-1B, woq8) with random weights from the seed, greedy
-    generation of DEC_NEW tokens for DEC_BATCH prompts of DEC_PROMPT tokens
-    through the port's ``GenerationSession``, as the JAX package's
-    ``benchmarks/benchmark.py`` runs it; the launch counts of one such call,
-    the teacher-forced check against the plain path and the timings.  A
-    smaller ``config`` and the CPU rehearse it without a card (the launch
-    counts are then not checked).  Returns (numbers, launch counts)."""
+    SantaCoder-1B, woq8) with random weights from the seed (``float_state``
+    where given: :func:`random_decoder_state` of the config, quantised here
+    for its recipe), greedy generation of DEC_NEW tokens for DEC_BATCH
+    prompts of DEC_PROMPT tokens through the port's ``GenerationSession``,
+    as the JAX package's ``benchmarks/benchmark.py`` runs it; the launch
+    counts of one such call, the teacher-forced check against the plain path
+    and the timings.  A smaller ``config`` and the CPU rehearse it without a
+    card (the launch counts are then not checked).  Returns (numbers, launch
+    counts)."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import (
         from_jax_state, quantize_state)
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     from eddie_wang_hackathon2023_tpu_torch.runtime import (
         GenerationSession, ModelConfig, SamplingConfig, bucket_length)
 
@@ -1488,8 +1665,10 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
 
     c = config or santacoder_1b_config()
     t0 = time.time()
-    state = quantize_state(random_decoder_state(
-        torch, np, c, np.random.default_rng(SEED)), c)
+    if float_state is None:
+        float_state = random_decoder_state(torch, np, c,
+                                           np.random.default_rng(SEED))
+    state = quantize_state(float_state, c)
     model = from_jax_state(state, c, device=device)
     del state
     sync()
@@ -1524,11 +1703,11 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    for m in (da, fa, mk):
+    for m in (da, fa, mk, iq):
         m.reset_launches()
     tokens, seq_lens, cum = sess.decode(prompts(), lens,
                                         max_new_tokens=DEC_NEW)
-    counts = {**da.launches, **fa.launches, **mk.launches}
+    counts = {**da.launches, **fa.launches, **mk.launches, **iq.launches}
     peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
                 else float("nan"))
     steps = sess.decode_steps
@@ -1543,11 +1722,15 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder"):
           and bool(np.isfinite(cum).all()),
           f"[{label}] tokens in range, finite log-probabilities")
     if on_card:
-        check(counts["gqa_decode_attention"] == c.num_layers * steps
-              and all(n == 0 for k, n in counts.items()
-                      if k != "gqa_decode_attention"),
-              f"[{label}] grouped decode kernel launched {c.num_layers} "
-              "times per decode step, no other kernel")
+        want = {"gqa_decode_attention": c.num_layers * steps}
+        what = f"grouped decode kernel launched {c.num_layers} times per " \
+            "decode step"
+        if c.quant_mode.is_int4_weight_only():
+            # the four linears of each layer, in the prefill and each step
+            want["int4_quant_matmul"] = 4 * c.num_layers * (steps + 1)
+            what += f", the int4 matmul {4 * c.num_layers} times per call"
+        check(all(n == want.get(k, 0) for k, n in counts.items()),
+              f"[{label}] {what}, no other kernel")
 
     # teacher forcing: the kernel path and the plain path replay the
     # recorded calls (prefill and the first steps) on fresh caches
@@ -1797,13 +1980,15 @@ def paths(torch, np, results, config=None, device="cuda",
     cut to SCANNED_DEPTH layers to keep the run short), then the beam path
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
-    (default SantaCoder-1B) and the serve path with ``serve_config``
+    (default SantaCoder-1B) under its recipe and under int4 weight-only,
+    and the serve path with ``serve_config``
     (default GPT-350M).  Each kernel's launches come from the path that
     drives it, and must be above 0 there on the card."""
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
         whisper_config
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
     on_card = torch.device(device).type == "cuda"
     config = config or whisper_config("large-v2", dtype="bfloat16")
     # on the card the pipeline's default takes the megakernel; the CPU
@@ -1825,19 +2010,34 @@ def paths(torch, np, results, config=None, device="cuda",
         torch, np, config=config, device=device,
         decode_megakernel=None if on_card else True, recipe=SCANNED_RECIPE,
         label="beam", beam=BEAM_SIZE)
-    dec_e2e, dec_counts = decoder_path(torch, np, config=decoder_config,
-                                       device=device)
+    # the woq8 and woq4 decoder paths quantise one seeded float state
+    dec_cfg = decoder_config or santacoder_1b_config()
+    float_state = random_decoder_state(torch, np, dec_cfg,
+                                       np.random.default_rng(SEED))
+    dec_e2e, dec_counts = decoder_path(torch, np, config=dec_cfg,
+                                       device=device, float_state=float_state)
+    woq4_e2e, woq4_counts = decoder_path(
+        torch, np, config=dataclasses.replace(
+            dec_cfg, quant_mode=QuantMode.use_weight_only(True)),
+        device=device, label="decoder_woq4", float_state=float_state)
+    del float_state
+    print("[decoder_woq4] beside woq8 in this run: " + ", ".join(
+        f"{k} {woq4_e2e.get(k)} vs {dec_e2e.get(k)}"
+        for k in ("tokens_per_s", "decoder_step_ms",
+                  "device_busy_ms_per_step", "device_idle_share",
+                  "peak_gib")))
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
     counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts,
-                  decoder=dec_counts, serve=serve_counts)
+                  decoder=dec_counts, decoder_woq4=woq4_counts,
+                  serve=serve_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
     return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e,
-                decoder=dec_e2e, serve=serve_e2e)
+                decoder=dec_e2e, decoder_woq4=woq4_e2e, serve=serve_e2e)
 
 
 def main():

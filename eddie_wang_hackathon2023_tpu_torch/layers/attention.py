@@ -25,8 +25,8 @@ Modes, as in the JAX package:
 Single-token decode over the stacked cache goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
 when the cache has fewer heads), with the int8 out-projection fused when
-the dense layer is weight-only int8 at batch 1 with equal heads (never with
-beams).
+the dense layer is weight-only int8 (not int4) at batch 1 with equal heads
+(never with beams).
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ from ..quantization.mode import QuantMode
 from ..quantization.smoothquant_layers import (SmoothQuantLinear,
                                                SmoothQuantQKVLinear,
                                                SmoothQuantRowLinear)
+from ..quantization.surgery import int4_group
 from .linear import ColumnLinear, RowLinear, frozen
 
 _MIN_FLASH_LEN = 128
@@ -110,10 +111,20 @@ class QKVLinear(nn.Module):
 
 
 def linear_classes(quant_mode: QuantMode, dtype):
-    """(qkv, column, row) linear classes for a quantisation mode."""
+    """(qkv, column, row) linear classes for a quantisation mode.  The int4
+    classes take their group size from their own in-features (the first
+    argument of each), as the JAX package's surgery gives it
+    (``quantization/surgery.py:46-55``)."""
     if quant_mode.is_int8_weight_only():
         return (WeightOnlyQuantQKVLinear, WeightOnlyQuantLinear,
                 WeightOnlyQuantRowLinear)
+    if quant_mode.is_int4_weight_only():
+        def woq4(cls):
+            return lambda in_features, *a, **kw: cls(
+                in_features, *a, **kw, bits=4,
+                group_size=int4_group(quant_mode, in_features))
+        return (woq4(WeightOnlyQuantQKVLinear), woq4(WeightOnlyQuantLinear),
+                woq4(WeightOnlyQuantRowLinear))
     if quant_mode.has_act_and_weight_quant():
         def sq(cls, out_dtype=dtype):
             return lambda *a, **kw: cls(*a, **{**kw, "dtype": out_dtype},
@@ -150,7 +161,7 @@ class Attention(nn.Module):
         grouped = self.num_attention_kv_heads != num_attention_heads
         if grouped and (cross_attention
                         or quant_mode.has_act_and_weight_quant()):
-            raise NotImplementedError("MQA/GQA is ported for float and int8 "
+            raise NotImplementedError("MQA/GQA is ported for float and "
                                       "weight-only self-attention only")
         if cross_attention:
             self.q_linear = col_cls(hidden_size, hidden_size, bias=bias,
@@ -188,9 +199,12 @@ class Attention(nn.Module):
 
     def _decode_proj_operands(self, batch: int):
         """(weight, scale, bias) of an int8 weight-only dense layer for the
-        fused out-projection at batch 1 with equal heads; None otherwise."""
+        fused out-projection at batch 1 with equal heads; None otherwise
+        (an int4 dense layer runs on its own, as in the JAX package,
+        ``layers/attention.py:95-99``)."""
         d = self.dense
         if (batch != 1 or not isinstance(d, WeightOnlyQuantLinear)
+                or d.bits != 8
                 or self.num_attention_kv_heads != self.num_attention_heads):
             return None
         return d.qweight, d.per_channel_scale, d.bias

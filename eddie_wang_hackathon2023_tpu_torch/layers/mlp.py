@@ -11,7 +11,7 @@ from .attention import linear_classes
 
 class MLP(nn.Module):
     """fc, then ``ACT2FN[hidden_act]``, then proj; the linears are the
-    quantisation mode's (int8 weight-only, or float)."""
+    quantisation mode's (int8 or int4 weight-only, or float)."""
 
     def __init__(self, hidden_size: int, ffn_hidden_size: int,
                  hidden_act: str = "gelu", bias: bool = True,

@@ -22,8 +22,10 @@ from .decoder import DECODER_LINEARS, DecoderConfig, DecoderLMHead
 
 def quantize_state(state: Dict[str, np.ndarray], config: DecoderConfig
                    ) -> Dict[str, np.ndarray]:
-    """The float state dict quantised for ``config.quant_mode`` (int8
-    weight-only; without weight quantisation it is returned as it is)."""
+    """The float state dict quantised for ``config.quant_mode`` (int8 or
+    int4 weight-only, int4 in groups of 128 rows where a linear's
+    in-features allow, else per channel; without weight quantisation it is
+    returned as it is)."""
     if not config.quant_mode.is_weight_only():
         return dict(state)
     return weight_only_quantize_state(state, DECODER_LINEARS,

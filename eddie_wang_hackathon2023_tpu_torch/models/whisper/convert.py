@@ -45,6 +45,13 @@ class Recipe(NamedTuple):
     def parse(recipe: str) -> "Recipe":
         parts = set(p for p in recipe.split("+") if p and p not in
                     ("none", "bf16"))
+        if "woq4" in parts:
+            # at batch 1 the JAX package decodes woq4 Whisper through the
+            # megakernel's int4 panels (pallas_decoder_layer.py:243-262),
+            # a mode of the megakernel that is not ported yet
+            raise NotImplementedError(
+                "recipe part 'woq4': Whisper int4 decodes through the "
+                "megakernel's int4 panels, which are not ported yet")
         unknown = parts - {"woq8", "ckv8", "lmq8", "sqenc"}
         if unknown:
             raise NotImplementedError(f"recipe parts {sorted(unknown)} are "

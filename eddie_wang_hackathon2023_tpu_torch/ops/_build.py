@@ -50,6 +50,10 @@ SIGNATURES = {
         "paged_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _P, _P, _P, _F, _P, _P],
     },
+    "int4_quant_matmul": {
+        "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

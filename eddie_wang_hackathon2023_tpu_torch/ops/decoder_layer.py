@@ -80,13 +80,14 @@ def _flat_slots(nf: int) -> Dict[str, int]:
 
 def woq_block_eligible(qkv, mods, hidden: int) -> bool:
     """Every projection of the block int8 weight-only per output channel
-    (the int8 half of the JAX package's check; int4 is not ported)."""
+    (the int8 half of the JAX package's check; the int4 panels are not
+    ported, so an int4 block never reaches the megakernel)."""
     from ..quantization.layers import (WeightOnlyQuantLinear,
                                        WeightOnlyQuantQKVLinear)
-    if not isinstance(qkv, WeightOnlyQuantQKVLinear):
+    if not isinstance(qkv, WeightOnlyQuantQKVLinear) or qkv.bits != 8:
         return False
-    return all(isinstance(m, WeightOnlyQuantLinear)
-               and getattr(m, "bits", 8) == 8 for m in mods)
+    return all(isinstance(m, WeightOnlyQuantLinear) and m.bits == 8
+               for m in mods)
 
 
 def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,

@@ -1,6 +1,8 @@
-"""int8 weight-only quantised layers (the int8 part of the JAX package's
-``quantization/layers.py``): qweight [in, out] K-major int8 and one fp32
-scale per output channel."""
+"""Weight-only quantised layers (the JAX package's
+``quantization/layers.py:25-151``): int8 qweight [in, out] K-major with one
+fp32 scale per output channel, or int4 (``bits`` 4) packed [in/2, out]
+with per-channel scales [out] or, with ``group_size`` G, group scales
+[in/G, out]."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,21 +14,36 @@ from ..layers.linear import frozen
 from ..ops.quant_matmul import weight_only_quant_matmul
 
 
+def _quant_params(in_features: int, out_features: int, bits: int,
+                  group_size: int):
+    """(qweight, per_channel_scale) of a weight-only linear."""
+    if bits not in (4, 8):
+        raise ValueError(f"{bits}-bit weights: only 8 and 4 exist")
+    k = in_features if bits == 8 else in_features // 2
+    scale = ((in_features // group_size, out_features) if group_size
+             else (out_features,))
+    return (frozen((k, out_features), torch.int8),
+            frozen(scale, torch.float32))
+
+
 class WeightOnlyQuantLinear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, dtype=torch.float32):
+                 bias: bool = True, dtype=torch.float32, bits: int = 8,
+                 group_size: int = 0):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.bits = 8
-        self.qweight = frozen((in_features, out_features), torch.int8)
-        self.per_channel_scale = frozen((out_features,), torch.float32)
+        self.bits = bits
+        # int4 group-wise scale granularity along K (0: per output channel)
+        self.group_size = group_size if bits == 4 else 0
+        self.qweight, self.per_channel_scale = _quant_params(
+            in_features, out_features, bits, self.group_size)
         self.bias = frozen((out_features,), dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = weight_only_quant_matmul(x, self.qweight,
-                                       self.per_channel_scale)
+                                       self.per_channel_scale, self.bits)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -37,27 +54,31 @@ class WeightOnlyQuantRowLinear(WeightOnlyQuantLinear):
 
 
 class WeightOnlyQuantQKVLinear(nn.Module):
-    """Fused head-major QKV projection: qweight [in, 3*H*hd] int8, scales
-    [3*H*hd], bias [3, H, hd].  With fewer KV heads (MQA/GQA, the JAX
-    package's ``quantization/layers.py:87-151``) one fused qweight
+    """Fused head-major QKV projection: qweight [in, 3*H*hd] int8 (int4:
+    [in/2, 3*H*hd]), scales [3*H*hd] (grouped int4: [in/G, 3*H*hd]), bias
+    [3, H, hd].  With fewer KV heads (MQA/GQA, the JAX package's
+    ``quantization/layers.py:87-151``) one fused qweight
     [in, (H + 2*Hkv)*hd] with the columns ordered q | k | v, and the bias
     split into ``bias`` [H, hd] and ``kv_bias`` [2, Hkv, hd] as in the float
     layer.  Returns q [B, L, H, hd], k and v [B, L, Hkv, hd]."""
 
     def __init__(self, hidden_size: int, num_heads: int, head_dim: int,
                  bias: bool = True, dtype=torch.float32,
-                 num_kv_heads: Optional[int] = None):
+                 num_kv_heads: Optional[int] = None, bits: int = 8,
+                 group_size: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
+        self.bits = bits
+        self.group_size = group_size if bits == 4 else 0
         hk = self.num_kv_heads
         if num_heads % hk:
             raise ValueError(f"{num_heads} heads over {hk} KV heads")
         equal = hk == num_heads
         out = (3 * num_heads if equal else num_heads + 2 * hk) * head_dim
-        self.qweight = frozen((hidden_size, out), torch.int8)
-        self.per_channel_scale = frozen((out,), torch.float32)
+        self.qweight, self.per_channel_scale = _quant_params(
+            hidden_size, out, bits, self.group_size)
         if equal:
             self.bias = (frozen((3, num_heads, head_dim), dtype) if bias
                          else None)
@@ -69,7 +90,7 @@ class WeightOnlyQuantQKVLinear(nn.Module):
         b, l, _ = x.shape
         h, hk, hd = self.num_heads, self.num_kv_heads, self.head_dim
         out = weight_only_quant_matmul(x, self.qweight,
-                                       self.per_channel_scale)
+                                       self.per_channel_scale, self.bits)
         if hk == h:
             qkv = out.reshape(b, l, 3, h, hd)
             if self.bias is not None:

@@ -7,7 +7,8 @@ the port's modules are built for a recipe directly
 remains.  It walks the given linear paths of a stacked state dict
 (``"blocks.attn.qkv"`` -> ``"blocks.attn.qkv.weight"`` [L, ...]).  The
 arithmetic is the JAX package's numpy code, unchanged, so the outputs are
-bit-equal.
+bit-equal.  The int4 group size is the JAX package's default,
+:data:`..ops.quant_matmul.INT4_GROUP_SIZE` (its plugin knob is not ported).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from typing import Dict, Iterable
 
 import numpy as np
 
-from ..ops.quant_matmul import quantize_weights_int8
+from ..ops.quant_matmul import (INT4_GROUP_SIZE, quantize_weights_int4,
+                                quantize_weights_int8)
 from .mode import QuantMode
 
 
@@ -38,28 +40,46 @@ def _flatten_qkv(path: str, w: np.ndarray, kv=None) -> np.ndarray:
     return w.reshape(w.shape[:lead_ndim] + (three * h * hd, in_f))
 
 
-def _quantize_stacked(w: np.ndarray, lead_ndim: int):
-    """w [*lead, out, in] -> (q [*lead, in, out] int8, scales [*lead, out])."""
+def _quantize_stacked(w: np.ndarray, lead_ndim: int, bits: int = 8,
+                      group_size: int = 0):
+    """w [*lead, out, in] -> (q [*lead, in(, /2), out] int8,
+    scales [*lead, out] or [*lead, in/G, out] when grouped)."""
     lead = w.shape[:lead_ndim]
     out_f, in_f = w.shape[lead_ndim], w.shape[lead_ndim + 1]
     flat = w.reshape(-1, out_f, in_f)
-    qs, ss = zip(*(quantize_weights_int8(np.ascontiguousarray(m.T))
-                   for m in flat))
+    if bits == 8:
+        qfn = quantize_weights_int8
+    else:
+        def qfn(m):
+            return quantize_weights_int4(m, group_size=group_size or None)
+    qs, ss = zip(*(qfn(np.ascontiguousarray(m.T)) for m in flat))
     q = np.stack(qs, 0).reshape(lead + qs[0].shape)
     s = np.stack(ss, 0).reshape(lead + ss[0].shape)
     return q, s
+
+
+def int4_group(quant_mode: QuantMode, in_features: int) -> int:
+    """The int4 group size of a linear with ``in_features`` (the JAX
+    package's ``_int4_group``): INT4_GROUP_SIZE where it divides the
+    in-features, else 0 (per-channel scales, as tiny models fall back);
+    0 for every mode but int4 weight-only."""
+    if not quant_mode.is_int4_weight_only():
+        return 0
+    return INT4_GROUP_SIZE if in_features % INT4_GROUP_SIZE == 0 else 0
 
 
 def weight_only_quantize_state(state: Dict[str, np.ndarray],
                                paths: Iterable[str],
                                quant_mode: QuantMode
                                ) -> Dict[str, np.ndarray]:
-    """int8 weight-only: every ``<path>.weight`` becomes ``<path>.qweight``
-    [*lead, in, out] int8 + ``<path>.per_channel_scale`` [*lead, out] (a
-    separate-KV QKV's ``kv_weight`` joins its columns; ``kv_bias`` stays)."""
-    if not quant_mode.is_int8_weight_only():
-        raise NotImplementedError(f"{quant_mode!r}: only int8 weight-only "
-                                  "is ported")
+    """int8 or int4 weight-only: every ``<path>.weight`` becomes
+    ``<path>.qweight`` (int8 [*lead, in, out]; int4 packed [*lead, in/2,
+    out]) + ``<path>.per_channel_scale`` ([*lead, out]; int4 with groups
+    [*lead, in/G, out], G from the path's own in-features) (a separate-KV
+    QKV's ``kv_weight`` joins its columns; ``kv_bias`` stays)."""
+    if not quant_mode.is_weight_only():
+        raise ValueError(f"{quant_mode!r} is not a weight-only mode")
+    bits = 4 if quant_mode.is_int4_weight_only() else 8
     out = dict(state)
     for path in paths:
         key = f"{path}.weight"
@@ -67,7 +87,8 @@ def weight_only_quantize_state(state: Dict[str, np.ndarray],
             continue
         w = _flatten_qkv(path, np.asarray(out.pop(key), np.float32),
                          out.pop(f"{path}.kv_weight", None))
-        q, s = _quantize_stacked(w, w.ndim - 2)
+        q, s = _quantize_stacked(w, w.ndim - 2, bits,
+                                 int4_group(quant_mode, w.shape[-1]))
         out[f"{path}.qweight"] = q
         out[f"{path}.per_channel_scale"] = s
     return out

@@ -18,7 +18,14 @@ bf16 residual stream that differ by one step compound over layers).  The
 beam entry of kernel 1 is held to the same gates as kernel 1, and its
 rounding of P before P·V is pinned the same way, through a mixing
 indirection; so is the grouped (MQA/GQA) kernel, with the fresh column, and
-the paged kernel, through a permuted block table."""
+the paged kernel, through a permuted block table.  The int4 dequant matmul
+is held to the same gates (2e-2 bf16, 1e-2 fp32) at the SantaCoder-1B
+shapes and the edges of its tiles, and its two rounding rules (the group
+scale rounded to bf16 before it scales the weight; the per-channel scale
+in fp32 on the accumulator) are pinned bit for bit with one-hot rows of
+x."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +33,8 @@ import torch
 from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
 from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
 from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import unpack_int4
 from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import (
     paged_append_kv, paged_prefill)
 
@@ -715,3 +724,159 @@ def test_paged_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(NotImplementedError):
         fpd(pool, 0, torch.zeros(2, 4, 2, 64, device=dev).bfloat16(), table,
             seq, 0.125)
+
+
+def _int4_operands(dev, g, k, n, groups):
+    """Packed weights [K/2, N] (every byte value) and scales: [N] for
+    groups 0 (per channel), else [groups, N], sized for outputs of order
+    one."""
+    qw = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    shape = (n,) if groups == 0 else (groups, n)
+    sc = (torch.rand(shape, generator=g, device=dev) + 0.5) / (4.6 * k ** 0.5)
+    return qw, sc
+
+
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("k,n,groups", [
+    (2048, 2304, 16), (2048, 2048, 16), (2048, 8192, 16), (8192, 2048, 64),
+    (2048, 2048, 0), (128, 256, 1), (1280, 1280, 0), (2048, 1040, 16),
+    (256, 1000, 2), (384, 256, 3)], ids=[
+    "qkv", "dense", "fc", "proj", "per_channel", "one_group", "n1280",
+    "n1040", "n1000", "k384"])
+def test_int4_kernel_matches_plain(dev, m, k, n, groups):
+    """The SantaCoder-1B linears in groups of 128, per channel, one group
+    ([1, N]), N at the edges of the 128-column tiles and of the 16-byte
+    loads, K 384 in groups of 128 (a byte's nibbles in different groups);
+    M 1, 8 (decode, K split over blocks) and 512 (the prefill)."""
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    qw, sc = _int4_operands(dev, g, k, n, groups)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    before = iq.launches["int4_quant_matmul"]
+    out = iq.quant_matmul_int4(x, qw, sc)
+    assert iq.launches["int4_quant_matmul"] == before + 1
+    ref = iq.plain_quant_matmul_int4(x, qw, sc)
+    ref32 = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 2e-2 and _rel(out, ref32) < 1e-2
+    # the split of K sums its partials in a fixed order: a second call is
+    # bit-equal, and the [..., K] leading dims pass through
+    again = iq.quant_matmul_int4(x.reshape(1, m, k), qw, sc)
+    assert torch.equal(again[0], out)
+
+
+@pytest.mark.parametrize("k,n,rows", [
+    (384, 256, [0, 150, 191, 192, 342, 383, 64, 300]),
+    (8192, 2048, [0, 4095, 4096, 8191, 1000, 5000, 2047, 6143])])
+def test_int4_kernel_rounding_rules_one_hot(dev, k, n, rows):
+    """Row m of x is e_{k_m}: output row m is row k_m of the dequantised
+    weight, with no sum involved.  Grouped: bf16(q * bf16(scale)) bit for
+    bit (a scale not rounded first gives other values); per channel:
+    bf16(q * scale) with the fp32 scale, bit for bit.  Rows in both halves
+    of K; at K 8192 the kernel splits K over blocks."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    groups = k // 128
+    qw, sc = _int4_operands(dev, g, k, n, groups)
+    idx = torch.tensor(rows, device=dev)
+    x = torch.zeros(len(rows), k, device=dev, dtype=torch.bfloat16)
+    x[torch.arange(len(rows), device=dev), idx] = 1
+    q = unpack_int4(qw)[idx].float()
+    s_g = sc[idx // 128]
+    grouped = (q * s_g.bfloat16().float()).bfloat16()
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc), grouped)
+    assert not torch.equal(grouped, (q * s_g).bfloat16())
+    channel = (q * sc[0]).bfloat16()
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc[0]), channel)
+    assert not torch.equal(channel, (q * sc[0].bfloat16().float()).bfloat16())
+
+
+def test_int4_kernel_takes_unaligned_views(dev):
+    """x, weight and scales that start 2, 1 and 4 bytes past a 16-byte
+    boundary (the kernel copies 16-byte vectors): the wrapper copies them,
+    and the result equals the aligned call's."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qw, sc = _int4_operands(dev, g, 256, 256, 2)
+    x = torch.randn(8, 256, generator=g, device=dev).bfloat16()
+    want = iq.quant_matmul_int4(x, qw, sc)
+    xb = torch.empty(8 * 256 + 1, device=dev, dtype=torch.bfloat16)
+    xb[1:] = x.reshape(-1)
+    qb = torch.empty(128 * 256 + 1, device=dev, dtype=torch.int8)
+    qb[1:] = qw.reshape(-1)
+    sb = torch.empty(2 * 256 + 1, device=dev)
+    sb[1:] = sc.reshape(-1)
+    got = iq.quant_matmul_int4(xb[1:].view(8, 256), qb[1:].view(128, 256),
+                               sb[1:].view(2, 256))
+    assert torch.equal(got, want)
+
+
+def test_int4_kernel_refuses_what_it_does_not_take(dev):
+    """fp32 and fp16 activations, K not a multiple of 64, groups of fewer
+    than 32 rows, fp64 scales and weights on the CPU raise instead of
+    falling back; nothing is launched."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    qw, sc = _int4_operands(dev, g, 256, 128, 2)
+    x = torch.randn(4, 256, generator=g, device=dev)
+    before = iq.launches["int4_quant_matmul"]
+    with pytest.raises(TypeError):
+        iq.quant_matmul_int4(x, qw, sc)
+    with pytest.raises(TypeError):
+        iq.quant_matmul_int4(x.half(), qw, sc)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError):                # K 96
+        iq.quant_matmul_int4(xb[:, :96], qw[:48], sc[0])
+    with pytest.raises(ValueError):                # 16 groups of 16 rows
+        iq.quant_matmul_int4(xb, qw, sc[:1].repeat(16, 1))
+    with pytest.raises(ValueError):
+        iq.quant_matmul_int4(xb, qw, sc.double())
+    with pytest.raises(ValueError):
+        iq.quant_matmul_int4(xb, qw.cpu(), sc)
+    assert iq.launches["int4_quant_matmul"] == before
+
+
+def test_int4_decode_launch_count(dev):
+    """``GenerationSession.decode`` on a tiny woq4 model (2 layers of width
+    256, one KV head of 128, groups of 128, bf16): the int4 kernel runs four
+    times a layer for every model call (the prefill and each step), the
+    grouped kernel once a layer for every step."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import (
+        from_jax_state, quantize_state)
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig)
+    config = DecoderConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                           num_heads=2, num_kv_heads=1,
+                           max_position_embeddings=64, dtype="bfloat16",
+                           quant_mode=QuantMode.use_weight_only(True))
+    with torch.device("meta"):
+        shapes = DecoderLMHead(dataclasses.replace(
+            config, quant_mode=QuantMode(0))).state_dict()
+    rs = np.random.RandomState(0)
+    state = {}
+    for key, t in shapes.items():
+        shape = tuple(t.shape)
+        if key.startswith("blocks.0."):
+            key, shape = "blocks." + key[len("blocks.0."):], (2,) + shape
+        elif key.startswith("blocks."):
+            continue
+        x = rs.randn(*shape).astype(np.float32) * 0.02
+        state[key] = x + 1.0 if key.endswith("norm.weight") or \
+            key == "ln_f.weight" else x
+    model = from_jax_state(quantize_state(state, config), config)
+    sess = GenerationSession(
+        ModelConfig(vocab_size=97, num_layers=2, num_heads=2,
+                    hidden_size=256, max_seq_len=64, num_kv_heads=1), model,
+        SamplingConfig(end_id=-1, pad_id=0))
+    iq.reset_launches()
+    da.reset_launches()
+    new = 5
+    tokens, _, _ = sess.decode(rs.randint(0, 97, (3, 6)).astype(np.int32),
+                               np.asarray([6, 4, 6], np.int32),
+                               max_new_tokens=new)
+    assert iq.launches["int4_quant_matmul"] == 4 * 2 * new
+    assert da.launches["gqa_decode_attention"] == 2 * (new - 1)
+    assert da.launches["out_proj_gemv"] == 0
+    assert bool(((tokens >= 0) & (tokens < 97)).all())

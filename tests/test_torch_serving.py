@@ -241,10 +241,10 @@ MQA = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=1, max_position_embeddings=64)
 
 
-def _models(kw, woq: bool, seed: int = 0):
+def _models(kw, woq: int, seed: int = 0):
     """(JAX model, port model) for one decoder config, fp32, random weights
-    (LayerNorm weights 1 + N(0, 0.02), the rest N(0, 0.2)), int8 weight-only
-    on both sides with ``woq``."""
+    (LayerNorm weights 1 + N(0, 0.02), the rest N(0, 0.2)), weight-only with
+    ``woq`` bits (8 or 4; 0 or False: float) on both sides."""
     from eddie_wang_hackathon2023_tpu.models.decoder import \
         DecoderConfig as JConfig
     from eddie_wang_hackathon2023_tpu.models.decoder import \
@@ -261,10 +261,10 @@ def _models(kw, woq: bool, seed: int = 0):
         state[name] = 1 + 0.02 * x if norm else 0.2 * x
     jstate = state
     if woq:
-        jm, jstate = j_woq(jm, state, JQ.use_weight_only())
+        jm, jstate = j_woq(jm, state, JQ.use_weight_only(woq == 4))
     jm.load_state_dict({k: jnp.asarray(v) for k, v in jstate.items()})
     pc = DecoderConfig(**kw, dtype="float32", quant_mode=(
-        QuantMode.use_weight_only() if woq else QuantMode(0)))
+        QuantMode.use_weight_only(woq == 4) if woq else QuantMode(0)))
     pm = from_jax_state(quantize_state(state, pc), pc, device="cpu")
     return jm, pm
 
@@ -343,7 +343,7 @@ def _serve(cbm, req_cls, sc, model, prompts, end_id, **kw):
 
 
 @pytest.mark.parametrize("pallas", ["0", "1"], ids=["xla", "paged_kernel"])
-@pytest.mark.parametrize("woq", [False, True], ids=["float", "woq8"])
+@pytest.mark.parametrize("woq", [0, 8, 4], ids=["float", "woq8", "woq4"])
 @pytest.mark.parametrize("family", ["mha", "mqa"])
 def test_serving_token_exact_with_jax(family, woq, pallas, monkeypatch):
     """Six prompts of 1-7 tokens through 2 slots (tables of 4 blocks of 8)
@@ -351,7 +351,8 @@ def test_serving_token_exact_with_jax(family, woq, pallas, monkeypatch):
     0 makes on its fourth step, so some requests end early and their slots
     and blocks are reused mid-run.  The JAX side runs its XLA formulation or
     its ``_paged_kernel`` in interpret mode (taken at batch <= 2), set
-    before its first trace."""
+    before its first trace.  Weights float, int8 or int4 weight-only (per
+    channel at width 64)."""
     from eddie_wang_hackathon2023_tpu.runtime.batch_manager import \
         ContinuousBatchingManager as JManager
     from eddie_wang_hackathon2023_tpu.runtime.batch_manager import \

@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
-   kernels of ``eddie_wang_hackathon2023_tpu_torch/csrc`` with nvcc
-   (one process per source, in parallel).
+1. Prints the card's name and power limit (nvidia-smi), whether triton
+   imports, and builds the CUDA kernels of
+   ``eddie_wang_hackathon2023_tpu_torch/csrc`` and the example's
+   ``examples/custom_kernel_torch/fmha.cu`` with nvcc (one process per
+   source, in parallel).
 2. Holds every kernel of the main path against its plain PyTorch version
    on the card, at the shapes the main path gives it, and times the
    kernel, the plain version and, where one PyTorch call computes the same
@@ -14,9 +16,18 @@
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
    40 tokens, each decode step one launch of the megakernel.  Then the
-   layer-by-layer (scanned) path, ``decode_megakernel=False``, at the same
-   widths with the depth cut to 8+8 layers and the recipe without
-   ``sqenc`` (its encoder takes the bf16 flash entry).  Then the beam
+   custom path on the same model: the transcription without, then with
+   the user-written FMHA of ``examples/custom_kernel_torch`` installed by
+   ``set_custom_mha`` (it must take the encoder's 32 attention calls and
+   the prompt prefill's 32, and the flash kernel none), then without it
+   again and with a 223-token previous-text prompt, whose prefill takes the
+   flash kernel's causal mode; the encoder with the user kernel is held
+   against the built-in one, the hooked run's teacher-forced logits
+   against the plain path, and utt/s is printed with and without the
+   hook.  Then the layer-by-layer (scanned) path,
+   ``decode_megakernel=False``, at the same widths with the depth cut to
+   8+8 layers and the recipe without ``sqenc`` (its encoder takes the
+   bf16 flash entry).  Then the beam
    path: beam search with 5 beams at full width and depth, recipe
    ``woq8+ckv8+lmq8``, each decode step through the beam entry of the
    decode kernel (self-attention through the cache-indirection table) and
@@ -49,7 +60,9 @@
    teacher-forced check replays the recorded prefills and first ticks on a
    fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
    wall and device-busy time and peak memory.
-4. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
+4. Runs ``examples/custom_kernel_torch/run.py --device cuda`` in this
+   process, which must end with its OK line.
+5. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
 Needs one CUDA card; exits non-zero with no result without one, or when
@@ -67,6 +80,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "eddie_wang_hackathon2023_tpu_torch"
 SEED = 0
 SAMPLE_LEN = 40
+TOK_EOT = 50257
 
 # H100 SXM peaks (NVIDIA data sheet), used for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -118,11 +132,26 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_quant_matmul.py:25"),
+    # kernel 2's causal mode (bf16): the prompted prefill of the custom path
+    "flash_attention_causal": dict(
+        route="cuda", source=f"{PKG}/csrc/flash_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/flash_attention.py:89"),
+    # the user kernel of examples/custom_kernel_torch, installed by
+    # set_custom_mha: bf16 (the prompt prefill) and fp32 (the SmoothQuant
+    # encoder) entries
+    "custom_fmha": dict(
+        route="cuda", source="examples/custom_kernel_torch/fmha.cu",
+        replaces="examples/custom_kernel/pallas_fmha.py:23"),
+    "custom_fmha_f32": dict(
+        route="cuda", source="examples/custom_kernel_torch/fmha.cu",
+        replaces="examples/custom_kernel/pallas_fmha.py:23"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
-# the recipe without sqenc, so the encoder takes the bf16 flash entry) or
-# the beam path (beam 5, the recipe without sqenc)
+# the recipe without sqenc, so the encoder takes the bf16 flash entry), the
+# beam path (beam 5, the recipe without sqenc), the decoder-only and serve
+# paths, or the custom path (the main path's model with the user kernel
+# installed, then without it and with a previous-text prompt)
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
@@ -130,7 +159,9 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8_b5": "beam",
            "gqa_decode_attention": "decoder",
            "paged_decode_attention": "serve",
-           "int4_quant_matmul": "decoder_woq4"}
+           "int4_quant_matmul": "decoder_woq4",
+           "flash_attention_causal": "custom", "custom_fmha": "custom",
+           "custom_fmha_f32": "custom"}
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
@@ -143,6 +174,12 @@ DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 60, 20
 # prompt tokens, 20 new ones, max_seq_len 128, 32 tokens per block)
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 64, 8, 60, 20
 SERVE_MAX_SEQ, SERVE_BLOCK = 128, 32
+# the custom path's previous-text prompt: the longest Whisper keeps
+# (n_text_ctx // 2 - 1 tokens), as long-form transcription conditions each
+# window on the text before it; its prefill adds sot_prev and the 3 tokens
+# of the sot sequence (sot, language, task)
+PROMPT_LEN = 223
+PROMPTED_PREFILL = PROMPT_LEN + 4
 
 
 class SmokeFailure(Exception):
@@ -596,6 +633,7 @@ def kernel_phases(torch, results):
     gqa_phase(torch, results, gen)
     paged_phase(torch, results, gen)
     int4_phase(torch, results, gen)
+    custom_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -1262,6 +1300,194 @@ def int4_phase(torch, results, gen):
         shapes=shapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
 
 
+def example_kernel():
+    """``fmha_cuda``, the user kernel's module of
+    ``examples/custom_kernel_torch``, imported from its directory
+    (importing it registers its source with the port's builder)."""
+    path = os.path.join(HERE, "examples", "custom_kernel_torch")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import fmha_cuda
+    return fmha_cuda
+
+
+@contextlib.contextmanager
+def custom_mha(fn):
+    """``fn`` installed by ``set_custom_mha`` inside the block."""
+    from eddie_wang_hackathon2023_tpu_torch.ops.flash_attention import \
+        set_custom_mha
+    set_custom_mha(fn)
+    try:
+        yield
+    finally:
+        set_custom_mha(None)
+
+
+def custom_phase(torch, results, gen):
+    """The user kernel of examples/custom_kernel_torch and the causal mode
+    of kernel 2 against their plain versions on the card, at the custom
+    path's shapes (and the shapes of the example's own check).  The plain
+    versions run in fp32 on the same inputs, so that the comparison
+    isolates the kernel: gates 1e-5 of the largest output for fp32 (both
+    compute in fp32; kernel 2's fp32 entry, which sums split bf16 products,
+    1e-4), 1e-2 for a bf16 output (a few bf16 roundings)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    ck = example_kernel()
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def views(b, h, lq, lk, d, dtype):
+        """q [b,h,lq,d], k, v [b,h,lk,d] as strided views of fused
+        [b, L, 3, h, d] projection outputs, as the attention layer hands
+        them over."""
+        qkv = torch.randn((b, max(lq, lk), 3, h, d), generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = (qkv[:, :n, i].transpose(1, 2)
+                   for i, n in enumerate((lq, lk, lk)))
+        return q, k, v
+
+    # the user kernel: (what, q and k shapes, kv_valid_len, causal, dtype)
+    H, D, L, valid = 20, 64, 1536, 1500
+    scale = D ** -0.5
+    cases = [
+        ("[2,4,256,64] (the example's check)", (2, 4, 256, 256), None,
+         False, f32),
+        ("[2,4,256,64] causal (the example's check)", (2, 4, 256, 256),
+         None, True, f32),
+        ("encoder [1,20,1536,64] valid 1500", (1, H, L, L), valid, False,
+         bf16),
+        ("encoder [1,20,1536,64] valid 1500 (sqenc)", (1, H, L, L), valid,
+         False, f32),
+        ("prompt prefill [1,20,3,64] causal", (1, H, 3, 3), None, True,
+         bf16),
+        ("[1,20,4,64] causal", (1, H, 4, 4), None, True, bf16),
+        ("top-left causal Lq 128, Lk 256", (1, H, 128, 256), None, True,
+         f32),
+    ]
+    errs = {}
+    for what, (b, h, lq, lk), vl, causal, dtype in cases:
+        q, k, v = views(b, h, lq, lk, D, dtype)
+        before = dict(ck.launches)
+        out = ck.custom_flash_mha(q, k, v, causal=causal, scale=scale,
+                                  kv_valid_len=vl)
+        entry = "custom_fmha_f32" if dtype == f32 else "custom_fmha"
+        ref = ck.plain_custom_flash_mha(q.float(), k.float(), v.float(),
+                                        causal=causal, scale=scale,
+                                        kv_valid_len=vl)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        errs[what] = err
+        tol = 1e-5 if dtype == f32 else 1e-2
+        print(f"custom fmha {what}, {str(dtype)[6:]}: rel err vs fp32 plain "
+              f"{err:.3e}")
+        check(out.dtype == dtype and ck.launches[entry] == before[entry] + 1
+              and err < tol, f"custom fmha {what} {str(dtype)[6:]}: one "
+              f"launch, within {tol:g} of the fp32 plain version")
+        if lq != lk:
+            br = fa.plain_flash_mha(q.float(), k.float(), v.float(),
+                                    causal=True, scale=scale)
+            check(rel_err(out, br) > 1e-1, "custom fmha masks top-left: "
+                  "it differs from the bottom-right mask at Lq 128, Lk 256")
+
+    def timed(b, h, lq, lk, vl, causal, dtype):
+        """The user kernel's row at one shape: its time, the plain
+        version's and SDPA's on the same inputs, and two bounds.  bound_ms:
+        the function computes in fp32 whatever its operands' type, so its
+        operations at the fp32 CUDA-core peak.  route_bound_ms: the bf16
+        tensor cores, as kernel 2's fp32 entry takes them: Q.K^T is one
+        bf16 product for bf16 operands (exact, fp32 accumulation) and
+        three for fp32 ones (split bf16); P.V takes P, fp32, as two bf16
+        terms, so two products over bf16 V and three over fp32 V."""
+        q, k, v = views(b, h, lq, lk, D, dtype)
+        out = ck.custom_flash_mha(q, k, v, causal=causal, scale=scale,
+                                  kv_valid_len=vl)
+        ref = ck.plain_custom_flash_mha(q.float(), k.float(), v.float(),
+                                        causal=causal, scale=scale,
+                                        kv_valid_len=vl)
+        err = float((out.float() - ref).abs().max())
+        ms, wall = time_ms(torch, lambda i: ck.custom_flash_mha(
+            q, k, v, causal=causal, scale=scale, kv_valid_len=vl))
+        plain_ms, _ = time_ms(torch, lambda i: ck.plain_custom_flash_mha(
+            q, k, v, causal=causal, scale=scale, kv_valid_len=vl), iters=10)
+        live = lk if vl is None else min(vl, lk)
+        kc, vc = k[:, :, :live].contiguous(), v[:, :, :live].contiguous()
+        qc = q.contiguous()
+        # SDPA's is_causal is top-left, as the user kernel's mask
+        lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc,
+                                                  is_causal=causal,
+                                                  scale=scale))
+        # (row, live key) pairs: row i of a top-left causal call sees i + 1
+        pairs = (sum(min(i + 1, live) for i in range(lq)) if causal
+                 else lq * live)
+        n_bytes = 2 * b * h * (lq + lk) * D * q.element_size()
+        products = 3 if dtype == bf16 else 6
+        b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * D,
+                           PEAK_FP32_CUDA_CORES)
+        r_ms, r_by = bound(n_bytes, products * 2 * b * h * pairs * D,
+                           PEAK_BF16_TENSOR)
+        shape = (f"[{b},{h},{lq},{D}]" + (f" Lk {lk}" if lk != lq else "")
+                 + (f" valid {vl}" if vl is not None else "")
+                 + (" causal" if causal else "") + f" {str(dtype)[6:]}")
+        print(f"custom fmha {shape}: {ms * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.3f} us fp32, {b_by}; {r_ms * 1e3:.3f} us by the "
+              f"tensor-core route, {r_by}; plain {plain_ms * 1e3:.2f}; SDPA "
+              f"{lib_ms * 1e3:.2f})")
+        return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    route_bound_ms=r_ms, route_bound_by=r_by,
+                    host_call_ms=wall)
+
+    # each entry's row at the shape the custom path gives it: the bf16
+    # entry takes the prompt prefill, the fp32 entry the SmoothQuant
+    # encoder; the bf16 entry is timed at the encoder's shape too, beside
+    # kernel 2's bf16 entry
+    results["custom_fmha"] = dict(
+        **timed(1, H, 3, 3, None, True, bf16), rel_err_vs_plain=errs,
+        at_encoder_shape=timed(1, H, L, L, valid, False, bf16))
+    results["custom_fmha_f32"] = dict(
+        **timed(1, H, L, L, valid, False, f32), rel_err_vs_plain=errs)
+
+    # kernel 2, causal (bottom-right, as causal_bias): (q shape, dtype)
+    ferrs = {}
+    for (b, h, lq), dtype in (((1, H, 256), bf16), ((1, H, 256), f32),
+                              ((8, 16, 128), bf16),
+                              ((1, H, PROMPTED_PREFILL), bf16)):
+        q, k, v = views(b, h, lq, lq, D, dtype)
+        entry = "flash_attention_causal" + ("_f32" if dtype == f32 else "")
+        before = fa.launches[entry]
+        out = fa.flash_mha(q, k, v, causal=True, scale=scale)
+        ref = fa.plain_flash_mha(q.float(), k.float(), v.float(),
+                                 causal=True, scale=scale)
+        torch.cuda.synchronize()
+        what = f"[{b},{h},{lq},{D}] {str(dtype)[6:]}"
+        ferrs[what] = err = rel_err(out, ref)
+        tol = 1e-4 if dtype == f32 else 1e-2
+        print(f"flash causal {what}: rel err vs fp32 plain {err:.3e}")
+        check(fa.launches[entry] == before + 1 and err < tol,
+              f"flash attention causal {what}: one launch, within {tol:g} "
+              "of the fp32 plain version")
+    # timed at the prompted prefill's shape, the custom path's call
+    err = float((out.float() - ref).abs().max())
+    ms, wall = time_ms(torch, lambda i: fa.flash_mha(q, k, v, causal=True,
+                                                     scale=scale))
+    plain_ms, _ = time_ms(torch, lambda i: fa.plain_flash_mha(
+        q, k, v, causal=True, scale=scale))
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc, is_causal=True,
+                                              scale=scale))
+    # causal, row i needs i + 1 keys: 4 * D flops for each (row, key) pair
+    b_ms, b_by = bound(4 * H * lq * D * 2, 4 * H * D * lq * (lq + 1) // 2,
+                       PEAK_BF16_TENSOR)
+    print(f"flash causal [1,{H},{lq},{D}] bf16: {ms * 1e3:.2f} us (bound "
+          f"{b_ms * 1e3:.3f} us, {b_by}; plain {plain_ms * 1e3:.2f}; SDPA "
+          f"{lib_ms * 1e3:.2f})")
+    results["flash_attention_causal"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+        rel_err_vs_plain=ferrs)
+
+
 def random_openai_state(np, config, rng):
     """A seeded OpenAI-format Whisper state dict: linear weights N(0, 0.02),
     LayerNorm weights 1 + N(0, 0.02), biases N(0, 0.02)."""
@@ -1333,41 +1559,17 @@ def plain_kernels():
          la.fused_paged_decode_attention, iq.quant_matmul_int4) = saved
 
 
-def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
-              recipe=None, label="main", beam=None):
-    """One path on ``device``: the model built with ``recipe`` (default the
-    bench recipe), transcription with ``decode_megakernel`` (None: the
-    pipeline's default, on with a card) and ``beam`` (the beam size; None
-    is greedy), the launch counts of that run, the kernel-vs-plain checks
-    and the timings.  A smaller ``config`` and the CPU rehearse it without
-    a card (the launch counts are then not checked).  Returns (end-to-end
-    numbers, launch counts)."""
-    import torch.nn.functional as F
-
-    from eddie_wang_hackathon2023_tpu_torch.functional import gelu
+def build_whisper(torch, np, config, device, recipe, label):
+    """Whisper for ``recipe`` on ``device`` with seeded random weights (the
+    static cross-KV scales calibrated on the seeded mel's encoder output),
+    and that mel: dict(config, recipe, enc, dec, ckv, mel, mel_t)."""
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
-        BENCH_RECIPE, cross_kv_from_jax_state, from_jax_state,
-        quantize_states, whisper_config)
+        cross_kv_from_jax_state, from_jax_state, quantize_states)
     from eddie_wang_hackathon2023_tpu_torch.models.whisper.convert import (
         cross_kv_state_dict, decoder_state_dict, encoder_state_dict)
-    from eddie_wang_hackathon2023_tpu_torch.models.whisper.pipeline import (
-        DecodingOptions, WhisperPipeline)
-    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
-    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
-    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
     from eddie_wang_hackathon2023_tpu_torch.quantization.calibration import \
         calibrate_cross_kv_scales
 
-    device = torch.device(device)
-    on_card = device.type == "cuda"
-    recipe = recipe or BENCH_RECIPE
-    sqenc = "sqenc" in recipe
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    config = config or whisper_config("large-v2", dtype="bfloat16")
     dtype = getattr(torch, config.dtype)
     t0 = time.time()
     rng = np.random.default_rng(SEED)
@@ -1393,18 +1595,150 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     ckv = cross_kv_from_jax_state({**ckv_f, "kv_scale": scales}, config,
                                   recipe=recipe, device=device)
     del ckv_f
-    sync()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
     print(f"[{label}] {recipe}, {config.n_audio_layer}+{config.n_text_layer}"
           f" layers of width {config.n_text_state}, built in "
           f"{time.time() - t0:.1f} s")
+    return dict(config=config, recipe=recipe, enc=enc, dec=dec, ckv=ckv,
+                mel=mel, mel_t=mel_t)
 
-    tok_eot = 50257
-    # EOT suppressed so every run decodes the full SAMPLE_LEN tokens (the
-    # JAX bench gets the same effect from zero weights)
-    opts = DecodingOptions(language="en", sample_len=SAMPLE_LEN,
-                           suppress_tokens=f"-1,{tok_eot}", beam_size=beam)
-    pipe = WhisperPipeline(config, enc, dec, ckv, opts,
+
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wall_s(torch, device, fn):
+    """Seconds of one call of ``fn``, from a synchronised start to a
+    synchronised end."""
+    sync(torch, device)
+    t = time.perf_counter()
+    fn()
+    sync(torch, device)
+    return time.perf_counter() - t
+
+
+def whisper_pipeline(built, decode_megakernel, sample_len=SAMPLE_LEN,
+                     **options):
+    """The pipeline over ``built``'s model (from :func:`build_whisper`),
+    with EOT suppressed so every run decodes the full ``sample_len`` tokens
+    (the JAX bench gets the same effect from zero weights); ``options``
+    are further ``DecodingOptions`` (beam_size, prompt)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.pipeline import (
+        DecodingOptions, WhisperPipeline)
+    opts = DecodingOptions(language="en", sample_len=sample_len,
+                           suppress_tokens=f"-1,{TOK_EOT}", **options)
+    return WhisperPipeline(built["config"], built["enc"], built["dec"],
+                           built["ckv"], opts,
                            decode_megakernel=decode_megakernel)
+
+
+def recorded_calls(dec, fn):
+    """``fn()``, recording every decoder call (forward pre-hook: (args,
+    kwargs)) for :func:`replay_logits`."""
+    calls = []
+    hook = dec.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
+        with_kwargs=True)
+    try:
+        fn()
+    finally:
+        hook.remove()
+    return calls
+
+
+def counted(torch, device, mods, fn):
+    """(``fn()``, the launch counts of the modules ``mods``), the counts
+    set to 0 just before the call and read just after it."""
+    for m in mods:
+        m.reset_launches()
+    res = fn()
+    sync(torch, device)
+    counts = {}
+    for m in mods:
+        counts.update(m.launches)
+    return res, counts
+
+
+def replay_logits(torch, dec, calls, rows, plain, n_calls):
+    """Logits [n_calls, rows, vocab] of the first recorded decoder calls
+    (forward pre-hook: (args, kwargs)), on a fresh cache, through the
+    kernels or through their plain versions on the scanned path (no
+    megakernel)."""
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    logits = []
+    with ctx:
+        cache = dec.new_kv_cache(rows)
+        for (tok, _, cross_kv, widx, seq), kw in calls[:n_calls]:
+            if plain:
+                kw = {**kw, "megakernel_blobs": None}
+            lg, cache = dec(tok, cache, cross_kv, widx, seq, **kw)
+            logits.append(lg[:, -1])
+    return torch.stack(logits)
+
+
+def encoder_errors(torch, enc, mel_t, ref_ctx, label,
+                   ctx=contextlib.nullcontext):
+    """The encoder as it runs against the same under the context
+    ``ref_ctx()``: each block on the same input (the reference's output of
+    the block before), then the whole encoder.  Returns (largest rms rel
+    err of a block, max rel err and rms rel err of the whole encoder)."""
+    import torch.nn.functional as F
+
+    from eddie_wang_hackathon2023_tpu_torch.functional import gelu
+    x = gelu(enc.conv2(gelu(enc.conv1(mel_t)))).transpose(1, 2)
+    x = x + enc.positional_embedding.to(x.dtype)
+    valid = x.shape[1]                     # 1500, padded to 1536
+    pad = (-valid) % 128 if valid >= 128 else 0
+    x = F.pad(x, (0, 0, 0, pad))
+    vl = valid if pad else None
+    block_errs = []
+    for block in enc.blocks:
+        with ctx():
+            y_k = block(x, valid_len=vl)
+        with ref_ctx():
+            y_p = block(x, valid_len=vl)
+        block_errs.append(float((y_k.float() - y_p.float()).norm()
+                                / y_p.float().norm()))
+        x = y_p
+    with ctx():
+        xa_k = enc(mel_t)
+    with ref_ctx():
+        xa_p = enc(mel_t)
+    rms = float((xa_k.float() - xa_p.float()).norm() / xa_p.float().norm())
+    check(bool(torch.isfinite(xa_k).all()), f"[{label}] encoder output finite")
+    return max(block_errs), rel_err(xa_k, xa_p), rms
+
+
+def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
+              recipe=None, label="main", beam=None, built=None):
+    """One path on ``device``: the model built with ``recipe`` (default the
+    bench recipe; or ``built``, from :func:`build_whisper`), transcription
+    with ``decode_megakernel`` (None: the pipeline's default, on with a
+    card) and ``beam`` (the beam size; None is greedy), the launch counts
+    of that run, the kernel-vs-plain checks and the timings.  A smaller
+    ``config`` and the CPU rehearse it without a card (the launch counts
+    are then not checked).  Returns (end-to-end numbers, launch
+    counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        BENCH_RECIPE, whisper_config)
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if built is None:
+        built = build_whisper(
+            torch, np, config or whisper_config("large-v2", dtype="bfloat16"),
+            device, recipe or BENCH_RECIPE, label)
+    config, recipe = built["config"], built["recipe"]
+    enc, dec = built["enc"], built["dec"]
+    mel, mel_t = built["mel"], built["mel_t"]
+    dtype = getattr(torch, config.dtype)
+    sqenc = "sqenc" in recipe
+    pipe = whisper_pipeline(built, decode_megakernel, beam_size=beam)
     rows = pipe.beam                     # decoder rows per utterance
     blobs = pipe._megakernel_blobs(rows)
     mk_on = blobs is not None
@@ -1415,23 +1749,13 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     # warm-up, recording every decoder call (tokens, cache column, length,
     # and with beams the indirection table, which encodes the parents) for
     # the teacher-forced replay below
-    calls = []
-    hook = dec.register_forward_pre_hook(
-        lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
-        with_kwargs=True)
-    try:
-        pipe.transcribe(mel)
-    finally:
-        hook.remove()
-    sync()
+    calls = recorded_calls(dec, lambda: pipe.transcribe(mel))
+    sync(torch, device)
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    for m in (da, fa, mk):
-        m.reset_launches()
-    res = pipe.transcribe(mel)[0]
-    sync()
-    counts = {**da.launches, **fa.launches, **mk.launches}
+    res, counts = counted(torch, device, (da, fa, mk),
+                          lambda: pipe.transcribe(mel)[0])
     peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
                 else float("nan"))
     steps = pipe.decode_steps
@@ -1478,21 +1802,6 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     # indirection tables); logits must agree
     n_check = 8
 
-    def replay(plain, n_calls):
-        """Logits [n_calls, rows, vocab] of the first recorded calls, on a
-        fresh cache, through the kernels or through their plain versions
-        on the scanned path (no megakernel)."""
-        ctx = plain_kernels() if plain else contextlib.nullcontext()
-        logits = []
-        with ctx:
-            cache = dec.new_kv_cache(rows)
-            for (tok, _, cross_kv, widx, seq), kw in calls[:n_calls]:
-                if plain:
-                    kw = {**kw, "megakernel_blobs": None}
-                lg, cache = dec(tok, cache, cross_kv, widx, seq, **kw)
-                logits.append(lg[:, -1])
-        return torch.stack(logits)
-
     with torch.inference_mode():
         # Per block: the same input through the block with the flash kernel
         # and with its plain version.  A bf16 rounding apart in the
@@ -1501,36 +1810,17 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
         # block may differ by a few such steps: gate 2e-2.  Over the whole
         # encoder 32 random-weight layers amplify these, so that gate only
         # catches gross errors.
-        x = gelu(enc.conv2(gelu(enc.conv1(mel_t)))).transpose(1, 2)
-        x = x + enc.positional_embedding.to(x.dtype)
-        valid = x.shape[1]                     # 1500, padded to 1536
-        pad = (-valid) % 128 if valid >= 128 else 0
-        x = F.pad(x, (0, 0, 0, pad))
-        vl = valid if pad else None
-        block_errs = []
-        for block in enc.blocks:
-            y_k = block(x, valid_len=vl)
-            with plain_kernels():
-                y_p = block(x, valid_len=vl)
-            block_errs.append(float((y_k.float() - y_p.float()).norm()
-                                    / y_p.float().norm()))
-            x = y_p
-        e_blk = max(block_errs)
-        xa_k = enc(mel_t)
-        with plain_kernels():
-            xa_p = enc(mel_t)
-        e_xa = rel_err(xa_k, xa_p)
-        rms_xa = float((xa_k.float() - xa_p.float()).norm()
-                       / xa_p.float().norm())
+        e_blk, e_xa, rms_xa = encoder_errors(torch, enc, mel_t, plain_kernels,
+                                             label)
         print(f"[{label}] encoder blocks, kernel vs plain on the same input: "
               f"largest rms rel err {e_blk:.3e}; whole encoder: max rel err "
               f"{e_xa:.3e}, rms rel err {rms_xa:.3e}")
         check(e_blk < 2e-2, f"[{label}] each encoder block, flash kernel vs "
               "plain (rms rel 2e-2)")
-        check(bool(torch.isfinite(xa_k).all()) and rms_xa < 1e-1,
-              f"[{label}] encoder output finite, kernel path vs plain path "
-              "(rms rel 1e-1)")
-        lk, lp = replay(False, 1 + n_check), replay(True, 1 + n_check)
+        check(rms_xa < 1e-1, f"[{label}] encoder output, kernel path vs "
+              "plain path (rms rel 1e-1)")
+        lk, lp = (replay_logits(torch, dec, calls, rows, plain, 1 + n_check)
+                  for plain in (False, True))
     e_lg = rel_err(lk, lp)
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), "
@@ -1555,22 +1845,14 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     # end-to-end timing: best of 3 at 40 tokens and, greedy only, at 80
     # tokens for the decode slope
     def best(p, n=3):
-        times = []
-        for _ in range(n):
-            sync()
-            t = time.perf_counter()
-            p.transcribe(mel)
-            sync()
-            times.append(time.perf_counter() - t)
-        return min(times)
+        return min(wall_s(torch, device, lambda: p.transcribe(mel))
+                   for _ in range(n))
 
     t40 = best(pipe)
     t80 = slope_ms = None
     if not beam:
-        pipe80 = WhisperPipeline(config, enc, dec, ckv, DecodingOptions(
-            language="en", sample_len=2 * SAMPLE_LEN,
-            suppress_tokens=f"-1,{tok_eot}"),
-            decode_megakernel=decode_megakernel)
+        pipe80 = whisper_pipeline(built, decode_megakernel,
+                                  sample_len=2 * SAMPLE_LEN)
         pipe80._mk_blobs = blobs      # the same weight image, packed once
         pipe80.transcribe(mel)
         t80 = best(pipe80)
@@ -1588,6 +1870,143 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
                ms_per_utt=t40 * 1e3, slope_ms_per_token=slope_ms,
                peak_gib=peak_gib, logits_rel_err=e_lg,
                logits_argmax_agreement=agree,
+               encoder_block_rms_rel_err=e_blk, encoder_rel_err=e_xa,
+               encoder_rms_rel_err=rms_xa)
+    return e2e, counts
+
+
+def custom_path(torch, np, built, device="cuda", label="custom"):
+    """The custom path: the main path's model (``built``, from
+    :func:`build_whisper`) transcribing the same mel with the built-in
+    dispatch, then with the user kernel of ``examples/custom_kernel_torch``
+    installed by ``set_custom_mha`` (it must take the encoder's and the
+    prompt prefill's attention, one call a layer each, and kernel 2 must
+    not launch), then without it again and with a previous-text prompt of
+    ``PROMPT_LEN`` tokens (kernel 2 must launch again: the encoder, and the
+    prompted prefill in its causal mode).  Checks the encoder with the user
+    kernel against the built-in one and the teacher-forced logits of the
+    hooked run against the plain path, and times the transcription with
+    and without the hook, in turns.  Returns (end-to-end numbers, launch
+    counts of the three counted transcriptions together)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+
+    ck = example_kernel()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    config, sqenc = built["config"], "sqenc" in built["recipe"]
+    enc, dec = built["enc"], built["dec"]
+    mel, mel_t = built["mel"], built["mel_t"]
+    n_enc, n_dec = config.n_audio_layer, config.n_text_layer
+
+    def hooked():
+        return custom_mha(ck.custom_flash_mha)
+
+    def transcribe(p, hook=False):
+        with hooked() if hook else contextlib.nullcontext():
+            return p.transcribe(mel)[0]
+
+    # the megakernel decode, as on the main path (asked for on the CPU)
+    mk_on = None if on_card else True
+    pipe = whisper_pipeline(built, mk_on)
+    prompt = np.random.default_rng(SEED + 2).integers(
+        0, TOK_EOT, PROMPT_LEN).tolist()
+    pipe_p = whisper_pipeline(built, mk_on, prompt=prompt)
+    # warm-up (the user kernel's first launch), recording the hooked run's
+    # decoder calls for the teacher-forced replay
+    transcribe(pipe)
+    calls = recorded_calls(dec, lambda: transcribe(pipe, hook=True))
+    transcribe(pipe_p)
+    sync(torch, device)
+
+    mods = (da, fa, mk, ck)
+    res_off, c_off = counted(torch, device, mods, lambda: transcribe(pipe))
+    res_on, c_on = counted(torch, device, mods,
+                           lambda: transcribe(pipe, hook=True))
+    res_p, c_p = counted(torch, device, mods, lambda: transcribe(pipe_p))
+    counts = {k: c_off[k] + c_on[k] + c_p[k] for k in c_off}
+    n_prefill = len(pipe_p.initial_tokens)
+    print(f"[{label}] launches without the hook {c_off}; with it {c_on}; "
+          f"without it, prompted ({n_prefill}-token prefill) {c_p}")
+    check(c_on["custom_mha"] == n_enc + n_dec
+          and c_off["custom_mha"] == c_p["custom_mha"] == 0,
+          f"[{label}] the hook took {n_enc} encoder and {n_dec} prompt "
+          "prefill calls a transcription, none once removed")
+    builtin = ("flash_attention", "flash_attention_f32",
+               "flash_attention_causal", "flash_attention_causal_f32")
+    enc_flash = "flash_attention_f32" if sqenc else "flash_attention"
+    if on_card:
+        enc_user = "custom_fmha_f32" if sqenc else "custom_fmha"
+        check(all(c_on[k] == 0 for k in builtin)
+              and c_on[enc_user] == n_enc
+              and c_on["custom_fmha"] + c_on["custom_fmha_f32"]
+              == n_enc + n_dec,
+              f"[{label}] with the hook: the user kernel launched {n_enc} "
+              f"times in the encoder ({enc_user}) and {n_dec} in the prefill,"
+              " kernel 2 never")
+        check(c_off[enc_flash] == n_enc
+              and c_off["custom_fmha"] == c_off["custom_fmha_f32"] == 0,
+              f"[{label}] without the hook: kernel 2 ({enc_flash}) launched "
+              f"{n_enc} times, the user kernel never")
+        check(n_prefill == PROMPTED_PREFILL and c_p[enc_flash] == n_enc
+              and c_p["flash_attention_causal"] == n_dec
+              and c_p["custom_fmha"] == c_p["custom_fmha_f32"] == 0,
+              f"[{label}] after set_custom_mha(None), prompted: kernel 2 "
+              f"launched {n_enc} times in the encoder and {n_dec} times "
+              f"causally in the {PROMPTED_PREFILL}-token prefill")
+    for res in (res_off, res_on, res_p):
+        check(len(res.tokens) == SAMPLE_LEN
+              and all(0 <= t < config.n_vocab for t in res.tokens)
+              and np.isfinite(res.avg_logprob),
+              f"[{label}] transcription: {SAMPLE_LEN} tokens in range, "
+              "finite log-probability")
+    agree = res_on.tokens == res_off.tokens
+    print(f"[{label}] tokens with the hook equal those without it: {agree}")
+
+    n_check = 8
+    with torch.inference_mode():
+        # The user kernel (fp32 on CUDA cores) and kernel 2 (fp32 accuracy
+        # from split bf16 products) differ by fp32 roundings, which can
+        # move a per-token int8 step of the SmoothQuant GEMMs after the
+        # attention: the main path's gates (2e-2 a block, rms 1e-1 whole)
+        e_blk, e_xa, rms_xa = encoder_errors(
+            torch, enc, mel_t, contextlib.nullcontext, label, ctx=hooked)
+        print(f"[{label}] encoder blocks, user kernel vs kernel 2 on the same"
+              f" input: largest rms rel err {e_blk:.3e}; whole encoder: max "
+              f"rel err {e_xa:.3e}, rms rel err {rms_xa:.3e}")
+        check(e_blk < 2e-2 and rms_xa < 1e-1, f"[{label}] encoder with the "
+              "user kernel vs kernel 2 (rms rel 2e-2 a block, 1e-1 whole)")
+        with hooked():
+            lk = replay_logits(torch, dec, calls, 1, False, 1 + n_check)
+        lp = replay_logits(torch, dec, calls, 1, True, 1 + n_check)
+    e_lg = rel_err(lk, lp)
+    agree_lg = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), the "
+          f"hooked path vs the plain scanned path: rel err {e_lg:.3e}, "
+          f"argmax agreement {agree_lg:.3f}")
+    check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
+          f"[{label}] teacher-forced logits with the hook agree (rel 5e-2 "
+          "of max |logit|)")
+
+    # end to end, without and with the hook in turns (off, on, on, off,
+    # off, on), best of 3 each
+    times = {False: [], True: []}
+    for on in (False, True, True, False, False, True):
+        times[on].append(wall_s(torch, device,
+                                lambda: transcribe(pipe, hook=on)))
+    t_off, t_on = min(times[False]), min(times[True])
+    print(f"[{label}] end to end: {1 / t_off:.4f} utt/s without the hook, "
+          f"{1 / t_on:.4f} utt/s with it ({t_off * 1e3:.1f} and "
+          f"{t_on * 1e3:.1f} ms per utterance, {SAMPLE_LEN} tokens); tokens "
+          f"agree: {agree}")
+    e2e = dict(recipe=built["recipe"], n_audio_layer=n_enc,
+               n_text_layer=n_dec, utt_per_s_builtin=1 / t_off,
+               utt_per_s_hook=1 / t_on, ms_per_utt_builtin=t_off * 1e3,
+               ms_per_utt_hook=t_on * 1e3, tokens_agree=agree,
+               hook_calls_per_utt=c_on["custom_mha"],
+               prompted_prefill_len=n_prefill, logits_rel_err=e_lg,
+               logits_argmax_agreement=agree_lg,
                encoder_block_rms_rel_err=e_blk, encoder_rel_err=e_xa,
                encoder_rms_rel_err=rms_xa)
     return e2e, counts
@@ -1976,8 +2395,9 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
 def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
-    the scanned path (decode_megakernel=False, recipe without sqenc, depth
-    cut to SCANNED_DEPTH layers to keep the run short), then the beam path
+    the custom path on the main path's model, then the scanned path
+    (decode_megakernel=False, recipe without sqenc, depth cut to
+    SCANNED_DEPTH layers to keep the run short), then the beam path
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
     (default SantaCoder-1B) under its recipe and under int4 weight-only,
@@ -1986,16 +2406,19 @@ def paths(torch, np, results, config=None, device="cuda",
     drives it, and must be above 0 there on the card."""
     import dataclasses
 
-    from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
-        whisper_config
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        BENCH_RECIPE, whisper_config)
     from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
     on_card = torch.device(device).type == "cuda"
     config = config or whisper_config("large-v2", dtype="bfloat16")
     # on the card the pipeline's default takes the megakernel; the CPU
     # rehearsal asks for it (its plain version)
+    built = build_whisper(torch, np, config, device, BENCH_RECIPE, "main")
     main_e2e, main_counts = main_path(
-        torch, np, config=config, device=device,
-        decode_megakernel=None if on_card else True, label="main")
+        torch, np, device=device, decode_megakernel=None if on_card else True,
+        label="main", built=built)
+    custom_e2e, custom_counts = custom_path(torch, np, built, device=device)
+    del built
     cut = dataclasses.replace(
         config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
         n_text_layer=min(SCANNED_DEPTH, config.n_text_layer))
@@ -2028,16 +2451,39 @@ def paths(torch, np, results, config=None, device="cuda",
                   "peak_gib")))
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
-    counts = dict(main=main_counts, scanned=scan_counts, beam=beam_counts,
-                  decoder=dec_counts, decoder_woq4=woq4_counts,
-                  serve=serve_counts)
+    counts = dict(main=main_counts, custom=custom_counts,
+                  scanned=scan_counts, beam=beam_counts, decoder=dec_counts,
+                  decoder_woq4=woq4_counts, serve=serve_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
-    return dict(main=main_e2e, scanned=scan_e2e, beam=beam_e2e,
-                decoder=dec_e2e, decoder_woq4=woq4_e2e, serve=serve_e2e)
+    return dict(main=main_e2e, custom=custom_e2e, scanned=scan_e2e,
+                beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
+                serve=serve_e2e)
+
+
+def example_run():
+    """``examples/custom_kernel_torch/run.py --device cuda``, called in this
+    process: its output must end with its OK line."""
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "custom_kernel_example",
+        os.path.join(HERE, "examples", "custom_kernel_torch", "run.py"))
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run.main(["--device", "cuda"])
+    finally:
+        print(buf.getvalue(), end="")
+    out = buf.getvalue()
+    check(out.rstrip().endswith("custom kernel example OK"),
+          "examples/custom_kernel_torch/run.py --device cuda ends with its "
+          "OK line")
 
 
 def main():
@@ -2061,7 +2507,14 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    try:
+        import triton
+        print(f"triton {triton.__version__} imports")
+    except ImportError as e:
+        print(f"triton does not import: {e}")
+
     from eddie_wang_hackathon2023_tpu_torch.ops import _build
+    example_kernel()        # registers the user kernel's source to build
     t0 = time.time()
     logs = _build.build()
     print(f"kernels built in {time.time() - t0:.1f} s")
@@ -2077,6 +2530,7 @@ def main():
             print(json.dumps(results))
             return 0
         e2e = paths(torch, np, results)
+        example_run()
     except SmokeFailure as e:
         print(f"[FAIL] {e}", file=sys.stderr)
         return 1

@@ -1,5 +1,5 @@
-// Non-causal flash attention with a key-length mask and fp32 online
-// softmax: q, k, v [B, H, L, 64] -> o [B, H, Lq, 64], in two entries:
+// Flash attention with a key-length mask, optionally causal, and fp32
+// online softmax: q, k, v [B, H, L, 64] -> o [B, H, Lq, 64], in two entries:
 //   * bf16 in and out (`flash_attention`), for the float recipes;
 //   * fp32 in and out (`flash_attention_f32`), for the SmoothQuant encoder,
 //     whose QKV projection emits fp32 q, k, v.  It computes at fp32
@@ -12,9 +12,13 @@
 // eddie_wang_hackathon2023_tpu/ops/flash_attention.py:54 `flash_mha`
 // (:89-116, jax.experimental.pallas.ops.tpu.flash_attention), which serves
 // the Whisper encoder at 1536 padded frames with keys at or past
-// `kv_valid_len` masked.  The repo's own Pallas FMHA
-// (examples/custom_kernel/pallas_fmha.py:23) computes the same function
-// with the same algorithm.
+// `kv_valid_len` masked, and the causal context calls of 128 tokens or
+// more (the JAX package's :74-76, :111-113).  The causal mask is
+// `functional.causal_bias`'s, bottom-right: query i attends keys
+// <= i + (Lk - Lq), what the plain version computes (the callers have
+// Lq == Lk, where top-left and bottom-right agree).  The repo's own
+// Pallas FMHA (examples/custom_kernel/pallas_fmha.py:23) computes the same
+// function with the same algorithm (its causal mask top-left).
 //
 // Bound: operations (4 * Lq * valid * D flops per head, against about
 // 4 * L * D * 2 bytes in bf16; three times the products in fp32).  The
@@ -30,7 +34,10 @@
 //     tile loads while this one is computed;
 //   * both products are mma.sync m16n8k16 bf16 -> fp32; the probabilities
 //     stay in registers and become the A operand of P*V;
-//   * tiles wholly past `valid` are skipped, columns past it are masked.
+//   * tiles wholly past `valid` are skipped, columns past it are masked;
+//     causal, tiles wholly above the diagonal are skipped too, the tiles
+//     across it masked per row, and the blocks with the most tiles (the
+//     last query rows) are scheduled first.
 // Inputs may be strided (the last dim contiguous), so q, k, v can be
 // views into the fused QKV projection output, and the output can be
 // written in the [B, L, H, D] layout the out-projection reads.
@@ -122,8 +129,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Lq, int Lk, int valid, Strides sq, Strides sk,
-                       Strides sv, Strides so, float scale_log2) {
+                       int Lq, int Lk, int valid, int causal, Strides sq,
+                       Strides sk, Strides sv, Strides so, float scale_log2) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kLd = ld_of<T>();
   constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
@@ -134,7 +141,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kBM + warp * 16 + g, r1 = r0 + 8;
+  // causal: the last query rows, which have the most key tiles, first
+  const int m_blk = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int r0 = m_blk * kBM + warp * 16 + g, r1 = r0 + 8;
+  // each row's keys end (exclusive) at `valid`, and causal at its diagonal
+  const int off = Lk - Lq;
+  const int lim0 = causal ? min(valid, r0 + off + 1) : valid;
+  const int lim1 = causal ? min(valid, r1 + off + 1) : valid;
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
@@ -186,7 +199,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  const int n_tiles = (valid + kBN - 1) / kBN;
+  // keys this block needs: up to its last row's diagonal when causal
+  const int n_keys =
+      causal ? min(valid, min(m_blk * kBM + kBM, Lq) + off) : valid;
+  const int n_tiles = (n_keys + kBN - 1) / kBN;
   load_tile(0, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int n0 = kt * kBN;
@@ -234,7 +250,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + nt * 8 + t * 2 + (j & 1);
-        s[nt][j] = col < valid ? s[nt][j] * scale_log2 : kNeg;
+        s[nt][j] = col < (j < 2 ? lim0 : lim1) ? s[nt][j] * scale_log2
+                                                : kNeg;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
@@ -254,7 +271,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + nt * 8 + t * 2 + (j & 1);
-        const float p = col < valid ? exp2f(s[nt][j] - (j < 2 ? mn0 : mn1)) : 0.f;
+        const float p = col < (j < 2 ? lim0 : lim1)
+                            ? exp2f(s[nt][j] - (j < 2 ? mn0 : mn1))
+                            : 0.f;
         s[nt][j] = p;
         if (j < 2) ps0 += p; else ps1 += p;
       }
@@ -342,9 +361,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Lq, int Lk, int D, int valid, const long long* strides,
-           float scale, void* stream) {
-  if (D != kD || valid < 1 || valid > Lk) return (int)cudaErrorInvalidValue;
+           int H, int Lq, int Lk, int D, int valid, int causal,
+           const long long* strides, float scale, void* stream) {
+  // causal needs Lq <= Lk: then every row has key 0 and every block a tile
+  if (D != kD || valid < 1 || valid > Lk || (causal && Lq > Lk))
+    return (int)cudaErrorInvalidValue;
   Strides s[4];
   for (int i = 0; i < 4; ++i) s[i] = {strides[3 * i], strides[3 * i + 1],
                                       strides[3 * i + 2]};
@@ -359,8 +380,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_kernel<T><<<grid, kThreads, smem,
                               reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, valid, s[0],
-      s[1], s[2], s[3], scale * 1.4426950408889634f);
+      static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, valid,
+      causal != 0, s[0], s[1], s[2], s[3], scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -369,20 +390,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // Strides are in elements, [b, h, l] for each of q, k, v, o (the last dim
-// is contiguous).  Returns cudaGetLastError() after the launch.
+// is contiguous); `causal` != 0 masks key k of query i unless
+// k <= i + (Lk - Lq).  Returns cudaGetLastError() after the launch.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int Lq, int Lk, int D, int valid,
-                    const long long* strides, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, D, valid, strides,
-                               scale, stream);
+                    int causal, const long long* strides, float scale,
+                    void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, D, valid, causal,
+                               strides, scale, stream);
 }
 
 // The same with fp32 q, k, v and output, at fp32 accuracy.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Lq, int Lk, int D, int valid,
-                        const long long* strides, float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, H, Lq, Lk, D, valid, strides, scale,
-                       stream);
+                        int causal, const long long* strides, float scale,
+                        void* stream) {
+  return launch<float>(q, k, v, o, B, H, Lq, Lk, D, valid, causal, strides,
+                       scale, stream);
 }
 
 }  // extern "C"

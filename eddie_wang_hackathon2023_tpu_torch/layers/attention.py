@@ -3,11 +3,14 @@ JAX package's ``layers/attention.py``).
 
 Modes, as in the JAX package:
 * encoder self-attention with the pad-once ``valid_len`` contract, through
-  the flash kernel (:func:`..ops.flash_attention.flash_mha`);
+  :func:`..ops.flash_attention.flash_mha` (the flash kernel, or a user
+  kernel installed by ``set_custom_mha``);
 * decoder self-attention over the stacked seq-minor cache
   ``[L, B, 2, Hkv, D, S]``: prefill (``past_key_value = (cache, layer)``,
-  written in place; with ``attention_start``, left-padded prompts attend
-  over the cache causally), and single-token decode with the fresh K/V
+  written in place; into an empty cache without ``attention_start``, causal
+  attention over the fresh K/V through ``flash_mha``; with
+  ``attention_start``, left-padded prompts attend over the cache
+  causally), and single-token decode with the fresh K/V
   write deferred to the caller (``(cache, layer, "defer")``), optionally
   read through a beam cache-indirection table (``beam_indirection``);
   MQA/GQA (``num_kv_heads``) keeps Hkv heads in the cache;
@@ -43,7 +46,7 @@ from ..ops.attention import (append_kv_stacked, cached_decode_attention,
                              multihead_attention)
 from ..ops.decode_attention import (fused_decode_attention,
                                     fused_paged_decode_attention)
-from ..ops.flash_attention import flash_mha
+from ..ops.flash_attention import MIN_FLASH_LEN, flash_mha
 from ..ops.paged_attention import PagedKV, paged_append_kv, paged_prefill
 from ..quantization.layers import (WeightOnlyQuantLinear,
                                    WeightOnlyQuantQKVLinear,
@@ -54,9 +57,6 @@ from ..quantization.smoothquant_layers import (SmoothQuantLinear,
                                                SmoothQuantRowLinear)
 from ..quantization.surgery import int4_group
 from .linear import ColumnLinear, RowLinear, frozen
-
-_MIN_FLASH_LEN = 128
-
 
 @functools.lru_cache(maxsize=None)
 def _full_lengths(batch: int, length: int, device: torch.device
@@ -225,6 +225,18 @@ class Attention(nn.Module):
             return res[:, None, :]
         return self.dense(self._merge_heads(res))
 
+    def _flash(self, q, k, v, valid_len: Optional[int] = None):
+        """Context attention through :func:`..ops.flash_attention.flash_mha`
+        (the kernel, its plain version or an installed user kernel), q, k,
+        v [B, H, L, D], then the out-projection.  The result is written as
+        [B, L, H, D], so merging the heads is a free reshape."""
+        b, _, l, d = q.shape
+        ctx = torch.empty((b, l, self.num_attention_heads, d),
+                          dtype=q.dtype, device=q.device)
+        flash_mha(q, k, v, causal=self.causal, scale=self.scale,
+                  kv_valid_len=valid_len, out=ctx.transpose(1, 2))
+        return self.dense(ctx.reshape(b, l, self.num_attention_heads * d))
+
     def _paged(self, q, k, v, pk: PagedKV, sequence_length, write_index):
         """Self-attention over the block pool (the JAX layer's paged
         branch, ``layers/attention.py:474-551``): q [B, H, L, D], k/v
@@ -327,8 +339,11 @@ class Attention(nn.Module):
                     q, layer_kv_views(full, layer_idx), sequence_length,
                     scale=self.scale, causal_offset=cache_write_index,
                     start_index=attention_start)
+                out = self.dense(self._merge_heads(ctx))
             else:
-                # the cache was empty before: attend over the fresh K/V
+                # the cache was empty before: causal context attention over
+                # the fresh K/V through flash_mha, as the JAX layer's
+                # empty-cache fast path (:660-682)
                 if cache_write_index != 0:
                     raise NotImplementedError(
                         "a prefill after earlier tokens needs "
@@ -336,23 +351,14 @@ class Attention(nn.Module):
                 rep = self.num_attention_heads // self.num_attention_kv_heads
                 if rep > 1:
                     k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
-                ctx = multihead_attention(
-                    q, k, v, bias=causal_bias(l, l, device=q.device),
-                    scale=self.scale)
-            out = self.dense(self._merge_heads(ctx))
+                out = self._flash(q, k, v)
             return (out, full) if use_cache else out
 
-        # one-shot (encoder) attention
-        if valid_len is not None or (l >= _MIN_FLASH_LEN and q.is_cuda
-                                     and not self.causal):
-            # the kernel writes [B, L, H, D] directly, so merging the heads
-            # for the out-projection is a free reshape
-            ctx = torch.empty((b, l, self.num_attention_heads,
-                               self.attention_head_size), dtype=q.dtype,
-                              device=q.device)
-            flash_mha(q, k, v, causal=self.causal, scale=self.scale,
-                      kv_valid_len=valid_len, out=ctx.transpose(1, 2))
-            out = self.dense(ctx.reshape(b, l, self.hidden_size))
+        # one-shot (encoder) attention: flash_mha where the JAX layer calls
+        # it (:715-740), the pad-once call always, others of MIN_FLASH_LEN
+        # rows or more on the card
+        if valid_len is not None or (l >= MIN_FLASH_LEN and q.is_cuda):
+            out = self._flash(q, k, v, valid_len)
         else:
             bias = (causal_bias(l, l, device=q.device) if self.causal
                     else None)

@@ -5,7 +5,9 @@ compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``) and loaded with ``ctypes``.  The
 library name carries a hash of the source, so an edited source is rebuilt.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
-them together.  Nothing here runs at import time.
+them together.  A source elsewhere (a user's kernel, as in
+``examples/custom_kernel_torch/``) joins them by :func:`register`, with
+its own signature table.  Nothing here is compiled at import time.
 """
 from __future__ import annotations
 
@@ -33,10 +35,10 @@ SIGNATURES = {
                                   _P, _F, _P, _P, _P, _I, _P, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
-                            _P],
-        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                _F, _P],
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _F, _P],
+        "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _F, _P],
     },
     "decoder_layer": {
         # (const MegaArgs*, stream)
@@ -56,8 +58,22 @@ SIGNATURES = {
     },
 }
 
+# the source of each library: csrc/<name>.cu unless registered elsewhere
+SOURCES: Dict[str, Path] = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
+
+
+def register(name: str, source, signatures) -> None:
+    """Make the source at path ``source``, whose C entry points have the
+    ctypes argument types ``signatures`` ({function: [argtypes]}), known to
+    :func:`build` and :func:`load` as library ``name``."""
+    source = Path(source).resolve()
+    if SOURCES.get(name, source) != source:
+        raise ValueError(f"library {name!r} is already {SOURCES[name]}")
+    SOURCES[name] = source
+    SIGNATURES[name] = dict(signatures)
 
 
 def _nvcc() -> str:
@@ -68,7 +84,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = SOURCES[name].read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -84,7 +100,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -2,27 +2,43 @@
 
 Counterpart of ``ops/flash_attention.py`` ``flash_mha`` in the JAX package.
 On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
-(non-causal, head dim 64; bf16 operands, or fp32 operands at fp32
-accuracy, as the SmoothQuant encoder gives them); on a CPU tensor it runs
-the plain version,
-``multihead_attention`` with a length mask, as the JAX package does off the
-TPU.  ``kv_valid_len`` is the pad-once contract: the caller carries the
-sequence padded to the kernel's block multiple and only the first N keys
-are real.
+(head dim 64; bf16 operands, or fp32 operands at fp32 accuracy, as the
+SmoothQuant encoder gives them): every non-causal call, and causal calls
+of ``MIN_FLASH_LEN`` query rows or more, where the JAX package takes its
+TPU kernel.  Shorter causal calls, causal calls at other head dims and CPU
+tensors take the plain version, ``multihead_attention`` with a causal and
+a length mask, as the JAX package does off the TPU; a non-causal call at
+another head dim raises, as that kernel mode is not ported.
+``kv_valid_len`` is the pad-once contract: the caller carries the sequence
+padded to the kernel's block multiple and only the first N keys are real.
+
+A user-written kernel can take every call instead (:func:`set_custom_mha`,
+the JAX package's extension point; ``examples/custom_kernel_torch/`` plugs
+a hand-written CUDA FMHA in this way).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from . import _build
 from .attention import length_mask_bias, multihead_attention
 
+# below this many query rows the built-in dispatch keeps the plain version
+# (the JAX package's ``_MIN_FLASH_LEN``)
+MIN_FLASH_LEN = 128
+
 # launches of the CUDA kernel, counted where the wrapper launches it, per
-# entry (bf16 operands, fp32 operands)
-launches = {"flash_attention": 0, "flash_attention_f32": 0}
+# entry (bf16 or fp32 operands, causal or not); ``custom_mha``: calls routed
+# to the installed user kernel
+launches = {"flash_attention": 0, "flash_attention_f32": 0,
+            "flash_attention_causal": 0, "flash_attention_causal_f32": 0,
+            "custom_mha": 0}
+
+# the user kernel installed by set_custom_mha, or None
+_custom_mha: Optional[Callable] = None
 
 
 def reset_launches() -> None:
@@ -30,10 +46,20 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def set_custom_mha(fn: Optional[Callable]) -> None:
+    """Install ``fn(q, k, v, *, causal, scale, kv_valid_len) -> [B,H,Lq,D]``
+    as the context-attention kernel of every :func:`flash_mha` call (None
+    restores the built-in dispatch), as the JAX package's
+    ``set_custom_mha`` does."""
+    global _custom_mha
+    _custom_mha = fn
+
+
 def plain_flash_mha(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     kv_valid_len: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version of :func:`flash_mha`."""
+    """The plain PyTorch version of :func:`flash_mha`: with ``causal``,
+    query i attends keys <= i + (Lk - Lq) (``functional.causal_bias``)."""
     lq, lk = q.shape[2], k.shape[2]
     valid = lk if kv_valid_len is None else min(int(kv_valid_len), lk)
     bias = None
@@ -48,22 +74,44 @@ def plain_flash_mha(q, k, v, causal: bool = False,
     return multihead_attention(q, k, v, bias=bias, scale=scale)
 
 
+def kernel_takes(q, k, causal: bool = False) -> bool:
+    """The built-in dispatch's static shape test: the kernel for every
+    non-causal call on a CUDA tensor (it refuses head dims other than 64),
+    and for a causal one of ``MIN_FLASH_LEN`` query rows or more at head
+    dim 64 with no more query rows than keys, so that every row has a key;
+    the rest keep the plain version."""
+    if not q.is_cuda:
+        return False
+    lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
+    return not causal or (lq >= MIN_FLASH_LEN and d == 64 and lq <= lk)
+
+
 def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
               kv_valid_len: Optional[int] = None,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B,H,Lq,D], k/v [B,H,Lk,D] -> [B,H,Lq,D].
 
-    On the card the operands may be strided views (last dim contiguous,
-    rows 16-byte aligned).  ``out``, when given, is a [B,H,Lq,D] view the
-    kernel writes into (e.g. a transposed [B,Lq,H,D] buffer)."""
-    if not q.is_cuda:
+    An installed user kernel (:func:`set_custom_mha`) takes every call;
+    otherwise the kernel where :func:`kernel_takes`, else the plain
+    version.  On the card the kernel's operands may be strided views (last
+    dim contiguous, rows 16-byte aligned).  ``out``, when given, is a
+    [B,H,Lq,D] view the result is written into (e.g. a transposed
+    [B,Lq,H,D] buffer): the kernel writes it directly; a user kernel's or
+    the plain version's result is copied into it."""
+    if _custom_mha is not None:
+        res = _custom_mha(q, k, v, causal=causal, scale=scale,
+                          kv_valid_len=kv_valid_len)
+        launches["custom_mha"] += 1
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if not kernel_takes(q, k, causal):
         res = plain_flash_mha(q, k, v, causal, scale, kv_valid_len)
         if out is not None:
             out.copy_(res)
             return out
         return res
-    if causal:
-        raise NotImplementedError("causal flash attention is not ported yet")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
@@ -99,8 +147,9 @@ def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
     _build.check(entry(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H, Lq, Lk, D, valid,
+        B, H, Lq, Lk, D, valid, int(causal),
         ctypes.cast(strides_arr, ctypes.c_void_p), float(scale), stream),
         "flash_attention")
-    launches["flash_attention_f32" if f32 else "flash_attention"] += 1
+    launches["flash_attention" + ("_causal" if causal else "")
+             + ("_f32" if f32 else "")] += 1
     return out

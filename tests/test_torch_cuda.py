@@ -23,8 +23,15 @@ is held to the same gates (2e-2 bf16, 1e-2 fp32) at the SantaCoder-1B
 shapes and the edges of its tiles, and its two rounding rules (the group
 scale rounded to bf16 before it scales the weight; the per-channel scale
 in fp32 on the accumulator) are pinned bit for bit with one-hot rows of
-x."""
+x.
+The causal mode of the flash kernel is held to the same gates as its
+non-causal mode (its mask is ``causal_bias``'s, bottom-right).  The user
+kernel of ``examples/custom_kernel_torch`` computes in fp32 whatever its
+operands' type: held to 1e-5 of the fp32 plain version with fp32 operands
+and 1e-2 with bf16 ones (its bf16 output rounds once)."""
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +46,12 @@ from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import (
     paged_append_kv, paged_prefill)
 
 pytestmark = pytest.mark.cuda
+
+_spec = importlib.util.spec_from_file_location(
+    "fmha_cuda", os.path.join(os.path.dirname(__file__), "..", "examples",
+                              "custom_kernel_torch", "fmha_cuda.py"))
+ck = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ck)
 
 
 @pytest.fixture
@@ -411,8 +424,8 @@ def test_megakernel_matches_plain(dev, n_layer, tol, cross_dtype):
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.randn(1, 2, 128, 64, device=dev).bfloat16()
-    with pytest.raises(NotImplementedError):
-        fa.flash_mha(q, q, q, causal=True)
+    with pytest.raises(ValueError):    # k and v of one shape
+        fa.flash_mha(q, q, q[:, :, :64], causal=True)
     with pytest.raises(TypeError):     # one dtype for q, k and v
         fa.flash_mha(q.float(), q, q)
     blobs = _random_blobs(dev, 1, 128, seed=0)
@@ -880,3 +893,129 @@ def test_int4_decode_launch_count(dev):
     assert da.launches["gqa_decode_attention"] == 2 * (new - 1)
     assert da.launches["out_proj_gemv"] == 0
     assert bool(((tokens >= 0) & (tokens < 97)).all())
+
+
+def _qkv(g, dev, b, h, lq, lk, d, dtype):
+    """q [b,h,lq,d], k, v [b,h,lk,d]: strided views of one fused buffer,
+    as the attention layer hands them over."""
+    qkv = torch.randn(b, max(lq, lk), 3, h, d, generator=g,
+                      device=dev).to(dtype)
+    return tuple(qkv[:, :n, i].transpose(1, 2)
+                 for i, n in enumerate((lq, lk, lk)))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,valid,dtype", [
+    (1, 3, 256, 256, None, torch.bfloat16),
+    (1, 3, 256, 256, None, torch.float32),
+    (2, 4, 200, 200, 150, torch.bfloat16),
+    (1, 2, 130, 200, None, torch.bfloat16),      # bottom-right, Lq < Lk
+    (8, 16, 128, 128, None, torch.bfloat16),
+])
+def test_flash_kernel_causal_matches_plain(dev, b, h, lq, lk, valid, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = _qkv(g, dev, b, h, lq, lk, 64, dtype)
+    entry = "flash_attention_causal" + (
+        "_f32" if dtype == torch.float32 else "")
+    before = dict(fa.launches)
+    out = fa.flash_mha(q, k, v, causal=True, scale=0.125, kv_valid_len=valid)
+    assert fa.launches[entry] == before[entry] + 1
+    assert sum(fa.launches.values()) == sum(before.values()) + 1
+    ref = fa.plain_flash_mha(q.float(), k.float(), v.float(), causal=True,
+                             scale=0.125, kv_valid_len=valid)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_flash_dispatch_keeps_the_plain_version(dev):
+    """Below MIN_FLASH_LEN query rows, at head dims other than 64 and for
+    causal calls with more rows than keys the built-in dispatch takes the
+    plain version, by its static shape test."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    for lq, lk, d in ((100, 100, 64), (256, 256, 128), (256, 200, 64)):
+        q, k, v = _qkv(g, dev, 1, 2, lq, lk, d, torch.bfloat16)
+        before = dict(fa.launches)
+        out = fa.flash_mha(q, k, v, causal=True)
+        assert fa.launches == before
+        # rows with no key (Lq > Lk, causal_bias's mask) are NaN in both
+        torch.testing.assert_close(
+            out, fa.plain_flash_mha(q, k, v, causal=True), rtol=0, atol=0,
+            equal_nan=True)
+
+
+@pytest.mark.parametrize("valid", [None, 200], ids=["one_shot", "pad_once"])
+def test_flash_refuses_other_head_dims_when_not_causal(dev, valid):
+    """A non-causal call of 128 rows or more at head dim 128 takes the JAX
+    package's TPU kernel; the port lacks that mode, so the dispatch raises
+    rather than hide it behind the plain version."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _qkv(g, dev, 1, 2, 256, 256, 128, torch.bfloat16)
+    before = dict(fa.launches)
+    with pytest.raises(NotImplementedError):
+        fa.flash_mha(q, k, v, kv_valid_len=valid)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("case", [
+    "full_f32", "causal_f32", "valid_bf16", "prefill_lq3_bf16",
+    "top_left_f32", "no_live_key_f32", "valid_past_lk_bf16", "encoder_f32"])
+def test_custom_fmha_matches_plain(dev, case):
+    b, h, lq, lk, causal, valid, dtype = {
+        "full_f32": (2, 4, 256, 256, False, None, torch.float32),
+        "causal_f32": (2, 4, 256, 256, True, None, torch.float32),
+        "valid_bf16": (1, 3, 256, 256, False, 200, torch.bfloat16),
+        "prefill_lq3_bf16": (1, 20, 3, 3, True, None, torch.bfloat16),
+        "top_left_f32": (1, 2, 128, 256, True, None, torch.float32),
+        "no_live_key_f32": (1, 2, 128, 128, False, 0, torch.float32),
+        "valid_past_lk_bf16": (1, 2, 128, 128, True, 300, torch.bfloat16),
+        "encoder_f32": (1, 20, 1536, 1536, False, 1500, torch.float32),
+    }[case]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = _qkv(g, dev, b, h, lq, lk, 64, dtype)
+    entry = "custom_fmha_f32" if dtype == torch.float32 else "custom_fmha"
+    before = dict(ck.launches)
+    out = ck.custom_flash_mha(q, k, v, causal=causal, scale=0.125,
+                              kv_valid_len=valid)
+    assert ck.launches[entry] == before[entry] + 1 and out.dtype == dtype
+    ref = ck.plain_custom_flash_mha(q.float(), k.float(), v.float(),
+                                    causal=causal, scale=0.125,
+                                    kv_valid_len=valid)
+    torch.cuda.synchronize()
+    if valid == 0:
+        assert not out.any()
+    else:
+        assert _rel(out, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_custom_fmha_refuses_what_it_does_not_take(dev):
+    q = torch.randn(1, 2, 128, 64, device=dev)
+    with pytest.raises(NotImplementedError):      # head dim 64 only
+        ck.custom_flash_mha(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(TypeError):                # one dtype for q, k, v
+        ck.custom_flash_mha(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):               # blocks divide the lengths
+        ck.custom_flash_mha(q, q, q, block_n=96)
+
+
+def test_hook_takes_every_call_on_the_card(dev):
+    """With the user kernel installed, flash_mha launches it (and copies its
+    result into ``out``), never the built-in kernel; removed, the built-in
+    kernel launches again."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = _qkv(g, dev, 1, 4, 256, 256, 64, torch.bfloat16)
+    buf = torch.empty(1, 256, 4, 64, dtype=torch.bfloat16, device=dev)
+    fa.reset_launches()
+    ck.reset_launches()
+    fa.set_custom_mha(ck.custom_flash_mha)
+    try:
+        fa.flash_mha(q, k, v, kv_valid_len=200, out=buf.transpose(1, 2))
+        fa.flash_mha(q, k, v, causal=True)
+    finally:
+        fa.set_custom_mha(None)
+    assert ck.launches["custom_fmha"] == 2
+    assert fa.launches["custom_mha"] == 2
+    assert fa.launches["flash_attention"] == 0
+    assert fa.launches["flash_attention_causal"] == 0
+    ref = ck.custom_flash_mha(q, k, v, kv_valid_len=200)
+    assert torch.equal(buf.transpose(1, 2), ref)
+    fa.flash_mha(q, k, v, kv_valid_len=200)
+    assert fa.launches["flash_attention"] == 1

@@ -225,10 +225,11 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     """``chip_smoke.py``'s paths, rehearsed on the CPU at a tiny size
     with head dim 64 as on the card (the decoder path cut to 2 layers of
     width 256, vocab 97; the serve path is rehearsed on its own in
-    ``test_torch_serving.py`` and stubbed here): model builds (the bench recipe with
-    the megakernel decode; the recipe without sqenc on the scanned and
-    beam paths), transcription (greedy, and beam search with 5 beams), the
-    teacher-forced replay against the plain scanned path (exact on the
+    ``test_torch_serving.py`` and the custom path in
+    ``test_torch_custom_kernel.py``, and both are stubbed here): model
+    builds (the bench recipe with the megakernel decode; the recipe without
+    sqenc on the scanned and beam paths), transcription (greedy, and beam
+    search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
     scanned and beam paths; the megakernel's plain version sums in another
     order) and the end-to-end timing.  No kernel is launched from CPU
     tensors, and the beam path does not take the megakernel it asks for."""
@@ -248,6 +249,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
         num_layers=2, num_heads=2, max_position_embeddings=128)
     monkeypatch.setattr(smoke, "serve_path", lambda *a, **k: (
         {}, {"paged_decode_attention": 0}))
+    monkeypatch.setattr(smoke, "custom_path", lambda *a, **k: (
+        {}, {"flash_attention_causal": 0, "custom_fmha": 0,
+             "custom_fmha_f32": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

@@ -5,13 +5,17 @@
 
 1. Prints the card's name and power limit (nvidia-smi), whether triton
    imports, and builds the CUDA kernels of
-   ``eddie_wang_hackathon2023_tpu_torch/csrc`` and the example's
-   ``examples/custom_kernel_torch/fmha.cu`` with nvcc (one process per
-   source, in parallel).
+   ``eddie_wang_hackathon2023_tpu_torch/csrc``, the example's
+   ``examples/custom_kernel_torch/fmha.cu`` and the megakernel probes'
+   ``tools/megakernel_probes.cu`` with nvcc (one process per source, in
+   parallel).
 2. Holds every kernel of the main path against its plain PyTorch version
    on the card, at the shapes the main path gives it, and times the
    kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``, used nowhere in the port).
+   function, that call (``library_ms``, used nowhere in the port); the
+   probes' four kernels at their scripts' shapes (128 int8 panels, 210 MB)
+   in every mode, their ``library_ms`` the loop of PyTorch calls over the
+   panels that the JAX scripts measured as the XLA baseline.
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
@@ -60,6 +64,12 @@
    teacher-forced check replays the recorded prefills and first ticks on a
    fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
    wall and device-busy time and peak memory.
+   Last the probes path: ``tools/megakernel_probe.py``,
+   ``megakernel_probe2.py`` and ``megakernel_probe3.py`` (the counterparts
+   of the JAX package's ``benchmarks/megakernel_probe{,2,3}.py``: seeded
+   210 MB int8 blobs, every variant timed and held against its
+   reference), each through its ``main(["--device", "cuda"])`` in this
+   process; each of the four probe kernels must have launched there.
 4. Runs ``examples/custom_kernel_torch/run.py --device cuda`` in this
    process, which must end with its OK line.
 5. Prints one JSON line with every kernel's numbers, the nvidia-smi line,
@@ -145,13 +155,27 @@ KERNELS = {
     "custom_fmha_f32": dict(
         route="cuda", source="examples/custom_kernel_torch/fmha.cu",
         replaces="examples/custom_kernel/pallas_fmha.py:23"),
+    # the megakernel design probes of benchmarks/ (tools/megakernel_probes.py)
+    "probe_flat_gemv": dict(
+        route="cuda", source="tools/megakernel_probes.cu",
+        replaces="benchmarks/megakernel_probe.py:61"),
+    "probe_hm_gemv": dict(
+        route="cuda", source="tools/megakernel_probes.cu",
+        replaces="benchmarks/megakernel_probe.py:85"),
+    "probe_relayout": dict(
+        route="cuda", source="tools/megakernel_probes.cu",
+        replaces="benchmarks/megakernel_probe2.py:48"),
+    "probe_pair_proj": dict(
+        route="cuda", source="tools/megakernel_probes.cu",
+        replaces="benchmarks/megakernel_probe3.py:48"),
 }
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
 # the recipe without sqenc, so the encoder takes the bf16 flash entry), the
 # beam path (beam 5, the recipe without sqenc), the decoder-only and serve
-# paths, or the custom path (the main path's model with the user kernel
-# installed, then without it and with a previous-text prompt)
+# paths, the custom path (the main path's model with the user kernel
+# installed, then without it and with a previous-text prompt), or the probes
+# path (the three tools/megakernel_probe*.py scripts)
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
@@ -161,7 +185,10 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "paged_decode_attention": "serve",
            "int4_quant_matmul": "decoder_woq4",
            "flash_attention_causal": "custom", "custom_fmha": "custom",
-           "custom_fmha_f32": "custom"}
+           "custom_fmha_f32": "custom", "probe_flat_gemv": "probes",
+           "probe_hm_gemv": "probes", "probe_relayout": "probes",
+           "probe_pair_proj": "probes"}
+PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
@@ -634,6 +661,7 @@ def kernel_phases(torch, results):
     paged_phase(torch, results, gen)
     int4_phase(torch, results, gen)
     custom_phase(torch, results, gen)
+    probes_phase(torch, results, gen)
 
 
 def random_blobs(torch, dev, gen, n_layer, d):
@@ -1486,6 +1514,171 @@ def custom_phase(torch, results, gen):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
         rel_err_vs_plain=ferrs)
+
+
+def probe_kernels():
+    """``megakernel_probes``, the probes' module of ``tools/``, imported
+    from its directory (importing it registers its source with
+    ``ops/_build``); the scripts import the same module, so its launch
+    counts are one."""
+    path = os.path.join(HERE, "tools")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import megakernel_probes
+    return megakernel_probes
+
+
+def loop_ms(torch, fns):
+    """Device time of the calls ``fns`` run in order, each queued behind its
+    own spin (:func:`segments_ms`), the mean of two runs: the loops of small
+    PyTorch calls over the panels launch more kernels than the queue
+    holds."""
+    t = time.perf_counter()
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    runs = [segments_ms(torch, fns, host_ms) for _ in range(2)]
+    if None in runs:
+        raise SmokeFailure("the host could not queue a loop's panels ahead "
+                           "of the device")
+    return sum(runs) / len(runs)
+
+
+def probes_phase(torch, results, gen):
+    """The megakernel design probes (``tools/megakernel_probes.cu``, the
+    four TPU kernels of ``benchmarks/megakernel_probe{,2,3}.py``) against
+    their plain versions at the scripts' shapes: 128 int8 panels [1280,
+    1280] (210 MB), head-major at rows 60 (42 panels) and 20 (128), every
+    mode.  bf16 outputs within one bf16 step of the plain version's, the
+    relayout's totals within 1e-2; 9a also within one bf16 step of the loop
+    of PyTorch calls over the panels (``torch_baseline_flat``, the
+    counterpart of ``probe_xla``).  Times each kernel, its plain version and
+    the loop of its plain version over the panels (``library_ms``: no one
+    PyTorch call computes these functions); 9a's loop is
+    ``torch_baseline_flat``, and it also reports one ``torch.matmul`` of x
+    against the blob dequantised to bf16 beforehand, times the scale, and
+    its own kernel at the megakernel's GEMV item (32 columns by a quarter
+    of K), on a block per item and on the megakernel's grid of one block an
+    SM.  Bounds: the bytes at 3.35 TB/s (2 flops a weight byte are far
+    below)."""
+    mp = probe_kernels()
+    dev = torch.device("cuda")
+    P, K, N = mp.NP, mp.K, mp.N
+    t = time.perf_counter()
+
+    def randint(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    blob = randint(P, K, N)
+    x = (randn(1, K) * 0.1).bfloat16()
+    scales = torch.rand((P, 1, N), generator=gen, device=dev) * 0.01
+    kv = (randn(1, mp.H, mp.D, mp.KV_COLS) * 0.1).bfloat16()
+    ctx = randn(mp.HP, mp.DL) * 0.1
+    hm = {}
+    for rows in (60, 20):
+        np_ = mp.hm_panels(rows)
+        hm[rows] = (randint(np_, rows, K, mp.D), (randn(rows, 1, K) * 0.1)
+                    .bfloat16(), torch.rand((np_, rows, mp.D), generator=gen,
+                                            device=dev))
+    torch.cuda.synchronize()
+    print(f"probes: data {time.perf_counter() - t:.1f} s")
+
+    def mode(row, tag, fn, plain, panel, n_panels, n_bytes, int8_bytes,
+             rtol=2 ** -7):
+        """Check and time one mode; ``panel(i)``: the plain version on
+        panel i alone (the loop)."""
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        print(f"{row} ({tag}): max abs err vs plain {err:.3e}, rel "
+              f"{rel_err(out, ref):.3e}")
+        check(out.shape == ref.shape and out.dtype == torch.bfloat16
+              and bool(torch.isfinite(out).all())
+              and mp.within(out, ref, rtol),
+              f"{row} ({tag}) within {rtol:.3g} (relative) of plain")
+        ms, wall = time_ms(torch, lambda i: fn())
+        plain_ms, _ = time_ms(torch, lambda i: plain(), iters=5)
+        lib_ms = loop_ms(torch, [lambda i=i: panel(i)
+                                 for i in range(n_panels)])
+        b_ms, b_by = bound(n_bytes, 2 * int8_bytes, PEAK_FP32_CUDA_CORES)
+        print(f"{row} ({tag}): {ms * 1e3:.2f} us ({int8_bytes / ms / 1e6:.1f}"
+              f" GB/s of int8; bound {b_ms * 1e3:.2f} us, {b_by}); plain "
+              f"{plain_ms * 1e3:.2f} us; the loop over the panels "
+              f"{lib_ms * 1e3:.2f} us")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+                    bytes=n_bytes)
+
+    def row(name, modes, top):
+        results[name] = dict(
+            {k: modes[top][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+            times_are=f"the {top} mode", modes=modes)
+
+    # 9a: checked against the loop too; the megakernel's item and grid
+    flat_bytes = P * K * N + P * N * 4 + K * 2 + P * N * 2
+    check(mp.within(mp.probe_flat(blob, x, scales),
+                    mp.torch_baseline_flat(blob, x, scales)),
+          "probe_flat_gemv within one bf16 step of torch_baseline_flat")
+    flat = mode("probe_flat_gemv", "flat",
+                lambda: mp.probe_flat(blob, x, scales),
+                lambda: mp.plain_probe_flat(blob, x, scales),
+                lambda i: mp.baseline_flat_panel(blob, x, scales, i), P,
+                flat_bytes, P * K * N)
+    wd = blob.bfloat16()
+    flat["library_dequantised_matmul_ms"], _ = time_ms(
+        torch, lambda i: torch.matmul(x, wd) * scales)
+    del wd
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key, blocks in (("megakernel_item_ms", 0), ("megakernel_grid_ms",
+                                                    sms)):
+        flat[key], _ = time_ms(torch, lambda i: mp.probe_flat(
+            blob, x, scales, cols=mp.MEGAKERNEL_ITEM[0],
+            ksplit=mp.MEGAKERNEL_ITEM[1], blocks=blocks))
+    print(f"probe_flat_gemv: torch.matmul on the dequantised blob "
+          f"{flat['library_dequantised_matmul_ms'] * 1e3:.2f} us; the "
+          f"megakernel's item {flat['megakernel_item_ms'] * 1e3:.2f} us, on "
+          f"its grid of {sms} blocks {flat['megakernel_grid_ms'] * 1e3:.2f} "
+          "us")
+    row("probe_flat_gemv", {"flat": flat}, "flat")
+
+    modes = {}
+    for rows, (blob_hm, xb, s_hm) in hm.items():
+        modes[f"hm{rows}"] = mode(
+            "probe_hm_gemv", f"rows {rows}, {blob_hm.shape[0]} panels",
+            lambda: mp.probe_hm(blob_hm, xb, s_hm),
+            lambda: mp.plain_probe_hm(blob_hm, xb, s_hm),
+            lambda i: mp.plain_probe_hm(blob_hm[i:i + 1], xb, s_hm[i:i + 1]),
+            blob_hm.shape[0], blob_hm.numel() + s_hm.numel() * 6
+            + xb.numel() * 2, blob_hm.numel())
+    row("probe_hm_gemv", modes, "hm60")
+
+    modes = {}
+    for m in mp.RELAYOUT_MODES:
+        modes[m] = mode(
+            "probe_relayout", m, lambda: mp.probe_relayout(blob, x, kv, m),
+            lambda: mp.plain_probe_relayout(blob, x, kv, m),
+            lambda i: mp.plain_probe_relayout(blob[i:i + 1], x, kv, m), P,
+            P * K * N + K * 2 + P * N * 2
+            + (kv.numel() * 2 if m == "reshape" else 0), P * K * N,
+            rtol=1e-2 if m == "reshape" else 2 ** -7)
+    row("probe_relayout", modes, "reshape")
+
+    modes = {}
+    for m in mp.PAIR_MODES:
+        k = mp.DL if m == "gemv" else K
+        modes[m] = mode(
+            "probe_pair_proj", m, lambda: mp.probe_pair_proj(blob, ctx, m),
+            lambda: mp.plain_probe_pair_proj(blob, ctx, m),
+            lambda i: mp.plain_probe_pair_proj(blob[i:i + 1], ctx, m), P,
+            P * k * N + ctx.numel() * 4 + P * N * 2, P * k * N)
+    row("probe_pair_proj", modes, "pair_loop")
 
 
 def random_openai_state(np, config, rng):
@@ -2392,6 +2585,31 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
     return e2e, counts
 
 
+def probes_path(torch, device="cuda", panels=None):
+    """The probes path: the three ``tools/megakernel_probe*.py`` scripts'
+    ``main(["--device", device])``, run in this process in order; each must
+    return 0 (its kernels within tolerance of their references).  They
+    time with this module's helpers.  ``panels`` cuts the scripts' 128
+    panels (the CPU rehearsal)."""
+    import importlib.util
+    import types
+    mp = probe_kernels()
+    helpers = types.SimpleNamespace(
+        time_ms=time_ms, bound=bound,
+        PEAK_FP32_CUDA_CORES=PEAK_FP32_CUDA_CORES)
+    t = time.perf_counter()
+    for name in PROBE_SCRIPTS:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "tools", f"{name}.py"))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        if panels is not None:
+            script.NP = panels
+        check(script.main(["--device", device], smoke=helpers) == 0,
+              f"tools/{name}.py --device {device} exits 0")
+    return dict(wall_s=time.perf_counter() - t), dict(mp.launches)
+
+
 def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
@@ -2451,9 +2669,12 @@ def paths(torch, np, results, config=None, device="cuda",
                   "peak_gib")))
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
+    probe_kernels().reset_launches()
+    probes_e2e, probes_counts = probes_path(torch, device=device)
     counts = dict(main=main_counts, custom=custom_counts,
                   scanned=scan_counts, beam=beam_counts, decoder=dec_counts,
-                  decoder_woq4=woq4_counts, serve=serve_counts)
+                  decoder_woq4=woq4_counts, serve=serve_counts,
+                  probes=probes_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -2461,7 +2682,7 @@ def paths(torch, np, results, config=None, device="cuda",
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
     return dict(main=main_e2e, custom=custom_e2e, scanned=scan_e2e,
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
-                serve=serve_e2e)
+                serve=serve_e2e, probes=probes_e2e)
 
 
 def example_run():
@@ -2515,6 +2736,7 @@ def main():
 
     from eddie_wang_hackathon2023_tpu_torch.ops import _build
     example_kernel()        # registers the user kernel's source to build
+    probe_kernels()         # and the probes' source
     t0 = time.time()
     logs = _build.build()
     print(f"kernels built in {time.time() - t0:.1f} s")

@@ -28,10 +28,15 @@ The causal mode of the flash kernel is held to the same gates as its
 non-causal mode (its mask is ``causal_bias``'s, bottom-right).  The user
 kernel of ``examples/custom_kernel_torch`` computes in fp32 whatever its
 operands' type: held to 1e-5 of the fp32 plain version with fp32 operands
-and 1e-2 with bf16 ones (its bf16 output rounds once)."""
+and 1e-2 with bf16 ones (its bf16 output rounds once).  The megakernel
+probes of ``tools/megakernel_probes.py`` sum in fp32 in another order than
+their plain versions and round once to bf16: held within one bf16 step
+(|out - ref| <= 2^-7 |ref| + 1e-5 max|ref|), the relayout's per-panel
+totals within 1e-2."""
 import dataclasses
 import importlib.util
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -46,6 +51,9 @@ from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import (
     paged_append_kv, paged_prefill)
 
 pytestmark = pytest.mark.cuda
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import megakernel_probes as mp  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "fmha_cuda", os.path.join(os.path.dirname(__file__), "..", "examples",
@@ -1019,3 +1027,109 @@ def test_hook_takes_every_call_on_the_card(dev):
     assert torch.equal(buf.transpose(1, 2), ref)
     fa.flash_mha(q, k, v, kv_valid_len=200)
     assert fa.launches["flash_attention"] == 1
+
+
+# -- the megakernel probes (tools/megakernel_probes.cu) ---------------------
+
+def _probe_data(dev, p, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blob = torch.randint(-127, 128, (p, mp.K, mp.N), generator=g, device=dev,
+                         dtype=torch.int8)
+    x = (torch.randn((1, mp.K), generator=g, device=dev) * 0.1).bfloat16()
+    scales = torch.rand((p, 1, mp.N), generator=g, device=dev) * 0.01
+    return g, blob, x, scales
+
+
+# (cols, ksplit, blocks): the default plan, the megakernel's GEMV item, on
+# a block per item and on a grid of 132 blocks, and a split wide item
+PROBE_ITEMS = {"plan": (None, None, 0), "megakernel": (32, 4, 0),
+               "megakernel_grid": (32, 4, 132), "wide_split": (256, 2, 0)}
+
+
+@pytest.mark.parametrize("item", sorted(PROBE_ITEMS))
+@pytest.mark.parametrize("p", [1, 128])
+def test_probe_flat_matches_plain(dev, p, item):
+    _, blob, x, scales = _probe_data(dev, p, 20)
+    cols, ksplit, blocks = PROBE_ITEMS[item]
+    before = mp.launches["probe_flat_gemv"]
+    out = mp.probe_flat(blob, x, scales, cols=cols, ksplit=ksplit,
+                        blocks=blocks)
+    assert mp.launches["probe_flat_gemv"] == before + 1
+    ref = mp.plain_probe_flat(blob, x, scales)
+    assert out.shape == (p, 1, mp.N) and out.dtype == torch.bfloat16
+    assert mp.within(out, ref)
+    assert mp.within(out, mp.torch_baseline_flat(blob, x, scales))
+
+
+@pytest.mark.parametrize("rows,np_", [(60, 42), (20, 128), (20, 1)])
+def test_probe_hm_matches_plain(dev, rows, np_):
+    g = torch.Generator(device=dev).manual_seed(21)
+    blob = torch.randint(-127, 128, (np_, rows, mp.K, mp.D), generator=g,
+                         device=dev, dtype=torch.int8)
+    xb = (torch.randn((rows, 1, mp.K), generator=g, device=dev) * 0.1
+          ).bfloat16()
+    s = torch.rand((np_, rows, mp.D), generator=g, device=dev)
+    out = mp.probe_hm(blob, xb, s)
+    assert out.shape == (np_, rows, mp.D)
+    assert mp.within(out, mp.plain_probe_hm(blob, xb, s))
+
+
+@pytest.mark.parametrize("mode", ["none", "reshape"])
+@pytest.mark.parametrize("p", [1, 128])
+def test_probe_relayout_matches_plain(dev, p, mode):
+    g, blob, x, _ = _probe_data(dev, p, 22)
+    kv = (torch.randn((1, mp.H, mp.D, mp.KV_COLS), generator=g, device=dev)
+          * 0.1).bfloat16()
+    # one panel splits K (item_plan), 128 panels take the whole of K
+    out = mp.probe_relayout(blob, x, kv, mode)
+    ref = mp.plain_probe_relayout(blob, x, kv, mode)
+    assert mp.within(out, ref, 1e-2 if mode == "reshape" else 2 ** -7)
+    if mode == "reshape":       # one total a panel, in every column
+        assert bool((out == out[:, :, :1]).all())
+
+
+@pytest.mark.parametrize("mode", ["pair_loop", "flat_f32", "flat_bf16",
+                                  "gemv"])
+@pytest.mark.parametrize("p", [1, 128])
+def test_probe_pair_proj_matches_plain(dev, p, mode):
+    g, blob, _, _ = _probe_data(dev, p, 23)
+    ctx = torch.randn((mp.HP, mp.DL), generator=g, device=dev) * 0.1
+    out = mp.probe_pair_proj(blob, ctx, mode)
+    assert out.shape == (p, 1, mp.N)
+    assert mp.within(out, mp.plain_probe_pair_proj(blob, ctx, mode))
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    _, blob, x, scales = _probe_data(dev, 2, 24)
+    before = dict(mp.launches)
+    with pytest.raises(ValueError):                 # K not a multiple of 16
+        mp.probe_flat(blob[:, :1272], x[:, :1272], scales)
+    with pytest.raises(ValueError):                 # rows x 64 off the panel
+        mp.probe_hm(blob.reshape(2, 20, 1280, 64), x[None].expand(
+            60, 1, 1280), torch.rand(2, 20, 64, device=dev))
+    with pytest.raises(ValueError):                 # ctx off the panel
+        mp.probe_pair_proj(blob, torch.randn(10, 64, device=dev),
+                           "pair_loop")
+    assert mp.launches == before
+
+
+def test_probe_launch_failure_raises(dev, monkeypatch):
+    """A refused launch raises and is not answered by the plain version."""
+    _, blob, x, scales = _probe_data(dev, 2, 25)
+    lib = mp._build.load("megakernel_probes")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((2, 1, mp.N), dtype=torch.bfloat16, device=dev)
+    # the C entry refuses items of 48 columns itself
+    assert lib.probe_flat(x.data_ptr(), blob.data_ptr(), scales.data_ptr(),
+                          out.data_ptr(), 2, mp.K, mp.N, 48, 1, 0, None,
+                          None, stream) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1              # cudaErrorInvalidValue
+
+    monkeypatch.setattr(mp._build, "load", lambda name: Refusing())
+    before = mp.launches["probe_flat_gemv"]
+    with pytest.raises(RuntimeError):
+        mp.probe_flat(blob, x, scales)
+    assert mp.launches["probe_flat_gemv"] == before

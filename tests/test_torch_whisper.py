@@ -225,8 +225,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     """``chip_smoke.py``'s paths, rehearsed on the CPU at a tiny size
     with head dim 64 as on the card (the decoder path cut to 2 layers of
     width 256, vocab 97; the serve path is rehearsed on its own in
-    ``test_torch_serving.py`` and the custom path in
-    ``test_torch_custom_kernel.py``, and both are stubbed here): model
+    ``test_torch_serving.py``, the custom path in
+    ``test_torch_custom_kernel.py`` and the probes path in
+    ``test_torch_megakernel_probes.py``, and all three are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -252,6 +253,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     monkeypatch.setattr(smoke, "custom_path", lambda *a, **k: (
         {}, {"flash_attention_causal": 0, "custom_fmha": 0,
              "custom_fmha_f32": 0}))
+    monkeypatch.setattr(smoke, "probes_path", lambda *a, **k: (
+        {}, {"probe_flat_gemv": 0, "probe_hm_gemv": 0, "probe_relayout": 0,
+             "probe_pair_proj": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

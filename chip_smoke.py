@@ -443,6 +443,81 @@ def rel_err(out, ref):
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+def split_of(da, S):
+    """Kernel 1's cluster at a cache of S columns, for its results line."""
+    n = da.decode_splits(S)
+    return dict(splits=n, cluster=[1, 1, n])
+
+
+def hopper_grid_of(torch, fa, B, H, Lq):
+    """Kernel 2's bf16 Hopper grid at [B, H, Lq, 64], its waves over the
+    card's SMs at the blocks an SM that the occupancy query finds for the
+    built kernel, and its stages, as the library reports them."""
+    cfg = fa.hopper_config()
+    check(cfg["blocks_per_sm"] >= 1,
+          f"the Hopper flash kernel fits on an SM ({cfg})")
+    grid = [-(-Lq // cfg["rows"]), B * H]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(grid=grid, waves=grid[0] * grid[1] / (
+        sms * cfg["blocks_per_sm"]), stages=cfg["stages"])
+
+
+def split_checks(torch, gen):
+    """Kernel 1 without beams against plain_split_decode_attention (bit for
+    bit) and the fp32 plain version (1e-2) at the cross shapes (20 heads of
+    64, S = 1500: 6 slices of 252), int8 and bf16, batch 5 and 1: lengths
+    at 256-column and slice edges, a start inside a slice, a start that
+    masks a whole slice, nothing cached with the fresh column only."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    H, D, S = 20, 64, 1500
+    cases = [
+        ("int8, lengths 1 4 255 256 257", torch.int8, [1, 4, 255, 256, 257],
+         None, False),
+        ("int8, batch 1, length 1499", torch.int8, [1499], None, False),
+        ("bf16, fresh, lengths 1500 252 253 700 0, start 260 in row 3",
+         torch.bfloat16, [1500, 252, 253, 700, 0], [0, 0, 0, 260, 0], True),
+        ("bf16, batch 1, fresh, start 300 masks slice 0", torch.bfloat16,
+         [1500], [300], True),
+    ]
+    for what, dtype, lens, starts, fresh in cases:
+        B = len(lens)
+        q = torch.randn((B, H, 1, D), generator=gen, device=dev).bfloat16()
+        if dtype == torch.int8:
+            cache = torch.randint(-127, 128, (1, B, 2, H, D, S),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8)
+            fkv = tuple(torch.randint(-127, 128, (B, H, D, 1), generator=gen,
+                                      device=dev, dtype=torch.int8)
+                        for _ in range(2))
+            kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+        else:
+            cache = torch.randn((1, B, 2, H, D, S), generator=gen,
+                                device=dev).bfloat16()
+            fkv = tuple(torch.randn((B, H, D, 1), generator=gen,
+                                    device=dev).bfloat16() for _ in range(2))
+            kw = {}
+        if fresh:
+            kw["fresh_kv"] = fkv
+        if starts is not None:
+            kw["start_index"] = torch.tensor(starts, device=dev)
+        seq = torch.tensor(lens, dtype=torch.int32, device=dev) + int(fresh)
+        out = da.fused_decode_attention(cache, 0, q, seq, D ** -0.5, **kw)
+        split = da.plain_split_decode_attention(
+            cache, 0, q, seq, D ** -0.5, splits=da.decode_splits(S), **kw)
+        f32 = (lambda t: t) if dtype == torch.int8 else (lambda t: t.float())
+        kw32 = {k: (tuple(f32(t) for t in v) if k == "fresh_kv" else v)
+                for k, v in kw.items()}
+        e32 = rel_err(out, da.plain_decode_attention(
+            f32(cache), 0, q.float(), seq, D ** -0.5, **kw32))
+        torch.cuda.synchronize()
+        n_diff = int((out != split).sum())
+        check(n_diff == 0 and e32 < 1e-2,
+              f"decode split ({what}): {n_diff} elements differ from "
+              f"plain_split_decode_attention; rel err {e32:.3e} vs fp32 "
+              "plain (< 1e-2)")
+
+
 def kernel_phases(torch, results):
     import torch.nn.functional as F
 
@@ -497,6 +572,7 @@ def kernel_phases(torch, results):
     err_ctx = float((ctx.float() - ctx_ref).abs().max())
     check(rel_err(ctx, ctx_ref) < 1e-2,
           "decode attention context alone (int8 cross) matches fp32 plain")
+    split_checks(torch, gen)
     # timings rotate over the 32 layers (123 MB of cache, past the 50 MB L2)
     ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
         cross, i % L, q, s_full, scale, kv_quant_orig_scale=cscale[i % L]))
@@ -514,7 +590,8 @@ def kernel_phases(torch, results):
                        PEAK_FP32_CUDA_CORES)
     results["decode_attention_int8"] = dict(
         max_abs_err=err_ctx, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall)
+        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+        **split_of(da, S))
 
     # kernel 1 epilogue: the out-projection GEMV, [1,1280] x [1280,1280]
     x = randn(1, d)
@@ -583,7 +660,8 @@ def kernel_phases(torch, results):
                        4 * H * D * n, PEAK_FP32_CUDA_CORES)
     results["decode_attention_bf16"] = dict(
         max_abs_err=err_ctx, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall)
+        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+        **split_of(da, S2))
     del self_cache, cross, w
 
     # kernel 2: encoder flash attention [1,20,1536,64], valid 1500, with
@@ -617,8 +695,21 @@ def kernel_phases(torch, results):
     results["flash_attention"] = dict(
         max_abs_err=float((o.float() - o_ref32).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        host_call_ms=wall)
+        host_call_ms=wall, **hopper_grid_of(torch, fa, 1, H, Lq))
     del qkv, qs, ks, vs, kc, vc, qc
+    # the Hopper entry at the edges of its 64-key tiles and 128-row blocks
+    for lq_e, valid_e in ((Lq, 127), (Lq, 128), (Lq, 129), (200, valid)):
+        qkv_e = randn(1, Lq, 3, H, D)
+        q_e = qkv_e[:, :lq_e, 0].transpose(1, 2)
+        k_e, v_e = (qkv_e[:, :, i].transpose(1, 2) for i in (1, 2))
+        o_e = fa.flash_mha(q_e, k_e, v_e, scale=scale, kv_valid_len=valid_e)
+        e32 = rel_err(o_e, fa.plain_flash_mha(
+            q_e.float(), k_e.float(), v_e.float(), scale=scale,
+            kv_valid_len=valid_e))
+        check(e32 < 1e-2, f"flash attention [1,{H},{lq_e},{D}] over {Lq} "
+              f"keys, valid {valid_e}: rel err {e32:.3e} vs fp32 plain "
+              "(< 1e-2)")
+    del qkv_e, q_e, k_e, v_e, o_e
 
     # kernel 2, fp32-operand entry: the SmoothQuant encoder's fp32 q/k/v
     qkv32 = torch.randn((1, Lq, 3, H, D), generator=gen, device=dev)
@@ -932,7 +1023,7 @@ def beam_phase(torch, results, gen):
     results["decode_attention_int8_b5"] = dict(
         max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        host_call_ms=wall)
+        host_call_ms=wall, **split_of(da, Sc))
 
 
 def gqa_phase(torch, results, gen):

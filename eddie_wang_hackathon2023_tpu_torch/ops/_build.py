@@ -39,6 +39,7 @@ SIGNATURES = {
                             _F, _P],
         "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _F, _P],
+        "flash_attention_hopper_config": [_P],
     },
     "decoder_layer": {
         # (const MegaArgs*, stream)

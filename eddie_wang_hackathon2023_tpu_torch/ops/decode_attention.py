@@ -13,6 +13,10 @@ a CPU tensor it runs the plain version, :func:`plain_decode_attention`
 (``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
 ``beam_indirect_decode_attention``).  The tail, fp8 and group-shared-cache
 modes of the TPU kernel are not ported and raise ``NotImplementedError``.
+Without beams the attention kernel splits the sequence over a thread-block
+cluster of :func:`decode_splits` blocks; :func:`plain_split_decode_attention`
+repeats its arithmetic step by step (the card tests hold the kernel equal
+to it bit for bit; no path calls it).
 
 :func:`fused_paged_decode_attention` is the counterpart of
 ``paged_decode_attention_pallas`` (:682): one-token attention off the
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import (beam_indirect_decode_attention,
+from .attention import (NEG, beam_indirect_decode_attention,
                         cached_decode_attention, layer_kv_views)
 from .paged_attention import paged_decode_attention
 from .quant_matmul import weight_only_quant_matmul
@@ -42,9 +46,28 @@ launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
             "gqa_decode_attention": 0, "paged_decode_attention": 0}
 
 
+# kernel 1 without beams splits the S columns of the cache over a cluster
+# of blocks (csrc/decode_attention.cu): SPLIT_COLS columns a block or more,
+# at most MAX_SPLITS blocks.  A block has 256 threads in 8 warps of 32.
+SPLIT_COLS = 256
+MAX_SPLITS = 8
+_THREADS, _WARP = 256, 32
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def decode_splits(S: int) -> int:
+    """The blocks of kernel 1's cluster over a cache of S columns: fixed by
+    the static S, since the valid length lives on the device."""
+    return max(1, min(-(-S // SPLIT_COLS), MAX_SPLITS))
+
+
+def split_width(S: int, splits: int) -> int:
+    """Columns of each block's slice: ceil(S / splits) rounded up to 4."""
+    return (-(-S // splits) + 3) // 4 * 4
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -132,6 +155,108 @@ def plain_decode_attention(full_cache, layer_idx: int, q, seq_len,
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def _in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The terms of x along ``dim`` added one after the other from 0, as a
+    loop adds them."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for t in x.unbind(dim):
+        acc = acc + t
+    return acc
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., 32] -> [...]: what lane 0 holds after the kernel's butterfly
+    (shuffle xor 16, 8, 4, 2, 1: lane i adds lane i + o)."""
+    o = _WARP // 2
+    while o:
+        x = x[..., :o] + x[..., o:2 * o]
+        o //= 2
+    return x[..., 0]
+
+
+def plain_split_decode_attention(full_cache, layer_idx: int, q, seq_len,
+                                 scale: float, kv_quant_orig_scale=None,
+                                 fresh_kv: Optional[Tuple] = None,
+                                 start_index=None, *,
+                                 splits: int) -> torch.Tensor:
+    """Kernel 1 without beams, step by step, in fp32: the sequence cut into
+    ``splits`` slices of :func:`split_width` columns (one block of the
+    cluster each).  Scores with q pre-scaled by scale * kscale, each summed
+    over four interleaved d-groups (d = g, g + 4, ...) in order; the max
+    over the whole row; p = exp(s - max), summed in fp32 and rounded to the
+    activation dtype (bf16 for bf16 q) for P·V; per slice, the denominator
+    and the context summed as the block's threads, warps and lanes add
+    them; the slices added in rank order; then the fresh column.  Every
+    product and sum is rounded where the kernel rounds it, so on the card
+    the kernel equals this function bit for bit.  q [B, H, 1, D] (bf16 or
+    fp32) over a cache [L, B, 2, H, D, S] (bf16, int8 or fp32), no beams,
+    no grouped heads; returns [B, H, 1, D] in q's dtype."""
+    _, B, _, H, D, S = full_cache.shape
+    f32, dev = torch.float32, q.device
+    kscale = (torch.ones((), dtype=f32, device=dev)
+              if kv_quant_orig_scale is None else
+              torch.as_tensor(kv_quant_orig_scale, dtype=f32,
+                              device=dev).reshape(()))
+    qs = q[:, :, 0].to(f32) * (torch.tensor(scale, dtype=f32, device=dev)
+                               * kscale)                      # [B, H, D]
+    k, v = (full_cache[layer_idx, :, i].to(f32) for i in (0, 1))
+
+    def dot(keys):                      # [B, H, D, N] -> [B, H, N]
+        groups = []
+        for g in range(4):
+            acc = torch.zeros(B, H, keys.shape[-1], dtype=f32, device=dev)
+            for d in range(g, D, 4):
+                acc = acc + qs[:, :, d, None] * keys[:, :, d]
+            groups.append(acc)
+        return ((groups[0] + groups[1]) + groups[2]) + groups[3]
+
+    with_fresh = fresh_kv is not None
+    pos = torch.arange(S, device=dev)
+    cache_len = torch.clamp(torch.as_tensor(seq_len, device=dev).reshape(B)
+                            - int(with_fresh), max=S)
+    valid = pos < cache_len[:, None]
+    if start_index is not None:
+        valid = valid & (pos >= torch.as_tensor(start_index,
+                                                device=dev).reshape(B, 1))
+    valid = valid[:, None, :]                                 # [B, 1, S]
+    s = torch.where(valid, dot(k), torch.full((), NEG, device=dev))
+    m = s.amax(-1)                                            # [B, H]
+    p = torch.where(valid, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=dev))
+    cdt = q.dtype if q.dtype in (torch.float32, torch.bfloat16) \
+        else torch.bfloat16
+    p_r = p.to(cdt).to(f32)
+    pv = torch.where(p_r[:, :, None] != 0, p_r[:, :, None] * v,
+                     torch.zeros((), device=dev))             # [B, H, D, S]
+    W = split_width(S, splits)
+    Wp = -(-W // _THREADS) * _THREADS   # whole rounds of 256 columns
+
+    def slices(x):                      # [..., S] -> [splits, ..., Wp]
+        x = torch.nn.functional.pad(x, (0, splits * W - S))
+        x = x.reshape(*x.shape[:-1], splits, W).movedim(-2, 0)
+        return torch.nn.functional.pad(x, (0, Wp - W))
+
+    # the denominator: thread t adds columns t, t + 256, ...; the lanes of
+    # a warp by the butterfly; the warps in order; the slices in rank order
+    per_thread = _in_order(slices(p).unflatten(-1, (-1, _THREADS)), -2)
+    per_warp = _warp_sum(per_thread.unflatten(-1, (-1, _WARP)))
+    lt = _in_order(_in_order(per_warp, -1), 0)                # [B, H]
+    # P·V: lane j adds columns 4j..4j+3, then 128 further, ...; the lanes by
+    # the butterfly; the slices in rank order
+    x = slices(pv).unflatten(-1, (-1, _WARP, 4)).transpose(-1, -2)
+    per_lane = _in_order(x.flatten(-3, -2), -2)       # [splits, B, H, D, 32]
+    acc = _in_order(_warp_sum(per_lane), 0)                   # [B, H, D]
+    if with_fresh:
+        fk, fv = (t[..., 0].to(f32) for t in fresh_kv)        # [B, H, D]
+        s_f = dot(fk[..., None])[..., 0]                      # [B, H]
+        m_fin = torch.maximum(m, s_f)
+        alpha, p_f = torch.exp(m - m_fin), torch.exp(s_f - m_fin)
+        lt = lt * alpha + p_f
+        acc = acc * alpha[..., None] + p_f[..., None] * fv
+    inv = torch.where(lt > 0, kscale / lt, torch.zeros((), device=dev))
+    return (acc * inv[..., None]).to(q.dtype)[:, :, None]
 
 
 def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
@@ -250,8 +375,8 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         return ctx.view(B, H, 1, D)
     _build.check(lib.decode_attention(
         _ptr(q), _ptr(full_cache), int(is_int8),
-        int(layer_idx), B, b_kv, H, D, S, _ptr(seq_t), _ptr(start_t),
-        _ptr(ks_t),
+        int(layer_idx), B, H, D, S, decode_splits(S), _ptr(seq_t),
+        _ptr(start_t), _ptr(ks_t),
         float(scale), _ptr(fk), _ptr(fv), _ptr(ctx), stream),
         "decode_attention")
     launches["decode_attention_int8" if is_int8 else

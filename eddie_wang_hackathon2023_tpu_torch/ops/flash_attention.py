@@ -3,7 +3,8 @@
 Counterpart of ``ops/flash_attention.py`` ``flash_mha`` in the JAX package.
 On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
 (head dim 64; bf16 operands, or fp32 operands at fp32 accuracy, as the
-SmoothQuant encoder gives them): every non-causal call, and causal calls
+SmoothQuant encoder gives them; bf16 non-causal calls take its Hopper
+design, wgmma products fed by TMA): every non-causal call, and causal calls
 of ``MIN_FLASH_LEN`` query rows or more, where the JAX package takes its
 TPU kernel.  Shorter causal calls, causal calls at other head dims and CPU
 tensors take the plain version, ``multihead_attention`` with a causal and
@@ -72,6 +73,17 @@ def plain_flash_mha(q, k, v, causal: bool = False,
                        device=q.device), lk)
         bias = lm if bias is None else bias + lm
     return multihead_attention(q, k, v, bias=bias, scale=scale)
+
+
+def hopper_config() -> dict:
+    """The bf16 non-causal entry's design as the built library reports it
+    on the current card: ``rows`` (query rows a block), ``stages`` (K/V
+    tiles in flight) and ``blocks_per_sm`` (blocks of the compiled kernel
+    that one SM holds, from the CUDA occupancy query)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load("flash_attention").flash_attention_hopper_config(
+        ctypes.cast(out, ctypes.c_void_p)), "flash_attention_hopper_config")
+    return dict(zip(("rows", "stages", "blocks_per_sm"), out))
 
 
 def kernel_takes(q, k, causal: bool = False) -> bool:

@@ -200,6 +200,93 @@ def test_decode_kernel_matches_chunked_reference(dev, cache_dtype):
     assert _rel(out, ref) < 2.0 ** -8
 
 
+# kernel 1's split over a cluster: (dtype, S, lengths per row (cache columns
+# before the fresh one), starts, fresh, head dim); S = 1500 is 4 modulo 16
+# (6 slices of 252), 448 is 0 modulo 16 (2 slices of 224)
+_SPLIT_CASES = {
+    # lengths at 256-column and slice edges, batch 7, no fresh column
+    "int8_1500_edges": (torch.int8, 1500, [1, 4, 255, 256, 257, 1499, 1500],
+                        None, False, 64),
+    "bf16_1500_edges_fresh": (torch.bfloat16, 1500,
+                              [1, 4, 251, 252, 253, 1499, 1500], None, True,
+                              64),
+    # batch 5: a start inside slice 1, a start that masks all of slice 0,
+    # nothing cached with the fresh column only, a start past the length
+    "int8_1500_starts_fresh": (torch.int8, 1500, [700, 1500, 0, 300, 1500],
+                               [260, 300, 0, 400, 0], True, 64),
+    "bf16_448_starts": (torch.bfloat16, 448, [44, 448, 224, 225, 1],
+                        [3, 224, 0, 224, 0], False, 64),
+    "int8_448_fresh_b1": (torch.int8, 448, [43], None, True, 64),
+    "bf16_1500_b1": (torch.bfloat16, 1500, [1500], None, False, 64),
+    # the head dims of the kernel's other instantiation (128) and below 64;
+    # S = 2600: 8 slices of 328, more than one round of 256 columns each
+    "bf16_2600_d128_fresh": (torch.bfloat16, 2600, [2600, 330, 1],
+                             [0, 0, 0], True, 128),
+    "int8_300_d40": (torch.int8, 300, [300, 151, 152], [0, 150, 0], False,
+                     40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_decode_split_kernel_equals_plain_split(dev, case):
+    """Kernel 1 without beams is one cluster launch and equals
+    plain_split_decode_attention bit for bit (the same roundings in the
+    same order); against the plain version 1e-2 (fp32) and 2e-2 (bf16)."""
+    dtype, S, lens, starts, fresh, D = _SPLIT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, H = len(lens), 20
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    if dtype == torch.int8:
+        cache = torch.randint(-127, 128, (2, B, 2, H, D, S), generator=g,
+                              device=dev, dtype=torch.int8)
+        fkv = tuple(torch.randint(-127, 128, (B, H, D, 1), generator=g,
+                                  device=dev, dtype=torch.int8)
+                    for _ in range(2))
+        kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    else:
+        cache = torch.randn(2, B, 2, H, D, S, generator=g,
+                            device=dev).bfloat16() * 2
+        fkv = tuple(torch.randn(B, H, D, 1, generator=g,
+                                device=dev).bfloat16() for _ in range(2))
+        kw = {}
+    if fresh:
+        kw["fresh_kv"] = fkv
+    if starts is not None:
+        kw["start_index"] = torch.tensor(starts, device=dev)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev) + int(fresh)
+    splits = da.decode_splits(S)
+    assert splits == {1500: 6, 448: 2, 2600: 8, 300: 2}[S]
+    before = dict(da.launches)
+    out = da.fused_decode_attention(cache, 1, q, seq, 0.125, **kw)
+    name = "decode_attention_" + ("int8" if dtype == torch.int8 else "bf16")
+    assert da.launches[name] == before[name] + 1
+    assert sum(da.launches.values()) == sum(before.values()) + 1
+    split = da.plain_split_decode_attention(cache, 1, q, seq, 0.125,
+                                            splits=splits, **kw)
+    f32 = (lambda t: t) if dtype == torch.int8 else (lambda t: t.float())
+    kw32 = {k: (tuple(f32(t) for t in v) if k == "fresh_kv" else v)
+            for k, v in kw.items()}
+    ref = da.plain_decode_attention(f32(cache), 1, q.float(), seq, 0.125,
+                                    **kw32)
+    ref16 = da.plain_decode_attention(cache, 1, q, seq, 0.125, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == split.shape == (B, H, 1, D)
+    assert torch.equal(out, split)
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+
+
+def test_decode_split_kernel_without_valid_column(dev):
+    """Nothing cached and no fresh column: every slice reads nothing and
+    the context is zero, as the first design wrote it."""
+    cache = torch.ones(1, 1, 2, 2, 64, 448, device=dev).bfloat16()
+    q = torch.ones(1, 2, 1, 64, device=dev).bfloat16()
+    out = da.fused_decode_attention(
+        cache, 0, q, torch.tensor([0], dtype=torch.int32, device=dev), 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 def _gathered(cache, ind):
     """[L, B, 2, H, D, S] cache -> the same with each row's positions read
     through the [groups, bw, S'] indirection (the reordered cache that the
@@ -362,6 +449,57 @@ def test_flash_kernel_f32_entry(dev):
     ref = fa.plain_flash_mha(q, k, v, scale=0.125, kv_valid_len=valid)
     torch.cuda.synchronize()
     assert _rel(out, ref) < 1e-4
+
+
+@pytest.mark.parametrize("lq,lk,valid,layout,scale", [
+    (1536, 1536, 127, "fused", 0.125),
+    (1536, 1536, 128, "fused", 0.125),
+    (1536, 1536, 129, "fused", 0.125),
+    (1536, 1536, 1500, "fused", 0.125),
+    (200, 1536, 1500, "fused", 0.125),
+    (200, 200, 129, "contiguous", 0.125),
+    (1536, 1536, 1500, "contiguous", -0.125),
+])
+def test_flash_kernel_hopper_entry_edges(dev, lq, lk, valid, layout, scale):
+    """The bf16 non-causal entry (wgmma, TMA) at the edges of its 64-key
+    tiles and 128-row blocks, on strided views of a fused QKV buffer (the
+    encoder's) and on contiguous tensors, a negative scale included: within
+    1e-2 of the fp32 plain version and 2e-2 of the bf16 one."""
+    g = torch.Generator(device=dev).manual_seed(lq + valid)
+    H = 20
+    if layout == "fused":
+        q, k, v = _qkv(g, dev, 1, H, lq, lk, 64, torch.bfloat16)
+    else:
+        q, k, v = (torch.randn(1, H, n, 64, generator=g,
+                               device=dev).bfloat16() for n in (lq, lk, lk))
+    before = fa.launches["flash_attention"]
+    out = fa.flash_mha(q, k, v, scale=scale, kv_valid_len=valid)
+    assert fa.launches["flash_attention"] == before + 1
+    ref = fa.plain_flash_mha(q.float(), k.float(), v.float(), scale=scale,
+                             kv_valid_len=valid)
+    ref16 = fa.plain_flash_mha(q, k, v, scale=scale, kv_valid_len=valid)
+    torch.cuda.synchronize()
+    assert out.shape == (1, H, lq, 64)
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+
+
+def test_flash_hopper_config_reports_the_built_kernel(dev):
+    """The bf16 entry's reported design: whole 64-row warpgroups a block, a
+    ring of at least two stages, and at least one block of the compiled
+    kernel on an SM; a call at the reported rows + 1 still launches once."""
+    cfg = fa.hopper_config()
+    assert cfg["rows"] % 64 == 0 and cfg["rows"] >= 64
+    assert cfg["stages"] >= 2 and cfg["blocks_per_sm"] >= 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = _qkv(g, dev, 1, 2, cfg["rows"] + 1, 256, 64, torch.bfloat16)
+    before = fa.launches["flash_attention"]
+    out = fa.flash_mha(q, k, v, scale=0.125, kv_valid_len=200)
+    assert fa.launches["flash_attention"] == before + 1
+    ref = fa.plain_flash_mha(q.float(), k.float(), v.float(), scale=0.125,
+                             kv_valid_len=200)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 1e-2
 
 
 def _random_blobs(dev, n_layer, d, seed):

@@ -444,9 +444,10 @@ def rel_err(out, ref):
 # -- phase 2: kernels against their plain versions ---------------------------
 
 def split_of(da, S):
-    """Kernel 1's cluster at a cache of S columns, for its results line."""
-    n = da.decode_splits(S)
-    return dict(splits=n, cluster=[1, 1, n])
+    """Kernel 1's cluster at a cache of S columns, for its results line:
+    the blocks the wrapper passes to the kernel (its cluster is (1, 1,
+    splits))."""
+    return dict(splits=da.decode_splits(S))
 
 
 def hopper_grid_of(torch, fa, B, H, Lq):
@@ -1031,9 +1032,13 @@ def gqa_phase(torch, results, gen):
     decoder path's shapes (batch 8, one KV head under 16 query heads of 128,
     a bf16 cache of S = 64 + 20 = 84 at sequence 70, start 4), at a GQA
     shape (4 KV heads under 4 query heads each, head dim 64, S = 83, two
-    rows of different lengths and starts) and with an int8 cache; then
-    timed at the path's shapes against its plain version and SDPA
-    (``enable_gqa``) on K/V transposed beforehand."""
+    rows of different lengths and starts), with an int8 cache and with a
+    long cache that the kernel splits over a cluster (S 2063, 8 slices, by
+    element copies; S 1500, 8 slices, by 4-column copies);
+    then timed at the path's shapes against its plain version and SDPA
+    (``enable_gqa``) on K/V transposed beforehand.  The split at the path's
+    S is the wrapper's ``gqa_splits`` and ``gqa_slice_width``, which it
+    passes to the kernel."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1072,6 +1077,14 @@ def gqa_phase(torch, results, gen):
             case(2, 4, 4, 64, 83, [30, 83], [0, 7], False),
         "int8, 1 KV head x 16, D 128, S 84, seq 70, start 4":
             case(B, Hkv, rep, D, S, [n], [st], True),
+        # a long cache, split over a cluster of 8 (slices of 272): a row
+        # over all of S, one whose start skips the first slice
+        "long: bf16, 2 KV heads x 16, D 64, S 2063, seq 2063/546, start "
+        "5/272": case(2, 2, 16, 64, 2063, [2063, 546], [5, 272], False),
+        # the same with S % 4 == 0 (slices of 192, staged 4 columns a
+        # copy): a start and a last cached column inside a 4-column group
+        "long: int8, 2 KV heads x 16, D 128, S 1500, seq 1499/419, start "
+        "3/193": case(2, 2, 16, 128, 1500, [1499, 419], [3, 193], True),
     }
     errs = {}
     for what, (c, q, seq, fresh, start, kw) in cases.items():
@@ -1129,8 +1142,12 @@ def gqa_phase(torch, results, gen):
     n_bytes = (2 * B * Hkv * D * valid * 2 + 2 * B * Hkv * D * 2
                + B * Hkv * rep * D * 2 * 2 + 2 * B * 4)
     b_ms, b_by = bound(n_bytes, 4 * B * Hkv * rep * D * (valid + 1),
-                       PEAK_FP32_CUDA_CORES)
-    print(f"grouped decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
+                       PEAK_BF16_TENSOR)
+    # the split the wrapper passes to the kernel at the path's S
+    split = dict(splits=da.gqa_splits(S),
+                 slice=da.gqa_slice_width(S, da.gqa_splits(S)))
+    print(f"grouped decode: split {split} at S {S}; {ms * 1e3:.2f} us "
+          f"(bound {b_ms * 1e3:.3f} us, "
           f"{b_by}, {n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; "
           f"SDPA (enable_gqa) on the transposed K/V {lib_ms * 1e3:.2f} us "
           f"(rel err vs the kernel {lib_err:.3e}) + the transpose "
@@ -1139,7 +1156,7 @@ def gqa_phase(torch, results, gen):
     results["gqa_decode_attention"] = dict(
         max_abs_err=first[2], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_transpose_ms=t_ms,
-        host_call_ms=wall,
+        host_call_ms=wall, **split,
         rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
 
 
@@ -1511,12 +1528,14 @@ def custom_phase(torch, results, gen):
 
     def timed(b, h, lq, lk, vl, causal, dtype):
         """The user kernel's row at one shape: its time, the plain
-        version's and SDPA's on the same inputs, and two bounds.  bound_ms:
-        the function computes in fp32 whatever its operands' type, so its
-        operations at the fp32 CUDA-core peak.  route_bound_ms: the bf16
-        tensor cores, as kernel 2's fp32 entry takes them: Q.K^T is one
-        bf16 product for bf16 operands (exact, fp32 accumulation) and
-        three for fp32 ones (split bf16); P.V takes P, fp32, as two bf16
+        version's and SDPA's on the same inputs, the plan that the wrapper
+        passed to the kernel (its variant), and two bounds.  bound_ms: the
+        function's operations, 4 per (row, live key, d), at the peak for its
+        operands' type: the bf16 tensor cores for bf16, the fp32 CUDA cores
+        for fp32 (the fp32 entry computes there).  route_bound_ms: the bf16 tensor
+        cores as the kernels take them: Q.K^T is one bf16 product for bf16
+        operands (exact, fp32 accumulation) and three for fp32 ones (split
+        bf16, as kernel 2's fp32 entry); P.V takes P, fp32, as two bf16
         terms, so two products over bf16 V and three over fp32 V."""
         q, k, v = views(b, h, lq, lk, D, dtype)
         out = ck.custom_flash_mha(q, k, v, causal=causal, scale=scale,
@@ -1542,28 +1561,36 @@ def custom_phase(torch, results, gen):
         n_bytes = 2 * b * h * (lq + lk) * D * q.element_size()
         products = 3 if dtype == bf16 else 6
         b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * D,
-                           PEAK_FP32_CUDA_CORES)
+                           PEAK_BF16_TENSOR if dtype == bf16
+                           else PEAK_FP32_CUDA_CORES)
         r_ms, r_by = bound(n_bytes, products * 2 * b * h * pairs * D,
                            PEAK_BF16_TENSOR)
         shape = (f"[{b},{h},{lq},{D}]" + (f" Lk {lk}" if lk != lq else "")
                  + (f" valid {vl}" if vl is not None else "")
                  + (" causal" if causal else "") + f" {str(dtype)[6:]}")
-        print(f"custom fmha {shape}: {ms * 1e3:.2f} us (bound "
-              f"{b_ms * 1e3:.3f} us fp32, {b_by}; {r_ms * 1e3:.3f} us by the "
-              f"tensor-core route, {r_by}; plain {plain_ms * 1e3:.2f}; SDPA "
-              f"{lib_ms * 1e3:.2f})")
+        plan = ck.fmha_plan(lq, dtype)
+        print(f"custom fmha {shape}: {ms * 1e3:.2f} us, {plan['variant']} "
+              f"variant ({plan['row_blocks']} row blocks of {plan['rows']} "
+              f"rows, {plan['warps']} warps) (bound {b_ms * 1e3:.3f} us, "
+              f"{b_by}; {r_ms * 1e3:.3f} us by the tensor-core route, "
+              f"{r_by}; plain {plain_ms * 1e3:.2f}; SDPA {lib_ms * 1e3:.2f})")
         return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     route_bound_ms=r_ms, route_bound_by=r_by,
-                    host_call_ms=wall)
+                    host_call_ms=wall, plan=plan)
 
     # each entry's row at the shape the custom path gives it: the bf16
-    # entry takes the prompt prefill, the fp32 entry the SmoothQuant
-    # encoder; the bf16 entry is timed at the encoder's shape too, beside
-    # kernel 2's bf16 entry
-    results["custom_fmha"] = dict(
-        **timed(1, H, 3, 3, None, True, bf16), rel_err_vs_plain=errs,
-        at_encoder_shape=timed(1, H, L, L, valid, False, bf16))
+    # entry takes the prompt prefill (the short variant), the fp32 entry
+    # the SmoothQuant encoder; the bf16 entry is timed at the encoder's
+    # shape too (the tiled variant), beside kernel 2's bf16 entry
+    short, tiled = (timed(1, H, 3, 3, None, True, bf16),
+                    timed(1, H, L, L, valid, False, bf16))
+    check(short["plan"]["variant"] == "short"
+          and tiled["plan"]["variant"] == "tiled",
+          "custom fmha: the prefill takes the short variant, the encoder's "
+          "shape the tiled one")
+    results["custom_fmha"] = dict(**short, rel_err_vs_plain=errs,
+                                  at_encoder_shape=tiled)
     results["custom_fmha_f32"] = dict(
         **timed(1, H, L, L, valid, False, f32), rel_err_vs_plain=errs)
 

@@ -46,8 +46,8 @@ SIGNATURES = {
         "decoder_megakernel": [_P, _P],
     },
     "gqa_decode_attention": {
-        "gqa_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                                 _P, _F, _P, _P, _P, _P],
+        "gqa_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _F, _P, _P, _P, _P],
     },
     "paged_decode_attention": {
         "paged_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -8,7 +8,10 @@ use.  On a CUDA tensor the wrapper launches the kernels of
 ``beam_indirection``, the beam entry that reads each position through the
 cache-indirection table, the TPU kernel's ``_beam_kernel`` :213) or, when q
 has more heads than the cache, the grouped kernel of
-``csrc/gqa_decode_attention.cu`` (the TPU kernel's ``_gqa_kernel`` :410); on
+``csrc/gqa_decode_attention.cu`` (the TPU kernel's ``_gqa_kernel`` :410,
+on the tensor cores, a cache past :data:`GQA_COLS` columns split over a
+cluster of :func:`gqa_splits` blocks of :func:`gqa_slice_width` columns,
+both passed to the kernel); on
 a CPU tensor it runs the plain version, :func:`plain_decode_attention`
 (``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
 ``beam_indirect_decode_attention``).  The tail, fp8 and group-shared-cache
@@ -68,6 +71,26 @@ def decode_splits(S: int) -> int:
 def split_width(S: int, splits: int) -> int:
     """Columns of each block's slice: ceil(S / splits) rounded up to 4."""
     return (-(-S // splits) + 3) // 4 * 4
+
+
+# the wrapper gives one block of the grouped kernel (csrc/
+# gqa_decode_attention.cu) up to GQA_COLS cache columns, and splits longer
+# caches over a cluster of at most MAX_SPLITS blocks
+GQA_COLS = 128
+
+
+def gqa_splits(S: int) -> int:
+    """The blocks of the grouped kernel's cluster over a cache of S columns
+    (one up to GQA_COLS columns): fixed by the static S, never by the
+    lengths, which live on the device."""
+    return max(1, min(-(-S // GQA_COLS), MAX_SPLITS))
+
+
+def gqa_slice_width(S: int, splits: int) -> int:
+    """Columns of each block's slice in the grouped kernel, which the
+    wrapper passes to it: ceil(S / splits) rounded up to 16 (one mma
+    step)."""
+    return (-(-S // splits) + 15) // 16 * 16
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -346,11 +369,12 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
     ctx = torch.empty((B, Hq * D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     if grouped:
+        splits = gqa_splits(S)
         _build.check(_build.load("gqa_decode_attention").gqa_decode_attention(
             _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
-            Hq // H, D, S, _ptr(seq_t), _ptr(start_t), _ptr(ks_t),
-            float(scale), _ptr(fk), _ptr(fv), _ptr(ctx), stream),
-            "gqa_decode_attention")
+            Hq // H, D, S, splits, gqa_slice_width(S, splits), _ptr(seq_t),
+            _ptr(start_t), _ptr(ks_t), float(scale), _ptr(fk), _ptr(fv),
+            _ptr(ctx), stream), "gqa_decode_attention")
         launches["gqa_decode_attention"] += 1
         return ctx.view(B, Hq, 1, D)
     lib = _build.load("decode_attention")

@@ -32,7 +32,7 @@ from eddie_wang_hackathon2023_tpu_torch.ops import _build
 NEG = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P]
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P]
 _build.register("custom_fmha", Path(__file__).with_name("fmha.cu"),
                 {"custom_fmha": _ARGS, "custom_fmha_f32": _ARGS})
 
@@ -51,6 +51,22 @@ def _check_blocks(lq: int, lk: int, block_m: int, block_n: int) -> None:
     if lq % bm or lk % bn:
         raise ValueError(f"pad sequences to block multiples: Lq {lq} by "
                          f"{bm}, Lk {lk} by {bn}")
+
+
+def fmha_plan(lq: int, dtype) -> dict:
+    """The launch of ``fmha.cu`` for a call of ``lq`` query rows in
+    ``dtype``, which the wrapper passes to the entry (the number of keys and
+    the causal mask change no choice): its variant ("fp32": the fp32
+    entry's kernel, 4 warps over 128 rows; "short": one row block of
+    ceil(lq / 16) warps, lq <= 64; "tiled": row blocks of 4 warps), query
+    rows and warps a block, and row blocks."""
+    if dtype == torch.float32:
+        return dict(variant="fp32", rows=128, warps=4,
+                    row_blocks=-(-lq // 128))
+    warps = min(4, -(-lq // 16))
+    blocks = -(-lq // (16 * warps))
+    return dict(variant="short" if blocks == 1 else "tiled", rows=16 * warps,
+                warps=warps, row_blocks=blocks)
 
 
 def plain_custom_flash_mha(q, k, v, *, causal: bool = False,
@@ -82,7 +98,8 @@ def custom_flash_mha(q, k, v, *, causal: bool = False,
     """Drop-in for ``set_custom_mha``: q [B,H,Lq,D], k/v [B,H,Lk,D] ->
     [B,H,Lq,D] in q's dtype.  On the card q, k, v are bf16 or fp32 of one
     dtype, D is 64, and they may be strided views with a contiguous last
-    dim."""
+    dim; bf16 rows must start on 16 bytes (the tensor-core kernel copies
+    them 16 bytes at a time)."""
     if not q.is_cuda:
         return plain_custom_flash_mha(q, k, v, causal=causal, scale=scale,
                                       kv_valid_len=kv_valid_len,
@@ -102,26 +119,35 @@ def custom_flash_mha(q, k, v, *, causal: bool = False,
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} is past the grid's 65535")
+    f32 = q.dtype == torch.float32
+    for t in (q, k, v):
+        if t.stride(3) != 1:
+            raise ValueError("the kernel needs a contiguous last dim")
+        if not f32 and (t.data_ptr() % 16 or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1)):
+            raise ValueError("the bf16 kernel needs rows that start on 16 "
+                             "bytes: pointer and strides multiples of 8 "
+                             f"elements, got {t.data_ptr() % 16} and "
+                             f"{tuple(t.stride())}")
     out = torch.empty((B, H, Lq, D), dtype=q.dtype, device=q.device)
     strides = []
     for t in (q, k, v, out):
-        if t.stride(3) != 1:
-            raise ValueError("the kernel needs a contiguous last dim")
         strides += list(t.stride()[:3])
     strides_arr = (ctypes.c_longlong * 12)(*strides)
     valid = Lk if kv_valid_len is None else int(kv_valid_len)
     kv_lim = max(0, min(valid, Lk))
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    f32 = q.dtype == torch.float32
+    plan = fmha_plan(Lq, q.dtype)
     lib = _build.load("custom_fmha")
     entry = lib.custom_fmha_f32 if f32 else lib.custom_fmha
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(entry(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H, Lq, Lk, D, kv_lim, int(causal),
-        ctypes.cast(strides_arr, ctypes.c_void_p), float(scale), stream),
-        "custom_fmha")
+        B, H, Lq, Lk, D, kv_lim, int(causal), plan["warps"],
+        plan["row_blocks"], ctypes.cast(strides_arr, ctypes.c_void_p),
+        float(scale), stream), "custom_fmha")
     launches["custom_fmha_f32" if f32 else "custom_fmha"] += 1
     return out

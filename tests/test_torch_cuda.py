@@ -26,13 +26,18 @@ in fp32 on the accumulator) are pinned bit for bit with one-hot rows of
 x.
 The causal mode of the flash kernel is held to the same gates as its
 non-causal mode (its mask is ``causal_bias``'s, bottom-right).  The user
-kernel of ``examples/custom_kernel_torch`` computes in fp32 whatever its
-operands' type: held to 1e-5 of the fp32 plain version with fp32 operands
-and 1e-2 with bf16 ones (its bf16 output rounds once).  The megakernel
+kernel of ``examples/custom_kernel_torch`` sums in fp32 whatever its
+operands' type (its bf16 entry on the tensor cores, P as two bf16 terms):
+held to 1e-5 of the fp32 plain version with fp32 operands and 1e-2 with
+bf16 ones (its bf16 output rounds once), in both variants of the bf16
+entry (short, tiled).  The grouped kernel is held to kernel 1's gates over
+rep 1-32, head dims 64, 80 and 128, and S in one round or split over a
+cluster.  The megakernel
 probes of ``tools/megakernel_probes.py`` sum in fp32 in another order than
 their plain versions and round once to bf16: held within one bf16 step
 (|out - ref| <= 2^-7 |ref| + 1e-5 max|ref|), the relayout's per-panel
 totals within 1e-2."""
+import ctypes
 import dataclasses
 import importlib.util
 import os
@@ -42,6 +47,7 @@ import numpy as np
 import pytest
 import torch
 
+from eddie_wang_hackathon2023_tpu_torch.ops import _build
 from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
 from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
 from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
@@ -591,18 +597,19 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         da.fused_decode_attention(cache[:, :1], 0, q[:1, :, :1], 4, 0.125)
 
 
-# columns per chunk of the grouped kernel at the shapes below
-# (``csrc/gqa_decode_attention.cu``: 128 where the shared memory allows)
-_GQA_CHUNK = 128
+# columns of each block's slice of the grouped kernel at S = 2063
+# (``csrc/gqa_decode_attention.cu``: a cluster of gqa_splits(2063) = 8
+# blocks, slices of ceil(2063 / 8) rounded up to 16)
+_GQA_CHUNK = da.gqa_slice_width(2063, da.gqa_splits(2063))
 
 
 @pytest.mark.parametrize("hkv", [1, 2, 4])
 @pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
 def test_gqa_kernel_matches_plain(dev, cache_dtype, hkv):
     """16 query heads over 1, 2 or 4 KV heads, S = 2063 (not a multiple of
-    4), per-row lengths at the chunk edges (nothing cached, one chunk and
-    one column, two chunks and one column, all of S) and starts (one of
-    them a whole chunk, which is skipped)."""
+    4), per-row lengths at the slice edges (nothing cached, one slice and
+    one column, two slices and one column, all of S) and starts (one of
+    them a whole slice, which is skipped)."""
     g = torch.Generator(device=dev).manual_seed(5 + hkv)
     L, B, H, D, S = 2, 4, 16, 64, 2063
     ch = _GQA_CHUNK
@@ -673,6 +680,115 @@ def test_gqa_kernel_rounds_p_before_pv(dev, cache_dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, ref16)
     assert bool((out != ref32).all())
+
+
+@pytest.mark.parametrize("S", [83, 84, 448, 1500, 2048, 2063])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("rep", [1, 4, 16, 32])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_gqa_kernel_layouts(dev, cache_dtype, rep, D, S):
+    """The grouped kernel on the tensor cores over its layouts: rep below,
+    at and above the mma's 16 rows, head dims that are (64, 128) and are
+    not (80) a multiple of the padded 32, S in one round (83, 84) and
+    split over a cluster, by 4-column copies (448, 1500, 2048: S % 4 == 0)
+    or by element copies (2063); rows with nothing cached (seq 1), a start
+    that skips a whole slice, all of S, and a start (3) and a last cached
+    column (W + 28) inside a 4-column group, whose other columns the
+    kernel zeroes.  Gates as above."""
+    g = torch.Generator(device=dev).manual_seed(rep * 1000 + D + S)
+    B, hkv = 4, 2
+    W = da.gqa_slice_width(S, da.gqa_splits(S))
+    if cache_dtype == torch.int8:
+        cache = torch.randint(-127, 128, (1, B, 2, hkv, D, S), generator=g,
+                              device=dev, dtype=torch.int8)
+        fresh = tuple(torch.randint(-127, 128, (B, hkv, D, 1), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+        ks = torch.tensor(1 / 40.0, device=dev)
+    else:
+        cache = torch.randn(1, B, 2, hkv, D, S, generator=g,
+                            device=dev).bfloat16()
+        fresh = tuple(torch.randn(B, hkv, D, 1, generator=g,
+                                  device=dev).bfloat16() for _ in range(2))
+        ks = None
+    q = torch.randn(B, hkv * rep, 1, D, generator=g, device=dev).bfloat16()
+    seq = torch.tensor([1, S, S, min(S, W + 30)], dtype=torch.int32,
+                       device=dev)
+    start = torch.tensor([0, 0, min(W, S - 10), 3], dtype=torch.int32,
+                         device=dev)
+    kw = dict(kv_quant_orig_scale=ks, start_index=start)
+    before = da.launches["gqa_decode_attention"]
+    if rep == 1:
+        # q has the cache's heads: the dispatch takes kernel 1, so the
+        # grouped kernel's C entry is called as the wrapper calls it
+        out = torch.empty(B, hkv * D, dtype=torch.bfloat16, device=dev)
+        _build.check(_build.load("gqa_decode_attention").gqa_decode_attention(
+            q.data_ptr(), cache.data_ptr(), int(cache_dtype == torch.int8),
+            0, B, hkv, 1, D, S, da.gqa_splits(S), W, seq.data_ptr(),
+            start.data_ptr(), None if ks is None else ks.data_ptr(),
+            D ** -0.5, fresh[0].data_ptr(), fresh[1].data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "gqa_decode_attention")
+        out = out.view(B, hkv, 1, D)
+    else:
+        out = da.fused_decode_attention(cache, 0, q, seq, D ** -0.5,
+                                        fresh_kv=fresh, **kw)
+        assert da.launches["gqa_decode_attention"] == before + 1
+    f32 = (lambda t: t) if cache_dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_gqa_decode_attention(f32(cache), 0, q.float(), seq,
+                                        D ** -0.5,
+                                        fresh_kv=tuple(map(f32, fresh)), **kw)
+    ref16 = da.plain_gqa_decode_attention(cache, 0, q, seq, D ** -0.5,
+                                          fresh_kv=fresh, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, hkv * rep, 1, D)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+
+
+def test_gqa_kernel_refuses_a_slice_width_it_does_not_take(dev):
+    """The slice width is the wrapper's; the C entry refuses one that is
+    not a multiple of 16 or whose slices do not cover S, before any
+    launch."""
+    B, D, S = 1, 64, 448
+    cache = torch.zeros(1, B, 2, 1, D, S, device=dev).bfloat16()
+    q = torch.zeros(B, 16, 1, D, device=dev).bfloat16()
+    seq = torch.full((B,), S, dtype=torch.int32, device=dev)
+    out = torch.empty(B, 16 * D, dtype=torch.bfloat16, device=dev)
+    fn = _build.load("gqa_decode_attention").gqa_decode_attention
+    splits = da.gqa_splits(S)
+    for W in (da.gqa_slice_width(S, splits) - 16, 120, 0):
+        assert fn(q.data_ptr(), cache.data_ptr(), 0, 0, B, 1, 16, D, S,
+                  splits, W, seq.data_ptr(), None, None, 0.125, None, None,
+                  out.data_ptr(), torch.cuda.current_stream().cuda_stream) \
+            != 0
+
+
+def test_gqa_kernel_ignores_non_finite_masked_columns(dev):
+    """Columns below the start and past the valid length hold NaN and inf:
+    P*V multiplies them by p = 0 on the tensor cores, so the kernel zeroes
+    them in shared memory first; the output equals the one over a cache
+    whose masked columns are finite."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, H, D, S = 2, 16, 128, 84
+    cache = torch.randn(1, B, 2, 1, D, S, generator=g, device=dev).bfloat16()
+    fresh = tuple(torch.randn(B, 1, D, 1, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    seq = torch.tensor([70, 33], dtype=torch.int32, device=dev)
+    start = torch.tensor([4, 5], dtype=torch.int32, device=dev)
+    clean = da.fused_decode_attention(cache, 0, q, seq, D ** -0.5,
+                                      fresh_kv=fresh, start_index=start)
+    dirty = cache.clone()
+    dirty[:, 0, :, :, :, :4] = float("nan")
+    dirty[:, 0, :, :, :, 69:] = float("inf")
+    dirty[:, 1, :, :, :, :5] = float("-inf")
+    dirty[:, 1, :, :, :, 32:] = float("nan")
+    out = da.fused_decode_attention(dirty, 0, q, seq, D ** -0.5,
+                                    fresh_kv=fresh, start_index=start)
+    torch.cuda.synchronize()
+    assert torch.equal(out, clean)
 
 
 def test_gqa_kernel_refuses_what_it_does_not_take(dev):
@@ -1130,6 +1246,98 @@ def test_custom_fmha_matches_plain(dev, case):
         assert not out.any()
     else:
         assert _rel(out, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq", [1, 2, 3, 15, 16, 17, 33, 64, 65, 256])
+def test_custom_fmha_bf16_variants(dev, lq, causal):
+    """The bf16 entry's short (Lq <= 64: one block of ceil(Lq / 16) warps)
+    and tiled (64 rows a block) variants at their edges, Lq == Lk, against
+    the fp32 plain version (1e-2); the variant is the planner's."""
+    g = torch.Generator(device=dev).manual_seed(lq)
+    q, k, v = _qkv(g, dev, 1, 3, lq, lq, 64, torch.bfloat16)
+    before = dict(ck.launches)
+    out = ck.custom_flash_mha(q, k, v, causal=causal, scale=0.125)
+    assert ck.launches["custom_fmha"] == before["custom_fmha"] + 1
+    ref = ck.plain_custom_flash_mha(q.float(), k.float(), v.float(),
+                                    causal=causal, scale=0.125)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, ref) < 1e-2
+    assert ck.fmha_plan(lq, torch.bfloat16)["variant"] == (
+        "short" if lq <= 64 else "tiled")
+
+
+@pytest.mark.parametrize("b,h,lq,lk,causal,valid", [
+    (1, 3, 17, 64, False, 40),          # valid keys inside the keys
+    (1, 3, 33, 100, True, 70),          # top-left, Lq < Lk, short
+    (2, 2, 16, 256, False, None),       # short over four key tiles
+    (1, 2, 65, 256, True, None),        # top-left, Lq < Lk, tiled
+    (1, 20, 1536, 1536, False, 1500),   # the encoder's shape, tiled
+    (1, 2, 3, 3, False, 0),             # no live key: zeros
+    (1, 2, 65, 65, False, 0),
+])
+def test_custom_fmha_bf16_masks(dev, b, h, lq, lk, causal, valid):
+    """The bf16 entry's masks in both variants: ``kv_valid_len`` inside the
+    keys, the top-left causal mask at Lq != Lk (it differs from the
+    bottom-right one there), and rows with no live key, which are 0."""
+    g = torch.Generator(device=dev).manual_seed(lq + lk)
+    q, k, v = _qkv(g, dev, b, h, lq, lk, 64, torch.bfloat16)
+    out = ck.custom_flash_mha(q, k, v, causal=causal, scale=0.125,
+                              kv_valid_len=valid)
+    ref = ck.plain_custom_flash_mha(q.float(), k.float(), v.float(),
+                                    causal=causal, scale=0.125,
+                                    kv_valid_len=valid)
+    torch.cuda.synchronize()
+    if valid == 0:
+        assert not out.any()
+        return
+    assert _rel(out, ref) < 1e-2
+    if causal and lq != lk:
+        br = fa.plain_flash_mha(q.float(), k.float(), v.float(),
+                                causal=True, scale=0.125)
+        assert _rel(out, br) > 1e-1
+
+
+def test_custom_fmha_unaligned_views_raise(dev):
+    """The bf16 kernel copies rows 16 bytes at a time: a view whose pointer
+    or row stride is not a multiple of 16 bytes raises ValueError before
+    any launch; the fp32 entry, on the CUDA cores, still takes it."""
+    x = torch.randn(1, 2, 16, 72, device=dev)
+    before = dict(ck.launches)
+    off = x.bfloat16()[..., 1:65]                  # pointer off by 2 bytes
+    with pytest.raises(ValueError):
+        ck.custom_flash_mha(off, off, off)
+    rows = torch.randn(1, 2, 16, 68, device=dev).bfloat16()[..., :64]
+    with pytest.raises(ValueError):                # row stride 136 bytes
+        ck.custom_flash_mha(rows, rows, rows)
+    assert ck.launches == before
+    f = x[..., 1:65]
+    ck.custom_flash_mha(f, f, f)
+    assert ck.launches["custom_fmha_f32"] == before["custom_fmha_f32"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_custom_fmha_refuses_a_plan_it_does_not_take(dev, dtype):
+    """The plan is the wrapper's; each entry refuses warps it has no kernel
+    for and row blocks that miss a row or hold none, before any launch."""
+    lq, h = 100, 2
+    t = [torch.zeros(1, h, lq, 64, device=dev, dtype=dtype)
+         for _ in range(4)]
+    strides = (ctypes.c_longlong * 12)(*[s for x in t for s in x.stride()[:3]])
+    lib = _build.load("custom_fmha")
+    entry = lib.custom_fmha_f32 if dtype == torch.float32 else lib.custom_fmha
+    good = ck.fmha_plan(lq, dtype)
+    bad = [(5, 1), (good["warps"], good["row_blocks"] - 1),
+           (good["warps"], good["row_blocks"] + 1)]
+    if dtype == torch.float32:
+        bad.append((2, good["row_blocks"]))
+    for warps, blocks in bad + [(good["warps"], good["row_blocks"])]:
+        rc = entry(*[x.data_ptr() for x in t], 1, h, lq, lq, 64, lq, 0,
+                   warps, blocks, ctypes.cast(strides, ctypes.c_void_p),
+                   0.125, torch.cuda.current_stream().cuda_stream)
+        assert (rc == 0) == ((warps, blocks) == (good["warps"],
+                                                 good["row_blocks"]))
 
 
 def test_custom_fmha_refuses_what_it_does_not_take(dev):

@@ -15,7 +15,13 @@
    function, that call (``library_ms``, used nowhere in the port); the
    probes' four kernels at their scripts' shapes (128 int8 panels, 210 MB)
    in every mode, their ``library_ms`` the loop of PyTorch calls over the
-   panels that the JAX scripts measured as the XLA baseline.
+   panels that the JAX scripts measured as the XLA baseline.  The GEMV and
+   the int4 matmul are also timed against ``torch._weight_int8pack_mm``
+   and ``torch._weight_int4pack_mm``, one call on the quantised weight
+   itself, where the card's torch has a CUDA kernel for it.  Kernel 2's
+   causal mode and the user FMHA's fp32 entry are held at their edges
+   (tile edges, Lq < Lk, ``valid`` < Lk, B * H past the SMs; Lq 1 and 17,
+   views on 4-byte rows), each case with its plan, its time and SDPA's.
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
@@ -95,6 +101,7 @@ TOK_EOT = 50257
 # H100 SXM peaks (NVIDIA data sheet), used for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR = 989e12
+PEAK_TF32_TENSOR = 495e12
 PEAK_FP32_CUDA_CORES = 67e12
 
 KERNELS = {
@@ -435,6 +442,20 @@ def step_timing(torch, model, call, label, first=1, n_prof=8):
                 top_kernels_ms_per_step=top)
 
 
+def packed_library_ms(torch, fn, ref):
+    """(ms, rel err, note) of ``fn``, one call of a PyTorch op on packed
+    quantised weights, where the card's torch has a CUDA kernel for it;
+    otherwise (None, None, "no CUDA kernel in torch <version>: ...")."""
+    try:
+        out = fn(0)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, (f"no CUDA kernel in torch {torch.__version__}: "
+                            f"{str(e).splitlines()[0][:160]}")
+    ms, _ = time_ms(torch, fn)
+    return ms, rel_err(out, ref), f"torch {torch.__version__}"
+
+
 def rel_err(out, ref):
     ref = ref.float()
     return float((out.float() - ref).abs().max()) / max(
@@ -612,11 +633,25 @@ def kernel_phases(torch, results):
         .contiguous()
     lib_ms, _ = time_ms(torch, lambda i: F.linear(x, w_lin[i % L], w_bias))
     del w_lin
+    # the same product in one PyTorch call on the int8 weight itself, where
+    # the card's torch has a CUDA kernel for it: _weight_int8pack_mm (bf16
+    # x, int8 [N, K], per-channel scales; the bias not added)
+    w_nk = w.transpose(1, 2).contiguous()
+    s16 = w_scale.to(torch.bfloat16)
+    p8_ms, p8_err, p8_note = packed_library_ms(
+        torch, lambda i: torch._weight_int8pack_mm(x, w_nk[i % L], s16),
+        weight_only_quant_matmul(x.float(), w[0], w_scale))
+    del w_nk
+    print(f"out-projection GEMV: {ms * 1e3:.2f} us; F.linear on the "
+          f"dequantised weight {lib_ms * 1e3:.2f} us; _weight_int8pack_mm "
+          + (f"{p8_ms * 1e3:.2f} us (rel err {p8_err:.3e})" if p8_ms
+             else p8_note))
     b_ms, b_by = bound(d * d + 2 * d + 4 * d + 2 * d + 2 * d, 2 * d * d,
                        PEAK_FP32_CUDA_CORES)
     results["out_proj_gemv"] = dict(
         max_abs_err=g_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall)
+        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+        library_int8pack_ms=p8_ms, library_int8pack=p8_note)
 
     # kernel 1, self-attention: bf16 cache S=448, fresh K/V, proj
     S2 = 448
@@ -1282,6 +1317,31 @@ INT4_SHAPES = (("qkv", 2048, 2304), ("dense", 2048, 2048),
 INT4_GROUP = 128
 
 
+def int4pack_operands(torch, qw, sc):
+    """The port's int4 weights ([copies, K/2, N], codes in [-8, 7]) and
+    group scales ([copies, G, N] fp32) as ``torch._weight_int4pack_mm``
+    takes them: unsigned codes q + 8 (its zero point of 8), [N, K] two a
+    byte (the even k in the high nibble) through
+    ``torch._convert_weight_to_int4pack``, and [G, N, 2] bf16 scales with
+    zeros 0; ([packed], [scales and zeros]), or the note of why the card's
+    torch cannot."""
+    from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import \
+        unpack_int4
+    packed, sz = [], []
+    try:
+        for i in range(qw.shape[0]):
+            u = (unpack_int4(qw[i]).to(torch.int32) + 8).t().contiguous()
+            packed.append(torch._convert_weight_to_int4pack(
+                (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8))
+            sz.append(torch.stack([sc[i], torch.zeros_like(sc[i])], -1)
+                      .to(torch.bfloat16).contiguous())
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return (f"no CUDA kernel in torch {torch.__version__}: "
+                f"{str(e).splitlines()[0][:160]}")
+    return packed, sz
+
+
 def int4_phase(torch, results, gen):
     """The int4 dequant matmul against its plain version: the four linears
     of SantaCoder-1B (INT4_SHAPES) at decode (M 8) and at the prefill (M
@@ -1398,6 +1458,7 @@ def int4_phase(torch, results, gen):
 
         lib_copies = -(-120_000_000 // (k * n * 2))
         w_lin = [deq(i).t() for i in range(lib_copies)]        # [N, K] views
+        packs = int4pack_operands(torch, qw, sc)
         for m in (DEC_BATCH, DEC_BATCH * 64):
             x = randx(m, k)
             ms, wall = time_ms(torch, lambda i: iq.quant_matmul_int4(
@@ -1407,13 +1468,20 @@ def int4_phase(torch, results, gen):
             deq_ms, _ = time_ms(torch, lambda i: deq(i % copies), iters=10)
             lib_ms, _ = time_ms(torch, lambda i: F.linear(
                 x, w_lin[i % lib_copies]))
+            p4_ms, p4_err, p4_note = (None, None, packs) if isinstance(
+                packs, str) else packed_library_ms(
+                torch, lambda i: torch._weight_int4pack_mm(
+                    x, packs[0][i % copies], INT4_GROUP, packs[1][i % copies]),
+                iq.plain_quant_matmul_int4(x.float(), qw[0], sc[0]))
             # bytes: the packed weights, the fp32 group scales, x and out;
             # operations: 2 M N K on the tensor cores (bf16 products)
             n_bytes = k // 2 * n + groups * n * 4 + m * k * 2 + m * n * 2
             b_ms, b_by = bound(n_bytes, 2 * m * n * k, PEAK_BF16_TENSOR)
             shapes[f"{name} M{m}"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_dequant_ms=deq_ms, bound_ms=b_ms, bound_by=b_by,
+                library_dequant_ms=deq_ms, library_int4pack_ms=p4_ms,
+                library_int4pack_rel_err=p4_err, library_int4pack=p4_note,
+                bound_ms=b_ms, bound_by=b_by,
                 bytes=n_bytes, host_call_ms=wall,
                 splits=iq.split_plan(m, n, k, torch.cuda.get_device_properties(
                     dev).multi_processor_count)[1])
@@ -1421,8 +1489,10 @@ def int4_phase(torch, results, gen):
                   f"us (bound {b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f}"
                   f" MB); plain {plain_ms * 1e3:.2f} us; F.linear on the "
                   f"dequantised weight {lib_ms * 1e3:.2f} us + the "
-                  f"dequantisation {deq_ms * 1e3:.2f} us")
-        del qw, sc, w_lin
+                  f"dequantisation {deq_ms * 1e3:.2f} us; _weight_int4pack_mm "
+                  + (f"{p4_ms * 1e3:.2f} us (rel err {p4_err:.3e})" if p4_ms
+                     else p4_note))
+        del qw, sc, w_lin, packs
     # the row: one layer's four calls at decode (M 8), summed
     dec = [v for key, v in shapes.items() if key.endswith(f"M{DEC_BATCH}")]
     results["int4_quant_matmul"] = dict(
@@ -1432,6 +1502,10 @@ def int4_phase(torch, results, gen):
         bound_by="/".join(sorted({v["bound_by"] for v in dec})),
         library_ms=sum(v["library_ms"] for v in dec),
         library_dequant_ms=sum(v["library_dequant_ms"] for v in dec),
+        library_int4pack_ms=(sum(v["library_int4pack_ms"] for v in dec)
+                             if all(v["library_int4pack_ms"] for v in dec)
+                             else None),
+        library_int4pack=dec[0]["library_int4pack"],
         times_are="the four linears of one layer at decode (M 8), summed",
         shapes=shapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
 
@@ -1473,15 +1547,27 @@ def custom_phase(torch, results, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def views(b, h, lq, lk, d, dtype):
+    def views(b, h, lq, lk, d, dtype, offset=0):
         """q [b,h,lq,d], k, v [b,h,lk,d] as strided views of fused
         [b, L, 3, h, d] projection outputs, as the attention layer hands
-        them over."""
-        qkv = torch.randn((b, max(lq, lk), 3, h, d), generator=gen,
-                          device=dev).to(dtype)
+        them over; ``offset`` elements more a row, the views starting that
+        far in (offset 1 in fp32: rows on 4 bytes, not on 16)."""
+        qkv = torch.randn((b, max(lq, lk), 3, h, d + offset), generator=gen,
+                          device=dev).to(dtype)[..., offset:]
         q, k, v = (qkv[:, :n, i].transpose(1, 2)
                    for i, n in enumerate((lq, lk, lk)))
         return q, k, v
+
+    def sdpa_ms(q, k, v, mask=None, causal=False, live=None):
+        """SDPA's time on contiguous copies of the same inputs: the keys
+        cut to ``live``, and the mask as ``is_causal`` (top-left) or a
+        boolean ``attn_mask``"""
+        live = k.shape[2] if live is None else live
+        qc = q.contiguous()
+        kc, vc = k[:, :, :live].contiguous(), v[:, :, :live].contiguous()
+        ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc, attn_mask=mask,
+                                              is_causal=causal, scale=scale))
+        return ms
 
     # the user kernel: (what, q and k shapes, kv_valid_len, causal, dtype)
     H, D, L, valid = 20, 64, 1536, 1500
@@ -1532,11 +1618,10 @@ def custom_phase(torch, results, gen):
         passed to the kernel (its variant), and two bounds.  bound_ms: the
         function's operations, 4 per (row, live key, d), at the peak for its
         operands' type: the bf16 tensor cores for bf16, the fp32 CUDA cores
-        for fp32 (the fp32 entry computes there).  route_bound_ms: the bf16 tensor
-        cores as the kernels take them: Q.K^T is one bf16 product for bf16
-        operands (exact, fp32 accumulation) and three for fp32 ones (split
-        bf16, as kernel 2's fp32 entry); P.V takes P, fp32, as two bf16
-        terms, so two products over bf16 V and three over fp32 V."""
+        for fp32.  route_bound_ms: the tensor cores as the kernels take
+        them: for bf16 operands Q.K^T is one bf16 product (exact, fp32
+        accumulation) and P.V two (P, fp32, as two bf16 terms); for fp32
+        operands both are three tf32 products (3xTF32) at the tf32 peak."""
         q, k, v = views(b, h, lq, lk, D, dtype)
         out = ck.custom_flash_mha(q, k, v, causal=causal, scale=scale,
                                   kv_valid_len=vl)
@@ -1549,22 +1634,21 @@ def custom_phase(torch, results, gen):
         plain_ms, _ = time_ms(torch, lambda i: ck.plain_custom_flash_mha(
             q, k, v, causal=causal, scale=scale, kv_valid_len=vl), iters=10)
         live = lk if vl is None else min(vl, lk)
-        kc, vc = k[:, :, :live].contiguous(), v[:, :, :live].contiguous()
-        qc = q.contiguous()
         # SDPA's is_causal is top-left, as the user kernel's mask
-        lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc,
-                                                  is_causal=causal,
-                                                  scale=scale))
+        lib_ms = sdpa_ms(q, k, v, causal=causal, live=live)
         # (row, live key) pairs: row i of a top-left causal call sees i + 1
         pairs = (sum(min(i + 1, live) for i in range(lq)) if causal
                  else lq * live)
         n_bytes = 2 * b * h * (lq + lk) * D * q.element_size()
-        products = 3 if dtype == bf16 else 6
         b_ms, b_by = bound(n_bytes, 4 * b * h * pairs * D,
                            PEAK_BF16_TENSOR if dtype == bf16
                            else PEAK_FP32_CUDA_CORES)
-        r_ms, r_by = bound(n_bytes, products * 2 * b * h * pairs * D,
-                           PEAK_BF16_TENSOR)
+        if dtype == bf16:
+            r_ms, r_by = bound(n_bytes, 3 * 2 * b * h * pairs * D,
+                               PEAK_BF16_TENSOR)
+        else:
+            r_ms, r_by = bound(n_bytes, 3 * 4 * b * h * pairs * D,
+                               PEAK_TF32_TENSOR)
         shape = (f"[{b},{h},{lq},{D}]" + (f" Lk {lk}" if lk != lq else "")
                  + (f" valid {vl}" if vl is not None else "")
                  + (" causal" if causal else "") + f" {str(dtype)[6:]}")
@@ -1591,37 +1675,95 @@ def custom_phase(torch, results, gen):
           "shape the tiled one")
     results["custom_fmha"] = dict(**short, rel_err_vs_plain=errs,
                                   at_encoder_shape=tiled)
+    # the fp32 entry (3xTF32) at its edges, each case with its plan, its
+    # time and SDPA fp32's: keys cut inside a 64-key tile, causal, one and
+    # 17 query rows, and views whose rows start on 4 bytes but not on 16
+    # (4-byte copies); each within 1e-5 of the fp32 plain version
+    f32_cases = {}
+    for what, (b, h, lq, lk), vl, causal, offset in (
+            ("valid 200 of 256", (1, H, 256, 256), 200, False, 0),
+            ("causal", (1, H, 256, 256), None, True, 0),
+            ("Lq 1", (1, H, 1, 1), None, False, 0),
+            ("Lq 17 causal", (1, H, 17, 17), None, True, 0),
+            ("4-byte-aligned views, the encoder's shape", (1, H, L, L),
+             valid, False, 1)):
+        q, k, v = views(b, h, lq, lk, D, f32, offset)
+        before = ck.launches["custom_fmha_f32"]
+        out = ck.custom_flash_mha(q, k, v, causal=causal, scale=scale,
+                                  kv_valid_len=vl)
+        ref = ck.plain_custom_flash_mha(q, k, v, causal=causal, scale=scale,
+                                        kv_valid_len=vl)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        check(ck.launches["custom_fmha_f32"] == before + 1 and err < 1e-5,
+              f"custom fmha fp32 {what} [{b},{h},{lq},{D}]: one launch, "
+              "within 1e-5 of the fp32 plain version")
+        ms, _ = time_ms(torch, lambda i: ck.custom_flash_mha(
+            q, k, v, causal=causal, scale=scale, kv_valid_len=vl))
+        lib_ms = sdpa_ms(q, k, v, causal=causal, live=vl)
+        plan = ck.fmha_plan(lq, f32)
+        print(f"custom fmha fp32 {what} [{b},{h},{lq},{D}]: rel err "
+              f"{err:.3e}, {plan['row_blocks']} row blocks of {plan['warps']}"
+              f" warps, {ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f})")
+        f32_cases[what] = dict(rel_err=err, plan=plan, ms=ms,
+                               library_ms=lib_ms)
     results["custom_fmha_f32"] = dict(
-        **timed(1, H, L, L, valid, False, f32), rel_err_vs_plain=errs)
+        **timed(1, H, L, L, valid, False, f32), rel_err_vs_plain=errs,
+        cases=f32_cases)
 
-    # kernel 2, causal (bottom-right, as causal_bias): (q shape, dtype)
-    ferrs = {}
-    for (b, h, lq), dtype in (((1, H, 256), bf16), ((1, H, 256), f32),
-                              ((8, 16, 128), bf16),
-                              ((1, H, PROMPTED_PREFILL), bf16)):
-        q, k, v = views(b, h, lq, lq, D, dtype)
+    # kernel 2, causal (bottom-right, as causal_bias), each case with its
+    # plan (the wrapper's causal_plan; the fp32 entry keeps the first
+    # design), its time and the library's: SDPA is_causal where Lq == Lk
+    # and every key is valid, else the same mask as a boolean attn_mask.
+    # Lq at the 64-key tiles' edges and the path's 227, Lq < Lk (the
+    # bottom-right offset), valid < Lk, B * H past the 132 SMs
+    ferrs, fcases = {}, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, h, lq, lk, vl, dtype in (
+            (1, H, 128, 128, None, bf16), (1, H, 129, 129, None, bf16),
+            (1, H, 255, 255, None, bf16), (1, H, 256, 256, None, bf16),
+            (1, H, 200, 256, None, bf16), (1, H, 256, 256, 200, bf16),
+            (8, H, 256, 256, None, bf16), (8, 16, 128, 128, None, bf16),
+            (1, H, 256, 256, None, f32), (1, H, 200, 256, 230, f32),
+            (1, H, PROMPTED_PREFILL, PROMPTED_PREFILL, None, bf16)):
+        q, k, v = views(b, h, lq, lk, D, dtype)
         entry = "flash_attention_causal" + ("_f32" if dtype == f32 else "")
         before = fa.launches[entry]
-        out = fa.flash_mha(q, k, v, causal=True, scale=scale)
+        out = fa.flash_mha(q, k, v, causal=True, scale=scale,
+                           kv_valid_len=vl)
         ref = fa.plain_flash_mha(q.float(), k.float(), v.float(),
-                                 causal=True, scale=scale)
+                                 causal=True, scale=scale, kv_valid_len=vl)
         torch.cuda.synchronize()
-        what = f"[{b},{h},{lq},{D}] {str(dtype)[6:]}"
+        what = (f"[{b},{h},{lq},{D}]" + (f" Lk {lk}" if lk != lq else "")
+                + (f" valid {vl}" if vl is not None else "")
+                + f" {str(dtype)[6:]}")
         ferrs[what] = err = rel_err(out, ref)
         tol = 1e-4 if dtype == f32 else 1e-2
-        print(f"flash causal {what}: rel err vs fp32 plain {err:.3e}")
         check(fa.launches[entry] == before + 1 and err < tol,
               f"flash attention causal {what}: one launch, within {tol:g} "
-              "of the fp32 plain version")
-    # timed at the prompted prefill's shape, the custom path's call
+              f"of the fp32 plain version (rel err {err:.3e})")
+        ms, _ = time_ms(torch, lambda i: fa.flash_mha(
+            q, k, v, causal=True, scale=scale, kv_valid_len=vl))
+        live = lk if vl is None else vl
+        if lq == lk and live == lk:
+            lib_ms = sdpa_ms(q, k, v, causal=True)
+        else:
+            cols = torch.arange(lk, device=dev)
+            mask = ((cols[None, :] <= torch.arange(lq, device=dev)[:, None]
+                     + lk - lq) & (cols[None, :] < live))
+            lib_ms = sdpa_ms(q, k, v, mask=mask)
+        plan = (fa.causal_plan(lq, lk, live, b * h, sms) if dtype == bf16
+                else "first design: 64 rows a block")
+        print(f"flash causal {what}: rel err vs fp32 plain {err:.3e}, plan "
+              f"{plan}, {ms * 1e3:.2f} us (SDPA {lib_ms * 1e3:.2f})")
+        fcases[what] = dict(rel_err=err, plan=plan, ms=ms, library_ms=lib_ms)
+    # the row: the prompted prefill's shape, the custom path's call
     err = float((out.float() - ref).abs().max())
     ms, wall = time_ms(torch, lambda i: fa.flash_mha(q, k, v, causal=True,
                                                      scale=scale))
     plain_ms, _ = time_ms(torch, lambda i: fa.plain_flash_mha(
         q, k, v, causal=True, scale=scale))
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc, is_causal=True,
-                                              scale=scale))
+    lib_ms = sdpa_ms(q, k, v, causal=True)
     # causal, row i needs i + 1 keys: 4 * D flops for each (row, key) pair
     b_ms, b_by = bound(4 * H * lq * D * 2, 4 * H * D * lq * (lq + 1) // 2,
                        PEAK_BF16_TENSOR)
@@ -1631,7 +1773,8 @@ def custom_phase(torch, results, gen):
     results["flash_attention_causal"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
-        rel_err_vs_plain=ferrs)
+        plan=fa.causal_plan(lq, lq, lq, H, sms), rel_err_vs_plain=ferrs,
+        cases=fcases)
 
 
 def probe_kernels():

@@ -56,17 +56,44 @@
 //     want of more; starting the next S before P V, so that the
 //     exponentials overlap it, needs more than that, and one block an SM
 //     ran slower.
-// The causal mode and the fp32 entry keep the first design:
+// The bf16 causal entry (namespace `causal`; the custom path's prompted
+// prefill, [1, 20, 227, 64]) is latency-bound: its bound is 0.694 us, and
+// a launch with nothing to do costs 1.9 us.  What held the first design
+// back was a long chain in each block: 4 warps of 16 rows, the last block
+// walking every 64-key tile of its rows one after another through a
+// 2-stage ring.  Here:
+//   * one block per 64 query rows of a (batch, head), the last rows first;
+//     each 16-row group's keys (to its last row's diagonal) are spread
+//     over `splits` warps, one 64-key tile each, so the longest block's
+//     warps walk one tile together; a call of more keys than splits * 64
+//     walks rounds of splits tiles through two stages;
+//   * Q and the first round's K go to shared memory in one group of
+//     16-byte cp.async, its V in a second, so S and the softmax run while
+//     V lands;
+//   * each warp keeps its own running max, sum and O (mma.sync m16n8k16,
+//     fragments by ldmatrix, P rounded to bf16 against the running max);
+//     the splits' partials meet in shared memory and are combined in split
+//     order (weights 2^(m_s - M) / L);
+//   * masked scores are selected to -1e30, never subtracted; tiles wholly
+//     above the diagonal are skipped; the bottom-right offset Lk - Lq;
+//   * the plan (rows, splits) is the wrapper's (`causal_plan`), checked
+//     here: keys over up to 4 warps while the grid has fewer blocks than
+//     SMs, one warp past that (large grids fill the card themselves, and
+//     splitting only adds the combine; `tools/flash_causal_plans.py`
+//     times every plan).  Blocks of 64 rows beat blocks of 16 and 32 at
+//     every shape measured: each block re-reads its keys, and with short
+//     blocks those reads bound the load phase by the L2.
+// The fp32 entry (the SmoothQuant encoder's, causal or not, held to 1e-4)
+// keeps the first design:
 //   * one 128-thread block per 64 query rows of one (batch, head); each of
 //     its 4 warps owns 16 rows and keeps its Q fragments in registers;
 //   * K and V tiles of 64 keys go through shared memory as they lie in
-//     memory, [key][d], rows padded so the fragment loads are free of bank
-//     conflicts; in bf16 the P*V operand comes from V through
-//     ldmatrix.trans, in fp32 from four scalar loads that are split on the
-//     way into registers; two stages, filled with cp.async, so the next
-//     tile loads while this one is computed;
-//   * both products are mma.sync m16n8k16 bf16 -> fp32; the probabilities
-//     stay in registers and become the A operand of P*V;
+//     memory, [key][d], rows padded so that the fragment loads are free of
+//     bank conflicts; the P*V operand from four scalar loads of V, split on
+//     the way into registers; two stages, filled with cp.async, so the
+//     next tile loads while this one is computed;
+//   * both products are the three split-bf16 mma.sync m16n8k16 products;
+//     the probabilities stay in registers and become the A operand of P*V;
 //   * tiles wholly past `valid` are skipped, columns past it are masked;
 //     causal, tiles wholly above the diagonal are skipped too, the tiles
 //     across it masked per row, and the blocks with the most tiles (the
@@ -90,17 +117,10 @@ constexpr int kBN = 64;                // keys per tile
 constexpr int kThreads = 128;
 constexpr float kNeg = -1e30f;
 
-// padded row of the K and V tiles, in elements: 8 bf16 (16 bytes) keeps
-// ldmatrix conflict-free; 4 floats puts the 4 key rows a warp's P*V loads
-// touch on distinct banks
-template <typename T>
-__host__ __device__ constexpr int ld_of() {
-  return std::is_same<T, float>::value ? kD + 4 : kD + 8;
-}
-template <typename T>
-__host__ __device__ constexpr int smem_bytes() {
-  return 2 * 2 * kBN * ld_of<T>() * (int)sizeof(T);  // 2 stages x (K, V)
-}
+// padded row of the fp32 K and V tiles: 4 floats puts the 4 key rows a
+// warp's P*V loads touch on distinct banks
+constexpr int kLd = kD + 4;
+constexpr int kSmemF32 = 2 * 2 * kBN * kLd * (int)sizeof(float);  // 2 x (K, V)
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -148,6 +168,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(addr));
 }
 
+// Four 8x8 b16 matrices as they lie: the B fragments of two n-tiles of
+// S = Q K^T over two k-steps, or Q's A fragment.  ``p`` is this lane's row.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -160,18 +190,17 @@ struct Strides {
   long long b, h, l;                   // in elements; the last dim is 1
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Lq, int Lk, int valid, int causal, Strides sq,
-                       Strides sk, Strides sv, Strides so, float scale_log2) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kLd = ld_of<T>();
-  constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int H, int Lq, int Lk, int valid, int causal,
+                           Strides sq, Strides sk, Strides sv, Strides so,
+                           float scale_log2) {
+  constexpr int kVec = 4;              // floats per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const k_buf = reinterpret_cast<T*>(smem_raw);        // [2][kBN * kLd]
-  T* const v_buf = k_buf + 2 * kBN * kLd;                 // [key][d]
+  float* const k_buf = reinterpret_cast<float*>(smem_raw);  // [2][kBN * kLd]
+  float* const v_buf = k_buf + 2 * kBN * kLd;               // [key][d]
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -184,12 +213,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lim0 = causal ? min(valid, r0 + off + 1) : valid;
   const int lim1 = causal ? min(valid, r1 + off + 1) : valid;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  // Q fragments (A operand, row-major 16x16 per k-step of 16 dims); in
-  // fp32 as hi and lo halves
+  // Q fragments (A operand, row-major 16x16 per k-step of 16 dims) as hi
+  // and lo halves
   uint32_t qf[kD / 16][4], ql[kD / 16][4];
 #pragma unroll
   for (int ks = 0; ks < kD / 16; ++ks) {
@@ -198,18 +227,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int cols[4] = {c, c, c + 8, c + 8};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const bool in = rows[i] < Lq;
-      if constexpr (kF32) {
-        const float2 x = in ? *reinterpret_cast<const float2*>(
-                                  qb + rows[i] * sq.l + cols[i])
-                            : make_float2(0.f, 0.f);
-        split_bf16(x.x, x.y, qf[ks][i], ql[ks][i]);
-      } else {
-        qf[ks][i] = in ? *reinterpret_cast<const uint32_t*>(
-                             qb + rows[i] * sq.l + cols[i])
-                       : 0u;
-        ql[ks][i] = 0u;
-      }
+      const float2 x = rows[i] < Lq ? *reinterpret_cast<const float2*>(
+                                          qb + rows[i] * sq.l + cols[i])
+                                    : make_float2(0.f, 0.f);
+      split_bf16(x.x, x.y, qf[ks][i], ql[ks][i]);
     }
   }
 
@@ -241,8 +262,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile(0, 0);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int n0 = kt * kBN;
-    const T* k_s = k_buf + (kt & 1) * kBN * kLd;
-    const T* v_s = v_buf + (kt & 1) * kBN * kLd;
+    const float* k_s = k_buf + (kt & 1) * kBN * kLd;
+    const float* v_s = v_buf + (kt & 1) * kBN * kLd;
     if (kt + 1 < n_tiles) {
       // the other stage was consumed before the barrier that ended the
       // previous iteration
@@ -258,23 +279,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* kr = k_s + (nt * 8 + g) * kLd + t * 2;
+      const float* kr = k_s + (nt * 8 + g) * kLd + t * 2;
 #pragma unroll
       for (int ks = 0; ks < kD / 16; ++ks) {
-        if constexpr (kF32) {
-          const float2 x0 = *reinterpret_cast<const float2*>(kr + ks * 16);
-          const float2 x1 =
-              *reinterpret_cast<const float2*>(kr + ks * 16 + 8);
-          uint32_t bh0, bl0, bh1, bl1;
-          split_bf16(x0.x, x0.y, bh0, bl0);
-          split_bf16(x1.x, x1.y, bh1, bl1);
-          mma_split(s[nt], qf[ks], ql[ks], bh0, bh1, bl0, bl1);
-        } else {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
-          const uint32_t b1 =
-              *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
-          mma_bf16(s[nt], qf[ks], b0, b1);
-        }
+        const float2 x0 = *reinterpret_cast<const float2*>(kr + ks * 16);
+        const float2 x1 = *reinterpret_cast<const float2*>(kr + ks * 16 + 8);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_bf16(x0.x, x0.y, bh0, bl0);
+        split_bf16(x1.x, x1.y, bh1, bl1);
+        mma_split(s[nt], qf[ks], ql[ks], bh0, bh1, bl0, bl1);
       }
     }
 
@@ -326,40 +339,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // O += P V: the S accumulators of two key n-tiles form one A fragment
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      if constexpr (kF32) {
-        uint32_t ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-        // B fragment of d-tile dt: V[key][dt * 8 + g] at keys
-        // kk * 16 + 2t, +1 (b0) and +8, +9 (b1)
-        const float* vk = v_s + (kk * 16 + t * 2) * kLd + g;
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      // B fragment of d-tile dt: V[key][dt * 8 + g] at keys
+      // kk * 16 + 2t, +1 (b0) and +8, +9 (b1)
+      const float* vk = v_s + (kk * 16 + t * 2) * kLd + g;
 #pragma unroll
-        for (int dt = 0; dt < kD / 8; ++dt) {
-          const float* vc = vk + dt * 8;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_bf16(vc[0], vc[kLd], bh0, bl0);
-          split_bf16(vc[8 * kLd], vc[9 * kLd], bh1, bl1);
-          mma_split(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
-        }
-      } else {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        // lanes 0-15 address keys kk*16 + 0..15 at d-tile dt, lanes 16-31
-        // the same keys at d-tile dt + 1
-        const __nv_bfloat16* vrow =
-            v_s + (kk * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
-#pragma unroll
-        for (int dt = 0; dt < kD / 8; dt += 2) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, vrow + dt * 8);
-          mma_bf16(acc[dt], pa, vf[0], vf[1]);
-          mma_bf16(acc[dt + 1], pa, vf[2], vf[3]);
-        }
+      for (int dt = 0; dt < kD / 8; ++dt) {
+        const float* vc = vk + dt * 8;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_bf16(vc[0], vc[kLd], bh0, bl0);
+        split_bf16(vc[8 * kLd], vc[9 * kLd], bh1, bl1);
+        mma_split(acc[dt], ph, pl, bh0, bh1, bl0, bl1);
       }
     }
     __syncthreads();                   // this stage is consumed
@@ -372,50 +366,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  T* ob = o + b * so.b + h * so.h;
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int dt = 0; dt < kD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
-    if constexpr (kF32) {
-      if (r0 < Lq)
-        *reinterpret_cast<float2*>(ob + r0 * so.l + c) =
-            make_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-      if (r1 < Lq)
-        *reinterpret_cast<float2*>(ob + r1 * so.l + c) =
-            make_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    } else {
-      if (r0 < Lq)
-        *reinterpret_cast<uint32_t*>(ob + r0 * so.l + c) =
-            pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-      if (r1 < Lq)
-        *reinterpret_cast<uint32_t*>(ob + r1 * so.l + c) =
-            pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
+    if (r0 < Lq)
+      *reinterpret_cast<float2*>(ob + r0 * so.l + c) =
+          make_float2(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (r1 < Lq)
+      *reinterpret_cast<float2*>(ob + r1 * so.l + c) =
+          make_float2(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Lq, int Lk, int D, int valid, int causal,
-           const long long* strides, float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Lq, int Lk, int D, int valid, int causal,
+               const long long* strides, float scale, void* stream) {
   // causal needs Lq <= Lk: then every row has key 0 and every block a tile
   if (D != kD || valid < 1 || valid > Lk || (causal && Lq > Lk))
     return (int)cudaErrorInvalidValue;
   Strides s[4];
   for (int i = 0; i < 4; ++i) s[i] = {strides[3 * i], strides[3 * i + 1],
                                       strides[3 * i + 2]};
-  constexpr int smem = smem_bytes<T>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_f32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF32);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((Lq + kBM - 1) / kBM, B * H);
-  flash_attention_kernel<T><<<grid, kThreads, smem,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, valid,
+  flash_attention_f32_kernel<<<grid, kThreads, kSmemF32,
+                               reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk, valid,
       causal != 0, s[0], s[1], s[2], s[3], scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -907,26 +888,426 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace hopper
 
+// -- the bf16 causal entry: the keys of a row block split over warps ------
+
+namespace causal {
+
+constexpr int kGroups = 4;                  // row groups of 16: 64 rows a block
+constexpr int kRows = 16 * kGroups;
+constexpr int kKeys = 64;                   // keys a warp's tile
+constexpr int kPitch = kD + 8;              // a staged bf16 row: 144 bytes
+constexpr int kMaxSplits = 4;               // warps over the keys of a row group
+constexpr int kTileBytes = kKeys * kPitch * 2;
+constexpr int kPartPitch = kD + 8;          // a partial O row in fp32
+// one warp's partial: O [16][kPartPitch], then the rows' max and sum
+constexpr int kPartFloats = 16 * kPartPitch + 32;
+
+using hopper::ex2;
+
+// keys a stage holds: a round's, at most the most any block needs rounded
+// up to 16
+__host__ __device__ inline int stage_keys_of(int Lk, int valid, int splits) {
+  return min(splits * kKeys, (min(valid, Lk) + 15) & ~15);
+}
+
+// Block (row block, b * H + h) of kRows query rows, the last rows first;
+// its kGroups * splits warps: warp w takes row group w % kGroups and key
+// split w / kGroups.  The block's keys (to its last row's diagonal) go to
+// shared memory by 16-byte cp.async in rounds of splits * 64 keys (two
+// stages when a call needs more than one round; round 0's V in a group
+// of its own); in each round split s takes the round's s-th tile of 64
+// keys.  Each warp keeps its own running max, sum and O; at the end the
+// splits' partials meet in shared memory and are combined in split
+// order.
+__global__ void __launch_bounds__(kGroups * kMaxSplits * 32)
+causal_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ o, int H, int Lq, int Lk,
+              int valid, int splits, Strides sq, Strides sk, Strides sv,
+              Strides so, float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* const qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // stage st: K then V of stage_keys rows each
+  unsigned char* const stages = smem_raw + kRows * kPitch * 2;
+  const int stage_keys = stage_keys_of(Lk, valid, splits);
+  const int stage_bytes = 2 * stage_keys * kPitch * 2;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = warp % kGroups, split = warp / kGroups;
+  const int threads = blockDim.x;
+  const int off = Lk - Lq;
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+
+  // keys the block needs: up to its last live row's diagonal
+  const int n_keys = min(valid, min(row0 + kRows, Lq) + off);
+  const int round_keys = splits * kKeys;
+  const int rounds = (n_keys + round_keys - 1) / round_keys;
+
+  // rows [r0, r0 + rows) of a [.., L, 64] operand (row stride ld) to dst
+  // by 16-byte cp.async, each thread one 16-byte column of every
+  // (threads / 8)-th row; rows at or past `live` are zero-filled, nothing
+  // read
+  auto copy_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                       long long ld, int r0, int rows, int live) {
+    const int c = (tid & 7) * 8, step = threads >> 3;
+    const __nv_bfloat16* p = src + (r0 + (tid >> 3)) * ld + c;
+    for (int r = tid >> 3; r < rows; r += step, p += step * ld)
+      cp_async16(dst + r * kPitch + c, r < live ? p : src, r < live ? 16 : 0);
+  };
+  // round j's keys into stage st, up to the block's last needed key
+  // rounded up to 16 (those past it zero-filled, so that P V meets finite
+  // zeros there)
+  auto stage_k = [&](int j, int st) {
+    const int n0 = j * round_keys;
+    copy_rows(reinterpret_cast<__nv_bfloat16*>(stages + st * stage_bytes),
+              kb, sk.l, n0, min(round_keys, (n_keys - n0 + 15) & ~15),
+              n_keys - n0);
+  };
+  auto stage_v = [&](int j, int st) {
+    const int n0 = j * round_keys;
+    copy_rows(reinterpret_cast<__nv_bfloat16*>(stages + st * stage_bytes)
+                  + stage_keys * kPitch,
+              vb, sv.l, n0, min(round_keys, (n_keys - n0 + 15) & ~15),
+              n_keys - n0);
+  };
+  // Q and round 0's K in the first group, its V in the second (the scores
+  // need no V), round 1 in the third
+  copy_rows(qs, qb, sq.l, row0, kRows, Lq - row0);
+  stage_k(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  stage_v(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (rounds > 1) {
+    stage_k(1, 1);
+    stage_v(1, 1);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // this lane's rows and their key limits (exclusive): `valid`, and the
+  // diagonal, bottom-right
+  const int wrow0 = row0 + group * 16;
+  const int ra = wrow0 + (lane >> 2), rb = ra + 8;
+  const int c2 = (lane & 3) * 2;
+  const int lim_a = min(valid, ra + off + 1), lim_b = min(valid, rb + off + 1);
+  // the warp's keys: its last live row's, and the fewest any of its rows has
+  const int warp_lim = min(valid, min(wrow0 + 15, Lq - 1) + off + 1);
+  const int warp_min = min(valid, wrow0 + off + 1);
+
+  uint32_t qf[4][4];
+  float acc[8][4], s[8][4];
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // a tile of 64 keys at n0, in two halves.  scores: S = Q K^T from the
+  // staged kt, the masks, the running max and sum, P into s; kMasked: some
+  // key of the tile is masked for some row of the warp, and only the first
+  // `steps` 16-key steps hold a key the warp needs
+  auto scores = [&](const auto masked_t, int n0, int steps,
+                    const __nv_bfloat16* kt) {
+    constexpr bool kMasked = decltype(masked_t)::value;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (!kMasked || np < steps) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3))
+                                   * kPitch
+                               + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        }
+      }
+    }
+    // scale into the log2 domain; the masked scores are selected out
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] *= scale_log2;
+        s[j][e + 2] *= scale_log2;
+        if (kMasked) {
+          const int col = n0 + j * 8 + c2 + e;
+          if (col >= lim_a) s[j][e] = kNeg;
+          if (col >= lim_b) s[j][e + 2] = kNeg;
+        }
+        mx_a = fmaxf(mx_a, s[j][e]);
+        mx_b = fmaxf(mx_b, s[j][e + 2]);
+      }
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // O and l are rescaled only when a row's max moved
+    if (__any_sync(0xffffffffu, mx_a != m_a || mx_b != m_b)) {
+      const float alpha_a = ex2(m_a - mx_a), alpha_b = ex2(m_b - mx_b);
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] *= alpha_a;
+        acc[j][1] *= alpha_a;
+        acc[j][2] *= alpha_b;
+        acc[j][3] *= alpha_b;
+      }
+      m_a = mx_a;
+      m_b = mx_b;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pa = ex2(s[j][e] - m_a), pb = ex2(s[j][e + 2] - m_b);
+        if (kMasked) {
+          const int col = n0 + j * 8 + c2 + e;
+          if (col >= lim_a) pa = 0.f;
+          if (col >= lim_b) pb = 0.f;
+        }
+        s[j][e] = pa;
+        s[j][e + 2] = pb;
+        l_a += pa;
+        l_b += pb;
+      }
+    }
+  };
+  // O += P V from the staged vt: P's A fragment from two n-tiles of s,
+  // rounded to bf16 against the running max; V's B fragments by
+  // ldmatrix.trans
+  auto pv = [&](const auto masked_t, int steps, const __nv_bfloat16* vt) {
+    constexpr bool kMasked = decltype(masked_t)::value;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (!kMasked || kk < steps) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 7)
+                                      + ((lane >> 3) & 1) * 8) * kPitch
+                                    + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+  };
+
+  for (int j = 0; j < rounds; ++j) {
+    // round j's K (and Q): at j == 0 round 0's V and round 1 may be in
+    // flight, later the next round
+    if (j == 0)
+      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+    else if (j + 1 < rounds)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();                   // landed for all
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldmatrix_x4(qf[kk], qs + (group * 16 + (lane & 15)) * kPitch
+                                + kk * 16 + (lane >> 4) * 8);
+    }
+    const int n0 = j * round_keys + split * kKeys;
+    const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(
+        stages + (j & 1) * stage_bytes) + split * kKeys * kPitch;
+    const __nv_bfloat16* vt = kt + stage_keys * kPitch;
+    const bool live = n0 < warp_lim, masked = n0 + kKeys > warp_min;
+    const int steps = min(4, (warp_lim - n0 + 15) >> 4);
+    if (live) {
+      if (masked)
+        scores(std::true_type{}, n0, steps, kt);
+      else
+        scores(std::false_type{}, n0, steps, kt);
+    }
+    if (j == 0) {                      // round 0's V
+      if (rounds > 1)
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      else
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+    }
+    if (live) {
+      if (masked)
+        pv(std::true_type{}, steps, vt);
+      else
+        pv(std::false_type{}, steps, vt);
+    }
+    if (j + 2 < rounds) {
+      __syncthreads();                 // stage j & 1 consumed by all
+      stage_k(j + 2, j & 1);
+      stage_v(j + 2, j & 1);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+#pragma unroll
+  for (int off_ = 1; off_ < 4; off_ <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off_);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off_);
+  }
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  if (splits == 1) {
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+    const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+#pragma unroll
+    for (int jd = 0; jd < 8; ++jd) {
+      const int d = jd * 8 + c2;
+      if (ra < Lq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)ra * so.l + d) =
+            pack_bf16(acc[jd][0] * inv_a, acc[jd][1] * inv_a);
+      if (rb < Lq)
+        *reinterpret_cast<uint32_t*>(ob + (long long)rb * so.l + d) =
+            pack_bf16(acc[jd][2] * inv_b, acc[jd][3] * inv_b);
+    }
+    return;
+  }
+  // the partials, unnormalised, over the consumed stages
+  __syncthreads();
+  float* const part = reinterpret_cast<float*>(stages);
+  float* const mine = part + warp * kPartFloats;
+  const int g = lane >> 2;
+#pragma unroll
+  for (int jd = 0; jd < 8; ++jd) {
+    *reinterpret_cast<float2*>(mine + g * kPartPitch + jd * 8 + c2) =
+        make_float2(acc[jd][0], acc[jd][1]);
+    *reinterpret_cast<float2*>(mine + (g + 8) * kPartPitch + jd * 8 + c2) =
+        make_float2(acc[jd][2], acc[jd][3]);
+  }
+  if ((lane & 3) == 0) {
+    mine[16 * kPartPitch + g] = m_a;
+    mine[16 * kPartPitch + g + 8] = m_b;
+    mine[16 * kPartPitch + 16 + g] = l_a;
+    mine[16 * kPartPitch + 16 + g + 8] = l_b;
+  }
+  __syncthreads();
+  // each block row: 32 column pairs over 2 * splits threads, the splits'
+  // weights 2^(m_s - M) / L, summed in split order
+  const int per_row = 2 * splits;
+  const int row = tid / per_row;
+  const int r = row0 + row;
+  if (r >= Lq) return;
+  const int grp = row / 16, rr = row % 16;
+  float mx = kNeg;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < splits)
+      mx = fmaxf(mx, part[(s * kGroups + grp) * kPartFloats
+                          + 16 * kPartPitch + rr]);
+  float w[kMaxSplits], sum = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    const float* p =
+        part + (s * kGroups + grp) * kPartFloats + 16 * kPartPitch;
+    w[s] = s < splits ? ex2(p[rr] - mx) : 0.f;
+    if (s < splits) sum += p[16 + rr] * w[s];
+  }
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;
+  for (int cp = tid % per_row; cp < kD / 2; cp += per_row) {
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s >= splits) break;
+      const float2 a = *reinterpret_cast<const float2*>(
+          part + (s * kGroups + grp) * kPartFloats + rr * kPartPitch + 2 * cp);
+      x += a.x * w[s];
+      y += a.y * w[s];
+    }
+    *reinterpret_cast<uint32_t*>(ob + (long long)r * so.l + 2 * cp) =
+        pack_bf16(x * inv, y * inv);
+  }
+}
+
+
+// shared memory of a launch: Q, and one stage of K and V, or two when the
+// longest block needs more than one round; after the rounds the stages
+// hold the splits' partials
+int smem_of(int Lk, int valid, int splits) {
+  const int keys = min(valid, Lk), round_keys = splits * kKeys;
+  const int stages = (keys + round_keys - 1) / round_keys > 1 ? 2 : 1;
+  const int stage_bytes = 2 * stage_keys_of(Lk, valid, splits) * kPitch * 2;
+  const int parts = splits > 1 ? kGroups * splits * kPartFloats * 4 : 0;
+  return kRows * kPitch * 2 + max(stages * stage_bytes, parts);
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Lq, int Lk, int valid, int splits, const Strides* s,
+           float scale, cudaStream_t stream) {
+  const int smem = smem_of(Lk, valid, splits);
+  // the shared memory the kernel may take, raised once per device
+  static std::atomic<bool> raised[hopper::kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= hopper::kMaxDevices
+      || !raised[dev].load(std::memory_order_acquire)) {
+    // the most any call takes: two stages of kMaxSplits tiles
+    e = cudaFuncSetAttribute(causal_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kRows * kPitch * 2
+                                 + 2 * 2 * kMaxSplits * kTileBytes);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < hopper::kMaxDevices)
+      raised[dev].store(true, std::memory_order_release);
+  }
+  causal_kernel<<<dim3((Lq + kRows - 1) / kRows, B * H),
+                  32 * kGroups * splits, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      H, Lq, Lk, valid, splits, s[0], s[1], s[2], s[3],
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace causal
+
 }  // namespace
 
 extern "C" {
 
 // Strides are in elements, [b, h, l] for each of q, k, v, o (the last dim
 // is contiguous); `causal` != 0 masks key k of query i unless
-// k <= i + (Lk - Lq).  Returns cudaGetLastError() after the launch.
+// k <= i + (Lk - Lq).  `rows` and `splits` are the wrapper's plan of a
+// causal call (`causal_plan`): 64 query rows a block, the keys of each
+// 16-row group over 1-4 warps; a call that is not causal has no plan (both
+// 0).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape or a plan the kernel does not take.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int Lq, int Lk, int D, int valid,
-                    int causal, const long long* strides, float scale,
-                    void* stream) {
-  if (causal)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, Lq, Lk, D, valid, causal,
-                                 strides, scale, stream);
-  if (D != kD || valid < 1 || valid > Lk) return (int)cudaErrorInvalidValue;
+                    int causal, int rows, int splits,
+                    const long long* strides, float scale, void* stream) {
+  if (D != kD || B < 1 || H < 1 || Lq < 1 || valid < 1 || valid > Lk
+      || (causal ? Lq > Lk || rows != causal::kRows || splits < 1
+                       || splits > causal::kMaxSplits
+                 : rows != 0 || splits != 0))
+    return (int)cudaErrorInvalidValue;
   Strides s[4];
   for (int i = 0; i < 4; ++i) s[i] = {strides[3 * i], strides[3 * i + 1],
                                       strides[3 * i + 2]};
-  return hopper::launch(q, k, v, o, B, H, Lq, Lk, valid, s, scale,
-                        reinterpret_cast<cudaStream_t>(stream));
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (causal)
+    return causal::launch(q, k, v, o, B, H, Lq, Lk, valid, splits, s, scale,
+                          st);
+  return hopper::launch(q, k, v, o, B, H, Lq, Lk, valid, s, scale, st);
 }
 
 // The bf16 non-causal entry's design as built, for its callers' reports:
@@ -949,8 +1330,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Lq, int Lk, int D, int valid,
                         int causal, const long long* strides, float scale,
                         void* stream) {
-  return launch<float>(q, k, v, o, B, H, Lq, Lk, D, valid, causal, strides,
-                       scale, stream);
+  return launch_f32(q, k, v, o, B, H, Lq, Lk, D, valid, causal, strides,
+                    scale, stream);
 }
 
 }  // extern "C"

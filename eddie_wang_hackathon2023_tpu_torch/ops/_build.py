@@ -35,8 +35,8 @@ SIGNATURES = {
                                   _P, _F, _P, _P, _P, _I, _P, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                            _F, _P],
+        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _F, _P],
         "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _F, _P],
         "flash_attention_hopper_config": [_P],

@@ -4,7 +4,9 @@ Counterpart of ``ops/flash_attention.py`` ``flash_mha`` in the JAX package.
 On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
 (head dim 64; bf16 operands, or fp32 operands at fp32 accuracy, as the
 SmoothQuant encoder gives them; bf16 non-causal calls take its Hopper
-design, wgmma products fed by TMA): every non-causal call, and causal calls
+design, wgmma products fed by TMA; bf16 causal calls take 64-row blocks
+whose keys are spread over warps by :func:`causal_plan`, which the wrapper
+passes to the kernel): every non-causal call, and causal calls
 of ``MIN_FLASH_LEN`` query rows or more, where the JAX package takes its
 TPU kernel.  Shorter causal calls, causal calls at other head dims and CPU
 tensors take the plain version, ``multihead_attention`` with a causal and
@@ -86,6 +88,28 @@ def hopper_config() -> dict:
     return dict(zip(("rows", "stages", "blocks_per_sm"), out))
 
 
+def causal_plan(lq: int, lk: int, valid: int, heads: int,
+                sms: int = 132) -> dict:
+    """The launch of the causal entry for a call of ``lq`` query rows over
+    ``lk`` keys, the first ``valid`` of them live, for ``heads`` (batch
+    times heads) on a card of ``sms`` SMs, which the wrapper passes to the
+    kernel (it refuses any other): ``rows``, 64 query rows a block (the
+    grid is ``row_blocks`` of them a head), and ``splits``, the warps over
+    which each 16-row group's keys are spread, 64 keys a warp's tile
+    (past ``splits`` tiles they come in rounds).  While the grid has fewer
+    blocks than the card has SMs, the keys go over up to 4 warps, so that
+    the longest block walks one tile; past that the grid fills the card,
+    and one warp a row group walks its keys alone."""
+    blocks = -(-lq // 64)
+    splits = 1 if heads * blocks >= sms else min(4, -(-min(valid, lk) // 64))
+    return dict(rows=64, splits=splits, row_blocks=blocks)
+
+
+def _sms(device) -> int:
+    """The SMs of the card that holds ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def kernel_takes(q, k, causal: bool = False) -> bool:
     """The built-in dispatch's static shape test: the kernel for every
     non-causal call on a CUDA tensor (it refuses head dims other than 64),
@@ -155,13 +179,16 @@ def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
         scale = 1.0 / (D ** 0.5)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     lib = _build.load("flash_attention")
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]
+    args += [B, H, Lq, Lk, D, valid, int(causal)]
+    if not f32:
+        # the bf16 entry takes the causal plan (none for a call that is not)
+        plan = causal_plan(Lq, Lk, valid, B * H, _sms(q.device)) \
+            if causal else None
+        args += [plan["rows"], plan["splits"]] if plan else [0, 0]
     entry = lib.flash_attention_f32 if f32 else lib.flash_attention
-    _build.check(entry(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H, Lq, Lk, D, valid, int(causal),
-        ctypes.cast(strides_arr, ctypes.c_void_p), float(scale), stream),
-        "flash_attention")
+    _build.check(entry(*args, ctypes.cast(strides_arr, ctypes.c_void_p),
+                       float(scale), stream), "flash_attention")
     launches["flash_attention" + ("_causal" if causal else "")
              + ("_f32" if f32 else "")] += 1
     return out

@@ -54,14 +54,35 @@
 //   Rows of q, k, v must start on 16 bytes (the wrapper checks the
 //   pointers and the strides and raises otherwise).
 //
-// The fp32 entry (`custom_fmha_f32`) keeps the first design: fp32 on the
-// CUDA cores (67 TFLOP/s), exact to 1e-5 of the fp32 plain version (a
-// split-bf16 tensor-core route, as kernel 2's fp32 entry takes it, holds
-// only 1e-4).  One 128-thread block per 128 query rows; the Q tile and the
-// K and V tiles of 64 keys in fp32 in shared memory, rows padded; the
-// threads form 16 x 8, each computing an 8 x 8 patch of the score tile
-// (rows ty + 16 i, keys tx + 8 j); P goes to shared memory, and each
-// thread accumulates 8 rows x 8 output columns of P*V in registers.
+// The fp32 entry (`custom_fmha_f32`, the SmoothQuant encoder's
+// [1, 20, 1536, 64], 32 calls an utterance on the custom path) is held to
+// 1e-5 of the largest output of the fp32 plain version.  The first design
+// ran both products in fp32 on the CUDA cores, each thread an 8 x 8 patch
+// from scalar shared loads: shared-load-bound, P through shared memory,
+// two blocks an SM.  Here the products run on the tensor cores in 3xTF32:
+//   * each fp32 operand is split into tf32 terms hi = rna(x) and
+//     lo = rna(x - hi) (to nearest, ties away, 10 mantissa bits: what
+//     cvt.rna.tf32.f32 gives, in two integer operations, for the tensor
+//     core would otherwise drop the low 13 bits), and every product is
+//     lo*hi + hi*lo + hi*hi on mma.sync.m16n8k8.tf32 (the dropped lo*lo is
+//     about 2^-22 of it): Q K^T and P V alike; the split-bf16 route of
+//     kernel 2's fp32 entry keeps about 16 bits and holds only 1e-4
+//     (tests/test_torch_fmha_split.py emulates both against fp64);
+//   * the fragments' k index i stands for d (or key) 2i below 4 and
+//     2(i - 4) + 1 past it, so S's accumulators are P's A fragment as they
+//     lie and K's B fragment is one 8-byte shared load;
+//   * the tensor core truncates each sum it accumulates: each tile's P V
+//     goes to fresh accumulators, added to O by rounded fp32 adds, so O's
+//     truncations do not pile up over the tiles (summed straight into O,
+//     the encoder's 24 tiles missed the 1e-5 gate on the card);
+//   * the bf16 entry's plan: 1-4 warps of 16 rows a block; K and V tiles
+//     of 64 keys in two stages by cp.async, 16 bytes a copy when every row
+//     of q, k and v starts on 16 bytes, else 4 (views on 4-byte rows are
+//     computed, not refused); Q in stage 1's space until it is split into
+//     registers; rows padded so that the 8-byte K loads and the 4-byte V
+//     loads are free of bank conflicts; two blocks an SM.
+//   The 4 warps of a block each split the K and V values they read: what
+//   is left beyond the tensor work (PERF.md).
 //
 // Inputs may be strided (the last dim contiguous), as the attention layer
 // hands them over: views into the fused QKV projection output.
@@ -399,204 +420,358 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// -- the fp32 entry: CUDA cores ----------------------------------------------
+// -- the fp32 entry: 3xTF32 on the tensor cores -----------------------------
 
-constexpr int kBM = 128;               // query rows per block
-constexpr int kThreads = 128;          // 16 rows x 8 columns of threads
-constexpr int kLd = kD + 4;            // padded row of the Q, K, V tiles
-constexpr int kLdP = kBN + 8;          // padded row of the P tile
-constexpr int kSmemBytes =
-    (kBM * kLd + 2 * kBN * kLd + kBM * kLdP) * (int)sizeof(float);
+constexpr int kKP = kD + 8;            // K row pitch in floats: 8-byte B loads
+constexpr int kVP = kD + 4;            // V row pitch: two key rows a B fragment
+constexpr int kQP = kD + 8;            // Q row pitch
+constexpr int kStageFloats = kBN * (kKP + kVP);
+constexpr int kSmemF32 = 2 * kStageFloats * (int)sizeof(float);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// rows [row0, row0 + rows) of x (row stride ld) -> tile[rows][kLd] in
-// fp32; rows at or past n are zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* x,
-                                          long long ld, int row0, int rows,
-                                          int n) {
-  for (int i = threadIdx.x; i < rows * kD; i += kThreads) {
-    const int r = i / kD, c = i % kD;
-    tile[r * kLd + c] =
-        row0 + r < n ? to_f32(x[(long long)(row0 + r) * ld + c]) : 0.f;
-  }
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero:
+// what cvt.rna.tf32.f32 gives for a finite x, in two integer operations
+// (the instruction compiles to a longer sequence that also handles NaN);
+// the tensor core would otherwise drop the low 13 bits
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fmha_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int H, int Lq,
-            int Lk, int kv_lim, int causal, Strides sq, Strides sk,
-            Strides sv, Strides so, float scale_log2) {
-  extern __shared__ __align__(16) float smem[];
-  float* const qs = smem;                   // [kBM][kLd]
-  float* const ks = qs + kBM * kLd;         // [kBN][kLd]
-  float* const vs = ks + kBN * kLd;         // [kBN][kLd]
-  float* const ps = vs + kBN * kLd;         // [kBM][kLdP]
+// x as hi + lo, both tf32: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b, m16n8k8, tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at fp32 accuracy from split operands, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, a_lo, bh0, bh1);
+  mma_tf32(c, a_hi, bl0, bl1);
+  mma_tf32(c, a_hi, bh0, bh1);
+}
+
+// 4 bytes from src to dst, or 4 zero bytes (nothing read) when !live
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(live ? 4 : 0));
+}
+
+// One block per 16 * kWarps query rows; warp w owns rows 16w..16w + 15.
+// m16n8k8's k index i of a fragment stands for d (or key) 2i for i < 4
+// and 2(i - 4) + 1 past it: then S's accumulators (rows g, g + 8; keys
+// 2t, 2t + 1) are P's A fragment as they lie, and K's B fragment is one
+// 8-byte shared load.  kVec16: every row of q, k and v starts on 16 bytes,
+// and the copies move 16 bytes; otherwise 4.
+template <int kWarps, bool kVec16>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+fmha_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int Lq, int kv_lim, int causal, Strides sq, Strides sk,
+                 Strides sv, Strides so, float scale_log2) {
+  constexpr int kBlock = kWarps * 32, kRows = 16 * kWarps;
+  constexpr int kE = kVec16 ? 4 : 1;   // floats a copy
+  constexpr int kC = kD / kE;          // copies a row
+  extern __shared__ __align__(128) float smem_f[];
+  // stage st: K [kBN][kKP], then V [kBN][kVP]; Q [kRows][kQP] lies in
+  // stage 1's K, read into registers before stage 1 is first filled
+  float* const qs = smem_f + kStageFloats;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int m_blk = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int row0 = m_blk * kBM;
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const int row0 = m_blk * kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile(qs, q + b * sq.b + h * sq.h, sq.l, row0, kBM, Lq);
-
-  // keys the block needs: the valid ones, causal up to its last row
-  const int n_keys = causal ? min(kv_lim, min(row0 + kBM, Lq)) : kv_lim;
+  auto copy = [&](float* dst, const float* src, bool live) {
+    if constexpr (kVec16)
+      cp_async16(dst, src, live);
+    else
+      cp_async4(dst, src, live);
+  };
+  // keys the block needs: the valid ones, causal up to its last live row
+  const int n_keys = causal ? min(kv_lim, min(row0 + kRows, Lq)) : kv_lim;
   const int n_tiles = (n_keys + kBN - 1) / kBN;
 
-  float acc[8][8], m[8], l[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;                        // this thread's columns only
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+  for (int i = tid; i < kRows * kC; i += kBlock) {
+    const int r = i / kC, c = (i % kC) * kE;
+    const bool live = row0 + r < Lq;
+    copy(qs + r * kQP + c, qb + (live ? (long long)(row0 + r) * sq.l : 0) + c,
+         live);
   }
+  // tile t's K and V into stage st: the keys up to the block's last needed
+  // one rounded up to 8 (those past it zero-filled); the 8-key steps past
+  // that are not touched
+  auto stage_tile = [&](int t, int st) {
+    const int n0 = t * kBN;
+    const int rows = min(kBN, (n_keys - n0 + 7) & ~7);
+    float* kd = smem_f + st * kStageFloats;
+    float* vd = kd + kBN * kKP;
+    for (int i = tid; i < rows * kC; i += kBlock) {
+      const int r = i / kC, c = (i % kC) * kE;
+      const bool live = n0 + r < n_keys;
+      const long long key = live ? n0 + r : 0;
+      copy(kd + r * kKP + c, kb + key * sk.l + c, live);
+      copy(vd + r * kVP + c, vb + key * sv.l + c, live);
+    }
+  };
+  if (n_tiles > 0) stage_tile(0, 0);
+  cp_async_commit();
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int n0 = kt * kBN;
-    __syncthreads();                   // the last tile's K, V, P consumed
-    load_tile(ks, kb, sk.l, n0, kBN, Lk);
-    load_tile(vs, vb, sv.l, n0, kBN, Lk);
-    __syncthreads();
+  const int wrow0 = row0 + warp * 16;
+  const int ra = wrow0 + g, rb = ra + 8;
+  const int lim_a = causal ? min(kv_lim, ra + 1) : kv_lim;
+  const int lim_b = causal ? min(kv_lim, rb + 1) : kv_lim;
 
-    // S = Q K^T: rows ty + 16 i, keys tx + 8 j
-    float s[8][8];
+  uint32_t qh[8][4], ql[8][4];         // Q's A fragments as tf32 terms
+  float acc[8][4];                     // O, 8 n-tiles of 8 d
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < kD; d += 4) {
-      float4 kf[8];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // one tile of 64 keys at n0 from the staged kt, vt; kMasked: some key of
+  // it is masked for some row of the warp, and only the first `steps`
+  // 8-key steps hold a key the block needs
+  auto tile = [&](const auto masked_t, int n0, int steps, const float* kt,
+                  const float* vt) {
+    constexpr bool kMasked = decltype(masked_t)::value;
+    // S = Q K^T: n-tiles of 8 keys; K's B fragment is keys g, d 2t and
+    // 2t + 1 of the step
+    float s[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        kf[j] = *reinterpret_cast<const float4*>(&ks[(tx + 8 * j) * kLd + d]);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qf =
-            *reinterpret_cast<const float4*>(&qs[(ty + 16 * i) * kLd + d]);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+    for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (!kMasked || nt < steps) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              kt + (nt * 8 + g) * kKP + ks * 8 + 2 * t4);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(x.x, bh0, bl0);
+          split_tf32(x.y, bh1, bl1);
+          mma_3xtf32(s[nt], qh[ks], ql[ks], bh0, bh1, bl0, bl1);
         }
       }
     }
-
-    // mask, scale into the log2 domain, online softmax per row; P to
-    // shared memory
+    // scale into the log2 domain; the masked scores are selected out
+    float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = row0 + ty + 16 * i;
-      const int lim = causal ? min(kv_lim, row + 1) : kv_lim;
-      float mx = kNeg;
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = n0 + tx + 8 * j < lim ? s[i][j] * scale_log2 : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = n0 + tx + 8 * j < lim ? exp2f(s[i][j] - mn) : 0.f;
-        ps[(ty + 16 * i) * kLdP + tx + 8 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + sum;
-      m[i] = mn;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();                   // P is in shared memory
-
-    // O += P V: rows ty + 16 i, output columns 4 tx + 32 c + e
-#pragma unroll 2
-    for (int n = 0; n < kBN; n += 4) {
-      float4 vf[4][2];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          vf[kk][c] = *reinterpret_cast<const float4*>(
-              &vs[(n + kk) * kLd + 4 * tx + 32 * c]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 pf =
-            *reinterpret_cast<const float4*>(&ps[(ty + 16 * i) * kLdP + n]);
-        const float p4[4] = {pf.x, pf.y, pf.z, pf.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            acc[i][4 * c + 0] = fmaf(p4[kk], vf[kk][c].x, acc[i][4 * c + 0]);
-            acc[i][4 * c + 1] = fmaf(p4[kk], vf[kk][c].y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = fmaf(p4[kk], vf[kk][c].z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = fmaf(p4[kk], vf[kk][c].w, acc[i][4 * c + 3]);
-          }
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] *= scale_log2;
+        s[j][e + 2] *= scale_log2;
+        if (kMasked) {
+          const int col = n0 + j * 8 + 2 * t4 + e;
+          if (col >= lim_a) s[j][e] = kNeg;
+          if (col >= lim_b) s[j][e + 2] = kNeg;
+        }
+        mx_a = fmaxf(mx_a, s[j][e]);
+        mx_b = fmaxf(mx_b, s[j][e + 2]);
       }
     }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    // O and l are rescaled only when a row's max moved
+    if (__any_sync(0xffffffffu, mx_a != m_a || mx_b != m_b)) {
+      const float alpha_a = ex2(m_a - mx_a), alpha_b = ex2(m_b - mx_b);
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] *= alpha_a;
+        acc[j][1] *= alpha_a;
+        acc[j][2] *= alpha_b;
+        acc[j][3] *= alpha_b;
+      }
+      m_a = mx_a;
+      m_b = mx_b;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pa = ex2(s[j][e] - m_a), pb = ex2(s[j][e + 2] - m_b);
+        if (kMasked) {
+          const int col = n0 + j * 8 + 2 * t4 + e;
+          if (col >= lim_a) pa = 0.f;
+          if (col >= lim_b) pb = 0.f;
+        }
+        s[j][e] = pa;
+        s[j][e + 2] = pb;
+        l_a += pa;
+        l_b += pb;
+      }
+    }
+    // O += P V.  P's A fragment of 8-key step kk is S's n-tile kk (keys
+    // 2t, 2t + 1 of rows g, g + 8); V's B fragment keys 2t and 2t + 1 of
+    // the step at d 8 dt + g; both split into tf32 terms.  The tensor core
+    // truncates each sum it accumulates, so the tile's products go to
+    // fresh accumulators, which join O by rounded adds: O's truncations do
+    // not pile up over the tiles.
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (!kMasked || kk < steps) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);
+        split_tf32(s[kk][2], ph[1], pl[1]);
+        split_tf32(s[kk][1], ph[2], pl[2]);
+        split_tf32(s[kk][3], ph[3], pl[3]);
+        const float* vr = vt + (kk * 8 + 2 * t4) * kVP + g;
+#pragma unroll
+        for (int dt = 0; dt < 8; ++dt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[dt * 8], bh0, bl0);
+          split_tf32(vr[kVP + dt * 8], bh1, bl1);
+          mma_3xtf32(part[dt], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();                // tile t (and Q): the only group left
+    __syncthreads();                   // landed for all; tile t - 1 consumed
+    if (t == 0) {
+      // Q's A fragments: rows g and g + 8, d 8 ks + 2t and 2t + 1
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const float2 x0 = *reinterpret_cast<const float2*>(
+            qs + (warp * 16 + g) * kQP + ks * 8 + 2 * t4);
+        const float2 x1 = *reinterpret_cast<const float2*>(
+            qs + (warp * 16 + g + 8) * kQP + ks * 8 + 2 * t4);
+        split_tf32(x0.x, qh[ks][0], ql[ks][0]);
+        split_tf32(x1.x, qh[ks][1], ql[ks][1]);
+        split_tf32(x0.y, qh[ks][2], ql[ks][2]);
+        split_tf32(x1.y, qh[ks][3], ql[ks][3]);
+      }
+      __syncthreads();                 // Q read by all: stage 1 is free
+    }
+    if (t + 1 < n_tiles) stage_tile(t + 1, (t + 1) % 2);
+    cp_async_commit();
+    const int n0 = t * kBN;
+    const float* kt = smem_f + (t % 2) * kStageFloats;
+    const float* vt = kt + kBN * kKP;
+    // 8-key steps of this tile that hold a key the block needs; a warp
+    // whose rows all lie above the tile (causal) skips it
+    const int steps = min(8, (n_keys - n0 + 7) >> 3);
+    if (causal && n0 > min(wrow0 + 15, Lq - 1)) continue;
+    if (n0 + kBN > kv_lim || (causal && n0 + kBN - 1 > wrow0))
+      tile(std::true_type{}, n0, steps, kt, vt);
+    else
+      tile(std::false_type{}, n0, steps, kt, vt);
   }
+  cp_async_wait<0>();                  // no copy outlives the block
 
-  T* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float d = l[i];
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float d_a = fmaxf(l_a, 1e-30f), d_b = fmaxf(l_b, 1e-30f);
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      d += __shfl_xor_sync(0xffffffffu, d, off);
-    d = fmaxf(d, 1e-30f);
-    const int row = row0 + ty + 16 * i;
-    if (row >= Lq) continue;
-    T* orow = ob + (long long)row * so.l;
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store(orow + 4 * tx + 32 * c + e, acc[i][4 * c + e] / d);
+  for (int j = 0; j < 8; ++j) {
+    const int d = j * 8 + 2 * t4;
+    if (ra < Lq) {
+      ob[(long long)ra * so.l + d] = acc[j][0] / d_a;
+      ob[(long long)ra * so.l + d + 1] = acc[j][1] / d_a;
+    }
+    if (rb < Lq) {
+      ob[(long long)rb * so.l + d] = acc[j][2] / d_b;
+      ob[(long long)rb * so.l + d + 1] = acc[j][3] / d_b;
+    }
   }
 }
 
+template <int kWarps, bool kVec16>
+int launch_tf32(const void* q, const void* k, const void* v, void* o,
+                int B, int H, int Lq, int kv_lim, int causal,
+                const Strides* s, float scale, int row_blocks,
+                cudaStream_t st) {
+  // the shared memory this instantiation takes, raised once
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fmha_tf32_kernel<kWarps, kVec16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF32);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  fmha_tf32_kernel<kWarps, kVec16><<<dim3(row_blocks, B * H), kWarps * 32,
+                                     kSmemF32, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, kv_lim,
+      causal != 0, s[0], s[1], s[2], s[3], scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <int kWarps>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Lq, int Lk, int kv_lim, int causal,
                const Strides* s, float scale, int row_blocks,
                cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      fmha_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(row_blocks, B * H);
-  fmha_kernel<float><<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk,
-      kv_lim, causal != 0, s[0], s[1], s[2], s[3],
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  // 16-byte copies when every row of q, k and v starts on 16 bytes (a
+  // stride of a dim of extent 1 is never stepped)
+  bool vec16 = true;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int n[3] = {B, H, i ? Lk : Lq};
+    const long long st_[3] = {s[i].b, s[i].h, s[i].l};
+    vec16 = vec16 && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+    for (int j = 0; j < 3; ++j) vec16 = vec16 && (n[j] == 1 || st_[j] % 4 == 0);
+  }
+  return vec16 ? launch_tf32<kWarps, true>(q, k, v, o, B, H, Lq, kv_lim,
+                                           causal, s, scale, row_blocks, st)
+               : launch_tf32<kWarps, false>(q, k, v, o, B, H, Lq, kv_lim,
+                                            causal, s, scale, row_blocks,
+                                            st);
 }
 
 int launch(bool f32, const void* q, const void* k, const void* v, void* o,
            int B, int H, int Lq, int Lk, int D, int kv_lim, int causal,
            int warps, int row_blocks, const long long* strides, float scale,
            void* stream) {
-  // the plan is the wrapper's (`fmha_plan`): the fp32 kernel takes
-  // kThreads / 32 warps and kBM rows a block, the bf16 one 16 rows a warp;
-  // every row block must hold a query row, and together they hold Lq
-  const int rows = f32 ? kBM : 16 * warps;
+  // the plan is the wrapper's (`fmha_plan`): 1-4 warps of 16 query rows a
+  // block, in both entries; every row block must hold a query row, and
+  // together they hold Lq
+  const int rows = 16 * warps;
   if (D != kD || B < 1 || H < 1 || Lq < 1 || Lk < 1 || B * H > 65535 ||
-      kv_lim < 0 || kv_lim > Lk ||
-      (f32 ? warps != kThreads / 32 : warps < 1 || warps > kMaxWarps) ||
+      kv_lim < 0 || kv_lim > Lk || warps < 1 || warps > kMaxWarps ||
       row_blocks < 1 || (long long)row_blocks * rows < Lq ||
       (row_blocks - 1) * rows >= Lq)
     return (int)cudaErrorInvalidValue;
@@ -604,8 +779,18 @@ int launch(bool f32, const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 4; ++i)
     s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (f32) return launch_f32(q, k, v, o, B, H, Lq, Lk, kv_lim, causal, s,
-                             scale, row_blocks, st);
+  if (f32) {
+    switch (warps) {
+      case 1: return launch_f32<1>(q, k, v, o, B, H, Lq, Lk, kv_lim, causal,
+                                   s, scale, row_blocks, st);
+      case 2: return launch_f32<2>(q, k, v, o, B, H, Lq, Lk, kv_lim, causal,
+                                   s, scale, row_blocks, st);
+      case 3: return launch_f32<3>(q, k, v, o, B, H, Lq, Lk, kv_lim, causal,
+                                   s, scale, row_blocks, st);
+      default: return launch_f32<4>(q, k, v, o, B, H, Lq, Lk, kv_lim,
+                                    causal, s, scale, row_blocks, st);
+    }
+  }
   switch (warps) {
     case 1: return launch_bf16<1>(q, k, v, o, B, H, Lq, kv_lim, causal, s,
                                   scale, row_blocks, st);
@@ -637,8 +822,9 @@ int custom_fmha(const void* q, const void* k, const void* v, void* o, int B,
                 row_blocks, strides, scale, stream);
 }
 
-// The same with fp32 q, k, v and o (any 4-byte-aligned rows); its plan is
-// 4 warps and ceil(Lq / 128) row blocks.
+// The same with fp32 q, k, v and o (any 4-byte-aligned rows), and the same
+// plan: `warps` (1-4) of 16 query rows a block, ceil(Lq / (16 warps)) row
+// blocks.
 int custom_fmha_f32(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int Lq, int Lk, int D, int kv_lim,
                     int causal, int warps, int row_blocks,

@@ -56,17 +56,16 @@ def _check_blocks(lq: int, lk: int, block_m: int, block_n: int) -> None:
 def fmha_plan(lq: int, dtype) -> dict:
     """The launch of ``fmha.cu`` for a call of ``lq`` query rows in
     ``dtype``, which the wrapper passes to the entry (the number of keys and
-    the causal mask change no choice): its variant ("fp32": the fp32
-    entry's kernel, 4 warps over 128 rows; "short": one row block of
-    ceil(lq / 16) warps, lq <= 64; "tiled": row blocks of 4 warps), query
-    rows and warps a block, and row blocks."""
-    if dtype == torch.float32:
-        return dict(variant="fp32", rows=128, warps=4,
-                    row_blocks=-(-lq // 128))
+    the causal mask change no choice): ceil(lq / 16) warps of 16 query rows
+    a block, at most 4, and the row blocks that cover ``lq``.  Its variant
+    names the kernel: "fp32" (the fp32 entry's, 3xTF32), else the bf16
+    entry's "short" (one row block, lq <= 64) or "tiled"."""
     warps = min(4, -(-lq // 16))
     blocks = -(-lq // (16 * warps))
-    return dict(variant="short" if blocks == 1 else "tiled", rows=16 * warps,
-                warps=warps, row_blocks=blocks)
+    variant = ("fp32" if dtype == torch.float32
+               else "short" if blocks == 1 else "tiled")
+    return dict(variant=variant, rows=16 * warps, warps=warps,
+                row_blocks=blocks)
 
 
 def plain_custom_flash_mha(q, k, v, *, causal: bool = False,

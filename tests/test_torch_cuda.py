@@ -25,10 +25,14 @@ scale rounded to bf16 before it scales the weight; the per-channel scale
 in fp32 on the accumulator) are pinned bit for bit with one-hot rows of
 x.
 The causal mode of the flash kernel is held to the same gates as its
-non-causal mode (its mask is ``causal_bias``'s, bottom-right).  The user
+non-causal mode (its mask is ``causal_bias``'s, bottom-right), its bf16
+entry under every plan it takes (keys over 1-4 warps) and refusing the
+plans it does not.  The user
 kernel of ``examples/custom_kernel_torch`` sums in fp32 whatever its
-operands' type (its bf16 entry on the tensor cores, P as two bf16 terms):
-held to 1e-5 of the fp32 plain version with fp32 operands and 1e-2 with
+operands' type (its bf16 entry on the tensor cores, P as two bf16 terms;
+its fp32 entry as three tf32 products, 3xTF32):
+held to 1e-5 of the fp32 plain version with fp32 operands (views whose
+rows start on 4 bytes included) and 1e-2 with
 bf16 ones (its bf16 output rounds once), in both variants of the bf16
 entry (short, tiled).  The grouped kernel is held to kernel 1's gates over
 rep 1-32, head dims 64, 80 and 128, and S in one round or split over a
@@ -1172,6 +1176,20 @@ def _qkv(g, dev, b, h, lq, lk, d, dtype):
     (2, 4, 200, 200, 150, torch.bfloat16),
     (1, 2, 130, 200, None, torch.bfloat16),      # bottom-right, Lq < Lk
     (8, 16, 128, 128, None, torch.bfloat16),
+    # the bf16 entry's plans: Lq at the 64-row blocks' and 64-key tiles'
+    # edges and the custom path's 227 (keys over 2-4 warps)
+    (1, 20, 128, 128, None, torch.bfloat16),
+    (1, 20, 129, 129, None, torch.bfloat16),
+    (1, 20, 255, 255, None, torch.bfloat16),
+    (1, 20, 256, 256, None, torch.bfloat16),
+    (1, 20, 227, 227, None, torch.bfloat16),
+    (1, 20, 200, 256, None, torch.bfloat16),     # Lq < Lk, split keys
+    (1, 20, 256, 256, 200, torch.bfloat16),      # valid < Lk, split keys
+    (8, 20, 256, 256, None, torch.bfloat16),     # B * H past the SMs
+    (1, 2, 600, 700, 650, torch.bfloat16),       # tiles in rounds
+    (1, 2, 1024, 1024, None, torch.bfloat16),
+    (1, 20, 227, 227, None, torch.float32),
+    (1, 20, 200, 256, 230, torch.float32),
 ])
 def test_flash_kernel_causal_matches_plain(dev, b, h, lq, lk, valid, dtype):
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1186,6 +1204,50 @@ def test_flash_kernel_causal_matches_plain(dev, b, h, lq, lk, valid, dtype):
                              scale=0.125, kv_valid_len=valid)
     torch.cuda.synchronize()
     assert _rel(out, ref) < (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_flash_kernel_causal_plans(dev, splits):
+    """Every plan the causal entry takes gives the same function: the keys
+    of [1,20,227,64] over 1-4 warps (one round, or rounds of fewer
+    tiles), within 1e-2 of the fp32 plain version."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = _qkv(g, dev, 1, 20, 227, 227, 64, torch.bfloat16)
+    out = torch.full((1, 20, 227, 64), float("nan"), device=dev,
+                     dtype=torch.bfloat16)
+    assert _flash_call(q, k, v, out, 227, 1, 64, splits) == 0
+    ref = fa.plain_flash_mha(q.float(), k.float(), v.float(), causal=True,
+                             scale=0.125)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 1e-2
+
+
+def test_flash_kernel_refuses_a_plan_it_does_not_take(dev):
+    """The causal plan is the wrapper's: the bf16 entry refuses rows other
+    than 64, splits outside 1-4, and any plan for a call that is not
+    causal, before any launch."""
+    q, k, v = (torch.zeros(1, 2, 128, 64, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = torch.zeros_like(q)
+    for causal, rows, splits in ((1, 32, 2), (1, 128, 2), (1, 64, 0),
+                                 (1, 64, 5), (0, 64, 2), (1, 0, 0)):
+        assert _flash_call(q, k, v, out, 128, causal, rows, splits) != 0
+    good = fa.causal_plan(128, 128, 128, 2)
+    assert _flash_call(q, k, v, out, 128, 1, good["rows"],
+                       good["splits"]) == 0
+    assert _flash_call(q, k, v, out, 128, 0, 0, 0) == 0
+
+
+def _flash_call(q, k, v, out, valid, causal, rows, splits):
+    """kernel 2's bf16 C entry with the given plan; its return code"""
+    B, H, Lq, D = q.shape
+    strides = (ctypes.c_longlong * 12)(
+        *[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    return _build.load("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Lq,
+        k.shape[2], D, valid, causal, rows, splits,
+        ctypes.cast(strides, ctypes.c_void_p), 0.125,
+        torch.cuda.current_stream().cuda_stream)
 
 
 def test_flash_dispatch_keeps_the_plain_version(dev):
@@ -1329,15 +1391,44 @@ def test_custom_fmha_refuses_a_plan_it_does_not_take(dev, dtype):
     entry = lib.custom_fmha_f32 if dtype == torch.float32 else lib.custom_fmha
     good = ck.fmha_plan(lq, dtype)
     bad = [(5, 1), (good["warps"], good["row_blocks"] - 1),
-           (good["warps"], good["row_blocks"] + 1)]
-    if dtype == torch.float32:
-        bad.append((2, good["row_blocks"]))
+           (good["warps"], good["row_blocks"] + 1),
+           (good["warps"] - 1, good["row_blocks"])]
     for warps, blocks in bad + [(good["warps"], good["row_blocks"])]:
         rc = entry(*[x.data_ptr() for x in t], 1, h, lq, lq, 64, lq, 0,
                    warps, blocks, ctypes.cast(strides, ctypes.c_void_p),
                    0.125, torch.cuda.current_stream().cuda_stream)
         assert (rc == 0) == ((warps, blocks) == (good["warps"],
                                                  good["row_blocks"]))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,causal,valid,offset", [
+    (1, 20, 256, 256, False, 200, 0),   # valid cuts a 64-key tile
+    (1, 20, 256, 256, True, None, 0),
+    (1, 20, 1, 1, False, None, 0),
+    (1, 20, 17, 17, True, None, 0),
+    (1, 3, 17, 100, True, 70, 0),       # top-left, Lq < Lk, short plan
+    (1, 20, 1536, 1536, False, 1500, 1),   # rows on 4 bytes, not 16
+    (2, 3, 256, 256, True, 180, 1),
+])
+def test_custom_fmha_f32_edges(dev, b, h, lq, lk, causal, valid, offset):
+    """The fp32 entry (3xTF32) at its edges, on views of a fused buffer,
+    ``offset`` floats into each row (offset 1: every row starts on 4 bytes
+    but not on 16, and the kernel copies 4 bytes at a time): one launch,
+    within 1e-5 of the largest output of the fp32 plain version."""
+    g = torch.Generator(device=dev).manual_seed(lq + lk + offset)
+    x = torch.randn(b, max(lq, lk), 3, h, 64 + offset, generator=g,
+                    device=dev)[..., offset:]
+    q, k, v = (x[:, :n, i].transpose(1, 2)
+               for i, n in enumerate((lq, lk, lk)))
+    assert offset == 0 or q.data_ptr() % 16
+    before = ck.launches["custom_fmha_f32"]
+    out = ck.custom_flash_mha(q, k, v, causal=causal, scale=0.125,
+                              kv_valid_len=valid)
+    assert ck.launches["custom_fmha_f32"] == before + 1
+    ref = ck.plain_custom_flash_mha(q, k, v, causal=causal, scale=0.125,
+                                    kv_valid_len=valid)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 1e-5
 
 
 def test_custom_fmha_refuses_what_it_does_not_take(dev):

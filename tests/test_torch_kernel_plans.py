@@ -6,8 +6,12 @@ the CPU (a few seconds).
   and row blocks that the wrapper passes to ``fmha.cu``'s entries, which
   refuse any other): the bf16 entry's short variant (one block of
   ceil(Lq / 16) warps, Lq <= 64) and tiled variant (row blocks of 64), the
-  fp32 entry's 128-row blocks, at the custom path's shapes and the
-  variants' edges;
+  fp32 entry's blocks of the same rows, at the custom path's shapes and
+  the variants' edges;
+* ``causal_plan`` (``ops/flash_attention.py``: the rows and key splits
+  that the wrapper passes to kernel 2's causal entry, which refuses any
+  other): 64 rows a block, the keys over up to 4 warps while the grid has
+  fewer blocks than SMs;
 * ``gqa_splits`` and ``gqa_slice_width`` (``ops/decode_attention.py``): the
   grouped kernel's cluster over S, one block up to 128 columns, at most 8,
   and the slice width, both passed to the kernel;
@@ -32,6 +36,7 @@ import pytest
 import torch
 
 from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as pdec
+from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
 
 jax.config.update("jax_default_device", jax.devices("cpu")[0])
 
@@ -67,12 +72,38 @@ def test_fmha_plan_bf16(lq, variant, rows, warps, blocks):
         variant=variant, rows=rows, warps=warps, row_blocks=blocks)
 
 
-@pytest.mark.parametrize("lq,blocks", [(1, 1), (3, 1), (128, 1), (129, 2),
-                                       (1536, 12)])
-def test_fmha_plan_fp32(lq, blocks):
-    """The fp32 entry keeps the first design: 128 rows a block."""
+@pytest.mark.parametrize("lq,rows,warps,blocks", [
+    (1, 16, 1, 1), (3, 16, 1, 1), (17, 32, 2, 1), (64, 64, 4, 1),
+    (128, 64, 4, 2), (129, 64, 4, 3),
+    (1536, 64, 4, 24),                 # the encoder's shape
+])
+def test_fmha_plan_fp32(lq, rows, warps, blocks):
+    """The fp32 entry (3xTF32) takes the bf16 entry's rows: ceil(Lq / 16)
+    warps of 16 rows a block, at most 4."""
     assert ck.fmha_plan(lq, torch.float32) == dict(
-        variant="fp32", rows=128, warps=4, row_blocks=blocks)
+        variant="fp32", rows=rows, warps=warps, row_blocks=blocks)
+
+
+@pytest.mark.parametrize("lq,lk,valid,heads,splits,blocks", [
+    (227, 227, 227, 20, 4, 4),         # the custom path's prompted prefill
+    (128, 128, 128, 20, 2, 2),
+    (129, 129, 129, 20, 3, 3),
+    (256, 256, 200, 20, 4, 4),         # valid < Lk
+    (200, 256, 256, 20, 4, 4),         # Lq < Lk
+    (128, 128, 50, 1, 1, 2),           # every key in one tile
+    (600, 700, 650, 2, 4, 10),         # tiles past 4 come in rounds
+    (1024, 1024, 1024, 20, 1, 16),     # the grid fills the card
+    (227, 227, 227, 100, 1, 4),        # beam 5
+    (256, 256, 256, 160, 1, 4),        # B * H past the SMs
+])
+def test_causal_plan(lq, lk, valid, heads, splits, blocks):
+    """Kernel 2's causal plan (``ops/flash_attention.causal_plan``): 64
+    rows a block; the keys of a 16-row group over ceil(keys / 64) warps, at
+    most 4, while the grid has fewer blocks than the 132 SMs, else one."""
+    assert fa.causal_plan(lq, lk, valid, heads) == dict(
+        rows=64, splits=splits, row_blocks=blocks)
+    assert fa.causal_plan(lq, lk, valid, heads, sms=10 ** 6)["splits"] == \
+        min(4, -(-min(valid, lk) // 64))
 
 
 @pytest.mark.parametrize("S,splits,width", [

@@ -7,7 +7,8 @@ on one NVIDIA GPU.
 Builds ``csrc/decode_attention.cu``, ``csrc/flash_attention.cu``,
 ``csrc/gqa_decode_attention.cu`` and ``examples/custom_kernel_torch/
 fmha.cu`` of OTHER into ``build/ab/`` (each with the ctypes signatures of
-OTHER's ``ops/_build.py``) and times, with CUDA events behind a spin as
+OTHER's ``ops/_build.py``, and launched with the plans of OTHER's
+``fmha_cuda.py`` and ``ops/flash_attention.py``) and times, with CUDA events behind a spin as
 ``chip_smoke.py`` does, their entries at the paths' shapes: the beam entry
 of kernel 1 (beam 5, 20 heads of 64, bf16 S 448 at sequence 44, 32 layers
 rotating), kernel 2's fp32 entry ([1,20,1536,64], valid 1500) and its
@@ -20,6 +21,7 @@ int8 and a bf16 cache.  Each is timed four times, OTHER, this, this,
 OTHER, so that a drift of the card shows.  Compare two versions only
 within one run.
 """
+import ast
 import ctypes
 import importlib.util
 import os
@@ -58,6 +60,23 @@ def signatures(root, name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.SIGNATURES[name]
+
+
+def plan_function(root, path, name):
+    """The function ``name`` of the file ``path`` of the checkout at
+    ``root`` (a plan: a pure function of its arguments and ``torch``),
+    taken from the file alone so that nothing of that module runs; None if
+    the checkout has no such function."""
+    import torch
+    with open(os.path.join(root, path)) as f:
+        tree = ast.parse(f.read())
+    defs = [n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name == name]
+    if not defs:
+        return None
+    scope = {"torch": torch}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), scope)
+    return scope[name]
 
 
 def libraries(torch_build, roots):
@@ -101,16 +120,21 @@ def main(argv=None):
     spec.loader.exec_module(smoke)
     from eddie_wang_hackathon2023_tpu_torch.ops import _build
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
-    spec = importlib.util.spec_from_file_location(
-        "fmha_cuda", os.path.join(HERE, "examples", "custom_kernel_torch",
-                                  "fmha_cuda.py"))
-    ck = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ck)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    libs = libraries(_build, {"other": argv[0], "this": HERE})
+    roots = {"other": argv[0], "this": HERE}
+    libs = libraries(_build, roots)
+    # each checkout's own plans: the user FMHA's, and kernel 2's causal one
+    # (None where the checkout has none)
+    fmha_plans = {who: plan_function(root, os.path.join(
+        "examples", "custom_kernel_torch", "fmha_cuda.py"), "fmha_plan")
+        for who, root in roots.items()}
+    causal_plans = {who: plan_function(root, os.path.join(
+        "eddie_wang_hackathon2023_tpu_torch", "ops", "flash_attention.py"),
+        "causal_plan") for who, root in roots.items()}
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
 
     def stream():
@@ -126,8 +150,8 @@ def main(argv=None):
     seq = torch.full((bw,), n, dtype=torch.int32, device=dev)
     ctx = torch.empty(bw, H * D, dtype=torch.bfloat16, device=dev)
 
-    def beam(lib, i):
-        return lib["decode_attention"].beam_decode_attention(
+    def beam(who, i):
+        return libs[who]["decode_attention"].beam_decode_attention(
             q.data_ptr(), cache.data_ptr(), 0, i % L, bw, H, D, S,
             seq.data_ptr(), None, None, D ** -0.5, fk.data_ptr(),
             fv.data_ptr(), ind.data_ptr(), bw, ctx.data_ptr(), stream())
@@ -142,14 +166,21 @@ def main(argv=None):
 
     def flash(entry, operands, lq, valid, causal, name="flash_attention"):
         (tq, tk, tv, to), strides = operands
-        plan = ck.fmha_plan(lq, tq.dtype)
 
-        def run(lib, i):
-            fn = getattr(lib[name], entry)
-            # the user FMHA takes the wrapper's plan after `causal` where
-            # the checkout's signature has it
-            extra = ([plan["warps"], plan["row_blocks"]]
-                     if len(fn.argtypes) == 16 else [])
+        def run(who, i):
+            fn = getattr(libs[who][name], entry)
+            # the checkout's own plan after `causal`, where its signature
+            # takes one: the user FMHA's warps and row blocks, kernel 2's
+            # bf16 entry the causal plan's rows and splits (0, 0 when not
+            # causal)
+            extra = []
+            if len(fn.argtypes) == 16 and name == "custom_fmha":
+                plan = fmha_plans[who](lq, tq.dtype)
+                extra = [plan["warps"], plan["row_blocks"]]
+            elif len(fn.argtypes) == 16:
+                plan = (causal_plans[who](lq, lq, valid, H, sms)
+                        if causal else None)
+                extra = [plan["rows"], plan["splits"]] if plan else [0, 0]
             return fn(tq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
                       to.data_ptr(), 1, H, lq, lq, D, valid, causal, *extra,
                       ctypes.cast(strides, ctypes.c_void_p), D ** -0.5,
@@ -179,8 +210,8 @@ def main(argv=None):
             f = [torch.randn(gb, 1, gd, 1, generator=g,
                              device=dev).bfloat16() for _ in range(2)]
 
-        def run(lib, i):
-            fn = lib["gqa_decode_attention"].gqa_decode_attention
+        def run(who, i):
+            fn = libs[who]["gqa_decode_attention"].gqa_decode_attention
             split = [da.gqa_splits(gs), da.gqa_slice_width(
                 gs, da.gqa_splits(gs))][:len(fn.argtypes) - 17]
             return fn(gq.data_ptr(), c.data_ptr(), int(int8), i % gl, gb, 1,
@@ -218,9 +249,9 @@ def main(argv=None):
     for what, fn in cases:
         times = []
         for who in ("other", "this", "this", "other"):
-            if fn(libs[who], 0) != 0:
+            if fn(who, 0) != 0:
                 raise RuntimeError(f"{what}: {who}'s launch failed")
-            ms, _ = smoke.time_ms(torch, lambda i, who=who: fn(libs[who], i))
+            ms, _ = smoke.time_ms(torch, lambda i, who=who: fn(who, i))
             times.append(f"{who} {ms * 1e3:.2f}")
         print(f"{what}: " + ", ".join(times) + " us")
     return 0

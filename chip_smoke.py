@@ -795,8 +795,8 @@ def random_blobs(torch, dev, gen, n_layer, d):
     """A seeded random int8 weight image for the megakernel at width d
     (ffn 4d), its scales set so that every GEMV output is of order one
     (uniform int8 has std 73.6)."""
-    from eddie_wang_hackathon2023_tpu_torch.ops.decoder_layer import \
-        MegakernelBlobs
+    from eddie_wang_hackathon2023_tpu_torch.ops.decoder_layer import (
+        MegakernelBlobs, megakernel_tiles)
     L, nf = n_layer, 4
     npan, nflat = 6 + 2 * nf, 3 + nf
 
@@ -813,10 +813,10 @@ def random_blobs(torch, dev, gen, n_layer, d):
     flat_scale[:, -1] /= 2.0                      # fc2 sums 4d rows
     ln = randn(L, 6, d) * 0.1
     ln[:, 0::2] += 1.0                            # LN weights near one
-    return MegakernelBlobs(
+    return megakernel_tiles(MegakernelBlobs(
         wblob, pair_scale, randn(L, 4, d // 128, 128) * 0.1, flat_scale,
         randn(L, nflat, d) * 0.1, ln, torch.ones(L, device=dev),
-        torch.ones(L, device=dev), None)
+        torch.ones(L, device=dev), None))
 
 
 def megakernel_phase(torch, results, gen):
@@ -838,7 +838,7 @@ def megakernel_phase(torch, results, gen):
     seq_host = seq.cpu()        # the plain version reads the length on the host
 
     def run(n_layer, plain=False):
-        b = mk.MegakernelBlobs(*(t[:n_layer] for t in blobs[:8]), None)
+        b = mk.blob_layers(blobs, 0, n_layer)
         if plain:
             return mk.plain_fused_decoder_stack(
                 x, b, self_c[:n_layer], seq_host, scale, cross[:n_layer],
@@ -866,7 +866,7 @@ def megakernel_phase(torch, results, gen):
     hid_box = [x]
 
     def plain_layer(i):
-        b = mk.MegakernelBlobs(*(t[i:i + 1] for t in blobs[:8]), None)
+        b = mk.blob_layers(blobs, i, i + 1)
         hid_box[0] = mk.plain_fused_decoder_stack(
             x if i == 0 else hid_box[0], b, self_c[i:i + 1], seq_host, scale,
             cross[i:i + 1], cscale[i:i + 1])[0]
@@ -1351,7 +1351,9 @@ def int4_phase(torch, results, gen):
     loads); K 384 in groups of 128 (the two nibbles of a byte in different
     groups); an fp32 x raises.  The two rounding rules are pinned bit for
     bit with one-hot rows of x (row m of the output is then the dequantised
-    weight row, no sum involved), with and without a split of K.  Each path
+    weight row, no sum involved), through the decode entry (8 rows; at
+    proj's shape K split over a cluster) and the prefill entry (the same 8
+    rows above 32 zero rows).  Each path
     shape is timed against its plain version and against ``F.linear`` on the
     weight dequantised beforehand, with the dequantisation's own time (what
     a path that dequantises per call pays)."""
@@ -1416,7 +1418,7 @@ def int4_phase(torch, results, gen):
 
     # one-hot pins: x row m is e_{k_m}, so output row m is row k_m of the
     # dequantised weight exactly.  Rows in both halves of K (both nibbles),
-    # three groups, and proj's shape, whose K is split over blocks
+    # three groups, and proj's shape, whose K is split over a cluster
     for k, n, rows in ((384, 256, [0, 150, 191, 192, 342, 383, 64, 300]),
                        (8192, 2048, [0, 4095, 4096, 8191, 1000, 5000, 2047,
                                      6143])):
@@ -1428,21 +1430,30 @@ def int4_phase(torch, results, gen):
         q = unpack_int4(qw)[rows_t].float()                    # [8, N]
         s_g = sc[rows_t // INT4_GROUP]                         # [8, N]
         grouped = (q * s_g.bfloat16().float()).bfloat16()
-        out = iq.quant_matmul_int4(x, qw, sc)
-        check(torch.equal(out, grouped)
-              and not torch.equal(grouped, (q * s_g).bfloat16()),
-              f"int4 matmul, K {k} N {n}, groups of {INT4_GROUP}, one-hot x: "
-              "each weight is bf16(q * bf16(scale)), bit for bit (a scale "
-              "not rounded first gives other values)")
         s_c = sc[0]                                            # [N]
         channel = (q * s_c).bfloat16()
-        out = iq.quant_matmul_int4(x, qw, s_c)
-        check(torch.equal(out, channel)
-              and not torch.equal(channel, (q * s_c.bfloat16().float())
-                                  .bfloat16()),
-              f"int4 matmul, K {k} N {n}, per channel, one-hot x: bf16(q * "
-              "scale) with the fp32 scale on the accumulator, bit for bit")
+        # the decode entry (8 rows), then the prefill entry (40 rows: the
+        # 8 one-hot rows after 32 zero rows)
+        for xe, cut in ((x, slice(0, 8)),
+                        (torch.cat([torch.zeros_like(x).repeat(4, 1), x]),
+                         slice(32, 40))):
+            entry = "decode" if xe.shape[0] <= iq.DECODE_MAX_M else "prefill"
+            out = iq.quant_matmul_int4(xe, qw, sc)[cut]
+            check(torch.equal(out, grouped)
+                  and not torch.equal(grouped, (q * s_g).bfloat16()),
+                  f"int4 matmul ({entry} entry), K {k} N {n}, groups of "
+                  f"{INT4_GROUP}, one-hot x: each weight is bf16(q * "
+                  "bf16(scale)), bit for bit (a scale not rounded first "
+                  "gives other values)")
+            out = iq.quant_matmul_int4(xe, qw, s_c)[cut]
+            check(torch.equal(out, channel)
+                  and not torch.equal(channel, (q * s_c.bfloat16().float())
+                                      .bfloat16()),
+                  f"int4 matmul ({entry} entry), K {k} N {n}, per channel, "
+                  "one-hot x: bf16(q * scale) with the fp32 scale on the "
+                  "accumulator, bit for bit")
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # timings at the path's shapes, rotating over copies of the weights that
     # together exceed the 50 MB L2, as each layer's weights are read once a
     # step
@@ -1483,8 +1494,9 @@ def int4_phase(torch, results, gen):
                 library_int4pack_rel_err=p4_err, library_int4pack=p4_note,
                 bound_ms=b_ms, bound_by=b_by,
                 bytes=n_bytes, host_call_ms=wall,
-                splits=iq.split_plan(m, n, k, torch.cuda.get_device_properties(
-                    dev).multi_processor_count)[1])
+                plan=(iq.decode_plan(m, n, k, sms) if m <= iq.DECODE_MAX_M
+                      else dict(zip(("splits", "chunks_per_split"),
+                                    iq.split_plan(m, n, k, sms)))))
             print(f"int4 matmul {name} M {m} (K {k}, N {n}): {ms * 1e3:.2f} "
                   f"us (bound {b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f}"
                   f" MB); plain {plain_ms * 1e3:.2f} us; F.linear on the "
@@ -1819,9 +1831,9 @@ def probes_phase(torch, results, gen):
     PyTorch call computes these functions); 9a's loop is
     ``torch_baseline_flat``, and it also reports one ``torch.matmul`` of x
     against the blob dequantised to bf16 beforehand, times the scale, and
-    its own kernel at the megakernel's GEMV item (32 columns by a quarter
-    of K), on a block per item and on the megakernel's grid of one block an
-    SM.  Bounds: the bytes at 3.35 TB/s (2 flops a weight byte are far
+    its own kernel at the megakernel's first GEMV item (32 columns by a
+    quarter of K, before its whole-K items), on a block per item and on the
+    megakernel's grid of one block an SM.  Bounds: the bytes at 3.35 TB/s (2 flops a weight byte are far
     below)."""
     mp = probe_kernels()
     dev = torch.device("cuda")
@@ -1882,7 +1894,7 @@ def probes_phase(torch, results, gen):
             max_abs_err=max(m["max_abs_err"] for m in modes.values()),
             times_are=f"the {top} mode", modes=modes)
 
-    # 9a: checked against the loop too; the megakernel's item and grid
+    # 9a: checked against the loop too; the megakernel's first item and grid
     flat_bytes = P * K * N + P * N * 4 + K * 2 + P * N * 2
     check(mp.within(mp.probe_flat(blob, x, scales),
                     mp.torch_baseline_flat(blob, x, scales)),
@@ -1904,7 +1916,8 @@ def probes_phase(torch, results, gen):
             ksplit=mp.MEGAKERNEL_ITEM[1], blocks=blocks))
     print(f"probe_flat_gemv: torch.matmul on the dequantised blob "
           f"{flat['library_dequantised_matmul_ms'] * 1e3:.2f} us; the "
-          f"megakernel's item {flat['megakernel_item_ms'] * 1e3:.2f} us, on "
+          f"megakernel's first item {flat['megakernel_item_ms'] * 1e3:.2f} "
+          "us, on "
           f"its grid of {sms} blocks {flat['megakernel_grid_ms'] * 1e3:.2f} "
           "us")
     row("probe_flat_gemv", {"flat": flat}, "flat")

@@ -4,32 +4,67 @@
 // Replaces the TPU kernel eddie_wang_hackathon2023_tpu/ops/
 // pallas_decoder_layer.py:306 `_kernel` (entry `fused_decoder_stack`,
 // :865) in the modes of the Whisper int8 recipe: LayerNorm, the q/k/v,
-// out, cross-q, cross-out, fc1 and fc2 GEMVs from the packed int8 K-major
-// [d, d] panels (per-channel scales), self-attention over the bf16
-// seq-minor cache with the fresh token's K/V in fp32, cross-attention over
-// the int8 (or bf16) cross cache with per-layer scales, tanh GELU and the
-// bf16 residual stream.  It returns the hidden state before the final LN
-// and every layer's fresh K/V; it does not write the cache.
+// out, cross-q, cross-out, fc1 and fc2 GEMVs (int8 weights, per-channel
+// scales), self-attention over the bf16 seq-minor cache with the fresh
+// token's K/V in fp32, cross-attention over the int8 (or bf16) cross cache
+// with per-layer scales, tanh GELU and the bf16 residual stream.  It
+// returns the hidden state before the final LN and every layer's fresh
+// K/V; it does not write the cache.
 //
-// Bound: bytes.  A step reads the whole weight image once (14 panels of
-// d*d int8 per layer, 734 MB at large-v2) plus the cross cache (123 MB)
-// and does about 2 flops per weight byte.  The TPU kernel walked a
-// (layer, stage) grid in order with the hidden state in VMEM and a ring of
-// panel DMAs.  On Hopper the blocks of a grid run in parallel, so here:
+// Bound: bytes.  A step reads the whole weight image once (14 d*d int8 a
+// layer, 734 MB at large-v2) plus the cross cache (123 MB) and does about
+// 2 flops per weight byte.  The TPU kernel walked a (layer, stage) grid in
+// order with the hidden state in VMEM and a ring of panel DMAs.  On Hopper
+// the blocks of a grid run in parallel, so here:
 //   * one persistent grid, one block per SM, all co-resident (cooperative
-//     launch); a grid-wide barrier (a generation counter in device memory,
-//     with device-scope fences) separates dependent stages, 8 per layer;
-//   * each GEMV stage splits its panels into items of 32 output columns by
-//     a quarter of K; a block reads its item's rows with 16-byte loads,
-//     accumulates in fp32 and writes the partial sums; the stage after the
-//     barrier adds the quarters in order and applies scale and bias;
+//     launch); a grid barrier separates dependent stages, 8 a layer: one
+//     `red.release.gpu` add a block on a counter that only grows, then
+//     `ld.acquire.gpu` polls until it reaches the grid times the barrier's
+//     index in the launch (no reset, no second atomic);
+//   * the weights are repacked once, at blob build (`megakernel_tiles`),
+//     into item-contiguous tiles: a GEMV stage's output columns are cut
+//     into `items` items of `c` columns by ALL of K, each item c rows of K
+//     contiguous int8 (the stage's weight transposed), one item a block.
+//     The plan (the wrapper's `megakernel_plan`: c and items per stage)
+//     makes each stage about one wave over the grid; the C entry checks it.
+//     The sums are whole: the stage after a GEMV reads one finished fp32
+//     value an output;
+//   * the weights do not depend on the activations, so each block streams
+//     its own items of every stage, layer after layer, into a ring in
+//     shared memory with `cp.async.bulk` (the TMA's 1D copy, completion
+//     counted in bytes on one of 16 mbarriers), as far ahead as the ring
+//     holds (about a layer): the copies run on through barriers and the
+//     attention stages, and a block waits on an mbarrier only when it
+//     needs the bytes;
+//   * an item's GEMV: thread t takes 16-byte vectors t, t + 256, ... of the
+//     item (column-major), each times the input row's 16 floats into a
+//     fresh fp32 sum (int8 -> float by a byte permute into the mantissa of
+//     2^23 and one subtraction: exact), written to shared memory; a warp
+//     then adds a column's vectors in order.  The input row is kept with 4
+//     floats of padding every 32, so the 16-float reads of 8 threads fall on
+//     distinct banks;
+//   * the block that owns an item also applies its columns' epilogue (scale
+//     and bias; GELU after fc1; the fresh K/V out after q/k/v) and writes
+//     finished values: a stage after a GEMV reads one value an output and
+//     no parameters;
 //   * every block keeps the residual row in shared memory and recomputes
 //     the LayerNorm and residual updates itself (identical arithmetic in
 //     every block), which saves a barrier per update;
+//   * a stage is latency-bound (a dependent round trip to L2 or memory
+//     costs about a microsecond), so each stage requests everything it
+//     reads in one round, before it uses any of it: the residual's update,
+//     the LayerNorm's parameters and the epilogue's scale and bias
+//     together; an attention item's q and its share of the keys together
+//     (then its share of the values); a head's slices together;
 //   * attention splits heads and 256-column slices of the cache over the
-//     blocks (one column per thread); each item writes its max, sum and
-//     P*V partial, and the stage after the barrier combines the slices and
-//     adds the fresh token's column;
+//     blocks, read in 4-byte words of 2 (bf16) or 4 (int8) columns; each
+//     item writes its max, sum and P*V partial, and the last of a head's
+//     items to finish (an arrival counter a head) combines the slices,
+//     adds the fresh token's column and writes the head's context, so the
+//     stage after the barrier reads one value an output;
+//   * before a barrier, a block asks L2 to prefetch what the stages after
+//     it read from memory and not from another block: its next attention
+//     item's K and V rows, the next LayerNorm's and epilogue's parameters;
 //   * data written before a barrier is read after it with L1-bypassing
 //     loads (__ldcg), so no block reads a stale line.
 // Rounding points follow the TPU kernel: GEMV sums in fp32, scaled in
@@ -37,18 +72,20 @@
 // :765-766); LayerNorm in fp32, rounded (:416-427); the residual in bf16;
 // P rounded to bf16 before P*V (:631-634); the cross context times
 // kscale / denominator at the end (:641-647); the fresh self score and
-// value in fp32 (:700-746); fc2's panels summed in fp32 before the scale
-// (:797-809).  Making it fast (TMA weight streaming, fewer barriers) is
-// later work.
+// value in fp32 (:700-746); fc2's four panels summed in fp32 before the
+// scale (:797-809: an fc2 item spans all of its K).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// the GEMV stages of a layer, in order
+enum Stage { kQkv = 0, kDense, kCrossQ, kCrossDense, kFc1, kFc2, kStages };
 
 // the kernel's operands, filled by the Python wrapper (a ctypes Structure
 // of the same layout) and passed by value
 struct MegaArgs {
   const void* x;               // [d] bf16, embedded token + position
-  const int8_t* wblob;         // [L, npan, d, d] int8 K-major panels
+  const int8_t* tiles;         // [L, layer_bytes] item-contiguous weights
   const float* pair_scale;     // [L, 4, d]: q, k, v, cross-q
   const float* pair_bias;
   const float* flat_scale;     // [L, nflat, d]: dense, cross-dense, fc1.., fc2
@@ -60,14 +97,22 @@ struct MegaArgs {
   const int* seq_len;          // [1], including the fresh token
   void* hid;                   // [d] bf16 out
   void* fresh;                 // [L, 2, H, D] bf16 out
-  float* part_a;               // GEMV partials, ping ...
-  float* part_b;               // ... and pong
+  float* act_a;                // finished GEMV outputs: q, k, v / cross-q /
+                               // GELU(fc1)
+  float* act_b;                // ... dense / cross-dense / fc2
   float* att;                  // attention partials [H, splits, kAtt]
-  unsigned int* barrier;       // [2] zeros: arrivals, generation
-  int n_layer, d, n_head, s_self, s_cross, npan, nflat, nf;
-  int p_qkv, p_dense, p_crossq, p_crossdense, p_fc1, p_fc2;
+  float* ctx;                  // [d] the attention stage's context row
+  unsigned int* barrier;       // [1] zero: arrivals, only growing
+  unsigned int* heads;         // [2, L, H] zeros: a head's slices done
+  long long layer_bytes;       // bytes of one layer's tiles
+  int n_layer, d, n_head, s_self, s_cross, nflat, nf;
   int f_dense, f_crossdense, f_fc1, f_fc2;
   int cross_int8;
+  int ring_bytes;              // the plan's cap on the ring (0: none); the
+                               // kernel gets the ring's size
+  // the plan, per GEMV stage: columns of an item, items, rows of K, and
+  // the stage's byte offset in a layer's tiles
+  int item_c[kStages], items[kStages], item_k[kStages], tile_off[kStages];
   float scale, eps;
 };
 
@@ -76,14 +121,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kD = 64;           // head dim
-constexpr int kTile = 32;        // output columns of one GEMV item
-constexpr int kKSplit = 4;       // K quarters of one GEMV panel
 constexpr int kSplit = kThreads; // cache columns of one attention item
 constexpr int kMaxHeads = 32;
 constexpr int kMaxSplits = 8;
 constexpr int kAtt = kD + 2;     // one attention partial: max, sum, P*V
+constexpr int kSlots = 16;       // mbarriers of the weight ring
+constexpr int kLayerStages = 8;  // a layer's stages, each ending in a barrier
+constexpr int kPer = 5;          // a d-row's elements a thread holds
+constexpr int kPerFc = 20;       // fc2's input row's (nf * d)
+constexpr int kColsWarp = 6;     // an item's columns a warp sums
 constexpr float kNeg = -1e30f;
-
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -119,35 +166,26 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
-// Grid-wide barrier of a co-resident grid.  The generation is read before
-// arriving: it can only move once every block, this one included, arrived.
-__device__ void grid_sync(unsigned int* bar) {
+// Grid-wide barrier of a co-resident grid: every block adds one to the
+// counter (release: its writes before it), then polls (acquire) until the
+// counter reaches gridDim.x times the barriers passed so far.
+__device__ void grid_sync(unsigned int* bar, unsigned int& gen) {
   __syncthreads();
+  gen += gridDim.x;
   if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();                   // this block's writes, then arrive
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar)
+                 : "memory");
+    unsigned int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v) : "l"(bar) : "memory");
+    } while (v < gen);
   }
   __syncthreads();
 }
 
-// sum over the K quarters of output n of panel slot `slot`
-__device__ __forceinline__ float part_sum(const float* part, int slot, int n,
-                                          int d) {
-  float s = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kKSplit; ++ks)
-    s += __ldcg(part + ((size_t)slot * kKSplit + ks) * d + n);
-  return s;
-}
+// the input row's float k sits at vpos(k): 4 floats of padding every 32
+__device__ __forceinline__ int vpos(int k) { return k + ((k >> 5) << 2); }
 
 // fp32 sum * fp32 scale, rounded, plus the bias rounded (bf16 arithmetic)
 __device__ __forceinline__ float affine(float acc, float s, float b) {
@@ -159,108 +197,414 @@ __device__ __forceinline__ float gelu_tanh(float x) {
          (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
-// out = bf16(LayerNorm(xs) * w + b), statistics in fp32
-__device__ void layer_norm(const float* xs, float* out, const float* w,
-                           const float* b, int d, float eps, float* red) {
+// The residual update and the LayerNorm: xs[i] = bf16(xs[i] + delta[i])
+// (delta: a GEMV stage's finished output, or null), then vin = bf16(
+// LayerNorm(xs) * w + b) at vpos, statistics in fp32.  The update and the
+// parameters are requested in one round; thread t holds i = t + 256 k.
+__device__ void residual_ln(const float* delta, const float* w,
+                            const float* b, float* xs, float* vin, int d,
+                            float eps, float* red) {
+  const int tid = threadIdx.x;
+  float dv[kPer], wv[kPer], bv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < d) {
+      dv[k] = delta ? __ldcg(delta + i) : 0.f;
+      wv[k] = __ldg(w + i);
+      bv[k] = __ldg(b + i);
+    }
+  }
   float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) s += xs[i];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < d) {
+      if (delta) xs[i] = bf16r(xs[i] + dv[k]);
+      s += xs[i];
+    }
+  }
   const float mean = block_reduce<false>(s, red) / d;
   float v = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float c = xs[i] - mean;
-    v += c * c;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < d) {
+      const float c = xs[i] - mean;
+      v += c * c;
+    }
   }
   const float r = rsqrtf(block_reduce<false>(v, red) / d + eps);
-  for (int i = threadIdx.x; i < d; i += kThreads)
-    out[i] = bf16r((xs[i] - mean) * r * w[i] + b[i]);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < d) vin[vpos(i)] = bf16r((xs[i] - mean) * r * wv[k] + bv[k]);
+  }
   __syncthreads();
 }
 
-// out[ct*32 + j] = sum_{k in [k0, k1)} vin[k] * W[k, ct*32 + j]: 128 row
-// groups x 2 column halves of 16 bytes each
-__device__ void gemv_tile(const int8_t* __restrict__ W, const float* vin,
-                          int d, int ct, int k0, int k1, float* out,
-                          float* red) {
+// -- the weight ring --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Each block streams its items of every GEMV stage, in (layer, stage)
+// order, into a ring of `bytes` bytes.  Load i uses mbarrier i % kSlots,
+// whose phase (i / kSlots) & 1 completes when its bytes have landed.  Every
+// thread tracks the consumer's side identically; thread 0 also issues.
+struct Ring {
+  int8_t* buf;
+  uint64_t* bars;
+  uint32_t bytes;
+  uint32_t head, tail;         // bytes issued, bytes released (monotonic)
+  int next, done;              // loads issued, loads released
+  int total;                   // loads in the launch
+};
+
+__device__ __forceinline__ int load_bytes(const MegaArgs& a, int g) {
+  return blockIdx.x < a.items[g] ? a.item_c[g] * a.item_k[g] : 0;
+}
+
+// thread 0: issue every load that fits (the ring's bytes and slots)
+__device__ void ring_pump(const MegaArgs& a, Ring& r) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  while (r.next < r.total && r.next - r.done < kSlots) {
+    const int l = r.next / kStages, g = r.next % kStages;
+    const uint32_t sz = load_bytes(a, g);
+    if (r.head + sz - r.tail > r.bytes) break;
+    const uint32_t bar = smem_u32(&r.bars[r.next % kSlots]);
+    if (sz == 0) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                   : "memory");
+    } else {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar), "r"(sz) : "memory");
+      const int8_t* src = a.tiles + (size_t)l * a.layer_bytes +
+                          a.tile_off[g] + (size_t)blockIdx.x * sz;
+      const uint32_t pos = r.head % r.bytes;
+      const uint32_t first = min(sz, r.bytes - pos);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf + pos)),
+          "l"(src), "r"(first), "r"(bar) : "memory");
+      if (first < sz)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf)),
+            "l"(src + first), "r"(sz - first), "r"(bar) : "memory");
+    }
+    r.head += sz;
+    ++r.next;
+  }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// every thread: wait for the next load's bytes; returns its ring offset
+__device__ __forceinline__ uint32_t ring_wait(Ring& r, uint32_t sz) {
+  if (sz) mbar_wait(&r.bars[r.done % kSlots], (r.done / kSlots) & 1);
+  return r.tail % r.bytes;
+}
+
+// every thread, after the block is done with the load: release its bytes;
+// thread 0 refills the ring
+__device__ __forceinline__ void ring_release(const MegaArgs& a, Ring& r,
+                                             uint32_t sz) {
+  r.tail += sz;
+  ++r.done;
+  if (threadIdx.x == 0) ring_pump(a, r);
+}
+
+// -- the GEMV ---------------------------------------------------------------
+
+// byte i of v as an exact float: its sign bit flipped gives b + 128, which
+// the permute puts under the exponent of 2^23 (0x4B000000 | (b + 128))
+__device__ __forceinline__ float int8_at(uint32_t flipped, int i) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 + i)) -
+         8388736.f;
+}
+
+// the epilogue's parameters of stage g in layer l: column n's scale is
+// sc[n], its bias bi[n]
+__device__ __forceinline__ void stage_params(const MegaArgs& a, int l,
+                                             int g, const float*& sc,
+                                             const float*& bi) {
+  const size_t pair = (size_t)l * 4 * a.d;
+  const size_t flat = (size_t)l * a.nflat * a.d;
+  switch (g) {
+    case kQkv: sc = a.pair_scale + pair; bi = a.pair_bias + pair; break;
+    case kCrossQ:
+      sc = a.pair_scale + pair + 3 * a.d;
+      bi = a.pair_bias + pair + 3 * a.d;
+      break;
+    default: {
+      const int f = g == kDense ? a.f_dense : g == kCrossDense
+                        ? a.f_crossdense : g == kFc1 ? a.f_fc1 : a.f_fc2;
+      sc = a.flat_scale + flat + (size_t)f * a.d;
+      bi = a.flat_bias + flat + (size_t)f * a.d;
+    }
+  }
+}
+
+// the scale and bias of the columns lane 0 of a warp finishes: j = warp +
+// 8 i of the block's item, requested at the stage's start
+struct Epi {
+  float s[kColsWarp], b[kColsWarp];
+};
+
+__device__ __forceinline__ void epi_load(const MegaArgs& a, int l, int g,
+                                         int n_out, Epi& e) {
+  const int warp = threadIdx.x >> 5, c = a.item_c[g];
+  const int col0 = blockIdx.x * c;
+  const float *sc, *bi;
+  stage_params(a, l, g, sc, bi);
+  if ((threadIdx.x & 31) == 0 && (int)blockIdx.x < a.items[g]) {
+#pragma unroll
+    for (int i = 0; i < kColsWarp; ++i) {
+      const int n = col0 + warp + kWarps * i;
+      if (warp + kWarps * i < c && n < n_out) {
+        e.s[i] = __ldg(sc + n);
+        e.b[i] = __ldg(bi + n);
+      }
+    }
+  }
+}
+
+// The block's item of GEMV stage g in layer l: sum_k vin[k] W[k, n] for
+// the item's c columns n (those below n_out), the item's bytes at ring
+// offset `off` (c columns of K contiguous int8, wrapping at the ring's
+// end; `part` holds a vector's sum each), then the epilogue: out[n] =
+// affine(sum, scale, bias), after fc1 its GELU, all rounded to bf16; after
+// q/k/v the fresh K and V also to `fresh`.
+__device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
+                          uint32_t off, const float* vin, float* part,
+                          float* out, int n_out, const Epi& e) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kg = tid >> 1, n0 = ct * kTile + (tid & 1) * 16;
-  float acc[16];
+  const int c = a.item_c[g], K = a.item_k[g], vk = K / 16;
+  const int col0 = blockIdx.x * c;
+  const int nv = c * vk;
+  // v: the vector's place in its column (f % vk, kept by steps)
+  const int v_step = kThreads % vk;
+  int v = tid % vk;
+  // not unrolled: an unrolled loop's registers spill elsewhere in the
+  // kernel, which costs more than the loop gains
+#pragma unroll 1
+  for (int f = tid; f < nv; f += kThreads) {
+    uint32_t pos = off + 16u * f;
+    if (pos >= r.bytes) pos -= r.bytes;
+    const uint4 w = *reinterpret_cast<const uint4*>(r.buf + pos);
+    const float4* xv = reinterpret_cast<const float4*>(vin + vpos(16 * v));
+    v += v_step;
+    if (v >= vk) v -= vk;
+    const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                               w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+    // four chains of four products, then their sum: a short dependency
+    float sq[4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int k = k0 + kg; k < k1; k += kThreads / 2) {
-    const int4 w = __ldg(reinterpret_cast<const int4*>(W + (size_t)k * d + n0));
-    const int8_t* wb = reinterpret_cast<const int8_t*>(&w);
-    const float xv = vin[k];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] += xv * (float)wb[i];
-  }
-  // the 16 row groups of a warp that share a column half
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-#pragma unroll
-    for (int o = 2; o < 32; o <<= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-  }
-  if (lane < 2) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) red[warp * kTile + lane * 16 + i] = acc[i];
+    for (int q = 0; q < 4; ++q) {
+      const float4 x = xv[q];
+      float t = x.x * int8_at(words[q], 0);
+      t = fmaf(x.y, int8_at(words[q], 1), t);
+      t = fmaf(x.z, int8_at(words[q], 2), t);
+      sq[q] = fmaf(x.w, int8_at(words[q], 3), t);
+    }
+    part[f] = (sq[0] + sq[1]) + (sq[2] + sq[3]);
   }
   __syncthreads();
-  if (tid < kTile) {
-    float s = 0.f;
+  __nv_bfloat16* fresh = static_cast<__nv_bfloat16*>(a.fresh);
+  // a warp's columns side by side, so that their chains interleave
+  float cs[kColsWarp];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * kTile + tid];
-    __stcg(out + ct * kTile + tid, s);
+  for (int i = 0; i < kColsWarp; ++i) cs[i] = 0.f;
+  for (int t = lane; t < vk; t += 32) {
+#pragma unroll
+    for (int i = 0; i < kColsWarp; ++i)
+      if (warp + kWarps * i < c) cs[i] += part[(warp + kWarps * i) * vk + t];
   }
+#pragma unroll
+  for (int i = 0; i < kColsWarp; ++i) cs[i] = warp_sum(cs[i]);
+#pragma unroll
+  for (int i = 0; i < kColsWarp; ++i) {
+    const int j = warp + kWarps * i;
+    const float s = cs[i];
+    const int n = col0 + j;
+    if (lane == 0 && j < c && n < n_out) {
+      float v = affine(s, e.s[i], e.b[i]);
+      if (g == kFc1) v = bf16r(gelu_tanh(v));
+      __stcg(out + n, v);
+      if (g == kQkv && n >= a.d)       // k or v: [L, 2, H, D] = [L, 2, d]
+        fresh[((size_t)l * 2 + n / a.d - 1) * a.d + n % a.d] =
+            __float2bfloat16(v);
+    }
+  }
+}
+
+// one GEMV stage: wait for the block's item, run it, release its bytes
+__device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
+                           const float* vin, float* part, float* out,
+                           int n_out, const Epi& e) {
+  const uint32_t sz = load_bytes(a, g);
+  const uint32_t off = ring_wait(r, sz);
+  if (sz) gemv_item(a, r, l, g, off, vin, part, out, n_out, e);
   __syncthreads();
+  ring_release(a, r, sz);
 }
 
-// The GEMV of vin with n_pan consecutive panels from `first` of one layer,
-// partial sums into part slots 0..n_pan-1.
-__device__ void gemv_stage(const int8_t* wl, int first, int n_pan,
-                           const float* vin, int d, float* part, float* red) {
-  const int n_ct = d / kTile, kc = d / kKSplit;
-  const int n_items = n_pan * n_ct * kKSplit;
-  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-    const int p = it / (n_ct * kKSplit), rem = it % (n_ct * kKSplit);
-    const int ct = rem / kKSplit, ks = rem % kKSplit;
-    gemv_tile(wl + (size_t)(first + p) * d * d, vin, d, ct, ks * kc,
-              (ks + 1) * kc, part + ((size_t)p * kKSplit + ks) * d, red);
+// -- prefetching the next stages' operands into L2 --------------------------
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// stage g of layer l: the epilogue's scale and bias of the block's item
+// and, m >= 0, LayerNorm m's weight and bias (lines of 32 floats)
+__device__ void prefetch_params(const MegaArgs& a, int l, int g, int m) {
+  if (l >= a.n_layer) return;
+  const int tid = threadIdx.x, c = a.item_c[g];
+  const float *sc, *bi;
+  stage_params(a, l, g, sc, bi);
+  if ((int)blockIdx.x < a.items[g] && 32 * tid < c) {
+    const int n = blockIdx.x * c + 32 * tid;
+    prefetch_l2(sc + n);
+    prefetch_l2(bi + n);
   }
+  if (m >= 0 && 32 * tid < 2 * a.d)
+    prefetch_l2(a.ln_par + ((size_t)l * 6 + 2 * m) * a.d + 32 * tid);
 }
 
-// One attention item: q (unscaled, [kD] in shared memory) against columns
-// [c0, c1) of one head's K and V [kD, S]; writes max, sum and P*V.
+// the block's attention item of this stage (item blockIdx.x, if any): the
+// 64 rows of its K and V slice, 128 bytes a thread
+template <typename CT>
+__device__ void prefetch_attn(const CT* cache, int l, int H, int S, int n_cols,
+                              int nslices) {
+  const int it = blockIdx.x;
+  if (it >= H * nslices) return;
+  const int h = it / nslices, c0 = (it % nslices) * kSplit;
+  const int n = min(n_cols, c0 + kSplit) - c0;
+  constexpr int kPerLine = 128 / sizeof(CT);
+  const int row = threadIdx.x / 4, line = threadIdx.x % 4;
+  if (n <= 0 || line * kPerLine >= n) return;
+  const size_t head = (size_t)kD * S;
+  const size_t off = (size_t)row * S + c0 + line * kPerLine;
+  prefetch_l2(cache + ((size_t)l * 2 * H + h) * head + off);
+  prefetch_l2(cache + ((size_t)(l * 2 + 1) * H + h) * head + off);
+}
+
+// -- attention ----------------------------------------------------------------
+
+// kVec cache elements of one 4-byte word as floats
+__device__ __forceinline__ void word_f(uint32_t w, const __nv_bfloat16*,
+                                       float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xFFFF0000u);
+}
+__device__ __forceinline__ void word_f(uint32_t w, const int8_t*, float* f) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = (float)(int8_t)(w >> (8 * e));
+}
+
+// One attention item: q (unscaled, [kD] of q_src) against columns [c0, c1)
+// of one head's K and V [kD, S]; writes max, sum and P*V.  The cache is
+// read in 4-byte words of kVec columns (2 bf16 or 4 int8; S and c0
+// multiples of kVec).  Scores: thread t takes word t % (256 / kVec) of
+// kVec rows-groups' rows (64 / kVec rows each), its q and keys requested
+// in one round, and the groups' partial dots meet in `sp` (shared memory,
+// kVec x 256 floats) in group order.  P*V: warp w takes rows w, w + 8, ...,
+// a lane words lane, lane + 32, ...; the slice of the values requested
+// while the block reduces the scores.
 template <typename CT>
 __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
-                          int S, int c0, int c1, const float* q_s,
-                          float qk_scale, float* p_s, float* red,
-                          float* out) {
+                          int S, int c0, int c1, const float* q_src,
+                          float qk_scale, float* q_s, float* p_s, float* sp,
+                          float* red, float* out) {
+  constexpr int kVec = 4 / sizeof(CT);        // columns a word
+  constexpr int kWordsRow = kSplit / kVec;    // words of a 256-column row
+  constexpr int kRowsG = kD / kVec;           // rows of a score group
+  constexpr int kRows = kD / kWarps;          // P*V rows a warp
+  constexpr int kWordsLane = kWordsRow / 32;  // P*V words a lane
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col = c0 + tid;
+  const int n = c1 - c0;
+  const float qv = tid < kD ? __ldcg(q_src + tid) : 0.f;
+  const int wi = tid % kWordsRow, rg = tid / kWordsRow;
+  const bool wlive = kVec * wi < n;
+  uint32_t kw[kRowsG];
+#pragma unroll
+  for (int r = 0; r < kRowsG; ++r)
+    kw[r] = wlive ? *reinterpret_cast<const uint32_t*>(
+                        kp + (size_t)(rg * kRowsG + r) * S + c0 + kVec * wi)
+                  : 0u;
+  if (tid < kD) q_s[tid] = qv;
+  __syncthreads();
+  float dot[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) dot[e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kRowsG; ++r) {
+    float f[kVec];
+    word_f(kw[r], kp, f);
+    const float qd = q_s[rg * kRowsG + r];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dot[e] += qd * f[e];
+  }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) sp[rg * kSplit + kVec * wi + e] = dot[e];
+  // the values, requested before the block reduces the scores
+  uint32_t vw[kRows][kWordsLane];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int jj = 0; jj < kWordsLane; ++jj) {
+      const int j = kVec * (lane + 32 * jj);
+      vw[i][jj] = j < n ? *reinterpret_cast<const uint32_t*>(
+                              vp + (size_t)(warp + i * kWarps) * S + c0 + j)
+                        : 0u;
+    }
+  __syncthreads();
+  const bool valid = tid < n;
   float s = kNeg;
-  if (col < c1) {
-    float dot = 0.f;
-#pragma unroll 16
-    for (int dd = 0; dd < kD; ++dd) dot += q_s[dd] * to_f(kp[(size_t)dd * S + col]);
-    s = dot * qk_scale;
+  if (valid) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < kVec; ++g) t += sp[g * kSplit + tid];
+    s = t * qk_scale;
   }
   const float m = block_reduce<true>(s, red);
-  const float p = col < c1 ? expf(s - m) : 0.f;
+  const float p = valid ? expf(s - m) : 0.f;
   const float l = block_reduce<false>(p, red);
   p_s[tid] = bf16r(p);
   __syncthreads();
-  const int n = c1 - c0;
-  for (int dd = warp; dd < kD; dd += kWarps) {
-    const CT* vr = vp + (size_t)dd * S + c0;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
     float part = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float pj = p_s[j];
-      // a masked column has p == 0 and adds nothing, even if not finite
-      part += pj != 0.f ? pj * to_f(vr[j]) : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kWordsLane; ++jj) {
+      const int j = kVec * (lane + 32 * jj);
+      if (j < n) {
+        float f[kVec];
+        word_f(vw[i][jj], vp, f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float pj = p_s[j + e];
+          // a masked column has p == 0 and adds nothing, even if not
+          // finite
+          part += pj != 0.f ? pj * f[e] : 0.f;
+        }
+      }
     }
     part = warp_sum(part);
-    if (lane == 0) __stcg(out + 2 + dd, part);
+    if (lane == 0) __stcg(out + 2 + warp + i * kWarps, part);
   }
   if (tid == 0) {
     __stcg(out, m);
@@ -269,36 +613,142 @@ __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
   __syncthreads();
 }
 
-// Per head h < H: the weights exp(m_s - M) of its ns slices (into wts),
-// returns M and the weighted sum of the slices' sums (lanes agree).
-__device__ __forceinline__ void combine_stats(const float* att, int h, int ns,
-                                              float* wts, float& M,
-                                              float& Lsum) {
-  M = kNeg;
-  for (int s = 0; s < ns; ++s)
-    M = fmaxf(M, __ldcg(att + ((size_t)h * ns + s) * kAtt));
-  Lsum = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float* e = att + ((size_t)h * ns + s) * kAtt;
-    const float w = expf(__ldcg(e) - M);
-    if ((threadIdx.x & 31) == 0) wts[h * kMaxSplits + s] = w;
-    Lsum += __ldcg(e + 1) * w;
+// The last item of head h to finish combines the head's ns slices into
+// its 64 values of the context row (`ctx`, rounded to bf16): the slices'
+// max M, weights exp(m_s - M) and weighted sum of their sums; with the
+// fresh column (self-attention: q and the fresh k, v from qkv, their score
+// in fp32) or without (cross: the context times kscale / denominator).
+// The slices' partials, q, k and v are requested in one round.
+__device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
+                            int h, const float* qkv, float kscale,
+                            float* fin) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool self = qkv != nullptr;
+  float* wts = fin + 4;                      // [kMaxSplits]
+  float pv[kMaxSplits];
+  float vf = 0.f;
+  if (tid < kD) {
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < ns) pv[s] = __ldcg(att_h + s * kAtt + 2 + tid);
+    if (self) vf = __ldcg(qkv + 2 * a.d + h * kD + tid);
   }
+  if (tid < 32) {
+    const float* e = att_h + lane * kAtt;
+    const float ms = lane < ns ? __ldcg(e) : kNeg;
+    const float ls = lane < ns ? __ldcg(e + 1) : 0.f;
+    float qk = 0.f;
+    if (self) {
+      const float* q = qkv + h * kD;
+      qk = __ldcg(q + lane) * __ldcg(q + a.d + lane) +
+           __ldcg(q + lane + 32) * __ldcg(q + a.d + lane + 32);
+    }
+    const float M = warp_max(ms);
+    const float w = lane < ns ? expf(ms - M) : 0.f;
+    if (lane < ns) wts[lane] = w;
+    const float Lsum = warp_sum(ls * w);
+    if (self) {
+      const float sf = warp_sum(qk) * a.scale;
+      const float m_fin = fmaxf(M, sf);
+      const float alpha = expf(M - m_fin), pf = expf(sf - m_fin);
+      if (lane == 0) {
+        fin[0] = alpha;
+        fin[1] = pf;
+        fin[2] = Lsum * alpha + pf;
+      }
+    } else if (lane == 0) {
+      fin[2] = Lsum;
+    }
+  }
+  __syncthreads();
+  if (tid < kD) {
+    float acc = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < ns) acc += pv[s] * wts[s];
+    const float v = self ? bf16r((acc * fin[0] + vf * fin[1]) / fin[2])
+                         : bf16r(acc * (kscale / fin[2]));
+    __stcg(a.ctx + h * kD + tid, v);
+  }
+  __syncthreads();
+}
+
+// An attention stage: every item (h, s) of this block, then, for the
+// last of a head's items to finish (an arrival counted on the head's
+// counter; a head of one slice needs none), the head's context.
+template <typename CT>
+__device__ void attn_stage(const MegaArgs& a, const CT* cache, int l,
+                           int S, int n_cols, int ns, const float* q_row,
+                           float qk_scale, const float* qkv, float kscale,
+                           unsigned int* count, float* q_s, float* p_s,
+                           float* sp, float* red, float* fin, int* last_s) {
+  const int H = a.n_head;
+  const size_t head = (size_t)kD * S;
+  for (int it = blockIdx.x; it < H * ns; it += gridDim.x) {
+    const int h = it / ns, s = it % ns;
+    const float* att_h = a.att + (size_t)h * ns * kAtt;
+    attn_item<CT>(cache + ((size_t)l * 2 * H + h) * head,
+                  cache + ((size_t)(l * 2 + 1) * H + h) * head, S,
+                  s * kSplit, min(n_cols, (s + 1) * kSplit),
+                  q_row + h * kD, qk_scale, q_s, p_s, sp, red,
+                  a.att + ((size_t)h * ns + s) * kAtt);
+    if (ns > 1) {
+      // the item's partial, then its arrival (release); the last to
+      // arrive reads every slice's (acquire)
+      if (threadIdx.x == 0) {
+        __threadfence();
+        *last_s = atomicAdd(count + h, 1u) == (unsigned int)(ns - 1);
+        __threadfence();
+      }
+      __syncthreads();
+      if (!*last_s) continue;
+    }
+    finish_head(a, att_h, ns, h, qkv, kscale, fin);
+  }
+}
+
+// the dynamic shared memory: the residual row, the input row (padded), a
+// vector's sum each of the largest item (or an attention item's partial
+// dots), then the ring
+struct Smem {
+  size_t vin, part, ring;
+};
+
+__host__ __device__ inline Smem smem_layout(const MegaArgs& a) {
+  size_t vin_n = 0, part_n = 0;
+  for (int g = 0; g < kStages; ++g) {
+    const size_t k = a.item_k[g];
+    vin_n = vin_n > k ? vin_n : k;
+    const size_t p = (size_t)a.item_c[g] * (k / 16);
+    part_n = part_n > p ? part_n : p;
+  }
+  // part also holds an attention item's partial dots (4 groups x 256)
+  part_n = part_n > 4 * kSplit ? part_n : 4 * kSplit;
+  vin_n = vin_n + (vin_n / 32) * 4;
+  Smem s;
+  s.vin = (size_t)a.d * 4;
+  s.part = s.vin + vin_n * 4;
+  s.ring = (s.part + part_n * 4 + 127) / 128 * 128;
+  return s;
 }
 
 template <typename CT>
 __global__ void __launch_bounds__(kThreads, 1)
 megakernel(const MegaArgs a) {
-  extern __shared__ float smem[];
-  float* xs = smem;              // [d] residual row (bf16 values)
-  float* vin = smem + a.d;       // [d] GEMV input row
-  __shared__ float red[kWarps * kTile];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem lay = smem_layout(a);
+  float* xs = reinterpret_cast<float*>(smem);             // [d] residual
+  float* vin = reinterpret_cast<float*>(smem + lay.vin);  // the input row
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  __shared__ float red[kWarps];
   __shared__ float p_s[kSplit];
   __shared__ float q_s[kD];
-  __shared__ float wts[kMaxHeads * kMaxSplits];
-  __shared__ float alpha_s[kMaxHeads], pf_s[kMaxHeads], den_s[kMaxHeads];
+  __shared__ float fin[4 + kMaxSplits];     // a head's finish: alpha, pf,
+                                            // denominator, weights
+  __shared__ int last_s;
+  __shared__ __align__(8) uint64_t bars[kSlots];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int d = a.d, H = a.n_head, S = a.s_self, Sc = a.s_cross;
   const int nf = a.nf;
   const int n_valid = min(max(a.seq_len[0] - 1, 0), S);  // cache columns
@@ -306,213 +756,162 @@ megakernel(const MegaArgs a) {
   const int nsc = (Sc + kSplit - 1) / kSplit;
   const __nv_bfloat16* selfc = static_cast<const __nv_bfloat16*>(a.self_cache);
   const CT* crossc = static_cast<const CT*>(a.cross_cache);
-  __nv_bfloat16* fresh = static_cast<__nv_bfloat16*>(a.fresh);
   const __nv_bfloat16* x_in = static_cast<const __nv_bfloat16*>(a.x);
+  unsigned int gen = 0;                   // the barrier counter's target
 
+  Ring ring{reinterpret_cast<int8_t*>(smem + lay.ring), bars,
+            (uint32_t)a.ring_bytes, 0u, 0u, 0, 0, a.n_layer * kStages};
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_u32(&bars[i])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ring_pump(a, ring);
+  }
   for (int i = tid; i < d; i += kThreads) xs[i] = to_f(x_in[i]);
   __syncthreads();
 
+  // The layer as a loop over its 8 stages, each component written once:
+  // the kernel's code has to stay small for the instruction cache (written
+  // out stage by stage it is twice as large, and every stage runs from a
+  // cold cache).  Stage st ends with GEMV g (none for the attention stages
+  // 1 and 4) and a grid barrier:
+  //   0. the previous layer's fc2 into the residual; LN1; q, k, v -> A
+  //      (and the fresh K/V out)
+  //   1. self-attention slices over the cache; each head's last slice
+  //      combines them with the fresh column -> ctx
+  //   2. out-projection of ctx -> B
+  //   3. residual; LN2; cross-q -> A
+  //   4. cross-attention slices; each head's last slice combines them,
+  //      times kscale / denominator -> ctx
+  //   5. cross-out of ctx -> B
+  //   6. residual; LN3; fc1 and its GELU -> A (nf * d outputs)
+  //   7. fc2 (K = nf * d) over fc1's finished row -> B
+  Epi ep;
   for (int l = 0; l < a.n_layer; ++l) {
-    const int8_t* wl = a.wblob + (size_t)l * a.npan * d * d;
-    const float* ps = a.pair_scale + (size_t)l * 4 * d;
-    const float* pb = a.pair_bias + (size_t)l * 4 * d;
-    const float* fs = a.flat_scale + (size_t)l * a.nflat * d;
-    const float* fb = a.flat_bias + (size_t)l * a.nflat * d;
     const float* ln = a.ln_par + (size_t)l * 6 * d;
-
-    // 1. the previous layer's fc2 into the residual; LN1; q, k, v -> A
-    if (l > 0) {
-      const float* fsp = fs - (size_t)a.nflat * d;
-      const float* fbp = fb - (size_t)a.nflat * d;
-      for (int i = tid; i < d; i += kThreads) {
-        float acc = 0.f;
-        for (int j = 0; j < nf; ++j) acc += part_sum(a.part_b, j, i, d);
-        xs[i] = bf16r(xs[i] + affine(acc, fsp[a.f_fc2 * d + i],
-                                     fbp[a.f_fc2 * d + i]));
-      }
-      __syncthreads();
-    }
-    layer_norm(xs, vin, ln, ln + d, d, a.eps, red);
-    gemv_stage(wl, a.p_qkv, 3, vin, d, a.part_a, red);
-    grid_sync(a.barrier);
-
-    // 2. self-attention slices over the cache; the fresh K/V out
-    for (int it = blockIdx.x; it < H * ns; it += gridDim.x) {
-      const int h = it / ns, s = it % ns;
-      if (tid < kD) {
-        const int n = h * kD + tid;
-        q_s[tid] = affine(part_sum(a.part_a, 0, n, d), ps[n], pb[n]);
-        if (s == 0) {
-          const size_t f = ((size_t)l * 2 * H + h) * kD + tid;
-          fresh[f] = __float2bfloat16(
-              affine(part_sum(a.part_a, 1, n, d), ps[d + n], pb[d + n]));
-          fresh[f + (size_t)H * kD] = __float2bfloat16(
-              affine(part_sum(a.part_a, 2, n, d), ps[2 * d + n],
-                     pb[2 * d + n]));
-        }
-      }
-      __syncthreads();
-      const size_t head = (size_t)kD * S;
-      attn_item<__nv_bfloat16>(
-          selfc + ((size_t)l * 2 * H + h) * head,
-          selfc + ((size_t)(l * 2 + 1) * H + h) * head, S, s * kSplit,
-          min(n_valid, (s + 1) * kSplit), q_s, a.scale, p_s, red,
-          a.att + ((size_t)h * ns + s) * kAtt);
-    }
-    grid_sync(a.barrier);
-
-    // 3. combine the slices with the fresh column; out-projection -> B
-    for (int h = warp; h < H; h += kWarps) {
-      float M, Lsum;
-      combine_stats(a.att, h, ns, wts, M, Lsum);
-      float part = 0.f;
-      for (int dd = lane; dd < kD; dd += 32) {
-        const int n = h * kD + dd;
-        const float qv = affine(part_sum(a.part_a, 0, n, d), ps[n], pb[n]);
-        const float kv = affine(part_sum(a.part_a, 1, n, d), ps[d + n],
-                                pb[d + n]);
-        part += qv * kv;
-      }
-      const float sf = warp_sum(part) * a.scale;
-      const float m_fin = fmaxf(M, sf);
-      const float alpha = expf(M - m_fin), pf = expf(sf - m_fin);
-      if (lane == 0) {
-        alpha_s[h] = alpha;
-        pf_s[h] = pf;
-        den_s[h] = Lsum * alpha + pf;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < d; i += kThreads) {
-      const int h = i / kD, dd = i % kD;
-      float acc = 0.f;
-      for (int s = 0; s < ns; ++s)
-        acc += __ldcg(a.att + ((size_t)h * ns + s) * kAtt + 2 + dd) *
-               wts[h * kMaxSplits + s];
-      const float vf = affine(part_sum(a.part_a, 2, i, d), ps[2 * d + i],
-                              pb[2 * d + i]);
-      vin[i] = bf16r((acc * alpha_s[h] + vf * pf_s[h]) / den_s[h]);
-    }
-    __syncthreads();
-    gemv_stage(wl, a.p_dense, 1, vin, d, a.part_b, red);
-    grid_sync(a.barrier);
-
-    // 4. residual; LN2; cross-q -> A
-    for (int i = tid; i < d; i += kThreads)
-      xs[i] = bf16r(xs[i] + affine(part_sum(a.part_b, 0, i, d),
-                                   fs[a.f_dense * d + i],
-                                   fb[a.f_dense * d + i]));
-    __syncthreads();
-    layer_norm(xs, vin, ln + 2 * d, ln + 3 * d, d, a.eps, red);
-    gemv_stage(wl, a.p_crossq, 1, vin, d, a.part_a, red);
-    grid_sync(a.barrier);
-
-    // 5. cross-attention slices
     const float kscale = a.cross_scale ? a.cross_scale[l] : 1.f;
-    for (int it = blockIdx.x; it < H * nsc; it += gridDim.x) {
-      const int h = it / nsc, s = it % nsc;
-      if (tid < kD) {
-        const int n = h * kD + tid;
-        q_s[tid] = affine(part_sum(a.part_a, 0, n, d), ps[3 * d + n],
-                          pb[3 * d + n]);
-      }
-      __syncthreads();
-      const size_t head = (size_t)kD * Sc;
-      attn_item<CT>(crossc + ((size_t)l * 2 * H + h) * head,
-                    crossc + ((size_t)(l * 2 + 1) * H + h) * head, Sc,
-                    s * kSplit, min(Sc, (s + 1) * kSplit), q_s,
-                    a.scale * kscale, p_s, red,
-                    a.att + ((size_t)h * nsc + s) * kAtt);
-    }
-    grid_sync(a.barrier);
-
-    // 6. combine; context times kscale / denominator; cross-out -> B
-    for (int h = warp; h < H; h += kWarps) {
-      float M, Lsum;
-      combine_stats(a.att, h, nsc, wts, M, Lsum);
-      if (lane == 0) den_s[h] = Lsum;
-    }
-    __syncthreads();
-    for (int i = tid; i < d; i += kThreads) {
-      const int h = i / kD, dd = i % kD;
-      float acc = 0.f;
-      for (int s = 0; s < nsc; ++s)
-        acc += __ldcg(a.att + ((size_t)h * nsc + s) * kAtt + 2 + dd) *
-               wts[h * kMaxSplits + s];
-      vin[i] = bf16r(acc * (kscale / den_s[h]));
-    }
-    __syncthreads();
-    gemv_stage(wl, a.p_crossdense, 1, vin, d, a.part_b, red);
-    grid_sync(a.barrier);
-
-    // 7. residual; LN3; fc1 -> A (nf panels)
-    for (int i = tid; i < d; i += kThreads)
-      xs[i] = bf16r(xs[i] + affine(part_sum(a.part_b, 0, i, d),
-                                   fs[a.f_crossdense * d + i],
-                                   fb[a.f_crossdense * d + i]));
-    __syncthreads();
-    layer_norm(xs, vin, ln + 4 * d, ln + 5 * d, d, a.eps, red);
-    gemv_stage(wl, a.p_fc1, nf, vin, d, a.part_a, red);
-    grid_sync(a.barrier);
-
-    // 8. GELU of the fc1 slice an item needs; fc2 -> B (nf panels)
-    {
-      const int n_ct = d / kTile, kc = d / kKSplit;
-      const int n_items = nf * n_ct * kKSplit;
-      for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
-        const int j = it / (n_ct * kKSplit), rem = it % (n_ct * kKSplit);
-        const int ct = rem / kKSplit, ks = rem % kKSplit;
-        const int k0 = ks * kc, k1 = k0 + kc;
-        const float* fsj = fs + (size_t)(a.f_fc1 + j) * d;
-        const float* fbj = fb + (size_t)(a.f_fc1 + j) * d;
-        for (int k = k0 + tid; k < k1; k += kThreads)
-          vin[k] = bf16r(gelu_tanh(
-              affine(part_sum(a.part_a, j, k, d), fsj[k], fbj[k])));
+    for (int st = 0; st < kLayerStages; ++st) {
+      const int g = st == 0 ? kQkv : st == 2 ? kDense : st == 3 ? kCrossQ
+                  : st == 5 ? kCrossDense : st == 6 ? kFc1
+                  : st == 7 ? kFc2 : -1;
+      const int n_out = g == kQkv ? 3 * d : g == kFc1 ? nf * d : d;
+      if (g >= 0) epi_load(a, l, g, n_out, ep);
+      if (st == 0 || st == 3 || st == 6) {
+        const int m = st / 3;                 // LayerNorm m
+        residual_ln(st == 0 && l == 0 ? nullptr : a.act_b,
+                    ln + 2 * m * d, ln + (2 * m + 1) * d, xs, vin, d, a.eps,
+                    red);
+      } else if (st == 2 || st == 5 || st == 7) {
+        // the finished row the GEMV reads: the context, or GELU(fc1)
+        const float* row = st == 7 ? a.act_a : a.ctx;
+        const int n = st == 7 ? nf * d : d;
+        float f[kPerFc];
+#pragma unroll
+        for (int k = 0; k < kPerFc; ++k) {
+          const int i = tid + k * kThreads;
+          if (i < n) f[k] = __ldcg(row + i);
+        }
+#pragma unroll
+        for (int k = 0; k < kPerFc; ++k) {
+          const int i = tid + k * kThreads;
+          if (i < n) vin[vpos(i)] = f[k];
+        }
         __syncthreads();
-        gemv_tile(wl + (size_t)(a.p_fc2 + j) * d * d, vin, d, ct, k0, k1,
-                  a.part_b + ((size_t)j * kKSplit + ks) * d, red);
+      } else if (st == 1) {
+        attn_stage<__nv_bfloat16>(a, selfc, l, S, n_valid, ns, a.act_a,
+                                  a.scale, a.act_a, 1.f,
+                                  a.heads + (size_t)l * H, q_s, p_s, part,
+                                  red, fin, &last_s);
+      } else {
+        attn_stage<CT>(a, crossc, l, Sc, Sc, nsc, a.act_a, a.scale * kscale,
+                       nullptr, kscale,
+                       a.heads + (size_t)(a.n_layer + l) * H, q_s, p_s,
+                       part, red, fin, &last_s);
       }
+      if (g >= 0) {
+        const bool to_a = g == kQkv || g == kCrossQ || g == kFc1;
+        gemv_stage(a, ring, l, g, vin, part, to_a ? a.act_a : a.act_b,
+                   n_out, ep);
+      }
+      // what the stages after the barrier read from memory, into L2
+      if (st == 0) {
+        prefetch_attn(selfc, l, H, S, n_valid, ns);
+        prefetch_params(a, l, kDense, -1);
+      } else if (st == 2) {
+        prefetch_attn(crossc, l, H, Sc, Sc, nsc);
+      } else if (st != 7) {
+        const int gn = st == 1 ? kCrossQ : st == 3 ? kCrossDense
+                     : st == 4 ? kFc1 : st == 5 ? kFc2 : kQkv;
+        const int m = st == 1 ? 1 : st == 4 ? 2 : st == 6 ? 0 : -1;
+        prefetch_params(a, st == 6 ? l + 1 : l, gn, m);
+      }
+      grid_sync(a.barrier, gen);
     }
-    grid_sync(a.barrier);
   }
 
   // the last layer's fc2 into the residual: the hidden state out
   if (blockIdx.x == 0) {
-    const size_t off = (size_t)(a.n_layer - 1) * a.nflat * d;
-    const float* fs = a.flat_scale + off;
-    const float* fb = a.flat_bias + off;
     __nv_bfloat16* hid = static_cast<__nv_bfloat16*>(a.hid);
-    for (int i = tid; i < d; i += kThreads) {
-      float acc = 0.f;
-      for (int j = 0; j < nf; ++j) acc += part_sum(a.part_b, j, i, d);
-      hid[i] = __float2bfloat16(
-          xs[i] + affine(acc, fs[a.f_fc2 * d + i], fb[a.f_fc2 * d + i]));
-    }
+    for (int i = tid; i < d; i += kThreads)
+      hid[i] = __float2bfloat16(xs[i] + __ldcg(a.act_b + i));
   }
+}
+
+// the plan checked against the model's widths and the grid: per stage,
+// items of c columns covering its columns, at most one a block, K a
+// multiple of 16, the tiles contiguous in stage order
+bool plan_ok(const MegaArgs* a, int grid) {
+  const long long cols[kStages] = {3LL * a->d, a->d, a->d, a->d,
+                                   (long long)a->nf * a->d, a->d};
+  const int ks[kStages] = {a->d, a->d, a->d, a->d, a->d, a->nf * a->d};
+  long long off = 0;
+  for (int g = 0; g < kStages; ++g) {
+    const long long c = a->item_c[g], n = a->items[g];
+    if (c < 1 || c > kWarps * kColsWarp || n < 1 || n > grid ||
+        c * n < cols[g] ||
+        c * (n - 1) >= cols[g] || a->item_k[g] != ks[g] ||
+        ks[g] % 16 || a->tile_off[g] != off)
+      return false;
+    off += c * n * ks[g];
+  }
+  return off == a->layer_bytes;
 }
 
 template <typename CT>
 int launch(const MegaArgs* a, void* stream) {
   auto kernel = megakernel<CT>;
-  const size_t smem = 2 * (size_t)a->d * sizeof(float);
   cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
   if (!coop) return (int)cudaErrorNotSupported;
+  const int grid = sms;              // one block per SM, all co-resident
+  if (!plan_ok(a, grid)) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return (int)e;
+  // the ring takes what the block's shared memory has left
+  const size_t smem = (size_t)optin - fa.sharedSizeBytes;
+  const Smem lay = smem_layout(*a);
+  MegaArgs args = *a;
+  long long ring = ((long long)smem - (long long)lay.ring) / 16 * 16;
+  // the plan's cap on the ring (0: all that is left)
+  if (a->ring_bytes > 0 && a->ring_bytes < ring) ring = a->ring_bytes / 16 * 16;
+  int largest = 0;
+  for (int g = 0; g < kStages; ++g)
+    largest = max(largest, a->item_c[g] * a->item_k[g]);
+  if (ring < largest) return (int)cudaErrorInvalidValue;
+  args.ring_bytes = (int)ring;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                     kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = sms;              // one block per SM, all co-resident
-  MegaArgs args = *a;
   void* params[] = {&args};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                   dim3(kThreads), params, smem,
@@ -525,11 +924,13 @@ int launch(const MegaArgs* a, void* stream) {
 
 extern "C" {
 
-// Returns 0 when the cooperative launch was enqueued, else the CUDA error.
+// Returns 0 when the cooperative launch was enqueued, else the CUDA error
+// (cudaErrorInvalidValue for shapes or a plan it does not take).
 int decoder_megakernel(const MegaArgs* a, void* stream) {
-  if (a->d % (kTile * kKSplit) || a->d / kD > kMaxHeads ||
-      a->n_head * kD != a->d || a->s_cross > kMaxSplits * kSplit ||
-      a->s_self > kMaxSplits * kSplit)
+  if (a->d % kD || a->d / kD > kMaxHeads || a->n_head * kD != a->d ||
+      a->s_cross > kMaxSplits * kSplit || a->s_self > kMaxSplits * kSplit ||
+      a->nf < 1 || a->d > kPer * kThreads || a->nf * a->d > kPerFc * kThreads ||
+      a->s_self % 2 || a->s_cross % (a->cross_int8 ? 4 : 2))
     return (int)cudaErrorInvalidValue;
   return a->cross_int8 ? launch<int8_t>(a, stream)
                        : launch<__nv_bfloat16>(a, stream);

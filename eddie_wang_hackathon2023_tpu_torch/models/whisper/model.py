@@ -229,16 +229,18 @@ class WhisperDecoder(nn.Module):
     def megakernel_blobs(self):
         """The megakernel's weight image, packed from this decoder's own
         blocks (stacked into the JAX state layout first) on their device:
-        a second copy of the decoder's int8 weights."""
-        from ...ops.decoder_layer import pack_decoder_blobs
+        a second copy of the decoder's int8 weights, and on a card a third,
+        the kernel's item-contiguous tiles."""
+        from ...ops.decoder_layer import megakernel_tiles, pack_decoder_blobs
         c = self.config
         per_layer = [blk.state_dict() for blk in self.blocks]
         state = {k: torch.stack([sd[k] for sd in per_layer])
                  for k in per_layer[0]}
-        return pack_decoder_blobs(
+        blobs = pack_decoder_blobs(
             state, n_layer=c.n_text_layer, hidden=c.n_text_state,
             n_head=c.n_text_head, head_dim=c.head_dim,
             ffn=self.blocks[0].mlp1.out_features, with_cross=True)
+        return megakernel_tiles(blobs) if blobs.wblob.is_cuda else blobs
 
     def forward(self, tokens: torch.Tensor, kv_cache: torch.Tensor,
                 cross_kv, write_index: int, sequence_length,

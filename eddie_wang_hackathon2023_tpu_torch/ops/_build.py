@@ -54,8 +54,10 @@ SIGNATURES = {
                                    _I, _P, _P, _P, _F, _P, _P],
     },
     "int4_quant_matmul": {
-        "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                              _P, _P],
+        "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _P],
+        "int4_quant_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _P, _P],
     },
 }
 

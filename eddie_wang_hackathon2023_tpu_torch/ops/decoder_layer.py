@@ -6,7 +6,9 @@ at batch 1: int8 weight-only panels with per-channel scales, LayerNorm,
 tanh GELU, cross-attention over an int8 (or float) cross cache with
 per-layer scales, and a float self cache with the fresh token's K/V.  On a
 CUDA tensor the wrapper makes ONE cooperative launch of the kernel of
-``csrc/decoder_layer.cu``; on a CPU tensor it runs the plain version,
+``csrc/decoder_layer.cu``, which reads its GEMV weights from the blobs'
+``tiles`` (:func:`megakernel_tiles`, cut by :func:`megakernel_plan` for the
+card's SM count); on a CPU tensor it runs the plain version,
 :func:`plain_fused_decoder_stack`, which runs the kernel's stages with its
 attention slices and rounding points.
 
@@ -30,13 +32,19 @@ from .attention import NEG
 # launches of the CUDA kernel, counted where the wrapper launches it
 launches = {"decoder_megakernel": 0}
 
-# the kernel's work split, mirrored here: GEMV panels are cut into K_SPLIT
-# slices of K, attention into ATTN_SPLIT-column slices of the cache (the
-# plain version combines its attention slices the same way)
-K_SPLIT = 4
+# the kernel's attention split, mirrored here: ATTN_SPLIT-column slices of
+# the cache, at most MAX_SPLITS a head (the plain version combines its
+# attention slices the same way)
 ATTN_SPLIT = 256
 MAX_SPLITS = 8
 HEAD_DIM = 64
+# the GEMV stages of a layer, in the kernel's order (``Stage`` in
+# csrc/decoder_layer.cu)
+GEMV_STAGES = ("qkv", "dense", "crossq", "crossdense", "fc1", "fc2")
+# the kernel's limits: a thread holds 5 elements of a d-row and 20 of
+# fc1's (d <= 1280, ffn <= 5120: Whisper large), a warp sums 6 columns of
+# an item (48 an item: 5120 columns need 107 SMs)
+MAX_D, MAX_FFN, ITEM_MAX_COLS = 1280, 5120, 48
 
 # state-dict key prefixes of the Whisper ResidualAttentionBlock (the JAX
 # packer's WHISPER_KEYS)
@@ -64,6 +72,95 @@ class MegakernelBlobs(NamedTuple):
     kv_oq: torch.Tensor        # [L] f32 self-KV quantise scale (ones)
     kv_qo: torch.Tensor        # [L] f32 self-KV dequantise scale (ones)
     gscale: Optional[torch.Tensor] = None   # int4 group scales: not ported
+    # the kernel's item-contiguous copy of wblob [L, layer_bytes] int8 and
+    # the grid it was cut for (:func:`megakernel_tiles`; the card only)
+    tiles: Optional[torch.Tensor] = None
+    tiles_grid: Optional[int] = None
+
+
+def megakernel_plan(d: int, nf: int, sms: int) -> Dict[str, list]:
+    """The megakernel's GEMV items for width ``d``, ``nf`` fc panels and a
+    grid of ``sms`` blocks: per stage of :data:`GEMV_STAGES`, ``item_c``
+    output columns an item by all ``item_k`` rows of K, ``items`` items (at
+    most one a block: c = ceil(columns / sms), so each stage is one wave),
+    ``tile_off`` the stage's byte offset in a layer's tiles and
+    ``layer_bytes`` a layer's (the last item's columns past the stage's are
+    zeros), and ``ring_cap`` the bytes of the shared-memory ring that
+    streams the items (0: all the block's shared memory left, about a
+    layer's items).  The C entry refuses any other plan."""
+    cols = (3 * d, d, d, d, nf * d, d)
+    ks = (d, d, d, d, d, nf * d)
+    plan = dict(item_c=[], items=[], item_k=list(ks), tile_off=[])
+    off = 0
+    for n, k in zip(cols, ks):
+        c = -(-n // sms)
+        items = -(-n // c)
+        plan["item_c"].append(c)
+        plan["items"].append(items)
+        plan["tile_off"].append(off)
+        off += c * items * k
+    plan["layer_bytes"] = off
+    plan["ring_cap"] = 0
+    return plan
+
+
+def _stage_weights(wblob: torch.Tensor):
+    """Each GEMV stage's weight of every layer transposed, [L, columns, K]
+    (K contiguous), from the K-major panels [L, NPAN, d, d]."""
+    L, npan, d, _ = wblob.shape
+    nf = (npan - 6) // 2
+    pan = _panels(nf)
+    return [
+        wblob[:, pan["q"]:pan["q"] + 3].transpose(2, 3).reshape(L, 3 * d, d),
+        wblob[:, pan["dense"]].transpose(1, 2),
+        wblob[:, pan["crossq"]].transpose(1, 2),
+        wblob[:, pan["crossdense"]].transpose(1, 2),
+        wblob[:, pan["fc1"]:pan["fc1"] + nf].transpose(2, 3)
+        .reshape(L, nf * d, d),
+        wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * d, d)
+        .transpose(1, 2)]
+
+
+def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
+                     ) -> "MegakernelBlobs":
+    """``blobs`` with ``tiles``: the panels of ``wblob`` repacked once into
+    the kernel's item-contiguous layout for a grid of ``sms`` blocks (the
+    SM count of wblob's card by default): per layer, per stage of
+    :data:`GEMV_STAGES`, ``items`` items of ``item_c`` columns, each its
+    columns' K rows contiguous (:func:`megakernel_plan`)."""
+    w = blobs.wblob
+    L, npan, d, _ = w.shape
+    nf = (npan - 6) // 2
+    if sms is None:
+        sms = torch.cuda.get_device_properties(
+            w.device).multi_processor_count
+    plan = megakernel_plan(d, nf, sms)
+    parts = []
+    for g, m in enumerate(_stage_weights(w)):
+        rows = plan["item_c"][g] * plan["items"][g]
+        parts.append(torch.nn.functional.pad(
+            m, (0, 0, 0, rows - m.shape[1])).reshape(L, -1))
+    return blobs._replace(tiles=torch.cat(parts, dim=1).contiguous(),
+                          tiles_grid=sms)
+
+
+def untile(tiles: torch.Tensor, plan: Dict[str, list], stage: int
+           ) -> torch.Tensor:
+    """Stage ``stage``'s weight [L, K, columns] (K-major, as the panels
+    hold it) read back from tiles [L, layer_bytes] laid out by ``plan``;
+    the padding columns included."""
+    c, n, k = (plan[f][stage] for f in ("item_c", "items", "item_k"))
+    off = plan["tile_off"][stage]
+    L = tiles.shape[0]
+    return tiles[:, off:off + c * n * k].reshape(L, c * n, k).transpose(1, 2)
+
+
+def blob_layers(blobs: "MegakernelBlobs", lo: int, hi: int
+                ) -> "MegakernelBlobs":
+    """The layers lo..hi-1 of ``blobs`` (every per-layer tensor sliced)."""
+    return blobs._replace(**{
+        f: v[lo:hi] for f, v in blobs._asdict().items()
+        if torch.is_tensor(v)})
 
 
 # the wblob panel of each projection (the JAX package's ``_panel_of`` with
@@ -331,14 +428,16 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
 class _MegaArgs(ctypes.Structure):
     """The kernel's ``MegaArgs`` (csrc/decoder_layer.cu), field by field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "x", "wblob", "pair_scale", "pair_bias", "flat_scale", "flat_bias",
+        "x", "tiles", "pair_scale", "pair_bias", "flat_scale", "flat_bias",
         "ln_par", "self_cache", "cross_cache", "cross_scale", "seq_len",
-        "hid", "fresh", "part_a", "part_b", "att", "barrier")]
+        "hid", "fresh", "act_a", "act_b", "att", "ctx", "barrier", "heads")]
+        + [("layer_bytes", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
-            "n_layer", "d", "n_head", "s_self", "s_cross", "npan", "nflat",
-            "nf", "p_qkv", "p_dense", "p_crossq", "p_crossdense", "p_fc1",
-            "p_fc2", "f_dense", "f_crossdense", "f_fc1", "f_fc2",
-            "cross_int8")]
+            "n_layer", "d", "n_head", "s_self", "s_cross", "nflat", "nf",
+            "f_dense", "f_crossdense", "f_fc1", "f_fc2", "cross_int8",
+            "ring_bytes")]
+        + [(n, ctypes.c_int * len(GEMV_STAGES))
+           for n in ("item_c", "items", "item_k", "tile_off")]
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
 
 
@@ -375,12 +474,27 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         raise TypeError("megakernel takes bf16 activations and self cache")
     if cross_cache.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel cross cache dtype {cross_cache.dtype}")
-    if (d % (32 * K_SPLIT) or H > 32 or max(S, sc) > MAX_SPLITS * ATTN_SPLIT
-            or cross_cache.shape[:5] != (L, 1, 2, H, D)):
-        raise ValueError(f"megakernel shapes: d {d}, heads {H}, self "
-                         f"{S}, cross {tuple(cross_cache.shape)}")
     nf = (blobs.wblob.shape[1] - 6) // 2
-    for t in (self_cache, cross_cache, *blobs[:6]):
+    # the kernel reads the caches in 4-byte words: rows of whole words
+    word = 4 // cross_cache.element_size()
+    if (d % HEAD_DIM or d > MAX_D or nf * d > MAX_FFN or S % 2 or sc % word
+            or max(S, sc) > MAX_SPLITS * ATTN_SPLIT
+            or cross_cache.shape[:5] != (L, 1, 2, H, D)):
+        raise ValueError(f"megakernel shapes: d {d}, ffn {nf * d}, heads "
+                         f"{H}, self {S}, cross {tuple(cross_cache.shape)}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = megakernel_plan(d, nf, sms)
+    if max(plan["item_c"]) > ITEM_MAX_COLS:
+        raise ValueError(f"megakernel: {sms} SMs give items of "
+                         f"{max(plan['item_c'])} columns, past "
+                         f"{ITEM_MAX_COLS}")
+    tiles = blobs.tiles
+    if (tiles is None or blobs.tiles_grid != sms
+            or tiles.dtype != torch.int8
+            or tuple(tiles.shape) != (L, plan["layer_bytes"])):
+        raise ValueError("megakernel blobs need the tiles of this card's "
+                         "plan: build them with megakernel_tiles(blobs)")
+    for t in (self_cache, cross_cache, tiles, *blobs[1:6]):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("megakernel operands must be contiguous on "
                              f"{dev}")
@@ -398,29 +512,35 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                                device=dev).reshape(L).contiguous()
     hid = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
     fresh = torch.empty((L, 2, H, D), dtype=torch.bfloat16, device=dev)
-    part_a = torch.empty((max(3, nf) * K_SPLIT * d,), dtype=torch.float32,
-                         device=dev)
-    part_b = torch.empty((nf * K_SPLIT * d,), dtype=torch.float32,
-                         device=dev)
+    # finished GEMV outputs: q, k, v / cross-q / GELU(fc1) and dense /
+    # cross-dense / fc2
+    act_a = torch.empty((max(3, nf) * d,), dtype=torch.float32, device=dev)
+    act_b = torch.empty((d,), dtype=torch.float32, device=dev)
     att = torch.empty((H * MAX_SPLITS * (D + 2),), dtype=torch.float32,
                       device=dev)
-    barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
-    pan, slots = _panels(nf), _flat_slots(nf)
+    ctx = torch.empty((d,), dtype=torch.float32, device=dev)
+    # the grid barrier's arrivals, then each head's finished attention
+    # slices (self and cross, every layer): zeros, one call's
+    sync = torch.zeros((1 + 2 * L * H,), dtype=torch.int32, device=dev)
+    slots = _flat_slots(nf)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    def ints(key):
+        return (ctypes.c_int * len(GEMV_STAGES))(*plan[key])
+
     args = _MegaArgs(
-        ptr(xin), ptr(blobs.wblob), ptr(blobs.pair_scale),
+        ptr(xin), ptr(tiles), ptr(blobs.pair_scale),
         ptr(blobs.pair_bias), ptr(blobs.flat_scale), ptr(blobs.flat_bias),
         ptr(blobs.ln_par), ptr(self_cache), ptr(cross_cache), ptr(cs_t),
-        ptr(seq_t), ptr(hid), ptr(fresh), ptr(part_a), ptr(part_b),
-        ptr(att), ptr(barrier),
-        L, d, H, S, sc, blobs.wblob.shape[1], blobs.flat_scale.shape[1], nf,
-        pan["q"], pan["dense"], pan["crossq"], pan["crossdense"],
-        pan["fc1"], pan["fc2"],
+        ptr(seq_t), ptr(hid), ptr(fresh), ptr(act_a), ptr(act_b),
+        ptr(att), ptr(ctx), ptr(sync), ptr(sync) + 4, plan["layer_bytes"],
+        L, d, H, S, sc, blobs.flat_scale.shape[1], nf,
         slots["dense"], slots["crossdense"], slots["fc1"], slots["fc2"],
-        int(cross_cache.dtype == torch.int8), float(scale), float(eps))
+        int(cross_cache.dtype == torch.int8), plan["ring_cap"],
+        ints("item_c"), ints("items"), ints("item_k"), ints("tile_off"),
+        float(scale), float(eps))
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.load("decoder_layer")
     _build.check(lib.decoder_megakernel(ctypes.byref(args), stream),

@@ -16,14 +16,16 @@ Its numerics are the TPU kernel's:
 
 On a CUDA tensor :func:`quant_matmul_int4` launches the kernel of
 ``csrc/int4_quant_matmul.cu`` (bf16 only; other dtypes and shapes the
-kernel does not take raise); on a CPU tensor it runs the plain version,
-:func:`plain_quant_matmul_int4`.
+kernel does not take raise): its decode entry for M <= DECODE_MAX_M with
+:func:`decode_plan` (K over the warps of a block and a thread-block
+cluster), its prefill entry above with :func:`split_plan`.  On a CPU tensor
+it runs the plain version, :func:`plain_quant_matmul_int4`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,13 +37,18 @@ from ..functional import matmul_fp32
 # call: a split of K is reduced inside the same launch)
 launches = {"int4_quant_matmul": 0}
 
-# the kernel's tiles: 128 output columns a block, 16 rows an m-tile, 64
-# unpacked rows of K (32 packed rows, both nibbles) a chunk
+# the prefill entry's tiles: 128 output columns a block, 64 rows (four
+# m-tiles of 16), 64 unpacked rows of K (32 packed rows, both nibbles) a
+# chunk; its split of K keeps at least MIN_CHUNKS_PER_SPLIT chunks
 TILE_N, TILE_M, CHUNK_K = 128, 16, 64
-# a split of K keeps at least this many chunks at decode (one m-tile a
-# block) and at the prefill (four): there a tile row of blocks already
-# fills the card, and a split pays only on long K
-MIN_CHUNKS_PER_SPLIT = {1: 4, 4: 32}
+MIN_CHUNKS_PER_SPLIT = 32
+# the decode entry takes M up to DECODE_MAX_M: 128 output columns a warp
+# and a block, K walked in steps of 8 packed rows, 4 or 8 warps a block, a
+# cluster of up to 8 blocks along K; shared memory of (warps + cluster - 1)
+# blocks' partial sums (4 KB each an n8 tile of rows) within 227 KB
+DECODE_MAX_M = 2 * TILE_M
+DECODE_STEP = 8
+DECODE_MAX_SMEM = 227 * 1024
 
 
 def reset_launches() -> None:
@@ -87,20 +94,55 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
-    """(m-tiles a block, splits of K, chunks a split) for an [m, k] x
-    [k, n] product on ``sms`` multiprocessors: four m-tiles a block above
-    32 rows (the prefill), one below (decode); K split along chunk
-    boundaries until the grid has about two blocks per multiprocessor,
-    each split keeping at least MIN_CHUNKS_PER_SPLIT[m-tiles] chunks
-    (``tools/int4_kernel_probe.py`` times the alternatives)."""
-    mt = 1 if m <= 2 * TILE_M else 4
-    tiles = -(-m // (TILE_M * mt)) * -(-n // TILE_N)
+def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(splits of K, chunks a split) of the prefill entry (m above
+    DECODE_MAX_M) for an [m, k] x [k, n] product on ``sms``
+    multiprocessors: K split along chunk boundaries until the grid has
+    about two blocks per multiprocessor, each split keeping at least
+    MIN_CHUNKS_PER_SPLIT chunks (``tools/int4_kernel_probe.py`` times the
+    alternatives)."""
+    tiles = -(-m // (4 * TILE_M)) * -(-n // TILE_N)
     chunks = k // CHUNK_K
     splits = max(1, min(-(-2 * sms // tiles),
-                        chunks // MIN_CHUNKS_PER_SPLIT[mt]))
+                        chunks // MIN_CHUNKS_PER_SPLIT))
     per = -(-chunks // splits)
-    return mt, -(-chunks // per), per
+    return -(-chunks // per), per
+
+
+def _decode_tiles(m: int) -> int:
+    """n8 tiles of rows the decode entry's instantiation carries."""
+    t = -(-m // 8)
+    return t if t <= 2 else 4
+
+
+def decode_plan(m: int, n: int, k: int, sms: int) -> Dict[str, int]:
+    """The decode entry's plan for an [m, k] x [k, n] product, m <= 32, on
+    ``sms`` multiprocessors: ``cluster`` blocks along K for every 128
+    output columns, ``warps`` warps a block (8, or 4 where K has fewer than
+    8 steps), each walking ``steps`` steps of 8 packed rows, so that
+    cluster * warps * steps * 8 = k / 2.  Among the clusters (1, 2, 4, 8)
+    that keep one block an SM, the smallest whose warps keep all their
+    steps' loads in flight at once (steps <= the kernel's depth: 4, 2 and
+    1 steps at 1, 2 and 4 n8 tiles of rows), else the largest; one block
+    an SM past the card's SMs (``tools/int4_kernel_probe.py`` times the
+    alternatives).  The partial sums' shared memory bounds the cluster.
+    The C entry refuses any other plan."""
+    if not 1 <= m <= DECODE_MAX_M or k % CHUNK_K:
+        raise ValueError(f"no decode plan for m {m}, k {k}")
+    steps_total = k // 2 // DECODE_STEP
+    warps = 8 if steps_total % 8 == 0 else 4
+    tiles = -(-n // TILE_N)
+    nt = _decode_tiles(m)
+    depth = {1: 4, 2: 2, 4: 1}[nt]
+    fits = [c for c in (1, 2, 4, 8)
+            if steps_total % (warps * c) == 0
+            and (warps + c - 1) * 8 * nt * 32 * 16 <= DECODE_MAX_SMEM]
+    one_wave = [c for c in fits if tiles * c <= sms] or fits[:1]
+    in_flight = [c for c in one_wave
+                 if steps_total // (warps * c) <= depth]
+    cluster = in_flight[0] if in_flight else one_wave[-1]
+    return dict(cluster=cluster, warps=warps,
+                steps=steps_total // (warps * cluster))
 
 
 _COUNTERS = {}
@@ -161,14 +203,23 @@ def quant_matmul_int4(x: torch.Tensor, qweight: torch.Tensor,
     x2 = _aligned(x.reshape(m, k))
     qw = _aligned(qweight)
     sc = _aligned(scales)
-    mt, splits, per = split_plan(m, n, k, _sm_count(x.device.index or 0))
-    tiles = -(-m // (TILE_M * mt)) * -(-n // TILE_N)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    counters = _tile_counters(x.device, tiles) if splits > 1 else None
+    sms = _sm_count(x.device.index or 0)
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(_build.load("int4_quant_matmul").int4_quant_matmul(
-        _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, mt, splits, per,
-        _ptr(ws), _ptr(counters), _ptr(out), stream), "int4_quant_matmul")
+    lib = _build.load("int4_quant_matmul")
+    if m <= DECODE_MAX_M:
+        plan = decode_plan(m, n, k, sms)
+        err = lib.int4_quant_matmul_decode(
+            _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, plan["cluster"],
+            plan["warps"], plan["steps"], _ptr(out), stream)
+    else:
+        splits, per = split_plan(m, n, k, sms)
+        tiles = -(-m // (4 * TILE_M)) * -(-n // TILE_N)
+        ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        counters = _tile_counters(x.device, tiles) if splits > 1 else None
+        err = lib.int4_quant_matmul(
+            _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, splits, per,
+            _ptr(ws), _ptr(counters), _ptr(out), stream)
+    _build.check(err, "int4_quant_matmul")
     launches["int4_quant_matmul"] += 1
     return out

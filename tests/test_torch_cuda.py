@@ -13,17 +13,22 @@ rounding of P to bf16 before P·V is pinned exactly, on an input where that
 rounding moves every output by a bf16 step.  The fp32 entry of
 the flash kernel is held to 1e-4 of the fp32 plain version (fp32 accuracy
 from split bf16 products).  The megakernel is held against its plain
-version in bf16 to 1e-2 on one layer and 3e-2 on three (roundings of the
-bf16 residual stream that differ by one step compound over layers).  The
+version in bf16 to 1e-2 on one layer, 3e-2 on three and 5e-2 on 32
+(roundings of the bf16 residual stream that differ by one step compound
+over layers), with int8 and bf16 cross caches and self caches empty, at
+the main path's 44 and at the edges of a 256-column slice; 100 launches in
+a row are bit-equal (a fixed sum order: a barrier that let a block run
+ahead would show).  The
 beam entry of kernel 1 is held to the same gates as kernel 1, and its
 rounding of P before P·V is pinned the same way, through a mixing
 indirection; so is the grouped (MQA/GQA) kernel, with the fresh column, and
 the paged kernel, through a permuted block table.  The int4 dequant matmul
 is held to the same gates (2e-2 bf16, 1e-2 fp32) at the SantaCoder-1B
-shapes and the edges of its tiles, and its two rounding rules (the group
-scale rounded to bf16 before it scales the weight; the per-channel scale
-in fp32 on the accumulator) are pinned bit for bit with one-hot rows of
-x.
+shapes and the edges of its tiles, its decode entry at M 1, 8, 17 and 32
+per channel, in one group and in groups of 128, and its two rounding rules
+(the group scale rounded to bf16 before it scales the weight; the
+per-channel scale in fp32 on the accumulator) are pinned bit for bit with
+one-hot rows of x through both entries.
 The causal mode of the flash kernel is held to the same gates as its
 non-causal mode (its mask is ``causal_bias``'s, bottom-right), its bf16
 entry under every plan it takes (keys over 1-4 warps) and refusing the
@@ -540,8 +545,9 @@ def _random_blobs(dev, n_layer, d, seed):
     for name in ("attn_ln", "cross_attn_ln", "mlp_ln"):
         st[name + ".weight"] = nrm(L, d, mean=1.0)
         st[name + ".bias"] = nrm(L, d)
-    return mk.pack_decoder_blobs(st, n_layer=L, hidden=d, n_head=heads,
-                                 head_dim=64, ffn=ffn, device=dev)
+    return mk.megakernel_tiles(mk.pack_decoder_blobs(
+        st, n_layer=L, hidden=d, n_head=heads, head_dim=64, ffn=ffn,
+        device=dev))
 
 
 @pytest.mark.parametrize("n_layer,tol,cross_dtype",
@@ -576,6 +582,89 @@ def test_megakernel_matches_plain(dev, n_layer, tol, cross_dtype):
     assert bool(torch.isfinite(hid).all())
     assert _rel(hid, hid_p) < tol
     assert _rel(fresh, fresh_p) < tol
+
+
+_MK_BLOBS = {}
+
+
+def _mk_case(dev, n_layer, cross_dtype, seed):
+    """Blobs at width 384 (6 heads) for n_layer layers, kept between the
+    cases, and a seeded input row, self cache of 448 and cross cache of
+    1500 (int8 with per-layer scales, or bf16)."""
+    if n_layer not in _MK_BLOBS:
+        _MK_BLOBS[n_layer] = _random_blobs(dev, n_layer, 384, seed=n_layer)
+    blobs = _MK_BLOBS[n_layer]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, S, Sc = 384, 448, 1500
+    H = d // 64
+    x = torch.randn(1, d, generator=g, device=dev).bfloat16()
+    cache = torch.randn(n_layer, 1, 2, H, 64, S, generator=g,
+                        device=dev).bfloat16()
+    if cross_dtype == torch.int8:
+        cross = torch.randint(-127, 128, (n_layer, 1, 2, H, 64, Sc),
+                              generator=g, device=dev, dtype=torch.int8)
+        cscale = torch.full((n_layer,), 1 / 40.0, device=dev)
+    else:
+        cross = torch.randn(n_layer, 1, 2, H, 64, Sc, generator=g,
+                            device=dev).bfloat16()
+        cscale = None
+    return blobs, x, cache, cross, cscale
+
+
+@pytest.mark.parametrize("seq", [1, 44, 256, 257, 448])
+@pytest.mark.parametrize("cross_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n_layer,tol", [(1, 1e-2), (32, 5e-2)])
+def test_megakernel_depths_and_lengths(dev, n_layer, tol, cross_dtype, seq):
+    """1 and 32 layers, int8 and bf16 cross caches, the self cache empty
+    (seq 1), at the main path's 44, at one and two past a 256-column
+    attention slice and full (448): the kernel against the plain version
+    within 1e-2 (1 layer) and 5e-2 (32 layers) of the largest output."""
+    blobs, x, cache, cross, cscale = _mk_case(dev, n_layer, cross_dtype,
+                                              seed=seq)
+    seq_t = torch.tensor([seq], dtype=torch.int32, device=dev)
+    hid, fresh = mk.fused_decoder_stack(x, blobs, cache, seq_t, 0.125,
+                                        cross_cache=cross,
+                                        cross_scale=cscale)
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(
+        x, blobs, cache, seq_t.cpu(), 0.125, cross, cscale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(hid).all()) and bool(
+        torch.isfinite(fresh).all())
+    assert _rel(hid, hid_p) < tol
+    assert _rel(fresh, fresh_p) < tol
+
+
+def test_megakernel_hundred_launches_in_a_row(dev):
+    """100 launches queued on one stream without a host wait, each with
+    its own barrier counter: every result equals the first bit for bit
+    (the kernel's sums have a fixed order, so a barrier that let a block
+    run ahead would show), and the first matches the plain version."""
+    blobs, x, cache, cross, cscale = _mk_case(dev, 4, torch.int8, seed=7)
+    seq_t = torch.tensor([44], dtype=torch.int32, device=dev)
+    outs = [mk.fused_decoder_stack(x, blobs, cache, seq_t, 0.125,
+                                   cross_cache=cross, cross_scale=cscale)
+            for _ in range(100)]
+    hid_p, _ = mk.plain_fused_decoder_stack(
+        x, blobs, cache, seq_t.cpu(), 0.125, cross, cscale)
+    torch.cuda.synchronize()
+    for i, (hid, fresh) in enumerate(outs):
+        assert torch.equal(hid, outs[0][0]), i
+        assert torch.equal(fresh, outs[0][1]), i
+    assert _rel(outs[0][0], hid_p) < 3e-2
+
+
+def test_megakernel_refuses_blobs_without_tiles(dev):
+    """Blobs without the card's tiles, or with tiles of another plan, raise
+    before a launch."""
+    blobs, x, cache, cross, cscale = _mk_case(dev, 1, torch.int8, seed=1)
+    seq_t = torch.tensor([44], dtype=torch.int32, device=dev)
+    before = mk.launches["decoder_megakernel"]
+    for bad in (blobs._replace(tiles=None),
+                mk.megakernel_tiles(blobs, sms=100)):
+        with pytest.raises(ValueError):
+            mk.fused_decoder_stack(x, bad, cache, seq_t, 0.125,
+                                   cross_cache=cross, cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -1027,7 +1116,8 @@ def test_int4_kernel_matches_plain(dev, m, k, n, groups):
     """The SantaCoder-1B linears in groups of 128, per channel, one group
     ([1, N]), N at the edges of the 128-column tiles and of the 16-byte
     loads, K 384 in groups of 128 (a byte's nibbles in different groups);
-    M 1, 8 (decode, K split over blocks) and 512 (the prefill)."""
+    M 1, 8 (the decode entry, K split over a cluster) and 512 (the
+    prefill entry)."""
     g = torch.Generator(device=dev).manual_seed(k + n + m)
     qw, sc = _int4_operands(dev, g, k, n, groups)
     x = torch.randn(m, k, generator=g, device=dev).bfloat16()
@@ -1046,6 +1136,57 @@ def test_int4_kernel_matches_plain(dev, m, k, n, groups):
     assert torch.equal(again[0], out)
 
 
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+@pytest.mark.parametrize("scales", ["per_channel", "one_group", "groups128"])
+@pytest.mark.parametrize("k,n", [(2048, 2304), (2048, 2048), (2048, 8192),
+                                 (8192, 2048)],
+                         ids=["qkv", "dense", "fc", "proj"])
+def test_int4_decode_entry_matches_plain(dev, m, scales, k, n):
+    """The decode entry (M <= 32) at the SantaCoder-1B linears, per channel
+    ([N] scales), one group ([1, N]: the scale on the accumulator) and
+    groups of 128, with the wrapper's plan: held to the int4 gates (2e-2
+    of the bf16 plain version, 1e-2 of the fp32 one), one launch, and a
+    second call bit-equal (its sum order is fixed)."""
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    groups = {"per_channel": 0, "one_group": 1, "groups128": k // 128}[scales]
+    qw, sc = _int4_operands(dev, g, k, n, groups)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    before = iq.launches["int4_quant_matmul"]
+    out = iq.quant_matmul_int4(x, qw, sc)
+    assert iq.launches["int4_quant_matmul"] == before + 1
+    ref = iq.plain_quant_matmul_int4(x, qw, sc)
+    ref32 = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 2e-2 and _rel(out, ref32) < 1e-2
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc), out)
+
+
+def test_int4_decode_entry_refuses_other_plans(dev):
+    """The decode entry's C function refuses a plan that does not cover
+    K/2 exactly, a cluster past 8, warps other than 4 or 8, M past 32, and
+    launches nothing; the wrapper's plan launches."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qw, sc = _int4_operands(dev, g, 2048, 2048, 16)
+    x = torch.randn(8, 2048, generator=g, device=dev).bfloat16()
+    out = torch.empty(8, 2048, dtype=torch.bfloat16, device=dev)
+    lib = _build.load("int4_quant_matmul")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(m, cluster, warps, steps):
+        return lib.int4_quant_matmul_decode(
+            x.data_ptr(), qw.data_ptr(), sc.data_ptr(), m, 2048, 2048, 16,
+            cluster, warps, steps, out.data_ptr(), stream)
+
+    plan = iq.decode_plan(8, 2048, 2048, 132)
+    assert call(8, plan["cluster"], plan["warps"], plan["steps"]) == 0
+    for bad in [(8, 8, 8, 1), (8, 16, 8, 1), (8, 4, 2, 16), (8, 8, 6, 3),
+                (33, 8, 8, 2), (8, 8, 8, 0)]:
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("k,n,rows", [
     (384, 256, [0, 150, 191, 192, 342, 383, 64, 300]),
     (8192, 2048, [0, 4095, 4096, 8191, 1000, 5000, 2047, 6143])])
@@ -1054,7 +1195,8 @@ def test_int4_kernel_rounding_rules_one_hot(dev, k, n, rows):
     weight, with no sum involved.  Grouped: bf16(q * bf16(scale)) bit for
     bit (a scale not rounded first gives other values); per channel:
     bf16(q * scale) with the fp32 scale, bit for bit.  Rows in both halves
-    of K; at K 8192 the kernel splits K over blocks."""
+    of K; 8 rows take the decode entry, which at K 8192 splits K over a
+    cluster."""
     g = torch.Generator(device=dev).manual_seed(k)
     groups = k // 128
     qw, sc = _int4_operands(dev, g, k, n, groups)
@@ -1069,6 +1211,25 @@ def test_int4_kernel_rounding_rules_one_hot(dev, k, n, rows):
     channel = (q * sc[0]).bfloat16()
     assert torch.equal(iq.quant_matmul_int4(x, qw, sc[0]), channel)
     assert not torch.equal(channel, (q * sc[0].bfloat16().float()).bfloat16())
+
+
+@pytest.mark.parametrize("k,n,rows", [
+    (384, 256, [0, 150, 191, 192, 342, 383, 64, 300]),
+    (8192, 2048, [0, 4095, 4096, 8191, 1000, 5000, 2047, 6143])])
+def test_int4_prefill_entry_rounding_rules_one_hot(dev, k, n, rows):
+    """The same pins through the prefill entry (M 40 > 32: the one-hot
+    rows after 32 zero rows), which keeps its own dequantisation."""
+    g = torch.Generator(device=dev).manual_seed(k + 1)
+    groups = k // 128
+    qw, sc = _int4_operands(dev, g, k, n, groups)
+    idx = torch.tensor(rows, device=dev)
+    x = torch.zeros(32 + len(rows), k, device=dev, dtype=torch.bfloat16)
+    x[32 + torch.arange(len(rows), device=dev), idx] = 1
+    q = unpack_int4(qw)[idx].float()
+    grouped = (q * sc[idx // 128].bfloat16().float()).bfloat16()
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc)[32:], grouped)
+    channel = (q * sc[0]).bfloat16()
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc[0])[32:], channel)
 
 
 def test_int4_kernel_takes_unaligned_views(dev):
@@ -1477,8 +1638,9 @@ def _probe_data(dev, p, seed):
     return g, blob, x, scales
 
 
-# (cols, ksplit, blocks): the default plan, the megakernel's GEMV item, on
-# a block per item and on a grid of 132 blocks, and a split wide item
+# (cols, ksplit, blocks): the default plan, the megakernel's first GEMV
+# item, on a block per item and on a grid of 132 blocks, and a split wide
+# item
 PROBE_ITEMS = {"plan": (None, None, 0), "megakernel": (32, 4, 0),
                "megakernel_grid": (32, 4, 132), "wide_split": (256, 2, 0)}
 

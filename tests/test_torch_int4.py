@@ -183,16 +183,88 @@ def test_one_group_follows_the_pallas_kernel():
 
 
 def test_split_plan_covers_k():
-    """The kernel's split of K along 64-row chunks covers every chunk once,
-    at the path's shapes and at the edges the card tests use."""
-    for m, k, n in [(8, 2048, 2304), (8, 2048, 2048), (8, 2048, 8192),
-                    (8, 8192, 2048), (512, 2048, 2304), (512, 8192, 2048),
-                    (1, 384, 256), (20, 1280, 1280), (8, 128, 256)]:
-        mt, splits, per = iq.split_plan(m, n, k, 132)
+    """The prefill entry's split of K along 64-row chunks covers every chunk
+    once, at the path's shapes and at the edges the card tests use."""
+    for m, k, n in [(512, 2048, 2304), (512, 2048, 2048), (512, 2048, 8192),
+                    (512, 8192, 2048), (33, 384, 256), (40, 1280, 1280),
+                    (64, 128, 256)]:
+        splits, per = iq.split_plan(m, n, k, 132)
         chunks = k // iq.CHUNK_K
-        assert mt == (1 if m <= 32 else 4)
         assert (splits - 1) * per < chunks <= splits * per
-        assert splits == 1 or per >= iq.MIN_CHUNKS_PER_SPLIT[mt]
+        assert splits == 1 or per >= iq.MIN_CHUNKS_PER_SPLIT
+
+
+# the SantaCoder-1B linears (K, N) and the card tests' edges
+_DECODE_SHAPES = [(2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048),
+                  (384, 256), (1280, 1280), (128, 256), (64, 256),
+                  (256, 1000), (2048, 1040)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+@pytest.mark.parametrize("k,n", _DECODE_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_decode_plan_covers_k_within_the_entry_limits(m, k, n, sms):
+    """The decode entry's plan: every packed row of K in exactly one step
+    of one warp of one block of the cluster (cluster * warps * steps * 8
+    = K/2), within the C entry's limits (a cluster of 1-8, 4 or 8 warps,
+    the partial sums' shared memory within 227 KB); the warps' rows
+    listed as the kernel walks them cover K/2 once."""
+    plan = iq.decode_plan(m, n, k, sms)
+    c, w, s = plan["cluster"], plan["warps"], plan["steps"]
+    assert c in (1, 2, 4, 8) and w in (4, 8) and s >= 1
+    assert c * w * s * iq.DECODE_STEP == k // 2
+    nt = iq._decode_tiles(m)
+    assert nt * 8 >= m and nt in (1, 2, 4)
+    assert (w + c - 1) * 8 * nt * 32 * 16 <= iq.DECODE_MAX_SMEM
+    rows = sorted(((r * w + wp) * s + st) * iq.DECODE_STEP + i
+                  for r in range(c) for wp in range(w) for st in range(s)
+                  for i in range(iq.DECODE_STEP))
+    assert rows == list(range(k // 2))
+
+
+def test_decode_plan_at_the_path_shapes():
+    """On 132 SMs the SantaCoder-1B linears at M 8: one block an SM, the
+    smallest cluster whose warps keep their 4 steps in flight (qkv 18
+    column tiles x 4, dense 16 x 4), else the largest (fc 64 x 2, proj
+    16 x 8), blocks of 8 warps."""
+    got = {name: iq.decode_plan(8, n, k, 132) for name, k, n in [
+        ("qkv", 2048, 2304), ("dense", 2048, 2048), ("fc", 2048, 8192),
+        ("proj", 8192, 2048)]}
+    assert got == {
+        "qkv": dict(cluster=4, warps=8, steps=4),
+        "dense": dict(cluster=4, warps=8, steps=4),
+        "fc": dict(cluster=2, warps=8, steps=8),
+        "proj": dict(cluster=8, warps=8, steps=8)}
+    with pytest.raises(ValueError):
+        iq.decode_plan(33, 2048, 2048, 132)
+
+
+def test_int4_probe_stamps_the_decode_entry():
+    """``tools/int4_kernel_probe.py``'s stamped copy of the kernel: one stamp
+    after each of its anchors in the decode entry (each found once), the
+    stamps' reader, and the phases read back from a run's stamps."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "int4_kernel_probe", os.path.join(root, "tools",
+                                          "int4_kernel_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = open(os.path.join(root, "eddie_wang_hackathon2023_tpu_torch",
+                            "csrc", "int4_quant_matmul.cu")).read()
+    for anchor, _ in probe.STAMPED:
+        assert src.count(anchor) == 1, anchor
+    out = probe.stamped_source(src)
+    assert out.count(probe.STAMP) == len(probe.STAMPED)
+    assert out.count("int stamp_i = 0;") == 1
+    assert 'extern "C" int read_stamps' in out
+    assert out.replace(probe.STAMP + "\n", "").replace(
+        "int stamp_i = 0;\n", "").startswith("__device__ long long g_st")
+    got = probe.phases([0, 5, 15, 30, 40, 41, 50, 52], 3)
+    assert got == {"issue": 5, "steps": [10, 15, 10], "warp sums": 1,
+                   "cluster sums landed": 9, "out": 2}
+    with pytest.raises(ValueError):
+        probe.phases([0, 1, 2], 3)
 
 
 def test_int4_quant_matmul_refuses_bad_shapes():

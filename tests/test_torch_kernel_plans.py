@@ -164,3 +164,33 @@ def test_plain_gqa_decode_at_the_path_layout():
     top = float(np.abs(ref).max())
     step = 2.0 ** (math.floor(math.log2(top)) - 7)   # a bf16 step at |max|
     assert float(np.abs(out.float().numpy() - ref).max()) <= step
+
+
+# -- tools/kernel_ab.py reads each checkout's plans from its files ----------
+
+def test_kernel_ab_reads_this_checkouts_plans():
+    """``defs_of`` takes the int4 plans and the megakernel's argument
+    structure and plan from this checkout's files alone: they agree with
+    the modules' own."""
+    import ctypes
+    import sys
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import kernel_ab
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    d = kernel_ab.defs_of(REPO, os.path.join(kernel_ab.OPS,
+                                             "int4_quant_matmul.py"),
+                          ("split_plan", "decode_plan", "_decode_tiles"))
+    for m, k, n in [(8, 2048, 2304), (8, 8192, 2048), (32, 2048, 8192)]:
+        assert d["decode_plan"](m, n, k, 132) == iq.decode_plan(m, n, k, 132)
+    assert d["split_plan"](512, 2048, 2048, 132) == iq.split_plan(
+        512, 2048, 2048, 132)
+    d = kernel_ab.defs_of(REPO, os.path.join(kernel_ab.OPS,
+                                             "decoder_layer.py"),
+                          ("_MegaArgs", "megakernel_plan", "_panels",
+                           "_flat_slots"))
+    assert d["megakernel_plan"](1280, 4, 132) == mk.megakernel_plan(
+        1280, 4, 132)
+    assert [f for f, _ in d["_MegaArgs"]._fields_] == [
+        f for f, _ in mk._MegaArgs._fields_]
+    assert ctypes.sizeof(d["_MegaArgs"]) == ctypes.sizeof(mk._MegaArgs)

@@ -110,12 +110,104 @@ def test_blobs_bit_equal_to_jax_packer():
     out = mk.pack_decoder_blobs(BLOCK_STATE, **PACK_KW)
     own = _port_decoder().megakernel_blobs()
     assert ref.gscale is None and out.gscale is None and own.gscale is None
-    for name in mk.MegakernelBlobs._fields[:-1]:
+    # the port's tiles (the card's repack) follow the JAX packer's fields
+    assert out.tiles is None and own.tiles is None
+    for name in mk.MegakernelBlobs._fields[:-3]:
         r = np.asarray(getattr(ref, name))
         for blobs in (out, own):
             t = getattr(blobs, name).numpy()
             assert t.dtype == r.dtype and t.shape == r.shape, name
             np.testing.assert_array_equal(t, r, err_msg=name)
+
+
+# -- the kernel's GEMV plan and its repacked tiles --------------------------
+
+@pytest.mark.parametrize("d", [1280, 384, 256, 128])
+@pytest.mark.parametrize("sms", [132, 114, 100, 16])
+def test_megakernel_plan_items_cover_every_column(d, sms):
+    """Each GEMV stage's items of c columns by all of K cover its columns,
+    none wholly past them, at most one a block; the tiles of a layer are
+    the stages' items in order (the checks of the C entry's plan_ok)."""
+    nf = 4
+    plan = mk.megakernel_plan(d, nf, sms)
+    cols = (3 * d, d, d, d, nf * d, d)
+    ks = (d, d, d, d, d, nf * d)
+    off = 0
+    for g in range(len(mk.GEMV_STAGES)):
+        c, n, k = (plan[f][g] for f in ("item_c", "items", "item_k"))
+        assert k == ks[g] and k % 16 == 0
+        assert 1 <= n <= sms and c * n >= cols[g] > c * (n - 1)
+        if sms >= 107 and d <= mk.MAX_D:
+            assert c <= mk.ITEM_MAX_COLS
+        assert plan["tile_off"][g] == off
+        off += c * n * k
+    assert plan["layer_bytes"] == off
+
+
+def test_megakernel_plan_at_large_v2():
+    """Whisper large-v2 on 132 SMs: every stage one wave (128 items; fc1's
+    5120 columns 132 items of 39, the last one 11 wide, so 28 padding
+    columns of 1280 bytes)."""
+    plan = mk.megakernel_plan(1280, 4, 132)
+    assert plan["item_c"] == [30, 10, 10, 10, 39, 10]
+    assert plan["items"] == [128, 128, 128, 128, 132, 128]
+    assert plan["layer_bytes"] == 14 * 1280 * 1280 + 28 * 1280
+
+
+def _random_wblob(L, d, nf, seed):
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.randint(-128, 128, (L, 6 + 2 * nf, d, d))
+                            .astype(np.int8))
+
+
+@pytest.mark.parametrize("d,sms", [(128, 132), (256, 100), (384, 16)])
+def test_megakernel_tiles_round_trip(d, sms):
+    """Each stage read back from the tiles (``untile``) is the stage's weight
+    composed from the K-major panels (q | k | v, the fc1 panels side by
+    side, the fc2 panels stacked along K), with zeros in the padding
+    columns; the tiles carry the grid they were cut for."""
+    L, nf = 2, 4
+    w = _random_wblob(L, d, nf, seed=d)
+    blobs = mk.MegakernelBlobs(w, *[torch.zeros(1)] * 7)
+    tiled = mk.megakernel_tiles(blobs, sms=sms)
+    assert tiled.tiles_grid == sms and tiled.tiles.dtype == torch.int8
+    plan = mk.megakernel_plan(d, nf, sms)
+    assert tuple(tiled.tiles.shape) == (L, plan["layer_bytes"])
+    want = [torch.cat([w[:, 0], w[:, 1], w[:, 2]], dim=2), w[:, 3], w[:, 4],
+            w[:, 5], torch.cat([w[:, 6 + j] for j in range(nf)], dim=2),
+            torch.cat([w[:, 6 + nf + j] for j in range(nf)], dim=1)]
+    for g, ref in enumerate(want):
+        got = mk.untile(tiled.tiles, plan, g)
+        cols = ref.shape[2]
+        assert torch.equal(got[..., :cols], ref), mk.GEMV_STAGES[g]
+        assert not got[..., cols:].any()
+
+
+def test_gemv_through_tiles_equals_the_blob():
+    """A plain GEMV read through the repacked tiles equals one read through
+    the blob's panels bit for bit (exact fp64 sums), per stage and layer,
+    on a seeded row;
+    and the layers sliced from tiled blobs keep their tiles."""
+    L, d, nf = 2, 256, 4
+    w = _random_wblob(L, d, nf, seed=1)
+    blobs = mk.megakernel_tiles(mk.MegakernelBlobs(w, *[torch.zeros(L)] * 7),
+                                sms=132)
+    plan = mk.megakernel_plan(d, nf, 132)
+    rs = np.random.RandomState(2)
+    pan = [torch.cat([w[:, 0], w[:, 1], w[:, 2]], dim=2), w[:, 3], w[:, 4],
+           w[:, 5], torch.cat([w[:, 6 + j] for j in range(nf)], dim=2),
+           torch.cat([w[:, 6 + nf + j] for j in range(nf)], dim=1)]
+    for g, ref in enumerate(pan):
+        k, cols = ref.shape[1:]
+        v = torch.from_numpy(rs.randn(1, k).astype(np.float32)).bfloat16()
+        for layer in range(L):
+            tile_w = mk.untile(blobs.tiles, plan, g)[layer, :, :cols]
+            # bf16 x int8 products summed in fp64 are exact in any order
+            assert torch.equal(v.double() @ tile_w.double(),
+                               v.double() @ ref[layer].double())
+    one = mk.blob_layers(blobs, 1, 2)
+    assert torch.equal(one.tiles, blobs.tiles[1:2])
+    assert torch.equal(one.wblob, w[1:2]) and one.tiles_grid == 132
 
 
 @pytest.mark.parametrize("int8_cross", [False, True])

@@ -273,25 +273,43 @@ def test_stage_probe_stamps_every_barrier():
                  "megakernel_stage_probe.py")
     src = open(os.path.join(REPO, "eddie_wang_hackathon2023_tpu_torch",
                             "csrc", "decoder_layer.cu")).read()
-    # the layer loop has one grid barrier per stage
-    assert src.count("grid_sync(a.barrier);") == len(sp.STAGES) == 8
+    # the layer is a loop over its 8 stages, each ending in one grid
+    # barrier, 6 of them with a GEMV and its wait in the ring
+    assert "for (int st = 0; st < kLayerStages; ++st)" in src
+    assert "constexpr int kLayerStages = 8;" in src and len(sp.STAGES) == 8
+    assert src.count("grid_sync(a.barrier, gen);") == 1
+    assert src.count("gemv_stage(a, ring, l, g,") == 1
+    assert src.count(sp.RING_WAIT) == 1
     out = sp.stamped_source(src)
     assert out.count("STAMP();") == 4      # kernel start, end; barrier in, out
     # every block: its start, barrier in and out
     assert [out.count(f"BSTAMP({s});") for s in (-1, 0, 1)] == [1, 1, 1]
+    # block 0: before and after the ring's wait
+    assert [out.count(f"WSTAMP({s});") for s in (0, 1)] == [1, 1]
+    wait = out[out.index("uint32_t ring_wait("):]
+    wait = wait[:wait.index("\n}\n")]
+    assert (wait.index("WSTAMP(0);") < wait.index("mbar_wait(")
+            < wait.index("WSTAMP(1);"))
     body = out[out.index("void grid_sync("):]
     body = body[:body.index("\n}\n")]
     assert body.count("STAMP();") == 2
     assert body.index("STAMP();") < body.index("BSTAMP(0);") < body.index(
         "__syncthreads();")
     assert body.rstrip().endswith("__syncthreads();\n  STAMP();\n  BSTAMP(1);")
-    assert 'extern "C" int read_stamps' in out
-    assert 'extern "C" int read_block_stamps' in out
-    stripped = out
+    for entry in ("read_stamps", "read_wait_stamps", "read_block_stamps"):
+        assert f'extern "C" int {entry}' in out
+    stripped = out.replace(
+        "  if (sz) {\n    WSTAMP(0);\n    mbar_wait(", "  if (sz) mbar_wait(")
+    stripped = stripped.replace(
+        "(r.done / kSlots) & 1);\n    WSTAMP(1);\n  }\n",
+        "(r.done / kSlots) & 1);\n")
     for line in ("  STAMP();\n", "  BSTAMP(-1);\n", "  BSTAMP(0);\n",
                  "  BSTAMP(1);\n"):
         stripped = stripped.replace(line, "")
     assert stripped.startswith(src[:100])
+    body = stripped[stripped.index("\nnamespace {"):]
+    assert body[:body.rindex('extern "C" int reset_stamps')].strip() == \
+        src[src.index("\nnamespace {"):].strip()
 
 
 def test_stage_table():
@@ -308,6 +326,48 @@ def test_stage_table():
     assert total == 2 * 8 * 13 + 5 and tail == 5
     with pytest.raises(ValueError):
         sp.stage_table(stamps[:-1], 2)
+
+
+def test_ring_waits():
+    sp = _module("megakernel_stage_probe", "tools",
+                 "megakernel_stage_probe.py")
+    # two layers of six waits: wait i lasts i + 1
+    waits = [(10 * i, 10 * i + i + 1) for i in range(12)]
+    assert sp.ring_waits(waits, 2) == [1 + 7, 2 + 8, 3 + 9, 4 + 10, 5 + 11,
+                                       6 + 12]
+    with pytest.raises(ValueError):
+        sp.ring_waits(waits[:-1], 2)
+
+
+def test_gemv_split():
+    sp = _module("megakernel_stage_probe", "tools",
+                 "megakernel_stage_probe.py")
+    # one layer: stage s's barrier entered at 100 s + 90, left at 100 s +
+    # 100; start at 0; each GEMV stage waits for its weights from 10 to 20
+    # after the previous barrier's exit (the start, for the first)
+    stamps = [0]
+    for st in range(len(sp.STAGES)):
+        stamps += [100 * st + 90, 100 * st + 100]
+    stamps.append(900)
+    waits = [(100 * st + 10, 100 * st + 20) for st in sp.GEMV_AT]
+    before, after = sp.gemv_split(stamps, waits, 1)
+    assert before == [10] * 6 and after == [70] * 6
+
+
+def test_sass_sizes():
+    sp = _module("megakernel_stage_probe", "tools",
+                 "megakernel_stage_probe.py")
+    listing = """
+\t\tFunction : _Z10megakernelIaEv8MegaArgs
+        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x000 */
+                                                             /* 0x000 */
+        /*0010*/                   S2R R0, SR_TID.X ;       /* 0x000 */
+\t\tFunction : _Z10megakernelI13__nv_bfloat16Ev8MegaArgs
+        /*0000*/                   EXIT ;                   /* 0x000 */
+"""
+    assert sp.sass_sizes(listing) == {"_Z10megakernelIaEv8MegaArgs": 2,
+                                      "_Z10megakernelI13__nv_bfloat16Ev8"
+                                      "MegaArgs": 1}
 
 
 def test_barrier_table():

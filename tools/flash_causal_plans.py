@@ -47,9 +47,9 @@ def main(argv=None):
         import kernel_ab
         other_libs = kernel_ab.libraries(_build, {"other": argv[0]})
         other = other_libs["other"]["flash_attention"].flash_attention
-        other_plan = kernel_ab.plan_function(argv[0], os.path.join(
-            "eddie_wang_hackathon2023_tpu_torch", "ops", "flash_attention.py"),
-            "causal_plan")
+        other_plan = kernel_ab.defs_of(argv[0], os.path.join(
+            kernel_ab.OPS, "flash_attention.py"),
+            ("causal_plan",)).get("causal_plan")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)

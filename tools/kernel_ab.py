@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""This checkout's attention kernels against another checkout's, in turns
-on one NVIDIA GPU.
+"""This checkout's attention kernels, its int4 dequant matmul and its
+decode megakernel against another checkout's, in turns on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py OTHER       # OTHER: the root of a checkout
 
 Builds ``csrc/decode_attention.cu``, ``csrc/flash_attention.cu``,
-``csrc/gqa_decode_attention.cu`` and ``examples/custom_kernel_torch/
-fmha.cu`` of OTHER into ``build/ab/`` (each with the ctypes signatures of
-OTHER's ``ops/_build.py``, and launched with the plans of OTHER's
-``fmha_cuda.py`` and ``ops/flash_attention.py``) and times, with CUDA events behind a spin as
-``chip_smoke.py`` does, their entries at the paths' shapes: the beam entry
-of kernel 1 (beam 5, 20 heads of 64, bf16 S 448 at sequence 44, 32 layers
-rotating), kernel 2's fp32 entry ([1,20,1536,64], valid 1500) and its
-causal mode ([1,20,227,64] bf16), kernel 2's bf16 non-causal entry
-([1,20,1536,64], valid 1500), the user FMHA's fp32 and bf16 entries
-([1,20,1536,64] valid 1500; bf16 also [1,20,3,64] causal) and the grouped
-kernel at the decoder path's shape (batch 8, one KV head under 16 query
-heads of 128, S 84, sequence 70, start 4, 24 layers rotating), with an
-int8 and a bf16 cache.  Each is timed four times, OTHER, this, this,
-OTHER, so that a drift of the card shows.  Compare two versions only
+``csrc/gqa_decode_attention.cu``, ``csrc/int4_quant_matmul.cu``,
+``csrc/decoder_layer.cu`` and ``examples/custom_kernel_torch/fmha.cu`` of
+OTHER into ``build/ab/`` (each with the ctypes signatures of OTHER's
+``ops/_build.py``, and launched with the plans of OTHER's ``fmha_cuda.py``,
+``ops/flash_attention.py``, ``ops/int4_quant_matmul.py`` and
+``ops/decoder_layer.py``, read from the files) and times, with CUDA events
+behind a spin as ``chip_smoke.py`` does, their entries at the paths'
+shapes: the beam entry of kernel 1 (beam 5, 20 heads of 64, bf16 S 448 at
+sequence 44, 32 layers rotating), kernel 2's fp32 entry ([1,20,1536,64],
+valid 1500) and its causal mode ([1,20,227,64] bf16), kernel 2's bf16
+non-causal entry ([1,20,1536,64], valid 1500), the user FMHA's fp32 and
+bf16 entries ([1,20,1536,64] valid 1500; bf16 also [1,20,3,64] causal), the
+grouped kernel at the decoder path's shape (batch 8, one KV head under 16
+query heads of 128, S 84, sequence 70, start 4, 24 layers rotating) with an
+int8 and a bf16 cache, the int4 matmul at SantaCoder-1B's four linears
+(groups of 128) at M 8 and M 512, rotating over weights past the L2, and
+the decode megakernel's step at Whisper large-v2 (32 layers, d 1280, int8
+cross cache of 1500, sequence 44; ``chip_smoke.py``'s seeded blobs, each
+checkout's own weight layout).  Each is timed four times, OTHER, this,
+this, OTHER, so that a drift of the card shows.  Compare two versions only
 within one run.
 """
 import ast
@@ -35,7 +41,9 @@ CSRC = os.path.join("eddie_wang_hackathon2023_tpu_torch", "csrc")
 # each library's source, relative to the root of a checkout
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
            for name in ("decode_attention", "flash_attention",
-                        "gqa_decode_attention")}
+                        "gqa_decode_attention", "int4_quant_matmul",
+                        "decoder_layer")}
+OPS = os.path.join("eddie_wang_hackathon2023_tpu_torch", "ops")
 SOURCES["custom_fmha"] = os.path.join("examples", "custom_kernel_torch",
                                       "fmha.cu")
 
@@ -62,21 +70,27 @@ def signatures(root, name):
     return mod.SIGNATURES[name]
 
 
-def plan_function(root, path, name):
-    """The function ``name`` of the file ``path`` of the checkout at
-    ``root`` (a plan: a pure function of its arguments and ``torch``),
-    taken from the file alone so that nothing of that module runs; None if
-    the checkout has no such function."""
+def defs_of(root, path, names):
+    """The module-level constants (upper-case names) and the functions and
+    classes ``names`` of the file ``path`` of the checkout at ``root``,
+    taken from the file alone (nothing else of that module runs), as a
+    dict; a name the file lacks is left out."""
+    import typing
+
     import torch
     with open(os.path.join(root, path)) as f:
         tree = ast.parse(f.read())
-    defs = [n for n in tree.body
-            if isinstance(n, ast.FunctionDef) and n.name == name]
-    if not defs:
-        return None
-    scope = {"torch": torch}
-    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), scope)
-    return scope[name]
+    keep = [n for n in tree.body
+            if (isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and n.name in names)
+            or (isinstance(n, ast.Assign) and all(
+                isinstance(e, ast.Name) and e.id.isupper()
+                for t in n.targets
+                for e in (t.elts if isinstance(t, ast.Tuple) else [t])))]
+    scope = {"torch": torch, "ctypes": ctypes, "Dict": typing.Dict,
+             "Tuple": typing.Tuple, "Optional": typing.Optional}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), scope)
+    return scope
 
 
 def libraries(torch_build, roots):
@@ -127,12 +141,12 @@ def main(argv=None):
     libs = libraries(_build, roots)
     # each checkout's own plans: the user FMHA's, and kernel 2's causal one
     # (None where the checkout has none)
-    fmha_plans = {who: plan_function(root, os.path.join(
-        "examples", "custom_kernel_torch", "fmha_cuda.py"), "fmha_plan")
-        for who, root in roots.items()}
-    causal_plans = {who: plan_function(root, os.path.join(
-        "eddie_wang_hackathon2023_tpu_torch", "ops", "flash_attention.py"),
-        "causal_plan") for who, root in roots.items()}
+    fmha_plans = {who: defs_of(root, os.path.join(
+        "examples", "custom_kernel_torch", "fmha_cuda.py"),
+        ("fmha_plan",)).get("fmha_plan") for who, root in roots.items()}
+    causal_plans = {who: defs_of(root, os.path.join(OPS, "flash_attention.py"),
+                                 ("causal_plan",)).get("causal_plan")
+                    for who, root in roots.items()}
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
@@ -246,6 +260,109 @@ def main(argv=None):
         ("grouped bf16, batch 8, 1 KV head x 16, D 128, S 84, seq 70",
          grouped(False)),
     ]
+    # the int4 matmul: each checkout's entry for M 8 (the decode entry and
+    # its plan, or the one entry with the split plan) and M 512
+    int4_defs = {who: defs_of(root, os.path.join(OPS, "int4_quant_matmul.py"),
+                              ("split_plan", "decode_plan", "_decode_tiles"))
+                 for who, root in roots.items()}
+    counters = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+
+    def int4(m, k, n):
+        copies = -(-120_000_000 // (k // 2 * n))
+        qw = torch.randint(-128, 128, (copies, k // 2, n), generator=g,
+                           device=dev, dtype=torch.int8)
+        sc = torch.rand((copies, k // 128, n), generator=g, device=dev)
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        ws = torch.empty((64, m, n), dtype=torch.float32, device=dev)
+
+        def run(who, i):
+            lib, defs = libs[who]["int4_quant_matmul"], int4_defs[who]
+            w, s_ = qw[i % copies].data_ptr(), sc[i % copies].data_ptr()
+            if "decode_plan" in defs and m <= defs["DECODE_MAX_M"]:
+                p = defs["decode_plan"](m, n, k, sms)
+                return lib.int4_quant_matmul_decode(
+                    x.data_ptr(), w, s_, m, n, k, k // 128, p["cluster"],
+                    p["warps"], p["steps"], out.data_ptr(), stream())
+            plan = defs["split_plan"](m, n, k, sms)
+            # the parent's entry took the m-tiles first
+            return lib.int4_quant_matmul(
+                x.data_ptr(), w, s_, m, n, k, k // 128, *plan,
+                ws.data_ptr(), counters.data_ptr(), out.data_ptr(),
+                stream())
+        return run
+
+    # the megakernel: each checkout's argument structure and plan, read
+    # from its files; the blobs are chip_smoke's, with this checkout's
+    # tiles (the parent's kernel reads the panels)
+    mk_defs = {who: defs_of(root, os.path.join(OPS, "decoder_layer.py"),
+                            ("_MegaArgs", "megakernel_plan", "_panels",
+                             "_flat_slots"))
+               for who, root in roots.items()}
+    ml, mh, md, ms_, msc, mn = 32, 20, 1280, 448, 1500, 44
+    blobs = smoke.random_blobs(torch, dev, g, ml, md)
+    mnf = (blobs.wblob.shape[1] - 6) // 2
+    mx = torch.randn(md, generator=g, device=dev).bfloat16()
+    mself = torch.randn(ml, 1, 2, mh, 64, ms_, generator=g,
+                        device=dev).bfloat16()
+    mcross = torch.randint(-127, 128, (ml, 1, 2, mh, 64, msc), generator=g,
+                           device=dev, dtype=torch.int8)
+    mcs = torch.full((ml,), 1 / 40.0, device=dev)
+    mseq = torch.tensor([mn], dtype=torch.int32, device=dev)
+    mbufs = [torch.empty(n_, dtype=torch.float32, device=dev) for n_ in (
+        max(3, mnf) * 4 * md, mnf * 4 * md, mh * 8 * 66, md)]
+    mhid = torch.empty(md, dtype=torch.bfloat16, device=dev)
+    mfresh = torch.empty(ml, 2, mh, 64, dtype=torch.bfloat16, device=dev)
+    # the barrier, then (this checkout's) the heads' counters
+    mbar = torch.zeros(2 + 2 * ml * mh, dtype=torch.int32, device=dev)
+
+    def mega_args(who):
+        defs = mk_defs[who]
+        pan, slots = defs["_panels"](mnf), defs["_flat_slots"](mnf)
+        plan = (defs["megakernel_plan"](md, mnf, sms)
+                if "megakernel_plan" in defs else {})
+        ptrs = dict(x=mx, wblob=blobs.wblob, tiles=blobs.tiles,
+                    pair_scale=blobs.pair_scale, pair_bias=blobs.pair_bias,
+                    flat_scale=blobs.flat_scale, flat_bias=blobs.flat_bias,
+                    ln_par=blobs.ln_par, self_cache=mself, cross_cache=mcross,
+                    cross_scale=mcs, seq_len=mseq, hid=mhid, fresh=mfresh,
+                    part_a=mbufs[0], part_b=mbufs[1], act_a=mbufs[0],
+                    act_b=mbufs[1], att=mbufs[2], ctx=mbufs[3],
+                    barrier=mbar, heads=mbar[2:])
+        vals = dict(n_layer=ml, d=md, n_head=mh, s_self=ms_, s_cross=msc,
+                    npan=blobs.wblob.shape[1], nflat=blobs.flat_scale.shape[1],
+                    nf=mnf, p_qkv=pan["q"], p_dense=pan["dense"],
+                    p_crossq=pan["crossq"], p_crossdense=pan["crossdense"],
+                    p_fc1=pan["fc1"], p_fc2=pan["fc2"],
+                    f_dense=slots["dense"], f_crossdense=slots["crossdense"],
+                    f_fc1=slots["fc1"], f_fc2=slots["fc2"], cross_int8=1,
+                    ring_bytes=0, scale=64 ** -0.5, eps=1e-5, **plan)
+        cls = defs["_MegaArgs"]
+        fields = []
+        for name, typ in cls._fields_:
+            if name in ptrs:
+                fields.append(ptrs[name].data_ptr())
+            elif isinstance(vals[name], list):
+                fields.append(typ(*vals[name]))
+            else:
+                fields.append(vals[name])
+        return cls(*fields)
+
+    margs = {who: mega_args(who) for who in roots}
+
+    def mega(who, i):
+        mbar.zero_()                 # counters per call, as the wrapper's
+        return libs[who]["decoder_layer"].decoder_megakernel(
+            ctypes.byref(margs[who]), stream())
+
+    for name, k, n in smoke.INT4_SHAPES:
+        cases.append((f"int4 {name} M 8 (K {k}, N {n}, groups of 128)",
+                      int4(8, k, n)))
+    for name, k, n in smoke.INT4_SHAPES:
+        cases.append((f"int4 {name} M 512 (K {k}, N {n}, groups of 128)",
+                      int4(512, k, n)))
+    cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross",
+                  mega))
     for what, fn in cases:
         times = []
         for who in ("other", "this", "this", "other"):

@@ -20,9 +20,9 @@ The kernels cut a panel into items of ``cols`` output columns by a
 the widest of 32, 64, 128 or 256 columns that divides N by the whole of K,
 with K split only while the grid has fewer than two blocks an SM.  On the
 H100 that item streamed the 210 MB blob in 77 µs where the megakernel's
-GEMV item (32 columns by a quarter of K, ``csrc/decoder_layer.cu``
-``gemv_tile``) took 212 µs, and 629 µs on the megakernel's grid of one
-block an SM: :func:`probe_flat` alone takes another item and grid, so
+first GEMV item (32 columns by a quarter of K, ``csrc/decoder_layer.cu``
+``gemv_tile`` before its whole-K items) took 212 µs, and 629 µs on the
+megakernel's grid of one block an SM: :func:`probe_flat` alone takes another item and grid, so
 that ``tools/megakernel_probe.py`` can print both.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ RELAYOUT_MODES = ("none", "reshape")
 
 # the item: output columns by a slice of K
 ITEM_COLS = (32, 64, 128, 256)
-MEGAKERNEL_ITEM = (32, 4)        # csrc/decoder_layer.cu kTile, kKSplit
+MEGAKERNEL_ITEM = (32, 4)        # the megakernel's first item (kTile, kKSplit)
 MAX_K = 4096             # the kernel's limit on a slice of K and on N
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

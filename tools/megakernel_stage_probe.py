@@ -8,22 +8,28 @@ Builds a copy of ``eddie_wang_hackathon2023_tpu_torch/csrc/decoder_layer.cu``
 into ``build/probe/`` in which thread 0 of block 0 stamps ``%globaltimer``
 (ns, one clock for every SM) and ``clock64()`` at the kernel's start, just
 before and just after each grid barrier (``grid_sync``: 8 a layer) and at
-its end; the kernel in the package is left as it is.  Runs one decode step
-at Whisper large-v2 width and depth (32 layers, d 1280, 20 heads of 64,
-bf16 self cache of 448 at sequence 44, int8 cross cache of 1500) with the
-seeded random weights of ``chip_smoke.py`` (``random_blobs``) through the
-port's ``fused_decoder_stack``, and prints for each stage of a layer,
-summed over the 32 layers: block 0's work (from the previous barrier's
-exit to this barrier's entry), block 0's wait at the barrier (entry to
-exit), and the stage's GEMV bytes (and cache bytes, for attention) over
-block 0's work time.  Thread 0 of every block also stamps ``%globaltimer``
-at the kernel's start and on entry to and exit from every barrier, which
-splits block 0's wait into the time until the last block arrives (load
-imbalance) and the barrier's own latency (the last arrival to block 0's
-release), and gives each stage's span (the first block's exit from the
-previous barrier to the last block's entry) and its bytes over that span.
-The stamps' total must lie within 10% of the step timed by CUDA events
-(behind a spin, as ``chip_smoke.py`` times kernels).
+its end, and ``%globaltimer`` just before and just after each wait for a
+GEMV stage's weights in the ring (``ring_wait``: 6 a layer); the kernel in
+the package is left as it is.  Runs one decode step at Whisper large-v2
+width and depth (32 layers, d 1280, 20 heads of 64, bf16 self cache of 448
+at sequence 44, int8 cross cache of 1500) with the seeded random weights of
+``chip_smoke.py`` (``random_blobs``) through the port's
+``fused_decoder_stack``, and prints for each stage of a layer, summed over
+the 32 layers: block 0's work (from the previous barrier's exit to this
+barrier's entry), of which the wait for the stage's weights, block 0's wait
+at the barrier (entry to exit), and the stage's GEMV bytes (and cache
+bytes, for attention) over block 0's work time.  Thread 0 of every block
+also stamps ``%globaltimer`` at the kernel's start and on entry to and exit
+from every barrier, which splits block 0's wait into the time until the
+last block arrives (load imbalance) and the barrier's own latency (the last
+arrival to block 0's release), and gives each stage's span (the first
+block's exit from the previous barrier to the last block's entry) and its
+bytes over that span.  The stamps' total must lie within 10% of the step
+timed by CUDA events (behind a spin, as ``chip_smoke.py`` times kernels).
+The kernel as built is also timed with its weight ring cut to RING_CAPS
+bytes (the plan's ``ring_cap``): how far ahead the stream has to run; and
+its instructions are counted (``cuobjdump -sass``): the instruction cache
+holds only a part of a large kernel.
 """
 import ctypes
 import importlib.util
@@ -35,6 +41,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 MAX_STAMPS = 1024
+# caps on the weight ring (bytes) the step is also timed at: about two
+# thirds and one third of a layer's items a block, and the largest item
+RING_CAPS = (120_000, 80_000, 56_000)
 MAX_BARRIERS = 512       # per block: 8 a layer
 MAX_BLOCKS = 1024
 STAMP_DEFS = f"""
@@ -50,6 +59,17 @@ __device__ int g_n;
     g_st[2 * g_n] = t_;                                                 \\
     g_st[2 * g_n + 1] = (unsigned long long)clock64();                  \\
     ++g_n;                                                              \\
+  }} }} while (0)
+// block 0: before (side 0) and after (side 1) each wait for a GEMV stage's
+// weights in the ring, at [2 * wait + side]
+__device__ unsigned long long g_wt[2 * EWT_MAX_STAMPS];
+__device__ int g_wn;
+#define WSTAMP(side) do {{                                                 \\
+  if (threadIdx.x == 0 && blockIdx.x == 0 && g_wn < EWT_MAX_STAMPS) {{   \\
+    unsigned long long t_;                                              \\
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));              \\
+    g_wt[2 * g_wn + (side)] = t_;                                       \\
+    if (side) ++g_wn;                                                   \\
   }} }} while (0)
 // every block: its start, and its entry (side 0) to and exit (side 1) from
 // each barrier, at [2 * barrier + side][block]
@@ -72,6 +92,7 @@ STAMP_READERS = """
 extern "C" int reset_stamps() {
   int z = 0;
   cudaError_t e = cudaMemcpyToSymbol(g_n, &z, sizeof(z));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_wn, &z, sizeof(z));
   void* bn = nullptr;
   if (e == cudaSuccess) e = cudaGetSymbolAddress(&bn, g_bn);
   if (e == cudaSuccess) e = cudaMemset(bn, 0, sizeof(g_bn));
@@ -89,35 +110,52 @@ extern "C" int read_stamps(unsigned long long* h, int* n) {
   if (e != cudaSuccess) return (int)e;
   return (int)cudaMemcpyFromSymbol(h, g_st, sizeof(g_st));
 }
+extern "C" int read_wait_stamps(unsigned long long* h, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(n, g_wn, sizeof(int));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyFromSymbol(h, g_wt, sizeof(g_wt));
+}
 """
 # the stages of a layer, each ending at its grid barrier (the comments of
 # csrc/decoder_layer.cu's kernel), and the weight panels each streams
-STAGES = ("qkv", "self-attention slices", "combine + out-proj", "cross-q",
-          "cross slices", "combine + cross-out", "fc1", "fc2")
+STAGES = ("qkv", "self-attention slices", "out-proj", "cross-q",
+          "cross slices", "cross-out", "fc1", "fc2")
 
 
 def stage_panels(nf: int):
     return (3, 0, 1, 1, 0, 1, nf, nf)
 
 
+# the anchors in csrc/decoder_layer.cu that the stamps follow
+SYNC_HEAD = ("__device__ void grid_sync(unsigned int* bar, "
+             "unsigned int& gen) {\n")
+SYNC_EXIT = "    } while (v < gen);\n  }\n  __syncthreads();\n"
+START = "xs[i] = to_f(x_in[i]);\n  __syncthreads();\n"
+RING_WAIT = ("  if (sz) mbar_wait(&r.bars[r.done % kSlots], "
+             "(r.done / kSlots) & 1);\n")
+KERNEL_END = "\n// the plan checked against"
+
+
 def stamped_source(src: str) -> str:
     """``src`` (decoder_layer.cu) with block 0's stamp (``STAMP``) at the
     kernel's start, on entry to and exit from ``grid_sync`` and at the
     kernel's end, every block's (``BSTAMP``) at its start and on entry to
-    and exit from ``grid_sync``, and the C entries ``reset_stamps``,
-    ``read_stamps`` and ``read_block_stamps``."""
+    and exit from ``grid_sync``, block 0's (``WSTAMP``) around each wait
+    for a stage's weights in ``ring_wait``, and the C entries
+    ``reset_stamps``, ``read_stamps``, ``read_wait_stamps`` and
+    ``read_block_stamps``."""
     def insert(text, anchor, stamp_after, start=0):
         i = text.index(anchor, start) + len(anchor)
         return text[:i] + stamp_after + text[i:]
 
-    head = "__device__ void grid_sync(unsigned int* bar) {\n"
-    src = insert(src, head, "  STAMP();\n  BSTAMP(0);\n")
-    src = insert(src, "  __syncthreads();\n", "  STAMP();\n  BSTAMP(1);\n",
-                 src.index("  __threadfence();\n  }\n", src.index(head)))
-    src = insert(src, "xs[i] = to_f(x_in[i]);\n  __syncthreads();\n",
-                 "  STAMP();\n  BSTAMP(-1);\n")
-    end = src.index("\ntemplate <typename CT>\nint launch(")
-    end = src.rindex("}\n", 0, end)
+    src = insert(src, SYNC_HEAD, "  STAMP();\n  BSTAMP(0);\n")
+    src = insert(src, SYNC_EXIT, "  STAMP();\n  BSTAMP(1);\n",
+                 src.index(SYNC_HEAD))
+    src = insert(src, START, "  STAMP();\n  BSTAMP(-1);\n")
+    src = src.replace(RING_WAIT, "  if (sz) {\n    WSTAMP(0);\n  "
+                      + RING_WAIT[2:].replace("if (sz) ", "  ")
+                      + "    WSTAMP(1);\n  }\n")
+    end = src.rindex("}\n", 0, src.index(KERNEL_END))
     src = src[:end] + "  STAMP();\n" + src[end:]
     first = src.index("\nnamespace {")
     return src[:first] + STAMP_DEFS + src[first:] + STAMP_READERS
@@ -194,7 +232,58 @@ def stamped_library():
     lib.read_stamps.restype = ctypes.c_int
     lib.read_block_stamps.argtypes = [ctypes.c_void_p] * 3
     lib.read_block_stamps.restype = ctypes.c_int
+    lib.read_wait_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.read_wait_stamps.restype = ctypes.c_int
     return lib
+
+
+# the stage (of STAGES) of each GEMV stage, in order
+GEMV_AT = (0, 2, 3, 5, 6, 7)
+
+
+def gemv_split(stamps, waits, n_layer: int):
+    """Per GEMV stage, summed over the layers, block 0's work split at its
+    wait for the weights: (before, after) -- from the previous barrier's
+    exit (the kernel's start, for the first) to the wait, and from the
+    wait's end to the stage's barrier; ``stamps`` as ``stage_table`` reads
+    them, ``waits`` as ``ring_waits``."""
+    before = [0] * len(GEMV_AT)
+    after = [0] * len(GEMV_AT)
+    for i, (w0, w1) in enumerate(waits):
+        l, g = divmod(i, len(GEMV_AT))
+        b = len(STAGES) * l + GEMV_AT[g]          # the stage's barrier
+        prev = stamps[0] if b == 0 else stamps[2 * b]
+        before[g] += w0 - prev
+        after[g] += stamps[1 + 2 * b] - w1
+    return before, after
+
+
+def ring_waits(waits, n_layer: int, gemv_stages: int = 6):
+    """Per GEMV stage, summed over the layers: block 0's time waiting for
+    the stage's weights, from ``waits`` [(before, after)] of each of its
+    waits in order (a stage whose block has no item does not wait; block 0
+    has one in every stage)."""
+    if len(waits) != gemv_stages * n_layer:
+        raise ValueError(f"{len(waits)} ring waits, expected "
+                         f"{gemv_stages * n_layer}")
+    out = [0] * gemv_stages
+    for i, (a, b) in enumerate(waits):
+        out[i % gemv_stages] += b - a
+    return out
+
+
+def sass_sizes(listing: str):
+    """{kernel: instructions} from ``cuobjdump -sass`` output (one
+    instruction a line that starts with its address comment)."""
+    sizes, name = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            sizes[name] = 0
+        elif name and line.strip().startswith("/*") and "*/" in line \
+                and line.strip()[2:6].strip("0123456789abcdef") == "":
+            sizes[name] += 1
+    return sizes
 
 
 def read_block_stamps(lib, n_barriers: int):
@@ -253,6 +342,29 @@ def main():
 
     hid, fresh = step()
     kernel_ms, _ = smoke.time_ms(torch, step, iters=20)
+    # the code's size: the instruction cache holds a part of it
+    listing = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "-sass",
+         str(_build._lib_path("decoder_layer"))], capture_output=True,
+        text=True).stdout
+    for name, count in sass_sizes(listing).items():
+        kind = "int8" if "IaE" in name else "bf16"
+        print(f"megakernel ({kind} cross cache) as built: {count} "
+              f"instructions, {count * 16 / 1024:.1f} KB")
+    # the step with the weight ring cut to a few items: how far ahead the
+    # stream must run
+    plan_of = mk.megakernel_plan
+    caps = []
+    for cap in RING_CAPS:
+        mk.megakernel_plan = (lambda d_, nf_, sms_, cap=cap:
+                              {**plan_of(d_, nf_, sms_), "ring_cap": cap})
+        try:
+            ms_cap, _ = smoke.time_ms(torch, step, iters=20)
+        finally:
+            mk.megakernel_plan = plan_of
+        caps.append(f"{cap // 1024} KB {ms_cap * 1e3:.1f}")
+    print(f"step by the ring's cap (us, CUDA events): all "
+          f"{kernel_ms * 1e3:.1f}, " + ", ".join(caps))
     lib = stamped_library()
     _build._LIBS["decoder_layer"] = lib          # the wrapper launches it
     hid_s, fresh_s = step()
@@ -294,7 +406,22 @@ def main():
               f"{cwork[i] / ghz / 1e3:9.1f} {cwait[i] / ghz / 1e3:9.1f} "
               f"{mb:8.1f} {rate:7.1f}" + ("" if mb else
                                          f"  (cache {other:.1f} MB)"))
+    wbuf = (ctypes.c_ulonglong * (2 * MAX_STAMPS))()
+    wcnt = ctypes.c_int()
+    _build.check(lib.read_wait_stamps(wbuf, ctypes.byref(wcnt)),
+                 "read_wait_stamps")
+    ring = ring_waits([(wbuf[2 * i], wbuf[2 * i + 1])
+                       for i in range(wcnt.value)], L)
     gemv = [i for i in range(len(STAGES)) if stage_panels(nf)[i]]
+    print("block 0's wait for each GEMV stage's weights in the ring, summed "
+          "over the layers (us): " + ", ".join(
+              f"{STAGES[i]} {w / 1e3:.1f}" for i, w in zip(gemv, ring)))
+    before, after = gemv_split(ns, [(wbuf[2 * i], wbuf[2 * i + 1])
+                                    for i in range(wcnt.value)], L)
+    print("block 0's work in each GEMV stage, before its wait for the "
+          "weights / after it (us): " + ", ".join(
+              f"{STAGES[i]} {b / 1e3:.1f} / {a / 1e3:.1f}"
+              for i, b, a in zip(gemv, before, after)))
     print(f"  all: work {sum(work) / 1e3:.1f} us (GEMV stages "
           f"{sum(work[i] for i in gemv) / 1e3:.1f}), wait "
           f"{sum(wait) / 1e3:.1f} us, tail {tail / 1e3:.1f} us; GEMV bytes "

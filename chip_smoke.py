@@ -1002,11 +1002,15 @@ def beam_phase(torch, results, gen):
         cache, 3, q, seq, fresh, ind, da.fused_decode_attention))
     del k_g, v_g
     # group-once bytes: the valid columns of the 5 rows' K and V, q, the
-    # fresh K/V, the table's valid columns, the lengths, the output
+    # fresh K/V, the table's valid columns, the lengths, the output;
+    # operations: 4 per (query beam, valid key, d), on bf16 operands
     n_bytes = (2 * bw * H * D * (n - 1) * 2 + bw * H * D * 2
                + 2 * bw * H * D * 2 + bw * (n - 1) * 4 + bw * 4
                + bw * H * D * 2)
-    b_ms, b_by = bound(n_bytes, 4 * bw * H * D * n, PEAK_FP32_CUDA_CORES)
+    b_ms, b_by = bound(n_bytes, 4 * bw * H * D * n, PEAK_BF16_TENSOR)
+    # the plan the wrapper passes to the kernel at the path's shape
+    plan = da.beam_plan(S, bw, D, cache.element_size())
+    print(f"beam decode: plan {plan}")
     print(f"beam decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
           f"{b_by}, {n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; "
           f"SDPA on the gathered K/V {lib_ms * 1e3:.2f} us (rel err vs the "
@@ -1015,7 +1019,7 @@ def beam_phase(torch, results, gen):
     results["beam_decode_attention"] = dict(
         max_abs_err=first[2], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_gather_ms=gather_ms,
-        host_call_ms=wall,
+        host_call_ms=wall, plan=plan,
         rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
     del cache
 
@@ -1292,6 +1296,9 @@ def paged_phase(torch, results, gen):
                    + 2 * B * h * d * 2 + B * MB * 4 + B * 4)
         b_ms, b_by = bound(n_bytes, 4 * h * d * int(seq.sum()),
                            PEAK_FP32_CUDA_CORES)
+        # the plan the wrapper passes to the kernel
+        plan = da.paged_plan(MB, T, h // hkv)
+        print(f"paged decode ({what}): plan {plan}")
         print(f"paged decode ({what}): {ms * 1e3:.2f} us (bound "
               f"{b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f} MB); plain "
               f"{plain_ms * 1e3:.2f} us; SDPA on the gathered K/V "
@@ -1301,12 +1308,12 @@ def paged_phase(torch, results, gen):
             max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, library_gather_ms=gather_ms, host_call_ms=wall,
-            rel_err_vs_plain=(e16, e32))
+            plan=plan, rel_err_vs_plain=(e16, e32))
     path, mqa = (timings[k] for k in cases)
     results["paged_decode_attention"] = dict(
         **path, mqa_int8={k: mqa[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "library_gather_ms",
-            "rel_err_vs_plain")})
+            "plan", "rel_err_vs_plain")})
 
 
 # -- phase 3: the main path ---------------------------------------------------

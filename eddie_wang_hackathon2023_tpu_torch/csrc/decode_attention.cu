@@ -50,24 +50,53 @@
 // ops/decode_attention.py repeats the arithmetic step by step and the
 // kernel equals it bit for bit.
 //
-// Beam search (the TPU kernel's `_beam_kernel`, :213, entry `_beam_call`
-// :320) keeps the first design's code, `beam_decode_attention_kernel`
-// (the first kernel's beam instantiation without its non-beam branches; a
-// rewrite of it ran slower on the card).  Query row b of group
-// g = b / bw reads each cache position s from row g*bw + ind[b][s] of its
-// group (ind is the [groups, bw, S] cache-indirection table), so the cache
-// is never reordered.  Row g*bw speaks for the group's length and start;
-// the fresh K/V is the row's own.  One 256-thread block per (head, query
-// row) walks the cache in chunks of 1024 columns with the softmax online
-// in fp32; the TPU kernel instead reads each source row of a group once
-// for all bw query beams.  Here the bw blocks of a group read the same
-// rows, and all but the first read can hit L2 (a layer's self cache at the
-// Whisper beam path's shapes is a few MB), so the bound counts the
-// group-once bytes.  Each column's source row may differ from its
-// neighbour's, so the loads are per column (2 or 1 bytes); the P*V pass
-// reads the chunk's source rows from shared memory; P enters P*V rounded
-// to bf16 against the running max.
-//
+// Beam search (the TPU kernel's `_beam_kernel`, :213, assembled by
+// `_beam_call` :320): query row b of group g = b / bw reads each cache
+// position s from row g*bw + ind[b][s] of its group (ind is the [groups,
+// bw, S] cache-indirection table), so the cache is never reordered.  Row
+// g*bw speaks for the group's length and start; the fresh K/V is the row's
+// own.  Numerics as the TPU kernel's: bf16 q times bf16 K (int8 converted
+// exactly) summed in fp32, times scale * kscale; p against the max of ALL
+// the row's cached columns (exchanged over the cluster), rounded to bf16
+// for P*V while the denominator sums it in fp32; the fresh column, in full
+// precision, after.  The first design ran one block per (head, query row),
+// each reading its columns through the table by scalar loads in dependent
+// rounds, so every source row of a group was read bw times.
+// `beam_decode_attention_kernel` reads each source row of a group once for
+// all its query beams (up to 16, the mma's m; a wider beam is cut into
+// tiles of 16 query beams, each tile reading the group's rows once), as
+// the TPU kernel does:
+//   * grid (H, groups * tiles, splits * rs), cluster (1, 1, splits * rs):
+//     the columns split as kernel 1 splits them (`decode_splits(S)` slices
+//     of `split_width`), each walked in rounds of `cols` columns, times `rs`
+//     splits of the group's source rows, so that a row's panels are copied
+//     by one block and the copies of a group spread over up to 8 SMs (an
+//     SM moves a few tens of GB/s from a cold cache); a block's rows are
+//     staged `rows` at a time where all of them do not fit; the plan is the
+//     wrapper's `beam_plan`, checked by the C entry;
+//   * after one round of the lengths, q and the fresh K/V, each block
+//     copies the valid columns of its slice of its source rows' K and the
+//     table's columns (one cp.async group), then V (a second): 8 columns a
+//     copy where S and the cache's start keep them on 8 elements' size,
+//     else 4 where the start keeps 4 on theirs, else one (the cache's start
+//     is any element); a d row of a source row is contiguous along s, so
+//     the panels are [D][columns];
+//   * the products on the tensor cores (`mma.sync m16n8k16`), the query
+//     beams as the m, as the TPU kernel computes them: the scores of every
+//     (query beam, source row), each (beam, column) keeping the one its
+//     table names (`ldmatrix.trans` of the K panel, as in the grouped
+//     kernel), one task a (16-column tile, source row) over the warps; P
+//     of row j by warp j; then P*V once per source row with P masked by
+//     the table (plain `ldmatrix` of the V panel), so the selection happens
+//     in shared memory and registers, never in device memory;
+//   * each row's max over the cluster by st.async into every block's
+//     shared memory, counted on its mbarrier, before any p is formed; each
+//     block's partial context and sum go to rank 0, which adds them in
+//     rank order and adds the fresh column;
+//   * a block with more than one round (of columns, or of its rows) walks
+//     them twice (K for the max, then K and V for P and P*V), so P is still
+//     rounded against the max of all columns.
+
 // The TPU kernel ran its epilogue GEMV inside the same kernel from a VMEM
 // panel.  A single block cannot read the 1.6 MB panel fast, so here it is a
 // second kernel spread over N: out[b, n] = (sum_k ctx[b, k] W[l, k, n]) *
@@ -88,7 +117,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 128;
 constexpr float kNeg = -1e30f;
-constexpr int kChunk = 4 * kThreads;       // beam: columns a chunk, 4 a thread
 constexpr int kSplitCols = kThreads;       // split: columns staged a round
 constexpr int kMaxSplits = 8;
 
@@ -107,183 +135,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Block-wide reduction; every thread gets the result.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();                     // red may still be read
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// One element of a cache row as a float.
-__device__ __forceinline__ float load1(const int8_t* p) { return (float)*p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Four cache columns col..col+3 of row d (d_off = d*S elements past the
-// head's base), each from its own cache row, src.x..src.w rows past the
-// base row.
-template <typename CT>
-__device__ __forceinline__ float4 load_cols(const CT* base, size_t d_off,
-                                            int col, int4 src,
-                                            size_t row_stride) {
-  const CT* p = base + d_off + col;
-  return make_float4(load1(p + src.x * row_stride),
-                     load1(p + 1 + src.y * row_stride),
-                     load1(p + 2 + src.z * row_stride),
-                     load1(p + 3 + src.w * row_stride));
-}
-
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-beam_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B,H,D]
-                             const CT* __restrict__ cache,  // [L,Bkv,2,H,D,S]
-                             int layer, int Bkv, int H, int D, int S,
-                             const int* __restrict__ seq_len,       // [B]
-                             const int* __restrict__ start,   // [B] or null
-                             const float* __restrict__ kscale_ptr,
-                             float scale,
-                             const CT* __restrict__ fresh_k,      // [B,H,D]
-                             const CT* __restrict__ fresh_v,
-                             const int* __restrict__ ind,         // [B,S]
-                             int bw,                        // beam width
-                             __nv_bfloat16* __restrict__ out) {   // [B,H*D]
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __shared__ float q_s[kMaxD];
-  __shared__ float acc_s[kMaxD];
-  __shared__ __align__(16) float p_s[kChunk];
-  __shared__ float red[kWarps];
-  // each column's source row (its beam in the group), for the P*V pass of
-  // the chunk
-  __shared__ __align__(16) int src_s[kChunk];
-
-  // the group's first row: the base of the group's cache rows, and the
-  // row that speaks for the lengths
-  const int row0 = b - b % bw;
-  const float kscale = kscale_ptr ? *kscale_ptr : 1.0f;
-  const int total = seq_len[row0];
-  const bool with_fresh = fresh_k != nullptr;
-  const int cache_len = min(total - (with_fresh ? 1 : 0), S);
-  const int lo = start ? start[row0] : 0;
-  const size_t row_stride = (size_t)2 * H * D * S;   // elements per row
-
-  // q pre-multiplied by scale*kscale: scores come out ready for softmax
-  for (int d = tid; d < D; d += kThreads) {
-    q_s[d] = to_f(q[((size_t)b * H + h) * D + d]) * (scale * kscale);
-    acc_s[d] = 0.f;
-  }
-  __syncthreads();
-
-  const size_t head = (size_t)D * S;
-  const CT* kp =
-      cache + ((((size_t)layer * Bkv + row0) * 2 + 0) * H + h) * head;
-  const CT* vp =
-      cache + ((((size_t)layer * Bkv + row0) * 2 + 1) * H + h) * head;
-  const int* ind_b = ind + (size_t)b * S;
-
-  float m_run = kNeg, l_run = 0.f;
-  const int n_chunks = (cache_len + kChunk - 1) / kChunk;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int c0 = c * kChunk;
-    // scores: four consecutive columns per thread (S % 4 == 0, so a group
-    // that starts below cache_len <= S lies inside the row)
-    const int col = c0 + 4 * tid;
-    float s[4] = {kNeg, kNeg, kNeg, kNeg};
-    int4 src = make_int4(0, 0, 0, 0);
-    if (col < cache_len) {
-      // columns at or past cache_len (<= S) keep beam 0: read, never used
-      src.x = ind_b[col];
-      if (col + 1 < cache_len) src.y = ind_b[col + 1];
-      if (col + 2 < cache_len) src.z = ind_b[col + 2];
-      if (col + 3 < cache_len) src.w = ind_b[col + 3];
-      *reinterpret_cast<int4*>(src_s + 4 * tid) = src;
-    }
-    if (col < cache_len) {
-      float4 dot = make_float4(0.f, 0.f, 0.f, 0.f);
-      // unrolled so that many of the D independent row loads are in flight
-      // at once (one at a time, each would wait a full memory latency)
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        const float4 kv =
-            load_cols(kp, (size_t)d * S, col, src, row_stride);
-        const float qd = q_s[d];
-        dot.x += qd * kv.x;
-        dot.y += qd * kv.y;
-        dot.z += qd * kv.z;
-        dot.w += qd * kv.w;
-      }
-      const float dv[4] = {dot.x, dot.y, dot.z, dot.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (col + i < cache_len && col + i >= lo) s[i] = dv[i];
-    }
-    const float m_loc = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
-    const float m_new = fmaxf(m_run, block_reduce<true>(m_loc, red));
-    // a masked column contributes nothing, even when the whole chunk is
-    // masked (exp(kNeg - kNeg) would be 1).  The sum takes p in fp32; P*V
-    // takes p rounded to bf16, as the TPU kernel casts it to the
-    // activation dtype before that product (pallas_decode_attention.py:149)
-    float p_loc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = s[i] > 0.5f * kNeg ? __expf(s[i] - m_new) : 0.f;
-      p_s[4 * tid + i] = __bfloat162float(__float2bfloat16(p));
-      p_loc += p;
-    }
-    const float alpha = __expf(m_run - m_new);
-    l_run = l_run * alpha + block_reduce<false>(p_loc, red);  // syncs p_s
-    const int c_hi = min(kChunk, cache_len - c0);
-    // P*V: each warp owns rows d; lanes read four consecutive columns
-    for (int d = warp; d < D; d += kWarps) {
-      float part = 0.f;
-#pragma unroll 8
-      for (int j = 4 * lane; j < c_hi; j += 128) {
-        int4 src_j = make_int4(0, 0, 0, 0);
-        src_j = *reinterpret_cast<const int4*>(src_s + j);
-        const float4 v =
-            load_cols(vp, (size_t)d * S, c0 + j, src_j, row_stride);
-        const float4 p = *reinterpret_cast<const float4*>(p_s + j);
-        // masked columns have p == 0; the select keeps a non-finite value
-        // in a padding column out of the sum (0 * inf would be NaN)
-        part += (p.x != 0.f ? p.x * v.x : 0.f) + (p.y != 0.f ? p.y * v.y : 0.f)
-              + (p.z != 0.f ? p.z * v.z : 0.f) + (p.w != 0.f ? p.w * v.w : 0.f);
-      }
-      part = warp_sum(part);
-      if (lane == 0) acc_s[d] = acc_s[d] * alpha + part;
-    }
-    m_run = m_new;
-    __syncthreads();                   // p_s is rewritten by the next chunk
-  }
-
-  // the current token's column, from the fresh operand
-  float alpha = 1.f, p_f = 0.f;
-  if (with_fresh) {
-    float part = 0.f;
-    const size_t f0 = ((size_t)b * H + h) * D;
-    for (int d = lane; d < D; d += 32) part += q_s[d] * to_f(fresh_k[f0 + d]);
-    const float s_f = warp_sum(part);  // every warp computes the same value
-    const float m_fin = fmaxf(m_run, s_f);
-    alpha = __expf(m_run - m_fin);
-    p_f = __expf(s_f - m_fin);
-    l_run = l_run * alpha + p_f;
-  }
-  const float inv = l_run > 0.f ? kscale / l_run : 0.f;
-  for (int d = tid; d < D; d += kThreads) {
-    float ctx = acc_s[d] * alpha;
-    if (with_fresh)
-      ctx += p_f * to_f(fresh_v[((size_t)b * H + h) * D + d]);
-    out[(size_t)b * H * D + (size_t)h * D + d] = __float2bfloat16(ctx * inv);
-  }
 }
 
 // -- kernel 1 without beams: the sequence split over a cluster --------------
@@ -630,6 +481,600 @@ split_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B,H,D]
   out[f0 + tid] = __float2bfloat16(__fmul_rn(acc, inv));
 }
 
+// -- the beam entry: each source row of a group read once --------------------
+
+// dynamic shared memory a block may take beside its static mbarriers
+constexpr size_t kBeamMaxSmem = 226 * 1024;
+constexpr int kBeamRows = 16;              // query beams a block: the mma's m
+constexpr int kBeamMaxCols = 256;          // columns a round: 2 tiles a warp
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src));
+}
+// cc cache columns (8 or 4 by cp.async: 16 or 8 bytes of bf16, 8 or 4 of
+// int8; 1 by a load and a store) copied to shared memory
+__device__ __forceinline__ void copy_cols(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int cc) {
+  if (cc == 8) cp_async16(dst, src);
+  else if (cc == 4) cp_async_cols(dst, src);
+  else *dst = *src;
+}
+__device__ __forceinline__ void copy_cols(int8_t* dst, const int8_t* src,
+                                          int cc) {
+  if (cc == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_u32(dst)), "l"(src));
+  else if (cc == 4) cp_async_cols(dst, src);
+  else *dst = *src;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+// c += a b, m16n8k16, bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// over the four lanes of a quad (the lanes that share an mma row)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Row pitch (elements) of a staged [D][cols] panel: 16-byte rows whose
+// ldmatrix (bf16) or byte reads (int8) meet no bank conflict for cols a
+// multiple of 16.
+__host__ __device__ __forceinline__ int beam_pitch(int cols, int elem) {
+  return elem == 2 ? cols + 8 : cols + 16;
+}
+
+// The scores' B fragments for columns js .. js + 15 (two n-tiles) and d
+// kk .. kk + 15 of a [Dp][P] K panel: (k = d, n = column), its transpose
+__device__ __forceinline__ void k_frags(uint32_t (&b)[4],
+                                        const __nv_bfloat16* kt, int P,
+                                        int kk, int js, int lane) {
+  ldmatrix_x4_trans(b, kt + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * P
+                           + js + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void k_frags(uint32_t (&b)[4], const int8_t* kt,
+                                        int P, int kk, int js, int lane) {
+  const int d = kk + (lane & 3) * 2, col = js + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int8_t* c = kt + d * P + col + 8 * t;
+    b[2 * t] = pack_bf16((float)c[0], (float)c[P]);
+    b[2 * t + 1] = pack_bf16((float)c[8 * P], (float)c[9 * P]);
+  }
+}
+// P*V's B fragments for d dn .. dn + 15 (two n-tiles) and columns ks ..
+// ks + 15 of a [Dp][P] V panel: (k = column, n = d), its own layout
+__device__ __forceinline__ void v_frags(uint32_t (&b)[4],
+                                        const __nv_bfloat16* vt, int P,
+                                        int dn, int ks, int lane) {
+  ldmatrix_x4(b, vt + (dn + (lane & 7) + (lane >> 4) * 8) * P + ks
+                     + ((lane >> 3) & 1) * 8);
+}
+__device__ __forceinline__ void v_frags(uint32_t (&b)[4], const int8_t* vt,
+                                        int P, int dn, int ks, int lane) {
+  const int col = ks + (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int8_t* r = vt + (dn + 8 * t + (lane >> 2)) * P + col;
+    b[2 * t] = pack_bf16((float)r[0], (float)r[1]);
+    b[2 * t + 1] = pack_bf16((float)r[8], (float)r[9]);
+  }
+}
+
+// Takes n_bytes at offset `at` (kept 16-byte aligned); returns its offset.
+__host__ __device__ inline size_t take(size_t& at, size_t n_bytes) {
+  const size_t here = at;
+  at += (n_bytes + 15) & ~(size_t)15;
+  return here;
+}
+
+struct BeamSmem {
+  size_t kt, vt, ind, sc, p, q, fk, fv, mrow, lrow, sf, max_s, l_s, red_c,
+      ctx_s, bytes;
+};
+
+// The K and V panels [rows][Dp][pitch] of a round (`rows` of the block's
+// source rows), the table's columns and the selected scores [qn][cols] of
+// the block's (at most) qn query beams, P [16][cols + 8] and q [16][Dp + 8]
+// in bf16, the fresh K/V [qn][D] fp32, each row's max, sum and fresh score,
+// the cluster's maxima and sums by rank, each group of warps' partial
+// contexts [kWarps / (Dp / 16)][16][Dp], and (with a cluster) rank 0's
+// [splits][16][Dp].  ops/decode_attention.py `beam_smem_bytes` repeats
+// this sum.
+__host__ __device__ inline BeamSmem beam_layout(int qn, int rows, int D,
+                                                int cols, int elem,
+                                                int splits) {
+  const int Dp = (D + 15) & ~15;
+  BeamSmem s;
+  size_t at = 0;
+  const size_t panel = (size_t)rows * Dp * beam_pitch(cols, elem) * elem;
+  s.kt = take(at, panel);
+  s.vt = take(at, panel);
+  s.ind = take(at, sizeof(int) * (size_t)qn * cols);
+  s.sc = take(at, sizeof(float) * (size_t)qn * cols);
+  s.p = take(at, 2 * (size_t)kBeamRows * (cols + 8));
+  s.q = take(at, 2 * (size_t)kBeamRows * (Dp + 8));
+  s.fk = take(at, sizeof(float) * (size_t)qn * D);
+  s.fv = take(at, sizeof(float) * (size_t)qn * D);
+  s.mrow = take(at, sizeof(float) * kBeamRows);
+  s.lrow = take(at, sizeof(float) * kBeamRows);
+  s.sf = take(at, sizeof(float) * kBeamRows);
+  s.max_s = take(at, sizeof(float) * kMaxSplits * kBeamRows);
+  s.l_s = take(at, sizeof(float) * kMaxSplits * kBeamRows);
+  s.red_c = take(at, sizeof(float) * (kWarps / (Dp / 16)) * kBeamRows * Dp);
+  s.ctx_s = take(at, splits > 1 ? sizeof(float) * splits * kBeamRows * Dp
+                                : 0);
+  s.bytes = at;
+  return s;
+}
+
+// kWide: 8 cache columns a copy, fixed at compile time (the beam path's
+// case; read from `cc` at run time it cost about 0.5 us a call on an
+// H100); else `cc` (4 or 1) columns a copy
+template <typename CT, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+beam_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B,H,D]
+                             const CT* __restrict__ cache,  // [L,B,2,H,D,S]
+                             int layer, int H, int D, int S, int W, int cols,
+                             int rs,            // row splits of the cluster
+                             int rows,          // source rows staged a round
+                             int cc,            // columns a copy: 8, 4, 1
+                             const int* __restrict__ seq_len,       // [B]
+                             const int* __restrict__ start,   // [B] or null
+                             const float* __restrict__ kscale_ptr,
+                             float scale,
+                             const CT* __restrict__ fresh_k,      // [B,H,D]
+                             const CT* __restrict__ fresh_v,
+                             const int* __restrict__ ind,         // [B,S]
+                             int bw,                        // beam width
+                             __nv_bfloat16* __restrict__ out) {   // [B,H*D]
+  constexpr int E = (int)sizeof(CT);
+  // blockIdx.y = group * tiles + the block's tile of query beams
+  const int tiles = (bw + kBeamRows - 1) / kBeamRows;
+  const int grp = blockIdx.y / tiles, qt = blockIdx.y - grp * tiles;
+  const int h = blockIdx.x, row0 = grp * bw, B = gridDim.y / tiles * bw;
+  const int q0 = row0 + qt * kBeamRows;    // the block's first query row
+  const int qn = min(kBeamRows, bw - qt * kBeamRows);  // its query beams
+  const int splits = gridDim.z;            // the cluster's blocks
+  const int rank = splits > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  // rank = column slice * rs + row split: the block's columns and its
+  // source rows [r_lo, r_lo + nr) of the group, staged in n_rr rounds of
+  // `rows`
+  const int cs = rank / rs, ri = rank - cs * rs;
+  const int r_lo = ri * bw / rs, nr = (ri + 1) * bw / rs - r_lo;
+  const int n_rr = (nr + rows - 1) / rows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Dp = (D + 15) & ~15, QP = Dp + 8, PP = cols + 8;
+  const int nd = Dp / 16, ng = kWarps / nd;  // P*V: d tiles, warp groups
+  const int P = beam_pitch(cols, E);
+  const size_t rstride = (size_t)Dp * P;   // a source row's panel
+  const BeamSmem sm = beam_layout(min(bw, kBeamRows), rows, D, cols, E,
+                                  splits);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* const k_t = reinterpret_cast<CT*>(smem_raw + sm.kt);  // [rows][Dp][P]
+  CT* const v_t = reinterpret_cast<CT*>(smem_raw + sm.vt);
+  int* const ind_s = reinterpret_cast<int*>(smem_raw + sm.ind);  // [qn][cols]
+  float* const sc_s = reinterpret_cast<float*>(smem_raw + sm.sc); // [qn][cols]
+  __nv_bfloat16* const p_s =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.p);         // [16][PP]
+  __nv_bfloat16* const q_s =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.q);         // [16][QP]
+  float* const fk_s = reinterpret_cast<float*>(smem_raw + sm.fk);  // [qn][D]
+  float* const fv_s = reinterpret_cast<float*>(smem_raw + sm.fv);
+  float* const mrow = reinterpret_cast<float*>(smem_raw + sm.mrow);  // [16]
+  float* const lrow = reinterpret_cast<float*>(smem_raw + sm.lrow);
+  float* const sf_s = reinterpret_cast<float*>(smem_raw + sm.sf);
+  float* const max_s = reinterpret_cast<float*>(smem_raw + sm.max_s);
+  float* const l_s = reinterpret_cast<float*>(smem_raw + sm.l_s);
+  float* const red_c = reinterpret_cast<float*>(smem_raw + sm.red_c);
+  float* const ctx_s = reinterpret_cast<float*>(smem_raw + sm.ctx_s);
+  // [0]: every block's row maxima have landed in max_s; [1], rank 0: every
+  // block's partial contexts and sums have landed in ctx_s and l_s
+  __shared__ __align__(8) uint64_t bars[2];
+
+  if (splits > 1) {
+    if (tid == 0) {
+      mbar_init(&bars[0], 1);
+      mbar_init(&bars[1], 1);
+      mbar_expect_tx(&bars[0], splits * qn * 4);
+      if (rank == 0) mbar_expect_tx(&bars[1], splits * qn * (D + 1) * 4);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_arrive_relaxed();
+  }
+
+  // one round: the group's length and start, kscale, q of the qn query
+  // rows and, in rank 0, their fresh K/V (16 threads a row, a row a
+  // thread's 16th), every load issued before any is stored
+  const int total = seq_len[row0];
+  const int lo = start ? max(start[row0], 0) : 0;
+  const float kscale = kscale_ptr ? *kscale_ptr : 1.0f;
+  const float sk = scale * kscale;
+  const int qr = tid >> 4, qc = tid & 15;   // this thread's row, column
+  constexpr int kQ = kMaxD / 16;
+  __nv_bfloat16 qv[kQ];
+  CT fkv[kQ], fvv[kQ];
+  const size_t f0 = ((size_t)(q0 + qr) * H + h) * D;
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int d = qc + 16 * u;
+    const bool in = qr < qn && d < D;
+    qv[u] = in ? q[f0 + d] : __float2bfloat16(0.f);
+    if (rank == 0 && in) {
+      fkv[u] = fresh_k[f0 + d];
+      fvv[u] = fresh_v[f0 + d];
+    }
+  }
+  // K's rows past D zeroed (q's are zeros there, and 0 times a non-finite
+  // value would be NaN)
+  for (int i = tid; i < rows * (Dp - D) * P; i += kThreads) {
+    const int r = i / ((Dp - D) * P), e = i - r * (Dp - D) * P;
+    k_t[r * rstride + (size_t)D * P + e] = CT();
+  }
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int d = qc + 16 * u;
+    if (d < Dp) q_s[qr * QP + d] = qv[u];
+    if (rank == 0 && qr < qn && d < D) {
+      fk_s[qr * D + d] = to_f(fkv[u]);
+      fv_s[qr * D + d] = to_f(fvv[u]);
+    }
+  }
+  if (tid < kBeamRows) {
+    mrow[tid] = kNeg;
+    lrow[tid] = 0.f;
+  }
+
+  // this block's valid columns [lo_b, hi_b), its column rounds c_first ..
+  // c_last; each with n_rr rounds of its rows, a pass p of (column round,
+  // row round) pairs in that order
+  const int cache_len = min(total - 1, S);
+  const int c_begin = cs * W;
+  const int lo_b = max(lo, c_begin), hi_b = min(cache_len, c_begin + W);
+  const bool any = lo_b < hi_b;
+  const int c_first = any ? (lo_b - c_begin) / cols : 0;
+  const int c_last = any ? (hi_b - 1 - c_begin) / cols : -1;
+  const int n_pairs = (c_last - c_first + 1) * n_rr;
+  const bool single = n_pairs <= 1;
+  const size_t head = (size_t)D * S;
+  // pair p's column round c, its first column, its valid columns [va, vb)
+  // from there, the 16-column tiles [ja, jb) that hold them, and its
+  // source rows [t_lo, t_lo + tn)
+  struct Pair {
+    int c, t, col0, va, vb, ja, jb, t_lo, tn;
+  };
+  auto pair = [&](int p) {
+    Pair x;
+    x.c = c_first + p / n_rr;
+    x.t = p - (p / n_rr) * n_rr;
+    x.col0 = c_begin + x.c * cols;
+    x.va = max(lo_b - x.col0, 0);
+    x.vb = min(hi_b - x.col0, cols);
+    x.ja = x.va & ~15;
+    x.jb = (x.vb + 15) & ~15;
+    x.t_lo = r_lo + x.t * rows;
+    x.tn = min(rows, nr - x.t * rows);
+    return x;
+  };
+  // pair x's valid columns of its source rows' K and, with its first rows,
+  // the table's columns of the qn query rows (one copy group), then V (a
+  // second)
+  auto stage = [&](const Pair& x, bool with_v) {
+    const int w = kWide ? 8 : cc;
+    const int a = x.va & ~(w - 1), b = (x.vb + w - 1) & ~(w - 1);
+    const int n = (b - a) / w;
+    // tg threads (a power of 2, up to 32) take the copies of a d row; the
+    // (source row, d) pairs advance by kThreads / tg a pass, the pointers
+    // with them
+    const int tg = n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4 : n;
+    const int step = kThreads / tg, gi = tid % tg;
+    const int step_r = step / D, step_d = step - step_r * D;
+    const size_t row_el = (size_t)2 * H * head;   // between cache rows
+    auto panels = [&](CT* tile, size_t off) {
+      int r = (tid / tg) / D, d = (tid / tg) - r * D;
+      const CT* src = cache
+                      + (((size_t)layer * B + row0 + x.t_lo + r) * 2 * H + h)
+                            * head
+                      + off + (size_t)d * S + x.col0 + a;
+      CT* dst = tile + r * rstride + (size_t)d * P + a;
+      while (r < x.tn) {
+        for (int g = gi; g < n; g += tg)
+          copy_cols(dst + w * g, src + w * g, w);
+        r += step_r;
+        d += step_d;
+        src += step_r * row_el + (size_t)step_d * S;
+        dst += step_r * rstride + (size_t)step_d * P;
+        if (d >= D) {
+          d -= D;
+          ++r;
+          src += row_el - (size_t)D * S;
+          dst += rstride - (size_t)D * P;
+        }
+      }
+    };
+    panels(k_t, 0);
+    if (x.t == 0) {
+      const int a4 = x.va & ~3, n4 = (((x.vb + 3) & ~3) - a4) / 4;
+      for (int it = tid; it < qn * n4; it += kThreads) {
+        const int g = it % n4, j = it / n4;
+        cp_async16(ind_s + j * cols + a4 + 4 * g,
+                   ind + (size_t)(q0 + j) * S + x.col0 + a4 + 4 * g);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (with_v) panels(v_t, (size_t)H * head);
+    asm volatile("cp.async.commit_group;\n" ::);   // (empty without V)
+  };
+  const int c2 = (lane & 3) * 2, ra = lane >> 2, rb = ra + 8;
+  // q's A fragments, every k step
+  uint32_t qa[kMaxD / 16][4];
+  // the source row of query row j at column jc of the round, and whether
+  // it is one of pair x's
+  auto source = [&](int j, int jc) {
+    return min(max(ind_s[j * cols + jc], 0), bw - 1);
+  };
+  auto own = [&](const Pair& x, int r) {
+    return r >= x.t_lo && r < x.t_lo + x.tn;
+  };
+  // the scores of pair x: every (16-column tile, source row) a task of the
+  // warps, on the tensor cores; each (row, column) of a tile keeps the
+  // product of the source row its table names, scaled, in sc_s
+  auto scores = [&](const Pair& x) {
+    const int nt = (x.jb - x.ja) / 16;
+    for (int k = warp; k < nt * x.tn; k += kWarps) {
+      const int t = k / x.tn, rl = k - t * x.tn, r = x.t_lo + rl;
+      const int js = x.ja + 16 * t;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kMaxD / 16; ++kk) {
+        if (kk < nd) {
+          uint32_t bk[4];
+          k_frags(bk, k_t + rl * rstride, P, 16 * kk, js, lane);
+          mma_bf16(acc[0], qa[kk], bk[0], bk[1]);
+          mma_bf16(acc[1], qa[kk], bk[2], bk[3]);
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ra : rb, col = js + 8 * y + c2 + (e & 1);
+          if (row < qn && source(row, col) == r)
+            sc_s[row * cols + col] = acc[y][e] * sk;
+        }
+    }
+  };
+
+  // 1. the scores and each row's max, pair by pair (one pair: K and V
+  // staged together, the scores kept for P); the max of row j by warp j
+  __syncthreads();                     // q, the fresh K/V and the zeros
+  if (any) stage(pair(0), single);
+  // rank 0, while the copies land: the fresh column's score of row j,
+  // q_j . K_j, by the warps from the last one
+  if (rank == 0)
+    for (int j = kWarps - 1 - warp; j < qn; j += kWarps) {
+      float part = 0.f;
+      for (int d = lane; d < D; d += 32)
+        part += __bfloat162float(q_s[j * QP + d]) * fk_s[j * D + d];
+      part = warp_sum(part);
+      if (lane == 0) sf_s[j] = part * sk;
+    }
+#pragma unroll
+  for (int kk = 0; kk < kMaxD / 16; ++kk)
+    if (kk < nd)
+      ldmatrix_x4(qa[kk], q_s + (lane & 15) * QP + 16 * kk + (lane >> 4) * 8);
+  for (int p = 0; p < n_pairs; ++p) {
+    const Pair x = pair(p);
+    if (p > 0) {
+      __syncthreads();                 // k_t, ind_s and sc_s consumed
+      stage(x, false);
+    }
+    // K and the table (the older group); V may still be landing
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();                   // the pair's K has landed
+    scores(x);
+    __syncthreads();                   // the pair's scores
+    for (int j = warp; j < qn; j += kWarps) {
+      float m = kNeg;
+      for (int jc = x.va + lane; jc < x.vb; jc += 32)
+        if (own(x, source(j, jc))) m = fmaxf(m, sc_s[j * cols + jc]);
+      m = warp_max(m);
+      if (lane == 0) mrow[j] = fmaxf(mrow[j], m);
+    }
+  }
+  __syncwarp();                        // mrow of the warp's rows
+  if (splits > 1) {
+    // each row's max to every block of the cluster, by rank
+    cluster_wait();                    // every block runs
+    for (int j = warp; j < qn; j += kWarps)
+      if (lane < splits)
+        send(&max_s[rank * kBeamRows + j], mrow[j], &bars[0], lane);
+    mbar_wait(&bars[0], 0);            // every block's maxima
+  }
+  // the row's max over the cluster
+  // (the blocks' values loaded together, then taken in rank order)
+  auto row_max = [&](int j) {
+    if (splits == 1) return mrow[j];
+    float mx[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits) mx[r] = max_s[r * kBeamRows + j];
+    float m = mx[0];
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r)
+      if (r < splits) m = fmaxf(m, mx[r]);
+    return m;
+  };
+
+  // 2. P of row j against that max by warp j, rounded to bf16 into the P
+  // tile (the sum takes it in fp32), and P*V: warp w computes d tile
+  // w % nd over the pair's source rows w / nd, w / nd + ng, ..., one
+  // product a source row with P masked by the table
+  float o[2][4] = {};
+  const int dn = 16 * (warp % nd), rg = warp / nd;
+  for (int p = 0; p < n_pairs; ++p) {
+    const Pair x = pair(p);
+    if (!single) {
+      __syncthreads();                 // the panels, P and sc_s consumed
+      stage(x, true);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();                 // the pair's K has landed
+      scores(x);
+      __syncthreads();                 // the pair's scores
+    }
+    for (int j = warp; j < qn; j += kWarps) {
+      const float m = row_max(j);
+      float l = 0.f;
+      for (int jc = x.ja + 2 * lane; jc < x.jb; jc += 64) {
+        const bool v0 = jc >= x.va && jc < x.vb && own(x, source(j, jc));
+        const bool v1 = jc + 1 >= x.va && jc + 1 < x.vb
+                        && own(x, source(j, jc + 1));
+        const float p0 = v0 ? __expf(sc_s[j * cols + jc] - m) : 0.f;
+        const float p1 = v1 ? __expf(sc_s[j * cols + jc + 1] - m) : 0.f;
+        l += p0 + p1;
+        *reinterpret_cast<uint32_t*>(p_s + j * PP + jc) = pack_bf16(p0, p1);
+      }
+      l = warp_sum(l);
+      if (lane == 0) lrow[j] += l;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();                   // P and the pair's V
+    if (rg < ng) {
+      for (int ks = x.ja; ks < x.jb; ks += 16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, p_s + (lane & 15) * PP + ks + (lane >> 4) * 8);
+        // the source rows of this lane's A fragment: rows ra, rb at
+        // columns ks + c2 (+1) and ks + c2 + 8 (+1)
+        int sr[4][2];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const int row = y & 1 ? rb : ra;
+          const int jc = ks + c2 + (y >> 1) * 8;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sr[y][e] = row < qn ? source(row, jc + e) : -1;
+        }
+        // V's columns outside [va, vb) masked out of the B fragments (P is
+        // 0 there, but the panel may hold anything, even a non-finite
+        // value, and 0 times that would be NaN): the fragments' columns
+        // are ks + c2 (+1) (registers 0, 2) and ks + c2 + 8 (+1) (1, 3)
+        auto live = [&](int jc) { return jc >= x.va && jc < x.vb; };
+        const uint32_t vm[2] = {
+            (live(ks + c2) ? 0x0000ffffu : 0u)
+                | (live(ks + c2 + 1) ? 0xffff0000u : 0u),
+            (live(ks + c2 + 8) ? 0x0000ffffu : 0u)
+                | (live(ks + c2 + 9) ? 0xffff0000u : 0u)};
+        for (int rl = rg; rl < x.tn; rl += ng) {
+          const int r = x.t_lo + rl;
+          uint32_t mk[4], bv[4];
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            mk[y] = a[y] & ((sr[y][0] == r ? 0x0000ffffu : 0u)
+                            | (sr[y][1] == r ? 0xffff0000u : 0u));
+          v_frags(bv, v_t + rl * rstride, P, dn, ks, lane);
+#pragma unroll
+          for (int y = 0; y < 4; ++y) bv[y] &= vm[y & 1];
+          mma_bf16(o[0], mk, bv[0], bv[1]);
+          mma_bf16(o[1], mk, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  // the warps' partial contexts, a slice a group of warps
+  if (rg < ng) {
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? ra : rb, d = dn + 8 * y + c2 + (e & 1);
+        red_c[(rg * kBeamRows + row) * Dp + d] = o[y][e];
+      }
+  }
+  __syncthreads();                     // the partial contexts
+
+  // the block's context of row j, d: its groups of warps in order
+  auto block_ctx = [&](int j, int d) {
+    float acc = red_c[j * Dp + d];
+    for (int g = 1; g < ng; ++g) acc += red_c[(g * kBeamRows + j) * Dp + d];
+    return acc;
+  };
+  // the output of row j, d: the context acc and sum l over the cluster, the
+  // fresh column (the row's own K/V) and the normalisation
+  auto finish = [&](int j, int d, float acc, float l) {
+    const float m = row_max(j), s_f = sf_s[j];
+    const float m_fin = fmaxf(m, s_f);
+    const float alpha = __expf(m - m_fin), p_f = __expf(s_f - m_fin);
+    l = l * alpha + p_f;
+    out[((size_t)(q0 + j) * H + h) * D + d] = __float2bfloat16(
+        (acc * alpha + p_f * fv_s[j * D + d]) * (l > 0.f ? kscale / l : 0.f));
+  };
+  if (splits == 1) {
+    for (int i = tid; i < qn * D; i += kThreads) {
+      const int j = i / D, d = i - j * D;
+      finish(j, d, block_ctx(j, d), lrow[j]);
+    }
+    return;
+  }
+  // with a cluster: each block's partials to rank 0, which adds them in
+  // rank order
+  for (int i = tid; i < qn * D; i += kThreads) {
+    const int j = i / D, d = i - j * D;
+    send(&ctx_s[(rank * kBeamRows + j) * Dp + d], block_ctx(j, d), &bars[1],
+         0);
+  }
+  if (tid < qn) send(&l_s[rank * kBeamRows + tid], lrow[tid], &bars[1], 0);
+  // a block other than rank 0 is done: every write into its shared memory
+  // (the maxima) has landed
+  if (rank != 0) return;
+  mbar_wait(&bars[1], 0);              // every block's partials
+  for (int i = tid; i < qn * D; i += kThreads) {
+    const int j = i / D, d = i - j * D;
+    float cp[kMaxSplits], lp[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits) {
+        cp[r] = ctx_s[(r * kBeamRows + j) * Dp + d];
+        lp[r] = l_s[r * kBeamRows + j];
+      }
+    float acc = cp[0], l = lp[0];
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r)
+      if (r < splits) {
+        acc += cp[r];
+        l += lp[r];
+      }
+    finish(j, d, acc, l);
+  }
+}
+
 // out[b, n] = bf16((sum_k x[b, k] * W[layer, k, n]) * scale[n] + bias[n])
 // Block (8, 32): tx covers 4 columns each (one char4), ty strides K.
 constexpr int kGemvCols = 32;
@@ -734,15 +1179,51 @@ int launch_split(const void* q, const void* cache, int layer, int B, int H,
 
 template <typename CT>
 int launch_beam(const void* q, const void* cache, int layer, int B, int H,
-                int D, int S, const int* seq_len, const int* start,
-                const float* kscale, float scale, const void* fresh_k,
-                const void* fresh_v, const int* ind, int bw, void* out,
-                cudaStream_t st) {
-  beam_decode_attention_kernel<CT><<<dim3(H, B), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(cache),
-      layer, B, H, D, S, seq_len, start, kscale, scale,
-      static_cast<const CT*>(fresh_k), static_cast<const CT*>(fresh_v), ind,
-      bw, static_cast<__nv_bfloat16*>(out));
+                int D, int S, int splits, int W, int cols, int rs, int rows,
+                const int* seq_len, const int* start, const float* kscale,
+                float scale, const void* fresh_k, const void* fresh_v,
+                const int* ind, int bw, void* out, cudaStream_t st) {
+  const size_t smem = beam_layout(bw < kBeamRows ? bw : kBeamRows, rows, D,
+                                  cols, (int)sizeof(CT), splits * rs).bytes;
+  if (smem > kBeamMaxSmem) return (int)cudaErrorInvalidValue;
+  // cache columns a copy: 8 where every row, slice and round keeps them on
+  // their size, 4 where the cache's start keeps 4 on theirs (S and the
+  // slices are multiples of 4), else 1
+  const uintptr_t base = reinterpret_cast<uintptr_t>(cache);
+  const int cc = S % 8 == 0 && W % 8 == 0 && base % (8 * sizeof(CT)) == 0
+                     ? 8
+                     : base % (4 * sizeof(CT)) == 0 ? 4 : 1;
+  const bool wide = cc == 8;
+  auto kernel = wide ? beam_decode_attention_kernel<CT, true>
+                     : beam_decode_attention_kernel<CT, false>;
+  // the shared memory each instantiation may take, raised once per size
+  static size_t smem_allowed[2] = {48 * 1024, 48 * 1024};
+  if (smem > smem_allowed[wide]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed[wide] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B / bw * ((bw + kBeamRows - 1) / kBeamRows),
+                     splits * rs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits * rs;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const CT*>(cache), layer, H, D, S, W, cols, rs, rows, cc,
+      seq_len, start, kscale, scale, static_cast<const CT*>(fresh_k),
+      static_cast<const CT*>(fresh_v), ind, bw,
+      static_cast<__nv_bfloat16*>(out));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -770,24 +1251,44 @@ int decode_attention(const void* q, const void* cache, int cache_is_int8,
                                     fresh_v, out, st);
 }
 
-// Beam search: B = groups * bw query rows over B cache rows; ind [B, S]
-// int32 (the [groups, bw, S] table) holds beams in [0, bw).  The fresh K/V
-// is required.
+// Beam search: B = groups * bw query rows over B cache rows, any bw (a
+// block takes 16 query beams, the mma's m); ind [B, S] int32 (the [groups,
+// bw, S] table, 16-byte aligned) holds beams in [0, bw); the cache may
+// start on any element.  The fresh K/V is required.  The plan is the
+// wrapper's `beam_plan`: `splits` column slices of `W` columns (a multiple
+// of 4; the slices cover S), each walked in `rounds` = ceil(W / cols)
+// rounds of `cols` columns (a multiple of 16, at most 256), times `rs`
+// splits of the group's source rows (1 to bw), splits * rs blocks a
+// cluster (at most 8), each block's rows staged `rows` at a time (1 to
+// ceil(bw / rs)), the panels fitting in shared memory.  Any other plan is
+// refused.  One cluster launch; returns its CUDA error (0 = launched).
 int beam_decode_attention(const void* q, const void* cache,
                           int cache_is_int8, int layer, int B, int H, int D,
-                          int S, const int* seq_len, const int* start,
+                          int S, int splits, int W, int cols, int rounds,
+                          int rs, int rows,
+                          const int* seq_len, const int* start,
                           const float* kscale, float scale,
                           const void* fresh_k, const void* fresh_v,
                           const int* ind, int bw, void* out, void* stream) {
-  if (bw < 1 || B % bw || !fresh_k || !fresh_v || !ind || D > kMaxD || S % 4)
+  if (bw < 1 || B % bw ||
+      (long long)(B / bw) * ((bw + kBeamRows - 1) / kBeamRows) > 65535 ||
+      !fresh_k || !fresh_v || !ind || D < 1 || D > kMaxD || S < 4 || S % 4 ||
+      splits < 1 || rs < 1 || rs > bw || splits * rs > kMaxSplits || W < 4 ||
+      W % 4 ||
+      (long long)splits * W < S || (long long)(splits - 1) * W >= S ||
+      cols < 16 || cols % 16 || cols > kBeamMaxCols ||
+      rounds != (W + cols - 1) / cols || rows < 1 ||
+      rows > (bw + rs - 1) / rs)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return cache_is_int8
-      ? launch_beam<int8_t>(q, cache, layer, B, H, D, S, seq_len, start,
-                            kscale, scale, fresh_k, fresh_v, ind, bw, out, st)
-      : launch_beam<__nv_bfloat16>(q, cache, layer, B, H, D, S, seq_len,
-                                   start, kscale, scale, fresh_k, fresh_v,
-                                   ind, bw, out, st);
+      ? launch_beam<int8_t>(q, cache, layer, B, H, D, S, splits, W, cols, rs,
+                            rows, seq_len, start, kscale, scale, fresh_k,
+                            fresh_v, ind, bw, out, st)
+      : launch_beam<__nv_bfloat16>(q, cache, layer, B, H, D, S, splits, W,
+                                   cols, rs, rows, seq_len, start, kscale,
+                                   scale, fresh_k, fresh_v, ind, bw, out,
+                                   st);
 }
 
 int out_proj_gemv(const void* x, const void* w, int layer,

@@ -31,8 +31,11 @@ SIGNATURES = {
         "decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                              _F, _P, _P, _P, _P],
         "out_proj_gemv": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-        "beam_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                                  _P, _F, _P, _P, _P, _I, _P, _P],
+        # ..., S, then the wrapper's beam_plan: splits, width, cols, rounds,
+        # rs, rows
+        "beam_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P, _P, _P, _F, _P, _P,
+                                  _P, _I, _P, _P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -50,8 +53,11 @@ SIGNATURES = {
                                  _P, _P, _P, _F, _P, _P, _P, _P],
     },
     "paged_decode_attention": {
+        # ..., scale, then the wrapper's paged_plan: splits, width, warps,
+        # rounds, heads
         "paged_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _P, _P, _P, _F, _P, _P],
+                                   _I, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                                   _P, _P],
     },
     "int4_quant_matmul": {
         "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,

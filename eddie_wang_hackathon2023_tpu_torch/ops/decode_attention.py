@@ -6,7 +6,9 @@ Counterpart of ``ops/pallas_decode_attention.py`` ``fused_decode_attention``
 use.  On a CUDA tensor the wrapper launches the kernels of
 ``csrc/decode_attention.cu`` (attention, then the out-projection GEMV; with
 ``beam_indirection``, the beam entry that reads each position through the
-cache-indirection table, the TPU kernel's ``_beam_kernel`` :213) or, when q
+cache-indirection table, the TPU kernel's ``_beam_kernel`` :213: each
+source row of a group read once for all its beams, the columns split over
+a cluster by :func:`beam_plan`, passed to the kernel) or, when q
 has more heads than the cache, the grouped kernel of
 ``csrc/gqa_decode_attention.cu`` (the TPU kernel's ``_gqa_kernel`` :410,
 on the tensor cores, a cache past :data:`GQA_COLS` columns split over a
@@ -25,11 +27,14 @@ to it bit for bit; no path calls it).
 ``paged_decode_attention_pallas`` (:682): one-token attention off the
 block-paged pool through the block table, on a CUDA tensor by the kernel of
 ``csrc/paged_decode_attention.cu`` (the TPU kernel's ``_paged_kernel``
-:612), on a CPU tensor by :func:`plain_paged_decode_attention`.
+:612; its grid, cluster, slices, warps and query heads a block from
+:func:`paged_plan`, passed to the kernel), on a CPU tensor by
+:func:`plain_paged_decode_attention`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -91,6 +96,111 @@ def gqa_slice_width(S: int, splits: int) -> int:
     wrapper passes to it: ceil(S / splits) rounded up to 16 (one mma
     step)."""
     return (-(-S // splits) + 15) // 16 * 16
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+# the beam entry (csrc/decode_attention.cu): a block takes BEAM_ROWS query
+# beams (the mma's m; a wider beam is cut into tiles of them) and walks its
+# slice in rounds of at most BEAM_COLS columns, and its source rows in
+# rounds where all of them do not fit, so that the panels fit KERNEL_SMEM,
+# what a block may take beside its static shared memory; a group's source
+# rows are split over BEAM_ROW_SPLITS blocks where the cluster has room
+# (more blocks halve each one's copies, but every block of the cluster adds
+# its messages)
+BEAM_ROWS = 16
+BEAM_COLS = 256
+BEAM_ROW_SPLITS = 2
+KERNEL_SMEM = 226 * 1024
+
+
+def beam_smem_bytes(qn: int, rows: int, D: int, cols: int, itemsize: int,
+                    blocks: int) -> int:
+    """Shared memory of a block of the beam entry (``beam_layout`` in the
+    source) with at most qn query beams, in a cluster of ``blocks``: the K
+    and V panels [rows][Dp][pitch] of the source rows of a round, the
+    table's columns and the selected scores [qn][cols], P [16][cols + 8]
+    and q [16][Dp + 8] in bf16, the fresh K/V [qn][D] fp32, each row's
+    max, sum and fresh score, the cluster's maxima and sums, each group of
+    warps' partial contexts [8 // (Dp / 16)][16][Dp], rank 0's partial
+    contexts [splits][16][Dp]."""
+    Dp = (D + 15) // 16 * 16
+    pitch = cols + 8 if itemsize == 2 else cols + 16
+    rows16, warps = BEAM_ROWS, _THREADS // _WARP
+    return (2 * _pad16(rows * Dp * pitch * itemsize) + 2 * _pad16(4 * qn * cols)
+            + _pad16(2 * rows16 * (cols + 8)) + _pad16(2 * rows16 * (Dp + 8))
+            + 2 * _pad16(4 * qn * D) + 3 * _pad16(4 * rows16)
+            + 2 * _pad16(4 * MAX_SPLITS * rows16)
+            + _pad16(4 * (warps // (Dp // 16)) * rows16 * Dp)
+            + (_pad16(4 * blocks * rows16 * Dp) if blocks > 1 else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def beam_plan(S: int, bw: int, D: int, itemsize: int) -> dict:
+    """The beam entry's plan over a cache of S columns (S a multiple of 4),
+    beam width bw (any), head dim D and cache elements of ``itemsize``
+    bytes, which the wrapper passes to the kernel: ``splits`` =
+    :func:`decode_splits` column slices (from the static S, never the
+    lengths) of ``width`` = :func:`split_width` columns, each walked in
+    ``rounds`` rounds of ``cols`` columns, times ``rs`` splits of the
+    group's bw source rows (BEAM_ROW_SPLITS where bw and a cluster of
+    MAX_SPLITS blocks leave room, else 1; each row's panels are copied by
+    one block), each block's rows staged ``rows`` at a time.  ``cols`` is a
+    multiple of 16, the most, up to BEAM_COLS, whose panels of all the
+    block's rows fit a block; where even 16 columns do not fit, ``cols`` is
+    16 and ``rows`` the most rows that do."""
+    splits = decode_splits(S)
+    width = split_width(S, splits)
+    rs = max(1, min(bw, BEAM_ROW_SPLITS, MAX_SPLITS // splits))
+    qn, rows = min(bw, BEAM_ROWS), -(-bw // rs)
+    cols = min(BEAM_COLS, _pad16(width))
+
+    def fits():
+        return beam_smem_bytes(qn, rows, D, cols, itemsize,
+                               splits * rs) <= KERNEL_SMEM
+    while cols > 16 and not fits():
+        cols -= 16
+    while not fits():           # one row of 16 columns always fits
+        rows -= 1
+    return dict(splits=splits, width=width, cols=cols,
+                rounds=-(-width // cols), rs=rs, rows=rows)
+
+
+# the paged kernel (csrc/paged_decode_attention.cu): a warp takes 32 tokens
+# a round, a block at most PAGED_WARPS warps and PAGED_HEADS query heads (a
+# lane scores its token for each of them, so more heads a block lengthen the
+# chain while the blocks of one KV head read its panels from L2); a table of
+# more tokens than one block's round is split over a cluster of at most
+# MAX_SPLITS blocks; the C entry takes no more warps or heads than these
+PAGED_WARPS = 4
+PAGED_HEADS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(max_blocks: int, T: int, rep: int) -> dict:
+    """The paged kernel's plan over a table of ``max_blocks`` blocks of T
+    tokens and rep query heads a KV head, which the wrapper passes to the
+    kernel: a cluster of ``splits`` blocks (from the static table width,
+    never the lengths), each a slice of ``width`` tokens (a multiple of 32;
+    the slices cover the table, the last one not empty), ``warps`` warps
+    (a power of 2) walking it in ``rounds`` rounds of 32 tokens a warp, and
+    ``heads`` query heads a block (the power of 2 at or above rep, at most
+    PAGED_HEADS: one at rep 1, so no query lane is padded)."""
+    tokens = max_blocks * T
+    per_block = PAGED_WARPS * _WARP
+    splits = max(1, min(-(-tokens // per_block), MAX_SPLITS))
+    width = (-(-tokens // splits) + _WARP - 1) // _WARP * _WARP
+    splits = -(-tokens // width)
+    warps = min(PAGED_WARPS, _pow2_at_least(-(-width // _WARP)))
+    return dict(splits=splits, width=width, warps=warps,
+                rounds=-(-width // (_WARP * warps)),
+                heads=min(PAGED_HEADS, _pow2_at_least(rep)))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -386,15 +496,19 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
                              f"<= {S}] tensor on {dev} with groups * beams "
                              f"= {B}")
         bw = ind.shape[1]
+        plan = beam_plan(S, bw, D, full_cache.element_size())
         ind = ind.to(torch.int32)
         if ind.shape[2] < S:
             ind = torch.nn.functional.pad(ind, (0, S - ind.shape[2]))
         ind = ind.contiguous()
+        if ind.data_ptr() % 16:          # the kernel copies 16 bytes at once
+            ind = ind.clone()
         _build.check(lib.beam_decode_attention(
             _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
-            D, S, _ptr(seq_t), _ptr(start_t), _ptr(ks_t), float(scale),
-            _ptr(fk), _ptr(fv), _ptr(ind), bw, _ptr(ctx), stream),
-            "beam_decode_attention")
+            D, S, plan["splits"], plan["width"], plan["cols"],
+            plan["rounds"], plan["rs"], plan["rows"], _ptr(seq_t), _ptr(start_t),
+            _ptr(ks_t), float(scale), _ptr(fk), _ptr(fv), _ptr(ind), bw,
+            _ptr(ctx), stream), "beam_decode_attention")
         launches["beam_decode_attention"] += 1
         return ctx.view(B, H, 1, D)
     _build.check(lib.decode_attention(
@@ -518,10 +632,13 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
     seq_t = seq_len.to(torch.int32).contiguous()
     out = torch.empty((B, H, 1, D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    MB = table_t.shape[1]
+    plan = paged_plan(MB, T, H // Hkv)
     _build.check(_build.load("paged_decode_attention").paged_decode_attention(
         _ptr(q), _ptr(full_pool), int(is_int8), int(layer_idx), N, Hkv,
-        H // Hkv, T, D, B, table_t.shape[1], _ptr(table_t), _ptr(seq_t),
-        _ptr(ks_t), float(scale), _ptr(out), stream),
+        H // Hkv, T, D, B, MB, _ptr(table_t), _ptr(seq_t), _ptr(ks_t),
+        float(scale), plan["splits"], plan["width"], plan["warps"],
+        plan["rounds"], plan["heads"], _ptr(out), stream),
         "paged_decode_attention")
     launches["paged_decode_attention"] += 1
     return out

@@ -41,7 +41,16 @@ rows start on 4 bytes included) and 1e-2 with
 bf16 ones (its bf16 output rounds once), in both variants of the bf16
 entry (short, tiled).  The grouped kernel is held to kernel 1's gates over
 rep 1-32, head dims 64, 80 and 128, and S in one round or split over a
-cluster.  The megakernel
+cluster.  The paged kernel is held to the same gates at rep 1, 4 and 16,
+head dims 64 and 128, blocks of 16 and 32 tokens and table widths 1-8
+(split over a cluster from 5 blocks of 32), at every length from 0 to a
+full table of 4 blocks, under plans other than its wrapper's, and refusing
+plans it does not take; the beam entry at beam widths 1 to 24 (one tile
+of 16 query beams or two), one and two groups, lengths that fill one
+slice, cross into the next, fill the cache, starts inside a slice or
+masking one, and S 1500 walked in rounds; at head dim 128 and S 1500 with
+the source rows staged in rounds and three tiles of query beams; from a
+cache that starts on any element; and refusing plans it does not take.  The megakernel
 probes of ``tools/megakernel_probes.py`` sum in fp32 in another order than
 their plain versions and round once to bf16: held within one bf16 step
 (|out - ref| <= 2^-7 |ref| + 1e-5 max|ref|), the relayout's per-panel
@@ -434,6 +443,162 @@ def test_beam_kernel_refuses_what_it_does_not_take(dev):
                                   beam_indirection=torch.zeros(
                                       1, bw, S + 4, dtype=torch.int32,
                                       device=dev))
+
+
+def _beam_case(g, dev, cache_dtype, L, groups, bw, H, D, S, seqs, starts):
+    """(cache, q, fresh, ind, seq, kwargs) of one beam call: each group's
+    length and start repeated over its bw rows, a table whose rows change
+    from position to position."""
+    B = groups * bw
+    if cache_dtype == torch.int8:
+        cache = torch.randint(-127, 128, (L, B, 2, H, D, S), generator=g,
+                              device=dev, dtype=torch.int8)
+        fresh = tuple(torch.randint(-127, 128, (B, H, D, 1), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2))
+        kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    else:
+        cache = torch.randn(L, B, 2, H, D, S, generator=g,
+                            device=dev).bfloat16()
+        fresh = tuple(torch.randn(B, H, D, 1, generator=g,
+                                  device=dev).bfloat16() for _ in range(2))
+        kw = {}
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    ind = torch.randint(0, bw, (groups, bw, S), generator=g, device=dev,
+                        dtype=torch.int32)
+    seq = torch.tensor(seqs, device=dev).repeat_interleave(bw)
+    if starts is not None:
+        kw["start_index"] = torch.tensor(starts, device=dev) \
+            .repeat_interleave(bw)
+    return cache, q, fresh, ind, seq, kw
+
+
+def _beam_check(cache_dtype, cache, q, fresh, ind, seq, kw, what, D):
+    """The beam entry's context, held against the fp32 plain version (1e-2)
+    and the bf16 one (2e-2); returned."""
+    out = da.fused_decode_attention(cache, 0, q, seq, D ** -0.5,
+                                    fresh_kv=fresh, beam_indirection=ind,
+                                    **kw)
+    f32 = (lambda t: t) if cache_dtype == torch.int8 else (
+        lambda t: t.float())
+    ref = da.plain_beam_decode_attention(
+        f32(cache), 0, q.float(), seq, D ** -0.5,
+        fresh_kv=tuple(f32(t) for t in fresh), beam_indirection=ind, **kw)
+    ref16 = da.plain_beam_decode_attention(
+        cache, 0, q, seq, D ** -0.5, fresh_kv=fresh, beam_indirection=ind,
+        **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()), what
+    assert _rel(out, ref) < 1e-2, what
+    assert _rel(out, ref16) < 2e-2, what
+    return out
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("bw", [1, 3, 5, 8, 9, 16, 17, 24])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_beam_kernel_lengths_and_starts(dev, cache_dtype, bw, groups):
+    """The beam entry over its plan's slices and rounds (S 448: 2 slices of
+    224; S 1500: 6 of 252, walked in rounds): lengths 1, 44, 224, 225, 448
+    and 449 (the whole cache), a start inside a slice, a start that masks a
+    whole slice, and the rounding pin's 1501 at S 1500; the second group's
+    length and start differ.  Beam widths past 8 take the warps' second
+    pass over the query beams (and under 2 row splits, rows of 5 and 4 at
+    9), 16 a full tile, 17 and 24 two tiles of query beams.  Against the
+    fp32 plain version (1e-2) and the bf16 one (2e-2)."""
+    g = torch.Generator(device=dev).manual_seed(40 + 3 * bw + groups)
+    H, D = 4, 64
+    cases = [(448, n, None) for n in (1, 44, 224, 225, 448, 449)]
+    cases += [(448, 300, 9), (448, 448, 230), (1500, 1501, None),
+              (1500, 1400, 260)]
+    for S, n, st in cases:
+        seqs = [n, max(1, n - 7)][:groups]
+        starts = None if st is None else [st, max(0, st - 5)][:groups]
+        cache, q, fresh, ind, seq, kw = _beam_case(
+            g, dev, cache_dtype, 1, groups, bw, H, D, S, seqs, starts)
+        _beam_check(cache_dtype, cache, q, fresh, ind, seq, kw,
+                    f"S {S}, seq {seqs}, start {starts}", D)
+
+
+@pytest.mark.parametrize("bw", [12, 16, 24, 33])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_beam_kernel_wide_beams_at_head_dim_128(dev, cache_dtype, bw):
+    """Head dim 128 at S 1500 (6 slices, no room to split the rows over
+    blocks): in bf16 past 12 beams a block's source rows are staged in two
+    rounds, each walked twice; 33 beams are three tiles of query beams.
+    Lengths 44, 1400 from start 260, and 1501, against the plain
+    versions."""
+    g = torch.Generator(device=dev).manual_seed(60 + bw)
+    H, D, S = 2, 128, 1500
+    plan = da.beam_plan(S, bw, D, cache_dtype.itemsize)
+    if cache_dtype == torch.bfloat16 and bw > 12:
+        assert plan["rows"] < -(-bw // plan["rs"])
+    for n, st in ((44, None), (1400, 260), (1501, None)):
+        cache, q, fresh, ind, seq, kw = _beam_case(
+            g, dev, cache_dtype, 1, 1, bw, H, D, S, [n],
+            None if st is None else [st])
+        _beam_check(cache_dtype, cache, q, fresh, ind, seq, kw,
+                    f"seq {n}, start {st}", D)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+def test_beam_kernel_takes_a_cache_on_any_element(dev, cache_dtype, offset):
+    """A contiguous cache view that starts 1 element (a copy an element) or
+    4 elements (4 columns a copy) past an aligned start: the context equals
+    the aligned cache's bit for bit (the same values staged), and the
+    plain versions."""
+    g = torch.Generator(device=dev).manual_seed(70 + offset)
+    bw, H, D, S = 5, 4, 64, 448
+    for n, st in ((44, None), (448, 230)):
+        cache, q, fresh, ind, seq, kw = _beam_case(
+            g, dev, cache_dtype, 1, 2, bw, H, D, S, [n, n - 7],
+            None if st is None else [st, st - 5])
+        buf = torch.empty(cache.numel() + 16, dtype=cache_dtype, device=dev)
+        moved = buf[offset:offset + cache.numel()].view(cache.shape)
+        moved.copy_(cache)
+        assert moved.data_ptr() % 16 and moved.is_contiguous()
+        want = _beam_check(cache_dtype, cache, q, fresh, ind, seq, kw,
+                           f"aligned, seq {n}", D)
+        out = _beam_check(cache_dtype, moved, q, fresh, ind, seq, kw,
+                          f"offset {offset}, seq {n}", D)
+        assert torch.equal(out, want)
+
+
+def test_beam_kernel_refuses_a_plan_it_does_not_take(dev):
+    """The C entry takes only plans whose slices cover S (the last one not
+    empty) in rounds of a multiple of 16 columns up to 256, counted right,
+    with 1 to bw row splits, at most 8 blocks a cluster, and 1 to
+    ceil(bw / rs) rows staged a round."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    bw, H, D, S = 5, 2, 64, 448
+    cache, q, fresh, ind, seq, _ = _beam_case(
+        g, dev, torch.bfloat16, 1, 1, bw, H, D, S, [44], None)
+    ind = ind.contiguous()
+    ctx = torch.empty(bw, H * D, dtype=torch.bfloat16, device=dev)
+    lib = _build.load("decode_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = da.beam_plan(S, bw, D, 2)
+
+    def call(splits, width, cols, rounds, rs, rows):
+        return lib.beam_decode_attention(
+            q.data_ptr(), cache.data_ptr(), 0, 0, bw, H, D, S, splits, width,
+            cols, rounds, rs, rows, seq.data_ptr(), None, None, D ** -0.5,
+            fresh[0].data_ptr(), fresh[1].data_ptr(), ind.data_ptr(), bw,
+            ctx.data_ptr(), stream)
+    assert plan == dict(splits=2, width=224, cols=224, rounds=1, rs=2,
+                        rows=3)
+    assert call(*plan.values()) == 0
+    assert call(2, 224, 144, 2, 1, 5) == 0       # other plans it takes
+    assert call(2, 224, 224, 1, 2, 1) == 0
+    for bad in ((2, 220, 224, 1, 4, 2), (3, 224, 224, 1, 2, 3),
+                (2, 224, 136, 2, 4, 2), (2, 224, 144, 1, 4, 2),
+                (9, 56, 16, 4, 1, 5), (2, 222, 224, 1, 4, 2),
+                (2, 224, 272, 1, 4, 2), (2, 224, 224, 1, 6, 1),
+                (2, 224, 224, 1, 5, 1), (2, 224, 224, 1, 0, 1),
+                (2, 224, 224, 1, 2, 0), (2, 224, 224, 1, 2, 4)):
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 def test_flash_kernel_matches_plain_strided(dev):
@@ -965,6 +1130,117 @@ def test_paged_kernel_matches_plain(dev, pool_dtype, shape):
     assert bool((out[0] == 0).all())
     assert _rel(out[1:], ref[1:]) < 1e-2
     assert _rel(out[1:], ref16[1:]) < 2e-2
+
+
+@pytest.mark.parametrize("T", [16, 32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 16])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+def test_paged_kernel_layouts(dev, pool_dtype, rep, D, T):
+    """Query heads a KV head 1, 4 and 16, head dims 64 and 128, blocks of 16
+    and 32 tokens, and table widths 1 to 8 (a cluster from 5 blocks of 32
+    on), each with rows of length 0, 1, T - 1, T and the two longest the
+    table holds: against the fp32 plain version (1e-2) and the bf16 one
+    (2e-2); the row of length 0 is zeros."""
+    g = torch.Generator(device=dev).manual_seed(20 + rep + D + T)
+    hkv = {1: 4, 4: 2, 16: 1}[rep]
+    for mb in range(1, 9):
+        seq = [0, 1, T - 1, T, max(1, mb * T - 3), mb * T]
+        pool, q, table, seq_t, kw = _paged_inputs(g, dev, hkv, rep, D, T,
+                                                  seq, pool_dtype, L=1)
+        assert table.shape[1] == mb
+        out = da.fused_paged_decode_attention(pool, 0, q, table, seq_t,
+                                              D ** -0.5, **kw)
+        f32 = (lambda t: t) if pool_dtype == torch.int8 else (
+            lambda t: t.float())
+        ref = da.plain_paged_decode_attention(f32(pool), 0, q.float(), table,
+                                              seq_t, D ** -0.5, **kw)
+        ref16 = da.plain_paged_decode_attention(pool, 0, q, table, seq_t,
+                                                D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), mb
+        assert bool((out[0] == 0).all()), mb
+        assert _rel(out[1:], ref[1:]) < 1e-2, mb
+        assert _rel(out[1:], ref16[1:]) < 2e-2, mb
+
+
+@pytest.mark.parametrize("shape", ["serve", "mqa"])
+def test_paged_kernel_every_length(dev, shape):
+    """Every length from 0 to the full table (4 blocks of 32) in one call,
+    a row each, at the serve shape (bf16, 16 KV heads of 64) and the MQA
+    shape (int8, one KV head under 16 query heads of 128)."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    hkv, rep, D, dtype = {"serve": (16, 1, 64, torch.bfloat16),
+                          "mqa": (1, 16, 128, torch.int8)}[shape]
+    seq = list(range(0, 4 * 32 + 1))
+    pool, q, table, seq_t, kw = _paged_inputs(g, dev, hkv, rep, D, 32, seq,
+                                              dtype, L=1, N=340)
+    out = da.fused_paged_decode_attention(pool, 0, q, table, seq_t, 0.125,
+                                          **kw)
+    f32 = (lambda t: t) if dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_paged_decode_attention(f32(pool), 0, q.float(), table,
+                                          seq_t, 0.125, **kw)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all())
+    for n in seq[1:]:
+        assert _rel(out[n], ref[n]) < 1e-2, n
+
+
+def _paged_entry(dev, pool, q, table, seq, out, plan, scale=0.125, ks=None):
+    """The paged kernel's C entry with an explicit plan; its return code."""
+    L, N, _, hkv, T, D = pool.shape
+    B, H = q.shape[0], q.shape[1]
+    return _build.load("paged_decode_attention").paged_decode_attention(
+        q.data_ptr(), pool.data_ptr(), int(pool.dtype == torch.int8), 0, N,
+        hkv, H // hkv, T, D, B, table.shape[1], table.data_ptr(),
+        seq.data_ptr(), None if ks is None else ks.data_ptr(), scale,
+        plan["splits"], plan["width"], plan["warps"], plan["rounds"],
+        plan["heads"], out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.parametrize("splits,warps,heads", [
+    (1, 4, 1), (1, 2, 1), (1, 1, 1), (2, 2, 1), (2, 1, 2), (4, 1, 1),
+    (4, 2, 2), (1, 4, 2)])
+def test_paged_kernel_takes_other_plans(dev, splits, warps, heads):
+    """At the serve path's table (4 blocks of 32), plans other than the
+    wrapper's (a cluster of 1, 2 or 4 slices, 1 to 4 warps, 1 or 2 query
+    heads a block) give the same context within fp32 summation order."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    seq = [0, 1, 31, 32, 33, 61, 80, 128]
+    pool, q, table, seq_t, _ = _paged_inputs(g, dev, 2, 4, 64, 32, seq,
+                                             torch.bfloat16, L=1)
+    table = torch.nn.functional.pad(table, (0, 4 - table.shape[1]),
+                                    value=-1).contiguous()
+    width = 128 // splits
+    plan = dict(splits=splits, width=width, warps=warps,
+                rounds=-(-width // (32 * warps)), heads=heads)
+    out = torch.empty_like(q)
+    assert _paged_entry(dev, pool, q, table, seq_t, out, plan) == 0
+    ref = da.plain_paged_decode_attention(pool.float(), 0, q.float(), table,
+                                          seq_t, 0.125)
+    torch.cuda.synchronize()
+    assert bool((out[0] == 0).all())
+    assert _rel(out[1:], ref[1:]) < 1e-2
+
+
+def test_paged_kernel_refuses_a_plan_it_does_not_take(dev):
+    """Slices that miss a token or leave the last one empty, widths that
+    are not a multiple of 32, more than 8 blocks a cluster, warps other
+    than 1, 2 or 4, heads other than 1 or 2 and a miscounted number of
+    rounds."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    pool, q, table, seq_t, _ = _paged_inputs(g, dev, 2, 1, 64, 32, [80, 128],
+                                             torch.bfloat16, L=1)
+    out = torch.empty_like(q)
+    good = da.paged_plan(4, 32, 1)
+    assert _paged_entry(dev, pool, q, table, seq_t, out, good) == 0
+    for bad in (dict(good, width=96), dict(good, splits=2, width=128),
+                dict(good, width=100), dict(good, splits=9, width=32),
+                dict(good, warps=3), dict(good, heads=3),
+                dict(good, warps=8, rounds=1), dict(good, heads=4),
+                dict(good, rounds=2)):
+        assert _paged_entry(dev, pool, q, table, seq_t, out, bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 def test_paged_kernel_offsets_past_2_31(dev):

@@ -6,14 +6,22 @@ decode megakernel against another checkout's, in turns on one NVIDIA GPU.
 
 Builds ``csrc/decode_attention.cu``, ``csrc/flash_attention.cu``,
 ``csrc/gqa_decode_attention.cu``, ``csrc/int4_quant_matmul.cu``,
-``csrc/decoder_layer.cu`` and ``examples/custom_kernel_torch/fmha.cu`` of
+``csrc/decoder_layer.cu``, ``csrc/paged_decode_attention.cu`` and
+``examples/custom_kernel_torch/fmha.cu`` of
 OTHER into ``build/ab/`` (each with the ctypes signatures of OTHER's
 ``ops/_build.py``, and launched with the plans of OTHER's ``fmha_cuda.py``,
-``ops/flash_attention.py``, ``ops/int4_quant_matmul.py`` and
-``ops/decoder_layer.py``, read from the files) and times, with CUDA events
+``ops/flash_attention.py``, ``ops/int4_quant_matmul.py``,
+``ops/decoder_layer.py`` and ``ops/decode_attention.py``, read from the
+files) and times, with CUDA events
 behind a spin as ``chip_smoke.py`` does, their entries at the paths'
 shapes: the beam entry of kernel 1 (beam 5, 20 heads of 64, bf16 S 448 at
-sequence 44, 32 layers rotating), kernel 2's fp32 entry ([1,20,1536,64],
+sequence 44, 32 layers rotating, with each checkout's ``beam_plan`` where
+its C entry takes one), the paged kernel at the serve shape (8 rows, 16 KV
+heads of 64, T 32, a table of 4 blocks, lengths 61-80, bf16, 24 layers
+rotating) and the MQA int8 shape (one KV head under 16 query heads of 128;
+each checkout's ``paged_plan`` where its entry takes one), kernel 1's
+cross (int8 S 1500) and self (bf16 S 448, sequence 44) calls at batch 1
+and the out-projection GEMV, kernel 2's fp32 entry ([1,20,1536,64],
 valid 1500) and its causal mode ([1,20,227,64] bf16), kernel 2's bf16
 non-causal entry ([1,20,1536,64], valid 1500), the user FMHA's fp32 and
 bf16 entries ([1,20,1536,64] valid 1500; bf16 also [1,20,3,64] causal), the
@@ -42,7 +50,7 @@ CSRC = os.path.join("eddie_wang_hackathon2023_tpu_torch", "csrc")
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
            for name in ("decode_attention", "flash_attention",
                         "gqa_decode_attention", "int4_quant_matmul",
-                        "decoder_layer")}
+                        "decoder_layer", "paged_decode_attention")}
 OPS = os.path.join("eddie_wang_hackathon2023_tpu_torch", "ops")
 SOURCES["custom_fmha"] = os.path.join("examples", "custom_kernel_torch",
                                       "fmha.cu")
@@ -75,6 +83,7 @@ def defs_of(root, path, names):
     classes ``names`` of the file ``path`` of the checkout at ``root``,
     taken from the file alone (nothing else of that module runs), as a
     dict; a name the file lacks is left out."""
+    import functools
     import typing
 
     import torch
@@ -87,7 +96,8 @@ def defs_of(root, path, names):
                 isinstance(e, ast.Name) and e.id.isupper()
                 for t in n.targets
                 for e in (t.elts if isinstance(t, ast.Tuple) else [t])))]
-    scope = {"torch": torch, "ctypes": ctypes, "Dict": typing.Dict,
+    scope = {"torch": torch, "ctypes": ctypes, "functools": functools,
+             "Dict": typing.Dict,
              "Tuple": typing.Tuple, "Optional": typing.Optional}
     exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), scope)
     return scope
@@ -164,11 +174,94 @@ def main(argv=None):
     seq = torch.full((bw,), n, dtype=torch.int32, device=dev)
     ctx = torch.empty(bw, H * D, dtype=torch.bfloat16, device=dev)
 
+    # each checkout's plans of the decode kernels (None where it has none)
+    da_defs = {who: defs_of(root, os.path.join(OPS, "decode_attention.py"),
+                            ("beam_plan", "beam_smem_bytes", "paged_plan",
+                             "decode_splits", "split_width",
+                             "_pow2_at_least", "_pad16"))
+               for who, root in roots.items()}
+
     def beam(who, i):
-        return libs[who]["decode_attention"].beam_decode_attention(
-            q.data_ptr(), cache.data_ptr(), 0, i % L, bw, H, D, S,
-            seq.data_ptr(), None, None, D ** -0.5, fk.data_ptr(),
-            fv.data_ptr(), ind.data_ptr(), bw, ctx.data_ptr(), stream())
+        fn = libs[who]["decode_attention"].beam_decode_attention
+        # the checkout's beam_plan after S, where its signature takes one
+        plan = (list(da_defs[who]["beam_plan"](S, bw, D, 2).values())
+                if len(fn.argtypes) > 18 else [])
+        return fn(q.data_ptr(), cache.data_ptr(), 0, i % L, bw, H, D, S,
+                  *plan, seq.data_ptr(), None, None, D ** -0.5,
+                  fk.data_ptr(), fv.data_ptr(), ind.data_ptr(), bw,
+                  ctx.data_ptr(), stream())
+
+    # kernel 1 without beams (the same entry in both checkouts): the cross
+    # call (int8 S 1500, batch 1) and the self call (bf16 S 448, seq 44)
+    xl = 8
+    xcache = torch.randint(-127, 128, (xl, 1, 2, H, D, 1500), generator=g,
+                           device=dev, dtype=torch.int8)
+    xseq = torch.full((1,), 1500, dtype=torch.int32, device=dev)
+    scache = torch.randn(L, 1, 2, H, D, S, generator=g,
+                         device=dev).bfloat16()
+    sseq = torch.full((1,), n, dtype=torch.int32, device=dev)
+    ks1 = torch.tensor(1 / 40.0, device=dev)
+    kctx = torch.empty(1, H * D, dtype=torch.bfloat16, device=dev)
+
+    def kernel1(cross):
+        def run(who, i):
+            c, Sx, sq = (xcache, 1500, xseq) if cross else (scache, S, sseq)
+            layer = i % (xl if cross else L)
+            return libs[who]["decode_attention"].decode_attention(
+                q.data_ptr(), c.data_ptr(), int(cross), layer, 1, H, D, Sx,
+                da.decode_splits(Sx), sq.data_ptr(), None,
+                ks1.data_ptr() if cross else None, D ** -0.5,
+                None if cross else fk.data_ptr(),
+                None if cross else fv.data_ptr(), kctx.data_ptr(), stream())
+        return run
+
+    # the out-projection GEMV at the scanned path's shape ([1,1280] x
+    # [1280,1280] int8, 8 layers rotating)
+    pw = torch.randint(-127, 128, (xl, 1280, 1280), generator=g, device=dev,
+                       dtype=torch.int8)
+    px = torch.randn(1, 1280, generator=g, device=dev).bfloat16()
+    ps = torch.rand(1280, generator=g, device=dev) * 1e-3
+    pb = torch.randn(1280, generator=g, device=dev).bfloat16()
+    pout = torch.empty(1, 1280, dtype=torch.bfloat16, device=dev)
+
+    def gemv(who, i):
+        return libs[who]["decode_attention"].out_proj_gemv(
+            px.data_ptr(), pw.data_ptr(), i % xl, ps.data_ptr(),
+            pb.data_ptr(), pout.data_ptr(), 1, 1280, 1280, stream())
+
+    # the paged kernel at the serve path's shape (8 rows, 16 KV heads of 64,
+    # T 32, a table of 4 blocks, lengths 61-80, a bf16 pool of 24 layers)
+    # and at the MQA int8 shape (one KV head under 16 query heads of 128);
+    # each checkout's paged_plan after the scale, where its signature takes
+    # one
+    def paged(hkv, rep, pd, int8):
+        pl, pn, pt, pb_, pmb = 24, 32, 32, 8, 4
+        shape = (pl, pn, 2, hkv, pt, pd)
+        pool = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8) if int8 else
+                torch.randn(shape, generator=g, device=dev).bfloat16())
+        pq = torch.randn(pb_, hkv * rep, 1, pd, generator=g,
+                         device=dev).bfloat16()
+        pseq = torch.randint(61, 81, (pb_,), generator=g, device=dev,
+                             dtype=torch.int32)
+        table = torch.randperm(pn, generator=g, device=dev).to(
+            torch.int32).reshape(pb_, pmb)
+        table = torch.where(torch.arange(pmb, device=dev)[None, :]
+                            < ((pseq + pt - 1) // pt)[:, None], table,
+                            -1).contiguous()
+        pks = ks1 if int8 else None
+        pout = torch.empty_like(pq)
+
+        def run(who, i):
+            fn = libs[who]["paged_decode_attention"].paged_decode_attention
+            plan = (list(da_defs[who]["paged_plan"](pmb, pt, rep).values())
+                    if len(fn.argtypes) == 22 else [])
+            return fn(pq.data_ptr(), pool.data_ptr(), int(int8), i % pl, pn,
+                      hkv, rep, pt, pd, pb_, pmb, table.data_ptr(),
+                      pseq.data_ptr(), None if pks is None else
+                      pks.data_ptr(), pd ** -0.5, *plan, pout.data_ptr(),
+                      stream())
+        return run
 
     def flash_operands(lq, dtype):
         qkv = torch.randn(1, lq, 3, H, D, generator=g, device=dev).to(dtype)
@@ -237,6 +330,13 @@ def main(argv=None):
 
     cases = [
         ("beam entry, bf16 S 448, seq 44, beam 5", beam),
+        ("paged, serve: bf16, 8 rows, 16 KV heads of 64, T 32, seq 61-80",
+         paged(16, 1, 64, False)),
+        ("paged, MQA: int8, 8 rows, 1 KV head x 16, D 128, T 32, seq 61-80",
+         paged(1, 16, 128, True)),
+        ("kernel 1 cross, int8 S 1500, batch 1", kernel1(True)),
+        ("kernel 1 self, bf16 S 448, seq 44, batch 1", kernel1(False)),
+        ("out-projection GEMV [1,1280] x [1280,1280] int8", gemv),
         ("flash fp32 [1,20,1536,64] valid 1500", flash(
             "flash_attention_f32", flash_operands(1536, torch.float32),
             1536, 1500, 0)),

@@ -442,6 +442,49 @@ def step_timing(torch, model, call, label, first=1, n_prof=8):
                 top_kernels_ms_per_step=top)
 
 
+def prefill_timing(torch, model, call, label, n=3):
+    """The prefill's wall and device-busy time: ``call(0)``, the recorded
+    prefill, replayed on a fresh cache after a warm-up; wall ms on the
+    host clock up to a synchronize, the best of ``n``; busy ms as
+    :func:`step_device_ms` times a step (the call cut at its blocks, each
+    block behind its own spin), which a prefill that waits on the device
+    defeats, and the device time of its kernels from a profiler trace of
+    ``n`` calls, with the largest.  Prints them; returns a dict."""
+    def calls():
+        for _ in range(n):
+            call(0)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        call(0)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(n):
+            t = time.perf_counter()
+            call(0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        wall_ms = min(walls)
+        busy_ms = step_device_ms(torch, model, lambda: call(0), wall_ms)
+        kern_ms, top = kernel_breakdown(torch, calls, n)
+    idle = None if busy_ms is None else 1 - busy_ms / wall_ms
+    print(f"[{label}] prefill (teacher-forced): {wall_ms:.3f} ms wall, "
+          "device busy " + ("not measured (the host fell behind the timing "
+                            "spins)" if busy_ms is None else
+                            f"{busy_ms:.3f} ms, idle share {idle:.3f}"))
+    if top is None:
+        print("  the profiler recorded no device time: the prefill's kernels "
+              "not measured")
+    else:
+        print(f"  profiler: {kern_ms:.3f} ms of kernels per prefill "
+              f"({kern_ms / wall_ms:.3f} of its wall)")
+        for name, ms in top.items():
+            print(f"  {ms * 1e3:9.1f} us/prefill  {name}")
+    return dict(prefill_ms=wall_ms, prefill_device_busy_ms=busy_ms,
+                prefill_device_idle_share=idle,
+                prefill_kernel_ms=kern_ms, prefill_top_kernels_ms=top)
+
+
 def packed_library_ms(torch, fn, ref):
     """(ms, rel err, note) of ``fn``, one call of a PyTorch op on packed
     quantised weights, where the card's torch has a CUDA kernel for it;
@@ -648,10 +691,18 @@ def kernel_phases(torch, results):
              else p8_note))
     b_ms, b_by = bound(d * d + 2 * d + 4 * d + 2 * d + 2 * d, 2 * d * d,
                        PEAK_FP32_CUDA_CORES)
+    # the pair as the scanned path calls it for each attention layer: kernel
+    # 1 then the GEMV (it loads its weights while kernel 1 runs), cross and
+    # self; kernel 1 alone is timed below
+    pair_cross, _ = time_ms(torch, lambda i: cross_call(i % L))
+    print(f"kernel 1 (cross) + the GEMV: {pair_cross * 1e3:.2f} us a pair")
     results["out_proj_gemv"] = dict(
         max_abs_err=g_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
-        library_int8pack_ms=p8_ms, library_int8pack=p8_note)
+        library_int8pack_ms=p8_ms, library_int8pack=p8_note,
+        plan=da.gemv_plan(1, d, d, torch.cuda.get_device_properties(dev)
+                          .multi_processor_count),
+        pair_cross_ms=pair_cross)
 
     # kernel 1, self-attention: bf16 cache S=448, fresh K/V, proj
     S2 = 448
@@ -698,6 +749,11 @@ def kernel_phases(torch, results):
         max_abs_err=err_ctx, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
         **split_of(da, S2))
+    pair_self, _ = time_ms(torch, lambda i: da.fused_decode_attention(
+        self_cache, i % L, q, seq, scale, fresh_kv=fresh,
+        proj=(w[i % L], w_scale, w_bias)))
+    print(f"kernel 1 (self) + the GEMV: {pair_self * 1e3:.2f} us a pair")
+    results["out_proj_gemv"]["pair_self_ms"] = pair_self
     del self_cache, cross, w
 
     # kernel 2: encoder flash attention [1,20,1536,64], valid 1500, with
@@ -1502,9 +1558,9 @@ def int4_phase(torch, results, gen):
                 bound_ms=b_ms, bound_by=b_by,
                 bytes=n_bytes, host_call_ms=wall,
                 plan=(iq.decode_plan(m, n, k, sms) if m <= iq.DECODE_MAX_M
-                      else dict(zip(("splits", "chunks_per_split"),
-                                    iq.split_plan(m, n, k, sms)))))
-            print(f"int4 matmul {name} M {m} (K {k}, N {n}): {ms * 1e3:.2f} "
+                      else iq.prefill_plan(m, n, k, sms)))
+            print(f"int4 matmul {name} M {m} (K {k}, N {n}, plan "
+                  f"{shapes[f'{name} M{m}']['plan']}): {ms * 1e3:.2f} "
                   f"us (bound {b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f}"
                   f" MB); plain {plain_ms * 1e3:.2f} us; F.linear on the "
                   f"dequantised weight {lib_ms * 1e3:.2f} us + the "
@@ -2653,6 +2709,10 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
         model, calls, model.new_kv_cache(
             DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW)), label)
         if on_card else {})
+    if on_card:
+        step_info.update(prefill_timing(torch, model, replayer(
+            model, calls, model.new_kv_cache(
+                DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW)), label))
 
     # end to end: the best of 3 whole decode calls (prefill included), each
     # on prompts of its own, as benchmark.py times them

@@ -99,9 +99,10 @@
 
 // The TPU kernel ran its epilogue GEMV inside the same kernel from a VMEM
 // panel.  A single block cannot read the 1.6 MB panel fast, so here it is a
-// second kernel spread over N: out[b, n] = (sum_k ctx[b, k] W[l, k, n]) *
-// scale[n] + bias[n], with the context cast to bf16 first and fp32
-// accumulation, as weight_only_quant_matmul does.
+// second kernel spread over the whole card, N and K alike (see the GEMV's
+// note below): out[b, n] = (sum_k ctx[b, k] W[l, k, n]) * scale[n] +
+// bias[n], with the context in bf16 and fp32 accumulation, as
+// weight_only_quant_matmul does.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -317,6 +318,10 @@ split_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B,H,D]
     stage(k_s, kp, 0);
     stage(v_s, vp, 0);
   }
+  // the out-projection GEMV launched behind this kernel may start now: it
+  // loads its weights, then waits for this grid before it reads the
+  // context (programmatic dependent launch; a no-op without one)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   // q pre-multiplied by scale*kscale: scores come out ready for softmax
   if (tid < D) {
     q_s[tid] = __fmul_rn(qv, sk);
@@ -1075,65 +1080,277 @@ beam_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B,H,D]
   }
 }
 
-// out[b, n] = bf16((sum_k x[b, k] * W[layer, k, n]) * scale[n] + bias[n])
-// Block (8, 32): tx covers 4 columns each (one char4), ty strides K.
-constexpr int kGemvCols = 32;
-constexpr int kGemvRows = 32;
-constexpr int kGemvBatch = 10;
+// -- the out-projection GEMV ------------------------------------------------
+//
+// out[b, n] = bf16((sum_k x[b, k] W[layer, k, n]) * scale[n] + bias[n]):
+// the TPU kernel's epilogue (:62), a second launch here.  At the path's
+// call ([1,1280] x [1280,1280] int8) it is a stream of 1.6 MB read once, so
+// what costs is latency: the launch, each dependent round of loads, each
+// barrier.  So the bytes are spread over the whole card and requested in
+// one round.  A block owns kGemvCols (64) output columns and `rows`
+// consecutive rows of K, the blocks of a thread-block cluster of
+// `cluster` (1-8) ranks the rows of K in rank order (grid (cluster,
+// N / 64, batch tiles), the wrapper's `gemv_plan`: at the path's call 20 x
+// 6 = 120 blocks of 214 rows, 13.7 KB each).  Thread (warp, lane) takes
+// the 16 columns 16 (lane % 4) of rows warp * 8 + lane / 4 + 32 i of the
+// block's rows: one 16-byte load a row, a warp's loads 8 rows of 64
+// contiguous bytes, every load of the block issued before any is used.
+// The weights do not depend on the attention kernel before it, so the
+// GEMV is launched as its programmatic dependent: it starts once that
+// kernel's loads are in flight, requests its weights (and the scales and
+// biases of its outputs), and waits for that kernel (`griddepcontrol`)
+// only before it reads x.  The bytes become floats exactly (the byte xor
+// 0x80 set into the mantissa of 2^23, minus 2^23 + 128) and accumulate in
+// fp32 against x.  The sums then meet in a fixed order: the 8 lanes of a
+// warp that share columns by a butterfly of shuffles (each lane keeps an
+// eighth), the 4 warps through shared memory (one barrier), and the ranks
+// in rank 0's shared memory by `st.async`, counted on its mbarrier; rank 0
+// adds them in rank order, applies scale and bias and rounds once.  Up to
+// 8 batch rows a block (`batch`: 1, 2, 4 or 8), more in further blocks
+// along z.  Without 16-byte rows (N % 16 or an unaligned weight) each byte
+// is loaded alone.
+constexpr int kGemvCols = 64;
+constexpr int kGemvThreads = 128;
+constexpr int kGemvRowLanes = kGemvThreads / (kGemvCols / 16);   // 32
+constexpr int kGemvMaxCluster = 8;
 
-__global__ void __launch_bounds__(256)
-out_proj_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [B,K]
-                     const int8_t* __restrict__ w,          // [L,K,N]
-                     int layer, const float* __restrict__ scale,  // [N]
-                     const __nv_bfloat16* __restrict__ bias,      // [N]
-                     __nv_bfloat16* __restrict__ out,             // [B,N]
-                     int K, int N) {
-  extern __shared__ float x_s[];                               // [K]
-  __shared__ float red[kGemvRows][kGemvCols + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * blockDim.x + tx;
-  const int b = blockIdx.y;
-  const int n = blockIdx.x * kGemvCols + tx * 4;
-  for (int k = tid; k < K; k += blockDim.x * blockDim.y)
-    x_s[k] = __bfloat162float(x[(size_t)b * K + k]);
-  __syncthreads();
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (n < N) {
-    const int8_t* wp = w + (size_t)layer * K * N + n;
-    // kGemvBatch rows are loaded before they are used (loads in flight)
-    for (int k0 = ty; k0 < K; k0 += kGemvRows * kGemvBatch) {
-      char4 v[kGemvBatch];
+// mbar_wait that traps (a launch error) if the phase never completes,
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 34)) __trap();     // some 10 s
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// byte i of w as a float, exactly: 2^23 + (b + 128) - (2^23 + 128)
+template <int I>
+__device__ __forceinline__ float byte_f(uint32_t wx) {
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7440 | I)) -
+         8388736.f;
+}
+
+template <int NB, bool kVec>
+__global__ void __launch_bounds__(kGemvThreads)
+out_proj_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [B, K]
+                     const int8_t* __restrict__ w,          // [K, N]
+                     const float* __restrict__ scale,       // [N]
+                     const __nv_bfloat16* __restrict__ bias,  // [N] or null
+                     __nv_bfloat16* __restrict__ out,       // [B, N]
+                     int B, int K, int N, int rows) {
+  // rows of loads a thread keeps in flight (registers: 4 a row, NB x)
+  constexpr int kDepth = NB >= 4 ? 4 : 8;
+  constexpr int kVals = 16 * NB;                 // a thread's sums
+  __shared__ __align__(16) float red[4][4][kVals];      // [warp][cg][..]
+  __shared__ float recv[kGemvMaxCluster - 1][4 * kVals];
+  __shared__ __align__(8) uint64_t bar;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c16 = lane % 4, q = lane / 4;
+  const int col = blockIdx.y * kGemvCols + 16 * c16;
+  const int b0 = blockIdx.z * NB;
+  const int r_end = min(K, (rank + 1) * rows);
+
+  // the block's outputs: value v = tid + i * kGemvThreads is column
+  // 16 (v / kVals) + v % 16, batch row (v % kVals) / 16 of the block's;
+  // rank 0 asks for their scales and biases in the loads' round
+  constexpr int kPer = (4 * kVals + kGemvThreads - 1) / kGemvThreads;
+  float sc[kPer], bi[kPer];
 #pragma unroll
-      for (int i = 0; i < kGemvBatch; ++i) {
-        const int k = k0 + i * kGemvRows;
-        v[i] = k < K ? *reinterpret_cast<const char4*>(wp + (size_t)k * N)
-                     : make_char4(0, 0, 0, 0);
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + i * kGemvThreads;
+    const int n = blockIdx.y * kGemvCols + 16 * (v / kVals) + v % 16;
+    const bool live = rank == 0 && v < 4 * kVals && n < N;
+    sc[i] = live ? scale[n] : 0.f;
+    bi[i] = live && bias ? __bfloat162float(bias[n]) : 0.f;
+  }
+
+  // a round: up to kDepth rows of the thread's, each one 16-byte load of
+  // the weight, then each row's x
+  uint4 wv[kDepth];
+  uint32_t xv[kDepth][NB];                         // bf16 bits
+  auto load_w = [&](int r0) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const int k = r0 + kGemvRowLanes * d;
+      const bool live = k < r_end && col < N;
+      const int8_t* src = w + static_cast<size_t>(k) * N + col;
+      if (kVec) {
+        wv[d] = live ? __ldg(reinterpret_cast<const uint4*>(src))
+                     : make_uint4(0, 0, 0, 0);
+      } else {
+        uint32_t u[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          if (live && col + e < N)
+            u[e / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e]))
+                        << (8 * (e % 4));
+        wv[d] = make_uint4(u[0], u[1], u[2], u[3]);
+      }
+    }
+  };
+  auto load_x = [&](int r0) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const int k = r0 + kGemvRowLanes * d;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        xv[d][b] = k < r_end && b0 + b < B
+                       ? static_cast<uint32_t>(__bfloat16_as_ushort(
+                             x[static_cast<size_t>(b0 + b) * K + k]))
+                       : 0u;
+    }
+  };
+  float acc[kVals];
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
+  auto fma = [&]() {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const uint32_t words[4] = {wv[d].x ^ 0x80808080u, wv[d].y ^ 0x80808080u,
+                                 wv[d].z ^ 0x80808080u,
+                                 wv[d].w ^ 0x80808080u};
+      float f[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[4 * j + 0] = byte_f<0>(words[j]);
+        f[4 * j + 1] = byte_f<1>(words[j]);
+        f[4 * j + 2] = byte_f<2>(words[j]);
+        f[4 * j + 3] = byte_f<3>(words[j]);
       }
 #pragma unroll
-      for (int i = 0; i < kGemvBatch; ++i) {
-        const int k = k0 + i * kGemvRows;
-        const float xv = k < K ? x_s[k] : 0.f;
-        acc[0] += xv * (float)v[i].x;
-        acc[1] += xv * (float)v[i].y;
-        acc[2] += xv * (float)v[i].z;
-        acc[3] += xv * (float)v[i].w;
+      for (int b = 0; b < NB; ++b) {
+        const float xb = __uint_as_float(xv[d][b] << 16);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[16 * b + e] += xb * f[e];
       }
+    }
+  };
+  // the first round's weights before anything else (they do not depend on
+  // the kernel this one may overlap), then x once that kernel is done
+  int r0 = rank * rows + warp * 8 + q;
+  load_w(r0);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  load_x(r0);
+  if (csize > 1) {
+    if (tid == 0 && rank == 0) {
+      mbar_init(&bar, 1);
+      mbar_expect_tx(&bar, static_cast<uint32_t>((csize - 1) * 4 * kVals *
+                                                 sizeof(float)));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_arrive_relaxed();
+  }
+  for (;;) {
+    fma();
+    r0 += kGemvRowLanes * kDepth;
+    if (r0 >= r_end) break;
+    load_w(r0);
+    load_x(r0);
+  }
+
+  // the 8 lanes of the warp that share these columns (lane bits 2-4): at
+  // each level a lane keeps one half and receives its partner's share of
+  // it; lane q keeps sums [q * 2NB, q * 2NB + 2NB) of its 16 NB
+#pragma unroll
+  for (int lv = 0; lv < 3; ++lv) {
+    const int o = 16 >> lv, half = kVals >> (lv + 1);
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = upper ? acc[half + i] : acc[i];
+      const float give = upper ? acc[i] : acc[half + i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, give, o);
     }
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty][tx * 4 + j] = acc[j];
+  for (int i = 0; i < 2 * NB; ++i) red[warp][c16][2 * NB * q + i] = acc[i];
   __syncthreads();
-  if (tid < kGemvCols) {
-    const int col = blockIdx.x * kGemvCols + tid;
-    if (col < N) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < kGemvRows; ++r) s += red[r][tid];
-      s *= scale[col];
-      if (bias) s += __bfloat162float(bias[col]);
-      out[(size_t)b * N + col] = __float2bfloat16(s);
+  // the block's sums, the warps in order: value v = (c16, b, e) of
+  // red[.][c16][16 b + e]
+  float mine[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + i * kGemvThreads;
+    if (v < 4 * kVals) {
+      const float* r = &red[0][0][0] + v;
+      mine[i] = ((r[0] + r[4 * kVals]) + r[8 * kVals]) + r[12 * kVals];
     }
   }
+  if (csize > 1) {
+    cluster_wait();
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int v = tid + i * kGemvThreads;
+        if (v < 4 * kVals) send(&recv[rank - 1][v], mine[i], &bar, 0);
+      }
+      return;
+    }
+    mbar_wait_bounded(&bar, 0);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int v = tid + i * kGemvThreads;
+    if (v < 4 * kVals) {
+      float s = mine[i];
+      for (int r = 1; r < csize; ++r) s += recv[r - 1][v];
+      const int n = blockIdx.y * kGemvCols + 16 * (v / kVals) + v % 16;
+      const int b = (v % kVals) / 16;
+      if (n < N && b0 + b < B)
+        out[static_cast<size_t>(b0 + b) * N + n] =
+            __float2bfloat16(s * sc[i] + bi[i]);
+    }
+  }
+}
+
+template <int NB, bool kVec>
+int launch_gemv(const void* x, const int8_t* w, const float* scale,
+                const void* bias, void* out, int B, int K, int N,
+                int cluster, int rows, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (N + kGemvCols - 1) / kGemvCols,
+                     (B + NB - 1) / NB);
+  cfg.blockDim = dim3(kGemvThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // it may start while the kernel before it runs (its weights do not
+  // depend on it); it waits for that kernel before it reads x
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, out_proj_gemv_kernel<NB, kVec>,
+      static_cast<const __nv_bfloat16*>(x), w, scale,
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), B, K, N, rows);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int dispatch_gemv(bool vec, const void* x, const int8_t* w,
+                  const float* scale, const void* bias, void* out, int B,
+                  int K, int N, int cluster, int rows, cudaStream_t st) {
+  return vec ? launch_gemv<NB, true>(x, w, scale, bias, out, B, K, N,
+                                     cluster, rows, st)
+             : launch_gemv<NB, false>(x, w, scale, bias, out, B, K, N,
+                                      cluster, rows, st);
 }
 
 // shared memory beside the static arrays that a block may take
@@ -1291,19 +1508,37 @@ int beam_decode_attention(const void* q, const void* cache,
                                    st);
 }
 
+// The out-projection GEMV.  x [B, K] bf16; w [L, K, N] int8, layer
+// `layer`; scale fp32 [N]; bias bf16 [N] or null; out [B, N] bf16.  The
+// plan (the wrapper's `gemv_plan`): a cluster of `cluster` blocks (1-8)
+// along K for every 64 output columns, each `rows` rows of K (cluster *
+// rows >= K > (cluster - 1) * rows), `batch` rows of x a block (1, 2, 4 or
+// 8).  Returns the launch's CUDA error (0 = launched); any other plan is
+// refused.
 int out_proj_gemv(const void* x, const void* w, int layer,
                   const float* scale, const void* bias, void* out, int B,
-                  int K, int N, void* stream) {
-  dim3 block(kGemvCols / 4, kGemvRows);
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, B);
-  const size_t smem = (size_t)K * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  out_proj_gemv_kernel<<<grid, block, smem,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      layer, scale, static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), K, N);
-  return (int)cudaGetLastError();
+                  int K, int N, int cluster, int rows, int batch,
+                  void* stream) {
+  if (B < 1 || K < 1 || N < 1 || layer < 0 || cluster < 1 ||
+      cluster > kGemvMaxCluster || rows < 1 ||
+      (long long)cluster * rows < K || (long long)(cluster - 1) * rows >= K ||
+      (batch != 1 && batch != 2 && batch != 4 && batch != 8) ||
+      (B + batch - 1) / batch > 65535 ||
+      (N + kGemvCols - 1) / kGemvCols > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* wl = static_cast<const int8_t*>(w) + (size_t)layer * K * N;
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(wl) % 16 == 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (batch) {
+    case 1: return dispatch_gemv<1>(vec, x, wl, scale, bias, out, B, K, N,
+                                    cluster, rows, st);
+    case 2: return dispatch_gemv<2>(vec, x, wl, scale, bias, out, B, K, N,
+                                    cluster, rows, st);
+    case 4: return dispatch_gemv<4>(vec, x, wl, scale, bias, out, B, K, N,
+                                    cluster, rows, st);
+    default: return dispatch_gemv<8>(vec, x, wl, scale, bias, out, B, K, N,
+                                     cluster, rows, st);
+  }
 }
 
 }  // extern "C"

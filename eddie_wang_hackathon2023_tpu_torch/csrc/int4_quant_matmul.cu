@@ -57,83 +57,54 @@
 // deterministic.
 //
 // The prefill entry (`int4_quant_matmul`, M > 32: the prefill at M 512).
-// A block computes a [64, 128] output tile with 8 warps, 16 columns each,
-// on the tensor cores (`mma.sync.m16n8k16` bf16 with fp32 accumulators,
-// fragments loaded by `ldmatrix`).  K is walked in chunks of 32 packed
-// rows, which give 64 rows of K: 32 low nibbles (rows p0..p0+31) and 32
-// high ones (rows K/2+p0..), so every packed byte is read once and both
-// its nibbles are used.  A chunk's packed bytes [32][128] (a warp reads 4
-// rows of 128 contiguous bytes: the packed layout is N-minor), its two
-// scale rows (low and high group; a group is a multiple of 32 rows, so one
-// row each) and its x tile [64][64] are copied by `cp.async` into a ring of
-// kStages shared-memory stages, kStages - 1 chunks ahead of the one being
-// used.  Each thread then unpacks 16 columns of one packed row into the
-// bf16 weight panel [64][128] and the warps run the products from there.
-// Where a tile row of blocks does not fill the card, K is split along
-// chunk boundaries into `splits` ranges, one block each: a split block
-// writes its fp32 partial tile, and the last block of a tile to finish (an
-// atomic counter per tile, which it resets) sums the partials in split
-// order, applies the per-channel scale and rounds.
+// The products bound it, so it runs on `wgmma`, and its operands are
+// swapped as the decode entry's are: out^T = W^T x^T.  The weight is the
+// m64 A operand, unpacked in registers (the register-A form of `wgmma`),
+// and x^T is the B operand read from shared memory, so the wgmma's n is
+// the block's rows of x (the wrapper's `rows`: 32-256) and each weight is
+// unpacked once per block for all of them.  A block owns 128 output
+// columns and `rows` rows of x: two consumer warpgroups of 64 columns
+// each, sharing the x tiles, and one producer warp.  K is walked in chunks
+// of 64 packed rows (the last may have 32): the low nibbles of a chunk are
+// rows p0..p0+63 of K, its high nibbles rows K/2+p0.., so x comes as two
+// boxes of 64 columns a chunk, and each k16 step of the product takes 16
+// packed rows, low nibbles against the low box, high against the high one.
+// The producer's lane 0 copies each chunk into a ring of `stages` stages by
+// TMA: the two x boxes [rows][64] and the packed bytes [64][128], both in
+// the 128-byte swizzle, and (grouped) the chunk's four scale rows (the low
+// and high group of each half of 32 packed rows; a group is a multiple of
+// 32 rows), all counted on the stage's `full` mbarrier; the consumers free
+// a stage on its `empty` mbarrier once their products on it are done.
+// Where N is not a multiple of 16 (no TMA map of the weight) the producer
+// warp's lanes copy the bytes and scales themselves.  No block-wide
+// barrier in the K loop.  A consumer thread (warp w of its warpgroup, lane
+// (g, t)) owns two adjacent columns: A rows 16w + g and 16w + g + 8 of the
+// m64 tile.  For a k16 step it reads one 2-byte word of packed rows 2t,
+// 2t + 1, 2t + 8 and 2t + 9 of the step (conflict-free in the swizzle) and
+// turns them into its A fragments of the low and the high step (the
+// nibbles into bf16 as below).  Each step of a chunk has fragments of its
+// own, so a chunk's products are all in flight while its later steps are
+// unpacked; the chunk is drained before the next (no product in flight
+// across the loop, where the compiler would serialise them).  The first
+// product sets the accumulators (scale-d 0).  One launch, no split of K,
+// no workspace and no counters; the sum order is fixed, so a call is
+// deterministic.  The wrapper's `prefill_plan` picks `rows` (so that the
+// tiles fill one wave of the card's SMs where a tile size does) and the
+// stages; this entry refuses any other.  `tools/int4_kernel_probe.py`
+// times it by plan and reads its phases: a chunk costs about a fixed 125
+// cycles a `wgmma` (16 a chunk) on top of the products' time.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;           // 8 warps
-constexpr int kTileN = 128;             // output columns a block
-constexpr int kWarpN = kTileN / (kThreads / 32);   // 16 columns a warp
-constexpr int kNT = kWarpN / 8;                    // its n8 tiles
-constexpr int kPack = 32;               // packed rows a chunk
-constexpr int kChunkK = 2 * kPack;      // rows of K a chunk (low + high)
-constexpr int kWStride = kTileN + 8;    // bf16 a weight-panel row (padded)
-constexpr int kXStride = kChunkK + 8;   // bf16 an x-tile row (padded)
-static_assert(kThreads % kTileN == 0, "the reduction: a column a thread");
-
-// the prefill entry: four m-tiles of 16 rows a block
-constexpr int MT = 4;
-
-struct Layout {
-  static constexpr int kStages = 3;
-  static constexpr int kPanel = kChunkK * kWStride * 2;       // bf16 panel
-  static constexpr int kRaw = kPack * kTileN;                 // packed bytes
-  static constexpr int kScl = 2 * kTileN * 4;                 // two fp32 rows
-  static constexpr int kX = 16 * MT * kXStride * 2;           // bf16 x tile
-  static constexpr int kStage = kRaw + kScl + kX;
-  static constexpr int kBytes = kPanel + kStages * kStage;
-};
-
-struct Problem {
-  const __nv_bfloat16* x;               // [M, K]
-  const int8_t* qw;                     // [K/2, N]
-  const float* scale;                   // [N] or [G, N]
-  int M, N, K, gs;                      // gs: rows of K a group
-  int chunks_per_split, splits;
-  float* ws;                            // [splits, M, N] partials
-  int* counters;                        // one per output tile
-  __nv_bfloat16* out;                   // [M, N]
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -152,315 +123,617 @@ __device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
   return *reinterpret_cast<__nv_bfloat162*>(&v);
 }
 
-// two nibbles (bits 0-3 and 16-19 of v) -> their signed values as a bf16
-// pair: 0x4300 | (n ^ 8) is 128 + (n ^ 8) in bf16, and n ^ 8 - 8 is the
+constexpr int kPack = 32;               // packed rows of the smallest K step
+constexpr int kChunkK = 2 * kPack;      // K must be a multiple of this
+
+// -- the prefill entry (M > 32) ----------------------------------------------
+
+namespace prefill {
+
+constexpr int kCols = 128;              // output columns a block
+constexpr int kChunk = 64;              // packed rows a stage
+constexpr int kConsumerWarps = 8;       // two warpgroups of 64 columns
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr int kMaxStages = 8;
+constexpr int kMaxSmem = 227 * 1024;
+constexpr int kWBytes = kChunk * kCols;              // packed bytes a stage
+constexpr int kSBytes = 4 * kCols * 4;               // four fp32 scale rows
+
+// one x box: `rows` rows of 64 bf16 (128 bytes, one swizzle row each)
+__host__ __device__ constexpr int x_bytes(int rows) { return rows * 128; }
+// a stage: the low and high x boxes, the packed bytes, the scale rows;
+// every part a multiple of 1024 bytes (the swizzle's period)
+__host__ __device__ constexpr int stage_bytes(int rows) {
+  return 2 * x_bytes(rows) + kWBytes + kSBytes;
+}
+// the rows of x a block may take (each an instantiation: the wgmma's n)
+__host__ __device__ constexpr bool rows_ok(int r) {
+  return r == 32 || r == 64 || r == 80 || r == 128 || r == 160 || r == 256;
+}
+size_t smem_bytes(int rows, int stages) {
+  return 1024 + static_cast<size_t>(stages) * stage_bytes(rows) +
+         16 * static_cast<size_t>(stages);
+}
+
+struct Problem {
+  const int8_t* qw;                     // [K/2, N] (the copies without TMA)
+  const float* scale;                   // [N] or [G, N]
+  __nv_bfloat16* out;                   // [M, N]
+  int M, N, K, gs;                      // gs: rows of K a group
+  int stages;
+  int tma_w;                            // 1: the weight and scales by TMA
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+// returns once the phase of parity `parity` has completed; a copy that
+// never lands traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 34)) __trap();     // some 10 s
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// a box of a 2-d tensor map at (c0, c1) into shared memory, on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the 128-byte
+// swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): groups of 8
+// rows 1024 bytes apart; the leading offset is unused at this width
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of r across the asynchronous
+// products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d = A B + (scale_d ? d : 0): m64 n`N` k16, A (64 x 16 bf16, the weight)
+// from registers, B (N rows of x, 16 columns) from shared memory K-major
+// in the 128-byte swizzle; fp32 accumulators
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ void fence_regs4(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// a bf16 pair of two nibbles (bits 0-3 and 16-19 of v) and its signed
+// values: 0x4300 | (n ^ 8) is 128 + (n ^ 8) in bf16, and n ^ 8 - 8 is the
 // two's-complement value of n; every step is exact
-__device__ __forceinline__ __nv_bfloat162 nibbles_bf2(uint32_t v) {
-  const uint32_t u = ((v & 0x000F000Fu) ^ 0x00080008u) | 0x43004300u;
-  return __hsub2(bits_bf2(u), __floats2bfloat162_rn(136.f, 136.f));
+__device__ __forceinline__ uint32_t nibbles_bf2(uint32_t v) {
+  const uint32_t u = (v & 0x000F000Fu) ^ 0x43084308u;
+  return bf2_bits(__hsub2(bits_bf2(u), __floats2bfloat162_rn(136.f, 136.f)));
 }
 
-// issue the copies of chunk `chunk` into stage buffer `st` (edge tiles,
-// whose rows are not whole 16-byte vectors, are loaded and stored here)
+// The thread's A fragments of one k16 step from its four words (packed
+// rows 2t, 2t + 1, 2t + 8, 2t + 9 of the step; byte 0 column c, byte 1
+// column c + 1): a[0] = (row 2t, 2t + 1) of column c (A row g), a[1] the
+// same of column c + 1 (A row g + 8), a[2], a[3] rows 2t + 8, 2t + 9; lo
+// from the low nibbles (rows p of K), hi from the high ones (K/2 + p).
+// Grouped: each weight times the bf16 pair of its column's scale (s[0]
+// column c, s[1] column c + 1; one rounding).
 template <bool kGrouped>
-__device__ __forceinline__ void issue_chunk(const Problem& p, int chunk,
-                                            int n0, int m0, bool vec,
-                                            uint8_t* st) {
-  using Ly = Layout;
-  const int t = threadIdx.x;
+__device__ __forceinline__ void unpack_step(const uint32_t (&v)[4],
+                                            const uint32_t (&slo)[2],
+                                            const uint32_t (&shi)[2],
+                                            uint32_t (&lo)[4],
+                                            uint32_t (&hi)[4]) {
+  // byte b of rows (2t, 2t+1) and (2t+8, 2t+9) into the low bytes of the
+  // two halves
+  const uint32_t e[4] = {__byte_perm(v[0], v[1], 0x0400),
+                         __byte_perm(v[0], v[1], 0x0501),
+                         __byte_perm(v[2], v[3], 0x0400),
+                         __byte_perm(v[2], v[3], 0x0501)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = nibbles_bf2(e[i]);
+    hi[i] = nibbles_bf2(e[i] >> 4);
+    if (kGrouped) {
+      lo[i] = bf2_bits(__hmul2(bits_bf2(lo[i]), bits_bf2(slo[i & 1])));
+      hi[i] = bf2_bits(__hmul2(bits_bf2(hi[i]), bits_bf2(shi[i & 1])));
+    }
+  }
+}
+
+template <int R, bool kGrouped>
+__global__ void __launch_bounds__(kThreads, 1)
+int4_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap s_map,
+                    const Problem p) {
+  constexpr int kStage = stage_bytes(R);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* const base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int S = p.stages;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base + S * kStage);
+  uint64_t* const empty = full + S;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * R;
   const int kh = p.K / 2;
-  const int p0 = chunk * kPack;
-  int8_t* raw = reinterpret_cast<int8_t*>(st);
-  float* scl = reinterpret_cast<float*>(st + Ly::kRaw);
-  __nv_bfloat16* xs =
-      reinterpret_cast<__nv_bfloat16*>(st + Ly::kRaw + Ly::kScl);
-  const int col = 16 * (t % 8);
-#pragma unroll
-  for (int r = t / 8; r < kPack; r += kThreads / 8) {
-    const int8_t* src = p.qw + static_cast<size_t>(p0 + r) * p.N + n0 + col;
-    int8_t* dst = raw + r * kTileN + col;
-    if (vec) {
-      cp_async16(dst, src, 16);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        dst[e] = n0 + col + e < p.N ? src[e] : 0;
+  const int chunks = (kh + kChunk - 1) / kChunk;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], p.tma_w ? 1 : 32);
+      mbar_init(&empty[s], kConsumerWarps);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (kGrouped && t < 64) {
-    // row 0: the group of rows p0.. (low nibbles); row 1: of K/2 + p0...
-    // Columns 4q..4q+3 go to slot 8 (q % 4) + q / 4 of their row, so that
-    // the 8 threads that unpack 16 columns each read 8 adjacent slots
-    const int row = t / 32, q = t % 32, c4 = 4 * q;
-    const int g = (row ? kh + p0 : p0) / p.gs;
-    const float* src = p.scale + static_cast<size_t>(g) * p.N + n0 + c4;
-    float* dst = scl + row * kTileN + 4 * (8 * (q % 4) + q / 4);
-    if (vec) {
-      cp_async16(dst, src, 16);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = n0 + c4 + e < p.N ? src[e] : 0.f;
-    }
-  }
-  // the x tile: 16*MT rows x (32 low + 32 high columns), 8 bf16 a copy;
-  // rows past M are zero-filled
-#pragma unroll
-  for (int idx = t; idx < 16 * MT * 8; idx += kThreads) {
-    const int row = idx / 8, half = (idx / 4) % 2, v = idx % 4;
-    const int m = m0 + row;
-    const __nv_bfloat16* src =
-        m < p.M ? p.x + static_cast<size_t>(m) * p.K + (half ? kh + p0 : p0) +
-                      8 * v
-                : p.x;
-    cp_async16(xs + row * kXStride + half * kPack + 8 * v, src,
-               m < p.M ? 16 : 0);
-  }
-}
+  __syncthreads();
 
-// unpack, scale and round one staged chunk into the bf16 weight panel
-template <bool kGrouped>
-__device__ __forceinline__ void dequant_chunk(const uint8_t* st,
-                                              __nv_bfloat16* panel) {
-  using Ly = Layout;
-  const int t = threadIdx.x;
-  const int col = 16 * (t % 8);
-  const int8_t* raw = reinterpret_cast<const int8_t*>(st);
-  const float4* scl = reinterpret_cast<const float4*>(st + Ly::kRaw);
-  __nv_bfloat162 slo[8], shi[8];
-  if (kGrouped) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {     // columns col + 4q .. col + 4q + 3
-      const float4 a = scl[8 * q + t % 8];
-      const float4 b = scl[kTileN / 4 + 8 * q + t % 8];
-      slo[2 * q] = __floats2bfloat162_rn(a.x, a.y);
-      slo[2 * q + 1] = __floats2bfloat162_rn(a.z, a.w);
-      shi[2 * q] = __floats2bfloat162_rn(b.x, b.y);
-      shi[2 * q + 1] = __floats2bfloat162_rn(b.z, b.w);
-    }
-  }
-#pragma unroll
-  for (int r = t / 8; r < kPack; r += kThreads / 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * kTileN + col);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-    uint32_t lo[8], hi[8];
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      // bytes (0, 1) and (2, 3) of the word into the two halves
-      const uint32_t pairs[2] = {__byte_perm(words[w], 0, 0x4140),
-                                 __byte_perm(words[w], 0, 0x4342)};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * w + h;        // columns col + 2j, col + 2j + 1
-        __nv_bfloat162 ql = nibbles_bf2(pairs[h]);
-        __nv_bfloat162 qh = nibbles_bf2(pairs[h] >> 4);
-        if (kGrouped) {
-          ql = __hmul2(ql, slo[j]);     // one rounding of q * bf16(scale)
-          qh = __hmul2(qh, shi[j]);
+  // the chunk's scale rows: 2h (low) and 2h + 1 (high) of half h of 32
+  // packed rows (a group is a multiple of 32 rows: one group each)
+  auto group_of = [&](int row) { return row / p.gs; };
+
+  if (warp == kConsumerWarps) {
+    // the producer: chunk c into stage c % S once the consumers freed it
+    for (int c = 0; c < chunks; ++c) {
+      const int st = c % S, p0 = c * kChunk;
+      const int srows = 2 * (min(kChunk, kh - p0) / kPack);
+      if (c >= S) mbar_wait(&empty[st], ((c / S) - 1) & 1);
+      uint8_t* const stg = base + st * kStage;
+      uint8_t* const wsm = stg + 2 * x_bytes(R);
+      float* const ssm = reinterpret_cast<float*>(wsm + kWBytes);
+      if (!p.tma_w) {
+        // packed byte (r, col) of the chunk at row r, 16-byte chunk
+        // (col / 16) ^ (r % 8): the 128-byte swizzle that TMA writes
+        for (int i = lane; i < kChunk * kCols; i += 32) {
+          const int r = i / kCols, col = i % kCols;
+          const int8_t v = p0 + r < kh && n0 + col < p.N
+                               ? p.qw[static_cast<size_t>(p0 + r) * p.N +
+                                      n0 + col]
+                               : int8_t(0);
+          wsm[r * kCols + (((col / 16) ^ (r % 8)) * 16) + col % 16] =
+              static_cast<uint8_t>(v);
         }
-        lo[j] = bf2_bits(ql);
-        hi[j] = bf2_bits(qh);
-      }
-    }
-    uint4* dl = reinterpret_cast<uint4*>(panel + r * kWStride + col);
-    uint4* dh = reinterpret_cast<uint4*>(panel + (kPack + r) * kWStride + col);
-    dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-  }
-}
-
-// four 8x8 bf16 matrices from shared memory, the row addresses given by
-// lanes 0-7, 8-15, 16-23 and 24-31; `.trans` hands each lane a column pair
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <bool kGrouped>
-__global__ void __launch_bounds__(kThreads)
-int4_mm_kernel(const Problem p) {
-  using Ly = Layout;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int last;
-  __nv_bfloat16* panel = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint8_t* stages = smem + Ly::kPanel;
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int n0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * 16 * MT;
-  const int chunks = p.K / kChunkK;
-  const int c_begin = blockIdx.z * p.chunks_per_split;
-  const int c_end = min(c_begin + p.chunks_per_split, chunks);
-  const bool vec = (p.N % 16 == 0) && (n0 + kTileN <= p.N);
-
-  float acc[MT][kNT][4];
-#pragma unroll
-  for (int a = 0; a < MT; ++a)
-#pragma unroll
-    for (int b = 0; b < kNT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  // kStages - 1 chunks in flight; one commit group per chunk, empty past
-  // the end, so that wait_group counts chunks
-#pragma unroll
-  for (int s = 0; s < Ly::kStages - 1; ++s) {
-    if (c_begin + s < c_end)
-      issue_chunk<kGrouped>(p, c_begin + s, n0, m0, vec,
-                                stages + s * Ly::kStage);
-    cp_async_commit();
-  }
-  for (int ch = c_begin; ch < c_end; ++ch) {
-    const int j = ch - c_begin;
-    cp_async_wait<Ly::kStages - 2>();   // this thread's copies of chunk ch
-    __syncthreads();                    // everyone's; the panel is free
-    const uint8_t* st = stages + (j % Ly::kStages) * Ly::kStage;
-    dequant_chunk<kGrouped>(st, panel);
-    // the next chunk into the stage that chunk ch - 1 used
-    const int ahead = ch + Ly::kStages - 1;
-    if (ahead < c_end)
-      issue_chunk<kGrouped>(
-          p, ahead, n0, m0, vec,
-          stages + ((j + Ly::kStages - 1) % Ly::kStages) * Ly::kStage);
-    cp_async_commit();
-    __syncthreads();
-    const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(st + Ly::kRaw + Ly::kScl);
-    // lane l addresses row l % 8 of matrix l / 8: matrices 0 and 1 are
-    // rows 0-7 and 8-15 at the first 8 columns, 2 and 3 the next 8
-    const int lr = lane % 8 + 8 * ((lane / 8) & 1), lc = 8 * (lane / 16);
-#pragma unroll
-    for (int ks = 0; ks < kChunkK / 16; ++ks) {
-      // B [k][n] transposed: b[nt] = rows 16 ks.. of columns 8 nt..
-      uint32_t b[kNT][2];
-#pragma unroll
-      for (int np = 0; np < kNT; np += 2)
-        ldmatrix_x4_trans(&b[np][0], panel + (16 * ks + lr) * kWStride +
-                                         kWarpN * warp + 8 * np + lc);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xs + (16 * mt + lr) * kXStride + 16 * ks + lc);
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // the accumulator's element (mt, nt, e) is row 16 mt + gid (+8 for e >= 2),
-  // column kWarpN warp + 8 nt + 2 tig + e % 2 of the tile
-  if (p.splits == 1) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = m0 + 16 * mt + gid + 8 * (e / 2);
-          const int n = n0 + kWarpN * warp + 8 * nt + 2 * tig + e % 2;
-          if (m < p.M && n < p.N) {
-            float v = acc[mt][nt][e];
-            if (!kGrouped) v *= __ldg(p.scale + n);
-            p.out[static_cast<size_t>(m) * p.N + n] = __float2bfloat16_rn(v);
+        if (kGrouped) {
+          for (int i = lane; i < srows * kCols; i += 32) {
+            const int row = i / kCols, col = i % kCols;
+            const int g = group_of((row % 2 ? kh : 0) + p0 +
+                                   kPack * (row / 2));
+            ssm[i] = n0 + col < p.N
+                         ? p.scale[static_cast<size_t>(g) * p.N + n0 + col]
+                         : 0.f;
           }
         }
+      }
+      if (lane == 0) {
+        uint32_t bytes = 2 * x_bytes(R);
+        if (p.tma_w) bytes += kWBytes + (kGrouped ? srows * kCols * 4 : 0);
+        mbar_expect_tx(&full[st], bytes);
+        tma_load(stg, &x_map, &full[st], p0, m0);
+        tma_load(stg + x_bytes(R), &x_map, &full[st], kh + p0, m0);
+        if (p.tma_w) {
+          tma_load(wsm, &w_map, &full[st], n0, p0);
+          if (kGrouped)
+            for (int row = 0; row < srows; ++row)
+              tma_load(ssm + row * kCols, &s_map, &full[st], n0,
+                       group_of((row % 2 ? kh : 0) + p0 + kPack * (row / 2)));
+        }
+      } else if (!p.tma_w) {
+        mbar_arrive(&full[st]);
+      }
+    }
     return;
   }
-  float* part = p.ws + static_cast<size_t>(blockIdx.z) * p.M * p.N;
+
+  // a consumer: warp w of warpgroup wg, lane (g, t); its columns c and
+  // c + 1
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  const int c = 64 * wg + 16 * w + 2 * g;
+  const int c16 = c / 16;               // its 16-byte chunk of a row
+  // the accumulators are set by the first product (its scale-d 0), so
+  // no other instruction defines them while products run
+  float acc[R / 2];
+  uint32_t alo[4][4], ahi[4][4];        // a chunk's steps' fragments
+  const int n = n0 + c;
+  const bool pair = n + 1 < p.N && p.N % 2 == 0;
+  // chunk ch's kSteps k16 steps (4, or 2 in a last chunk of 32 packed
+  // rows)
+  auto chunk = [&](auto steps_t, int ch) {
+    constexpr int kSteps = decltype(steps_t)::value;
+    const int st = ch % S;
+    const uint8_t* const stg = base + st * kStage;
+    const uint8_t* const wsm = stg + 2 * x_bytes(R);
+    const uint64_t dlo = desc_sw128(stg);
+    const uint64_t dhi = desc_sw128(stg + x_bytes(R));
+    const float* const ssm = reinterpret_cast<const float*>(wsm + kWBytes);
+    // grouped: the bf16 pairs of the scales of columns c and c + 1, the
+    // low and the high group of each half of the chunk
+    uint32_t slo[2][2], shi[2][2];
+    if (kGrouped) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + 16 * mt + gid + 8 * (e / 2);
-        const int n = n0 + kWarpN * warp + 8 * nt + 2 * tig + e % 2;
-        if (m < p.M && n < p.N)
-          __stcg(part + static_cast<size_t>(m) * p.N + n, acc[mt][nt][e]);
+      for (int h = 0; h < kSteps / 2; ++h) {
+        const int row = 2 * h;
+        const float2 l =
+            *reinterpret_cast<const float2*>(ssm + row * kCols + c);
+        const float2 u =
+            *reinterpret_cast<const float2*>(ssm + (row + 1) * kCols + c);
+        slo[h][0] = bf2_bits(__floats2bfloat162_rn(l.x, l.x));
+        slo[h][1] = bf2_bits(__floats2bfloat162_rn(l.y, l.y));
+        shi[h][0] = bf2_bits(__floats2bfloat162_rn(u.x, u.x));
+        shi[h][1] = bf2_bits(__floats2bfloat162_rn(u.y, u.y));
       }
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (t == 0) last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the last block of the tile: the partials summed in split order.  A
-  // thread takes one column and 16 rows at a time (the threads of the
-  // second half of the block the second 16 rows); its loads of 4 splits
-  // are issued before any of their sums (branch-free: rows past M and
-  // columns past N read a clamped address and are not written), so that
-  // 64 loads are in flight instead of one
-  const int n = n0 + t % kTileN;
-  const int nc = min(n, p.N - 1);
-  const int rows = min(16 * MT, p.M - m0);
-  const size_t plane = static_cast<size_t>(p.M) * p.N;
-  const float s_n = kGrouped ? 1.f : __ldg(p.scale + nc);
-  for (int r0 = 16 * (t / kTileN); r0 < rows;
-       r0 += 16 * (kThreads / kTileN)) {
-    size_t off[16];
-    float v[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      off[r] = static_cast<size_t>(m0 + r0 + min(r, rows - r0 - 1)) * p.N +
-               nc;
-      v[r] = 0.f;
     }
-    for (int s = 0; s < p.splits; s += 4) {
-      float part[4][16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* src = p.ws + min(s + j, p.splits - 1) * plane;
+    for (int j = 0; j < kSteps; ++j) {
+      uint32_t v[4];
 #pragma unroll
-        for (int r = 0; r < 16; ++r) part[j][r] = __ldcg(src + off[r]);
+      for (int q = 0; q < 4; ++q) {
+        // rows 2t, 2t + 1, 2t + 8, 2t + 9 of the step
+        const int r = 16 * j + 2 * t + (q & 1) + 8 * (q >> 1);
+        v[q] = *reinterpret_cast<const uint16_t*>(
+            wsm + r * kCols + ((c16 ^ (r % 8)) * 16) + 2 * g);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 16; ++r)
-          v[r] = s + j < p.splits ? v[r] + part[j][r] : v[r];
+      unpack_step<kGrouped>(v, slo[j / 2], shi[j / 2], alo[j], ahi[j]);
+      fence_regs4(alo[j]);
+      fence_regs4(ahi[j]);
+      wgmma_fence();
+      wgmma_rs<R>(acc, alo[j], dlo + 2 * j, ch > 0 || j > 0);
+      wgmma_rs<R>(acc, ahi[j], dhi + 2 * j, 1);
+      wgmma_commit();
     }
-    if (n < p.N) {
+    // the chunk's products are done before the loop turns (no product
+    // in flight across it): its fragments, kept untouched until here,
+    // and its stage are free
+    wgmma_wait<0>();
 #pragma unroll
-      for (int r = 0; r < 16; ++r)
-        if (r0 + r < rows)
-          p.out[static_cast<size_t>(m0 + r0 + r) * p.N + n] =
-              __float2bfloat16_rn(kGrouped ? v[r] : v[r] * s_n);
+    for (int j = 0; j < kSteps; ++j) {
+      fence_regs4(alo[j]);
+      fence_regs4(ahi[j]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  for (int ch = 0; ch < chunks; ++ch) {
+    mbar_wait(&full[ch % S], (ch / S) & 1);
+    if (kh - ch * kChunk >= kChunk)
+      chunk(std::integral_constant<int, 4>{}, ch);
+    else
+      chunk(std::integral_constant<int, 2>{}, ch);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // accumulator (nt, i): x row m0 + 8 nt + 2t + i % 2, column c + i / 2
+  float s0 = 1.f, s1 = 1.f;
+  if (!kGrouped) {
+    if (n < p.N) s0 = __ldg(p.scale + n);
+    if (n + 1 < p.N) s1 = __ldg(p.scale + n + 1);
+  }
+#pragma unroll
+  for (int nt = 0; nt < R / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 8 * nt + 2 * t + i;
+      if (m < p.M) {
+        const float v0 = kGrouped ? acc[4 * nt + i] : acc[4 * nt + i] * s0;
+        const float v1 =
+            kGrouped ? acc[4 * nt + 2 + i] : acc[4 * nt + 2 + i] * s1;
+        __nv_bfloat16* o = p.out + static_cast<size_t>(m) * p.N + n;
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(o) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (n < p.N) o[0] = __float2bfloat16_rn(v0);
+          if (n + 1 < p.N) o[1] = __float2bfloat16_rn(v1);
+        }
+      }
     }
   }
-  if (t == 0) p.counters[tile] = 0;
 }
 
-template <bool kGrouped>
-int launch(const Problem& p, cudaStream_t st) {
-  constexpr int kSmem = Layout::kBytes;
-  static bool attr_set = false;         // raised once, above 48 KB
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, through the runtime's entry
+// point query (so the library needs no -lcuda); null if it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the map of a row-major [rows, cols] matrix of `type` (`esize` bytes an
+// element) in boxes of [box_rows, box_cols], rows and columns past the end
+// read as zeros
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esize,
+              const void* ptr, long long rows, long long cols, int box_rows,
+              int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int R, bool kGrouped>
+int launch(const void* x, const Problem& p, int groups, cudaStream_t st) {
+  auto kernel = int4_prefill_kernel<R, kGrouped>;
+  // the attribute of the function, raised to the most any plan takes
+  static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        int4_mm_kernel<kGrouped>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  dim3 grid((p.N + kTileN - 1) / kTileN, (p.M + 16 * MT - 1) / (16 * MT),
-            p.splits);
-  int4_mm_kernel<kGrouped><<<grid, kThreads, kSmem, st>>>(p);
+  // the maps are kernel parameters, encoded for each call (no cache)
+  CUtensorMap x_map, w_map, s_map;
+  memset(&w_map, 0, sizeof(w_map));
+  memset(&s_map, 0, sizeof(s_map));
+  int e = encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K,
+                    R, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!e && p.tma_w)
+    e = encode_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.qw, p.K / 2,
+                  p.N, kChunk, kCols, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!e && p.tma_w && kGrouped)
+    e = encode_2d(&s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.scale,
+                  groups, p.N, 1, kCols, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e) return e;
+  dim3 grid((p.N + kCols - 1) / kCols, (p.M + R - 1) / R);
+  kernel<<<grid, kThreads, smem_bytes(R, p.stages), st>>>(x_map, w_map,
+                                                          s_map, p);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <int R>
+int dispatch(const void* x, const Problem& p, int groups, cudaStream_t st) {
+  return groups > 1 ? launch<R, true>(x, p, groups, st)
+                    : launch<R, false>(x, p, groups, st);
+}
+
+}  // namespace prefill
 
 // -- the decode entry (M <= 32) ----------------------------------------------
 
@@ -835,30 +1108,39 @@ int dispatch(const Problem& p, bool grouped, bool vec, int warps, int csize,
 
 extern "C" {
 
-// The prefill entry.  x [M, K] bf16 (16-byte aligned); qw [K/2, N] int8
-// packed; scale fp32 [N] (groups 1) or [groups, N]; blocks of 64 rows; K
-// split into `splits` ranges of `chunks_per_split` chunks of 64 rows; ws
-// [splits, M, N] fp32 and counters (one int32 a tile, zero) when splits > 1;
-// out [M, N] bf16.  Needs K % 64 == 0 and (K / groups) % 32 == 0.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// The prefill entry.  x [M, K] bf16, qw [K/2, N] int8 packed, scale fp32
+// [N] (groups 1) or [groups, N], all three 16-byte aligned; out [M, N]
+// bf16.  Needs K % 64 == 0 and (K / groups) % 32 == 0.  The plan (the
+// wrapper's `prefill_plan`): blocks of 128 output columns and `rows` rows
+// of x (32, 64, 80, 128, 160 or 256), a ring of `stages` stages (2-8)
+// within 227 KB of shared memory.  Returns cudaGetLastError() after the
+// launch (0 = launched); any other plan or operand is refused.
 int int4_quant_matmul(const void* x, const void* qw, const float* scale,
-                      int M, int N, int K, int groups, int splits,
-                      int chunks_per_split, float* ws, int* counters,
+                      int M, int N, int K, int groups, int rows, int stages,
                       void* out, void* stream) {
   if (M < 1 || N < 1 || K < kChunkK || K % kChunkK || groups < 1 ||
-      K % groups || (K / groups) % kPack || splits < 1 ||
-      chunks_per_split < 1 ||
-      static_cast<long long>(splits) * chunks_per_split * kChunkK < K ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)) ||
-      reinterpret_cast<uintptr_t>(x) % 16)
+      K % groups || (K / groups) % kPack || !prefill::rows_ok(rows) ||
+      stages < 2 || stages > prefill::kMaxStages ||
+
+      prefill::smem_bytes(rows, stages) > prefill::kMaxSmem ||
+      (M + rows - 1) / rows > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(qw) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  Problem p{static_cast<const __nv_bfloat16*>(x),
-            static_cast<const int8_t*>(qw), scale, M, N, K, K / groups,
-            chunks_per_split, splits, ws, counters,
-            static_cast<__nv_bfloat16*>(out)};
+  // the weight's rows are N bytes apart: a TMA map needs them on 16 bytes
+  prefill::Problem p{static_cast<const int8_t*>(qw), scale,
+                     static_cast<__nv_bfloat16*>(out), M, N, K, K / groups,
+                     stages, N % 16 == 0};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool grouped = groups > 1;
-  return grouped ? launch<true>(p, st) : launch<false>(p, st);
+  switch (rows) {
+    case 32: return prefill::dispatch<32>(x, p, groups, st);
+    case 64: return prefill::dispatch<64>(x, p, groups, st);
+    case 80: return prefill::dispatch<80>(x, p, groups, st);
+    case 128: return prefill::dispatch<128>(x, p, groups, st);
+    case 160: return prefill::dispatch<160>(x, p, groups, st);
+    default: return prefill::dispatch<256>(x, p, groups, st);
+  }
 }
 
 // The decode entry.  x [M, K] bf16 (16-byte aligned), M <= 32; qw, scale

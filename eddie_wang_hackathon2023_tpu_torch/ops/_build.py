@@ -30,7 +30,10 @@ SIGNATURES = {
     "decode_attention": {
         "decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                              _F, _P, _P, _P, _P],
-        "out_proj_gemv": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+        # x, w, layer, scale, bias, out, B, K, N, then the wrapper's
+        # gemv_plan: cluster, rows, batch; stream
+        "out_proj_gemv": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
         # ..., S, then the wrapper's beam_plan: splits, width, cols, rounds,
         # rs, rows
         "beam_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -60,8 +63,9 @@ SIGNATURES = {
                                    _P, _P],
     },
     "int4_quant_matmul": {
-        "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                              _P],
+        # x, qw, scale, M, N, K, groups, then the wrapper's prefill_plan:
+        # rows, stages; out, stream
+        "int4_quant_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
         "int4_quant_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _P, _P],
     },

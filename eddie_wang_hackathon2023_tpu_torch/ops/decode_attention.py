@@ -4,7 +4,8 @@ beam-search mode and its MQA/GQA mode, and paged decode attention.
 Counterpart of ``ops/pallas_decode_attention.py`` ``fused_decode_attention``
 (:767) in the JAX package, for the modes the Whisper and decoder-only paths
 use.  On a CUDA tensor the wrapper launches the kernels of
-``csrc/decode_attention.cu`` (attention, then the out-projection GEMV; with
+``csrc/decode_attention.cu`` (attention, then the out-projection GEMV over
+the whole card with :func:`gemv_plan`, passed to the kernel; with
 ``beam_indirection``, the beam entry that reads each position through the
 cache-indirection table, the TPU kernel's ``_beam_kernel`` :213: each
 source row of a group read once for all its beams, the columns split over
@@ -42,6 +43,7 @@ import torch
 from . import _build
 from .attention import (NEG, beam_indirect_decode_attention,
                         cached_decode_attention, layer_kv_views)
+from .int4_quant_matmul import _sm_count
 from .paged_attention import paged_decode_attention
 from .quant_matmul import weight_only_quant_matmul
 
@@ -524,11 +526,40 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
     return out_proj_gemv(ctx, layer_idx, *proj)
 
 
+# the out-projection GEMV (csrc/decode_attention.cu): GEMV_COLS output
+# columns a block of 128 threads (GEMV_ROW_LANES lanes of rows for each 16
+# columns), a cluster of at most GEMV_MAX_CLUSTER blocks along K, up to 8
+# rows of x a block (GEMV_BATCH)
+GEMV_COLS = 64
+GEMV_ROW_LANES = 32
+GEMV_MAX_CLUSTER = 8
+GEMV_BATCH = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(B: int, K: int, N: int, sms: int) -> dict:
+    """The GEMV's plan for x [B, K] @ W [K, N]: ``batch`` rows of x a block
+    (the least of GEMV_BATCH that holds min(B, 8)), ceil(N / GEMV_COLS)
+    column blocks for each ceil(B / batch) batch tiles, and along K a
+    cluster of ``cluster`` blocks of ``rows`` consecutive rows each
+    (cluster * rows >= K > (cluster - 1) * rows): the most blocks that fit
+    one wave of ``sms`` multiprocessors, at most GEMV_MAX_CLUSTER, and no
+    more than K / GEMV_ROW_LANES ranks (a row for every lane).  At the
+    scanned path's call ([1,1280] x [1280,1280] on 132 SMs): 20 x 6 = 120
+    blocks of 214 rows.  The C entry refuses any other plan."""
+    batch = next(b for b in GEMV_BATCH if b >= min(B, GEMV_BATCH[-1]))
+    blocks = -(-N // GEMV_COLS) * -(-B // batch)
+    cluster = max(1, min(GEMV_MAX_CLUSTER, sms // blocks,
+                         -(-K // GEMV_ROW_LANES)))
+    return dict(cluster=cluster, rows=-(-K // cluster), batch=batch)
+
+
 def out_proj_gemv(x: torch.Tensor, layer_idx: int, weight: torch.Tensor,
                   scale: torch.Tensor, bias: Optional[torch.Tensor]
                   ) -> torch.Tensor:
     """x [B, K] bf16 @ int8 weight [L, K, N] (layer ``layer_idx``) or
-    [K, N], times scale [N], plus bias [N] -> [B, N] bf16, on the card."""
+    [K, N], times scale [N], plus bias [N] -> [B, N] bf16, on the card, with
+    :func:`gemv_plan`."""
     if weight.dtype != torch.int8:
         raise NotImplementedError("the float out-projection epilogue is "
                                   "not ported; run the dense layer instead")
@@ -550,11 +581,13 @@ def out_proj_gemv(x: torch.Tensor, layer_idx: int, weight: torch.Tensor,
     scale = scale.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
+    plan = gemv_plan(B, K, N, _sm_count(x.device.index or 0))
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
     lib = _build.load("decode_attention")
     _build.check(lib.out_proj_gemv(
         _ptr(x), _ptr(w), layer, _ptr(scale), _ptr(bias), _ptr(out), B, K, N,
-        stream), "out_proj_gemv")
+        plan["cluster"], plan["rows"], plan["batch"], stream),
+        "out_proj_gemv")
     launches["out_proj_gemv"] += 1
     return out
 

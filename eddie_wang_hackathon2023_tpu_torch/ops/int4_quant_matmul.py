@@ -18,14 +18,15 @@ On a CUDA tensor :func:`quant_matmul_int4` launches the kernel of
 ``csrc/int4_quant_matmul.cu`` (bf16 only; other dtypes and shapes the
 kernel does not take raise): its decode entry for M <= DECODE_MAX_M with
 :func:`decode_plan` (K over the warps of a block and a thread-block
-cluster), its prefill entry above with :func:`split_plan`.  On a CPU tensor
-it runs the plain version, :func:`plain_quant_matmul_int4`.
+cluster), its prefill entry above with :func:`prefill_plan` (the rows of x
+a block takes on `wgmma`, and its ring's stages).  On a CPU tensor it runs
+the plain version, :func:`plain_quant_matmul_int4`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -37,11 +38,22 @@ from ..functional import matmul_fp32
 # call: a split of K is reduced inside the same launch)
 launches = {"int4_quant_matmul": 0}
 
-# the prefill entry's tiles: 128 output columns a block, 64 rows (four
-# m-tiles of 16), 64 unpacked rows of K (32 packed rows, both nibbles) a
-# chunk; its split of K keeps at least MIN_CHUNKS_PER_SPLIT chunks
+# K is walked in chunks of CHUNK_K rows (32 packed rows, both nibbles) at
+# least; TILE_N output columns a block in both entries
 TILE_N, TILE_M, CHUNK_K = 128, 16, 64
-MIN_CHUNKS_PER_SPLIT = 32
+# the prefill entry (M above DECODE_MAX_M): blocks of TILE_N output columns
+# (two consumer warpgroups of 64) and `rows` rows of x, one of PREFILL_ROWS
+# (the wgmma's n, each an instantiation); stages of PREFILL_CHUNK packed
+# rows (two x boxes of rows x 64 bf16, the packed bytes, four fp32 scale
+# rows) in a ring of 2 to PREFILL_MAX_STAGES within PREFILL_SMEM.  A tile
+# costs PREFILL_TILE_COST rows of x beyond its own (the ring's fill and
+# drain, the epilogue, the unpacking a small tile does not hide), so the
+# plan weighs a wave of small tiles against fewer waves of larger ones
+PREFILL_ROWS = (32, 64, 80, 128, 160, 256)
+PREFILL_CHUNK = 64
+PREFILL_MAX_STAGES = 8
+PREFILL_SMEM = 227 * 1024
+PREFILL_TILE_COST = 32
 # the decode entry takes M up to DECODE_MAX_M: 128 output columns a warp
 # and a block, K walked in steps of 8 packed rows, 4 or 8 warps a block, a
 # cluster of up to 8 blocks along K; shared memory of (warps + cluster - 1)
@@ -94,19 +106,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
-    """(splits of K, chunks a split) of the prefill entry (m above
-    DECODE_MAX_M) for an [m, k] x [k, n] product on ``sms``
-    multiprocessors: K split along chunk boundaries until the grid has
-    about two blocks per multiprocessor, each split keeping at least
-    MIN_CHUNKS_PER_SPLIT chunks (``tools/int4_kernel_probe.py`` times the
-    alternatives)."""
-    tiles = -(-m // (4 * TILE_M)) * -(-n // TILE_N)
-    chunks = k // CHUNK_K
-    splits = max(1, min(-(-2 * sms // tiles),
-                        chunks // MIN_CHUNKS_PER_SPLIT))
-    per = -(-chunks // splits)
-    return -(-chunks // per), per
+def prefill_stage_bytes(rows: int) -> int:
+    """Shared memory of one stage of the prefill entry's ring."""
+    return 2 * rows * 128 + PREFILL_CHUNK * TILE_N + 4 * TILE_N * 4
+
+
+def prefill_smem(rows: int, stages: int) -> int:
+    """The prefill entry's shared memory: 1 KB to align the stages to the
+    swizzle's period, the stages, two mbarriers a stage."""
+    return 1024 + stages * prefill_stage_bytes(rows) + 16 * stages
+
+
+def prefill_stages(rows: int) -> int:
+    """The most stages (at most PREFILL_MAX_STAGES) whose ring fits."""
+    return max(s for s in range(1, PREFILL_MAX_STAGES + 1)
+               if prefill_smem(rows, s) <= PREFILL_SMEM)
+
+
+def prefill_plan(m: int, n: int, k: int, sms: int) -> Dict[str, int]:
+    """The prefill entry's plan for an [m, k] x [k, n] product on ``sms``
+    multiprocessors: blocks of TILE_N output columns and ``rows`` rows of x
+    (``tiles`` blocks, one tile each) and a ring of ``stages`` stages.
+    ``rows`` is the one of PREFILL_ROWS with the least waves x (rows +
+    PREFILL_TILE_COST), the larger on a tie: at the SantaCoder-1B linears
+    at M 512 one wave of 126 or 128 tiles (``tools/int4_kernel_probe.py``
+    times the alternatives).  The stages: as many as fit (at most
+    PREFILL_MAX_STAGES, at most one a chunk, at least 2).  The C entry
+    refuses any other rows and any ring that does not fit."""
+    cols = -(-n // TILE_N)
+
+    def cost(r):
+        tiles = cols * -(-m // r)
+        return (-(-tiles // sms) * (r + PREFILL_TILE_COST), -r)
+
+    rows = min(PREFILL_ROWS, key=cost)
+    chunks = -(-(k // 2) // PREFILL_CHUNK)
+    stages = max(2, min(chunks, prefill_stages(rows)))
+    return dict(rows=rows, stages=stages, tiles=cols * -(-m // rows))
 
 
 def _decode_tiles(m: int) -> int:
@@ -143,19 +179,6 @@ def decode_plan(m: int, n: int, k: int, sms: int) -> Dict[str, int]:
     cluster = in_flight[0] if in_flight else one_wave[-1]
     return dict(cluster=cluster, warps=warps,
                 steps=steps_total // (warps * cluster))
-
-
-_COUNTERS = {}
-
-
-def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 counter per output tile, kept per device: the kernel
-    leaves every counter it uses at zero again."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
-    return c
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -212,14 +235,10 @@ def quant_matmul_int4(x: torch.Tensor, qweight: torch.Tensor,
             _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, plan["cluster"],
             plan["warps"], plan["steps"], _ptr(out), stream)
     else:
-        splits, per = split_plan(m, n, k, sms)
-        tiles = -(-m // (4 * TILE_M)) * -(-n // TILE_N)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None)
-        counters = _tile_counters(x.device, tiles) if splits > 1 else None
+        plan = prefill_plan(m, n, k, sms)
         err = lib.int4_quant_matmul(
-            _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, splits, per,
-            _ptr(ws), _ptr(counters), _ptr(out), stream)
+            _ptr(x2), _ptr(qw), _ptr(sc), m, n, k, groups, plan["rows"],
+            plan["stages"], _ptr(out), stream)
     _build.check(err, "int4_quant_matmul")
     launches["int4_quant_matmul"] += 1
     return out

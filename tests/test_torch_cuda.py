@@ -70,7 +70,8 @@ from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
 from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
 from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
 from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
-from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import unpack_int4
+from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import (
+    unpack_int4, weight_only_quant_matmul)
 from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import (
     paged_append_kv, paged_prefill)
 
@@ -1406,8 +1407,8 @@ def test_int4_kernel_matches_plain(dev, m, k, n, groups):
     assert out.dtype == torch.bfloat16 and out.shape == (m, n)
     assert bool(torch.isfinite(out).all())
     assert _rel(out, ref) < 2e-2 and _rel(out, ref32) < 1e-2
-    # the split of K sums its partials in a fixed order: a second call is
-    # bit-equal, and the [..., K] leading dims pass through
+    # both entries sum in a fixed order: a second call is bit-equal, and the
+    # [..., K] leading dims pass through
     again = iq.quant_matmul_int4(x.reshape(1, m, k), qw, sc)
     assert torch.equal(again[0], out)
 
@@ -1506,6 +1507,135 @@ def test_int4_prefill_entry_rounding_rules_one_hot(dev, k, n, rows):
     assert torch.equal(iq.quant_matmul_int4(x, qw, sc)[32:], grouped)
     channel = (q * sc[0]).bfloat16()
     assert torch.equal(iq.quant_matmul_int4(x, qw, sc[0])[32:], channel)
+
+
+_INT4_SHAPES = [(2048, 2304, 16), (2048, 2048, 16), (2048, 8192, 16),
+                (8192, 2048, 64), (2048, 2048, 0), (128, 256, 1),
+                (1280, 1280, 0), (2048, 1040, 16), (256, 1000, 2),
+                (384, 256, 3)]
+_INT4_IDS = ["qkv", "dense", "fc", "proj", "per_channel", "one_group",
+             "n1280", "n1040", "n1000", "k384"]
+
+
+@pytest.mark.parametrize("m", [33, 64, 100, 512, 1000])
+@pytest.mark.parametrize("k,n,groups", _INT4_SHAPES, ids=_INT4_IDS)
+def test_int4_prefill_entry_matches_plain(dev, m, k, n, groups):
+    """The prefill entry (M > 32, `wgmma` with the wrapper's
+    ``prefill_plan``: 32 to 256 rows of x a block, the last block's rows
+    cut by M) at every shape of ``test_int4_kernel_matches_plain``: held
+    to the int4 gates (2e-2 of the bf16 plain version, 1e-2 of the fp32
+    one), one launch, and a second call bit-equal (one block a tile, a
+    fixed sum order)."""
+    g = torch.Generator(device=dev).manual_seed(k + n + m + 1)
+    qw, sc = _int4_operands(dev, g, k, n, groups)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    before = iq.launches["int4_quant_matmul"]
+    out = iq.quant_matmul_int4(x, qw, sc)
+    assert iq.launches["int4_quant_matmul"] == before + 1
+    ref = iq.plain_quant_matmul_int4(x, qw, sc)
+    ref32 = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 2e-2 and _rel(out, ref32) < 1e-2
+    assert torch.equal(iq.quant_matmul_int4(x, qw, sc), out)
+
+
+def test_int4_prefill_entry_refuses_other_plans(dev):
+    """The prefill entry's C function refuses rows of x it has no
+    instantiation for, a ring of fewer than 2 or more than 8 stages or one
+    that does not fit 227 KB, K not a multiple of 64, and launches
+    nothing; the wrapper's plan, and the other rows it takes, launch and
+    agree."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    qw, sc = _int4_operands(dev, g, 2048, 2048, 16)
+    x = torch.randn(100, 2048, generator=g, device=dev).bfloat16()
+    out = torch.empty(100, 2048, dtype=torch.bfloat16, device=dev)
+    lib = _build.load("int4_quant_matmul")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(rows, stages, k=2048):
+        return lib.int4_quant_matmul(
+            x.data_ptr(), qw.data_ptr(), sc.data_ptr(), 100, 2048, k, 16,
+            rows, stages, out.data_ptr(), stream)
+
+    plan = iq.prefill_plan(100, 2048, 2048, 132)
+    assert call(plan["rows"], plan["stages"]) == 0
+    want = iq.plain_quant_matmul_int4(x, qw, sc)
+    torch.cuda.synchronize()
+    assert _rel(out, want) < 2e-2
+    for rows in iq.PREFILL_ROWS:
+        assert call(rows, 2) == 0
+        torch.cuda.synchronize()
+        assert _rel(out, want) < 2e-2, rows
+    for bad in [(48, 2), (16, 4), (512, 2), (64, 1), (64, 9), (256, 4),
+                (64, 4, 2016)]:
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+@pytest.mark.parametrize("K", [64, 1280, 4096])
+@pytest.mark.parametrize("N", [4, 96, 1000, 1280])
+def test_gemv_matches_plain(dev, N, K, B, bias):
+    """The out-projection GEMV (a cluster along K by the wrapper's
+    ``gemv_plan``) through a 3-D weight's layer index, with and without a
+    bias, against ``weight_only_quant_matmul`` + bias: 1e-2 of the fp32
+    plain version, 2e-2 of the bf16 one; one launch; a second call
+    bit-equal (the ranks' sums meet in a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(N + K + B)
+    w = torch.randint(-127, 128, (3, K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = (torch.rand(N, generator=g, device=dev) + 0.5) / (64 * K ** 0.5)
+    b = (torch.randn(N, generator=g, device=dev) * 0.1).bfloat16() \
+        if bias else None
+    x = torch.randn(B, K, generator=g, device=dev).bfloat16()
+    before = da.launches["out_proj_gemv"]
+    out = da.out_proj_gemv(x, 1, w, scale, b)
+    assert da.launches["out_proj_gemv"] == before + 1
+    ref32 = weight_only_quant_matmul(x.float(), w[1], scale)
+    ref = weight_only_quant_matmul(x, w[1], scale)
+    if bias:
+        ref32 = ref32 + b.float()
+        ref = ref + b
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (B, N)
+    assert _rel(out, ref32) < 1e-2 and _rel(out, ref) < 2e-2
+    assert torch.equal(da.out_proj_gemv(x, 1, w, scale, b), out)
+
+
+def test_gemv_refuses_other_plans(dev):
+    """The GEMV's C function refuses a cluster past 8, ranks that do not
+    cover K or leave one empty, a batch tile other than 1, 2, 4 or 8, and
+    launches nothing; the wrapper's plan and other covering plans
+    launch and agree."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    K = N = 1280
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device=dev) / 1000
+    x = torch.randn(2, K, generator=g, device=dev).bfloat16()
+    out = torch.empty(2, N, dtype=torch.bfloat16, device=dev)
+    lib = _build.load("decode_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(cluster, rows, batch):
+        return lib.out_proj_gemv(x.data_ptr(), w.data_ptr(), 0,
+                                 scale.data_ptr(), None, out.data_ptr(), 2,
+                                 K, N, cluster, rows, batch, stream)
+
+    want = weight_only_quant_matmul(x.float(), w, scale)
+    for plan in [da.gemv_plan(2, K, N, 132), dict(cluster=1, rows=K,
+                                                  batch=1),
+                 dict(cluster=8, rows=160, batch=4)]:
+        assert call(plan["cluster"], plan["rows"], plan["batch"]) == 0
+        torch.cuda.synchronize()
+        assert _rel(out, want) < 1e-2, plan
+    for bad in [(16, 80, 2), (6, 200, 2), (8, 214, 2), (6, 214, 3),
+                (0, K, 1)]:
+        assert call(*bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 def test_int4_kernel_takes_unaligned_views(dev):

@@ -182,16 +182,76 @@ def test_one_group_follows_the_pallas_kernel():
     assert np.mean(got != xla) > 0.1
 
 
-def test_split_plan_covers_k():
-    """The prefill entry's split of K along 64-row chunks covers every chunk
-    once, at the path's shapes and at the edges the card tests use."""
-    for m, k, n in [(512, 2048, 2304), (512, 2048, 2048), (512, 2048, 8192),
-                    (512, 8192, 2048), (33, 384, 256), (40, 1280, 1280),
-                    (64, 128, 256)]:
-        splits, per = iq.split_plan(m, n, k, 132)
-        chunks = k // iq.CHUNK_K
-        assert (splits - 1) * per < chunks <= splits * per
-        assert splits == 1 or per >= iq.MIN_CHUNKS_PER_SPLIT
+# the prefill entry's C limits (csrc/int4_quant_matmul.cu)
+_PREFILL_ENTRY_SMEM = 227 * 1024
+
+
+def _prefill_entry_accepts(plan, m):
+    """What the C entry ``int4_quant_matmul`` checks of a plan."""
+    r, s = plan["rows"], plan["stages"]
+    return (r in (32, 64, 80, 128, 160, 256) and 2 <= s <= 8
+            and iq.prefill_smem(r, s) <= _PREFILL_ENTRY_SMEM
+            and -(-m // r) <= 65535)
+
+
+# the shapes the removed split of K was held at, then the path's linears at
+# the M the card tests use
+_PREFILL_SHAPES = [(512, 2048, 2304), (512, 2048, 2048), (512, 2048, 8192),
+                   (512, 8192, 2048), (33, 384, 256), (40, 1280, 1280),
+                   (64, 128, 256)] + [
+    (m, k, n) for m in (33, 100, 1000)
+    for k, n in [(2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048)]]
+
+
+@pytest.mark.parametrize("m,k,n", _PREFILL_SHAPES)
+def test_prefill_plan_covers_the_output_and_k(m, k, n):
+    """The prefill entry's plan: the blocks' [rows, 128] tiles cover every
+    output element once; a block's chunks (64 packed rows, the last 32 or 64: its low nibbles
+    rows p0.., its high ones K/2 + p0.. of K) cover every row of K once;
+    the plan is one the C entry takes."""
+    plan = iq.prefill_plan(m, n, k, 132)
+    r = plan["rows"]
+    assert _prefill_entry_accepts(plan, m)
+    assert plan["stages"] <= max(2, -(-(k // 2) // iq.PREFILL_CHUNK))
+    grid = (-(-n // iq.TILE_N), -(-m // r))
+    assert plan["tiles"] == grid[0] * grid[1]
+    cover = np.zeros((m, n), dtype=np.int32)
+    for bx in range(grid[0]):
+        for by in range(grid[1]):
+            cover[by * r:(by + 1) * r, bx * iq.TILE_N:(bx + 1) * iq.TILE_N] \
+                += 1
+    assert (cover == 1).all()
+    kh = k // 2
+    rows_k = []
+    for p0 in range(0, kh, iq.PREFILL_CHUNK):
+        live = min(iq.PREFILL_CHUNK, kh - p0)
+        assert live in (32, 64)
+        rows_k += list(range(p0, p0 + live)) + list(range(kh + p0,
+                                                          kh + p0 + live))
+    assert sorted(rows_k) == list(range(k))
+
+
+@pytest.mark.parametrize("m", [33, 100, 512, 1000])
+@pytest.mark.parametrize("k,n", [(2048, 2304), (2048, 2048), (2048, 8192),
+                                 (8192, 2048)],
+                         ids=["qkv", "dense", "fc", "proj"])
+def test_prefill_plan_fills_one_wave(m, k, n):
+    """On 132 SMs the plan's tiles are one wave at the SantaCoder-1B
+    linears at M 33, 100, 512 and 1000, except fc at M 1000, where no tile
+    of the entry (at most 256 rows x 128 columns: the accumulators live in
+    registers) makes one wave of 8192 x 1000 outputs: there two waves, the
+    fewest.  At M 512 every tile is a block of the one wave: qkv 126 tiles
+    of 80 rows, dense and proj 128 of 64, fc 128 of 256."""
+    plan = iq.prefill_plan(m, n, k, 132)
+    cols = -(-n // iq.TILE_N)
+    if (m, n) == (1000, 8192):
+        assert min(cols * -(-m // r) for r in iq.PREFILL_ROWS) > 132
+        assert plan["tiles"] <= 2 * 132
+    else:
+        assert plan["tiles"] <= 132
+    if m == 512:
+        assert (plan["rows"], plan["tiles"]) == {
+            2304: (80, 126), 2048: (64, 128), 8192: (256, 128)}[n]
 
 
 # the SantaCoder-1B linears (K, N) and the card tests' edges
@@ -265,6 +325,42 @@ def test_int4_probe_stamps_the_decode_entry():
                    "cluster sums landed": 9, "out": 2}
     with pytest.raises(ValueError):
         probe.phases([0, 1, 2], 3)
+
+
+def test_int4_probe_stamps_the_prefill_entry():
+    """``tools/int4_kernel_probe.py``'s stamped copy of the prefill entry:
+    each of its anchors found once in the source, every stamp put in, the
+    arrays and their reader declared, and the phases read back from a run's
+    stamps (two chunks: the consumer waited for the second)."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "int4_kernel_probe", os.path.join(root, "tools",
+                                          "int4_kernel_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = open(os.path.join(root, "eddie_wang_hackathon2023_tpu_torch",
+                            "csrc", "int4_quant_matmul.cu")).read()
+    for anchor, _ in probe.PREFILL_STAMPS:
+        assert src.count(anchor) == 1, anchor
+    out = probe.prefill_stamped_source(src)
+    assert out.count("clock64()") == 11
+    assert 'extern "C" int read_prefill_stamps' in out
+    n = probe.PREFILL_CHUNKS
+    st = [0] * (5 * n + 4)
+    st[0:2] = [5, 7]                       # producer waits
+    st[n:n + 2] = [100, 300]               # issues
+    st[2 * n:2 * n + 2] = [110, 400]       # consumer wait starts
+    st[3 * n:3 * n + 2] = [150, 900]       # ... ends
+    st[4 * n:4 * n + 2] = [350, 1200]      # chunks done
+    st[5 * n:5 * n + 3] = [90, 1200, 1500]
+    got = probe.prefill_phases(st, 2)
+    assert got == {"producer waits for free stages": 12,
+                   "consumer waits for chunks": 40 + 500,
+                   "consumer on chunks": 200 + 300,
+                   "chunks waited for": 1,
+                   "copy latency where waited (mean)": 600,
+                   "start to loop end": 1110, "epilogue": 300}
 
 
 def test_int4_quant_matmul_refuses_bad_shapes():

@@ -15,6 +15,10 @@ the CPU (a few seconds).
 * ``gqa_splits`` and ``gqa_slice_width`` (``ops/decode_attention.py``): the
   grouped kernel's cluster over S, one block up to 128 columns, at most 8,
   and the slice width, both passed to the kernel;
+* ``gemv_plan`` (``ops/decode_attention.py``: the out-projection GEMV's
+  cluster along K, rows a block and batch tile, which the C entry checks):
+  every (K row, column) loaded by one thread, at B 1, 2, 5 and 8, K 64,
+  1280 and 12288, N 4, 96, 1000 and 1280; 120 blocks at the path's call;
 * ``plain_custom_flash_mha`` against the Pallas FMHA in interpret mode at
   the short variant's edges, Lq 1, 16 and 17, causal and not, fp32, 1e-5
   (``tests/test_torch_custom_kernel.py`` covers 3, 4, 128 and 256);
@@ -123,6 +127,62 @@ def test_gqa_splits(S, splits, width):
 
 # -- the plain versions against the JAX package ------------------------------
 
+def _gemv_cover(plan, B, K, N):
+    """What the GEMV kernel does with ``plan``: the (K row, column) pairs
+    that each block's threads load (rank r of the cluster rows [r * rows,
+    min(K, (r + 1) * rows)); thread (warp, lane) the 16 columns 16 (lane %
+    4) of its column block, rows warp * 8 + lane // 4 + 32 i of the rank's),
+    counted over the column blocks, and the batch rows each batch tile
+    takes."""
+    cover = np.zeros((K, N), dtype=np.int32)
+    lanes = np.array([w * 8 + q for w in range(4) for q in range(8)])
+    for r in range(plan["cluster"]):
+        lo, hi = r * plan["rows"], min(K, (r + 1) * plan["rows"])
+        ks = (lo + lanes[:, None] + pdec.GEMV_ROW_LANES
+              * np.arange(-(-plan["rows"] // pdec.GEMV_ROW_LANES))[None, :])
+        ks = ks[ks < hi]
+        for nb in range(-(-N // pdec.GEMV_COLS)):
+            for c16 in range(pdec.GEMV_COLS // 16):
+                cols = nb * pdec.GEMV_COLS + 16 * c16 + np.arange(16)
+                cols = cols[cols < N]
+                np.add.at(cover, (ks[:, None], cols[None, :]), 1)
+    rows_b = [z * plan["batch"] + b for z in range(-(-B // plan["batch"]))
+              for b in range(plan["batch"]) if z * plan["batch"] + b < B]
+    return cover, rows_b
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+@pytest.mark.parametrize("K", [64, 1280, 12288])
+@pytest.mark.parametrize("N", [4, 96, 1000, 1280])
+def test_gemv_plan_covers_k_and_n_once(B, K, N):
+    """The out-projection GEMV's plan (``ops/decode_attention.gemv_plan``):
+    every (K row, column) loaded by exactly one thread of one block, every
+    batch row in one batch tile, the cluster at most 8 with every rank
+    given rows (cluster * rows >= K > (cluster - 1) * rows), a batch tile
+    the C entry takes, and the blocks within one wave of 132 SMs."""
+    plan = pdec.gemv_plan(B, K, N, 132)
+    c, rows, batch = plan["cluster"], plan["rows"], plan["batch"]
+    assert 1 <= c <= pdec.GEMV_MAX_CLUSTER and c * rows >= K > (c - 1) * rows
+    assert batch in pdec.GEMV_BATCH and batch >= min(B, 8)
+    blocks = c * -(-N // pdec.GEMV_COLS) * -(-B // batch)
+    assert blocks <= 132 or c == 1
+    cover, rows_b = _gemv_cover(plan, B, K, N)
+    assert (cover == 1).all()
+    assert rows_b == list(range(B))
+
+
+def test_gemv_plan_at_the_path_shape():
+    """The scanned path's call, [1,1280] x [1280,1280] on 132 SMs: 20
+    column blocks x a cluster of 6 = 120 blocks (more than 100 SMs), 214
+    rows of K a block (13.7 KB), so each thread's 7 rows are one round of
+    16-byte loads; at batch 5 (the beam path) one tile of 8 rows."""
+    assert pdec.gemv_plan(1, 1280, 1280, 132) == dict(cluster=6, rows=214,
+                                                      batch=1)
+    assert pdec.gemv_plan(5, 1280, 1280, 132) == dict(cluster=6, rows=214,
+                                                      batch=8)
+    assert -(-214 // pdec.GEMV_ROW_LANES) <= 8
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("lq", [1, 16, 17])
 def test_plain_custom_fmha_at_the_short_edges(lq, causal):
@@ -180,11 +240,17 @@ def test_kernel_ab_reads_this_checkouts_plans():
     from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     d = kernel_ab.defs_of(REPO, os.path.join(kernel_ab.OPS,
                                              "int4_quant_matmul.py"),
-                          ("split_plan", "decode_plan", "_decode_tiles"))
+                          kernel_ab.INT4_PLANS)
     for m, k, n in [(8, 2048, 2304), (8, 8192, 2048), (32, 2048, 8192)]:
         assert d["decode_plan"](m, n, k, 132) == iq.decode_plan(m, n, k, 132)
-    assert d["split_plan"](512, 2048, 2048, 132) == iq.split_plan(
-        512, 2048, 2048, 132)
+    for m, k, n in [(512, 2048, 2304), (512, 2048, 8192), (40, 384, 256)]:
+        assert d["prefill_plan"](m, n, k, 132) == iq.prefill_plan(
+            m, n, k, 132)
+    d = kernel_ab.defs_of(REPO, os.path.join(kernel_ab.OPS,
+                                             "decode_attention.py"),
+                          kernel_ab.DECODE_PLANS)
+    for b, k, n in [(1, 1280, 1280), (5, 1280, 1280), (8, 12288, 96)]:
+        assert d["gemv_plan"](b, k, n, 132) == pdec.gemv_plan(b, k, n, 132)
     d = kernel_ab.defs_of(REPO, os.path.join(kernel_ab.OPS,
                                              "decoder_layer.py"),
                           ("_MegaArgs", "megakernel_plan", "_panels",

@@ -17,6 +17,13 @@ one NVIDIA GPU.
    q, the loads started), the loads' wait, the scores, the max and its
    exchange, p, P*V, the partials sent, their landing in rank 0 and rank
    0's combine.
+3. Times the pair the scanned path launches for each attention layer,
+   kernel 1 then the out-projection GEMV ([1,1280] x [1280,1280] int8,
+   the wrapper's ``gemv_plan``), at the cross and the self shape, in turns
+   (with, without, without, with): the GEMV as it is launched (a
+   programmatic dependent of kernel 1: it loads its weights while kernel 1
+   runs) and from a copy of the source built without that launch
+   attribute; and the GEMV alone.
 """
 import ctypes
 import importlib.util
@@ -42,7 +49,8 @@ def stamped_library():
     src = open(os.path.join(HERE, "eddie_wang_hackathon2023_tpu_torch",
                             "csrc", "decode_attention.cu")).read()
     a = src.index("split_decode_attention_kernel(const")
-    b = src.index("// out[b, n] = bf16((sum_k x[b, k]")
+    # the split kernel ends where the next kernel's template starts
+    b = src.rfind("template", a, src.index("beam_decode_attention_kernel("))
     mark = ("if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) "
             "g_st[blockIdx.z][{n}] = gtime();")
     kern = src[a:b]
@@ -87,6 +95,30 @@ def stamped_library():
     lib.decode_attention.argtypes = \
         _build.SIGNATURES["decode_attention"]["decode_attention"]
     lib.read_stamps.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def plain_launch_library():
+    """The source with the GEMV launched as an ordinary kernel (no
+    programmatic dependent launch), built into build/probe/."""
+    src = open(os.path.join(HERE, "eddie_wang_hackathon2023_tpu_torch",
+                            "csrc", "decode_attention.cu")).read()
+    old = "  cfg.numAttrs = 2;\n  const cudaError_t e = cudaLaunchKernelEx(\n" \
+          "      &cfg, out_proj_gemv_kernel<NB, kVec>,"
+    assert src.count(old) == 1
+    src = src.replace(old, old.replace("numAttrs = 2", "numAttrs = 1"))
+    out = os.path.join(HERE, "build", "probe")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "decode_no_pdl.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    from eddie_wang_hackathon2023_tpu_torch.ops import _build
+    lib_path = os.path.join(out, "libdecode_no_pdl.so")
+    subprocess.run(["/usr/local/cuda/bin/nvcc", *_build.NVCC_FLAGS, "-o",
+                    lib_path, path], check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    for fn, argtypes in _build.SIGNATURES["decode_attention"].items():
+        getattr(lib, fn).argtypes = argtypes
     return lib
 
 
@@ -188,6 +220,49 @@ def main():
                   + ", ".join(f"{PHASES[k]} {b - a}"
                               for (_, a), (k, b) in zip(t, t[1:]))
                   + f"; end {t[-1][1]}")
+
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    plain = plain_launch_library()
+    w = torch.randint(-127, 128, (L, 1280, 1280), generator=g, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand(1280, generator=g, device=dev) / 1000
+    wb = torch.randn(1280, generator=g, device=dev).bfloat16()
+    y = torch.empty(1, 1280, dtype=torch.bfloat16, device=dev)
+    plan = da.gemv_plan(1, 1280, 1280,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+
+    def gemv(lib_, x, layer):
+        err = lib_.out_proj_gemv(
+            x.data_ptr(), w.data_ptr(), layer, ws.data_ptr(), wb.data_ptr(),
+            y.data_ptr(), 1, 1280, 1280, plan["cluster"], plan["rows"],
+            plan["batch"], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"out_proj_gemv launch failed: {err}")
+
+    print(f"3. kernel 1 + the GEMV (plan {plan}), us a pair, in turns: "
+          "the GEMV a programmatic dependent / an ordinary launch")
+    for what, S, int8, n, with_fresh in (
+            ("cross int8 S 1500", 1500, True, 1500, False),
+            ("self bf16 S 448, 43 cached + fresh", 448, False, 44, True)):
+        cache, q, fresh, out = operands(1, S, int8, L)
+        seq = torch.full((1,), n, dtype=torch.int32, device=dev)
+        kscale = ks if int8 else None
+        fr = fresh if with_fresh else None
+        sp = da.decode_splits(S)
+        turns = []
+        for who, lib_ in (("dependent", lib), ("ordinary", plain),
+                          ("ordinary", plain), ("dependent", lib)):
+            def pair(i, lib_=lib_):
+                call(lib_, torch, cache, i % L, q, seq, kscale, fr, sp, out)
+                gemv(lib_, out, i % L)
+            ms, _ = smoke.time_ms(torch, pair)
+            turns.append(f"{who} {ms * 1e3:.2f}")
+        print(f"  {what}: " + ", ".join(turns))
+        del cache
+    xg = torch.randn(1, 1280, generator=g, device=dev).bfloat16()
+    ms, _ = smoke.time_ms(torch, lambda i: gemv(lib, xg, i % L))
+    print(f"  the GEMV alone: {ms * 1e3:.2f} us")
     return 0
 
 

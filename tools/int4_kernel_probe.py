@@ -13,15 +13,23 @@ and ``torch._weight_int4pack_mm`` where the card's torch has it:
    the parallelism it buys;
 2. the decode entry on one column tile (N 128, no cluster) at M 8 over K
    1024 to 8192: the time a block takes per 64 rows of K;
-3. the prefill entry (M 512) at each linear with the splits the wrapper
-   takes and without;
+3. the prefill entry (M 512) at each linear under every rows of x a block
+   it takes (``PREFILL_ROWS``, the ring as deep as fits; the wrapper's
+   ``prefill_plan`` marked);
 4. a copy of the source with ``clock64()`` stamps taken by thread 0 of
    rank 0 of the first cluster of the decode entry: at its start, after
    the first steps' loads and the first scales are issued, after each
    step's products, after
    the block's warps are summed, after the other ranks' sums have landed
    and after the output is written, run at qkv's plan: the cycles of each
-   phase.
+   phase;
+5. a copy with ``clock64()`` stamps in block (0, 0) of the prefill entry,
+   run at each linear with the wrapper's plan: the producer warp's wait
+   for each stage to be freed, the first consumer warp's wait for each
+   chunk to land and its time on each chunk (unpacking and products,
+   drained), and the epilogue; summed over the chunks, with a copy's
+   latency (the stage issued to the consumer's wait ending) where the
+   consumer waited.
 """
 import ctypes
 import importlib.util
@@ -74,24 +82,101 @@ def phases(stamps, steps: int):
             "out": d[3 + steps]}
 
 
-def stamped_library():
-    """The kernel's source with the stamps, built into build/probe/."""
-    src = open(os.path.join(HERE, "eddie_wang_hackathon2023_tpu_torch",
-                            "csrc", "int4_quant_matmul.cu")).read()
+# the prefill entry's stamps, in block (0, 0): the producer's lane 0 and
+# the first consumer thread, up to PREFILL_CHUNKS chunks
+PREFILL_CHUNKS = 64
+PREFILL_STAMPS = (
+    # (text of the kernel, text put in its place)
+    ("      if (c >= S) mbar_wait(&empty[st], ((c / S) - 1) & 1);\n",
+     "      {\n        const long long t0_ = clock64();\n"
+     "        if (c >= S) mbar_wait(&empty[st], ((c / S) - 1) & 1);\n"
+     "        if (STAMP0 && lane == 0 && c < 64) {\n"
+     "          g_pw[c] = clock64() - t0_;\n          g_pi[c] = clock64();\n"
+     "        }\n      }\n"),
+    ("    mbar_wait(&full[ch % S], (ch / S) & 1);\n",
+     "    if (STAMP0 && tid == 0 && ch < 64) g_c0[ch] = clock64();\n"
+     "    mbar_wait(&full[ch % S], (ch / S) & 1);\n"
+     "    if (STAMP0 && tid == 0 && ch < 64) g_c1[ch] = clock64();\n"),
+    ("    wgmma_wait<0>();\n#pragma unroll\n    for (int j = 0; j < kSteps;",
+     "    wgmma_wait<0>();\n"
+     "    if (STAMP0 && tid == 0 && ch < 64) g_c2[ch] = clock64();\n"
+     "#pragma unroll\n    for (int j = 0; j < kSteps;"),
+    ("  __syncthreads();\n\n  // the chunk's scale rows",
+     "  __syncthreads();\n  if (STAMP0 && tid == 0) g_e[0] = clock64();\n\n"
+     "  // the chunk's scale rows"),
+    ("  wgmma_wait<0>();\n  fence_regs(acc);\n",
+     "  wgmma_wait<0>();\n  fence_regs(acc);\n"
+     "  if (STAMP0 && tid == 0) g_e[1] = clock64();\n"),
+    ("}\n\ntypedef CUresult (*EncodeTiled)",
+     "  if (STAMP0 && tid == 0) g_e[2] = clock64();\n}\n\n"
+     "typedef CUresult (*EncodeTiled)"))
+
+
+def prefill_stamped_source(src: str) -> str:
+    """The kernel's source with the prefill entry's stamps (PREFILL_STAMPS),
+    their arrays and the C entry ``read_prefill_stamps``."""
+    for old, new in PREFILL_STAMPS:
+        if src.count(old) != 1:
+            raise ValueError(f"no single anchor {old!r}")
+        src = src.replace(old, new)
+    decl = ("#define STAMP0 (blockIdx.x == 0 && blockIdx.y == 0)\n"
+            + "".join(f"__device__ long long g_{a}[{PREFILL_CHUNKS}];\n"
+                      for a in ("pw", "pi", "c0", "c1", "c2"))
+            + "__device__ long long g_e[4];\n")
+    read = ('\nextern "C" int read_prefill_stamps(long long* h) {\n'
+            + "".join(f"  cudaMemcpyFromSymbol(h + {i * PREFILL_CHUNKS}, "
+                      f"g_{a}, sizeof(g_{a}));\n"
+                      for i, a in enumerate(("pw", "pi", "c0", "c1", "c2")))
+            + f"  return (int)cudaMemcpyFromSymbol(h + {5 * PREFILL_CHUNKS},"
+            " g_e, sizeof(g_e));\n}\n")
+    i = src.index("namespace {")
+    return src[:i] + decl + src[i:] + read
+
+
+def prefill_phases(st, chunks: int):
+    """{phase: cycles} of block (0, 0) from the stamps ``st`` (the five
+    per-chunk arrays, then start, loop end, end): the producer's waits for
+    free stages, the first consumer's waits for chunks and its time on
+    them, summed; the mean copy latency where the consumer waited (issue
+    to the wait's end); the loop and the epilogue."""
+    c = min(chunks, PREFILL_CHUNKS)
+    pw, pi, c0, c1, c2 = (st[i * PREFILL_CHUNKS:i * PREFILL_CHUNKS + c]
+                          for i in range(5))
+    e = st[5 * PREFILL_CHUNKS:5 * PREFILL_CHUNKS + 3]
+    waited = [ch for ch in range(c) if c1[ch] - c0[ch] > 64]
+    return {"producer waits for free stages": sum(pw),
+            "consumer waits for chunks": sum(b - a for a, b in zip(c0, c1)),
+            "consumer on chunks": sum(b - a for a, b in zip(c1, c2)),
+            "chunks waited for": len(waited),
+            "copy latency where waited (mean)":
+                (sum(c1[ch] - pi[ch] for ch in waited) // len(waited)
+                 if waited else 0),
+            "start to loop end": e[1] - e[0],
+            "epilogue": e[2] - e[1]}
+
+
+def stamped_library(src=None, name="int4_stamps"):
+    """A copy of the kernel's source with stamps (by default the decode
+    entry's, ``stamped_source``), built into build/probe/."""
+    if src is None:
+        src = stamped_source(open(os.path.join(
+            HERE, "eddie_wang_hackathon2023_tpu_torch", "csrc",
+            "int4_quant_matmul.cu")).read())
     out = os.path.join(HERE, "build", "probe")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "int4_stamps.cu"), "w") as f:
-        f.write(stamped_source(src))
-    lib_path = os.path.join(out, "libint4_stamps.so")
+    with open(os.path.join(out, f"{name}.cu"), "w") as f:
+        f.write(src)
+    lib_path = os.path.join(out, f"lib{name}.so")
     subprocess.run(["/usr/local/cuda/bin/nvcc", "-gencode",
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                     "-shared", "-Xcompiler", "-fPIC", "-o", lib_path,
-                    os.path.join(out, "int4_stamps.cu")], check=True)
+                    os.path.join(out, f"{name}.cu")], check=True)
     lib = ctypes.CDLL(lib_path)
     from eddie_wang_hackathon2023_tpu_torch.ops import _build
     for fn, argtypes in _build.SIGNATURES["int4_quant_matmul"].items():
         getattr(lib, fn).argtypes = argtypes
-    lib.read_stamps.argtypes = [ctypes.c_void_p]
+    if src.count("read_stamps("):
+        lib.read_stamps.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -114,7 +199,6 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     lib = _build.load("int4_quant_matmul")
-    counters = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
     ptr = iq._ptr
 
     def stream():
@@ -129,16 +213,13 @@ def main():
 
     def timed(m, k, n, plan, lib_=lib):
         """µs of one call with ``plan`` (decode: cluster, warps, steps;
-        prefill: splits, chunks a split), rotating over weights past the
-        50 MB L2"""
+        prefill: rows, stages), rotating over weights past the 50 MB L2"""
         copies = -(-120_000_000 // (k // 2 * n))
         x, qw, sc = operands(m, k, n, copies)
         out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-        ws = (torch.empty((plan["splits"], m, n), dtype=torch.float32,
-                          device=dev) if "splits" in plan else None)
 
         def call(i):
-            if "cluster" in plan:
+            if "warps" in plan:
                 err = lib_.int4_quant_matmul_decode(
                     ptr(x), ptr(qw[i % copies]), ptr(sc[i % copies]), m, n,
                     k, k // 128, plan["cluster"], plan["warps"],
@@ -146,8 +227,8 @@ def main():
             else:
                 err = lib_.int4_quant_matmul(
                     ptr(x), ptr(qw[i % copies]), ptr(sc[i % copies]), m, n,
-                    k, k // 128, plan["splits"], plan["per"], ptr(ws),
-                    ptr(counters), ptr(out), stream())
+                    k, k // 128, plan["rows"], plan["stages"], ptr(out),
+                    stream())
             _build.check(err, "int4_quant_matmul")
 
         ms, _ = smoke.time_ms(torch, call)
@@ -186,12 +267,17 @@ def main():
         steps = k // 2 // iq.DECODE_STEP // 8
         us = timed(8, k, 128, dict(cluster=1, warps=8, steps=steps))
         print(f"  K {k} ({steps} steps a warp): {us:.2f}")
-    print("3. prefill entry (M 512): us, the wrapper's splits and none")
+    print("3. prefill entry (M 512): us by rows of x a block / stages (* "
+          "the wrapper's plan)")
     for name, k, n in smoke.INT4_SHAPES:
-        splits, per = iq.split_plan(512, n, k, sms)
-        us = timed(512, k, n, dict(splits=splits, per=per))
-        us1 = timed(512, k, n, dict(splits=1, per=k // iq.CHUNK_K))
-        print(f"  {name}: {us:.2f} (splits {splits}), {us1:.2f} (no split)")
+        want = iq.prefill_plan(512, n, k, sms)
+        row = []
+        for rows in iq.PREFILL_ROWS:
+            plan = dict(rows=rows, stages=iq.prefill_stages(rows))
+            us = timed(512, k, n, plan)
+            mark = "*" if rows == want["rows"] else ""
+            row.append(f"{rows}{mark}/{plan['stages']}: {us:.2f}")
+        print(f"  {name}: " + ", ".join(row))
 
     m, (name, k, n) = 8, smoke.INT4_SHAPES[0]
     plan = iq.decode_plan(m, n, k, sms)
@@ -212,6 +298,28 @@ def main():
     got = phases(list(st)[:4 + plan["steps"] + 1], plan["steps"])
     for ph, v in got.items():
         print(f"  {ph}: {v} cycles")
+
+    print("5. cycles by phase of the prefill entry, block (0, 0), M 512, the "
+          "wrapper's plan")
+    src = open(os.path.join(HERE, "eddie_wang_hackathon2023_tpu_torch",
+                            "csrc", "int4_quant_matmul.cu")).read()
+    lib5 = stamped_library(prefill_stamped_source(src), "int4_prefill_stamps")
+    lib5.read_prefill_stamps.argtypes = [ctypes.c_void_p]
+    for name, k, n in smoke.INT4_SHAPES:
+        plan = iq.prefill_plan(512, n, k, sms)
+        x, qw, sc = operands(512, k, n, 1)
+        out = torch.empty((512, n), dtype=torch.bfloat16, device=dev)
+        for _ in range(2):                  # the second run is read
+            _build.check(lib5.int4_quant_matmul(
+                ptr(x), ptr(qw[0]), ptr(sc[0]), 512, n, k, k // 128,
+                plan["rows"], plan["stages"], ptr(out), stream()),
+                "stamped int4_quant_matmul")
+            torch.cuda.synchronize()
+        st = (ctypes.c_longlong * (5 * PREFILL_CHUNKS + 4))()
+        lib5.read_prefill_stamps(st)
+        got = prefill_phases(list(st), -(-(k // 2) // iq.PREFILL_CHUNK))
+        print(f"  {name} (K {k}, N {n}, plan {plan}): "
+              + "; ".join(f"{ph} {v}" for ph, v in got.items()))
     return 0
 
 

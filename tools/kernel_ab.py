@@ -20,8 +20,10 @@ its C entry takes one), the paged kernel at the serve shape (8 rows, 16 KV
 heads of 64, T 32, a table of 4 blocks, lengths 61-80, bf16, 24 layers
 rotating) and the MQA int8 shape (one KV head under 16 query heads of 128;
 each checkout's ``paged_plan`` where its entry takes one), kernel 1's
-cross (int8 S 1500) and self (bf16 S 448, sequence 44) calls at batch 1
-and the out-projection GEMV, kernel 2's fp32 entry ([1,20,1536,64],
+cross (int8 S 1500) and self (bf16 S 448, sequence 44) calls at batch 1,
+the out-projection GEMV alone (each checkout's ``gemv_plan`` where its
+entry takes one) and behind each of those calls on its context (the pair
+the scanned path launches for an attention layer), kernel 2's fp32 entry ([1,20,1536,64],
 valid 1500) and its causal mode ([1,20,227,64] bf16), kernel 2's bf16
 non-causal entry ([1,20,1536,64], valid 1500), the user FMHA's fp32 and
 bf16 entries ([1,20,1536,64] valid 1500; bf16 also [1,20,3,64] causal), the
@@ -52,6 +54,16 @@ SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
                         "gqa_decode_attention", "int4_quant_matmul",
                         "decoder_layer", "paged_decode_attention")}
 OPS = os.path.join("eddie_wang_hackathon2023_tpu_torch", "ops")
+# the plan functions (and their helpers) read from each checkout's
+# ops/int4_quant_matmul.py and ops/decode_attention.py; a checkout has
+# those it has (the parent's int4 prefill entry took split_plan, this one's
+# prefill_plan; the parent's GEMV took no plan, this one's gemv_plan)
+INT4_PLANS = ("split_plan", "prefill_plan", "prefill_stage_bytes",
+              "prefill_smem", "prefill_stages", "decode_plan",
+              "_decode_tiles")
+DECODE_PLANS = ("beam_plan", "beam_smem_bytes", "paged_plan",
+                "decode_splits", "split_width", "_pow2_at_least", "_pad16",
+                "gemv_plan")
 SOURCES["custom_fmha"] = os.path.join("examples", "custom_kernel_torch",
                                       "fmha.cu")
 
@@ -176,9 +188,7 @@ def main(argv=None):
 
     # each checkout's plans of the decode kernels (None where it has none)
     da_defs = {who: defs_of(root, os.path.join(OPS, "decode_attention.py"),
-                            ("beam_plan", "beam_smem_bytes", "paged_plan",
-                             "decode_splits", "split_width",
-                             "_pow2_at_least", "_pad16"))
+                            DECODE_PLANS)
                for who, root in roots.items()}
 
     def beam(who, i):
@@ -224,10 +234,23 @@ def main(argv=None):
     pb = torch.randn(1280, generator=g, device=dev).bfloat16()
     pout = torch.empty(1, 1280, dtype=torch.bfloat16, device=dev)
 
-    def gemv(who, i):
-        return libs[who]["decode_attention"].out_proj_gemv(
-            px.data_ptr(), pw.data_ptr(), i % xl, ps.data_ptr(),
-            pb.data_ptr(), pout.data_ptr(), 1, 1280, 1280, stream())
+    def gemv(who, i, x=px):
+        fn = libs[who]["decode_attention"].out_proj_gemv
+        # the checkout's gemv_plan after N, where its signature takes one
+        plan = (list(da_defs[who]["gemv_plan"](1, 1280, 1280, sms).values())
+                if len(fn.argtypes) > 10 else [])
+        return fn(x.data_ptr(), pw.data_ptr(), i % xl, ps.data_ptr(),
+                  pb.data_ptr(), pout.data_ptr(), 1, 1280, 1280, *plan,
+                  stream())
+
+    # the pair the scanned path launches for each attention layer: kernel 1,
+    # then the GEMV on its context
+    def pair(cross):
+        attention = kernel1(cross)
+
+        def run(who, i):
+            return attention(who, i) or gemv(who, i, kctx)
+        return run
 
     # the paged kernel at the serve path's shape (8 rows, 16 KV heads of 64,
     # T 32, a table of 4 blocks, lengths 61-80, a bf16 pool of 24 layers)
@@ -337,6 +360,8 @@ def main(argv=None):
         ("kernel 1 cross, int8 S 1500, batch 1", kernel1(True)),
         ("kernel 1 self, bf16 S 448, seq 44, batch 1", kernel1(False)),
         ("out-projection GEMV [1,1280] x [1280,1280] int8", gemv),
+        ("kernel 1 cross + the GEMV on its context", pair(True)),
+        ("kernel 1 self + the GEMV on its context", pair(False)),
         ("flash fp32 [1,20,1536,64] valid 1500", flash(
             "flash_attention_f32", flash_operands(1536, torch.float32),
             1536, 1500, 0)),
@@ -363,7 +388,7 @@ def main(argv=None):
     # the int4 matmul: each checkout's entry for M 8 (the decode entry and
     # its plan, or the one entry with the split plan) and M 512
     int4_defs = {who: defs_of(root, os.path.join(OPS, "int4_quant_matmul.py"),
-                              ("split_plan", "decode_plan", "_decode_tiles"))
+                              INT4_PLANS)
                  for who, root in roots.items()}
     counters = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
 
@@ -384,8 +409,13 @@ def main(argv=None):
                 return lib.int4_quant_matmul_decode(
                     x.data_ptr(), w, s_, m, n, k, k // 128, p["cluster"],
                     p["warps"], p["steps"], out.data_ptr(), stream())
+            if "prefill_plan" in defs:
+                p = defs["prefill_plan"](m, n, k, sms)
+                return lib.int4_quant_matmul(
+                    x.data_ptr(), w, s_, m, n, k, k // 128, p["rows"],
+                    p["stages"], out.data_ptr(), stream())
+            # a checkout whose prefill entry split K through a workspace
             plan = defs["split_plan"](m, n, k, sms)
-            # the parent's entry took the m-tiles first
             return lib.int4_quant_matmul(
                 x.data_ptr(), w, s_, m, n, k, k // 128, *plan,
                 ws.data_ptr(), counters.data_ptr(), out.data_ptr(),

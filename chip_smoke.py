@@ -12,7 +12,8 @@
 2. Holds every kernel of the main path against its plain PyTorch version
    on the card, at the shapes the main path gives it, and times the
    kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``, used nowhere in the port); the
+   function, that call (``library_ms``, used nowhere in the port), the
+   megakernel and kernel 1's self call also over an int8 self cache; the
    probes' four kernels at their scripts' shapes (128 int8 panels, 210 MB)
    in every mode, their ``library_ms`` the loop of PyTorch calls over the
    panels that the JAX scripts measured as the XLA baseline.  The GEMV and
@@ -34,7 +35,14 @@
    flash kernel's causal mode; the encoder with the user kernel is held
    against the built-in one, the hooked run's teacher-forced logits
    against the plain path, and utt/s is printed with and without the
-   hook.  Then the layer-by-layer (scanned) path,
+   hook.  Then the kv8 paths on the same model: the self-KV steps
+   calibrated by ``calibrate_int8_kv`` on the main pipeline (their range
+   printed), the decoder rebuilt on the same weights with the int8 self
+   cache (recipe ``woq8+kv8+ckv8+lmq8+sqenc``), transcribed through the
+   megakernel's int8 self mode (one launch a step; utt/s, the slope, the
+   step's wall, busy and idle share) and layer by layer at full depth
+   (kernel 1's self calls over the int8 cache), each replayed against the
+   plain scanned path.  Then the layer-by-layer (scanned) path,
    ``decode_megakernel=False``, at the same widths with the depth cut to
    8+8 layers and the recipe without ``sqenc`` (its encoder takes the
    bf16 flash entry).  Then the beam
@@ -60,7 +68,10 @@
    (``--quant woq4``: groups of 128 rows, the same seeded float weights
    quantised again), each linear through the int4 dequant matmul kernel
    (four a layer in the prefill and in each step); its numbers are printed
-   beside the woq8 path's of the same run.  Last the serve path: GPT-350M
+   beside the woq8 path's of the same run.  Then woq8 with an int8 KV
+   cache, cut to 8 layers of the same weights, each layer's step the woq8
+   run's cache amax after its prefill / 127: the grouped kernel reads the
+   int8 cache.  Last the serve path: GPT-350M
    (24 layers, d 1024, 16 heads of 64, vocab 51200, 128 positions, bf16,
    float weights) behind the port's ``ContinuousBatchingManager`` with 8
    slots over a block-paged KV pool of 32-token blocks, 64 requests of 60
@@ -127,6 +138,16 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decoder_layer.py:306"),
+    # the megakernel's int8 self-KV mode (kv8) and kernel 1's self call
+    # over an int8 cache, their own rows: each is its own instantiation
+    "decoder_megakernel_int8_self": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decode_attention_int8_self": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
     "beam_decode_attention": dict(
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -181,9 +202,13 @@ KERNELS = {
 # the recipe without sqenc, so the encoder takes the bf16 flash entry), the
 # beam path (beam 5, the recipe without sqenc), the decoder-only and serve
 # paths, the custom path (the main path's model with the user kernel
-# installed, then without it and with a previous-text prompt), or the probes
-# path (the three tools/megakernel_probe*.py scripts)
+# installed, then without it and with a previous-text prompt), the kv8
+# paths (the main path's model with an int8 self cache, through the
+# megakernel and layer by layer), or the probes path (the three
+# tools/megakernel_probe*.py scripts)
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
+           "decoder_megakernel_int8_self": "kv8",
+           "decode_attention_int8_self": "kv8_scanned",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
            "flash_attention": "scanned", "beam_decode_attention": "beam",
@@ -197,7 +222,13 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "probe_pair_proj": "probes"}
 PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
-COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8"}
+COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
+              "decoder_megakernel_int8_self": "decoder_megakernel",
+              "decode_attention_int8_self": "decode_attention_int8"}
+# the main path's recipe with the int8 self-KV cache
+KV8_RECIPE = "woq8+kv8+ckv8+lmq8+sqenc"
+# the decoder-only path under woq8+kv8: SantaCoder-1B's widths at this depth
+KV8_DEC_DEPTH = 8
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
 SCANNED_DEPTH = 8        # encoder and decoder layers of the scanned path
 BEAM_SIZE = 5
@@ -754,7 +785,64 @@ def kernel_phases(torch, results):
         proj=(w[i % L], w_scale, w_bias)))
     print(f"kernel 1 (self) + the GEMV: {pair_self * 1e3:.2f} us a pair")
     results["out_proj_gemv"]["pair_self_ms"] = pair_self
-    del self_cache, cross, w
+
+    # kernel 1, self-attention over an int8 cache (kv8): S=448, the fresh
+    # K/V in int8, the per-tensor dequantise step
+    self8 = torch.randint(-127, 128, (L, 1, 2, H, D, S2), generator=gen,
+                          device=dev, dtype=torch.int8)
+    fresh8 = tuple(torch.randint(-127, 128, (1, H, D, 1), generator=gen,
+                                 device=dev, dtype=torch.int8)
+                   for _ in range(2))
+    kqo = torch.full((1,), 1 / 40.0, device=dev)
+    for n in (4, 44):
+        seq = torch.full((1,), n, dtype=torch.int32, device=dev)
+        kw = dict(kv_quant_orig_scale=kqo, fresh_kv=fresh8)
+        out = da.fused_decode_attention(self8, 7, q, seq, scale, **kw,
+                                        proj=(w[7], w_scale, w_bias))
+        ref = da.plain_decode_attention(self8, 7, q, seq, scale, **kw,
+                                        proj=(w[7], w_scale, w_bias))
+        ref32 = da.plain_decode_attention(self8, 7, q.float(), seq, scale,
+                                          **kw, proj=(w[7], w_scale,
+                                                      w_bias.float()))
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        print(f"decode self int8 seq {n}: rel err vs plain bf16 {e16:.3e}, "
+              f"vs fp32 {e32:.3e}")
+        check(e16 < 2e-2 and e32 < 1e-2,
+              f"decode attention (int8 self, S=448, seq {n}, fresh, proj)"
+              " matches plain")
+    ctx = da.fused_decode_attention(self8, 7, q, seq, scale, **kw)
+    ctx_ref = da.plain_decode_attention(self8, 7, q.float(), seq, scale,
+                                        **kw)
+    err_ctx = float((ctx.float() - ctx_ref).abs().max())
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        self8, i % L, q, seq, scale, **kw))
+    # the plain version's dequantising calls: 10 of them fit the launch
+    # queue behind one spin
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
+        self8, i % L, q, seq, scale, **kw), iters=10)
+    # library: SDPA on the valid columns and the fresh one, dequantised to
+    # bf16 and transposed beforehand
+    k_sd, v_sd = (torch.cat(
+        [self8[:, :, j, :, :, :n - 1],
+         fresh8[j][None].expand(L, -1, -1, -1, -1)],
+        dim=-1).float().mul(1 / 40.0).to(torch.bfloat16).transpose(-1, -2)
+        .contiguous() for j in (0, 1))
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % L], v_sd[i % L],
+                                              scale=scale))
+    del k_sd, v_sd
+    b_ms, b_by = bound(2 * H * D * n + 2 * 2 * H * D + 4, 4 * H * D * n,
+                       PEAK_FP32_CUDA_CORES)
+    pair_self8, _ = time_ms(torch, lambda i: da.fused_decode_attention(
+        self8, i % L, q, seq, scale, **kw, proj=(w[i % L], w_scale, w_bias)))
+    print(f"kernel 1 (int8 self): {ms * 1e3:.2f} us, + the GEMV "
+          f"{pair_self8 * 1e3:.2f} us a pair; bound {b_ms * 1e3:.3f} us; "
+          f"plain {plain_ms * 1e3:.2f} us; SDPA on the dequantised K/V "
+          f"{lib_ms * 1e3:.2f} us")
+    results["decode_attention_int8_self"] = dict(
+        max_abs_err=err_ctx, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, host_call_ms=wall,
+        pair_ms=pair_self8, **split_of(da, S2))
+    del self_cache, self8, cross, w
 
     # kernel 2: encoder flash attention [1,20,1536,64], valid 1500, with
     # q/k/v as strided views of the fused QKV output, as the encoder has
@@ -877,24 +965,36 @@ def random_blobs(torch, dev, gen, n_layer, d):
 
 def megakernel_phase(torch, results, gen):
     """Kernel 3, the whole-step decode megakernel, at large-v2 shapes
-    (32 layers, d 1280, bf16 self cache of 448 at sequence 44, int8 cross
-    cache of 1500): one layer against the plain version, then all 32."""
+    (32 layers, d 1280, a self cache of 448 at sequence 44, int8 cross
+    cache of 1500), with a bf16 self cache and (kv8) an int8 one with
+    per-layer scales: for each, one layer against the plain version, then
+    all 32; the two steps also timed in turns."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     dev = torch.device("cuda")
     L, H, D, d, S, Sc, n = 32, 20, 64, 1280, 448, 1500, 44
     scale = D ** -0.5
     blobs = random_blobs(torch, dev, gen, L, d)
+    # the int8 self cache's per-layer steps: these blobs' fresh K/V reach
+    # about 4 in magnitude; the int8 cache holds the bf16 cache's values
+    # at these steps, as a kv8 cache of the same K/V would
+    step = torch.full((L,), 4 / 127, device=dev)
     x = torch.randn((1, d), generator=gen, device=dev).bfloat16()
-    self_c = torch.randn((L, 1, 2, H, D, S), generator=gen,
+    self16 = torch.randn((L, 1, 2, H, D, S), generator=gen,
                          device=dev).bfloat16()
+    self8 = torch.clamp(torch.round(self16.float() * (127 / 4)), -128,
+                        127).to(torch.int8)
+    modes = {"decoder_megakernel": (self16, blobs),
+             "decoder_megakernel_int8_self": (
+                 self8, blobs._replace(kv_oq=1 / step, kv_qo=step))}
     cross = torch.randint(-127, 128, (L, 1, 2, H, D, Sc), generator=gen,
                           device=dev, dtype=torch.int8)
     cscale = torch.full((L,), 1 / 40.0, device=dev)
     seq = torch.tensor([n], dtype=torch.int32, device=dev)
     seq_host = seq.cpu()        # the plain version reads the length on the host
 
-    def run(n_layer, plain=False):
-        b = mk.blob_layers(blobs, 0, n_layer)
+    def run(mode, n_layer, plain=False):
+        self_c, bl = modes[mode]
+        b = mk.blob_layers(bl, 0, n_layer)
         if plain:
             return mk.plain_fused_decoder_stack(
                 x, b, self_c[:n_layer], seq_host, scale, cross[:n_layer],
@@ -903,61 +1003,79 @@ def megakernel_phase(torch, results, gen):
                                       cross_cache=cross[:n_layer],
                                       cross_scale=cscale[:n_layer])
 
-    errs = {}
-    for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
-        hid, fresh = run(n_layer)
-        hid_p, fresh_p = run(n_layer, plain=True)
+    for mode, (self_c, bl) in modes.items():
+        what = "decoder megakernel" + (
+            ", int8 self cache" if self_c.dtype == torch.int8 else "")
+        errs = {}
+        for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
+            hid, fresh = run(mode, n_layer)
+            hid_p, fresh_p = run(mode, n_layer, plain=True)
+            torch.cuda.synchronize()
+            errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
+            print(f"{what}, {n_layer} layer(s): rel err vs plain bf16: "
+                  f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
+                  f"{errs[n_layer][1]:.3e}")
+            check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
+                  self_c.dtype and max(errs[n_layer]) < tol,
+                  f"{what}, {n_layer} layer(s), matches plain (rel {tol:g})")
+            if self_c.dtype == torch.int8 and n_layer == 1:
+                # one layer: the same bf16 values are quantised on both sides
+                check(torch.equal(fresh, fresh_p), f"{what}, 1 layer: the "
+                      "fresh int8 K/V equal the plain version's")
+        ms, wall = time_ms(torch, lambda i: run(mode, L), iters=20)
+        # the plain version launches some 300 kernels a layer, more than
+        # the launch queue holds for 32 layers: its 32 layers are timed as
+        # 32 segments, each layer fed the previous one's hidden state
+        hid_box = [x]
+
+        def plain_layer(i):
+            b = mk.blob_layers(bl, i, i + 1)
+            hid_box[0] = mk.plain_fused_decoder_stack(
+                x if i == 0 else hid_box[0], b, self_c[i:i + 1], seq_host,
+                scale, cross[i:i + 1], cscale[i:i + 1])[0]
+
+        t = time.perf_counter()
+        run(mode, L, plain=True)
         torch.cuda.synchronize()
-        errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
-        print(f"megakernel, {n_layer} layer(s): rel err vs plain bf16: "
-              f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
-              f"{errs[n_layer][1]:.3e}")
-        check(bool(torch.isfinite(hid).all()) and max(errs[n_layer]) < tol,
-              f"decoder megakernel, {n_layer} layer(s), matches plain "
-              f"(rel {tol:g})")
-    ms, wall = time_ms(torch, lambda i: run(L), iters=20)
-    # the plain version launches some 300 kernels a layer, more than the
-    # launch queue holds for 32 layers: its 32 layers are timed as 32
-    # segments, each layer fed the previous one's hidden state
-    hid_box = [x]
-
-    def plain_layer(i):
-        b = mk.blob_layers(blobs, i, i + 1)
-        hid_box[0] = mk.plain_fused_decoder_stack(
-            x if i == 0 else hid_box[0], b, self_c[i:i + 1], seq_host, scale,
-            cross[i:i + 1], cscale[i:i + 1])[0]
-
-    t = time.perf_counter()
-    run(L, plain=True)
-    torch.cuda.synchronize()
-    plain_host_ms = (time.perf_counter() - t) * 1e3
-    plain_runs = [segments_ms(torch, [lambda i=i: plain_layer(i)
-                                      for i in range(L)], plain_host_ms)
-                  for _ in range(3)]
-    if None in plain_runs:
-        raise SmokeFailure("the host could not queue the plain megakernel's "
-                           "layers ahead of the device")
-    plain_ms = sum(plain_runs) / len(plain_runs)
-    check(rel_err(hid_box[0], hid_p) < 1e-3,
-          "the plain megakernel timed layer by layer computes the 32-layer "
-          "result")
-    panel_bytes = L * 14 * d * d
-    aux_bytes = L * (4 * d * 4 * 2 + 7 * d * 4 * 2 + 6 * d * 4 + 4)
-    cache_bytes = L * 2 * H * D * (Sc + (n - 1) * 2)
-    io_bytes = 2 * d * 2 + L * 2 * H * D * 2 + 4
-    b_ms, b_by = bound(panel_bytes + aux_bytes + cache_bytes + io_bytes,
-                       2 * panel_bytes + L * 4 * H * D * (n + Sc),
-                       PEAK_FP32_CUDA_CORES)
-    print(f"megakernel step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
-          f"{b_by}); plain {plain_ms * 1e3:.1f} us (mean of "
-          + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
-    results["decoder_megakernel"] = dict(
-        max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, host_call_ms=wall,
-        grid_blocks=torch.cuda.get_device_properties(0).multi_processor_count,
-        rel_err_1_layer=max(errs[1]),
-        rel_err_32_layers=max(errs[L]))
+        plain_host_ms = (time.perf_counter() - t) * 1e3
+        plain_runs = [segments_ms(torch, [lambda i=i: plain_layer(i)
+                                          for i in range(L)], plain_host_ms)
+                      for _ in range(3)]
+        if None in plain_runs:
+            raise SmokeFailure("the host could not queue the plain "
+                               "megakernel's layers ahead of the device")
+        plain_ms = sum(plain_runs) / len(plain_runs)
+        check(rel_err(hid_box[0], hid_p) < 1e-3,
+              f"the plain {what} timed layer by layer computes the 32-layer "
+              "result")
+        item = self_c.element_size()
+        panel_bytes = L * 14 * d * d
+        aux_bytes = L * (4 * d * 4 * 2 + 7 * d * 4 * 2 + 6 * d * 4 + 4
+                         + (8 if item == 1 else 0))
+        cache_bytes = L * 2 * H * D * (Sc + (n - 1) * item)
+        io_bytes = 2 * d * 2 + L * 2 * H * D * item + 4
+        b_ms, b_by = bound(panel_bytes + aux_bytes + cache_bytes + io_bytes,
+                           2 * panel_bytes + L * 4 * H * D * (n + Sc),
+                           PEAK_FP32_CUDA_CORES)
+        print(f"{what} step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
+              f"{b_by}); plain {plain_ms * 1e3:.1f} us (mean of "
+              + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
+        results[mode] = dict(
+            max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, host_call_ms=wall,
+            grid_blocks=torch.cuda.get_device_properties(0)
+            .multi_processor_count,
+            rel_err_1_layer=max(errs[1]),
+            rel_err_32_layers=max(errs[L]))
+    # the two self caches' steps in turns
+    turns = []
+    for mode in list(modes) * 2:
+        turns.append(time_ms(torch, lambda i: run(mode, L), iters=20)[0])
+    print("megakernel step in turns, bf16 / int8 self cache: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
+    results["decoder_megakernel_int8_self"]["in_turns_ms"] = dict(
+        bf16=turns[0::2], int8=turns[1::2])
 
 
 def beam_phase(torch, results, gen):
@@ -2242,12 +2360,14 @@ def encoder_errors(torch, enc, mel_t, ref_ctx, label,
 
 
 def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
-              recipe=None, label="main", beam=None, built=None):
+              recipe=None, label="main", beam=None, built=None, slope=True):
     """One path on ``device``: the model built with ``recipe`` (default the
-    bench recipe; or ``built``, from :func:`build_whisper`), transcription
+    bench recipe; or ``built``, from :func:`build_whisper` or
+    :func:`kv8_built`), transcription
     with ``decode_megakernel`` (None: the pipeline's default, on with a
     card) and ``beam`` (the beam size; None is greedy), the launch counts
-    of that run, the kernel-vs-plain checks and the timings.  A smaller
+    of that run, the kernel-vs-plain checks and the timings (the 80-token
+    decode slope only greedy and with ``slope``).  A smaller
     ``config`` and the CPU rehearse it without a card (the launch counts
     are then not checked).  Returns (end-to-end numbers, launch
     counts)."""
@@ -2268,6 +2388,11 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     mel, mel_t = built["mel"], built["mel_t"]
     dtype = getattr(torch, config.dtype)
     sqenc = "sqenc" in recipe
+    kv8 = dec.blocks[0].attn.use_int8_kv_cache
+    check(kv8 == ("kv8" in recipe.split("+"))
+          and (dec.new_kv_cache(1, 4).dtype == torch.int8) == kv8,
+          f"[{label}] the decoder's self cache is "
+          + ("int8" if kv8 else str(dtype)))
     pipe = whisper_pipeline(built, decode_megakernel, beam_size=beam)
     rows = pipe.beam                     # decoder rows per utterance
     blobs = pipe._megakernel_blobs(rows)
@@ -2313,12 +2438,17 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
                   f"[{label}] one megakernel launch per decode step, no "
                   "decode-attention or GEMV launch in the decode loop")
         else:
-            check(counts["decode_attention_int8"] == n_layer * steps
-                  and counts["decode_attention_bf16"] == n_layer * steps
+            # self and cross calls: with kv8 both over int8 caches
+            n_self = n_layer * steps
+            check(counts["decode_attention_int8"]
+                  == n_layer * steps + (n_self if kv8 else 0)
+                  and counts["decode_attention_bf16"]
+                  == (0 if kv8 else n_self)
                   and counts["out_proj_gemv"] == 2 * n_layer * steps
                   and counts["decoder_megakernel"] == 0,
                   f"[{label}] decode kernels launched 2 x {n_layer} per "
-                  f"decode step (+ 2 x {n_layer} GEMV)")
+                  f"decode step (+ 2 x {n_layer} GEMV)"
+                  + (", the self calls over the int8 cache" if kv8 else ""))
         entry = "flash_attention_f32" if sqenc else "flash_attention"
         check(counts[entry] == config.n_audio_layer,
               f"[{label}] flash kernel ({entry}) launched "
@@ -2380,7 +2510,7 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
 
     t40 = best(pipe)
     t80 = slope_ms = None
-    if not beam:
+    if not beam and slope:
         pipe80 = whisper_pipeline(built, decode_megakernel,
                                   sample_len=2 * SAMPLE_LEN)
         pipe80._mk_blobs = blobs      # the same weight image, packed once
@@ -2542,6 +2672,85 @@ def custom_path(torch, np, built, device="cuda", label="custom"):
     return e2e, counts
 
 
+def kv8_built(torch, np, built, scales):
+    """``built`` (the main path's model, from :func:`build_whisper`) with
+    its decoder rebuilt for KV8_RECIPE: the same weights (shared, not
+    copied) and the per-layer self-KV steps ``scales`` ([n_text_layer],
+    amax / 127), stored as ``decoder_state_dict(int8_kv_scales=)`` stores
+    them."""
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import Recipe
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import \
+        WhisperDecoder
+    dec = built["dec"]
+    dev = dec.positional_embedding.device
+    with torch.device("meta"):
+        kv = WhisperDecoder(built["config"], Recipe.parse(KV8_RECIPE).decoder,
+                            quantize_lm_head=dec.quantize_lm_head)
+    t = np.asarray(scales, np.float32).reshape(-1, 1)
+    state = dict(dec.state_dict())
+    for i, (oq, qo) in enumerate(zip(1.0 / t, t)):
+        state[f"blocks.{i}.attn.kv_orig_quant_scale"] = torch.from_numpy(
+            oq).to(dev)
+        state[f"blocks.{i}.attn.kv_quant_orig_scale"] = torch.from_numpy(
+            qo).to(dev)
+    kv.load_state_dict(state, assign=True)
+    return {**built, "dec": kv.eval(), "recipe": KV8_RECIPE}
+
+
+def kv8_paths(torch, np, built, device="cuda"):
+    """The kv8 paths on the main path's model (``built``): the self-KV
+    steps calibrated by ``calibrate_int8_kv`` on the main pipeline (the
+    bench recipe, a bf16 self cache) over the seeded mel, the decoder
+    rebuilt with them (:func:`kv8_built`), then :func:`main_path` through
+    the megakernel (its int8 self mode; label ``kv8``) and layer by layer
+    at full depth (kernel 1 over the int8 cache; ``kv8_scanned``, no
+    slope); between them the main and kv8 transcriptions in turns.
+    Returns (kv8 numbers, counts, kv8_scanned numbers, counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.quantization.calibration import \
+        calibrate_int8_kv
+    on_card = torch.device(device).type == "cuda"
+    t = time.time()
+    pipe = whisper_pipeline(built, None if on_card else True)
+    scales = calibrate_int8_kv(pipe, [built["mel"][0]])
+    del pipe
+    check(scales.shape == (built["config"].n_text_layer,)
+          and bool(np.isfinite(scales).all() and (scales > 0).all()),
+          "[kv8] calibrate_int8_kv gives a positive step a layer")
+    print(f"[kv8] self-KV steps calibrated on the main pipeline in "
+          f"{time.time() - t:.1f} s: {float(scales.min()):.5g} to "
+          f"{float(scales.max()):.5g} (amax {float(scales.min()) * 127:.4g} "
+          f"to {float(scales.max()) * 127:.4g})")
+    kv = kv8_built(torch, np, built, scales)
+    e2e, counts = main_path(torch, np, device=device,
+                            decode_megakernel=None if on_card else True,
+                            label="kv8", built=kv)
+    # the host's clock moves between runs: the two recipes' transcriptions
+    # (megakernel, 40 tokens) also in turns, main, kv8, main, kv8, ...
+    dm = None if on_card else True
+    pipes = dict(main=whisper_pipeline(built, dm),
+                 kv8=whisper_pipeline(kv, dm))
+    walls = dict(main=[], kv8=[])
+    for name, p in pipes.items():
+        p.transcribe(built["mel"])
+    for _ in range(3):
+        for name, p in pipes.items():
+            walls[name].append(wall_s(torch, torch.device(device),
+                                      lambda p=p: p.transcribe(built["mel"])))
+    del pipes
+    print("[kv8] in turns with main: " + "; ".join(
+        f"{name} " + ", ".join(f"{t * 1e3:.1f}" for t in w)
+        + f" ms an utterance (best {1 / min(w):.4f} utt/s)"
+        for name, w in walls.items()))
+    e2e["in_turns_ms_per_utt"] = {k: [t * 1e3 for t in w]
+                                  for k, w in walls.items()}
+    scan_e2e, scan_counts = main_path(torch, np, device=device,
+                                      decode_megakernel=False,
+                                      label="kv8_scanned", built=kv,
+                                      slope=False)
+    e2e["self_kv_steps"] = [float(scales.min()), float(scales.max())]
+    return e2e, counts, scan_e2e, scan_counts
+
+
 def santacoder_1b_config():
     """SantaCoder-1B as the JAX package's ``benchmarks/benchmark.py``
     defines it (gpt_bigcode topology, one KV head), bf16, int8 weight-only
@@ -2585,16 +2794,18 @@ def random_decoder_state(torch, np, config, rng):
 
 
 def decoder_path(torch, np, config=None, device="cuda", label="decoder",
-                 float_state=None):
+                 float_state=None, kv_scales=None):
     """The decoder-only path on ``device``: ``config`` (default
     SantaCoder-1B, woq8) with random weights from the seed (``float_state``
     where given: :func:`random_decoder_state` of the config, quantised here
-    for its recipe), greedy generation of DEC_NEW tokens for DEC_BATCH
+    for its recipe; with an int8 KV cache in the config, ``kv_scales`` are
+    its per-layer steps), greedy generation of DEC_NEW tokens for DEC_BATCH
     prompts of DEC_PROMPT tokens through the port's ``GenerationSession``,
     as the JAX package's ``benchmarks/benchmark.py`` runs it; the launch
     counts of one such call, the teacher-forced check against the plain path
     and the timings.  A smaller ``config`` and the CPU rehearse it without a
-    card (the launch counts are then not checked).  Returns (numbers, launch
+    card (the launch counts are then not checked).  Returns (numbers, with
+    a float cache the per-layer amax of the cache after the prefill; launch
     counts)."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import (
         from_jax_state, quantize_state)
@@ -2618,8 +2829,15 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
         float_state = random_decoder_state(torch, np, c,
                                            np.random.default_rng(SEED))
     state = quantize_state(float_state, c)
+    kv8 = c.quant_mode.has_int8_kv_cache()
+    if kv8:
+        t = np.asarray(kv_scales, np.float32).reshape(-1, 1)
+        state["blocks.attention.kv_orig_quant_scale"] = 1.0 / t
+        state["blocks.attention.kv_quant_orig_scale"] = t
     model = from_jax_state(state, c, device=device)
     del state
+    check((model.new_kv_cache(1, 4).dtype == torch.int8) == kv8,
+          f"[{label}] the KV cache is " + ("int8" if kv8 else c.dtype))
     sync()
     print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
           f"{c.num_heads} query heads over {c.num_kv_heads} KV head(s) of "
@@ -2696,6 +2914,16 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
         return torch.stack(logits)
 
     lk, lp = replay(False), replay(True)
+    kv_amax = None
+    if not kv8:
+        # the cache after the prefill: its per-layer amax (kv8's scales)
+        with torch.inference_mode():
+            cache = model.new_kv_cache(DEC_BATCH, bucket_length(DEC_PROMPT))
+            (tok, _, widx, seq), kw = calls[0]
+            model(tok, cache, widx, seq, **kw)
+            kv_amax = cache.float().abs().amax(dim=(1, 2, 3, 4, 5)).cpu() \
+                .numpy()
+            del cache
     e_lg = rel_err(lk, lp)
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     print(f"[{label}] teacher-forced logits (prefill + {n_check} steps), "
@@ -2731,7 +2959,9 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
     e2e = dict(**step_info, tokens_per_s=tps, ms_per_call=best * 1e3,
                batch=DEC_BATCH, prompt_len=DEC_PROMPT, new_tokens=DEC_NEW,
                num_layers=c.num_layers, peak_gib=peak_gib,
-               logits_rel_err=e_lg, logits_argmax_agreement=agree)
+               logits_rel_err=e_lg, logits_argmax_agreement=agree,
+               kv_amax_after_prefill=(None if kv_amax is None
+                                      else kv_amax.tolist()))
     return e2e, counts
 
 
@@ -2954,12 +3184,14 @@ def probes_path(torch, device="cuda", panels=None):
 def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
-    the custom path on the main path's model, then the scanned path
+    the custom path on the main path's model, then the kv8 paths on it
+    (:func:`kv8_paths`), then the scanned path
     (decode_megakernel=False, recipe without sqenc, depth cut to
     SCANNED_DEPTH layers to keep the run short), then the beam path
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
-    (default SantaCoder-1B) under its recipe and under int4 weight-only,
+    (default SantaCoder-1B) under its recipe, under int4 weight-only and,
+    cut to KV8_DEC_DEPTH layers, under its recipe with an int8 KV cache,
     and the serve path with ``serve_config``
     (default GPT-350M).  Each kernel's launches come from the path that
     drives it, and must be above 0 there on the card."""
@@ -2977,6 +3209,13 @@ def paths(torch, np, results, config=None, device="cuda",
         torch, np, device=device, decode_megakernel=None if on_card else True,
         label="main", built=built)
     custom_e2e, custom_counts = custom_path(torch, np, built, device=device)
+    kv8_e2e, kv8_counts, kv8s_e2e, kv8s_counts = kv8_paths(torch, np, built,
+                                                           device=device)
+    print("[kv8] beside main in this run: " + ", ".join(
+        f"{k} {kv8_e2e.get(k)} vs {main_e2e.get(k)}"
+        for k in ("utt_per_s", "slope_ms_per_token", "decoder_step_ms",
+                  "device_busy_ms_per_step", "device_idle_share",
+                  "peak_gib")))
     del built
     cut = dataclasses.replace(
         config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
@@ -3002,6 +3241,19 @@ def paths(torch, np, results, config=None, device="cuda",
         torch, np, config=dataclasses.replace(
             dec_cfg, quant_mode=QuantMode.use_weight_only(True)),
         device=device, label="decoder_woq4", float_state=float_state)
+    # woq8 with the int8 KV cache, at SantaCoder-1B's widths cut to
+    # KV8_DEC_DEPTH layers: the first layers of the same weights, each
+    # layer's step the woq8 run's cache amax after its prefill / 127
+    depth = min(KV8_DEC_DEPTH, dec_cfg.num_layers)
+    kv8_dec_e2e, kv8_dec_counts = decoder_path(
+        torch, np, config=dataclasses.replace(
+            dec_cfg, num_layers=depth,
+            quant_mode=dec_cfg.quant_mode.set_int8_kv_cache()),
+        device=device, label="decoder_kv8", float_state={
+            k: v[:depth] if k.startswith("blocks.") else v
+            for k, v in float_state.items()},
+        kv_scales=np.asarray(dec_e2e["kv_amax_after_prefill"][:depth],
+                             np.float32) / 127)
     del float_state
     print("[decoder_woq4] beside woq8 in this run: " + ", ".join(
         f"{k} {woq4_e2e.get(k)} vs {dec_e2e.get(k)}"
@@ -3015,7 +3267,8 @@ def paths(torch, np, results, config=None, device="cuda",
     counts = dict(main=main_counts, custom=custom_counts,
                   scanned=scan_counts, beam=beam_counts, decoder=dec_counts,
                   decoder_woq4=woq4_counts, serve=serve_counts,
-                  probes=probes_counts)
+                  probes=probes_counts, kv8=kv8_counts,
+                  kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -3023,7 +3276,8 @@ def paths(torch, np, results, config=None, device="cuda",
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
     return dict(main=main_e2e, custom=custom_e2e, scanned=scan_e2e,
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
-                serve=serve_e2e, probes=probes_e2e)
+                serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
+                kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e)
 
 
 def example_run():

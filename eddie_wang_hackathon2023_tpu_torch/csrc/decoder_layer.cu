@@ -5,11 +5,20 @@
 // pallas_decoder_layer.py:306 `_kernel` (entry `fused_decoder_stack`,
 // :865) in the modes of the Whisper int8 recipe: LayerNorm, the q/k/v,
 // out, cross-q, cross-out, fc1 and fc2 GEMVs (int8 weights, per-channel
-// scales), self-attention over the bf16 seq-minor cache with the fresh
-// token's K/V in fp32, cross-attention over the int8 (or bf16) cross cache
-// with per-layer scales, tanh GELU and the bf16 residual stream.  It
+// scales), self-attention over the bf16 (or int8) seq-minor cache with the
+// fresh token's K/V in fp32, cross-attention over the int8 (or bf16) cross
+// cache with per-layer scales, tanh GELU and the bf16 residual stream.  It
 // returns the hidden state before the final LN and every layer's fresh
-// K/V; it does not write the cache.
+// K/V in the self cache's type; it does not write the cache.
+//
+// The int8 self cache (the TPU kernel's `self_quant`, :523-554): the fresh
+// K and V leave the q/k/v epilogue as int8, each value times the layer's
+// kv_oq in fp32, rounded half away from zero and clipped to [-128, 127]
+// (as ops/attention.py quantises a cache write), and the fresh column's
+// score and value use those integers; the cache's columns and the fresh
+// one are scaled by the layer's kv_qo where the cross cache takes its
+// scale: the score times scale * kv_qo, the context times kv_qo at the
+// end.  Each (cross, self) type pair is its own instantiation.
 //
 // Bound: bytes.  A step reads the whole weight image once (14 d*d int8 a
 // layer, 734 MB at large-v2) plus the cross cache (123 MB) and does about
@@ -72,8 +81,9 @@
 // :765-766); LayerNorm in fp32, rounded (:416-427); the residual in bf16;
 // P rounded to bf16 before P*V (:631-634); the cross context times
 // kscale / denominator at the end (:641-647); the fresh self score and
-// value in fp32 (:700-746); fc2's four panels summed in fp32 before the
-// scale (:797-809: an fc2 item spans all of its K).
+// value in fp32 (:700-746; with an int8 self cache (ctx * alpha * kscale +
+// v * (kscale * pf)) / denominator, :740-743); fc2's four panels summed in
+// fp32 before the scale (:797-809: an fc2 item spans all of its K).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,12 +101,14 @@ struct MegaArgs {
   const float* flat_scale;     // [L, nflat, d]: dense, cross-dense, fc1.., fc2
   const float* flat_bias;
   const float* ln_par;         // [L, 6, d]: weight, bias of the three LNs
-  const void* self_cache;      // [L, 1, 2, H, D, S] bf16
+  const void* self_cache;      // [L, 1, 2, H, D, S] bf16 or int8
   const void* cross_cache;     // [L, 1, 2, H, D, Sc] int8 or bf16
   const float* cross_scale;    // [L] or null
+  const float* kv_oq;          // [L] the int8 self cache's quantise and
+  const float* kv_qo;          // dequantise scales (null for bf16)
   const int* seq_len;          // [1], including the fresh token
   void* hid;                   // [d] bf16 out
-  void* fresh;                 // [L, 2, H, D] bf16 out
+  void* fresh;                 // [L, 2, H, D] out, the self cache's type
   float* act_a;                // finished GEMV outputs: q, k, v / cross-q /
                                // GELU(fc1)
   float* act_b;                // ... dense / cross-dense / fc2
@@ -107,7 +119,7 @@ struct MegaArgs {
   long long layer_bytes;       // bytes of one layer's tiles
   int n_layer, d, n_head, s_self, s_cross, nflat, nf;
   int f_dense, f_crossdense, f_fc1, f_fc2;
-  int cross_int8;
+  int cross_int8, self_int8;
   int ring_bytes;              // the plan's cap on the ring (0: none); the
                                // kernel gets the ring's size
   // the plan, per GEMV stage: columns of an item, items, rows of K, and
@@ -190,6 +202,15 @@ __device__ __forceinline__ int vpos(int k) { return k + ((k >> 5) << 2); }
 // fp32 sum * fp32 scale, rounded, plus the bias rounded (bf16 arithmetic)
 __device__ __forceinline__ float affine(float acc, float s, float b) {
   return bf16r(bf16r(acc * s) + bf16r(b));
+}
+
+// a fresh K/V value into the int8 self cache: times the layer's scale in
+// fp32, rounded half away from zero, clipped (no fused multiply-add: the
+// product is rounded before the half is added, as in ops/attention.py)
+__device__ __forceinline__ float quant_kv(float v, float oq) {
+  const float s = __fmul_rn(v, oq);
+  return fminf(fmaxf(truncf(__fadd_rn(s, s >= 0.f ? .5f : -.5f)), -128.f),
+               127.f);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -358,9 +379,11 @@ __device__ __forceinline__ void stage_params(const MegaArgs& a, int l,
 }
 
 // the scale and bias of the columns lane 0 of a warp finishes: j = warp +
-// 8 i of the block's item, requested at the stage's start
+// 8 i of the block's item, and at q/k/v with an int8 self cache the
+// layer's kv_oq, requested at the stage's start
 struct Epi {
   float s[kColsWarp], b[kColsWarp];
+  float oq;
 };
 
 __device__ __forceinline__ void epi_load(const MegaArgs& a, int l, int g,
@@ -370,6 +393,7 @@ __device__ __forceinline__ void epi_load(const MegaArgs& a, int l, int g,
   const float *sc, *bi;
   stage_params(a, l, g, sc, bi);
   if ((threadIdx.x & 31) == 0 && (int)blockIdx.x < a.items[g]) {
+    if (g == kQkv && a.self_int8) e.oq = __ldg(a.kv_oq + l);
 #pragma unroll
     for (int i = 0; i < kColsWarp; ++i) {
       const int n = col0 + warp + kWarps * i;
@@ -386,7 +410,8 @@ __device__ __forceinline__ void epi_load(const MegaArgs& a, int l, int g,
 // offset `off` (c columns of K contiguous int8, wrapping at the ring's
 // end; `part` holds a vector's sum each), then the epilogue: out[n] =
 // affine(sum, scale, bias), after fc1 its GELU, all rounded to bf16; after
-// q/k/v the fresh K and V also to `fresh`.
+// q/k/v the fresh K and V also to `fresh` (with an int8 self cache
+// quantised, in `fresh` and in `out` alike).
 __device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
                           uint32_t off, const float* vin, float* part,
                           float* out, int n_out, const Epi& e) {
@@ -422,7 +447,6 @@ __device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
     part[f] = (sq[0] + sq[1]) + (sq[2] + sq[3]);
   }
   __syncthreads();
-  __nv_bfloat16* fresh = static_cast<__nv_bfloat16*>(a.fresh);
   // a warp's columns side by side, so that their chains interleave
   float cs[kColsWarp];
 #pragma unroll
@@ -442,10 +466,16 @@ __device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
     if (lane == 0 && j < c && n < n_out) {
       float v = affine(s, e.s[i], e.b[i]);
       if (g == kFc1) v = bf16r(gelu_tanh(v));
+      if (g == kQkv && n >= a.d) {     // k or v: [L, 2, H, D] = [L, 2, d]
+        const size_t f = ((size_t)l * 2 + n / a.d - 1) * a.d + n % a.d;
+        if (a.self_int8) {
+          v = quant_kv(v, e.oq);
+          static_cast<int8_t*>(a.fresh)[f] = (int8_t)v;
+        } else {
+          static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(v);
+        }
+      }
       __stcg(out + n, v);
-      if (g == kQkv && n >= a.d)       // k or v: [L, 2, H, D] = [L, 2, d]
-        fresh[((size_t)l * 2 + n / a.d - 1) * a.d + n % a.d] =
-            __float2bfloat16(v);
     }
   }
 }
@@ -617,13 +647,17 @@ __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
 // its 64 values of the context row (`ctx`, rounded to bf16): the slices'
 // max M, weights exp(m_s - M) and weighted sum of their sums; with the
 // fresh column (self-attention: q and the fresh k, v from qkv, their score
-// in fp32) or without (cross: the context times kscale / denominator).
-// The slices' partials, q, k and v are requested in one round.
+// in fp32; with an int8 cache (CT) the score times scale * kscale and the
+// context times kscale) or without (cross: the context times kscale /
+// denominator).  The slices' partials, q, k and v are requested in one
+// round.
+template <typename CT>
 __device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
                             int h, const float* qkv, float kscale,
                             float* fin) {
   const int tid = threadIdx.x, lane = tid & 31;
   const bool self = qkv != nullptr;
+  const bool qself = self && sizeof(CT) == 1;   // the int8 self cache
   float* wts = fin + 4;                      // [kMaxSplits]
   float pv[kMaxSplits];
   float vf = 0.f;
@@ -648,7 +682,7 @@ __device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
     if (lane < ns) wts[lane] = w;
     const float Lsum = warp_sum(ls * w);
     if (self) {
-      const float sf = warp_sum(qk) * a.scale;
+      const float sf = warp_sum(qk) * (qself ? a.scale * kscale : a.scale);
       const float m_fin = fmaxf(M, sf);
       const float alpha = expf(M - m_fin), pf = expf(sf - m_fin);
       if (lane == 0) {
@@ -666,8 +700,11 @@ __device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
       if (s < ns) acc += pv[s] * wts[s];
-    const float v = self ? bf16r((acc * fin[0] + vf * fin[1]) / fin[2])
-                         : bf16r(acc * (kscale / fin[2]));
+    const float v =
+        qself ? bf16r((acc * fin[0] * kscale + vf * (kscale * fin[1])) /
+                      fin[2])
+        : self ? bf16r((acc * fin[0] + vf * fin[1]) / fin[2])
+               : bf16r(acc * (kscale / fin[2]));
     __stcg(a.ctx + h * kD + tid, v);
   }
   __syncthreads();
@@ -703,7 +740,7 @@ __device__ void attn_stage(const MegaArgs& a, const CT* cache, int l,
       __syncthreads();
       if (!*last_s) continue;
     }
-    finish_head(a, att_h, ns, h, qkv, kscale, fin);
+    finish_head<CT>(a, att_h, ns, h, qkv, kscale, fin);
   }
 }
 
@@ -732,7 +769,8 @@ __host__ __device__ inline Smem smem_layout(const MegaArgs& a) {
   return s;
 }
 
-template <typename CT>
+// CT: the cross cache's element type, ST: the self cache's
+template <typename CT, typename ST>
 __global__ void __launch_bounds__(kThreads, 1)
 megakernel(const MegaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -754,7 +792,8 @@ megakernel(const MegaArgs a) {
   const int n_valid = min(max(a.seq_len[0] - 1, 0), S);  // cache columns
   const int ns = max(1, (n_valid + kSplit - 1) / kSplit);
   const int nsc = (Sc + kSplit - 1) / kSplit;
-  const __nv_bfloat16* selfc = static_cast<const __nv_bfloat16*>(a.self_cache);
+  constexpr bool kSelfInt8 = sizeof(ST) == 1;
+  const ST* selfc = static_cast<const ST*>(a.self_cache);
   const CT* crossc = static_cast<const CT*>(a.cross_cache);
   const __nv_bfloat16* x_in = static_cast<const __nv_bfloat16*>(a.x);
   unsigned int gen = 0;                   // the barrier counter's target
@@ -791,6 +830,7 @@ megakernel(const MegaArgs a) {
   for (int l = 0; l < a.n_layer; ++l) {
     const float* ln = a.ln_par + (size_t)l * 6 * d;
     const float kscale = a.cross_scale ? a.cross_scale[l] : 1.f;
+    const float kqo = kSelfInt8 ? a.kv_qo[l] : 1.f;
     for (int st = 0; st < kLayerStages; ++st) {
       const int g = st == 0 ? kQkv : st == 2 ? kDense : st == 3 ? kCrossQ
                   : st == 5 ? kCrossDense : st == 6 ? kFc1
@@ -819,10 +859,10 @@ megakernel(const MegaArgs a) {
         }
         __syncthreads();
       } else if (st == 1) {
-        attn_stage<__nv_bfloat16>(a, selfc, l, S, n_valid, ns, a.act_a,
-                                  a.scale, a.act_a, 1.f,
-                                  a.heads + (size_t)l * H, q_s, p_s, part,
-                                  red, fin, &last_s);
+        attn_stage<ST>(a, selfc, l, S, n_valid, ns, a.act_a,
+                       kSelfInt8 ? a.scale * kqo : a.scale, a.act_a, kqo,
+                       a.heads + (size_t)l * H, q_s, p_s, part, red, fin,
+                       &last_s);
       } else {
         attn_stage<CT>(a, crossc, l, Sc, Sc, nsc, a.act_a, a.scale * kscale,
                        nullptr, kscale,
@@ -878,9 +918,9 @@ bool plan_ok(const MegaArgs* a, int grid) {
   return off == a->layer_bytes;
 }
 
-template <typename CT>
+template <typename CT, typename ST>
 int launch(const MegaArgs* a, void* stream) {
-  auto kernel = megakernel<CT>;
+  auto kernel = megakernel<CT, ST>;
   cudaError_t e;
   int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -930,10 +970,15 @@ int decoder_megakernel(const MegaArgs* a, void* stream) {
   if (a->d % kD || a->d / kD > kMaxHeads || a->n_head * kD != a->d ||
       a->s_cross > kMaxSplits * kSplit || a->s_self > kMaxSplits * kSplit ||
       a->nf < 1 || a->d > kPer * kThreads || a->nf * a->d > kPerFc * kThreads ||
-      a->s_self % 2 || a->s_cross % (a->cross_int8 ? 4 : 2))
+      a->s_self % (a->self_int8 ? 4 : 2) ||
+      a->s_cross % (a->cross_int8 ? 4 : 2) ||
+      (a->self_int8 && (!a->kv_oq || !a->kv_qo)))
     return (int)cudaErrorInvalidValue;
-  return a->cross_int8 ? launch<int8_t>(a, stream)
-                       : launch<__nv_bfloat16>(a, stream);
+  if (a->self_int8)
+    return a->cross_int8 ? launch<int8_t, int8_t>(a, stream)
+                         : launch<__nv_bfloat16, int8_t>(a, stream);
+  return a->cross_int8 ? launch<int8_t, __nv_bfloat16>(a, stream)
+                       : launch<__nv_bfloat16, __nv_bfloat16>(a, stream);
 }
 
 }  // extern "C"

@@ -25,6 +25,13 @@ Modes, as in the JAX package:
   (write index 0) is stored with ``paged_prefill`` and attends causally
   over its fresh K/V, with no length mask (prompts are right-padded).
   Mixed windows (several tokens at per-row positions) raise.
+With ``use_int8_kv_cache`` (the ``kv8`` recipe) the self cache is int8
+with the per-tensor scales ``kv_orig_quant_scale`` (every write: the
+prefill's and the fresh K/V of a decode step) and ``kv_quant_orig_scale``
+(every read, the fresh column's too, as a write-then-read would give it);
+a prefill then attends over the quantised cache it has just written, as
+the JAX layer does (its flash fast path is off under a quantised cache,
+``layers/attention.py:669-697``).  An int8 paged pool raises.
 Single-token decode over the stacked cache goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
 when the cache has fewer heads), with the int8 out-projection fused when
@@ -133,7 +140,9 @@ def linear_classes(quant_mode: QuantMode, dtype):
         # as the JAX package's surgery builds it (surgery.py:152-155)
         return (sq(SmoothQuantQKVLinear, None), sq(SmoothQuantLinear),
                 sq(SmoothQuantRowLinear))
-    if quant_mode.is_weight_only() or quant_mode.has_any_quant():
+    # the KV-cache flags choose no linear class
+    if quant_mode & (QuantMode.INT8_WEIGHTS | QuantMode.INT4_WEIGHTS
+                     | QuantMode.ACTIVATIONS):
         raise NotImplementedError(f"quant mode {quant_mode!r} is not ported")
     return QKVLinear, ColumnLinear, RowLinear
 
@@ -148,7 +157,8 @@ class Attention(nn.Module):
                  cross_attention: bool = False, causal: bool = False,
                  bias: bool = True, dtype=torch.float32,
                  quant_mode: QuantMode = QuantMode(0),
-                 num_kv_heads: Optional[int] = None):
+                 num_kv_heads: Optional[int] = None,
+                 use_int8_kv_cache: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
@@ -157,6 +167,14 @@ class Attention(nn.Module):
         self.cross_attention = cross_attention
         self.causal = causal
         self.dtype = dtype
+        self.use_int8_kv_cache = use_int8_kv_cache
+        # the int8 self cache's per-tensor scales (the JAX layer's [1] fp32
+        # parameters, scale_y_quant_orig semantics): quantise, dequantise
+        if use_int8_kv_cache:
+            self.kv_orig_quant_scale = frozen((1,), torch.float32)
+            self.kv_quant_orig_scale = frozen((1,), torch.float32)
+        else:
+            self.kv_orig_quant_scale = self.kv_quant_orig_scale = None
         qkv_cls, col_cls, row_cls = linear_classes(quant_mode, dtype)
         grouped = self.num_attention_kv_heads != num_attention_heads
         if grouped and (cross_attention
@@ -192,10 +210,11 @@ class Attention(nn.Module):
     def new_kv_cache(self, batch: int, max_len: int,
                      device=None) -> torch.Tensor:
         """A zeroed self cache [B, 2, Hkv, head_dim, S] (seq-minor), in the
-        layer's dtype."""
+        layer's dtype, or int8 with ``use_int8_kv_cache``."""
         return torch.zeros((batch, 2, self.num_attention_kv_heads,
                             self.attention_head_size, max_len),
-                           dtype=self.dtype, device=device)
+                           dtype=torch.int8 if self.use_int8_kv_cache
+                           else self.dtype, device=device)
 
     def _decode_proj_operands(self, batch: int):
         """(weight, scale, bias) of an int8 weight-only dense layer for the
@@ -244,6 +263,8 @@ class Attention(nn.Module):
         pool, updated in place)."""
         if not self.causal:
             raise NotImplementedError("paged attention is causal")
+        if self.use_int8_kv_cache:
+            raise NotImplementedError("int8 paged pools are not ported")
         l = q.shape[2]
         if l == 1:
             # generation: the token's K/V first, then the pool through the
@@ -318,8 +339,10 @@ class Attention(nn.Module):
             full, layer_idx, _ = past_key_value
             if l != 1:
                 raise ValueError("deferred-write decode is single-token")
-            k_st, v_st = cast_kv_for_cache(k, v, full.dtype)
+            k_st, v_st = cast_kv_for_cache(k, v, full.dtype,
+                                           self.kv_orig_quant_scale)
             out = self._decode(full, layer_idx, q, sequence_length,
+                               kv_quant_orig_scale=self.kv_quant_orig_scale,
                                fresh_kv=(k_st, v_st),
                                beam_indirection=beam_indirection,
                                start_index=attention_start)
@@ -331,13 +354,17 @@ class Attention(nn.Module):
             if l == 1 or not self.causal:
                 raise NotImplementedError(
                     "only a causal multi-token prefill is ported")
-            append_kv_stacked(full, k, v, layer_idx, cache_write_index)
-            if attention_start is not None:
-                # left-padded prompts: attend over the cache just written,
-                # keys below the start masked, causal from the write index
+            append_kv_stacked(full, k, v, layer_idx, cache_write_index,
+                              self.kv_orig_quant_scale)
+            if attention_start is not None or self.use_int8_kv_cache:
+                # left-padded prompts, or an int8 cache: attend over the
+                # cache just written (dequantised), keys below the start
+                # masked, causal from the write index
                 ctx = cached_decode_attention(
                     q, layer_kv_views(full, layer_idx), sequence_length,
-                    scale=self.scale, causal_offset=cache_write_index,
+                    scale=self.scale,
+                    kv_quant_orig_scale=self.kv_quant_orig_scale,
+                    causal_offset=cache_write_index,
                     start_index=attention_start)
                 out = self.dense(self._merge_heads(ctx))
             else:

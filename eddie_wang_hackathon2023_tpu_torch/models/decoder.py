@@ -22,7 +22,11 @@ layer's fresh K/V once, after the loop (``models/decoder.py:458-460``);
 its self-attention goes through the decode kernel (the grouped mode when
 the cache has fewer heads than the query); over the pool, each layer
 writes its token through the table and reads the pool through the paged
-decode kernel.  RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP, the
+decode kernel.  With an int8 KV cache (``QuantMode.set_int8_kv_cache``,
+the per-layer scales in the state as ``attention.kv_orig_quant_scale`` and
+``kv_quant_orig_scale``) the stacked cache is int8, every write quantises
+and the grouped kernel reads it with the scale; an int8 pool raises.
+RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP, the
 parallel and deepnorm residuals, untied or biased LM heads, per-row write
 positions on the stacked cache, mixed prompt/decode windows on the pool,
 the K-step tail, beams and the megakernel are not ported and raise
@@ -113,8 +117,7 @@ def _check_ported(c: DecoderConfig) -> None:
         "untied word embeddings": not c.tie_word_embeddings,
         "lm_head_bias": c.lm_head_bias,
         "apply_query_key_layer_scaling": c.apply_query_key_layer_scaling,
-        "a quantised KV cache": (c.quant_mode.has_int8_kv_cache()
-                                 or c.quant_mode.has_fp8_kv_cache()),
+        "a quantised KV cache": c.quant_mode.has_fp8_kv_cache(),
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -134,7 +137,9 @@ class DecoderBlock(nn.Module):
         self.attention = Attention(c.hidden_size, c.num_heads, causal=True,
                                    bias=c.attn_bias, dtype=dtype,
                                    quant_mode=c.quant_mode,
-                                   num_kv_heads=c.num_kv_heads)
+                                   num_kv_heads=c.num_kv_heads,
+                                   use_int8_kv_cache=(
+                                       c.quant_mode.has_int8_kv_cache()))
         self.post_layernorm = LayerNorm(c.hidden_size, eps=c.norm_eps,
                                         dtype=dtype)
         self.mlp = MLP(c.hidden_size, c.ffn_hidden_size, c.hidden_act,
@@ -175,7 +180,8 @@ class DecoderLMHead(nn.Module):
 
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
-        """Zeroed stacked cache [n_layer, B, 2, Hkv, head_dim, S]."""
+        """Zeroed stacked cache [n_layer, B, 2, Hkv, head_dim, S] (int8
+        with an int8 KV cache in the config's quant mode)."""
         c = self.config
         per_layer = self.blocks[0].attention.new_kv_cache(
             batch, max_len or c.max_position_embeddings, device="meta")
@@ -188,8 +194,10 @@ class DecoderLMHead(nn.Module):
         """Zeroed stacked block pool [n_layer, N + 1, 2, Hkv, T, head_dim]
         for paged serving (N blocks and the sink of the dropped writes,
         :func:`..ops.paged_attention.new_block_pool`), in the model's dtype,
-        on its device."""
+        on its device.  An int8 pool is not ported."""
         c = self.config
+        if c.quant_mode.has_int8_kv_cache():
+            raise NotImplementedError("int8 paged pools are not ported")
         return new_block_pool(num_blocks, c.num_kv_heads, tokens_per_block,
                               c.head_dim, dtype=self.dtype,
                               num_layers=c.num_layers,

@@ -4,8 +4,8 @@
   and ``hf_to_openai_state_dict``: copies of the JAX package's numpy
   converters, giving state dicts in the JAX package's layout (per-layer
   tensors stacked [n_layer, ...], head-major fused QKV with a zero K bias).
-* ``quantize_states``: the bench recipe (``woq8+ckv8+lmq8+sqenc``) applied
-  to such state dicts with the port's own quantisers.
+* ``quantize_states``: the bench recipe (``woq8+ckv8+lmq8+sqenc``, and
+  ``kv8``) applied to such state dicts with the port's own quantisers.
 * ``from_jax_state``: state dicts in that layout (float, or already
   quantised by either package's surgery) -> the port's modules, on a
   device.  Both packages then compute with identical int8 weights and
@@ -34,8 +34,9 @@ BENCH_RECIPE = "woq8+ckv8+lmq8+sqenc"
 class Recipe(NamedTuple):
     """A "+"-joined recipe string as bench.py reads it: ``woq8`` int8
     weight-only decoder (and encoder, unless ``sqenc``), ``sqenc``
-    SmoothQuant W8A8 encoder (per token, per channel), ``ckv8`` static
-    int8 cross-KV, ``lmq8`` int8 lm_head."""
+    SmoothQuant W8A8 encoder (per token, per channel), ``kv8`` int8
+    decoder self-KV cache with calibrated per-layer scales, ``ckv8``
+    static int8 cross-KV, ``lmq8`` int8 lm_head."""
     encoder: QuantMode
     decoder: QuantMode
     lm_head: bool
@@ -52,13 +53,16 @@ class Recipe(NamedTuple):
             raise NotImplementedError(
                 "recipe part 'woq4': Whisper int4 decodes through the "
                 "megakernel's int4 panels, which are not ported yet")
-        unknown = parts - {"woq8", "ckv8", "lmq8", "sqenc"}
+        unknown = parts - {"woq8", "kv8", "ckv8", "lmq8", "sqenc"}
         if unknown:
             raise NotImplementedError(f"recipe parts {sorted(unknown)} are "
                                       "not ported")
-        dec = QuantMode.use_weight_only() if "woq8" in parts else QuantMode(0)
+        weights = (QuantMode.use_weight_only() if "woq8" in parts
+                   else QuantMode(0))
+        # the self-KV cache is the decoder's; the encoder keeps none
+        dec = (weights.set_int8_kv_cache() if "kv8" in parts else weights)
         enc = (QuantMode.use_smooth_quant(per_token=True, per_channel=True)
-               if "sqenc" in parts else dec)
+               if "sqenc" in parts else weights)
         return Recipe(enc, dec, "lmq8" in parts, "ckv8" in parts)
 
 
@@ -138,7 +142,12 @@ def encoder_state_dict(sd, config: WhisperConfig) -> Dict[str, np.ndarray]:
     return state
 
 
-def decoder_state_dict(sd, config: WhisperConfig) -> Dict[str, np.ndarray]:
+def decoder_state_dict(sd, config: WhisperConfig,
+                       int8_kv_scales=None) -> Dict[str, np.ndarray]:
+    """``int8_kv_scales``: optional [n_layer] per-layer dequantise steps
+    of the int8 self cache (``calibrate_int8_kv``: amax / 127), stored as
+    ``1 / t`` and ``t`` under the attention's ``kv_orig_quant_scale`` and
+    ``kv_quant_orig_scale``, [n_layer, 1] each."""
     c = config
     blocks = _stack_blocks([
         _block_state(sd, f"decoder.blocks.{i}.", c.n_text_head, cross=True)
@@ -155,6 +164,10 @@ def decoder_state_dict(sd, config: WhisperConfig) -> Dict[str, np.ndarray]:
         "ln.bias": _np(sd["decoder.ln.bias"]),
     }
     state.update({f"blocks.{k}": v for k, v in blocks.items()})
+    if int8_kv_scales is not None:
+        t = np.asarray(int8_kv_scales, np.float32).reshape(c.n_text_layer, 1)
+        state["blocks.attn.kv_orig_quant_scale"] = 1.0 / t
+        state["blocks.attn.kv_quant_orig_scale"] = t
     return state
 
 
@@ -227,8 +240,15 @@ def quantize_states(enc_sd, dec_sd, ckv_sd, recipe: str = BENCH_RECIPE,
     """Float state dicts (JAX layout) -> the recipe's quantised ones, as
     the JAX package's examples/whisper/wer_matrix.py builds them.  ``ckv8``
     needs the calibrated per-layer ``ckv_scales``
-    (quantization.calibration.calibrate_cross_kv_scales)."""
+    (quantization.calibration.calibrate_cross_kv_scales); ``kv8`` needs the
+    self-KV scales in ``dec_sd``, put there by
+    ``decoder_state_dict(int8_kv_scales=)`` (from
+    quantization.calibration.calibrate_int8_kv), and passes them through."""
     r = Recipe.parse(recipe)
+    if (r.decoder.has_int8_kv_cache()
+            and "blocks.attn.kv_orig_quant_scale" not in dec_sd):
+        raise ValueError("kv8 needs calibrated self-KV scales: "
+                         "decoder_state_dict(int8_kv_scales=)")
     enc_sd, dec_sd, ckv_sd = dict(enc_sd), dict(dec_sd), dict(ckv_sd)
     if r.decoder.is_weight_only():
         dec_sd = weight_only_quantize_state(dec_sd, DECODER_LINEARS,

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``ops/pallas_decoder_layer.py``
 (``fused_decoder_stack``, :865), for the modes of the Whisper int8 recipe
 at batch 1: int8 weight-only panels with per-channel scales, LayerNorm,
 tanh GELU, cross-attention over an int8 (or float) cross cache with
-per-layer scales, and a float self cache with the fresh token's K/V.  On a
+per-layer scales, and a float or int8 self cache with the fresh token's K/V
+(int8: the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the
+cache and the fresh column dequantised with ``kv_qo``, as the TPU kernel's
+``self_quant`` mode).  On a
 CUDA tensor the wrapper makes ONE cooperative launch of the kernel of
 ``csrc/decoder_layer.cu``, which reads its GEMV weights from the blobs'
 ``tiles`` (:func:`megakernel_tiles`, cut by :func:`megakernel_plan` for the
@@ -13,7 +16,7 @@ card's SM count); on a CPU tensor it runs the plain version,
 attention slices and rounding points.
 
 Not ported, and raising ``NotImplementedError``: int4 or float panels,
-RMSNorm, the gated MLP, the parallel residual, RoPE, MQA/GQA, int8 or fp8
+RMSNorm, the gated MLP, the parallel residual, RoPE, MQA/GQA, fp8
 self-KV, the K-step tail, a start index, decoders without cross-attention
 and batch > 1.
 """
@@ -25,7 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..functional import gelu, layer_norm, matmul_fp32
+from ..functional import gelu, layer_norm, matmul_fp32, round_half_away
 from . import _build
 from .attention import NEG
 
@@ -69,8 +72,8 @@ class MegakernelBlobs(NamedTuple):
     flat_scale: torch.Tensor   # [L, NF, d] f32: dense, cross-dense, fc1.., fc2
     flat_bias: torch.Tensor    # [L, NF, d] f32
     ln_par: torch.Tensor       # [L, 6, d] f32: weight, bias of each LN
-    kv_oq: torch.Tensor        # [L] f32 self-KV quantise scale (ones)
-    kv_qo: torch.Tensor        # [L] f32 self-KV dequantise scale (ones)
+    kv_oq: torch.Tensor        # [L] f32 self-KV quantise scale (int8 cache)
+    kv_qo: torch.Tensor        # [L] f32 self-KV dequantise scale
     gscale: Optional[torch.Tensor] = None   # int4 group scales: not ported
     # the kernel's item-contiguous copy of wblob [L, layer_bytes] int8 and
     # the grid it was cut for (:func:`megakernel_tiles`; the card only)
@@ -312,8 +315,8 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
         (cross_cache is None, "decoders without cross-attention"),
         (blobs.gscale is not None or blobs.wblob.dtype != torch.int8
          or blobs.wblob.shape[2] != d, "int4 or float panels"),
-        (self_cache.dtype == torch.int8 or self_cache.element_size() == 1,
-         "int8 or fp8 self-KV"),
+        (self_cache.dtype != torch.int8 and self_cache.element_size() == 1,
+         "fp8 self-KV"),
         (self_cache.shape[3] * head_dim != d, "MQA/GQA"),
     ]
     for bad, what in outside:
@@ -356,8 +359,12 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                               eps: float = 1e-5):
     """The plain PyTorch version of :func:`fused_decoder_stack`: the
     kernel's stages, attention slices and rounding points, layer by
-    layer."""
+    layer.  With an int8 self cache the fresh K/V are quantised with
+    ``blobs.kv_oq`` as :func:`..ops.attention.quantize_cache_values` does,
+    and the self-attention is scaled by ``blobs.kv_qo`` as the TPU kernel
+    scales it (``pallas_decoder_layer.py:554,740-743``)."""
     adt = x.dtype
+    quant = self_cache.dtype == torch.int8
     L, _, _, H, D, S = self_cache.shape
     d = x.shape[-1]
     nf = (blobs.wblob.shape[1] - 6) // 2
@@ -380,6 +387,7 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         ln = blobs.ln_par[layer]
         kscale = (1.0 if cross_scale is None
                   else cross_scale.reshape(-1)[layer].float())
+        kqo = blobs.kv_qo[layer].float() if quant else 1.0
 
         def gemv(v, panel):
             return matmul_fp32(v, w[panel].to(adt))
@@ -394,15 +402,22 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         h = layer_norm(x, ln[0], ln[1], eps)
         q, k_f, v_f = (affine(gemv(h, pan[n]), ps[i], pb[i]).reshape(H, D)
                        for i, n in enumerate(("q", "k", "v")))
+        if quant:
+            # the integers the cache write would store, kept in fp32
+            k_f, v_f = (torch.clamp(round_half_away(
+                t.float() * blobs.kv_oq[layer].float()), -128, 127)
+                for t in (k_f, v_f))
         fresh[layer, 0], fresh[layer, 1] = k_f, v_f
         kc, vc = self_cache[layer, 0, 0], self_cache[layer, 0, 1]
         big, tot, acc = _combine([
-            _attn_slice(q, kc, vc, c, n_valid, scale, adt)
+            _attn_slice(q, kc, vc, c, n_valid, scale * kqo, adt)
             for c in range(max(1, -(-n_valid // ATTN_SPLIT)))])
-        sf = (q.float() * k_f.float()).sum(-1) * scale
+        sf = (q.float() * k_f.float()).sum(-1) * (scale * kqo)
         m_fin = torch.maximum(big, sf)
         alpha, pf = torch.exp(big - m_fin), torch.exp(sf - m_fin)
-        ctx = (acc * alpha[:, None] + v_f.float() * pf[:, None]) \
+        # the TPU kernel's form (:740-743); kqo is 1 over a float cache
+        ctx = (acc * alpha[:, None] * kqo
+               + v_f.float() * (kqo * pf)[:, None]) \
             / (tot * alpha + pf)[:, None]
         x = x + project(ctx, "dense")
         # LN2 -> cross-q; cross-attention, the context scaled by
@@ -429,13 +444,14 @@ class _MegaArgs(ctypes.Structure):
     """The kernel's ``MegaArgs`` (csrc/decoder_layer.cu), field by field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "x", "tiles", "pair_scale", "pair_bias", "flat_scale", "flat_bias",
-        "ln_par", "self_cache", "cross_cache", "cross_scale", "seq_len",
-        "hid", "fresh", "act_a", "act_b", "att", "ctx", "barrier", "heads")]
+        "ln_par", "self_cache", "cross_cache", "cross_scale", "kv_oq",
+        "kv_qo", "seq_len", "hid", "fresh", "act_a", "act_b", "att", "ctx",
+        "barrier", "heads")]
         + [("layer_bytes", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
             "n_layer", "d", "n_head", "s_self", "s_cross", "nflat", "nf",
             "f_dense", "f_crossdense", "f_fc1", "f_fc2", "cross_int8",
-            "ring_bytes")]
+            "self_int8", "ring_bytes")]
         + [(n, ctypes.c_int * len(GEMV_STAGES))
            for n in ("item_c", "items", "item_k", "tile_off")]
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
@@ -451,12 +467,14 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     """Every decoder layer of one decode step in ONE kernel.
 
     x [1, d] (embedded token + position); self_cache [L, 1, 2, H, D, S]
-    seq-minor, without the fresh token; seq_len [1] int32 INCLUDING the
-    fresh token; cross_cache [L, 1, 2, H, D, Sc] with per-layer
-    ``cross_scale`` [L] when int8.  Returns (hidden [1, d] before the final
-    LN, fresh K/V [L, 2, H, D] in the cache dtype); the cache is not
-    written.  On the card: bf16 x and self cache, head dim 64, and one
-    cooperative launch (a refused launch raises; nothing falls back)."""
+    seq-minor, without the fresh token (int8: quantised with
+    ``blobs.kv_oq``, read with ``blobs.kv_qo``); seq_len [1] int32
+    INCLUDING the fresh token; cross_cache [L, 1, 2, H, D, Sc] with
+    per-layer ``cross_scale`` [L] when int8.  Returns (hidden [1, d] before
+    the final LN, fresh K/V [L, 2, H, D] in the cache dtype); the cache is
+    not written.  On the card: bf16 x, a bf16 or int8 self cache, head dim
+    64, and one cooperative launch (a refused launch raises; nothing falls
+    back)."""
     _check_modes(x, blobs, self_cache, cross_cache, head_dim, start_index,
                  tail_kv, act, norm, gated, parallel, rope_mat)
     if not x.is_cuda:
@@ -470,14 +488,18 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     if D != HEAD_DIM:
         raise NotImplementedError(f"megakernel is built for head dim "
                                   f"{HEAD_DIM}, got {D}")
-    if x.dtype != torch.bfloat16 or self_cache.dtype != torch.bfloat16:
-        raise TypeError("megakernel takes bf16 activations and self cache")
+    if x.dtype != torch.bfloat16 or self_cache.dtype not in (
+            torch.bfloat16, torch.int8):
+        raise TypeError("megakernel takes bf16 activations and a bf16 or "
+                        "int8 self cache")
+    self_int8 = self_cache.dtype == torch.int8
     if cross_cache.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel cross cache dtype {cross_cache.dtype}")
     nf = (blobs.wblob.shape[1] - 6) // 2
     # the kernel reads the caches in 4-byte words: rows of whole words
     word = 4 // cross_cache.element_size()
-    if (d % HEAD_DIM or d > MAX_D or nf * d > MAX_FFN or S % 2 or sc % word
+    if (d % HEAD_DIM or d > MAX_D or nf * d > MAX_FFN
+            or S % (4 // self_cache.element_size()) or sc % word
             or max(S, sc) > MAX_SPLITS * ATTN_SPLIT
             or cross_cache.shape[:5] != (L, 1, 2, H, D)):
         raise ValueError(f"megakernel shapes: d {d}, ffn {nf * d}, heads "
@@ -494,7 +516,8 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
             or tuple(tiles.shape) != (L, plan["layer_bytes"])):
         raise ValueError("megakernel blobs need the tiles of this card's "
                          "plan: build them with megakernel_tiles(blobs)")
-    for t in (self_cache, cross_cache, tiles, *blobs[1:6]):
+    kv_scales = (blobs.kv_oq, blobs.kv_qo) if self_int8 else ()
+    for t in (self_cache, cross_cache, tiles, *blobs[1:6], *kv_scales):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("megakernel operands must be contiguous on "
                              f"{dev}")
@@ -511,7 +534,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         cs_t = torch.as_tensor(cross_scale, dtype=torch.float32,
                                device=dev).reshape(L).contiguous()
     hid = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
-    fresh = torch.empty((L, 2, H, D), dtype=torch.bfloat16, device=dev)
+    fresh = torch.empty((L, 2, H, D), dtype=self_cache.dtype, device=dev)
     # finished GEMV outputs: q, k, v / cross-q / GELU(fc1) and dense /
     # cross-dense / fc2
     act_a = torch.empty((max(3, nf) * d,), dtype=torch.float32, device=dev)
@@ -534,11 +557,12 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         ptr(xin), ptr(tiles), ptr(blobs.pair_scale),
         ptr(blobs.pair_bias), ptr(blobs.flat_scale), ptr(blobs.flat_bias),
         ptr(blobs.ln_par), ptr(self_cache), ptr(cross_cache), ptr(cs_t),
-        ptr(seq_t), ptr(hid), ptr(fresh), ptr(act_a), ptr(act_b),
+        *(ptr(t) for t in kv_scales or (None, None)), ptr(seq_t), ptr(hid), ptr(fresh), ptr(act_a), ptr(act_b),
         ptr(att), ptr(ctx), ptr(sync), ptr(sync) + 4, plan["layer_bytes"],
         L, d, H, S, sc, blobs.flat_scale.shape[1], nf,
         slots["dense"], slots["crossdense"], slots["fc1"], slots["fc2"],
-        int(cross_cache.dtype == torch.int8), plan["ring_cap"],
+        int(cross_cache.dtype == torch.int8), int(self_int8),
+        plan["ring_cap"],
         ints("item_c"), ints("items"), ints("item_k"), ints("tile_off"),
         float(scale), float(eps))
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)

@@ -1,9 +1,12 @@
 """SmoothQuant W8A8 layers (the JAX package's
 ``quantization/smoothquant_layers.py``): int8 [in, out] weights with
 per-channel (or per-tensor) step scales; activations quantised per token
-on the fly, or with a static step."""
+on the fly, or with a static step.  Also its offline numpy helpers
+(``smooth_quantize_weights``, ``apply_smoothing``, ``smooth_gemm``),
+copied: the same arithmetic gives the same bits."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -118,3 +121,45 @@ class SmoothQuantQKVLinear(nn.Module):
         if self.bias is not None:
             qkv = qkv + self.bias.to(qkv.dtype)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def smooth_quantize_weights(w, per_channel: bool = True):
+    """Offline: float [out, in] -> (int8 [in, out], step scales)."""
+    wt = np.asarray(w, np.float32).T  # [in, out]
+    if per_channel:
+        amax = np.abs(wt).max(axis=0)
+    else:
+        amax = np.asarray([np.abs(wt).max()])
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(wt / scale[None, :] if per_channel else wt / scale),
+                -127, 127).astype(np.int8)
+    return q, scale
+
+
+def apply_smoothing(scales, gemm_weight, layernorm_weight=None,
+                    layernorm_bias=None):
+    """Divide the LayerNorm's output channels by ``scales`` and multiply
+    them into the following GEMM's input channels (outlier migration):
+    ``gemm_weight`` [out, in] -> a dict of the smoothed arrays."""
+    scales = np.asarray(scales, np.float32)
+    out = dict()
+    out["gemm_weight"] = np.asarray(gemm_weight, np.float32) * scales[None, :]
+    if layernorm_weight is not None:
+        out["layernorm_weight"] = np.asarray(layernorm_weight,
+                                             np.float32) / scales
+    if layernorm_bias is not None:
+        out["layernorm_bias"] = np.asarray(layernorm_bias, np.float32) / scales
+    return out
+
+
+def smooth_gemm(gemm_weight, act_amax, layernorm_weight=None,
+                layernorm_bias=None, alpha: float = 0.5):
+    """The smoothing scales s = amax_x^alpha / amax_w^(1 - alpha) per input
+    channel (clipped below at 1e-5) and :func:`apply_smoothing` with them:
+    (scales, smoothed arrays)."""
+    w = np.asarray(gemm_weight, np.float32)
+    w_amax = np.abs(w).max(axis=0)
+    a_amax = np.asarray(act_amax, np.float32)
+    scales = np.clip(a_amax ** alpha / np.maximum(w_amax, 1e-8) ** (1 - alpha),
+                     1e-5, None)
+    return scales, apply_smoothing(scales, w, layernorm_weight, layernorm_bias)

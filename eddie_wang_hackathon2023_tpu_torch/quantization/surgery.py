@@ -12,7 +12,7 @@ bit-equal.  The int4 group size is the JAX package's default,
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -113,15 +113,60 @@ def _sq_quantize_stacked(w: np.ndarray, lead_ndim: int, per_channel: bool):
     return q, s
 
 
+def _smooth_stacked(w: np.ndarray, act, lw, lb, alpha: float):
+    """The smoothing of :func:`smooth_quantize_state_dict` for one linear:
+    ``w`` [*lead, out, in], its activations' amax ``act`` ([in], shared by
+    the layers, or [*lead, in]), its LayerNorm's weight and bias (or None)
+    -> (w, lw, lb) smoothed, per layer when stacked (a scale a layer, as
+    a linear of its own would get)."""
+    from .smoothquant_layers import smooth_gemm
+    lead_ndim = w.ndim - 2
+    act = np.asarray(act, np.float32)
+    if lead_ndim == 0:
+        _, sm = smooth_gemm(w, act, lw, lb, alpha=alpha)
+        return (sm["gemm_weight"], sm.get("layernorm_weight"),
+                sm.get("layernorm_bias"))
+    wf = w.reshape((-1,) + w.shape[lead_ndim:])
+    n = wf.shape[0]
+    actf = (np.broadcast_to(act, (n, wf.shape[-1])) if act.ndim <= 1
+            else act.reshape(n, wf.shape[-1]))
+    lwf = None if lw is None else np.asarray(lw, np.float32).reshape(n, -1)
+    lbf = None if lb is None else np.asarray(lb, np.float32).reshape(n, -1)
+    rows, lws, lbs = [], [], []
+    for i in range(n):
+        _, sm = smooth_gemm(wf[i], actf[i],
+                            None if lwf is None else lwf[i],
+                            None if lbf is None else lbf[i], alpha=alpha)
+        rows.append(sm["gemm_weight"])
+        if lwf is not None:
+            lws.append(sm["layernorm_weight"])
+        if lbf is not None:
+            lbs.append(sm["layernorm_bias"])
+    w = np.stack(rows, 0).reshape(w.shape)
+    lw = None if lwf is None else np.stack(lws, 0).reshape(np.shape(lw))
+    lb = None if lbf is None else np.stack(lbs, 0).reshape(np.shape(lb))
+    return w, lw, lb
+
+
 def smooth_quantize_state_dict(state: Dict[str, np.ndarray],
                                paths: Iterable[str],
-                               quant_mode: QuantMode
+                               quant_mode: QuantMode,
+                               act_scales: Optional[Dict[str, np.ndarray]]
+                               = None,
+                               ln_paths: Optional[Dict[str, str]] = None,
+                               alpha: float = 0.5
                                ) -> Dict[str, np.ndarray]:
     """SmoothQuant W8A8 weights: every ``<path>.weight`` becomes int8
     ``<path>.qweight`` + step ``<path>.per_channel_scale`` (and a unit
-    ``<path>.act_scale`` for static activation scaling).  The JAX
-    function's optional smoothing by calibrated activation ranges is not
-    ported: the Whisper recipe runs without it."""
+    ``<path>.act_scale`` for static activation scaling).
+
+    ``act_scales`` ({path: per-in-channel activation amax}, from
+    calibration): the alpha smoothing (``smooth_gemm``) is folded into the
+    path's weight before quantisation and, where ``ln_paths`` maps the path
+    to its preceding LayerNorm, the inverse scaling into that LayerNorm's
+    weight and bias, so the network computes the same function; stacked
+    [L, out, in] weights get a scale a layer.  Paths are taken in order,
+    as the JAX package walks its modules (``surgery.py:196-277``)."""
     if not quant_mode.has_act_and_weight_quant():
         raise ValueError(f"{quant_mode!r} is not a SmoothQuant mode")
     per_channel = quant_mode.has_per_channel_scaling()
@@ -131,6 +176,15 @@ def smooth_quantize_state_dict(state: Dict[str, np.ndarray],
         if key not in out:
             continue
         w = _flatten_qkv(path, np.asarray(out.pop(key), np.float32))
+        if act_scales is not None and path in act_scales:
+            ln = (ln_paths or {}).get(path)
+            lw = out.get(f"{ln}.weight") if ln else None
+            lb = out.get(f"{ln}.bias") if ln else None
+            w, lw, lb = _smooth_stacked(w, act_scales[path], lw, lb, alpha)
+            if lw is not None:
+                out[f"{ln}.weight"] = lw
+            if lb is not None:
+                out[f"{ln}.bias"] = lb
         q, s = _sq_quantize_stacked(w, w.ndim - 2, per_channel)
         out[f"{path}.qweight"] = q
         out[f"{path}.per_channel_scale"] = s

@@ -18,7 +18,10 @@ version in bf16 to 1e-2 on one layer, 3e-2 on three and 5e-2 on 32
 over layers), with int8 and bf16 cross caches and self caches empty, at
 the main path's 44 and at the edges of a 256-column slice; 100 launches in
 a row are bit-equal (a fixed sum order: a barrier that let a block run
-ahead would show).  The
+ahead would show).  Its int8 self mode (kv8) is held as the bf16 mode on
+1, 2 and 32 layers at sequence 1, 44 and 448, its int8 fresh K/V equal to
+the plain version's on one layer and within a step (2 layers) or the
+bf16 mode's gate (32 layers) after it, and two calls bit-equal.  The
 beam entry of kernel 1 is held to the same gates as kernel 1, and its
 rounding of P before P·V is pinned the same way, through a mixing
 indirection; so is the grouped (MQA/GQA) kernel, with the fresh column, and
@@ -242,6 +245,10 @@ _SPLIT_CASES = {
     "bf16_448_starts": (torch.bfloat16, 448, [44, 448, 224, 225, 1],
                         [3, 224, 0, 224, 0], False, 64),
     "int8_448_fresh_b1": (torch.int8, 448, [43], None, True, 64),
+    # the kv8 self call: an int8 cache with the fresh column, lengths at
+    # the two slices' edge (224) and the cache's end
+    "int8_448_self_edges": (torch.int8, 448, [447, 224, 223, 0], None, True,
+                            64),
     "bf16_1500_b1": (torch.bfloat16, 1500, [1500], None, False, 64),
     # the head dims of the kernel's other instantiation (128) and below 64;
     # S = 2600: 8 slices of 328, more than one round of 256 columns each
@@ -819,6 +826,86 @@ def test_megakernel_hundred_launches_in_a_row(dev):
     assert _rel(outs[0][0], hid_p) < 3e-2
 
 
+def _kv8_case(dev, n_layer, seed):
+    """The megakernel's int8 self mode: _mk_case's blobs with per-layer
+    self-KV steps (their fresh K/V reach about 4: steps 4 / 127), the
+    self cache the bf16 case's values quantised at those steps, as a kv8
+    cache of the same K/V holds them."""
+    blobs, x, cache, cross, cscale = _mk_case(dev, n_layer, torch.int8,
+                                              seed)
+    step = torch.full((n_layer,), 4 / 127, device=dev)
+    self8 = torch.clamp(torch.round(cache.float() * (127 / 4)), -128,
+                        127).to(torch.int8)
+    return (blobs._replace(kv_oq=1 / step, kv_qo=step), x, self8, cross,
+            cscale)
+
+
+@pytest.mark.parametrize("seq", [1, 44, 448])
+@pytest.mark.parametrize("n_layer,tol", [(1, 1e-2), (2, 2e-2), (32, 5e-2)])
+def test_megakernel_int8_self_matches_plain(dev, n_layer, tol, seq):
+    """The int8 self cache (kv8) at 1, 2 and 32 layers, empty (seq 1), at
+    the main path's 44 and full (448): the hidden state held as the bf16
+    mode's (1e-2, 2e-2, 5e-2 of the largest output).  The fresh K/V are
+    int8: on one layer equal to the plain version's (the same bf16 values,
+    quantised alike); after it, a layer's input differs from the plain
+    version's by the roundings above, so a value whose pre-rounding lies
+    near a half step may land one step apart: on 2 layers at most one step
+    on under 5% of the values, on 32 the dequantised values within the
+    bf16 mode's 5e-2."""
+    blobs, x, self8, cross, cscale = _kv8_case(dev, n_layer, seed=seq)
+    seq_t = torch.tensor([seq], dtype=torch.int32, device=dev)
+    before = mk.launches["decoder_megakernel"]
+    hid, fresh = mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                                        cross_cache=cross,
+                                        cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before + 1
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(
+        x, blobs, self8, seq_t.cpu(), 0.125, cross, cscale)
+    torch.cuda.synchronize()
+    assert fresh.dtype == fresh_p.dtype == torch.int8
+    assert bool(torch.isfinite(hid).all())
+    assert _rel(hid, hid_p) < tol
+    diff = (fresh.int() - fresh_p.int()).abs()
+    if n_layer == 1:
+        assert torch.equal(fresh, fresh_p)
+    elif n_layer == 2:
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) < 0.05
+    else:
+        assert _rel(fresh, fresh_p) < tol
+    assert int(fresh.abs().max()) > 64          # the steps' range is used
+
+
+def test_megakernel_int8_self_two_calls_bit_equal(dev):
+    """Two calls of the int8 self mode on the same inputs give the same
+    bits, hidden state and fresh K/V."""
+    blobs, x, self8, cross, cscale = _kv8_case(dev, 32, seed=5)
+    seq_t = torch.tensor([44], dtype=torch.int32, device=dev)
+    a = mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                               cross_cache=cross, cross_scale=cscale)
+    b = mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                               cross_cache=cross, cross_scale=cscale)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_megakernel_int8_self_refuses_what_it_does_not_take(dev):
+    """An int8 self cache of S not a multiple of 4 (the kernel reads 4
+    columns a word), and an fp8 one, raise before a launch."""
+    blobs, x, self8, cross, cscale = _kv8_case(dev, 1, seed=2)
+    seq_t = torch.tensor([44], dtype=torch.int32, device=dev)
+    before = mk.launches["decoder_megakernel"]
+    with pytest.raises(ValueError):
+        mk.fused_decoder_stack(x, blobs, self8[..., :446].contiguous(),
+                               seq_t, 0.125, cross_cache=cross,
+                               cross_scale=cscale)
+    with pytest.raises(NotImplementedError):
+        mk.fused_decoder_stack(x, blobs, self8.to(torch.float8_e4m3fn),
+                               seq_t, 0.125, cross_cache=cross,
+                               cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before
+
+
 def test_megakernel_refuses_blobs_without_tiles(dev):
     """Blobs without the card's tiles, or with tiles of another plan, raise
     before a launch."""
@@ -1001,6 +1088,37 @@ def test_gqa_kernel_layouts(dev, cache_dtype, rep, D, S):
                                           fresh_kv=fresh, **kw)
     torch.cuda.synchronize()
     assert out.shape == (B, hkv * rep, 1, D)
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) < 1e-2
+    assert _rel(out, ref16) < 2e-2
+
+
+def test_gqa_kernel_int8_at_the_decoder_path_shape(dev):
+    """The decoder path under woq8 + an int8 KV cache: batch 8, one KV head
+    under 16 query heads of 128, S 84 at sequence 70, start 4, the cache the
+    bf16 values quantised at a per-tensor step, the fresh column int8:
+    kernel 1's gates against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(84)
+    B, hkv, rep, D, S = 8, 1, 16, 128, 84
+    step = 4 / 127
+    cache = torch.clamp(torch.round(torch.randn(
+        24, B, 2, hkv, D, S, generator=g, device=dev) / step), -128,
+        127).to(torch.int8)
+    fresh = tuple(torch.clamp(torch.round(torch.randn(
+        B, hkv, D, 1, generator=g, device=dev) / step), -128, 127)
+        .to(torch.int8) for _ in range(2))
+    q = torch.randn(B, hkv * rep, 1, D, generator=g, device=dev).bfloat16()
+    seq = torch.full((B,), 70, dtype=torch.int32, device=dev)
+    kw = dict(kv_quant_orig_scale=torch.tensor([step], device=dev),
+              start_index=torch.full((B,), 4, dtype=torch.int32,
+                                     device=dev), fresh_kv=fresh)
+    before = da.launches["gqa_decode_attention"]
+    out = da.fused_decode_attention(cache, 23, q, seq, D ** -0.5, **kw)
+    assert da.launches["gqa_decode_attention"] == before + 1
+    ref = da.plain_gqa_decode_attention(cache, 23, q.float(), seq,
+                                        D ** -0.5, **kw)
+    ref16 = da.plain_gqa_decode_attention(cache, 23, q, seq, D ** -0.5, **kw)
+    torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     assert _rel(out, ref) < 1e-2
     assert _rel(out, ref16) < 2e-2

@@ -341,7 +341,7 @@ def test_chip_smoke_decoder_path_on_cpu():
     dict(position_embedding="glm_rope"), dict(norm="rmsnorm"),
     dict(gated_mlp=True), dict(parallel_attn=True),
     dict(deepnorm_alpha=2.0), dict(tie_word_embeddings=False),
-    dict(quant_mode=QuantMode.use_weight_only().set_int8_kv_cache())],
+    dict(quant_mode=QuantMode.use_weight_only().set_fp8_kv_cache())],
     ids=lambda o: next(iter(o)))
 def test_unported_decoder_options_raise(option):
     with pytest.raises(NotImplementedError):

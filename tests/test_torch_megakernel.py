@@ -210,23 +210,33 @@ def test_gemv_through_tiles_equals_the_blob():
     assert torch.equal(one.wblob, w[1:2]) and one.tiles_grid == 132
 
 
-@pytest.mark.parametrize("int8_cross", [False, True])
-@pytest.mark.parametrize("s_self,seq", [(160, 1), (160, 5), (160, 130),
-                                        (448, 300)])
-def test_plain_matches_jax_kernel(int8_cross, s_self, seq):
-    """seq 130: one past the 128-column self chunk; seq 300 on a 448-column
-    cache: two of the port's 256-column attention slices."""
+# per-layer self-KV dequantise steps of an int8 self cache (amax / 127 of
+# fresh K/V of about 0.3: some values clip), stored as the convert step
+# stores them
+KV_STEP = np.asarray([[0.0021], [0.0034], [0.0027]], np.float32)
+KV_STATE = {**BLOCK_STATE, "attn.kv_orig_quant_scale": 1.0 / KV_STEP,
+            "attn.kv_quant_orig_scale": KV_STEP}
+
+
+def _plain_against_jax_kernel(int8_cross, s_self, seq, self_int8):
+    """The port's plain megakernel against the JAX kernel in interpret mode
+    on the same seeded inputs: (hidden, JAX hidden, fresh, JAX fresh)."""
     rs = np.random.RandomState(seq)
     x = rs.randn(1, D).astype(np.float32)
-    cache = (rs.randn(L, 1, 2, H, HD, s_self) * 0.5).astype(np.float32)
+    if self_int8:
+        cache = rs.randint(-128, 128, (L, 1, 2, H, HD, s_self)).astype(
+            np.int8)
+    else:
+        cache = (rs.randn(L, 1, 2, H, HD, s_self) * 0.5).astype(np.float32)
+    state = KV_STATE if self_int8 else BLOCK_STATE
     cross, scales = _cross(int8_cross)
-    jblobs = j_pack_decoder_blobs(BLOCK_STATE, **PACK_KW)
+    jblobs = j_pack_decoder_blobs(state, **PACK_KW)
     hid_j, fresh_j = j_fused_decoder_stack(
         jnp.asarray(x), jblobs, jnp.asarray(cache),
         jnp.asarray([seq], jnp.int32), SCALE, cross_cache=jnp.asarray(cross),
         cross_scale=None if scales is None else jnp.asarray(scales),
         head_dim=HD)
-    blobs = mk.pack_decoder_blobs(BLOCK_STATE, **PACK_KW)
+    blobs = mk.pack_decoder_blobs(state, **PACK_KW)
     mk.reset_launches()
     hid, fresh = mk.fused_decoder_stack(
         torch.from_numpy(x), blobs, torch.from_numpy(cache),
@@ -236,10 +246,35 @@ def test_plain_matches_jax_kernel(int8_cross, s_self, seq):
         head_dim=HD)
     assert mk.launches["decoder_megakernel"] == 0    # plain on the CPU
     assert hid.shape == (1, D) and fresh.shape == (L, 2, H, HD)
-    np.testing.assert_allclose(hid.numpy(), np.asarray(hid_j), rtol=RTOL,
-                               atol=ATOL)
-    np.testing.assert_allclose(fresh.numpy(), np.asarray(fresh_j),
-                               rtol=RTOL, atol=ATOL)
+    assert fresh.dtype == (torch.int8 if self_int8 else torch.float32)
+    return hid.numpy(), np.asarray(hid_j), fresh.numpy(), np.asarray(fresh_j)
+
+
+@pytest.mark.parametrize("int8_cross", [False, True])
+@pytest.mark.parametrize("s_self,seq", [(160, 1), (160, 5), (160, 130),
+                                        (448, 300)])
+def test_plain_matches_jax_kernel(int8_cross, s_self, seq):
+    """seq 130: one past the 128-column self chunk; seq 300 on a 448-column
+    cache: two of the port's 256-column attention slices."""
+    hid, hid_j, fresh, fresh_j = _plain_against_jax_kernel(
+        int8_cross, s_self, seq, self_int8=False)
+    np.testing.assert_allclose(hid, hid_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(fresh, fresh_j, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("s_self,seq", [(160, 1), (160, 5), (160, 130),
+                                        (448, 300)])
+def test_plain_matches_jax_kernel_int8_self(s_self, seq):
+    """The same cases over an int8 self cache with per-layer scales (the
+    JAX kernel's ``self_quant`` mode), with the int8 cross cache of the
+    recipes that use it: the fresh K/V bit-equal, the hidden state within
+    the float mode's tolerance."""
+    hid, hid_j, fresh, fresh_j = _plain_against_jax_kernel(
+        True, s_self, seq, self_int8=True)
+    assert fresh_j.dtype == np.int8
+    np.testing.assert_array_equal(fresh, fresh_j)
+    assert np.abs(fresh.astype(int)).max() > 64      # the range is used
+    np.testing.assert_allclose(hid, hid_j, rtol=RTOL, atol=ATOL)
 
 
 def _prefill_both(pdec, prompt, cross, scales):
@@ -402,8 +437,8 @@ def _mode_call(mode):
         kw["norm"] = "rmsnorm"
     elif mode == "silu":
         kw["act"] = "silu"
-    elif mode == "int8_self_kv":
-        cache = cache.to(torch.int8)
+    elif mode == "fp8_self_kv":
+        cache = cache.to(torch.float8_e4m3fn)
     elif mode == "gqa":
         cache = torch.zeros(L, 1, 2, 1, HD, 16)
     elif mode == "no_cross":
@@ -417,7 +452,7 @@ def _mode_call(mode):
 
 @pytest.mark.parametrize("mode", ["batch2", "tail", "start_index", "rope",
                                   "gated", "parallel", "rmsnorm", "silu",
-                                  "int8_self_kv", "gqa", "no_cross",
+                                  "fp8_self_kv", "gqa", "no_cross",
                                   "float_panels", "int4_panels"])
 def test_modes_outside_the_port_raise(mode):
     with pytest.raises(NotImplementedError):

@@ -56,19 +56,27 @@ MEL = (np.random.RandomState(7).randn(1, 80, 2 * DIMS["n_audio_ctx"])
        .astype(np.float32))
 
 
-def _jax_build(recipe, without_timestamps=False, **options):
+def _jax_build(recipe, without_timestamps=False, kv_step=None, jcfg=JCFG,
+               float_states=FLOAT_STATES, **options):
     """The JAX pipeline for ``recipe`` (and further ``DecodingOptions``),
     built as examples/whisper/wer_matrix.py builds it, and the quantised
-    numpy state dicts it was loaded from."""
+    numpy state dicts it was loaded from; ``kv8`` with the per-layer self-KV
+    steps ``kv_step``, another model with ``jcfg`` and its
+    ``float_states``."""
     parts = set(recipe.split("+")) - {"none"}
-    enc_sd, dec_sd, ckv_sd = (dict(s) for s in FLOAT_STATES)
+    enc_sd, dec_sd, ckv_sd = (dict(s) for s in float_states)
     qmode = (JQuantMode.use_weight_only() if "woq8" in parts
              else JQuantMode(0))
+    if "kv8" in parts:
+        qmode = qmode.set_int8_kv_cache()
+        t = np.asarray(kv_step, np.float32).reshape(-1, 1)
+        dec_sd["blocks.attn.kv_orig_quant_scale"] = 1.0 / t
+        dec_sd["blocks.attn.kv_quant_orig_scale"] = t
     sqenc = "sqenc" in parts
-    enc = JEncoder(JCFG, JQuantMode(0) if sqenc else qmode)
-    dec = JDecoder(JCFG, qmode, quantize_lm_head="lmq8" in parts)
+    enc = JEncoder(jcfg, JQuantMode(0) if sqenc else qmode)
+    dec = JDecoder(jcfg, qmode, quantize_lm_head="lmq8" in parts)
     ckv8 = "ckv8" in parts
-    ckv = JCrossAttnKV(JCFG, int8_output=ckv8, static_scale=ckv8)
+    ckv = JCrossAttnKV(jcfg, int8_output=ckv8, static_scale=ckv8)
     if qmode.is_weight_only():
         if not sqenc:
             enc, enc_sd = j_weight_only_quantize_state(enc, enc_sd, qmode)
@@ -88,7 +96,7 @@ def _jax_build(recipe, without_timestamps=False, **options):
                                                        device="cpu")
     dec.load_state_dict(dec_sd, strict=False)
     ckv.load_state_dict(ckv_sd)
-    pipe = JPipeline(JCFG, enc, dec, ckv,
+    pipe = JPipeline(jcfg, enc, dec, ckv,
                      JOptions(language="en", sample_len=SAMPLE_LEN,
                               without_timestamps=without_timestamps,
                               **options),
@@ -226,8 +234,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     with head dim 64 as on the card (the decoder path cut to 2 layers of
     width 256, vocab 97; the serve path is rehearsed on its own in
     ``test_torch_serving.py``, the custom path in
-    ``test_torch_custom_kernel.py`` and the probes path in
-    ``test_torch_megakernel_probes.py``, and all three are stubbed here): model
+    ``test_torch_custom_kernel.py``, the probes path in
+    ``test_torch_megakernel_probes.py`` and the kv8 paths in
+    ``test_torch_kv8.py``, and all four are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -256,6 +265,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     monkeypatch.setattr(smoke, "probes_path", lambda *a, **k: (
         {}, {"probe_flat_gemv": 0, "probe_hm_gemv": 0, "probe_relayout": 0,
              "probe_pair_proj": 0}))
+    monkeypatch.setattr(smoke, "kv8_paths", lambda *a, **k: (
+        {}, {"decoder_megakernel": 0}, {}, {"decode_attention_int8": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

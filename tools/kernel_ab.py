@@ -466,7 +466,9 @@ def main(argv=None):
                     p_fc1=pan["fc1"], p_fc2=pan["fc2"],
                     f_dense=slots["dense"], f_crossdense=slots["crossdense"],
                     f_fc1=slots["fc1"], f_fc2=slots["fc2"], cross_int8=1,
-                    ring_bytes=0, scale=64 ** -0.5, eps=1e-5, **plan)
+                    ring_bytes=0, scale=64 ** -0.5, eps=1e-5,
+                    # this checkout's int8 self mode, off: the bf16 step
+                    self_int8=0, kv_oq=None, kv_qo=None, **plan)
         cls = defs["_MegaArgs"]
         fields = []
         for name, typ in cls._fields_:

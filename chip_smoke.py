@@ -42,7 +42,18 @@
    megakernel's int8 self mode (one launch a step; utt/s, the slope, the
    step's wall, busy and idle share) and layer by layer at full depth
    (kernel 1's self calls over the int8 cache), each replayed against the
-   plain scanned path.  Then the layer-by-layer (scanned) path,
+   plain scanned path.  Then on the same model the detect, long and
+   best_of paths: ``detect_language`` on the seeded window (the
+   probabilities summing to 1, the top 3, the step's time);
+   ``transcribe_long`` with the language detected in each window over 75 s
+   of seeded audio (a tone and noise), without timestamps and EOT
+   suppressed, so exactly 3 windows of 30, 30 and 15 s, each 40 tokens
+   through the megakernel (windows, audio seconds per wall second, ms per
+   window, the launches of kernel 2 and the megakernel); one window
+   sampled with ``temperature=1.0`` and ``best_of=5`` (five rows layer by
+   layer through kernel 1 at batch 5, two runs of one seed equal, the first
+   steps replayed against the plain path, utt/s best of 3).  Then the
+   layer-by-layer (scanned) path,
    ``decode_megakernel=False``, at the same widths with the depth cut to
    8+8 layers and the recipe without ``sqenc`` (its encoder takes the
    bf16 flash entry).  Then the beam
@@ -225,6 +236,10 @@ PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "decoder_megakernel_int8_self": "decoder_megakernel",
               "decode_attention_int8_self": "decode_attention_int8"}
+# the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
+# of 30, 30 and 15 s); the best_of path's sampled rows an utterance
+LONG_WINDOWS = 2.5
+BEST_OF = 5
 # the main path's recipe with the int8 self-KV cache
 KV8_RECIPE = "woq8+kv8+ckv8+lmq8+sqenc"
 # the decoder-only path under woq8+kv8: SantaCoder-1B's widths at this depth
@@ -2268,14 +2283,15 @@ def wall_s(torch, device, fn):
 
 
 def whisper_pipeline(built, decode_megakernel, sample_len=SAMPLE_LEN,
-                     **options):
+                     language="en", **options):
     """The pipeline over ``built``'s model (from :func:`build_whisper`),
     with EOT suppressed so every run decodes the full ``sample_len`` tokens
-    (the JAX bench gets the same effect from zero weights); ``options``
-    are further ``DecodingOptions`` (beam_size, prompt)."""
+    (the JAX bench gets the same effect from zero weights); ``language``
+    None detects it; ``options`` are further ``DecodingOptions``
+    (beam_size, prompt, temperature, best_of, without_timestamps)."""
     from eddie_wang_hackathon2023_tpu_torch.models.whisper.pipeline import (
         DecodingOptions, WhisperPipeline)
-    opts = DecodingOptions(language="en", sample_len=sample_len,
+    opts = DecodingOptions(language=language, sample_len=sample_len,
                            suppress_tokens=f"-1,{TOK_EOT}", **options)
     return WhisperPipeline(built["config"], built["enc"], built["dec"],
                            built["ckv"], opts,
@@ -2307,6 +2323,11 @@ def counted(torch, device, mods, fn):
     for m in mods:
         counts.update(m.launches)
     return res, counts
+
+
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def replay_logits(torch, dec, calls, rows, plain, n_calls):
@@ -2751,6 +2772,174 @@ def kv8_paths(torch, np, built, device="cuda"):
     return e2e, counts, scan_e2e, scan_counts
 
 
+def long_audio(np, config):
+    """Seeded 16 kHz audio of LONG_WINDOWS windows of ``config`` (75 s on
+    large-v2): a 440 Hz tone and noise."""
+    from eddie_wang_hackathon2023_tpu_torch.audio import (HOP_LENGTH,
+                                                          SAMPLE_RATE)
+    n = int(LONG_WINDOWS * 2 * config.n_audio_ctx * HOP_LENGTH)
+    t = np.arange(n, dtype=np.float64) / SAMPLE_RATE
+    noise = np.random.default_rng(SEED + 2).standard_normal(n)
+    return (0.1 * np.sin(2 * np.pi * 440.0 * t) + 0.05 * noise).astype(
+        np.float32)
+
+
+def long_paths(torch, np, built, device="cuda"):
+    """The detect, long and best_of paths on the main path's model
+    (``built``, from :func:`build_whisper`), each with the launch counts
+    of its run:
+
+    * detect: ``detect_language`` on the seeded window (one ``[sot]``
+      step through the layer-by-layer decoder), its probabilities summing
+      to 1, the step's time;
+    * long: ``transcribe_long`` with the language detected in each window,
+      over LONG_WINDOWS windows of seeded audio, without timestamps and
+      with EOT suppressed, so that it is exactly 3 windows (30 + 30 + 15 s
+      on large-v2), each decoding SAMPLE_LEN tokens through the megakernel
+      (with random weights and timestamps on, a seek of 2 frames a window
+      could take thousands of windows);
+    * best_of: one window, ``temperature=1.0``, ``best_of=BEST_OF``, EOT
+      suppressed: BEST_OF rows layer by layer (kernel 1 at batch BEST_OF),
+      two runs with the same seed sampling the same tokens, the first
+      steps replayed through the plain scanned path.
+
+    Returns (long numbers, counts, best_of numbers, counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.audio import (HOP_LENGTH,
+                                                          SAMPLE_RATE)
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.text.languages import LANGUAGES
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    dm = None if on_card else True
+    config, mel, enc, dec = (built["config"], built["mel"], built["enc"],
+                             built["dec"])
+    mods = (da, fa, mk)
+    n_layer = config.n_text_layer
+    entry = ("flash_attention_f32" if "sqenc" in built["recipe"]
+             else "flash_attention")
+
+    pipe = whisper_pipeline(built, dm, language=None,
+                            without_timestamps=True)
+    check(pipe._megakernel_blobs(1) is not None,
+          "[long] each window decodes through the megakernel")
+    with torch.inference_mode():
+        xa = pipe.get_audio_features(mel)
+        ckv = pipe.precompute_cross_kv(xa)
+    pipe.detect_language(xa, ckv)
+    (langs, probs), det_counts = counted(
+        torch, dev, mods, lambda: pipe.detect_language(xa, ckv))
+    p = probs[0]
+    total = sum(p.values())
+    check(langs[0] in LANGUAGES and abs(total - 1.0) < 1e-3
+          and all(np.isfinite(v) for v in p.values()),
+          "[detect] a language, its probabilities summing to 1 (1e-3)")
+    top3 = sorted(p.items(), key=lambda kv: -kv[1])[:3]
+    detect_ms = min(wall_s(torch, dev, lambda: pipe._detect(ckv))
+                    for _ in range(5)) * 1e3
+    print(f"[detect] {langs[0]}; top 3 " + ", ".join(
+        f"{c} {v:.5f}" for c, v in top3) + f"; sum {total:.6f}; the step "
+          f"{detect_ms:.3f} ms (best of 5); launches {nonzero(det_counts)}")
+
+    audio = long_audio(np, config)
+    seconds = audio.size / SAMPLE_RATE
+    windows = []
+    hook = enc.register_forward_pre_hook(lambda mod, args: windows.append(
+        args[0].shape[-1]))
+    try:
+        pipe.transcribe_long(audio)                      # warm-up
+        windows.clear()
+        out, counts = counted(torch, dev, mods,
+                              lambda: pipe.transcribe_long(audio))
+        n_win = len(windows)
+        walls = [wall_s(torch, dev, lambda: pipe.transcribe_long(audio))
+                 for _ in range(3)]
+    finally:
+        hook.remove()
+    n_frames = 2 * config.n_audio_ctx
+    window_s = n_frames * HOP_LENGTH / SAMPLE_RATE
+    check(n_win == 3 and windows[:3] == [n_frames] * 3
+          and pipe.decode_steps == SAMPLE_LEN - 1,
+          f"[long] 3 windows of {n_frames} frames, each decoding "
+          f"{SAMPLE_LEN} tokens")
+    segs = out["segments"]
+    check(set(out) == {"text", "segments", "language"}
+          and out["language"] in LANGUAGES and isinstance(out["text"], str)
+          and len(segs) <= 3
+          and all(abs(s["start"] / window_s - round(s["start"] / window_s))
+                  < 1e-9 and s["start"] < s["end"] <= seconds + 1e-9
+                  for s in segs),
+          "[long] the result: text, a segment a window, the language")
+    if on_card:
+        check(counts[entry] == n_win * config.n_audio_layer
+              and counts["decoder_megakernel"] == n_win * (SAMPLE_LEN - 1)
+              and counts[entry] > 0 and counts["decoder_megakernel"] > 0,
+              f"[long] {entry} launched {config.n_audio_layer} times and "
+              f"the megakernel {SAMPLE_LEN - 1} times a window")
+    best = min(walls)
+    print(f"[long] {seconds:.1f} s of audio, {n_win} windows, language "
+          f"{out['language']}, {len(segs)} segments; best of 3: "
+          f"{best * 1e3:.1f} ms ({', '.join(f'{w * 1e3:.1f}' for w in walls)}"
+          f"), {seconds / best:.2f} audio s per wall s, "
+          f"{best / n_win * 1e3:.1f} ms per window; launches: {entry} "
+          f"{counts[entry]}, megakernel {counts['decoder_megakernel']}, "
+          f"all {nonzero(counts)}")
+    long_e2e = dict(
+        seconds=seconds, windows=n_win, language=out["language"],
+        segments=len(segs), ms=best * 1e3, ms_runs=[w * 1e3 for w in walls],
+        audio_s_per_wall_s=seconds / best, ms_per_window=best / n_win * 1e3,
+        detect_language=langs[0], detect_top3=top3, detect_ms=detect_ms,
+        detect_prob_sum=total, detect_launches=det_counts,
+        launches=nonzero(counts))
+    del pipe
+
+    bpipe = whisper_pipeline(built, dm, temperature=1.0, best_of=BEST_OF)
+    check(bpipe.n_group == BEST_OF and bpipe._megakernel_blobs(BEST_OF)
+          is None, f"[best_of] {BEST_OF} rows an utterance, layer by layer")
+    first = []
+    calls = recorded_calls(dec, lambda: first.append(
+        bpipe.transcribe(mel, seed=SEED)[0]))
+    res, bcounts = counted(torch, dev, mods,
+                           lambda: bpipe.transcribe(mel, seed=SEED)[0])
+    steps = bpipe.decode_steps
+    check(res.tokens == first[0].tokens and len(res.tokens) == SAMPLE_LEN
+          and all(0 <= t < config.n_vocab for t in res.tokens)
+          and np.isfinite(res.avg_logprob),
+          f"[best_of] {SAMPLE_LEN} tokens, the same with the same seed")
+    if on_card:
+        n_calls = n_layer * steps
+        check(bcounts["decode_attention_int8"] == n_calls
+              and bcounts["decode_attention_bf16"] == n_calls
+              and bcounts["decoder_megakernel"] == 0
+              and bcounts[entry] == config.n_audio_layer
+              and bcounts["decode_attention_int8"] > 0,
+              f"[best_of] kernel 1 launched {n_layer} times a step for "
+              f"the cross and for the self attention of {BEST_OF} rows, no "
+              "megakernel")
+    n_check = 8
+    with torch.inference_mode():
+        lk, lp = (replay_logits(torch, dec, calls, BEST_OF, plain,
+                                1 + n_check) for plain in (False, True))
+    e_lg = rel_err(lk, lp)
+    check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
+          "[best_of] teacher-forced logits agree with the plain scanned "
+          "path (rel 5e-2 of max |logit|)")
+    bwalls = [wall_s(torch, dev, lambda: bpipe.transcribe(mel, seed=SEED))
+              for _ in range(3)]
+    bbest = min(bwalls)
+    print(f"[best_of] {BEST_OF} rows, temperature 1.0: {1 / bbest:.4f} utt/s"
+          f" ({bbest * 1e3:.1f} ms per utterance, best of 3: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in bwalls)}); {steps} decode "
+          f"steps; teacher-forced logits rel err {e_lg:.3e}; launches "
+          f"{nonzero(bcounts)}")
+    best_e2e = dict(best_of=BEST_OF, temperature=1.0, utt_per_s=1 / bbest,
+                    ms_per_utt=bbest * 1e3,
+                    ms_runs=[w * 1e3 for w in bwalls], decode_steps=steps,
+                    logits_rel_err=e_lg, launches=nonzero(bcounts))
+    return long_e2e, counts, best_e2e, bcounts
+
+
 def santacoder_1b_config():
     """SantaCoder-1B as the JAX package's ``benchmarks/benchmark.py``
     defines it (gpt_bigcode topology, one KV head), bf16, int8 weight-only
@@ -3185,7 +3374,8 @@ def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the custom path on the main path's model, then the kv8 paths on it
-    (:func:`kv8_paths`), then the scanned path
+    (:func:`kv8_paths`), then the detect, long and best_of paths on it
+    (:func:`long_paths`), then the scanned path
     (decode_megakernel=False, recipe without sqenc, depth cut to
     SCANNED_DEPTH layers to keep the run short), then the beam path
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
@@ -3216,6 +3406,8 @@ def paths(torch, np, results, config=None, device="cuda",
         for k in ("utt_per_s", "slope_ms_per_token", "decoder_step_ms",
                   "device_busy_ms_per_step", "device_idle_share",
                   "peak_gib")))
+    long_e2e, long_counts, best_e2e, best_counts = long_paths(
+        torch, np, built, device=device)
     del built
     cut = dataclasses.replace(
         config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
@@ -3268,7 +3460,8 @@ def paths(torch, np, results, config=None, device="cuda",
                   scanned=scan_counts, beam=beam_counts, decoder=dec_counts,
                   decoder_woq4=woq4_counts, serve=serve_counts,
                   probes=probes_counts, kv8=kv8_counts,
-                  kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts)
+                  kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
+                  long=long_counts, best_of=best_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -3277,7 +3470,8 @@ def paths(torch, np, results, config=None, device="cuda",
     return dict(main=main_e2e, custom=custom_e2e, scanned=scan_e2e,
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
                 serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
-                kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e)
+                kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
+                long=long_e2e, best_of=best_e2e)
 
 
 def example_run():

@@ -1,25 +1,33 @@
-"""Whisper transcription: encode -> cross-KV precompute -> prefill -> greedy
-or beam-search decode loop with Whisper's logit filters -> text.
+"""Whisper transcription: encode -> cross-KV precompute -> language
+detection -> prefill -> greedy, sampled or beam-search decode loop with
+Whisper's logit filters -> text; and long-form transcription over a
+sliding 30 s window.
 
-Port of the greedy and beam paths of the JAX package's
-``models/whisper/pipeline.py`` (``DecodingOptions``, the option checks,
-``_get_initial_tokens``, ``_get_suppress_tokens``, ``_apply_filters``,
-the greedy and beam branches of ``_generate_impl``, the ``n_group`` tiling
-of ``main_loop``, ``post_process`` with ``_maximum_likelihood_rank``,
-``transcribe``).  The JAX package runs the loop as one ``lax.while_loop``;
-here it is a Python loop over single-token decoder steps (at batch 1 on
-the card, each one megakernel launch for all layers, as the JAX package
-runs it on its accelerator).  Unlike the JAX loop it does not run the
-decoder once more after the last token is chosen (those logits were never
-read), so an utterance of n new tokens takes n - 1 decode steps.
+Port of the JAX package's ``models/whisper/pipeline.py``
+(``DecodingOptions``, the option checks, ``_get_initial_tokens``,
+``_get_suppress_tokens``, ``_apply_filters``, ``_detect_impl`` /
+``detect_language``, the greedy, sampled and beam branches of
+``_generate_impl``, the ``n_group`` tiling of ``main_loop``,
+``post_process`` with ``_maximum_likelihood_rank``, ``transcribe`` and
+``transcribe_long``).  The JAX package runs the loop as one
+``lax.while_loop``; here it is a Python loop over single-token decoder
+steps (at batch 1 on the card, each one megakernel launch for all layers,
+as the JAX package runs it on its accelerator).  Unlike the JAX loop it
+does not run the decoder once more after the last token is chosen (those
+logits were never read), so an utterance of n new tokens takes n - 1
+decode steps.  The JAX package's ``fused=`` variant of ``transcribe`` (one
+XLA program from mel to tokens) has no counterpart.
 
-Beam search (``beam_size``): each audio's ``beam_size`` rows expand
-jointly by cumulative log-probability; the KV cache stays put and a
+Sampling (``temperature > 0``) draws each token as argmax(logits / T +
+Gumbel noise), which is what ``jax.random.categorical`` computes; the
+noise comes from a ``torch.Generator`` on the pipeline's device seeded
+with ``seed`` (the port cannot reproduce ``jax.random``'s streams).
+``best_of`` decodes ``best_of`` sampled rows per audio and keeps the most
+likely.  Beam search (``beam_size``): each audio's ``beam_size`` rows
+expand jointly by cumulative log-probability; the KV cache stays put and a
 ``[n_audio, beam, n_text_ctx]`` cache-indirection table, advanced each
 step, tells the decode attention which row wrote each position; tokens and
-the timestamp-filter state are reordered by parent.  ``best_of``, sampling
-(``temperature > 0``), language detection and long-form transcription are
-not ported yet: the language must be given.
+the timestamp-filter state are reordered by parent.
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ...audio.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_spectrogram
 from ...runtime.sampling import (beam_search_step, gather_beams,
                                  update_indirection)
+from ...text.languages import LANGUAGES
 from ...text.tokenizer import get_tokenizer
 from .config import WhisperConfig
 from .model import CrossAttnKV, WhisperDecoder, WhisperEncoder
@@ -104,7 +114,7 @@ class WhisperPipeline:
         decoder's weights are on a CUDA card, off on the CPU (the JAX
         package's default is on its accelerator only); False keeps the
         layer-by-layer path."""
-        # the JAX package's option checks, then what the port lacks
+        # the JAX package's option checks
         if options.beam_size is not None and options.best_of is not None:
             raise ValueError("beam_size and best_of can't be given together")
         if options.temperature == 0 and options.best_of is not None:
@@ -116,15 +126,10 @@ class WhisperPipeline:
                 "patience != 1 is not supported (finished beams are kept "
                 "in-beam with frozen scores; extra finished-candidate "
                 "collection is not implemented)")
-        if options.language is None:
-            raise NotImplementedError(
-                "language detection is not ported yet: give a language")
-        if options.best_of is not None or options.temperature != 0:
-            raise NotImplementedError("sampling (temperature > 0, best_of) "
-                                      "is not ported yet")
-        # rows per audio (the JAX package's beam and n_group, which differ
-        # only with best_of); beam_size 1 is greedy
+        # beam rows per audio (1: greedy or sampled), and rows per audio
+        # (differs from beam only with best_of)
         self.beam = options.beam_size or 1
+        self.n_group = options.beam_size or options.best_of or 1
         self.config = config
         self.encoder = encoder
         self.decoder = decoder
@@ -135,8 +140,9 @@ class WhisperPipeline:
                                   if decode_megakernel is None
                                   else decode_megakernel)
         self._mk_blobs = None
+        self._rng: Optional[torch.Generator] = None
         self.tokenizer = get_tokenizer(config.n_vocab >= 51865,
-                                       language=options.language,
+                                       language=options.language or "en",
                                        task=options.task)
         tok = self.tokenizer
         self.sample_len = options.sample_len or config.n_text_ctx // 2
@@ -156,6 +162,8 @@ class WhisperPipeline:
         blank[tok.encode(" ") + [tok.eot]] = NEG_INF
         self._blank_mask = blank.to(self.device)
         self._col = torch.arange(v, device=self.device)[None, :]
+        self._lang_ids = torch.tensor(tok.all_language_tokens,
+                                      device=self.device)
         self.max_initial_timestamp_index = 0
         if options.max_initial_timestamp:
             precision = CHUNK_LENGTH / config.n_audio_ctx
@@ -252,11 +260,49 @@ class WhisperPipeline:
             self._mk_blobs = self.decoder.megakernel_blobs()
         return self._mk_blobs
 
+    def _gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel noise [shape] fp32 from the pipeline's generator
+        (seeded by :meth:`main_loop`), one draw for each sampled step."""
+        u = torch.rand(shape, generator=self._rng, device=self.device)
+        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+    @torch.inference_mode()
+    def _detect(self, cross_kv) -> torch.Tensor:
+        """One ``[sot]`` step over a fresh cache -> the softmax over the
+        language tokens' logits [B, 99] (the JAX package's
+        ``_detect_impl``)."""
+        b = (cross_kv[0] if isinstance(cross_kv, tuple) else cross_kv
+             ).shape[1]
+        cache = self.decoder.new_kv_cache(b)
+        x = torch.full((b, 1), self.tokenizer.sot, dtype=torch.long,
+                       device=self.device)
+        logits, _ = self.decoder(x, cache, cross_kv, 0, 1)
+        return torch.softmax(logits[:, 0, self._lang_ids].float(), dim=-1)
+
+    def detect_language(self, audio_features, cross_kv=None
+                        ) -> Tuple[List[str], Optional[List[Dict]]]:
+        """-> (the most likely language code of each audio, each audio's
+        {code: probability}); with a language given (and a task other than
+        ``lang_id``), that language and None."""
+        n_audio = audio_features.shape[0]
+        if (self.options.language is not None
+                and self.options.task != "lang_id"):
+            return [self.options.language] * n_audio, None
+        if cross_kv is None:
+            cross_kv = self.precompute_cross_kv(audio_features)
+        lang_probs = self._detect(cross_kv).cpu().numpy()
+        codes = self.tokenizer.all_language_codes
+        probs = [{c: float(lang_probs[i, j]) for j, c in enumerate(codes)}
+                 for i in range(lang_probs.shape[0])]
+        return [max(p, key=p.get) for p in probs], probs
+
     @torch.inference_mode()
     def _generate(self, init_tokens: torch.Tensor, cross_kv, prompt_len: int,
                   max_new: int):
-        """Greedy or beam-search decode.  init_tokens [B, prompt_len], in
-        groups of ``beam`` rows per audio with beams -> (tokens
+        """Greedy, sampled or beam-search decode.  init_tokens [B,
+        prompt_len], in groups of ``n_group`` rows per audio with beams or
+        ``best_of`` -> (tokens
         [B, prompt_len + max_new], cur_len, sum_logprobs [B],
         no_speech_probs [B]); with beams each row is one beam, its tokens
         its whole history."""
@@ -316,7 +362,12 @@ class WhisperPipeline:
                 finished = fin.reshape(b)
                 sum_lp = cum.reshape(b)
             else:
-                next_tok = torch.argmax(logits, dim=-1)
+                if self.options.temperature == 0:
+                    next_tok = torch.argmax(logits, dim=-1)
+                else:
+                    next_tok = torch.argmax(
+                        logits / self.options.temperature
+                        + self._gumbel(logits.shape), dim=-1)
                 cur_lp = logprobs[bidx, next_tok]
                 sum_lp = sum_lp + torch.where(finished, 0.0, cur_lp)
                 was_finished = finished
@@ -351,26 +402,39 @@ class WhisperPipeline:
     def precompute_cross_kv(self, audio_features: torch.Tensor):
         return self.cross_kv(audio_features)
 
-    def main_loop(self, audio_features, cross_kv=None):
+    def main_loop(self, audio_features, cross_kv=None, seed: int = 0,
+                  languages: Optional[List[str]] = None):
         """-> (tokens [R, T] np, lengths [R], sum_logprobs [R],
-        no_speech_probs [R]), R = n_audio * beam rows (each audio's beams
-        are consecutive)."""
+        no_speech_probs [R]), R = n_audio * n_group rows (each audio's rows
+        are consecutive).  ``languages`` (from :meth:`detect_language`)
+        fills each audio's language slot when no language was given;
+        ``seed`` seeds the sampling noise."""
         if cross_kv is None:
             cross_kv = self.precompute_cross_kv(audio_features)
-        rows = audio_features.shape[0] * self.beam
-        init = torch.tensor([list(self.initial_tokens)] * rows,
-                            dtype=torch.long, device=self.device)
-        if self.beam > 1:
-            # each audio's cross K/V once per row of its group (the int8
-            # cache is repeated, its per-layer scales are not)
+        init = np.tile(np.asarray(self.initial_tokens, np.int64),
+                       (audio_features.shape[0], 1))
+        if languages is not None and self.options.language is None:
+            for i, lang in enumerate(languages):
+                init[i, self.sot_index + 1] = (self.tokenizer.sot + 1
+                                               + list(LANGUAGES).index(lang))
+        g = self.n_group
+        if g > 1:
+            # each audio's rows and its cross K/V once per row of its group
+            # (the int8 cache is repeated, its per-layer scales are not)
+            init = np.repeat(init, g, axis=0)
             if isinstance(cross_kv, tuple):
-                cross_kv = (cross_kv[0].repeat_interleave(self.beam, dim=1),
+                cross_kv = (cross_kv[0].repeat_interleave(g, dim=1),
                             cross_kv[1])
             else:
-                cross_kv = cross_kv.repeat_interleave(self.beam, dim=1)
+                cross_kv = cross_kv.repeat_interleave(g, dim=1)
+        self._rng = None
+        if self.options.temperature > 0:
+            self._rng = torch.Generator(device=self.device)
+            self._rng.manual_seed(seed)
         tokens, cur, sum_lp, ns = self._generate(
-            init, cross_kv, len(self.initial_tokens), self.sample_len)
-        lengths = np.full((rows,), cur, np.int32)
+            torch.from_numpy(init).to(self.device), cross_kv,
+            len(self.initial_tokens), self.sample_len)
+        lengths = np.full((init.shape[0],), cur, np.int32)
         return (tokens.cpu().numpy(), lengths, sum_lp.cpu().numpy(),
                 ns.cpu().numpy())
 
@@ -384,9 +448,9 @@ class WhisperPipeline:
         tok = self.tokenizer
         if audio_features is not None:
             audio_features = audio_features.float().cpu().numpy()
-        g = self.beam
+        g = self.n_group
         if g > 1:
-            # rank each audio's beams and keep the best
+            # rank each audio's rows (beams or samples) and keep the best
             n_audio = tokens.shape[0] // g
             groups_t, groups_lp = [], []
             for i in range(n_audio):
@@ -428,12 +492,84 @@ class WhisperPipeline:
             ))
         return results
 
-    def transcribe(self, mel, keep_audio_features: bool = False
+    def transcribe(self, mel, seed: int = 0,
+                   keep_audio_features: bool = False
                    ) -> List[DecodingResult]:
-        """A batch of 30 s mel windows [B, n_mels, 3000] -> results."""
+        """A batch of 30 s mel windows [B, n_mels, 3000] -> results: encode,
+        cross-KV, language detection, then the decode loop (``seed``: the
+        sampling noise's)."""
         xa = self.get_audio_features(mel)
         cross_kv = self.precompute_cross_kv(xa)
-        tokens, lengths, sum_lp, ns = self.main_loop(xa, cross_kv)
-        languages = [self.options.language] * xa.shape[0]
+        languages, _ = self.detect_language(xa, cross_kv)
+        tokens, lengths, sum_lp, ns = self.main_loop(xa, cross_kv, seed,
+                                                     languages=languages)
         return self.post_process(tokens, lengths, sum_lp, ns, languages,
                                  xa if keep_audio_features else None)
+
+    def transcribe_long(self, audio, seed: int = 0) -> Dict:
+        """Long-form transcription: a window of 2 * n_audio_ctx mel frames
+        (30 s on large-v2) slides over the clip, each decoded by
+        :meth:`transcribe` and moved on by its last consecutive timestamp
+        pair (the whole window when it has none).
+
+        audio: 1-D float waveform at 16 kHz (any length).
+        Returns {"text", "segments": [{start, end, text}], "language"}."""
+        tok = self.tokenizer
+        ts_begin = tok.timestamp_begin
+        mel = log_mel_spectrogram(audio, device=self.device)     # [80, T]
+        n_frames_total = mel.shape[-1]
+        n_frames = 2 * self.config.n_audio_ctx
+        input_stride = 2                    # mel frames per audio position
+        time_precision = input_stride * HOP_LENGTH / SAMPLE_RATE
+        seek = 0
+        segments: List[Dict] = []
+        language = self.options.language or "en"
+        while seek < n_frames_total:
+            window = mel[:, seek:seek + n_frames]
+            pad = n_frames - window.shape[-1]
+            if pad > 0:
+                window = torch.nn.functional.pad(window, (0, pad))
+            time_offset = seek * HOP_LENGTH / SAMPLE_RATE
+            result = self.transcribe(window[None], seed=seed)[0]
+            language = result.language
+            tokens = np.asarray(result.tokens, np.int64)
+            is_ts = tokens >= ts_begin
+            # a consecutive timestamp pair closes a segment and opens the
+            # next; each slice ends at the first timestamp of a pair
+            consecutive = np.where(is_ts[:-1] & is_ts[1:])[0] + 1
+            if len(consecutive):
+                last_slice = 0
+                for c in consecutive:
+                    seg = tokens[last_slice:c]
+                    ts_in = seg[seg >= ts_begin]
+                    if len(ts_in) >= 2:
+                        segments.append(dict(
+                            start=time_offset + float(ts_in[0] - ts_begin)
+                            * time_precision,
+                            end=time_offset + float(ts_in[-1] - ts_begin)
+                            * time_precision,
+                            text=tok.decode([int(t) for t in seg
+                                             if t < tok.eot]).strip()))
+                    last_slice = c
+                seek_units = int(tokens[consecutive[-1]] - ts_begin)
+                # a pair at 0 would not move the window: take all of it
+                seek += (seek_units * input_stride if seek_units > 0
+                         else n_frames)
+            else:
+                # no closing pair: the whole window is consumed; trailing
+                # timestamps give the segment's end where there are any
+                ts_in = tokens[is_ts]
+                end = (time_offset + float(ts_in[-1] - ts_begin)
+                       * time_precision if len(ts_in)
+                       else time_offset + min(
+                           n_frames, n_frames_total - seek) * HOP_LENGTH
+                       / SAMPLE_RATE)
+                text = tok.decode([int(t) for t in tokens
+                                   if t < tok.eot]).strip()
+                if text:
+                    segments.append(dict(start=time_offset, end=end,
+                                         text=text))
+                seek += n_frames
+        return dict(text=" ".join(t for t in (s["text"] for s in segments)
+                                  if t).strip(),
+                    segments=segments, language=language)

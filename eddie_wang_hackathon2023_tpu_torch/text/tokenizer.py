@@ -1,9 +1,9 @@
 """Whisper tokenizer without tiktoken.
 
 The GPU machine has neither ``tiktoken`` nor ``regex``.  This tokenizer
-reads the same rank files as the JAX package's (``<base64 bytes> <rank>``
-per line, in ``eddie_wang_hackathon2023_tpu/assets/``, read by path) and
-adds Whisper's special tokens after them in the same order.
+reads the port's own copies of the JAX package's rank files
+(``<base64 bytes> <rank>`` per line, in ``../assets/``) and adds Whisper's
+special tokens after them in the same order.
 
 * ``decode`` concatenates the tokens' bytes (invalid UTF-8 replaced, as
   tiktoken does).
@@ -24,8 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .languages import LANGUAGES, TO_LANGUAGE_CODE
 
-ASSET_DIR = (Path(__file__).resolve().parents[2]
-             / "eddie_wang_hackathon2023_tpu" / "assets")
+ASSET_DIR = Path(__file__).resolve().parents[1] / "assets"
 
 
 def _special_token_names() -> List[str]:
@@ -133,6 +132,22 @@ class Tokenizer:
         ids = [int(t) for t in token_ids if int(t) < self.timestamp_begin]
         return self.encoding.decode(ids)
 
+    def decode_with_timestamps(self, token_ids) -> str:
+        """The text with each timestamp token written as ``<|1.08|>``."""
+        parts: List[str] = []
+        run: List[int] = []
+        for t in (int(x) for x in token_ids):
+            if t >= self.timestamp_begin:
+                if run:
+                    parts.append(self.encoding.decode(run))
+                    run = []
+                parts.append(f"<|{(t - self.timestamp_begin) * 0.02:.2f}|>")
+            else:
+                run.append(t)
+        if run:
+            parts.append(self.encoding.decode(run))
+        return "".join(parts)
+
     @cached_property
     def eot(self) -> int:
         return self.special_tokens["<|endoftext|>"]
@@ -168,6 +183,20 @@ class Tokenizer:
     @cached_property
     def timestamp_begin(self) -> int:
         return self.special_tokens["<|0.00|>"]
+
+    @cached_property
+    def language_token(self) -> int:
+        if self.language is None:
+            raise ValueError("tokenizer has no language specified")
+        return self.sot + 1 + list(LANGUAGES).index(self.language)
+
+    @cached_property
+    def all_language_tokens(self) -> Tuple[int, ...]:
+        return tuple(self.sot + 1 + i for i in range(len(LANGUAGES)))
+
+    @cached_property
+    def all_language_codes(self) -> Tuple[str, ...]:
+        return tuple(LANGUAGES)
 
     @cached_property
     def sot_sequence_including_notimestamps(self) -> Tuple[int, ...]:

@@ -301,10 +301,15 @@ def test_option_errors_match_jax(case):
 
 
 def test_sampling_options_are_not_ported():
-    """Sampling, which the JAX package takes, waits for its port."""
-    _, states = _jax_build("none")
+    """Sampling, which the JAX package takes, is ported now: the port takes
+    the options and decodes the JAX package's rows per audio
+    (``test_torch_whisper_pipeline.py`` holds the samples token-exact)."""
+    jpipe, states = _jax_build("none")
     mods = from_jax_state(*states, PCFG, recipe="none", device="cpu")
     for opts in (dict(temperature=0.5), dict(temperature=0.5, best_of=3)):
-        with pytest.raises(NotImplementedError):
-            WhisperPipeline(PCFG, *mods, DecodingOptions(language="en",
-                                                         **opts))
+        pipe = WhisperPipeline(PCFG, *mods, DecodingOptions(language="en",
+                                                            **opts))
+        ref = type(jpipe)(jpipe.config, jpipe.encoder, jpipe.decoder,
+                          jpipe.cross_kv,
+                          type(jpipe.options)(language="en", **opts))
+        assert (pipe.n_group, pipe.beam) == (ref.n_group, ref.beam)

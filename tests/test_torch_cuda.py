@@ -2256,3 +2256,38 @@ def test_probe_launch_failure_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         mp.probe_flat(blob, x, scales)
     assert mp.launches["probe_flat_gemv"] == before
+
+
+@pytest.fixture(scope="module")
+def whisper_2_layers():
+    """large-v2's widths cut to 2+2 layers, the bench recipe, seeded random
+    weights (``chip_smoke.build_whisper``); None without a card."""
+    if not torch.cuda.is_available():
+        return None, None
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        BENCH_RECIPE, whisper_config)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(whisper_config("large-v2", dtype="bfloat16"),
+                              n_audio_layer=2, n_text_layer=2)
+    return smoke, smoke.build_whisper(torch, np, cfg, torch.device("cuda"),
+                                      BENCH_RECIPE, "card")
+
+
+@pytest.mark.parametrize("best_of", [None, 3])
+def test_whisper_sampling_repeats_with_a_seed(dev, whisper_2_layers,
+                                              best_of):
+    """Sampling draws its noise from a generator on the card seeded by
+    ``seed``: the same seed samples the same tokens (at batch 1 through
+    the megakernel, with best_of layer by layer), another seed others."""
+    smoke, built = whisper_2_layers
+    pipe = smoke.whisper_pipeline(built, None, sample_len=12,
+                                  temperature=1.0, best_of=best_of)
+    assert (pipe._megakernel_blobs(pipe.n_group) is None) == bool(best_of)
+    runs = [pipe.transcribe(built["mel"], seed=s)[0].tokens
+            for s in (7, 7, 8)]
+    assert len(runs[0]) == 12
+    assert runs[0] == runs[1] and runs[0] != runs[2]

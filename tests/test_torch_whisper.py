@@ -235,8 +235,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     width 256, vocab 97; the serve path is rehearsed on its own in
     ``test_torch_serving.py``, the custom path in
     ``test_torch_custom_kernel.py``, the probes path in
-    ``test_torch_megakernel_probes.py`` and the kv8 paths in
-    ``test_torch_kv8.py``, and all four are stubbed here): model
+    ``test_torch_megakernel_probes.py``, the kv8 paths in
+    ``test_torch_kv8.py`` and the detect, long and best_of paths in
+    ``test_torch_whisper_pipeline.py``, and all five are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -267,6 +268,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
              "probe_pair_proj": 0}))
     monkeypatch.setattr(smoke, "kv8_paths", lambda *a, **k: (
         {}, {"decoder_megakernel": 0}, {}, {"decode_attention_int8": 0}))
+    monkeypatch.setattr(smoke, "long_paths", lambda *a, **k: ({}, {}, {},
+                                                               {}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

@@ -10,7 +10,8 @@
    ``tools/megakernel_probes.cu`` with nvcc (one process per source, in
    parallel).
 2. Holds every kernel of the main path against its plain PyTorch version
-   on the card, at the shapes the main path gives it, and times the
+   on the card, at the shapes the main path gives it (the beam entry also
+   at the gen_beam path's), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``, used nowhere in the port), the
    megakernel and kernel 1's self call also over an int8 self cache; the
@@ -75,7 +76,15 @@
    package's ``benchmarks/benchmark.py -m santacoder_1b --quant woq8`` runs
    it; each decode step runs the grouped decode kernel once per layer.
    Prints tokens/s, the decode step's wall and device-busy time and peak
-   memory.  Then the same decoder path with int4 weight-only weights
+   memory.  Then, on the same model and prompts, a sampled call: rows 0-1
+   greedy, the others at temperature 0.8 with their own top-k and top-p,
+   repetition and presence penalties and min_length, bad words and stop
+   words taken from earlier calls of the seed (none in the greedy rows'
+   output); its greedy rows must equal the greedy call's, a second call of
+   the seed its tokens, no bad word may end a row's output and a row
+   must finish after its first stop word; its replay is checked as the
+   greedy call's and its tokens/s printed beside them.  Then the same
+   decoder path with int4 weight-only weights
    (``--quant woq4``: groups of 128 rows, the same seeded float weights
    quantised again), each linear through the int4 dequant matmul kernel
    (four a layer in the prefill and in each step); its numbers are printed
@@ -91,7 +100,22 @@
    it; each decode tick runs the paged decode kernel once per layer.  Its
    teacher-forced check replays the recorded prefills and first ticks on a
    fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
-   wall and device-busy time and peak memory.
+   wall and device-busy time and peak memory.  Then the gen_beam path:
+   GPT-350M at ``benchmarks/beam_bench.py``'s defaults (24 layers, d 1024,
+   16 heads of 64, vocab 50257, 2048 positions, bf16, float weights),
+   beam 4 through the port's ``GenerationSession`` for one prompt of 1912
+   tokens (bucket 2048), 8 and 40 new tokens timed once each after a
+   warm-up, as ``beam_bench.py`` times them; each decode step runs the
+   beam entry of the decode kernel once per layer, reading the cache of
+   2088 columns through the indirection table.  Its every recorded step
+   is replayed against the plain path; prints the marginal ms a token,
+   the step's wall and device-busy time and peak memory, and the share of
+   the (row, column) pairs that the last step's table points at.  Then
+   ``beam_bench.py``'s other mode, the whole cache gathered by parent
+   every step (``use_cache_indirection=False``), kernel 1 serving each
+   step: its marginal ms a token beside the indirection run's, its
+   launches, and its tokens and beam scores beside the indirection
+   run's.
    Last the probes path: ``tools/megakernel_probe.py``,
    ``megakernel_probe2.py`` and ``megakernel_probe3.py`` (the counterparts
    of the JAX package's ``benchmarks/megakernel_probe{,2,3}.py``: seeded
@@ -163,6 +187,12 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:213"),
+    # the beam entry at the gen_beam path's shape (GPT-350M, beam 4, a
+    # cache of 2088 columns from 136 on), its own row
+    "beam_decode_attention_gen": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:213"),
     # kernel 1's cross-attention call at batch 5 on the beam path, its own
     # row: it reads the repeated int8 cross cache, 5 rows of 1500
     "decode_attention_int8_b5": dict(
@@ -211,8 +241,8 @@ KERNELS = {
 # the path that drives each kernel: the main path (the bench recipe, the
 # megakernel decode), the layer-by-layer path (decode_megakernel=False,
 # the recipe without sqenc, so the encoder takes the bf16 flash entry), the
-# beam path (beam 5, the recipe without sqenc), the decoder-only and serve
-# paths, the custom path (the main path's model with the user kernel
+# beam path (beam 5, the recipe without sqenc), the decoder-only, serve and
+# gen_beam paths, the custom path (the main path's model with the user kernel
 # installed, then without it and with a previous-text prompt), the kv8
 # paths (the main path's model with an int8 self cache, through the
 # megakernel and layer by layer), or the probes path (the three
@@ -223,6 +253,7 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
            "flash_attention": "scanned", "beam_decode_attention": "beam",
+           "beam_decode_attention_gen": "gen_beam",
            "decode_attention_int8_b5": "beam",
            "gqa_decode_attention": "decoder",
            "paged_decode_attention": "serve",
@@ -234,6 +265,7 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
 PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
+              "beam_decode_attention_gen": "beam_decode_attention",
               "decoder_megakernel_int8_self": "decoder_megakernel",
               "decode_attention_int8_self": "decode_attention_int8"}
 # the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
@@ -250,6 +282,13 @@ BEAM_SIZE = 5
 # the decoder path: benchmark.py's defaults (batch 8, 60 prompt tokens, 20
 # new ones)
 DEC_BATCH, DEC_PROMPT, DEC_NEW = 8, 60, 20
+# the decoder path's sampled call: rows 0-1 greedy, the others sampled with
+# these top-k and top-p (0: off), one seed
+SAMPLED_GREEDY_ROWS, SAMPLED_SEED = 2, 17
+SAMPLED_TOP_K = (1, 1, 0, 8, 40, 50, 0, 8)
+SAMPLED_TOP_P = (0.0, 0.0, 0.9, 0.0, 0.95, 0.9, 0.95, 0.0)
+# the gen_beam path: beam_bench.py's defaults (beam 4; 8 and 40 new tokens)
+GEN_BEAM_WIDTH, GEN_BEAM_NEW = 4, (8, 40)
 # the serve path: serve_bench.py's defaults (64 requests through 8 slots, 60
 # prompt tokens, 20 new ones, max_seq_len 128, 32 tokens per block)
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 64, 8, 60, 20
@@ -943,6 +982,7 @@ def kernel_phases(torch, results):
     del qkv32, q32, k32, v32, kc, vc, qc
     megakernel_phase(torch, results, gen)
     beam_phase(torch, results, gen)
+    gen_beam_kernel_phase(torch, results)
     gqa_phase(torch, results, gen)
     paged_phase(torch, results, gen)
     int4_phase(torch, results, gen)
@@ -1093,6 +1133,132 @@ def megakernel_phase(torch, results, gen):
         bf16=turns[0::2], int8=turns[1::2])
 
 
+def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
+    """Time the beam entry on one group at a path's shapes, rotating over
+    the cache's layers: its time, its plain version's (some 40 kernels a
+    call, so 10 calls fit in the launch queue behind the spin), and the
+    library's, SDPA over the K/V gathered through the table beforehand
+    with the fresh column appended (the gather, one layer, timed on its
+    own); its bound.  ``seq`` is ``n`` for every beam, ``start`` the first
+    valid column for all (None: 0)."""
+    L, bw, _, H, D, S = cache.shape
+    scale = D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lo = 0 if start is None else int(start[0])
+    kw = dict(fresh_kv=fresh, beam_indirection=ind, start_index=start)
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        cache, i % L, q, seq, scale, **kw))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_beam_decode_attention(
+        cache, i % L, q, seq, scale, **kw), iters=10)
+
+    def gather_kv(layer):
+        g = ind.shape[0]
+        idx = ind.long() + torch.arange(g, device=q.device)[:, None, None] \
+            * bw
+        c = cache[layer]
+        kv = torch.gather(c, 0, idx.reshape(g * bw, 1, 1, 1, S).expand(
+            c.shape))[..., lo:n - 1]                      # [bw,2,H,D,n-1-lo]
+        return tuple(torch.cat([kv[:, j], fresh[j]], dim=-1).transpose(
+            -1, -2).contiguous() for j in (0, 1))          # [bw,H,keys,D]
+
+    gather_ms, _ = time_ms(torch, lambda i: gather_kv(i % L), iters=10)
+    k_g, v_g = (torch.stack(t) for t in zip(*(gather_kv(i)
+                                               for i in range(L))))
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_g[i % L], v_g[i % L],
+                                              scale=scale))
+    lib_err = rel_err(sdpa(q, k_g[3], v_g[3], scale=scale),
+                      da.fused_decode_attention(cache, 3, q, seq, scale,
+                                                **kw))
+    del k_g, v_g
+    # bytes: the K and V of the (source row, valid column) pairs the table
+    # points at, q, the fresh K/V, the table's valid columns, the lengths
+    # (and starts), the output; operations: 4 per (query beam, valid key,
+    # d), on bf16 operands.  Beside it the bound with every source row read
+    # at every valid column (what this design stages)
+    cols = n - 1 - lo
+    item = cache.element_size()
+    pairs = table_pairs(torch, ind, lo, n - 1)
+    rows = q.shape[0]
+    rest = (rows * H * D * 2 + 2 * rows * H * D * item + rows * cols * 4
+            + rows * 4 * (1 if start is None else 2) + rows * H * D * 2)
+    flops = 4 * rows * H * D * (cols + 1)
+    n_bytes = 2 * H * D * item * pairs + rest
+    b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_TENSOR)
+    all_bytes = 2 * H * D * item * rows * cols + rest
+    all_ms, _ = bound(all_bytes, flops, PEAK_BF16_TENSOR)
+    plan = da.beam_plan(S, bw, D, item)
+    print(f"beam decode (beam {bw}, {H} heads, S={S}, seq {n}, start {lo}): "
+          f"plan {plan}; the table points at {pairs} of {rows * cols} "
+          f"(row, column) pairs")
+    print(f"beam decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
+          f"{b_by}, {n_bytes / 1e6:.3f} MB; every row at every column "
+          f"{all_ms * 1e3:.3f} us, {all_bytes / 1e6:.3f} MB); plain "
+          f"{plain_ms * 1e3:.2f} us; SDPA on the gathered K/V "
+          f"{lib_ms * 1e3:.2f} us (rel err vs the kernel {lib_err:.3e}) + "
+          f"the gather {gather_ms * 1e3:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_all_rows_ms=all_ms, table_pairs=pairs,
+                table_pair_share=pairs / (rows * cols),
+                library_ms=lib_ms, library_gather_ms=gather_ms,
+                host_call_ms=wall, plan=plan)
+
+
+def table_pairs(torch, ind, lo, hi):
+    """The distinct (source row, column) pairs that the indirection table
+    ``ind`` [groups, beams, S] points at in the columns [lo, hi): the K/V
+    that a beam step over those columns must read."""
+    g, bw, _ = ind.shape
+    hit = torch.zeros((g, bw, hi - lo), dtype=torch.bool, device=ind.device)
+    hit.scatter_(1, ind[..., lo:hi].long(), True)
+    return int(hit.sum())
+
+
+def gen_beam_kernel_phase(torch, results):
+    """The beam entry at the gen_beam path's shape (GPT-350M: 24 layers of
+    16 heads of 64, bf16, beam 4, a cache of 2088 columns, the prompt's
+    valid columns from 136, sequence 2068: the middle step of a 40-token
+    call) against its plain version, with a table whose rows change from
+    position to position; timed with its bound, the plain version's time
+    and the library's (:func:`beam_numbers`).  Its own generator keeps the
+    other phases' draws as they were."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    L, bw, H, D = 24, GEN_BEAM_WIDTH, 16, 64
+    S, lo, n = 2048 + GEN_BEAM_NEW[1], 136, 2048 + GEN_BEAM_NEW[1] // 2
+    scale = D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = randn(bw, H, 1, D)
+    cache = randn(L, bw, 2, H, D, S)           # 824 MB, past the 50 MB L2
+    fresh = (randn(bw, H, D, 1), randn(bw, H, D, 1))
+    ind = torch.randint(0, bw, (1, bw, S), generator=gen, device=dev,
+                        dtype=torch.int32)
+    seq = torch.full((bw,), n, dtype=torch.int32, device=dev)
+    start = torch.full((bw,), lo, dtype=torch.int32, device=dev)
+    kw = dict(fresh_kv=fresh, beam_indirection=ind, start_index=start)
+    out = da.fused_decode_attention(cache, 3, q, seq, scale, **kw)
+    ref = da.plain_beam_decode_attention(cache, 3, q, seq, scale, **kw)
+    ref32 = da.plain_beam_decode_attention(
+        cache[3:4].float(), 0, q.float(), seq, scale,
+        fresh_kv=tuple(t.float() for t in fresh), beam_indirection=ind,
+        start_index=start)
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    print(f"beam decode (gen_beam shape): rel err vs plain bf16 {e16:.3e}, "
+          f"vs fp32 {e32:.3e}")
+    check(e16 < 2e-2 and e32 < 1e-2,
+          f"beam decode attention (beam {bw}, {H} heads, S={S}, seq {n}, "
+          f"start {lo}) matches plain (rel 2e-2 bf16, 1e-2 fp32)")
+    results["beam_decode_attention_gen"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()),
+        rel_err_vs_plain=(e16, e32),
+        **beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start))
+
+
 def beam_phase(torch, results, gen):
     """The beam entry of the decode kernel at the beam path's shapes (beam
     5, 20 heads of 64, bf16 self cache of 448 at sequence 44, a table whose
@@ -1111,14 +1277,6 @@ def beam_phase(torch, results, gen):
     def table(groups):
         return torch.randint(0, bw, (groups, bw, S), generator=gen,
                              device=dev, dtype=torch.int32)
-
-    def gathered(c, ind):
-        """One layer's cache [B, 2, H, D, S] read through the table: the
-        reordered copy that the kernel never builds"""
-        g = ind.shape[0]
-        idx = ind.long() + torch.arange(g, device=dev)[:, None, None] * bw
-        return torch.gather(c, 0, idx.reshape(g * bw, 1, 1, 1, S).expand(
-            c.shape))
 
     q = randn(bw, H, 1, D)
     cache = randn(L, bw, 2, H, D, S)           # 367 MB, past the 50 MB L2
@@ -1166,49 +1324,10 @@ def beam_phase(torch, results, gen):
               f"beam decode attention ({what}, beam {bw}, S={S}) matches "
               "plain (rel 2e-2 bf16, 1e-2 fp32)")
     del c8, f8, q2, c2, f2
-    # timed at the path's shapes, rotating over the 32 layers; the plain
-    # version and the gather launch some 40 kernels a call, so 10 calls of
-    # them fit in the launch queue behind the spin
-    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
-        cache, i % L, q, seq, scale, fresh_kv=fresh, beam_indirection=ind))
-    plain_ms, _ = time_ms(torch, lambda i: da.plain_beam_decode_attention(
-        cache, i % L, q, seq, scale, fresh_kv=fresh, beam_indirection=ind),
-        iters=10)
-
-    # library: SDPA over K/V gathered through the table beforehand, the
-    # fresh column appended; the gather (one layer) is timed on its own
-    def gather_kv(layer):
-        kv = gathered(cache[layer], ind)[..., :n - 1]     # [bw,2,H,D,n-1]
-        return tuple(torch.cat([kv[:, j], fresh[j]], dim=-1).transpose(
-            -1, -2).contiguous() for j in (0, 1))          # [bw,H,n,D]
-
-    gather_ms, _ = time_ms(torch, lambda i: gather_kv(i % L), iters=10)
-    k_g, v_g = (torch.stack(t) for t in zip(*(gather_kv(i)
-                                               for i in range(L))))
-    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_g[i % L], v_g[i % L],
-                                              scale=scale))
-    lib_err = rel_err(sdpa(q, k_g[3], v_g[3], scale=scale), beam_call(
-        cache, 3, q, seq, fresh, ind, da.fused_decode_attention))
-    del k_g, v_g
-    # group-once bytes: the valid columns of the 5 rows' K and V, q, the
-    # fresh K/V, the table's valid columns, the lengths, the output;
-    # operations: 4 per (query beam, valid key, d), on bf16 operands
-    n_bytes = (2 * bw * H * D * (n - 1) * 2 + bw * H * D * 2
-               + 2 * bw * H * D * 2 + bw * (n - 1) * 4 + bw * 4
-               + bw * H * D * 2)
-    b_ms, b_by = bound(n_bytes, 4 * bw * H * D * n, PEAK_BF16_TENSOR)
-    # the plan the wrapper passes to the kernel at the path's shape
-    plan = da.beam_plan(S, bw, D, cache.element_size())
-    print(f"beam decode: plan {plan}")
-    print(f"beam decode: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, "
-          f"{b_by}, {n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; "
-          f"SDPA on the gathered K/V {lib_ms * 1e3:.2f} us (rel err vs the "
-          f"kernel {lib_err:.3e}) + the gather {gather_ms * 1e3:.2f} us")
+    nums = beam_numbers(torch, da, cache, q, seq, fresh, ind, n)
     first = errs["bf16, 1 group, seq 44"]
     results["beam_decode_attention"] = dict(
-        max_abs_err=first[2], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, library_gather_ms=gather_ms,
-        host_call_ms=wall, plan=plan,
+        max_abs_err=first[2], **nums,
         rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
     del cache
 
@@ -2983,7 +3102,7 @@ def random_decoder_state(torch, np, config, rng):
 
 
 def decoder_path(torch, np, config=None, device="cuda", label="decoder",
-                 float_state=None, kv_scales=None):
+                 float_state=None, kv_scales=None, sampled=False):
     """The decoder-only path on ``device``: ``config`` (default
     SantaCoder-1B, woq8) with random weights from the seed (``float_state``
     where given: :func:`random_decoder_state` of the config, quantised here
@@ -2992,7 +3111,8 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
     prompts of DEC_PROMPT tokens through the port's ``GenerationSession``,
     as the JAX package's ``benchmarks/benchmark.py`` runs it; the launch
     counts of one such call, the teacher-forced check against the plain path
-    and the timings.  A smaller ``config`` and the CPU rehearse it without a
+    and the timings; with ``sampled``, then :func:`sampled_run` on the
+    greedy call's prompts (its numbers under ``sampled``).  A smaller ``config`` and the CPU rehearse it without a
     card (the launch counts are then not checked).  Returns (numbers, with
     a float cache the per-layer amax of the cache after the prefill; launch
     counts)."""
@@ -3061,7 +3181,8 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
         torch.cuda.reset_peak_memory_stats()
     for m in (da, fa, mk, iq):
         m.reset_launches()
-    tokens, seq_lens, cum = sess.decode(prompts(), lens,
+    greedy_ids = prompts()
+    tokens, seq_lens, cum = sess.decode(greedy_ids, lens,
                                         max_new_tokens=DEC_NEW)
     counts = {**da.launches, **fa.launches, **mk.launches, **iq.launches}
     peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
@@ -3151,7 +3272,152 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
                logits_rel_err=e_lg, logits_argmax_agreement=agree,
                kv_amax_after_prefill=(None if kv_amax is None
                                       else kv_amax.tolist()))
+    if sampled:
+        e2e["sampled"] = sampled_run(torch, np, sess, model, c, greedy_ids,
+                                     lens, tokens, label, on_card)
+        print(f"[{label}] sampled beside greedy in this run: tokens/s "
+              f"{e2e['sampled']['tokens_per_s']:.2f} vs {tps:.2f}")
     return e2e, counts
+
+
+def sampled_config(SamplingConfig, bad=None, stop=None):
+    """The decoder path's sampled call: rows 0-1 greedy (temperature 0,
+    neutral penalties), the others at temperature 0.8 with their own top-k
+    and top-p, repetition penalty 1.1, presence penalty 0.2 and min_length
+    4; ``bad`` and ``stop`` words."""
+    greedy = [r < SAMPLED_GREEDY_ROWS for r in range(DEC_BATCH)]
+    return SamplingConfig(
+        end_id=-1, pad_id=0, temperature=[0.0 if g else 0.8 for g in greedy],
+        top_k=list(SAMPLED_TOP_K), top_p=list(SAMPLED_TOP_P),
+        repetition_penalty=[1.0 if g else 1.1 for g in greedy],
+        presence_penalty=[0.0 if g else 0.2 for g in greedy],
+        min_length=[0 if g else 4 for g in greedy],
+        bad_words_list=bad, stop_words_list=stop)
+
+
+def word_ends(seq, word, lo, hi):
+    """Positions p in [lo, hi) where ``seq`` ends with ``word`` at p."""
+    n = len(word)
+    return [p for p in range(max(lo, n - 1), hi)
+            if list(seq[p - n + 1:p + 1]) == list(word)]
+
+
+def pick_word(tokens, rows, steps, n, avoid):
+    """A word of ``n`` tokens that a row of ``rows`` generated ending at
+    one of ``steps`` (after DEC_PROMPT), found nowhere in the sequences
+    ``avoid`` (so that it changes none of them)."""
+    for r in rows:
+        for s in steps:
+            w = [int(t) for t in tokens[r, DEC_PROMPT + s - n + 1:
+                                        DEC_PROMPT + s + 1]]
+            if not any(word_ends(a, w, 0, len(a)) for a in avoid):
+                return w
+    raise SmokeFailure(f"no word of {n} tokens to pick from rows {rows}")
+
+
+def sampled_run(torch, np, sess, model, c, ids, lens, greedy, label, on_card):
+    """After the greedy call on ``ids`` (its tokens ``greedy``): the same
+    prompts with :func:`sampled_config` and SAMPLED_SEED.  The bad words
+    come from a call without words (a token of row 6, two tokens of row
+    4), the stop words from a call with the bad words (a token of row 3,
+    two tokens of row 5), none of them in the greedy rows' sequences.
+    Checks the greedy rows against the greedy call, a second call of the
+    seed, the bad words (none ends a row's output), the stop words (a row
+    is finished after the first it produces: its length ends there and
+    the end id follows), the launches (the grouped kernel once a layer and
+    step) and the teacher-forced replay; times the call (best of 3).
+    Returns its numbers."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (SamplingConfig,
+                                                            bucket_length)
+    device = model.vocab_embedding.weight.device
+
+    def call(sc):
+        return sess.decode(ids, lens, sc, max_new_tokens=DEC_NEW,
+                           seed=SAMPLED_SEED)
+
+    # a word of one or two tokens changes a greedy row only where it
+    # ends at one of its generated tokens
+    avoid = [greedy[r, 0, DEC_PROMPT - 1:]
+             for r in range(SAMPLED_GREEDY_ROWS)]
+    free = call(sampled_config(SamplingConfig))[0][:, 0]
+    bad = [pick_word(free, [6, 7, 5, 3], range(1, 6), 1, avoid),
+           pick_word(free, [4, 5, 2, 6], range(3, 8), 2, avoid)]
+    mid = call(sampled_config(SamplingConfig, bad))[0][:, 0]
+    stop = [pick_word(mid, [3, 2, 7, 4], range(6, 11), 1, avoid),
+            pick_word(mid, [5, 4, 6, 2], range(10, 15), 2, avoid)]
+    sc = sampled_config(SamplingConfig, bad, stop)
+    calls = recorded_calls(model, lambda: call(sc))
+    (tokens, seq_lens, cum), counts = counted(torch, device, [da],
+                                              lambda: call(sc))
+    again = call(sc)
+    steps = sess.decode_steps
+    print(f"[{label}] sampled call: bad words {bad}, stop words {stop}, "
+          f"lengths {seq_lens[:, 0].tolist()}, {steps} decode steps, "
+          f"launches {nonzero(counts)}")
+    tok = tokens[:, 0]
+    greedy_equal = bool(np.array_equal(tok[:SAMPLED_GREEDY_ROWS],
+                                       greedy[:SAMPLED_GREEDY_ROWS, 0]))
+    check(greedy_equal, f"[{label}] the sampled call's greedy rows equal the "
+          "greedy call's tokens")
+    repeatable = all(np.array_equal(a, b) for a, b in zip(
+        (tokens, seq_lens, cum), again))
+    check(repeatable, f"[{label}] one seed twice gives the same tokens")
+    check(not np.array_equal(tok[SAMPLED_GREEDY_ROWS:],
+                             greedy[SAMPLED_GREEDY_ROWS:, 0]),
+          f"[{label}] the sampled rows are not the greedy tokens")
+    end = DEC_PROMPT + DEC_NEW
+    # each row's length: one past its first stop word, else every token;
+    # the end id after it, tokens in the vocab before it, no bad word
+    stops = [min([p for w in stop
+                  for p in word_ends(tok[r], w, DEC_PROMPT, end)],
+                 default=end - 1) + 1 for r in range(DEC_BATCH)]
+    stopped = sum(n < end for n in stops)
+    check(seq_lens[:, 0].tolist() == stops
+          and all(bool((tok[r, n:] == -1).all()
+                       and ((tok[r, :n] >= 0) & (tok[r, :n] < c.vocab_size))
+                       .all()) for r, n in enumerate(stops)),
+          f"[{label}] {stopped} row(s) finished after their first stop "
+          "word, the others decoded every token, all in the vocab")
+    check(stopped >= 1 and bool(np.isfinite(cum).all()),
+          f"[{label}] at least one row stopped, finite log-probabilities")
+    check(not any(word_ends(tok[r], w, DEC_PROMPT, n) for w in bad
+                  for r, n in enumerate(stops)),
+          f"[{label}] no bad word ends a row's output")
+    if on_card:
+        check(counts["gqa_decode_attention"] == c.num_layers * steps
+              and set(nonzero(counts)) == {"gqa_decode_attention"},
+              f"[{label}] the sampled call launched the grouped kernel "
+              f"{c.num_layers} times per decode step, no other kernel")
+
+    def replay(plain):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        logits = []
+        with ctx, torch.inference_mode():
+            cache = model.new_kv_cache(
+                DEC_BATCH, bucket_length(DEC_PROMPT) + DEC_NEW)
+            for (t, _, widx, seq), kw in calls:
+                lg, cache = model(t, cache, widx, seq, **kw)
+                logits.append(lg[:, -1])
+        return torch.stack(logits)
+
+    lk, lp = replay(False), replay(True)
+    e_lg = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"[{label}] sampled call's teacher-forced logits ({len(calls)} "
+          f"calls), kernel path vs plain path: rel err {e_lg:.3e}, argmax "
+          f"agreement {agree:.3f}")
+    check(e_lg < 5e-2, f"[{label}] the sampled call's teacher-forced logits "
+          "agree (rel 5e-2 of max |logit|)")
+    best = min(wall_s(torch, device, lambda: call(sc)) for _ in range(3))
+    tps = DEC_BATCH * DEC_NEW / best
+    print(f"[{label}] sampled call end to end: {tps:.2f} tokens/s (best of "
+          f"3: {best * 1e3:.1f} ms per call)")
+    return dict(tokens_per_s=tps, ms_per_call=best * 1e3,
+                decode_steps=steps, launches=nonzero(counts),
+                greedy_rows_equal=greedy_equal, repeatable=repeatable,
+                stopped_rows=stopped, bad_words=bad, stop_words=stop,
+                logits_rel_err=e_lg, logits_argmax_agreement=agree)
 
 
 def gpt_350m_config():
@@ -3345,6 +3611,200 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
     return e2e, counts
 
 
+def gpt_350m_beam_config():
+    """GPT-350M as the JAX package's ``benchmarks/beam_bench.py`` defines it
+    at its defaults (24 layers, d 1024, 16 heads of 64, vocab 50257, 2048
+    positions), bf16, float weights."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderConfig
+    return DecoderConfig(vocab_size=50257, hidden_size=1024, num_layers=24,
+                         num_heads=16, max_position_embeddings=2048,
+                         dtype="bfloat16")
+
+
+def gen_beam_path(torch, np, config=None, device="cuda", label="gen_beam",
+                  prompt_len=None, new_tokens=GEN_BEAM_NEW):
+    """The decoder-only beam path on ``device``: ``config`` (default
+    GPT-350M) with random weights from the seed, beam search with
+    GEN_BEAM_WIDTH beams through the port's ``GenerationSession`` (the
+    cache read through the indirection table by the beam entry of the
+    decode kernel) for one prompt of ``prompt_len`` tokens (default the
+    positions less 136, as ``benchmarks/beam_bench.py`` runs it), ``end_id``
+    outside the vocab.  As ``beam_bench.py``: a warm-up of both lengths of
+    ``new_tokens``, then each timed once, the marginal ms a token their
+    difference over the extra tokens.  The launch counts of the long call,
+    the teacher-forced replay of its every step against the plain path, the
+    step's device-busy time and peak memory.  A smaller ``config`` and the
+    CPU rehearse it without a card.  Returns (numbers, launch counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import (
+        from_jax_state, quantize_state)
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig, bucket_length)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    c = config or gpt_350m_beam_config()
+    beam = GEN_BEAM_WIDTH
+    t0 = time.time()
+    model = from_jax_state(quantize_state(random_decoder_state(
+        torch, np, c, np.random.default_rng(SEED)), c), c, device=device)
+    sync(torch, device)
+    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, vocab {c.vocab_size}, "
+          f"{c.max_position_embeddings} positions, {c.dtype}, built in "
+          f"{time.time() - t0:.1f} s")
+    mc = ModelConfig(vocab_size=c.vocab_size, num_layers=c.num_layers,
+                     num_heads=c.num_heads, hidden_size=c.hidden_size,
+                     max_seq_len=c.max_position_embeddings)
+    plen = prompt_len or c.max_position_embeddings - 136
+    prompt = np.random.RandomState(0).randint(
+        0, c.vocab_size, (1, plen)).astype(np.int32)
+    lengths = np.asarray([plen])
+    sess = GenerationSession(mc, model, SamplingConfig(
+        end_id=-1, pad_id=0, num_beams=beam))
+    short, long_ = new_tokens
+
+    def run(n):
+        return sess.decode(prompt, lengths, max_new_tokens=n)
+
+    run(short)
+    calls = recorded_calls(model, lambda: run(long_))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (tokens, seq_lens, cum), counts = counted(torch, device, [da],
+                                              lambda: run(long_))
+    peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+    steps = sess.decode_steps
+    bucket = bucket_length(plen)
+    s_cache = -(-(bucket + long_) // 4) * 4
+    print(f"[{label}] beam {beam}, a prompt of {plen} (bucket {bucket}, "
+          f"start {bucket - plen}), {long_} new tokens, a cache of "
+          f"{s_cache} columns, {steps} decode steps, launches "
+          f"{nonzero(counts)}")
+    check(steps == long_ - 1 and len(calls) == long_
+          and tokens.shape == (1, beam, plen + long_)
+          and bool((seq_lens == plen + long_).all()),
+          f"[{label}] beam search decoded {long_} tokens on every beam")
+    check(bool(((tokens >= 0) & (tokens < c.vocab_size)).all())
+          and bool(np.isfinite(cum).all())
+          and bool((np.diff(cum[0]) <= 0).all()),
+          f"[{label}] the beams' tokens in the vocab, finite scores in "
+          "order")
+    if on_card:
+        check(counts["beam_decode_attention"] == c.num_layers * steps
+              and set(nonzero(counts)) == {"beam_decode_attention"},
+              f"[{label}] the beam entry launched {c.num_layers} times per "
+              f"decode step ({c.num_layers} x {steps}), no other kernel")
+
+    # teacher forcing: the recorded prefill (batch 1), its cache repeated
+    # for the beams as the session repeats it, then every recorded step
+    # (its tokens and indirection table), through the kernels and through
+    # their plain versions
+    def replay(plain, n=len(calls) - 1):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        with ctx, torch.inference_mode():
+            cache = model.new_kv_cache(1, s_cache)
+            (tok, _, widx, seq), kw = calls[0]
+            lg, cache = model(tok, cache, widx, seq, **kw)
+            logits = [lg[:, -1].repeat_interleave(beam, dim=0)]
+            cache = cache.repeat_interleave(beam, dim=1)
+            for (tok, _, widx, seq), kw in calls[1:1 + n]:
+                lg, cache = model(tok, cache, widx, seq, **kw)
+                logits.append(lg[:, -1])
+        return torch.stack(logits), cache
+
+    # the (row, column) pairs the last step's table points at over the
+    # columns it reads (the prompt's and the generated ones before the
+    # step's own): after the prefill only beam 0 is live, so every beam
+    # reads the prompt's columns from one row
+    ind_last = calls[-1][1]["beam_indirection"]
+    lo, hi = bucket - plen, bucket + long_ - 2
+    pair_share = table_pairs(torch, ind_last, lo, hi) / (beam * (hi - lo))
+    prompt_rows = torch.unique(ind_last[..., lo:bucket]).tolist()
+    print(f"[{label}] the last step's table points at {pair_share:.3f} of "
+          f"the (row, column) pairs; the prompt's columns at rows "
+          f"{prompt_rows}")
+    (lk, cache), (lp, _) = replay(False), replay(True)
+    e_lg = rel_err(lk, lp)
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"[{label}] teacher-forced logits (prefill + {len(calls) - 1} "
+          f"steps), kernel path vs plain path: rel err {e_lg:.3e}, argmax "
+          f"agreement {agree:.3f}")
+    check(bool(torch.isfinite(lk).all()), f"[{label}] logits finite")
+    check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
+          "max |logit|)")
+    step_info = (step_timing(torch, model, replayer(model, calls[1:], cache),
+                             label, first=0) if on_card else {})
+    del cache, calls
+
+    # beam_bench.py's timing: each length once after the warm-up
+    t_short = wall_s(torch, device, lambda: run(short))
+    t_long = wall_s(torch, device, lambda: run(long_))
+    marginal = (t_long - t_short) / (long_ - short) * 1e3
+    print(f"[{label}] end to end: {short} tokens {t_short * 1e3:.1f} ms, "
+          f"{long_} tokens {t_long * 1e3:.1f} ms, marginal "
+          f"{marginal:.3f} ms per token; peak memory {peak_gib:.2f} GiB")
+
+    # beam_bench.py's other mode: the whole cache gathered by parent every
+    # step (use_cache_indirection=False), kernel 1 serving the step; timed
+    # the same way, its tokens and scores beside the indirection run's
+    gsess = GenerationSession(mc, model, SamplingConfig(
+        end_id=-1, pad_id=0, num_beams=beam), use_cache_indirection=False)
+
+    def run_gather(n):
+        return gsess.decode(prompt, lengths, max_new_tokens=n)
+
+    run_gather(short)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (g_tokens, g_lens, g_cum), g_counts = counted(
+        torch, device, [da], lambda: run_gather(long_))
+    g_peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+              else float("nan"))
+    g_short = wall_s(torch, device, lambda: run_gather(short))
+    g_long = wall_s(torch, device, lambda: run_gather(long_))
+    g_marginal = (g_long - g_short) / (long_ - short) * 1e3
+    gen = np.s_[:, :, plen:]
+    same = float((g_tokens[gen] == tokens[gen]).mean())
+    print(f"[{label}] gather mode: {short} tokens {g_short * 1e3:.1f} ms, "
+          f"{long_} tokens {g_long * 1e3:.1f} ms, marginal "
+          f"{g_marginal:.3f} ms per token (indirection {marginal:.3f}); "
+          f"peak memory {g_peak:.2f} GiB; launches {nonzero(g_counts)}; "
+          f"generated tokens equal to the indirection run's: {same:.3f}, "
+          f"cum log-probs {g_cum[0].tolist()} vs {cum[0].tolist()}")
+    check(g_tokens.shape == tokens.shape
+          and bool((g_lens == seq_lens).all())
+          and bool(((g_tokens >= 0) & (g_tokens < c.vocab_size)).all())
+          and bool(np.isfinite(g_cum).all()),
+          f"[{label}] gather mode decoded {long_} tokens on every beam")
+    # kernel 1 and the beam entry sum in other orders, so a near tie
+    # between candidates may go the other way (the tokens then part); the
+    # beams found score the same within 1e-3
+    check(bool(np.allclose(g_cum, cum, rtol=1e-3, atol=0.0)),
+          f"[{label}] gather mode's beam scores equal the indirection "
+          "run's (rel 1e-3)")
+    if on_card:
+        check(nonzero(g_counts) == {"decode_attention_bf16":
+                                    c.num_layers * gsess.decode_steps},
+              f"[{label}] gather mode launched kernel 1 {c.num_layers} "
+              "times per decode step, no other kernel")
+    e2e = dict(**step_info, marginal_ms_per_token=marginal,
+               short_ms=t_short * 1e3, long_ms=t_long * 1e3,
+               gather=dict(marginal_ms_per_token=g_marginal,
+                           short_ms=g_short * 1e3, long_ms=g_long * 1e3,
+                           peak_gib=g_peak, launches=nonzero(g_counts),
+                           tokens_equal_share=same,
+                           cum_log_probs=g_cum[0].tolist()),
+               new_tokens=list(new_tokens), beam=beam, prompt_len=plen,
+               cache_columns=s_cache, num_layers=c.num_layers,
+               decode_steps=steps, peak_gib=peak_gib, logits_rel_err=e_lg,
+               logits_argmax_agreement=agree, table_pair_share=pair_share,
+               cum_log_probs=cum[0].tolist())
+    return e2e, counts
+
+
 def probes_path(torch, device="cuda", panels=None):
     """The probes path: the three ``tools/megakernel_probe*.py`` scripts'
     ``main(["--device", device])``, run in this process in order; each must
@@ -3371,7 +3831,7 @@ def probes_path(torch, device="cuda", panels=None):
 
 
 def paths(torch, np, results, config=None, device="cuda",
-          decoder_config=None, serve_config=None):
+          decoder_config=None, serve_config=None, gen_beam_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the custom path on the main path's model, then the kv8 paths on it
     (:func:`kv8_paths`), then the detect, long and best_of paths on it
@@ -3381,10 +3841,12 @@ def paths(torch, np, results, config=None, device="cuda",
     (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
     (default SantaCoder-1B) under its recipe, under int4 weight-only and,
-    cut to KV8_DEC_DEPTH layers, under its recipe with an int8 KV cache,
-    and the serve path with ``serve_config``
-    (default GPT-350M).  Each kernel's launches come from the path that
-    drives it, and must be above 0 there on the card."""
+    cut to KV8_DEC_DEPTH layers, under its recipe with an int8 KV cache
+    (the woq8 run followed by its sampled call), the serve path with
+    ``serve_config`` (default GPT-350M) and the gen_beam path with
+    ``gen_beam_config`` (default GPT-350M at beam_bench.py's widths).
+    Each kernel's launches come from the path that drives it, and must be
+    above 0 there on the card."""
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
@@ -3428,7 +3890,8 @@ def paths(torch, np, results, config=None, device="cuda",
     float_state = random_decoder_state(torch, np, dec_cfg,
                                        np.random.default_rng(SEED))
     dec_e2e, dec_counts = decoder_path(torch, np, config=dec_cfg,
-                                       device=device, float_state=float_state)
+                                       device=device, float_state=float_state,
+                                       sampled=True)
     woq4_e2e, woq4_counts = decoder_path(
         torch, np, config=dataclasses.replace(
             dec_cfg, quant_mode=QuantMode.use_weight_only(True)),
@@ -3454,6 +3917,9 @@ def paths(torch, np, results, config=None, device="cuda",
                   "peak_gib")))
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
+    gen_beam_e2e, gen_beam_counts = gen_beam_path(torch, np,
+                                                  config=gen_beam_config,
+                                                  device=device)
     probe_kernels().reset_launches()
     probes_e2e, probes_counts = probes_path(torch, device=device)
     counts = dict(main=main_counts, custom=custom_counts,
@@ -3461,7 +3927,8 @@ def paths(torch, np, results, config=None, device="cuda",
                   decoder_woq4=woq4_counts, serve=serve_counts,
                   probes=probes_counts, kv8=kv8_counts,
                   kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
-                  long=long_counts, best_of=best_counts)
+                  long=long_counts, best_of=best_counts,
+                  gen_beam=gen_beam_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -3471,7 +3938,7 @@ def paths(torch, np, results, config=None, device="cuda",
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
                 serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
-                long=long_e2e, best_of=best_e2e)
+                long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e)
 
 
 def example_run():

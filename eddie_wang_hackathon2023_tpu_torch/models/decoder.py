@@ -29,8 +29,12 @@ and the grouped kernel reads it with the scale; an int8 pool raises.
 RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP, the
 parallel and deepnorm residuals, untied or biased LM heads, per-row write
 positions on the stacked cache, mixed prompt/decode windows on the pool,
-the K-step tail, beams and the megakernel are not ported and raise
-``NotImplementedError``.
+the K-step tail and the megakernel are not ported and raise
+``NotImplementedError``.  Beam search passes a ``beam_indirection``
+[groups, beams, S] table to the single-token step, which every layer's
+self-attention reads the cache through (the beam entry of the decode
+kernel); over an MQA/GQA cache it raises, as the JAX package cannot run
+it either.
 """
 from __future__ import annotations
 
@@ -124,6 +128,14 @@ def _check_ported(c: DecoderConfig) -> None:
         raise NotImplementedError(f"decoder options not ported: {bad}")
 
 
+def _check_beam_forward(tokens, kv_cache) -> None:
+    """Beams read the stacked cache through the indirection table, one
+    token a step (an MQA/GQA cache is refused by the attention op)."""
+    if isinstance(kv_cache, PagedCacheState) or tokens.shape[1] != 1:
+        raise NotImplementedError("beam_indirection is ported for the "
+                                  "single-token step over the stacked cache")
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN causal self-attention, then the pre-LN MLP, each added to the
     residual."""
@@ -146,11 +158,12 @@ class DecoderBlock(nn.Module):
                        bias=c.mlp_bias, dtype=dtype, quant_mode=c.quant_mode)
 
     def forward(self, x, kv_cache, write_index, sequence_length,
-                attention_start=None):
+                attention_start=None, beam_indirection=None):
         attn_out, new_cache = self.attention(
             self.input_layernorm(x), past_key_value=kv_cache,
             sequence_length=sequence_length, cache_write_index=write_index,
-            attention_start=attention_start, use_cache=True)
+            attention_start=attention_start, use_cache=True,
+            beam_indirection=beam_indirection)
         x = x + attn_out
         x = x + self.mlp(self.post_layernorm(x))
         return x, new_cache
@@ -212,13 +225,17 @@ class DecoderLMHead(nn.Module):
         or over the paged pool a [B] tensor of per-row positions (one token
         per row); ``sequence_length``: the valid length including these
         tokens (an int or a [B] tensor; a single-token step makes an int a
-        [B] tensor once for all layers).  Returns (logits [B, T, vocab]
-        fp32, kv_cache)."""
-        if beam_indirection is not None or kv_tail is not None \
-                or megakernel_blobs is not None:
-            raise NotImplementedError("beams, the K-step tail and the "
-                                      "megakernel are not ported for the "
-                                      "decoder-only path")
+        [B] tensor once for all layers); ``beam_indirection``
+        [groups, beams, S] int32 (beam search, a single-token step over the
+        stacked cache, rows grouped by group): the physical cache row of
+        each (beam, position).  Returns (logits [B, T, vocab] fp32,
+        kv_cache)."""
+        if kv_tail is not None or megakernel_blobs is not None:
+            raise NotImplementedError("the K-step tail and the megakernel "
+                                      "are not ported for the decoder-only "
+                                      "path")
+        if beam_indirection is not None:
+            _check_beam_forward(tokens, kv_cache)
         if isinstance(kv_cache, PagedCacheState):
             return self._paged_forward(tokens, kv_cache, write_index,
                                        sequence_length, attention_start)
@@ -245,7 +262,7 @@ class DecoderLMHead(nn.Module):
             for li, block in enumerate(self.blocks):
                 x, (k_new, v_new) = block(x, (kv_cache, li, "defer"),
                                           write_index, sequence_length,
-                                          attention_start)
+                                          attention_start, beam_indirection)
                 fresh.append(torch.stack([k_new, v_new], dim=1))
             write_fresh_kv(kv_cache, torch.stack(fresh), write_index)
         else:

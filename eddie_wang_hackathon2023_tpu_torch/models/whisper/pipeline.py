@@ -40,7 +40,7 @@ import torch
 
 from ...audio.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_spectrogram
 from ...runtime.sampling import (beam_search_step, gather_beams,
-                                 update_indirection)
+                                 gumbel_noise, update_indirection)
 from ...text.languages import LANGUAGES
 from ...text.tokenizer import get_tokenizer
 from .config import WhisperConfig
@@ -263,9 +263,7 @@ class WhisperPipeline:
     def _gumbel(self, shape) -> torch.Tensor:
         """Standard Gumbel noise [shape] fp32 from the pipeline's generator
         (seeded by :meth:`main_loop`), one draw for each sampled step."""
-        u = torch.rand(shape, generator=self._rng, device=self.device)
-        u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        return gumbel_noise(shape, self._rng, self.device)
 
     @torch.inference_mode()
     def _detect(self, cross_kv) -> torch.Tensor:

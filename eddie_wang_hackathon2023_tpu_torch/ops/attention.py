@@ -228,7 +228,12 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
         raise ValueError("beam-indirect attention is a one-token decode op")
     k, v = cache if isinstance(cache, tuple) else (cache[:, 0], cache[:, 1])
     if k.shape[1] != h:
-        raise NotImplementedError("MQA/GQA caches are not ported")
+        # nor run by the JAX package: its XLA formulation reshapes such a
+        # cache with the query head count and raises TypeError
+        raise NotImplementedError(
+            "beams over MQA/GQA caches are not ported (the JAX package's "
+            "beam_indirect_decode_attention reshapes such a cache with the "
+            "query head count and raises TypeError)")
     if k.dtype.is_floating_point and k.dtype.itemsize == 1:
         raise NotImplementedError("fp8 KV cache is not ported yet")
     s_max = k.shape[3]

@@ -528,6 +528,98 @@ def test_beam_kernel_lengths_and_starts(dev, cache_dtype, bw, groups):
                     f"S {S}, seq {seqs}, start {starts}", D)
 
 
+@pytest.mark.parametrize("seq", [2049, 2068, 2087])
+def test_beam_kernel_at_the_gen_beam_shape(dev, seq):
+    """The beam entry as ``chip_smoke.py``'s gen_beam path calls it
+    (GPT-350M: 16 heads of 64, bf16, beam 4, a cache of 2088 columns whose
+    prompt starts at 136): the first, middle and last step of a 40-token
+    call.  Against the fp32 plain version (1e-2) and the bf16 one
+    (2e-2)."""
+    g = torch.Generator(device=dev).manual_seed(seq)
+    cache, q, fresh, ind, seq_t, kw = _beam_case(
+        g, dev, torch.bfloat16, 1, 1, 4, 16, 64, 2088, [seq], [136])
+    before = da.launches["beam_decode_attention"]
+    _beam_check(torch.bfloat16, cache, q, fresh, ind, seq_t, kw,
+                f"seq {seq}", 64)
+    assert da.launches["beam_decode_attention"] == before + 1
+
+
+def _tiny_decoder(device, seed=0):
+    """A bf16 decoder of 2 layers of width 128 (4 heads of 32, equal
+    heads, vocab 97) from one numpy state (N(0, 0.3), LayerNorm weights
+    1 + N(0, 0.02)), on ``device``."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    config = DecoderConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                           num_heads=4, max_position_embeddings=64,
+                           dtype="bfloat16")
+    with torch.device("meta"):
+        shapes = DecoderLMHead(config).state_dict()
+    rs = np.random.RandomState(seed)
+    state = {}
+    for key, t in shapes.items():
+        shape = tuple(t.shape)
+        if key.startswith("blocks.0."):
+            key, shape = "blocks." + key[len("blocks.0."):], (2,) + shape
+        elif key.startswith("blocks."):
+            continue
+        x = rs.randn(*shape).astype(np.float32)
+        state[key] = 1 + 0.02 * x if key.endswith("norm.weight") or \
+            key == "ln_f.weight" else 0.3 * x
+    return from_jax_state(state, config, device=device)
+
+
+@pytest.mark.parametrize("mode", ["beam", "gather", "sampled"])
+def test_session_on_the_card_matches_the_cpu(dev, mode):
+    """A tiny bf16 session on the card and the same session on the CPU
+    (the card's launches through the beam entry, or kernel 1 for the
+    beams of gather mode, ``use_cache_indirection=False``, and for the
+    sampled rows): three ragged prompts, 6 new tokens, beam 3 with a
+    repetition penalty, or sampled rows (temperature, top-k, top-p, both
+    penalties, min-length, a bad and a stop word) with the same Gumbel
+    noise handed to both.  The tokens and lengths equal, the cum
+    log-probs within 2e-2 (bf16 logits on two devices)."""
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig)
+    from eddie_wang_hackathon2023_tpu_torch.runtime.sampling import \
+        gumbel_noise
+    if mode != "sampled":
+        sc = SamplingConfig(end_id=-1, pad_id=0, num_beams=3,
+                            length_penalty=0.6, repetition_penalty=1.2)
+    else:
+        sc = SamplingConfig(end_id=5, pad_id=0, temperature=[0.0, 0.8, 1.0],
+                            top_k=[1, 8, 0], top_p=[0.0, 0.9, 0.95],
+                            repetition_penalty=1.2, presence_penalty=0.3,
+                            min_length=2, bad_words_list=[[7], [3, 4]],
+                            stop_words_list=[[11, 12]])
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, 97, (3, 5)).astype(np.int32)
+    lens = np.asarray([5, 2, 4], np.int32)
+    mc = ModelConfig(vocab_size=97, num_layers=2, num_heads=4,
+                     hidden_size=128, max_seq_len=64)
+    g = torch.Generator().manual_seed(9)
+    noise = [gumbel_noise((3, 97), g) for _ in range(6)]
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        sess = GenerationSession(mc, _tiny_decoder(device), sc,
+                                 use_cache_indirection=mode != "gather")
+        draws = iter(noise)
+        sess._gumbel = lambda shape, device=device: next(draws).to(device)
+        da.reset_launches()
+        outs.append(sess.decode(ids, lens, max_new_tokens=6, seed=2))
+        if device.type == "cuda":
+            key = ("beam_decode_attention" if mode == "beam"
+                   else "decode_attention_bf16")
+            assert sess.decode_steps > 0
+            assert da.launches[key] == 2 * sess.decode_steps
+    (ct, cl, cc), (pt, pl, pc) = outs
+    np.testing.assert_array_equal(ct, pt)
+    np.testing.assert_array_equal(cl, pl)
+    np.testing.assert_allclose(cc, pc, rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("bw", [12, 16, 24, 33])
 @pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
 def test_beam_kernel_wide_beams_at_head_dim_128(dev, cache_dtype, bw):

@@ -16,7 +16,9 @@ Inputs come from numpy seeds and go to both sides.
   left-padded prompts, float and ``woq8``, MQA and GQA, and with HF's
   ``GPTBigCodeForCausalLM.generate``;
 * a CPU rehearsal of ``chip_smoke.py``'s decoder path at a tiny size;
-* what the slice does not port raises."""
+* what the port does not run raises (beams over the MQA cache among them;
+  the sampling options that raised before the sampling slice are held
+  token-exact with the JAX session instead)."""
 import dataclasses
 import importlib.util
 import os
@@ -38,10 +40,26 @@ from eddie_wang_hackathon2023_tpu_torch.runtime import (GenerationSession,
                                                         SamplingConfig,
                                                         bucket_length,
                                                         dynamic_decode)
+from eddie_wang_hackathon2023_tpu_torch.runtime.sampling import \
+    DecodeParams as PDecodeParams
 
 
 def _j(x):
     return jnp.asarray(x)
+
+
+def _jax_noise(seed):
+    """The noise the JAX generation loop draws, one [rows, V] array a step
+    (``rng, sub = split(rng)`` from ``PRNGKey(seed)``, then
+    ``gumbel(sub, shape)``), to replace a port session's ``_gumbel``."""
+    import jax
+    state = dict(rng=jax.random.PRNGKey(seed))
+
+    def gumbel(shape):
+        state["rng"], sub = jax.random.split(state["rng"])
+        return torch.from_numpy(np.array(
+            jax.random.gumbel(sub, tuple(shape), jnp.float32)))
+    return gumbel
 
 
 def _t(x):
@@ -304,7 +322,8 @@ def test_greedy_step_and_buckets_match_jax():
     logits[1, [7, 30]] = logits[1].max() + 1          # a tie
     jt, jlp = j_decode(_j(logits), None, DecodeParams.from_config(
         JSampling(), 4))
-    tok, lp = dynamic_decode(_t(logits), SamplingConfig())
+    tok, lp = dynamic_decode(_t(logits), None, PDecodeParams.from_config(
+        SamplingConfig(), 4))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jt))
     assert int(tok[1]) == 7
     np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=1e-6)
@@ -353,13 +372,39 @@ def test_unported_decoder_options_raise(option):
     dict(repetition_penalty=1.2), dict(min_length=3),
     dict(bad_words_list=[[3]]), dict(stop_words_list=[[3, 4]]),
     dict(num_beams=2)], ids=lambda o: next(iter(o)))
-def test_unported_sampling_raises(sampling):
-    model = DecoderLMHead(DecoderConfig(**MQA, dtype="float32"))
-    sess = GenerationSession(ModelConfig(97, 2, 2, 256, 64, 1), model,
-                             SamplingConfig(**sampling))
-    with pytest.raises(NotImplementedError):
-        sess.decode(np.zeros((1, 3), np.int32), np.asarray([3]),
-                    max_new_tokens=2)
+def test_unported_sampling_raises(sampling, monkeypatch):
+    """Beams over the MQA cache still raise (the JAX package cannot run
+    them either, ``test_torch_generation.py``).  The other options raised
+    until the port's sampling landed; each now runs token-exact with the
+    JAX session on the MQA model (the JAX noise in place of the port's),
+    lengths exact, cum log-probs within 1e-5."""
+    if "num_beams" in sampling:
+        model = DecoderLMHead(DecoderConfig(**MQA, dtype="float32"))
+        sess = GenerationSession(ModelConfig(97, 2, 2, 256, 64, 1), model,
+                                 SamplingConfig(**sampling))
+        with pytest.raises(NotImplementedError):
+            sess.decode(np.zeros((1, 3), np.int32), np.asarray([3]),
+                        max_new_tokens=2)
+        return
+    from eddie_wang_hackathon2023_tpu.runtime import \
+        GenerationSession as JSession
+    from eddie_wang_hackathon2023_tpu.runtime import ModelConfig as JMC
+    from eddie_wang_hackathon2023_tpu.runtime import \
+        SamplingConfig as JSampling
+    monkeypatch.setenv("EWT_DECODE_TAIL", "0")
+    jm, pm, _ = _models(MQA, False, seed=2)
+    sc = dict(end_id=-1, pad_id=96, **sampling)
+    ids = np.random.RandomState(4).randint(0, 96, (2, 5)).astype(np.int32)
+    lens = np.asarray([5, 3], np.int32)
+    mc = (97, 2, 2, 256, 64, 1)
+    sess = GenerationSession(ModelConfig(*mc), pm, SamplingConfig(**sc))
+    sess._gumbel = _jax_noise(1)
+    pt, pl, pc = sess.decode(ids, lens, max_new_tokens=8, seed=1)
+    jt, jl, jc = JSession(JMC(*mc), jm, JSampling(**sc)).decode(
+        ids, lens, max_new_tokens=8, seed=1)
+    np.testing.assert_array_equal(pt, jt)
+    np.testing.assert_array_equal(pl, jl)
+    np.testing.assert_allclose(pc, jc, rtol=1e-5, atol=1e-5)
 
 
 def test_unported_forward_modes_raise():

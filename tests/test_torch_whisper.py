@@ -237,7 +237,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     ``test_torch_custom_kernel.py``, the probes path in
     ``test_torch_megakernel_probes.py``, the kv8 paths in
     ``test_torch_kv8.py`` and the detect, long and best_of paths in
-    ``test_torch_whisper_pipeline.py``, and all five are stubbed here): model
+    ``test_torch_whisper_pipeline.py`` and the gen_beam path in
+    ``test_torch_generation.py``, and all six are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -270,6 +271,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
         {}, {"decoder_megakernel": 0}, {}, {"decode_attention_int8": 0}))
     monkeypatch.setattr(smoke, "long_paths", lambda *a, **k: ({}, {}, {},
                                                                {}))
+    monkeypatch.setattr(smoke, "gen_beam_path", lambda *a, **k: (
+        {}, {"beam_decode_attention": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

@@ -115,7 +115,11 @@
    every step (``use_cache_indirection=False``), kernel 1 serving each
    step: its marginal ms a token beside the indirection run's, its
    launches, and its tokens and beam scores beside the indirection
-   run's.
+   run's.  Then greedy at batch 1 on the same prompt (``beam_bench.py
+   --beam 1``): each decode step one launch of the megakernel over the
+   2088 columns (9 attention slices), its tokens beside the
+   layer-by-layer session's and its calls replayed teacher-forced
+   through the layer-by-layer step (within 5e-2).
    Last the probes path: ``tools/megakernel_probe.py``,
    ``megakernel_probe2.py`` and ``megakernel_probe3.py`` (the counterparts
    of the JAX package's ``benchmarks/megakernel_probe{,2,3}.py``: seeded
@@ -183,6 +187,22 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:45"),
+    # the megakernel's decoder-only modes at LLaMA-1B's widths (16 layers,
+    # RMSNorm, the gated SiLU MLP, RoPE, heads of 128): bf16 panels, and
+    # int8 weight-only panels (woq8)
+    "decoder_megakernel_llama": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decoder_megakernel_llama_woq8": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    # kernel 1 at head dim 128: LLaMA-1B at batch 8, layer by layer
+    "decode_attention_d128": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
     "beam_decode_attention": dict(
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -245,9 +265,13 @@ KERNELS = {
 # gen_beam paths, the custom path (the main path's model with the user kernel
 # installed, then without it and with a previous-text prompt), the kv8
 # paths (the main path's model with an int8 self cache, through the
-# megakernel and layer by layer), or the probes path (the three
-# tools/megakernel_probe*.py scripts)
+# megakernel and layer by layer), the llama paths (LLaMA-1B at batch 1
+# through the megakernel, bf16 and woq8, and at batch 8 layer by layer), or
+# the probes path (the three tools/megakernel_probe*.py scripts)
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
+           "decoder_megakernel_llama": "llama",
+           "decoder_megakernel_llama_woq8": "llama_woq8",
+           "decode_attention_d128": "llama_b8",
            "decoder_megakernel_int8_self": "kv8",
            "decode_attention_int8_self": "kv8_scanned",
            "decode_attention_int8": "scanned",
@@ -265,6 +289,9 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
 PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
+              "decoder_megakernel_llama": "decoder_megakernel",
+              "decoder_megakernel_llama_woq8": "decoder_megakernel",
+              "decode_attention_d128": "decode_attention_bf16",
               "beam_decode_attention_gen": "beam_decode_attention",
               "decoder_megakernel_int8_self": "decoder_megakernel",
               "decode_attention_int8_self": "decode_attention_int8"}
@@ -981,6 +1008,7 @@ def kernel_phases(torch, results):
         bf16_entry_rel_err=e16)
     del qkv32, q32, k32, v32, kc, vc, qc
     megakernel_phase(torch, results, gen)
+    llama_kernel_phase(torch, results, gen)
     beam_phase(torch, results, gen)
     gen_beam_kernel_phase(torch, results)
     gqa_phase(torch, results, gen)
@@ -1131,6 +1159,209 @@ def megakernel_phase(torch, results, gen):
           + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
     results["decoder_megakernel_int8_self"]["in_turns_ms"] = dict(
         bf16=turns[0::2], int8=turns[1::2])
+
+
+# LLaMA-1B (benchmarks/benchmark.py's llama_1b with LLAMA_KW): its
+# widths, and the megakernel plans' shape at them
+LLAMA_D, LLAMA_FFN, LLAMA_HEADS, LLAMA_LAYERS = 2048, 5504, 16, 16
+# the session's cache at the llama path's prompts: bucket 64 + 20 new
+# tokens; a mid-call step at sequence 74 from the start 4 (60 of 64)
+LLAMA_S, LLAMA_SEQ, LLAMA_START = 84, 74, 4
+
+
+def llama_blobs(torch, dev, gen, n_layer, weight):
+    """Seeded random megakernel blobs at LLaMA-1B's widths (gated, RMSNorm
+    weights 1 + N(0, 0.1), ffn 5504 padded to 6144): bf16 panels with unit
+    scales (weights N(0, 1 / K)) or int8 weight-only panels with
+    per-channel scales, every GEMV output of order one."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    L, d, ffn, H = n_layer, LLAMA_D, LLAMA_FFN, LLAMA_HEADS
+    st = {}
+    for name, k, n, shape in (
+            ("attention.qkv", d, 3 * d, (L, 3, H, d // H, d)),
+            ("attention.dense", d, d, None), ("mlp.fc", d, ffn, None),
+            ("mlp.gate", d, ffn, None), ("mlp.proj", ffn, d, None)):
+        if weight == "int8":
+            st[name + ".qweight"] = torch.randint(
+                -127, 128, (L, k, n), generator=gen, device=dev,
+                dtype=torch.int8)
+            st[name + ".per_channel_scale"] = (torch.rand(
+                (L, n), generator=gen, device=dev) + 0.5) / (73.6 * k ** 0.5)
+        else:
+            st[name + ".weight"] = (torch.randn(
+                shape or (L, n, k), generator=gen, device=dev)
+                * k ** -0.5).bfloat16()
+    for name in ("input_layernorm", "post_layernorm"):
+        st[name + ".weight"] = 1 + 0.1 * torch.randn(
+            (L, d), generator=gen, device=dev)
+    blobs = mk.pack_decoder_blobs(
+        st, n_layer=L, hidden=d, n_head=H, head_dim=d // H, ffn=ffn,
+        with_cross=False, gated=True, device=dev)
+    del st
+    return mk.megakernel_tiles(blobs)
+
+
+def llama_kernel_phase(torch, results, gen):
+    """The megakernel's decoder-only modes at LLaMA-1B's shape (16 layers,
+    d 2048, 16 heads of 128, ffn 5504, RMSNorm, the gated SiLU MLP, RoPE
+    over every channel, a bf16 self cache of 84 at sequence 74 from start
+    4), bf16 and int8 panels: one layer and all 16 against the plain
+    version, the step timed (the two in turns); then kernel 1 at head dim
+    128 at the batch-8 path's shape, against its plain version, beside
+    SDPA."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    dev = torch.device("cuda")
+    L, d, ffn, H = LLAMA_LAYERS, LLAMA_D, LLAMA_FFN, LLAMA_HEADS
+    D, S, n, start = d // H, LLAMA_S, LLAMA_SEQ, LLAMA_START
+    scale = D ** -0.5
+    x = torch.randn((1, d), generator=gen, device=dev).bfloat16()
+    cache = torch.randn((L, 1, 2, H, D, S), generator=gen,
+                        device=dev).bfloat16()
+    seq = torch.tensor([n], dtype=torch.int32, device=dev)
+    start_t = torch.tensor([start], dtype=torch.int32, device=dev)
+    rope = mk.Rotary(n - 1, D, 10000.0, True)
+    kw = dict(start_index=start_t, head_dim=D, act="silu", norm="rmsnorm",
+              rope=rope)
+    # the plain version reads the length and the start on the host
+    seq_host = seq.cpu()
+    kw_plain = dict(kw, start_index=start_t.cpu())
+    modes = {}
+    for row, weight in (("decoder_megakernel_llama", "bf16"),
+                        ("decoder_megakernel_llama_woq8", "int8")):
+        t = time.time()
+        modes[row] = llama_blobs(torch, dev, gen, L, weight)
+        torch.cuda.synchronize()
+        print(f"LLaMA-1B megakernel blobs, {weight} panels: packed and "
+              f"tiled in {time.time() - t:.1f} s")
+
+    def run(row, n_layer, plain=False):
+        b = mk.blob_layers(modes[row], 0, n_layer)
+        if plain:
+            return mk.plain_fused_decoder_stack(
+                x, b, cache[:n_layer], seq_host, scale, **kw_plain)
+        return mk.fused_decoder_stack(x, b, cache[:n_layer], seq, scale,
+                                      gated=True, **kw)
+
+    for row, blobs in modes.items():
+        weight = "int8" if blobs.wblob.dtype == torch.int8 else "bf16"
+        what = f"LLaMA-1B megakernel, {weight} panels"
+        errs = {}
+        for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
+            hid, fresh = run(row, n_layer)
+            hid_p, fresh_p = run(row, n_layer, plain=True)
+            torch.cuda.synchronize()
+            errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
+            print(f"{what}, {n_layer} layer(s): rel err vs plain bf16: "
+                  f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
+                  f"{errs[n_layer][1]:.3e}")
+            check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
+                  torch.bfloat16 and max(errs[n_layer]) < tol,
+                  f"{what}, {n_layer} layer(s), matches plain (rel {tol:g})")
+        ms, wall = time_ms(torch, lambda i: run(row, L), iters=20)
+        hid_box = [x]
+
+        def plain_layer(i):
+            b = mk.blob_layers(blobs, i, i + 1)
+            hid_box[0] = mk.plain_fused_decoder_stack(
+                hid_box[0] if i else x, b, cache[i:i + 1], seq_host, scale,
+                **kw_plain)[0]
+
+        t = time.perf_counter()
+        run(row, L, plain=True)
+        torch.cuda.synchronize()
+        plain_host_ms = (time.perf_counter() - t) * 1e3
+        plain_runs = [segments_ms(torch, [lambda i=i: plain_layer(i)
+                                          for i in range(L)], plain_host_ms)
+                      for _ in range(3)]
+        if None in plain_runs:
+            raise SmokeFailure("the host could not queue the plain "
+                               "megakernel's layers ahead of the device")
+        plain_ms = sum(plain_runs) / len(plain_runs)
+        check(rel_err(hid_box[0], hid_p) < 1e-3,
+              f"the plain {what} timed layer by layer computes the "
+              f"{L}-layer result")
+        # the bound counts the model's own weights (not the ffn's zero
+        # padding to 6144, which the kernel streams), int8's per-channel
+        # scales, the norms' weights, the valid cache columns, the row in
+        # and out and the fresh K/V
+        params = L * (4 * d * d + 3 * d * ffn)
+        item = blobs.wblob.element_size()
+        n_bytes = (params * item
+                   + (L * (5 * d + 2 * ffn) * 4 if item == 1 else 0)
+                   + L * 2 * d * 4 + L * 2 * H * D * (n - 1 - start) * 2
+                   + 2 * d * 2 + L * 2 * H * D * 2 + 8)
+        b_ms, b_by = bound(n_bytes, 2 * params + L * 4 * H * D * (n - start),
+                           PEAK_FP32_CUDA_CORES)
+        tiles_mb = blobs.tiles.numel() * item / 1e6
+        print(f"{what} step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
+              f"{b_by}; {n_bytes / 1e6:.1f} MB, {tiles_mb:.1f} MB of tiles "
+              f"streamed); plain {plain_ms * 1e3:.1f} us (mean of "
+              + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
+        results[row] = dict(
+            max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, host_call_ms=wall, tiles_mb=tiles_mb,
+            rel_err_1_layer=max(errs[1]), rel_err_16_layers=max(errs[L]),
+            plan=mk.megakernel_plan(d, 3, torch.cuda.get_device_properties(
+                0).multi_processor_count, False, True, item))
+    turns = []
+    for row in list(modes) * 2:
+        turns.append(time_ms(torch, lambda i: run(row, L), iters=20)[0])
+    print("LLaMA-1B megakernel step in turns, bf16 / int8 panels: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
+    results["decoder_megakernel_llama_woq8"]["in_turns_ms"] = dict(
+        bf16=turns[0::2], int8=turns[1::2])
+    del modes
+
+    # kernel 1 at head dim 128: the batch-8 path's self call (16 heads of
+    # 128, a bf16 cache of 84, every row at sequence 74 from start 4, the
+    # fresh K/V), 16 layers
+    B = DEC_BATCH
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).bfloat16()
+    self_c = torch.randn((L, B, 2, H, D, S), generator=gen,
+                         device=dev).bfloat16()
+    fresh = tuple(torch.randn((B, H, D, 1), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+    seq_b = torch.full((B,), n, dtype=torch.int32, device=dev)
+    start_b = torch.full((B,), start, dtype=torch.int32, device=dev)
+    kw1 = dict(fresh_kv=fresh, start_index=start_b)
+    out = da.fused_decode_attention(self_c, 3, q, seq_b, scale, **kw1)
+    ref16 = da.plain_decode_attention(self_c, 3, q, seq_b, scale, **kw1)
+    ref32 = da.plain_decode_attention(
+        self_c.float(), 3, q.float(), seq_b, scale,
+        fresh_kv=tuple(t.float() for t in fresh), start_index=start_b)
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(out, ref16), rel_err(out, ref32)
+    print(f"decode attention at head dim 128 (batch {B}, 16 heads, S {S}, "
+          f"seq {n}, start {start}): rel err vs plain bf16 {e16:.3e}, vs "
+          f"fp32 {e32:.3e}")
+    check(e16 < 2e-2 and e32 < 1e-2,
+          "decode attention at head dim 128 matches plain (rel 2e-2 bf16, "
+          "1e-2 fp32)")
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        self_c, i % L, q, seq_b, scale, **kw1))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
+        self_c, i % L, q, seq_b, scale, **kw1))
+    # SDPA over the valid columns and the fresh one, laid out beforehand
+    k_sd, v_sd = (torch.cat(
+        [self_c[:, :, j, :, :, start:n - 1],
+         fresh[j][None].expand(L, -1, -1, -1, -1)],
+        dim=-1).transpose(-1, -2).contiguous() for j in (0, 1))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % L], v_sd[i % L],
+                                              scale=scale))
+    cols = n - 1 - start
+    b_ms, b_by = bound(2 * B * H * D * cols * 2 + 2 * B * H * D * 2
+                       + 2 * B * H * D * 2 + B * 8,
+                       4 * B * H * D * (cols + 1), PEAK_FP32_CUDA_CORES)
+    print(f"decode attention at head dim 128: {ms * 1e3:.2f} us (bound "
+          f"{b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f} us, "
+          f"SDPA {lib_ms * 1e3:.2f} us")
+    results["decode_attention_d128"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, **split_of(da, S))
 
 
 def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
@@ -3280,6 +3511,268 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
     return e2e, counts
 
 
+def llama_1b_config():
+    """LLaMA-1B as the JAX package's ``benchmarks/benchmark.py`` defines it
+    (``llama_1b``: 16 layers, d 2048, 16 heads of 128, vocab 32000, ffn
+    5504 and ``LLAMA_KW``: RoPE, RMSNorm eps 1e-6, the gated SiLU MLP, no
+    biases, a separate LM head), bf16, float weights (``--quant none``)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderConfig
+    return DecoderConfig(
+        vocab_size=32000, hidden_size=LLAMA_D, num_layers=LLAMA_LAYERS,
+        num_heads=LLAMA_HEADS, ffn_hidden_size=LLAMA_FFN,
+        max_position_embeddings=2048, dtype="bfloat16",
+        position_embedding="rope", norm="rmsnorm", norm_eps=1e-6,
+        hidden_act="silu", gated_mlp=True, attn_bias=False, mlp_bias=False,
+        tie_word_embeddings=False)
+
+
+def random_llama(torch, config, device):
+    """The port's model of ``config`` on ``device`` with seeded random
+    weights made there from a ``torch.Generator`` (norm weights 1 +
+    N(0, 0.02), every other tensor N(0, 0.02)): 1.1 B parameters in numpy
+    would take about a minute."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    with torch.device(device):
+        model = DecoderLMHead(config)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            x = torch.randn(p.shape, generator=gen, device=device) * 0.02
+            if name.endswith("layernorm.weight") or name == "ln_f.weight":
+                x += 1.0
+            p.copy_(x)
+    return model.eval()
+
+
+def woq8_model(torch, model, config):
+    """``model``'s weights quantised int8 weight-only on its device, as
+    ``quantize_state`` quantises them (per output channel, amax / 127,
+    rounded half to even), in the port's woq8 model."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    dev = model.vocab_embedding.weight.device
+    with torch.device(dev):
+        qmodel = DecoderLMHead(dataclasses.replace(
+            config, quant_mode=QuantMode.use_weight_only()))
+    fsd = model.state_dict()
+    qsd = {}
+    with torch.no_grad():
+        for key in qmodel.state_dict():
+            base = key.rsplit(".", 1)[0]
+            if key.endswith(".qweight"):
+                w = fsd[base + ".weight"].float()
+                w = w.reshape(-1, w.shape[-1]).t()            # [in, out]
+                amax = w.abs().amax(0)
+                s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+                qsd[key] = torch.clamp(torch.round(w / s), -127, 127).to(
+                    torch.int8)
+                qsd[base + ".per_channel_scale"] = s
+            elif not key.endswith(".per_channel_scale"):
+                qsd[key] = fsd[key]
+    qmodel.load_state_dict(qsd)
+    return qmodel.eval()
+
+
+def llama_path(torch, np, config=None, device="cuda", label="llama"):
+    """The llama paths on ``device``: ``config`` (default LLaMA-1B, bf16)
+    with random weights made on the device, generation of DEC_NEW tokens
+    for prompts of DEC_PROMPT tokens (bucketed to 64: start 4) through the
+    port's ``GenerationSession``, as ``benchmarks/benchmark.py -m
+    llama_1b`` runs it: at batch 1 with float weights (``llama``: each
+    decode step one launch of the megakernel over bf16 panels), at batch 1
+    under woq8 (``llama_woq8``: int8 panels), and at batch DEC_BATCH layer
+    by layer (``llama_b8``: kernel 1 at head dim 128 once a layer a step).
+    For each, the launches of one call, the teacher-forced replay of the
+    recorded calls against the plain layer-by-layer path, the step's and
+    the prefill's wall and busy time, tokens/s (best of 3 calls) and peak
+    memory.  Then the
+    batch-1 session with ``decode_megakernel=False`` on the same weights
+    and prompts: its tokens beside the megakernel's (the share of equal
+    positions), the megakernel's recorded calls replayed through the
+    layer-by-layer step (logits within 5e-2), and both sessions' calls in
+    turns.  A smaller ``config`` and the CPU rehearse it (the plain
+    versions; launches not checked).  Returns ({path: numbers}, {path:
+    launch counts})."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig, bucket_length)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    c = config or llama_1b_config()
+    t0 = time.time()
+    fmodel = random_llama(torch, c, device)
+    qmodel = woq8_model(torch, fmodel, c)
+    sync()
+    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, ffn {c.ffn_hidden_size}, "
+          f"vocab {c.vocab_size}, RoPE, RMSNorm, gated SiLU; float and woq8 "
+          f"models built on the {device.type} in {time.time() - t0:.1f} s")
+    mc = ModelConfig(vocab_size=c.vocab_size, num_layers=c.num_layers,
+                     num_heads=c.num_heads, hidden_size=c.hidden_size,
+                     max_seq_len=c.max_position_embeddings)
+    sc = SamplingConfig(end_id=-1, pad_id=0)
+    rs = np.random.RandomState(2)
+    s_cache = -(-(bucket_length(DEC_PROMPT) + DEC_NEW) // 4) * 4
+
+    def prompts(b):
+        return rs.randint(0, c.vocab_size, (b, DEC_PROMPT)).astype(np.int32)
+
+    def record(sess, model, ids, lens):
+        calls = []
+        hook = model.register_forward_pre_hook(
+            lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
+            with_kwargs=True)
+        try:
+            out = sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+        finally:
+            hook.remove()
+        sync()
+        return out, calls
+
+    def replay(model, calls, b, plain=False, n=None):
+        """Last-position logits of the recorded calls (prefill and steps)
+        on a fresh cache: as recorded, or with the plain kernels and
+        without the megakernel (the plain layer-by-layer path)."""
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        logits = []
+        with ctx, torch.inference_mode():
+            cache = model.new_kv_cache(b, s_cache)
+            for (tok, _, widx, seq), kw in calls[:n]:
+                if plain:
+                    kw = {k: v for k, v in kw.items()
+                          if k != "megakernel_blobs"}
+                lg, cache = model(tok, cache, widx, seq, **kw)
+                logits.append(lg[:, -1])
+        return torch.stack(logits)
+
+    e2e, counts, sessions = {}, {}, {}
+    runs = (("llama", fmodel, 1), ("llama_woq8", qmodel, 1),
+            ("llama_b8", fmodel, DEC_BATCH))
+    for name, model, b in runs:
+        tag = f"{label}{name[len('llama'):]}"
+        # the megakernel as the session's default takes it on the card; the
+        # CPU rehearsal asks for its plain version
+        sess = GenerationSession(mc, model, sc, decode_megakernel=(
+            None if on_card else True))
+        lens = np.full((b,), DEC_PROMPT, np.int32)
+        _, calls = record(sess, model, prompts(b), lens)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for m in (da, fa, mk, iq):
+            m.reset_launches()
+        ids = prompts(b)
+        tokens, seq_lens, cum = sess.decode(ids, lens,
+                                            max_new_tokens=DEC_NEW)
+        cnt = {**da.launches, **fa.launches, **mk.launches, **iq.launches}
+        peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                    else float("nan"))
+        steps = sess.decode_steps
+        counts[name] = cnt
+        uses_mk = sess._mk_blobs is not None
+        print(f"[{tag}] batch {b}, {DEC_NEW} tokens for prompts of "
+              f"{DEC_PROMPT} (bucket {bucket_length(DEC_PROMPT)}), {steps} "
+              f"decode steps, megakernel {uses_mk}, launches {cnt}")
+        check(steps == DEC_NEW - 1 and len(calls) == DEC_NEW
+              and tokens.shape == (b, 1, DEC_PROMPT + DEC_NEW)
+              and bool((seq_lens == DEC_PROMPT + DEC_NEW).all())
+              and bool(((tokens >= 0) & (tokens < c.vocab_size)).all())
+              and bool(np.isfinite(cum).all()),
+              f"[{tag}] generation decoded {DEC_NEW} tokens, in range, "
+              "finite log-probabilities")
+        check(uses_mk == (b == 1), f"[{tag}] the megakernel "
+              + ("serves" if b == 1 else "does not serve") + f" batch {b}")
+        if on_card:
+            want = ({"decoder_megakernel": steps} if b == 1 else
+                    {"decode_attention_bf16": c.num_layers * steps})
+            check(all(v == want.get(k, 0) for k, v in cnt.items()),
+                  f"[{tag}] launches {want}, no other kernel")
+        lk, lp = replay(model, calls, b), replay(model, calls, b, plain=True)
+        e_lg = rel_err(lk, lp)
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        print(f"[{tag}] teacher-forced logits (prefill + {DEC_NEW - 1} "
+              f"steps), kernel path vs plain layer-by-layer path: rel err "
+              f"{e_lg:.3e}, argmax agreement {agree:.3f}")
+        check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
+              f"[{tag}] teacher-forced logits agree (rel 5e-2 of max "
+              "|logit|)")
+        step_info = {}
+        if on_card:
+            step_info = step_timing(torch, model, replayer(
+                model, calls, model.new_kv_cache(b, s_cache)), tag)
+            step_info.update(prefill_timing(torch, model, replayer(
+                model, calls, model.new_kv_cache(b, s_cache)), tag))
+        times = []
+        for run_ids in [prompts(b) for _ in range(3)]:
+            sync()
+            t = time.perf_counter()
+            sess.decode(run_ids, lens, max_new_tokens=DEC_NEW)
+            sync()
+            times.append(time.perf_counter() - t)
+        best = min(times)
+        tps = b * DEC_NEW / best
+        print(f"[{tag}] end to end: {tps:.2f} tokens/s (batch {b}, "
+              f"{DEC_PROMPT}+{DEC_NEW} tokens, best of 3: "
+              f"{best * 1e3:.1f} ms per call); peak memory {peak_gib:.2f} "
+              "GiB")
+        e2e[name] = dict(**step_info, tokens_per_s=tps,
+                         ms_per_call=best * 1e3, batch=b,
+                         prompt_len=DEC_PROMPT, new_tokens=DEC_NEW,
+                         num_layers=c.num_layers, megakernel=uses_mk,
+                         peak_gib=peak_gib, logits_rel_err=e_lg,
+                         logits_argmax_agreement=agree)
+        sessions[name] = (sess, calls)
+
+    # the megakernel against the layer-by-layer session on the same
+    # weights and prompts (bf16)
+    mk_sess = sessions["llama"][0]
+    layer_sess = GenerationSession(mc, fmodel, sc, decode_megakernel=False)
+    lens = np.full((1,), DEC_PROMPT, np.int32)
+    ids = prompts(1)
+    (tk, _, _), calls = record(mk_sess, fmodel, ids, lens)
+    tl, _, _ = layer_sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+    same = float((tk[0, 0, DEC_PROMPT:] == tl[0, 0, DEC_PROMPT:]).mean())
+    lk = replay(fmodel, calls, 1)
+    ll = replay(fmodel, [(a, {k: v for k, v in kw.items()
+                              if k != "megakernel_blobs"})
+                         for a, kw in calls], 1)
+    e_layer = rel_err(lk, ll)
+    print(f"[{label}] megakernel vs layer by layer on the same weights: "
+          f"{same:.3f} of the generated positions equal; teacher-forced "
+          f"logits rel err {e_layer:.3e}")
+    check(e_layer < 5e-2, f"[{label}] the megakernel's teacher-forced "
+          "logits within 5e-2 of the layer-by-layer step's")
+    turns = {"megakernel": [], "layer": []}
+    for which in ("megakernel", "layer", "layer", "megakernel") * 2:
+        sess = mk_sess if which == "megakernel" else layer_sess
+        sync()
+        t = time.perf_counter()
+        sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+        sync()
+        turns[which].append((time.perf_counter() - t) * 1e3)
+    print(f"[{label}] whole calls in turns (ms), megakernel / layer by "
+          "layer: " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(
+              turns["megakernel"], turns["layer"])))
+    e2e["llama"].update(equal_tokens_vs_layer=same,
+                        logits_rel_err_vs_layer=e_layer,
+                        in_turns_ms=turns)
+    del sessions, mk_sess, layer_sess, fmodel, qmodel
+    return e2e, counts
+
+
 def sampled_config(SamplingConfig, bad=None, stop=None):
     """The decoder path's sampled call: rows 0-1 greedy (temperature 0,
     neutral penalties), the others at temperature 0.8 with their own top-k
@@ -3790,6 +4283,56 @@ def gen_beam_path(torch, np, config=None, device="cuda", label="gen_beam",
                                     c.num_layers * gsess.decode_steps},
               f"[{label}] gather mode launched kernel 1 {c.num_layers} "
               "times per decode step, no other kernel")
+    # beam_bench.py's --beam 1 case on the same prompt: greedy at batch 1,
+    # through the megakernel where the model is eligible (its cache of
+    # s_cache columns takes more than 8 attention slices), beside the
+    # layer-by-layer session; the megakernel's calls replayed
+    # teacher-forced through the layer-by-layer step
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    g1 = GenerationSession(mc, model, SamplingConfig(end_id=-1, pad_id=0),
+                           decode_megakernel=None if on_card else True)
+    g1_calls = recorded_calls(model, lambda: g1.decode(
+        prompt, lengths, max_new_tokens=long_))
+    (g1_tokens, _, _), g1_counts = counted(
+        torch, device, [mk], lambda: g1.decode(prompt, lengths,
+                                               max_new_tokens=long_))
+    layer_tokens, _, _ = GenerationSession(
+        mc, model, SamplingConfig(end_id=-1, pad_id=0),
+        decode_megakernel=False).decode(prompt, lengths,
+                                        max_new_tokens=long_)
+    g1_mk = g1._mk_blobs is not None
+    g1_same = float((g1_tokens[gen] == layer_tokens[gen]).mean())
+    with torch.inference_mode():
+        g1_logits = []
+        for strip in (False, True):
+            cache = model.new_kv_cache(1, s_cache)
+            out = []
+            for (tok, _, widx, seq), kw in g1_calls:
+                if strip:
+                    kw = {k: v for k, v in kw.items()
+                          if k != "megakernel_blobs"}
+                lg, cache = model(tok, cache, widx, seq, **kw)
+                out.append(lg[:, -1])
+            g1_logits.append(torch.stack(out))
+        del cache
+    g1_err = rel_err(*g1_logits)
+    print(f"[{label}] greedy at batch 1, the same prompt ({s_cache} cache "
+          f"columns, {-(-s_cache // mk.ATTN_SPLIT)} attention slices): "
+          f"megakernel {g1_mk}, launches {nonzero(g1_counts)}; generated "
+          f"tokens equal to the layer-by-layer session's: {g1_same:.3f}; "
+          f"teacher-forced logits rel err {g1_err:.3e}")
+    check(g1_mk == model.megakernel_eligible(),
+          f"[{label}] batch 1 takes the megakernel where the model is "
+          "eligible")
+    check(bool(torch.isfinite(g1_logits[0]).all()) and g1_err < 5e-2,
+          f"[{label}] batch 1's teacher-forced logits within 5e-2 of the "
+          "layer-by-layer step's")
+    if on_card:
+        check(nonzero(g1_counts) == ({"decoder_megakernel": g1.decode_steps}
+                                     if g1_mk else {}),
+              f"[{label}] batch 1 launched the megakernel once a decode "
+              "step")
+    del g1, g1_calls, g1_logits
     e2e = dict(**step_info, marginal_ms_per_token=marginal,
                short_ms=t_short * 1e3, long_ms=t_long * 1e3,
                gather=dict(marginal_ms_per_token=g_marginal,
@@ -3801,7 +4344,11 @@ def gen_beam_path(torch, np, config=None, device="cuda", label="gen_beam",
                cache_columns=s_cache, num_layers=c.num_layers,
                decode_steps=steps, peak_gib=peak_gib, logits_rel_err=e_lg,
                logits_argmax_agreement=agree, table_pair_share=pair_share,
-               cum_log_probs=cum[0].tolist())
+               cum_log_probs=cum[0].tolist(),
+               greedy_b1=dict(megakernel=g1_mk,
+                              launches=nonzero(g1_counts),
+                              tokens_equal_share=g1_same,
+                              logits_rel_err_vs_layer=g1_err))
     return e2e, counts
 
 
@@ -3831,7 +4378,8 @@ def probes_path(torch, device="cuda", panels=None):
 
 
 def paths(torch, np, results, config=None, device="cuda",
-          decoder_config=None, serve_config=None, gen_beam_config=None):
+          decoder_config=None, serve_config=None, gen_beam_config=None,
+          llama_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the custom path on the main path's model, then the kv8 paths on it
     (:func:`kv8_paths`), then the detect, long and best_of paths on it
@@ -3842,7 +4390,8 @@ def paths(torch, np, results, config=None, device="cuda",
     Whisper ``config``; then the decoder path with ``decoder_config``
     (default SantaCoder-1B) under its recipe, under int4 weight-only and,
     cut to KV8_DEC_DEPTH layers, under its recipe with an int8 KV cache
-    (the woq8 run followed by its sampled call), the serve path with
+    (the woq8 run followed by its sampled call), the llama paths with
+    ``llama_config`` (default LLaMA-1B; :func:`llama_path`), the serve path with
     ``serve_config`` (default GPT-350M) and the gen_beam path with
     ``gen_beam_config`` (default GPT-350M at beam_bench.py's widths).
     Each kernel's launches come from the path that drives it, and must be
@@ -3915,6 +4464,8 @@ def paths(torch, np, results, config=None, device="cuda",
         for k in ("tokens_per_s", "decoder_step_ms",
                   "device_busy_ms_per_step", "device_idle_share",
                   "peak_gib")))
+    llama_e2e, llama_counts = llama_path(torch, np, config=llama_config,
+                                         device=device)
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
     gen_beam_e2e, gen_beam_counts = gen_beam_path(torch, np,
@@ -3928,7 +4479,7 @@ def paths(torch, np, results, config=None, device="cuda",
                   probes=probes_counts, kv8=kv8_counts,
                   kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
                   long=long_counts, best_of=best_counts,
-                  gen_beam=gen_beam_counts)
+                  gen_beam=gen_beam_counts, **llama_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -3938,7 +4489,8 @@ def paths(torch, np, results, config=None, device="cuda",
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
                 serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
-                long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e)
+                long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
+                **llama_e2e)
 
 
 def example_run():

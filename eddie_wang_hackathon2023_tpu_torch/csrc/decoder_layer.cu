@@ -1,147 +1,200 @@
-// The whole decode step of a Whisper decoder (every layer) in ONE launch,
-// at batch 1 with int8 weight-only panels.
+// The whole decode step of a decoder (every layer) in ONE launch, at
+// batch 1: Whisper's decoder (cross-attention, int8 weight-only panels)
+// and the decoder-only families (GPT-2, OPT, LLaMA, GPT-J, GPT-NeoX:
+// int8 weight-only or bf16 panels).
 //
 // Replaces the TPU kernel eddie_wang_hackathon2023_tpu/ops/
 // pallas_decoder_layer.py:306 `_kernel` (entry `fused_decoder_stack`,
-// :865) in the modes of the Whisper int8 recipe: LayerNorm, the q/k/v,
-// out, cross-q, cross-out, fc1 and fc2 GEMVs (int8 weights, per-channel
-// scales), self-attention over the bf16 (or int8) seq-minor cache with the
-// fresh token's K/V in fp32, cross-attention over the int8 (or bf16) cross
-// cache with per-layer scales, tanh GELU and the bf16 residual stream.  It
-// returns the hidden state before the final LN and every layer's fresh
-// K/V in the self cache's type; it does not write the cache.
+// :865) in these modes: LayerNorm or RMSNorm (no mean, no bias), the q/k/v,
+// out, cross-q, cross-out, fc1 (and, gated, the gate) and fc2 GEMVs (int8
+// weights with per-channel scales, or bf16 weights with unit scales),
+// self-attention over the bf16 (or int8) seq-minor cache with the fresh
+// token's K/V in fp32, keys below the start index masked, RoPE on q and
+// the fresh k (GPT-NeoX halves or GPT-J interleaved pairs over the first
+// rotary channels), cross-attention (optional) over the int8 (or bf16)
+// cross cache with per-layer scales, the activation (tanh GELU, ReLU, erf
+// GELU, SiLU), the gated MLP act(fc(x)) * gate(x), the sequential or the
+// parallel residual (the MLP reads the input norm: x + attn + mlp) and
+// the bf16 residual stream, at head dim 64 or 128.  It returns the hidden
+// state before the final norm and every layer's fresh K/V in the self
+// cache's type; it does not write the cache.
 //
 // The int8 self cache (the TPU kernel's `self_quant`, :523-554): the fresh
-// K and V leave the q/k/v epilogue as int8, each value times the layer's
-// kv_oq in fp32, rounded half away from zero and clipped to [-128, 127]
-// (as ops/attention.py quantises a cache write), and the fresh column's
-// score and value use those integers; the cache's columns and the fresh
-// one are scaled by the layer's kv_qo where the cross cache takes its
-// scale: the score times scale * kv_qo, the context times kv_qo at the
-// end.  Each (cross, self) type pair is its own instantiation.
+// K and V leave as int8, each value times the layer's kv_oq in fp32,
+// rounded half away from zero and clipped to [-128, 127] (as
+// ops/attention.py quantises a cache write), and the fresh column's score
+// and value use those integers; the cache's columns and the fresh one are
+// scaled by the layer's kv_qo where the cross cache takes its scale: the
+// score times scale * kv_qo, the context times kv_qo at the end.  Each
+// (cross, self, weight, head dim) type set is its own instantiation; the
+// Whisper set (with cross-attention) and the decoder-only set are built
+// into two libraries from this file (MEGA_DECODER_ONLY), in parallel.
 //
 // Bound: bytes.  A step reads the whole weight image once (14 d*d int8 a
-// layer, 734 MB at large-v2) plus the cross cache (123 MB) and does about
-// 2 flops per weight byte.  The TPU kernel walked a (layer, stage) grid in
-// order with the hidden state in VMEM and a ring of panel DMAs.  On Hopper
-// the blocks of a grid run in parallel, so here:
+// layer at large-v2, 734 MB; LLaMA-1B's 16 layers of bf16, 1.62 GB) plus
+// the caches and does about 2 flops per weight.  The TPU kernel walked a
+// (layer, stage) grid in order with the hidden state in VMEM and a ring
+// of panel DMAs.  On Hopper the blocks of a grid run in parallel, so here:
 //   * one persistent grid, one block per SM, all co-resident (cooperative
-//     launch); a grid barrier separates dependent stages, 8 a layer: one
-//     `red.release.gpu` add a block on a counter that only grows, then
-//     `ld.acquire.gpu` polls until it reaches the grid times the barrier's
-//     index in the launch (no reset, no second atomic);
+//     launch); a grid barrier separates dependent stages, 8 a layer with
+//     cross-attention and 5 without: one `red.release.gpu` add a block on a
+//     counter that only grows, then `ld.acquire.gpu` polls until it reaches
+//     the grid times the barrier's index in the launch (no reset, no
+//     second atomic);
 //   * the weights are repacked once, at blob build (`megakernel_tiles`),
 //     into item-contiguous tiles: a GEMV stage's output columns are cut
 //     into `items` items of `c` columns by ALL of K, each item c rows of K
-//     contiguous int8 (the stage's weight transposed), one item a block.
-//     The plan (the wrapper's `megakernel_plan`: c and items per stage)
-//     makes each stage about one wave over the grid; the C entry checks it.
-//     The sums are whole: the stage after a GEMV reads one finished fp32
-//     value an output;
+//     contiguous (the stage's weight transposed), one item a block (the
+//     gated MLP's fc1 item is its c fc columns, then the same c gate
+//     columns).  The plan (the wrapper's `megakernel_plan`: c, items and
+//     the columns of a piece per stage) makes each stage about one wave
+//     over the grid; the C entry checks it.  The sums are whole: the stage
+//     after a GEMV reads one finished fp32 value an output;
 //   * the weights do not depend on the activations, so each block streams
 //     its own items of every stage, layer after layer, into a ring in
 //     shared memory with `cp.async.bulk` (the TMA's 1D copy, completion
 //     counted in bytes on one of 16 mbarriers), as far ahead as the ring
-//     holds (about a layer): the copies run on through barriers and the
-//     attention stages, and a block waits on an mbarrier only when it
-//     needs the bytes;
-//   * an item's GEMV: thread t takes 16-byte vectors t, t + 256, ... of the
-//     item (column-major), each times the input row's 16 floats into a
-//     fresh fp32 sum (int8 -> float by a byte permute into the mantissa of
-//     2^23 and one subtraction: exact), written to shared memory; a warp
-//     then adds a column's vectors in order.  The input row is kept with 4
-//     floats of padding every 32, so the 16-float reads of 8 threads fall on
-//     distinct banks;
+//     holds: the copies run on through barriers and the attention stages,
+//     and a block waits on an mbarrier only when it needs the bytes.  An
+//     item is streamed in pieces of whole columns of at most 64 KB (a
+//     bf16 item at d 2048 is 192 KB, more than the 227 KB of shared
+//     memory leaves for the ring), each its own load;
+//   * a piece's GEMV: thread t takes 16-byte vectors t, t + 256, ... of the
+//     piece (column-major: 16 int8 or 8 bf16 weights), each times the input
+//     row's floats into a fresh fp32 sum (int8 -> float by a byte permute
+//     into the mantissa of 2^23 and one subtraction; bf16 -> float by a
+//     shift: both exact), written to shared memory; a warp then adds a
+//     column's vectors in order.  The input row is kept with 4 floats of
+//     padding every 32, so the 16-float reads of 8 threads fall on distinct
+//     banks;
 //   * the block that owns an item also applies its columns' epilogue (scale
-//     and bias; GELU after fc1; the fresh K/V out after q/k/v) and writes
-//     finished values: a stage after a GEMV reads one value an output and
-//     no parameters;
+//     and bias, requested at the stage's start: in Whisper's set held by
+//     the warps that finish the columns, in the decoder-only set put in
+//     shared memory before the GEMV; the activation after fc1, times the
+//     gate's finished column when gated; the fresh V out after q/k/v) and
+//     writes finished values: a stage after a GEMV reads one value an
+//     output and no parameters;
 //   * every block keeps the residual row in shared memory and recomputes
-//     the LayerNorm and residual updates itself (identical arithmetic in
-//     every block), which saves a barrier per update;
+//     the norm and residual updates itself (identical arithmetic in every
+//     block), which saves a barrier per update; under the parallel residual
+//     the MLP's input is the input norm of the residual before the
+//     attention's update, recomputed before that update is added;
 //   * a stage is latency-bound (a dependent round trip to L2 or memory
 //     costs about a microsecond), so each stage requests everything it
-//     reads in one round, before it uses any of it: the residual's update,
-//     the LayerNorm's parameters and the epilogue's scale and bias
-//     together; an attention item's q and its share of the keys together
-//     (then its share of the values); a head's slices together;
+//     reads in one round, before it uses any of it: the residual's update
+//     and the norm's parameters together; an attention item's q (and its
+//     rotary partner) and its share of the keys together (then its share
+//     of the values); a head's slices together;
 //   * attention splits heads and 256-column slices of the cache over the
 //     blocks, read in 4-byte words of 2 (bf16) or 4 (int8) columns; each
 //     item writes its max, sum and P*V partial, and the last of a head's
-//     items to finish (an arrival counter a head) combines the slices,
-//     adds the fresh token's column and writes the head's context, so the
-//     stage after the barrier reads one value an output;
+//     items to finish (an arrival counter a head) combines the slices
+//     (past 8, a cache longer than 2048 columns, which the decoder-only
+//     set takes, it first folds the 8th and later ones into one),
+//     rotates, quantises and writes the fresh K, adds the fresh token's
+//     column and writes the head's context, so the stage after the barrier
+//     reads one value an output;
+//   * RoPE: the rotation of q and the fresh k needs pairs of columns that
+//     other blocks' items finish, so it is applied where the attention
+//     stage reads them: each attention item rotates its head's q, and the
+//     head's last item the fresh k.  The angle is position x the rotary
+//     frequency (fp32, `cosf`/`sinf`), the position max(write_index -
+//     start, 0) with the start read from the device;
 //   * before a barrier, a block asks L2 to prefetch what the stages after
 //     it read from memory and not from another block: its next attention
-//     item's K and V rows, the next LayerNorm's and epilogue's parameters;
+//     item's K and V rows, the next norm's and epilogue's parameters;
 //   * data written before a barrier is read after it with L1-bypassing
 //     loads (__ldcg), so no block reads a stale line.
 // Rounding points follow the TPU kernel: GEMV sums in fp32, scaled in
 // fp32, rounded to bf16, plus the bias rounded to bf16 (:500-508,
-// :765-766); LayerNorm in fp32, rounded (:416-427); the residual in bf16;
-// P rounded to bf16 before P*V (:631-634); the cross context times
-// kscale / denominator at the end (:641-647); the fresh self score and
-// value in fp32 (:700-746; with an int8 self cache (ctx * alpha * kscale +
-// v * (kscale * pf)) / denominator, :740-743); fc2's four panels summed in
-// fp32 before the scale (:797-809: an fc2 item spans all of its K).
+// :765-766); the norms in fp32, rounded (:416-427); the residual in bf16;
+// q and the fresh k rotated in fp32 and rounded (:383-394); P rounded to
+// bf16 before P*V (:631-634); the cross context times kscale / denominator
+// at the end (:641-647); the fresh self score and value in fp32
+// (:700-746; with an int8 self cache (ctx * alpha * kscale + v * (kscale
+// * pf)) / denominator, :740-743); the activation in fp32, rounded; the
+// gate's product of two bf16 values rounded (:855-861); fc2's panels summed
+// in fp32 before the scale (:797-809: an fc2 item spans all of its K).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// the GEMV stages of a layer, in order
+// the GEMV stages of a layer, in order (the gated MLP's gate rides the
+// fc1 stage: its item holds the fc and gate columns)
 enum Stage { kQkv = 0, kDense, kCrossQ, kCrossDense, kFc1, kFc2, kStages };
 
 // the kernel's operands, filled by the Python wrapper (a ctypes Structure
 // of the same layout) and passed by value
 struct MegaArgs {
-  const void* x;               // [d] bf16, embedded token + position
-  const int8_t* tiles;         // [L, layer_bytes] item-contiguous weights
-  const float* pair_scale;     // [L, 4, d]: q, k, v, cross-q
+  const void* x;               // [d] bf16, embedded token (+ position)
+  const void* tiles;           // [L, layer_bytes] item-contiguous weights
+  const float* pair_scale;     // [L, nq, d]: q, k, v (, cross-q)
   const float* pair_bias;
-  const float* flat_scale;     // [L, nflat, d]: dense, cross-dense, fc1.., fc2
-  const float* flat_bias;
-  const float* ln_par;         // [L, 6, d]: weight, bias of the three LNs
+  const float* flat_scale;     // [L, nflat, d]: dense (, cross-dense), fc1..
+  const float* flat_bias;      // (, gate..), fc2
+  const float* ln_par;         // [L, 2 n_ln, d]: weight, bias of each norm
   const void* self_cache;      // [L, 1, 2, H, D, S] bf16 or int8
-  const void* cross_cache;     // [L, 1, 2, H, D, Sc] int8 or bf16
+  const void* cross_cache;     // [L, 1, 2, H, D, Sc] int8 or bf16, or null
   const float* cross_scale;    // [L] or null
   const float* kv_oq;          // [L] the int8 self cache's quantise and
   const float* kv_qo;          // dequantise scales (null for bf16)
   const int* seq_len;          // [1], including the fresh token
+  const int* start;            // [1] the first key column, or null (0)
+  const float* inv_freq;       // [rope_dim / 2] rotary frequencies, or null
   void* hid;                   // [d] bf16 out
   void* fresh;                 // [L, 2, H, D] out, the self cache's type
   float* act_a;                // finished GEMV outputs: q, k, v / cross-q /
-                               // GELU(fc1)
+                               // act(fc1) (* gate)
   float* act_b;                // ... dense / cross-dense / fc2
-  float* att;                  // attention partials [H, splits, kAtt]
+  float* att;                  // attention partials [H, splits, D + 2]
   float* ctx;                  // [d] the attention stage's context row
   unsigned int* barrier;       // [1] zero: arrivals, only growing
   unsigned int* heads;         // [2, L, H] zeros: a head's slices done
   long long layer_bytes;       // bytes of one layer's tiles
-  int n_layer, d, n_head, s_self, s_cross, nflat, nf;
-  int f_dense, f_crossdense, f_fc1, f_fc2;
-  int cross_int8, self_int8;
+  int n_layer, d, n_head, head_dim, s_self, s_cross, nq, nflat, nf, n_ln;
+  int f_dense, f_crossdense, f_fc1, f_gate, f_fc2;
+  int with_cross, cross_int8, self_int8, weight_bf16;
+  int norm_rms;                // 0: LayerNorm, 1: RMSNorm
+  int act;                     // 0 tanh GELU, 1 ReLU, 2 erf GELU, 3 SiLU
+  int gated, parallel;
+  int rope_dim, rope_neox;     // rotated channels of a head (0: no RoPE)
+  int write_index;             // the fresh token's cache column
   int ring_bytes;              // the plan's cap on the ring (0: none); the
                                // kernel gets the ring's size
-  // the plan, per GEMV stage: columns of an item, items, rows of K, and
-  // the stage's byte offset in a layer's tiles
+  // the plan, per GEMV stage: columns of an item, items, rows of K, the
+  // stage's byte offset in a layer's tiles, and the columns of a piece
   int item_c[kStages], items[kStages], item_k[kStages], tile_off[kStages];
+  int piece_c[kStages];
   float scale, eps;
 };
 
 namespace {
 
+// the library's set: decoders without cross-attention (and their modes:
+// RoPE, RMSNorm, the gated MLP, the other activations), or Whisper's
+// decoder.  A set compiles only its own code: the kernel is latency-bound
+// stage by stage and every stage runs from a cold instruction cache.
+#ifdef MEGA_DECODER_ONLY
+constexpr bool kDecoderOnly = true;
+#else
+constexpr bool kDecoderOnly = false;
+#endif
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kD = 64;           // head dim
 constexpr int kSplit = kThreads; // cache columns of one attention item
 constexpr int kMaxHeads = 32;
-constexpr int kMaxSplits = 8;
-constexpr int kAtt = kD + 2;     // one attention partial: max, sum, P*V
+constexpr int kMaxSplits = 8;    // slices a head's finish combines (more:
+                                 // folded first, fold_slices)
 constexpr int kSlots = 16;       // mbarriers of the weight ring
 constexpr int kLayerStages = 8;  // a layer's stages, each ending in a barrier
-constexpr int kPer = 5;          // a d-row's elements a thread holds
-constexpr int kPerFc = 20;       // fc2's input row's (nf * d)
+// a d-row's elements a thread holds, and fc2's input row's (nf * d): d
+// <= 2048 and nf * d <= 6144 for the decoder-only set, d <= 1280 and ffn
+// <= 5120 for Whisper's (each loop over them is unrolled: code size)
+constexpr int kPer = kDecoderOnly ? 8 : 5;
+constexpr int kPerFc = kDecoderOnly ? 24 : 20;
 constexpr int kColsWarp = 6;     // an item's columns a warp sums
+constexpr int kItemCols = kWarps * kColsWarp;
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -213,18 +266,27 @@ __device__ __forceinline__ float quant_kv(float v, float oq) {
                127.f);
 }
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x *
-         (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+// the activation after fc1, in fp32 (a: MegaArgs::act)
+__device__ __forceinline__ float activate(float x, int a) {
+  switch (a) {
+    case 1: return fmaxf(x, 0.f);
+    case 2: return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+    case 3: return x / (1.f + expf(-x));
+    default:
+      return 0.5f * x *
+             (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  }
 }
 
-// The residual update and the LayerNorm: xs[i] = bf16(xs[i] + delta[i])
-// (delta: a GEMV stage's finished output, or null), then vin = bf16(
-// LayerNorm(xs) * w + b) at vpos, statistics in fp32.  The update and the
-// parameters are requested in one round; thread t holds i = t + 256 k.
-__device__ void residual_ln(const float* delta, const float* w,
-                            const float* b, float* xs, float* vin, int d,
-                            float eps, float* red) {
+// The residual update and the norm: xs[i] = bf16(xs[i] + delta[i]) (delta:
+// a GEMV stage's finished output, or null), then vin = bf16(norm(xs) * w +
+// b) at vpos, statistics in fp32 (RMSNorm: no mean; its packed bias rows
+// are zeros).  With `after` the norm reads xs before the update (the
+// parallel residual's MLP input).  The update and the parameters are
+// requested in one round; thread t holds i = t + 256 k.
+__device__ void residual_norm(const float* delta, bool after, const float* w,
+                              const float* b, float* xs, float* vin, int d,
+                              float eps, bool rms, float* red) {
   const int tid = threadIdx.x;
   float dv[kPer], wv[kPer], bv[kPer];
 #pragma unroll
@@ -241,11 +303,11 @@ __device__ void residual_ln(const float* delta, const float* w,
   for (int k = 0; k < kPer; ++k) {
     const int i = tid + k * kThreads;
     if (i < d) {
-      if (delta) xs[i] = bf16r(xs[i] + dv[k]);
+      if (delta && !after) xs[i] = bf16r(xs[i] + dv[k]);
       s += xs[i];
     }
   }
-  const float mean = block_reduce<false>(s, red) / d;
+  const float mean = rms ? 0.f : block_reduce<false>(s, red) / d;
   float v = 0.f;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
@@ -259,7 +321,10 @@ __device__ void residual_ln(const float* delta, const float* w,
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int i = tid + k * kThreads;
-    if (i < d) vin[vpos(i)] = bf16r((xs[i] - mean) * r * wv[k] + bv[k]);
+    if (i < d) {
+      vin[vpos(i)] = bf16r((xs[i] - mean) * r * wv[k] + bv[k]);
+      if (delta && after) xs[i] = bf16r(xs[i] + dv[k]);
+    }
   }
   __syncthreads();
 }
@@ -270,54 +335,98 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Each block streams its items of every GEMV stage, in (layer, stage)
-// order, into a ring of `bytes` bytes.  Load i uses mbarrier i % kSlots,
-// whose phase (i / kSlots) & 1 completes when its bytes have landed.  Every
-// thread tracks the consumer's side identically; thread 0 also issues.
+// the block's loads of stage g: mats (the gated fc1 stage's fc, then its
+// gate) x pieces of piece_c whole columns each, none for a block without
+// an item or a stage the model does not have
+__device__ __forceinline__ int stage_mats(const MegaArgs& a, int g) {
+  return (int)blockIdx.x < a.items[g]
+             ? (kDecoderOnly && g == kFc1 && a.gated ? 2 : 1) : 0;
+}
+__device__ __forceinline__ int stage_pieces(const MegaArgs& a, int g) {
+  // Whisper's items are whole (its plan; the C entry checks it)
+  if (!kDecoderOnly || a.piece_c[g] >= a.item_c[g]) return 1;
+  return (a.item_c[g] + a.piece_c[g] - 1) / a.piece_c[g];
+}
+__device__ __forceinline__ int wbytes(const MegaArgs& a) {
+  return a.weight_bf16 ? 2 : 1;
+}
+// piece p's columns and bytes
+__device__ __forceinline__ int piece_cols(const MegaArgs& a, int g, int p) {
+  if (!kDecoderOnly) return a.item_c[g];
+  return min(a.piece_c[g], a.item_c[g] - p * a.piece_c[g]);
+}
+__device__ __forceinline__ uint32_t piece_bytes(const MegaArgs& a, int g,
+                                                int p) {
+  return (uint32_t)(piece_cols(a, g, p) * a.item_k[g] * wbytes(a));
+}
+
+// Each block streams its pieces of every GEMV stage, in (layer, stage,
+// matrix, piece) order, into a ring of `bytes` bytes.  Load i uses mbarrier
+// i % kSlots, whose phase (i / kSlots) & 1 completes when its bytes have
+// landed.  Every thread tracks the consumer's side identically; thread 0
+// also starts the copies, walking the block's loads of a layer from a
+// table in shared memory (`Loads`: each load's bytes and byte offset in a
+// layer's tiles, made once at the start), layer after layer.
+constexpr int kMaxLoads = 32;    // a block's loads in a layer, at most
+
+struct Loads {
+  uint32_t off[kMaxLoads], sz[kMaxLoads];
+  int n;
+};
+
+__device__ void loads_init(const MegaArgs& a, Loads& t) {
+  const int wb = wbytes(a);
+  int n = 0;
+  for (int g = 0; g < kStages; ++g) {
+    const uint32_t item = (uint32_t)(a.item_c[g] * a.item_k[g] * wb);
+    for (int m = 0; m < stage_mats(a, g); ++m)
+      for (int p = 0; p < stage_pieces(a, g); ++p, ++n) {
+        t.off[n] = a.tile_off[g] + (blockIdx.x * stage_mats(a, g) + m) * item +
+                   p * a.piece_c[g] * a.item_k[g] * wb;
+        t.sz[n] = piece_bytes(a, g, p);
+      }
+  }
+  t.n = n;
+}
+
 struct Ring {
   int8_t* buf;
   uint64_t* bars;
   uint32_t bytes;
   uint32_t head, tail;         // bytes issued, bytes released (monotonic)
   int next, done;              // loads issued, loads released
-  int total;                   // loads in the launch
+  int l, i;                    // the cursor: the next load's layer and load
 };
 
-__device__ __forceinline__ int load_bytes(const MegaArgs& a, int g) {
-  return blockIdx.x < a.items[g] ? a.item_c[g] * a.item_k[g] : 0;
-}
-
 // thread 0: issue every load that fits (the ring's bytes and slots)
-__device__ void ring_pump(const MegaArgs& a, Ring& r) {
+__device__ void ring_pump(const MegaArgs& a, const Loads& t, Ring& r) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  while (r.next < r.total && r.next - r.done < kSlots) {
-    const int l = r.next / kStages, g = r.next % kStages;
-    const uint32_t sz = load_bytes(a, g);
+  while (r.l < a.n_layer && r.next - r.done < kSlots) {
+    const uint32_t sz = t.sz[r.i];
     if (r.head + sz - r.tail > r.bytes) break;
     const uint32_t bar = smem_u32(&r.bars[r.next % kSlots]);
-    if (sz == 0) {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-                   : "memory");
-    } else {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(sz) : "memory");
+    const int8_t* src = static_cast<const int8_t*>(a.tiles) +
+                        (size_t)r.l * a.layer_bytes + t.off[r.i];
+    const uint32_t pos = r.head % r.bytes;
+    const uint32_t first = min(sz, r.bytes - pos);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf + pos)),
+        "l"(src), "r"(first), "r"(bar) : "memory");
+    if (first < sz)
       asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              bar), "r"(sz) : "memory");
-      const int8_t* src = a.tiles + (size_t)l * a.layer_bytes +
-                          a.tile_off[g] + (size_t)blockIdx.x * sz;
-      const uint32_t pos = r.head % r.bytes;
-      const uint32_t first = min(sz, r.bytes - pos);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf + pos)),
-          "l"(src), "r"(first), "r"(bar) : "memory");
-      if (first < sz)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf)),
-            "l"(src + first), "r"(sz - first), "r"(bar) : "memory");
-    }
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(r.buf)),
+          "l"(src + first), "r"(sz - first), "r"(bar) : "memory");
     r.head += sz;
     ++r.next;
+    if (++r.i == t.n) {
+      r.i = 0;
+      ++r.l;
+    }
   }
 }
 
@@ -332,7 +441,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// every thread: wait for the next load's bytes; returns its ring offset
+// every thread: wait for the next load's bytes (sz of them; every load
+// has some); returns its ring offset
 __device__ __forceinline__ uint32_t ring_wait(Ring& r, uint32_t sz) {
   if (sz) mbar_wait(&r.bars[r.done % kSlots], (r.done / kSlots) & 1);
   return r.tail % r.bytes;
@@ -340,11 +450,12 @@ __device__ __forceinline__ uint32_t ring_wait(Ring& r, uint32_t sz) {
 
 // every thread, after the block is done with the load: release its bytes;
 // thread 0 refills the ring
-__device__ __forceinline__ void ring_release(const MegaArgs& a, Ring& r,
+__device__ __forceinline__ void ring_release(const MegaArgs& a,
+                                             const Loads& t, Ring& r,
                                              uint32_t sz) {
   r.tail += sz;
   ++r.done;
-  if (threadIdx.x == 0) ring_pump(a, r);
+  if (threadIdx.x == 0) ring_pump(a, t, r);
 }
 
 // -- the GEMV ---------------------------------------------------------------
@@ -356,12 +467,46 @@ __device__ __forceinline__ float int8_at(uint32_t flipped, int i) {
          8388736.f;
 }
 
-// the epilogue's parameters of stage g in layer l: column n's scale is
-// sc[n], its bias bi[n]
-__device__ __forceinline__ void stage_params(const MegaArgs& a, int l,
-                                             int g, const float*& sc,
+// one 16-byte vector of weights times the input row's floats at xv, fp32
+__device__ __forceinline__ float vec_dot(const uint4 w, const float* xv,
+                                         const int8_t*) {
+  const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                             w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  // four chains of four products, then their sum: a short dependency
+  float sq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 x = x4[q];
+    float t = x.x * int8_at(words[q], 0);
+    t = fmaf(x.y, int8_at(words[q], 1), t);
+    t = fmaf(x.z, int8_at(words[q], 2), t);
+    sq[q] = fmaf(x.w, int8_at(words[q], 3), t);
+  }
+  return (sq[0] + sq[1]) + (sq[2] + sq[3]);
+}
+__device__ __forceinline__ float vec_dot(const uint4 w, const float* xv,
+                                         const __nv_bfloat16*) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  float sq[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float4 x = x4[q];
+    float t = x.x * __uint_as_float(words[2 * q] << 16);
+    t = fmaf(x.y, __uint_as_float(words[2 * q] & 0xFFFF0000u), t);
+    t = fmaf(x.z, __uint_as_float(words[2 * q + 1] << 16), t);
+    sq[q] = fmaf(x.w, __uint_as_float(words[2 * q + 1] & 0xFFFF0000u), t);
+  }
+  return sq[0] + sq[1];
+}
+
+// the epilogue's parameters of stage g in layer l (matrix m: the gate of
+// the gated fc1 stage): column n's scale is sc[n], its bias bi[n]
+__device__ __forceinline__ void stage_params(const MegaArgs& a, int l, int g,
+                                             int m, const float*& sc,
                                              const float*& bi) {
-  const size_t pair = (size_t)l * 4 * a.d;
+  const size_t pair = (size_t)l * a.nq * a.d;
   const size_t flat = (size_t)l * a.nflat * a.d;
   switch (g) {
     case kQkv: sc = a.pair_scale + pair; bi = a.pair_bias + pair; break;
@@ -371,54 +516,80 @@ __device__ __forceinline__ void stage_params(const MegaArgs& a, int l,
       break;
     default: {
       const int f = g == kDense ? a.f_dense : g == kCrossDense
-                        ? a.f_crossdense : g == kFc1 ? a.f_fc1 : a.f_fc2;
+                        ? a.f_crossdense : g == kFc1 ? (m ? a.f_gate : a.f_fc1)
+                        : a.f_fc2;
       sc = a.flat_scale + flat + (size_t)f * a.d;
       bi = a.flat_bias + flat + (size_t)f * a.d;
     }
   }
 }
 
-// the scale and bias of the columns lane 0 of a warp finishes: j = warp +
-// 8 i of the block's item, and at q/k/v with an int8 self cache the
-// layer's kv_oq, requested at the stage's start
+// The epilogue's scale and bias, requested at the stage's start so that
+// no thread waits for them before the stage's own loads are out.
+// Whisper's items are whole: lane 0 of warp w holds those of its columns
+// w + 8 i in registers (ws, wb).  The decoder-only set's pieces and gate
+// move a column between warps: thread t < c * mats requests column t % c
+// of matrix t / c (s, b) and puts it in shared memory just before the
+// GEMV (epi_store: es[m][j], eb[m][j]).
 struct Epi {
-  float s[kColsWarp], b[kColsWarp];
-  float oq;
+  float s, b;
+  float ws[kColsWarp], wb[kColsWarp];
 };
 
-__device__ __forceinline__ void epi_load(const MegaArgs& a, int l, int g,
-                                         int n_out, Epi& e) {
-  const int warp = threadIdx.x >> 5, c = a.item_c[g];
-  const int col0 = blockIdx.x * c;
+__device__ __forceinline__ void epi_fetch(const MegaArgs& a, int l, int g,
+                                          int n_out, Epi& e) {
+  const int c = a.item_c[g], tid = threadIdx.x;
   const float *sc, *bi;
-  stage_params(a, l, g, sc, bi);
-  if ((threadIdx.x & 31) == 0 && (int)blockIdx.x < a.items[g]) {
-    if (g == kQkv && a.self_int8) e.oq = __ldg(a.kv_oq + l);
+  if constexpr (kDecoderOnly) {
+    e.s = e.b = 0.f;
+    if (tid < c * stage_mats(a, g)) {
+      const int m = tid / c, n = blockIdx.x * c + tid % c;
+      if (n < n_out) {
+        stage_params(a, l, g, m, sc, bi);
+        e.s = __ldg(sc + n);
+        e.b = __ldg(bi + n);
+      }
+    }
+  } else {
+    const int warp = tid >> 5, col0 = blockIdx.x * c;
+    stage_params(a, l, g, 0, sc, bi);
+    if ((tid & 31) == 0 && (int)blockIdx.x < a.items[g]) {
 #pragma unroll
-    for (int i = 0; i < kColsWarp; ++i) {
-      const int n = col0 + warp + kWarps * i;
-      if (warp + kWarps * i < c && n < n_out) {
-        e.s[i] = __ldg(sc + n);
-        e.b[i] = __ldg(bi + n);
+      for (int i = 0; i < kColsWarp; ++i) {
+        const int n = col0 + warp + kWarps * i;
+        if (warp + kWarps * i < c && n < n_out) {
+          e.ws[i] = __ldg(sc + n);
+          e.wb[i] = __ldg(bi + n);
+        }
       }
     }
   }
 }
 
-// The block's item of GEMV stage g in layer l: sum_k vin[k] W[k, n] for
-// the item's c columns n (those below n_out), the item's bytes at ring
-// offset `off` (c columns of K contiguous int8, wrapping at the ring's
-// end; `part` holds a vector's sum each), then the epilogue: out[n] =
-// affine(sum, scale, bias), after fc1 its GELU, all rounded to bf16; after
-// q/k/v the fresh K and V also to `fresh` (with an int8 self cache
-// quantised, in `fresh` and in `out` alike).
-__device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
-                          uint32_t off, const float* vin, float* part,
-                          float* out, int n_out, const Epi& e) {
+__device__ __forceinline__ void epi_store(const MegaArgs& a, int g,
+                                          const Epi& e,
+                                          float (*es)[kItemCols],
+                                          float (*eb)[kItemCols]) {
+  const int c = a.item_c[g], tid = threadIdx.x;
+  if (kDecoderOnly && tid < c * stage_mats(a, g)) {
+    es[tid / c][tid % c] = e.s;
+    eb[tid / c][tid % c] = e.b;
+  }
+}
+
+// The sums of one piece of the block's item of stage g: sum_k vin[k] W[k, j]
+// for its columns (the piece's bytes at ring offset `off`, its columns' K
+// contiguous, wrapping at the ring's end; `part` holds a vector's sum
+// each).  Lane 0 of warp w gets column w + 8 i's sum in cs[i].
+template <typename WT>
+__device__ __forceinline__ void gemv_piece(const MegaArgs& a, const Ring& r,
+                                           int g, int cols, uint32_t off,
+                                           const float* vin, float* part,
+                                           float* cs) {
+  constexpr int kVals = 16 / sizeof(WT);      // weights a vector
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = a.item_c[g], K = a.item_k[g], vk = K / 16;
-  const int col0 = blockIdx.x * c;
-  const int nv = c * vk;
+  const int vk = a.item_k[g] / kVals;
+  const int nv = cols * vk;
   // v: the vector's place in its column (f % vk, kept by steps)
   const int v_step = kThreads % vk;
   int v = tid % vk;
@@ -429,66 +600,91 @@ __device__ void gemv_item(const MegaArgs& a, const Ring& r, int l, int g,
     uint32_t pos = off + 16u * f;
     if (pos >= r.bytes) pos -= r.bytes;
     const uint4 w = *reinterpret_cast<const uint4*>(r.buf + pos);
-    const float4* xv = reinterpret_cast<const float4*>(vin + vpos(16 * v));
+    part[f] = vec_dot(w, vin + vpos(kVals * v), (const WT*)nullptr);
     v += v_step;
     if (v >= vk) v -= vk;
-    const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
-                               w.z ^ 0x80808080u, w.w ^ 0x80808080u};
-    // four chains of four products, then their sum: a short dependency
-    float sq[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 x = xv[q];
-      float t = x.x * int8_at(words[q], 0);
-      t = fmaf(x.y, int8_at(words[q], 1), t);
-      t = fmaf(x.z, int8_at(words[q], 2), t);
-      sq[q] = fmaf(x.w, int8_at(words[q], 3), t);
-    }
-    part[f] = (sq[0] + sq[1]) + (sq[2] + sq[3]);
   }
   __syncthreads();
-  // a warp's columns side by side, so that their chains interleave
-  float cs[kColsWarp];
+  // a warp's columns side by side, so that their chains interleave; four
+  // rounds of their loads at once (the sums in order)
 #pragma unroll
   for (int i = 0; i < kColsWarp; ++i) cs[i] = 0.f;
+#pragma unroll 4
   for (int t = lane; t < vk; t += 32) {
 #pragma unroll
     for (int i = 0; i < kColsWarp; ++i)
-      if (warp + kWarps * i < c) cs[i] += part[(warp + kWarps * i) * vk + t];
+      if (warp + kWarps * i < cols) cs[i] += part[(warp + kWarps * i) * vk + t];
   }
 #pragma unroll
   for (int i = 0; i < kColsWarp; ++i) cs[i] = warp_sum(cs[i]);
-#pragma unroll
-  for (int i = 0; i < kColsWarp; ++i) {
-    const int j = warp + kWarps * i;
-    const float s = cs[i];
-    const int n = col0 + j;
-    if (lane == 0 && j < c && n < n_out) {
-      float v = affine(s, e.s[i], e.b[i]);
-      if (g == kFc1) v = bf16r(gelu_tanh(v));
-      if (g == kQkv && n >= a.d) {     // k or v: [L, 2, H, D] = [L, 2, d]
-        const size_t f = ((size_t)l * 2 + n / a.d - 1) * a.d + n % a.d;
-        if (a.self_int8) {
-          v = quant_kv(v, e.oq);
-          static_cast<int8_t*>(a.fresh)[f] = (int8_t)v;
-        } else {
-          static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(v);
-        }
-      }
-      __stcg(out + n, v);
-    }
-  }
 }
 
-// one GEMV stage: wait for the block's item, run it, release its bytes
+// One GEMV stage: the block's item, piece by piece (the gated stage's fc
+// pieces, then its gate pieces), each waited for, summed, finished and
+// released.  The epilogue (lane 0 of a column's warp): out[n] =
+// affine(sum, scale, bias); after fc1 its activation (held in `hold` when
+// the gate follows, whose column then writes act * gate); after q/k/v the
+// fresh V also to `fresh` (with an int8 self cache quantised, in `fresh`
+// and in `out` alike).  All rounded to bf16.  The weights' type WT comes
+// from the last argument, a null pointer of that type; `t` is the ring's
+// table of loads.
+template <typename WT>
 __device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
                            const float* vin, float* part, float* out,
-                           int n_out, const Epi& e) {
-  const uint32_t sz = load_bytes(a, g);
-  const uint32_t off = ring_wait(r, sz);
-  if (sz) gemv_item(a, r, l, g, off, vin, part, out, n_out, e);
-  __syncthreads();
-  ring_release(a, r, sz);
+                           int n_out, float (*es)[kItemCols],
+                           float (*eb)[kItemCols], float* hold,
+                           const Loads& t, const Epi& e, const WT*) {
+  const int mats = stage_mats(a, g);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = a.item_c[g], pc = a.piece_c[g];
+  const int col0 = blockIdx.x * c;
+  for (int m = 0; m < mats; ++m) {
+    for (int p = 0; p < stage_pieces(a, g); ++p) {
+      const int cols = piece_cols(a, g, p);
+      const uint32_t sz = piece_bytes(a, g, p);
+      const uint32_t off = ring_wait(r, sz);
+      // the epilogue's parameters in registers before the sums
+      float cs[kColsWarp], sc[kColsWarp], bi[kColsWarp];
+#pragma unroll
+      for (int i = 0; i < kColsWarp; ++i) {
+        const int j = min(p * pc + warp + kWarps * i, kItemCols - 1);
+        sc[i] = kDecoderOnly ? es[m][j] : e.ws[i];
+        bi[i] = kDecoderOnly ? eb[m][j] : e.wb[i];
+      }
+      gemv_piece<WT>(a, r, g, cols, off, vin, part, cs);
+#pragma unroll
+      for (int i = 0; i < kColsWarp; ++i) {
+        const int jl = warp + kWarps * i;
+        const int j = p * pc + jl;
+        const int n = col0 + j;
+        if (lane != 0 || jl >= cols || n >= n_out) continue;
+        float v = affine(cs[i], sc[i], bi[i]);
+        if (g == kFc1) {
+          if (m == 0) {
+            v = bf16r(kDecoderOnly ? activate(v, a.act) : activate(v, 0));
+            if (mats == 2) {
+              hold[j] = v;        // the same thread finishes the gate's j
+              continue;
+            }
+          } else {
+            v = bf16r(hold[j] * v);
+          }
+        }
+        if (g == kQkv && n >= 2 * a.d) {  // v: [L, 2, H, D] = [L, 2, d]
+          const size_t f = ((size_t)l * 2 + 1) * a.d + n - 2 * a.d;
+          if (a.self_int8) {
+            v = quant_kv(v, __ldg(a.kv_oq + l));
+            static_cast<int8_t*>(a.fresh)[f] = (int8_t)v;
+          } else {
+            static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(v);
+          }
+        }
+        __stcg(out + n, v);
+      }
+      __syncthreads();
+      ring_release(a, t, r, sz);
+    }
+  }
 }
 
 // -- prefetching the next stages' operands into L2 --------------------------
@@ -498,24 +694,27 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 }
 
 // stage g of layer l: the epilogue's scale and bias of the block's item
-// and, m >= 0, LayerNorm m's weight and bias (lines of 32 floats)
+// (both matrices of the gated stage) and, m >= 0, norm m's weight and bias
+// (lines of 32 floats)
 __device__ void prefetch_params(const MegaArgs& a, int l, int g, int m) {
   if (l >= a.n_layer) return;
   const int tid = threadIdx.x, c = a.item_c[g];
-  const float *sc, *bi;
-  stage_params(a, l, g, sc, bi);
-  if ((int)blockIdx.x < a.items[g] && 32 * tid < c) {
-    const int n = blockIdx.x * c + 32 * tid;
-    prefetch_l2(sc + n);
-    prefetch_l2(bi + n);
+  for (int mat = 0; mat < stage_mats(a, g); ++mat) {
+    const float *sc, *bi;
+    stage_params(a, l, g, mat, sc, bi);
+    if (32 * tid < c) {
+      const int n = blockIdx.x * c + 32 * tid;
+      prefetch_l2(sc + n);
+      prefetch_l2(bi + n);
+    }
   }
   if (m >= 0 && 32 * tid < 2 * a.d)
-    prefetch_l2(a.ln_par + ((size_t)l * 6 + 2 * m) * a.d + 32 * tid);
+    prefetch_l2(a.ln_par + ((size_t)l * 2 * a.n_ln + 2 * m) * a.d + 32 * tid);
 }
 
 // the block's attention item of this stage (item blockIdx.x, if any): the
-// 64 rows of its K and V slice, 128 bytes a thread
-template <typename CT>
+// HD rows of its K and V slice, in lines of 128 bytes
+template <typename CT, int HD>
 __device__ void prefetch_attn(const CT* cache, int l, int H, int S, int n_cols,
                               int nslices) {
   const int it = blockIdx.x;
@@ -523,12 +722,43 @@ __device__ void prefetch_attn(const CT* cache, int l, int H, int S, int n_cols,
   const int h = it / nslices, c0 = (it % nslices) * kSplit;
   const int n = min(n_cols, c0 + kSplit) - c0;
   constexpr int kPerLine = 128 / sizeof(CT);
-  const int row = threadIdx.x / 4, line = threadIdx.x % 4;
-  if (n <= 0 || line * kPerLine >= n) return;
-  const size_t head = (size_t)kD * S;
-  const size_t off = (size_t)row * S + c0 + line * kPerLine;
-  prefetch_l2(cache + ((size_t)l * 2 * H + h) * head + off);
-  prefetch_l2(cache + ((size_t)(l * 2 + 1) * H + h) * head + off);
+  constexpr int kLines = kSplit / kPerLine;
+  const size_t head = (size_t)HD * S;
+  for (int i = threadIdx.x; i < HD * kLines; i += kThreads) {
+    const int row = i / kLines, line = i % kLines;
+    if (n <= 0 || line * kPerLine >= n) continue;
+    const size_t off = (size_t)row * S + c0 + line * kPerLine;
+    prefetch_l2(cache + ((size_t)l * 2 * H + h) * head + off);
+    prefetch_l2(cache + ((size_t)(l * 2 + 1) * H + h) * head + off);
+  }
+}
+
+// -- RoPE ---------------------------------------------------------------------
+
+// The rotary position and frequencies of the step (rope_dim 0: none).
+struct Rope {
+  int dim, neox, pos;
+  const float* inv_freq;
+};
+
+// Channel t (< HD) of a head rotated: x is its value, xp its partner's
+// (t +- half, or t ^ 1 interleaved), both bf16 values; the result in fp32
+// (x1 cos - x2 sin, x2 cos + x1 sin, products and sum not contracted).
+__device__ __forceinline__ float rotate(const Rope& rp, int t, float x,
+                                        float xp) {
+  if (t >= rp.dim) return x;
+  const int half = rp.dim / 2;
+  const bool first = rp.neox ? t < half : (t & 1) == 0;
+  const int i = rp.neox ? t % half : t / 2;
+  const float ang = __fmul_rn((float)rp.pos, __ldg(rp.inv_freq + i));
+  const float cs = cosf(ang), sn = sinf(ang);
+  return first ? __fsub_rn(__fmul_rn(x, cs), __fmul_rn(xp, sn))
+               : __fadd_rn(__fmul_rn(x, cs), __fmul_rn(xp, sn));
+}
+__device__ __forceinline__ int partner(const Rope& rp, int t) {
+  if (t >= rp.dim) return t;
+  return rp.neox ? (t < rp.dim / 2 ? t + rp.dim / 2 : t - rp.dim / 2)
+                 : (t ^ 1);
 }
 
 // -- attention ----------------------------------------------------------------
@@ -545,64 +775,88 @@ __device__ __forceinline__ void word_f(uint32_t w, const int8_t*, float* f) {
     f[e] = (float)(int8_t)(w >> (8 * e));
 }
 
-// One attention item: q (unscaled, [kD] of q_src) against columns [c0, c1)
-// of one head's K and V [kD, S]; writes max, sum and P*V.  The cache is
+// One attention item: q ([HD] of q_src, rotated with a rotary step, then
+// kept in q_s) against columns [c0, c1) of one head's K and V [HD, S], the
+// columns below `start` masked; writes max, sum and P*V.  The cache is
 // read in 4-byte words of kVec columns (2 bf16 or 4 int8; S and c0
 // multiples of kVec).  Scores: thread t takes word t % (256 / kVec) of
-// kVec rows-groups' rows (64 / kVec rows each), its q and keys requested
-// in one round, and the groups' partial dots meet in `sp` (shared memory,
-// kVec x 256 floats) in group order.  P*V: warp w takes rows w, w + 8, ...,
-// a lane words lane, lane + 32, ...; the slice of the values requested
-// while the block reduces the scores.
-template <typename CT>
+// kVec row groups' rows (HD / kVec rows each, requested in rounds of at
+// most 32), its q and the first round's keys requested together, and the
+// groups' partial dots meet in `sp` (shared memory, kVec x 256 floats) in
+// group order.  P*V: warp w takes rows w, w + 8, ..., a lane words lane,
+// lane + 32, ...; the first 8 rows' values requested while the block
+// reduces the scores.
+template <typename CT, int HD, bool kRope>
 __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
-                          int S, int c0, int c1, const float* q_src,
-                          float qk_scale, float* q_s, float* p_s, float* sp,
-                          float* red, float* out) {
+                          int S, int c0, int c1, int start, const float* q_src,
+                          const Rope& rp, float qk_scale, float* q_s,
+                          float* p_s, float* sp, float* red, float* out) {
   constexpr int kVec = 4 / sizeof(CT);        // columns a word
   constexpr int kWordsRow = kSplit / kVec;    // words of a 256-column row
-  constexpr int kRowsG = kD / kVec;           // rows of a score group
-  constexpr int kRows = kD / kWarps;          // P*V rows a warp
+  constexpr int kRowsG = HD / kVec;           // rows of a score group
+  constexpr int kRound = kRowsG < 32 ? kRowsG : 32;  // rows a round
+  constexpr int kRows = HD / kWarps;          // P*V rows a warp
+  constexpr int kVRound = 8;                  // P*V rows a round
   constexpr int kWordsLane = kWordsRow / 32;  // P*V words a lane
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = c1 - c0;
-  const float qv = tid < kD ? __ldcg(q_src + tid) : 0.f;
+  float qv = 0.f, qp = 0.f;
+  if (tid < HD) {
+    qv = __ldcg(q_src + tid);
+    if (kRope && rp.dim) qp = __ldcg(q_src + partner(rp, tid));
+  }
   const int wi = tid % kWordsRow, rg = tid / kWordsRow;
   const bool wlive = kVec * wi < n;
-  uint32_t kw[kRowsG];
-#pragma unroll
-  for (int r = 0; r < kRowsG; ++r)
-    kw[r] = wlive ? *reinterpret_cast<const uint32_t*>(
-                        kp + (size_t)(rg * kRowsG + r) * S + c0 + kVec * wi)
-                  : 0u;
-  if (tid < kD) q_s[tid] = qv;
-  __syncthreads();
   float dot[kVec];
 #pragma unroll
   for (int e = 0; e < kVec; ++e) dot[e] = 0.f;
 #pragma unroll
-  for (int r = 0; r < kRowsG; ++r) {
-    float f[kVec];
-    word_f(kw[r], kp, f);
-    const float qd = q_s[rg * kRowsG + r];
+  for (int r0 = 0; r0 < kRowsG; r0 += kRound) {
+    uint32_t kw[kRound];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) dot[e] += qd * f[e];
+    for (int r = 0; r < kRound; ++r)
+      kw[r] = wlive ? *reinterpret_cast<const uint32_t*>(
+                          kp + (size_t)(rg * kRowsG + r0 + r) * S + c0 +
+                          kVec * wi)
+                    : 0u;
+    if (r0 == 0) {
+      if (tid < HD) {
+        if constexpr (kRope) {
+          if (rp.dim) qv = bf16r(rotate(rp, tid, qv, qp));
+        }
+        q_s[tid] = qv;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < kRound; ++r) {
+      float f[kVec];
+      word_f(kw[r], kp, f);
+      const float qd = q_s[rg * kRowsG + r0 + r];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) dot[e] += qd * f[e];
+    }
   }
 #pragma unroll
   for (int e = 0; e < kVec; ++e) sp[rg * kSplit + kVec * wi + e] = dot[e];
-  // the values, requested before the block reduces the scores
-  uint32_t vw[kRows][kWordsLane];
+  // the first round of values, requested before the block reduces the
+  // scores
+  uint32_t vw[kVRound][kWordsLane];
+  auto load_v = [&](int i0) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kVRound; ++i)
 #pragma unroll
-    for (int jj = 0; jj < kWordsLane; ++jj) {
-      const int j = kVec * (lane + 32 * jj);
-      vw[i][jj] = j < n ? *reinterpret_cast<const uint32_t*>(
-                              vp + (size_t)(warp + i * kWarps) * S + c0 + j)
-                        : 0u;
-    }
+      for (int jj = 0; jj < kWordsLane; ++jj) {
+        const int j = kVec * (lane + 32 * jj);
+        vw[i][jj] = j < n ? *reinterpret_cast<const uint32_t*>(
+                                vp + (size_t)(warp + (i0 + i) * kWarps) * S +
+                                c0 + j)
+                          : 0u;
+      }
+  };
+  load_v(0);
   __syncthreads();
-  const bool valid = tid < n;
+  const bool valid = tid < n && c0 + tid >= start;
   float s = kNeg;
   if (valid) {
     float t = 0.f;
@@ -616,25 +870,29 @@ __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
   p_s[tid] = bf16r(p);
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float part = 0.f;
+  for (int i0 = 0; i0 < kRows; i0 += kVRound) {
+    if (i0) load_v(i0);
 #pragma unroll
-    for (int jj = 0; jj < kWordsLane; ++jj) {
-      const int j = kVec * (lane + 32 * jj);
-      if (j < n) {
-        float f[kVec];
-        word_f(vw[i][jj], vp, f);
+    for (int i = 0; i < kVRound; ++i) {
+      float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const float pj = p_s[j + e];
-          // a masked column has p == 0 and adds nothing, even if not
-          // finite
-          part += pj != 0.f ? pj * f[e] : 0.f;
+      for (int jj = 0; jj < kWordsLane; ++jj) {
+        const int j = kVec * (lane + 32 * jj);
+        if (j < n) {
+          float f[kVec];
+          word_f(vw[i][jj], vp, f);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            const float pj = p_s[j + e];
+            // a masked column has p == 0 and adds nothing, even if not
+            // finite
+            part += pj != 0.f ? pj * f[e] : 0.f;
+          }
         }
       }
+      part = warp_sum(part);
+      if (lane == 0) __stcg(out + 2 + warp + (i0 + i) * kWarps, part);
     }
-    part = warp_sum(part);
-    if (lane == 0) __stcg(out + 2 + warp + i * kWarps, part);
   }
   if (tid == 0) {
     __stcg(out, m);
@@ -644,38 +902,62 @@ __device__ void attn_item(const CT* __restrict__ kp, const CT* __restrict__ vp,
 }
 
 // The last item of head h to finish combines the head's ns slices into
-// its 64 values of the context row (`ctx`, rounded to bf16): the slices'
+// its HD values of the context row (`ctx`, rounded to bf16): the slices'
 // max M, weights exp(m_s - M) and weighted sum of their sums; with the
-// fresh column (self-attention: q and the fresh k, v from qkv, their score
-// in fp32; with an int8 cache (CT) the score times scale * kscale and the
-// context times kscale) or without (cross: the context times kscale /
-// denominator).  The slices' partials, q, k and v are requested in one
-// round.
-template <typename CT>
-__device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
-                            int h, const float* qkv, float kscale,
+// fresh column (self-attention: q as the item left it in q_s, the fresh k
+// from qkv rotated, quantised with an int8 cache (CT) and written to
+// `fresh` here, v from qkv; their score in fp32; with an int8 cache the
+// score times scale * kscale and the context times kscale) or without
+// (cross: the context times kscale / denominator).  The slices' partials,
+// k (and its rotary partner) and v are requested in one round.
+template <typename CT, int HD, bool kRope>
+__device__ void finish_head(const MegaArgs& a, int l, const float* att_h,
+                            int ns, int h, const float* qkv, float kscale,
+                            const Rope& rp, const float* q_s, float* k_s,
                             float* fin) {
+  constexpr int kAtt = HD + 2;
   const int tid = threadIdx.x, lane = tid & 31;
   const bool self = qkv != nullptr;
   const bool qself = self && sizeof(CT) == 1;   // the int8 self cache
   float* wts = fin + 4;                      // [kMaxSplits]
   float pv[kMaxSplits];
-  float vf = 0.f;
-  if (tid < kD) {
+  float vf = 0.f, kf = 0.f, kp = 0.f;
+  if (tid < HD) {
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
       if (s < ns) pv[s] = __ldcg(att_h + s * kAtt + 2 + tid);
-    if (self) vf = __ldcg(qkv + 2 * a.d + h * kD + tid);
+    if (self) {
+      kf = __ldcg(qkv + a.d + h * HD + tid);
+      if (kRope && rp.dim)
+        kp = __ldcg(qkv + a.d + h * HD + partner(rp, tid));
+      vf = __ldcg(qkv + 2 * a.d + h * HD + tid);
+    }
   }
+  float ms = kNeg, ls = 0.f;
+  if (tid < 32 && lane < ns) {
+    ms = __ldcg(att_h + lane * kAtt);
+    ls = __ldcg(att_h + lane * kAtt + 1);
+  }
+  if (self && tid < HD) {
+    if constexpr (kRope) {
+      if (rp.dim) kf = bf16r(rotate(rp, tid, kf, kp));
+    }
+    const size_t f = (size_t)l * 2 * a.d + h * HD + tid;   // [L, 2, d]
+    if (qself) {
+      kf = quant_kv(kf, __ldg(a.kv_oq + l));
+      static_cast<int8_t*>(a.fresh)[f] = (int8_t)kf;
+    } else {
+      static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(kf);
+    }
+    k_s[tid] = kf;
+  }
+  __syncthreads();
   if (tid < 32) {
-    const float* e = att_h + lane * kAtt;
-    const float ms = lane < ns ? __ldcg(e) : kNeg;
-    const float ls = lane < ns ? __ldcg(e + 1) : 0.f;
     float qk = 0.f;
     if (self) {
-      const float* q = qkv + h * kD;
-      qk = __ldcg(q + lane) * __ldcg(q + a.d + lane) +
-           __ldcg(q + lane + 32) * __ldcg(q + a.d + lane + 32);
+#pragma unroll
+      for (int j = 0; j < HD / 32; ++j)
+        qk += q_s[lane + 32 * j] * k_s[lane + 32 * j];
     }
     const float M = warp_max(ms);
     const float w = lane < ns ? expf(ms - M) : 0.f;
@@ -695,7 +977,7 @@ __device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
     }
   }
   __syncthreads();
-  if (tid < kD) {
+  if (tid < HD) {
     float acc = 0.f;
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
@@ -705,58 +987,114 @@ __device__ void finish_head(const MegaArgs& a, const float* att_h, int ns,
                       fin[2])
         : self ? bf16r((acc * fin[0] + vf * fin[1]) / fin[2])
                : bf16r(acc * (kscale / fin[2]));
-    __stcg(a.ctx + h * kD + tid, v);
+    __stcg(a.ctx + h * HD + tid, v);
   }
   __syncthreads();
 }
 
+// A head of more than kMaxSplits slices (a cache longer than 2048
+// columns; the decoder-only set): slices kMaxSplits - 1 .. ns - 1 folded
+// into slot kMaxSplits - 1 (their max M, weights exp(m_s - M), the
+// weighted sums of their sums and P*V, in slice order), so that the
+// finish combines kMaxSplits.  Out of line: a head of kMaxSplits slices
+// or fewer never runs it.
+template <int HD>
+__device__ __noinline__ void fold_slices(float* att_h, int ns, float* red) {
+  constexpr int kAtt = HD + 2, s0 = kMaxSplits - 1;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 32) {
+    float m = kNeg;
+    for (int s = s0 + lane; s < ns; s += 32)
+      m = fmaxf(m, __ldcg(att_h + s * kAtt));
+    m = warp_max(m);
+    if (lane == 0) red[0] = m;
+  }
+  __syncthreads();
+  const float M = red[0];
+  float acc = 0.f, lsum = 0.f;
+  if (tid < HD) {
+#pragma unroll 4
+    for (int s = s0; s < ns; ++s) {
+      const float w = expf(__ldcg(att_h + s * kAtt) - M);
+      acc += __ldcg(att_h + s * kAtt + 2 + tid) * w;
+      if (tid == 0) lsum += __ldcg(att_h + s * kAtt + 1) * w;
+    }
+  }
+  __syncthreads();              // every slot read before slot s0 is written
+  if (tid < HD) __stcg(att_h + s0 * kAtt + 2 + tid, acc);
+  if (tid == 0) {
+    __stcg(att_h + s0 * kAtt, M);
+    __stcg(att_h + s0 * kAtt + 1, lsum);
+  }
+  __syncthreads();
+}
+
+// Scratch of the attention stages in static shared memory.
+template <int HD>
+struct AttnSmem {
+  float red[kWarps];
+  float p_s[kSplit];
+  float q_s[HD];
+  float k_s[HD];
+  float fin[4 + kMaxSplits];     // a head's finish: alpha, pf, denominator,
+                                 // weights
+  int last;
+};
+
 // An attention stage: every item (h, s) of this block, then, for the
 // last of a head's items to finish (an arrival counted on the head's
 // counter; a head of one slice needs none), the head's context.
-template <typename CT>
-__device__ void attn_stage(const MegaArgs& a, const CT* cache, int l,
-                           int S, int n_cols, int ns, const float* q_row,
+template <typename CT, int HD, bool kRope>
+__device__ void attn_stage(const MegaArgs& a, const CT* cache, int l, int S,
+                           int n_cols, int ns, int start, const float* q_row,
                            float qk_scale, const float* qkv, float kscale,
-                           unsigned int* count, float* q_s, float* p_s,
-                           float* sp, float* red, float* fin, int* last_s) {
+                           const Rope& rp, unsigned int* count, float* sp,
+                           AttnSmem<HD>& sm) {
+  constexpr int kAtt = HD + 2;
   const int H = a.n_head;
-  const size_t head = (size_t)kD * S;
+  const size_t head = (size_t)HD * S;
   for (int it = blockIdx.x; it < H * ns; it += gridDim.x) {
     const int h = it / ns, s = it % ns;
-    const float* att_h = a.att + (size_t)h * ns * kAtt;
-    attn_item<CT>(cache + ((size_t)l * 2 * H + h) * head,
-                  cache + ((size_t)(l * 2 + 1) * H + h) * head, S,
-                  s * kSplit, min(n_cols, (s + 1) * kSplit),
-                  q_row + h * kD, qk_scale, q_s, p_s, sp, red,
-                  a.att + ((size_t)h * ns + s) * kAtt);
+    float* att_h = a.att + (size_t)h * ns * kAtt;
+    attn_item<CT, HD, kRope>(cache + ((size_t)l * 2 * H + h) * head,
+                      cache + ((size_t)(l * 2 + 1) * H + h) * head, S,
+                      s * kSplit, min(n_cols, (s + 1) * kSplit), start,
+                      q_row + h * HD, rp, qk_scale, sm.q_s, sm.p_s, sp,
+                      sm.red, a.att + ((size_t)h * ns + s) * kAtt);
     if (ns > 1) {
       // the item's partial, then its arrival (release); the last to
       // arrive reads every slice's (acquire)
       if (threadIdx.x == 0) {
         __threadfence();
-        *last_s = atomicAdd(count + h, 1u) == (unsigned int)(ns - 1);
+        sm.last = atomicAdd(count + h, 1u) == (unsigned int)(ns - 1);
         __threadfence();
       }
       __syncthreads();
-      if (!*last_s) continue;
+      if (!sm.last) continue;
     }
-    finish_head<CT>(a, att_h, ns, h, qkv, kscale, fin);
+    if constexpr (kDecoderOnly) {   // Whisper's caches take 8 slices
+      if (ns > kMaxSplits) fold_slices<HD>(att_h, ns, sm.red);
+    }
+    finish_head<CT, HD, kRope>(a, l, att_h, min(ns, kMaxSplits), h, qkv,
+                               kscale, rp, sm.q_s, sm.k_s, sm.fin);
   }
 }
 
 // the dynamic shared memory: the residual row, the input row (padded), a
-// vector's sum each of the largest item (or an attention item's partial
+// vector's sum each of the largest piece (or an attention item's partial
 // dots), then the ring
 struct Smem {
   size_t vin, part, ring;
 };
 
 __host__ __device__ inline Smem smem_layout(const MegaArgs& a) {
+  const int vals = a.weight_bf16 ? 8 : 16;
   size_t vin_n = 0, part_n = 0;
   for (int g = 0; g < kStages; ++g) {
+    if (a.items[g] == 0) continue;
     const size_t k = a.item_k[g];
     vin_n = vin_n > k ? vin_n : k;
-    const size_t p = (size_t)a.item_c[g] * (k / 16);
+    const size_t p = (size_t)a.piece_c[g] * (k / vals);
     part_n = part_n > p ? part_n : p;
   }
   // part also holds an attention item's partial dots (4 groups x 256)
@@ -769,8 +1107,9 @@ __host__ __device__ inline Smem smem_layout(const MegaArgs& a) {
   return s;
 }
 
-// CT: the cross cache's element type, ST: the self cache's
-template <typename CT, typename ST>
+// CT: the cross cache's element type, ST: the self cache's, WT: the
+// weights', HD: the head dim
+template <typename CT, typename ST, typename WT, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 megakernel(const MegaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -778,13 +1117,11 @@ megakernel(const MegaArgs a) {
   float* xs = reinterpret_cast<float*>(smem);             // [d] residual
   float* vin = reinterpret_cast<float*>(smem + lay.vin);  // the input row
   float* part = reinterpret_cast<float*>(smem + lay.part);
-  __shared__ float red[kWarps];
-  __shared__ float p_s[kSplit];
-  __shared__ float q_s[kD];
-  __shared__ float fin[4 + kMaxSplits];     // a head's finish: alpha, pf,
-                                            // denominator, weights
-  __shared__ int last_s;
+  __shared__ AttnSmem<HD> sm;
+  __shared__ float es[2][kItemCols], eb[2][kItemCols];  // the epilogue's
+  __shared__ float hold[kItemCols];       // act(fc) of the gated stage
   __shared__ __align__(8) uint64_t bars[kSlots];
+  __shared__ Loads loads;
 
   const int tid = threadIdx.x;
   const int d = a.d, H = a.n_head, S = a.s_self, Sc = a.s_cross;
@@ -792,58 +1129,73 @@ megakernel(const MegaArgs a) {
   const int n_valid = min(max(a.seq_len[0] - 1, 0), S);  // cache columns
   const int ns = max(1, (n_valid + kSplit - 1) / kSplit);
   const int nsc = (Sc + kSplit - 1) / kSplit;
+  const int start = a.start ? a.start[0] : 0;
+  const Rope rope{a.rope_dim, a.rope_neox, max(a.write_index - start, 0),
+                  a.inv_freq};
+  const Rope no_rope{0, 0, 0, nullptr};
   constexpr bool kSelfInt8 = sizeof(ST) == 1;
   const ST* selfc = static_cast<const ST*>(a.self_cache);
   const CT* crossc = static_cast<const CT*>(a.cross_cache);
   const __nv_bfloat16* x_in = static_cast<const __nv_bfloat16*>(a.x);
+  const bool rms = kDecoderOnly && a.norm_rms != 0;
   unsigned int gen = 0;                   // the barrier counter's target
 
   Ring ring{reinterpret_cast<int8_t*>(smem + lay.ring), bars,
-            (uint32_t)a.ring_bytes, 0u, 0u, 0, 0, a.n_layer * kStages};
+            (uint32_t)a.ring_bytes, 0u, 0u, 0, 0, 0, 0};
   if (tid == 0) {
     for (int i = 0; i < kSlots; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
           smem_u32(&bars[i])));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    ring_pump(a, ring);
+    loads_init(a, loads);
+    if (loads.n == 0) ring.l = a.n_layer;          // a block with no items
+    ring_pump(a, loads, ring);
   }
   for (int i = tid; i < d; i += kThreads) xs[i] = to_f(x_in[i]);
   __syncthreads();
 
-  // The layer as a loop over its 8 stages, each component written once:
+  // The layer as a loop over its stages, each component written once:
   // the kernel's code has to stay small for the instruction cache (written
   // out stage by stage it is twice as large, and every stage runs from a
   // cold cache).  Stage st ends with GEMV g (none for the attention stages
-  // 1 and 4) and a grid barrier:
-  //   0. the previous layer's fc2 into the residual; LN1; q, k, v -> A
-  //      (and the fresh K/V out)
+  // 1 and 4) and a grid barrier; without cross-attention stages 3-5 are
+  // skipped:
+  //   0. the previous layer's fc2 into the residual; norm 0; q, k, v -> A
+  //      (and the fresh V out)
   //   1. self-attention slices over the cache; each head's last slice
-  //      combines them with the fresh column -> ctx
+  //      rotates, writes the fresh K and combines them with the fresh
+  //      column -> ctx
   //   2. out-projection of ctx -> B
-  //   3. residual; LN2; cross-q -> A
+  //   3. residual; norm 1; cross-q -> A
   //   4. cross-attention slices; each head's last slice combines them,
   //      times kscale / denominator -> ctx
   //   5. cross-out of ctx -> B
-  //   6. residual; LN3; fc1 and its GELU -> A (nf * d outputs)
+  //   6. residual; the MLP's norm (norm 2 with cross-attention, 1
+  //      without; under the parallel residual norm 0 of the residual
+  //      before this update); fc1 (, the gate) and the activation -> A
+  //      (nf * d outputs)
   //   7. fc2 (K = nf * d) over fc1's finished row -> B
-  Epi ep;
+  const bool parallel = kDecoderOnly && a.parallel;
+  const int mlp_norm = !kDecoderOnly ? 2 : parallel ? 0 : 1;
   for (int l = 0; l < a.n_layer; ++l) {
-    const float* ln = a.ln_par + (size_t)l * 6 * d;
+    const float* ln = a.ln_par + (size_t)l * 2 * a.n_ln * d;
     const float kscale = a.cross_scale ? a.cross_scale[l] : 1.f;
     const float kqo = kSelfInt8 ? a.kv_qo[l] : 1.f;
     for (int st = 0; st < kLayerStages; ++st) {
+      if (kDecoderOnly && st >= 3 && st <= 5) continue;
       const int g = st == 0 ? kQkv : st == 2 ? kDense : st == 3 ? kCrossQ
                   : st == 5 ? kCrossDense : st == 6 ? kFc1
                   : st == 7 ? kFc2 : -1;
       const int n_out = g == kQkv ? 3 * d : g == kFc1 ? nf * d : d;
-      if (g >= 0) epi_load(a, l, g, n_out, ep);
+      Epi ep;
+      if (g >= 0) epi_fetch(a, l, g, n_out, ep);
       if (st == 0 || st == 3 || st == 6) {
-        const int m = st / 3;                 // LayerNorm m
-        residual_ln(st == 0 && l == 0 ? nullptr : a.act_b,
-                    ln + 2 * m * d, ln + (2 * m + 1) * d, xs, vin, d, a.eps,
-                    red);
+        const int m = st == 0 ? 0 : st == 3 ? 1 : mlp_norm;
+        residual_norm(st == 0 && l == 0 ? nullptr : a.act_b,
+                      st == 6 && parallel, ln + 2 * m * d,
+                      ln + (2 * m + 1) * d, xs, vin, d, a.eps, rms, sm.red);
       } else if (st == 2 || st == 5 || st == 7) {
-        // the finished row the GEMV reads: the context, or GELU(fc1)
+        // the finished row the GEMV reads: the context, or act(fc1)
         const float* row = st == 7 ? a.act_a : a.ctx;
         const int n = st == 7 ? nf * d : d;
         float f[kPerFc];
@@ -859,32 +1211,43 @@ megakernel(const MegaArgs a) {
         }
         __syncthreads();
       } else if (st == 1) {
-        attn_stage<ST>(a, selfc, l, S, n_valid, ns, a.act_a,
-                       kSelfInt8 ? a.scale * kqo : a.scale, a.act_a, kqo,
-                       a.heads + (size_t)l * H, q_s, p_s, part, red, fin,
-                       &last_s);
-      } else {
-        attn_stage<CT>(a, crossc, l, Sc, Sc, nsc, a.act_a, a.scale * kscale,
-                       nullptr, kscale,
-                       a.heads + (size_t)(a.n_layer + l) * H, q_s, p_s,
-                       part, red, fin, &last_s);
+        attn_stage<ST, HD, kDecoderOnly>(
+            a, selfc, l, S, n_valid, ns, start, a.act_a,
+            kSelfInt8 ? a.scale * kqo : a.scale, a.act_a, kqo, rope,
+            a.heads + (size_t)l * H, part, sm);
+      } else if constexpr (!kDecoderOnly) {
+        attn_stage<CT, HD, false>(a, crossc, l, Sc, Sc, nsc, 0, a.act_a,
+                                  a.scale * kscale, nullptr, kscale, no_rope,
+                                  a.heads + (size_t)(a.n_layer + l) * H, part,
+                                  sm);
       }
       if (g >= 0) {
         const bool to_a = g == kQkv || g == kCrossQ || g == kFc1;
+        // (the decoder-only set) read by the epilogue after the GEMV's
+        // first __syncthreads
+        epi_store(a, g, ep, es, eb);
         gemv_stage(a, ring, l, g, vin, part, to_a ? a.act_a : a.act_b,
-                   n_out, ep);
+                   n_out, es, eb, hold, loads, ep,
+                   static_cast<const WT*>(nullptr));
       }
       // what the stages after the barrier read from memory, into L2
       if (st == 0) {
-        prefetch_attn(selfc, l, H, S, n_valid, ns);
+        prefetch_attn<ST, HD>(selfc, l, H, S, n_valid, ns);
         prefetch_params(a, l, kDense, -1);
+      } else if (st == 1) {
+        prefetch_params(a, l, kDecoderOnly ? kFc1 : kCrossQ,
+                        kDecoderOnly ? mlp_norm : 1);
       } else if (st == 2) {
-        prefetch_attn(crossc, l, H, Sc, Sc, nsc);
-      } else if (st != 7) {
-        const int gn = st == 1 ? kCrossQ : st == 3 ? kCrossDense
-                     : st == 4 ? kFc1 : st == 5 ? kFc2 : kQkv;
-        const int m = st == 1 ? 1 : st == 4 ? 2 : st == 6 ? 0 : -1;
-        prefetch_params(a, st == 6 ? l + 1 : l, gn, m);
+        if constexpr (kDecoderOnly) prefetch_params(a, l, kFc2, -1);
+        else prefetch_attn<CT, HD>(crossc, l, H, Sc, Sc, nsc);
+      } else if (st == 3) {
+        prefetch_params(a, l, kCrossDense, -1);
+      } else if (st == 4) {
+        prefetch_params(a, l, kFc1, 2);
+      } else if (st == 5) {
+        prefetch_params(a, l, kFc2, -1);
+      } else if (st == 6) {
+        prefetch_params(a, l + 1, kQkv, 0);
       }
       grid_sync(a.barrier, gen);
     }
@@ -898,29 +1261,36 @@ megakernel(const MegaArgs a) {
   }
 }
 
-// the plan checked against the model's widths and the grid: per stage,
-// items of c columns covering its columns, at most one a block, K a
-// multiple of 16, the tiles contiguous in stage order
+// the plan checked against the model's widths and the grid: per stage the
+// model has, items of c columns covering its columns, at most one a block,
+// K a multiple of 16, pieces of 1..c columns, the tiles contiguous in
+// stage order (the gated fc1 item twice as long); a stage it has not, no
+// items
 bool plan_ok(const MegaArgs* a, int grid) {
   const long long cols[kStages] = {3LL * a->d, a->d, a->d, a->d,
                                    (long long)a->nf * a->d, a->d};
   const int ks[kStages] = {a->d, a->d, a->d, a->d, a->d, a->nf * a->d};
+  const int wb = a->weight_bf16 ? 2 : 1;
   long long off = 0;
   for (int g = 0; g < kStages; ++g) {
     const long long c = a->item_c[g], n = a->items[g];
-    if (c < 1 || c > kWarps * kColsWarp || n < 1 || n > grid ||
-        c * n < cols[g] ||
-        c * (n - 1) >= cols[g] || a->item_k[g] != ks[g] ||
-        ks[g] % 16 || a->tile_off[g] != off)
+    const bool has = a->with_cross || (g != kCrossQ && g != kCrossDense);
+    if (!has) {
+      if (c != 0 || n != 0 || a->tile_off[g] != off) return false;
+      continue;
+    }
+    if (c < 1 || c > kItemCols || n < 1 || n > grid || c * n < cols[g] ||
+        c * (n - 1) >= cols[g] || a->item_k[g] != ks[g] || ks[g] % 16 ||
+        a->piece_c[g] < 1 || a->piece_c[g] > c || a->tile_off[g] != off)
       return false;
-    off += c * n * ks[g];
+    off += c * n * ks[g] * wb * (g == kFc1 && a->gated ? 2 : 1);
   }
   return off == a->layer_bytes;
 }
 
-template <typename CT, typename ST>
+template <typename CT, typename ST, typename WT, int HD>
 int launch(const MegaArgs* a, void* stream) {
-  auto kernel = megakernel<CT, ST>;
+  auto kernel = megakernel<CT, ST, WT, HD>;
   cudaError_t e;
   int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -940,10 +1310,18 @@ int launch(const MegaArgs* a, void* stream) {
   long long ring = ((long long)smem - (long long)lay.ring) / 16 * 16;
   // the plan's cap on the ring (0: all that is left)
   if (a->ring_bytes > 0 && a->ring_bytes < ring) ring = a->ring_bytes / 16 * 16;
-  int largest = 0;
+  const int wb = a->weight_bf16 ? 2 : 1;
+  long long largest = 0;
   for (int g = 0; g < kStages; ++g)
-    largest = max(largest, a->item_c[g] * a->item_k[g]);
+    largest = max(largest, (long long)a->piece_c[g] * a->item_k[g] * wb);
   if (ring < largest) return (int)cudaErrorInvalidValue;
+  // a block's loads of a layer fit the table of the ring's walk
+  int n_loads = 0;
+  for (int g = 0; g < kStages; ++g)
+    if (a->items[g])
+      n_loads += (g == kFc1 && a->gated ? 2 : 1) *
+                 ((a->item_c[g] + a->piece_c[g] - 1) / a->piece_c[g]);
+  if (n_loads > kMaxLoads) return (int)cudaErrorInvalidValue;
   args.ring_bytes = (int)ring;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -960,25 +1338,60 @@ int launch(const MegaArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+#ifdef MEGA_DECODER_ONLY
+// the decoder-only set: no cross cache (its type is a placeholder)
+template <typename ST, typename WT>
+int launch_hd(const MegaArgs* a, void* stream) {
+  return a->head_dim == 128
+             ? launch<__nv_bfloat16, ST, WT, 128>(a, stream)
+             : launch<__nv_bfloat16, ST, WT, 64>(a, stream);
+}
+#endif
+
 }  // namespace
 
 extern "C" {
 
 // Returns 0 when the cooperative launch was enqueued, else the CUDA error
-// (cudaErrorInvalidValue for shapes or a plan it does not take).
+// (cudaErrorInvalidValue for shapes, modes or a plan it does not take).
+// The library built with MEGA_DECODER_ONLY takes decoders without
+// cross-attention (int8 or bf16 weights, head dim 64 or 128); the other,
+// Whisper's decoder (int8 weights, head dim 64).
 int decoder_megakernel(const MegaArgs* a, void* stream) {
-  if (a->d % kD || a->d / kD > kMaxHeads || a->n_head * kD != a->d ||
-      a->s_cross > kMaxSplits * kSplit || a->s_self > kMaxSplits * kSplit ||
-      a->nf < 1 || a->d > kPer * kThreads || a->nf * a->d > kPerFc * kThreads ||
+  if ((a->head_dim != 64 && a->head_dim != 128) || a->d % a->head_dim ||
+      a->d / a->head_dim > kMaxHeads || a->n_head * a->head_dim != a->d ||
+      a->nf < 1 ||
+      a->d > kPer * kThreads || a->nf * a->d > kPerFc * kThreads ||
       a->s_self % (a->self_int8 ? 4 : 2) ||
-      a->s_cross % (a->cross_int8 ? 4 : 2) ||
-      (a->self_int8 && (!a->kv_oq || !a->kv_qo)))
+      (a->self_int8 && (!a->kv_oq || !a->kv_qo)) ||
+      (a->rope_dim && (!a->inv_freq || a->rope_dim % 2 ||
+                       a->rope_dim > a->head_dim)) ||
+      a->act < 0 || a->act > 3 || a->n_ln < 1 || a->n_ln > 3)
     return (int)cudaErrorInvalidValue;
+#ifdef MEGA_DECODER_ONLY
+  if (a->with_cross) return (int)cudaErrorInvalidValue;
+  if (a->weight_bf16)
+    return a->self_int8 ? launch_hd<int8_t, __nv_bfloat16>(a, stream)
+                        : launch_hd<__nv_bfloat16, __nv_bfloat16>(a, stream);
+  return a->self_int8 ? launch_hd<int8_t, int8_t>(a, stream)
+                      : launch_hd<__nv_bfloat16, int8_t>(a, stream);
+#else
+  // Whisper's set: LayerNorm, tanh GELU, the sequential residual, no RoPE
+  if (!a->with_cross || a->weight_bf16 || a->head_dim != 64 ||
+      a->s_self > kMaxSplits * kSplit ||
+      a->s_cross > kMaxSplits * kSplit ||
+      a->s_cross % (a->cross_int8 ? 4 : 2) || a->norm_rms || a->act ||
+      a->gated || a->parallel || a->rope_dim)
+    return (int)cudaErrorInvalidValue;
+  for (int g = 0; g < kStages; ++g)       // whole items, one load each
+    if (a->piece_c[g] != a->item_c[g]) return (int)cudaErrorInvalidValue;
   if (a->self_int8)
-    return a->cross_int8 ? launch<int8_t, int8_t>(a, stream)
-                         : launch<__nv_bfloat16, int8_t>(a, stream);
-  return a->cross_int8 ? launch<int8_t, __nv_bfloat16>(a, stream)
-                       : launch<__nv_bfloat16, __nv_bfloat16>(a, stream);
+    return a->cross_int8 ? launch<int8_t, int8_t, int8_t, 64>(a, stream)
+                         : launch<__nv_bfloat16, int8_t, int8_t, 64>(a, stream);
+  return a->cross_int8 ? launch<int8_t, __nv_bfloat16, int8_t, 64>(a, stream)
+                       : launch<__nv_bfloat16, __nv_bfloat16, int8_t, 64>(
+                             a, stream);
+#endif
 }
 
 }  // extern "C"

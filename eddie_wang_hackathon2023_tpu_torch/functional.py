@@ -3,6 +3,7 @@
 PyTorch: none of these is a TPU kernel."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -17,10 +18,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 # the activations the decoder configs name (the part of the JAX package's
-# ``ACT2FN``, ``functional.py:81-93``, that its decoder megakernel takes):
-# "gelu" is the tanh approximation, "gelu_exact" the erf one
-ACT2FN = {"gelu": gelu, "gelu_exact": F.gelu, "relu": F.relu,
-          "silu": F.silu}
+# ``ACT2FN``, ``functional.py:81-93``, that the decoder families use):
+# "gelu" and "gelu_new" are the tanh approximation, "gelu_exact" the erf one
+ACT2FN = {"gelu": gelu, "gelu_new": gelu, "gelu_exact": F.gelu,
+          "relu": F.relu, "silu": F.silu}
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -37,6 +38,69 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis (no mean, no bias) with fp32 statistics;
+    the result is cast back to the input dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(rotary_dim: int, theta: float, device: torch.device
+               ) -> torch.Tensor:
+    """The rotary frequencies [rotary_dim // 2] fp32, ``1 / theta **
+    (arange(half) / half)`` as the JAX package computes them, made once on
+    the CPU and kept on ``device`` (no host copy a step)."""
+    half = rotary_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32)
+                             / half))
+    return freqs.to(device)
+
+
+def rope_angles(positions: torch.Tensor, rotary_dim: int,
+                theta: float = 10000.0):
+    """(cos, sin) [..., seq, rotary_dim // 2] fp32 of the angles position x
+    :func:`rope_freqs` (positions [..., seq]); one pair serves every layer
+    of a step."""
+    freqs = rope_freqs(rotary_dim, float(theta), positions.device)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               neox_style: bool = True) -> torch.Tensor:
+    """x [..., seq, n_heads, head_dim] rotated by :func:`rope_angles`' cos
+    and sin [..., seq, half]: the first 2 * half channels (GPT-NeoX halves,
+    or GPT-J interleaved pairs) in fp32, the rest passed through; the
+    result has x's dtype."""
+    half = cos.shape[-1]
+    rd = 2 * half
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    xf = x[..., :rd].float()
+    if neox_style:
+        x1, x2 = xf[..., :half], xf[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(xf.shape)
+    return torch.cat([out.to(x.dtype), x[..., rd:]], dim=-1)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+         rotary_dim: Optional[int] = None,
+         neox_style: bool = True) -> torch.Tensor:
+    """Rotary position embedding (the JAX package's ``rope``): x [..., seq,
+    n_heads, head_dim], positions [..., seq]; ``rotary_dim`` channels
+    rotate (all by default)."""
+    cos, sin = rope_angles(positions, rotary_dim or x.shape[-1], theta)
+    return apply_rope(x, cos, sin, neox_style)
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor,

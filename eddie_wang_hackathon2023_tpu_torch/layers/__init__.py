@@ -4,8 +4,9 @@ from .attention import Attention, QKVLinear
 from .conv import Conv1d
 from .embedding import Embedding
 from .linear import ColumnLinear, Linear, RowLinear
-from .mlp import MLP
-from .normalization import LayerNorm
+from .mlp import MLP, GatedMLP
+from .normalization import LayerNorm, RmsNorm
 
-__all__ = ["Attention", "ColumnLinear", "Conv1d", "Embedding", "Gelu",
-           "LayerNorm", "Linear", "MLP", "QKVLinear", "RowLinear"]
+__all__ = ["Attention", "ColumnLinear", "Conv1d", "Embedding", "GatedMLP",
+           "Gelu", "LayerNorm", "Linear", "MLP", "QKVLinear", "RmsNorm",
+           "RowLinear"]

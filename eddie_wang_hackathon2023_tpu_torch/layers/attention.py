@@ -37,6 +37,13 @@ Single-token decode over the stacked cache goes through the decode kernel
 when the cache has fewer heads), with the int8 out-projection fused when
 the dense layer is weight-only int8 (not int4) at batch 1 with equal heads
 (never with beams).
+Rotary positions (``rotary_embedding_dim`` > 0, the JAX layer's
+``PositionEmbeddingType.rope``, :427-435): q and k are rotated in every
+self-attention mode before the cache write, by the ``rotary`` (cos, sin)
+pair of the tokens' positions that the caller makes once a step
+(:func:`..functional.rope_angles`), GPT-NeoX halves or GPT-J interleaved
+pairs (``neox_rotary_style``) over the first ``rotary_embedding_dim``
+channels.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..functional import causal_bias
+from ..functional import apply_rope, causal_bias
 from ..ops.attention import (append_kv_stacked, cached_decode_attention,
                              cast_kv_for_cache, layer_kv_views,
                              multihead_attention)
@@ -158,7 +165,9 @@ class Attention(nn.Module):
                  bias: bool = True, dtype=torch.float32,
                  quant_mode: QuantMode = QuantMode(0),
                  num_kv_heads: Optional[int] = None,
-                 use_int8_kv_cache: bool = False):
+                 use_int8_kv_cache: bool = False,
+                 rotary_embedding_dim: int = 0,
+                 neox_rotary_style: bool = True):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
@@ -168,6 +177,8 @@ class Attention(nn.Module):
         self.causal = causal
         self.dtype = dtype
         self.use_int8_kv_cache = use_int8_kv_cache
+        self.rotary_embedding_dim = rotary_embedding_dim
+        self.neox_rotary_style = neox_rotary_style
         # the int8 self cache's per-tensor scales (the JAX layer's [1] fp32
         # parameters, scale_y_quant_orig semantics): quantise, dequantise
         if use_int8_kv_cache:
@@ -294,7 +305,7 @@ class Attention(nn.Module):
                 sequence_length=None, cross_key_value=None,
                 cache_write_index: Optional[int] = None,
                 valid_len: Optional[int] = None, use_cache: bool = False,
-                beam_indirection=None, attention_start=None):
+                beam_indirection=None, attention_start=None, rotary=None):
         """``beam_indirection`` [groups, beams, S] (single-token decode of
         the self-attention only): each query row reads the cache positions
         through the table, as the JAX layer does (``layers/attention.py``
@@ -303,7 +314,9 @@ class Attention(nn.Module):
         (left-padded prompts, self-attention over the stacked cache): keys
         below it are masked; a prefill given it attends over the cache it
         has just written, causally from ``cache_write_index``, as the JAX
-        layer does when its flash fast path is off (:683-698)."""
+        layer does when its flash fast path is off (:683-698).  ``rotary``
+        (cos, sin) [B, L, rotary_embedding_dim // 2]: the tokens' rotary
+        angles, needed when the layer has a rotary dim."""
         b, l, _ = hidden_states.shape
 
         if self.cross_attention:
@@ -326,6 +339,12 @@ class Attention(nn.Module):
             return (out, past_key_value) if use_cache else out
 
         q, k, v = self.qkv(hidden_states)          # [B, L, H, D]
+        if self.rotary_embedding_dim:
+            if rotary is None:
+                raise ValueError("a rotary layer needs the tokens' rotary "
+                                 "angles")
+            q = apply_rope(q, *rotary, self.neox_rotary_style)
+            k = apply_rope(k, *rotary, self.neox_rotary_style)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
 
         if isinstance(past_key_value, PagedKV):

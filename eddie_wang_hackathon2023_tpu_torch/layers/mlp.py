@@ -1,4 +1,5 @@
-"""MLP block (the JAX package's ``layers/mlp.py`` ``MLP``)."""
+"""MLP blocks (the JAX package's ``layers/mlp.py``: ``MLP`` and
+``GatedMLP``)."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +28,20 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(ACT2FN[self.hidden_act](self.fc(x)))
+
+
+class GatedMLP(MLP):
+    """LLaMA's MLP: ``proj(act(fc(x)) * gate(x))``, the activation on fc
+    only."""
+
+    def __init__(self, hidden_size: int, ffn_hidden_size: int,
+                 hidden_act: str = "silu", bias: bool = False,
+                 dtype=torch.float32, quant_mode: QuantMode = QuantMode(0)):
+        super().__init__(hidden_size, ffn_hidden_size, hidden_act, bias,
+                         dtype, quant_mode)
+        _, col, _ = linear_classes(quant_mode, dtype)
+        self.gate = col(hidden_size, ffn_hidden_size, bias=bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = ACT2FN[self.hidden_act](self.fc(x))
+        return self.proj(act * self.gate(x))

@@ -1,7 +1,10 @@
 """Generic decoder-only transformer LM (the JAX package's
-``models/decoder.py``), for the families this port runs so far: learned
-positions, LayerNorm, a plain MLP, the sequential pre-LN residual, tied
-word embeddings, and MQA/GQA attention (SantaCoder / StarCoder class).
+``models/decoder.py``), for the families this port runs so far: learned,
+rotary or no positions (RoPE: GPT-NeoX halves or GPT-J interleaved pairs,
+a partial rotary dim), LayerNorm or RMSNorm, the plain or gated MLP, the
+sequential or parallel residual, a tied or separate LM head (with a
+bias), and MQA/GQA attention: GPT-2, OPT, LLaMA (GQA too), GPT-J,
+GPT-NeoX and SantaCoder / StarCoder (``models/families.py``).
 
 Forward contract (used by :mod:`..runtime.generation` and
 :mod:`..runtime.batch_manager`)::
@@ -17,24 +20,32 @@ tables, and either a prompt written from position 0 or one token per row
 at the per-row positions ``write_index`` [B].  The port updates the cache
 or the pool in place.  The JAX package scans one block over weights
 stacked [n_layer, ...]; the port keeps one module per layer and loops over
-them in Python.  A single-token step over the stacked cache stores every
-layer's fresh K/V once, after the loop (``models/decoder.py:458-460``);
-its self-attention goes through the decode kernel (the grouped mode when
-the cache has fewer heads than the query); over the pool, each layer
-writes its token through the table and reads the pool through the paged
-decode kernel.  With an int8 KV cache (``QuantMode.set_int8_kv_cache``,
-the per-layer scales in the state as ``attention.kv_orig_quant_scale`` and
-``kv_quant_orig_scale``) the stacked cache is int8, every write quantises
-and the grouped kernel reads it with the scale; an int8 pool raises.
-RoPE, ALiBi and GLM positions, RMSNorm, the gated MLP, the
-parallel and deepnorm residuals, untied or biased LM heads, per-row write
-positions on the stacked cache, mixed prompt/decode windows on the pool,
-the K-step tail and the megakernel are not ported and raise
-``NotImplementedError``.  Beam search passes a ``beam_indirection``
-[groups, beams, S] table to the single-token step, which every layer's
-self-attention reads the cache through (the beam entry of the decode
-kernel); over an MQA/GQA cache it raises, as the JAX package cannot run
-it either.
+them in Python.  A token's position is its cache column less its row's
+``attention_start``, floored at 0 (the JAX model's :303-313); learned
+positions embed it, rotary ones rotate q and k by it in every layer (the
+angles made once a call).  A single-token step over the stacked cache
+stores every layer's fresh K/V once, after the loop
+(``models/decoder.py:458-460``); its self-attention goes through the
+decode kernel (the grouped mode when the cache has fewer heads than the
+query); over the pool, each layer writes its token through the table and
+reads the pool through the paged decode kernel.  With an int8 KV cache
+(``QuantMode.set_int8_kv_cache``, the per-layer scales in the state as
+``attention.kv_orig_quant_scale`` and ``kv_quant_orig_scale``) the
+stacked cache is int8, every write quantises and the decode kernels read
+it with the scale; an int8 pool raises.  At batch 1 a single-token step
+given ``megakernel_blobs`` (:meth:`DecoderLMHead.megakernel_blobs`) runs
+every layer in one launch of the whole-step megakernel
+(``ops/decoder_layer.py``), as the JAX model's :367-412 does: the final
+norm and the logits after it, then the fresh K/V written at
+``write_index``.  ALiBi and GLM positions, the deepnorm residual, the
+bidirectional prompt, ``embedding_norm``, query-key layer scaling, an
+fp8 KV cache, per-row write positions on the stacked cache, mixed
+prompt/decode windows on the pool and the K-step tail are not ported and
+raise ``NotImplementedError``.  Beam search passes a
+``beam_indirection`` [groups, beams, S] table to the single-token step,
+which every layer's self-attention reads the cache through (the beam
+entry of the decode kernel); over an MQA/GQA cache it raises, as the JAX
+package cannot run it either.
 """
 from __future__ import annotations
 
@@ -45,8 +56,9 @@ import torch
 from torch import nn
 
 from .._utils import pad_vocab_size, str_dtype_to_torch
-from ..functional import matmul_fp32
-from ..layers import MLP, Attention, Embedding, LayerNorm
+from ..functional import ACT2FN, matmul_fp32, rope_angles
+from ..layers import (MLP, Attention, Embedding, GatedMLP, LayerNorm,
+                      Linear, QKVLinear, RmsNorm, RowLinear)
 from ..ops.attention import write_fresh_kv
 from ..ops.paged_attention import (PagedCacheState, PagedKV,
                                    new_block_pool, token_slots)
@@ -55,7 +67,7 @@ from ..quantization.mode import QuantMode
 # the linear layers of one block, as stacked state-dict paths (the
 # quantisation surgery of quantization/surgery.py walks these)
 DECODER_LINEARS = ("blocks.attention.qkv", "blocks.attention.dense",
-                   "blocks.mlp.fc", "blocks.mlp.proj")
+                   "blocks.mlp.fc", "blocks.mlp.gate", "blocks.mlp.proj")
 
 
 @dataclasses.dataclass
@@ -111,21 +123,32 @@ def _check_ported(c: DecoderConfig) -> None:
     """Raise for the configuration options this port does not run yet."""
     unported = {
         f"position_embedding={c.position_embedding!r}":
-            c.position_embedding not in ("learned", "none"),
-        f"norm={c.norm!r}": c.norm != "layernorm",
-        "gated_mlp": c.gated_mlp,
-        "parallel_attn": c.parallel_attn,
+            c.position_embedding not in ("learned", "none", "rope"),
+        f"norm={c.norm!r}": c.norm not in ("layernorm", "rmsnorm"),
+        f"hidden_act={c.hidden_act!r}": c.hidden_act not in ACT2FN,
         "deepnorm_alpha": c.deepnorm_alpha is not None,
         "bidirectional_context": c.bidirectional_context,
         "embedding_norm": c.embedding_norm,
-        "untied word embeddings": not c.tie_word_embeddings,
-        "lm_head_bias": c.lm_head_bias,
         "apply_query_key_layer_scaling": c.apply_query_key_layer_scaling,
-        "a quantised KV cache": c.quant_mode.has_fp8_kv_cache(),
+        "an fp8 KV cache": c.quant_mode.has_fp8_kv_cache(),
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise NotImplementedError(f"decoder options not ported: {bad}")
+
+
+def _make_norm(c: DecoderConfig, dtype):
+    if c.norm == "rmsnorm":
+        return RmsNorm(c.hidden_size, eps=c.norm_eps, dtype=dtype)
+    return LayerNorm(c.hidden_size, eps=c.norm_eps, dtype=dtype)
+
+
+def rotary_dim(c: DecoderConfig) -> int:
+    """The rotated channels of a head (0 without RoPE), as the JAX
+    attention layer sizes them (``int(head_dim * rotary_pct)``)."""
+    if c.position_embedding != "rope":
+        return 0
+    return int(c.head_dim * c.rotary_pct)
 
 
 def _check_beam_forward(tokens, kv_cache) -> None:
@@ -137,41 +160,49 @@ def _check_beam_forward(tokens, kv_cache) -> None:
 
 
 class DecoderBlock(nn.Module):
-    """Pre-LN causal self-attention, then the pre-LN MLP, each added to the
-    residual."""
+    """Pre-norm causal self-attention and MLP: sequential (each added to
+    the residual, the MLP after ``post_layernorm``) or, with
+    ``parallel_attn`` (GPT-J, GPT-NeoX), both reading the input norm and
+    added together: ``x + attn + mlp``."""
 
     def __init__(self, config: DecoderConfig):
         super().__init__()
         c = config
+        self.parallel = c.parallel_attn
         dtype = str_dtype_to_torch(c.dtype)
-        self.input_layernorm = LayerNorm(c.hidden_size, eps=c.norm_eps,
-                                         dtype=dtype)
+        self.input_layernorm = _make_norm(c, dtype)
         self.attention = Attention(c.hidden_size, c.num_heads, causal=True,
                                    bias=c.attn_bias, dtype=dtype,
                                    quant_mode=c.quant_mode,
                                    num_kv_heads=c.num_kv_heads,
                                    use_int8_kv_cache=(
-                                       c.quant_mode.has_int8_kv_cache()))
-        self.post_layernorm = LayerNorm(c.hidden_size, eps=c.norm_eps,
-                                        dtype=dtype)
-        self.mlp = MLP(c.hidden_size, c.ffn_hidden_size, c.hidden_act,
+                                       c.quant_mode.has_int8_kv_cache()),
+                                   rotary_embedding_dim=rotary_dim(c),
+                                   neox_rotary_style=c.neox_rotary_style)
+        if not c.parallel_attn:
+            self.post_layernorm = _make_norm(c, dtype)
+        mlp = GatedMLP if c.gated_mlp else MLP
+        self.mlp = mlp(c.hidden_size, c.ffn_hidden_size, c.hidden_act,
                        bias=c.mlp_bias, dtype=dtype, quant_mode=c.quant_mode)
 
     def forward(self, x, kv_cache, write_index, sequence_length,
-                attention_start=None, beam_indirection=None):
+                attention_start=None, beam_indirection=None, rotary=None):
+        normed = self.input_layernorm(x)
         attn_out, new_cache = self.attention(
-            self.input_layernorm(x), past_key_value=kv_cache,
+            normed, past_key_value=kv_cache,
             sequence_length=sequence_length, cache_write_index=write_index,
             attention_start=attention_start, use_cache=True,
-            beam_indirection=beam_indirection)
+            beam_indirection=beam_indirection, rotary=rotary)
+        if self.parallel:
+            return x + attn_out + self.mlp(normed), new_cache
         x = x + attn_out
         x = x + self.mlp(self.post_layernorm(x))
         return x, new_cache
 
 
 class DecoderLMHead(nn.Module):
-    """Embedding (+ learned positions) -> blocks -> final LN -> tied LM
-    head, fp32 logits."""
+    """Embedding (+ learned positions) -> blocks -> final norm -> tied or
+    separate LM head, fp32 logits."""
 
     def __init__(self, config: DecoderConfig):
         super().__init__()
@@ -188,8 +219,10 @@ class DecoderLMHead(nn.Module):
         self.blocks = nn.ModuleList(DecoderBlock(c)
                                     for _ in range(c.num_layers))
         if c.final_norm:
-            self.ln_f = LayerNorm(c.hidden_size, eps=c.norm_eps,
-                                  dtype=self.dtype)
+            self.ln_f = _make_norm(c, self.dtype)
+        if not c.tie_word_embeddings:
+            self.lm_head = Linear(c.hidden_size, c.padded_vocab,
+                                  bias=c.lm_head_bias, dtype=self.dtype)
 
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
@@ -216,6 +249,94 @@ class DecoderLMHead(nn.Module):
                               num_layers=c.num_layers,
                               device=self.vocab_embedding.weight.device)
 
+    def megakernel_eligible(self) -> bool:
+        """Structure check for the whole-step megakernel
+        (``ops/decoder_layer.py``), the JAX model's :203-266: learned, no or
+        rotary positions (an even rotary dim), LayerNorm or RMSNorm, the
+        kernel's activations, lane-divisible widths up to d 2048, and every
+        block uniformly int8 weight-only per output channel or uniformly
+        float.  MQA/GQA answers False: the grouped mode is not ported, so
+        SantaCoder runs layer by layer.  With the weights on a card also
+        the types and shapes the kernel takes
+        (:func:`..ops.decoder_layer.kernel_takes`: bf16 activations, heads
+        of 64 or 128)."""
+        from ..ops.decoder_layer import kernel_takes, woq_block_eligible
+        from ..quantization.layers import WeightOnlyQuantQKVLinear
+        c = self.config
+        if c.position_embedding not in ("learned", "none", "rope"):
+            return False
+        if rotary_dim(c) % 2:
+            return False
+        if c.hidden_act not in ("gelu", "relu", "gelu_exact", "silu"):
+            return False
+        if c.num_kv_heads != c.num_heads:
+            return False
+        if c.hidden_size % 128 or 128 % c.head_dim or c.hidden_size > 2048:
+            return False
+        nf = -(-c.ffn_hidden_size // c.hidden_size)
+        if self.vocab_embedding.weight.is_cuda and not kernel_takes(
+                self.dtype, c.hidden_size, nf, c.head_dim):
+            return False
+        b = self.blocks[0]
+        qkv = b.attention.qkv
+        mods = [b.attention.dense, b.mlp.fc, b.mlp.proj]
+        if c.gated_mlp:
+            mods.append(b.mlp.gate)
+        if isinstance(qkv, WeightOnlyQuantQKVLinear):
+            return woq_block_eligible(qkv, mods, c.hidden_size)
+        return isinstance(qkv, QKVLinear) and all(
+            type(m) in (Linear, RowLinear) for m in mods)
+
+    def megakernel_blobs(self):
+        """The megakernel's weight image, packed from this model's own
+        blocks (each block's state in the JAX layout) on their device (the
+        JAX model's :268-283, the MLP reading the input norm under
+        ``parallel_attn``), one layer at a time.  On the CPU the blobs hold
+        the K-major panels (``wblob``) the plain version reads.  On a card
+        each layer's panels are cut into the kernel's tiles at once and
+        dropped: ``tiles`` is the one copy of the weights besides the
+        model's, and ``wblob`` a meta tensor that keeps their type and
+        shape (the kernel reads nothing else of it)."""
+        from ..ops.decoder_layer import (DECODER_KEYS, MegakernelBlobs,
+                                         megakernel_tiles, pack_decoder_blobs)
+        c = self.config
+        keys = dict(DECODER_KEYS)
+        if c.parallel_attn:
+            keys["ln"] = ("input_layernorm",)
+        layers, tiles, grid = [], None, None
+        for li, blk in enumerate(self.blocks):
+            state = {k: v[None] for k, v in blk.state_dict().items()}
+            b = pack_decoder_blobs(
+                state, n_layer=1, hidden=c.hidden_size, n_head=c.num_heads,
+                head_dim=c.head_dim, ffn=c.ffn_hidden_size, with_cross=False,
+                gated=c.gated_mlp, n_kv_head=c.num_kv_heads, keys=keys)
+            if b.wblob.is_cuda:
+                tb = megakernel_tiles(b)
+                t, grid = tb.tiles, tb.tiles_grid
+                if tiles is None:
+                    tiles = torch.empty((c.num_layers, t.shape[1]),
+                                        dtype=t.dtype, device=t.device)
+                tiles[li] = t[0]
+                b = b._replace(wblob=b.wblob.to("meta"))
+            layers.append(b)
+        blobs = MegakernelBlobs(*(
+            torch.cat(f) if torch.is_tensor(f[0]) else f[0]
+            for f in zip(*layers)))
+        return blobs._replace(tiles=tiles, tiles_grid=grid)
+
+    def _embed(self, tokens, positions):
+        """Token embeddings (+ learned positions at ``positions`` [B, T])
+        and, with RoPE, the (cos, sin) of the positions for every layer."""
+        c = self.config
+        x = self.vocab_embedding(tokens)
+        if c.position_embedding == "learned":
+            pos = positions.clamp(0, c.max_position_embeddings - 1)
+            x = x + self.position_embedding(pos + c.position_offset)
+        rotary = None
+        if rotary_dim(c):
+            rotary = rope_angles(positions, rotary_dim(c), c.rotary_base)
+        return x, rotary
+
     def forward(self, tokens: torch.Tensor, kv_cache, write_index,
                 sequence_length, attention_start=None,
                 beam_indirection=None, kv_tail=None, megakernel_blobs=None
@@ -228,12 +349,13 @@ class DecoderLMHead(nn.Module):
         [B] tensor once for all layers); ``beam_indirection``
         [groups, beams, S] int32 (beam search, a single-token step over the
         stacked cache, rows grouped by group): the physical cache row of
-        each (beam, position).  Returns (logits [B, T, vocab] fp32,
-        kv_cache)."""
-        if kv_tail is not None or megakernel_blobs is not None:
-            raise NotImplementedError("the K-step tail and the megakernel "
-                                      "are not ported for the decoder-only "
-                                      "path")
+        each (beam, position); ``megakernel_blobs``: a single-token step at
+        batch 1 over the stacked cache, without beams, runs through the
+        megakernel with them (:class:`..runtime.GenerationSession` packs
+        them for an eligible model and passes them where the kernel takes
+        the cache).  Returns (logits [B, T, vocab] fp32, kv_cache)."""
+        if kv_tail is not None:
+            raise NotImplementedError("the K-step tail is not ported")
         if beam_indirection is not None:
             _check_beam_forward(tokens, kv_cache)
         if isinstance(kv_cache, PagedCacheState):
@@ -244,13 +366,16 @@ class DecoderLMHead(nn.Module):
                                       "for the paged pool only")
         c = self.config
         b, t = tokens.shape
-        x = self.vocab_embedding(tokens)
-        if c.position_embedding == "learned":
-            pos = write_index + torch.arange(t, device=x.device)[None, :]
-            if attention_start is not None:
-                pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
-            x = x + self.position_embedding(pos.expand(b, t)
-                                            + c.position_offset)
+        dev = tokens.device
+        if (megakernel_blobs is not None and t == 1 and b == 1
+                and beam_indirection is None):
+            return self._megakernel_step(tokens, kv_cache, write_index,
+                                         sequence_length, attention_start,
+                                         megakernel_blobs)
+        pos = write_index + torch.arange(t, device=dev)[None, :]
+        if attention_start is not None:
+            pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
+        x, rotary = self._embed(tokens, pos.expand(b, t))
         if t == 1:
             if isinstance(sequence_length, int):
                 # a fill, not a host-to-device copy, which would wait for
@@ -262,16 +387,55 @@ class DecoderLMHead(nn.Module):
             for li, block in enumerate(self.blocks):
                 x, (k_new, v_new) = block(x, (kv_cache, li, "defer"),
                                           write_index, sequence_length,
-                                          attention_start, beam_indirection)
+                                          attention_start, beam_indirection,
+                                          rotary)
                 fresh.append(torch.stack([k_new, v_new], dim=1))
             write_fresh_kv(kv_cache, torch.stack(fresh), write_index)
         else:
             for li, block in enumerate(self.blocks):
                 x, kv_cache = block(x, (kv_cache, li), write_index,
-                                    sequence_length, attention_start)
+                                    sequence_length, attention_start,
+                                    rotary=rotary)
         if c.final_norm:
             x = self.ln_f(x)
         return self._logits(x), kv_cache
+
+    def _megakernel_step(self, tokens, kv_cache, write_index,
+                         sequence_length, attention_start, blobs):
+        """One token at batch 1 through the megakernel (the JAX model's
+        :367-412): the embedded token (its learned position at
+        ``write_index`` less the start), every layer in one launch, the
+        RoPE angles made inside it from ``write_index`` and the start
+        held on the device, then the final norm and the logits here, and
+        the fresh K/V written at ``write_index``."""
+        from ..ops.decoder_layer import Rotary, fused_decoder_stack
+        c = self.config
+        x = self.vocab_embedding(tokens)
+        if c.position_embedding == "learned":
+            pos = write_index + torch.zeros((1, 1), dtype=torch.long,
+                                            device=x.device)
+            if attention_start is not None:
+                pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
+            x = x + self.position_embedding(pos + c.position_offset)
+        # a fill, not a host-to-device copy, which would wait for the stream
+        seq1 = (torch.full((1,), sequence_length, dtype=torch.int32,
+                           device=x.device)
+                if isinstance(sequence_length, int)
+                else sequence_length.reshape(-1)[:1])
+        rope = (Rotary(write_index, rotary_dim(c), c.rotary_base,
+                       c.neox_rotary_style) if rotary_dim(c) else None)
+        attn = self.blocks[0].attention
+        hid, fresh = fused_decoder_stack(
+            x[:, 0, :], blobs, kv_cache, seq1, attn.scale,
+            start_index=attention_start, head_dim=c.head_dim,
+            eps=c.norm_eps, act=c.hidden_act, norm=c.norm,
+            gated=c.gated_mlp, parallel=c.parallel_attn, rope=rope)
+        hid = hid[:, None, :]
+        if c.final_norm:
+            hid = self.ln_f(hid)
+        # [L, 2, H, D] -> [L, 1, 2, H, D, 1]
+        write_fresh_kv(kv_cache, fresh[:, None, ..., None], write_index)
+        return self._logits(hid), kv_cache
 
     def _paged_forward(self, tokens, state: PagedCacheState, write_index,
                        sequence_length, attention_start):
@@ -279,41 +443,43 @@ class DecoderLMHead(nn.Module):
         :339-360): positions per row from ``write_index``, each layer given
         ``PagedKV(pool, table, layer)`` and, for a one-token step, the write
         slots of the rows' tokens, found once.  A slot that is not live still
-        rides the step at length 0, so its position is -1, which is clamped
-        here (the JAX gather wraps or clamps it); its output is discarded by
-        the caller."""
+        rides the step at length 0, so its position is -1, which the learned
+        embedding clamps (the JAX gather wraps or clamps it); its output is
+        discarded by the caller."""
         if attention_start is not None:
             raise NotImplementedError("left-padded prompts (attention_start) "
                                       "are not ported for the paged pool")
         c = self.config
         b, t = tokens.shape
-        x = self.vocab_embedding(tokens)
-        if c.position_embedding == "learned":
-            base = (write_index[:, None].long()
-                    if torch.is_tensor(write_index) else write_index)
-            pos = base + torch.arange(t, device=x.device)[None, :]
-            pos = pos.clamp(0, c.max_position_embeddings - 1)
-            x = x + self.position_embedding(pos.expand(b, t)
-                                            + c.position_offset)
+        dev = tokens.device
+        base = (write_index[:, None].long()
+                if torch.is_tensor(write_index) else write_index)
+        pos = base + torch.arange(t, device=dev)[None, :]
+        x, rotary = self._embed(tokens, pos.expand(b, t))
         pool, table = state.pool, state.block_table
         slots = None
         if t == 1:
             # where each row's token lands: the same in every layer
-            pos = torch.as_tensor(write_index, device=x.device).reshape(-1)
-            slots = token_slots(table, pos.expand(b)[:, None],
+            wpos = torch.as_tensor(write_index, device=dev).reshape(-1)
+            slots = token_slots(table, wpos.expand(b)[:, None],
                                 pool.shape[1] - 1, pool.shape[4])
         for li, block in enumerate(self.blocks):
             x, pool = block(x, PagedKV(pool, table, li, slots), write_index,
-                            sequence_length)
+                            sequence_length, rotary=rotary)
         if c.final_norm:
             x = self.ln_f(x)
         return self._logits(x), PagedCacheState(pool, table)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied logits accumulated and returned in fp32
-        (``preferred_element_type=float32``), sliced to the vocab."""
+        """fp32 logits, sliced to the vocab: tied ones accumulated and
+        returned in fp32 (``preferred_element_type=float32``), a separate
+        LM head in the activation dtype (with its bias) then cast, as the
+        JAX model's :546-557 computes them."""
         c = self.config
-        logits = matmul_fp32(x, self.vocab_embedding.weight.t())
+        if c.tie_word_embeddings:
+            logits = matmul_fp32(x, self.vocab_embedding.weight.t())
+        else:
+            logits = self.lm_head(x).float()
         if c.padded_vocab != c.vocab_size:
             logits = logits[..., :c.vocab_size]
         return logits

@@ -5,7 +5,9 @@
 the config's recipe with the port's own quantiser, bit-equal to the JAX
 package's ``quantize_state_dict``.  ``from_jax_state``: such a state dict,
 float or already quantised (by either package) -> the port's
-:class:`~.decoder.DecoderLMHead` on a device.
+:class:`~.decoder.DecoderLMHead` on a device.  The families' keys carry
+over as they are: the gated MLP's ``mlp.gate``, a separate ``lm_head``
+(and its bias), RMSNorm weights without a bias.
 """
 from __future__ import annotations
 

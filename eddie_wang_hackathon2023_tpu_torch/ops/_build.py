@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``) and loaded with ``ctypes``.  The
-library name carries a hash of the source, so an edited source is rebuilt.
+the checkout (listed in ``.gitignore``) and loaded with ``ctypes``.  A
+library may be another's source built with macros of its own
+(:data:`DEFINES`: the megakernel's decoder-only set).  The library name
+carries a hash of the source and the flags, so an edited source is
+rebuilt.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together.  A source elsewhere (a user's kernel, as in
 ``examples/custom_kernel_torch/``) joins them by :func:`register`, with
@@ -51,6 +54,10 @@ SIGNATURES = {
         # (const MegaArgs*, stream)
         "decoder_megakernel": [_P, _P],
     },
+    # the megakernel's decoder-only set, built from decoder_layer.cu
+    "decoder_stack": {
+        "decoder_megakernel": [_P, _P],
+    },
     "gqa_decode_attention": {
         "gqa_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _F, _P, _P, _P, _P],
@@ -72,7 +79,10 @@ SIGNATURES = {
 }
 
 # the source of each library: csrc/<name>.cu unless registered elsewhere
+# or built from another library's source with macros of its own
 SOURCES: Dict[str, Path] = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
+SOURCES["decoder_stack"] = CSRC / "decoder_layer.cu"
+DEFINES: Dict[str, list] = {"decoder_stack": ["-DMEGA_DECODER_ONLY"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
@@ -96,9 +106,13 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + DEFINES.get(name, [])
+
+
 def _lib_path(name: str) -> Path:
     src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -113,7 +127,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

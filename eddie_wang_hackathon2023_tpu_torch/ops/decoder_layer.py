@@ -1,24 +1,35 @@
-"""The whole decode step of a Whisper decoder (every layer) in one kernel.
+"""The whole decode step of a decoder (every layer) in one kernel.
 
 Counterpart of the JAX package's ``ops/pallas_decoder_layer.py``
-(``fused_decoder_stack``, :865), for the modes of the Whisper int8 recipe
-at batch 1: int8 weight-only panels with per-channel scales, LayerNorm,
-tanh GELU, cross-attention over an int8 (or float) cross cache with
-per-layer scales, and a float or int8 self cache with the fresh token's K/V
-(int8: the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the
-cache and the fresh column dequantised with ``kv_qo``, as the TPU kernel's
-``self_quant`` mode).  On a
-CUDA tensor the wrapper makes ONE cooperative launch of the kernel of
-``csrc/decoder_layer.cu``, which reads its GEMV weights from the blobs'
-``tiles`` (:func:`megakernel_tiles`, cut by :func:`megakernel_plan` for the
-card's SM count); on a CPU tensor it runs the plain version,
-:func:`plain_fused_decoder_stack`, which runs the kernel's stages with its
-attention slices and rounding points.
+(``fused_decoder_stack``, :865) at batch 1, in two sets of modes:
 
-Not ported, and raising ``NotImplementedError``: int4 or float panels,
-RMSNorm, the gated MLP, the parallel residual, RoPE, MQA/GQA, fp8
-self-KV, the K-step tail, a start index, decoders without cross-attention
-and batch > 1.
+* Whisper's decoder (``with_cross``): int8 weight-only panels with
+  per-channel scales, LayerNorm, tanh GELU, cross-attention over an int8
+  (or float) cross cache with per-layer scales;
+* the decoder-only families (GPT-2, OPT, LLaMA, GPT-J, GPT-NeoX): no
+  cross-attention, int8 weight-only or float (bf16 on the card) panels
+  with unit scales, LayerNorm or RMSNorm, the gated MLP act(fc) * gate,
+  the parallel residual (the MLP reads the input norm), RoPE on q and the
+  fresh k (GPT-NeoX halves or GPT-J interleaved pairs, a partial rotary
+  dim, the angles from ``write_index`` less the start held on the device),
+  the activations tanh GELU, ReLU, erf GELU and SiLU, head dim 64 or 128;
+
+both over a float or int8 self cache with the fresh token's K/V (int8:
+the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the cache and
+the fresh column dequantised with ``kv_qo``, as the TPU kernel's
+``self_quant`` mode), keys below the start index masked.  On a CUDA
+tensor the wrapper makes ONE cooperative launch of the kernel of
+``csrc/decoder_layer.cu`` (the Whisper set and the decoder-only set are
+two libraries built from it), which reads its GEMV weights from the
+blobs' ``tiles`` (:func:`megakernel_tiles`, cut by :func:`megakernel_plan`
+for the card's SM count); on a CPU tensor it runs the plain version,
+:func:`plain_fused_decoder_stack`, which runs the kernel's stages with
+its attention slices and rounding points.
+
+Not ported, and raising ``NotImplementedError``: int4 panels and
+group-wise scales, float panels and the gated MLP with cross-attention
+(the JAX kernel refuses the latter too), MQA/GQA (the grouped mode),
+fp8 self-KV, the K-step tail and batch > 1.
 """
 from __future__ import annotations
 
@@ -28,7 +39,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..functional import gelu, layer_norm, matmul_fp32, round_half_away
+from ..functional import (ACT2FN, apply_rope, layer_norm, matmul_fp32,
+                          rms_norm, rope_angles, rope_freqs, round_half_away)
 from . import _build
 from .attention import NEG
 
@@ -36,27 +48,57 @@ from .attention import NEG
 launches = {"decoder_megakernel": 0}
 
 # the kernel's attention split, mirrored here: ATTN_SPLIT-column slices of
-# the cache, at most MAX_SPLITS a head (the plain version combines its
-# attention slices the same way)
+# the cache, any number a head without cross-attention (Whisper's caches:
+# at most MAX_SPLITS); a head's finish combines MAX_SPLITS of them, the
+# MAX_SPLITS-th and later ones folded into one first (the plain version
+# combines its attention slices the same way)
 ATTN_SPLIT = 256
 MAX_SPLITS = 8
+# Whisper's head dim (the set with cross-attention is built for it); the
+# decoder-only set's
 HEAD_DIM = 64
+HEAD_DIMS = (64, 128)
 # the GEMV stages of a layer, in the kernel's order (``Stage`` in
-# csrc/decoder_layer.cu)
+# csrc/decoder_layer.cu); the gated MLP's gate rides fc1's stage
 GEMV_STAGES = ("qkv", "dense", "crossq", "crossdense", "fc1", "fc2")
-# the kernel's limits: a thread holds 5 elements of a d-row and 20 of
-# fc1's (d <= 1280, ffn <= 5120: Whisper large), a warp sums 6 columns of
-# an item (48 an item: 5120 columns need 107 SMs)
-MAX_D, MAX_FFN, ITEM_MAX_COLS = 1280, 5120, 48
+# the kernel's limits: a thread of the decoder-only set holds 8 elements
+# of a d-row and 24 of fc2's input row (d <= 2048, ffn padded to a
+# multiple of d <= 6144), a warp sums 6 columns of an item (48 an item:
+# 6144 columns need 128 SMs)
+MAX_D, MAX_FFN, ITEM_MAX_COLS = 2048, 6144, 48
+# Whisper's set (with cross-attention) holds 5 and 20 (d <= 1280, ffn <=
+# 5120: Whisper large)
+MAX_D_CROSS, MAX_FFN_CROSS = 1280, 5120
+# an item is streamed into the ring in pieces of whole columns, of at most
+# these bytes (or one column)
+PIECE_BYTES = 65536
+# the activations of the kernel's epilogue, by their code (MegaArgs::act)
+ACTIVATIONS = ("gelu", "relu", "gelu_exact", "silu")
 
-# state-dict key prefixes of the Whisper ResidualAttentionBlock (the JAX
-# packer's WHISPER_KEYS)
+# state-dict key prefixes of the Whisper ResidualAttentionBlock and of the
+# decoder-only DecoderBlock (the JAX packer's WHISPER_KEYS, DECODER_KEYS;
+# under the parallel residual ``ln`` is the input norm alone)
 WHISPER_KEYS = dict(qkv="attn.qkv", dense="attn.dense",
                     crossq="cross_attn.q_linear",
                     crossdense="cross_attn.dense",
                     fc1="mlp1", fc2="mlp2",
                     ln=("attn_ln", "cross_attn_ln", "mlp_ln"),
                     kv="attn")
+DECODER_KEYS = dict(qkv="attention.qkv", dense="attention.dense",
+                    fc1="mlp.fc", fc2="mlp.proj", gate="mlp.gate",
+                    ln=("input_layernorm", "post_layernorm"),
+                    kv="attention")
+
+
+class Rotary(NamedTuple):
+    """RoPE of a megakernel step: the fresh token's cache column (its
+    position is that less the row's start, floored at 0), the rotated
+    channels of a head, the base and the style (GPT-NeoX halves, or GPT-J
+    interleaved pairs)."""
+    write_index: int
+    rotary_dim: int
+    theta: float = 10000.0
+    neox: bool = True
 
 
 def reset_launches() -> None:
@@ -66,62 +108,99 @@ def reset_launches() -> None:
 class MegakernelBlobs(NamedTuple):
     """Packed per-layer weights of :func:`fused_decoder_stack` (the JAX
     package's layout and names)."""
-    wblob: torch.Tensor        # [L, NPAN, d, d] int8 K-major panels
-    pair_scale: torch.Tensor   # [L, 4, d/128, 128] f32: q, k, v, cross-q
-    pair_bias: torch.Tensor    # [L, 4, d/128, 128] f32
-    flat_scale: torch.Tensor   # [L, NF, d] f32: dense, cross-dense, fc1.., fc2
-    flat_bias: torch.Tensor    # [L, NF, d] f32
-    ln_par: torch.Tensor       # [L, 6, d] f32: weight, bias of each LN
+    # [L, NPAN, d, d] K-major panels, int8 or float (a meta tensor, type
+    # and shape only, where the tiles alone hold the weights)
+    wblob: torch.Tensor
+    pair_scale: torch.Tensor   # [L, NQ, d/128, 128] f32: q, k, v (, cross-q)
+    pair_bias: torch.Tensor    # [L, NQ, d/128, 128] f32
+    flat_scale: torch.Tensor   # [L, NF, d] f32: dense (, cross-dense),
+    flat_bias: torch.Tensor    # [L, NF, d] f32  fc1.., (gate..,) fc2
+    ln_par: torch.Tensor       # [L, 2 n_ln, d] f32: weight, bias of each norm
     kv_oq: torch.Tensor        # [L] f32 self-KV quantise scale (int8 cache)
     kv_qo: torch.Tensor        # [L] f32 self-KV dequantise scale
     gscale: Optional[torch.Tensor] = None   # int4 group scales: not ported
-    # the kernel's item-contiguous copy of wblob [L, layer_bytes] int8 and
-    # the grid it was cut for (:func:`megakernel_tiles`; the card only)
+    # the kernel's item-contiguous copy of wblob [L, layer_bytes / itemsize]
+    # in wblob's type and the grid it was cut for (:func:`megakernel_tiles`;
+    # the card only)
     tiles: Optional[torch.Tensor] = None
     tiles_grid: Optional[int] = None
 
 
-def megakernel_plan(d: int, nf: int, sms: int) -> Dict[str, list]:
-    """The megakernel's GEMV items for width ``d``, ``nf`` fc panels and a
-    grid of ``sms`` blocks: per stage of :data:`GEMV_STAGES`, ``item_c``
-    output columns an item by all ``item_k`` rows of K, ``items`` items (at
-    most one a block: c = ceil(columns / sms), so each stage is one wave),
-    ``tile_off`` the stage's byte offset in a layer's tiles and
-    ``layer_bytes`` a layer's (the last item's columns past the stage's are
-    zeros), and ``ring_cap`` the bytes of the shared-memory ring that
-    streams the items (0: all the block's shared memory left, about a
-    layer's items).  The C entry refuses any other plan."""
+def blob_layout(blobs: "MegakernelBlobs") -> Tuple[bool, bool, int]:
+    """(with_cross, gated, nf) of packed blobs, from their slot counts: 4
+    pair rows with cross-attention, 3 without; NPAN = 6 + 2 nf with it,
+    4 + 2 nf or (gated) 4 + 3 nf without, and NF = 2 + nf or 2 + 2 nf.
+    Blobs whose scales are placeholders (not [L, NQ, d/128, 128]) read as
+    the Whisper layout."""
+    npan = blobs.wblob.shape[1]
+    if blobs.pair_scale.dim() != 4 or blobs.pair_scale.shape[1] == 4:
+        return True, False, (npan - 6) // 2
+    nflat = blobs.flat_scale.shape[1]
+    nf = (npan - 4) - (nflat - 2)
+    return False, nflat - 2 == 2 * nf, nf
+
+
+def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
+                    gated: bool = False, itemsize: int = 1
+                    ) -> Dict[str, list]:
+    """The megakernel's GEMV items for width ``d``, ``nf`` fc panels, a grid
+    of ``sms`` blocks and weights of ``itemsize`` bytes: per stage of
+    :data:`GEMV_STAGES`, ``item_c`` output columns an item by all
+    ``item_k`` rows of K, ``items`` items (at most one a block: c =
+    ceil(columns / sms), so each stage is one wave), ``tile_off`` the
+    stage's byte offset in a layer's tiles and ``layer_bytes`` a layer's
+    (the last item's columns past the stage's are zeros; the gated fc1
+    item is its c fc columns, then the same c gate columns), ``piece_c``
+    the columns of each load into the ring (whole columns of at most
+    PIECE_BYTES; with cross-attention the whole item), and ``ring_cap``
+    the bytes of the shared-memory ring (0: all the block's shared memory
+    left).  Without cross-attention its two
+    stages have no items.  The C entry refuses any other plan."""
     cols = (3 * d, d, d, d, nf * d, d)
     ks = (d, d, d, d, d, nf * d)
-    plan = dict(item_c=[], items=[], item_k=list(ks), tile_off=[])
+    plan = dict(item_c=[], items=[], item_k=list(ks), tile_off=[],
+                piece_c=[])
     off = 0
-    for n, k in zip(cols, ks):
+    for g, (n, k) in enumerate(zip(cols, ks)):
+        plan["tile_off"].append(off)
+        if not with_cross and g in (2, 3):
+            for f in ("item_c", "items", "piece_c"):
+                plan[f].append(0)
+            continue
         c = -(-n // sms)
         items = -(-n // c)
         plan["item_c"].append(c)
         plan["items"].append(items)
-        plan["tile_off"].append(off)
-        off += c * items * k
+        plan["piece_c"].append(c if with_cross else min(
+            c, max(1, PIECE_BYTES // (k * itemsize))))
+        off += c * items * k * itemsize * (2 if gated and g == 4 else 1)
     plan["layer_bytes"] = off
     plan["ring_cap"] = 0
     return plan
 
 
-def _stage_weights(wblob: torch.Tensor):
+def _stage_weights(wblob: torch.Tensor, with_cross: bool = True,
+                   gated: bool = False):
     """Each GEMV stage's weight of every layer transposed, [L, columns, K]
-    (K contiguous), from the K-major panels [L, NPAN, d, d]."""
+    (K contiguous), from the K-major panels [L, NPAN, d, d]; None for a
+    stage the model has not, (fc, gate) for the gated fc1 stage."""
     L, npan, d, _ = wblob.shape
-    nf = (npan - 6) // 2
-    pan = _panels(nf)
-    return [
-        wblob[:, pan["q"]:pan["q"] + 3].transpose(2, 3).reshape(L, 3 * d, d),
-        wblob[:, pan["dense"]].transpose(1, 2),
-        wblob[:, pan["crossq"]].transpose(1, 2),
-        wblob[:, pan["crossdense"]].transpose(1, 2),
-        wblob[:, pan["fc1"]:pan["fc1"] + nf].transpose(2, 3)
-        .reshape(L, nf * d, d),
-        wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * d, d)
-        .transpose(1, 2)]
+    nf = (npan - 6) // 2 if with_cross else (npan - 4) // (3 if gated else 2)
+    pan = _panels(nf, with_cross, gated)
+
+    def cols(p0, n):                     # panels p0.. side by side
+        return wblob[:, p0:p0 + n].transpose(2, 3).reshape(L, n * d, d)
+
+    def one(p):
+        return wblob[:, p].transpose(1, 2)
+    fc1 = cols(pan["fc1"], nf)
+    if gated:
+        fc1 = (fc1, cols(pan["gate"], nf))
+    return [cols(pan["q"], 3), one(pan["dense"]),
+            one(pan["crossq"]) if with_cross else None,
+            one(pan["crossdense"]) if with_cross else None, fc1,
+            wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * d, d)
+            .transpose(1, 2)]
 
 
 def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
@@ -129,33 +208,41 @@ def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
     """``blobs`` with ``tiles``: the panels of ``wblob`` repacked once into
     the kernel's item-contiguous layout for a grid of ``sms`` blocks (the
     SM count of wblob's card by default): per layer, per stage of
-    :data:`GEMV_STAGES`, ``items`` items of ``item_c`` columns, each its
-    columns' K rows contiguous (:func:`megakernel_plan`)."""
+    :data:`GEMV_STAGES` the model has, ``items`` items of ``item_c``
+    columns, each its columns' K rows contiguous (the gated fc1 item its
+    fc columns, then its gate columns; :func:`megakernel_plan`)."""
     w = blobs.wblob
-    L, npan, d, _ = w.shape
-    nf = (npan - 6) // 2
+    L, _, d, _ = w.shape
+    with_cross, gated, nf = blob_layout(blobs)
     if sms is None:
         sms = torch.cuda.get_device_properties(
             w.device).multi_processor_count
-    plan = megakernel_plan(d, nf, sms)
+    plan = megakernel_plan(d, nf, sms, with_cross, gated, w.element_size())
     parts = []
-    for g, m in enumerate(_stage_weights(w)):
-        rows = plan["item_c"][g] * plan["items"][g]
-        parts.append(torch.nn.functional.pad(
-            m, (0, 0, 0, rows - m.shape[1])).reshape(L, -1))
+    for g, m in enumerate(_stage_weights(w, with_cross, gated)):
+        if m is None:
+            continue
+        c, n = plan["item_c"][g], plan["items"][g]
+        mats = m if isinstance(m, tuple) else (m,)
+        padded = [torch.nn.functional.pad(t, (0, 0, 0, c * n - t.shape[1]))
+                  .reshape(L, n, c, -1) for t in mats]
+        parts.append(torch.cat(padded, dim=2).reshape(L, -1))
     return blobs._replace(tiles=torch.cat(parts, dim=1).contiguous(),
                           tiles_grid=sms)
 
 
-def untile(tiles: torch.Tensor, plan: Dict[str, list], stage: int
-           ) -> torch.Tensor:
+def untile(tiles: torch.Tensor, plan: Dict[str, list], stage: int,
+           mat: int = 0, gated: bool = False) -> torch.Tensor:
     """Stage ``stage``'s weight [L, K, columns] (K-major, as the panels
-    hold it) read back from tiles [L, layer_bytes] laid out by ``plan``;
-    the padding columns included."""
+    hold it) read back from tiles [L, layer_bytes / itemsize] laid out by
+    ``plan``, the padding columns included (the gated fc1 stage: its fc,
+    ``mat`` 0, or its gate, 1)."""
     c, n, k = (plan[f][stage] for f in ("item_c", "items", "item_k"))
-    off = plan["tile_off"][stage]
+    off = plan["tile_off"][stage] // tiles.element_size()
+    mats = 2 if gated and stage == 4 else 1
     L = tiles.shape[0]
-    return tiles[:, off:off + c * n * k].reshape(L, c * n, k).transpose(1, 2)
+    t = tiles[:, off:off + mats * c * n * k].reshape(L, n, mats, c, k)
+    return t[:, :, mat].reshape(L, c * n, k).transpose(1, 2)
 
 
 def blob_layers(blobs: "MegakernelBlobs", lo: int, hi: int
@@ -166,16 +253,25 @@ def blob_layers(blobs: "MegakernelBlobs", lo: int, hi: int
         if torch.is_tensor(v)})
 
 
-# the wblob panel of each projection (the JAX package's ``_panel_of`` with
-# cross-attention); fc1 and fc2 take nf panels each from the one named
-def _panels(nf: int) -> Dict[str, int]:
-    return dict(q=0, k=1, v=2, dense=3, crossq=4, crossdense=5, fc1=6,
-                fc2=6 + nf)
+# the wblob panel of each projection (the JAX package's ``_panel_of``);
+# fc1 (, gate) and fc2 take nf panels each from the one named
+def _panels(nf: int, with_cross: bool = True,
+            gated: bool = False) -> Dict[str, int]:
+    if with_cross:
+        return dict(q=0, k=1, v=2, dense=3, crossq=4, crossdense=5, fc1=6,
+                    fc2=6 + nf)
+    return dict(q=0, k=1, v=2, dense=3, fc1=4, gate=4 + nf,
+                fc2=4 + (2 * nf if gated else nf))
 
 
-# flat scale/bias slots: dense, cross-dense, the fc1 slices, fc2
-def _flat_slots(nf: int) -> Dict[str, int]:
-    return dict(dense=0, crossdense=1, fc1=2, fc2=2 + nf)
+# flat scale/bias slots: dense (, cross-dense), the fc1 slices, (the gate
+# slices,) fc2
+def _flat_slots(nf: int, with_cross: bool = True,
+                gated: bool = False) -> Dict[str, int]:
+    if with_cross:
+        return dict(dense=0, crossdense=1, fc1=2, gate=2, fc2=2 + nf)
+    return dict(dense=0, crossdense=0, fc1=1, gate=1 + nf,
+                fc2=1 + (2 * nf if gated else nf))
 
 
 def woq_block_eligible(qkv, mods, hidden: int) -> bool:
@@ -190,45 +286,79 @@ def woq_block_eligible(qkv, mods, hidden: int) -> bool:
                for m in mods)
 
 
+def kernel_takes(dtype, d: int, nf: int, head_dim: int) -> bool:
+    """Whether the CUDA kernel's decoder-only set takes a model: bf16
+    activations, heads of 64 or 128, d a multiple of 128 up to MAX_D and
+    the ffn padded to a multiple of d up to MAX_FFN."""
+    return (dtype == torch.bfloat16 and head_dim in HEAD_DIMS
+            and d % 128 == 0 and d <= MAX_D and nf * d <= MAX_FFN)
+
+
 def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
                        n_head: int, head_dim: int, ffn: int,
-                       with_cross: bool = True, device=None
+                       with_cross: bool = True, gated: bool = False,
+                       n_kv_head: Optional[int] = None,
+                       keys: Optional[dict] = None, device=None
                        ) -> MegakernelBlobs:
     """The megakernel's weight image from a stacked block state dict (keys
-    of :data:`WHISPER_KEYS` without the ``blocks.`` prefix, numpy arrays or
-    tensors, int8 weight-only: ``attn.qkv.qweight`` [L, d, 3d],
-    ``mlp1.qweight`` [L, d, ffn], ...).  A pure relayout, equal bit for bit
-    to the JAX package's ``pack_decoder_blobs`` on the same state: q/k/v and
-    fc1 are cut along their output columns into [d, d] panels, fc2 along its
-    input rows; ffn is zero-padded to a multiple of d."""
-    if not with_cross:
-        raise NotImplementedError("decoders without cross-attention are not "
-                                  "ported to the megakernel")
-    kk = WHISPER_KEYS
-    if kk["qkv"] + ".qweight" not in state:
+    of ``keys``, by default :data:`WHISPER_KEYS` with cross-attention and
+    :data:`DECODER_KEYS` without, lacking the ``blocks.`` prefix; numpy
+    arrays or tensors): int8 weight-only (``attn.qkv.qweight`` [L, d, 3d],
+    ``mlp1.qweight`` [L, d, ffn], ...) or, without cross-attention, float
+    (``attention.qkv.weight`` [L, 3, H, D, d], ``mlp.fc.weight`` [L, ffn,
+    d], ...: transposed to K-major panels of the weights' type, with unit
+    scales).  A pure relayout, equal bit for bit to the JAX package's
+    ``pack_decoder_blobs`` on the same state: q/k/v, fc1 and the gate are
+    cut along their output columns into [d, d] panels, fc2 along its input
+    rows; ffn is zero-padded to a multiple of d."""
+    n_kv_head = n_kv_head or n_head
+    if n_kv_head != n_head:
+        raise NotImplementedError("the megakernel's grouped (MQA/GQA) mode "
+                                  "is not ported")
+    if gated and with_cross:
+        raise NotImplementedError("no gated decoder has cross-attention")
+    kk = keys or (WHISPER_KEYS if with_cross else DECODER_KEYS)
+    quantized = kk["qkv"] + ".qweight" in state
+    if not quantized and with_cross:
         raise NotImplementedError("float megakernel panels are not ported "
-                                  "(int8 weight-only only)")
+                                  "for the Whisper decoder")
     L, d = n_layer, hidden
     hp, dl = d // 128, 128
     nf = -(-ffn // d)
     pffn = nf * d
     f32 = torch.float32
+    if device is None:
+        # the state's own device (the zeros and ones made here join it)
+        device = next((v.device for v in state.values()
+                       if torch.is_tensor(v)), None)
 
     def g(key):
         v = state[key]
         t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
         return t if device is None else t.to(device)
 
-    if g(kk["qkv"] + ".qweight").shape[-2] != d:
-        raise NotImplementedError("int4 megakernel panels are not ported")
-    if g(kk["qkv"] + ".per_channel_scale").dim() != 2:
-        raise NotImplementedError("group-wise scales are not ported")
+    if quantized:
+        if g(kk["qkv"] + ".qweight").shape[-2] != d:
+            raise NotImplementedError("int4 megakernel panels are not "
+                                      "ported")
+        if g(kk["qkv"] + ".per_channel_scale").dim() != 2:
+            raise NotImplementedError("group-wise scales are not ported")
 
     def zeros_or(key, shape):
         v = state.get(key)
         if v is None:
             return torch.zeros(shape, dtype=f32, device=device)
         return g(key).to(f32)
+
+    def scale(key, shape):               # unit scales for float panels
+        if not quantized:
+            return torch.ones(shape, dtype=f32, device=device)
+        return g(key + ".per_channel_scale").to(f32)
+
+    def weight(key):                     # K-major [L, in, out]
+        if quantized:
+            return g(key + ".qweight")
+        return g(key + ".weight").transpose(-1, -2)
 
     def pad_cols(w):                     # [L, d, ffn] -> [L, d, pffn]
         return w if pffn == ffn else torch.nn.functional.pad(
@@ -245,40 +375,52 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
                            device=v.device)
         return torch.cat([v, extra], dim=1)
 
-    def scale(key):
-        return g(key + ".per_channel_scale").to(f32)
-
-    qkv_w = g(kk["qkv"] + ".qweight")
-    fc1 = pad_cols(g(kk["fc1"] + ".qweight"))
-    fc2 = pad_rows(g(kk["fc2"] + ".qweight"))
-    panels = [qkv_w[:, :, 0:d], qkv_w[:, :, d:2 * d], qkv_w[:, :, 2 * d:],
-              g(kk["dense"] + ".qweight"), g(kk["crossq"] + ".qweight"),
-              g(kk["crossdense"] + ".qweight")]
+    if quantized:
+        qkv_w = g(kk["qkv"] + ".qweight")
+        qkv_panels = [qkv_w[:, :, 0:d], qkv_w[:, :, d:2 * d],
+                      qkv_w[:, :, 2 * d:]]
+    else:
+        # head-major [L, 3, H, D, d] -> three K-major [L, d, d] panels
+        qkv_hm = g(kk["qkv"] + ".weight").reshape(L, 3, d, d)
+        qkv_panels = [qkv_hm[:, i].transpose(-1, -2) for i in range(3)]
+    fc1 = pad_cols(weight(kk["fc1"]))
+    fc2 = pad_rows(weight(kk["fc2"]))
+    panels = qkv_panels + [weight(kk["dense"])]
+    if with_cross:
+        panels += [weight(kk["crossq"]), weight(kk["crossdense"])]
     panels += [fc1[:, :, j * d:(j + 1) * d] for j in range(nf)]
+    if gated:
+        gate = pad_cols(weight(kk["gate"]))
+        panels += [gate[:, :, j * d:(j + 1) * d] for j in range(nf)]
     panels += [fc2[:, j * d:(j + 1) * d, :] for j in range(nf)]
     wblob = torch.stack(panels, dim=1).contiguous()
 
     def to_pair(p):                      # [L, d] -> [L, hp, dl]
         return p.reshape(L, hp, dl)
 
-    qkv_s = scale(kk["qkv"])                                   # [L, 3d]
+    qkv_s = scale(kk["qkv"], (L, 3 * d))                        # [L, 3d]
     qkv_b = zeros_or(kk["qkv"] + ".bias",
                      (L, 3, n_head, head_dim)).reshape(L, 3 * d)
-    pair_s = [qkv_s[:, 0:d], qkv_s[:, d:2 * d], qkv_s[:, 2 * d:],
-              scale(kk["crossq"])]
-    pair_b = [qkv_b[:, 0:d], qkv_b[:, d:2 * d], qkv_b[:, 2 * d:],
-              zeros_or(kk["crossq"] + ".bias", (L, d))]
+    pair_s = [qkv_s[:, 0:d], qkv_s[:, d:2 * d], qkv_s[:, 2 * d:]]
+    pair_b = [qkv_b[:, 0:d], qkv_b[:, d:2 * d], qkv_b[:, 2 * d:]]
+    if with_cross:
+        pair_s.append(scale(kk["crossq"], (L, d)))
+        pair_b.append(zeros_or(kk["crossq"] + ".bias", (L, d)))
     pair_scale = torch.stack([to_pair(p) for p in pair_s], dim=1)
     pair_bias = torch.stack([to_pair(p) for p in pair_b], dim=1)
 
-    fc1_s = pad_flat(scale(kk["fc1"]), 1.0)
-    fc1_b = pad_flat(zeros_or(kk["fc1"] + ".bias", (L, ffn)), 0.0)
-    flat_s = [scale(kk["dense"]), scale(kk["crossdense"])]
-    flat_b = [zeros_or(kk["dense"] + ".bias", (L, d)),
-              zeros_or(kk["crossdense"] + ".bias", (L, d))]
-    flat_s += [fc1_s[:, j * d:(j + 1) * d] for j in range(nf)]
-    flat_b += [fc1_b[:, j * d:(j + 1) * d] for j in range(nf)]
-    flat_s.append(scale(kk["fc2"]))
+    flat_s = [scale(kk["dense"], (L, d))]
+    flat_b = [zeros_or(kk["dense"] + ".bias", (L, d))]
+    if with_cross:
+        flat_s.append(scale(kk["crossdense"], (L, d)))
+        flat_b.append(zeros_or(kk["crossdense"] + ".bias", (L, d)))
+    mlp_in = [kk["fc1"]] + ([kk["gate"]] if gated else [])
+    for key in mlp_in:
+        s_ = pad_flat(scale(key, (L, ffn)), 1.0)
+        b_ = pad_flat(zeros_or(key + ".bias", (L, ffn)), 0.0)
+        flat_s += [s_[:, j * d:(j + 1) * d] for j in range(nf)]
+        flat_b += [b_[:, j * d:(j + 1) * d] for j in range(nf)]
+    flat_s.append(scale(kk["fc2"], (L, d)))
     flat_b.append(zeros_or(kk["fc2"] + ".bias", (L, d)))
     flat_scale = torch.stack(flat_s, dim=1)
     flat_bias = torch.stack(flat_b, dim=1)
@@ -300,21 +442,22 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
 
 
 def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
-                 head_dim: int, start_index, tail_kv, act: str, norm: str,
-                 gated: bool, parallel: bool, rope_mat) -> None:
-    """Raise ``NotImplementedError`` for every mode outside this port."""
+                 head_dim: int, tail_kv, act: str, norm: str,
+                 gated: bool) -> None:
+    """Raise ``NotImplementedError`` for every mode outside this port, and
+    ``ValueError`` where the blobs were packed for another mode."""
     d = x.shape[-1]
+    with_cross = cross_cache is not None
     outside = [
         (x.shape[0] != 1 or self_cache.shape[1] != 1, "batch > 1"),
         (tail_kv is not None, "the K-step decode tail"),
-        (start_index is not None, "a start index (left padding)"),
-        (rope_mat is not None, "RoPE"),
-        (gated, "the gated MLP"), (parallel, "the parallel residual"),
-        (norm != "layernorm", f"norm {norm!r}"),
-        (act != "gelu", f"activation {act!r}"),
-        (cross_cache is None, "decoders without cross-attention"),
-        (blobs.gscale is not None or blobs.wblob.dtype != torch.int8
-         or blobs.wblob.shape[2] != d, "int4 or float panels"),
+        (norm not in ("layernorm", "rmsnorm"), f"norm {norm!r}"),
+        (act not in ACTIVATIONS, f"activation {act!r}"),
+        (with_cross and gated, "the gated MLP with cross-attention"),
+        (blobs.gscale is not None or blobs.wblob.shape[2] != d,
+         "int4 panels or group-wise scales"),
+        (with_cross and blobs.wblob.dtype != torch.int8,
+         "float panels with cross-attention"),
         (self_cache.dtype != torch.int8 and self_cache.element_size() == 1,
          "fp8 self-KV"),
         (self_cache.shape[3] * head_dim != d, "MQA/GQA"),
@@ -322,12 +465,18 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
     for bad, what in outside:
         if bad:
             raise NotImplementedError(f"megakernel: {what} is not ported")
+    b_cross, b_gated, _ = blob_layout(blobs)
+    if (b_cross, b_gated) != (with_cross, gated):
+        raise ValueError(f"megakernel blobs packed with cross-attention "
+                         f"{b_cross} and gated {b_gated}, called with "
+                         f"{with_cross} and {gated}")
 
 
 def _attn_slice(q, k_all, v_all, c: int, n_valid: int, qk_scale: float,
-                adt):
+                adt, start: int = 0):
     """One ATTN_SPLIT-column slice c of the cache [H, D, S] against q
-    [H, D]: (max [H], sum [H], P*V [H, D]) with P rounded to ``adt``."""
+    [H, D], the columns below ``start`` masked: (max [H], sum [H], P*V
+    [H, D]) with P rounded to ``adt``."""
     h, d = q.shape
     c0, c1 = c * ATTN_SPLIT, min(n_valid, (c + 1) * ATTN_SPLIT)
     if c1 <= c0:
@@ -337,13 +486,24 @@ def _attn_slice(q, k_all, v_all, c: int, n_valid: int, qk_scale: float,
     k = k_all[..., c0:c1].to(adt).float()
     v = v_all[..., c0:c1].to(adt).float()
     s = torch.einsum("hd,hds->hs", q.float(), k) * qk_scale
+    live = torch.arange(c0, c1, device=q.device) >= start
+    s = torch.where(live, s, torch.full_like(s, NEG))
     m = s.amax(-1)
-    p = torch.exp(s - m[:, None])
+    p = torch.where(live, torch.exp(s - m[:, None]), torch.zeros_like(s))
     pv = torch.einsum("hs,hds->hd", p.to(adt).float(), v)
     return m, p.sum(-1), pv
 
 
 def _combine(parts):
+    """Slices -> (max M [H], sum [H], P*V [H, D]) relative to M; past
+    MAX_SPLITS slices the MAX_SPLITS-th and later ones are folded into one
+    first, as the kernel's ``fold_slices``."""
+    if len(parts) > MAX_SPLITS:
+        parts = parts[:MAX_SPLITS - 1] + [_merge(parts[MAX_SPLITS - 1:])]
+    return _merge(parts)
+
+
+def _merge(parts):
     """Slices -> (max M [H], sum [H], P*V [H, D]) relative to M."""
     m = torch.stack([p[0] for p in parts], 1)
     big = m.amax(1)
@@ -356,22 +516,39 @@ def _combine(parts):
 def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                               scale: float, cross_cache=None,
                               cross_scale=None, head_dim: int = HEAD_DIM,
-                              eps: float = 1e-5):
+                              eps: float = 1e-5, start_index=None,
+                              act: str = "gelu", norm: str = "layernorm",
+                              parallel: bool = False,
+                              rope: Optional[Rotary] = None):
     """The plain PyTorch version of :func:`fused_decoder_stack`: the
     kernel's stages, attention slices and rounding points, layer by
     layer.  With an int8 self cache the fresh K/V are quantised with
     ``blobs.kv_oq`` as :func:`..ops.attention.quantize_cache_values` does,
     and the self-attention is scaled by ``blobs.kv_qo`` as the TPU kernel
-    scales it (``pallas_decoder_layer.py:554,740-743``)."""
+    scales it (``pallas_decoder_layer.py:554,740-743``).  RoPE rotates q
+    and the fresh k (rounded to the activation type) before the
+    attention and the int8 cache's quantisation; keys below the start
+    index are masked; the gated MLP (from the blobs' layout) multiplies
+    act(fc) by the gate; under ``parallel`` the MLP reads the input norm
+    and both outputs join the residual."""
     adt = x.dtype
     quant = self_cache.dtype == torch.int8
     L, _, _, H, D, S = self_cache.shape
     d = x.shape[-1]
-    nf = (blobs.wblob.shape[1] - 6) // 2
-    pan, slots = _panels(nf), _flat_slots(nf)
+    with_cross, gated, nf = blob_layout(blobs)
+    pan, slots = _panels(nf, with_cross, gated), _flat_slots(
+        nf, with_cross, gated)
+    nq = blobs.pair_scale.shape[1]
     n_valid = min(max(int(torch.as_tensor(seq_len).reshape(-1)[0]) - 1, 0),
                   S)
-    sc = cross_cache.shape[-1]
+    start = (0 if start_index is None
+             else int(torch.as_tensor(start_index).reshape(-1)[0]))
+    rot = None
+    if rope is not None and rope.rotary_dim:
+        pos = torch.full((1,), max(rope.write_index - start, 0),
+                         device=x.device)
+        rot = rope_angles(pos, rope.rotary_dim, rope.theta)
+    mlp_norm = 2 if with_cross else 0 if parallel else 1
     fresh = torch.empty((L, 2, H, D), dtype=self_cache.dtype,
                         device=x.device)
 
@@ -381,8 +558,8 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     x = x.reshape(1, d).to(adt)
     for layer in range(L):
         w = blobs.wblob[layer]
-        ps = blobs.pair_scale[layer].reshape(4, d)
-        pb = blobs.pair_bias[layer].reshape(4, d)
+        ps = blobs.pair_scale[layer].reshape(nq, d)
+        pb = blobs.pair_bias[layer].reshape(nq, d)
         fs, fb = blobs.flat_scale[layer], blobs.flat_bias[layer]
         ln = blobs.ln_par[layer]
         kscale = (1.0 if cross_scale is None
@@ -397,11 +574,20 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
             return affine(gemv(v.reshape(1, d).to(adt), pan[name]), fs[f],
                           fb[f])
 
-        # LN1 -> q, k, v; self-attention over the cache, then the fresh
-        # token's column in fp32
-        h = layer_norm(x, ln[0], ln[1], eps)
+        def norm_of(v, m):
+            if norm == "rmsnorm":
+                # the packed bias rows are zeros: y * w + 0, as the kernels
+                return rms_norm(v, ln[2 * m], eps)
+            return layer_norm(v, ln[2 * m], ln[2 * m + 1], eps)
+
+        # norm 0 -> q, k, v (q and k rotated); self-attention over the
+        # cache, then the fresh token's column in fp32
+        h = norm_of(x, 0)
         q, k_f, v_f = (affine(gemv(h, pan[n]), ps[i], pb[i]).reshape(H, D)
                        for i, n in enumerate(("q", "k", "v")))
+        if rot is not None:
+            q, k_f = (apply_rope(t[None], *rot, rope.neox)[0]
+                      for t in (q, k_f))
         if quant:
             # the integers the cache write would store, kept in fp32
             k_f, v_f = (torch.clamp(round_half_away(
@@ -410,7 +596,7 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         fresh[layer, 0], fresh[layer, 1] = k_f, v_f
         kc, vc = self_cache[layer, 0, 0], self_cache[layer, 0, 1]
         big, tot, acc = _combine([
-            _attn_slice(q, kc, vc, c, n_valid, scale * kqo, adt)
+            _attn_slice(q, kc, vc, c, n_valid, scale * kqo, adt, start)
             for c in range(max(1, -(-n_valid // ATTN_SPLIT)))])
         sf = (q.float() * k_f.float()).sum(-1) * (scale * kqo)
         m_fin = torch.maximum(big, sf)
@@ -420,21 +606,29 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                + v_f.float() * (kqo * pf)[:, None]) \
             / (tot * alpha + pf)[:, None]
         x = x + project(ctx, "dense")
-        # LN2 -> cross-q; cross-attention, the context scaled by
-        # kscale / denominator at the end
-        h = layer_norm(x, ln[2], ln[3], eps)
-        q = affine(gemv(h, pan["crossq"]), ps[3], pb[3]).reshape(H, D)
-        kc, vc = cross_cache[layer, 0, 0], cross_cache[layer, 0, 1]
-        _, tot, acc = _combine([
-            _attn_slice(q, kc, vc, c, sc, scale * kscale, adt)
-            for c in range(-(-sc // ATTN_SPLIT))])
-        x = x + project(acc * (kscale / tot)[:, None], "crossdense")
-        # LN3 -> fc1 + GELU, fc2 over its nf panels accumulated in fp32
-        h = layer_norm(x, ln[4], ln[5], eps)
+        if with_cross:
+            # norm 1 -> cross-q; cross-attention, the context scaled by
+            # kscale / denominator at the end
+            h = norm_of(x, 1)
+            q = affine(gemv(h, pan["crossq"]), ps[3], pb[3]).reshape(H, D)
+            kc, vc = cross_cache[layer, 0, 0], cross_cache[layer, 0, 1]
+            sc = cross_cache.shape[-1]
+            _, tot, acc = _combine([
+                _attn_slice(q, kc, vc, c, sc, scale * kscale, adt)
+                for c in range(-(-sc // ATTN_SPLIT))])
+            x = x + project(acc * (kscale / tot)[:, None], "crossdense")
+        # the MLP's norm (under the parallel residual the input norm, h
+        # already) -> fc1 and its activation
+        # (times the gate), fc2 over its nf panels accumulated in fp32
+        if not parallel:
+            h = norm_of(x, mlp_norm)
         acc2 = 0.0
         for j in range(nf):
             f = slots["fc1"] + j
-            hj = gelu(affine(gemv(h, pan["fc1"] + j), fs[f], fb[f]))
+            hj = ACT2FN[act](affine(gemv(h, pan["fc1"] + j), fs[f], fb[f]))
+            if gated:
+                f = slots["gate"] + j
+                hj = hj * affine(gemv(h, pan["gate"] + j), fs[f], fb[f])
             acc2 = acc2 + gemv(hj, pan["fc2"] + j)
         x = x + affine(acc2, fs[slots["fc2"]], fb[slots["fc2"]])
     return x, fresh
@@ -445,15 +639,17 @@ class _MegaArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "x", "tiles", "pair_scale", "pair_bias", "flat_scale", "flat_bias",
         "ln_par", "self_cache", "cross_cache", "cross_scale", "kv_oq",
-        "kv_qo", "seq_len", "hid", "fresh", "act_a", "act_b", "att", "ctx",
-        "barrier", "heads")]
+        "kv_qo", "seq_len", "start", "inv_freq", "hid", "fresh", "act_a",
+        "act_b", "att", "ctx", "barrier", "heads")]
         + [("layer_bytes", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
-            "n_layer", "d", "n_head", "s_self", "s_cross", "nflat", "nf",
-            "f_dense", "f_crossdense", "f_fc1", "f_fc2", "cross_int8",
-            "self_int8", "ring_bytes")]
+            "n_layer", "d", "n_head", "head_dim", "s_self", "s_cross", "nq",
+            "nflat", "nf", "n_ln", "f_dense", "f_crossdense", "f_fc1",
+            "f_gate", "f_fc2", "with_cross", "cross_int8", "self_int8",
+            "weight_bf16", "norm_rms", "act", "gated", "parallel",
+            "rope_dim", "rope_neox", "write_index", "ring_bytes")]
         + [(n, ctypes.c_int * len(GEMV_STAGES))
-           for n in ("item_c", "items", "item_k", "tile_off")]
+           for n in ("item_c", "items", "item_k", "tile_off", "piece_c")]
         + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
 
 
@@ -463,89 +659,118 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                         head_dim: int = HEAD_DIM, eps: float = 1e-5,
                         act: str = "gelu", norm: str = "layernorm",
                         gated: bool = False, parallel: bool = False,
-                        rope_mat=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        rope: Optional[Rotary] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer of one decode step in ONE kernel.
 
-    x [1, d] (embedded token + position); self_cache [L, 1, 2, H, D, S]
-    seq-minor, without the fresh token (int8: quantised with
+    x [1, d] (embedded token, + its learned position); self_cache [L, 1,
+    2, H, D, S] seq-minor, without the fresh token (int8: quantised with
     ``blobs.kv_oq``, read with ``blobs.kv_qo``); seq_len [1] int32
-    INCLUDING the fresh token; cross_cache [L, 1, 2, H, D, Sc] with
-    per-layer ``cross_scale`` [L] when int8.  Returns (hidden [1, d] before
-    the final LN, fresh K/V [L, 2, H, D] in the cache dtype); the cache is
-    not written.  On the card: bf16 x, a bf16 or int8 self cache, head dim
-    64, and one cooperative launch (a refused launch raises; nothing falls
-    back)."""
-    _check_modes(x, blobs, self_cache, cross_cache, head_dim, start_index,
-                 tail_kv, act, norm, gated, parallel, rope_mat)
+    INCLUDING the fresh token; start_index [1] int32 (or None): the first
+    key column of the row; cross_cache [L, 1, 2, H, D, Sc] with per-layer
+    ``cross_scale`` [L] when int8, or None (the decoder-only modes: the
+    blobs packed without cross-attention, ``gated`` as packed); ``rope``:
+    the step's :class:`Rotary`.  Returns (hidden [1, d] before the final
+    norm, fresh K/V [L, 2, H, D] in the cache dtype, k rotated); the cache
+    is not written.  On the card: bf16 x, a bf16 or int8 self cache, int8
+    or (without cross-attention) bf16 panels, head dim 64 (128 too without
+    cross-attention), and one cooperative launch (a refused launch raises;
+    nothing falls back)."""
+    _check_modes(x, blobs, self_cache, cross_cache, head_dim, tail_kv, act,
+                 norm, gated)
     if not x.is_cuda:
-        return plain_fused_decoder_stack(x, blobs, self_cache, seq_len,
-                                         scale, cross_cache, cross_scale,
-                                         head_dim, eps)
+        return plain_fused_decoder_stack(
+            x, blobs, self_cache, seq_len, scale, cross_cache, cross_scale,
+            head_dim, eps, start_index=start_index, act=act, norm=norm,
+            parallel=parallel, rope=rope)
     L, _, _, H, D, S = self_cache.shape
     d = x.shape[-1]
-    sc = cross_cache.shape[-1]
+    with_cross = cross_cache is not None
+    sc = cross_cache.shape[-1] if with_cross else 0
     dev = x.device
-    if D != HEAD_DIM:
-        raise NotImplementedError(f"megakernel is built for head dim "
-                                  f"{HEAD_DIM}, got {D}")
+    if D not in (HEAD_DIMS if not with_cross else (HEAD_DIM,)):
+        raise NotImplementedError(f"megakernel is built for head dims "
+                                  f"{HEAD_DIMS} ({HEAD_DIM} with "
+                                  f"cross-attention), got {D}")
     if x.dtype != torch.bfloat16 or self_cache.dtype not in (
             torch.bfloat16, torch.int8):
         raise TypeError("megakernel takes bf16 activations and a bf16 or "
                         "int8 self cache")
+    if blobs.wblob.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"megakernel panels of {blobs.wblob.dtype}: int8 "
+                        "or bf16")
     self_int8 = self_cache.dtype == torch.int8
-    if cross_cache.dtype not in (torch.int8, torch.bfloat16):
+    if with_cross and cross_cache.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel cross cache dtype {cross_cache.dtype}")
-    nf = (blobs.wblob.shape[1] - 6) // 2
+    _, gated, nf = blob_layout(blobs)
     # the kernel reads the caches in 4-byte words: rows of whole words
-    word = 4 // cross_cache.element_size()
-    if (d % HEAD_DIM or d > MAX_D or nf * d > MAX_FFN
+    word = 4 // cross_cache.element_size() if with_cross else 1
+    max_d, max_ffn = ((MAX_D_CROSS, MAX_FFN_CROSS) if with_cross
+                      else (MAX_D, MAX_FFN))
+    if (d % D or d > max_d or nf * d > max_ffn
             or S % (4 // self_cache.element_size()) or sc % word
-            or max(S, sc) > MAX_SPLITS * ATTN_SPLIT
-            or cross_cache.shape[:5] != (L, 1, 2, H, D)):
+            or (with_cross and max(S, sc) > MAX_SPLITS * ATTN_SPLIT)
+            or (with_cross and cross_cache.shape[:5] != (L, 1, 2, H, D))):
+        cross = tuple(cross_cache.shape) if with_cross else None
         raise ValueError(f"megakernel shapes: d {d}, ffn {nf * d}, heads "
-                         f"{H}, self {S}, cross {tuple(cross_cache.shape)}")
+                         f"{H} of {D}, self {S}, cross {cross}")
+    rope_dim = rope.rotary_dim if rope is not None else 0
+    if rope_dim % 2 or rope_dim > D:
+        raise ValueError(f"megakernel rotary dim {rope_dim} of heads of {D}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = megakernel_plan(d, nf, sms)
+    itemsize = blobs.wblob.element_size()
+    plan = megakernel_plan(d, nf, sms, with_cross, gated, itemsize)
     if max(plan["item_c"]) > ITEM_MAX_COLS:
         raise ValueError(f"megakernel: {sms} SMs give items of "
                          f"{max(plan['item_c'])} columns, past "
                          f"{ITEM_MAX_COLS}")
     tiles = blobs.tiles
     if (tiles is None or blobs.tiles_grid != sms
-            or tiles.dtype != torch.int8
-            or tuple(tiles.shape) != (L, plan["layer_bytes"])):
+            or tiles.dtype != blobs.wblob.dtype
+            or tuple(tiles.shape) != (L, plan["layer_bytes"] // itemsize)):
         raise ValueError("megakernel blobs need the tiles of this card's "
                          "plan: build them with megakernel_tiles(blobs)")
     kv_scales = (blobs.kv_oq, blobs.kv_qo) if self_int8 else ()
-    for t in (self_cache, cross_cache, tiles, *blobs[1:6], *kv_scales):
+    operands = (self_cache, tiles, *blobs[1:6], *kv_scales) + (
+        (cross_cache,) if with_cross else ())
+    for t in operands:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("megakernel operands must be contiguous on "
                              f"{dev}")
     if (not torch.is_tensor(seq_len) or seq_len.numel() != 1
             or seq_len.device != dev):
         raise TypeError(f"seq_len must be a [1] tensor on {dev}")
+    if start_index is not None and (not torch.is_tensor(start_index)
+                                    or start_index.device != dev):
+        raise TypeError(f"start_index must be a tensor on {dev}")
     # every tensor the kernel reads or writes is held in a local until the
     # launch is enqueued (a freed temporary could be reused and overwritten
     # on the stream first)
     seq_t = seq_len.reshape(1).to(torch.int32).contiguous()
+    start_t = (None if start_index is None
+               else start_index.reshape(-1)[:1].to(torch.int32).contiguous())
+    freq_t = (rope_freqs(rope_dim, float(rope.theta), dev) if rope_dim
+              else None)
     xin = x.reshape(d).contiguous()
     cs_t = None
-    if cross_scale is not None and cross_cache.dtype == torch.int8:
+    if (with_cross and cross_scale is not None
+            and cross_cache.dtype == torch.int8):
         cs_t = torch.as_tensor(cross_scale, dtype=torch.float32,
                                device=dev).reshape(L).contiguous()
     hid = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
     fresh = torch.empty((L, 2, H, D), dtype=self_cache.dtype, device=dev)
-    # finished GEMV outputs: q, k, v / cross-q / GELU(fc1) and dense /
+    # finished GEMV outputs: q, k, v / cross-q / act(fc1) and dense /
     # cross-dense / fc2
     act_a = torch.empty((max(3, nf) * d,), dtype=torch.float32, device=dev)
     act_b = torch.empty((d,), dtype=torch.float32, device=dev)
-    att = torch.empty((H * MAX_SPLITS * (D + 2),), dtype=torch.float32,
+    slices = max(1, -(-max(S, sc) // ATTN_SPLIT))
+    att = torch.empty((H * slices * (D + 2),), dtype=torch.float32,
                       device=dev)
     ctx = torch.empty((d,), dtype=torch.float32, device=dev)
     # the grid barrier's arrivals, then each head's finished attention
     # slices (self and cross, every layer): zeros, one call's
     sync = torch.zeros((1 + 2 * L * H,), dtype=torch.int32, device=dev)
-    slots = _flat_slots(nf)
+    slots = _flat_slots(nf, with_cross, gated)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -557,16 +782,23 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         ptr(xin), ptr(tiles), ptr(blobs.pair_scale),
         ptr(blobs.pair_bias), ptr(blobs.flat_scale), ptr(blobs.flat_bias),
         ptr(blobs.ln_par), ptr(self_cache), ptr(cross_cache), ptr(cs_t),
-        *(ptr(t) for t in kv_scales or (None, None)), ptr(seq_t), ptr(hid), ptr(fresh), ptr(act_a), ptr(act_b),
-        ptr(att), ptr(ctx), ptr(sync), ptr(sync) + 4, plan["layer_bytes"],
-        L, d, H, S, sc, blobs.flat_scale.shape[1], nf,
-        slots["dense"], slots["crossdense"], slots["fc1"], slots["fc2"],
-        int(cross_cache.dtype == torch.int8), int(self_int8),
-        plan["ring_cap"],
+        *(ptr(t) for t in kv_scales or (None, None)), ptr(seq_t),
+        ptr(start_t), ptr(freq_t), ptr(hid), ptr(fresh), ptr(act_a),
+        ptr(act_b), ptr(att), ptr(ctx), ptr(sync), ptr(sync) + 4,
+        plan["layer_bytes"],
+        L, d, H, D, S, sc, blobs.pair_scale.shape[1],
+        blobs.flat_scale.shape[1], nf, blobs.ln_par.shape[1] // 2,
+        slots["dense"], slots["crossdense"], slots["fc1"], slots["gate"],
+        slots["fc2"], int(with_cross),
+        int(with_cross and cross_cache.dtype == torch.int8), int(self_int8),
+        int(blobs.wblob.dtype == torch.bfloat16), int(norm == "rmsnorm"),
+        ACTIVATIONS.index(act), int(gated), int(parallel), rope_dim,
+        int(rope.neox) if rope_dim else 0,
+        rope.write_index if rope_dim else 0, plan["ring_cap"],
         ints("item_c"), ints("items"), ints("item_k"), ints("tile_off"),
-        float(scale), float(eps))
+        ints("piece_c"), float(scale), float(eps))
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    lib = _build.load("decoder_layer")
+    lib = _build.load("decoder_layer" if with_cross else "decoder_stack")
     _build.check(lib.decoder_megakernel(ctypes.byref(args), stream),
                  "decoder_megakernel (cooperative launch)")
     launches["decoder_megakernel"] += 1

@@ -23,8 +23,13 @@ Semantics as in the JAX ``GenerationSession._decode_impl`` (:106-306):
   is gathered by parent every step;
 * a row's length ends at its first ``end_id``.
 
-The JAX loop runs the model once more after the last token and drops its
-logits; this loop does not (the same tokens, lengths and log-probabilities).
+At batch 1 without beams each decode step runs every layer in one launch
+of the whole-step megakernel when the model is eligible (its
+``megakernel_eligible``; on a card a bf16 model of the decoder-only set's
+shapes), as the JAX session does (:85-102, :376-378); the weight image is
+packed once, at the first such call (``decode_megakernel=False`` keeps the
+layer-by-layer path).  The JAX loop runs the model once more after the
+last token and drops its logits; this loop does not (the same tokens, lengths and log-probabilities).
 Sampled rows draw argmax(logits / T + Gumbel noise) with the noise from
 :meth:`GenerationSession._gumbel`, a ``torch.Generator`` on the model's
 device seeded by ``decode(seed=)``; the port cannot reproduce
@@ -74,19 +79,42 @@ class GenerationSession:
     the cache through the ``[B, beam, S]`` table (the default), or gather
     the whole cache by parent every step (kernel 1 then serves the step;
     a cross-check at small shapes, refused where its copies would not
-    fit the card)."""
+    fit the card).  ``decode_megakernel``: batch-1 decode steps without
+    beams run through the megakernel when the model is eligible; None (the
+    default) means on when the weights are on a CUDA card, True also on
+    the CPU (its plain version), False the layer-by-layer path."""
 
     def __init__(self, model_config: ModelConfig, model,
                  sampling_config: Optional[SamplingConfig] = None,
                  bucket_prompts: bool = True,
-                 use_cache_indirection: bool = True):
+                 use_cache_indirection: bool = True,
+                 decode_megakernel: Optional[bool] = None):
         self.model_config = model_config
         self.model = model
         self.sampling_config = sampling_config or SamplingConfig()
         self.bucket_prompts = bucket_prompts
         self.use_cache_indirection = use_cache_indirection
+        dev = model.vocab_embedding.weight.device
+        self.decode_megakernel = (dev.type == "cuda"
+                                  if decode_megakernel is None
+                                  else decode_megakernel)
+        self._mk_blobs = None
         self.decode_steps = 0
         self._rng: Optional[torch.Generator] = None
+
+    def _megakernel_blobs(self, rows: int):
+        """The megakernel's weight image, packed once per session; None
+        when the megakernel is off, more than one row decodes or the model
+        is not eligible (the JAX session's ``setup`` and its batch gate).
+        The session alone decides: the model takes the megakernel whenever
+        it is given blobs."""
+        eligible = getattr(self.model, "megakernel_eligible", None)
+        if (not self.decode_megakernel or rows != 1 or eligible is None
+                or not eligible()):
+            return None
+        if self._mk_blobs is None:
+            self._mk_blobs = self.model.megakernel_blobs()
+        return self._mk_blobs
 
     def _gumbel(self, shape) -> torch.Tensor:
         """Gumbel noise [shape] fp32 from the session's generator (seeded
@@ -224,6 +252,7 @@ class GenerationSession:
         else:
             cum = torch.zeros((bb,), dtype=torch.float32, device=dev)
 
+        blobs = self._megakernel_blobs(bb)
         self.decode_steps = 0
         for cur in range(prompt_len, total):
             gen_len = cur - prompt_len
@@ -271,7 +300,8 @@ class GenerationSession:
             seq = torch.full((bb,), cur + 1, dtype=torch.int32, device=dev)
             step_logits, cache = model(tok[:, None], cache, cur, seq,
                                        attention_start=start,
-                                       beam_indirection=ind)
+                                       beam_indirection=ind,
+                                       megakernel_blobs=blobs)
             logits = step_logits[:, -1]
             self.decode_steps += 1
         # a row's length ends at its first end id after the prompt

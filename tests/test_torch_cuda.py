@@ -1012,6 +1012,326 @@ def test_megakernel_refuses_blobs_without_tiles(dev):
     assert mk.launches["decoder_megakernel"] == before
 
 
+# the megakernel's decoder-only modes: (head dim, gated, parallel, norm,
+# activation, rotary dim and GPT-NeoX style or None)
+DEC_MODES = {
+    "llama": (128, True, False, "rmsnorm", "silu", (128, True)),
+    "gptj": (128, False, True, "layernorm", "gelu", (32, False)),
+    "neox_d64": (64, False, True, "layernorm", "gelu", (16, True)),
+    "gpt2_d64": (64, False, False, "layernorm", "gelu", None),
+    "opt": (128, False, False, "layernorm", "relu", None),
+}
+
+
+def _dec_blobs(dev, mode, n_layer, d, weight, seed, kv_step=None):
+    """Megakernel blobs of a decoder-only mode from a seeded random block
+    state (ffn 688, padded to 768), int8 weight-only or bf16 panels, scaled
+    so that every GEMV output is of order one; with ``kv_step`` the int8
+    self cache's per-layer step."""
+    head_dim, gated, parallel, norm, _, _ = DEC_MODES[mode]
+    rs = np.random.RandomState(seed)
+    L, ffn, heads = n_layer, 688, d // head_dim
+
+    def nrm(*shape, std=0.1, mean=0.0):
+        return (rs.randn(*shape) * std + mean).astype(np.float32)
+
+    def lin(name, k, n, shape=None):
+        if weight == "int8":
+            st[name + ".qweight"] = rs.randint(-127, 128, (L, k, n)).astype(
+                np.int8)
+            st[name + ".per_channel_scale"] = (
+                rs.uniform(0.5, 1.5, (L, n)) / (73 * k ** 0.5)).astype(
+                    np.float32)
+        else:
+            st[name + ".weight"] = torch.from_numpy(nrm(
+                *(shape or (L, n, k)), std=k ** -0.5)).bfloat16()
+
+    st = {}
+    lin("attention.qkv", d, 3 * d, (L, 3, heads, head_dim, d))
+    st["attention.qkv.bias"] = nrm(L, 3, heads, head_dim)
+    lin("attention.dense", d, d)
+    names = ["mlp.fc"] + (["mlp.gate"] if gated else [])
+    for name in names:
+        lin(name, d, ffn)
+        st[name + ".bias"] = nrm(L, ffn)
+    lin("mlp.proj", ffn, d)
+    st["mlp.proj.bias"] = nrm(L, d)
+    lns = ("input_layernorm",) if parallel else ("input_layernorm",
+                                                 "post_layernorm")
+    for name in lns:
+        st[name + ".weight"] = nrm(L, d, mean=1.0)
+        if norm == "layernorm":
+            st[name + ".bias"] = nrm(L, d)
+    if kv_step is not None:
+        st["attention.kv_orig_quant_scale"] = np.full((L, 1), 1 / kv_step,
+                                                      np.float32)
+        st["attention.kv_quant_orig_scale"] = np.full((L, 1), kv_step,
+                                                      np.float32)
+    keys = dict(mk.DECODER_KEYS, ln=lns)
+    return mk.megakernel_tiles(mk.pack_decoder_blobs(
+        st, n_layer=L, hidden=d, n_head=heads, head_dim=head_dim, ffn=ffn,
+        with_cross=False, gated=gated, keys=keys, device=dev))
+
+
+def _dec_run(dev, mode, blobs, n_layer, d, self_dtype, seq, start, seed,
+             S=448):
+    """The kernel and its plain version on one seeded step over a self
+    cache of S columns: (hid, fresh, plain hid, plain fresh)."""
+    head_dim, gated, parallel, norm, act, rot = DEC_MODES[mode]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H = d // head_dim
+    x = torch.randn(1, d, generator=g, device=dev).bfloat16()
+    if self_dtype == torch.int8:
+        cache = torch.randint(-127, 128, (n_layer, 1, 2, H, head_dim, S),
+                              generator=g, device=dev, dtype=torch.int8)
+    else:
+        cache = torch.randn(n_layer, 1, 2, H, head_dim, S, generator=g,
+                            device=dev).bfloat16()
+    seq_t = torch.tensor([seq], dtype=torch.int32, device=dev)
+    start_t = torch.tensor([start], dtype=torch.int32, device=dev)
+    rope = None if rot is None else mk.Rotary(seq - 1, rot[0], 10000.0,
+                                              rot[1])
+    kw = dict(start_index=start_t, head_dim=head_dim, act=act, norm=norm,
+              parallel=parallel, rope=rope)
+    before = mk.launches["decoder_megakernel"]
+    hid, fresh = mk.fused_decoder_stack(x, blobs, cache, seq_t,
+                                        head_dim ** -0.5, gated=gated, **kw)
+    assert mk.launches["decoder_megakernel"] == before + 1
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(
+        x, blobs, cache, seq_t.cpu(), head_dim ** -0.5, **kw)
+    torch.cuda.synchronize()
+    return hid, fresh, hid_p, fresh_p
+
+
+@pytest.mark.parametrize("seq,start", [(1, 0), (70, 4), (300, 4),
+                                       (448, 200)])
+@pytest.mark.parametrize("weight", ["int8", "bf16"])
+@pytest.mark.parametrize("mode", sorted(DEC_MODES))
+def test_decoder_only_megakernel_matches_plain(dev, mode, weight, seq,
+                                               start):
+    """Each decoder-only mode (RMSNorm, SiLU, the gated MLP, RoPE NeoX and
+    GPT-J, full and partial, the parallel residual, ReLU, heads of 64 and
+    128), int8 and bf16 panels, 2 layers of width 256, a bf16 self cache of
+    448 at the cache's edges (empty, two slices, full), keys below the
+    start masked: within 3e-2 of the plain version on two layers (bf16
+    residual roundings compound) and 1e-2 on the first layer alone."""
+    blobs = _dec_blobs(dev, mode, 2, 256, weight, seed=len(mode))
+    assert blobs.tiles.dtype == (torch.int8 if weight == "int8"
+                                 else torch.bfloat16)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, blobs, 2, 256,
+                                          torch.bfloat16, seq, start,
+                                          seed=seq)
+    assert bool(torch.isfinite(hid).all()) and bool(
+        torch.isfinite(fresh).all())
+    assert _rel(hid, hid_p) < 3e-2
+    assert _rel(fresh, fresh_p) < 3e-2
+    one = mk.blob_layers(blobs, 0, 1)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, one, 1, 256,
+                                          torch.bfloat16, seq, start,
+                                          seed=seq)
+    assert _rel(hid, hid_p) < 1e-2
+    assert _rel(fresh, fresh_p) < 1e-2
+
+
+@pytest.mark.parametrize("weight", ["int8", "bf16"])
+@pytest.mark.parametrize("mode", ["llama", "gptj"])
+def test_decoder_only_megakernel_int8_self(dev, mode, weight):
+    """An int8 self cache (kv8) under the decoder-only modes: the rotated
+    fresh K quantised in the kernel; on one layer the int8 fresh K/V
+    within one step of the plain version's (RoPE's cosf against torch's),
+    the hidden state within 1e-2; two calls bit-equal."""
+    blobs = _dec_blobs(dev, mode, 1, 256, weight, seed=3, kv_step=0.02)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, blobs, 1, 256,
+                                          torch.int8, 70, 4, seed=5)
+    assert fresh.dtype == torch.int8
+    diff = (fresh.int() - fresh_p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) > 0.95
+    assert _rel(hid, hid_p) < 1e-2
+    again = _dec_run(dev, mode, blobs, 1, 256, torch.int8, 70, 4, seed=5)
+    assert torch.equal(again[0], hid) and torch.equal(again[1], fresh)
+
+
+@pytest.mark.parametrize("S,seq,start", [(2088, 2081, 136),
+                                         (9000, 8900, 0),
+                                         (20000, 19990, 9)])
+@pytest.mark.parametrize("mode,weight", [("llama", "bf16"),
+                                         ("gptj", "int8")])
+def test_decoder_only_megakernel_long_caches(dev, mode, weight, S, seq,
+                                             start):
+    """Self caches past 8 slices of 256, whose 8th and later slices the
+    head's finish folds into one (``fold_slices``): 9 (a 1912-token
+    prompt's bucket of 2048 plus new tokens), 35 and 79 (a lane of the
+    fold's max takes three): one layer within 1e-2 of the plain version,
+    two within 3e-2."""
+    blobs = _dec_blobs(dev, mode, 2, 256, weight, seed=7)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, blobs, 2, 256,
+                                          torch.bfloat16, seq, start,
+                                          seed=1, S=S)
+    assert bool(torch.isfinite(hid).all())
+    assert _rel(hid, hid_p) < 3e-2 and _rel(fresh, fresh_p) < 3e-2
+    one = mk.blob_layers(blobs, 0, 1)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, one, 1, 256,
+                                          torch.bfloat16, seq, start,
+                                          seed=1, S=S)
+    assert _rel(hid, hid_p) < 1e-2 and _rel(fresh, fresh_p) < 1e-2
+
+
+def test_decoder_only_megakernel_at_llama_1b_width(dev):
+    """Two layers at LLaMA-1B's widths (d 2048, 16 heads of 128, ffn 5504
+    padded to 6144, gated, RMSNorm, SiLU, RoPE), bf16 panels: the plan's
+    pieces stream through the ring (a bf16 item is 192 KB); within 3e-2 of
+    the plain version."""
+    from eddie_wang_hackathon2023_tpu_torch.ops.decoder_layer import Rotary
+    g = torch.Generator(device=dev).manual_seed(1)
+    L, d, ffn, H, D, S = 2, 2048, 5504, 16, 128, 84
+    st = {"attention.qkv.weight": (torch.randn(
+        L, 3, H, D, d, generator=g, device=dev) * d ** -0.5).bfloat16()}
+    for name, k, n in (("attention.dense", d, d), ("mlp.fc", d, ffn),
+                       ("mlp.gate", d, ffn), ("mlp.proj", ffn, d)):
+        st[name + ".weight"] = (torch.randn(L, n, k, generator=g, device=dev)
+                                * k ** -0.5).bfloat16()
+    for name in ("input_layernorm", "post_layernorm"):
+        st[name + ".weight"] = 1 + 0.1 * torch.randn(L, d, generator=g,
+                                                     device=dev)
+    blobs = mk.megakernel_tiles(mk.pack_decoder_blobs(
+        st, n_layer=L, hidden=d, n_head=H, head_dim=D, ffn=ffn,
+        with_cross=False, gated=True, device=dev))
+    x = torch.randn(1, d, generator=g, device=dev).bfloat16()
+    cache = torch.randn(L, 1, 2, H, D, S, generator=g, device=dev).bfloat16()
+    seq = torch.tensor([70], dtype=torch.int32, device=dev)
+    start = torch.tensor([4], dtype=torch.int32, device=dev)
+    kw = dict(start_index=start, head_dim=D, act="silu", norm="rmsnorm",
+              rope=Rotary(69, D, 10000.0, True))
+    hid, fresh = mk.fused_decoder_stack(x, blobs, cache, seq, D ** -0.5,
+                                        gated=True, **kw)
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(x, blobs, cache,
+                                                  seq.cpu(), D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert _rel(hid, hid_p) < 3e-2 and _rel(fresh, fresh_p) < 3e-2
+
+
+def _tiny_llama(device, seed=0):
+    """A bf16 LLaMA of 2 layers of width 256 (2 heads of 128, ffn 688,
+    vocab 97) from one numpy state (N(0, 0.05), norm weights 1 +
+    N(0, 0.02)), on ``device``."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    config = DecoderConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                           num_heads=2, ffn_hidden_size=688,
+                           max_position_embeddings=64, dtype="bfloat16",
+                           position_embedding="rope", norm="rmsnorm",
+                           norm_eps=1e-6, hidden_act="silu", gated_mlp=True,
+                           attn_bias=False, mlp_bias=False,
+                           tie_word_embeddings=False)
+    with torch.device("meta"):
+        shapes = DecoderLMHead(config).state_dict()
+    rs = np.random.RandomState(seed)
+    state = {}
+    for key, t in shapes.items():
+        shape = tuple(t.shape)
+        if key.startswith("blocks.0."):
+            key, shape = "blocks." + key[len("blocks.0."):], (2,) + shape
+        elif key.startswith("blocks."):
+            continue
+        x = rs.randn(*shape).astype(np.float32)
+        state[key] = 1 + 0.02 * x if key.endswith("norm.weight") or \
+            key == "ln_f.weight" else 0.05 * x
+    return from_jax_state(state, config, device=device)
+
+
+def test_llama_session_through_the_megakernel(dev):
+    """A tiny bf16 LLaMA at batch 1 (a 5-token prompt bucketed to 8: start
+    3), 10 new tokens: one launch a decode step; the session's tokens
+    replayed teacher-forced through the layer-by-layer step give logits
+    within 5e-2 of the megakernel's; the first token (the prefill's) equal
+    to the layer-by-layer session's."""
+    _session_against_layer(dev, np.asarray([[5, 9, 2, 14, 7]], np.int32))
+
+
+def test_llama_session_with_a_long_prompt(dev):
+    """The same with a 1912-token prompt (bucket 2048, start 136): the
+    cache of 2060 columns takes 9 attention slices in the kernel; the
+    blobs hold the tiles alone (the panels a meta tensor)."""
+    rs = np.random.RandomState(4)
+    model = _session_against_layer(
+        dev, rs.randint(0, 97, (1, 1912)).astype(np.int32))
+    assert model.megakernel_blobs().wblob.device.type == "meta"
+
+
+def _session_against_layer(dev, ids):
+    """The tiny LLaMA's batch-1 session on ``ids`` through the megakernel
+    against the same session layer by layer (10 new tokens); returns the
+    model."""
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        GenerationSession, ModelConfig, SamplingConfig)
+    model = _tiny_llama(dev)
+    assert model.megakernel_eligible()
+    mc = ModelConfig(vocab_size=97, num_layers=2, num_heads=2,
+                     hidden_size=256, max_seq_len=4096)
+    n = ids.shape[1]
+    lens = np.asarray([n], np.int32)
+    calls = []
+    hook = model.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append((args, dict(kwargs))),
+        with_kwargs=True)
+    sess = GenerationSession(mc, model, SamplingConfig(end_id=-1, pad_id=0))
+    try:
+        mk.reset_launches()
+        tk, _, _ = sess.decode(ids, lens, max_new_tokens=10)
+    finally:
+        hook.remove()
+    assert mk.launches["decoder_megakernel"] == sess.decode_steps == 9
+    tl, _, _ = GenerationSession(mc, model, SamplingConfig(
+        end_id=-1, pad_id=0), decode_megakernel=False).decode(
+            ids, lens, max_new_tokens=10)
+    assert tk[0, 0, n] == tl[0, 0, n]
+    s_cache = calls[0][0][1].shape[-1]
+    with torch.inference_mode():
+        for use_mk in (True, False):
+            cache = model.new_kv_cache(1, s_cache)
+            out = []
+            for (tok, _, widx, seq), kw in calls:
+                if not use_mk:
+                    kw = {k: v for k, v in kw.items()
+                          if k != "megakernel_blobs"}
+                lg, cache = model(tok, cache, widx, seq, **kw)
+                out.append(lg[:, -1])
+            if use_mk:
+                mk_logits = torch.stack(out)
+            else:
+                layer_logits = torch.stack(out)
+    assert _rel(mk_logits, layer_logits) < 5e-2
+    return model
+
+
+def test_decode_kernel_at_head_dim_128(dev):
+    """Kernel 1 at LLaMA-1B's batch-8 shape: 16 heads of 128, a bf16 cache
+    of 84 columns, sequences 61-80 from starts 0-4, the fresh K/V: against
+    the plain version in fp32 (1e-2) and in bf16 (2e-2)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    L, B, H, D, S = 2, 8, 16, 128, 84
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).bfloat16()
+    cache = torch.randn(L, B, 2, H, D, S, generator=g, device=dev).bfloat16()
+    fresh = tuple(torch.randn(B, H, D, 1, generator=g,
+                              device=dev).bfloat16() for _ in range(2))
+    seq = torch.arange(61, 61 + 20, 20 // B, device=dev)[:B].int()
+    start = torch.arange(B, device=dev).int() % 5
+    before = da.launches["decode_attention_bf16"]
+    out = da.fused_decode_attention(cache, 1, q, seq, D ** -0.5,
+                                    fresh_kv=fresh, start_index=start)
+    assert da.launches["decode_attention_bf16"] == before + 1
+    ref = da.plain_decode_attention(cache.float(), 1, q.float(), seq,
+                                    D ** -0.5, fresh_kv=tuple(
+                                        t.float() for t in fresh),
+                                    start_index=start)
+    ref16 = da.plain_decode_attention(cache, 1, q, seq, D ** -0.5,
+                                      fresh_kv=fresh, start_index=start)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < 1e-2 and _rel(out, ref16) < 2e-2
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = torch.randn(1, 2, 128, 64, device=dev).bfloat16()
     with pytest.raises(ValueError):    # k and v of one shape

@@ -356,13 +356,15 @@ def test_chip_smoke_decoder_path_on_cpu():
 # -- (f) what is not ported, and the device choice --------------------------
 
 @pytest.mark.parametrize("option", [
-    dict(position_embedding="rope"), dict(position_embedding="alibi"),
-    dict(position_embedding="glm_rope"), dict(norm="rmsnorm"),
-    dict(gated_mlp=True), dict(parallel_attn=True),
-    dict(deepnorm_alpha=2.0), dict(tie_word_embeddings=False),
+    dict(position_embedding="alibi"), dict(position_embedding="glm_rope"),
+    dict(deepnorm_alpha=2.0), dict(bidirectional_context=True),
+    dict(embedding_norm=True), dict(apply_query_key_layer_scaling=True),
     dict(quant_mode=QuantMode.use_weight_only().set_fp8_kv_cache())],
     ids=lambda o: next(iter(o)))
 def test_unported_decoder_options_raise(option):
+    """Bloom's and ChatGLM-6B's options and fp8.  RoPE, RMSNorm, the gated
+    MLP, the parallel residual and a separate LM head are ported
+    (tests/test_torch_families.py)."""
     with pytest.raises(NotImplementedError):
         DecoderLMHead(DecoderConfig(**{**MQA, **option}, dtype="float32"))
 
@@ -413,11 +415,22 @@ def test_unported_forward_modes_raise():
     cache = model.new_kv_cache(1, 8)
     seq = torch.tensor([1])
     for kw in (dict(beam_indirection=torch.zeros(1, 1, 8)),
-               dict(kv_tail=cache), dict(megakernel_blobs=object())):
+               dict(kv_tail=cache)):
         with pytest.raises(NotImplementedError):
             model(tok, cache, 0, seq, **kw)
     with pytest.raises(NotImplementedError):        # per-row write positions
         model(tok, cache, torch.tensor([0]), seq)
+    # the megakernel's grouped mode is not ported: an MQA model is not
+    # eligible, so its session packs no blobs and decodes layer by layer,
+    # and its packer refuses
+    assert not model.megakernel_eligible()
+    sess = GenerationSession(
+        ModelConfig(vocab_size=97, num_layers=2, num_heads=2,
+                    hidden_size=256, num_kv_heads=1), model,
+        SamplingConfig(end_id=-1, pad_id=0), decode_megakernel=True)
+    assert sess._megakernel_blobs(1) is None
+    with pytest.raises(NotImplementedError):
+        model.megakernel_blobs()
 
 
 def test_decoder_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch):

@@ -255,7 +255,9 @@ def test_chip_smoke_gen_beam_path_on_cpu(one_cpu_thread):  # noqa: F811
     ``beam_bench.py``'s modes (indirection and gather), launches no kernel
     from CPU tensors, and its teacher-forced replay through the plain path
     is exact (on the CPU both are the plain version).  The last step's
-    table points every beam at row 0 over the prompt's columns."""
+    table points every beam at row 0 over the prompt's columns.  Greedy at
+    batch 1 on the same prompt takes the plain megakernel and agrees with
+    the layer-by-layer session."""
     smoke = _smoke()
     config = dataclasses.replace(
         smoke.gpt_350m_beam_config(), vocab_size=97, hidden_size=128,
@@ -275,6 +277,10 @@ def test_chip_smoke_gen_beam_path_on_cpu(one_cpu_thread):  # noqa: F811
     # the 4 generated before its own, each at one to four rows
     pairs = round(e2e["table_pair_share"] * 4 * 44)
     assert 40 + 4 <= pairs <= 40 + 4 * 4
+    b1 = e2e["greedy_b1"]
+    assert b1["megakernel"] and b1["launches"] == {}
+    assert b1["tokens_equal_share"] == 1.0
+    assert b1["logits_rel_err_vs_layer"] < 5e-2     # bf16, the path's gate
 
 
 def test_chip_smoke_sampled_run_on_cpu(one_cpu_thread):  # noqa: F811

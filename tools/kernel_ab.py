@@ -3,6 +3,7 @@
 decode megakernel against another checkout's, in turns on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py OTHER       # OTHER: the root of a checkout
+    python3 tools/kernel_ab.py OTHER --only megakernel --rounds 12
 
 Builds ``csrc/decode_attention.cu``, ``csrc/flash_attention.cu``,
 ``csrc/gqa_decode_attention.cu``, ``csrc/int4_quant_matmul.cu``,
@@ -33,9 +34,14 @@ int8 and a bf16 cache, the int4 matmul at SantaCoder-1B's four linears
 (groups of 128) at M 8 and M 512, rotating over weights past the L2, and
 the decode megakernel's step at Whisper large-v2 (32 layers, d 1280, int8
 cross cache of 1500, sequence 44; ``chip_smoke.py``'s seeded blobs, each
-checkout's own weight layout).  Each is timed four times, OTHER, this,
-this, OTHER, so that a drift of the card shows.  Compare two versions only
-within one run.
+checkout's own weight layout) and, where both checkouts build its
+decoder-only set with one argument structure, at LLaMA-1B (16 layers,
+bf16 and int8 panels; ``chip_smoke.py``'s kernel phase).  Each is timed
+four times, OTHER, this, this, OTHER, so that a drift of the card shows;
+``--rounds N`` repeats that N times (2N pairs) and adds each side's median
+and the pairs in which this checkout was faster; ``--only TEXT`` times
+only the cases whose name holds TEXT.  Compare two versions only within
+one run.
 """
 import ast
 import ctypes
@@ -81,13 +87,19 @@ def signatures(root, name):
                  "_F": ctypes.c_float}
         args = [types[t.strip()] for t in listed.group(1)[1:-1].split(",")]
         return {"custom_fmha": args, "custom_fmha_f32": args}
+    return build_table(root).SIGNATURES[name]
+
+
+def build_table(root):
+    """The checkout's ``ops/_build.py`` (plain Python), loaded from its
+    file."""
     spec = importlib.util.spec_from_file_location(
         f"_build_of_{abs(hash(root))}",
         os.path.join(root, "eddie_wang_hackathon2023_tpu_torch", "ops",
                      "_build.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.SIGNATURES[name]
+    return mod
 
 
 def defs_of(root, path, names):
@@ -123,10 +135,15 @@ def libraries(torch_build, roots):
     for tag, root in roots.items():
         out = os.path.join(HERE, "build", "ab", tag)
         os.makedirs(out, exist_ok=True)
-        for name, src in SOURCES.items():
+        sources = dict(SOURCES)
+        # the megakernel's decoder-only set, where the checkout has one
+        if "decoder_stack" in build_table(root).SIGNATURES:
+            sources["decoder_stack"] = SOURCES["decoder_layer"]
+        for name, src in sources.items():
             lib_path = os.path.join(out, f"lib{name}.so")
             procs[tag, name] = (lib_path, subprocess.Popen(
-                ["/usr/local/cuda/bin/nvcc", *torch_build.NVCC_FLAGS, "-o",
+                ["/usr/local/cuda/bin/nvcc", *torch_build.NVCC_FLAGS,
+                 *getattr(torch_build, "DEFINES", {}).get(name, []), "-o",
                  lib_path, os.path.join(root, src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {tag: {} for tag in roots}
@@ -142,9 +159,17 @@ def libraries(torch_build, roots):
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1 or not os.path.isdir(os.path.join(argv[0], CSRC)):
-        print("usage: kernel_ab.py OTHER_CHECKOUT", file=sys.stderr)
+    import argparse
+    ap = argparse.ArgumentParser(prog="kernel_ab.py")
+    ap.add_argument("other", help="the root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of OTHER, this, this, OTHER a case")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose name holds this")
+    opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if not os.path.isdir(os.path.join(opts.other, CSRC)) or opts.rounds < 1:
+        print("usage: kernel_ab.py OTHER_CHECKOUT [--rounds N] "
+              "[--only TEXT]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -159,7 +184,7 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    roots = {"other": argv[0], "this": HERE}
+    roots = {"other": opts.other, "this": HERE}
     libs = libraries(_build, roots)
     # each checkout's own plans: the user FMHA's, and kernel 2's causal one
     # (None where the checkout has none)
@@ -468,7 +493,14 @@ def main(argv=None):
                     f_fc1=slots["fc1"], f_fc2=slots["fc2"], cross_int8=1,
                     ring_bytes=0, scale=64 ** -0.5, eps=1e-5,
                     # this checkout's int8 self mode, off: the bf16 step
-                    self_int8=0, kv_oq=None, kv_qo=None, **plan)
+                    self_int8=0, kv_oq=None, kv_qo=None,
+                    # this checkout's decoder-only modes, off: Whisper's
+                    # step (cross-attention, LayerNorm, tanh GELU, int8
+                    # panels, heads of 64)
+                    start=None, inv_freq=None, head_dim=64, nq=4, n_ln=3,
+                    f_gate=slots.get("gate", 0), with_cross=1,
+                    weight_bf16=0, norm_rms=0, act=0, gated=0, parallel=0,
+                    rope_dim=0, rope_neox=0, write_index=0, **plan)
         cls = defs["_MegaArgs"]
         fields = []
         for name, typ in cls._fields_:
@@ -495,14 +527,64 @@ def main(argv=None):
                       int4(512, k, n)))
     cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross",
                   mega))
+    # the decoder-only set at LLaMA-1B's step (chip_smoke.py's kernel
+    # phase: 16 layers, bf16 and int8 panels, a bf16 self cache of 84 at
+    # sequence 74 from start 4, RoPE), where both checkouts have it with
+    # one argument structure: this checkout's wrapper, each checkout's
+    # library
+    if all("decoder_stack" in libs[who] for who in roots) and (
+            mk_defs["other"]["_MegaArgs"]._fields_
+            == mk_defs["this"]["_MegaArgs"]._fields_):
+        from eddie_wang_hackathon2023_tpu_torch.ops import \
+            decoder_layer as mkw
+        lD = smoke.LLAMA_D // smoke.LLAMA_HEADS
+        lx = torch.randn((1, smoke.LLAMA_D), generator=g,
+                         device=dev).bfloat16()
+        lcache = torch.randn((smoke.LLAMA_LAYERS, 1, 2, smoke.LLAMA_HEADS,
+                              lD, smoke.LLAMA_S), generator=g,
+                             device=dev).bfloat16()
+        lseq = torch.tensor([smoke.LLAMA_SEQ], dtype=torch.int32,
+                            device=dev)
+        lkw = dict(start_index=torch.tensor([smoke.LLAMA_START],
+                                            dtype=torch.int32, device=dev),
+                   head_dim=lD, act="silu", norm="rmsnorm", gated=True,
+                   rope=mkw.Rotary(smoke.LLAMA_SEQ - 1, lD, 10000.0, True))
+
+        def llama(weight):
+            lblobs = smoke.llama_blobs(torch, dev, g, smoke.LLAMA_LAYERS,
+                                       weight)
+
+            def run(who, i):
+                _build._LIBS["decoder_stack"] = libs[who]["decoder_stack"]
+                mkw.fused_decoder_stack(lx, lblobs, lcache, lseq,
+                                        lD ** -0.5, **lkw)
+                return 0
+            return run
+
+        for weight in ("bf16", "int8"):
+            cases.append((f"megakernel step, LLaMA-1B 16 layers, {weight} "
+                          "panels, seq 74", llama(weight)))
     for what, fn in cases:
-        times = []
-        for who in ("other", "this", "this", "other"):
-            if fn(who, 0) != 0:
-                raise RuntimeError(f"{what}: {who}'s launch failed")
-            ms, _ = smoke.time_ms(torch, lambda i, who=who: fn(who, i))
-            times.append(f"{who} {ms * 1e3:.2f}")
-        print(f"{what}: " + ", ".join(times) + " us")
+        if opts.only not in what:
+            continue
+        times, us = [], {"other": [], "this": []}
+        for _ in range(opts.rounds):
+            for who in ("other", "this", "this", "other"):
+                if fn(who, 0) != 0:
+                    raise RuntimeError(f"{what}: {who}'s launch failed")
+                ms, _ = smoke.time_ms(torch, lambda i, who=who: fn(who, i))
+                times.append(f"{who} {ms * 1e3:.2f}")
+                us[who].append(ms * 1e3)
+        line = f"{what}: " + ", ".join(times) + " us"
+        if opts.rounds > 1:
+            # pair k: this's k-th time against other's k-th (the rounds
+            # alternate which of them comes first)
+            faster = sum(t < o for t, o in zip(us["this"], us["other"]))
+            med = {k: sorted(v)[len(v) // 2] for k, v in us.items()}
+            line += (f"; median other {med['other']:.2f}, this "
+                     f"{med['this']:.2f} us; this faster in {faster} of "
+                     f"{len(us['this'])} pairs")
+        print(line)
     return 0
 
 

@@ -356,8 +356,8 @@ def main():
     plan_of = mk.megakernel_plan
     caps = []
     for cap in RING_CAPS:
-        mk.megakernel_plan = (lambda d_, nf_, sms_, cap=cap:
-                              {**plan_of(d_, nf_, sms_), "ring_cap": cap})
+        mk.megakernel_plan = (lambda *a, cap=cap, **k:
+                              {**plan_of(*a, **k), "ring_cap": cap})
         try:
             ms_cap, _ = smoke.time_ms(torch, step, iters=20)
         finally:

@@ -11,7 +11,9 @@
    parallel).
 2. Holds every kernel of the main path against its plain PyTorch version
    on the card, at the shapes the main path gives it (the beam entry also
-   at the gen_beam path's), and times the
+   at the gen_beam path's; the megakernel also at LLaMA-1B's and, in its
+   grouped mode, SantaCoder-1B's widths; kernel 1 also at head dim 128,
+   LLaMA-1B's and ChatGLM-6B's decode), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``, used nowhere in the port), the
    megakernel and kernel 1's self call also over an int8 self cache; the
@@ -58,7 +60,8 @@
    ``decode_megakernel=False``, at the same widths with the depth cut to
    8+8 layers and the recipe without ``sqenc`` (its encoder takes the
    bf16 flash entry).  Then the beam
-   path: beam search with 5 beams at full width and depth, recipe
+   path: beam search with 5 beams at full width, the depth cut to 8+8
+   layers as the scanned path's, recipe
    ``woq8+ckv8+lmq8``, each decode step through the beam entry of the
    decode kernel (self-attention through the cache-indirection table) and
    kernel 1 at batch 5 (cross-attention).  For each path the launch
@@ -91,7 +94,24 @@
    beside the woq8 path's of the same run.  Then woq8 with an int8 KV
    cache, cut to 8 layers of the same weights, each layer's step the woq8
    run's cache amax after its prefill / 127: the grouped kernel reads the
-   int8 cache.  Last the serve path: GPT-350M
+   int8 cache.  Then the santacoder paths: the same float state as
+   SantaCoder-1B in bf16 and quantised woq8, at batch 1 (60 + 20 tokens),
+   each decode step one launch of the megakernel's grouped (MQA) mode,
+   each beside the same session layer by layer (tokens, teacher-forced
+   logits within 5e-2, whole calls in turns).  Then the llama paths:
+   LLaMA-1B (16 layers, weights made on the card) at batch 1 through the
+   megakernel's decoder-only set (bf16 and int8 panels) and at batch 8
+   layer by layer (kernel 1 at head dim 128).  Then the bloom path:
+   bloom-560m's widths (24 layers, d 1024, 16 heads of 64, vocab 250880,
+   ALiBi, the embedding norm), batch 8, 60 + 20 tokens, bf16, layer by
+   layer: its attention is plain PyTorch with the ALiBi bias (as the JAX
+   package runs it through XLA), so no kernel may launch; its logits are
+   held against its weights in fp32.  Then the chatglm path: ChatGLM-6B's
+   widths (28 layers, d 4096, 32 heads of 128, 6.7 B parameters made on
+   the card in the JAX layout and loaded through ``from_jax_state``),
+   batch 8 with prompts of 60 down to 32 true tokens, 20 new: the
+   bidirectional prompt, GLM positions, the deepnorm residual, each decode
+   step kernel 1 once a layer.  Last the serve path: GPT-350M
    (24 layers, d 1024, 16 heads of 64, vocab 51200, 128 positions, bf16,
    float weights) behind the port's ``ContinuousBatchingManager`` with 8
    slots over a block-paged KV pool of 32-token blocks, 64 requests of 60
@@ -203,6 +223,23 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:45"),
+    # the megakernel's grouped (MQA) mode at SantaCoder-1B's widths (24
+    # layers, 16 query heads of 128 over one KV head): bf16 panels, and
+    # int8 weight-only panels (woq8)
+    "decoder_megakernel_mqa": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decoder_megakernel_mqa_woq8": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    # kernel 1 at ChatGLM-6B's decode: 32 heads of 128, batch 8, each row
+    # from its own start
+    "decode_attention_glm": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
     "beam_decode_attention": dict(
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -266,12 +303,19 @@ KERNELS = {
 # installed, then without it and with a previous-text prompt), the kv8
 # paths (the main path's model with an int8 self cache, through the
 # megakernel and layer by layer), the llama paths (LLaMA-1B at batch 1
-# through the megakernel, bf16 and woq8, and at batch 8 layer by layer), or
-# the probes path (the three tools/megakernel_probe*.py scripts)
+# through the megakernel, bf16 and woq8, and at batch 8 layer by layer), the
+# santacoder paths (SantaCoder-1B at batch 1 through the megakernel's
+# grouped mode, bf16 and woq8), the chatglm path (ChatGLM-6B at batch 8,
+# kernel 1 in every decode step), or the probes path (the three
+# tools/megakernel_probe*.py scripts); the bloom path runs no TPU kernel
+# and so drives no row
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decoder_megakernel_llama": "llama",
            "decoder_megakernel_llama_woq8": "llama_woq8",
            "decode_attention_d128": "llama_b8",
+           "decoder_megakernel_mqa": "santacoder",
+           "decoder_megakernel_mqa_woq8": "santacoder_woq8",
+           "decode_attention_glm": "chatglm",
            "decoder_megakernel_int8_self": "kv8",
            "decode_attention_int8_self": "kv8_scanned",
            "decode_attention_int8": "scanned",
@@ -292,6 +336,9 @@ COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "decoder_megakernel_llama": "decoder_megakernel",
               "decoder_megakernel_llama_woq8": "decoder_megakernel",
               "decode_attention_d128": "decode_attention_bf16",
+              "decoder_megakernel_mqa": "decoder_megakernel",
+              "decoder_megakernel_mqa_woq8": "decoder_megakernel",
+              "decode_attention_glm": "decode_attention_bf16",
               "beam_decode_attention_gen": "beam_decode_attention",
               "decoder_megakernel_int8_self": "decoder_megakernel",
               "decode_attention_int8_self": "decode_attention_int8"}
@@ -1009,6 +1056,8 @@ def kernel_phases(torch, results):
     del qkv32, q32, k32, v32, kc, vc, qc
     megakernel_phase(torch, results, gen)
     llama_kernel_phase(torch, results, gen)
+    santacoder_kernel_phase(torch, results, gen)
+    glm_kernel_phase(torch, results, gen)
     beam_phase(torch, results, gen)
     gen_beam_kernel_phase(torch, results)
     gqa_phase(torch, results, gen)
@@ -1169,18 +1218,29 @@ LLAMA_D, LLAMA_FFN, LLAMA_HEADS, LLAMA_LAYERS = 2048, 5504, 16, 16
 LLAMA_S, LLAMA_SEQ, LLAMA_START = 84, 74, 4
 
 
-def llama_blobs(torch, dev, gen, n_layer, weight):
-    """Seeded random megakernel blobs at LLaMA-1B's widths (gated, RMSNorm
-    weights 1 + N(0, 0.1), ffn 5504 padded to 6144): bf16 panels with unit
-    scales (weights N(0, 1 / K)) or int8 weight-only panels with
-    per-channel scales, every GEMV output of order one."""
+def random_blobs_of(torch, dev, gen, n_layer, weight, d, ffn, heads,
+                    kv_heads, gated, biases):
+    """Seeded random megakernel blobs of a decoder-only block: d, ffn,
+    heads of d / heads, ``kv_heads`` KV heads (fewer: the grouped mode's
+    separate-KV layout), gated or not, with biases (and LayerNorm's) or
+    without (RMSNorm's); bf16 panels with unit scales (weights N(0, 1 /
+    K)) or int8 weight-only panels with per-channel scales, every GEMV
+    output of order one; norm weights 1 + N(0, 0.1)."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
-    L, d, ffn, H = n_layer, LLAMA_D, LLAMA_FFN, LLAMA_HEADS
+    L, H, D = n_layer, heads, d // heads
+    dkv = kv_heads * D
+    grouped = kv_heads != heads
     st = {}
-    for name, k, n, shape in (
-            ("attention.qkv", d, 3 * d, (L, 3, H, d // H, d)),
-            ("attention.dense", d, d, None), ("mlp.fc", d, ffn, None),
-            ("mlp.gate", d, ffn, None), ("mlp.proj", ffn, d, None)):
+    mats = [("attention.dense", d, d, None), ("mlp.fc", d, ffn, None),
+            ("mlp.proj", ffn, d, None)]
+    if gated:
+        mats.append(("mlp.gate", d, ffn, None))
+    if weight == "int8":
+        mats.append(("attention.qkv", d, d + 2 * dkv, None))
+    else:
+        mats.append(("attention.qkv", d, d, (L, H, D, d) if grouped
+                     else (L, 3, H, D, d)))
+    for name, k, n, shape in mats:
         if weight == "int8":
             st[name + ".qweight"] = torch.randint(
                 -127, 128, (L, k, n), generator=gen, device=dev,
@@ -1191,48 +1251,71 @@ def llama_blobs(torch, dev, gen, n_layer, weight):
             st[name + ".weight"] = (torch.randn(
                 shape or (L, n, k), generator=gen, device=dev)
                 * k ** -0.5).bfloat16()
+        if biases:
+            st[name + ".bias"] = 0.1 * torch.randn(
+                (L, n if name != "attention.qkv" else d), generator=gen,
+                device=dev)
+    if weight != "int8" and grouped:
+        st["attention.qkv.kv_weight"] = (torch.randn(
+            (L, 2, kv_heads, D, d), generator=gen, device=dev)
+            * d ** -0.5).bfloat16()
+    if biases:
+        if grouped:
+            st["attention.qkv.kv_bias"] = 0.1 * torch.randn(
+                (L, 2, kv_heads, D), generator=gen, device=dev)
+        else:
+            st["attention.qkv.bias"] = 0.1 * torch.randn(
+                (L, 3, H, D), generator=gen, device=dev)
     for name in ("input_layernorm", "post_layernorm"):
         st[name + ".weight"] = 1 + 0.1 * torch.randn(
             (L, d), generator=gen, device=dev)
+        if biases:
+            st[name + ".bias"] = 0.1 * torch.randn((L, d), generator=gen,
+                                                   device=dev)
     blobs = mk.pack_decoder_blobs(
-        st, n_layer=L, hidden=d, n_head=H, head_dim=d // H, ffn=ffn,
-        with_cross=False, gated=True, device=dev)
+        st, n_layer=L, hidden=d, n_head=H, head_dim=D, ffn=ffn,
+        with_cross=False, gated=gated, n_kv_head=kv_heads, device=dev)
     del st
     return mk.megakernel_tiles(blobs)
 
 
-def llama_kernel_phase(torch, results, gen):
-    """The megakernel's decoder-only modes at LLaMA-1B's shape (16 layers,
-    d 2048, 16 heads of 128, ffn 5504, RMSNorm, the gated SiLU MLP, RoPE
-    over every channel, a bf16 self cache of 84 at sequence 74 from start
-    4), bf16 and int8 panels: one layer and all 16 against the plain
-    version, the step timed (the two in turns); then kernel 1 at head dim
-    128 at the batch-8 path's shape, against its plain version, beside
-    SDPA."""
-    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+def llama_blobs(torch, dev, gen, n_layer, weight):
+    """Seeded random megakernel blobs at LLaMA-1B's widths (gated, RMSNorm,
+    no biases, ffn 5504 padded to 6144; :func:`random_blobs_of`)."""
+    return random_blobs_of(torch, dev, gen, n_layer, weight, LLAMA_D,
+                           LLAMA_FFN, LLAMA_HEADS, LLAMA_HEADS, True, False)
+
+
+def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
+                    params):
+    """The megakernel's decoder-only rows ``rows`` ({row: panels' weight
+    type}) at ``shape`` = (L, d, H, Hkv, S, n, start): each row's blobs
+    from ``blobs_of(weight)``, one layer and all L against the plain
+    version over a seeded bf16 self cache of Hkv heads (at sequence n from
+    ``start``; ``kw`` the call's modes), the step timed (and the plain
+    version layer by layer), its bound from ``params`` (the model's
+    weights a step), then the rows' steps in turns."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     dev = torch.device("cuda")
-    L, d, ffn, H = LLAMA_LAYERS, LLAMA_D, LLAMA_FFN, LLAMA_HEADS
-    D, S, n, start = d // H, LLAMA_S, LLAMA_SEQ, LLAMA_START
+    L, d, H, Hkv, S, n, start = shape
+    D = d // H
     scale = D ** -0.5
     x = torch.randn((1, d), generator=gen, device=dev).bfloat16()
-    cache = torch.randn((L, 1, 2, H, D, S), generator=gen,
+    cache = torch.randn((L, 1, 2, Hkv, D, S), generator=gen,
                         device=dev).bfloat16()
     seq = torch.tensor([n], dtype=torch.int32, device=dev)
     start_t = torch.tensor([start], dtype=torch.int32, device=dev)
-    rope = mk.Rotary(n - 1, D, 10000.0, True)
-    kw = dict(start_index=start_t, head_dim=D, act="silu", norm="rmsnorm",
-              rope=rope)
+    kw = dict(kw, start_index=start_t, head_dim=D)
     # the plain version reads the length and the start on the host
     seq_host = seq.cpu()
-    kw_plain = dict(kw, start_index=start_t.cpu())
+    kw_plain = {k: v for k, v in kw.items() if k != "gated"}
+    kw_plain["start_index"] = start_t.cpu()
     modes = {}
-    for row, weight in (("decoder_megakernel_llama", "bf16"),
-                        ("decoder_megakernel_llama_woq8", "int8")):
+    for row, weight in rows.items():
         t = time.time()
-        modes[row] = llama_blobs(torch, dev, gen, L, weight)
+        modes[row] = blobs_of(weight)
         torch.cuda.synchronize()
-        print(f"LLaMA-1B megakernel blobs, {weight} panels: packed and "
+        print(f"{what} megakernel blobs, {weight} panels: packed and "
               f"tiled in {time.time() - t:.1f} s")
 
     def run(row, n_layer, plain=False):
@@ -1241,23 +1324,24 @@ def llama_kernel_phase(torch, results, gen):
             return mk.plain_fused_decoder_stack(
                 x, b, cache[:n_layer], seq_host, scale, **kw_plain)
         return mk.fused_decoder_stack(x, b, cache[:n_layer], seq, scale,
-                                      gated=True, **kw)
+                                      **kw)
 
     for row, blobs in modes.items():
         weight = "int8" if blobs.wblob.dtype == torch.int8 else "bf16"
-        what = f"LLaMA-1B megakernel, {weight} panels"
+        label = f"{what} megakernel, {weight} panels"
         errs = {}
         for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
             hid, fresh = run(row, n_layer)
             hid_p, fresh_p = run(row, n_layer, plain=True)
             torch.cuda.synchronize()
             errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
-            print(f"{what}, {n_layer} layer(s): rel err vs plain bf16: "
+            print(f"{label}, {n_layer} layer(s): rel err vs plain bf16: "
                   f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
                   f"{errs[n_layer][1]:.3e}")
             check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
-                  torch.bfloat16 and max(errs[n_layer]) < tol,
-                  f"{what}, {n_layer} layer(s), matches plain (rel {tol:g})")
+                  torch.bfloat16 and fresh.shape == (n_layer, 2, Hkv, D)
+                  and max(errs[n_layer]) < tol,
+                  f"{label}, {n_layer} layer(s), matches plain (rel {tol:g})")
         ms, wall = time_ms(torch, lambda i: run(row, L), iters=20)
         hid_box = [x]
 
@@ -1279,52 +1363,63 @@ def llama_kernel_phase(torch, results, gen):
                                "megakernel's layers ahead of the device")
         plain_ms = sum(plain_runs) / len(plain_runs)
         check(rel_err(hid_box[0], hid_p) < 1e-3,
-              f"the plain {what} timed layer by layer computes the "
+              f"the plain {label} timed layer by layer computes the "
               f"{L}-layer result")
         # the bound counts the model's own weights (not the ffn's zero
-        # padding to 6144, which the kernel streams), int8's per-channel
-        # scales, the norms' weights, the valid cache columns, the row in
-        # and out and the fresh K/V
-        params = L * (4 * d * d + 3 * d * ffn)
+        # padding, which the kernel streams), int8's per-channel scales,
+        # the norms' parameters, the valid cache columns, the row in and
+        # out and the fresh K/V
         item = blobs.wblob.element_size()
-        n_bytes = (params * item
-                   + (L * (5 * d + 2 * ffn) * 4 if item == 1 else 0)
-                   + L * 2 * d * 4 + L * 2 * H * D * (n - 1 - start) * 2
-                   + 2 * d * 2 + L * 2 * H * D * 2 + 8)
-        b_ms, b_by = bound(n_bytes, 2 * params + L * 4 * H * D * (n - start),
+        n_cols = sum(params["cols"])
+        n_bytes = (params["weights"] * item
+                   + (L * n_cols * 4 if item == 1 else 0)
+                   + L * params["norm_rows"] * d * 4
+                   + L * 2 * Hkv * D * (n - 1 - start) * 2
+                   + 2 * d * 2 + L * 2 * Hkv * D * 2 + 8)
+        b_ms, b_by = bound(n_bytes, 2 * params["weights"]
+                           + L * 4 * H * D * (n - start),
                            PEAK_FP32_CUDA_CORES)
         tiles_mb = blobs.tiles.numel() * item / 1e6
-        print(f"{what} step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
+        print(f"{label} step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
               f"{b_by}; {n_bytes / 1e6:.1f} MB, {tiles_mb:.1f} MB of tiles "
               f"streamed); plain {plain_ms * 1e3:.1f} us (mean of "
               + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
+        _, gated, nf = mk.blob_layout(blobs)
         results[row] = dict(
             max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, host_call_ms=wall, tiles_mb=tiles_mb,
-            rel_err_1_layer=max(errs[1]), rel_err_16_layers=max(errs[L]),
-            plan=mk.megakernel_plan(d, 3, torch.cuda.get_device_properties(
-                0).multi_processor_count, False, True, item))
+            rel_err_1_layer=max(errs[1]), rel_err_all_layers=max(errs[L]),
+            plan=mk.megakernel_plan(d, nf, torch.cuda.get_device_properties(
+                0).multi_processor_count, False, gated, item, Hkv * D))
     turns = []
     for row in list(modes) * 2:
         turns.append(time_ms(torch, lambda i: run(row, L), iters=20)[0])
-    print("LLaMA-1B megakernel step in turns, bf16 / int8 panels: "
+    print(f"{what} megakernel step in turns, "
+          + " / ".join(rows.values()) + " panels: "
           + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
-    results["decoder_megakernel_llama_woq8"]["in_turns_ms"] = dict(
-        bf16=turns[0::2], int8=turns[1::2])
-    del modes
+    results[list(rows)[-1]]["in_turns_ms"] = {
+        w: turns[i::len(rows)] for i, w in enumerate(rows.values())}
 
-    # kernel 1 at head dim 128: the batch-8 path's self call (16 heads of
-    # 128, a bf16 cache of 84, every row at sequence 74 from start 4, the
-    # fresh K/V), 16 layers
-    B = DEC_BATCH
+
+def decode_attention_row(torch, results, gen, row, shape, starts):
+    """Kernel 1's self call at ``shape`` = (L, B, H, D, S, n): a bf16
+    cache, every row at sequence n from its own start (``starts``), the
+    fresh K/V, L layers rotating; against its plain version (bf16 and
+    fp32), timed beside the plain version and SDPA over the valid columns
+    and the fresh one laid out beforehand (a row's own columns: the rows
+    of different starts are timed as one batch of the longest)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    L, B, H, D, S, n = shape
+    scale = D ** -0.5
     q = torch.randn((B, H, 1, D), generator=gen, device=dev).bfloat16()
     self_c = torch.randn((L, B, 2, H, D, S), generator=gen,
                          device=dev).bfloat16()
     fresh = tuple(torch.randn((B, H, D, 1), generator=gen,
                               device=dev).bfloat16() for _ in range(2))
     seq_b = torch.full((B,), n, dtype=torch.int32, device=dev)
-    start_b = torch.full((B,), start, dtype=torch.int32, device=dev)
+    start_b = torch.tensor(starts, dtype=torch.int32, device=dev)
     kw1 = dict(fresh_kv=fresh, start_index=start_b)
     out = da.fused_decode_attention(self_c, 3, q, seq_b, scale, **kw1)
     ref16 = da.plain_decode_attention(self_c, 3, q, seq_b, scale, **kw1)
@@ -1333,35 +1428,106 @@ def llama_kernel_phase(torch, results, gen):
         fresh_kv=tuple(t.float() for t in fresh), start_index=start_b)
     torch.cuda.synchronize()
     e16, e32 = rel_err(out, ref16), rel_err(out, ref32)
-    print(f"decode attention at head dim 128 (batch {B}, 16 heads, S {S}, "
-          f"seq {n}, start {start}): rel err vs plain bf16 {e16:.3e}, vs "
-          f"fp32 {e32:.3e}")
+    what = f"decode attention at head dim {D} ({row})"
+    print(f"{what} (batch {B}, {H} heads, S {S}, seq {n}, starts "
+          f"{list(starts)}): rel err vs plain bf16 {e16:.3e}, vs fp32 "
+          f"{e32:.3e}")
     check(e16 < 2e-2 and e32 < 1e-2,
-          "decode attention at head dim 128 matches plain (rel 2e-2 bf16, "
-          "1e-2 fp32)")
+          f"{what} matches plain (rel 2e-2 bf16, 1e-2 fp32)")
     ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
         self_c, i % L, q, seq_b, scale, **kw1))
     plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
         self_c, i % L, q, seq_b, scale, **kw1))
-    # SDPA over the valid columns and the fresh one, laid out beforehand
+    lo = min(starts)
     k_sd, v_sd = (torch.cat(
-        [self_c[:, :, j, :, :, start:n - 1],
+        [self_c[:, :, j, :, :, lo:n - 1],
          fresh[j][None].expand(L, -1, -1, -1, -1)],
         dim=-1).transpose(-1, -2).contiguous() for j in (0, 1))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % L], v_sd[i % L],
                                               scale=scale))
-    cols = n - 1 - start
-    b_ms, b_by = bound(2 * B * H * D * cols * 2 + 2 * B * H * D * 2
+    cols = sum(n - 1 - s for s in starts)
+    b_ms, b_by = bound(2 * H * D * cols * 2 + 2 * B * H * D * 2
                        + 2 * B * H * D * 2 + B * 8,
-                       4 * B * H * D * (cols + 1), PEAK_FP32_CUDA_CORES)
-    print(f"decode attention at head dim 128: {ms * 1e3:.2f} us (bound "
-          f"{b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f} us, "
-          f"SDPA {lib_ms * 1e3:.2f} us")
-    results["decode_attention_d128"] = dict(
+                       4 * H * D * (cols + B), PEAK_FP32_CUDA_CORES)
+    print(f"{what}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, {b_by}); "
+          f"plain {plain_ms * 1e3:.2f} us, SDPA {lib_ms * 1e3:.2f} us")
+    results[row] = dict(
         max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         host_call_ms=wall, **split_of(da, S))
+
+
+def llama_kernel_phase(torch, results, gen):
+    """The megakernel's decoder-only modes at LLaMA-1B's shape (16 layers,
+    d 2048, 16 heads of 128, ffn 5504, RMSNorm, the gated SiLU MLP, RoPE
+    over every channel, a bf16 self cache of 84 at sequence 74 from start
+    4), bf16 and int8 panels: one layer and all 16 against the plain
+    version, the step timed (the two in turns); then kernel 1 at head dim
+    128 at the batch-8 path's shape, against its plain version, beside
+    SDPA."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    dev = torch.device("cuda")
+    L, d, ffn, H = LLAMA_LAYERS, LLAMA_D, LLAMA_FFN, LLAMA_HEADS
+    D, S, n, start = d // H, LLAMA_S, LLAMA_SEQ, LLAMA_START
+    megakernel_rows(
+        torch, results, gen, "LLaMA-1B",
+        {"decoder_megakernel_llama": "bf16",
+         "decoder_megakernel_llama_woq8": "int8"},
+        (L, d, H, H, S, n, start),
+        lambda weight: llama_blobs(torch, dev, gen, L, weight),
+        dict(act="silu", norm="rmsnorm", gated=True,
+             rope=mk.Rotary(n - 1, D, 10000.0, True)),
+        dict(weights=L * (4 * d * d + 3 * d * ffn),
+             cols=(3 * d, d, 2 * ffn, d), norm_rows=2))
+    # kernel 1 at head dim 128: the batch-8 path's self call (16 heads of
+    # 128, a bf16 cache of 84, every row at sequence 74 from start 4, the
+    # fresh K/V), 16 layers
+    decode_attention_row(torch, results, gen, "decode_attention_d128",
+                         (L, DEC_BATCH, H, D, S, n), [start] * DEC_BATCH)
+
+
+# SantaCoder-1B (benchmarks/benchmark.py's santacoder_1b): 24 layers, d
+# 2048, 16 query heads of 128 over one KV head, ffn 8192, vocab 49152
+SANTA_LAYERS, SANTA_D, SANTA_HEADS, SANTA_FFN = 24, 2048, 16, 8192
+
+
+def santacoder_kernel_phase(torch, results, gen):
+    """The megakernel's grouped (MQA) mode at SantaCoder-1B's shape (24
+    layers, d 2048, 16 query heads of 128 over one KV head, ffn 8192,
+    LayerNorm, tanh GELU, biases, a bf16 self cache of 84 one head wide at
+    sequence 74 from start 4: the batch-1 path's mid-call step), bf16 and
+    int8 panels, as :func:`llama_kernel_phase` holds LLaMA-1B's."""
+    dev = torch.device("cuda")
+    L, d, H, ffn = SANTA_LAYERS, SANTA_D, SANTA_HEADS, SANTA_FFN
+    dkv = d // H
+    megakernel_rows(
+        torch, results, gen, "SantaCoder-1B (MQA)",
+        {"decoder_megakernel_mqa": "bf16",
+         "decoder_megakernel_mqa_woq8": "int8"},
+        (L, d, H, 1, LLAMA_S, LLAMA_SEQ, LLAMA_START),
+        lambda weight: random_blobs_of(torch, dev, gen, L, weight, d, ffn,
+                                       H, 1, False, True),
+        dict(act="gelu", norm="layernorm"),
+        dict(weights=L * (2 * d * d + 2 * d * dkv + 2 * d * ffn),
+             cols=(d + 2 * dkv, d, ffn, d), norm_rows=4))
+
+
+# ChatGLM-6B (THUDM/chatglm-6b config.json): 28 layers, d 4096, 32 heads of
+# 128, inner 16384, vocab 130528
+GLM_LAYERS, GLM_D, GLM_HEADS, GLM_FFN, GLM_VOCAB = 28, 4096, 32, 16384, 130528
+# the chatglm path's prompts: true lengths of 60 down to 32 (bucket 64)
+GLM_PROMPTS = (60, 56, 52, 48, 44, 40, 36, 32)
+
+
+def glm_kernel_phase(torch, results, gen):
+    """Kernel 1 at ChatGLM-6B's decode shape: batch 8, 32 heads of 128, a
+    bf16 cache of 84 at sequence 74, each row from its own start (prompts
+    of GLM_PROMPTS tokens bucketed to 64), 28 layers rotating."""
+    decode_attention_row(
+        torch, results, gen, "decode_attention_glm",
+        (GLM_LAYERS, len(GLM_PROMPTS), GLM_HEADS, GLM_D // GLM_HEADS,
+         LLAMA_S, LLAMA_SEQ), [64 - p for p in GLM_PROMPTS])
 
 
 def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
@@ -3527,7 +3693,7 @@ def llama_1b_config():
         tie_word_embeddings=False)
 
 
-def random_llama(torch, config, device):
+def random_model(torch, config, device):
     """The port's model of ``config`` on ``device`` with seeded random
     weights made there from a ``torch.Generator`` (norm weights 1 +
     N(0, 0.02), every other tensor N(0, 0.02)): 1.1 B parameters in numpy
@@ -3540,7 +3706,8 @@ def random_llama(torch, config, device):
     with torch.no_grad():
         for name, p in model.named_parameters():
             x = torch.randn(p.shape, generator=gen, device=device) * 0.02
-            if name.endswith("layernorm.weight") or name == "ln_f.weight":
+            if name.endswith(("layernorm.weight", "ln_f.weight",
+                              "ln_embed.weight")):
                 x += 1.0
             p.copy_(x)
     return model.eval()
@@ -3566,6 +3733,11 @@ def woq8_model(torch, model, config):
             base = key.rsplit(".", 1)[0]
             if key.endswith(".qweight"):
                 w = fsd[base + ".weight"].float()
+                if base.endswith("qkv") and base + ".kv_weight" in fsd:
+                    # the separate-KV layout joins its K/V columns
+                    w = torch.cat([w.reshape(-1, w.shape[-1]),
+                                   fsd[base + ".kv_weight"].float().reshape(
+                                       -1, w.shape[-1])])
                 w = w.reshape(-1, w.shape[-1]).t()            # [in, out]
                 amax = w.abs().amax(0)
                 s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
@@ -3578,26 +3750,24 @@ def woq8_model(torch, model, config):
     return qmodel.eval()
 
 
-def llama_path(torch, np, config=None, device="cuda", label="llama"):
-    """The llama paths on ``device``: ``config`` (default LLaMA-1B, bf16)
-    with random weights made on the device, generation of DEC_NEW tokens
-    for prompts of DEC_PROMPT tokens (bucketed to 64: start 4) through the
-    port's ``GenerationSession``, as ``benchmarks/benchmark.py -m
-    llama_1b`` runs it: at batch 1 with float weights (``llama``: each
-    decode step one launch of the megakernel over bf16 panels), at batch 1
-    under woq8 (``llama_woq8``: int8 panels), and at batch DEC_BATCH layer
-    by layer (``llama_b8``: kernel 1 at head dim 128 once a layer a step).
-    For each, the launches of one call, the teacher-forced replay of the
-    recorded calls against the plain layer-by-layer path, the step's and
-    the prefill's wall and busy time, tokens/s (best of 3 calls) and peak
-    memory.  Then the
-    batch-1 session with ``decode_megakernel=False`` on the same weights
-    and prompts: its tokens beside the megakernel's (the share of equal
-    positions), the megakernel's recorded calls replayed through the
-    layer-by-layer step (logits within 5e-2), and both sessions' calls in
-    turns.  A smaller ``config`` and the CPU rehearse it (the plain
-    versions; launches not checked).  Returns ({path: numbers}, {path:
-    launch counts})."""
+def session_paths(torch, np, c, runs, label, device, seed, compare=(),
+                  prompt_lens=None, want=None):
+    """Generation of DEC_NEW tokens for prompts of DEC_PROMPT tokens (or
+    of ``prompt_lens`` true lengths, left-padded to DEC_PROMPT; bucketed to
+    64) through the port's ``GenerationSession`` for each run (name, model,
+    batch) of ``runs``, prompts from ``seed``: the launches of one call
+    (``want(name, batch, steps)``: the launch counts the call must show on
+    the card, no other kernel; by default one megakernel launch a step at
+    batch 1, kernel 1 once a layer a step otherwise), the teacher-forced
+    replay of the recorded calls against the plain layer-by-layer path
+    (rel 5e-2 of max |logit|), the step's and the prefill's wall and busy
+    time, tokens/s (best of 3 calls) and peak memory.  Then for each run
+    named in ``compare`` the batch-1 session with
+    ``decode_megakernel=False`` on the same weights and prompts: its
+    tokens beside the megakernel's (the share of equal positions), the
+    megakernel's recorded calls replayed through the layer-by-layer step
+    (logits within 5e-2), and both sessions' calls in turns.  Returns
+    ({name: numbers}, {name: launch counts})."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
@@ -3605,28 +3775,27 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
     from eddie_wang_hackathon2023_tpu_torch.runtime import (
         GenerationSession, ModelConfig, SamplingConfig, bucket_length)
 
-    device = torch.device(device)
-    on_card = device.type == "cuda"
+    on_card = torch.device(device).type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    c = config or llama_1b_config()
-    t0 = time.time()
-    fmodel = random_llama(torch, c, device)
-    qmodel = woq8_model(torch, fmodel, c)
-    sync()
-    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
-          f"{c.num_heads} heads of {c.head_dim}, ffn {c.ffn_hidden_size}, "
-          f"vocab {c.vocab_size}, RoPE, RMSNorm, gated SiLU; float and woq8 "
-          f"models built on the {device.type} in {time.time() - t0:.1f} s")
+    if want is None:
+        def want(name, b, steps):
+            return ({"decoder_megakernel": steps} if b == 1 else
+                    {"decode_attention_bf16": c.num_layers * steps})
     mc = ModelConfig(vocab_size=c.vocab_size, num_layers=c.num_layers,
                      num_heads=c.num_heads, hidden_size=c.hidden_size,
-                     max_seq_len=c.max_position_embeddings)
+                     max_seq_len=c.max_position_embeddings,
+                     num_kv_heads=c.num_kv_heads)
     sc = SamplingConfig(end_id=-1, pad_id=0)
-    rs = np.random.RandomState(2)
+    rs = np.random.RandomState(seed)
     s_cache = -(-(bucket_length(DEC_PROMPT) + DEC_NEW) // 4) * 4
+
+    def lens_of(b):
+        return np.asarray(prompt_lens if prompt_lens is not None
+                          else [DEC_PROMPT] * b, np.int32)
 
     def prompts(b):
         return rs.randint(0, c.vocab_size, (b, DEC_PROMPT)).astype(np.int32)
@@ -3660,15 +3829,12 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
         return torch.stack(logits)
 
     e2e, counts, sessions = {}, {}, {}
-    runs = (("llama", fmodel, 1), ("llama_woq8", qmodel, 1),
-            ("llama_b8", fmodel, DEC_BATCH))
     for name, model, b in runs:
-        tag = f"{label}{name[len('llama'):]}"
         # the megakernel as the session's default takes it on the card; the
         # CPU rehearsal asks for its plain version
         sess = GenerationSession(mc, model, sc, decode_megakernel=(
             None if on_card else True))
-        lens = np.full((b,), DEC_PROMPT, np.int32)
+        lens = lens_of(b)
         _, calls = record(sess, model, prompts(b), lens)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -3683,38 +3849,36 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
         steps = sess.decode_steps
         counts[name] = cnt
         uses_mk = sess._mk_blobs is not None
-        print(f"[{tag}] batch {b}, {DEC_NEW} tokens for prompts of "
-              f"{DEC_PROMPT} (bucket {bucket_length(DEC_PROMPT)}), {steps} "
-              f"decode steps, megakernel {uses_mk}, launches {cnt}")
+        print(f"[{name}] batch {b}, {DEC_NEW} tokens for prompts of "
+              f"{[int(n) for n in lens]} (bucket "
+              f"{bucket_length(DEC_PROMPT)}), {steps} decode steps, "
+              f"megakernel {uses_mk}, launches {cnt}")
         check(steps == DEC_NEW - 1 and len(calls) == DEC_NEW
               and tokens.shape == (b, 1, DEC_PROMPT + DEC_NEW)
               and bool((seq_lens == DEC_PROMPT + DEC_NEW).all())
               and bool(((tokens >= 0) & (tokens < c.vocab_size)).all())
               and bool(np.isfinite(cum).all()),
-              f"[{tag}] generation decoded {DEC_NEW} tokens, in range, "
+              f"[{name}] generation decoded {DEC_NEW} tokens, in range, "
               "finite log-probabilities")
-        check(uses_mk == (b == 1), f"[{tag}] the megakernel "
-              + ("serves" if b == 1 else "does not serve") + f" batch {b}")
         if on_card:
-            want = ({"decoder_megakernel": steps} if b == 1 else
-                    {"decode_attention_bf16": c.num_layers * steps})
-            check(all(v == want.get(k, 0) for k, v in cnt.items()),
-                  f"[{tag}] launches {want}, no other kernel")
+            w = want(name, b, steps)
+            check(all(v == w.get(k, 0) for k, v in cnt.items()),
+                  f"[{name}] launches {w}, no other kernel")
         lk, lp = replay(model, calls, b), replay(model, calls, b, plain=True)
         e_lg = rel_err(lk, lp)
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-        print(f"[{tag}] teacher-forced logits (prefill + {DEC_NEW - 1} "
+        print(f"[{name}] teacher-forced logits (prefill + {DEC_NEW - 1} "
               f"steps), kernel path vs plain layer-by-layer path: rel err "
               f"{e_lg:.3e}, argmax agreement {agree:.3f}")
         check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
-              f"[{tag}] teacher-forced logits agree (rel 5e-2 of max "
+              f"[{name}] teacher-forced logits agree (rel 5e-2 of max "
               "|logit|)")
         step_info = {}
         if on_card:
             step_info = step_timing(torch, model, replayer(
-                model, calls, model.new_kv_cache(b, s_cache)), tag)
+                model, calls, model.new_kv_cache(b, s_cache)), name)
             step_info.update(prefill_timing(torch, model, replayer(
-                model, calls, model.new_kv_cache(b, s_cache)), tag))
+                model, calls, model.new_kv_cache(b, s_cache)), name))
         times = []
         for run_ids in [prompts(b) for _ in range(3)]:
             sync()
@@ -3724,7 +3888,7 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
             times.append(time.perf_counter() - t)
         best = min(times)
         tps = b * DEC_NEW / best
-        print(f"[{tag}] end to end: {tps:.2f} tokens/s (batch {b}, "
+        print(f"[{name}] end to end: {tps:.2f} tokens/s (batch {b}, "
               f"{DEC_PROMPT}+{DEC_NEW} tokens, best of 3: "
               f"{best * 1e3:.1f} ms per call); peak memory {peak_gib:.2f} "
               "GiB")
@@ -3733,44 +3897,306 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
                          prompt_len=DEC_PROMPT, new_tokens=DEC_NEW,
                          num_layers=c.num_layers, megakernel=uses_mk,
                          peak_gib=peak_gib, logits_rel_err=e_lg,
-                         logits_argmax_agreement=agree)
-        sessions[name] = (sess, calls)
+                         logits_argmax_agreement=agree, plain_replay=lp,
+                         replayed=lk, calls=calls)
+        sessions[name] = (sess, model)
 
     # the megakernel against the layer-by-layer session on the same
-    # weights and prompts (bf16)
-    mk_sess = sessions["llama"][0]
-    layer_sess = GenerationSession(mc, fmodel, sc, decode_megakernel=False)
-    lens = np.full((1,), DEC_PROMPT, np.int32)
-    ids = prompts(1)
-    (tk, _, _), calls = record(mk_sess, fmodel, ids, lens)
-    tl, _, _ = layer_sess.decode(ids, lens, max_new_tokens=DEC_NEW)
-    same = float((tk[0, 0, DEC_PROMPT:] == tl[0, 0, DEC_PROMPT:]).mean())
-    lk = replay(fmodel, calls, 1)
-    ll = replay(fmodel, [(a, {k: v for k, v in kw.items()
-                              if k != "megakernel_blobs"})
-                         for a, kw in calls], 1)
-    e_layer = rel_err(lk, ll)
-    print(f"[{label}] megakernel vs layer by layer on the same weights: "
-          f"{same:.3f} of the generated positions equal; teacher-forced "
-          f"logits rel err {e_layer:.3e}")
-    check(e_layer < 5e-2, f"[{label}] the megakernel's teacher-forced "
-          "logits within 5e-2 of the layer-by-layer step's")
-    turns = {"megakernel": [], "layer": []}
-    for which in ("megakernel", "layer", "layer", "megakernel") * 2:
-        sess = mk_sess if which == "megakernel" else layer_sess
-        sync()
-        t = time.perf_counter()
-        sess.decode(ids, lens, max_new_tokens=DEC_NEW)
-        sync()
-        turns[which].append((time.perf_counter() - t) * 1e3)
-    print(f"[{label}] whole calls in turns (ms), megakernel / layer by "
-          "layer: " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(
-              turns["megakernel"], turns["layer"])))
-    e2e["llama"].update(equal_tokens_vs_layer=same,
-                        logits_rel_err_vs_layer=e_layer,
-                        in_turns_ms=turns)
-    del sessions, mk_sess, layer_sess, fmodel, qmodel
+    # weights and prompts
+    for name in compare:
+        mk_sess, model = sessions[name]
+        layer_sess = GenerationSession(mc, model, sc,
+                                       decode_megakernel=False)
+        lens = lens_of(1)
+        ids = prompts(1)
+        (tk, _, _), calls = record(mk_sess, model, ids, lens)
+        tl, _, _ = layer_sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+        same = float((tk[0, 0, DEC_PROMPT:] == tl[0, 0, DEC_PROMPT:]).mean())
+        lk = replay(model, calls, 1)
+        ll = replay(model, [(a, {k: v for k, v in kw.items()
+                                 if k != "megakernel_blobs"})
+                            for a, kw in calls], 1)
+        e_layer = rel_err(lk, ll)
+        print(f"[{name}] megakernel vs layer by layer on the same weights: "
+              f"{same:.3f} of the generated positions equal; teacher-forced "
+              f"logits rel err {e_layer:.3e}")
+        check(e_layer < 5e-2, f"[{name}] the megakernel's teacher-forced "
+              "logits within 5e-2 of the layer-by-layer step's")
+        turns = {"megakernel": [], "layer": []}
+        for which in ("megakernel", "layer", "layer", "megakernel") * 2:
+            sess = mk_sess if which == "megakernel" else layer_sess
+            sync()
+            t = time.perf_counter()
+            sess.decode(ids, lens, max_new_tokens=DEC_NEW)
+            sync()
+            turns[which].append((time.perf_counter() - t) * 1e3)
+        print(f"[{name}] whole calls in turns (ms), megakernel / layer by "
+              "layer: " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(
+                  turns["megakernel"], turns["layer"])))
+        e2e[name].update(equal_tokens_vs_layer=same,
+                         logits_rel_err_vs_layer=e_layer,
+                         in_turns_ms=turns,
+                         tokens_per_s_in_turns={
+                             k: DEC_NEW / (min(v) / 1e3)
+                             for k, v in turns.items()})
+    for v in e2e.values():
+        for k in ("plain_replay", "replayed", "calls"):
+            v.pop(k)
+    del sessions
     return e2e, counts
+
+
+def llama_path(torch, np, config=None, device="cuda", label="llama"):
+    """The llama paths on ``device``: ``config`` (default LLaMA-1B, bf16)
+    with random weights made on the device, as ``benchmarks/benchmark.py
+    -m llama_1b`` runs it (:func:`session_paths`): at batch 1 with float
+    weights (``llama``: each decode step one launch of the megakernel over
+    bf16 panels), at batch 1 under woq8 (``llama_woq8``: int8 panels), and
+    at batch DEC_BATCH layer by layer (``llama_b8``: kernel 1 at head dim
+    128 once a layer a step); the bf16 batch-1 session also beside the
+    same session layer by layer.  A smaller ``config`` and the CPU
+    rehearse it (the plain versions; launches not checked).  Returns
+    ({path: numbers}, {path: launch counts})."""
+    c = config or llama_1b_config()
+    t0 = time.time()
+    fmodel = random_model(torch, c, device)
+    qmodel = woq8_model(torch, fmodel, c)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, ffn {c.ffn_hidden_size}, "
+          f"vocab {c.vocab_size}, RoPE, RMSNorm, gated SiLU; float and woq8 "
+          f"models built on the {torch.device(device).type} in "
+          f"{time.time() - t0:.1f} s")
+    runs = (("llama", fmodel, 1), ("llama_woq8", qmodel, 1),
+            ("llama_b8", fmodel, DEC_BATCH))
+    e2e, counts = session_paths(torch, np, c, runs, label, device, 2,
+                                compare=("llama",))
+    del fmodel, qmodel
+    return e2e, counts
+
+
+def santacoder_float_config():
+    """SantaCoder-1B (:func:`santacoder_1b_config`) with float weights, bf16
+    (``--quant none``)."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    return dataclasses.replace(santacoder_1b_config(),
+                               quant_mode=QuantMode(0))
+
+
+def santacoder_path(torch, np, float_state, config=None, device="cuda"):
+    """The santacoder paths: ``config`` (default SantaCoder-1B, bf16; 16
+    query heads of 128 over one KV head) with the decoder path's seeded
+    float state ``float_state``, loaded as it is (``santacoder``: bf16
+    panels) and quantised int8 weight-only as the decoder path quantises
+    it, on the device (``santacoder_woq8``: :func:`woq8_model` of the fp32
+    weights), at batch 1 (:func:`session_paths`): each decode step one
+    launch of the megakernel's grouped mode; each beside the same session
+    layer by layer (the grouped decode kernel once a layer a step).
+    Returns ({path: numbers}, {path: launch counts})."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    c = config or santacoder_float_config()
+    cq = dataclasses.replace(c, quant_mode=QuantMode.use_weight_only())
+    t0 = time.time()
+    f32 = from_jax_state(float_state, dataclasses.replace(c, dtype="float32"),
+                         device=device)
+    with torch.device(device):
+        fmodel = DecoderLMHead(c)
+    fmodel.load_state_dict(f32.state_dict())
+    fmodel.eval()
+    qmodel = woq8_model(torch, f32, cq)
+    del f32
+    print(f"[santacoder] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} query heads over {c.num_kv_heads} KV head(s) of "
+          f"{c.head_dim}, vocab {c.vocab_size}; bf16 and woq8 models built "
+          f"in {time.time() - t0:.1f} s; eligible for the megakernel: "
+          f"{fmodel.megakernel_eligible()}, {qmodel.megakernel_eligible()}")
+    check(fmodel.megakernel_eligible() and qmodel.megakernel_eligible(),
+          "[santacoder] the MQA model is eligible for the megakernel "
+          "(grouped mode)")
+    e2e, counts = session_paths(
+        torch, np, c, (("santacoder", fmodel, 1),
+                       ("santacoder_woq8", qmodel, 1)),
+        "santacoder", device, 3, compare=("santacoder", "santacoder_woq8"))
+    del fmodel, qmodel
+    return e2e, counts
+
+
+def bloom_560m_config():
+    """bloom-560m's widths (HF ``bigscience/bloom-560m`` config.json: 24
+    layers, d 1024, 16 heads of 64, ffn 4096, vocab 250880, ALiBi, the
+    embedding LayerNorm, eps 1e-5), as the port's ``bloom_config`` maps
+    them, bf16."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderConfig
+    return DecoderConfig(vocab_size=250880, hidden_size=1024, num_layers=24,
+                         num_heads=16, max_position_embeddings=2048,
+                         position_embedding="alibi", embedding_norm=True,
+                         norm_eps=1e-5, hidden_act="gelu", dtype="bfloat16")
+
+
+def bloom_path(torch, np, config=None, device="cuda"):
+    """The bloom path: ``config`` (default bloom-560m's widths) with random
+    weights made on the device, batch DEC_BATCH, DEC_PROMPT + DEC_NEW
+    tokens, layer by layer (:func:`session_paths`).  Its attention is plain
+    PyTorch with the ALiBi bias, as the JAX package runs it through XLA: no
+    TPU kernel runs on this path, so none may launch.  Its teacher-forced
+    logits are held against the same weights in fp32 on the device (rel
+    5e-2).  Returns (numbers, launch counts)."""
+    c = config or bloom_560m_config()
+    t0 = time.time()
+    model = random_model(torch, c, device)
+    print(f"[bloom] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, ffn {c.ffn_hidden_size}, "
+          f"vocab {c.vocab_size}, ALiBi, embedding norm; built in "
+          f"{time.time() - t0:.1f} s.  No TPU kernel runs on this path: the "
+          "attention is plain PyTorch with the ALiBi bias")
+    e2e, counts = session_paths(torch, np, c, (("bloom", model, DEC_BATCH),),
+                                "bloom", device, 4,
+                                want=lambda name, b, steps: {})
+    # the same recorded calls in fp32: the bf16 path's logits against them
+    e2e["bloom"]["fp32_check"] = fp32_replay_check(
+        torch, model, c, device, "bloom")
+    del model
+    return e2e["bloom"], counts["bloom"]
+
+
+def chatglm_6b_config():
+    """ChatGLM-6B's widths (THUDM/chatglm-6b config.json: 28 layers, d
+    4096, 32 heads of 128, inner 16384, vocab 130528, 2048 positions, eps
+    1e-5) through the port's ``chatglm6b_config`` (GLM positions, the
+    deepnorm residual with alpha sqrt(56), the bidirectional prompt, erf
+    GELU, a separate LM head), bf16."""
+    import types
+
+    from eddie_wang_hackathon2023_tpu_torch.models.families import \
+        chatglm6b_config
+    return chatglm6b_config(types.SimpleNamespace(
+        vocab_size=GLM_VOCAB, hidden_size=GLM_D, num_layers=GLM_LAYERS,
+        num_attention_heads=GLM_HEADS, inner_hidden_size=GLM_FFN,
+        max_sequence_length=2048, layernorm_epsilon=1e-5),
+        dtype="bfloat16")
+
+
+def random_state_on(torch, config, device):
+    """A seeded random state dict in the JAX ``DecoderLMHead`` layout
+    (per-layer tensors stacked [n_layer, ...]) made on ``device`` in the
+    config's dtype from a ``torch.Generator`` (LayerNorm weights 1 +
+    N(0, 0.02), every other tensor N(0, 0.02)): 6.7 B parameters in numpy
+    would take minutes.  The shapes come from the port's model on the meta
+    device."""
+    from eddie_wang_hackathon2023_tpu_torch._utils import str_dtype_to_torch
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    with torch.device("meta"):
+        shapes = DecoderLMHead(config).state_dict()
+    dtype = str_dtype_to_torch(config.dtype)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state = {}
+    for key, t in shapes.items():
+        if key.startswith("blocks.0."):
+            key, shape = "blocks." + key[len("blocks.0."):], (
+                config.num_layers,) + tuple(t.shape)
+        elif key.startswith("blocks."):
+            continue
+        else:
+            shape = tuple(t.shape)
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=dtype) * 0.02
+        if key.endswith(("layernorm.weight", "ln_f.weight")):
+            x += 1.0
+        state[key] = x
+    return state
+
+
+def chatglm_path(torch, np, config=None, device="cuda"):
+    """The chatglm path: ``config`` (default ChatGLM-6B's widths) with its
+    6.7 B random parameters made on the device in the JAX layout and loaded
+    through the port's ``from_jax_state``, batch 8 with prompts of the true
+    lengths GLM_PROMPTS (left-padded, bucketed to 64: each row its own GLM
+    positions), DEC_NEW new tokens (:func:`session_paths`): the
+    bidirectional prefill plain, each decode step kernel 1 at head dim 128
+    and 32 heads once a layer; the teacher-forced logits against the same
+    calls with kernel 1 replaced by its plain version.  Returns (numbers,
+    launch counts)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    c = config or chatglm_6b_config()
+    t0 = time.time()
+    state = random_state_on(torch, c, device)
+    n_params = sum(v.numel() for v in state.values())
+    model = from_jax_state(state, c, device=device)
+    del state
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[chatglm] {c.num_layers} layers of width {c.hidden_size}, "
+          f"{c.num_heads} heads of {c.head_dim}, inner {c.ffn_hidden_size}, "
+          f"vocab {c.vocab_size}, GLM positions, deepnorm alpha "
+          f"{c.deepnorm_alpha:.4f}, bidirectional prompt; "
+          f"{n_params / 1e9:.2f} B parameters made and loaded in "
+          f"{time.time() - t0:.1f} s")
+    e2e, counts = session_paths(torch, np, c,
+                                (("chatglm", model, len(GLM_PROMPTS)),),
+                                "chatglm", device, 6, prompt_lens=GLM_PROMPTS)
+    del model
+    e2e["chatglm"]["parameters"] = n_params
+    return e2e["chatglm"], counts["chatglm"]
+
+
+def fp32_replay_check(torch, model, c, device, label, ids_seed=5):
+    """One batch of DEC_BATCH prompts (seeded) through ``model`` and through
+    an fp32 copy of its weights on the device, prefill and DEC_NEW - 1
+    teacher-forced steps (the bf16 model's greedy tokens fed to both):
+    the last-position logits' rel err (5e-2 of max |logit|)."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    from eddie_wang_hackathon2023_tpu_torch.runtime import bucket_length
+    with torch.device(device):
+        ref = DecoderLMHead(dataclasses.replace(c, dtype="float32"))
+    ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    ref.eval()
+    gen = torch.Generator(device="cpu").manual_seed(ids_seed)
+    b, plen = DEC_BATCH, bucket_length(DEC_PROMPT)
+    ids = torch.randint(0, c.vocab_size, (b, plen), generator=gen).to(device)
+    start = torch.full((b,), plen - DEC_PROMPT, dtype=torch.int32,
+                       device=device)
+    s_cache = -(-(plen + DEC_NEW) // 4) * 4
+    out = {}
+    with torch.inference_mode():
+        caches = {m: m.new_kv_cache(b, s_cache) for m in (model, ref)}
+        lg = {m: [] for m in (model, ref)}
+        seq = torch.full((b,), plen, dtype=torch.int32, device=device)
+        for m in (model, ref):
+            x, caches[m] = m(ids, caches[m], 0, seq, attention_start=start)
+            lg[m].append(x[:, -1])
+        for j in range(DEC_NEW - 1):
+            tok = lg[model][-1].argmax(-1)[:, None]
+            seq = torch.full((b,), plen + j + 1, dtype=torch.int32,
+                             device=device)
+            for m in (model, ref):
+                x, caches[m] = m(tok, caches[m], plen + j, seq,
+                                 attention_start=start)
+                lg[m].append(x[:, -1])
+        a, r = torch.stack(lg[model]), torch.stack(lg[ref])
+        out = dict(rel_err=rel_err(a, r), argmax_agreement=float(
+            (a.argmax(-1) == r.argmax(-1)).float().mean()))
+    print(f"[{label}] teacher-forced logits, bf16 model vs its weights in "
+          f"fp32: rel err {out['rel_err']:.3e}, argmax agreement "
+          f"{out['argmax_agreement']:.3f}")
+    check(bool(torch.isfinite(a).all()) and out["rel_err"] < 5e-2,
+          f"[{label}] bf16 logits within 5e-2 of the fp32 weights'")
+    del ref
+    return out
 
 
 def sampled_config(SamplingConfig, bad=None, stop=None):
@@ -4379,19 +4805,24 @@ def probes_path(torch, device="cuda", panels=None):
 
 def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None, gen_beam_config=None,
-          llama_config=None):
+          llama_config=None, bloom_config=None, chatglm_config=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the custom path on the main path's model, then the kv8 paths on it
     (:func:`kv8_paths`), then the detect, long and best_of paths on it
     (:func:`long_paths`), then the scanned path
     (decode_megakernel=False, recipe without sqenc, depth cut to
     SCANNED_DEPTH layers to keep the run short), then the beam path
-    (full depth, recipe without sqenc, BEAM_SIZE beams), all with the
+    (depth cut as the scanned path's, recipe without sqenc, BEAM_SIZE
+    beams), all with the
     Whisper ``config``; then the decoder path with ``decoder_config``
     (default SantaCoder-1B) under its recipe, under int4 weight-only and,
     cut to KV8_DEC_DEPTH layers, under its recipe with an int8 KV cache
-    (the woq8 run followed by its sampled call), the llama paths with
-    ``llama_config`` (default LLaMA-1B; :func:`llama_path`), the serve path with
+    (the woq8 run followed by its sampled call), the santacoder paths on
+    the same float state in bf16 (``decoder_config`` without its
+    quantisation, :func:`santacoder_path`), the llama paths with
+    ``llama_config`` (default LLaMA-1B; :func:`llama_path`), the bloom path
+    with ``bloom_config`` (default bloom-560m's widths), the chatglm path
+    with ``chatglm_config`` (default ChatGLM-6B's widths), the serve path with
     ``serve_config`` (default GPT-350M) and the gen_beam path with
     ``gen_beam_config`` (default GPT-350M at beam_bench.py's widths).
     Each kernel's launches come from the path that drives it, and must be
@@ -4402,6 +4833,12 @@ def paths(torch, np, results, config=None, device="cuda",
         BENCH_RECIPE, whisper_config)
     from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
     on_card = torch.device(device).type == "cuda"
+    # each path's wall seconds, for the script's time limit
+    laps, t_lap = {}, [time.time()]
+
+    def lap(name):
+        laps[name] = round(time.time() - t_lap[0], 1)
+        t_lap[0] = time.time()
     config = config or whisper_config("large-v2", dtype="bfloat16")
     # on the card the pipeline's default takes the megakernel; the CPU
     # rehearsal asks for it (its plain version)
@@ -4409,9 +4846,12 @@ def paths(torch, np, results, config=None, device="cuda",
     main_e2e, main_counts = main_path(
         torch, np, device=device, decode_megakernel=None if on_card else True,
         label="main", built=built)
+    lap("main")
     custom_e2e, custom_counts = custom_path(torch, np, built, device=device)
+    lap("custom")
     kv8_e2e, kv8_counts, kv8s_e2e, kv8s_counts = kv8_paths(torch, np, built,
                                                            device=device)
+    lap("kv8")
     print("[kv8] beside main in this run: " + ", ".join(
         f"{k} {kv8_e2e.get(k)} vs {main_e2e.get(k)}"
         for k in ("utt_per_s", "slope_ms_per_token", "decoder_step_ms",
@@ -4419,6 +4859,7 @@ def paths(torch, np, results, config=None, device="cuda",
                   "peak_gib")))
     long_e2e, long_counts, best_e2e, best_counts = long_paths(
         torch, np, built, device=device)
+    lap("long")
     del built
     cut = dataclasses.replace(
         config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
@@ -4428,12 +4869,17 @@ def paths(torch, np, results, config=None, device="cuda",
     scan_e2e, scan_counts = main_path(
         torch, np, config=cut, device=device, decode_megakernel=False,
         recipe=SCANNED_RECIPE, label="scanned")
+    lap("scanned")
     # the megakernel asked for as on the main path: at batch BEAM_SIZE the
-    # pipeline must not take it
+    # pipeline must not take it; the depth cut as the scanned path's, to
+    # keep the script near ten minutes
+    print(f"[beam] the beam path runs at depth "
+          f"{cut.n_audio_layer}+{cut.n_text_layer} (widths unchanged)")
     beam_e2e, beam_counts = main_path(
-        torch, np, config=config, device=device,
+        torch, np, config=cut, device=device,
         decode_megakernel=None if on_card else True, recipe=SCANNED_RECIPE,
         label="beam", beam=BEAM_SIZE)
+    lap("beam")
     # the woq8 and woq4 decoder paths quantise one seeded float state
     dec_cfg = decoder_config or santacoder_1b_config()
     float_state = random_decoder_state(torch, np, dec_cfg,
@@ -4441,10 +4887,12 @@ def paths(torch, np, results, config=None, device="cuda",
     dec_e2e, dec_counts = decoder_path(torch, np, config=dec_cfg,
                                        device=device, float_state=float_state,
                                        sampled=True)
+    lap("decoder")
     woq4_e2e, woq4_counts = decoder_path(
         torch, np, config=dataclasses.replace(
             dec_cfg, quant_mode=QuantMode.use_weight_only(True)),
         device=device, label="decoder_woq4", float_state=float_state)
+    lap("decoder_woq4")
     # woq8 with the int8 KV cache, at SantaCoder-1B's widths cut to
     # KV8_DEC_DEPTH layers: the first layers of the same weights, each
     # layer's step the woq8 run's cache amax after its prefill / 127
@@ -4458,6 +4906,11 @@ def paths(torch, np, results, config=None, device="cuda",
             for k, v in float_state.items()},
         kv_scales=np.asarray(dec_e2e["kv_amax_after_prefill"][:depth],
                              np.float32) / 127)
+    lap("decoder_kv8")
+    santa_e2e, santa_counts = santacoder_path(
+        torch, np, float_state, config=dataclasses.replace(
+            dec_cfg, quant_mode=QuantMode(0)), device=device)
+    lap("santacoder")
     del float_state
     print("[decoder_woq4] beside woq8 in this run: " + ", ".join(
         f"{k} {woq4_e2e.get(k)} vs {dec_e2e.get(k)}"
@@ -4466,31 +4919,48 @@ def paths(torch, np, results, config=None, device="cuda",
                   "peak_gib")))
     llama_e2e, llama_counts = llama_path(torch, np, config=llama_config,
                                          device=device)
+    lap("llama")
+    bloom_e2e, bloom_counts = bloom_path(torch, np, config=bloom_config,
+                                         device=device)
+    lap("bloom")
+    glm_e2e, glm_counts = chatglm_path(torch, np, config=chatglm_config,
+                                       device=device)
+    lap("chatglm")
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
                                          device=device)
+    lap("serve")
     gen_beam_e2e, gen_beam_counts = gen_beam_path(torch, np,
                                                   config=gen_beam_config,
                                                   device=device)
+    lap("gen_beam")
     probe_kernels().reset_launches()
     probes_e2e, probes_counts = probes_path(torch, device=device)
+    lap("probes")
+    print(f"seconds a path: {laps}")
     counts = dict(main=main_counts, custom=custom_counts,
                   scanned=scan_counts, beam=beam_counts, decoder=dec_counts,
                   decoder_woq4=woq4_counts, serve=serve_counts,
                   probes=probes_counts, kv8=kv8_counts,
                   kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
                   long=long_counts, best_of=best_counts,
-                  gen_beam=gen_beam_counts, **llama_counts)
+                  gen_beam=gen_beam_counts, bloom=bloom_counts,
+                  chatglm=glm_counts, **llama_counts, **santa_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
+    if on_card:
+        check(not any(bloom_counts.values()), "the bloom path launched no "
+              "kernel: no TPU kernel runs on it (ALiBi attention in plain "
+              "PyTorch, as the JAX package runs it through XLA)")
     return dict(main=main_e2e, custom=custom_e2e, scanned=scan_e2e,
                 beam=beam_e2e, decoder=dec_e2e, decoder_woq4=woq4_e2e,
                 serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
                 long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
-                **llama_e2e)
+                bloom=bloom_e2e, chatglm=glm_e2e, **llama_e2e, **santa_e2e,
+                path_seconds=laps)
 
 
 def example_run():
@@ -4555,7 +5025,9 @@ def main():
 
     results = {}
     try:
+        t = time.time()
         kernel_phases(torch, results)
+        print(f"kernel checks took {time.time() - t:.1f} s")
         if "--kernels-only" in sys.argv[1:]:
             print(json.dumps(results))
             return 0

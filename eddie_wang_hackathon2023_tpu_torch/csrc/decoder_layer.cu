@@ -19,6 +19,20 @@
 // state before the final norm and every layer's fresh K/V in the self
 // cache's type; it does not write the cache.
 //
+// The grouped (MQA/GQA) mode of the decoder-only set (the TPU kernel's
+// `grouped`, :510-521 and :568-700): a self cache of Hkv KV heads under H
+// query heads (rep = H / Hkv; SantaCoder / StarCoder's one KV head).  The
+// qkv stage's items cover d + 2 dkv output columns (dkv = Hkv x head dim:
+// q, then k, then v; its scales and biases are the packer's pair rows,
+// k's and v's zero-padded to d each).  An attention item is still one
+// query head h and a slice: it reads the K and V rows of KV head h / rep,
+// so the rep items of a slice read the same rows (from L2 after the
+// first); the fresh k and v come from qkv + d + (h / rep) D and qkv + d +
+// dkv + (h / rep) D, the fresh k rotated in each head's finish, and the
+// fresh K/V of a KV head are written once, by the finish of its group's
+// first query head (v by the qkv stage's epilogue).  Whisper's set has
+// Hkv = H and compiles the same code as before.
+//
 // The int8 self cache (the TPU kernel's `self_quant`, :523-554): the fresh
 // K and V leave as int8, each value times the layer's kv_oq in fp32,
 // rounded half away from zero and clipped to [-128, 127] (as
@@ -133,7 +147,7 @@ struct MegaArgs {
   const float* flat_scale;     // [L, nflat, d]: dense (, cross-dense), fc1..
   const float* flat_bias;      // (, gate..), fc2
   const float* ln_par;         // [L, 2 n_ln, d]: weight, bias of each norm
-  const void* self_cache;      // [L, 1, 2, H, D, S] bf16 or int8
+  const void* self_cache;      // [L, 1, 2, Hkv, D, S] bf16 or int8
   const void* cross_cache;     // [L, 1, 2, H, D, Sc] int8 or bf16, or null
   const float* cross_scale;    // [L] or null
   const float* kv_oq;          // [L] the int8 self cache's quantise and
@@ -142,8 +156,9 @@ struct MegaArgs {
   const int* start;            // [1] the first key column, or null (0)
   const float* inv_freq;       // [rope_dim / 2] rotary frequencies, or null
   void* hid;                   // [d] bf16 out
-  void* fresh;                 // [L, 2, H, D] out, the self cache's type
-  float* act_a;                // finished GEMV outputs: q, k, v / cross-q /
+  void* fresh;                 // [L, 2, Hkv, D] out, the self cache's type
+  float* act_a;                // finished GEMV outputs: q, k, v (d + 2 dkv)
+                               // / cross-q /
                                // act(fc1) (* gate)
   float* act_b;                // ... dense / cross-dense / fc2
   float* att;                  // attention partials [H, splits, D + 2]
@@ -151,7 +166,8 @@ struct MegaArgs {
   unsigned int* barrier;       // [1] zero: arrivals, only growing
   unsigned int* heads;         // [2, L, H] zeros: a head's slices done
   long long layer_bytes;       // bytes of one layer's tiles
-  int n_layer, d, n_head, head_dim, s_self, s_cross, nq, nflat, nf, n_ln;
+  int n_layer, d, n_head, n_kv_head, head_dim, s_self, s_cross, nq, nflat,
+      nf, n_ln;
   int f_dense, f_crossdense, f_fc1, f_gate, f_fc2;
   int with_cross, cross_int8, self_int8, weight_bf16;
   int norm_rms;                // 0: LayerNorm, 1: RMSNorm
@@ -188,13 +204,20 @@ constexpr int kMaxSplits = 8;    // slices a head's finish combines (more:
                                  // folded first, fold_slices)
 constexpr int kSlots = 16;       // mbarriers of the weight ring
 constexpr int kLayerStages = 8;  // a layer's stages, each ending in a barrier
-// a d-row's elements a thread holds, and fc2's input row's (nf * d): d
-// <= 2048 and nf * d <= 6144 for the decoder-only set, d <= 1280 and ffn
-// <= 5120 for Whisper's (each loop over them is unrolled: code size)
+// a d-row's elements a thread holds, and fc2's input row's (nf * d) in
+// one round of loads: d <= 2048 and nf * d <= 6144 for the decoder-only
+// set (up to 8192, SantaCoder-1B's, the rest in a second round), d <= 1280
+// and ffn <= 5120 for Whisper's (each loop over them is unrolled: code
+// size)
 constexpr int kPer = kDecoderOnly ? 8 : 5;
 constexpr int kPerFc = kDecoderOnly ? 24 : 20;
-constexpr int kColsWarp = 6;     // an item's columns a warp sums
-constexpr int kItemCols = kWarps * kColsWarp;
+constexpr int kMaxFc = kDecoderOnly ? 8192 : kPerFc * kThreads;
+constexpr int kColsWarp = 6;     // a piece's columns a warp sums
+constexpr int kPieceCols = kWarps * kColsWarp;
+// an item's columns: Whisper's items are whole pieces; the decoder-only
+// set's up to 64 (8192 columns, SantaCoder-1B's fc1, over 128 SMs), in
+// pieces of at most kPieceCols
+constexpr int kItemCols = kDecoderOnly ? 64 : kPieceCols;
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -349,6 +372,21 @@ __device__ __forceinline__ int stage_pieces(const MegaArgs& a, int g) {
 }
 __device__ __forceinline__ int wbytes(const MegaArgs& a) {
   return a.weight_bf16 ? 2 : 1;
+}
+// the K/V columns of the self-attention (Hkv x head dim; d in Whisper's
+// set) and the query heads a KV head serves
+__device__ __forceinline__ int kv_width(const MegaArgs& a) {
+  return kDecoderOnly ? a.n_kv_head * a.head_dim : a.d;
+}
+__device__ __forceinline__ int kv_rep(const MegaArgs& a) {
+  return kDecoderOnly ? a.n_head / a.n_kv_head : 1;
+}
+// column n of stage g's output as an index of its parameter rows: the qkv
+// stage's v columns follow k's d-row pair row, not its dkv columns
+__device__ __forceinline__ int param_col(const MegaArgs& a, int g, int n) {
+  if (!kDecoderOnly || g != kQkv) return n;
+  const int dkv = kv_width(a);
+  return n < a.d + dkv ? n : n + a.d - dkv;
 }
 // piece p's columns and bytes
 __device__ __forceinline__ int piece_cols(const MegaArgs& a, int g, int p) {
@@ -546,8 +584,8 @@ __device__ __forceinline__ void epi_fetch(const MegaArgs& a, int l, int g,
       const int m = tid / c, n = blockIdx.x * c + tid % c;
       if (n < n_out) {
         stage_params(a, l, g, m, sc, bi);
-        e.s = __ldg(sc + n);
-        e.b = __ldg(bi + n);
+        e.s = __ldg(sc + param_col(a, g, n));
+        e.b = __ldg(bi + param_col(a, g, n));
       }
     }
   } else {
@@ -638,6 +676,7 @@ __device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = a.item_c[g], pc = a.piece_c[g];
   const int col0 = blockIdx.x * c;
+  const int dkv = kv_width(a);
   for (int m = 0; m < mats; ++m) {
     for (int p = 0; p < stage_pieces(a, g); ++p) {
       const int cols = piece_cols(a, g, p);
@@ -670,8 +709,8 @@ __device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
             v = bf16r(hold[j] * v);
           }
         }
-        if (g == kQkv && n >= 2 * a.d) {  // v: [L, 2, H, D] = [L, 2, d]
-          const size_t f = ((size_t)l * 2 + 1) * a.d + n - 2 * a.d;
+        if (g == kQkv && n >= a.d + dkv) {  // v: [L, 2, Hkv, D]
+          const size_t f = ((size_t)l * 2 + 1) * dkv + n - (a.d + dkv);
           if (a.self_int8) {
             v = quant_kv(v, __ldg(a.kv_oq + l));
             static_cast<int8_t*>(a.fresh)[f] = (int8_t)v;
@@ -703,7 +742,7 @@ __device__ void prefetch_params(const MegaArgs& a, int l, int g, int m) {
     const float *sc, *bi;
     stage_params(a, l, g, mat, sc, bi);
     if (32 * tid < c) {
-      const int n = blockIdx.x * c + 32 * tid;
+      const int n = param_col(a, g, blockIdx.x * c + 32 * tid);
       prefetch_l2(sc + n);
       prefetch_l2(bi + n);
     }
@@ -713,13 +752,14 @@ __device__ void prefetch_params(const MegaArgs& a, int l, int g, int m) {
 }
 
 // the block's attention item of this stage (item blockIdx.x, if any): the
-// HD rows of its K and V slice, in lines of 128 bytes
+// HD rows of its K and V slice (of KV head h / rep of a cache of Hkv
+// heads), in lines of 128 bytes
 template <typename CT, int HD>
-__device__ void prefetch_attn(const CT* cache, int l, int H, int S, int n_cols,
-                              int nslices) {
+__device__ void prefetch_attn(const CT* cache, int l, int H, int Hkv, int rep,
+                              int S, int n_cols, int nslices) {
   const int it = blockIdx.x;
   if (it >= H * nslices) return;
-  const int h = it / nslices, c0 = (it % nslices) * kSplit;
+  const int h = it / nslices / rep, c0 = (it % nslices) * kSplit;
   const int n = min(n_cols, c0 + kSplit) - c0;
   constexpr int kPerLine = 128 / sizeof(CT);
   constexpr int kLines = kSplit / kPerLine;
@@ -728,8 +768,8 @@ __device__ void prefetch_attn(const CT* cache, int l, int H, int S, int n_cols,
     const int row = i / kLines, line = i % kLines;
     if (n <= 0 || line * kPerLine >= n) continue;
     const size_t off = (size_t)row * S + c0 + line * kPerLine;
-    prefetch_l2(cache + ((size_t)l * 2 * H + h) * head + off);
-    prefetch_l2(cache + ((size_t)(l * 2 + 1) * H + h) * head + off);
+    prefetch_l2(cache + ((size_t)l * 2 * Hkv + h) * head + off);
+    prefetch_l2(cache + ((size_t)(l * 2 + 1) * Hkv + h) * head + off);
   }
 }
 
@@ -922,15 +962,18 @@ __device__ void finish_head(const MegaArgs& a, int l, const float* att_h,
   float* wts = fin + 4;                      // [kMaxSplits]
   float pv[kMaxSplits];
   float vf = 0.f, kf = 0.f, kp = 0.f;
+  // the head's KV head, and whether this head writes its fresh K
+  const int rep = kv_rep(a), dkv = kv_width(a);
+  const int hk = h / rep;
   if (tid < HD) {
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
       if (s < ns) pv[s] = __ldcg(att_h + s * kAtt + 2 + tid);
     if (self) {
-      kf = __ldcg(qkv + a.d + h * HD + tid);
+      kf = __ldcg(qkv + a.d + hk * HD + tid);
       if (kRope && rp.dim)
-        kp = __ldcg(qkv + a.d + h * HD + partner(rp, tid));
-      vf = __ldcg(qkv + 2 * a.d + h * HD + tid);
+        kp = __ldcg(qkv + a.d + hk * HD + partner(rp, tid));
+      vf = __ldcg(qkv + a.d + dkv + hk * HD + tid);
     }
   }
   float ms = kNeg, ls = 0.f;
@@ -942,11 +985,13 @@ __device__ void finish_head(const MegaArgs& a, int l, const float* att_h,
     if constexpr (kRope) {
       if (rp.dim) kf = bf16r(rotate(rp, tid, kf, kp));
     }
-    const size_t f = (size_t)l * 2 * a.d + h * HD + tid;   // [L, 2, d]
+    // [L, 2, Hkv, D]: the group's first query head writes it
+    const size_t f = (size_t)l * 2 * dkv + hk * HD + tid;
+    const bool writes = h == hk * rep;
     if (qself) {
       kf = quant_kv(kf, __ldg(a.kv_oq + l));
-      static_cast<int8_t*>(a.fresh)[f] = (int8_t)kf;
-    } else {
+      if (writes) static_cast<int8_t*>(a.fresh)[f] = (int8_t)kf;
+    } else if (writes) {
       static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(kf);
     }
     k_s[tid] = kf;
@@ -1041,23 +1086,24 @@ struct AttnSmem {
   int last;
 };
 
-// An attention stage: every item (h, s) of this block, then, for the
-// last of a head's items to finish (an arrival counted on the head's
-// counter; a head of one slice needs none), the head's context.
+// An attention stage: every item (h, s) of this block (query head h over
+// KV head h / rep of a cache of Hkv heads), then, for the last of a head's
+// items to finish (an arrival counted on the head's counter; a head of one
+// slice needs none), the head's context.
 template <typename CT, int HD, bool kRope>
 __device__ void attn_stage(const MegaArgs& a, const CT* cache, int l, int S,
                            int n_cols, int ns, int start, const float* q_row,
                            float qk_scale, const float* qkv, float kscale,
                            const Rope& rp, unsigned int* count, float* sp,
-                           AttnSmem<HD>& sm) {
+                           AttnSmem<HD>& sm, int Hkv, int rep) {
   constexpr int kAtt = HD + 2;
   const int H = a.n_head;
   const size_t head = (size_t)HD * S;
   for (int it = blockIdx.x; it < H * ns; it += gridDim.x) {
-    const int h = it / ns, s = it % ns;
+    const int h = it / ns, s = it % ns, hk = h / rep;
     float* att_h = a.att + (size_t)h * ns * kAtt;
-    attn_item<CT, HD, kRope>(cache + ((size_t)l * 2 * H + h) * head,
-                      cache + ((size_t)(l * 2 + 1) * H + h) * head, S,
+    attn_item<CT, HD, kRope>(cache + ((size_t)l * 2 * Hkv + hk) * head,
+                      cache + ((size_t)(l * 2 + 1) * Hkv + hk) * head, S,
                       s * kSplit, min(n_cols, (s + 1) * kSplit), start,
                       q_row + h * HD, rp, qk_scale, sm.q_s, sm.p_s, sp,
                       sm.red, a.att + ((size_t)h * ns + s) * kAtt);
@@ -1126,6 +1172,7 @@ megakernel(const MegaArgs a) {
   const int tid = threadIdx.x;
   const int d = a.d, H = a.n_head, S = a.s_self, Sc = a.s_cross;
   const int nf = a.nf;
+  const int Hkv = kDecoderOnly ? a.n_kv_head : H, rep = kv_rep(a);
   const int n_valid = min(max(a.seq_len[0] - 1, 0), S);  // cache columns
   const int ns = max(1, (n_valid + kSplit - 1) / kSplit);
   const int nsc = (Sc + kSplit - 1) / kSplit;
@@ -1186,7 +1233,8 @@ megakernel(const MegaArgs a) {
       const int g = st == 0 ? kQkv : st == 2 ? kDense : st == 3 ? kCrossQ
                   : st == 5 ? kCrossDense : st == 6 ? kFc1
                   : st == 7 ? kFc2 : -1;
-      const int n_out = g == kQkv ? 3 * d : g == kFc1 ? nf * d : d;
+      const int n_out =
+          g == kQkv ? d + 2 * kv_width(a) : g == kFc1 ? nf * d : d;
       Epi ep;
       if (g >= 0) epi_fetch(a, l, g, n_out, ep);
       if (st == 0 || st == 3 || st == 6) {
@@ -1209,17 +1257,22 @@ megakernel(const MegaArgs a) {
           const int i = tid + k * kThreads;
           if (i < n) vin[vpos(i)] = f[k];
         }
+        if constexpr (kDecoderOnly) {   // past 6144 (SantaCoder-1B's 8192)
+#pragma unroll 1
+          for (int i = kPerFc * kThreads + tid; i < n; i += kThreads)
+            vin[vpos(i)] = __ldcg(row + i);
+        }
         __syncthreads();
       } else if (st == 1) {
         attn_stage<ST, HD, kDecoderOnly>(
             a, selfc, l, S, n_valid, ns, start, a.act_a,
             kSelfInt8 ? a.scale * kqo : a.scale, a.act_a, kqo, rope,
-            a.heads + (size_t)l * H, part, sm);
+            a.heads + (size_t)l * H, part, sm, Hkv, rep);
       } else if constexpr (!kDecoderOnly) {
         attn_stage<CT, HD, false>(a, crossc, l, Sc, Sc, nsc, 0, a.act_a,
                                   a.scale * kscale, nullptr, kscale, no_rope,
                                   a.heads + (size_t)(a.n_layer + l) * H, part,
-                                  sm);
+                                  sm, H, 1);
       }
       if (g >= 0) {
         const bool to_a = g == kQkv || g == kCrossQ || g == kFc1;
@@ -1232,14 +1285,14 @@ megakernel(const MegaArgs a) {
       }
       // what the stages after the barrier read from memory, into L2
       if (st == 0) {
-        prefetch_attn<ST, HD>(selfc, l, H, S, n_valid, ns);
+        prefetch_attn<ST, HD>(selfc, l, H, Hkv, rep, S, n_valid, ns);
         prefetch_params(a, l, kDense, -1);
       } else if (st == 1) {
         prefetch_params(a, l, kDecoderOnly ? kFc1 : kCrossQ,
                         kDecoderOnly ? mlp_norm : 1);
       } else if (st == 2) {
         if constexpr (kDecoderOnly) prefetch_params(a, l, kFc2, -1);
-        else prefetch_attn<CT, HD>(crossc, l, H, Sc, Sc, nsc);
+        else prefetch_attn<CT, HD>(crossc, l, H, H, 1, Sc, Sc, nsc);
       } else if (st == 3) {
         prefetch_params(a, l, kCrossDense, -1);
       } else if (st == 4) {
@@ -1262,13 +1315,15 @@ megakernel(const MegaArgs a) {
 }
 
 // the plan checked against the model's widths and the grid: per stage the
-// model has, items of c columns covering its columns, at most one a block,
+// model has (the qkv stage's d + 2 dkv columns), items of c columns
+// covering its columns, at most one a block,
 // K a multiple of 16, pieces of 1..c columns, the tiles contiguous in
 // stage order (the gated fc1 item twice as long); a stage it has not, no
 // items
 bool plan_ok(const MegaArgs* a, int grid) {
-  const long long cols[kStages] = {3LL * a->d, a->d, a->d, a->d,
-                                   (long long)a->nf * a->d, a->d};
+  const long long cols[kStages] = {
+      a->d + 2LL * a->n_kv_head * a->head_dim, a->d, a->d, a->d,
+      (long long)a->nf * a->d, a->d};
   const int ks[kStages] = {a->d, a->d, a->d, a->d, a->d, a->nf * a->d};
   const int wb = a->weight_bf16 ? 2 : 1;
   long long off = 0;
@@ -1281,7 +1336,8 @@ bool plan_ok(const MegaArgs* a, int grid) {
     }
     if (c < 1 || c > kItemCols || n < 1 || n > grid || c * n < cols[g] ||
         c * (n - 1) >= cols[g] || a->item_k[g] != ks[g] || ks[g] % 16 ||
-        a->piece_c[g] < 1 || a->piece_c[g] > c || a->tile_off[g] != off)
+        a->piece_c[g] < 1 || a->piece_c[g] > c ||
+        a->piece_c[g] > kPieceCols || a->tile_off[g] != off)
       return false;
     off += c * n * ks[g] * wb * (g == kFc1 && a->gated ? 2 : 1);
   }
@@ -1355,13 +1411,17 @@ extern "C" {
 // Returns 0 when the cooperative launch was enqueued, else the CUDA error
 // (cudaErrorInvalidValue for shapes, modes or a plan it does not take).
 // The library built with MEGA_DECODER_ONLY takes decoders without
-// cross-attention (int8 or bf16 weights, head dim 64 or 128); the other,
-// Whisper's decoder (int8 weights, head dim 64).
+// cross-attention (int8 or bf16 weights, head dim 64 or 128, Hkv KV heads
+// under the query heads, the grouped mode at head dim 128); the other,
+// Whisper's decoder (int8 weights, head dim 64, equal heads).
 int decoder_megakernel(const MegaArgs* a, void* stream) {
   if ((a->head_dim != 64 && a->head_dim != 128) || a->d % a->head_dim ||
       a->d / a->head_dim > kMaxHeads || a->n_head * a->head_dim != a->d ||
+      a->n_kv_head < 1 || a->n_head % a->n_kv_head ||
+      (a->n_kv_head != a->n_head &&
+       (a->with_cross || a->head_dim != 128)) ||
       a->nf < 1 ||
-      a->d > kPer * kThreads || a->nf * a->d > kPerFc * kThreads ||
+      a->d > kPer * kThreads || a->nf * a->d > kMaxFc ||
       a->s_self % (a->self_int8 ? 4 : 2) ||
       (a->self_int8 && (!a->kv_oq || !a->kv_qo)) ||
       (a->rope_dim && (!a->inv_freq || a->rope_dim % 2 ||

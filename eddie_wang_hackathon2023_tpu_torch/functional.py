@@ -1,6 +1,6 @@
 """Ops with numeric contracts, the subset of the JAX package's
-``functional.py`` that the Whisper and decoder-only paths use.  Plain
-PyTorch: none of these is a TPU kernel."""
+``functional.py`` that the Whisper and decoder-only paths use (ALiBi's
+slopes and biases too).  Plain PyTorch: none of these is a TPU kernel."""
 from __future__ import annotations
 
 import functools
@@ -134,6 +134,41 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                       torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def generate_alibi_slopes(num_heads: int) -> np.ndarray:
+    """ALiBi head slopes [1, num_heads, 1, 1] fp32 (the JAX package's
+    ``functional.py:284-295``): the geometric series of the closest power
+    of two below ``num_heads``, then every other power of the next one's
+    for the heads left over."""
+    closest_power_of_2 = 2 ** int(np.floor(np.log2(num_heads)))
+    base = 2 ** (-(2 ** -(np.log2(closest_power_of_2) - 3)))
+    slopes = base ** np.arange(1, 1 + closest_power_of_2)
+    if closest_power_of_2 != num_heads:
+        extra_base = 2 ** (-(2 ** -(np.log2(2 * closest_power_of_2) - 4)))
+        num_remaining = min(closest_power_of_2,
+                            num_heads - closest_power_of_2)
+        extra_powers = np.arange(1, 1 + 2 * num_remaining, 2)
+        slopes = np.concatenate([slopes, extra_base ** extra_powers])
+    return slopes.astype(np.float32).reshape(1, num_heads, 1, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def alibi_slopes(num_heads: int, device: torch.device) -> torch.Tensor:
+    """:func:`generate_alibi_slopes` as a tensor kept on ``device`` (made
+    once, no host copy a step)."""
+    return torch.from_numpy(generate_alibi_slopes(num_heads)).to(device)
+
+
+def generate_alibi_biases(slopes, key_length: int) -> torch.Tensor:
+    """The additive ALiBi bias [1, H, 1, key_length] fp32: each head's
+    slope times the absolute key column (not taken relative to a row's
+    start: under left padding the two differ by a constant a row, which
+    the softmax ignores)."""
+    slopes = torch.as_tensor(slopes, dtype=torch.float32)
+    cols = torch.arange(key_length, dtype=torch.float32,
+                        device=slopes.device).reshape(1, 1, 1, -1)
+    return slopes * cols
 
 
 def causal_bias(q_len: int, k_len: int, dtype=torch.float32,

@@ -43,7 +43,21 @@ self-attention mode before the cache write, by the ``rotary`` (cos, sin)
 pair of the tokens' positions that the caller makes once a step
 (:func:`..functional.rope_angles`), GPT-NeoX halves or GPT-J interleaved
 pairs (``neox_rotary_style``) over the first ``rotary_embedding_dim``
-channels.
+channels.  ChatGLM's two-dimensional rotary (``glm_2d_rope``, the JAX
+layer's :436-452, ``rotary_embedding_dim`` = head_dim // 2): the low half
+of each head rotated GPT-NeoX style by the angles of the position row 0,
+the high half by those of row 1 (``rotary`` a pair of (cos, sin) pairs).
+ALiBi (``alibi``, Bloom): an additive per-head bias over the absolute
+cache column, [1, H, 1, S] (the caller's ``alibi_bias``, made once a
+step); its prompt never takes flash and attends over
+the cache it has just written (the JAX layer's :683-698), and its
+single-token step writes its own column and then attends with the bias
+(the JAX layer asserts the deferred write away, :574), through a beam
+table where there is one.  A non-causal layer (``causal=False`` on the
+self-attention, ChatGLM's bidirectional prompt) prefills over the cache
+with no causal mask; keys are still masked by the length and the start.
+``apply_query_key_layer_scaling``: the scale is 1 / (sqrt(head_dim) *
+num_layers), as the JAX layer's ``norm_factor`` (:227-233).
 """
 from __future__ import annotations
 
@@ -55,9 +69,10 @@ import torch
 from torch import nn
 
 from ..functional import apply_rope, causal_bias
-from ..ops.attention import (append_kv_stacked, cached_decode_attention,
-                             cast_kv_for_cache, layer_kv_views,
-                             multihead_attention)
+from ..ops.attention import (append_kv_stacked,
+                             beam_indirect_decode_attention,
+                             cached_decode_attention, cast_kv_for_cache,
+                             layer_kv_views, multihead_attention)
 from ..ops.decode_attention import (fused_decode_attention,
                                     fused_paged_decode_attention)
 from ..ops.flash_attention import MIN_FLASH_LEN, flash_mha
@@ -167,7 +182,10 @@ class Attention(nn.Module):
                  num_kv_heads: Optional[int] = None,
                  use_int8_kv_cache: bool = False,
                  rotary_embedding_dim: int = 0,
-                 neox_rotary_style: bool = True):
+                 neox_rotary_style: bool = True,
+                 glm_2d_rope: bool = False, alibi: bool = False,
+                 num_layers: int = 1,
+                 apply_query_key_layer_scaling: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
@@ -179,6 +197,14 @@ class Attention(nn.Module):
         self.use_int8_kv_cache = use_int8_kv_cache
         self.rotary_embedding_dim = rotary_embedding_dim
         self.neox_rotary_style = neox_rotary_style
+        self.glm_2d_rope = glm_2d_rope
+        if glm_2d_rope:
+            self.rotary_embedding_dim = self.attention_head_size // 2
+        self.alibi = alibi
+        # the JAX layer's norm_factor: sqrt(head_dim), times the layers
+        # under query-key layer scaling
+        self.norm_factor = math.sqrt(self.attention_head_size) * (
+            num_layers if apply_query_key_layer_scaling else 1)
         # the int8 self cache's per-tensor scales (the JAX layer's [1] fp32
         # parameters, scale_y_quant_orig semantics): quantise, dequantise
         if use_int8_kv_cache:
@@ -206,7 +232,7 @@ class Attention(nn.Module):
 
     @property
     def scale(self) -> float:
-        return 1.0 / math.sqrt(self.attention_head_size)
+        return 1.0 / self.norm_factor
 
     def _split_heads(self, x):
         b, l, _ = x.shape
@@ -272,8 +298,9 @@ class Attention(nn.Module):
         branch, ``layers/attention.py:474-551``): q [B, H, L, D], k/v
         [B, Hkv, L, D].  Returns (the attention output [B, L, N], the
         pool, updated in place)."""
-        if not self.causal:
-            raise NotImplementedError("paged attention is causal")
+        if not self.causal or self.alibi or self.glm_2d_rope:
+            raise NotImplementedError("paged attention is causal, with "
+                                      "learned or rotary positions")
         if self.use_int8_kv_cache:
             raise NotImplementedError("int8 paged pools are not ported")
         l = q.shape[2]
@@ -305,7 +332,8 @@ class Attention(nn.Module):
                 sequence_length=None, cross_key_value=None,
                 cache_write_index: Optional[int] = None,
                 valid_len: Optional[int] = None, use_cache: bool = False,
-                beam_indirection=None, attention_start=None, rotary=None):
+                beam_indirection=None, attention_start=None, rotary=None,
+                alibi_bias=None):
         """``beam_indirection`` [groups, beams, S] (single-token decode of
         the self-attention only): each query row reads the cache positions
         through the table, as the JAX layer does (``layers/attention.py``
@@ -316,7 +344,10 @@ class Attention(nn.Module):
         has just written, causally from ``cache_write_index``, as the JAX
         layer does when its flash fast path is off (:683-698).  ``rotary``
         (cos, sin) [B, L, rotary_embedding_dim // 2]: the tokens' rotary
-        angles, needed when the layer has a rotary dim."""
+        angles, needed when the layer has a rotary dim (GLM: ((cos, sin)
+        of the position row 0, (cos, sin) of row 1)).  ``alibi_bias``
+        [1, H, 1, S] (ALiBi over the stacked cache): the bias over the
+        cache's columns (:func:`..functional.generate_alibi_biases`)."""
         b, l, _ = hidden_states.shape
 
         if self.cross_attention:
@@ -343,8 +374,17 @@ class Attention(nn.Module):
             if rotary is None:
                 raise ValueError("a rotary layer needs the tokens' rotary "
                                  "angles")
-            q = apply_rope(q, *rotary, self.neox_rotary_style)
-            k = apply_rope(k, *rotary, self.neox_rotary_style)
+            if self.glm_2d_rope:
+                half = self.rotary_embedding_dim
+
+                def rot2d(x):
+                    return torch.cat([apply_rope(x[..., :half], *rotary[0]),
+                                      apply_rope(x[..., half:], *rotary[1])],
+                                     dim=-1)
+                q, k = rot2d(q), rot2d(k)
+            else:
+                q = apply_rope(q, *rotary, self.neox_rotary_style)
+                k = apply_rope(k, *rotary, self.neox_rotary_style)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
 
         if isinstance(past_key_value, PagedKV):
@@ -358,6 +398,9 @@ class Attention(nn.Module):
             full, layer_idx, _ = past_key_value
             if l != 1:
                 raise ValueError("deferred-write decode is single-token")
+            if self.alibi:
+                raise ValueError("an ALiBi step writes its own column: no "
+                                 "deferred write")
             k_st, v_st = cast_kv_for_cache(k, v, full.dtype,
                                            self.kv_orig_quant_scale)
             out = self._decode(full, layer_idx, q, sequence_length,
@@ -368,23 +411,38 @@ class Attention(nn.Module):
             return (out, (k_st, v_st)) if use_cache else out
 
         if past_key_value is not None:
-            # prefill: write the prompt's K/V into the stacked cache
+            # prefill (or an ALiBi model's single-token step): write the
+            # tokens' K/V into the stacked cache
             full, layer_idx = past_key_value
-            if l == 1 or not self.causal:
-                raise NotImplementedError(
-                    "only a causal multi-token prefill is ported")
             append_kv_stacked(full, k, v, layer_idx, cache_write_index,
                               self.kv_orig_quant_scale)
-            if attention_start is not None or self.use_int8_kv_cache:
-                # left-padded prompts, or an int8 cache: attend over the
-                # cache just written (dequantised), keys below the start
-                # masked, causal from the write index
+            if self.alibi and alibi_bias is None:
+                raise ValueError("an ALiBi layer needs the bias over the "
+                                 "cache's columns")
+            if beam_indirection is not None:
+                # an ALiBi beam step: its column is written, the table
+                # points at the row's own for it
+                if l != 1 or not self.alibi:
+                    raise ValueError("a beam table without the deferred "
+                                     "write is for ALiBi steps")
+                ctx = beam_indirect_decode_attention(
+                    q, layer_kv_views(full, layer_idx), sequence_length,
+                    beam_indirection, scale=self.scale,
+                    kv_quant_orig_scale=self.kv_quant_orig_scale,
+                    start_index=attention_start, bias=alibi_bias)
+                out = self.dense(self._merge_heads(ctx))
+            elif (attention_start is not None or self.use_int8_kv_cache
+                    or self.alibi or not self.causal or l == 1):
+                # left-padded prompts, an int8 cache, ALiBi, a
+                # bidirectional prompt or one token: attend over the cache
+                # just written (dequantised), keys below the start masked,
+                # causal from the write index unless bidirectional
                 ctx = cached_decode_attention(
                     q, layer_kv_views(full, layer_idx), sequence_length,
                     scale=self.scale,
                     kv_quant_orig_scale=self.kv_quant_orig_scale,
-                    causal_offset=cache_write_index,
-                    start_index=attention_start)
+                    causal_offset=cache_write_index if self.causal else None,
+                    start_index=attention_start, bias=alibi_bias)
                 out = self.dense(self._merge_heads(ctx))
             else:
                 # the cache was empty before: causal context attention over

@@ -1,10 +1,12 @@
 """Generic decoder-only transformer LM (the JAX package's
-``models/decoder.py``), for the families this port runs so far: learned,
-rotary or no positions (RoPE: GPT-NeoX halves or GPT-J interleaved pairs,
-a partial rotary dim), LayerNorm or RMSNorm, the plain or gated MLP, the
-sequential or parallel residual, a tied or separate LM head (with a
-bias), and MQA/GQA attention: GPT-2, OPT, LLaMA (GQA too), GPT-J,
-GPT-NeoX and SantaCoder / StarCoder (``models/families.py``).
+``models/decoder.py``), for every family it runs: learned, rotary, ALiBi,
+GLM two-dimensional rotary or no positions (RoPE: GPT-NeoX halves or GPT-J
+interleaved pairs, a partial rotary dim), LayerNorm or RMSNorm (and a norm
+after the embedding), the plain or gated MLP, the sequential, parallel or
+deepnorm residual, a causal or bidirectional prompt, query-key layer
+scaling, a tied or separate LM head (with a bias), and MQA/GQA attention:
+GPT-2, OPT, LLaMA (GQA too), GPT-J, GPT-NeoX, Bloom, ChatGLM-6B and
+SantaCoder / StarCoder (``models/families.py``).
 
 Forward contract (used by :mod:`..runtime.generation` and
 :mod:`..runtime.batch_manager`)::
@@ -37,15 +39,26 @@ given ``megakernel_blobs`` (:meth:`DecoderLMHead.megakernel_blobs`) runs
 every layer in one launch of the whole-step megakernel
 (``ops/decoder_layer.py``), as the JAX model's :367-412 does: the final
 norm and the logits after it, then the fresh K/V written at
-``write_index``.  ALiBi and GLM positions, the deepnorm residual, the
-bidirectional prompt, ``embedding_norm``, query-key layer scaling, an
-fp8 KV cache, per-row write positions on the stacked cache, mixed
-prompt/decode windows on the pool and the K-step tail are not ported and
-raise ``NotImplementedError``.  Beam search passes a
-``beam_indirection`` [groups, beams, S] table to the single-token step,
-which every layer's self-attention reads the cache through (the beam
-entry of the decode kernel); over an MQA/GQA cache it raises, as the JAX
-package cannot run it either.
+``write_index``; an MQA/GQA model (heads of 128) through the kernel's
+grouped mode.  ALiBi (Bloom): the bias [1, H, 1, S] over the absolute
+cache column made once a call, every prompt attending over the cache it
+has written, and a single-token step writing each layer's column before
+attending (no deferred write, no decode kernel: the JAX model runs it
+through XLA, ``models/decoder.py:460-472``).  GLM (ChatGLM-6B): the
+positions [B, 2, T], ``pos0 = min(p, plen - 2)`` and ``pos1 = max(p -
+plen + 2, 0)`` with ``plen`` the true prompt lengths (``context_lengths``,
+which :attr:`DecoderLMHead.needs_context_lengths` asks the session for),
+the deepnorm residual ``x = ln(x) alpha + attn; y = ln2(x); x = y alpha +
+mlp(y)`` and the bidirectional prompt.  An fp8 KV cache, per-row write
+positions on the stacked cache, mixed prompt/decode windows on the pool
+and the K-step tail are not ported and raise ``NotImplementedError``.
+Beam search passes a ``beam_indirection`` [groups, beams, S] table to the
+single-token step, which every layer's self-attention reads the cache
+through (the beam entry of the decode kernel; an ALiBi step through the
+plain beam attention with the bias, after writing its column); over an
+MQA/GQA cache it raises, as the JAX package cannot run it either.  (The
+JAX model's ALiBi step drops the table, so its Bloom beams read their own
+rows' history; the port reads through it, as the JAX gather mode does.)
 """
 from __future__ import annotations
 
@@ -56,7 +69,8 @@ import torch
 from torch import nn
 
 from .._utils import pad_vocab_size, str_dtype_to_torch
-from ..functional import ACT2FN, matmul_fp32, rope_angles
+from ..functional import (ACT2FN, alibi_slopes, generate_alibi_biases,
+                          matmul_fp32, rope_angles)
 from ..layers import (MLP, Attention, Embedding, GatedMLP, LayerNorm,
                       Linear, QKVLinear, RmsNorm, RowLinear)
 from ..ops.attention import write_fresh_kv
@@ -123,13 +137,10 @@ def _check_ported(c: DecoderConfig) -> None:
     """Raise for the configuration options this port does not run yet."""
     unported = {
         f"position_embedding={c.position_embedding!r}":
-            c.position_embedding not in ("learned", "none", "rope"),
+            c.position_embedding not in ("learned", "none", "rope", "alibi",
+                                         "glm_rope"),
         f"norm={c.norm!r}": c.norm not in ("layernorm", "rmsnorm"),
         f"hidden_act={c.hidden_act!r}": c.hidden_act not in ACT2FN,
-        "deepnorm_alpha": c.deepnorm_alpha is not None,
-        "bidirectional_context": c.bidirectional_context,
-        "embedding_norm": c.embedding_norm,
-        "apply_query_key_layer_scaling": c.apply_query_key_layer_scaling,
         "an fp8 KV cache": c.quant_mode.has_fp8_kv_cache(),
     }
     bad = [name for name, on in unported.items() if on]
@@ -151,6 +162,19 @@ def rotary_dim(c: DecoderConfig) -> int:
     return int(c.head_dim * c.rotary_pct)
 
 
+def glm_positions(positions: torch.Tensor, context_lengths: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ChatGLM-6B's two position rows of the tokens at ``positions``
+    [B, T] (their place in the true, unpadded sequence) for prompts of the
+    true lengths ``context_lengths`` [B] (the JAX model's :313-326): the
+    prompt's last token, [sop], repeats [gMASK]'s position plen - 2 with
+    block position 1, and generated token s keeps plen - 2 with block
+    position s + 2."""
+    plen = context_lengths.reshape(-1, 1).to(positions.device).long()
+    return (torch.minimum(positions, plen - 2),
+            torch.clamp(positions - plen + 2, min=0))
+
+
 def _check_beam_forward(tokens, kv_cache) -> None:
     """Beams read the stacked cache through the indirection table, one
     token a step (an MQA/GQA cache is refused by the attention op)."""
@@ -160,39 +184,53 @@ def _check_beam_forward(tokens, kv_cache) -> None:
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm causal self-attention and MLP: sequential (each added to
-    the residual, the MLP after ``post_layernorm``) or, with
-    ``parallel_attn`` (GPT-J, GPT-NeoX), both reading the input norm and
-    added together: ``x + attn + mlp``."""
+    """Pre-norm self-attention and MLP: sequential (each added to the
+    residual, the MLP after ``post_layernorm``), with ``parallel_attn``
+    (GPT-J, GPT-NeoX) both reading the input norm and added together,
+    ``x + attn + mlp``, or with ``deepnorm_alpha`` (ChatGLM-6B) the
+    residual taken from the norms, ``x = ln(x) alpha + attn; y = ln2(x);
+    x = y alpha + mlp(y)`` (the JAX block's :142-147).  The attention is
+    causal unless the prompt is bidirectional."""
 
     def __init__(self, config: DecoderConfig):
         super().__init__()
         c = config
         self.parallel = c.parallel_attn
+        self.deepnorm_alpha = c.deepnorm_alpha
         dtype = str_dtype_to_torch(c.dtype)
         self.input_layernorm = _make_norm(c, dtype)
-        self.attention = Attention(c.hidden_size, c.num_heads, causal=True,
-                                   bias=c.attn_bias, dtype=dtype,
-                                   quant_mode=c.quant_mode,
-                                   num_kv_heads=c.num_kv_heads,
-                                   use_int8_kv_cache=(
-                                       c.quant_mode.has_int8_kv_cache()),
-                                   rotary_embedding_dim=rotary_dim(c),
-                                   neox_rotary_style=c.neox_rotary_style)
-        if not c.parallel_attn:
+        self.attention = Attention(
+            c.hidden_size, c.num_heads, causal=not c.bidirectional_context,
+            bias=c.attn_bias, dtype=dtype, quant_mode=c.quant_mode,
+            num_kv_heads=c.num_kv_heads,
+            use_int8_kv_cache=c.quant_mode.has_int8_kv_cache(),
+            rotary_embedding_dim=rotary_dim(c),
+            neox_rotary_style=c.neox_rotary_style,
+            glm_2d_rope=c.position_embedding == "glm_rope",
+            alibi=c.position_embedding == "alibi",
+            num_layers=c.num_layers,
+            apply_query_key_layer_scaling=c.apply_query_key_layer_scaling)
+        if not c.parallel_attn or c.deepnorm_alpha is not None:
             self.post_layernorm = _make_norm(c, dtype)
         mlp = GatedMLP if c.gated_mlp else MLP
         self.mlp = mlp(c.hidden_size, c.ffn_hidden_size, c.hidden_act,
                        bias=c.mlp_bias, dtype=dtype, quant_mode=c.quant_mode)
 
     def forward(self, x, kv_cache, write_index, sequence_length,
-                attention_start=None, beam_indirection=None, rotary=None):
+                attention_start=None, beam_indirection=None, rotary=None,
+                alibi_bias=None):
         normed = self.input_layernorm(x)
         attn_out, new_cache = self.attention(
             normed, past_key_value=kv_cache,
             sequence_length=sequence_length, cache_write_index=write_index,
             attention_start=attention_start, use_cache=True,
-            beam_indirection=beam_indirection, rotary=rotary)
+            beam_indirection=beam_indirection, rotary=rotary,
+            alibi_bias=alibi_bias)
+        if self.deepnorm_alpha is not None:
+            alpha = self.deepnorm_alpha
+            x = normed * alpha + attn_out
+            normed2 = self.post_layernorm(x)
+            return normed2 * alpha + self.mlp(normed2), new_cache
         if self.parallel:
             return x + attn_out + self.mlp(normed), new_cache
         x = x + attn_out
@@ -216,6 +254,8 @@ class DecoderLMHead(nn.Module):
             self.position_embedding = Embedding(
                 c.max_position_embeddings + c.position_offset, c.hidden_size,
                 dtype=self.dtype)
+        if c.embedding_norm:
+            self.ln_embed = _make_norm(c, self.dtype)
         self.blocks = nn.ModuleList(DecoderBlock(c)
                                     for _ in range(c.num_layers))
         if c.final_norm:
@@ -249,15 +289,22 @@ class DecoderLMHead(nn.Module):
                               num_layers=c.num_layers,
                               device=self.vocab_embedding.weight.device)
 
+    @property
+    def needs_context_lengths(self) -> bool:
+        """GLM's positions depend on the true prompt lengths, which the
+        session passes to every call (the JAX model's :196-201)."""
+        return self.config.position_embedding == "glm_rope"
+
     def megakernel_eligible(self) -> bool:
         """Structure check for the whole-step megakernel
         (``ops/decoder_layer.py``), the JAX model's :203-266: learned, no or
-        rotary positions (an even rotary dim), LayerNorm or RMSNorm, the
-        kernel's activations, lane-divisible widths up to d 2048, and every
-        block uniformly int8 weight-only per output channel or uniformly
-        float.  MQA/GQA answers False: the grouped mode is not ported, so
-        SantaCoder runs layer by layer.  With the weights on a card also
-        the types and shapes the kernel takes
+        rotary positions (an even rotary dim; not ALiBi or GLM), no deepnorm
+        residual and no bidirectional prompt, LayerNorm or RMSNorm, the
+        kernel's activations, lane-divisible widths up to d 2048, MQA/GQA
+        only at head dim 128 with the query heads a multiple of the KV
+        heads (the grouped mode), and every block uniformly int8
+        weight-only per output channel or uniformly float.  With the
+        weights on a card also the types and shapes the kernel takes
         (:func:`..ops.decoder_layer.kernel_takes`: bf16 activations, heads
         of 64 or 128)."""
         from ..ops.decoder_layer import kernel_takes, woq_block_eligible
@@ -267,9 +314,12 @@ class DecoderLMHead(nn.Module):
             return False
         if rotary_dim(c) % 2:
             return False
+        if c.deepnorm_alpha is not None or c.bidirectional_context:
+            return False
         if c.hidden_act not in ("gelu", "relu", "gelu_exact", "silu"):
             return False
-        if c.num_kv_heads != c.num_heads:
+        if c.num_kv_heads != c.num_heads and (
+                c.head_dim != 128 or c.num_heads % c.num_kv_heads):
             return False
         if c.hidden_size % 128 or 128 % c.head_dim or c.hidden_size > 2048:
             return False
@@ -296,7 +346,8 @@ class DecoderLMHead(nn.Module):
         each layer's panels are cut into the kernel's tiles at once and
         dropped: ``tiles`` is the one copy of the weights besides the
         model's, and ``wblob`` a meta tensor that keeps their type and
-        shape (the kernel reads nothing else of it)."""
+        shape (the kernel reads nothing else of it), and so is ``kvblob``
+        (the grouped mode's K and V columns)."""
         from ..ops.decoder_layer import (DECODER_KEYS, MegakernelBlobs,
                                          megakernel_tiles, pack_decoder_blobs)
         c = self.config
@@ -317,30 +368,44 @@ class DecoderLMHead(nn.Module):
                     tiles = torch.empty((c.num_layers, t.shape[1]),
                                         dtype=t.dtype, device=t.device)
                 tiles[li] = t[0]
-                b = b._replace(wblob=b.wblob.to("meta"))
+                b = b._replace(wblob=b.wblob.to("meta"), kvblob=(
+                    None if b.kvblob is None else b.kvblob.to("meta")))
             layers.append(b)
         blobs = MegakernelBlobs(*(
             torch.cat(f) if torch.is_tensor(f[0]) else f[0]
             for f in zip(*layers)))
         return blobs._replace(tiles=tiles, tiles_grid=grid)
 
-    def _embed(self, tokens, positions):
-        """Token embeddings (+ learned positions at ``positions`` [B, T])
-        and, with RoPE, the (cos, sin) of the positions for every layer."""
+    def _embed(self, tokens, positions, context_lengths=None):
+        """Token embeddings (+ learned positions at ``positions`` [B, T],
+        then the embedding norm) and, with RoPE, the (cos, sin) of the
+        positions for every layer; with GLM's positions (which need the
+        true prompt lengths ``context_lengths`` [B]) the (cos, sin) of each
+        of the two position rows over half a head."""
         c = self.config
         x = self.vocab_embedding(tokens)
         if c.position_embedding == "learned":
             pos = positions.clamp(0, c.max_position_embeddings - 1)
             x = x + self.position_embedding(pos + c.position_offset)
+        if c.embedding_norm:
+            x = self.ln_embed(x)
         rotary = None
-        if rotary_dim(c):
+        if c.position_embedding == "glm_rope":
+            if context_lengths is None:
+                raise ValueError("GLM positions need context_lengths (the "
+                                 "true prompt lengths [B])")
+            half = c.head_dim // 2
+            rotary = tuple(rope_angles(p, half, c.rotary_base)
+                           for p in glm_positions(positions,
+                                                  context_lengths))
+        elif rotary_dim(c):
             rotary = rope_angles(positions, rotary_dim(c), c.rotary_base)
         return x, rotary
 
     def forward(self, tokens: torch.Tensor, kv_cache, write_index,
                 sequence_length, attention_start=None,
-                beam_indirection=None, kv_tail=None, megakernel_blobs=None
-                ) -> Tuple[torch.Tensor, object]:
+                beam_indirection=None, kv_tail=None, megakernel_blobs=None,
+                context_lengths=None) -> Tuple[torch.Tensor, object]:
         """tokens [B, T] (left-padded prompts use ``attention_start`` [B]);
         ``write_index``: the cache column of tokens[:, 0], one for all rows,
         or over the paged pool a [B] tensor of per-row positions (one token
@@ -353,7 +418,9 @@ class DecoderLMHead(nn.Module):
         batch 1 over the stacked cache, without beams, runs through the
         megakernel with them (:class:`..runtime.GenerationSession` packs
         them for an eligible model and passes them where the kernel takes
-        the cache).  Returns (logits [B, T, vocab] fp32, kv_cache)."""
+        the cache); ``context_lengths`` [B]: the true prompt lengths
+        (GLM positions only).  Returns (logits [B, T, vocab] fp32,
+        kv_cache)."""
         if kv_tail is not None:
             raise NotImplementedError("the K-step tail is not ported")
         if beam_indirection is not None:
@@ -375,8 +442,23 @@ class DecoderLMHead(nn.Module):
         pos = write_index + torch.arange(t, device=dev)[None, :]
         if attention_start is not None:
             pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
-        x, rotary = self._embed(tokens, pos.expand(b, t))
-        if t == 1:
+        x, rotary = self._embed(tokens, pos.expand(b, t), context_lengths)
+        alibi = None
+        if c.position_embedding == "alibi":
+            # the bias over the cache's columns, once for every layer
+            alibi = generate_alibi_biases(alibi_slopes(c.num_heads, dev),
+                                          kv_cache.shape[-1])
+        if t == 1 and alibi is not None:
+            # an ALiBi step: each layer writes its column, then attends
+            # with the bias (through the beam table where there is one)
+            if isinstance(sequence_length, int):
+                sequence_length = torch.full((b,), sequence_length,
+                                             dtype=torch.int32, device=dev)
+            for li, block in enumerate(self.blocks):
+                x, kv_cache = block(x, (kv_cache, li), write_index,
+                                    sequence_length, attention_start,
+                                    beam_indirection, alibi_bias=alibi)
+        elif t == 1:
             if isinstance(sequence_length, int):
                 # a fill, not a host-to-device copy, which would wait for
                 # the stream
@@ -395,7 +477,7 @@ class DecoderLMHead(nn.Module):
             for li, block in enumerate(self.blocks):
                 x, kv_cache = block(x, (kv_cache, li), write_index,
                                     sequence_length, attention_start,
-                                    rotary=rotary)
+                                    rotary=rotary, alibi_bias=alibi)
         if c.final_norm:
             x = self.ln_f(x)
         return self._logits(x), kv_cache
@@ -417,6 +499,8 @@ class DecoderLMHead(nn.Module):
             if attention_start is not None:
                 pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
             x = x + self.position_embedding(pos + c.position_offset)
+        if c.embedding_norm:
+            x = self.ln_embed(x)
         # a fill, not a host-to-device copy, which would wait for the stream
         seq1 = (torch.full((1,), sequence_length, dtype=torch.int32,
                            device=x.device)
@@ -449,6 +533,9 @@ class DecoderLMHead(nn.Module):
         if attention_start is not None:
             raise NotImplementedError("left-padded prompts (attention_start) "
                                       "are not ported for the paged pool")
+        if self.config.position_embedding in ("alibi", "glm_rope"):
+            raise NotImplementedError("ALiBi and GLM positions are not "
+                                      "ported for the paged pool")
         c = self.config
         b, t = tokens.shape
         dev = tokens.device

@@ -1,8 +1,9 @@
 """Model families as config constructors plus HF weight mappers (the JAX
-package's ``models/families.py``), for the families this port runs: GPT-2,
-LLaMA (GQA too), OPT, GPT-J, GPT-NeoX and SantaCoder / StarCoder (HF
-``gpt_bigcode``, multi-query).  Bloom and ChatGLM-6B wait (their ALiBi,
-embedding norm, GLM positions and deepnorm residual are not ported).
+package's ``models/families.py``), for every family it has: GPT-2, LLaMA
+(GQA too), OPT, Bloom (ALiBi, the embedding norm), GPT-J, GPT-NeoX,
+ChatGLM-6B (GLM positions, the deepnorm residual, the bidirectional
+prompt; THUDM's layout, no HF class) and SantaCoder / StarCoder (HF
+``gpt_bigcode``, multi-query or not).
 
 Each ``*_config`` builds a :class:`~.decoder.DecoderConfig` from an HF
 config object (read by attribute); each ``from_hf_*`` maps an HF state
@@ -209,6 +210,68 @@ def from_hf_opt(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
     return state
 
 
+# -- Bloom -------------------------------------------------------------------
+
+def bloom_config(hf_cfg, dtype: str = "bfloat16", **kw) -> DecoderConfig:
+    """ALiBi positions, a LayerNorm after the embedding, tied embeddings."""
+    return DecoderConfig(
+        vocab_size=hf_cfg.vocab_size, hidden_size=hf_cfg.hidden_size,
+        num_layers=hf_cfg.n_layer, num_heads=hf_cfg.n_head,
+        max_position_embeddings=2048,
+        position_embedding="alibi", embedding_norm=True,
+        norm_eps=hf_cfg.layer_norm_epsilon, hidden_act="gelu",
+        dtype=dtype, **kw)
+
+
+def _per_head_qkv(w, b, h: int, hd: int, hidden: int):
+    """A QKV packed per head, [H, 3, hd, hidden] rows (Bloom, GPT-NeoX,
+    ChatGLM-6B, gpt_bigcode without multi-query) -> [3, H, hd, hidden] and
+    its bias [3, H, hd]."""
+    return (w.reshape(h, 3, hd, hidden).transpose(1, 0, 2, 3),
+            b.reshape(h, 3, hd).transpose(1, 0, 2))
+
+
+def from_hf_bloom(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
+    """Bloom fuses q, k and v per head."""
+    pre = ("transformer." if "transformer.word_embeddings.weight" in hf_sd
+           else "")
+
+    def g(k):
+        return _np(hf_sd[pre + k])
+    h, hd = config.num_heads, config.head_dim
+    per_layer = []
+    for i in range(config.num_layers):
+        def gg(k):
+            return _np(hf_sd[f"{pre}h.{i}.{k}"])
+        wqkv, bqkv = _per_head_qkv(
+            gg("self_attention.query_key_value.weight"),
+            gg("self_attention.query_key_value.bias"), h, hd,
+            config.hidden_size)
+        per_layer.append({
+            "input_layernorm.weight": gg("input_layernorm.weight"),
+            "input_layernorm.bias": gg("input_layernorm.bias"),
+            "attention.qkv.weight": wqkv,
+            "attention.qkv.bias": bqkv,
+            "attention.dense.weight": gg("self_attention.dense.weight"),
+            "attention.dense.bias": gg("self_attention.dense.bias"),
+            "post_layernorm.weight": gg("post_attention_layernorm.weight"),
+            "post_layernorm.bias": gg("post_attention_layernorm.bias"),
+            "mlp.fc.weight": gg("mlp.dense_h_to_4h.weight"),
+            "mlp.fc.bias": gg("mlp.dense_h_to_4h.bias"),
+            "mlp.proj.weight": gg("mlp.dense_4h_to_h.weight"),
+            "mlp.proj.bias": gg("mlp.dense_4h_to_h.bias"),
+        })
+    state = {
+        "vocab_embedding.weight": g("word_embeddings.weight"),
+        "ln_embed.weight": g("word_embeddings_layernorm.weight"),
+        "ln_embed.bias": g("word_embeddings_layernorm.bias"),
+        "ln_f.weight": g("ln_f.weight"),
+        "ln_f.bias": g("ln_f.bias"),
+    }
+    state.update(_stack(per_layer))
+    return state
+
+
 # -- GPT-J -------------------------------------------------------------------
 
 def gptj_config(hf_cfg, dtype: str = "bfloat16", **kw) -> DecoderConfig:
@@ -289,10 +352,9 @@ def from_hf_gptneox(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
     for i in range(config.num_layers):
         def gg(k):
             return _np(hf_sd[f"{pre}layers.{i}.{k}"])
-        wqkv = gg("attention.query_key_value.weight").reshape(
-            h, 3, hd, config.hidden_size).transpose(1, 0, 2, 3)
-        bqkv = gg("attention.query_key_value.bias").reshape(
-            h, 3, hd).transpose(1, 0, 2)
+        wqkv, bqkv = _per_head_qkv(gg("attention.query_key_value.weight"),
+                                   gg("attention.query_key_value.bias"), h,
+                                   hd, config.hidden_size)
         d = {
             "input_layernorm.weight": gg("input_layernorm.weight"),
             "input_layernorm.bias": gg("input_layernorm.bias"),
@@ -319,6 +381,72 @@ def from_hf_gptneox(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
     return state
 
 
+# -- ChatGLM-6B --------------------------------------------------------------
+
+def chatglm6b_config(hf_cfg, dtype: str = "bfloat16", **kw) -> DecoderConfig:
+    """THUDM/chatglm-6b: GLM's two-dimensional rotary over half a head per
+    position row, the deepnorm residual with alpha (2 num_layers) ** 0.5,
+    the bidirectional prompt, erf GELU, a separate LM head (the config
+    read by attribute: ``num_layers``, ``inner_hidden_size``,
+    ``max_sequence_length``, ``layernorm_epsilon``)."""
+    n_layer = getattr(hf_cfg, "num_layers",
+                      getattr(hf_cfg, "num_hidden_layers", None))
+    return DecoderConfig(
+        vocab_size=hf_cfg.vocab_size, hidden_size=hf_cfg.hidden_size,
+        num_layers=n_layer, num_heads=hf_cfg.num_attention_heads,
+        ffn_hidden_size=getattr(hf_cfg, "inner_hidden_size",
+                                4 * hf_cfg.hidden_size),
+        max_position_embeddings=getattr(hf_cfg, "max_sequence_length",
+                                        2048),
+        position_embedding="glm_rope", deepnorm_alpha=(2 * n_layer) ** 0.5,
+        bidirectional_context=True, hidden_act="gelu_exact",
+        tie_word_embeddings=False,
+        norm_eps=getattr(hf_cfg, "layernorm_epsilon", 1e-5),
+        dtype=dtype, **kw)
+
+
+def from_hf_chatglm6b(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
+    """THUDM's layout: ``query_key_value`` packed per head, [H, 3, hd]
+    rows."""
+    pre = ("transformer." if "transformer.word_embeddings.weight" in hf_sd
+           else "")
+
+    def g(k):
+        return _np(hf_sd[pre + k])
+    h, hd = config.num_heads, config.head_dim
+    per_layer = []
+    for i in range(config.num_layers):
+        def gg(k):
+            return _np(hf_sd[f"{pre}layers.{i}.{k}"])
+        wqkv, bqkv = _per_head_qkv(gg("attention.query_key_value.weight"),
+                                   gg("attention.query_key_value.bias"), h,
+                                   hd, config.hidden_size)
+        per_layer.append({
+            "input_layernorm.weight": gg("input_layernorm.weight"),
+            "input_layernorm.bias": gg("input_layernorm.bias"),
+            "attention.qkv.weight": wqkv,
+            "attention.qkv.bias": bqkv,
+            "attention.dense.weight": gg("attention.dense.weight"),
+            "attention.dense.bias": gg("attention.dense.bias"),
+            "post_layernorm.weight": gg("post_attention_layernorm.weight"),
+            "post_layernorm.bias": gg("post_attention_layernorm.bias"),
+            "mlp.fc.weight": gg("mlp.dense_h_to_4h.weight"),
+            "mlp.fc.bias": gg("mlp.dense_h_to_4h.bias"),
+            "mlp.proj.weight": gg("mlp.dense_4h_to_h.weight"),
+            "mlp.proj.bias": gg("mlp.dense_4h_to_h.bias"),
+        })
+    state = {
+        "vocab_embedding.weight": g("word_embeddings.weight"),
+        "ln_f.weight": g("final_layernorm.weight"),
+        "ln_f.bias": g("final_layernorm.bias"),
+        "lm_head.weight": _np(hf_sd["lm_head.weight"]),
+    }
+    state.update(_stack(per_layer))
+    return state
+
+
+# -- SantaCoder / StarCoder (gpt_bigcode) --------------------------------------
+
 def santacoder_config(hf_cfg, dtype: str = "bfloat16", **kw) -> DecoderConfig:
     """GPT-2 topology with multi-query attention (HF ``gpt_bigcode``, which
     covers SantaCoder and StarCoder)."""
@@ -332,14 +460,13 @@ def santacoder_config(hf_cfg, dtype: str = "bfloat16", **kw) -> DecoderConfig:
 
 
 def from_hf_santacoder(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
-    """HF GPTBigCode state dict (multi-query) -> the JAX package's
-    ``DecoderLMHead`` layout (numpy, stacked).  Plain nn.Linear weights
-    ([out, in], no GPT-2 Conv1D transpose); c_attn rows are [H*D query | D
-    key | D value].  Without multi-query HF interleaves q, k and v per head,
-    which the JAX mapper's [q | k | v] split does not follow: not ported."""
-    if config.num_kv_heads != 1:
-        raise NotImplementedError("gpt_bigcode without multi_query is not "
-                                  "ported")
+    """HF GPTBigCode state dict -> the JAX package's ``DecoderLMHead``
+    layout (numpy, stacked).  Plain nn.Linear weights ([out, in], no GPT-2
+    Conv1D transpose).  Multi-query: c_attn rows are [H*D query | D key | D
+    value], the separate-KV layout.  Without multi-query HF packs q, k and
+    v per head, [H, 3, D] rows (``GPTBigCodeAttention`` views c_attn's
+    output as [.., H, 3 D]), the fused layout; the JAX mapper's [q | k | v]
+    split does not follow HF there, so this one is held against HF."""
 
     def g(k):
         return _np(hf_sd[k if k in hf_sd else "transformer." + k])
@@ -364,11 +491,15 @@ def from_hf_santacoder(hf_sd, config: DecoderConfig) -> Dict[str, np.ndarray]:
             "mlp.proj.weight": gg("mlp.c_proj.weight"),
             "mlp.proj.bias": gg("mlp.c_proj.bias"),
         }
-        # the separate-KV layout: q [H, hd, dm] + kv [2, 1, hd, dm]
-        d["attention.qkv.weight"] = w[:h * hd].reshape(h, hd, -1)
-        d["attention.qkv.kv_weight"] = w[h * hd:].reshape(2, 1, hd, -1)
-        d["attention.qkv.bias"] = bb[:h * hd].reshape(h, hd)
-        d["attention.qkv.kv_bias"] = bb[h * hd:].reshape(2, 1, hd)
+        if config.num_kv_heads == h:
+            d["attention.qkv.weight"], d["attention.qkv.bias"] = \
+                _per_head_qkv(w, bb, h, hd, config.hidden_size)
+        else:
+            # the separate-KV layout: q [H, hd, dm] + kv [2, 1, hd, dm]
+            d["attention.qkv.weight"] = w[:h * hd].reshape(h, hd, -1)
+            d["attention.qkv.kv_weight"] = w[h * hd:].reshape(2, 1, hd, -1)
+            d["attention.qkv.bias"] = bb[:h * hd].reshape(h, hd)
+            d["attention.qkv.kv_bias"] = bb[h * hd:].reshape(2, 1, hd)
         per_layer.append(d)
     state = {
         "vocab_embedding.weight": g("wte.weight"),
@@ -387,6 +518,8 @@ FAMILIES = {
     "starcoder": (santacoder_config, from_hf_santacoder),
     "llama": (llama_config, from_hf_llama),
     "opt": (opt_config, from_hf_opt),
+    "bloom": (bloom_config, from_hf_bloom),
+    "chatglm6b": (chatglm6b_config, from_hf_chatglm6b),
     "gptj": (gptj_config, from_hf_gptj),
     "gptneox": (gptneox_config, from_hf_gptneox),
 }

@@ -122,7 +122,7 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
                             causal_offset=None,
                             start_index=None,
                             fresh_kv: Optional[Tuple] = None,
-                            group: int = 1) -> torch.Tensor:
+                            group: int = 1, bias=None) -> torch.Tensor:
     """Masked attention of q [B,H,Lq,D] against a seq-minor cache
     [B,2,Hkv,D,S] (or its (k, v) views), attending to positions < seq_len.
 
@@ -131,18 +131,24 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
     current tokens when their cache write is deferred: the cache then holds
     ``seq_len - Lq`` valid columns.  ``start_index`` masks keys below it.
     ``causal_offset`` (Lq > 1, a prefill written into the cache): query row
-    i attends keys <= causal_offset + i.  int8 caches are dequantised with
-    the per-tensor ``kv_quant_orig_scale``.
+    i attends keys <= causal_offset + i; None: no causal mask (the
+    bidirectional prefill of GLM).  ``bias`` [1, H, 1, S] fp32 (ALiBi) is
+    added to the scaled scores before the mask; it takes no deferred write
+    (``fresh_kv``) and no GQA, as in the JAX package.  int8 caches are
+    dequantised with the per-tensor ``kv_quant_orig_scale``.
 
     MQA/GQA (the JAX package's ``ops/attention.py:264-317``): a cache with
     fewer KV heads than q is read without repeating its heads.  One KV head
     rides the einsums' size-1 broadcast; 1 < Hkv < H folds the query head
     groups onto the q-length axis (``group`` is the recursion's marker), so
     masks index positions by ``row % true_lq``.  (The JAX version's tail
-    and bias modes are not ported.)"""
+    mode is not ported.)"""
     b, h, lq, d = q.shape
     k, v = cache if isinstance(cache, tuple) else (cache[:, 0], cache[:, 1])
     hkv = k.shape[1]
+    if bias is not None and (fresh_kv is not None or hkv not in (h, 1)):
+        raise ValueError("a per-head bias (ALiBi) takes no deferred write "
+                         "and no GQA cache")
     if group == 1 and hkv not in (h, 1):
         g = h // hkv
         if g * hkv != h:
@@ -161,6 +167,8 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
         k = dequantize_cache_values(k, kv_quant_orig_scale, q.dtype)
         v = dequantize_cache_values(v, kv_quant_orig_scale, q.dtype)
     scores = _mm_f32("bhqd,bhds->bhqs", q, k) * scale
+    if bias is not None:                    # ALiBi [1, H, 1, S]
+        scores = scores + bias.float()
     kpos = torch.arange(s_max, device=q.device)[None, None, None, :]
     cache_len = torch.as_tensor(seq_len, dtype=torch.int32, device=q.device)
     cache_len = cache_len.reshape(-1, 1, 1, 1)
@@ -206,8 +214,8 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
                                    scale: Optional[float] = None,
                                    kv_quant_orig_scale=None,
                                    start_index=None,
-                                   fresh_kv: Optional[Tuple] = None
-                                   ) -> torch.Tensor:
+                                   fresh_kv: Optional[Tuple] = None,
+                                   bias=None) -> torch.Tensor:
     """One-token attention through a beam cache-indirection table, without
     a reordered copy of the cache (the JAX package's
     ``beam_indirect_decode_attention``, ``ops/attention.py:396``).
@@ -222,7 +230,11 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
     masked probabilities: the selected terms equal those of a gathered
     cache exactly; only the order of the fp32 P·V sum differs.
     ``fresh_kv`` (k, v) [B, H, D, 1] is the current token's, each row's
-    own (no indirection).  int8 caches are dequantised; fp8 raises."""
+    own (no indirection).  ``bias`` [1, H, 1, S] fp32 (ALiBi, over the
+    absolute column) is added to the scaled scores; with it the current
+    token is read from the cache (its column written, the table pointing
+    at the row's own), not from ``fresh_kv``.  int8 caches are
+    dequantised; fp8 raises."""
     b, h, lq, d = q.shape
     if lq != 1:
         raise ValueError("beam-indirect attention is a one-token decode op")
@@ -258,6 +270,10 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
         bw, dtype=ind.dtype, device=ind.device)[None, None, :, None])
     scores = torch.where(sel[:, :, :, None, :], s_all, 0.0).sum(2)
     scores = scores.reshape(b, h, 1, s_max)
+    if bias is not None:
+        if fresh_kv is not None:
+            raise ValueError("a bias (ALiBi) takes no deferred write")
+        scores = scores + bias.float()
     kpos = torch.arange(s_max, device=q.device)[None, None, None, :]
     cache_len = torch.as_tensor(seq_len, dtype=torch.int32,
                                 device=q.device).reshape(-1, 1, 1, 1)

@@ -12,7 +12,13 @@ Counterpart of the JAX package's ``ops/pallas_decoder_layer.py``
   the parallel residual (the MLP reads the input norm), RoPE on q and the
   fresh k (GPT-NeoX halves or GPT-J interleaved pairs, a partial rotary
   dim, the angles from ``write_index`` less the start held on the device),
-  the activations tanh GELU, ReLU, erf GELU and SiLU, head dim 64 or 128;
+  the activations tanh GELU, ReLU, erf GELU and SiLU, head dim 64 or 128,
+  and the grouped (MQA/GQA) mode at head dim 128 (SantaCoder / StarCoder,
+  GQA LLaMA): the qkv stage's d + 2 dkv columns (dkv = Hkv x head dim;
+  the blobs' ``kvblob`` [L, d, 2 dkv] holds the K and V columns beside the
+  q panel, not padded to a [d, d] panel as the TPU's are), each query
+  head h reading KV head h // rep of a cache of Hkv heads, the fresh K/V
+  [L, 2, Hkv, D];
 
 both over a float or int8 self cache with the fresh token's K/V (int8:
 the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the cache and
@@ -28,8 +34,9 @@ its attention slices and rounding points.
 
 Not ported, and raising ``NotImplementedError``: int4 panels and
 group-wise scales, float panels and the gated MLP with cross-attention
-(the JAX kernel refuses the latter too), MQA/GQA (the grouped mode),
-fp8 self-KV, the K-step tail and batch > 1.
+(the JAX kernel refuses the latter too), the grouped mode with
+cross-attention or at head dim 64 (the JAX kernel refuses both), fp8
+self-KV, the K-step tail and batch > 1.
 """
 from __future__ import annotations
 
@@ -62,12 +69,13 @@ HEAD_DIMS = (64, 128)
 # csrc/decoder_layer.cu); the gated MLP's gate rides fc1's stage
 GEMV_STAGES = ("qkv", "dense", "crossq", "crossdense", "fc1", "fc2")
 # the kernel's limits: a thread of the decoder-only set holds 8 elements
-# of a d-row and 24 of fc2's input row (d <= 2048, ffn padded to a
-# multiple of d <= 6144), a warp sums 6 columns of an item (48 an item:
-# 6144 columns need 128 SMs)
-MAX_D, MAX_FFN, ITEM_MAX_COLS = 2048, 6144, 48
+# of a d-row (d <= 2048) and 24 of fc2's input row (ffn padded to a
+# multiple of d up to 6144 in one round of loads, up to 8192 with a
+# second: SantaCoder-1B's), its items are at most 64 columns (8192 columns
+# need 128 SMs), summed in pieces of at most 48 (a warp sums 6)
+MAX_D, MAX_FFN, ITEM_MAX_COLS, PIECE_MAX_COLS = 2048, 8192, 64, 48
 # Whisper's set (with cross-attention) holds 5 and 20 (d <= 1280, ffn <=
-# 5120: Whisper large)
+# 5120: Whisper large), its items whole pieces (at most 48 columns)
 MAX_D_CROSS, MAX_FFN_CROSS = 1280, 5120
 # an item is streamed into the ring in pieces of whole columns, of at most
 # these bytes (or one column)
@@ -124,25 +132,36 @@ class MegakernelBlobs(NamedTuple):
     # the card only)
     tiles: Optional[torch.Tensor] = None
     tiles_grid: Optional[int] = None
+    # the grouped (MQA/GQA) mode: the K and V columns [L, d, 2 dkv]
+    # K-major, in wblob's type (wblob then lacks the k and v panels); None
+    # with equal heads
+    kvblob: Optional[torch.Tensor] = None
 
 
 def blob_layout(blobs: "MegakernelBlobs") -> Tuple[bool, bool, int]:
     """(with_cross, gated, nf) of packed blobs, from their slot counts: 4
     pair rows with cross-attention, 3 without; NPAN = 6 + 2 nf with it,
-    4 + 2 nf or (gated) 4 + 3 nf without, and NF = 2 + nf or 2 + 2 nf.
-    Blobs whose scales are placeholders (not [L, NQ, d/128, 128]) read as
-    the Whisper layout."""
+    4 + 2 nf or (gated) 4 + 3 nf without (2 + .. in the grouped mode,
+    whose k and v are ``kvblob``), and NF = 2 + nf or 2 + 2 nf.  Blobs
+    whose scales are placeholders (not [L, NQ, d/128, 128]) read as the
+    Whisper layout."""
     npan = blobs.wblob.shape[1]
     if blobs.pair_scale.dim() != 4 or blobs.pair_scale.shape[1] == 4:
         return True, False, (npan - 6) // 2
     nflat = blobs.flat_scale.shape[1]
-    nf = (npan - 4) - (nflat - 2)
+    nf = (npan - (2 if blobs.kvblob is not None else 4)) - (nflat - 2)
     return False, nflat - 2 == 2 * nf, nf
 
 
+def blob_kv_width(blobs: "MegakernelBlobs") -> Optional[int]:
+    """dkv (KV heads x head dim) of grouped blobs, None with equal
+    heads."""
+    return None if blobs.kvblob is None else blobs.kvblob.shape[2] // 2
+
+
 def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
-                    gated: bool = False, itemsize: int = 1
-                    ) -> Dict[str, list]:
+                    gated: bool = False, itemsize: int = 1,
+                    dkv: Optional[int] = None) -> Dict[str, list]:
     """The megakernel's GEMV items for width ``d``, ``nf`` fc panels, a grid
     of ``sms`` blocks and weights of ``itemsize`` bytes: per stage of
     :data:`GEMV_STAGES`, ``item_c`` output columns an item by all
@@ -152,11 +171,13 @@ def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
     (the last item's columns past the stage's are zeros; the gated fc1
     item is its c fc columns, then the same c gate columns), ``piece_c``
     the columns of each load into the ring (whole columns of at most
-    PIECE_BYTES; with cross-attention the whole item), and ``ring_cap``
+    PIECE_BYTES and at most PIECE_MAX_COLS; with cross-attention the whole
+    item), and ``ring_cap``
     the bytes of the shared-memory ring (0: all the block's shared memory
     left).  Without cross-attention its two
-    stages have no items.  The C entry refuses any other plan."""
-    cols = (3 * d, d, d, d, nf * d, d)
+    stages have no items.  The qkv stage has d + 2 ``dkv`` columns (3 d
+    with equal heads).  The C entry refuses any other plan."""
+    cols = (d + 2 * (dkv or d), d, d, d, nf * d, d)
     ks = (d, d, d, d, d, nf * d)
     plan = dict(item_c=[], items=[], item_k=list(ks), tile_off=[],
                 piece_c=[])
@@ -172,7 +193,7 @@ def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
         plan["item_c"].append(c)
         plan["items"].append(items)
         plan["piece_c"].append(c if with_cross else min(
-            c, max(1, PIECE_BYTES // (k * itemsize))))
+            c, PIECE_MAX_COLS, max(1, PIECE_BYTES // (k * itemsize))))
         off += c * items * k * itemsize * (2 if gated and g == 4 else 1)
     plan["layer_bytes"] = off
     plan["ring_cap"] = 0
@@ -180,13 +201,16 @@ def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
 
 
 def _stage_weights(wblob: torch.Tensor, with_cross: bool = True,
-                   gated: bool = False):
+                   gated: bool = False, kvblob=None):
     """Each GEMV stage's weight of every layer transposed, [L, columns, K]
-    (K contiguous), from the K-major panels [L, NPAN, d, d]; None for a
+    (K contiguous), from the K-major panels [L, NPAN, d, d] (and, grouped,
+    the K and V columns ``kvblob`` [L, d, 2 dkv] after q's); None for a
     stage the model has not, (fc, gate) for the gated fc1 stage."""
     L, npan, d, _ = wblob.shape
-    nf = (npan - 6) // 2 if with_cross else (npan - 4) // (3 if gated else 2)
-    pan = _panels(nf, with_cross, gated)
+    grouped = kvblob is not None
+    base = 6 if with_cross else 2 if grouped else 4
+    nf = (npan - base) // (3 if gated else 2)
+    pan = _panels(nf, with_cross, gated, grouped)
 
     def cols(p0, n):                     # panels p0.. side by side
         return wblob[:, p0:p0 + n].transpose(2, 3).reshape(L, n * d, d)
@@ -196,7 +220,9 @@ def _stage_weights(wblob: torch.Tensor, with_cross: bool = True,
     fc1 = cols(pan["fc1"], nf)
     if gated:
         fc1 = (fc1, cols(pan["gate"], nf))
-    return [cols(pan["q"], 3), one(pan["dense"]),
+    qkv = (torch.cat([one(pan["q"]), kvblob.transpose(1, 2)], dim=1)
+           if grouped else cols(pan["q"], 3))
+    return [qkv, one(pan["dense"]),
             one(pan["crossq"]) if with_cross else None,
             one(pan["crossdense"]) if with_cross else None, fc1,
             wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * d, d)
@@ -217,9 +243,11 @@ def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
     if sms is None:
         sms = torch.cuda.get_device_properties(
             w.device).multi_processor_count
-    plan = megakernel_plan(d, nf, sms, with_cross, gated, w.element_size())
+    plan = megakernel_plan(d, nf, sms, with_cross, gated, w.element_size(),
+                           blob_kv_width(blobs))
     parts = []
-    for g, m in enumerate(_stage_weights(w, with_cross, gated)):
+    for g, m in enumerate(_stage_weights(w, with_cross, gated,
+                                         blobs.kvblob)):
         if m is None:
             continue
         c, n = plan["item_c"][g], plan["items"][g]
@@ -254,12 +282,16 @@ def blob_layers(blobs: "MegakernelBlobs", lo: int, hi: int
 
 
 # the wblob panel of each projection (the JAX package's ``_panel_of``);
-# fc1 (, gate) and fc2 take nf panels each from the one named
+# fc1 (, gate) and fc2 take nf panels each from the one named; grouped,
+# k and v are the blobs' kvblob
 def _panels(nf: int, with_cross: bool = True,
-            gated: bool = False) -> Dict[str, int]:
+            gated: bool = False, grouped: bool = False) -> Dict[str, int]:
     if with_cross:
         return dict(q=0, k=1, v=2, dense=3, crossq=4, crossdense=5, fc1=6,
                     fc2=6 + nf)
+    if grouped:
+        return dict(q=0, dense=1, fc1=2, gate=2 + nf,
+                    fc2=2 + (2 * nf if gated else nf))
     return dict(q=0, k=1, v=2, dense=3, fc1=4, gate=4 + nf,
                 fc2=4 + (2 * nf if gated else nf))
 
@@ -310,11 +342,26 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
     scales).  A pure relayout, equal bit for bit to the JAX package's
     ``pack_decoder_blobs`` on the same state: q/k/v, fc1 and the gate are
     cut along their output columns into [d, d] panels, fc2 along its input
-    rows; ffn is zero-padded to a multiple of d."""
+    rows; ffn is zero-padded to a multiple of d.
+
+    Grouped (``n_kv_head`` < ``n_head``, MQA/GQA): the separate-KV layout
+    (``attention.qkv.weight`` [L, H, D, d] + ``kv_weight`` [L, 2, Hkv, D,
+    d], or one int8 qweight [L, d, d + 2 dkv] with its columns q | k | v)
+    gives the q panel and ``kvblob`` [L, d, 2 dkv] (K, then V columns):
+    the JAX packer's combined k/v panel without its zero padding to
+    [d, d]; the k and v pair rows are [L, d/128, 128] with their first
+    dkv / 128 rows filled and zeros after, as the JAX packer's.  Head dim
+    128 and 2 dkv <= d only, as there."""
     n_kv_head = n_kv_head or n_head
-    if n_kv_head != n_head:
-        raise NotImplementedError("the megakernel's grouped (MQA/GQA) mode "
-                                  "is not ported")
+    grouped = n_kv_head != n_head
+    dkv = n_kv_head * head_dim
+    if grouped and (with_cross or head_dim != 128 or 2 * dkv > hidden
+                    or n_head % n_kv_head):
+        raise NotImplementedError(
+            f"the megakernel's grouped mode: {n_head} query heads over "
+            f"{n_kv_head} KV heads of {head_dim}, cross-attention "
+            f"{with_cross} (it takes heads of 128, 2 dkv <= d and no "
+            "cross-attention)")
     if gated and with_cross:
         raise NotImplementedError("no gated decoder has cross-attention")
     kk = keys or (WHISPER_KEYS if with_cross else DECODER_KEYS)
@@ -375,10 +422,22 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
                            device=v.device)
         return torch.cat([v, extra], dim=1)
 
+    kvblob = None
     if quantized:
         qkv_w = g(kk["qkv"] + ".qweight")
-        qkv_panels = [qkv_w[:, :, 0:d], qkv_w[:, :, d:2 * d],
-                      qkv_w[:, :, 2 * d:]]
+        if grouped:                      # [L, d, d + 2 dkv]: q | k | v
+            qkv_panels = [qkv_w[:, :, 0:d]]
+            kvblob = qkv_w[:, :, d:].contiguous()
+        else:
+            qkv_panels = [qkv_w[:, :, 0:d], qkv_w[:, :, d:2 * d],
+                          qkv_w[:, :, 2 * d:]]
+    elif grouped:
+        # q [L, H, D, d] and kv [L, 2, Hkv, D, d] -> the K-major q panel
+        # and the K | V columns
+        qkv_panels = [g(kk["qkv"] + ".weight").reshape(L, d, d)
+                      .transpose(-1, -2)]
+        kvblob = g(kk["qkv"] + ".kv_weight").reshape(
+            L, 2 * dkv, d).transpose(-1, -2).contiguous()
     else:
         # head-major [L, 3, H, D, d] -> three K-major [L, d, d] panels
         qkv_hm = g(kk["qkv"] + ".weight").reshape(L, 3, d, d)
@@ -395,14 +454,26 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
     panels += [fc2[:, j * d:(j + 1) * d, :] for j in range(nf)]
     wblob = torch.stack(panels, dim=1).contiguous()
 
-    def to_pair(p):                      # [L, d] -> [L, hp, dl]
-        return p.reshape(L, hp, dl)
+    def to_pair(p):          # [L, d or dkv] -> [L, hp, dl], zeros after
+        r = p.reshape(L, -1, dl)
+        if r.shape[1] < hp:
+            r = torch.cat([r, r.new_zeros((L, hp - r.shape[1], dl))], dim=1)
+        return r
 
-    qkv_s = scale(kk["qkv"], (L, 3 * d))                        # [L, 3d]
-    qkv_b = zeros_or(kk["qkv"] + ".bias",
-                     (L, 3, n_head, head_dim)).reshape(L, 3 * d)
-    pair_s = [qkv_s[:, 0:d], qkv_s[:, d:2 * d], qkv_s[:, 2 * d:]]
-    pair_b = [qkv_b[:, 0:d], qkv_b[:, d:2 * d], qkv_b[:, 2 * d:]]
+    if grouped:
+        qkv_s = scale(kk["qkv"], (L, d + 2 * dkv))
+        q_b = zeros_or(kk["qkv"] + ".bias",
+                       (L, n_head, head_dim)).reshape(L, d)
+        kv_b = zeros_or(kk["qkv"] + ".kv_bias",
+                        (L, 2, n_kv_head, head_dim)).reshape(L, 2 * dkv)
+        pair_s = [qkv_s[:, 0:d], qkv_s[:, d:d + dkv], qkv_s[:, d + dkv:]]
+        pair_b = [q_b, kv_b[:, :dkv], kv_b[:, dkv:]]
+    else:
+        qkv_s = scale(kk["qkv"], (L, 3 * d))                    # [L, 3d]
+        qkv_b = zeros_or(kk["qkv"] + ".bias",
+                         (L, 3, n_head, head_dim)).reshape(L, 3 * d)
+        pair_s = [qkv_s[:, 0:d], qkv_s[:, d:2 * d], qkv_s[:, 2 * d:]]
+        pair_b = [qkv_b[:, 0:d], qkv_b[:, d:2 * d], qkv_b[:, 2 * d:]]
     if with_cross:
         pair_s.append(scale(kk["crossq"], (L, d)))
         pair_b.append(zeros_or(kk["crossq"] + ".bias", (L, d)))
@@ -438,7 +509,8 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
     else:
         kv_oq = kv_qo = torch.ones((L,), dtype=f32, device=device)
     return MegakernelBlobs(wblob, pair_scale, pair_bias, flat_scale,
-                           flat_bias, ln_par, kv_oq, kv_qo, None)
+                           flat_bias, ln_par, kv_oq, kv_qo, None,
+                           kvblob=kvblob)
 
 
 def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
@@ -460,7 +532,10 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
          "float panels with cross-attention"),
         (self_cache.dtype != torch.int8 and self_cache.element_size() == 1,
          "fp8 self-KV"),
-        (self_cache.shape[3] * head_dim != d, "MQA/GQA"),
+        (self_cache.shape[3] * head_dim != d
+         and (with_cross or head_dim != 128),
+         "the grouped (MQA/GQA) mode with cross-attention or heads other "
+         "than 128"),
     ]
     for bad, what in outside:
         if bad:
@@ -470,6 +545,12 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
         raise ValueError(f"megakernel blobs packed with cross-attention "
                          f"{b_cross} and gated {b_gated}, called with "
                          f"{with_cross} and {gated}")
+    dkv = self_cache.shape[3] * head_dim
+    if (blob_kv_width(blobs) or d) != dkv:
+        raise ValueError(f"megakernel blobs packed for "
+                         f"{blob_kv_width(blobs) or d} K/V columns, called "
+                         f"with a cache of {self_cache.shape[3]} KV heads "
+                         f"of {head_dim}")
 
 
 def _attn_slice(q, k_all, v_all, c: int, n_valid: int, qk_scale: float,
@@ -530,13 +611,19 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     attention and the int8 cache's quantisation; keys below the start
     index are masked; the gated MLP (from the blobs' layout) multiplies
     act(fc) by the gate; under ``parallel`` the MLP reads the input norm
-    and both outputs join the residual."""
+    and both outputs join the residual.  Grouped (a cache of Hkv < H
+    heads): k and v from the blobs' ``kvblob``, query head h reads KV head
+    h // rep, the fresh K/V [L, 2, Hkv, D]."""
     adt = x.dtype
     quant = self_cache.dtype == torch.int8
-    L, _, _, H, D, S = self_cache.shape
+    L, _, _, Hkv, D, S = self_cache.shape
     d = x.shape[-1]
+    H = d // D
+    dkv = Hkv * D
+    kv_of = torch.arange(H, device=x.device) // (H // Hkv)
     with_cross, gated, nf = blob_layout(blobs)
-    pan, slots = _panels(nf, with_cross, gated), _flat_slots(
+    grouped = blobs.kvblob is not None
+    pan, slots = _panels(nf, with_cross, gated, grouped), _flat_slots(
         nf, with_cross, gated)
     nq = blobs.pair_scale.shape[1]
     n_valid = min(max(int(torch.as_tensor(seq_len).reshape(-1)[0]) - 1, 0),
@@ -549,7 +636,7 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                          device=x.device)
         rot = rope_angles(pos, rope.rotary_dim, rope.theta)
     mlp_norm = 2 if with_cross else 0 if parallel else 1
-    fresh = torch.empty((L, 2, H, D), dtype=self_cache.dtype,
+    fresh = torch.empty((L, 2, Hkv, D), dtype=self_cache.dtype,
                         device=x.device)
 
     def affine(acc, s, b):               # fp32 * scale -> adt, + adt bias
@@ -583,8 +670,16 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         # norm 0 -> q, k, v (q and k rotated); self-attention over the
         # cache, then the fresh token's column in fp32
         h = norm_of(x, 0)
-        q, k_f, v_f = (affine(gemv(h, pan[n]), ps[i], pb[i]).reshape(H, D)
-                       for i, n in enumerate(("q", "k", "v")))
+        if grouped:
+            q = affine(gemv(h, pan["q"]), ps[0], pb[0]).reshape(H, D)
+            kv = matmul_fp32(h, blobs.kvblob[layer].to(adt))
+            k_f, v_f = (affine(kv[:, i * dkv:(i + 1) * dkv], ps[1 + i, :dkv],
+                               pb[1 + i, :dkv]).reshape(Hkv, D)
+                        for i in range(2))
+        else:
+            q, k_f, v_f = (affine(gemv(h, pan[n]), ps[i], pb[i])
+                           .reshape(H, D)
+                           for i, n in enumerate(("q", "k", "v")))
         if rot is not None:
             q, k_f = (apply_rope(t[None], *rot, rope.neox)[0]
                       for t in (q, k_f))
@@ -595,6 +690,8 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                 for t in (k_f, v_f))
         fresh[layer, 0], fresh[layer, 1] = k_f, v_f
         kc, vc = self_cache[layer, 0, 0], self_cache[layer, 0, 1]
+        if Hkv != H:                     # each query head's KV head
+            kc, vc, k_f, v_f = (t[kv_of] for t in (kc, vc, k_f, v_f))
         big, tot, acc = _combine([
             _attn_slice(q, kc, vc, c, n_valid, scale * kqo, adt, start)
             for c in range(max(1, -(-n_valid // ATTN_SPLIT)))])
@@ -643,7 +740,8 @@ class _MegaArgs(ctypes.Structure):
         "act_b", "att", "ctx", "barrier", "heads")]
         + [("layer_bytes", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
-            "n_layer", "d", "n_head", "head_dim", "s_self", "s_cross", "nq",
+            "n_layer", "d", "n_head", "n_kv_head", "head_dim", "s_self",
+            "s_cross", "nq",
             "nflat", "nf", "n_ln", "f_dense", "f_crossdense", "f_fc1",
             "f_gate", "f_fc2", "with_cross", "cross_int8", "self_int8",
             "weight_bf16", "norm_rms", "act", "gated", "parallel",
@@ -664,14 +762,16 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     """Every decoder layer of one decode step in ONE kernel.
 
     x [1, d] (embedded token, + its learned position); self_cache [L, 1,
-    2, H, D, S] seq-minor, without the fresh token (int8: quantised with
+    2, Hkv, D, S] seq-minor (Hkv = H, or fewer KV heads in the grouped
+    mode, the blobs packed for them), without the fresh token (int8:
+    quantised with
     ``blobs.kv_oq``, read with ``blobs.kv_qo``); seq_len [1] int32
     INCLUDING the fresh token; start_index [1] int32 (or None): the first
     key column of the row; cross_cache [L, 1, 2, H, D, Sc] with per-layer
     ``cross_scale`` [L] when int8, or None (the decoder-only modes: the
     blobs packed without cross-attention, ``gated`` as packed); ``rope``:
     the step's :class:`Rotary`.  Returns (hidden [1, d] before the final
-    norm, fresh K/V [L, 2, H, D] in the cache dtype, k rotated); the cache
+    norm, fresh K/V [L, 2, Hkv, D] in the cache dtype, k rotated); the cache
     is not written.  On the card: bf16 x, a bf16 or int8 self cache, int8
     or (without cross-attention) bf16 panels, head dim 64 (128 too without
     cross-attention), and one cooperative launch (a refused launch raises;
@@ -683,8 +783,9 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
             x, blobs, self_cache, seq_len, scale, cross_cache, cross_scale,
             head_dim, eps, start_index=start_index, act=act, norm=norm,
             parallel=parallel, rope=rope)
-    L, _, _, H, D, S = self_cache.shape
+    L, _, _, Hkv, D, S = self_cache.shape
     d = x.shape[-1]
+    H = d // D
     with_cross = cross_cache is not None
     sc = cross_cache.shape[-1] if with_cross else 0
     dev = x.device
@@ -719,11 +820,12 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         raise ValueError(f"megakernel rotary dim {rope_dim} of heads of {D}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     itemsize = blobs.wblob.element_size()
-    plan = megakernel_plan(d, nf, sms, with_cross, gated, itemsize)
-    if max(plan["item_c"]) > ITEM_MAX_COLS:
+    plan = megakernel_plan(d, nf, sms, with_cross, gated, itemsize,
+                           blob_kv_width(blobs))
+    max_cols = PIECE_MAX_COLS if with_cross else ITEM_MAX_COLS
+    if max(plan["item_c"]) > max_cols:
         raise ValueError(f"megakernel: {sms} SMs give items of "
-                         f"{max(plan['item_c'])} columns, past "
-                         f"{ITEM_MAX_COLS}")
+                         f"{max(plan['item_c'])} columns, past {max_cols}")
     tiles = blobs.tiles
     if (tiles is None or blobs.tiles_grid != sms
             or tiles.dtype != blobs.wblob.dtype
@@ -758,7 +860,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         cs_t = torch.as_tensor(cross_scale, dtype=torch.float32,
                                device=dev).reshape(L).contiguous()
     hid = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
-    fresh = torch.empty((L, 2, H, D), dtype=self_cache.dtype, device=dev)
+    fresh = torch.empty((L, 2, Hkv, D), dtype=self_cache.dtype, device=dev)
     # finished GEMV outputs: q, k, v / cross-q / act(fc1) and dense /
     # cross-dense / fc2
     act_a = torch.empty((max(3, nf) * d,), dtype=torch.float32, device=dev)
@@ -786,7 +888,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         ptr(start_t), ptr(freq_t), ptr(hid), ptr(fresh), ptr(act_a),
         ptr(act_b), ptr(att), ptr(ctx), ptr(sync), ptr(sync) + 4,
         plan["layer_bytes"],
-        L, d, H, D, S, sc, blobs.pair_scale.shape[1],
+        L, d, H, Hkv, D, S, sc, blobs.pair_scale.shape[1],
         blobs.flat_scale.shape[1], nf, blobs.ln_par.shape[1] // 2,
         slots["dense"], slots["crossdense"], slots["fc1"], slots["gate"],
         slots["fc2"], int(with_cross),

@@ -21,7 +21,10 @@ Semantics as in the JAX ``GenerationSession._decode_impl`` (:106-306):
   indirection table follows the parents (``use_cache_indirection``, the
   beam entry of the decode kernel reads through it), or the cache itself
   is gathered by parent every step;
-* a row's length ends at its first ``end_id``.
+* a row's length ends at its first ``end_id``;
+* a model that asks for them (``needs_context_lengths``, GLM's positions)
+  gets the true prompt lengths as ``context_lengths`` in the prefill and
+  in every step, repeated for each beam (the JAX session's :128-146).
 
 At batch 1 without beams each decode step runs every layer in one launch
 of the whole-step megakernel when the model is eligible (its
@@ -215,7 +218,12 @@ class GenerationSession:
 
         cache = model.new_kv_cache(b, s_cache)
         seq0 = torch.full((b,), prompt_len, dtype=torch.int32, device=dev)
-        logits_all, cache = model(ids, cache, 0, seq0, attention_start=start)
+        ctx = {}
+        if getattr(model, "needs_context_lengths", False):
+            ctx["context_lengths"] = torch.as_tensor(
+                input_lengths, dtype=torch.int32, device=dev)
+        logits_all, cache = model(ids, cache, 0, seq0, attention_start=start,
+                                  **ctx)
         logits = logits_all[:, -1]
         del logits_all
         if beam > 1:
@@ -224,6 +232,8 @@ class GenerationSession:
             start = start.repeat_interleave(beam, dim=0)
             ids = ids.repeat_interleave(beam, dim=0)
             dp = dp.repeat_rows(beam)
+            ctx = {k: v.repeat_interleave(beam, dim=0)
+                   for k, v in ctx.items()}
         end_id = dp.end_id.long()
         tokens = torch.full((bb, total), sc.pad_id, dtype=torch.long,
                             device=dev)
@@ -301,7 +311,7 @@ class GenerationSession:
             step_logits, cache = model(tok[:, None], cache, cur, seq,
                                        attention_start=start,
                                        beam_indirection=ind,
-                                       megakernel_blobs=blobs)
+                                       megakernel_blobs=blobs, **ctx)
             logits = step_logits[:, -1]
             self.decode_steps += 1
         # a row's length ends at its first end id after the prompt

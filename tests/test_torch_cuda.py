@@ -1023,12 +1023,23 @@ DEC_MODES = {
 }
 
 
-def _dec_blobs(dev, mode, n_layer, d, weight, seed, kv_step=None):
+# the grouped (MQA/GQA) mode: SantaCoder's block and a GQA LLaMA's, heads
+# of 128
+GROUPED_MODES = {
+    "santa": (128, False, False, "layernorm", "gelu", None),
+    "gqa_llama": (128, True, False, "rmsnorm", "silu", (128, True)),
+}
+
+
+def _dec_blobs(dev, mode, n_layer, d, weight, seed, kv_step=None,
+               kv_heads=None):
     """Megakernel blobs of a decoder-only mode from a seeded random block
     state (ffn 688, padded to 768), int8 weight-only or bf16 panels, scaled
     so that every GEMV output is of order one; with ``kv_step`` the int8
-    self cache's per-layer step."""
-    head_dim, gated, parallel, norm, _, _ = DEC_MODES[mode]
+    self cache's per-layer step; with ``kv_heads`` the grouped mode's
+    separate-KV layout."""
+    head_dim, gated, parallel, norm, _, _ = {**DEC_MODES,
+                                             **GROUPED_MODES}[mode]
     rs = np.random.RandomState(seed)
     L, ffn, heads = n_layer, 688, d // head_dim
 
@@ -1047,8 +1058,17 @@ def _dec_blobs(dev, mode, n_layer, d, weight, seed, kv_step=None):
                 *(shape or (L, n, k)), std=k ** -0.5)).bfloat16()
 
     st = {}
-    lin("attention.qkv", d, 3 * d, (L, 3, heads, head_dim, d))
-    st["attention.qkv.bias"] = nrm(L, 3, heads, head_dim)
+    if kv_heads:
+        dkv = kv_heads * head_dim
+        lin("attention.qkv", d, d + 2 * dkv, (L, heads, head_dim, d))
+        if weight != "int8":
+            st["attention.qkv.kv_weight"] = torch.from_numpy(nrm(
+                L, 2, kv_heads, head_dim, d, std=d ** -0.5)).bfloat16()
+        st["attention.qkv.bias"] = nrm(L, heads, head_dim)
+        st["attention.qkv.kv_bias"] = nrm(L, 2, kv_heads, head_dim)
+    else:
+        lin("attention.qkv", d, 3 * d, (L, 3, heads, head_dim, d))
+        st["attention.qkv.bias"] = nrm(L, 3, heads, head_dim)
     lin("attention.dense", d, d)
     names = ["mlp.fc"] + (["mlp.gate"] if gated else [])
     for name in names:
@@ -1070,16 +1090,19 @@ def _dec_blobs(dev, mode, n_layer, d, weight, seed, kv_step=None):
     keys = dict(mk.DECODER_KEYS, ln=lns)
     return mk.megakernel_tiles(mk.pack_decoder_blobs(
         st, n_layer=L, hidden=d, n_head=heads, head_dim=head_dim, ffn=ffn,
-        with_cross=False, gated=gated, keys=keys, device=dev))
+        with_cross=False, gated=gated, keys=keys, device=dev,
+        n_kv_head=kv_heads))
 
 
 def _dec_run(dev, mode, blobs, n_layer, d, self_dtype, seq, start, seed,
-             S=448):
+             S=448, kv_heads=None):
     """The kernel and its plain version on one seeded step over a self
-    cache of S columns: (hid, fresh, plain hid, plain fresh)."""
-    head_dim, gated, parallel, norm, act, rot = DEC_MODES[mode]
+    cache of S columns (of ``kv_heads`` heads in the grouped mode): (hid,
+    fresh, plain hid, plain fresh)."""
+    head_dim, gated, parallel, norm, act, rot = {**DEC_MODES,
+                                                 **GROUPED_MODES}[mode]
     g = torch.Generator(device=dev).manual_seed(seed)
-    H = d // head_dim
+    H = kv_heads or d // head_dim
     x = torch.randn(1, d, generator=g, device=dev).bfloat16()
     if self_dtype == torch.int8:
         cache = torch.randint(-127, 128, (n_layer, 1, 2, H, head_dim, S),
@@ -1174,6 +1197,48 @@ def test_decoder_only_megakernel_long_caches(dev, mode, weight, S, seq,
                                           torch.bfloat16, seq, start,
                                           seed=1, S=S)
     assert _rel(hid, hid_p) < 1e-2 and _rel(fresh, fresh_p) < 1e-2
+
+
+@pytest.mark.parametrize("seq,start", [(70, 4), (300, 4)])
+@pytest.mark.parametrize("weight", ["int8", "bf16"])
+@pytest.mark.parametrize("hkv", [1, 2])
+@pytest.mark.parametrize("mode", sorted(GROUPED_MODES))
+def test_grouped_megakernel_matches_plain(dev, mode, hkv, weight, seq,
+                                          start):
+    """The grouped (MQA/GQA) mode: 4 query heads of 128 over 1 or 2 KV
+    heads, d 512, SantaCoder's block (LayerNorm, GELU, biases) and a GQA
+    LLaMA's (RMSNorm, the gated SiLU MLP, RoPE), int8 and bf16 panels,
+    one or two attention slices: the fresh K/V [L, 2, Hkv, D], within 3e-2
+    of the plain version on two layers and 1e-2 on one."""
+    blobs = _dec_blobs(dev, mode, 2, 512, weight, seed=hkv, kv_heads=hkv)
+    assert blobs.kvblob.shape == (2, 512, 2 * hkv * 128)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, blobs, 2, 512,
+                                          torch.bfloat16, seq, start,
+                                          seed=seq, kv_heads=hkv)
+    assert fresh.shape == (2, 2, hkv, 128)
+    assert bool(torch.isfinite(hid).all())
+    assert _rel(hid, hid_p) < 3e-2 and _rel(fresh, fresh_p) < 3e-2
+    one = mk.blob_layers(blobs, 0, 1)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, one, 1, 512,
+                                          torch.bfloat16, seq, start,
+                                          seed=seq, kv_heads=hkv)
+    assert _rel(hid, hid_p) < 1e-2 and _rel(fresh, fresh_p) < 1e-2
+
+
+@pytest.mark.parametrize("hkv", [1, 2])
+def test_grouped_megakernel_int8_self(dev, hkv):
+    """The grouped mode over an int8 self cache: on one layer the int8
+    fresh K/V within one step of the plain version's, the hidden state
+    within 1e-2."""
+    blobs = _dec_blobs(dev, "gqa_llama", 1, 512, "int8", seed=4,
+                       kv_step=0.02, kv_heads=hkv)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, "gqa_llama", blobs, 1, 512,
+                                          torch.int8, 70, 4, seed=6,
+                                          kv_heads=hkv)
+    assert fresh.dtype == torch.int8 and fresh.shape == (1, 2, hkv, 128)
+    diff = (fresh.int() - fresh_p.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) > 0.95
+    assert _rel(hid, hid_p) < 1e-2
 
 
 def test_decoder_only_megakernel_at_llama_1b_width(dev):

@@ -362,11 +362,34 @@ def test_chip_smoke_decoder_path_on_cpu():
     dict(quant_mode=QuantMode.use_weight_only().set_fp8_kv_cache())],
     ids=lambda o: next(iter(o)))
 def test_unported_decoder_options_raise(option):
-    """Bloom's and ChatGLM-6B's options and fp8.  RoPE, RMSNorm, the gated
-    MLP, the parallel residual and a separate LM head are ported
+    """fp8 still raises.  Bloom's and ChatGLM-6B's options are ported (held
+    against the JAX package in tests/test_torch_families_b.py): on the MQA
+    model each builds and a left-padded prefill and one step give finite
+    logits (GLM's positions with the true prompt lengths).  RoPE, RMSNorm,
+    the gated MLP, the parallel residual and a separate LM head are ported
     (tests/test_torch_families.py)."""
-    with pytest.raises(NotImplementedError):
-        DecoderLMHead(DecoderConfig(**{**MQA, **option}, dtype="float32"))
+    config = DecoderConfig(**{**MQA, **option}, dtype="float32")
+    if config.quant_mode.has_fp8_kv_cache():
+        with pytest.raises(NotImplementedError):
+            DecoderLMHead(config)
+        return
+    model = DecoderLMHead(config)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    ctx = ({"context_lengths": torch.tensor([3])}
+           if model.needs_context_lengths else {})
+    start = torch.tensor([1], dtype=torch.int32)
+    with torch.inference_mode():
+        cache = model.new_kv_cache(1, 8)
+        lg, cache = model(torch.tensor([[0, 5, 7, 9]]), cache, 0,
+                          torch.tensor([4], dtype=torch.int32),
+                          attention_start=start, **ctx)
+        step, _ = model(torch.tensor([[3]]), cache, 4, 5,
+                        attention_start=start, **ctx)
+    assert lg.shape == (1, 4, 97) and step.shape == (1, 1, 97)
+    assert torch.isfinite(lg[:, 1:]).all() and torch.isfinite(step).all()
 
 
 @pytest.mark.parametrize("sampling", [
@@ -420,17 +443,17 @@ def test_unported_forward_modes_raise():
             model(tok, cache, 0, seq, **kw)
     with pytest.raises(NotImplementedError):        # per-row write positions
         model(tok, cache, torch.tensor([0]), seq)
-    # the megakernel's grouped mode is not ported: an MQA model is not
-    # eligible, so its session packs no blobs and decodes layer by layer,
-    # and its packer refuses
-    assert not model.megakernel_eligible()
+    # the megakernel's grouped mode is ported: the MQA model (heads of 128)
+    # is eligible, its session packs blobs at batch 1 (the K and V columns
+    # beside q's panel) and none at batch 2
+    assert model.megakernel_eligible()
     sess = GenerationSession(
         ModelConfig(vocab_size=97, num_layers=2, num_heads=2,
                     hidden_size=256, num_kv_heads=1), model,
         SamplingConfig(end_id=-1, pad_id=0), decode_megakernel=True)
-    assert sess._megakernel_blobs(1) is None
-    with pytest.raises(NotImplementedError):
-        model.megakernel_blobs()
+    assert sess._megakernel_blobs(2) is None
+    blobs = sess._megakernel_blobs(1)
+    assert blobs.kvblob.shape == (2, 256, 2 * 128)
 
 
 def test_decoder_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch):

@@ -1,6 +1,7 @@
 """The decoder families of the port (GPT-2, LLaMA with and without GQA,
-OPT, GPT-J, GPT-NeoX) against the JAX package and HF on the CPU, at tiny
-sizes.  Tiny HF models are built from ``transformers`` config objects with
+OPT, GPT-J, GPT-NeoX; Bloom and ChatGLM-6B are in
+tests/test_torch_families_b.py) against the JAX package and HF on the CPU,
+at tiny sizes.  Tiny HF models are built from ``transformers`` config objects with
 seeded random weights (no download); both packages map the same HF state
 dict.
 
@@ -324,13 +325,6 @@ def test_llama_weight_only_matches_jax(quant, monkeypatch):
                                                   max_new_tokens=8)
     np.testing.assert_array_equal(pt, jt)
     np.testing.assert_array_equal(pl, jl_)
-
-
-def test_build_from_hf_refuses_the_other_families():
-    """Bloom and ChatGLM-6B wait for their positions and residual."""
-    for family in ("bloom", "chatglm6b"):
-        with pytest.raises(NotImplementedError):
-            families.build_from_hf(family, _built("gpt2")[0], device="cpu")
 
 
 def test_no_port_module_imports_transformers_or_jax():

@@ -23,8 +23,9 @@ OPT classes) against the JAX package on the CPU, at d 256.
   piece within 64 KB, the shared memory within a block's 227 KB), the
   gated tiles' round trip, the eligibility gate;
 * ``_check_modes`` still raising for batch > 1, the K-step tail, int4
-  panels, group-wise scales, fp8 self-KV, MQA/GQA and a gated MLP with
-  cross-attention.
+  panels, group-wise scales, fp8 self-KV and a gated MLP with
+  cross-attention (the grouped MQA/GQA mode is held in
+  tests/test_torch_mqa_megakernel.py).
 """
 import dataclasses
 import importlib.util
@@ -163,7 +164,7 @@ def test_packer_bit_equal_to_jax(mode, dtype):
     assert out.wblob.dtype == (torch.int8 if not MODES[mode][4]
                                else getattr(torch, dtype))
     assert out.wblob.shape[1] == (4 + 3 * 3 if kw["gated"] else 4 + 2 * 3)
-    for name in mk.MegakernelBlobs._fields[:-3]:
+    for name in mk.MegakernelBlobs._fields[:8]:       # wblob .. kv_qo
         r = np.asarray(getattr(ref, name)).astype(np.float32)
         t = getattr(out, name).float().numpy()
         assert t.shape == r.shape, name
@@ -485,8 +486,9 @@ def test_sampled_batch_1_through_the_megakernel_token_exact(jax_megakernel):
 def test_megakernel_eligibility():
     """LLaMA float and woq8 are eligible; on a card only what the kernel
     takes (bf16, heads of 64 or 128: ``kernel_takes``, which the check
-    asks with the weights on a card); woq4, GQA (the grouped mode is not
-    ported), d above 2048 and an odd rotary dim are not."""
+    asks with the weights on a card); GQA at heads of 128 too (the grouped
+    mode), not at heads of 64; woq4, d above 2048 and an odd rotary dim
+    are not."""
     _, pm = _models(False)
     assert pm.megakernel_eligible()
     assert not mk.kernel_takes(torch.float32, D, 3, 128)
@@ -498,7 +500,8 @@ def test_megakernel_eligibility():
         assert model(dtype="bfloat16").megakernel_eligible()
         assert not model(quant_mode=QuantMode.use_weight_only(True)
                          ).megakernel_eligible()
-        assert not model(num_kv_heads=1).megakernel_eligible()
+        assert model(num_kv_heads=1).megakernel_eligible()
+        assert not model(num_heads=4, num_kv_heads=1).megakernel_eligible()
         assert not model(hidden_size=4096, num_heads=32,
                          ffn_hidden_size=11008).megakernel_eligible()
         assert not model(rotary_pct=0.2).megakernel_eligible()  # 25
@@ -589,7 +592,7 @@ def test_decoder_only_tiles_round_trip(gated, itemsize):
 # -- what stays refused ---------------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["batch2", "tail", "int4_panels",
-                                  "group_scales", "fp8_self_kv", "gqa",
+                                  "group_scales", "fp8_self_kv",
                                   "gated_cross"])
 def test_modes_still_outside_the_port_raise(mode):
     st, kw = _mode_state("llama")
@@ -608,15 +611,10 @@ def test_modes_still_outside_the_port_raise(mode):
         blobs = blobs._replace(gscale=torch.ones(L, 13, 2, D))
     elif mode == "fp8_self_kv":
         cache = cache.to(torch.float8_e4m3fn)
-    elif mode == "gqa":
-        cache = torch.zeros(L, 1, 2, 1, 128, 16)
     elif mode == "gated_cross":
         call["cross_cache"] = torch.zeros(L, 1, 2, 2, 128, 16)
     with pytest.raises(NotImplementedError):
         mk.fused_decoder_stack(x, blobs, cache, seq, 0.1, **call)
-    if mode == "gqa":
-        with pytest.raises(NotImplementedError):
-            mk.pack_decoder_blobs(st, **{**kw, "n_kv_head": 1})
 
 
 def test_blobs_of_another_mode_raise():

@@ -239,7 +239,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     ``test_torch_kv8.py`` and the detect, long and best_of paths in
     ``test_torch_whisper_pipeline.py``, the gen_beam path in
     ``test_torch_generation.py`` and the llama paths in
-    ``test_torch_llama_megakernel.py``, and all seven are stubbed here): model
+    ``test_torch_llama_megakernel.py``, the santacoder paths in
+    ``test_torch_mqa_megakernel.py`` and the bloom and chatglm paths in
+    ``test_torch_families_b.py``, and all ten are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -278,6 +280,13 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
         {}, {"llama": {"decoder_megakernel": 0},
              "llama_woq8": {"decoder_megakernel": 0},
              "llama_b8": {"decode_attention_bf16": 0}}))
+    monkeypatch.setattr(smoke, "santacoder_path", lambda *a, **k: (
+        {}, {"santacoder": {"decoder_megakernel": 0},
+             "santacoder_woq8": {"decoder_megakernel": 0}}))
+    monkeypatch.setattr(smoke, "bloom_path", lambda *a, **k: (
+        {}, {"decoder_megakernel": 0}))
+    monkeypatch.setattr(smoke, "chatglm_path", lambda *a, **k: (
+        {}, {"decode_attention_bf16": 0}))
     e2e = smoke.paths(torch, np, results, config=cfg, device="cpu",
                       decoder_config=dec_cfg)
     assert {k: v["launches"] for k, v in results.items()} == {

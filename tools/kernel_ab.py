@@ -35,7 +35,8 @@ int8 and a bf16 cache, the int4 matmul at SantaCoder-1B's four linears
 the decode megakernel's step at Whisper large-v2 (32 layers, d 1280, int8
 cross cache of 1500, sequence 44; ``chip_smoke.py``'s seeded blobs, each
 checkout's own weight layout) and, where both checkouts build its
-decoder-only set with one argument structure, at LLaMA-1B (16 layers,
+decoder-only set (OTHER's argument structure filled from this one's by
+field name, where it has no field this one lacks), at LLaMA-1B (16 layers,
 bf16 and int8 panels; ``chip_smoke.py``'s kernel phase).  Each is timed
 four times, OTHER, this, this, OTHER, so that a drift of the card shows;
 ``--rounds N`` repeats that N times (2N pairs) and adds each side's median
@@ -498,6 +499,7 @@ def main(argv=None):
                     # step (cross-attention, LayerNorm, tanh GELU, int8
                     # panels, heads of 64)
                     start=None, inv_freq=None, head_dim=64, nq=4, n_ln=3,
+                    n_kv_head=mh,
                     f_gate=slots.get("gate", 0), with_cross=1,
                     weight_bf16=0, norm_rms=0, act=0, gated=0, parallel=0,
                     rope_dim=0, rope_neox=0, write_index=0, **plan)
@@ -529,14 +531,31 @@ def main(argv=None):
                   mega))
     # the decoder-only set at LLaMA-1B's step (chip_smoke.py's kernel
     # phase: 16 layers, bf16 and int8 panels, a bf16 self cache of 84 at
-    # sequence 74 from start 4, RoPE), where both checkouts have it with
-    # one argument structure: this checkout's wrapper, each checkout's
-    # library
+    # sequence 74 from start 4, RoPE), where both checkouts have it and
+    # OTHER's argument structure has no field this one lacks: this
+    # checkout's wrapper, each checkout's library, OTHER's structure
+    # filled from this one's by field name
+    other_fields = {n for n, _ in mk_defs["other"]["_MegaArgs"]._fields_}
     if all("decoder_stack" in libs[who] for who in roots) and (
-            mk_defs["other"]["_MegaArgs"]._fields_
-            == mk_defs["this"]["_MegaArgs"]._fields_):
+            other_fields <= {n for n, _ in
+                             mk_defs["this"]["_MegaArgs"]._fields_}):
         from eddie_wang_hackathon2023_tpu_torch.ops import \
             decoder_layer as mkw
+        this_args = mkw._MegaArgs
+
+        def args_as(cls):
+            """``this_args``' constructor giving ``cls``'s structure."""
+            def make(*vals):
+                a = this_args(*vals)
+                out = []
+                for n, typ in cls._fields_:
+                    v = getattr(a, n)
+                    out.append(typ(*v) if isinstance(v, ctypes.Array)
+                               else v)
+                return cls(*out)
+            return make
+        structs = {"this": this_args,
+                   "other": args_as(mk_defs["other"]["_MegaArgs"])}
         lD = smoke.LLAMA_D // smoke.LLAMA_HEADS
         lx = torch.randn((1, smoke.LLAMA_D), generator=g,
                          device=dev).bfloat16()
@@ -556,8 +575,12 @@ def main(argv=None):
 
             def run(who, i):
                 _build._LIBS["decoder_stack"] = libs[who]["decoder_stack"]
-                mkw.fused_decoder_stack(lx, lblobs, lcache, lseq,
-                                        lD ** -0.5, **lkw)
+                mkw._MegaArgs = structs[who]
+                try:
+                    mkw.fused_decoder_stack(lx, lblobs, lcache, lseq,
+                                            lD ** -0.5, **lkw)
+                finally:
+                    mkw._MegaArgs = this_args
                 return 0
             return run
 

@@ -26,6 +26,9 @@
    causal mode and the user FMHA's fp32 entry are held at their edges
    (tile edges, Lq < Lk, ``valid`` < Lk, B * H past the SMs; Lq 1 and 17,
    views on 4-byte rows), each case with its plan, its time and SDPA's.
+   The paged kernel's window entry (mixed admission) is held at the serve
+   path's shape with prompt chunks at offsets 0, 16, 37 and 45 beside
+   decode windows, over a bf16 pool, an int8 pool and one KV head.
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
@@ -120,7 +123,19 @@
    it; each decode tick runs the paged decode kernel once per layer.  Its
    teacher-forced check replays the recorded prefills and first ticks on a
    fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
-   wall and device-busy time and peak memory.  Then the gen_beam path:
+   wall and device-busy time and peak memory.  Then the serve_modes path:
+   the same model and requests (built once more) through five cells of
+   ``serve_bench.py``, each a warm-up drain and one timed drain: the dense
+   slot cache greedy (each decode step kernel 1 once a layer, each
+   admission prefill kernel 2's causal mode once a layer) and at top-p 0.9
+   and temperature 0.8 (as ``serve_bench.py`` builds it), the paged pool
+   at that top-p, mixed admission over the pool (chunks of 16 through the
+   paged kernel's window entry, once a layer a mixed tick) and
+   ``steps_per_tick=4``; each serves every request, uses the native
+   scheduler, replays its opening calls and 8 steps teacher-forced
+   against the plain versions, prints its share of tokens equal to the
+   serve path's (greedy) or holds two drains of one seed equal (sampled),
+   and prints serve_bench's metrics.  Then the gen_beam path:
    GPT-350M at ``benchmarks/beam_bench.py``'s defaults (24 layers, d 1024,
    16 heads of 64, vocab 50257, 2048 positions, bf16, float weights),
    beam 4 through the port's ``GenerationSession`` for one prompt of 1912
@@ -264,6 +279,11 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:612"),
+    # the paged kernel's window entry (mixed admission): the JAX package
+    # computes the window in XLA
+    "paged_window_attention": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/paged_attention.py:95"),
     "int4_quant_matmul": dict(
         route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -306,9 +326,10 @@ KERNELS = {
 # through the megakernel, bf16 and woq8, and at batch 8 layer by layer), the
 # santacoder paths (SantaCoder-1B at batch 1 through the megakernel's
 # grouped mode, bf16 and woq8), the chatglm path (ChatGLM-6B at batch 8,
-# kernel 1 in every decode step), or the probes path (the three
-# tools/megakernel_probe*.py scripts); the bloom path runs no TPU kernel
-# and so drives no row
+# kernel 1 in every decode step), the serve_modes path's mixed cell
+# (serve_paged_mixed: mixed admission over the pool) or the probes path
+# (the three tools/megakernel_probe*.py scripts); the bloom path runs no
+# TPU kernel and so drives no row
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decoder_megakernel_llama": "llama",
            "decoder_megakernel_llama_woq8": "llama_woq8",
@@ -325,6 +346,7 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decode_attention_int8_b5": "beam",
            "gqa_decode_attention": "decoder",
            "paged_decode_attention": "serve",
+           "paged_window_attention": "serve_paged_mixed",
            "int4_quant_matmul": "decoder_woq4",
            "flash_attention_causal": "custom", "custom_fmha": "custom",
            "custom_fmha_f32": "custom", "probe_flat_gemv": "probes",
@@ -1062,6 +1084,7 @@ def kernel_phases(torch, results):
     gen_beam_kernel_phase(torch, results)
     gqa_phase(torch, results, gen)
     paged_phase(torch, results, gen)
+    window_phase(torch, results, gen)
     int4_phase(torch, results, gen)
     custom_phase(torch, results, gen)
     probes_phase(torch, results, gen)
@@ -2021,6 +2044,147 @@ def paged_phase(torch, results, gen):
             "plan", "rel_err_vs_plain")})
 
 
+# the window phase's rows: prompt chunks at these offsets (a 60-token prompt
+# in chunks of 16, the last one 15 tokens), then decode windows
+WINDOW_CHUNK_OFFSETS = (0, 16, 37, 45)
+WINDOW_WIDTH = 16
+
+
+def window_cases(torch, gen, dev, L, N, hkv, rep, d, int8):
+    """(pool, q, table, seq, offset, kwargs) of one window call at the
+    serve path's rows: rows 0-3 prompt chunks of a SERVE_PROMPT-token
+    prompt at WINDOW_CHUNK_OFFSETS (seq the offset plus the chunk's
+    tokens), rows 4-7 decode windows (one real token at seq - 1, seq in
+    61-80); each row's blocks a permuted draw, -1 past its seq."""
+    T, B, MB, W = SERVE_BLOCK, SERVE_SLOTS, SERVE_MAX_SEQ // SERVE_BLOCK, \
+        WINDOW_WIDTH
+    shape = (L, N, 2, hkv, T, d)
+    pool = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) if int8 else
+            torch.randn(shape, generator=gen, device=dev).bfloat16())
+    q = torch.randn((B, hkv * rep, W, d), generator=gen,
+                    device=dev).bfloat16()
+    off = list(WINDOW_CHUNK_OFFSETS)
+    seq = [min(o + W, SERVE_PROMPT) for o in off]
+    dec = torch.randint(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
+                        (B - len(off),), generator=gen, device=dev).tolist()
+    seq += dec
+    off += [n - 1 for n in dec]
+    seq = torch.tensor(seq, dtype=torch.int32, device=dev)
+    off = torch.tensor(off, dtype=torch.int32, device=dev)
+    table = torch.randperm(N, generator=gen, device=dev).to(
+        torch.int32)[:B * MB].reshape(B, MB)
+    need = (seq + T - 1) // T
+    table = torch.where(torch.arange(MB, device=dev)[None, :]
+                        < need[:, None], table, -1)
+    kw = dict(scale=d ** -0.5, kv_quant_orig_scale=(
+        torch.tensor(1 / 40.0, device=dev) if int8 else None))
+    return pool, q, table, seq, off, kw
+
+
+def window_phase(torch, results, gen):
+    """The paged kernel's window entry against its plain version at the
+    serve path's shape (8 rows, a pool of 24 layers x 32 blocks of 32
+    tokens, 16 KV heads of 64, tables of 4 blocks, windows of 16: prompt
+    chunks at offsets 0, 16, 37, 45 beside decode windows), with a bf16
+    pool, an int8 pool and one KV head under 16 query heads of 128 (MQA,
+    bf16); each timed against its plain version and SDPA with an explicit
+    mask on K/V gathered through the table beforehand (the gather timed on
+    its own)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, N, T, B, MB = 24, 32, SERVE_BLOCK, SERVE_SLOTS, SERVE_MAX_SEQ // \
+        SERVE_BLOCK
+    W = WINDOW_WIDTH
+    cases = {"path: bf16, 16 KV heads of 64": (16, 1, 64, False),
+             "int8 pool, 16 KV heads of 64": (16, 1, 64, True),
+             "MQA: bf16, 1 KV head x 16, D 128": (1, 16, 128, False)}
+
+    def call(impl, pool, layer, q, table, seq, off, kw):
+        return impl(pool, layer, q, table, seq, off, kw["scale"],
+                    kv_quant_orig_scale=kw["kv_quant_orig_scale"])
+
+    def gathered(pool, layer, table, kw):
+        """one layer's K and V through the table, [B, Hkv, MB*T, D] bf16"""
+        blocks = pool[layer][table.long().clamp(min=0)]   # [B,MB,2,Hkv,T,D]
+        if pool.dtype == torch.int8:
+            blocks = (blocks.float() * kw["kv_quant_orig_scale"]).bfloat16()
+        b, mb, _, hkv, t, d = blocks.shape
+        return tuple(blocks[:, :, j].transpose(1, 2).reshape(
+            b, hkv, mb * t, d).contiguous() for j in (0, 1))
+
+    timings = {}
+    for what, shape in cases.items():
+        pool, q, table, seq, off, kw = window_cases(torch, gen, dev, L, N,
+                                                    *shape)
+        before = da.launches["paged_window_attention"]
+        out = call(da.fused_paged_window_attention, pool, L - 1, q, table,
+                   seq, off, kw)
+        check(da.launches["paged_window_attention"] == before + 1,
+              f"paged window ({what}): one launch a call")
+        ref = call(da.plain_paged_window_attention, pool, L - 1, q, table,
+                   seq, off, kw)
+        f32 = (lambda t: t) if pool.dtype == torch.int8 else (
+            lambda t: t.float())
+        ref32 = call(da.plain_paged_window_attention, f32(pool), L - 1,
+                     q.float(), table, seq, off, kw)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        print(f"paged window ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(bool(torch.isfinite(out).all()) and e16 < 2e-2 and e32 < 1e-2,
+              f"paged window attention ({what}) matches plain (rel 2e-2 "
+              "bf16, 1e-2 fp32)")
+        ms, wall = time_ms(torch, lambda i: call(
+            da.fused_paged_window_attention, pool, i % L, q, table, seq, off,
+            kw))
+        plain_ms, _ = time_ms(torch, lambda i: call(
+            da.plain_paged_window_attention, pool, i % L, q, table, seq,
+            off, kw), iters=10)
+        gather_ms, _ = time_ms(torch, lambda i: gathered(pool, i % L, table,
+                                                         kw), iters=10)
+        k_g, v_g = (torch.stack(t) for t in zip(*(
+            gathered(pool, i, table, kw) for i in range(L))))
+        kpos = torch.arange(MB * T, device=dev)[None, None, :]
+        qpos = torch.arange(W, device=dev)[None, :, None]
+        mask = ((kpos < seq[:, None, None])
+                & (kpos <= off[:, None, None] + qpos))[:, None]
+        gqa = q.shape[1] != pool.shape[3]
+        lib_ms, _ = time_ms(torch, lambda i: sdpa(
+            q, k_g[i % L], v_g[i % L], attn_mask=mask, scale=kw["scale"],
+            enable_gqa=gqa))
+        lib_err = rel_err(sdpa(q, k_g[L - 1], v_g[L - 1], attn_mask=mask,
+                               scale=kw["scale"], enable_gqa=gqa), out)
+        del k_g, v_g
+        # bytes: K and V of the valid tokens, q, the output, the table, the
+        # lengths and the offsets; operations: 4 per (query row, head, key
+        # it attends, d)
+        hkv, d, h = pool.shape[3], pool.shape[5], q.shape[1]
+        keys = torch.minimum(seq[:, None], off[:, None] + 1 + torch.arange(
+            W, device=dev)[None, :])
+        n_bytes = (int(seq.sum()) * 2 * hkv * d * pool.element_size()
+                   + 2 * B * h * W * d * 2 + B * MB * 4 + 2 * B * 4)
+        b_ms, b_by = bound(n_bytes, 4 * h * d * int(keys.sum()),
+                           PEAK_FP32_CUDA_CORES)
+        print(f"paged window ({what}): {ms * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f} MB); plain "
+              f"{plain_ms * 1e3:.2f} us; SDPA with the mask on the gathered "
+              f"K/V {lib_ms * 1e3:.2f} us (rel err vs the kernel "
+              f"{lib_err:.3e}) + the gather {gather_ms * 1e3:.2f} us")
+        timings[what] = dict(
+            max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_gather_ms=gather_ms, host_call_ms=wall,
+            rel_err_vs_plain=(e16, e32))
+    path, int8, mqa = (timings[k] for k in cases)
+    keep = ("ms", "plain_ms", "bound_ms", "library_ms", "library_gather_ms",
+            "rel_err_vs_plain")
+    results["paged_window_attention"] = dict(
+        **path, int8={k: int8[k] for k in keep},
+        mqa={k: mqa[k] for k in keep})
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 # the four linears of a SantaCoder-1B layer (K x N, groups of 128 rows)
@@ -2724,18 +2888,21 @@ def plain_kernels():
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
     from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     saved = (la.fused_decode_attention, la.flash_mha,
-             la.fused_paged_decode_attention, iq.quant_matmul_int4)
+             la.fused_paged_decode_attention,
+             la.fused_paged_window_attention, iq.quant_matmul_int4)
     la.fused_decode_attention = da.plain_decode_attention
     la.flash_mha = lambda q, k, v, causal=False, scale=None, \
-        kv_valid_len=None, out=None: out.copy_(
+        kv_valid_len=None, out=None, min_causal_rows=None: out.copy_(
             fa.plain_flash_mha(q, k, v, causal, scale, kv_valid_len))
     la.fused_paged_decode_attention = da.plain_paged_decode_attention
+    la.fused_paged_window_attention = da.plain_paged_window_attention
     iq.quant_matmul_int4 = iq.plain_quant_matmul_int4
     try:
         yield
     finally:
         (la.fused_decode_attention, la.flash_mha,
-         la.fused_paged_decode_attention, iq.quant_matmul_int4) = saved
+         la.fused_paged_decode_attention, la.fused_paged_window_attention,
+         iq.quant_matmul_int4) = saved
 
 
 def build_whisper(torch, np, config, device, recipe, label):
@@ -4350,7 +4517,8 @@ def gpt_350m_config():
                          dtype="bfloat16")
 
 
-def serve_path(torch, np, config=None, device="cuda", label="serve"):
+def serve_path(torch, np, config=None, device="cuda", label="serve",
+               outputs=None):
     """The serve path on ``device``: ``config`` (default GPT-350M) with
     random weights from the seed behind the port's
     ``ContinuousBatchingManager`` (SERVE_SLOTS slots, a block-paged pool of
@@ -4360,7 +4528,9 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
     that records every model call, then three timed runs (the first one
     counted), the teacher-forced check and the tick's timing.  A smaller
     ``config`` and the CPU rehearse it without a card (the launch counts
-    are then not checked).  Returns (numbers, launch counts)."""
+    are then not checked).  ``outputs``, a dict, receives the warm-up run's
+    tokens by request (its prompts are :func:`serve_prompts`).  Returns
+    (numbers, launch counts)."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
         from_jax_state
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
@@ -4439,6 +4609,8 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
     finally:
         hook.remove()
     prefills = sum(tok.shape[1] > 1 for tok, *_ in calls)
+    if outputs is not None:
+        outputs.update({r.request_id: list(r.output_ids) for r in done})
     check(len(done) == SERVE_REQUESTS and prefills == SERVE_REQUESTS
           and all(len(r.output_ids) == SERVE_NEW
                   and all(0 <= t < c.vocab_size for t in r.output_ids)
@@ -4528,6 +4700,260 @@ def serve_path(torch, np, config=None, device="cuda", label="serve"):
                peak_gib=peak_gib, logits_rel_err=e_lg,
                logits_argmax_agreement=agree)
     return e2e, counts
+
+# the serve_modes path's cells: serve_bench.py's --matrix (dense | paged) x
+# (greedy | top-p 0.9 at temperature 0.8, serve_bench.py:107-108), --mixed
+# and --steps_per_tick, the paged greedy cell being the serve path
+SERVE_MODES = {
+    "dense": dict(paged=False),
+    "dense_topp": dict(paged=False, top_p=0.9),
+    "paged_topp": dict(paged=True, top_p=0.9),
+    "paged_mixed": dict(paged=True, mixed_admission=True, chunk_width=16),
+    "paged_spt4": dict(paged=True, steps_per_tick=4),
+}
+# the recorded calls each cell replays teacher-forced: its opening calls
+# (the admissions, or the mixed ticks that feed the prompts) and this many
+# decode steps after them
+SERVE_MODES_CHECK = 8
+
+
+def serve_prompts(np, c):
+    """The serve path's prompts: SERVE_REQUESTS of SERVE_PROMPT tokens,
+    the first draw of RandomState(0), as its warm-up run takes them."""
+    rs = np.random.RandomState(0)
+    return [rs.randint(0, c.vocab_size, (SERVE_PROMPT,)).astype(np.int32)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def live_logits(torch, logits, widx, seq):
+    """The logits [rows, V] of a recorded serving call at each live row's
+    last real token: a prompt's at seq - 1; at per-row positions, rows of
+    seq > 0 at lane seq - widx - 1 (a decode step's only lane, a window's
+    last real one)."""
+    if not torch.is_tensor(widx):
+        return logits[0, int(seq[0]) - 1][None]
+    seq, widx = seq.long(), widx.long()
+    lane = (seq - widx - 1).clamp(0, logits.shape[1] - 1)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, lane][seq > 0]
+
+
+def serve_modes_path(torch, np, config=None, device="cuda",
+                     reference=None):
+    """The serve_modes path on ``device``: ``config`` (default GPT-350M)
+    with random weights from the seed, built once, behind the port's
+    ``ContinuousBatchingManager`` in each cell of SERVE_MODES at the serve
+    path's sizes (SERVE_SLOTS slots, SERVE_REQUESTS requests of
+    SERVE_PROMPT + SERVE_NEW tokens, max_seq_len SERVE_MAX_SEQ, blocks of
+    SERVE_BLOCK, ``end_id=-1``): a warm-up drain that records every model
+    call, then one timed drain, each of the serve path's prompts and on a
+    manager of its own (one seed).  Each cell: every request served with
+    SERVE_NEW tokens in range; on the card the launch counts (dense:
+    kernel 1 once a layer a decode step and kernel 2's causal mode once a
+    layer an admission; paged: the paged kernel once a layer a decode step
+    and its window entry once a layer a mixed tick; no other attention
+    kernel) and the native scheduler; the recorded opening calls and
+    SERVE_MODES_CHECK steps replayed teacher-forced through the plain
+    versions on a fresh cache or pool (rel 5e-2, as the serve path); a
+    greedy cell's share of tokens equal to ``reference`` (the serve path's
+    paged greedy run, {request: tokens}; printed for every cell), a
+    sampled cell's two drains of one seed equal.  Prints serve_bench's
+    metrics, the decode step's wall and device-busy time and idle share,
+    and peak memory.  Returns ({cell: numbers}, {cell: launch counts})."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import \
+        PagedCacheState
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        ContinuousBatchingManager, InferenceRequest, SamplingConfig)
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    c = config or gpt_350m_config()
+    t0 = time.time()
+    model = from_jax_state(random_decoder_state(
+        torch, np, c, np.random.default_rng(SEED)), c, device=device)
+    sync(torch, device)
+    print(f"[serve_modes] {c.num_layers} layers of width {c.hidden_size}, "
+          f"built in {time.time() - t0:.1f} s; cells {list(SERVE_MODES)}")
+    prompts = serve_prompts(np, c)
+    mods = (da, fa, mk)
+
+    def manager(opts):
+        top_p = opts.get("top_p", 0.0)
+        sc = (SamplingConfig(end_id=-1, pad_id=0, temperature=0.8,
+                             top_p=top_p, random_seed=SEED)
+              if top_p > 0 else SamplingConfig(end_id=-1, pad_id=0))
+        kw = {k: v for k, v in opts.items() if k != "top_p"}
+        return ContinuousBatchingManager(
+            model, sc, max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+            tokens_per_block=SERVE_BLOCK, device=device, **kw)
+
+    def drain(mgr):
+        """One drain of the prompts, timed as serve_bench.py times it:
+        ({request: tokens}, {request: pull-to-first-response s}, wall s)."""
+        queue = [InferenceRequest(i, p, max_new_tokens=SERVE_NEW, end_id=-1)
+                 for i, p in enumerate(prompts)]
+        done, admitted_at, first_tok = {}, {}, {}
+
+        def pull(n):
+            out = [queue.pop(0) for _ in range(min(n, len(queue)))]
+            now = time.time()
+            for r in out:
+                admitted_at[r.request_id] = now
+            return out
+
+        def push(r):
+            if r.request_id not in first_tok:
+                first_tok[r.request_id] = time.time() - \
+                    admitted_at[r.request_id]
+            if r.finished:
+                done[r.request_id] = list(r.output_ids)
+
+        mgr.get_inference_requests, mgr.send_response = pull, push
+        sync(torch, device)
+        t = time.time()
+        mgr.run()
+        sync(torch, device)
+        return done, first_tok, time.time() - t
+
+    e2e, counts = {}, {}
+    for cell, opts in SERVE_MODES.items():
+        label = f"serve_modes/{cell}"
+        sampled = opts.get("top_p", 0.0) > 0
+        # warm-up, recording every model call for the replay below
+        mgr = manager(opts)
+        calls = []
+
+        def record(mod, args, kwargs):
+            cache = args[1]
+            if isinstance(cache, PagedCacheState):
+                where = cache.block_table.clone()
+            else:
+                # the slot of a dense admission (its row, a view), or None
+                where = None if cache.shape == mgr.cache.shape else (
+                    cache.data_ptr() - mgr.cache.data_ptr()) // (
+                    cache.stride(1) * cache.element_size())
+            calls.append((args[0].clone(), where, (
+                args[2].clone() if torch.is_tensor(args[2]) else args[2]),
+                args[3].clone()))
+        hook = model.register_forward_pre_hook(record, with_kwargs=True)
+        try:
+            warm, _, _ = drain(mgr)
+        finally:
+            hook.remove()
+        native = type(mgr.sched).__name__
+        # the calls before the first decode step: the first wave's
+        # admissions, or its mixed ticks
+        opening = next(j for j, call in enumerate(calls)
+                       if call[0].shape[1] == 1)
+        # the timed drain, counted, on a fresh manager of the same seed
+        mgr = manager(opts)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for m in mods:
+            m.reset_launches()
+        done, first_tok, dt = drain(mgr)
+        n = {k: v for m in mods for k, v in m.launches.items()}
+        counts["serve_" + cell] = n
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+        check(len(done) == SERVE_REQUESTS
+              and all(len(t) == SERVE_NEW and all(0 <= x < c.vocab_size
+                                                  for x in t)
+                      for t in done.values()),
+              f"[{label}] {SERVE_REQUESTS} requests served, {SERVE_NEW} "
+              "tokens each, in range")
+        L = c.num_layers
+        if on_card:
+            want = ({"decode_attention_bf16": L * mgr.decode_steps,
+                     "flash_attention_causal": L * mgr.prefills}
+                    if not opts["paged"] else
+                    {"paged_decode_attention": L * mgr.decode_steps,
+                     "paged_window_attention": L * mgr.mixed_ticks})
+            want = {k: v for k, v in want.items() if v}
+            check({k: v for k, v in n.items() if v} == want,
+                  f"[{label}] launches {want}, no other attention kernel "
+                  f"({mgr.decode_steps} decode steps, {mgr.prefills} "
+                  f"admissions, {mgr.mixed_ticks} mixed ticks)")
+            check(native == "NativeScheduler",
+                  f"[{label}] the native scheduler ran")
+        # teacher forcing on a fresh cache or pool, kernels vs plain
+        n_calls = opening + SERVE_MODES_CHECK
+
+        def replay(plain):
+            fresh = (model.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
+                     if opts["paged"] else torch.zeros_like(mgr.cache))
+            ctx = plain_kernels() if plain else contextlib.nullcontext()
+            out = []
+            with ctx, torch.inference_mode():
+                for tok, where, widx, seq in calls[:n_calls]:
+                    if opts["paged"]:
+                        cache = PagedCacheState(fresh, where)
+                    else:
+                        cache = (fresh if where is None
+                                 else fresh[:, where:where + 1])
+                    lg, _ = model(tok, cache, widx, seq)
+                    out.append(live_logits(torch, lg, widx, seq))
+            return torch.cat(out)
+        lk, lp = replay(False), replay(True)
+        e_lg = rel_err(lk, lp)
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
+              f"[{label}] teacher-forced logits of {n_calls} calls, kernel "
+              f"path vs plain: rel err {e_lg:.3e} (< 5e-2), argmax "
+              f"agreement {agree:.3f}")
+        same = None
+        if sampled:
+            check(done == warm, f"[{label}] two drains of one seed give "
+                  "the same tokens")
+        if reference:
+            # (serve_bench.py's top-p cell keeps top_k at 1: one token
+            # survives, so it samples the greedy token)
+            toks = [(a, b) for r in done for a, b in zip(done[r],
+                                                         reference[r])]
+            same = sum(a == b for a, b in toks) / len(toks)
+            print(f"[{label}] tokens equal to the paged greedy run's: "
+                  f"{same:.3f}")
+        step = {}
+        if on_card:
+            # the decode step (teacher-forced, on a fresh cache or pool
+            # after the opening calls)
+            fresh = (model.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
+                     if opts["paged"] else torch.zeros_like(mgr.cache))
+
+            def call(j):
+                tok, where, widx, seq = calls[j]
+                cache = (PagedCacheState(fresh, where) if opts["paged"]
+                         else fresh if where is None
+                         else fresh[:, where:where + 1])
+                return model(tok, cache, widx, seq)
+            step = step_timing(torch, model, call, label, first=opening)
+        lat = sorted(first_tok.values())
+        toks = sum(len(t) for t in done.values())
+        e2e[cell] = dict(
+            **step, requests=len(done), total_new_tokens=toks,
+            decode_ticks=mgr.decode_ticks, decode_steps=mgr.decode_steps,
+            prefills=mgr.prefills, mixed_ticks=mgr.mixed_ticks, wall_s=dt,
+            req_per_s=len(done) / dt, tokens_per_sec=toks / dt,
+            first_token_ms_mean=1e3 * sum(lat) / len(lat),
+            first_token_ms_p95=1e3 * lat[int(0.95 * (len(lat) - 1))],
+            peak_gib=peak, logits_rel_err=e_lg,
+            logits_argmax_agreement=agree, scheduler=native,
+            tokens_equal_to_paged_greedy=same)
+        print(f"[{label}] end to end: req_per_s {len(done) / dt:.3f} "
+              f"tokens_per_sec {toks / dt:.2f} first_token_ms_mean "
+              f"{e2e[cell]['first_token_ms_mean']:.1f} p95 "
+              f"{e2e[cell]['first_token_ms_p95']:.1f}; peak memory "
+              f"{peak:.2f} GiB; {mgr.decode_ticks} ticks, "
+              f"{mgr.decode_steps} decode steps, {mgr.prefills} "
+              f"admissions, {mgr.mixed_ticks} mixed ticks; launches "
+              f"{ {k: v for k, v in n.items() if v} }")
+    return e2e, counts
+
 
 
 def gpt_350m_beam_config():
@@ -4822,8 +5248,10 @@ def paths(torch, np, results, config=None, device="cuda",
     quantisation, :func:`santacoder_path`), the llama paths with
     ``llama_config`` (default LLaMA-1B; :func:`llama_path`), the bloom path
     with ``bloom_config`` (default bloom-560m's widths), the chatglm path
-    with ``chatglm_config`` (default ChatGLM-6B's widths), the serve path with
-    ``serve_config`` (default GPT-350M) and the gen_beam path with
+    with ``chatglm_config`` (default ChatGLM-6B's widths), the serve path and
+    the serve_modes path with ``serve_config`` (default GPT-350M; the
+    dense slot cache, sampling, mixed admission and steps_per_tick, each
+    greedy cell beside the serve path's tokens) and the gen_beam path with
     ``gen_beam_config`` (default GPT-350M at beam_bench.py's widths).
     Each kernel's launches come from the path that drives it, and must be
     above 0 there on the card."""
@@ -4926,9 +5354,14 @@ def paths(torch, np, results, config=None, device="cuda",
     glm_e2e, glm_counts = chatglm_path(torch, np, config=chatglm_config,
                                        device=device)
     lap("chatglm")
+    serve_tokens = {}
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
-                                         device=device)
+                                         device=device, outputs=serve_tokens)
     lap("serve")
+    modes_e2e, modes_counts = serve_modes_path(
+        torch, np, config=serve_config, device=device,
+        reference=serve_tokens)
+    lap("serve_modes")
     gen_beam_e2e, gen_beam_counts = gen_beam_path(torch, np,
                                                   config=gen_beam_config,
                                                   device=device)
@@ -4944,7 +5377,8 @@ def paths(torch, np, results, config=None, device="cuda",
                   kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
                   long=long_counts, best_of=best_counts,
                   gen_beam=gen_beam_counts, bloom=bloom_counts,
-                  chatglm=glm_counts, **llama_counts, **santa_counts)
+                  chatglm=glm_counts, **llama_counts, **santa_counts,
+                  **modes_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
@@ -4960,7 +5394,7 @@ def paths(torch, np, results, config=None, device="cuda",
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
                 long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
                 bloom=bloom_e2e, chatglm=glm_e2e, **llama_e2e, **santa_e2e,
-                path_seconds=laps)
+                serve_modes=modes_e2e, path_seconds=laps)
 
 
 def example_run():

@@ -2,55 +2,31 @@
 bound with ctypes), the contract of the JAX package's ``audio/flac.py``:
 mono float32 in [-1, 1] at 16 kHz.
 
-The library is compiled with ``g++`` at first use into ``build/native/`` at
-the root of the checkout (listed in ``.gitignore``), its name stamped with
-a hash of the source and the flags as ``ops/_build.py`` stamps the kernels.
-Each build links to a name of its own and is renamed onto the final path,
-so processes that build at once never load a half-written library.  A
-failed build or decode raises; nothing falls back to another reader.
-Nothing is compiled at import time.
+The library is compiled with ``g++`` at first use into ``build/native/``
+(:func:`..native.build_library`).  A failed build or decode raises;
+nothing falls back to another reader.  Nothing is compiled at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
-import subprocess
-import tempfile
 from functools import lru_cache
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "flac_decoder.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+from .. import native
+
+SOURCE = native.SOURCE_DIR / "flac_decoder.cc"
+BUILD_DIR = native.BUILD_DIR
 SAMPLE_RATE = 16000
 
 
 def library_path() -> Path:
     """The decoder library in BUILD_DIR, built first if it is missing."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libewtflac-{digest[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=out.name + ".", suffix=".tmp",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return native.build_library("ewtflac", SOURCE, BUILD_DIR)
 
 
 @lru_cache(maxsize=None)

@@ -57,6 +57,28 @@
 //   * a slice longer than one round (32 tokens a warp) is walked twice: K
 //     alone for the max, then K and V for P and P·V (scores recomputed), so
 //     P is still rounded against the max of all tokens.
+//
+// The window entry (`paged_window_attention`, mixed context+generation
+// admission) replaces no TPU kernel: the JAX package computes the window in
+// XLA (ops/paged_attention.py:95, Lq > 1 with `causal_offset`), after its
+// own paged_append_window.  It reads the same pool through the same table,
+// W query tokens a row (a decode row's pending token and its pad lanes, or
+// a prompt chunk at any offset): query row i of row b attends keys
+// < seq[b] and <= offset[b] + i; a row with no valid key writes zeros.
+// Bound: the valid tokens' K and V once, q and out (at the serve shape,
+// 8 rows of 16 KV heads of 64, W 16, up to 128 tokens, about 2 MB, 0.6 us
+// at 3.35 TB/s); its work, 2 W D flops a (query head, key), is far below
+// the tensor cores' rate.  The first design, simple and right:
+//   * a block a (row, KV head, tile of 16 query rows), the rows taken
+//     token-major over the rep query heads of the KV head; 4 warps;
+//   * the tile's keys up to its last row's diagonal, in chunks of 32 a
+//     warp (chunk c to warp c % 4), staged by 16-byte cp.async into the
+//     warp's own tiles, as the single-token entry stages them;
+//   * a lane a key for the 16 rows' scores (q from shared memory, fp32),
+//     both masks, then an online softmax a warp: P enters P·V rounded to
+//     bf16 against the warp's running max, the sums in fp32;
+//   * the warps' maxima, sums and contexts through shared memory, combined
+//     at the end (one block barrier), the context times kscale / sum.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -603,6 +625,242 @@ int launch_heads(int heads, const void* q, const void* pool, int layer,
                        seq_len, kscale, scale, splits, width, warps, out, st);
 }
 
+// -- the window entry --------------------------------------------------------
+
+constexpr int kWinRows = 16;     // query rows a block (tokens x query heads)
+constexpr int kWinWarps = 4;
+
+struct WinSmem {
+  size_t tiles, q, red_m, red_l, red_c, bytes;
+};
+
+// Each warp's K and V tiles [32][pitch]; q [16][D] fp32; the warps'
+// maxima and sums [warps][16] and contexts [warps][16][D]
+__host__ __device__ inline WinSmem win_layout(int D, int elem) {
+  WinSmem s;
+  size_t at = 0;
+  s.tiles = take(at, (size_t)kWinWarps * 2 * kWarp * row_pitch(D, elem));
+  s.q = take(at, sizeof(float) * kWinRows * D);
+  s.red_m = take(at, sizeof(float) * kWinWarps * kWinRows);
+  s.red_l = take(at, sizeof(float) * kWinWarps * kWinRows);
+  s.red_c = take(at, sizeof(float) * kWinWarps * kWinRows * D);
+  s.bytes = at;
+  return s;
+}
+
+template <typename CT>
+__global__ void __launch_bounds__(kWinWarps * kWarp, 1)
+paged_window_attention_kernel(
+    const __nv_bfloat16* __restrict__ q,   // [B, Hkv*rep, W, D]
+    const CT* __restrict__ pool,           // [L, N, 2, Hkv, T, D]
+    int layer, int N, int Hkv, int rep, int T, int D, int MB, int W,
+    const int* __restrict__ table,         // [B, MB]
+    const int* __restrict__ seq_len,       // [B]
+    const int* __restrict__ offset,        // [B]
+    const float* __restrict__ kscale_ptr, float scale,
+    __nv_bfloat16* __restrict__ out) {     // [B, Hkv*rep, W, D]
+  constexpr int E = (int)sizeof(CT);
+  constexpr int kEW = 4 / E;               // values a 4-byte word
+  constexpr int kEP = 16 / E;              // values a 16-byte piece
+  constexpr int kMaxWords = kMaxD * E / 4 / kWarp;  // P·V words a lane
+  const int M = W * rep;                   // query rows of one KV head
+  const int n_tiles = (M + kWinRows - 1) / kWinRows;
+  const int kv = blockIdx.x / n_tiles, tile = blockIdx.x - kv * n_tiles;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = Hkv * rep;
+  const int pieces = D * E / 16;           // 16-byte pieces a token row
+  const int words = D * E / 4;             // 4-byte words a token row
+  const int pitch = row_pitch(D, E);
+  const WinSmem sm = win_layout(D, E);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const k_t =
+      smem + sm.tiles + (size_t)warp * 2 * kWarp * pitch;
+  unsigned char* const v_t = k_t + kWarp * pitch;
+  float* const q_s = reinterpret_cast<float*>(smem + sm.q);   // [16][D]
+  float* const red_m = reinterpret_cast<float*>(smem + sm.red_m);
+  float* const red_l = reinterpret_cast<float*>(smem + sm.red_l);
+  float* const red_c = reinterpret_cast<float*>(smem + sm.red_c);
+
+  // query row r of the tile: token i = (r0 + r) / rep, head g = (r0 + r) %
+  // rep of the KV head; rows past M are zeros and never stored
+  const int r0 = tile * kWinRows;
+  const int rows = min(kWinRows, M - r0);
+  const int seq = min(seq_len[b], MB * T);
+  const int off = offset[b];
+  const float kscale = kscale_ptr ? *kscale_ptr : 1.0f;
+  auto q_row = [&](int r) -> size_t {      // element offset of row r
+    const int qi = r0 + r, i = qi / rep, g = qi - i * rep;
+    return (((size_t)b * H + (size_t)kv * rep + g) * W + i) * D;
+  };
+  for (int idx = tid; idx < kWinRows * D / 2; idx += blockDim.x) {
+    const int r = idx / (D / 2), c = idx - r * (D / 2);
+    float2 f = make_float2(0.f, 0.f);
+    if (r < rows)
+      f = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(q + q_row(r))[c]);
+    q_s[r * D + 2 * c] = f.x;
+    q_s[r * D + 2 * c + 1] = f.y;
+  }
+  // each row's keys end (exclusive) at its diagonal and at seq; the tile's
+  // at its last row's
+  int lim[kWinRows];
+#pragma unroll
+  for (int r = 0; r < kWinRows; ++r)
+    lim[r] = r < rows ? min(seq, off + (r0 + r) / rep + 1) : 0;
+  const int kend = max(0, min(seq, off + (r0 + rows - 1) / rep + 1));
+  __syncthreads();                         // q
+
+  const size_t panel = (size_t)T * D;      // elements of one [T, D] panel
+  const size_t head0 = (size_t)layer * N * 2 * Hkv * panel + kv * panel;
+  const size_t v_off = (size_t)Hkv * panel * E;
+  const float s_mul = scale * kscale;
+  float m[kWinRows], l[kWinRows], acc[kWinRows][kMaxWords * kEW];
+#pragma unroll
+  for (int r = 0; r < kWinRows; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxWords * kEW; ++e) acc[r][e] = 0.f;
+  }
+  for (int c = warp; c * kWarp < kend; c += kWinWarps) {
+    const int base = c * kWarp, nv = min(kWarp, kend - base);
+    const int tok = base + lane;
+    __syncwarp();                          // the warp's tiles consumed
+    if (lane < nv) {
+      const int entry = table[(size_t)b * MB + tok / T];
+      const int blk = min(max(entry, 0), N - 1);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          pool + head0 + (size_t)blk * 2 * Hkv * panel
+          + (size_t)(tok % T) * D);
+      for (int u = 0; u < pieces; ++u) {
+        cp_async16(k_t + lane * pitch + 16 * u, src + 16 * u);
+        cp_async16(v_t + lane * pitch + 16 * u, src + v_off + 16 * u);
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();                          // the warp's copies have landed
+    float s[kWinRows];
+#pragma unroll
+    for (int r = 0; r < kWinRows; ++r) s[r] = 0.f;
+    if (lane < nv) {
+      const uint4* kr = reinterpret_cast<const uint4*>(k_t + lane * pitch);
+      for (int u = 0; u < pieces; ++u) {
+        const uint4 p4 = kr[u];
+        const uint32_t pw[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          float f[kEW];
+          word_vals(pw[w], f, CT());
+          const int d0 = u * kEP + w * kEW;
+#pragma unroll
+          for (int r = 0; r < kWinRows; ++r)
+#pragma unroll
+            for (int e = 0; e < kEW; ++e)
+              s[r] = fmaf(q_s[r * D + d0 + e], f[e], s[r]);
+        }
+      }
+    }
+    // both masks, then the warp's online softmax
+    float p[kWinRows];
+#pragma unroll
+    for (int r = 0; r < kWinRows; ++r) {
+      const bool ok = lane < nv && tok < lim[r];
+      const float sr = ok ? s[r] * s_mul : kNeg;
+      const float mn = fmaxf(m[r], warp_max(sr));
+      const float alpha = __expf(m[r] - mn);
+      const float pr = ok ? __expf(sr - mn) : 0.f;
+      l[r] = l[r] * alpha + pr;            // this lane's share of the sum
+#pragma unroll
+      for (int e = 0; e < kMaxWords * kEW; ++e) acc[r][e] *= alpha;
+      m[r] = mn;
+      p[r] = __bfloat162float(__float2bfloat16(pr));
+    }
+    // P·V: lane w sums words w, w + 32 of the chunk's value rows
+    for (int t = 0; t < nv; ++t) {
+      float pt[kWinRows];
+#pragma unroll
+      for (int r = 0; r < kWinRows; ++r) pt[r] = __shfl_sync(kFull, p[r], t);
+      const uint32_t* vr = reinterpret_cast<const uint32_t*>(v_t + t * pitch);
+#pragma unroll
+      for (int i = 0; i < kMaxWords; ++i) {
+        const int w = lane + i * kWarp;
+        if (w < words) {
+          float f[kEW];
+          word_vals(vr[w], f, CT());
+#pragma unroll
+          for (int r = 0; r < kWinRows; ++r)
+#pragma unroll
+            for (int e = 0; e < kEW; ++e)
+              acc[r][i * kEW + e] = fmaf(pt[r], f[e], acc[r][i * kEW + e]);
+        }
+      }
+    }
+  }
+  // the warp's maxima, sums and contexts to shared memory
+#pragma unroll
+  for (int r = 0; r < kWinRows; ++r) {
+    const float lr = warp_sum(l[r]);
+    if (lane == 0) {
+      red_m[warp * kWinRows + r] = m[r];
+      red_l[warp * kWinRows + r] = lr;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxWords; ++i) {
+      const int w = lane + i * kWarp;
+      if (w < words)
+#pragma unroll
+        for (int e = 0; e < kEW; ++e)
+          red_c[(warp * kWinRows + r) * D + w * kEW + e] =
+              acc[r][i * kEW + e];
+    }
+  }
+  __syncthreads();                         // the warps' partials
+  // the warps in order, rescaled to the row's max; zeros for a row with no
+  // valid key
+  for (int idx = tid; idx < rows * D; idx += blockDim.x) {
+    const int r = idx / D, d = idx - r * D;
+    float mt = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWinWarps; ++w)
+      mt = fmaxf(mt, red_m[w * kWinRows + r]);
+    float lt = 0.f, ct = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWinWarps; ++w) {
+      const float a = __expf(red_m[w * kWinRows + r] - mt);
+      lt = fmaf(red_l[w * kWinRows + r], a, lt);
+      ct = fmaf(red_c[(w * kWinRows + r) * D + d], a, ct);
+    }
+    out[q_row(r) + d] = __float2bfloat16(lt > 0.f ? ct * kscale / lt : 0.f);
+  }
+}
+
+template <typename CT>
+int launch_window(const void* q, const void* pool, int layer, int N, int Hkv,
+                  int rep, int T, int D, int B, int MB, int W,
+                  const int* table, const int* seq_len, const int* offset,
+                  const float* kscale, float scale, void* out,
+                  cudaStream_t st) {
+  const WinSmem sm = win_layout(D, (int)sizeof(CT));
+  if (sm.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = paged_window_attention_kernel<CT>;
+  static size_t smem_allowed = 48 * 1024;
+  if (sm.bytes > smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm.bytes);
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed = sm.bytes;
+  }
+  const long long tiles = ((long long)W * rep + kWinRows - 1) / kWinRows;
+  kernel<<<dim3((unsigned)(Hkv * tiles), B), kWinWarps * kWarp, sm.bytes,
+           st>>>(static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const CT*>(pool), layer, N, Hkv, rep, T, D, MB,
+                 W, table, seq_len, offset, kscale, scale,
+                 static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -641,6 +899,33 @@ int paged_decode_attention(const void* q, const void* pool, int pool_is_int8,
   return launch_heads<__nv_bfloat16>(heads, q, pool, layer, N, Hkv, rep, T,
                                      D, B, MB, table, seq_len, kscale, scale,
                                      splits, width, warps, out, st);
+}
+
+// The window entry: q [B, Hkv*rep, W, D] bf16 (head h = kv*rep + g);
+// pool, table and kscale as above; seq_len [B] int32 counts the window's
+// tokens (already in the pool); offset [B] int32: query token i of row b
+// attends keys <= offset[b] + i (and < seq_len[b]); out [B, Hkv*rep, W, D]
+// bf16.  Returns the launch's CUDA error (0 = launched).
+int paged_window_attention(const void* q, const void* pool, int pool_is_int8,
+                           int layer, int N, int Hkv, int rep, int T, int D,
+                           int B, int MB, int W, const int* table,
+                           const int* seq_len, const int* offset,
+                           const float* kscale, float scale, void* out,
+                           void* stream) {
+  const long long blocks_x =
+      (long long)Hkv * (((long long)W * rep + kWinRows - 1) / kWinRows);
+  if (D < 16 || D > kMaxD || D % 16 || rep < 1 || rep > kMaxRep ||
+      Hkv < 1 || T < 1 || N < 1 || MB < 1 || B < 1 || B > 65535 || W < 1 ||
+      layer < 0 || blocks_x > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (pool_is_int8)
+    return launch_window<int8_t>(q, pool, layer, N, Hkv, rep, T, D, B, MB, W,
+                                 table, seq_len, offset, kscale, scale, out,
+                                 st);
+  return launch_window<__nv_bfloat16>(q, pool, layer, N, Hkv, rep, T, D, B,
+                                      MB, W, table, seq_len, offset, kscale,
+                                      scale, out, st);
 }
 
 }  // extern "C"

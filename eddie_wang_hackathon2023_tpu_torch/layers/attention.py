@@ -23,8 +23,17 @@ Modes, as in the JAX package:
   ``cache_write_index`` and reads the pool through the paged decode kernel
   (:func:`..ops.decode_attention.fused_paged_decode_attention`); a prompt
   (write index 0) is stored with ``paged_prefill`` and attends causally
-  over its fresh K/V, with no length mask (prompts are right-padded).
-  Mixed windows (several tokens at per-row positions) raise.
+  over its fresh K/V, with no length mask (prompts are right-padded); a
+  mixed window (several tokens a row at the per-row positions
+  ``cache_write_index`` [B], mixed context+generation admission) is stored
+  with ``paged_append_window`` and reads the pool through the paged
+  kernel's window entry (:func:`..ops.decode_attention.
+  fused_paged_window_attention`) with the window's offsets as the causal
+  offsets.  Over the stacked cache a [B] ``cache_write_index`` writes each
+  row at its own column: one token through the deferred write as above, a
+  window (as the paged one) into the cache and then over it with the
+  per-row causal offsets, in plain PyTorch as the JAX layer runs it in
+  XLA.
 With ``use_int8_kv_cache`` (the ``kv8`` recipe) the self cache is int8
 with the per-tensor scales ``kv_orig_quant_scale`` (every write: the
 prefill's and the fresh K/V of a decode step) and ``kv_quant_orig_scale``
@@ -74,9 +83,11 @@ from ..ops.attention import (append_kv_stacked,
                              cached_decode_attention, cast_kv_for_cache,
                              layer_kv_views, multihead_attention)
 from ..ops.decode_attention import (fused_decode_attention,
-                                    fused_paged_decode_attention)
+                                    fused_paged_decode_attention,
+                                    fused_paged_window_attention)
 from ..ops.flash_attention import MIN_FLASH_LEN, flash_mha
-from ..ops.paged_attention import PagedKV, paged_append_kv, paged_prefill
+from ..ops.paged_attention import (PagedKV, paged_append_kv,
+                                   paged_append_window, paged_prefill)
 from ..quantization.layers import (WeightOnlyQuantLinear,
                                    WeightOnlyQuantQKVLinear,
                                    WeightOnlyQuantRowLinear)
@@ -173,7 +184,10 @@ class Attention(nn.Module):
     """``num_kv_heads`` < ``num_attention_heads``: MQA/GQA self-attention
     (the separate-KV QKV layout, a cache of ``num_kv_heads`` heads, the
     grouped mode of the decode kernel); the query heads of one KV head are
-    consecutive."""
+    consecutive.  ``flash_prefill_rows``: the fewest query rows of a causal
+    prefill into an empty stacked cache that take kernel 2's causal mode on
+    the card (``MIN_FLASH_LEN``, the JAX package's threshold, unless the
+    model asks for fewer)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int,
                  cross_attention: bool = False, causal: bool = False,
@@ -185,8 +199,10 @@ class Attention(nn.Module):
                  neox_rotary_style: bool = True,
                  glm_2d_rope: bool = False, alibi: bool = False,
                  num_layers: int = 1,
-                 apply_query_key_layer_scaling: bool = False):
+                 apply_query_key_layer_scaling: bool = False,
+                 flash_prefill_rows: int = MIN_FLASH_LEN):
         super().__init__()
+        self.flash_prefill_rows = flash_prefill_rows
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
         self.num_attention_kv_heads = num_kv_heads or num_attention_heads
@@ -290,7 +306,8 @@ class Attention(nn.Module):
         ctx = torch.empty((b, l, self.num_attention_heads, d),
                           dtype=q.dtype, device=q.device)
         flash_mha(q, k, v, causal=self.causal, scale=self.scale,
-                  kv_valid_len=valid_len, out=ctx.transpose(1, 2))
+                  kv_valid_len=valid_len, out=ctx.transpose(1, 2),
+                  min_causal_rows=self.flash_prefill_rows)
         return self.dense(ctx.reshape(b, l, self.num_attention_heads * d))
 
     def _paged(self, q, k, v, pk: PagedKV, sequence_length, write_index):
@@ -313,8 +330,13 @@ class Attention(nn.Module):
                 pk.pool, pk.layer_idx, q, pk.block_table, sequence_length,
                 self.scale)
         elif torch.is_tensor(write_index) and write_index.dim() >= 1:
-            raise NotImplementedError("mixed context+generation windows "
-                                      "(paged_append_window) are not ported")
+            # a mixed window: W tokens a row at its own offset, written
+            # first, then read causally from that offset
+            paged_append_window(pk.pool, k, v, pk.block_table, write_index,
+                                layer_idx=pk.layer_idx, slots=pk.slots)
+            ctx = fused_paged_window_attention(
+                pk.pool, pk.layer_idx, q, pk.block_table, sequence_length,
+                write_index, self.scale)
         elif write_index != 0:
             raise ValueError("a paged prompt is written from position 0")
         else:
@@ -432,11 +454,13 @@ class Attention(nn.Module):
                     start_index=attention_start, bias=alibi_bias)
                 out = self.dense(self._merge_heads(ctx))
             elif (attention_start is not None or self.use_int8_kv_cache
-                    or self.alibi or not self.causal or l == 1):
+                    or self.alibi or not self.causal or l == 1
+                    or torch.is_tensor(cache_write_index)):
                 # left-padded prompts, an int8 cache, ALiBi, a
-                # bidirectional prompt or one token: attend over the cache
-                # just written (dequantised), keys below the start masked,
-                # causal from the write index unless bidirectional
+                # bidirectional prompt, one token or a window at per-row
+                # columns: attend over the cache just written
+                # (dequantised), keys below the start masked, causal from
+                # the write index unless bidirectional
                 ctx = cached_decode_attention(
                     q, layer_kv_views(full, layer_idx), sequence_length,
                     scale=self.scale,

@@ -15,12 +15,14 @@ Forward contract (used by :mod:`..runtime.generation` and
                              sequence_length, attention_start)
 
 with either the stacked seq-minor KV cache ``[L, B, 2, Hkv, head_dim, S]``
-and one ``write_index`` for all rows, or (paged serving) a
+and one ``write_index`` for all rows or (serving's dense slot cache) a
+[B] tensor of per-row columns, or (paged serving) a
 :class:`..ops.paged_attention.PagedCacheState`: the block pool
 ``[L, N + 1, 2, Hkv, T, head_dim]`` (``new_paged_pool``) with the block
-tables, and either a prompt written from position 0 or one token per row
-at the per-row positions ``write_index`` [B].  The port updates the cache
-or the pool in place.  The JAX package scans one block over weights
+tables, and either a prompt written from position 0 or tokens at the
+per-row positions ``write_index`` [B] (one a row, or a window of several,
+mixed context+generation admission).  The port updates the cache or the
+pool in place.  The JAX package scans one block over weights
 stacked [n_layer, ...]; the port keeps one module per layer and loops over
 them in Python.  A token's position is its cache column less its row's
 ``attention_start``, floored at 0 (the JAX model's :303-313); learned
@@ -34,7 +36,10 @@ reads the pool through the paged decode kernel.  With an int8 KV cache
 (``QuantMode.set_int8_kv_cache``, the per-layer scales in the state as
 ``attention.kv_orig_quant_scale`` and ``kv_quant_orig_scale``) the
 stacked cache is int8, every write quantises and the decode kernels read
-it with the scale; an int8 pool raises.  At batch 1 a single-token step
+it with the scale; an int8 pool raises.  A causal prompt into an empty
+stacked cache takes kernel 2's causal mode on the card at any length
+(heads of 64; the JAX package keeps prompts under 128 tokens in XLA), so
+that serving's admission prefill runs on it.  At batch 1 a single-token step
 given ``megakernel_blobs`` (:meth:`DecoderLMHead.megakernel_blobs`) runs
 every layer in one launch of the whole-step megakernel
 (``ops/decoder_layer.py``), as the JAX model's :367-412 does: the final
@@ -49,9 +54,9 @@ positions [B, 2, T], ``pos0 = min(p, plen - 2)`` and ``pos1 = max(p -
 plen + 2, 0)`` with ``plen`` the true prompt lengths (``context_lengths``,
 which :attr:`DecoderLMHead.needs_context_lengths` asks the session for),
 the deepnorm residual ``x = ln(x) alpha + attn; y = ln2(x); x = y alpha +
-mlp(y)`` and the bidirectional prompt.  An fp8 KV cache, per-row write
-positions on the stacked cache, mixed prompt/decode windows on the pool
-and the K-step tail are not ported and raise ``NotImplementedError``.
+mlp(y)`` and the bidirectional prompt.  An fp8 KV cache and the K-step
+tail are not ported and raise ``NotImplementedError``; the megakernel is
+not taken for per-row columns (the JAX model's gate, :365).
 Beam search passes a ``beam_indirection`` [groups, beams, S] table to the
 single-token step, which every layer's self-attention reads the cache
 through (the beam entry of the decode kernel; an ALiBi step through the
@@ -209,7 +214,8 @@ class DecoderBlock(nn.Module):
             glm_2d_rope=c.position_embedding == "glm_rope",
             alibi=c.position_embedding == "alibi",
             num_layers=c.num_layers,
-            apply_query_key_layer_scaling=c.apply_query_key_layer_scaling)
+            apply_query_key_layer_scaling=c.apply_query_key_layer_scaling,
+            flash_prefill_rows=1)
         if not c.parallel_attn or c.deepnorm_alpha is not None:
             self.post_layernorm = _make_norm(c, dtype)
         mlp = GatedMLP if c.gated_mlp else MLP
@@ -408,8 +414,9 @@ class DecoderLMHead(nn.Module):
                 context_lengths=None) -> Tuple[torch.Tensor, object]:
         """tokens [B, T] (left-padded prompts use ``attention_start`` [B]);
         ``write_index``: the cache column of tokens[:, 0], one for all rows,
-        or over the paged pool a [B] tensor of per-row positions (one token
-        per row); ``sequence_length``: the valid length including these
+        or a [B] tensor of per-row positions (over the stacked cache or the
+        paged pool; a prompt over the pool starts at 0); ``sequence_length``:
+        the valid length including these
         tokens (an int or a [B] tensor; a single-token step makes an int a
         [B] tensor once for all layers); ``beam_indirection``
         [groups, beams, S] int32 (beam search, a single-token step over the
@@ -428,18 +435,21 @@ class DecoderLMHead(nn.Module):
         if isinstance(kv_cache, PagedCacheState):
             return self._paged_forward(tokens, kv_cache, write_index,
                                        sequence_length, attention_start)
-        if not torch.is_tensor(kv_cache) or not isinstance(write_index, int):
-            raise NotImplementedError("per-row write positions are ported "
-                                      "for the paged pool only")
+        per_row = torch.is_tensor(write_index)
+        if not torch.is_tensor(kv_cache) or not (
+                per_row or isinstance(write_index, int)):
+            raise TypeError("the stacked cache takes an int or a [B] tensor "
+                            "write_index")
         c = self.config
         b, t = tokens.shape
         dev = tokens.device
         if (megakernel_blobs is not None and t == 1 and b == 1
-                and beam_indirection is None):
+                and beam_indirection is None and not per_row):
             return self._megakernel_step(tokens, kv_cache, write_index,
                                          sequence_length, attention_start,
                                          megakernel_blobs)
-        pos = write_index + torch.arange(t, device=dev)[None, :]
+        base = write_index.reshape(-1, 1).long() if per_row else write_index
+        pos = base + torch.arange(t, device=dev)[None, :]
         if attention_start is not None:
             pos = torch.clamp(pos - attention_start[:, None].long(), min=0)
         x, rotary = self._embed(tokens, pos.expand(b, t), context_lengths)
@@ -525,11 +535,11 @@ class DecoderLMHead(nn.Module):
                        sequence_length, attention_start):
         """The paged serving path (the JAX model's ``models/decoder.py``
         :339-360): positions per row from ``write_index``, each layer given
-        ``PagedKV(pool, table, layer)`` and, for a one-token step, the write
-        slots of the rows' tokens, found once.  A slot that is not live still
-        rides the step at length 0, so its position is -1, which the learned
-        embedding clamps (the JAX gather wraps or clamps it); its output is
-        discarded by the caller."""
+        ``PagedKV(pool, table, layer)`` and, for tokens at per-row positions
+        (one a row, or a mixed window), their write slots, found once.  A
+        slot that is not live still rides the step at length 0, so its
+        position is -1, which the learned embedding clamps (the JAX gather
+        wraps or clamps it); its output is discarded by the caller."""
         if attention_start is not None:
             raise NotImplementedError("left-padded prompts (attention_start) "
                                       "are not ported for the paged pool")
@@ -545,11 +555,10 @@ class DecoderLMHead(nn.Module):
         x, rotary = self._embed(tokens, pos.expand(b, t))
         pool, table = state.pool, state.block_table
         slots = None
-        if t == 1:
-            # where each row's token lands: the same in every layer
-            wpos = torch.as_tensor(write_index, device=dev).reshape(-1)
-            slots = token_slots(table, wpos.expand(b)[:, None],
-                                pool.shape[1] - 1, pool.shape[4])
+        if t == 1 or torch.is_tensor(write_index):
+            # where each row's tokens land: the same in every layer
+            slots = token_slots(table, pos.expand(b, t), pool.shape[1] - 1,
+                                pool.shape[4])
         for li, block in enumerate(self.blocks):
             x, pool = block(x, PagedKV(pool, table, li, slots), write_index,
                             sequence_length, rotary=rotary)

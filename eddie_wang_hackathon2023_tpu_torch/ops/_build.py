@@ -68,6 +68,10 @@ SIGNATURES = {
         "paged_decode_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _P, _P, _P, _F, _I, _I, _I, _I, _I,
                                    _P, _P],
+        # the window entry: ..., B, MB, W, table, seq_len, offset, kscale,
+        # scale, out, stream
+        "paged_window_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P, _P, _P, _P, _F, _P, _P],
     },
     "int4_quant_matmul": {
         # x, qw, scale, M, N, K, groups, then the wrapper's prefill_plan:

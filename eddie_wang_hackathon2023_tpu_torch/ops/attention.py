@@ -10,7 +10,9 @@ accumulation.
 Cache layout (as in the JAX package): the stacked decoder cache is
 ``[L, B, 2, H, D, S]``, SEQ-MINOR.  Unlike JAX, the port updates it in
 place (``write_fresh_kv``, ``append_kv_stacked``) instead of returning a
-new buffer.
+new buffer.  Both take one write column for all rows or a [B] tensor of
+per-row columns (continuous batching), written by one indexed store on
+the device (:func:`put_columns`).
 """
 from __future__ import annotations
 
@@ -76,13 +78,56 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.to(q.dtype)
 
 
+def put_columns(cache: torch.Tensor, new: torch.Tensor,
+                write_index: torch.Tensor) -> None:
+    """``cache[b, ..., write_index[b] + j] = new[b, ..., j]``, in place, as
+    one indexed store with no host synchronisation: cache [B, ..., S] (a
+    view is fine), new [B, ..., n] in the cache's dtype, write_index [B].
+
+    A negative start counts from the end (S + write_index), as the JAX
+    package's per-row ``dynamic_update_slice`` takes it: a slot that is not
+    live rides a step at column -1 and writes column S - 1, which no
+    sequence reaches (the scheduler ends one at S - 1 tokens).  One token
+    (n == 1) lands at its column clamped into [0, S - 1], where JAX puts
+    it.  A window (n > 1) writes only its lanes that fall in [0, S): JAX's
+    clamp would shift the whole window back onto real columns.  The lanes past
+    the end are sent to the nearest column inside with the value that
+    column gets anyway (its own lane's, or what it held), so every store
+    to one column carries one value and the order of the stores does not
+    matter."""
+    b, s, n = cache.shape[0], cache.shape[-1], new.shape[-1]
+    dev = cache.device
+    wi = write_index.to(device=dev, dtype=torch.long).reshape(b, 1)
+    wi = torch.where(wi < 0, wi + s, wi)
+    lane = torch.arange(n, device=dev)[None, :]
+    cols = torch.clamp(wi + lane, 0, s - 1)                   # [B, n]
+    if n > 1:
+        src = cols - wi                 # the lane whose column this is
+        fits = (src >= 0) & (src < n)
+        mid = (1,) * (new.dim() - 2)
+
+        def spread(idx, like):
+            return idx.reshape(b, *mid, n).expand(*like.shape[:-1], n)
+        vals = torch.gather(new, -1, spread(src.clamp(0, n - 1), new))
+        old = torch.gather(cache, -1, spread(cols, cache))
+        new = torch.where(spread(fits, new), vals, old)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, n)
+    # two advanced indices around the ellipsis: the value is [B, n, ...]
+    cache[rows, ..., cols] = new.movedim(-1, 1)
+
+
 def append_kv_stacked(full_cache: torch.Tensor, k_new: torch.Tensor,
-                      v_new: torch.Tensor, layer_idx: int, write_index: int,
+                      v_new: torch.Tensor, layer_idx: int, write_index,
                       kv_orig_quant_scale=None) -> torch.Tensor:
     """Write one layer's K/V [B,H,L_new,D] into the stacked seq-minor
-    cache [L,B,2,H,D,S] at (layer_idx, ..., write_index), in place."""
+    cache [L,B,2,H,D,S] at (layer_idx, ..., write_index), in place;
+    ``write_index`` an int, or a [B] tensor of per-row columns
+    (:func:`put_columns`)."""
     kv = torch.stack([k_new, v_new], dim=1).transpose(3, 4)  # [B,2,H,D,L]
     kv = quantize_cache_values(kv, full_cache.dtype, kv_orig_quant_scale)
+    if torch.is_tensor(write_index):
+        put_columns(full_cache[layer_idx], kv, write_index)
+        return full_cache
     n = kv.shape[-1]
     full_cache[layer_idx, ..., write_index:write_index + n] = kv
     return full_cache
@@ -100,11 +145,14 @@ def cast_kv_for_cache(k: torch.Tensor, v: torch.Tensor,
 
 
 def write_fresh_kv(full_cache: torch.Tensor, kv_new: torch.Tensor,
-                   write_index: int) -> torch.Tensor:
+                   write_index) -> torch.Tensor:
     """One store of every layer's fresh K/V [L,B,2,H,D,L_new] (already in
-    cache dtype) at column ``write_index``, in place."""
-    if not isinstance(write_index, int):
-        raise NotImplementedError("per-row write positions are not ported")
+    cache dtype) at column ``write_index``, in place: an int, or a [B]
+    tensor of per-row columns (:func:`put_columns`)."""
+    if torch.is_tensor(write_index):
+        put_columns(full_cache.transpose(0, 1), kv_new.transpose(0, 1),
+                    write_index)
+        return full_cache
     n = kv_new.shape[-1]
     full_cache[..., write_index:write_index + n] = kv_new
     return full_cache

@@ -30,7 +30,11 @@ block-paged pool through the block table, on a CUDA tensor by the kernel of
 ``csrc/paged_decode_attention.cu`` (the TPU kernel's ``_paged_kernel``
 :612; its grid, cluster, slices, warps and query heads a block from
 :func:`paged_plan`, passed to the kernel), on a CPU tensor by
-:func:`plain_paged_decode_attention`.
+:func:`plain_paged_decode_attention`.  :func:`fused_paged_window_attention`
+is the same source's window entry (mixed context+generation admission: W
+query tokens a row with per-row causal offsets), which replaces the JAX
+package's XLA formulation (``ops/paged_attention.py:95``); on a CPU tensor
+:func:`plain_paged_window_attention`.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ from .quant_matmul import weight_only_quant_matmul
 # a bf16 cache, count both of their dtypes)
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
             "out_proj_gemv": 0, "beam_decode_attention": 0,
-            "gqa_decode_attention": 0, "paged_decode_attention": 0}
+            "gqa_decode_attention": 0, "paged_decode_attention": 0,
+            "paged_window_attention": 0}
 
 
 # kernel 1 without beams splits the S columns of the cache over a cluster
@@ -603,6 +608,47 @@ def plain_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
                                   kv_quant_orig_scale=kv_quant_orig_scale)
 
 
+def _check_paged_args(full_pool, layer_idx: int, q, block_table, seq_len,
+                      kv_quant_orig_scale):
+    """The paged entries' input checks on the card (both take the same
+    pool, table and lengths); returns the fp32 dequant scale or None."""
+    L, N, two, Hkv, T, D = full_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    if q.dim() != 4 or q.shape[3] != D or H % Hkv:
+        raise NotImplementedError(
+            f"q {tuple(q.shape)} over {Hkv} KV heads of {D}: H must be a "
+            "multiple of Hkv")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"paged decode kernel takes bf16 q, got {q.dtype}")
+    if full_pool.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"paged decode kernel pool dtype {full_pool.dtype}")
+    if (not full_pool.is_contiguous() or full_pool.data_ptr() % 16
+            or D % 16 or D > 128 or two != 2):
+        raise ValueError("paged decode kernel needs a contiguous, 16-byte "
+                         "aligned [L, N, 2, Hkv, T, D] pool with D a multiple "
+                         "of 16 up to 128")
+    if not 0 <= layer_idx < L:
+        raise IndexError(f"layer {layer_idx} of a {L}-layer pool")
+    dev = q.device
+    if (not torch.is_tensor(block_table) or block_table.dim() != 2
+            or block_table.shape[0] != B or block_table.device != dev
+            or block_table.dtype.is_floating_point):
+        raise TypeError(f"block_table must be a [{B}, max_blocks] integer "
+                        f"tensor on {dev}")
+    if (not torch.is_tensor(seq_len) or seq_len.shape != (B,)
+            or seq_len.device != dev):
+        raise TypeError(f"seq_len must be a [{B}] tensor on {dev}")
+    if kv_quant_orig_scale is not None:
+        ks_t = torch.as_tensor(kv_quant_orig_scale, dtype=torch.float32,
+                               device=dev).reshape(-1)
+        if ks_t.numel() != 1:
+            raise ValueError("kv_quant_orig_scale must be one value")
+        return ks_t
+    if full_pool.dtype == torch.int8:
+        raise ValueError("an int8 pool needs kv_quant_orig_scale")
+    return None
+
+
 def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
                                  seq_len, scale: float,
                                  kv_quant_orig_scale=None) -> torch.Tensor:
@@ -626,39 +672,14 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
                                             kv_quant_orig_scale)
     L, N, two, Hkv, T, D = full_pool.shape
     B, H = q.shape[0], q.shape[1]
-    if q.shape != (B, H, 1, D) or H % Hkv:
+    if q.shape != (B, H, 1, D):
         raise NotImplementedError(
-            f"q {tuple(q.shape)} over {Hkv} KV heads of {D}: only one query "
-            "token per row and H a multiple of Hkv are ported")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"paged decode kernel takes bf16 q, got {q.dtype}")
-    if full_pool.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"paged decode kernel pool dtype {full_pool.dtype}")
-    if (not full_pool.is_contiguous() or full_pool.data_ptr() % 16
-            or D % 16 or D > 128 or two != 2):
-        raise ValueError("paged decode kernel needs a contiguous, 16-byte "
-                         "aligned [L, N, 2, Hkv, T, D] pool with D a multiple "
-                         "of 16 up to 128")
-    if not 0 <= layer_idx < L:
-        raise IndexError(f"layer {layer_idx} of a {L}-layer pool")
+            f"q {tuple(q.shape)}: the single-token entry takes one query "
+            "token a row (the window entry takes more)")
+    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
+                             kv_quant_orig_scale)
     dev = q.device
-    if (not torch.is_tensor(block_table) or block_table.dim() != 2
-            or block_table.shape[0] != B or block_table.device != dev
-            or block_table.dtype.is_floating_point):
-        raise TypeError(f"block_table must be a [{B}, max_blocks] integer "
-                        f"tensor on {dev}")
-    if (not torch.is_tensor(seq_len) or seq_len.shape != (B,)
-            or seq_len.device != dev):
-        raise TypeError(f"seq_len must be a [{B}] tensor on {dev}")
     is_int8 = full_pool.dtype == torch.int8
-    ks_t = None
-    if kv_quant_orig_scale is not None:
-        ks_t = torch.as_tensor(kv_quant_orig_scale, dtype=torch.float32,
-                               device=dev).reshape(-1)
-        if ks_t.numel() != 1:
-            raise ValueError("kv_quant_orig_scale must be one value")
-    elif is_int8:
-        raise ValueError("an int8 pool needs kv_quant_orig_scale")
     # operands held in locals until the launch is enqueued (see above)
     q = q.contiguous()
     table_t = block_table.to(torch.int32).contiguous()
@@ -674,4 +695,62 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
         plan["rounds"], plan["heads"], _ptr(out), stream),
         "paged_decode_attention")
     launches["paged_decode_attention"] += 1
+    return out
+
+
+def plain_paged_window_attention(full_pool, layer_idx: int, q, block_table,
+                                 seq_len, causal_offset, scale: float,
+                                 kv_quant_orig_scale=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_paged_window_attention`:
+    ``paged_decode_attention`` with ``causal_offset`` (the JAX XLA
+    formulation) on layer ``layer_idx`` of the stacked pool."""
+    return paged_decode_attention(q, full_pool[layer_idx], block_table,
+                                  seq_len, scale=scale,
+                                  kv_quant_orig_scale=kv_quant_orig_scale,
+                                  causal_offset=causal_offset)
+
+
+def fused_paged_window_attention(full_pool, layer_idx: int, q, block_table,
+                                 seq_len, causal_offset, scale: float,
+                                 kv_quant_orig_scale=None) -> torch.Tensor:
+    """W query tokens a row off layer ``layer_idx`` of the stacked block
+    pool (mixed context+generation admission).
+
+    full_pool [L, N, 2, Hkv, T, D] bf16 or int8; q [B, H, W, D];
+    block_table [B, max_blocks] integer, -1 padded; seq_len [B]: the valid
+    length INCLUDING the window's tokens, whose K/V is already in the pool;
+    causal_offset [B]: query token i of row b attends keys <= causal_offset
+    [b] + i.  MQA/GQA and the int8 scale as the single-token entry takes
+    them.  Returns [B, H, W, D].  One launch of the window entry of
+    ``csrc/paged_decode_attention.cu`` (any W, any table width); a row
+    with no valid key gives zeros on the card (the plain version's is of
+    no use either).  fp8 pools raise."""
+    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV pools are not ported yet")
+    if not q.is_cuda:
+        return plain_paged_window_attention(full_pool, layer_idx, q,
+                                            block_table, seq_len,
+                                            causal_offset, scale,
+                                            kv_quant_orig_scale)
+    L, N, two, Hkv, T, D = full_pool.shape
+    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
+                             kv_quant_orig_scale)
+    B, H, W = q.shape[0], q.shape[1], q.shape[2]
+    dev = q.device
+    if (not torch.is_tensor(causal_offset) or causal_offset.shape != (B,)
+            or causal_offset.device != dev):
+        raise TypeError(f"causal_offset must be a [{B}] tensor on {dev}")
+    # operands held in locals until the launch is enqueued (see above)
+    q = q.contiguous()
+    table_t = block_table.to(torch.int32).contiguous()
+    seq_t = seq_len.to(torch.int32).contiguous()
+    off_t = causal_offset.to(torch.int32).contiguous()
+    out = torch.empty((B, H, W, D), dtype=torch.bfloat16, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(_build.load("paged_decode_attention").paged_window_attention(
+        _ptr(q), _ptr(full_pool), int(full_pool.dtype == torch.int8),
+        int(layer_idx), N, Hkv, H // Hkv, T, D, B, table_t.shape[1], W,
+        _ptr(table_t), _ptr(seq_t), _ptr(off_t), _ptr(ks_t), float(scale),
+        _ptr(out), stream), "paged_window_attention")
+    launches["paged_window_attention"] += 1
     return out

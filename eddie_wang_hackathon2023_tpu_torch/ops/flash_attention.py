@@ -110,30 +110,34 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def kernel_takes(q, k, causal: bool = False) -> bool:
+def kernel_takes(q, k, causal: bool = False,
+                 min_causal_rows: int = MIN_FLASH_LEN) -> bool:
     """The built-in dispatch's static shape test: the kernel for every
     non-causal call on a CUDA tensor (it refuses head dims other than 64),
-    and for a causal one of ``MIN_FLASH_LEN`` query rows or more at head
-    dim 64 with no more query rows than keys, so that every row has a key;
-    the rest keep the plain version."""
+    and for a causal one of ``min_causal_rows`` query rows or more
+    (``MIN_FLASH_LEN`` unless the caller asks for fewer) at head dim 64
+    with no more query rows than keys, so that every row has a key; the
+    rest keep the plain version."""
     if not q.is_cuda:
         return False
     lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
-    return not causal or (lq >= MIN_FLASH_LEN and d == 64 and lq <= lk)
+    return not causal or (lq >= min_causal_rows and d == 64 and lq <= lk)
 
 
 def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
               kv_valid_len: Optional[int] = None,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              min_causal_rows: int = MIN_FLASH_LEN) -> torch.Tensor:
     """q [B,H,Lq,D], k/v [B,H,Lk,D] -> [B,H,Lq,D].
 
     An installed user kernel (:func:`set_custom_mha`) takes every call;
-    otherwise the kernel where :func:`kernel_takes`, else the plain
-    version.  On the card the kernel's operands may be strided views (last
-    dim contiguous, rows 16-byte aligned).  ``out``, when given, is a
-    [B,H,Lq,D] view the result is written into (e.g. a transposed
-    [B,Lq,H,D] buffer): the kernel writes it directly; a user kernel's or
-    the plain version's result is copied into it."""
+    otherwise the kernel where :func:`kernel_takes` (causal calls from
+    ``min_causal_rows`` query rows), else the plain version.  On the card
+    the kernel's operands may be strided views (last dim contiguous, rows
+    16-byte aligned).  ``out``, when given, is a [B,H,Lq,D] view the
+    result is written into (e.g. a transposed [B,Lq,H,D] buffer): the
+    kernel writes it directly; a user kernel's or the plain version's
+    result is copied into it."""
     if _custom_mha is not None:
         res = _custom_mha(q, k, v, causal=causal, scale=scale,
                           kv_valid_len=kv_valid_len)
@@ -142,7 +146,7 @@ def flash_mha(q, k, v, causal: bool = False, scale: Optional[float] = None,
             return res
         out.copy_(res)
         return out
-    if not kernel_takes(q, k, causal):
+    if not kernel_takes(q, k, causal, min_causal_rows):
         res = plain_flash_mha(q, k, v, causal, scale, kv_valid_len)
         if out is not None:
             out.copy_(res)

@@ -1,5 +1,5 @@
 """Block-paged KV-cache attention in plain PyTorch (the JAX package's
-``ops/paged_attention.py``, the modes of greedy paged serving).
+``ops/paged_attention.py``, the modes of paged serving without beams).
 
 One preallocated pool tensor holds the KV blocks; a sequence reaches its
 blocks through its row of the block table (int32 indices into the pool, -1
@@ -21,9 +21,10 @@ and is never read.  That keeps the writes one scatter each, with no host
 synchronisation (a boolean selection of the written rows would wait for
 the device).
 
-Not ported here: ``paged_append_window`` (mixed admission) and the
-``causal_offset`` and ``beam_indirection`` modes of the attention, which
-raise.
+Mixed context+generation admission writes a W-token window a row at any
+offset (:func:`paged_append_window`) and reads it with per-row
+``causal_offset`` (:func:`paged_decode_attention` with Lq = W).  Not
+ported here: the ``beam_indirection`` mode of the attention, which raises.
 """
 from __future__ import annotations
 
@@ -128,6 +129,34 @@ def paged_append_kv(pool, k_new, v_new, block_table, write_pos,
     return pool
 
 
+def paged_append_window(pool, k_new, v_new, block_table, write_pos,
+                        kv_orig_quant_scale=None, layer_idx=None,
+                        slots: Optional[TokenSlots] = None) -> torch.Tensor:
+    """Write a W-token window's K/V per row into the pool at positions
+    write_pos .. write_pos + W - 1, in place (mixed context+generation
+    admission: a prompt chunk or a decode row's pending token and its pad
+    lanes; no block alignment assumed).
+
+    k_new/v_new [B, H, W, D]; block_table [B, max_blocks]; write_pos [B];
+    the pool as :func:`paged_append_kv` takes it.  Lanes whose table slot
+    is -1 or that lie past the table go to the sink, as JAX's scatter drops
+    them; pad lanes that land in a row's own blocks write K/V past its
+    length, which its later tokens overwrite before anything reads them.
+    ``slots``: the :class:`TokenSlots` of these tables and positions, when
+    the caller has found them already."""
+    b, h, w, d = k_new.shape
+    pool_l = pool if layer_idx is None else pool[layer_idx]
+    kv = torch.stack([k_new, v_new], dim=1).permute(0, 3, 1, 2, 4)
+    kv = quantize_cache_values(kv, pool.dtype, kv_orig_quant_scale)
+    if slots is None:
+        pos = torch.as_tensor(write_pos, device=pool.device).reshape(-1, 1)
+        pos = pos.long() + torch.arange(w, device=pool.device)[None, :]
+        slots = token_slots(block_table.to(pool.device), pos,
+                            pool_l.shape[0] - 1, pool_l.shape[3])
+    put_tokens(pool_l, slots, kv.reshape(b * w, 2, h, d))
+    return pool
+
+
 def paged_prefill(pool, k, v, block_table, kv_orig_quant_scale=None,
                   layer_idx=None) -> torch.Tensor:
     """Write a whole prompt's K/V into the pool at positions 0..P-1, in
@@ -150,24 +179,27 @@ def paged_decode_attention(q, pool, block_table, seq_len,
                            kv_quant_orig_scale=None,
                            causal_offset=None,
                            beam_indirection=None) -> torch.Tensor:
-    """q [B, H, 1, D] against the block pool [N, 2, Hkv, T, D] through
-    block_table [B, max_blocks]; seq_len [B] counts the current token,
-    which is already in the pool.  Returns [B, H, 1, D].
+    """q [B, H, Lq, D] against the block pool [N, 2, Hkv, T, D] through
+    block_table [B, max_blocks]; seq_len [B] counts the current tokens,
+    which are already in the pool.  Returns [B, H, Lq, D].
+
+    Lq == 1 is the generation phase.  Lq > 1 needs ``causal_offset`` [B]
+    (the mixed context+generation window): query row i of row b attends
+    keys < seq_len[b] and <= causal_offset[b] + i.
 
     The JAX XLA formulation: every table slot's block is gathered (a -1
-    slot reads block 0, masked), positions >= seq_len are masked, fp32
-    scores and softmax, probabilities cast to the value dtype before P·V,
-    fp32 accumulation.  An int8 pool is dequantised to q's dtype with
-    ``kv_quant_orig_scale``.  MQA/GQA: query head h reads KV head
-    h // (H / Hkv).  Only the generation phase (one query token) is
-    ported: ``causal_offset`` and ``beam_indirection`` raise."""
-    if causal_offset is not None or beam_indirection is not None:
-        raise NotImplementedError("mixed windows and paged beams are not "
-                                  "ported")
+    slot reads block 0, masked), masked positions at -1e30, fp32 scores and
+    softmax, probabilities cast to the value dtype before P·V, fp32
+    accumulation (a row with no valid key averages every gathered key, as
+    there; its output is of no use).  An int8 pool is dequantised to q's
+    dtype with ``kv_quant_orig_scale``.  MQA/GQA: query head h reads KV
+    head h // (H / Hkv).  ``beam_indirection`` (paged beams) raises."""
+    if beam_indirection is not None:
+        raise NotImplementedError("paged beams are not ported")
     b, h, lq, d = q.shape
-    if lq != 1:
-        raise NotImplementedError("multi-token paged queries (mixed "
-                                  "windows) are not ported")
+    if lq != 1 and causal_offset is None:
+        raise ValueError("multi-token paged queries need per-row causal "
+                         "offsets")
     n, _, hk, t, _ = pool.shape
     if h % hk:
         raise ValueError(f"{h} query heads over {hk} KV heads")
@@ -192,7 +224,12 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     scores = _mm_f32("bhqd,bhkd->bhqk", q, k) * scale
     kpos = torch.arange(max_blocks * t, device=q.device)[None, None, None, :]
     seq = torch.as_tensor(seq_len, device=q.device).reshape(-1, 1, 1, 1)
-    scores = torch.where(kpos < seq, scores, torch.full_like(scores, NEG))
+    valid = kpos < seq
+    if lq > 1:
+        qpos = torch.arange(lq, device=q.device)[None, None, :, None]
+        off = torch.as_tensor(causal_offset, device=q.device)
+        valid = valid & (kpos <= qpos + off.reshape(-1, 1, 1, 1))
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG))
     probs = torch.softmax(scores, dim=-1)
     ctx = _mm_f32("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
     return ctx.to(q.dtype)

@@ -18,7 +18,8 @@ indirection table maps each (beam, position) to the physical cache row
 that wrote it, and the decode attention reads through it.  Ties between
 equal scores go to the lower flat index first, the rule of
 ``jax.lax.top_k`` (``torch.topk`` promises no order among ties).
-Serving still runs greedy rows only (:func:`check_greedy_config`).
+Serving (``runtime/batch_manager.py``) takes every knob per request, with
+one row of each [B] tensor a slot; its beams are not ported.
 """
 from __future__ import annotations
 
@@ -88,21 +89,6 @@ def uses_penalties(sc: SamplingConfig) -> bool:
 
 def uses_min_length(sc: SamplingConfig) -> bool:
     return bool(np.any(np.asarray(sc.min_length) > 0))
-
-
-def check_greedy_config(sc: SamplingConfig) -> None:
-    """Serving's refusal: its manager runs greedy rows only, so sampling,
-    penalties at other than their neutral values, min_length, bad and
-    stop words raise there."""
-    if not all_greedy(sc):
-        raise NotImplementedError("top-k/top-p sampling is not ported to "
-                                  "serving")
-    if uses_penalties(sc) or uses_min_length(sc):
-        raise NotImplementedError("repetition/presence penalties and "
-                                  "min_length are not ported to serving")
-    if sc.bad_words_list or sc.stop_words_list:
-        raise NotImplementedError("bad and stop words are not ported to "
-                                  "serving")
 
 
 def pack_words(words: Optional[List[List[int]]], device=None):

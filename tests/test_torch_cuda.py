@@ -48,7 +48,12 @@ cluster.  The paged kernel is held to the same gates at rep 1, 4 and 16,
 head dims 64 and 128, blocks of 16 and 32 tokens and table widths 1-8
 (split over a cluster from 5 blocks of 32), at every length from 0 to a
 full table of 4 blocks, under plans other than its wrapper's, and refusing
-plans it does not take; the beam entry at beam widths 1 to 24 (one tile
+plans it does not take, and its window entry (mixed admission) at the
+same gates with windows of 16 at offsets on and off the block edges over
+a table of 9 blocks (a row of seq 0 zeros); the dense serving tick (kernel
+2's causal mode in each admission, kernel 1 in each step) against the
+plain versions as ``chip_smoke.py`` replays it; the beam entry at beam
+widths 1 to 24 (one tile
 of 16 query beams or two), one and two groups, lengths that fill one
 slice, cross into the next, fill the cache, starts inside a slice or
 masking one, and S 1500 walked in rounds; at head dim 128 and S 1500 with
@@ -58,6 +63,7 @@ probes of ``tools/megakernel_probes.py`` sum in fp32 in another order than
 their plain versions and round once to bf16: held within one bf16 step
 (|out - ref| <= 2^-7 |ref| + 1e-5 max|ref|), the relayout's per-panel
 totals within 1e-2."""
+import contextlib
 import ctypes
 import dataclasses
 import importlib.util
@@ -2768,3 +2774,118 @@ def test_whisper_sampling_repeats_with_a_seed(dev, whisper_2_layers,
             for s in (7, 7, 8)]
     assert len(runs[0]) == 12
     assert runs[0] == runs[1] and runs[0] != runs[2]
+
+
+# -- the paged kernel's window entry and the dense serving tick --------------
+
+@pytest.mark.parametrize("shape", ["serve", "mqa", "gqa"])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+def test_paged_window_kernel_matches_plain(dev, pool_dtype, shape):
+    """The window entry (mixed admission) at the serve shape (16 KV heads
+    of 64, T 32), MQA (one KV head under 16 query heads of 128: 16 tiles
+    of query rows) and GQA (4 KV heads x 4, T 16), windows of 16 over a
+    table of 9 blocks: prompt chunks at offsets 0, 16, 37 and 45, decode
+    windows (one real token at seq - 1), a chunk at 270 (keys in rounds
+    over every warp) and a row of seq 0.  Live rows within the gates of
+    the other kernels; the dead row is zeros; one launch a call."""
+    hkv, rep, D, T = {"serve": (16, 1, 64, 32), "mqa": (1, 16, 128, 32),
+                      "gqa": (4, 4, 64, 16)}[shape]
+    g = torch.Generator(device=dev).manual_seed(21)
+    off = [0, 16, 37, 45, 60, 79, 0, 270]
+    seq = [16, 32, 53, 60, 61, 80, 0, 286]
+    W, MB = 16, -(-max(seq) // T)
+    pool, _, table, seq_t, kw = _paged_inputs(g, dev, hkv, rep, D, T,
+                                              [MB * T] * len(seq),
+                                              pool_dtype, N=160)
+    table[seq.index(0)] = -1
+    q = torch.randn(len(seq), hkv * rep, W, D, generator=g,
+                    device=dev).bfloat16()
+    seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
+    off_t = torch.tensor(off, dtype=torch.int32, device=dev)
+    before = da.launches["paged_window_attention"]
+    out = da.fused_paged_window_attention(pool, 1, q, table, seq_t, off_t,
+                                          0.125, **kw)
+    assert da.launches["paged_window_attention"] == before + 1
+    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_paged_window_attention(f32(pool), 1, q.float(), table,
+                                          seq_t, off_t, 0.125, **kw)
+    ref16 = da.plain_paged_window_attention(pool, 1, q, table, seq_t, off_t,
+                                            0.125, **kw)
+    torch.cuda.synchronize()
+    live = seq_t > 0
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert bool((out[~live] == 0).all())
+    assert _rel(out[live], ref[live]) < 1e-2
+    assert _rel(out[live], ref16[live]) < 2e-2
+
+
+def test_dense_serving_tick_on_the_card(dev):
+    """The dense slot cache on the card: 6 requests of 20 prompt tokens
+    (bucket 32) through 4 slots of a 2-layer bf16 model with heads of 64,
+    6 new tokens each.  Every admission's prefill takes kernel 2's causal
+    mode once a layer, every decode step kernel 1 once a layer, no other
+    attention kernel; the recorded calls replayed on a fresh cache give
+    the plain versions' logits (rel 5e-2, as chip_smoke's serve paths)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        ContinuousBatchingManager, InferenceRequest, SamplingConfig)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.manual_seed(3)
+    with torch.device(dev):
+        model = DecoderLMHead(DecoderConfig(
+            vocab_size=97, hidden_size=256, num_layers=2, num_heads=4,
+            max_position_embeddings=64))
+        for p in model.parameters():
+            p.normal_(0, 0.05)
+    rs = np.random.RandomState(0)
+    queue = [InferenceRequest(i, rs.randint(0, 97, 20).astype(np.int32),
+                              max_new_tokens=6, end_id=-1) for i in range(6)]
+    done, calls = {}, []
+    mgr = ContinuousBatchingManager(
+        model, SamplingConfig(end_id=-1, pad_id=0), max_batch_size=4,
+        max_seq_len=64,
+        get_inference_requests=lambda n: [queue.pop(0) for _ in range(
+            min(n, len(queue)))],
+        send_response=lambda r: done.__setitem__(r.request_id, r.output_ids)
+        if r.finished else None)
+
+    def record(mod, args):
+        cache = args[1]
+        slot = None if cache.shape == mgr.cache.shape else (
+            cache.data_ptr() - mgr.cache.data_ptr()) // (
+            cache.stride(1) * cache.element_size())
+        calls.append((args[0].clone(), slot, args[2] if isinstance(
+            args[2], int) else args[2].clone(), args[3].clone()))
+    hook = model.register_forward_pre_hook(record)
+    for m in (da, fa):
+        m.reset_launches()
+    try:
+        mgr.run()
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    assert sorted(done) == list(range(6))
+    assert all(len(t) == 6 and all(0 <= x < 97 for x in t)
+               for t in done.values())
+    n = {k: v for m in (da, fa) for k, v in m.launches.items() if v}
+    assert n == {"decode_attention_bf16": 2 * mgr.decode_steps,
+                 "flash_attention_causal": 2 * mgr.prefills}
+    assert mgr.prefills == 6
+
+    def replay(plain):
+        fresh = torch.zeros_like(mgr.cache)
+        ctx = smoke.plain_kernels() if plain else contextlib.nullcontext()
+        out = []
+        with ctx, torch.inference_mode():
+            for tok, slot, widx, seq in calls[:10]:
+                cache = fresh if slot is None else fresh[:, slot:slot + 1]
+                lg, _ = model(tok, cache, widx, seq)
+                out.append(smoke.live_logits(torch, lg, widx, seq))
+        return torch.cat(out)
+    lk, lp = replay(False), replay(True)
+    assert _rel(lk, lp) < 5e-2

@@ -441,8 +441,17 @@ def test_unported_forward_modes_raise():
                dict(kv_tail=cache)):
         with pytest.raises(NotImplementedError):
             model(tok, cache, 0, seq, **kw)
-    with pytest.raises(NotImplementedError):        # per-row write positions
-        model(tok, cache, torch.tensor([0]), seq)
+    # per-row write positions (serving's dense slot cache) are ported: a
+    # [B] write index gives the int one's logits and cache, and is not
+    # taken by the megakernel, which the blobs would otherwise route to
+    with torch.inference_mode():
+        want, _ = model(tok, cache, 0, seq)
+        row_cache = model.new_kv_cache(1, 8)
+        got, _ = model(tok, row_cache, torch.tensor([0]), seq,
+                       megakernel_blobs=object())
+    # (the weights are the model's uninitialised ones: NaN where NaN)
+    for a, b in ((got, want), (row_cache, cache)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
     # the megakernel's grouped mode is ported: the MQA model (heads of 128)
     # is eligible, its session packs blobs at batch 1 (the K and V columns
     # beside q's panel) and none at batch 2

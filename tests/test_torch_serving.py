@@ -18,7 +18,9 @@ the CPU.  Inputs come from numpy seeds and go to both sides.
   float and woq8, MHA and MQA, staggered admission, an end id that frees
   slots mid-run, a pool that cycles;
 * (f) a CPU rehearsal of ``chip_smoke.py``'s serve path at a tiny size;
-* (g) what the slice does not port raises; (h) the manager's device."""
+* (g) what serving does not port raises (beams, fp8, paged beams,
+  left-padded prompts over the pool), and the options and sampling that
+  it once refused run; (h) the manager's device."""
 import dataclasses
 import importlib.util
 import os
@@ -443,17 +445,56 @@ def test_chip_smoke_serve_path_on_cpu(one_cpu_thread):
     assert e2e["req_per_s"] > 0 and e2e["tokens_per_sec"] > 0
 
 
-# -- (g) what is not ported, and (h) the device ------------------------------
+# -- (g) what is not ported, and what this once refused; (h) the device ------
+
+def _drain(pm, sc=None, own=None, **kw):
+    """{request id: tokens} of three requests (prompts of 2, 5 and 3
+    tokens, 4 new tokens each) through 2 slots of the port's manager, and
+    the manager."""
+    prompts = [[1, 2], [5, 11, 17, 23, 31], [40, 2, 9]]
+    q = [InferenceRequest(i, np.asarray(p, np.int32), max_new_tokens=4,
+                          sampling=own) for i, p in enumerate(prompts)]
+    out = {}
+    kw = {**dict(paged=True, max_batch_size=2, max_seq_len=32,
+                 tokens_per_block=8, device="cpu"), **kw}
+    mgr = ContinuousBatchingManager(
+        pm, sc or SamplingConfig(end_id=-1, pad_id=96),
+        get_inference_requests=lambda n: [q.pop(0)] if q else [],
+        send_response=lambda r: out.__setitem__(
+            r.request_id, [int(t) for t in r.output_ids])
+        if r.finished else None, **kw)
+    mgr.run()
+    return out, mgr
+
 
 @pytest.mark.parametrize("option", [
     dict(paged=False), dict(mixed_admission=True), dict(max_beam_width=2),
     dict(steps_per_tick=2), dict(native_scheduler=True)],
     ids=lambda o: next(iter(o)))
 def test_unported_manager_options_raise(option):
+    """Beams in serving (``max_beam_width > 1``) raise.  The other options
+    were refused before this slice and now run: the dense slot cache,
+    mixed admission, two steps a tick and the native scheduler serve the
+    greedy tokens of the paged one-step manager (the JAX comparisons are
+    in ``test_torch_serving_modes.py``)."""
+    from eddie_wang_hackathon2023_tpu_torch.native import batch_runtime
     _, pm = _models(MHA, woq=False)
-    kw = dict(paged=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingManager(pm, SamplingConfig(), **{**kw, **option})
+    if "max_beam_width" in option:
+        with pytest.raises(NotImplementedError):
+            ContinuousBatchingManager(pm, SamplingConfig(), paged=True,
+                                      device="cpu", **option)
+        return
+    want, _ = _drain(pm, native_scheduler=False)
+    got, mgr = _drain(pm, **option)
+    assert got == want and all(len(t) == 4 for t in got.values())
+    if "native_scheduler" in option:
+        assert isinstance(mgr.sched, batch_runtime.NativeScheduler)
+    if "mixed_admission" in option:
+        assert mgr.mixed_ticks > 0 and mgr.prefills == 0
+    if "steps_per_tick" in option:
+        assert mgr.decode_steps == 2 * mgr.decode_ticks
+    if "paged" in option:
+        assert mgr.cache is not None and mgr.prefills == 3
 
 
 @pytest.mark.parametrize("sampling", [
@@ -462,23 +503,47 @@ def test_unported_manager_options_raise(option):
     dict(bad_words_list=[[3]]), dict(stop_words_list=[[3, 4]]),
     dict(num_beams=2)], ids=lambda o: next(iter(o)))
 def test_unported_sampling_raises(sampling):
-    """For the manager's config and for a request's own."""
+    """Beams (``num_beams=2``) raise, for the manager's config and for a
+    request's own.  The six other configs were refused before this slice
+    and now run: as the manager's config and as each request's own (with
+    the manager's seed, so the same noise) they give the same tokens, four
+    a request in range, with the knob's effect where it shows (the JAX
+    comparisons are in ``test_torch_serving_sampling.py``)."""
     _, pm = _models(MHA, woq=False)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingManager(pm, SamplingConfig(**sampling), paged=True,
-                                  device="cpu")
-    q = [InferenceRequest(0, np.asarray([1, 2], np.int32), max_new_tokens=2,
-                          sampling=SamplingConfig(**sampling))]
-    mgr = ContinuousBatchingManager(
-        pm, SamplingConfig(), paged=True, device="cpu", max_seq_len=32,
-        get_inference_requests=lambda n: [q.pop()] if q else [])
-    with pytest.raises(NotImplementedError):
-        mgr.run()
+    if "num_beams" in sampling:
+        with pytest.raises(NotImplementedError):
+            ContinuousBatchingManager(pm, SamplingConfig(**sampling),
+                                      paged=True, device="cpu")
+        q = [InferenceRequest(0, np.asarray([1, 2], np.int32),
+                              max_new_tokens=2,
+                              sampling=SamplingConfig(**sampling))]
+        mgr = ContinuousBatchingManager(
+            pm, SamplingConfig(), paged=True, device="cpu", max_seq_len=32,
+            get_inference_requests=lambda n: [q.pop()] if q else [])
+        with pytest.raises(NotImplementedError):
+            mgr.run()
+        return
+    sc = SamplingConfig(end_id=-1, pad_id=96, **sampling)
+    as_config, _ = _drain(pm, sc)
+    as_own, _ = _drain(pm, own=sc)
+    assert as_config == as_own and sorted(as_config) == [0, 1, 2]
+    for toks in as_config.values():
+        assert all(0 <= t < 97 for t in toks)
+        if "bad_words_list" in sampling:
+            assert 3 not in toks
+        if "stop_words_list" in sampling:
+            stop = [i for i in range(1, len(toks))
+                    if toks[i - 1:i + 1] == [3, 4]]
+            assert len(toks) == 4 or stop == [len(toks) - 1]
+        else:
+            assert len(toks) == 4
 
 
 def test_unported_paged_modes_raise():
-    """fp8 pools (the writes and the attention), mixed windows, paged beams,
-    and a mixed prompt/decode window through the model."""
+    """fp8 pools (the writes and the attention), paged beams, left-padded
+    prompts over the pool, and several query tokens without their causal
+    offsets raise.  The mixed windows are ported: a window's attention with
+    per-row offsets, and a prompt/decode window through the model."""
     pool = torch.zeros(1, 3, 2, 1, 4, 16)
     q = torch.zeros(2, 4, 1, 16)
     table = torch.tensor([[0, 1], [2, -1]])
@@ -488,20 +553,22 @@ def test_unported_paged_modes_raise():
         pdec.fused_paged_decode_attention(fp8, 0, q, table, seq, 0.25)
     with pytest.raises(NotImplementedError):
         ppa.paged_append_kv(fp8[0], q[:, :1], q[:, :1], table, seq - 1)
-    with pytest.raises(NotImplementedError):
-        ppa.paged_decode_attention(q, pool[0], table, seq, causal_offset=seq)
+    out = ppa.paged_decode_attention(q, pool[0], table, seq,
+                                     causal_offset=seq)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError):
         ppa.paged_decode_attention(q, pool[0], table, seq,
                                    beam_indirection=torch.zeros(1, 2, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ppa.paged_decode_attention(torch.zeros(2, 4, 3, 16), pool[0], table,
                                    seq)
     model = DecoderLMHead(DecoderConfig(**MHA, dtype="float32"))
     state = ppa.PagedCacheState(model.new_paged_pool(4, 4),
                                 torch.tensor([[0, 1], [2, -1]]))
-    with torch.inference_mode(), pytest.raises(NotImplementedError):
-        model(torch.zeros(2, 3, dtype=torch.long), state,
-              torch.tensor([1, 2]), torch.tensor([4, 5]))
+    with torch.inference_mode():
+        lg, st = model(torch.zeros(2, 3, dtype=torch.long), state,
+                       torch.tensor([1, 2]), torch.tensor([4, 5]))
+    assert lg.shape == (2, 3, 97) and st.pool is state.pool
     with torch.inference_mode(), pytest.raises(NotImplementedError):
         model(torch.zeros(2, 1, dtype=torch.long), state, torch.tensor([1, 2]),
               torch.tensor([2, 3]), attention_start=torch.tensor([0, 0]))

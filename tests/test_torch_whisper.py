@@ -241,7 +241,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     ``test_torch_generation.py`` and the llama paths in
     ``test_torch_llama_megakernel.py``, the santacoder paths in
     ``test_torch_mqa_megakernel.py`` and the bloom and chatglm paths in
-    ``test_torch_families_b.py``, and all ten are stubbed here): model
+    ``test_torch_families_b.py``, the serve_modes path in
+    ``test_torch_serving_modes.py``, and all eleven are stubbed here): model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -264,6 +265,8 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
         num_layers=2, num_heads=2, max_position_embeddings=128)
     monkeypatch.setattr(smoke, "serve_path", lambda *a, **k: (
         {}, {"paged_decode_attention": 0}))
+    monkeypatch.setattr(smoke, "serve_modes_path", lambda *a, **k: (
+        {}, {"serve_paged_mixed": {"paged_window_attention": 0}}))
     monkeypatch.setattr(smoke, "custom_path", lambda *a, **k: (
         {}, {"flash_attention_causal": 0, "custom_fmha": 0,
              "custom_fmha_f32": 0}))

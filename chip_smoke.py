@@ -284,6 +284,18 @@ KERNELS = {
     "paged_window_attention": dict(
         route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/paged_attention.py:95"),
+    # the paged kernel's beam entry (beams over the pool): the JAX package
+    # reads paged beams in XLA, its masked cross-beam formulation
+    "paged_beam_attention": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/paged_attention.py:139"),
+    # the beam entry of kernel 1 at the dense_beam serving cell's shape
+    # (GPT-350M, 8 slots of 4 beams, a slot cache of 128 columns), its own
+    # row
+    "beam_decode_attention_serve": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:213"),
     "int4_quant_matmul": dict(
         route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -327,7 +339,9 @@ KERNELS = {
 # santacoder paths (SantaCoder-1B at batch 1 through the megakernel's
 # grouped mode, bf16 and woq8), the chatglm path (ChatGLM-6B at batch 8,
 # kernel 1 in every decode step), the serve_modes path's mixed cell
-# (serve_paged_mixed: mixed admission over the pool) or the probes path
+# (serve_paged_mixed: mixed admission over the pool), its beam cells
+# (serve_paged_beam: beams over the pool; serve_dense_beam: beams over the
+# dense slot cache) or the probes path
 # (the three tools/megakernel_probe*.py scripts); the bloom path runs no
 # TPU kernel and so drives no row
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
@@ -347,6 +361,8 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "gqa_decode_attention": "decoder",
            "paged_decode_attention": "serve",
            "paged_window_attention": "serve_paged_mixed",
+           "paged_beam_attention": "serve_paged_beam",
+           "beam_decode_attention_serve": "serve_dense_beam",
            "int4_quant_matmul": "decoder_woq4",
            "flash_attention_causal": "custom", "custom_fmha": "custom",
            "custom_fmha_f32": "custom", "probe_flat_gemv": "probes",
@@ -362,6 +378,7 @@ COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "decoder_megakernel_mqa_woq8": "decoder_megakernel",
               "decode_attention_glm": "decode_attention_bf16",
               "beam_decode_attention_gen": "beam_decode_attention",
+              "beam_decode_attention_serve": "beam_decode_attention",
               "decoder_megakernel_int8_self": "decoder_megakernel",
               "decode_attention_int8_self": "decode_attention_int8"}
 # the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
@@ -1085,6 +1102,8 @@ def kernel_phases(torch, results):
     gqa_phase(torch, results, gen)
     paged_phase(torch, results, gen)
     window_phase(torch, results, gen)
+    paged_beam_phase(torch, results)
+    serve_beam_kernel_phase(torch, results)
     int4_phase(torch, results, gen)
     custom_phase(torch, results, gen)
     probes_phase(torch, results, gen)
@@ -1554,14 +1573,15 @@ def glm_kernel_phase(torch, results, gen):
 
 
 def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
-    """Time the beam entry on one group at a path's shapes, rotating over
-    the cache's layers: its time, its plain version's (some 40 kernels a
-    call, so 10 calls fit in the launch queue behind the spin), and the
-    library's, SDPA over the K/V gathered through the table beforehand
-    with the fresh column appended (the gather, one layer, timed on its
-    own); its bound.  ``seq`` is ``n`` for every beam, ``start`` the first
+    """Time the beam entry at a path's shapes (groups of beams, the rows
+    grouped by group), rotating over the cache's layers: its time, its
+    plain version's (some 40 kernels a call, so 10 calls fit in the launch
+    queue behind the spin), and the library's, SDPA over the K/V gathered
+    through the table beforehand with the fresh column appended (the
+    gather, one layer, timed on its own); its bound.  ``seq`` is ``n`` for every beam, ``start`` the first
     valid column for all (None: 0)."""
-    L, bw, _, H, D, S = cache.shape
+    L, _, _, H, D, S = cache.shape
+    bw = ind.shape[1]
     scale = D ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lo = 0 if start is None else int(start[0])
@@ -2183,6 +2203,209 @@ def window_phase(torch, results, gen):
     results["paged_window_attention"] = dict(
         **path, int8={k: int8[k] for k in keep},
         mqa={k: mqa[k] for k in keep})
+
+
+def serve_beam_case(torch, gen, dev, L, n_blocks, int8):
+    """One step of the paged_beam cell: SERVE_SLOTS slots of SERVE_BEAM
+    beams over a pool of ``L`` layers x ``n_blocks`` blocks of SERVE_BLOCK
+    tokens, 16 heads of 64 (bf16, or int8 with a scale): each slot's
+    SERVE_PROMPT-token prompt in one full block shared by its beams and a
+    partial block copied into each beam's own, a private generation block
+    a beam once its length passes 64, the rest of the table -1; lengths
+    61-80 a slot; the indirection maps the prompt to the slot's first row
+    and each later position to a random beam.  Returns (pool, q, table,
+    seq, ind, kwargs)."""
+    G, W, T, H, D = SERVE_SLOTS, SERVE_BEAM, SERVE_BLOCK, 16, 64
+    MB = SERVE_MAX_SEQ // T
+    shape = (L, n_blocks, 2, H, T, D)
+    pool = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) if int8 else
+            torch.randn(shape, generator=gen, device=dev).bfloat16())
+    q = torch.randn((G * W, H, 1, D), generator=gen, device=dev).bfloat16()
+    n = torch.randint(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1, (G,),
+                      generator=gen, device=dev, dtype=torch.int32)
+    blocks = torch.randperm(n_blocks, generator=gen, device=dev).to(
+        torch.int32).tolist()
+    table = torch.full((G * W, MB), -1, dtype=torch.int32, device=dev)
+    for g in range(G):
+        shared = blocks.pop()
+        for w in range(W):
+            row = [shared] + [blocks.pop() for _ in range(
+                -(-int(n[g]) // T) - 1)]
+            table[g * W + w, :len(row)] = torch.tensor(row, device=dev)
+    seq = n.repeat_interleave(W)
+    ind = torch.randint(0, W, (G, W, SERVE_MAX_SEQ), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ind[..., :SERVE_PROMPT] = 0
+    kw = dict(scale=D ** -0.5, kv_quant_orig_scale=(
+        torch.tensor(1 / 40.0, device=dev) if int8 else None))
+    return pool, q, table, seq, ind, kw
+
+
+def paged_pairs(torch, table, seq, ind, T):
+    """The distinct (block, token) pairs that the beam rows' tables and
+    the indirection ``ind`` [groups, beams, S] point at below each row's
+    length: the K/V that a paged beam step must read."""
+    G, W, S = ind.shape
+    pos = torch.arange(S, device=ind.device)
+    src = (torch.arange(G, device=ind.device)[:, None, None] * W
+           + ind.long())                                   # [G, W, S]
+    blk = table.long()[src.reshape(-1, S), (pos // T)[None, :].expand(
+        G * W, S)]
+    valid = pos[None, :] < seq.long()[:, None]
+    pair = blk * T + (pos % T)[None, :]
+    return int(torch.unique(pair[valid]).numel())
+
+
+def paged_beam_phase(torch, results):
+    """The paged kernel's beam entry against its plain version at the
+    paged_beam cell's shape (32 rows: 8 slots of 4 beams; 16 heads of 64;
+    blocks of 32; :func:`serve_beam_case`), bf16 and int8 pools over 24
+    layers; each timed with CUDA events behind a spin, with its plain
+    version's time and SDPA with the length mask on K/V gathered through
+    the table and the indirection beforehand (the gather timed on its
+    own).  Its own generator keeps the other phases' draws as they
+    were."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, T, MB = 24, SERVE_BLOCK, SERVE_MAX_SEQ // SERVE_BLOCK
+    n_blocks = SERVE_SLOTS * (1 + SERVE_BEAM * (MB - 1))
+
+    def call(impl, pool, layer, q, table, seq, ind, kw):
+        return impl(pool, layer, q, table, seq, ind, kw["scale"],
+                    kv_quant_orig_scale=kw["kv_quant_orig_scale"])
+
+    def gathered(pool, layer, table, ind, kw):
+        """one layer's K and V of each row through its table and the
+        indirection, [rows, H, MB*T, D] bf16"""
+        G, W, S = ind.shape
+        rows = G * W
+        src = (torch.arange(G, device=dev)[:, None, None] * W
+               + ind.long()).reshape(rows, S)
+        pos = torch.arange(S, device=dev)[None, :].expand(rows, S)
+        blk = table.long()[src, pos // T].clamp(min=0)     # [rows, S]
+        kv = pool[layer][blk, :, :, pos % T]               # [rows,S,2,H,D]
+        if pool.dtype == torch.int8:
+            kv = (kv.float() * kw["kv_quant_orig_scale"]).bfloat16()
+        return tuple(kv[:, :, j].transpose(1, 2).contiguous()
+                     for j in (0, 1))
+
+    timings = {}
+    for what, int8 in (("path: bf16", False), ("int8 pool", True)):
+        pool, q, table, seq, ind, kw = serve_beam_case(torch, gen, dev, L,
+                                                       n_blocks, int8)
+        before = da.launches["paged_beam_attention"]
+        out = call(da.fused_paged_beam_attention, pool, L - 1, q, table,
+                   seq, ind, kw)
+        check(da.launches["paged_beam_attention"] == before + 1,
+              f"paged beam ({what}): one launch a call")
+        ref = call(da.plain_paged_beam_attention, pool, L - 1, q, table,
+                   seq, ind, kw)
+        f32 = (lambda t: t) if int8 else (lambda t: t.float())
+        ref32 = call(da.plain_paged_beam_attention, f32(pool), L - 1,
+                     q.float(), table, seq, ind, kw)
+        torch.cuda.synchronize()
+        e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+        print(f"paged beam ({what}): rel err vs plain bf16 {e16:.3e}, vs "
+              f"fp32 {e32:.3e}")
+        check(bool(torch.isfinite(out).all()) and e16 < 2e-2 and e32 < 1e-2,
+              f"paged beam attention ({what}) matches plain (rel 2e-2 bf16, "
+              "1e-2 fp32)")
+        ms, wall = time_ms(torch, lambda i: call(
+            da.fused_paged_beam_attention, pool, i % L, q, table, seq, ind,
+            kw))
+        plain_ms, _ = time_ms(torch, lambda i: call(
+            da.plain_paged_beam_attention, pool, i % L, q, table, seq, ind,
+            kw), iters=10)
+        gather_ms, _ = time_ms(torch, lambda i: gathered(
+            pool, i % L, table, ind, kw), iters=10)
+        k_g, v_g = (torch.stack(t) for t in zip(*(
+            gathered(pool, i, table, ind, kw) for i in range(L))))
+        mask = (torch.arange(SERVE_MAX_SEQ, device=dev)[None, :]
+                < seq[:, None])[:, None, None, :]
+        lib_ms, _ = time_ms(torch, lambda i: sdpa(
+            q, k_g[i % L], v_g[i % L], attn_mask=mask, scale=kw["scale"]))
+        lib_err = rel_err(sdpa(q, k_g[L - 1], v_g[L - 1], attn_mask=mask,
+                               scale=kw["scale"]), out)
+        del k_g, v_g
+        # bytes: K and V of the distinct (block, token) pairs the tables
+        # and the indirection point at, q, the output, the tables, the
+        # indirection's valid positions and the lengths; operations: 4 per
+        # (row, head, valid key, d)
+        rows, H, D = q.shape[0], q.shape[1], q.shape[3]
+        pairs = paged_pairs(torch, table, seq, ind, T)
+        n_bytes = (pairs * 2 * H * D * pool.element_size()
+                   + 2 * rows * H * D * 2 + rows * MB * 4
+                   + int(seq.sum()) * 4 + rows * 4)
+        b_ms, b_by = bound(n_bytes, 4 * H * D * int(seq.sum()),
+                           PEAK_FP32_CUDA_CORES)
+        plan = da.paged_plan(MB, T, 1)
+        print(f"paged beam ({what}): plan {plan}; the tables and the "
+              f"indirection point at {pairs} of {int(seq.sum())} (row, "
+              f"token) reads")
+        print(f"paged beam ({what}): {ms * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.3f} us, {b_by}, {n_bytes / 1e6:.3f} MB); plain "
+              f"{plain_ms * 1e3:.2f} us; SDPA with the mask on the gathered "
+              f"K/V {lib_ms * 1e3:.2f} us (rel err vs the kernel "
+              f"{lib_err:.3e}) + the gather {gather_ms * 1e3:.2f} us")
+        timings[what] = dict(
+            max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_gather_ms=gather_ms, host_call_ms=wall,
+            plan=plan, table_pairs=pairs, rel_err_vs_plain=(e16, e32))
+        del pool
+    path, int8 = timings.values()
+    results["paged_beam_attention"] = dict(
+        **path, int8={k: int8[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "library_gather_ms",
+            "rel_err_vs_plain", "max_abs_err")})
+
+
+def serve_beam_kernel_phase(torch, results):
+    """Kernel 1's beam entry at the dense_beam cell's shape (GPT-350M: 24
+    layers of 16 heads of 64, bf16; 8 slots of 4 beams, a slot cache of
+    SERVE_MAX_SEQ columns, sequence 70: the middle of a request's 20
+    steps; the prompt read from each slot's first row, later positions
+    from random beams) against its plain version, timed with its bound,
+    the plain version's time and the library's (:func:`beam_numbers`).
+    Its own generator keeps the other phases' draws as they were."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    L, G, W, H, D, S = 24, SERVE_SLOTS, SERVE_BEAM, 16, 64, SERVE_MAX_SEQ
+    n = SERVE_PROMPT + SERVE_NEW // 2
+    scale = D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = randn(G * W, H, 1, D)
+    cache = randn(L, G * W, 2, H, D, S)
+    fresh = (randn(G * W, H, D, 1), randn(G * W, H, D, 1))
+    ind = torch.randint(0, W, (G, W, S), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ind[..., :SERVE_PROMPT] = 0
+    seq = torch.full((G * W,), n, dtype=torch.int32, device=dev)
+    kw = dict(fresh_kv=fresh, beam_indirection=ind)
+    out = da.fused_decode_attention(cache, 3, q, seq, scale, **kw)
+    ref = da.plain_beam_decode_attention(cache, 3, q, seq, scale, **kw)
+    ref32 = da.plain_beam_decode_attention(
+        cache[3:4].float(), 0, q.float(), seq, scale,
+        fresh_kv=tuple(t.float() for t in fresh), beam_indirection=ind)
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    print(f"beam decode (dense_beam shape): rel err vs plain bf16 "
+          f"{e16:.3e}, vs fp32 {e32:.3e}")
+    check(e16 < 2e-2 and e32 < 1e-2,
+          f"beam decode attention ({G} groups of beam {W}, {H} heads, S={S}, "
+          f"seq {n}) matches plain (rel 2e-2 bf16, 1e-2 fp32)")
+    results["beam_decode_attention_serve"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()),
+        rel_err_vs_plain=(e16, e32),
+        **beam_numbers(torch, da, cache, q, seq, fresh, ind, n))
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -2889,20 +3112,22 @@ def plain_kernels():
     from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     saved = (la.fused_decode_attention, la.flash_mha,
              la.fused_paged_decode_attention,
-             la.fused_paged_window_attention, iq.quant_matmul_int4)
+             la.fused_paged_window_attention, la.fused_paged_beam_attention,
+             iq.quant_matmul_int4)
     la.fused_decode_attention = da.plain_decode_attention
     la.flash_mha = lambda q, k, v, causal=False, scale=None, \
         kv_valid_len=None, out=None, min_causal_rows=None: out.copy_(
             fa.plain_flash_mha(q, k, v, causal, scale, kv_valid_len))
     la.fused_paged_decode_attention = da.plain_paged_decode_attention
     la.fused_paged_window_attention = da.plain_paged_window_attention
+    la.fused_paged_beam_attention = da.plain_paged_beam_attention
     iq.quant_matmul_int4 = iq.plain_quant_matmul_int4
     try:
         yield
     finally:
         (la.fused_decode_attention, la.flash_mha,
          la.fused_paged_decode_attention, la.fused_paged_window_attention,
-         iq.quant_matmul_int4) = saved
+         la.fused_paged_beam_attention, iq.quant_matmul_int4) = saved
 
 
 def build_whisper(torch, np, config, device, recipe, label):
@@ -4703,13 +4928,26 @@ def serve_path(torch, np, config=None, device="cuda", label="serve",
 
 # the serve_modes path's cells: serve_bench.py's --matrix (dense | paged) x
 # (greedy | top-p 0.9 at temperature 0.8, serve_bench.py:107-108), --mixed
-# and --steps_per_tick, the paged greedy cell being the serve path
+# and --steps_per_tick, the paged greedy cell being the serve path; then
+# serve_bench.py's --beam 4 (serve_bench.py:108-111: every request of
+# SERVE_BEAM beams) on the dense slot cache, on the pool and on the pool
+# under mixed admission, and the paged greedy cell over an int8 pool (the
+# model with an int8 KV cache, ``kv8``)
+SERVE_BEAM = 4
 SERVE_MODES = {
     "dense": dict(paged=False),
     "dense_topp": dict(paged=False, top_p=0.9),
     "paged_topp": dict(paged=True, top_p=0.9),
     "paged_mixed": dict(paged=True, mixed_admission=True, chunk_width=16),
     "paged_spt4": dict(paged=True, steps_per_tick=4),
+    "dense_beam": dict(paged=False, max_beam_width=SERVE_BEAM,
+                       beams=SERVE_BEAM),
+    "paged_beam": dict(paged=True, max_beam_width=SERVE_BEAM,
+                       beams=SERVE_BEAM),
+    "paged_beam_mixed": dict(paged=True, mixed_admission=True,
+                             chunk_width=16, max_beam_width=SERVE_BEAM,
+                             beams=SERVE_BEAM),
+    "paged_kv8": dict(paged=True, kv8=True),
 }
 # the recorded calls each cell replays teacher-forced: its opening calls
 # (the admissions, or the mixed ticks that feed the prompts) and this many
@@ -4738,6 +4976,31 @@ def live_logits(torch, logits, widx, seq):
     return logits[rows, lane][seq > 0]
 
 
+def kv8_serve_model(torch, np, state, c, model, prompts, device):
+    """The serve model with an int8 KV cache (``kv8``): its weights
+    (``state``, the JAX layout), each layer's scales from the seed as
+    ``tests/test_torch_kv8.py`` makes the decoder-only model's: amax / 127
+    of the float model's cache after a prefill of the first SERVE_SLOTS
+    prompts."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state
+    ids = torch.from_numpy(np.stack(prompts[:SERVE_SLOTS])).long().to(
+        device)
+    cache = model.new_kv_cache(SERVE_SLOTS, SERVE_PROMPT)
+    with torch.inference_mode():
+        model(ids, cache, 0, SERVE_PROMPT)
+    t = (cache.float().abs().amax(dim=(1, 2, 3, 4, 5)) / 127).cpu().numpy()
+    t = t.reshape(-1, 1).astype(np.float32)
+    del cache
+    cfg = dataclasses.replace(c, quant_mode=c.quant_mode.set_int8_kv_cache())
+    return from_jax_state({**state,
+                           "blocks.attention.kv_orig_quant_scale": 1.0 / t,
+                           "blocks.attention.kv_quant_orig_scale": t},
+                          cfg, device=device)
+
+
 def serve_modes_path(torch, np, config=None, device="cuda",
                      reference=None):
     """The serve_modes path on ``device``: ``config`` (default GPT-350M)
@@ -4747,19 +5010,24 @@ def serve_modes_path(torch, np, config=None, device="cuda",
     SERVE_PROMPT + SERVE_NEW tokens, max_seq_len SERVE_MAX_SEQ, blocks of
     SERVE_BLOCK, ``end_id=-1``): a warm-up drain that records every model
     call, then one timed drain, each of the serve path's prompts and on a
-    manager of its own (one seed).  Each cell: every request served with
+    manager of its own (one seed).  The beam cells' requests each ask for
+    SERVE_BEAM beams of a manager of that width; the kv8 cell's model is
+    :func:`kv8_serve_model`.  Each cell: every request served with
     SERVE_NEW tokens in range; on the card the launch counts (dense:
-    kernel 1 once a layer a decode step and kernel 2's causal mode once a
-    layer an admission; paged: the paged kernel once a layer a decode step
-    and its window entry once a layer a mixed tick; no other attention
-    kernel) and the native scheduler; the recorded opening calls and
+    kernel 1, or its beam entry, once a layer a decode step and kernel 2's
+    causal mode once a layer an admission; paged: the paged kernel, or its
+    beam entry, once a layer a decode step and its window entry once a
+    layer a mixed tick; no other attention kernel), the int8 pool of the
+    kv8 cell and the native scheduler; the recorded opening calls and
     SERVE_MODES_CHECK steps replayed teacher-forced through the plain
     versions on a fresh cache or pool (rel 5e-2, as the serve path); a
     greedy cell's share of tokens equal to ``reference`` (the serve path's
-    paged greedy run, {request: tokens}; printed for every cell), a
-    sampled cell's two drains of one seed equal.  Prints serve_bench's
-    metrics, the decode step's wall and device-busy time and idle share,
-    and peak memory.  Returns ({cell: numbers}, {cell: launch counts})."""
+    paged greedy run, {request: tokens}; printed for every cell), a beam
+    cell's share of requests whose best sequence equals the dense_beam
+    cell's, a sampled cell's two drains of one seed equal.  Prints
+    serve_bench's metrics, the decode step's wall and device-busy time
+    and idle share, and peak memory.  Returns ({cell: numbers}, {cell:
+    launch counts})."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
         from_jax_state
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
@@ -4774,12 +5042,14 @@ def serve_modes_path(torch, np, config=None, device="cuda",
     on_card = device.type == "cuda"
     c = config or gpt_350m_config()
     t0 = time.time()
-    model = from_jax_state(random_decoder_state(
-        torch, np, c, np.random.default_rng(SEED)), c, device=device)
+    state = random_decoder_state(torch, np, c, np.random.default_rng(SEED))
+    model = from_jax_state(state, c, device=device)
+    prompts = serve_prompts(np, c)
+    model_kv8 = kv8_serve_model(torch, np, state, c, model, prompts, device)
+    del state
     sync(torch, device)
     print(f"[serve_modes] {c.num_layers} layers of width {c.hidden_size}, "
           f"built in {time.time() - t0:.1f} s; cells {list(SERVE_MODES)}")
-    prompts = serve_prompts(np, c)
     mods = (da, fa, mk)
 
     def manager(opts):
@@ -4787,15 +5057,21 @@ def serve_modes_path(torch, np, config=None, device="cuda",
         sc = (SamplingConfig(end_id=-1, pad_id=0, temperature=0.8,
                              top_p=top_p, random_seed=SEED)
               if top_p > 0 else SamplingConfig(end_id=-1, pad_id=0))
-        kw = {k: v for k, v in opts.items() if k != "top_p"}
+        kw = {k: v for k, v in opts.items()
+              if k not in ("top_p", "beams", "kv8")}
         return ContinuousBatchingManager(
-            model, sc, max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+            model_kv8 if opts.get("kv8") else model, sc,
+            max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
             tokens_per_block=SERVE_BLOCK, device=device, **kw)
 
-    def drain(mgr):
+    def drain(mgr, beams):
         """One drain of the prompts, timed as serve_bench.py times it:
-        ({request: tokens}, {request: pull-to-first-response s}, wall s)."""
-        queue = [InferenceRequest(i, p, max_new_tokens=SERVE_NEW, end_id=-1)
+        ({request: tokens}, {request: pull-to-first-response s}, wall s).
+        ``beams``: each request's beam width (1: the manager's sampling)."""
+        own = (SamplingConfig(end_id=-1, pad_id=0, num_beams=beams)
+               if beams > 1 else None)
+        queue = [InferenceRequest(i, p, max_new_tokens=SERVE_NEW, end_id=-1,
+                                  sampling=own)
                  for i, p in enumerate(prompts)]
         done, admitted_at, first_tok = {}, {}, {}
 
@@ -4820,10 +5096,12 @@ def serve_modes_path(torch, np, config=None, device="cuda",
         sync(torch, device)
         return done, first_tok, time.time() - t
 
-    e2e, counts = {}, {}
+    e2e, counts, beam_ref = {}, {}, None
     for cell, opts in SERVE_MODES.items():
         label = f"serve_modes/{cell}"
         sampled = opts.get("top_p", 0.0) > 0
+        beams = opts.get("beams", 1)
+        mdl = model_kv8 if opts.get("kv8") else model
         # warm-up, recording every model call for the replay below
         mgr = manager(opts)
         calls = []
@@ -4833,16 +5111,17 @@ def serve_modes_path(torch, np, config=None, device="cuda",
             if isinstance(cache, PagedCacheState):
                 where = cache.block_table.clone()
             else:
-                # the slot of a dense admission (its row, a view), or None
+                # the row of a dense admission (a view), or None
                 where = None if cache.shape == mgr.cache.shape else (
                     cache.data_ptr() - mgr.cache.data_ptr()) // (
                     cache.stride(1) * cache.element_size())
+            ind = kwargs.get("beam_indirection")
             calls.append((args[0].clone(), where, (
                 args[2].clone() if torch.is_tensor(args[2]) else args[2]),
-                args[3].clone()))
-        hook = model.register_forward_pre_hook(record, with_kwargs=True)
+                args[3].clone(), None if ind is None else ind.clone()))
+        hook = mdl.register_forward_pre_hook(record, with_kwargs=True)
         try:
-            warm, _, _ = drain(mgr)
+            warm, _, _ = drain(mgr, beams)
         finally:
             hook.remove()
         native = type(mgr.sched).__name__
@@ -4856,7 +5135,7 @@ def serve_modes_path(torch, np, config=None, device="cuda",
             torch.cuda.reset_peak_memory_stats()
         for m in mods:
             m.reset_launches()
-        done, first_tok, dt = drain(mgr)
+        done, first_tok, dt = drain(mgr, beams)
         n = {k: v for m in mods for k, v in m.launches.items()}
         counts["serve_" + cell] = n
         peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
@@ -4868,11 +5147,18 @@ def serve_modes_path(torch, np, config=None, device="cuda",
               f"[{label}] {SERVE_REQUESTS} requests served, {SERVE_NEW} "
               "tokens each, in range")
         L = c.num_layers
+        if opts.get("kv8"):
+            check(mgr.pool.dtype == torch.int8, f"[{label}] the pool is int8")
         if on_card:
-            want = ({"decode_attention_bf16": L * mgr.decode_steps,
+            step_kernel = ("beam_decode_attention" if beams > 1
+                           else "decode_attention_bf16")
+            if opts["paged"]:
+                step_kernel = ("paged_beam_attention" if beams > 1
+                               else "paged_decode_attention")
+            want = ({step_kernel: L * mgr.decode_steps,
                      "flash_attention_causal": L * mgr.prefills}
                     if not opts["paged"] else
-                    {"paged_decode_attention": L * mgr.decode_steps,
+                    {step_kernel: L * mgr.decode_steps,
                      "paged_window_attention": L * mgr.mixed_ticks})
             want = {k: v for k, v in want.items() if v}
             check({k: v for k, v in n.items() if v} == want,
@@ -4885,21 +5171,25 @@ def serve_modes_path(torch, np, config=None, device="cuda",
         n_calls = opening + SERVE_MODES_CHECK
 
         def replay(plain):
-            fresh = (model.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
+            fresh = (mdl.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
                      if opts["paged"] else torch.zeros_like(mgr.cache))
             ctx = plain_kernels() if plain else contextlib.nullcontext()
             out = []
             with ctx, torch.inference_mode():
-                for tok, where, widx, seq in calls[:n_calls]:
+                for tok, where, widx, seq, ind in calls[:n_calls]:
                     if opts["paged"]:
                         cache = PagedCacheState(fresh, where)
                     else:
                         cache = (fresh if where is None
                                  else fresh[:, where:where + 1])
-                    lg, _ = model(tok, cache, widx, seq)
+                    lg, _ = mdl(tok, cache, widx, seq, beam_indirection=ind)
                     out.append(live_logits(torch, lg, widx, seq))
             return torch.cat(out)
-        lk, lp = replay(False), replay(True)
+        lk = replay(False)
+        before = {k: v for m in mods for k, v in m.launches.items()}
+        lp = replay(True)
+        check(before == {k: v for m in mods for k, v in m.launches.items()},
+              f"[{label}] the plain replay launched no kernel")
         e_lg = rel_err(lk, lp)
         agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
         check(bool(torch.isfinite(lk).all()) and e_lg < 5e-2,
@@ -4918,20 +5208,26 @@ def serve_modes_path(torch, np, config=None, device="cuda",
             same = sum(a == b for a, b in toks) / len(toks)
             print(f"[{label}] tokens equal to the paged greedy run's: "
                   f"{same:.3f}")
+        same_beam = None
+        if beams > 1:
+            beam_ref = beam_ref or done
+            same_beam = sum(done[r] == beam_ref[r] for r in done) / len(done)
+            print(f"[{label}] requests whose best sequence equals the "
+                  f"dense_beam cell's: {same_beam:.3f}")
         step = {}
         if on_card:
             # the decode step (teacher-forced, on a fresh cache or pool
             # after the opening calls)
-            fresh = (model.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
+            fresh = (mdl.new_paged_pool(mgr.num_blocks, SERVE_BLOCK)
                      if opts["paged"] else torch.zeros_like(mgr.cache))
 
             def call(j):
-                tok, where, widx, seq = calls[j]
+                tok, where, widx, seq, ind = calls[j]
                 cache = (PagedCacheState(fresh, where) if opts["paged"]
                          else fresh if where is None
                          else fresh[:, where:where + 1])
-                return model(tok, cache, widx, seq)
-            step = step_timing(torch, model, call, label, first=opening)
+                return mdl(tok, cache, widx, seq, beam_indirection=ind)
+            step = step_timing(torch, mdl, call, label, first=opening)
         lat = sorted(first_tok.values())
         toks = sum(len(t) for t in done.values())
         e2e[cell] = dict(
@@ -4943,7 +5239,8 @@ def serve_modes_path(torch, np, config=None, device="cuda",
             first_token_ms_p95=1e3 * lat[int(0.95 * (len(lat) - 1))],
             peak_gib=peak, logits_rel_err=e_lg,
             logits_argmax_agreement=agree, scheduler=native,
-            tokens_equal_to_paged_greedy=same)
+            tokens_equal_to_paged_greedy=same,
+            beam_equal_to_dense_beam=same_beam)
         print(f"[{label}] end to end: req_per_s {len(done) / dt:.3f} "
               f"tokens_per_sec {toks / dt:.2f} first_token_ms_mean "
               f"{e2e[cell]['first_token_ms_mean']:.1f} p95 "

@@ -58,6 +58,25 @@
 //     alone for the max, then K and V for P and P·V (scores recomputed), so
 //     P is still rounded against the max of all tokens.
 //
+// The beam entry (`paged_beam_attention`, beam search over the pool) replaces
+// no TPU kernel: the JAX package runs paged beams in XLA, its masked
+// cross-beam formulation (ops/paged_attention.py:139-170).  Rows are grouped
+// by slot, r = g * bw + w, every beam row appending into its own private
+// block chain; position s of row r is read from the chain of row g * bw +
+// ind[g, w, s], the beam that wrote it (shared prompt blocks appear in every
+// beam's table).  It is the single-token kernel above with that one
+// difference, `kBeam` (one body, `paged_decode_body`, under two kernels,
+// so that the single-token kernel keeps its parameters): each lane looks
+// up its token's source row in the indirection table, then that row's
+// table entry, before it stages the token.  Equal heads only (rep 1: the JAX formulation reshapes q with the
+// KV heads and cannot run MQA/GQA beams).  Bound as the single-token
+// entry's: the bytes of the distinct (block, token) pairs that the rows'
+// tables and the indirection point at, which at the serve shape (32 rows of
+// 16 heads of 64) is far below a block's latency.  The first design, simple
+// and right: the two dependent loads (the indirection entry, then the table
+// entry) lengthen round 1 by one load; tokens that several beams share are
+// staged once a beam, each block reading its own row.
+//
 // The window entry (`paged_window_attention`, mixed context+generation
 // admission) replaces no TPU kernel: the JAX package computes the window in
 // XLA (ops/paged_attention.py:95, Lq > 1 with `causal_offset`), after its
@@ -220,17 +239,20 @@ __host__ __device__ inline Smem layout(int D, int elem, int warps, int heads,
   return s;
 }
 
-// kH: query heads a block (1 or 2); rows past rep in the last tile of
-// heads are computed from zeros and never stored
-template <typename CT, int kH>
-__global__ void __launch_bounds__(kMaxWarps * kWarp, 1)
-paged_decode_attention_kernel(
+// The single-token kernel's body.  kH: query heads a block (1 or 2); rows
+// past rep in the last tile of heads are computed from zeros and never
+// stored.  kBeam: each token's table row is that of the beam the
+// indirection names (the beam entry); without it `ind` is not read
+template <typename CT, int kH, bool kBeam>
+__device__ __forceinline__ void paged_decode_body(
     const __nv_bfloat16* __restrict__ q,   // [B, Hkv*rep, D]
     const CT* __restrict__ pool,           // [L, N, 2, Hkv, T, D]
     int layer, int N, int Hkv, int rep, int T, int D, int MB,
     const int* __restrict__ table,         // [B, MB]
     const int* __restrict__ seq_len,       // [B]
     const float* __restrict__ kscale_ptr, float scale, int width,
+    const int* __restrict__ ind,           // [B / bw, bw, S_ind] (kBeam)
+    int bw, int S_ind,
     __nv_bfloat16* __restrict__ out) {     // [B, Hkv*rep, D]
   constexpr int E = (int)sizeof(CT);
   constexpr int kEW = 4 / E;               // values a 4-byte word
@@ -283,6 +305,14 @@ paged_decode_attention_kernel(
   const int lo_r = rank * width;           // this block's first token
   const int per_round = warps * kWarp;
   auto entry = [&](int tok) {              // raw, or 0 past the table
+    if constexpr (kBeam) {
+      if (tok >= cap) return 0;
+      // the beam that wrote position tok (0 past the table's width), its
+      // row among the group's bw consecutive rows
+      const int src = tok < S_ind ? ind[(size_t)b * S_ind + tok] : 0;
+      const int row = b - b % bw + min(max(src, 0), bw - 1);
+      return table[(size_t)row * MB + tok / T];
+    }
     return tok < cap ? table[(size_t)b * MB + tok / T] : 0;
   };
   int tab = entry(lo_r + warp * kWarp + lane);
@@ -577,13 +607,45 @@ paged_decode_attention_kernel(
 }
 
 template <typename CT, int kH>
+__global__ void __launch_bounds__(kMaxWarps * kWarp, 1)
+paged_decode_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const CT* __restrict__ pool,
+    int layer, int N, int Hkv, int rep, int T, int D, int MB,
+    const int* __restrict__ table, const int* __restrict__ seq_len,
+    const float* __restrict__ kscale_ptr, float scale, int width,
+    __nv_bfloat16* __restrict__ out) {
+  paged_decode_body<CT, kH, false>(q, pool, layer, N, Hkv, rep, T, D, MB,
+                                   table, seq_len, kscale_ptr, scale, width,
+                                   nullptr, 1, 0, out);
+}
+
+// the beam entry: one query head a block, equal heads
+template <typename CT>
+__global__ void __launch_bounds__(kMaxWarps * kWarp, 1)
+paged_beam_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const CT* __restrict__ pool,
+    int layer, int N, int H, int T, int D, int MB,
+    const int* __restrict__ table, const int* __restrict__ seq_len,
+    const float* __restrict__ kscale_ptr, float scale, int width,
+    const int* __restrict__ ind, int bw, int S_ind,
+    __nv_bfloat16* __restrict__ out) {
+  paged_decode_body<CT, 1, true>(q, pool, layer, N, H, 1, T, D, MB, table,
+                                 seq_len, kscale_ptr, scale, width, ind, bw,
+                                 S_ind, out);
+}
+
+template <typename CT, int kH, bool kBeam>
 int launch(const void* q, const void* pool, int layer, int N, int Hkv,
            int rep, int T, int D, int B, int MB, const int* table,
            const int* seq_len, const float* kscale, float scale, int splits,
-           int width, int warps, void* out, cudaStream_t st) {
+           int width, int warps, const int* ind, int bw, int S_ind,
+           void* out, cudaStream_t st) {
   const Smem sm = layout(D, (int)sizeof(CT), warps, kH, splits);
   if (sm.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = paged_decode_attention_kernel<CT, kH>;
+  auto kernel = [] {
+    if constexpr (kBeam) return paged_beam_attention_kernel<CT>;
+    else return paged_decode_attention_kernel<CT, kH>;
+  }();
   // the shared memory this instantiation may take, raised once per size
   static size_t smem_allowed = 48 * 1024;
   if (sm.bytes > smem_allowed) {
@@ -604,10 +666,17 @@ int launch(const void* q, const void* pool, int layer, int N, int Hkv,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const CT*>(pool), layer, N, Hkv, rep, T, D, MB, table,
-      seq_len, kscale, scale, width, static_cast<__nv_bfloat16*>(out));
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* pp = static_cast<const CT*>(pool);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  cudaError_t e;
+  if constexpr (kBeam)
+    e = cudaLaunchKernelEx(&cfg, kernel, qp, pp, layer, N, Hkv, T, D, MB,
+                           table, seq_len, kscale, scale, width, ind, bw,
+                           S_ind, op);
+  else
+    e = cudaLaunchKernelEx(&cfg, kernel, qp, pp, layer, N, Hkv, rep, T, D,
+                           MB, table, seq_len, kscale, scale, width, op);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -619,10 +688,12 @@ int launch_heads(int heads, const void* q, const void* pool, int layer,
                  float scale, int splits, int width, int warps, void* out,
                  cudaStream_t st) {
   if (heads == 1)
-    return launch<CT, 1>(q, pool, layer, N, Hkv, rep, T, D, B, MB, table,
-                         seq_len, kscale, scale, splits, width, warps, out, st);
-  return launch<CT, 2>(q, pool, layer, N, Hkv, rep, T, D, B, MB, table,
-                       seq_len, kscale, scale, splits, width, warps, out, st);
+    return launch<CT, 1, false>(q, pool, layer, N, Hkv, rep, T, D, B, MB,
+                                table, seq_len, kscale, scale, splits, width,
+                                warps, nullptr, 1, 0, out, st);
+  return launch<CT, 2, false>(q, pool, layer, N, Hkv, rep, T, D, B, MB,
+                              table, seq_len, kscale, scale, splits, width,
+                              warps, nullptr, 1, 0, out, st);
 }
 
 // -- the window entry --------------------------------------------------------
@@ -899,6 +970,37 @@ int paged_decode_attention(const void* q, const void* pool, int pool_is_int8,
   return launch_heads<__nv_bfloat16>(heads, q, pool, layer, N, Hkv, rep, T,
                                      D, B, MB, table, seq_len, kscale, scale,
                                      splits, width, warps, out, st);
+}
+
+// The beam entry: q [B, H, D] bf16 and a pool of H KV heads (equal heads);
+// pool, table, seq_len and kscale as above, the rows grouped by slot (B a
+// multiple of bw); ind [B / bw, bw, S_ind] int32: position s of row
+// g * bw + w is read through the table row g * bw + ind[g, w, s] (0 past
+// S_ind); the plan is the wrapper's `paged_plan` at rep 1 (heads 1).
+// Returns the launch's CUDA error (0 = launched).
+int paged_beam_attention(const void* q, const void* pool, int pool_is_int8,
+                         int layer, int N, int H, int T, int D, int B,
+                         int MB, const int* table, const int* seq_len,
+                         const int* ind, int bw, int S_ind,
+                         const float* kscale, float scale, int splits,
+                         int width, int warps, int rounds, void* out,
+                         void* stream) {
+  const bool pow2_warps = warps == 1 || warps == 2 || warps == 4;
+  if (D < 16 || D > kMaxD || D % 16 || H < 1 || T < 1 || N < 1 || MB < 1 ||
+      B < 1 || B > 65535 || bw < 1 || B % bw || S_ind < 1 || layer < 0 ||
+      splits < 1 || splits > kMaxSplits || width < kWarp || width % kWarp ||
+      (long long)splits * width < (long long)MB * T ||
+      (long long)(splits - 1) * width >= (long long)MB * T || !pow2_warps ||
+      rounds != (width + warps * kWarp - 1) / (warps * kWarp))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (pool_is_int8)
+    return launch<int8_t, 1, true>(q, pool, layer, N, H, 1, T, D, B, MB,
+                                   table, seq_len, kscale, scale, splits,
+                                   width, warps, ind, bw, S_ind, out, st);
+  return launch<__nv_bfloat16, 1, true>(q, pool, layer, N, H, 1, T, D, B, MB,
+                                        table, seq_len, kscale, scale, splits,
+                                        width, warps, ind, bw, S_ind, out, st);
 }
 
 // The window entry: q [B, Hkv*rep, W, D] bf16 (head h = kv*rep + g);

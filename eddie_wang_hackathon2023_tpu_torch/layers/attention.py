@@ -29,7 +29,11 @@ Modes, as in the JAX package:
   with ``paged_append_window`` and reads the pool through the paged
   kernel's window entry (:func:`..ops.decode_attention.
   fused_paged_window_attention`) with the window's offsets as the causal
-  offsets.  Over the stacked cache a [B] ``cache_write_index`` writes each
+  offsets; a single-token step with ``beam_indirection`` (paged beam
+  search) reads each position through the chain of the beam that wrote it,
+  through the kernel's beam entry (:func:`..ops.decode_attention.
+  fused_paged_beam_attention`).  Over the stacked cache a [B]
+  ``cache_write_index`` writes each
   row at its own column: one token through the deferred write as above, a
   window (as the paged one) into the cache and then over it with the
   per-row causal offsets, in plain PyTorch as the JAX layer runs it in
@@ -40,7 +44,8 @@ prefill's and the fresh K/V of a decode step) and ``kv_quant_orig_scale``
 (every read, the fresh column's too, as a write-then-read would give it);
 a prefill then attends over the quantised cache it has just written, as
 the JAX layer does (its flash fast path is off under a quantised cache,
-``layers/attention.py:669-697``).  An int8 paged pool raises.
+``layers/attention.py:669-697``).  An int8 paged pool is quantised and read
+with the same scales (the JAX layer's :471-473, :496-535).
 Single-token decode over the stacked cache goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
 when the cache has fewer heads), with the int8 out-projection fused when
@@ -83,6 +88,7 @@ from ..ops.attention import (append_kv_stacked,
                              cached_decode_attention, cast_kv_for_cache,
                              layer_kv_views, multihead_attention)
 from ..ops.decode_attention import (fused_decode_attention,
+                                    fused_paged_beam_attention,
                                     fused_paged_decode_attention,
                                     fused_paged_window_attention)
 from ..ops.flash_attention import MIN_FLASH_LEN, flash_mha
@@ -310,38 +316,53 @@ class Attention(nn.Module):
                   min_causal_rows=self.flash_prefill_rows)
         return self.dense(ctx.reshape(b, l, self.num_attention_heads * d))
 
-    def _paged(self, q, k, v, pk: PagedKV, sequence_length, write_index):
+    def _paged(self, q, k, v, pk: PagedKV, sequence_length, write_index,
+               beam_indirection=None):
         """Self-attention over the block pool (the JAX layer's paged
         branch, ``layers/attention.py:474-551``): q [B, H, L, D], k/v
-        [B, Hkv, L, D].  Returns (the attention output [B, L, N], the
-        pool, updated in place)."""
+        [B, Hkv, L, D]; an int8 pool quantises every write with
+        ``kv_orig_quant_scale`` and every kernel reads it with
+        ``kv_quant_orig_scale``.  ``beam_indirection`` [groups, beams, S]
+        (a single-token step): each position read through the chain of the
+        beam that wrote it (the beam entry).  Returns (the attention
+        output [B, L, N], the pool, updated in place)."""
         if not self.causal or self.alibi or self.glm_2d_rope:
             raise NotImplementedError("paged attention is causal, with "
                                       "learned or rotary positions")
-        if self.use_int8_kv_cache:
-            raise NotImplementedError("int8 paged pools are not ported")
+        kv_oq, kv_qo = self.kv_orig_quant_scale, self.kv_quant_orig_scale
         l = q.shape[2]
+        if beam_indirection is not None and l != 1:
+            raise ValueError("paged beams are single-token steps")
         if l == 1:
-            # generation: the token's K/V first, then the pool through the
-            # kernel, which reads the token from the pool
+            # generation: the token's K/V first (through the row's own
+            # table), then the pool through the kernel, which reads the
+            # token from the pool
             paged_append_kv(pk.pool, k, v, pk.block_table, write_index,
+                            kv_orig_quant_scale=kv_oq,
                             layer_idx=pk.layer_idx, slots=pk.slots)
-            ctx = fused_paged_decode_attention(
-                pk.pool, pk.layer_idx, q, pk.block_table, sequence_length,
-                self.scale)
+            if beam_indirection is not None:
+                ctx = fused_paged_beam_attention(
+                    pk.pool, pk.layer_idx, q, pk.block_table,
+                    sequence_length, beam_indirection, self.scale,
+                    kv_quant_orig_scale=kv_qo)
+            else:
+                ctx = fused_paged_decode_attention(
+                    pk.pool, pk.layer_idx, q, pk.block_table,
+                    sequence_length, self.scale, kv_quant_orig_scale=kv_qo)
         elif torch.is_tensor(write_index) and write_index.dim() >= 1:
             # a mixed window: W tokens a row at its own offset, written
             # first, then read causally from that offset
             paged_append_window(pk.pool, k, v, pk.block_table, write_index,
+                                kv_orig_quant_scale=kv_oq,
                                 layer_idx=pk.layer_idx, slots=pk.slots)
             ctx = fused_paged_window_attention(
                 pk.pool, pk.layer_idx, q, pk.block_table, sequence_length,
-                write_index, self.scale)
+                write_index, self.scale, kv_quant_orig_scale=kv_qo)
         elif write_index != 0:
             raise ValueError("a paged prompt is written from position 0")
         else:
             paged_prefill(pk.pool, k, v, pk.block_table,
-                          layer_idx=pk.layer_idx)
+                          kv_orig_quant_scale=kv_oq, layer_idx=pk.layer_idx)
             rep = self.num_attention_heads // self.num_attention_kv_heads
             if rep > 1:
                 k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
@@ -411,7 +432,7 @@ class Attention(nn.Module):
 
         if isinstance(past_key_value, PagedKV):
             out, pool = self._paged(q, k, v, past_key_value, sequence_length,
-                                    cache_write_index)
+                                    cache_write_index, beam_indirection)
             return (out, pool) if use_cache else out
 
         if isinstance(past_key_value, tuple) and len(past_key_value) == 3:

@@ -35,8 +35,8 @@ query); over the pool, each layer writes its token through the table and
 reads the pool through the paged decode kernel.  With an int8 KV cache
 (``QuantMode.set_int8_kv_cache``, the per-layer scales in the state as
 ``attention.kv_orig_quant_scale`` and ``kv_quant_orig_scale``) the
-stacked cache is int8, every write quantises and the decode kernels read
-it with the scale; an int8 pool raises.  A causal prompt into an empty
+stacked cache (or the pool) is int8, every write quantises and the decode
+kernels read it with the scale.  A causal prompt into an empty
 stacked cache takes kernel 2's causal mode on the card at any length
 (heads of 64; the JAX package keeps prompts under 128 tokens in XLA), so
 that serving's admission prefill runs on it.  At batch 1 a single-token step
@@ -60,8 +60,10 @@ not taken for per-row columns (the JAX model's gate, :365).
 Beam search passes a ``beam_indirection`` [groups, beams, S] table to the
 single-token step, which every layer's self-attention reads the cache
 through (the beam entry of the decode kernel; an ALiBi step through the
-plain beam attention with the bias, after writing its column); over an
-MQA/GQA cache it raises, as the JAX package cannot run it either.  (The
+plain beam attention with the bias, after writing its column) or the pool
+through (the paged kernel's beam entry, each beam row appending into its
+own chain); over an MQA/GQA cache or pool it raises, as the JAX package
+cannot run it either.  (The
 JAX model's ALiBi step drops the table, so its Bloom beams read their own
 rows' history; the port reads through it, as the JAX gather mode does.)
 """
@@ -180,14 +182,6 @@ def glm_positions(positions: torch.Tensor, context_lengths: torch.Tensor
             torch.clamp(positions - plen + 2, min=0))
 
 
-def _check_beam_forward(tokens, kv_cache) -> None:
-    """Beams read the stacked cache through the indirection table, one
-    token a step (an MQA/GQA cache is refused by the attention op)."""
-    if isinstance(kv_cache, PagedCacheState) or tokens.shape[1] != 1:
-        raise NotImplementedError("beam_indirection is ported for the "
-                                  "single-token step over the stacked cache")
-
-
 class DecoderBlock(nn.Module):
     """Pre-norm self-attention and MLP: sequential (each added to the
     residual, the MLP after ``post_layernorm``), with ``parallel_attn``
@@ -285,13 +279,13 @@ class DecoderLMHead(nn.Module):
                        ) -> torch.Tensor:
         """Zeroed stacked block pool [n_layer, N + 1, 2, Hkv, T, head_dim]
         for paged serving (N blocks and the sink of the dropped writes,
-        :func:`..ops.paged_attention.new_block_pool`), in the model's dtype,
-        on its device.  An int8 pool is not ported."""
+        :func:`..ops.paged_attention.new_block_pool`), in the dtype of the
+        model's KV cache (int8 with an int8 KV cache), on its device."""
         c = self.config
-        if c.quant_mode.has_int8_kv_cache():
-            raise NotImplementedError("int8 paged pools are not ported")
         return new_block_pool(num_blocks, c.num_kv_heads, tokens_per_block,
-                              c.head_dim, dtype=self.dtype,
+                              c.head_dim, dtype=torch.int8
+                              if c.quant_mode.has_int8_kv_cache()
+                              else self.dtype,
                               num_layers=c.num_layers,
                               device=self.vocab_embedding.weight.device)
 
@@ -430,11 +424,15 @@ class DecoderLMHead(nn.Module):
         kv_cache)."""
         if kv_tail is not None:
             raise NotImplementedError("the K-step tail is not ported")
-        if beam_indirection is not None:
-            _check_beam_forward(tokens, kv_cache)
+        if beam_indirection is not None and tokens.shape[1] != 1:
+            # beams read the cache or the pool through the table one token
+            # a step (an MQA/GQA one is refused by the attention op)
+            raise NotImplementedError("beam_indirection is ported for the "
+                                      "single-token step")
         if isinstance(kv_cache, PagedCacheState):
             return self._paged_forward(tokens, kv_cache, write_index,
-                                       sequence_length, attention_start)
+                                       sequence_length, attention_start,
+                                       beam_indirection)
         per_row = torch.is_tensor(write_index)
         if not torch.is_tensor(kv_cache) or not (
                 per_row or isinstance(write_index, int)):
@@ -532,17 +530,21 @@ class DecoderLMHead(nn.Module):
         return self._logits(hid), kv_cache
 
     def _paged_forward(self, tokens, state: PagedCacheState, write_index,
-                       sequence_length, attention_start):
+                       sequence_length, attention_start, beam_indirection):
         """The paged serving path (the JAX model's ``models/decoder.py``
         :339-360): positions per row from ``write_index``, each layer given
         ``PagedKV(pool, table, layer)`` and, for tokens at per-row positions
         (one a row, or a mixed window), their write slots, found once.  A
         slot that is not live still rides the step at length 0, so its
         position is -1, which the learned embedding clamps (the JAX gather
-        wraps or clamps it); its output is discarded by the caller."""
-        if attention_start is not None:
-            raise NotImplementedError("left-padded prompts (attention_start) "
-                                      "are not ported for the paged pool")
+        wraps or clamps it); its output is discarded by the caller.
+        ``attention_start`` [B] (left-padded prompts) moves the positions
+        only, to max(column - start, 0) (the JAX model's :308-310): the
+        JAX paged branch masks no key below the start, and neither does
+        this one.  ``beam_indirection`` [groups, beams, S]: a single-token
+        beam step, each layer reading the pool through it.  ALiBi and GLM
+        positions raise (the JAX paged branch reads no ALiBi bias, and
+        its GLM admission asserts a causal mask)."""
         if self.config.position_embedding in ("alibi", "glm_rope"):
             raise NotImplementedError("ALiBi and GLM positions are not "
                                       "ported for the paged pool")
@@ -551,17 +553,23 @@ class DecoderLMHead(nn.Module):
         dev = tokens.device
         base = (write_index[:, None].long()
                 if torch.is_tensor(write_index) else write_index)
-        pos = base + torch.arange(t, device=dev)[None, :]
+        col = base + torch.arange(t, device=dev)[None, :]
+        pos = col
+        if attention_start is not None:
+            pos = torch.clamp(col - attention_start.to(dev)[:, None].long(),
+                              min=0)
         x, rotary = self._embed(tokens, pos.expand(b, t))
         pool, table = state.pool, state.block_table
         slots = None
         if t == 1 or torch.is_tensor(write_index):
             # where each row's tokens land: the same in every layer
-            slots = token_slots(table, pos.expand(b, t), pool.shape[1] - 1,
+            slots = token_slots(table, col.expand(b, t), pool.shape[1] - 1,
                                 pool.shape[4])
         for li, block in enumerate(self.blocks):
             x, pool = block(x, PagedKV(pool, table, li, slots), write_index,
-                            sequence_length, rotary=rotary)
+                            sequence_length,
+                            beam_indirection=beam_indirection,
+                            rotary=rotary)
         if c.final_norm:
             x = self.ln_f(x)
         return self._logits(x), PagedCacheState(pool, table)

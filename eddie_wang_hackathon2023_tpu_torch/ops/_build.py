@@ -72,6 +72,12 @@ SIGNATURES = {
         # scale, out, stream
         "paged_window_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P, _P, _P, _P, _F, _P, _P],
+        # the beam entry: ..., B, MB, table, seq_len, ind, bw, S_ind,
+        # kscale, scale, then paged_plan's splits, width, warps, rounds;
+        # out, stream
+        "paged_beam_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                 _P, _P, _I, _I, _P, _F, _I, _I, _I, _I, _P,
+                                 _P],
     },
     "int4_quant_matmul": {
         # x, qw, scale, M, N, K, groups, then the wrapper's prefill_plan:

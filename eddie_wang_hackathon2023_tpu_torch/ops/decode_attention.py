@@ -34,7 +34,12 @@ block-paged pool through the block table, on a CUDA tensor by the kernel of
 is the same source's window entry (mixed context+generation admission: W
 query tokens a row with per-row causal offsets), which replaces the JAX
 package's XLA formulation (``ops/paged_attention.py:95``); on a CPU tensor
-:func:`plain_paged_window_attention`.
+:func:`plain_paged_window_attention`.  :func:`fused_paged_beam_attention`
+is its beam entry (paged beam search: each position read through the
+chain of the beam that the cache-indirection table names), which replaces
+the JAX package's masked cross-beam formulation (``ops/
+paged_attention.py:139-170``); on a CPU tensor
+:func:`plain_paged_beam_attention`.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from .quant_matmul import weight_only_quant_matmul
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
             "out_proj_gemv": 0, "beam_decode_attention": 0,
             "gqa_decode_attention": 0, "paged_decode_attention": 0,
-            "paged_window_attention": 0}
+            "paged_window_attention": 0, "paged_beam_attention": 0}
 
 
 # kernel 1 without beams splits the S columns of the cache over a cluster
@@ -753,4 +758,77 @@ def fused_paged_window_attention(full_pool, layer_idx: int, q, block_table,
         _ptr(table_t), _ptr(seq_t), _ptr(off_t), _ptr(ks_t), float(scale),
         _ptr(out), stream), "paged_window_attention")
     launches["paged_window_attention"] += 1
+    return out
+
+
+def plain_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
+                               seq_len, beam_indirection, scale: float,
+                               kv_quant_orig_scale=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_paged_beam_attention`:
+    ``paged_decode_attention`` with ``beam_indirection`` (the JAX XLA
+    formulation) on layer ``layer_idx`` of the stacked pool."""
+    return paged_decode_attention(q, full_pool[layer_idx], block_table,
+                                  seq_len, scale=scale,
+                                  kv_quant_orig_scale=kv_quant_orig_scale,
+                                  beam_indirection=beam_indirection)
+
+
+def fused_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
+                               seq_len, beam_indirection, scale: float,
+                               kv_quant_orig_scale=None) -> torch.Tensor:
+    """One-token beam-search attention off layer ``layer_idx`` of the
+    stacked block pool.
+
+    full_pool [L, N, 2, H, T, D] bf16 or int8; q [B, H, 1, D] (equal
+    heads); block_table [B, max_blocks] integer, -1 padded, the rows
+    grouped by slot (row g * W + w, each beam's own chain, shared prompt
+    blocks in every beam's row); seq_len [B] as the single-token entry
+    takes it (the current token already in the pool, through the row's own
+    table); beam_indirection [B / W, W, S] integer: position s of row
+    g * W + w is read through the table row g * W + ind[g, w, s] (positions
+    past S through row g * W).  Returns [B, H, 1, D].  One launch of the
+    beam entry of ``csrc/paged_decode_attention.cu`` with
+    :func:`paged_plan` at rep 1; a row with seq_len 0 gives zeros on the
+    card.  MQA/GQA pools and fp8 raise."""
+    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
+        raise NotImplementedError("fp8 KV pools are not ported yet")
+    if not q.is_cuda:
+        return plain_paged_beam_attention(full_pool, layer_idx, q,
+                                          block_table, seq_len,
+                                          beam_indirection, scale,
+                                          kv_quant_orig_scale)
+    L, N, two, Hkv, T, D = full_pool.shape
+    B, H = q.shape[0], q.shape[1]
+    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
+                             kv_quant_orig_scale)
+    if H != Hkv:
+        raise NotImplementedError(
+            "paged beams over MQA/GQA pools are not ported (the JAX "
+            "package's formulation reshapes q with the KV heads and raises)")
+    if q.shape != (B, H, 1, D):
+        raise ValueError(f"q {tuple(q.shape)}: the beam entry takes one "
+                         "query token a row")
+    dev = q.device
+    ind = beam_indirection
+    if (not torch.is_tensor(ind) or ind.dim() != 3 or ind.device != dev
+            or ind.shape[0] * ind.shape[1] != B
+            or ind.dtype.is_floating_point):
+        raise ValueError(f"beam_indirection must be a [groups, beams, S] "
+                         f"integer tensor on {dev} with groups * beams = {B}")
+    # operands held in locals until the launch is enqueued (see above)
+    q = q.contiguous()
+    table_t = block_table.to(torch.int32).contiguous()
+    seq_t = seq_len.to(torch.int32).contiguous()
+    ind_t = ind.to(torch.int32).contiguous()
+    out = torch.empty((B, H, 1, D), dtype=torch.bfloat16, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    MB = table_t.shape[1]
+    plan = paged_plan(MB, T, 1)
+    _build.check(_build.load("paged_decode_attention").paged_beam_attention(
+        _ptr(q), _ptr(full_pool), int(full_pool.dtype == torch.int8),
+        int(layer_idx), N, H, T, D, B, MB, _ptr(table_t), _ptr(seq_t),
+        _ptr(ind_t), ind_t.shape[1], ind_t.shape[2], _ptr(ks_t),
+        float(scale), plan["splits"], plan["width"], plan["warps"],
+        plan["rounds"], _ptr(out), stream), "paged_beam_attention")
+    launches["paged_beam_attention"] += 1
     return out

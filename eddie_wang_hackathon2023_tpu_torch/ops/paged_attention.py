@@ -23,8 +23,10 @@ the device).
 
 Mixed context+generation admission writes a W-token window a row at any
 offset (:func:`paged_append_window`) and reads it with per-row
-``causal_offset`` (:func:`paged_decode_attention` with Lq = W).  Not
-ported here: the ``beam_indirection`` mode of the attention, which raises.
+``causal_offset`` (:func:`paged_decode_attention` with Lq = W).  Paged beam
+search reads each history position through a cache-indirection table
+(:func:`paged_decode_attention` with ``beam_indirection``), the JAX
+package's masked cross-beam formulation.
 """
 from __future__ import annotations
 
@@ -193,9 +195,17 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     accumulation (a row with no valid key averages every gathered key, as
     there; its output is of no use).  An int8 pool is dequantised to q's
     dtype with ``kv_quant_orig_scale``.  MQA/GQA: query head h reads KV
-    head h // (H / Hkv).  ``beam_indirection`` (paged beams) raises."""
-    if beam_indirection is not None:
-        raise NotImplementedError("paged beams are not ported")
+    head h // (H / Hkv).
+
+    ``beam_indirection`` [Bg, W, S] (B = Bg * W rows grouped by slot, Lq
+    1): paged beam search.  Every beam row appends into its own private
+    block chain; position s of row g * W + w is read from the chain of row
+    g * W + ind[g, w, s] (positions past S through row g * W, masked by
+    seq_len).  As in the JAX package, every (query beam, source beam)
+    score is computed and the non-selected ones are zeroed, and P·V sums
+    the source beams' values under the masked probabilities.  Equal heads
+    only: the JAX formulation reshapes q with the KV heads and cannot run
+    MQA/GQA beams (NotImplementedError here)."""
     b, h, lq, d = q.shape
     if lq != 1 and causal_offset is None:
         raise ValueError("multi-token paged queries need per-row causal "
@@ -219,6 +229,8 @@ def paged_decode_attention(q, pool, block_table, seq_len,
         v = (v.float() * kv_quant_orig_scale).to(q.dtype)
     else:
         k, v = k.to(q.dtype), v.to(q.dtype)
+    if beam_indirection is not None:
+        return _beam_read(q, k, v, seq_len, scale, beam_indirection)
     if hk != h:
         k, v = (x.repeat_interleave(h // hk, dim=1) for x in (k, v))
     scores = _mm_f32("bhqd,bhkd->bhqk", q, k) * scale
@@ -233,3 +245,41 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     probs = torch.softmax(scores, dim=-1)
     ctx = _mm_f32("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
     return ctx.to(q.dtype)
+
+
+def _beam_read(q, k, v, seq_len, scale: float, beam_indirection
+               ) -> torch.Tensor:
+    """The beam mode of :func:`paged_decode_attention` (the JAX package's
+    ``ops/paged_attention.py:139-170``): q [B, H, 1, D], each row's
+    gathered chain k/v [B, H, S_b, D] in q's dtype, the table [Bg, W, S]."""
+    b, h, lq, d = q.shape
+    if lq != 1:
+        raise ValueError("paged beam indirection is a generation-step path")
+    if k.shape[1] != h:
+        raise NotImplementedError(
+            "paged beams over MQA/GQA pools are not ported (the JAX "
+            "package's formulation reshapes q with the KV heads and raises)")
+    bg, bw, s_ind = beam_indirection.shape
+    if bg * bw != b:
+        raise ValueError(f"indirection {tuple(beam_indirection.shape)} for "
+                         f"{b} query rows")
+    s_b = k.shape[2]
+    ind = beam_indirection.to(q.device)
+    if s_ind < s_b:
+        ind = torch.nn.functional.pad(ind, (0, s_b - s_ind))
+    ind = ind[..., :s_b]
+    k5, v5 = k.reshape(bg, bw, h, s_b, d), v.reshape(bg, bw, h, s_b, d)
+    q4 = q[:, :, 0, :].reshape(bg, bw, h, d)
+    s_all = _mm_f32("gqhd,gkhsd->gqkhs", q4, k5) * scale
+    sel = ind[:, :, None, :] == torch.arange(
+        bw, dtype=ind.dtype, device=ind.device)[None, None, :, None]
+    scores = torch.where(sel[:, :, :, None, :], s_all, 0.0).sum(2)
+    scores = scores.reshape(b, h, 1, s_b)
+    kpos = torch.arange(s_b, device=q.device)[None, None, None, :]
+    seq = torch.as_tensor(seq_len, device=q.device).reshape(-1, 1, 1, 1)
+    scores = torch.where(kpos < seq, scores, torch.full_like(scores, NEG))
+    probs = torch.softmax(scores, dim=-1)
+    p_m = torch.where(sel[:, :, :, None, :],
+                      probs.reshape(bg, bw, 1, h, s_b), 0.0)
+    ctx = _mm_f32("gqkhs,gkhsd->gqhd", p_m.to(v.dtype), v5)
+    return ctx.reshape(b, h, 1, d).to(q.dtype)

@@ -50,9 +50,13 @@ head dims 64 and 128, blocks of 16 and 32 tokens and table widths 1-8
 full table of 4 blocks, under plans other than its wrapper's, and refusing
 plans it does not take, and its window entry (mixed admission) at the
 same gates with windows of 16 at offsets on and off the block edges over
-a table of 9 blocks (a row of seq 0 zeros); the dense serving tick (kernel
+a table of 9 blocks (a row of seq 0 zeros), and its beam entry (beams
+over the pool) at the same gates with shared prompt blocks, private
+partial blocks and a cluster; the dense serving tick (kernel
 2's causal mode in each admission, kernel 1 in each step) against the
-plain versions as ``chip_smoke.py`` replays it; the beam entry at beam
+plain versions as ``chip_smoke.py`` replays it, and a beam manager's
+drain (dense and paged) the same way and against the CPU; the beam entry
+at beam
 widths 1 to 24 (one tile
 of 16 query beams or two), one and two groups, lengths that fill one
 slice, cross into the next, fill the cache, starts inside a slice or
@@ -2889,3 +2893,182 @@ def test_dense_serving_tick_on_the_card(dev):
         return torch.cat(out)
     lk, lp = replay(False), replay(True)
     assert _rel(lk, lp) < 5e-2
+
+
+def _paged_beam_inputs(g, dev, pool_dtype, groups, bw, H, D, T, seqs, N=96):
+    """(pool, q, table, seq, ind, kwargs): ``groups`` slots of ``bw`` beams
+    over a pool [2, N, 2, H, T, D]: each slot's prompt (its first
+    ``plen`` = seq - 3 tokens, at least 1) in full blocks shared by its
+    beams and a partial block a beam, then private blocks a beam to its
+    length; a slot of length 0 has no blocks.  The indirection maps the
+    prompt to the slot's first row and later positions to random beams."""
+    shape = (2, N, 2, H, T, D)
+    if pool_dtype == torch.int8:
+        pool = torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+        kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    else:
+        pool = torch.randn(shape, generator=g, device=dev).bfloat16()
+        kw = {}
+    mb = max(-(-n // T) for n in seqs)
+    free = torch.randperm(N - 1, generator=g, device=dev).tolist()
+    table = torch.full((groups * bw, mb), -1, dtype=torch.int32)
+    S = mb * T + 5
+    ind = torch.randint(0, bw, (groups, bw, S), generator=g, device=dev,
+                        dtype=torch.int32)
+    for gi, n in enumerate(seqs):
+        full = max(n - 3, 1) // T
+        shared = [free.pop() for _ in range(full)]
+        for w in range(bw):
+            own = [free.pop() for _ in range(-(-n // T) - full)]
+            row = (shared + own)[:-(-n // T)] if n else []
+            table[gi * bw + w, :len(row)] = torch.tensor(row,
+                                                         dtype=torch.int32)
+        ind[gi, :, :max(n - 3, 1)] = 0
+    q = torch.randn(groups * bw, H, 1, D, generator=g, device=dev).bfloat16()
+    seq = torch.tensor(seqs, dtype=torch.int32, device=dev).repeat_interleave(
+        bw)
+    return pool, q, table.to(dev), seq, ind, kw
+
+
+@pytest.mark.parametrize("T,seqs", [(32, [61, 80, 0, 33, 1, 64]),
+                                    (16, [5, 16, 17, 47, 150])])
+@pytest.mark.parametrize("bw", [3, 4])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+def test_paged_beam_kernel_matches_plain(dev, pool_dtype, bw, T, seqs):
+    """The paged kernel's beam entry (beams over the pool) against its
+    plain version: 16 heads of 64 (heads of 128 at T 16), beams of 3 and
+    4, tables whose prompt blocks are shared by a slot's beams with a
+    private partial block a beam, lengths on and off the block edges, one
+    slot of length 0 (zeros) and a table of 10 blocks of 16 (a cluster);
+    the indirection wider than the table.  Live rows within kernel 1's
+    gates (1e-2 of the fp32 plain version, 2e-2 of the bf16 one); one
+    launch a call; a pool of fewer KV heads refused."""
+    H, D = (16, 64) if T == 32 else (8, 128)
+    g = torch.Generator(device=dev).manual_seed(31)
+    pool, q, table, seq, ind, kw = _paged_beam_inputs(
+        g, dev, pool_dtype, len(seqs), bw, H, D, T, seqs)
+    before = da.launches["paged_beam_attention"]
+    out = da.fused_paged_beam_attention(pool, 1, q, table, seq, ind, 0.125,
+                                        **kw)
+    assert da.launches["paged_beam_attention"] == before + 1
+    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    ref = da.plain_paged_beam_attention(f32(pool), 1, q.float(), table, seq,
+                                        ind, 0.125, **kw)
+    ref16 = da.plain_paged_beam_attention(pool, 1, q, table, seq, ind, 0.125,
+                                          **kw)
+    torch.cuda.synchronize()
+    live = seq > 0
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert bool((out[~live] == 0).all())
+    assert _rel(out[live], ref[live]) < 1e-2
+    assert _rel(out[live], ref16[live]) < 2e-2
+    with pytest.raises(NotImplementedError):
+        da.fused_paged_beam_attention(pool[:, :, :, :H // 2].contiguous(),
+                                      1, q, table, seq, ind, 0.125, **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_beam_serving_drain_on_the_card(dev, paged):
+    """A beam manager on the card: 6 requests of 20 prompt tokens, 4 beams
+    each, through 3 slots of a 2-layer bf16 model with heads of 64, 6 new
+    tokens.  Every step launches the beam entry (kernel 1's over the dense
+    slot cache, the paged kernel's over the pool) once a layer, no other
+    step kernel; the recorded calls replayed on a fresh cache or pool give
+    the plain versions' logits (rel 5e-2, as chip_smoke's serve paths);
+    the same weights on the CPU (fp32) give the same best sequences for at
+    least half the requests (bf16 sums in other orders may swap near-tied
+    beams)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import (
+        DecoderConfig, DecoderLMHead)
+    from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import \
+        PagedCacheState
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        ContinuousBatchingManager, InferenceRequest, SamplingConfig)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.manual_seed(3)
+    cfg = DecoderConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                        num_heads=4, max_position_embeddings=64)
+    with torch.device(dev):
+        model = DecoderLMHead(cfg)
+        for p in model.parameters():
+            p.normal_(0, 0.05)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 97, 20).astype(np.int32) for _ in range(6)]
+    kw = dict(max_batch_size=3, max_seq_len=64, max_beam_width=4,
+              paged=paged, tokens_per_block=16)
+
+    def drain(mdl, device, hook=None):
+        queue = [InferenceRequest(i, p, max_new_tokens=6, end_id=-1,
+                                  sampling=SamplingConfig(
+                                      end_id=-1, pad_id=0, num_beams=4))
+                 for i, p in enumerate(prompts)]
+        done = {}
+        mgr = ContinuousBatchingManager(
+            mdl, SamplingConfig(end_id=-1, pad_id=0), device=device,
+            get_inference_requests=lambda n: [queue.pop(0) for _ in range(
+                min(n, len(queue)))],
+            send_response=lambda r: done.__setitem__(
+                r.request_id, list(r.output_ids)) if r.finished else None,
+            **kw)
+        h = None if hook is None else mdl.register_forward_pre_hook(
+            lambda mod, args, kwargs: hook(mgr, args, kwargs),
+            with_kwargs=True)
+        try:
+            mgr.run()
+        finally:
+            if h is not None:
+                h.remove()
+        return done, mgr
+
+    calls = []
+
+    def record(mgr, args, kwargs):
+        cache = args[1]
+        if isinstance(cache, PagedCacheState):
+            where = cache.block_table.clone()
+        else:
+            where = None if cache.shape == mgr.cache.shape else (
+                cache.data_ptr() - mgr.cache.data_ptr()) // (
+                cache.stride(1) * cache.element_size())
+        ind = kwargs.get("beam_indirection")
+        calls.append((args[0].clone(), where, args[2] if isinstance(
+            args[2], int) else args[2].clone(), args[3].clone(),
+            None if ind is None else ind.clone()))
+    for m in (da, fa):
+        m.reset_launches()
+    done, mgr = drain(model, None, record)
+    torch.cuda.synchronize()
+    assert sorted(done) == list(range(6))
+    assert all(len(t) == 6 and all(0 <= x < 97 for x in t)
+               for t in done.values())
+    n = {k: v for m in (da, fa) for k, v in m.launches.items() if v}
+    step = "paged_beam_attention" if paged else "beam_decode_attention"
+    want = {step: 2 * mgr.decode_steps}
+    if not paged:
+        want["flash_attention_causal"] = 2 * mgr.prefills
+    assert n == want and mgr.prefills == 6
+
+    def replay(plain):
+        fresh = (model.new_paged_pool(mgr.num_blocks, 16) if paged
+                 else torch.zeros_like(mgr.cache))
+        ctx = smoke.plain_kernels() if plain else contextlib.nullcontext()
+        out = []
+        with ctx, torch.inference_mode():
+            for tok, where, widx, seq, ind in calls[:10]:
+                cache = (PagedCacheState(fresh, where) if paged else fresh
+                         if where is None else fresh[:, where:where + 1])
+                lg, _ = model(tok, cache, widx, seq, beam_indirection=ind)
+                out.append(smoke.live_logits(torch, lg, widx, seq))
+        return torch.cat(out)
+    lk, lp = replay(False), replay(True)
+    assert _rel(lk, lp) < 5e-2
+    cpu = DecoderLMHead(dataclasses.replace(cfg, dtype="float32"))
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    on_cpu, _ = drain(cpu, "cpu")
+    assert sum(done[i] == on_cpu[i] for i in done) >= 3

@@ -472,18 +472,18 @@ def _drain(pm, sc=None, own=None, **kw):
     dict(steps_per_tick=2), dict(native_scheduler=True)],
     ids=lambda o: next(iter(o)))
 def test_unported_manager_options_raise(option):
-    """Beams in serving (``max_beam_width > 1``) raise.  The other options
-    were refused before this slice and now run: the dense slot cache,
-    mixed admission, two steps a tick and the native scheduler serve the
+    """Every option was refused once and now runs: the dense slot cache,
+    mixed admission, a beam manager (``max_beam_width=2``, its greedy
+    requests width 1), two steps a tick and the native scheduler serve the
     greedy tokens of the paged one-step manager (the JAX comparisons are
-    in ``test_torch_serving_modes.py``)."""
+    in ``test_torch_serving_modes.py`` and ``test_torch_serving_beams.py``);
+    a beam manager's config asking for more beams than it holds raises."""
     from eddie_wang_hackathon2023_tpu_torch.native import batch_runtime
     _, pm = _models(MHA, woq=False)
     if "max_beam_width" in option:
-        with pytest.raises(NotImplementedError):
-            ContinuousBatchingManager(pm, SamplingConfig(), paged=True,
-                                      device="cpu", **option)
-        return
+        with pytest.raises(ValueError):
+            ContinuousBatchingManager(pm, SamplingConfig(num_beams=3),
+                                      paged=True, device="cpu", **option)
     want, _ = _drain(pm, native_scheduler=False)
     got, mgr = _drain(pm, **option)
     assert got == want and all(len(t) == 4 for t in got.values())
@@ -495,6 +495,8 @@ def test_unported_manager_options_raise(option):
         assert mgr.decode_steps == 2 * mgr.decode_ticks
     if "paged" in option:
         assert mgr.cache is not None and mgr.prefills == 3
+    if "max_beam_width" in option:
+        assert mgr.pool.shape[1] == 2 * 2 * 4 + 1 and mgr.prefills == 3
 
 
 @pytest.mark.parametrize("sampling", [
@@ -503,15 +505,18 @@ def test_unported_manager_options_raise(option):
     dict(bad_words_list=[[3]]), dict(stop_words_list=[[3, 4]]),
     dict(num_beams=2)], ids=lambda o: next(iter(o)))
 def test_unported_sampling_raises(sampling):
-    """Beams (``num_beams=2``) raise, for the manager's config and for a
-    request's own.  The six other configs were refused before this slice
-    and now run: as the manager's config and as each request's own (with
-    the manager's seed, so the same noise) they give the same tokens, four
-    a request in range, with the knob's effect where it shows (the JAX
-    comparisons are in ``test_torch_serving_sampling.py``)."""
+    """Every config was refused once and now runs: as the manager's config
+    and as each request's own (with the manager's seed, so the same noise)
+    they give the same tokens, four a request in range, with the knob's
+    effect where it shows (the JAX comparisons are in
+    ``test_torch_serving_sampling.py`` and ``test_torch_serving_beams.py``;
+    beams, ``num_beams=2``, in a manager of ``max_beam_width=2``).  Beams
+    past the manager's width raise ``ValueError``, for the manager's config
+    and for a request's own."""
     _, pm = _models(MHA, woq=False)
+    kw = {}
     if "num_beams" in sampling:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             ContinuousBatchingManager(pm, SamplingConfig(**sampling),
                                       paged=True, device="cpu")
         q = [InferenceRequest(0, np.asarray([1, 2], np.int32),
@@ -520,12 +525,12 @@ def test_unported_sampling_raises(sampling):
         mgr = ContinuousBatchingManager(
             pm, SamplingConfig(), paged=True, device="cpu", max_seq_len=32,
             get_inference_requests=lambda n: [q.pop()] if q else [])
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             mgr.run()
-        return
+        kw = dict(max_beam_width=2)
     sc = SamplingConfig(end_id=-1, pad_id=96, **sampling)
-    as_config, _ = _drain(pm, sc)
-    as_own, _ = _drain(pm, own=sc)
+    as_config, _ = _drain(pm, sc, **kw)
+    as_own, _ = _drain(pm, own=sc, **kw)
     assert as_config == as_own and sorted(as_config) == [0, 1, 2]
     for toks in as_config.values():
         assert all(0 <= t < 97 for t in toks)
@@ -540,10 +545,12 @@ def test_unported_sampling_raises(sampling):
 
 
 def test_unported_paged_modes_raise():
-    """fp8 pools (the writes and the attention), paged beams, left-padded
-    prompts over the pool, and several query tokens without their causal
-    offsets raise.  The mixed windows are ported: a window's attention with
-    per-row offsets, and a prompt/decode window through the model."""
+    """fp8 pools (the writes and the attention), paged beams over MQA/GQA
+    pools, and several query tokens without their causal offsets raise.
+    The mixed windows are ported: a window's attention with per-row
+    offsets, and a prompt/decode window through the model; so are
+    left-padded prompts over the pool and paged beams over equal heads
+    (their JAX comparisons are in ``test_torch_serving_pool.py``)."""
     pool = torch.zeros(1, 3, 2, 1, 4, 16)
     q = torch.zeros(2, 4, 1, 16)
     table = torch.tensor([[0, 1], [2, -1]])
@@ -569,9 +576,18 @@ def test_unported_paged_modes_raise():
         lg, st = model(torch.zeros(2, 3, dtype=torch.long), state,
                        torch.tensor([1, 2]), torch.tensor([4, 5]))
     assert lg.shape == (2, 3, 97) and st.pool is state.pool
-    with torch.inference_mode(), pytest.raises(NotImplementedError):
-        model(torch.zeros(2, 1, dtype=torch.long), state, torch.tensor([1, 2]),
-              torch.tensor([2, 3]), attention_start=torch.tensor([0, 0]))
+    with torch.inference_mode():
+        lg0, _ = model(torch.zeros(2, 1, dtype=torch.long), state,
+                       torch.tensor([1, 2]), torch.tensor([2, 3]))
+        lg1, _ = model(torch.zeros(2, 1, dtype=torch.long), state,
+                       torch.tensor([1, 2]), torch.tensor([2, 3]),
+                       attention_start=torch.tensor([0, 0]))
+    assert lg1.shape == lg0.shape == (2, 1, 97)
+    mha = torch.zeros(1, 3, 2, 4, 4, 16)
+    out = ppa.paged_decode_attention(q, mha[0], table, seq,
+                                     beam_indirection=torch.zeros(
+                                         1, 2, 8, dtype=torch.int32))
+    assert out.shape == q.shape
 
 
 def test_manager_needs_cuda_unless_cpu_is_asked(monkeypatch):

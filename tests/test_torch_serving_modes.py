@@ -488,7 +488,9 @@ def test_chip_smoke_serve_modes_path_on_cpu(one_cpu_thread):
     tokens, the teacher-forced replays are exact (on the CPU both sides
     are the plain versions), the sampled cells' two drains agree, no
     kernel is launched from CPU tensors, and a greedy cell's tokens are
-    compared with the reference given."""
+    compared with the reference given; the beam cells (4 beams a request:
+    dense, paged, paged under mixed admission) give the dense beam cell's
+    best sequences, and the int8 pool cell serves from an int8 pool."""
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
@@ -513,6 +515,13 @@ def test_chip_smoke_serve_modes_path_on_cpu(one_cpu_thread):
     assert e2e["paged_spt4"]["decode_steps"] == 4 * e2e[
         "paged_spt4"]["decode_ticks"]
     assert e2e["dense"]["prefills"] == 64
+    for cell in ("dense_beam", "paged_beam", "paged_beam_mixed"):
+        assert e2e[cell]["beam_equal_to_dense_beam"] == 1.0
+        assert e2e[cell]["decode_steps"] == e2e[cell]["decode_ticks"]
+    assert e2e["dense_beam"]["prefills"] == 64
+    assert e2e["paged_beam_mixed"]["prefills"] == 0
+    assert e2e["paged_beam_mixed"]["mixed_ticks"] >= 8 * 4
+    assert e2e["paged_kv8"]["beam_equal_to_dense_beam"] is None
 
 
 def _tiny_model(smoke, config):

@@ -266,7 +266,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     monkeypatch.setattr(smoke, "serve_path", lambda *a, **k: (
         {}, {"paged_decode_attention": 0}))
     monkeypatch.setattr(smoke, "serve_modes_path", lambda *a, **k: (
-        {}, {"serve_paged_mixed": {"paged_window_attention": 0}}))
+        {}, {"serve_paged_mixed": {"paged_window_attention": 0},
+             "serve_paged_beam": {"paged_beam_attention": 0},
+             "serve_dense_beam": {"beam_decode_attention": 0}}))
     monkeypatch.setattr(smoke, "custom_path", lambda *a, **k: (
         {}, {"flash_attention_causal": 0, "custom_fmha": 0,
              "custom_fmha_f32": 0}))

@@ -20,7 +20,9 @@ sequence 44, 32 layers rotating, with each checkout's ``beam_plan`` where
 its C entry takes one), the paged kernel at the serve shape (8 rows, 16 KV
 heads of 64, T 32, a table of 4 blocks, lengths 61-80, bf16, 24 layers
 rotating) and the MQA int8 shape (one KV head under 16 query heads of 128;
-each checkout's ``paged_plan`` where its entry takes one), kernel 1's
+each checkout's ``paged_plan`` where its entry takes one), its window
+entry at the serve shape (windows of 16; where both checkouts have it),
+kernel 1's
 cross (int8 S 1500) and self (bf16 S 448, sequence 44) calls at batch 1,
 the out-projection GEMV alone (each checkout's ``gemv_plan`` where its
 entry takes one) and behind each of those calls on its context (the pair
@@ -312,6 +314,35 @@ def main(argv=None):
                       stream())
         return run
 
+    # the paged kernel's window entry at the serve_modes path's mixed shape
+    # (8 rows, 16 KV heads of 64, T 32, a table of 4 blocks, windows of 16:
+    # prompt chunks at 0, 16, 37, 45 beside 4 decode windows, a bf16 pool
+    # of 24 layers), where both checkouts have it
+    def window():
+        pl, pn, pt, pb_, pmb, pw = 24, 32, 32, 8, 4, 16
+        pool = torch.randn((pl, pn, 2, 16, pt, 64), generator=g,
+                           device=dev).bfloat16()
+        pq = torch.randn(pb_, 16, pw, 64, generator=g,
+                         device=dev).bfloat16()
+        off = [0, 16, 37, 45, 61, 66, 72, 79]
+        seq = [16, 32, 53, 60, 62, 67, 73, 80]
+        woff = torch.tensor(off, dtype=torch.int32, device=dev)
+        wseq = torch.tensor(seq, dtype=torch.int32, device=dev)
+        table = torch.randperm(pn, generator=g, device=dev).to(
+            torch.int32).reshape(pb_, pmb)
+        table = torch.where(torch.arange(pmb, device=dev)[None, :]
+                            < ((wseq + pt - 1) // pt)[:, None], table,
+                            -1).contiguous()
+        pout = torch.empty_like(pq)
+
+        def run(who, i):
+            fn = libs[who]["paged_decode_attention"].paged_window_attention
+            return fn(pq.data_ptr(), pool.data_ptr(), 0, i % pl, pn, 16, 1,
+                      pt, 64, pb_, pmb, pw, table.data_ptr(),
+                      wseq.data_ptr(), woff.data_ptr(), None, 64 ** -0.5,
+                      pout.data_ptr(), stream())
+        return run
+
     def flash_operands(lq, dtype):
         qkv = torch.randn(1, lq, 3, H, D, generator=g, device=dev).to(dtype)
         t = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
@@ -411,6 +442,10 @@ def main(argv=None):
         ("grouped bf16, batch 8, 1 KV head x 16, D 128, S 84, seq 70",
          grouped(False)),
     ]
+    if all(hasattr(libs[who]["paged_decode_attention"],
+                   "paged_window_attention") for who in roots):
+        cases.insert(3, ("paged window entry, serve: bf16, 8 rows, 16 KV "
+                         "heads of 64, T 32, windows of 16", window()))
     # the int4 matmul: each checkout's entry for M 8 (the decode entry and
     # its plan, or the one entry with the split plan) and M 512
     int4_defs = {who: defs_of(root, os.path.join(OPS, "int4_quant_matmul.py"),

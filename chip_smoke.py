@@ -11,8 +11,11 @@
    parallel).
 2. Holds every kernel of the main path against its plain PyTorch version
    on the card, at the shapes the main path gives it (the beam entry also
-   at the gen_beam path's; the megakernel also at LLaMA-1B's and, in its
-   grouped mode, SantaCoder-1B's widths; kernel 1 also at head dim 128,
+   at the gen_beam path's; the megakernel also with int4 panels, in
+   groups of 128 and per channel, and with bf16 panels at Whisper
+   large-v2's widths, at LLaMA-1B's and, in its grouped mode,
+   SantaCoder-1B's widths; the int4 matmul also at Whisper large-v2's
+   linears at M 1, 3 and 1536; kernel 1 also at head dim 128,
    LLaMA-1B's and ChatGLM-6B's decode), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``, used nowhere in the port), the
@@ -59,10 +62,20 @@
    sampled with ``temperature=1.0`` and ``best_of=5`` (five rows layer by
    layer through kernel 1 at batch 5, two runs of one seed equal, the first
    steps replayed against the plain path, utt/s best of 3).  Then the
-   layer-by-layer (scanned) path,
+   woq4 and float paths on the same encoder and cross-KV: the decoder
+   made anew from the main path's seeded float state for
+   ``woq4+ckv8+lmq8+sqenc`` (int4 weights, groups of 128: each decode step
+   one launch of the megakernel's int4 mode) and for ``ckv8+lmq8+sqenc``
+   (a float decoder: its bf16 mode), each checked, replayed and timed as
+   the main path, beside the main path's numbers with the share of its
+   tokens equal to the main path's.  Then the layer-by-layer (scanned)
+   path,
    ``decode_megakernel=False``, at the same widths with the depth cut to
    8+8 layers and the recipe without ``sqenc`` (its encoder takes the
-   bf16 flash entry).  Then the beam
+   bf16 flash entry), and the woq4_scanned path at the same depth with
+   ``woq4+ckv8+lmq8`` (an int4 encoder: each of its linears one launch of
+   the int4 kernel at M 1536; the decoder's linears one launch each a
+   step).  Then the beam
    path: beam search with 5 beams at full width, the depth cut to 8+8
    layers as the scanned path's, recipe
    ``woq8+ckv8+lmq8``, each decode step through the beam entry of the
@@ -222,6 +235,18 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:45"),
+    # Whisper's int4 panels (woq4: groups of 128; the row also holds the
+    # per-channel mode's numbers from the kernel phase, which no path
+    # reaches, the group size having no knob) and bf16 panels (a float
+    # decoder), each its own library of decoder_layer.cu
+    "decoder_megakernel_int4": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decoder_megakernel_bf16": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
     # the megakernel's decoder-only modes at LLaMA-1B's widths (16 layers,
     # RMSNorm, the gated SiLU MLP, RoPE, heads of 128): bf16 panels, and
     # int8 weight-only panels (woq8)
@@ -300,6 +325,13 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_quant_matmul.py:25"),
+    # the int4 kernel at Whisper large-v2's linears (woq4_scanned: the
+    # int4 encoder at M 1536, the prompt prefill at M 3, each decode step's
+    # linears at M 1)
+    "int4_quant_matmul_whisper": dict(
+        route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_quant_matmul.py:25"),
     # kernel 2's causal mode (bf16): the prompted prefill of the custom path
     "flash_attention_causal": dict(
         route="cuda", source=f"{PKG}/csrc/flash_attention.cu",
@@ -352,6 +384,9 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decoder_megakernel_mqa_woq8": "santacoder_woq8",
            "decode_attention_glm": "chatglm",
            "decoder_megakernel_int8_self": "kv8",
+           "decoder_megakernel_int4": "woq4",
+           "decoder_megakernel_bf16": "float",
+           "int4_quant_matmul_whisper": "woq4_scanned",
            "decode_attention_int8_self": "kv8_scanned",
            "decode_attention_int8": "scanned",
            "decode_attention_bf16": "scanned", "out_proj_gemv": "scanned",
@@ -380,6 +415,9 @@ COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "beam_decode_attention_gen": "beam_decode_attention",
               "beam_decode_attention_serve": "beam_decode_attention",
               "decoder_megakernel_int8_self": "decoder_megakernel",
+              "decoder_megakernel_int4": "decoder_megakernel",
+              "decoder_megakernel_bf16": "decoder_megakernel",
+              "int4_quant_matmul_whisper": "int4_quant_matmul",
               "decode_attention_int8_self": "decode_attention_int8"}
 # the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
 # of 30, 30 and 15 s); the best_of path's sampled rows an utterance
@@ -391,6 +429,16 @@ KV8_RECIPE = "woq8+kv8+ckv8+lmq8+sqenc"
 KV8_DEC_DEPTH = 8
 SCANNED_RECIPE = "woq8+ckv8+lmq8"
 SCANNED_DEPTH = 8        # encoder and decoder layers of the scanned path
+# Whisper's int4 recipe (bench.py's BENCH_QUANT=woq4+...): the main path's
+# with int4 weights; without sqenc (an int4 encoder) on the woq4_scanned
+# path, at SCANNED_DEPTH; and a float decoder (bf16 panels at batch 1)
+WOQ4_RECIPE = "woq4+ckv8+lmq8+sqenc"
+WOQ4_SCANNED_RECIPE = "woq4+ckv8+lmq8"
+FLOAT_RECIPE = "ckv8+lmq8+sqenc"
+# Whisper large-v2's linears (K, N): the int4 kernel's shapes on the woq4
+# paths
+WHISPER_INT4_SHAPES = (("qkv", 1280, 3840), ("dense", 1280, 1280),
+                       ("fc1", 1280, 5120), ("fc2", 5120, 1280))
 BEAM_SIZE = 5
 # the decoder path: benchmark.py's defaults (batch 8, 60 prompt tokens, 20
 # new ones)
@@ -1137,12 +1185,71 @@ def random_blobs(torch, dev, gen, n_layer, d):
         torch.ones(L, device=dev), None))
 
 
+def random_whisper_blobs(torch, dev, gen, n_layer, d, weight,
+                         values="quantiser"):
+    """Seeded random megakernel blobs of Whisper's block at width d (ffn
+    4d), packed from a random state and tiled: ``weight`` "int4" (int4
+    weight-only, groups of INT4_GROUP rows), "int4_pc" (int4 per channel)
+    or "bf16" (float weights N(0, 1 / K)); biases and LayerNorms as
+    :func:`random_blobs`'; every GEMV output of order one.  The int4
+    ``values``: "quantiser" its range [-7, 7]; "bytes" every byte value
+    (-8 in both nibbles included; the values' mean of -0.5 moves the
+    residual stream the same way at every layer); "bytes_zero_mean" every
+    byte value, each column's scales of a random sign (the weights' mean
+    zero)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    L, ffn, heads = n_layer, 4 * d, d // 64
+    st = {}
+    for name, k, n in (("attn.qkv", d, 3 * d), ("attn.dense", d, d),
+                       ("cross_attn.q_linear", d, d),
+                       ("cross_attn.dense", d, d), ("mlp1", d, ffn),
+                       ("mlp2", ffn, d)):
+        if weight == "bf16":
+            shape = (L, 3, heads, 64, d) if name == "attn.qkv" else (L, n, k)
+            st[name + ".weight"] = (torch.randn(
+                shape, generator=gen, device=dev) * k ** -0.5).bfloat16()
+        elif values == "quantiser":
+            q = torch.randint(-7, 8, (L, k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            st[name + ".qweight"] = (q[:, :k // 2] & 0xF) | (
+                (q[:, k // 2:] & 0xF) << 4)
+            del q
+        else:
+            st[name + ".qweight"] = torch.randint(
+                -128, 128, (L, k // 2, n), generator=gen, device=dev,
+                dtype=torch.int8)
+        if weight != "bf16":
+            shape = (L, k // INT4_GROUP, n) if weight == "int4" else (L, n)
+            sc = (torch.rand(shape, generator=gen, device=dev) + 0.5) / (
+                4.6 * k ** 0.5)
+            if values == "bytes_zero_mean":
+                sc = sc * (torch.randint(0, 2, (L, 1, n), generator=gen,
+                                         device=dev) * 2 - 1).reshape(
+                    (L, 1, n) if sc.dim() == 3 else (L, n))
+            st[name + ".per_channel_scale"] = sc
+        st[name + ".bias"] = 0.1 * torch.randn(
+            (L, 3, heads, 64) if name == "attn.qkv" else (L, n),
+            generator=gen, device=dev)
+    for name in ("attn_ln", "cross_attn_ln", "mlp_ln"):
+        st[name + ".weight"] = 1 + 0.1 * torch.randn((L, d), generator=gen,
+                                                     device=dev)
+        st[name + ".bias"] = 0.1 * torch.randn((L, d), generator=gen,
+                                               device=dev)
+    blobs = mk.pack_decoder_blobs(st, n_layer=L, hidden=d, n_head=heads,
+                                  head_dim=64, ffn=ffn, device=dev)
+    del st
+    return mk.megakernel_tiles(blobs)
+
+
 def megakernel_phase(torch, results, gen):
     """Kernel 3, the whole-step decode megakernel, at large-v2 shapes
     (32 layers, d 1280, a self cache of 448 at sequence 44, int8 cross
-    cache of 1500), with a bf16 self cache and (kv8) an int8 one with
-    per-layer scales: for each, one layer against the plain version, then
-    all 32; the two steps also timed in turns."""
+    cache of 1500), with int8 panels over a bf16 self cache and (kv8) an
+    int8 one with per-layer scales, with int4 panels (groups of 128, and
+    per channel) and with bf16 panels: for each, one layer against the
+    plain version, then all 32; the steps also timed in turns.  The int4
+    modes' one layer takes every byte value (-8 in both nibbles
+    included), their 32 layers the quantiser's values."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     dev = torch.device("cuda")
     L, H, D, d, S, Sc, n = 32, 20, 64, 1280, 448, 1500, 44
@@ -1160,14 +1267,38 @@ def megakernel_phase(torch, results, gen):
     modes = {"decoder_megakernel": (self16, blobs),
              "decoder_megakernel_int8_self": (
                  self8, blobs._replace(kv_oq=1 / step, kv_qo=step))}
+    for mode, weight in (("decoder_megakernel_int4", "int4"),
+                         ("decoder_megakernel_int4_pc", "int4_pc"),
+                         ("decoder_megakernel_bf16", "bf16")):
+        t = time.time()
+        modes[mode] = (self16, random_whisper_blobs(torch, dev, gen, L, d,
+                                                    weight))
+        torch.cuda.synchronize()
+        print(f"megakernel blobs, {weight} panels: packed and tiled in "
+              f"{time.time() - t:.1f} s")
+    what_of = {"decoder_megakernel": "int8 panels",
+               "decoder_megakernel_int8_self": "int8 panels, int8 self cache",
+               "decoder_megakernel_int4": "int4 panels, groups of 128",
+               "decoder_megakernel_int4_pc": "int4 panels, per channel",
+               "decoder_megakernel_bf16": "bf16 panels"}
     cross = torch.randint(-127, 128, (L, 1, 2, H, D, Sc), generator=gen,
                           device=dev, dtype=torch.int8)
     cscale = torch.full((L,), 1 / 40.0, device=dev)
     seq = torch.tensor([n], dtype=torch.int32, device=dev)
     seq_host = seq.cpu()        # the plain version reads the length on the host
+    # the int4 modes' one layer on every byte value (a generator of its
+    # own: the other modes' inputs stay as they were)
+    g1 = torch.Generator(device=dev).manual_seed(SEED + 4)
+    one_layer = {mode: random_whisper_blobs(torch, dev, g1, 1, d, weight,
+                                            values="bytes")
+                 for mode, weight in (("decoder_megakernel_int4", "int4"),
+                                      ("decoder_megakernel_int4_pc",
+                                       "int4_pc"))}
 
     def run(mode, n_layer, plain=False):
         self_c, bl = modes[mode]
+        if n_layer == 1 and mode in one_layer:
+            bl = one_layer[mode]
         b = mk.blob_layers(bl, 0, n_layer)
         if plain:
             return mk.plain_fused_decoder_stack(
@@ -1178,15 +1309,17 @@ def megakernel_phase(torch, results, gen):
                                       cross_scale=cscale[:n_layer])
 
     for mode, (self_c, bl) in modes.items():
-        what = "decoder megakernel" + (
-            ", int8 self cache" if self_c.dtype == torch.int8 else "")
+        what = f"decoder megakernel ({what_of[mode]})"
         errs = {}
         for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
             hid, fresh = run(mode, n_layer)
             hid_p, fresh_p = run(mode, n_layer, plain=True)
             torch.cuda.synchronize()
             errs[n_layer] = (rel_err(hid, hid_p), rel_err(fresh, fresh_p))
-            print(f"{what}, {n_layer} layer(s): rel err vs plain bf16: "
+            print(f"{what}, {n_layer} layer(s)"
+                  + (", every byte value" if n_layer == 1
+                     and mode in one_layer else "")
+                  + ": rel err vs plain bf16: "
                   f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
                   f"{errs[n_layer][1]:.3e}")
             check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
@@ -1223,33 +1356,49 @@ def megakernel_phase(torch, results, gen):
               f"the plain {what} timed layer by layer computes the 32-layer "
               "result")
         item = self_c.element_size()
-        panel_bytes = L * 14 * d * d
+        # the bytes a step must move: the panels (int4 two weights a byte;
+        # bf16 two bytes a weight) and int4's group scales in bf16, as the
+        # tiles hold them and the kernel streams them, the
+        # per-channel scales, biases and norms, the caches' valid columns,
+        # the row in and out and the fresh K/V
+        weights = L * 14 * d * d
+        panel_bytes = (weights // 2 if mk.blob_int4(bl) is not None
+                       else weights * bl.wblob.element_size())
+        gscale_bytes = 0 if bl.gscale is None else bl.gscale.numel() * 2
         aux_bytes = L * (4 * d * 4 * 2 + 7 * d * 4 * 2 + 6 * d * 4 + 4
                          + (8 if item == 1 else 0))
         cache_bytes = L * 2 * H * D * (Sc + (n - 1) * item)
         io_bytes = 2 * d * 2 + L * 2 * H * D * item + 4
-        b_ms, b_by = bound(panel_bytes + aux_bytes + cache_bytes + io_bytes,
-                           2 * panel_bytes + L * 4 * H * D * (n + Sc),
+        n_bytes = (panel_bytes + gscale_bytes + aux_bytes + cache_bytes
+                   + io_bytes)
+        b_ms, b_by = bound(n_bytes, 2 * weights + L * 4 * H * D * (n + Sc),
                            PEAK_FP32_CUDA_CORES)
+        tiles_mb = bl.tiles.numel() * bl.tiles.element_size() / 1e6
         print(f"{what} step: {ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} us, "
-              f"{b_by}); plain {plain_ms * 1e3:.1f} us (mean of "
+              f"{b_by}; {n_bytes / 1e6:.1f} MB, {tiles_mb:.1f} MB of tiles "
+              f"streamed); plain {plain_ms * 1e3:.1f} us (mean of "
               + ", ".join(f"{p * 1e3:.1f}" for p in plain_runs) + ")")
         results[mode] = dict(
             max_abs_err=float((hid - hid_p).float().abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, host_call_ms=wall,
+            library_ms=None, host_call_ms=wall, bytes=n_bytes,
+            tiles_mb=tiles_mb,
             grid_blocks=torch.cuda.get_device_properties(0)
             .multi_processor_count,
             rel_err_1_layer=max(errs[1]),
             rel_err_32_layers=max(errs[L]))
-    # the two self caches' steps in turns
+    # every mode's step in turns
     turns = []
     for mode in list(modes) * 2:
         turns.append(time_ms(torch, lambda i: run(mode, L), iters=20)[0])
-    print("megakernel step in turns, bf16 / int8 self cache: "
-          + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
-    results["decoder_megakernel_int8_self"]["in_turns_ms"] = dict(
-        bf16=turns[0::2], int8=turns[1::2])
+    print("megakernel step in turns, " + " / ".join(
+        what_of[m] for m in modes) + ": "
+        + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
+    for i, mode in enumerate(modes):
+        results[mode]["in_turns_ms"] = turns[i::len(modes)]
+    # the per-channel int4 mode rides the int4 row (no path reaches it)
+    results["decoder_megakernel_int4"]["per_channel"] = results.pop(
+        "decoder_megakernel_int4_pc")
 
 
 # LLaMA-1B (benchmarks/benchmark.py's llama_1b with LLAMA_KW): its
@@ -2456,8 +2605,6 @@ def int4_phase(torch, results, gen):
     shape is timed against its plain version and against ``F.linear`` on the
     weight dequantised beforehand, with the dequantisation's own time (what
     a path that dequantises per call pays)."""
-    import torch.nn.functional as F
-
     from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
     from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import \
         unpack_int4
@@ -2552,15 +2699,77 @@ def int4_phase(torch, results, gen):
                   "one-hot x: bf16(q * scale) with the fp32 scale on the "
                   "accumulator, bit for bit")
 
+    shapes = int4_timings(torch, gen, INT4_SHAPES, (DEC_BATCH,
+                                                    DEC_BATCH * 64))
+    # the row: one layer's four calls at decode (M 8), summed
+    dec = [v for key, v in shapes.items() if key.endswith(f"M{DEC_BATCH}")]
+    results["int4_quant_matmul"] = dict(
+        max_abs_err=max(e[2] for e in errs.values()),
+        ms=sum(v["ms"] for v in dec), plain_ms=sum(v["plain_ms"] for v in dec),
+        bound_ms=sum(v["bound_ms"] for v in dec),
+        bound_by="/".join(sorted({v["bound_by"] for v in dec})),
+        library_ms=sum(v["library_ms"] for v in dec),
+        library_dequant_ms=sum(v["library_dequant_ms"] for v in dec),
+        library_int4pack_ms=(sum(v["library_int4pack_ms"] for v in dec)
+                             if all(v["library_int4pack_ms"] for v in dec)
+                             else None),
+        library_int4pack=dec[0]["library_int4pack"],
+        times_are="the four linears of one layer at decode (M 8), summed",
+        shapes=shapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
+
+    # Whisper large-v2's linears in groups of 128 (woq4): each decode step's
+    # at M 1, the 3-token prompt prefill's, and the int4 encoder's at M
+    # 1536 (1500 frames padded), against the plain version, then timed
+    errs.clear()
+    for name, k, n in WHISPER_INT4_SHAPES:
+        for m in (1, 3, 1536):
+            case(f"Whisper {name}: M {m}, K {k}, N {n}, groups of "
+                 f"{INT4_GROUP}", m, k, n, k // INT4_GROUP)
+    wshapes = int4_timings(torch, gen, WHISPER_INT4_SHAPES, (1, 3, 1536))
+    # a decode step's layer: qkv, dense, cross-q, cross-dense (both at
+    # dense's shape), fc1 and fc2, at M 1
+    step = [wshapes["qkv M1"]] + [wshapes["dense M1"]] * 3 + [
+        wshapes["fc1 M1"], wshapes["fc2 M1"]]
+    results["int4_quant_matmul_whisper"] = dict(
+        max_abs_err=max(e[2] for e in errs.values()),
+        **{f: sum(v[f] for v in step) for f in ("ms", "plain_ms",
+                                                "bound_ms", "library_ms",
+                                                "library_dequant_ms")},
+        bound_by="/".join(sorted({v["bound_by"] for v in step})),
+        library_int4pack_ms=(sum(v["library_int4pack_ms"] for v in step)
+                             if all(v["library_int4pack_ms"] for v in step)
+                             else None),
+        library_int4pack=step[0]["library_int4pack"],
+        encoder_layer_ms=sum(wshapes[f"{n} M1536"]["ms"]
+                             for n in ("qkv", "dense", "fc1", "fc2")),
+        times_are="the six linears of one decoder layer at a decode step "
+                  "(M 1), summed",
+        shapes=wshapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
+
+
+def int4_timings(torch, gen, shape_list, ms_list):
+    """The int4 kernel timed at each (name, K, N) of ``shape_list`` (groups
+    of INT4_GROUP rows) and each M of ``ms_list`` against its plain
+    version, ``F.linear`` on the weight dequantised beforehand (and the
+    dequantisation's own time: what a path that dequantises per call pays)
+    and ``torch._weight_int4pack_mm``, rotating over copies of the weights
+    that together exceed the 50 MB L2, as each layer's weights are read
+    once a step: {"<name> M<m>": numbers}."""
+    import torch.nn.functional as F
+
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    from eddie_wang_hackathon2023_tpu_torch.ops.quant_matmul import \
+        unpack_int4
+    dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # timings at the path's shapes, rotating over copies of the weights that
-    # together exceed the 50 MB L2, as each layer's weights are read once a
-    # step
     shapes = {}
-    for name, k, n in INT4_SHAPES:
+    for name, k, n in shape_list:
         groups = k // INT4_GROUP
         copies = -(-120_000_000 // (k // 2 * n))
-        qw, sc = operands(k, n, groups, copies)
+        qw = torch.randint(-128, 128, (copies, k // 2, n), generator=gen,
+                           device=dev, dtype=torch.int8)
+        sc = (torch.rand((copies, groups, n), generator=gen, device=dev)
+              + 0.5) / (4.6 * k ** 0.5)
 
         def deq(i):
             w = unpack_int4(qw[i]).bfloat16().reshape(groups, k // groups, n)
@@ -2569,8 +2778,8 @@ def int4_phase(torch, results, gen):
         lib_copies = -(-120_000_000 // (k * n * 2))
         w_lin = [deq(i).t() for i in range(lib_copies)]        # [N, K] views
         packs = int4pack_operands(torch, qw, sc)
-        for m in (DEC_BATCH, DEC_BATCH * 64):
-            x = randx(m, k)
+        for m in ms_list:
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
             ms, wall = time_ms(torch, lambda i: iq.quant_matmul_int4(
                 x, qw[i % copies], sc[i % copies]))
             plain_ms, _ = time_ms(torch, lambda i: iq.plain_quant_matmul_int4(
@@ -2604,21 +2813,7 @@ def int4_phase(torch, results, gen):
                   + (f"{p4_ms * 1e3:.2f} us (rel err {p4_err:.3e})" if p4_ms
                      else p4_note))
         del qw, sc, w_lin, packs
-    # the row: one layer's four calls at decode (M 8), summed
-    dec = [v for key, v in shapes.items() if key.endswith(f"M{DEC_BATCH}")]
-    results["int4_quant_matmul"] = dict(
-        max_abs_err=max(e[2] for e in errs.values()),
-        ms=sum(v["ms"] for v in dec), plain_ms=sum(v["plain_ms"] for v in dec),
-        bound_ms=sum(v["bound_ms"] for v in dec),
-        bound_by="/".join(sorted({v["bound_by"] for v in dec})),
-        library_ms=sum(v["library_ms"] for v in dec),
-        library_dequant_ms=sum(v["library_dequant_ms"] for v in dec),
-        library_int4pack_ms=(sum(v["library_int4pack_ms"] for v in dec)
-                             if all(v["library_int4pack_ms"] for v in dec)
-                             else None),
-        library_int4pack=dec[0]["library_int4pack"],
-        times_are="the four linears of one layer at decode (M 8), summed",
-        shapes=shapes, rel_err_vs_plain={k: v[:2] for k, v in errs.items()})
+    return shapes
 
 
 def example_kernel():
@@ -3133,7 +3328,10 @@ def plain_kernels():
 def build_whisper(torch, np, config, device, recipe, label):
     """Whisper for ``recipe`` on ``device`` with seeded random weights (the
     static cross-KV scales calibrated on the seeded mel's encoder output),
-    and that mel: dict(config, recipe, enc, dec, ckv, mel, mel_t)."""
+    and that mel: dict(config, recipe, enc, dec, ckv, mel, mel_t,
+    dec_float), ``dec_float`` the decoder's float state (numpy, on the
+    host), from which :func:`decoder_built` makes the decoder of another
+    recipe."""
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
         cross_kv_from_jax_state, from_jax_state, quantize_states)
     from eddie_wang_hackathon2023_tpu_torch.models.whisper.convert import (
@@ -3153,7 +3351,7 @@ def build_whisper(torch, np, config, device, recipe, label):
     # calibrated on this utterance's encoder output
     no_ckv = "+".join(p for p in recipe.split("+") if p != "ckv8")
     enc_q, dec_q, _ = quantize_states(enc_f, dec_f, ckv_f, no_ckv)
-    del enc_f, dec_f
+    del enc_f
     enc, dec, _ = from_jax_state(enc_q, dec_q, ckv_f, config, recipe=no_ckv,
                                  device=device)
     del enc_q, dec_q
@@ -3172,7 +3370,77 @@ def build_whisper(torch, np, config, device, recipe, label):
           f" layers of width {config.n_text_state}, built in "
           f"{time.time() - t0:.1f} s")
     return dict(config=config, recipe=recipe, enc=enc, dec=dec, ckv=ckv,
-                mel=mel, mel_t=mel_t)
+                mel=mel, mel_t=mel_t, dec_float=dec_f)
+
+
+def decoder_built(torch, np, built, recipe):
+    """``built`` (from :func:`build_whisper`) with its decoder made anew
+    for ``recipe`` from the same seeded float state (``dec_float``,
+    quantised again), beside the same encoder and cross-KV: ``recipe``'s
+    encoder and cross-KV parts must be ``built``'s."""
+    from eddie_wang_hackathon2023_tpu_torch.models._state import \
+        unstack_blocks
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        Recipe, quantize_states)
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import \
+        WhisperDecoder
+    r, mine = Recipe.parse(recipe), Recipe.parse(built["recipe"])
+    check(r.encoder == mine.encoder and r.ckv8 == mine.ckv8,
+          f"{recipe} shares {built['recipe']}'s encoder and cross-KV")
+    no_ckv = "+".join(p for p in recipe.split("+") if p != "ckv8")
+    _, dec_q, _ = quantize_states({}, built["dec_float"], {}, no_ckv)
+    dev = built["dec"].positional_embedding.device
+    with torch.device(dev):
+        dec = WhisperDecoder(built["config"], r.decoder,
+                             quantize_lm_head=r.lm_head)
+    dec.load_state_dict(unstack_blocks(dec_q))
+    return {**built, "dec": dec.eval(), "recipe": recipe}
+
+
+def woq4_scanned_path(torch, np, config, device="cuda"):
+    """The woq4_scanned path: Whisper ``config`` (the scanned path's
+    depth) built for WOQ4_SCANNED_RECIPE, an int4 encoder (each of its
+    linears one launch of the int4 kernel's prefill entry at M 1536) and
+    an int4 decoder layer by layer (its decode entry once a linear a step),
+    through :func:`main_path` without the megakernel."""
+    return main_path(torch, np, config=config, device=device,
+                     decode_megakernel=False, recipe=WOQ4_SCANNED_RECIPE,
+                     label="woq4_scanned", slope=False)
+
+
+def whisper_variant_paths(torch, np, built, main, device="cuda"):
+    """The woq4 and float paths on the main path's model (``built``; the
+    main path's numbers ``main``): its decoder made anew for WOQ4_RECIPE
+    (int4 panels, groups of 128) and FLOAT_RECIPE (a float decoder: bf16
+    panels) by :func:`decoder_built`, each through :func:`main_path` with
+    the megakernel (one launch a step), printed beside the main path's
+    numbers with the share of its tokens equal to the main path's.
+    Returns ({label: numbers}, {label: counts})."""
+    on_card = torch.device(device).type == "cuda"
+    out, counts = {}, {}
+    for label, recipe in (("woq4", WOQ4_RECIPE), ("float", FLOAT_RECIPE)):
+        t = time.time()
+        b = decoder_built(torch, np, built, recipe)
+        sync(torch, torch.device(device))
+        print(f"[{label}] decoder made for {recipe} from the main path's "
+              f"float state in {time.time() - t:.1f} s")
+        # the CPU rehearsal skips the 80-token calls of the slope
+        e2e, c = main_path(torch, np, device=device,
+                           decode_megakernel=None if on_card else True,
+                           label=label, built=b, slope=on_card)
+        del b
+        if on_card:
+            torch.cuda.empty_cache()
+        same = float(np.mean([a == m for a, m in zip(e2e["tokens"],
+                                                     main["tokens"])]))
+        e2e["tokens_equal_main"] = same
+        print(f"[{label}] beside main in this run: " + ", ".join(
+            f"{k} {e2e.get(k)} vs {main.get(k)}"
+            for k in ("utt_per_s", "slope_ms_per_token", "decoder_step_ms",
+                      "device_busy_ms_per_step", "device_idle_share",
+                      "peak_gib")) + f"; tokens equal to main's {same:.3f}")
+        out[label], counts[label] = e2e, c
+    return out, counts
 
 
 def sync(torch, device):
@@ -3301,10 +3569,11 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     are then not checked).  Returns (end-to-end numbers, launch
     counts)."""
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
-        BENCH_RECIPE, whisper_config)
+        BENCH_RECIPE, Recipe, whisper_config)
     from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
     from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
 
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -3326,8 +3595,25 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     rows = pipe.beam                     # decoder rows per utterance
     blobs = pipe._megakernel_blobs(rows)
     mk_on = blobs is not None
+    # the recipe's weights: int4 (decoder, and encoder without sqenc),
+    # float, or int8
+    r = Recipe.parse(recipe)
+    dec_int4 = r.decoder.is_int4_weight_only()
+    enc_int4 = r.encoder.is_int4_weight_only()
+    mode = None
+    if mk_on:
+        int4 = mk.blob_int4(blobs)
+        mode = ("int4 panels, " + (f"groups of {config.n_text_state // int4}"
+                                   if int4 else "per channel")
+                if int4 is not None else f"{blobs.wblob.dtype} panels"
+                .replace("torch.", ""))
+        check((int4 is not None) == dec_int4
+              and (blobs.wblob.is_floating_point()
+                   == (not r.decoder.is_weight_only())),
+              f"[{label}] the megakernel's weights follow the recipe "
+              f"({mode})")
     print(f"[{label}] decode path: "
-          + ("the megakernel, one launch per step" if mk_on
+          + (f"the megakernel ({mode}), one launch per step" if mk_on
              else "layer by layer (scanned)")
           + (f", beam search with {beam} beams" if beam else ""))
     # warm-up, recording every decoder call (tokens, cache column, length,
@@ -3338,7 +3624,7 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    res, counts = counted(torch, device, (da, fa, mk),
+    res, counts = counted(torch, device, (da, fa, mk, iq),
                           lambda: pipe.transcribe(mel)[0])
     peak_gib = (torch.cuda.max_memory_allocated() / 2**30 if on_card
                 else float("nan"))
@@ -3367,17 +3653,28 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
                   f"[{label}] one megakernel launch per decode step, no "
                   "decode-attention or GEMV launch in the decode loop")
         else:
-            # self and cross calls: with kv8 both over int8 caches
+            # self and cross calls: with kv8 both over int8 caches; int4
+            # weights take no GEMV epilogue (the out-projections are int4
+            # linears)
             n_self = n_layer * steps
             check(counts["decode_attention_int8"]
                   == n_layer * steps + (n_self if kv8 else 0)
                   and counts["decode_attention_bf16"]
                   == (0 if kv8 else n_self)
-                  and counts["out_proj_gemv"] == 2 * n_layer * steps
+                  and counts["out_proj_gemv"]
+                  == (0 if dec_int4 else 2 * n_layer * steps)
                   and counts["decoder_megakernel"] == 0,
                   f"[{label}] decode kernels launched 2 x {n_layer} per "
-                  f"decode step (+ 2 x {n_layer} GEMV)"
+                  "decode step"
+                  + ("" if dec_int4 else f" (+ 2 x {n_layer} GEMV)")
                   + (", the self calls over the int8 cache" if kv8 else ""))
+        # int4 linears: six a decoder layer in the prompt prefill and (layer
+        # by layer) in each decode step, four an encoder layer
+        want = ((6 * n_layer * (1 if mk_on else 1 + steps) if dec_int4
+                 else 0) + (4 * config.n_audio_layer if enc_int4 else 0))
+        check(counts["int4_quant_matmul"] == want,
+              f"[{label}] the int4 kernel launched {want} times "
+              f"(launched {counts['int4_quant_matmul']})")
         entry = "flash_attention_f32" if sqenc else "flash_attention"
         check(counts[entry] == config.n_audio_layer,
               f"[{label}] flash kernel ({entry}) launched "
@@ -3432,8 +3729,8 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
         print(f"  int8 lm_head cast alone: {lm_cast_ms * 1e3:.1f} us/step")
 
     # end-to-end timing: best of 3 at 40 tokens and, greedy only, at 80
-    # tokens for the decode slope
-    def best(p, n=3):
+    # tokens for the decode slope (one of each in a CPU rehearsal)
+    def best(p, n=3 if on_card else 1):
         return min(wall_s(torch, device, lambda: p.transcribe(mel))
                    for _ in range(n))
 
@@ -3453,7 +3750,9 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
              f"; decode slope {slope_ms:.3f} ms/token (80-token call "
              f"{t80 * 1e3:.1f} ms)")
           + f"; peak memory {peak_gib:.2f} GiB")
-    e2e = dict(**step_info, recipe=recipe, megakernel=mk_on, beam=beam,
+    e2e = dict(**step_info, recipe=recipe, megakernel=mk_on,
+               megakernel_mode=mode, tokens=[int(t) for t in res.tokens],
+               beam=beam,
                n_audio_layer=config.n_audio_layer,
                n_text_layer=config.n_text_layer, utt_per_s=1 / t40,
                ms_per_utt=t40 * 1e3, slope_ms_per_token=slope_ms,
@@ -5585,6 +5884,9 @@ def paths(torch, np, results, config=None, device="cuda",
     long_e2e, long_counts, best_e2e, best_counts = long_paths(
         torch, np, built, device=device)
     lap("long")
+    var_e2e, var_counts = whisper_variant_paths(torch, np, built, main_e2e,
+                                                device=device)
+    lap("woq4_float")
     del built
     cut = dataclasses.replace(
         config, n_audio_layer=min(SCANNED_DEPTH, config.n_audio_layer),
@@ -5595,6 +5897,8 @@ def paths(torch, np, results, config=None, device="cuda",
         torch, np, config=cut, device=device, decode_megakernel=False,
         recipe=SCANNED_RECIPE, label="scanned")
     lap("scanned")
+    woq4s_e2e, woq4s_counts = woq4_scanned_path(torch, np, cut, device)
+    lap("woq4_scanned")
     # the megakernel asked for as on the main path: at batch BEAM_SIZE the
     # pipeline must not take it; the depth cut as the scanned path's, to
     # keep the script near ten minutes
@@ -5674,7 +5978,8 @@ def paths(torch, np, results, config=None, device="cuda",
                   kv8_scanned=kv8s_counts, decoder_kv8=kv8_dec_counts,
                   long=long_counts, best_of=best_counts,
                   gen_beam=gen_beam_counts, bloom=bloom_counts,
-                  chatglm=glm_counts, **llama_counts, **santa_counts,
+                  chatglm=glm_counts, woq4_scanned=woq4s_counts,
+                  **var_counts, **llama_counts, **santa_counts,
                   **modes_counts)
     for name in KERNELS:
         n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
@@ -5690,7 +5995,8 @@ def paths(torch, np, results, config=None, device="cuda",
                 serve=serve_e2e, probes=probes_e2e, kv8=kv8_e2e,
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
                 long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
-                bloom=bloom_e2e, chatglm=glm_e2e, **llama_e2e, **santa_e2e,
+                bloom=bloom_e2e, chatglm=glm_e2e, woq4_scanned=woq4s_e2e,
+                **var_e2e, **llama_e2e, **santa_e2e,
                 serve_modes=modes_e2e, path_seconds=laps)
 
 

@@ -1,7 +1,7 @@
 // The whole decode step of a decoder (every layer) in ONE launch, at
-// batch 1: Whisper's decoder (cross-attention, int8 weight-only panels)
-// and the decoder-only families (GPT-2, OPT, LLaMA, GPT-J, GPT-NeoX:
-// int8 weight-only or bf16 panels).
+// batch 1: Whisper's decoder (cross-attention; int8 or int4 weight-only
+// panels, or bf16 panels) and the decoder-only families (GPT-2, OPT,
+// LLaMA, GPT-J, GPT-NeoX: int8 weight-only or bf16 panels).
 //
 // Replaces the TPU kernel eddie_wang_hackathon2023_tpu/ops/
 // pallas_decoder_layer.py:306 `_kernel` (entry `fused_decoder_stack`,
@@ -41,8 +41,27 @@
 // scaled by the layer's kv_qo where the cross cache takes its scale: the
 // score times scale * kv_qo, the context times kv_qo at the end.  Each
 // (cross, self, weight, head dim) type set is its own instantiation; the
-// Whisper set (with cross-attention) and the decoder-only set are built
-// into two libraries from this file (MEGA_DECODER_ONLY), in parallel.
+// decoder-only set (MEGA_DECODER_ONLY) and the Whisper set (with
+// cross-attention: int8, int4 or bf16 weights, chosen at run time) are
+// built into two libraries from this file, in parallel.
+//
+// The int4 panels of Whisper's set (the TPU kernel's `w4`, :441-498): the
+// tiles hold each column's K rows as nibbles, a 4-byte word 8 rows (nibble
+// p row 2p, nibble p + 4 row 2p + 1, each the value plus 8, 0..15), so that
+// (word >> 4p) & 0x000F000F | 0x43004300 is the bf16 pair 128 + 8 + value
+// of rows 2p and 2p + 1, and one bf16 subtraction of 136 gives the values
+// exactly (the sign extension of unpack_int4: [-8, 7]).  With group scales
+// the item's bytes end with its columns' scales in bf16 ([c, K / G], as the
+// TPU kernel rounds them to the activation type, :488), streamed through
+// the ring with the weights; each value pair is multiplied by its group's
+// scale in bf16 (the product rounded, as the TPU kernel's `plane * gs`),
+// then the products with the input row are summed in fp32 (the group sums
+// in another order than the TPU kernel's: fp32 rounding apart).  Per
+// channel the scale is 1 and the per-channel scales ride the epilogue as
+// int8's do.  Whisper's int8 and int4 items are whole (one load each, the
+// epilogue's scale and bias in the finishing warps' registers); its bf16
+// items (up to 102 KB at large-v2) are streamed in pieces as the
+// decoder-only set's, the epilogue staged in shared memory.
 //
 // Bound: bytes.  A step reads the whole weight image once (14 d*d int8 a
 // layer at large-v2, 734 MB; LLaMA-1B's 16 layers of bf16, 1.62 GB) plus
@@ -132,6 +151,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 // the GEMV stages of a layer, in order (the gated MLP's gate rides the
 // fc1 stage: its item holds the fc and gate columns)
@@ -182,6 +204,8 @@ struct MegaArgs {
   int item_c[kStages], items[kStages], item_k[kStages], tile_off[kStages];
   int piece_c[kStages];
   float scale, eps;
+  int weight_int4;             // int4 panels (Whisper's set)
+  int n_groups;                // their scale groups a panel (0: per channel)
 };
 
 namespace {
@@ -195,6 +219,19 @@ constexpr bool kDecoderOnly = true;
 #else
 constexpr bool kDecoderOnly = false;
 #endif
+
+// int4 weights, two a byte (the tiles' layout above): the weight type of
+// the int4 instantiations
+struct int4x2_t {
+  uint8_t v;
+};
+template <typename WT>
+constexpr bool kInt4 = std::is_same<WT, int4x2_t>::value;
+// weights streamed in pieces, the epilogue staged in shared memory: the
+// decoder-only set, and Whisper's bf16 panels
+template <typename WT>
+constexpr bool kPieced =
+    kDecoderOnly || std::is_same<WT, __nv_bfloat16>::value;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -365,13 +402,23 @@ __device__ __forceinline__ int stage_mats(const MegaArgs& a, int g) {
   return (int)blockIdx.x < a.items[g]
              ? (kDecoderOnly && g == kFc1 && a.gated ? 2 : 1) : 0;
 }
+template <typename WT>
 __device__ __forceinline__ int stage_pieces(const MegaArgs& a, int g) {
-  // Whisper's items are whole (its plan; the C entry checks it)
-  if (!kDecoderOnly || a.piece_c[g] >= a.item_c[g]) return 1;
+  // Whisper's int8 and int4 items are whole (its plan; the C entry checks
+  // it)
+  if (!kPieced<WT> || a.piece_c[g] >= a.item_c[g]) return 1;
   return (a.item_c[g] + a.piece_c[g] - 1) / a.piece_c[g];
 }
 __device__ __forceinline__ int wbytes(const MegaArgs& a) {
   return a.weight_bf16 ? 2 : 1;
+}
+// an int4 item's bytes: its columns' nibbles, then their group scales in
+// bf16 (K / G a column), padded to 16 bytes
+__host__ __device__ __forceinline__ uint32_t int4_item_bytes(
+    const MegaArgs& a, int g) {
+  const int ngc = a.n_groups * (a.item_k[g] / a.d);
+  return (uint32_t)(a.item_c[g] * a.item_k[g] / 2 +
+                    (a.item_c[g] * ngc * 2 + 15) / 16 * 16);
 }
 // the K/V columns of the self-attention (Hkv x head dim; d in Whisper's
 // set) and the query heads a KV head serves
@@ -389,13 +436,16 @@ __device__ __forceinline__ int param_col(const MegaArgs& a, int g, int n) {
   return n < a.d + dkv ? n : n + a.d - dkv;
 }
 // piece p's columns and bytes
+template <typename WT>
 __device__ __forceinline__ int piece_cols(const MegaArgs& a, int g, int p) {
-  if (!kDecoderOnly) return a.item_c[g];
+  if (!kPieced<WT>) return a.item_c[g];
   return min(a.piece_c[g], a.item_c[g] - p * a.piece_c[g]);
 }
+template <typename WT>
 __device__ __forceinline__ uint32_t piece_bytes(const MegaArgs& a, int g,
                                                 int p) {
-  return (uint32_t)(piece_cols(a, g, p) * a.item_k[g] * wbytes(a));
+  if constexpr (kInt4<WT>) return int4_item_bytes(a, g);
+  return (uint32_t)(piece_cols<WT>(a, g, p) * a.item_k[g] * wbytes(a));
 }
 
 // Each block streams its pieces of every GEMV stage, in (layer, stage,
@@ -412,16 +462,19 @@ struct Loads {
   int n;
 };
 
+template <typename WT>
 __device__ void loads_init(const MegaArgs& a, Loads& t) {
   const int wb = wbytes(a);
   int n = 0;
   for (int g = 0; g < kStages; ++g) {
-    const uint32_t item = (uint32_t)(a.item_c[g] * a.item_k[g] * wb);
+    const uint32_t item = kInt4<WT>
+                              ? int4_item_bytes(a, g)
+                              : (uint32_t)(a.item_c[g] * a.item_k[g] * wb);
     for (int m = 0; m < stage_mats(a, g); ++m)
-      for (int p = 0; p < stage_pieces(a, g); ++p, ++n) {
+      for (int p = 0; p < stage_pieces<WT>(a, g); ++p, ++n) {
         t.off[n] = a.tile_off[g] + (blockIdx.x * stage_mats(a, g) + m) * item +
                    p * a.piece_c[g] * a.item_k[g] * wb;
-        t.sz[n] = piece_bytes(a, g, p);
+        t.sz[n] = piece_bytes<WT>(a, g, p);
       }
   }
   t.n = n;
@@ -539,6 +592,45 @@ __device__ __forceinline__ float vec_dot(const uint4 w, const float* xv,
   return sq[0] + sq[1];
 }
 
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  __nv_bfloat162 r;
+  memcpy(&r, &u, 4);
+  return r;
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+// one 16-byte vector of int4 weights (32 rows of K: word q rows 8q ..
+// 8q + 7, pair p of it rows 8q + 2p and 8q + 2p + 1) times the input row's
+// floats at xv, fp32; each pair's values (bf16, exact) times the group
+// scale gs in bf16 (1 per channel: exact), the product rounded
+__device__ __forceinline__ float vec_dot(const uint4 w, const float* xv,
+                                         __nv_bfloat162 gs,
+                                         const int4x2_t*) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const __nv_bfloat162 k136 = __float2bfloat162_rn(136.f);
+  float sq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 xa = x4[2 * q], xb = x4[2 * q + 1];
+    const float xs[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+    float t = 0.f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t m = ((words[q] >> (4 * p)) & 0x000F000Fu) | 0x43004300u;
+      const uint32_t u = as_u32(__hmul2(__hsub2(as_bf162(m), k136), gs));
+      t = fmaf(xs[2 * p], __uint_as_float(u << 16), t);
+      t = fmaf(xs[2 * p + 1], __uint_as_float(u & 0xFFFF0000u), t);
+    }
+    sq[q] = t;
+  }
+  return (sq[0] + sq[1]) + (sq[2] + sq[3]);
+}
+
 // the epilogue's parameters of stage g in layer l (matrix m: the gate of
 // the gated fc1 stage): column n's scale is sc[n], its bias bi[n]
 __device__ __forceinline__ void stage_params(const MegaArgs& a, int l, int g,
@@ -564,21 +656,22 @@ __device__ __forceinline__ void stage_params(const MegaArgs& a, int l, int g,
 
 // The epilogue's scale and bias, requested at the stage's start so that
 // no thread waits for them before the stage's own loads are out.
-// Whisper's items are whole: lane 0 of warp w holds those of its columns
-// w + 8 i in registers (ws, wb).  The decoder-only set's pieces and gate
-// move a column between warps: thread t < c * mats requests column t % c
-// of matrix t / c (s, b) and puts it in shared memory just before the
-// GEMV (epi_store: es[m][j], eb[m][j]).
+// Whisper's int8 and int4 items are whole: lane 0 of warp w holds those of
+// its columns w + 8 i in registers (ws, wb).  The pieces (the decoder-only
+// set's, Whisper's bf16 panels') and the gate move a column between warps:
+// thread t < c * mats requests column t % c of matrix t / c (s, b) and puts
+// it in shared memory just before the GEMV (epi_store: es[m][j], eb[m][j]).
 struct Epi {
   float s, b;
   float ws[kColsWarp], wb[kColsWarp];
 };
 
+template <typename WT>
 __device__ __forceinline__ void epi_fetch(const MegaArgs& a, int l, int g,
                                           int n_out, Epi& e) {
   const int c = a.item_c[g], tid = threadIdx.x;
   const float *sc, *bi;
-  if constexpr (kDecoderOnly) {
+  if constexpr (kPieced<WT>) {
     e.s = e.b = 0.f;
     if (tid < c * stage_mats(a, g)) {
       const int m = tid / c, n = blockIdx.x * c + tid % c;
@@ -604,12 +697,13 @@ __device__ __forceinline__ void epi_fetch(const MegaArgs& a, int l, int g,
   }
 }
 
+template <typename WT>
 __device__ __forceinline__ void epi_store(const MegaArgs& a, int g,
                                           const Epi& e,
                                           float (*es)[kItemCols],
                                           float (*eb)[kItemCols]) {
   const int c = a.item_c[g], tid = threadIdx.x;
-  if (kDecoderOnly && tid < c * stage_mats(a, g)) {
+  if (kPieced<WT> && tid < c * stage_mats(a, g)) {
     es[tid / c][tid % c] = e.s;
     eb[tid / c][tid % c] = e.b;
   }
@@ -617,30 +711,64 @@ __device__ __forceinline__ void epi_store(const MegaArgs& a, int g,
 
 // The sums of one piece of the block's item of stage g: sum_k vin[k] W[k, j]
 // for its columns (the piece's bytes at ring offset `off`, its columns' K
-// contiguous, wrapping at the ring's end; `part` holds a vector's sum
-// each).  Lane 0 of warp w gets column w + 8 i's sum in cs[i].
+// contiguous, wrapping at the ring's end; an int4 item's group scales
+// after its columns' weights; `part` holds a vector's sum each).  Lane 0
+// of warp w gets column w + 8 i's sum in cs[i].
 template <typename WT>
 __device__ __forceinline__ void gemv_piece(const MegaArgs& a, const Ring& r,
                                            int g, int cols, uint32_t off,
                                            const float* vin, float* part,
                                            float* cs) {
-  constexpr int kVals = 16 / sizeof(WT);      // weights a vector
+  // weights a vector
+  constexpr int kVals = kInt4<WT> ? 32 : 16 / (int)sizeof(WT);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int vk = a.item_k[g] / kVals;
   const int nv = cols * vk;
   // v: the vector's place in its column (f % vk, kept by steps)
   const int v_step = kThreads % vk;
   int v = tid % vk;
-  // not unrolled: an unrolled loop's registers spill elsewhere in the
-  // kernel, which costs more than the loop gains
+  if constexpr (kInt4<WT>) {
+    // j: the vector's column (f / vk, kept by steps); its group's scale
+    // at `soff` + 2 (j ngc + v / vpg): ngc groups a column, vpg vectors a
+    // group
+    const int ngc = a.n_groups * (a.item_k[g] / a.d);
+    const int vpg = ngc ? vk / ngc : 1;
+    const uint32_t soff = off + (uint32_t)(cols * a.item_k[g] / 2);
+    const int j_step = kThreads / vk;
+    int j = tid / vk;
+    const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
 #pragma unroll 1
-  for (int f = tid; f < nv; f += kThreads) {
-    uint32_t pos = off + 16u * f;
-    if (pos >= r.bytes) pos -= r.bytes;
-    const uint4 w = *reinterpret_cast<const uint4*>(r.buf + pos);
-    part[f] = vec_dot(w, vin + vpos(kVals * v), (const WT*)nullptr);
-    v += v_step;
-    if (v >= vk) v -= vk;
+    for (int f = tid; f < nv; f += kThreads) {
+      uint32_t pos = off + 16u * f;
+      if (pos >= r.bytes) pos -= r.bytes;
+      const uint4 w = *reinterpret_cast<const uint4*>(r.buf + pos);
+      __nv_bfloat162 gs = one;
+      if (ngc) {
+        uint32_t sp = soff + 2u * (j * ngc + v / vpg);
+        if (sp >= r.bytes) sp -= r.bytes;
+        gs = __bfloat162bfloat162(
+            *reinterpret_cast<const __nv_bfloat16*>(r.buf + sp));
+      }
+      part[f] = vec_dot(w, vin + vpos(kVals * v), gs, (const WT*)nullptr);
+      v += v_step;
+      j += j_step;
+      if (v >= vk) {
+        v -= vk;
+        ++j;
+      }
+    }
+  } else {
+    // not unrolled: an unrolled loop's registers spill elsewhere in the
+    // kernel, which costs more than the loop gains
+#pragma unroll 1
+    for (int f = tid; f < nv; f += kThreads) {
+      uint32_t pos = off + 16u * f;
+      if (pos >= r.bytes) pos -= r.bytes;
+      const uint4 w = *reinterpret_cast<const uint4*>(r.buf + pos);
+      part[f] = vec_dot(w, vin + vpos(kVals * v), (const WT*)nullptr);
+      v += v_step;
+      if (v >= vk) v -= vk;
+    }
   }
   __syncthreads();
   // a warp's columns side by side, so that their chains interleave; four
@@ -678,17 +806,17 @@ __device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
   const int col0 = blockIdx.x * c;
   const int dkv = kv_width(a);
   for (int m = 0; m < mats; ++m) {
-    for (int p = 0; p < stage_pieces(a, g); ++p) {
-      const int cols = piece_cols(a, g, p);
-      const uint32_t sz = piece_bytes(a, g, p);
+    for (int p = 0; p < stage_pieces<WT>(a, g); ++p) {
+      const int cols = piece_cols<WT>(a, g, p);
+      const uint32_t sz = piece_bytes<WT>(a, g, p);
       const uint32_t off = ring_wait(r, sz);
       // the epilogue's parameters in registers before the sums
       float cs[kColsWarp], sc[kColsWarp], bi[kColsWarp];
 #pragma unroll
       for (int i = 0; i < kColsWarp; ++i) {
         const int j = min(p * pc + warp + kWarps * i, kItemCols - 1);
-        sc[i] = kDecoderOnly ? es[m][j] : e.ws[i];
-        bi[i] = kDecoderOnly ? eb[m][j] : e.wb[i];
+        sc[i] = kPieced<WT> ? es[m][j] : e.ws[i];
+        bi[i] = kPieced<WT> ? eb[m][j] : e.wb[i];
       }
       gemv_piece<WT>(a, r, g, cols, off, vin, part, cs);
 #pragma unroll
@@ -1133,8 +1261,9 @@ struct Smem {
   size_t vin, part, ring;
 };
 
+template <typename WT>
 __host__ __device__ inline Smem smem_layout(const MegaArgs& a) {
-  const int vals = a.weight_bf16 ? 8 : 16;
+  const int vals = kInt4<WT> ? 32 : a.weight_bf16 ? 8 : 16;
   size_t vin_n = 0, part_n = 0;
   for (int g = 0; g < kStages; ++g) {
     if (a.items[g] == 0) continue;
@@ -1159,7 +1288,7 @@ template <typename CT, typename ST, typename WT, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 megakernel(const MegaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem lay = smem_layout(a);
+  const Smem lay = smem_layout<WT>(a);
   float* xs = reinterpret_cast<float*>(smem);             // [d] residual
   float* vin = reinterpret_cast<float*>(smem + lay.vin);  // the input row
   float* part = reinterpret_cast<float*>(smem + lay.part);
@@ -1194,7 +1323,7 @@ megakernel(const MegaArgs a) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
           smem_u32(&bars[i])));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    loads_init(a, loads);
+    loads_init<WT>(a, loads);
     if (loads.n == 0) ring.l = a.n_layer;          // a block with no items
     ring_pump(a, loads, ring);
   }
@@ -1236,7 +1365,7 @@ megakernel(const MegaArgs a) {
       const int n_out =
           g == kQkv ? d + 2 * kv_width(a) : g == kFc1 ? nf * d : d;
       Epi ep;
-      if (g >= 0) epi_fetch(a, l, g, n_out, ep);
+      if (g >= 0) epi_fetch<WT>(a, l, g, n_out, ep);
       if (st == 0 || st == 3 || st == 6) {
         const int m = st == 0 ? 0 : st == 3 ? 1 : mlp_norm;
         residual_norm(st == 0 && l == 0 ? nullptr : a.act_b,
@@ -1278,7 +1407,7 @@ megakernel(const MegaArgs a) {
         const bool to_a = g == kQkv || g == kCrossQ || g == kFc1;
         // (the decoder-only set) read by the epilogue after the GEMV's
         // first __syncthreads
-        epi_store(a, g, ep, es, eb);
+        epi_store<WT>(a, g, ep, es, eb);
         gemv_stage(a, ring, l, g, vin, part, to_a ? a.act_a : a.act_b,
                    n_out, es, eb, hold, loads, ep,
                    static_cast<const WT*>(nullptr));
@@ -1317,10 +1446,19 @@ megakernel(const MegaArgs a) {
 // the plan checked against the model's widths and the grid: per stage the
 // model has (the qkv stage's d + 2 dkv columns), items of c columns
 // covering its columns, at most one a block,
-// K a multiple of 16, pieces of 1..c columns, the tiles contiguous in
-// stage order (the gated fc1 item twice as long); a stage it has not, no
-// items
+// K a multiple of 16 (int4: 32, a group of a multiple of 32 rows dividing
+// d/2), pieces of 1..c columns, the tiles contiguous in stage order (the
+// gated fc1 item twice as long; an int4 item int4_item_bytes); a stage it
+// has not, no items
+template <typename WT>
 bool plan_ok(const MegaArgs* a, int grid) {
+  if constexpr (kInt4<WT>) {
+    if (a->n_groups < 0 || a->d % 32) return false;
+    if (a->n_groups) {
+      const int gsz = a->d % a->n_groups ? 0 : a->d / a->n_groups;
+      if (!gsz || gsz % 32 || (a->d / 2) % gsz) return false;
+    }
+  }
   const long long cols[kStages] = {
       a->d + 2LL * a->n_kv_head * a->head_dim, a->d, a->d, a->d,
       (long long)a->nf * a->d, a->d};
@@ -1339,6 +1477,11 @@ bool plan_ok(const MegaArgs* a, int grid) {
         a->piece_c[g] < 1 || a->piece_c[g] > c ||
         a->piece_c[g] > kPieceCols || a->tile_off[g] != off)
       return false;
+    if constexpr (kInt4<WT>) {
+      if (ks[g] % 32 || a->piece_c[g] != c) return false;
+      off += n * int4_item_bytes(*a, g);
+      continue;
+    }
     off += c * n * ks[g] * wb * (g == kFc1 && a->gated ? 2 : 1);
   }
   return off == a->layer_bytes;
@@ -1356,12 +1499,12 @@ int launch(const MegaArgs* a, void* stream) {
                          dev);
   if (!coop) return (int)cudaErrorNotSupported;
   const int grid = sms;              // one block per SM, all co-resident
-  if (!plan_ok(a, grid)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok<WT>(a, grid)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
   if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return (int)e;
   // the ring takes what the block's shared memory has left
   const size_t smem = (size_t)optin - fa.sharedSizeBytes;
-  const Smem lay = smem_layout(*a);
+  const Smem lay = smem_layout<WT>(*a);
   MegaArgs args = *a;
   long long ring = ((long long)smem - (long long)lay.ring) / 16 * 16;
   // the plan's cap on the ring (0: all that is left)
@@ -1369,7 +1512,9 @@ int launch(const MegaArgs* a, void* stream) {
   const int wb = a->weight_bf16 ? 2 : 1;
   long long largest = 0;
   for (int g = 0; g < kStages; ++g)
-    largest = max(largest, (long long)a->piece_c[g] * a->item_k[g] * wb);
+    largest = max(largest, kInt4<WT> ? (long long)int4_item_bytes(*a, g)
+                                     : (long long)a->piece_c[g] *
+                                           a->item_k[g] * wb);
   if (ring < largest) return (int)cudaErrorInvalidValue;
   // a block's loads of a layer fit the table of the ring's walk
   int n_loads = 0;
@@ -1394,7 +1539,23 @@ int launch(const MegaArgs* a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-#ifdef MEGA_DECODER_ONLY
+#ifndef MEGA_DECODER_ONLY
+// Whisper's set at one weight type: heads of 64, a bf16 or int8 cross and
+// self cache
+template <typename WT>
+int launch_whisper(const MegaArgs* a, void* stream) {
+  // whole int8 and int4 items, one load each (bf16 items in pieces)
+  if (!kPieced<WT>)
+    for (int g = 0; g < kStages; ++g)
+      if (a->piece_c[g] != a->item_c[g]) return (int)cudaErrorInvalidValue;
+  if (a->self_int8)
+    return a->cross_int8 ? launch<int8_t, int8_t, WT, 64>(a, stream)
+                         : launch<__nv_bfloat16, int8_t, WT, 64>(a, stream);
+  return a->cross_int8 ? launch<int8_t, __nv_bfloat16, WT, 64>(a, stream)
+                       : launch<__nv_bfloat16, __nv_bfloat16, WT, 64>(
+                             a, stream);
+}
+#else
 // the decoder-only set: no cross cache (its type is a placeholder)
 template <typename ST, typename WT>
 int launch_hd(const MegaArgs* a, void* stream) {
@@ -1413,7 +1574,8 @@ extern "C" {
 // The library built with MEGA_DECODER_ONLY takes decoders without
 // cross-attention (int8 or bf16 weights, head dim 64 or 128, Hkv KV heads
 // under the query heads, the grouped mode at head dim 128); the other,
-// Whisper's decoder (int8 weights, head dim 64, equal heads).
+// Whisper's decoder (int8, int4 or bf16 weights, head dim 64, equal
+// heads).
 int decoder_megakernel(const MegaArgs* a, void* stream) {
   if ((a->head_dim != 64 && a->head_dim != 128) || a->d % a->head_dim ||
       a->d / a->head_dim > kMaxHeads || a->n_head * a->head_dim != a->d ||
@@ -1429,7 +1591,7 @@ int decoder_megakernel(const MegaArgs* a, void* stream) {
       a->act < 0 || a->act > 3 || a->n_ln < 1 || a->n_ln > 3)
     return (int)cudaErrorInvalidValue;
 #ifdef MEGA_DECODER_ONLY
-  if (a->with_cross) return (int)cudaErrorInvalidValue;
+  if (a->with_cross || a->weight_int4) return (int)cudaErrorInvalidValue;
   if (a->weight_bf16)
     return a->self_int8 ? launch_hd<int8_t, __nv_bfloat16>(a, stream)
                         : launch_hd<__nv_bfloat16, __nv_bfloat16>(a, stream);
@@ -1437,20 +1599,16 @@ int decoder_megakernel(const MegaArgs* a, void* stream) {
                       : launch_hd<__nv_bfloat16, int8_t>(a, stream);
 #else
   // Whisper's set: LayerNorm, tanh GELU, the sequential residual, no RoPE
-  if (!a->with_cross || a->weight_bf16 || a->head_dim != 64 ||
+  if (!a->with_cross || (a->weight_bf16 && a->weight_int4) ||
+      a->head_dim != 64 ||
       a->s_self > kMaxSplits * kSplit ||
       a->s_cross > kMaxSplits * kSplit ||
       a->s_cross % (a->cross_int8 ? 4 : 2) || a->norm_rms || a->act ||
       a->gated || a->parallel || a->rope_dim)
     return (int)cudaErrorInvalidValue;
-  for (int g = 0; g < kStages; ++g)       // whole items, one load each
-    if (a->piece_c[g] != a->item_c[g]) return (int)cudaErrorInvalidValue;
-  if (a->self_int8)
-    return a->cross_int8 ? launch<int8_t, int8_t, int8_t, 64>(a, stream)
-                         : launch<__nv_bfloat16, int8_t, int8_t, 64>(a, stream);
-  return a->cross_int8 ? launch<int8_t, __nv_bfloat16, int8_t, 64>(a, stream)
-                       : launch<__nv_bfloat16, __nv_bfloat16, int8_t, 64>(
-                             a, stream);
+  if (a->weight_int4) return launch_whisper<int4x2_t>(a, stream);
+  return a->weight_bf16 ? launch_whisper<__nv_bfloat16>(a, stream)
+                        : launch_whisper<int8_t>(a, stream);
 #endif
 }
 

@@ -333,7 +333,10 @@ class DecoderLMHead(nn.Module):
         if c.gated_mlp:
             mods.append(b.mlp.gate)
         if isinstance(qkv, WeightOnlyQuantQKVLinear):
-            return woq_block_eligible(qkv, mods, c.hidden_size)
+            # int4 stays layer by layer, as in the JAX package (its device
+            # A/B lost on decoder-only stacks, JAX models/decoder.py:248)
+            return woq_block_eligible(qkv, mods, c.hidden_size,
+                                      allow_int4=False)
         return isinstance(qkv, QKVLinear) and all(
             type(m) in (Linear, RowLinear) for m in mods)
 

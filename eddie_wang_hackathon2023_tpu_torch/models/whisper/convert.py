@@ -5,11 +5,12 @@
   converters, giving state dicts in the JAX package's layout (per-layer
   tensors stacked [n_layer, ...], head-major fused QKV with a zero K bias).
 * ``quantize_states``: the bench recipe (``woq8+ckv8+lmq8+sqenc``, and
-  ``kv8``) applied to such state dicts with the port's own quantisers.
+  ``woq4`` and ``kv8``) applied to such state dicts with the port's own
+  quantisers.
 * ``from_jax_state``: state dicts in that layout (float, or already
   quantised by either package's surgery) -> the port's modules, on a
-  device.  Both packages then compute with identical int8 weights and
-  scales.
+  device.  Both packages then compute with identical int8 (or int4)
+  weights and scales.
 """
 from __future__ import annotations
 
@@ -33,10 +34,12 @@ BENCH_RECIPE = "woq8+ckv8+lmq8+sqenc"
 
 class Recipe(NamedTuple):
     """A "+"-joined recipe string as bench.py reads it: ``woq8`` int8
-    weight-only decoder (and encoder, unless ``sqenc``), ``sqenc``
-    SmoothQuant W8A8 encoder (per token, per channel), ``kv8`` int8
-    decoder self-KV cache with calibrated per-layer scales, ``ckv8``
-    static int8 cross-KV, ``lmq8`` int8 lm_head."""
+    weight-only decoder (and encoder, unless ``sqenc``), ``woq4`` the same
+    with int4 weights (groups of INT4_GROUP_SIZE rows where the
+    in-features allow; it wins over ``woq8``), ``sqenc`` SmoothQuant W8A8
+    encoder (per token, per channel), ``kv8`` int8 decoder self-KV cache
+    with calibrated per-layer scales, ``ckv8`` static int8 cross-KV,
+    ``lmq8`` int8 lm_head."""
     encoder: QuantMode
     decoder: QuantMode
     lm_head: bool
@@ -46,19 +49,12 @@ class Recipe(NamedTuple):
     def parse(recipe: str) -> "Recipe":
         parts = set(p for p in recipe.split("+") if p and p not in
                     ("none", "bf16"))
-        if "woq4" in parts:
-            # at batch 1 the JAX package decodes woq4 Whisper through the
-            # megakernel's int4 panels (pallas_decoder_layer.py:243-262),
-            # a mode of the megakernel that is not ported yet
-            raise NotImplementedError(
-                "recipe part 'woq4': Whisper int4 decodes through the "
-                "megakernel's int4 panels, which are not ported yet")
-        unknown = parts - {"woq8", "kv8", "ckv8", "lmq8", "sqenc"}
+        unknown = parts - {"woq8", "woq4", "kv8", "ckv8", "lmq8", "sqenc"}
         if unknown:
             raise NotImplementedError(f"recipe parts {sorted(unknown)} are "
                                       "not ported")
-        weights = (QuantMode.use_weight_only() if "woq8" in parts
-                   else QuantMode(0))
+        weights = (QuantMode.use_weight_only(use_int4_weights="woq4" in parts)
+                   if parts & {"woq8", "woq4"} else QuantMode(0))
         # the self-KV cache is the decoder's; the encoder keeps none
         dec = (weights.set_int8_kv_cache() if "kv8" in parts else weights)
         enc = (QuantMode.use_smooth_quant(per_token=True, per_channel=True)

@@ -208,14 +208,19 @@ class WhisperDecoder(nn.Module):
 
     def megakernel_eligible(self, device=None) -> bool:
         """Structure check for the whole-step megakernel
-        (``ops/decoder_layer.py``): lane-divisible widths and every block
-        int8 weight-only per output channel.  On a CUDA ``device`` (default:
-        the weights' device) also the types the kernel takes: bf16
-        activations (the self cache is bf16 or, under ``kv8``, int8; the
-        cross cache, made in the same dtype or int8, follows) and heads of
-        64.  (The JAX package also takes
-        plain float blocks; float panels are not ported.)"""
+        (``ops/decoder_layer.py``), the JAX package's ``model.py:291-322``:
+        lane-divisible widths and every block uniformly weight-only (int8
+        per output channel, or int4 per channel or in groups that divide
+        d/2: :func:`..ops.decoder_layer.woq_block_eligible`) or uniformly
+        float (the fused equal-heads QKV and plain linears: bf16 panels
+        with unit scales).  On a CUDA ``device`` (default: the weights'
+        device) also the types the kernel takes: bf16 activations (the self
+        cache is bf16 or, under ``kv8``, int8; the cross cache, made in the
+        same dtype or int8, follows) and heads of 64."""
+        from ...layers.attention import QKVLinear
+        from ...layers.linear import Linear, RowLinear
         from ...ops.decoder_layer import HEAD_DIM, woq_block_eligible
+        from ...quantization.layers import WeightOnlyQuantQKVLinear
         c = self.config
         b = self.blocks[0]
         if device is None:
@@ -227,15 +232,21 @@ class WhisperDecoder(nn.Module):
             return False
         if b.mlp1.out_features % c.n_text_state:
             return False
+        qkv = b.attn.qkv
         mods = [b.attn.dense, b.cross_attn.q_linear, b.cross_attn.dense,
                 b.mlp1, b.mlp2]
-        return woq_block_eligible(b.attn.qkv, mods, c.n_text_state)
+        if isinstance(qkv, WeightOnlyQuantQKVLinear):
+            return woq_block_eligible(qkv, mods, c.n_text_state)
+        return (isinstance(qkv, QKVLinear)
+                and qkv.num_kv_heads == qkv.num_heads
+                and all(type(m) in (Linear, RowLinear) for m in mods))
 
     def megakernel_blobs(self):
         """The megakernel's weight image, packed from this decoder's own
         blocks (stacked into the JAX state layout first) on their device:
-        a second copy of the decoder's int8 weights, and on a card a third,
-        the kernel's item-contiguous tiles."""
+        a second copy of the decoder's weights (int8, int4 with its group
+        scales, or float), and on a card a third, the kernel's
+        item-contiguous tiles."""
         from ...ops.decoder_layer import megakernel_tiles, pack_decoder_blobs
         c = self.config
         per_layer = [blk.state_dict() for blk in self.blocks]

@@ -3,9 +3,13 @@
 Counterpart of the JAX package's ``ops/pallas_decoder_layer.py``
 (``fused_decoder_stack``, :865) at batch 1, in two sets of modes:
 
-* Whisper's decoder (``with_cross``): int8 weight-only panels with
-  per-channel scales, LayerNorm, tanh GELU, cross-attention over an int8
-  (or float) cross cache with per-layer scales;
+* Whisper's decoder (``with_cross``): weight-only panels, int8 with
+  per-channel scales or int4 (the half-split nibbles of each [d, d]
+  panel, ``wblob`` [L, NPAN, d/2, d]) with per-channel scales or group
+  scales ``gscale`` [L, NPAN, NG, d] whose group divides d/2, or float
+  panels (bf16 on the card) with unit scales; LayerNorm, tanh GELU,
+  cross-attention over an int8 (or float) cross cache with per-layer
+  scales;
 * the decoder-only families (GPT-2, OPT, LLaMA, GPT-J, GPT-NeoX): no
   cross-attention, int8 weight-only or float (bf16 on the card) panels
   with unit scales, LayerNorm or RMSNorm, the gated MLP act(fc) * gate,
@@ -25,16 +29,18 @@ the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the cache and
 the fresh column dequantised with ``kv_qo``, as the TPU kernel's
 ``self_quant`` mode), keys below the start index masked.  On a CUDA
 tensor the wrapper makes ONE cooperative launch of the kernel of
-``csrc/decoder_layer.cu`` (the Whisper set and the decoder-only set are
-two libraries built from it), which reads its GEMV weights from the
-blobs' ``tiles`` (:func:`megakernel_tiles`, cut by :func:`megakernel_plan`
-for the card's SM count); on a CPU tensor it runs the plain version,
-:func:`plain_fused_decoder_stack`, which runs the kernel's stages with
-its attention slices and rounding points.
+``csrc/decoder_layer.cu`` (the decoder-only set and Whisper's set, one
+library for each of its weight types, are libraries built from it), which
+reads its GEMV weights from the blobs' ``tiles`` (:func:`megakernel_tiles`,
+cut by :func:`megakernel_plan` for the card's SM count); on a CPU tensor
+it runs the plain version, :func:`plain_fused_decoder_stack`, which runs
+the kernel's stages with its attention slices and rounding points.
 
-Not ported, and raising ``NotImplementedError``: int4 panels and
-group-wise scales, float panels and the gated MLP with cross-attention
-(the JAX kernel refuses the latter too), the grouped mode with
+Not ported, and raising ``NotImplementedError``: int4 panels without
+cross-attention (the JAX package keeps decoder-only int4 off its
+megakernel, ``woq_block_eligible(allow_int4=False)``), a group that does
+not divide d/2, group scales on int8 or float panels, the gated MLP with
+cross-attention (the JAX kernel refuses it too), the grouped mode with
 cross-attention or at head dim 64 (the JAX kernel refuses both), fp8
 self-KV, the K-step tail and batch > 1.
 """
@@ -50,6 +56,7 @@ from ..functional import (ACT2FN, apply_rope, layer_norm, matmul_fp32,
                           rms_norm, rope_angles, rope_freqs, round_half_away)
 from . import _build
 from .attention import NEG
+from .quant_matmul import unpack_int4
 
 # launches of the CUDA kernel, counted where the wrapper launches it
 launches = {"decoder_megakernel": 0}
@@ -116,8 +123,10 @@ def reset_launches() -> None:
 class MegakernelBlobs(NamedTuple):
     """Packed per-layer weights of :func:`fused_decoder_stack` (the JAX
     package's layout and names)."""
-    # [L, NPAN, d, d] K-major panels, int8 or float (a meta tensor, type
-    # and shape only, where the tiles alone hold the weights)
+    # [L, NPAN, d, d] K-major panels, int8 or float, or int4 [L, NPAN, d/2,
+    # d] (each panel's half-split nibbles: byte i of a column holds K rows
+    # i and i + d/2); a meta tensor, type and shape only, where the tiles
+    # alone hold the weights
     wblob: torch.Tensor
     pair_scale: torch.Tensor   # [L, NQ, d/128, 128] f32: q, k, v (, cross-q)
     pair_bias: torch.Tensor    # [L, NQ, d/128, 128] f32
@@ -126,7 +135,9 @@ class MegakernelBlobs(NamedTuple):
     ln_par: torch.Tensor       # [L, 2 n_ln, d] f32: weight, bias of each norm
     kv_oq: torch.Tensor        # [L] f32 self-KV quantise scale (int8 cache)
     kv_qo: torch.Tensor        # [L] f32 self-KV dequantise scale
-    gscale: Optional[torch.Tensor] = None   # int4 group scales: not ported
+    # int4 group scales [L, NPAN, NG, d] f32 (NG groups of d / NG K rows a
+    # panel; pair_scale and flat_scale then hold ones), None per channel
+    gscale: Optional[torch.Tensor] = None
     # the kernel's item-contiguous copy of wblob [L, layer_bytes / itemsize]
     # in wblob's type and the grid it was cut for (:func:`megakernel_tiles`;
     # the card only)
@@ -153,6 +164,22 @@ def blob_layout(blobs: "MegakernelBlobs") -> Tuple[bool, bool, int]:
     return False, nflat - 2 == 2 * nf, nf
 
 
+def blob_int4(blobs: "MegakernelBlobs") -> Optional[int]:
+    """The groups of a panel (0: per-channel scales) of int4 blobs, None
+    for int8 or float panels."""
+    w = blobs.wblob
+    if w.shape[2] != w.shape[3] // 2:
+        return None
+    return 0 if blobs.gscale is None else blobs.gscale.shape[2]
+
+
+def int4_item_bytes(c: int, k: int, d: int, groups: int) -> int:
+    """Bytes of an int4 item of ``c`` columns by ``k`` rows of K (a panel
+    of width ``d``, ``groups`` scale groups a panel): the nibbles, then
+    the columns' group scales in bf16, padded to 16 bytes."""
+    return c * k // 2 + -(-(c * (k // d) * groups * 2) // 16) * 16
+
+
 def blob_kv_width(blobs: "MegakernelBlobs") -> Optional[int]:
     """dkv (KV heads x head dim) of grouped blobs, None with equal
     heads."""
@@ -161,18 +188,20 @@ def blob_kv_width(blobs: "MegakernelBlobs") -> Optional[int]:
 
 def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
                     gated: bool = False, itemsize: int = 1,
-                    dkv: Optional[int] = None) -> Dict[str, list]:
+                    dkv: Optional[int] = None,
+                    int4: Optional[int] = None) -> Dict[str, list]:
     """The megakernel's GEMV items for width ``d``, ``nf`` fc panels, a grid
-    of ``sms`` blocks and weights of ``itemsize`` bytes: per stage of
-    :data:`GEMV_STAGES`, ``item_c`` output columns an item by all
-    ``item_k`` rows of K, ``items`` items (at most one a block: c =
+    of ``sms`` blocks and weights of ``itemsize`` bytes (or, ``int4`` not
+    None, int4 weights with ``int4`` scale groups a panel, 0 per channel):
+    per stage of :data:`GEMV_STAGES`, ``item_c`` output columns an item by
+    all ``item_k`` rows of K, ``items`` items (at most one a block: c =
     ceil(columns / sms), so each stage is one wave), ``tile_off`` the
     stage's byte offset in a layer's tiles and ``layer_bytes`` a layer's
     (the last item's columns past the stage's are zeros; the gated fc1
-    item is its c fc columns, then the same c gate columns), ``piece_c``
-    the columns of each load into the ring (whole columns of at most
-    PIECE_BYTES and at most PIECE_MAX_COLS; with cross-attention the whole
-    item), and ``ring_cap``
+    item is its c fc columns, then the same c gate columns; an int4 item
+    :func:`int4_item_bytes`), ``piece_c`` the columns of each load into
+    the ring (whole columns of at most PIECE_BYTES and at most
+    PIECE_MAX_COLS; Whisper's int8 and int4 items whole), and ``ring_cap``
     the bytes of the shared-memory ring (0: all the block's shared memory
     left).  Without cross-attention its two
     stages have no items.  The qkv stage has d + 2 ``dkv`` columns (3 d
@@ -192,9 +221,12 @@ def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
         items = -(-n // c)
         plan["item_c"].append(c)
         plan["items"].append(items)
-        plan["piece_c"].append(c if with_cross else min(
+        whole = int4 is not None or (with_cross and itemsize == 1)
+        plan["piece_c"].append(c if whole else min(
             c, PIECE_MAX_COLS, max(1, PIECE_BYTES // (k * itemsize))))
-        off += c * items * k * itemsize * (2 if gated and g == 4 else 1)
+        item = (c * k * itemsize if int4 is None
+                else int4_item_bytes(c, k, d, int4))
+        off += item * items * (2 if gated and g == 4 else 1)
     plan["layer_bytes"] = off
     plan["ring_cap"] = 0
     return plan
@@ -203,17 +235,18 @@ def megakernel_plan(d: int, nf: int, sms: int, with_cross: bool = True,
 def _stage_weights(wblob: torch.Tensor, with_cross: bool = True,
                    gated: bool = False, kvblob=None):
     """Each GEMV stage's weight of every layer transposed, [L, columns, K]
-    (K contiguous), from the K-major panels [L, NPAN, d, d] (and, grouped,
-    the K and V columns ``kvblob`` [L, d, 2 dkv] after q's); None for a
-    stage the model has not, (fc, gate) for the gated fc1 stage."""
-    L, npan, d, _ = wblob.shape
+    (K contiguous), from the K-major panels [L, NPAN, k, d] (k = d; or the
+    panels' group scales, k = NG, and K their rows) (and, grouped, the K
+    and V columns ``kvblob`` [L, d, 2 dkv] after q's); None for a stage the
+    model has not, (fc, gate) for the gated fc1 stage."""
+    L, npan, k, d = wblob.shape
     grouped = kvblob is not None
     base = 6 if with_cross else 2 if grouped else 4
     nf = (npan - base) // (3 if gated else 2)
     pan = _panels(nf, with_cross, gated, grouped)
 
     def cols(p0, n):                     # panels p0.. side by side
-        return wblob[:, p0:p0 + n].transpose(2, 3).reshape(L, n * d, d)
+        return wblob[:, p0:p0 + n].transpose(2, 3).reshape(L, n * d, k)
 
     def one(p):
         return wblob[:, p].transpose(1, 2)
@@ -225,8 +258,30 @@ def _stage_weights(wblob: torch.Tensor, with_cross: bool = True,
     return [qkv, one(pan["dense"]),
             one(pan["crossq"]) if with_cross else None,
             one(pan["crossdense"]) if with_cross else None, fc1,
-            wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * d, d)
+            wblob[:, pan["fc2"]:pan["fc2"] + nf].reshape(L, nf * k, d)
             .transpose(1, 2)]
+
+
+def _int4_words(q: torch.Tensor) -> torch.Tensor:
+    """int4 values [..., K] (int8 in [-8, 7]) -> the tiles' bytes [..., K/2]:
+    each 4-byte word holds 8 rows of K, nibble p (bits 4p..4p+3) row 2p and
+    nibble p + 4 row 2p + 1 (p < 4), each the value plus 8 (0..15), so that
+    (word >> 4p) & 0x000F000F are rows 2p and 2p + 1 in the two halves of a
+    bf16 pair."""
+    u = (q.to(torch.int16) + 8).to(torch.uint8)
+    u = u.reshape(*q.shape[:-1], -1, 4, 2).transpose(-1, -2)
+    u = u.reshape(*q.shape[:-1], -1, 2, 2, 2)          # parity, pair, nibble
+    return (u[..., 0] | (u[..., 1] << 4)).reshape(
+        *q.shape[:-1], -1).view(torch.int8)
+
+
+def _int4_values(b: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_int4_words`: tile bytes [..., K/2] -> int8
+    values [..., K]."""
+    u = b.view(torch.uint8).reshape(*b.shape[:-1], -1, 2, 2)
+    u = torch.stack([u & 0xF, u >> 4], dim=-1)        # parity, pair, nibble
+    u = u.reshape(*b.shape[:-1], -1, 2, 4).transpose(-1, -2)
+    return (u.reshape(*b.shape[:-1], -1).to(torch.int16) - 8).to(torch.int8)
 
 
 def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
@@ -236,15 +291,23 @@ def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
     SM count of wblob's card by default): per layer, per stage of
     :data:`GEMV_STAGES` the model has, ``items`` items of ``item_c``
     columns, each its columns' K rows contiguous (the gated fc1 item its
-    fc columns, then its gate columns; :func:`megakernel_plan`)."""
+    fc columns, then its gate columns; :func:`megakernel_plan`).  int4
+    panels: each column's K rows in :func:`_int4_words`' bytes, then the
+    item's group scales [c, K / group] in bf16 (the kernel's activation
+    type, to which the TPU kernel rounds them), padded to 16 bytes."""
     w = blobs.wblob
-    L, _, d, _ = w.shape
+    L, _, _, d = w.shape
     with_cross, gated, nf = blob_layout(blobs)
+    int4 = blob_int4(blobs)
     if sms is None:
         sms = torch.cuda.get_device_properties(
             w.device).multi_processor_count
     plan = megakernel_plan(d, nf, sms, with_cross, gated, w.element_size(),
-                           blob_kv_width(blobs))
+                           blob_kv_width(blobs), int4)
+    if int4 is not None:
+        w = unpack_int4(w)
+    gs = (None if not int4 else
+          _stage_weights(blobs.gscale, with_cross, gated))
     parts = []
     for g, m in enumerate(_stage_weights(w, with_cross, gated,
                                          blobs.kvblob)):
@@ -254,21 +317,44 @@ def megakernel_tiles(blobs: "MegakernelBlobs", sms: Optional[int] = None
         mats = m if isinstance(m, tuple) else (m,)
         padded = [torch.nn.functional.pad(t, (0, 0, 0, c * n - t.shape[1]))
                   .reshape(L, n, c, -1) for t in mats]
-        parts.append(torch.cat(padded, dim=2).reshape(L, -1))
+        if int4 is None:
+            parts.append(torch.cat(padded, dim=2).reshape(L, -1))
+            continue
+        item = [_int4_words(padded[0]).reshape(L, n, -1)]
+        if int4:
+            sc = torch.nn.functional.pad(gs[g], (0, 0, 0, c * n
+                                                 - gs[g].shape[1]), value=1.0)
+            sc = sc.to(torch.bfloat16).reshape(L, n, -1).view(torch.int8)
+            item.append(torch.nn.functional.pad(sc, (0, -sc.shape[2] % 16)))
+        parts.append(torch.cat(item, dim=2).reshape(L, -1))
     return blobs._replace(tiles=torch.cat(parts, dim=1).contiguous(),
                           tiles_grid=sms)
 
 
 def untile(tiles: torch.Tensor, plan: Dict[str, list], stage: int,
-           mat: int = 0, gated: bool = False) -> torch.Tensor:
+           mat: int = 0, gated: bool = False, int4: Optional[int] = None):
     """Stage ``stage``'s weight [L, K, columns] (K-major, as the panels
     hold it) read back from tiles [L, layer_bytes / itemsize] laid out by
     ``plan``, the padding columns included (the gated fc1 stage: its fc,
-    ``mat`` 0, or its gate, 1)."""
+    ``mat`` 0, or its gate, 1).  int4 tiles (``int4`` the groups of a
+    panel): (the int8 values [L, K, columns], the bf16 group scales [L,
+    K / group, columns], or None per channel)."""
     c, n, k = (plan[f][stage] for f in ("item_c", "items", "item_k"))
     off = plan["tile_off"][stage] // tiles.element_size()
-    mats = 2 if gated and stage == 4 else 1
     L = tiles.shape[0]
+    if int4 is not None:
+        d = plan["item_k"][0]
+        size = int4_item_bytes(c, k, d, int4)
+        t = tiles[:, off:off + n * size].reshape(L, n, size)
+        q = _int4_values(t[..., :c * k // 2].reshape(L, n, c, k // 2))
+        q = q.reshape(L, c * n, k).transpose(1, 2)
+        if not int4:
+            return q, None
+        ng = int4 * k // d
+        sc = t[..., c * k // 2:c * k // 2 + 2 * c * ng].contiguous().view(
+            torch.bfloat16).reshape(L, c * n, ng).transpose(1, 2)
+        return q, sc
+    mats = 2 if gated and stage == 4 else 1
     t = tiles[:, off:off + mats * c * n * k].reshape(L, n, mats, c, k)
     return t[:, :, mat].reshape(L, c * n, k).transpose(1, 2)
 
@@ -306,16 +392,31 @@ def _flat_slots(nf: int, with_cross: bool = True,
                 fc2=1 + (2 * nf if gated else nf))
 
 
-def woq_block_eligible(qkv, mods, hidden: int) -> bool:
-    """Every projection of the block int8 weight-only per output channel
-    (the int8 half of the JAX package's check; the int4 panels are not
-    ported, so an int4 block never reaches the megakernel)."""
+def woq_block_eligible(qkv, mods, hidden: int,
+                       allow_int4: bool = True) -> bool:
+    """The JAX package's check (``pallas_decoder_layer.py:242-278``): every
+    projection of the block weight-only, uniformly int8 per output channel
+    or uniformly int4 with one group size (0: per channel) that divides
+    d/2, so that each K group lies in one nibble plane of a panel's
+    half-split packing.  ``allow_int4`` False (the decoder-only models,
+    as the JAX package's) refuses int4."""
     from ..quantization.layers import (WeightOnlyQuantLinear,
                                        WeightOnlyQuantQKVLinear)
-    if not isinstance(qkv, WeightOnlyQuantQKVLinear) or qkv.bits != 8:
+    if not isinstance(qkv, WeightOnlyQuantQKVLinear):
         return False
-    return all(isinstance(m, WeightOnlyQuantLinear) and m.bits == 8
-               for m in mods)
+    bits = {qkv.bits} | {getattr(m, "bits", None) for m in mods}
+    if bits == {4} and not allow_int4:
+        return False
+    if bits not in ({8}, {4}):
+        return False
+    groups = {qkv.group_size} | {getattr(m, "group_size", None)
+                                 for m in mods}
+    if len(groups) != 1:
+        return False
+    gs = groups.pop()
+    if gs and (8 in bits or hidden % (2 * gs)):
+        return False
+    return all(isinstance(m, WeightOnlyQuantLinear) for m in mods)
 
 
 def kernel_takes(dtype, d: int, nf: int, head_dim: int) -> bool:
@@ -336,9 +437,15 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
     of ``keys``, by default :data:`WHISPER_KEYS` with cross-attention and
     :data:`DECODER_KEYS` without, lacking the ``blocks.`` prefix; numpy
     arrays or tensors): int8 weight-only (``attn.qkv.qweight`` [L, d, 3d],
-    ``mlp1.qweight`` [L, d, ffn], ...) or, without cross-attention, float
-    (``attention.qkv.weight`` [L, 3, H, D, d], ``mlp.fc.weight`` [L, ffn,
-    d], ...: transposed to K-major panels of the weights' type, with unit
+    ``mlp1.qweight`` [L, d, ffn], ...), float (``attn.qkv.weight`` [L, 3,
+    H, D, d], ``mlp1.weight`` [L, ffn, d], ...: transposed to K-major
+    panels of the weights' type, with unit scales) or, with
+    cross-attention, int4 weight-only (``qweight`` [L, in/2, out] in the
+    matrix's half-split nibbles, scales [L, out] or group scales [L, in/G,
+    out]: unpacked, cut into panels and each panel re-packed half-split
+    along its own K rows, ``wblob`` [L, NPAN, d/2, d]; group scales cut as
+    the panels into ``gscale`` [L, NPAN, d/G, d], qkv and fc1 by output
+    columns, fc2 by K groups, the padding ones, with unit pair and flat
     scales).  A pure relayout, equal bit for bit to the JAX package's
     ``pack_decoder_blobs`` on the same state: q/k/v, fc1 and the gate are
     cut along their output columns into [d, d] panels, fc2 along its input
@@ -366,9 +473,6 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
         raise NotImplementedError("no gated decoder has cross-attention")
     kk = keys or (WHISPER_KEYS if with_cross else DECODER_KEYS)
     quantized = kk["qkv"] + ".qweight" in state
-    if not quantized and with_cross:
-        raise NotImplementedError("float megakernel panels are not ported "
-                                  "for the Whisper decoder")
     L, d = n_layer, hidden
     hp, dl = d // 128, 128
     nf = -(-ffn // d)
@@ -384,12 +488,12 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
         t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
         return t if device is None else t.to(device)
 
-    if quantized:
-        if g(kk["qkv"] + ".qweight").shape[-2] != d:
-            raise NotImplementedError("int4 megakernel panels are not "
-                                      "ported")
-        if g(kk["qkv"] + ".per_channel_scale").dim() != 2:
-            raise NotImplementedError("group-wise scales are not ported")
+    bits4 = quantized and g(kk["qkv"] + ".qweight").shape[-2] == d // 2
+    grouped4 = bits4 and g(kk["qkv"] + ".per_channel_scale").dim() == 3
+    if bits4 and not with_cross:
+        raise NotImplementedError("int4 megakernel panels without "
+                                  "cross-attention (the JAX package keeps "
+                                  "decoder-only int4 off the megakernel)")
 
     def zeros_or(key, shape):
         v = state.get(key)
@@ -397,15 +501,18 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
             return torch.zeros(shape, dtype=f32, device=device)
         return g(key).to(f32)
 
-    def scale(key, shape):               # unit scales for float panels
-        if not quantized:
+    def scale(key, shape):     # unit scales for float panels and groups
+        if not quantized or grouped4:
             return torch.ones(shape, dtype=f32, device=device)
         return g(key + ".per_channel_scale").to(f32)
 
     def weight(key):                     # K-major [L, in, out]
         if quantized:
-            return g(key + ".qweight")
+            return maybe_unpack(g(key + ".qweight"))
         return g(key + ".weight").transpose(-1, -2)
+
+    def maybe_unpack(w):                 # int4 [L, in/2, out] -> [L, in, out]
+        return unpack_int4(w) if bits4 else w
 
     def pad_cols(w):                     # [L, d, ffn] -> [L, d, pffn]
         return w if pffn == ffn else torch.nn.functional.pad(
@@ -424,7 +531,7 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
 
     kvblob = None
     if quantized:
-        qkv_w = g(kk["qkv"] + ".qweight")
+        qkv_w = maybe_unpack(g(kk["qkv"] + ".qweight"))
         if grouped:                      # [L, d, d + 2 dkv]: q | k | v
             qkv_panels = [qkv_w[:, :, 0:d]]
             kvblob = qkv_w[:, :, d:].contiguous()
@@ -452,7 +559,34 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
         gate = pad_cols(weight(kk["gate"]))
         panels += [gate[:, :, j * d:(j + 1) * d] for j in range(nf)]
     panels += [fc2[:, j * d:(j + 1) * d, :] for j in range(nf)]
-    wblob = torch.stack(panels, dim=1).contiguous()
+    wblob = torch.stack(panels, dim=1)
+    if bits4:
+        # each [d, d] panel re-packed half-split along its own K rows
+        wblob = (wblob[:, :, :d // 2] & 0xF) | (
+            (wblob[:, :, d // 2:] & 0xF) << 4)
+    wblob = wblob.contiguous()
+
+    gscale = None
+    if grouped4:
+        # [L, NPAN, NG, d]: qkv, dense, cross-q, cross-dense and fc1 by
+        # output columns (fc1's padding ones), fc2 by K groups
+        qkv_gs = g(kk["qkv"] + ".per_channel_scale").to(f32)
+        ng = qkv_gs.shape[1]
+        fc1_gs = g(kk["fc1"] + ".per_channel_scale").to(f32)
+        if pffn != ffn:
+            fc1_gs = torch.cat([fc1_gs, fc1_gs.new_ones(
+                (L, ng, pffn - ffn))], dim=2)
+        fc2_gs = g(kk["fc2"] + ".per_channel_scale").to(f32)
+        if fc2_gs.shape[1] != nf * ng:
+            fc2_gs = torch.cat([fc2_gs, fc2_gs.new_ones(
+                (L, nf * ng - fc2_gs.shape[1], d))], dim=1)
+        gsp = [qkv_gs[:, :, 0:d], qkv_gs[:, :, d:2 * d], qkv_gs[:, :, 2 * d:],
+               g(kk["dense"] + ".per_channel_scale").to(f32),
+               g(kk["crossq"] + ".per_channel_scale").to(f32),
+               g(kk["crossdense"] + ".per_channel_scale").to(f32)]
+        gsp += [fc1_gs[:, :, j * d:(j + 1) * d] for j in range(nf)]
+        gsp += [fc2_gs[:, j * ng:(j + 1) * ng, :] for j in range(nf)]
+        gscale = torch.stack(gsp, dim=1).contiguous()
 
     def to_pair(p):          # [L, d or dkv] -> [L, hp, dl], zeros after
         r = p.reshape(L, -1, dl)
@@ -509,7 +643,7 @@ def pack_decoder_blobs(state: dict, *, n_layer: int, hidden: int,
     else:
         kv_oq = kv_qo = torch.ones((L,), dtype=f32, device=device)
     return MegakernelBlobs(wblob, pair_scale, pair_bias, flat_scale,
-                           flat_bias, ln_par, kv_oq, kv_qo, None,
+                           flat_bias, ln_par, kv_oq, kv_qo, gscale,
                            kvblob=kvblob)
 
 
@@ -520,16 +654,23 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
     ``ValueError`` where the blobs were packed for another mode."""
     d = x.shape[-1]
     with_cross = cross_cache is not None
+    if blobs.wblob.shape[2] not in (d, d // 2) or blobs.wblob.shape[3] != d:
+        raise ValueError(f"megakernel panels {tuple(blobs.wblob.shape)} "
+                         f"for width {d}")
+    int4 = blob_int4(blobs)
+    group = d // int4 if int4 else 0
     outside = [
         (x.shape[0] != 1 or self_cache.shape[1] != 1, "batch > 1"),
         (tail_kv is not None, "the K-step decode tail"),
         (norm not in ("layernorm", "rmsnorm"), f"norm {norm!r}"),
         (act not in ACTIVATIONS, f"activation {act!r}"),
         (with_cross and gated, "the gated MLP with cross-attention"),
-        (blobs.gscale is not None or blobs.wblob.shape[2] != d,
-         "int4 panels or group-wise scales"),
-        (with_cross and blobs.wblob.dtype != torch.int8,
-         "float panels with cross-attention"),
+        (int4 is not None and not with_cross,
+         "int4 panels without cross-attention (the decoder-only set)"),
+        (int4 is None and blobs.gscale is not None,
+         "group-wise scales on int8 or float panels"),
+        (bool(int4) and (d % int4 or (d // 2) % group),
+         f"int4 groups of {group} rows that do not divide d/2 = {d // 2}"),
         (self_cache.dtype != torch.int8 and self_cache.element_size() == 1,
          "fp8 self-KV"),
         (self_cache.shape[3] * head_dim != d
@@ -540,6 +681,8 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
     for bad, what in outside:
         if bad:
             raise NotImplementedError(f"megakernel: {what} is not ported")
+    if int4 is not None and blobs.wblob.dtype != torch.int8:
+        raise ValueError(f"int4 panels of {blobs.wblob.dtype}: packed int8")
     b_cross, b_gated, _ = blob_layout(blobs)
     if (b_cross, b_gated) != (with_cross, gated):
         raise ValueError(f"megakernel blobs packed with cross-attention "
@@ -623,6 +766,7 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     kv_of = torch.arange(H, device=x.device) // (H // Hkv)
     with_cross, gated, nf = blob_layout(blobs)
     grouped = blobs.kvblob is not None
+    int4 = blob_int4(blobs)
     pan, slots = _panels(nf, with_cross, gated, grouped), _flat_slots(
         nf, with_cross, gated)
     nq = blobs.pair_scale.shape[1]
@@ -653,13 +797,39 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                   else cross_scale.reshape(-1)[layer].float())
         kqo = blobs.kv_qo[layer].float() if quant else 1.0
 
+        def group_weights(panel):
+            """int4: each K group's rows [G, d] times its scale, both in
+            adt, the product rounded to adt (the TPU kernel's :488)."""
+            q = unpack_int4(w[panel]).to(adt)
+            if not int4:
+                return [q[:d // 2], q[d // 2:]]
+            gsz = d // int4
+            gs = blobs.gscale[layer, panel].to(adt)
+            return [q[i * gsz:(i + 1) * gsz] * gs[i] for i in range(int4)]
+
         def gemv(v, panel):
-            return matmul_fp32(v, w[panel].to(adt))
+            if int4 is None:
+                return matmul_fp32(v, w[panel].to(adt))
+            # int4: a product a nibble plane (per channel) or a K group,
+            # each accumulated in fp32, the partial sums added in order
+            parts = group_weights(panel)
+            k = parts[0].shape[0]
+            acc = None
+            for i, wg in enumerate(parts):
+                part = matmul_fp32(v[:, i * k:(i + 1) * k], wg)
+                acc = part if acc is None else acc + part
+            return acc
 
         def project(v, name):            # dense / cross-dense
             f = slots[name]
-            return affine(gemv(v.reshape(1, d).to(adt), pan[name]), fs[f],
-                          fb[f])
+            v = v.reshape(1, d).to(adt)
+            if int4 is None:
+                acc = gemv(v, pan[name])
+            else:
+                # the out-projection reads the dequantised panel (the TPU
+                # kernel's ``_weight``)
+                acc = matmul_fp32(v, torch.cat(group_weights(pan[name])))
+            return affine(acc, fs[f], fb[f])
 
         def norm_of(v, m):
             if norm == "rmsnorm":
@@ -748,7 +918,8 @@ class _MegaArgs(ctypes.Structure):
             "rope_dim", "rope_neox", "write_index", "ring_bytes")]
         + [(n, ctypes.c_int * len(GEMV_STAGES))
            for n in ("item_c", "items", "item_k", "tile_off", "piece_c")]
-        + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
+        + [("scale", ctypes.c_float), ("eps", ctypes.c_float)]
+        + [(n, ctypes.c_int) for n in ("weight_int4", "n_groups")])
 
 
 def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
@@ -773,9 +944,9 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     the step's :class:`Rotary`.  Returns (hidden [1, d] before the final
     norm, fresh K/V [L, 2, Hkv, D] in the cache dtype, k rotated); the cache
     is not written.  On the card: bf16 x, a bf16 or int8 self cache, int8
-    or (without cross-attention) bf16 panels, head dim 64 (128 too without
-    cross-attention), and one cooperative launch (a refused launch raises;
-    nothing falls back)."""
+    or bf16 panels (or, with cross-attention, int4), head dim 64 (128 too
+    without cross-attention), and one cooperative launch (a refused launch
+    raises; nothing falls back)."""
     _check_modes(x, blobs, self_cache, cross_cache, head_dim, tail_kv, act,
                  norm, gated)
     if not x.is_cuda:
@@ -804,6 +975,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     if with_cross and cross_cache.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel cross cache dtype {cross_cache.dtype}")
     _, gated, nf = blob_layout(blobs)
+    int4 = blob_int4(blobs)
     # the kernel reads the caches in 4-byte words: rows of whole words
     word = 4 // cross_cache.element_size() if with_cross else 1
     max_d, max_ffn = ((MAX_D_CROSS, MAX_FFN_CROSS) if with_cross
@@ -821,7 +993,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     itemsize = blobs.wblob.element_size()
     plan = megakernel_plan(d, nf, sms, with_cross, gated, itemsize,
-                           blob_kv_width(blobs))
+                           blob_kv_width(blobs), int4)
     max_cols = PIECE_MAX_COLS if with_cross else ITEM_MAX_COLS
     if max(plan["item_c"]) > max_cols:
         raise ValueError(f"megakernel: {sms} SMs give items of "
@@ -898,7 +1070,8 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         int(rope.neox) if rope_dim else 0,
         rope.write_index if rope_dim else 0, plan["ring_cap"],
         ints("item_c"), ints("items"), ints("item_k"), ints("tile_off"),
-        ints("piece_c"), float(scale), float(eps))
+        ints("piece_c"), float(scale), float(eps), int(int4 is not None),
+        int4 or 0)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.load("decoder_layer" if with_cross else "decoder_stack")
     _build.check(lib.decoder_megakernel(ctypes.byref(args), stream),

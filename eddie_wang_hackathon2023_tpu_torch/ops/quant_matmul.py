@@ -57,14 +57,15 @@ def quantize_weights_int4(w, group_size: Optional[int] = None
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """[K/2, N] packed int8 -> [K, N] int8 in [-8, 7]: the sign-extended
-    low nibbles (rows [0, K/2)), then the high ones (rows [K/2, K)).  The
-    shifts run on int32, as the TPU kernel's do, so no int8 shift
-    overflows."""
+    """[..., K/2, N] packed int8 -> [..., K, N] int8 in [-8, 7]: the
+    sign-extended low nibbles (rows [0, K/2)), then the high ones (rows
+    [K/2, K)) (a stack of matrices or the megakernel's panels, each
+    half-split alike).  The shifts run on int32, as the TPU kernel's do,
+    so no int8 shift overflows."""
     p = packed.to(torch.int32)
     lo = (p << 28) >> 28
     hi = (p << 24) >> 28
-    return torch.cat([lo, hi], dim=0).to(torch.int8)
+    return torch.cat([lo, hi], dim=-2).to(torch.int8)
 
 
 def weight_only_quant_matmul(x: torch.Tensor, qweight: torch.Tensor,

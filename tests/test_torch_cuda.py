@@ -3072,3 +3072,243 @@ def test_beam_serving_drain_on_the_card(dev, paged):
                          for k, v in model.state_dict().items()})
     on_cpu, _ = drain(cpu, "cpu")
     assert sum(done[i] == on_cpu[i] for i in done) >= 3
+
+
+# -- Whisper's int4 and bf16 panels (the megakernel) and the int4 kernel at
+# Whisper's shapes -----------------------------------------------------------
+
+def _whisper_state(dev, n_layer, d, weight, seed, zero_mean=False):
+    """A seeded random Whisper block state for ``weight``: "int4_g128"
+    (int4 weight-only, groups of 128 rows), "int4_pc" (int4 per channel)
+    or "bf16" (float weights N(0, 1 / K) in bf16), biases and LayerNorms as
+    ``_random_blobs``'; every GEMV output of order one.  One layer's int4
+    bytes take every value (-8 in both nibbles included); deeper stacks
+    take the quantiser's values, [-7, 7] (every byte value has a mean of
+    -0.5, which drifts the residual stream layer after layer until bf16
+    roundings of it dominate the comparison: the plain version in bf16
+    is as far from itself in fp32, ``tools/int4_drift_witness.py``), or
+    under ``zero_mean`` every byte value with each column's scales of a
+    random sign, so that the weights average zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, ffn, heads = n_layer, 4 * d, d // 64
+    st = {}
+    mats = (("attn.qkv", d, 3 * d), ("attn.dense", d, d),
+            ("cross_attn.q_linear", d, d), ("cross_attn.dense", d, d),
+            ("mlp1", d, ffn), ("mlp2", ffn, d))
+    for name, k, n in mats:
+        if weight == "bf16":
+            shape = (L, 3, heads, 64, d) if name == "attn.qkv" else (L, n, k)
+            st[name + ".weight"] = (torch.randn(shape, generator=g,
+                                                device=dev)
+                                    * k ** -0.5).bfloat16()
+        elif L == 1 or zero_mean:
+            st[name + ".qweight"] = torch.randint(
+                -128, 128, (L, k // 2, n), generator=g, device=dev,
+                dtype=torch.int8)
+        else:
+            q = torch.randint(-7, 8, (L, k, n), generator=g, device=dev,
+                              dtype=torch.int8)
+            st[name + ".qweight"] = (q[:, :k // 2] & 0xF) | (
+                (q[:, k // 2:] & 0xF) << 4)
+        if weight != "bf16":
+            shape = (L, k // 128, n) if weight == "int4_g128" else (L, n)
+            sc = (torch.rand(shape, generator=g, device=dev) + 0.5) / (
+                4.6 * k ** 0.5)
+            if zero_mean:
+                sc = sc * (2 * torch.randint(0, 2, (L, n), generator=g,
+                                             device=dev) - 1).reshape(
+                    (L, 1, n) if sc.dim() == 3 else (L, n))
+            st[name + ".per_channel_scale"] = sc
+        bshape = (L, 3, heads, 64) if name == "attn.qkv" else (L, n)
+        st[name + ".bias"] = 0.1 * torch.randn(bshape, generator=g,
+                                               device=dev)
+    for name in ("attn_ln", "cross_attn_ln", "mlp_ln"):
+        st[name + ".weight"] = 1 + 0.1 * torch.randn((L, d), generator=g,
+                                                     device=dev)
+        st[name + ".bias"] = 0.1 * torch.randn((L, d), generator=g,
+                                               device=dev)
+    return st
+
+
+_WBLOBS = {}
+
+
+def _whisper_blobs(dev, n_layer, d, weight, seed=0, zero_mean=False):
+    """``_whisper_state``'s blobs with the card's tiles, kept between the
+    cases."""
+    key = (n_layer, d, weight, seed, zero_mean)
+    if key not in _WBLOBS:
+        st = _whisper_state(dev, n_layer, d, weight, seed, zero_mean)
+        _WBLOBS[key] = mk.megakernel_tiles(mk.pack_decoder_blobs(
+            st, n_layer=n_layer, hidden=d, n_head=d // 64, head_dim=64,
+            ffn=4 * d, device=dev))
+    return _WBLOBS[key]
+
+
+def _whisper_mk(dev, blobs, n_layer, d, cross_dtype, self_int8, seq, seed):
+    """One call of the megakernel and of its plain version on seeded
+    inputs (a self cache of 448, int8 with steps 4 / 127 under
+    ``self_int8``; a cross cache of 1500)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, S, Sc = d // 64, 448, 1500
+    x = torch.randn(1, d, generator=g, device=dev).bfloat16()
+    cache = torch.randn(n_layer, 1, 2, H, 64, S, generator=g,
+                        device=dev).bfloat16()
+    if self_int8:
+        step = torch.full((n_layer,), 4 / 127, device=dev)
+        cache = torch.clamp(torch.round(cache.float() * (127 / 4)), -128,
+                            127).to(torch.int8)
+        blobs = blobs._replace(kv_oq=1 / step, kv_qo=step)
+    if cross_dtype == torch.int8:
+        cross = torch.randint(-127, 128, (n_layer, 1, 2, H, 64, Sc),
+                              generator=g, device=dev, dtype=torch.int8)
+        cscale = torch.full((n_layer,), 1 / 40.0, device=dev)
+    else:
+        cross = torch.randn(n_layer, 1, 2, H, 64, Sc, generator=g,
+                            device=dev).bfloat16()
+        cscale = None
+    seq_t = torch.tensor([seq], dtype=torch.int32, device=dev)
+    before = mk.launches["decoder_megakernel"]
+    hid, fresh = mk.fused_decoder_stack(x, blobs, cache, seq_t, 0.125,
+                                        cross_cache=cross,
+                                        cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before + 1
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(
+        x, blobs, cache, seq_t.cpu(), 0.125, cross, cscale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(hid).all())
+    assert fresh.dtype == fresh_p.dtype == cache.dtype
+    return hid, fresh, hid_p, fresh_p
+
+
+@pytest.mark.parametrize("weight", ["int4_g128", "int4_pc", "bf16"])
+@pytest.mark.parametrize("cross_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n_layer,d,tol,seq", [
+    (1, 256, 1e-2, 44), (3, 256, 3e-2, 300), (1, 1280, 1e-2, 44),
+    (32, 1280, 5e-2, 44), (32, 1280, 5e-2, 448)])
+def test_whisper_megakernel_int4_and_bf16_match_plain(dev, weight,
+                                                      cross_dtype, n_layer,
+                                                      d, tol, seq):
+    """Whisper's int4 panels (groups of 128, and per channel) and bf16
+    panels at d 256 and at large-v2's d 1280 (1 and 32 layers): held to
+    the int8 mode's gates against the plain version (the group scale and
+    each dequantised weight rounded to bf16 on both sides); a second call
+    is bit-equal."""
+    blobs = _whisper_blobs(dev, n_layer, d, weight)
+    hid, fresh, hid_p, fresh_p = _whisper_mk(dev, blobs, n_layer, d,
+                                             cross_dtype, False, seq, seq)
+    assert _rel(hid, hid_p) < tol and _rel(fresh, fresh_p) < tol
+    again = _whisper_mk(dev, blobs, n_layer, d, cross_dtype, False, seq,
+                        seq)
+    assert torch.equal(again[0], hid) and torch.equal(again[1], fresh)
+
+
+@pytest.mark.parametrize("weight", ["int4_g128", "int4_pc"])
+def test_whisper_megakernel_int4_every_byte_value_at_depth(dev, weight):
+    """Every int4 byte value (-8 in both nibbles included) through all 32
+    of large-v2's layers, the weights of zero mean (each column's scales
+    of a random sign): held to the 32-layer gate against the plain
+    version."""
+    blobs = _whisper_blobs(dev, 32, 1280, weight, zero_mean=True)
+    hid, fresh, hid_p, fresh_p = _whisper_mk(dev, blobs, 32, 1280,
+                                             torch.int8, False, 44, 44)
+    assert _rel(hid, hid_p) < 5e-2 and _rel(fresh, fresh_p) < 5e-2
+
+
+@pytest.mark.parametrize("weight", ["int4_g128", "bf16"])
+@pytest.mark.parametrize("n_layer,d,tol", [(1, 256, 1e-2),
+                                           (32, 1280, 5e-2)])
+def test_whisper_megakernel_int4_and_bf16_over_int8_self(dev, weight,
+                                                         n_layer, d, tol):
+    """The int8 self cache (kv8) under int4 and bf16 panels: one layer's
+    fresh int8 K/V equal to the plain version's, the hidden state held as
+    the bf16 self cache's."""
+    blobs = _whisper_blobs(dev, n_layer, d, weight)
+    hid, fresh, hid_p, fresh_p = _whisper_mk(dev, blobs, n_layer, d,
+                                             torch.int8, True, 44, 1)
+    assert _rel(hid, hid_p) < tol
+    if n_layer == 1:
+        assert torch.equal(fresh, fresh_p)
+    else:
+        assert _rel(fresh, fresh_p) < tol
+
+
+def test_whisper_int4_tiles_and_plan(dev):
+    """The int4 tiles on the card read back (``untile``) as the panels'
+    values and the group scales in bf16, and the bf16 items at large-v2
+    stream in pieces of at most 64 KB (the int8 and int4 items whole)."""
+    blobs = _whisper_blobs(dev, 1, 1280, "int4_g128")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = mk.megakernel_plan(1280, 4, sms, int4=10)
+    q, sc = mk.untile(blobs.tiles, plan, 5, int4=10)
+    w = unpack_int4(blobs.wblob)
+    assert torch.equal(q[..., :1280], torch.cat([w[:, 10 + j]
+                                                 for j in range(4)], dim=1))
+    assert torch.equal(sc[..., :1280], torch.cat(
+        [blobs.gscale[:, 10 + j] for j in range(4)], dim=1).bfloat16())
+    p16 = mk.megakernel_plan(1280, 4, sms, itemsize=2)
+    assert max(c * k * 2 for c, k in zip(p16["piece_c"], p16["item_k"])
+               ) <= mk.PIECE_BYTES
+    assert plan["piece_c"] == plan["item_c"]
+
+
+@pytest.mark.parametrize("k,n", [(1280, 3840), (1280, 1280), (1280, 5120),
+                                 (5120, 1280)],
+                         ids=["qkv", "dense", "fc1", "fc2"])
+def test_int4_kernel_at_whisper_shapes(dev, k, n):
+    """The int4 kernel's prefill entry at the woq4 encoder's M 1536 and its
+    decode entry at M 1 and 3 (the decode step and the prompt prefill),
+    Whisper large-v2's linears in groups of 128: the int4 gates against
+    the plain version."""
+    for m in (1, 3, 1536):
+        g = torch.Generator(device=dev).manual_seed(k + n + m)
+        qw, sc = _int4_operands(dev, g, k, n, k // 128)
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        out = iq.quant_matmul_int4(x, qw, sc)
+        ref = iq.plain_quant_matmul_int4(x, qw, sc)
+        ref32 = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) < 2e-2 and _rel(out, ref32) < 1e-2, m
+
+
+def test_whisper_woq4_transcription_against_the_cpu(dev):
+    """A woq4 Whisper (large-v2's widths cut to 2+2 layers, groups of 128)
+    transcribes on the card, one int4 megakernel launch a decode step; its
+    recorded decoder calls replayed on the same weights on the CPU (the
+    plain versions, fp32 activations) give the card's logits within the
+    chip_smoke gate (5e-2 of the largest logit)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        Recipe, whisper_config)
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import (
+        WhisperDecoder)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    recipe = "woq4+ckv8+lmq8+sqenc"
+    cfg = dataclasses.replace(whisper_config("large-v2", dtype="bfloat16"),
+                              n_audio_layer=2, n_text_layer=2)
+    built = smoke.build_whisper(torch, np, cfg, dev, recipe, "card")
+    dec = built["dec"]
+    pipe = smoke.whisper_pipeline(built, None, sample_len=12)
+    blobs = pipe._megakernel_blobs()
+    assert blobs is not None and mk.blob_int4(blobs) == 10
+    mk.reset_launches()
+    calls = smoke.recorded_calls(dec, lambda: pipe.transcribe(built["mel"]))
+    torch.cuda.synchronize()
+    assert mk.launches["decoder_megakernel"] == len(calls) - 1 == 11
+    cpu = WhisperDecoder(dataclasses.replace(cfg, dtype="float32"),
+                         Recipe.parse(recipe).decoder, quantize_lm_head=True)
+    cpu.load_state_dict({k: (v.float() if v.dtype == torch.bfloat16 else v)
+                         .cpu() for k, v in dec.state_dict().items()})
+    with torch.inference_mode():
+        lk = smoke.replay_logits(torch, dec, calls, 1, False, 6)
+        cache = cpu.new_kv_cache(1)
+        out = []
+        for (tok, _, cross, widx, seq), _kw in calls[:6]:
+            cx = (cross[0].cpu(), cross[1].cpu())
+            lg, cache = cpu(tok.cpu(), cache, cx, widx,
+                            seq if isinstance(seq, int) else seq.cpu())
+            out.append(lg[:, -1])
+    assert _rel(lk.float().cpu(), torch.stack(out)) < 5e-2

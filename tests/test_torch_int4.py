@@ -575,25 +575,24 @@ def test_int4_mha_batch1_runs_the_dense_layer_unfused(monkeypatch):
 # -- (e) what int4 does not reach --------------------------------------------
 
 def test_int4_block_is_not_megakernel_eligible():
+    """The decoder-only models keep int4 layer by layer, as the JAX
+    package does (``woq_block_eligible(allow_int4=False)``, JAX
+    models/decoder.py:248-254); the structural check itself admits an int4
+    block whose groups divide d/2 (Whisper's gate passes it)."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
         DecoderLMHead
     from eddie_wang_hackathon2023_tpu_torch.ops.decoder_layer import \
         woq_block_eligible
     for mode, eligible in ((QuantMode.use_weight_only(), True),
                            (WOQ4, False)):
-        b = DecoderLMHead(DecoderConfig(**MHA, dtype="float32",
-                                        quant_mode=mode)).blocks[0]
+        model = DecoderLMHead(DecoderConfig(**MHA, dtype="float32",
+                                            quant_mode=mode))
+        b = model.blocks[0]
         mods = [b.attention.dense, b.mlp.fc, b.mlp.proj]
-        assert woq_block_eligible(b.attention.qkv, mods, 256) is eligible
-
-
-def test_whisper_woq4_recipe_raises():
-    from eddie_wang_hackathon2023_tpu_torch.models.whisper.convert import \
-        Recipe
-    for recipe in ("woq4", "woq4+ckv8+lmq8"):
-        with pytest.raises(NotImplementedError, match="int4 panels"):
-            Recipe.parse(recipe)
-    assert Recipe.parse("woq8").decoder == QuantMode.use_weight_only()
+        assert woq_block_eligible(b.attention.qkv, mods, 256,
+                                  allow_int4=False) is eligible
+        assert woq_block_eligible(b.attention.qkv, mods, 256)
+        assert model.megakernel_eligible() is eligible
 
 
 # -- (f) chip_smoke.py's decoder_woq4 path, rehearsed -------------------------

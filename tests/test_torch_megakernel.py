@@ -71,6 +71,19 @@ def _jax_decoder():
 JDEC, DEC_SD = _jax_decoder()
 BLOCK_STATE = {k[len("blocks."):]: v for k, v in DEC_SD.items()
                if k.startswith("blocks.")}
+
+
+def _int4_block_state():
+    """The same decoder's blocks quantised int4 weight-only by the JAX
+    surgery (groups of 128: 2 a panel at d 256)."""
+    import jax
+    qm = JQuantMode.use_weight_only(use_int4_weights=True)
+    dec = JDecoder(JCFG, qm)
+    dec.random_init(jax.random.PRNGKey(3), 0.05)
+    _, sd = j_weight_only_quantize_state(JDecoder(JCFG, qm),
+                                         dec.state_dict(), qm)
+    return {k[len("blocks."):]: np.asarray(v) for k, v in sd.items()
+            if k.startswith("blocks.")}
 PACK_KW = dict(n_layer=L, hidden=D, n_head=H, head_dim=HD, ffn=4 * D,
                with_cross=True)
 
@@ -118,6 +131,18 @@ def test_blobs_bit_equal_to_jax_packer():
             t = getattr(blobs, name).numpy()
             assert t.dtype == r.dtype and t.shape == r.shape, name
             np.testing.assert_array_equal(t, r, err_msg=name)
+    # int4 panels with group scales: each [d, d] panel half-split along its
+    # own K rows, the group scales cut as the panels
+    state4 = _int4_block_state()
+    ref4 = j_pack_decoder_blobs(state4, **PACK_KW)
+    out4 = mk.pack_decoder_blobs(state4, **PACK_KW)
+    assert out4.wblob.shape == (L, 6 + 2 * 4, D // 2, D)
+    assert out4.gscale.shape == (L, 6 + 2 * 4, 2, D)
+    for name in mk.MegakernelBlobs._fields[:9]:       # wblob .. gscale
+        r = np.asarray(getattr(ref4, name))
+        t = getattr(out4, name).numpy()
+        assert t.dtype == r.dtype and t.shape == r.shape, name
+        np.testing.assert_array_equal(t, r, err_msg=name)
 
 
 # -- the kernel's GEMV plan and its repacked tiles --------------------------
@@ -434,22 +459,30 @@ def _mode_call(mode):
         cache = cache.to(torch.float8_e4m3fn)
     elif mode == "gqa":
         cache = torch.zeros(L, 1, 2, 1, HD, 16)
-    elif mode == "float_panels":
-        # with cross-attention: the Whisper decoder's float panels
-        blobs = blobs._replace(wblob=blobs.wblob.float())
-    elif mode == "int4_panels":
+    elif mode == "int4_group_past_half":
+        # groups of 256 rows (one a panel) do not divide d/2 = 128
+        blobs = blobs._replace(wblob=blobs.wblob[:, :, :D // 2],
+                               gscale=torch.ones(L, 14, 1, D))
+    elif mode == "int4_decoder_only":
+        # int4 blobs handed to the decoder-only set (no cross cache)
         blobs = blobs._replace(wblob=blobs.wblob[:, :, :D // 2])
+        kw["cross_cache"] = None
     elif mode == "no_cross":
         kw["cross_cache"] = None
     mk.fused_decoder_stack(x, blobs, cache, seq, SCALE, **kw)
 
 
 @pytest.mark.parametrize("mode", ["batch2", "tail", "gated", "fp8_self_kv",
-                                  "gqa", "float_panels", "int4_panels"])
+                                  "gqa", "int4_group_past_half",
+                                  "int4_decoder_only"])
 def test_modes_outside_the_port_raise(mode):
     """The modes still refused.  The start index, RoPE, the parallel
     residual, RMSNorm, SiLU and decoders without cross-attention are
-    ported (tests/test_torch_llama_megakernel.py)."""
+    ported (tests/test_torch_llama_megakernel.py), and so are Whisper's
+    int4 and float panels (tests/test_torch_whisper_woq4.py); a group of
+    int4 rows that does not divide d/2 and int4 without cross-attention
+    (as the JAX package keeps decoder-only int4 off the megakernel) are
+    not."""
     with pytest.raises(NotImplementedError):
         _mode_call(mode)
 
@@ -460,11 +493,26 @@ def test_blobs_packed_for_another_mode_raise():
         _mode_call("no_cross")
 
 
-def test_packer_refuses_float_state():
-    float_state = {k.replace(".qweight", ".weight"): v
-                   for k, v in BLOCK_STATE.items()}
-    with pytest.raises(NotImplementedError):
-        mk.pack_decoder_blobs(float_state, **PACK_KW)
+def test_float_blobs_with_cross_bit_equal_to_jax_packer():
+    """A float Whisper block state (the head-major fused QKV [L, 3, H, D, d]
+    and the [L, out, in] linears) packs into K-major panels of its type
+    with unit scales, bit for bit as the JAX packer's."""
+    import jax
+    dec = JDecoder(JCFG)
+    dec.random_init(jax.random.PRNGKey(4), 0.05)
+    state = {k[len("blocks."):]: np.asarray(v)
+             for k, v in dec.state_dict().items() if k.startswith("blocks.")}
+    ref = j_pack_decoder_blobs(state, **PACK_KW)
+    out = mk.pack_decoder_blobs(state, **PACK_KW)
+    assert ref.gscale is None and out.gscale is None
+    assert out.wblob.dtype == torch.float32
+    assert out.wblob.shape == (L, 6 + 2 * 4, D, D)
+    for name in mk.MegakernelBlobs._fields[:8]:
+        r = np.asarray(getattr(ref, name))
+        t = getattr(out, name).numpy()
+        assert t.dtype == r.dtype and t.shape == r.shape, name
+        np.testing.assert_array_equal(t, r, err_msg=name)
+    assert not (out.pair_scale != 1).any() and not (out.flat_scale != 1).any()
 
 
 class _JQKVHolder(JModule):

@@ -242,7 +242,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     ``test_torch_llama_megakernel.py``, the santacoder paths in
     ``test_torch_mqa_megakernel.py`` and the bloom and chatglm paths in
     ``test_torch_families_b.py``, the serve_modes path in
-    ``test_torch_serving_modes.py``, and all eleven are stubbed here): model
+    ``test_torch_serving_modes.py``, the woq4, float and woq4_scanned paths
+    in ``test_torch_whisper_woq4.py``, and all fourteen are stubbed here):
+    model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
     search with 5 beams), the teacher-forced replay against the plain scanned path (exact on the
@@ -277,6 +279,11 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
              "probe_pair_proj": 0}))
     monkeypatch.setattr(smoke, "kv8_paths", lambda *a, **k: (
         {}, {"decoder_megakernel": 0}, {}, {"decode_attention_int8": 0}))
+    monkeypatch.setattr(smoke, "whisper_variant_paths", lambda *a, **k: (
+        {}, {"woq4": {"decoder_megakernel": 0},
+             "float": {"decoder_megakernel": 0}}))
+    monkeypatch.setattr(smoke, "woq4_scanned_path", lambda *a, **k: (
+        {}, {"int4_quant_matmul": 0}))
     monkeypatch.setattr(smoke, "long_paths", lambda *a, **k: ({}, {}, {},
                                                                {}))
     monkeypatch.setattr(smoke, "gen_beam_path", lambda *a, **k: (

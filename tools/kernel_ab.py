@@ -35,11 +35,13 @@ query heads of 128, S 84, sequence 70, start 4, 24 layers rotating) with an
 int8 and a bf16 cache, the int4 matmul at SantaCoder-1B's four linears
 (groups of 128) at M 8 and M 512, rotating over weights past the L2, and
 the decode megakernel's step at Whisper large-v2 (32 layers, d 1280, int8
-cross cache of 1500, sequence 44; ``chip_smoke.py``'s seeded blobs, each
-checkout's own weight layout) and, where both checkouts build its
-decoder-only set (OTHER's argument structure filled from this one's by
-field name, where it has no field this one lacks), at LLaMA-1B (16 layers,
-bf16 and int8 panels; ``chip_smoke.py``'s kernel phase).  Each is timed
+panels, int8 cross cache of 1500, sequence 44, over a bf16 and over an
+int8 self cache; ``chip_smoke.py``'s seeded blobs, each checkout's own
+weight layout) and, where both checkouts build its decoder-only set
+(OTHER's argument structure filled from this one's by field name, where it
+has no field this one lacks), at LLaMA-1B (16 layers, bf16 and int8
+panels) and in its grouped mode at SantaCoder-1B (24 layers, bf16 and
+int8 panels; ``chip_smoke.py``'s kernel phase).  Each is timed
 four times, OTHER, this, this, OTHER, so that a drift of the card shows;
 ``--rounds N`` repeats that N times (2N pairs) and adds each side's median
 and the pairs in which this checkout was faster; ``--only TEXT`` times
@@ -496,6 +498,11 @@ def main(argv=None):
     mx = torch.randn(md, generator=g, device=dev).bfloat16()
     mself = torch.randn(ml, 1, 2, mh, 64, ms_, generator=g,
                         device=dev).bfloat16()
+    # the int8 self cache (kv8): the bf16 cache's values at steps 4 / 127
+    mstep = torch.full((ml,), 4 / 127, device=dev)
+    mself8 = torch.clamp(torch.round(mself.float() * (127 / 4)), -128,
+                         127).to(torch.int8)
+    moq = (1 / mstep).contiguous()
     mcross = torch.randint(-127, 128, (ml, 1, 2, mh, 64, msc), generator=g,
                            device=dev, dtype=torch.int8)
     mcs = torch.full((ml,), 1 / 40.0, device=dev)
@@ -507,7 +514,7 @@ def main(argv=None):
     # the barrier, then (this checkout's) the heads' counters
     mbar = torch.zeros(2 + 2 * ml * mh, dtype=torch.int32, device=dev)
 
-    def mega_args(who):
+    def mega_args(who, self8=False):
         defs = mk_defs[who]
         pan, slots = defs["_panels"](mnf), defs["_flat_slots"](mnf)
         plan = (defs["megakernel_plan"](md, mnf, sms)
@@ -515,7 +522,8 @@ def main(argv=None):
         ptrs = dict(x=mx, wblob=blobs.wblob, tiles=blobs.tiles,
                     pair_scale=blobs.pair_scale, pair_bias=blobs.pair_bias,
                     flat_scale=blobs.flat_scale, flat_bias=blobs.flat_bias,
-                    ln_par=blobs.ln_par, self_cache=mself, cross_cache=mcross,
+                    ln_par=blobs.ln_par,
+                    self_cache=mself8 if self8 else mself, cross_cache=mcross,
                     cross_scale=mcs, seq_len=mseq, hid=mhid, fresh=mfresh,
                     part_a=mbufs[0], part_b=mbufs[1], act_a=mbufs[0],
                     act_b=mbufs[1], att=mbufs[2], ctx=mbufs[3],
@@ -528,8 +536,9 @@ def main(argv=None):
                     f_dense=slots["dense"], f_crossdense=slots["crossdense"],
                     f_fc1=slots["fc1"], f_fc2=slots["fc2"], cross_int8=1,
                     ring_bytes=0, scale=64 ** -0.5, eps=1e-5,
-                    # this checkout's int8 self mode, off: the bf16 step
-                    self_int8=0, kv_oq=None, kv_qo=None,
+                    # the int8 self mode (kv8), or the bf16 step
+                    self_int8=int(self8), kv_oq=moq if self8 else None,
+                    kv_qo=mstep if self8 else None,
                     # this checkout's decoder-only modes, off: Whisper's
                     # step (cross-attention, LayerNorm, tanh GELU, int8
                     # panels, heads of 64)
@@ -537,11 +546,16 @@ def main(argv=None):
                     n_kv_head=mh,
                     f_gate=slots.get("gate", 0), with_cross=1,
                     weight_bf16=0, norm_rms=0, act=0, gated=0, parallel=0,
-                    rope_dim=0, rope_neox=0, write_index=0, **plan)
+                    rope_dim=0, rope_neox=0, write_index=0,
+                    # int8 panels (not the int4 mode)
+                    weight_int4=0, n_groups=0, **plan)
         cls = defs["_MegaArgs"]
         fields = []
         for name, typ in cls._fields_:
-            if name in ptrs:
+            if name in ("kv_oq", "kv_qo"):
+                fields.append(None if vals[name] is None
+                              else vals[name].data_ptr())
+            elif name in ptrs:
                 fields.append(ptrs[name].data_ptr())
             elif isinstance(vals[name], list):
                 fields.append(typ(*vals[name]))
@@ -550,11 +564,17 @@ def main(argv=None):
         return cls(*fields)
 
     margs = {who: mega_args(who) for who in roots}
+    margs8 = {who: mega_args(who, self8=True) for who in roots}
 
     def mega(who, i):
         mbar.zero_()                 # counters per call, as the wrapper's
         return libs[who]["decoder_layer"].decoder_megakernel(
             ctypes.byref(margs[who]), stream())
+
+    def mega8(who, i):
+        mbar.zero_()
+        return libs[who]["decoder_layer"].decoder_megakernel(
+            ctypes.byref(margs8[who]), stream())
 
     for name, k, n in smoke.INT4_SHAPES:
         cases.append((f"int4 {name} M 8 (K {k}, N {n}, groups of 128)",
@@ -564,16 +584,15 @@ def main(argv=None):
                       int4(512, k, n)))
     cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross",
                   mega))
+    cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross, "
+                  "int8 self cache", mega8))
     # the decoder-only set at LLaMA-1B's step (chip_smoke.py's kernel
     # phase: 16 layers, bf16 and int8 panels, a bf16 self cache of 84 at
-    # sequence 74 from start 4, RoPE), where both checkouts have it and
-    # OTHER's argument structure has no field this one lacks: this
+    # sequence 74 from start 4, RoPE), where both checkouts have it: this
     # checkout's wrapper, each checkout's library, OTHER's structure
-    # filled from this one's by field name
-    other_fields = {n for n, _ in mk_defs["other"]["_MegaArgs"]._fields_}
-    if all("decoder_stack" in libs[who] for who in roots) and (
-            other_fields <= {n for n, _ in
-                             mk_defs["this"]["_MegaArgs"]._fields_}):
+    # filled from this one's by field name (a field this one lacks, a mode
+    # it does not have, 0)
+    if all("decoder_stack" in libs[who] for who in roots):
         from eddie_wang_hackathon2023_tpu_torch.ops import \
             decoder_layer as mkw
         this_args = mkw._MegaArgs
@@ -584,7 +603,7 @@ def main(argv=None):
                 a = this_args(*vals)
                 out = []
                 for n, typ in cls._fields_:
-                    v = getattr(a, n)
+                    v = getattr(a, n, 0)
                     out.append(typ(*v) if isinstance(v, ctypes.Array)
                                else v)
                 return cls(*out)
@@ -604,24 +623,41 @@ def main(argv=None):
                    head_dim=lD, act="silu", norm="rmsnorm", gated=True,
                    rope=mkw.Rotary(smoke.LLAMA_SEQ - 1, lD, 10000.0, True))
 
-        def llama(weight):
-            lblobs = smoke.llama_blobs(torch, dev, g, smoke.LLAMA_LAYERS,
-                                       weight)
-
+        def stack_run(blobs, x, cache, kw):
             def run(who, i):
                 _build._LIBS["decoder_stack"] = libs[who]["decoder_stack"]
                 mkw._MegaArgs = structs[who]
                 try:
-                    mkw.fused_decoder_stack(lx, lblobs, lcache, lseq,
-                                            lD ** -0.5, **lkw)
+                    mkw.fused_decoder_stack(x, blobs, cache, lseq,
+                                            cache.shape[4] ** -0.5, **kw)
                 finally:
                     mkw._MegaArgs = this_args
                 return 0
             return run
 
+        def llama(weight):
+            return stack_run(smoke.llama_blobs(torch, dev, g,
+                                               smoke.LLAMA_LAYERS, weight),
+                             lx, lcache, lkw)
+
         for weight in ("bf16", "int8"):
             cases.append((f"megakernel step, LLaMA-1B 16 layers, {weight} "
                           "panels, seq 74", llama(weight)))
+        # SantaCoder-1B's grouped (MQA) mode: 16 query heads of 128 over one
+        # KV head, LayerNorm, GELU, biases (chip_smoke's kernel phase)
+        sd, sh, sl = smoke.SANTA_D, smoke.SANTA_HEADS, smoke.SANTA_LAYERS
+        sx = torch.randn((1, sd), generator=g, device=dev).bfloat16()
+        scache = torch.randn((sl, 1, 2, 1, sd // sh, smoke.LLAMA_S),
+                             generator=g, device=dev).bfloat16()
+        skw = dict(start_index=lkw["start_index"], head_dim=sd // sh,
+                   act="gelu", norm="layernorm")
+        for weight in ("bf16", "int8"):
+            sblobs = smoke.random_blobs_of(torch, dev, g, sl, weight, sd,
+                                           smoke.SANTA_FFN, sh, 1, False,
+                                           True)
+            cases.append((f"megakernel step, SantaCoder-1B 24 layers (MQA), "
+                          f"{weight} panels, seq 74",
+                          stack_run(sblobs, sx, scache, skw)))
     for what, fn in cases:
         if opts.only not in what:
             continue

@@ -31,7 +31,12 @@
    views on 4-byte rows), each case with its plan, its time and SDPA's.
    The paged kernel's window entry (mixed admission) is held at the serve
    path's shape with prompt chunks at offsets 0, 16, 37 and 45 beside
-   decode windows, over a bf16 pool, an int8 pool and one KV head.
+   decode windows, over a bf16 pool, an int8 pool and one KV head.  The
+   fp8 (e4m3) modes of kernel 1 (the fp8_scanned self call, bit-equal to
+   its step-by-step version, and its beam entry), the grouped kernel, the
+   paged kernel's three entries and both megakernel sets are held the
+   same way, each over an e4m3 cache whose unused columns hold the NaN
+   byte 0x7F, the megakernel's e4m3 step in turns with the others.
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
@@ -51,7 +56,9 @@
    megakernel's int8 self mode (one launch a step; utt/s, the slope, the
    step's wall, busy and idle share) and layer by layer at full depth
    (kernel 1's self calls over the int8 cache), each replayed against the
-   plain scanned path.  Then on the same model the detect, long and
+   plain scanned path; then the fp8 path: the same decoder over an e4m3
+   self cache (scales ``fp8_scales_from_amax`` of the calibration's amax)
+   through the megakernel's e4m3 self mode, in turns with main.  Then on the same model the detect, long and
    best_of paths: ``detect_language`` on the seeded window (the
    probabilities summing to 1, the top 3, the step's time);
    ``transcribe_long`` with the language detected in each window over 75 s
@@ -75,7 +82,8 @@
    bf16 flash entry), and the woq4_scanned path at the same depth with
    ``woq4+ckv8+lmq8`` (an int4 encoder: each of its linears one launch of
    the int4 kernel at M 1536; the decoder's linears one launch each a
-   step).  Then the beam
+   step), and the fp8_scanned path: the scanned path's model over an e4m3
+   self cache (kernel 1's e4m3 self calls).  Then the beam
    path: beam search with 5 beams at full width, the depth cut to 8+8
    layers as the scanned path's, recipe
    ``woq8+ckv8+lmq8``, each decode step through the beam entry of the
@@ -110,14 +118,16 @@
    beside the woq8 path's of the same run.  Then woq8 with an int8 KV
    cache, cut to 8 layers of the same weights, each layer's step the woq8
    run's cache amax after its prefill / 127: the grouped kernel reads the
-   int8 cache.  Then the santacoder paths: the same float state as
+   int8 cache, and the same with an e4m3 cache (decoder_fp8: the grouped
+   kernel's e4m3 mode).  Then the santacoder paths: the same float state as
    SantaCoder-1B in bf16 and quantised woq8, at batch 1 (60 + 20 tokens),
    each decode step one launch of the megakernel's grouped (MQA) mode,
    each beside the same session layer by layer (tokens, teacher-forced
    logits within 5e-2, whole calls in turns).  Then the llama paths:
    LLaMA-1B (16 layers, weights made on the card) at batch 1 through the
-   megakernel's decoder-only set (bf16 and int8 panels) and at batch 8
-   layer by layer (kernel 1 at head dim 128).  Then the bloom path:
+   megakernel's decoder-only set (bf16 and int8 panels, and bf16 over an
+   e4m3 cache: llama_fp8) and at batch 8 layer by layer (kernel 1 at head
+   dim 128).  Then the bloom path:
    bloom-560m's widths (24 layers, d 1024, 16 heads of 64, vocab 250880,
    ALiBi, the embedding norm), batch 8, 60 + 20 tokens, bf16, layer by
    layer: its attention is plain PyTorch with the ALiBi bias (as the JAX
@@ -144,7 +154,8 @@
    and temperature 0.8 (as ``serve_bench.py`` builds it), the paged pool
    at that top-p, mixed admission over the pool (chunks of 16 through the
    paged kernel's window entry, once a layer a mixed tick) and
-   ``steps_per_tick=4``; each serves every request, uses the native
+   ``steps_per_tick=4``, beams, an int8 pool and an e4m3 pool (single,
+   mixed and beam cells; beams over an e4m3 slot cache); each serves every request, uses the native
    scheduler, replays its opening calls and 8 steps teacher-forced
    against the plain versions, prints its share of tokens equal to the
    serve path's (greedy) or holds two drains of one seed equal (sampled),
@@ -321,6 +332,41 @@ KERNELS = {
         route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
                  "pallas_decode_attention.py:213"),
+    # the fp8 (e4m3) cache's modes, each its own instantiation: the
+    # megakernel's e4m3 self cache (Whisper's set, and the decoder-only set
+    # at LLaMA-1B's widths, each a library of its own), kernel 1's self
+    # call and its beam entry, the grouped kernel and the paged kernel's
+    # three entries
+    "decoder_megakernel_e4m3_self": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decoder_megakernel_llama_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/decoder_layer.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decoder_layer.py:306"),
+    "decode_attention_e4m3_self": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
+    "beam_decode_attention_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:213"),
+    "gqa_decode_attention_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/gqa_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:410"),
+    "paged_decode_attention_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:612"),
+    "paged_window_attention_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/paged_attention.py:95"),
+    "paged_beam_attention_e4m3": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/paged_attention.py:139"),
     "int4_quant_matmul": dict(
         route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
         replaces="eddie_wang_hackathon2023_tpu/ops/"
@@ -374,8 +420,12 @@ KERNELS = {
 # (serve_paged_mixed: mixed admission over the pool), its beam cells
 # (serve_paged_beam: beams over the pool; serve_dense_beam: beams over the
 # dense slot cache) or the probes path
-# (the three tools/megakernel_probe*.py scripts); the bloom path runs no
-# TPU kernel and so drives no row
+# (the three tools/megakernel_probe*.py scripts); the fp8 paths drive the
+# e4m3 rows: fp8 (the main path's model over an e4m3 self cache through
+# the megakernel), fp8_scanned (the scanned path's model layer by layer),
+# decoder_fp8, llama_fp8 and the serve_modes cells paged_fp8,
+# paged_fp8_mixed, paged_fp8_beam and dense_fp8_beam; the bloom path runs
+# no TPU kernel and so drives no row
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decoder_megakernel_llama": "llama",
            "decoder_megakernel_llama_woq8": "llama_woq8",
@@ -402,7 +452,15 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "flash_attention_causal": "custom", "custom_fmha": "custom",
            "custom_fmha_f32": "custom", "probe_flat_gemv": "probes",
            "probe_hm_gemv": "probes", "probe_relayout": "probes",
-           "probe_pair_proj": "probes"}
+           "probe_pair_proj": "probes",
+           "decoder_megakernel_e4m3_self": "fp8",
+           "decoder_megakernel_llama_e4m3": "llama_fp8",
+           "decode_attention_e4m3_self": "fp8_scanned",
+           "beam_decode_attention_e4m3": "serve_dense_fp8_beam",
+           "gqa_decode_attention_e4m3": "decoder_fp8",
+           "paged_decode_attention_e4m3": "serve_paged_fp8",
+           "paged_window_attention_e4m3": "serve_paged_fp8_mixed",
+           "paged_beam_attention_e4m3": "serve_paged_fp8_beam"}
 PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
@@ -418,7 +476,10 @@ COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "decoder_megakernel_int4": "decoder_megakernel",
               "decoder_megakernel_bf16": "decoder_megakernel",
               "int4_quant_matmul_whisper": "int4_quant_matmul",
-              "decode_attention_int8_self": "decode_attention_int8"}
+              "decode_attention_int8_self": "decode_attention_int8",
+              "decoder_megakernel_e4m3_self": "decoder_megakernel",
+              "decoder_megakernel_llama_e4m3": "decoder_megakernel",
+              "decode_attention_e4m3_self": "decode_attention_e4m3"}
 # the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
 # of 30, 30 and 15 s); the best_of path's sampled rows an utterance
 LONG_WINDOWS = 2.5
@@ -1152,6 +1213,7 @@ def kernel_phases(torch, results):
     window_phase(torch, results, gen)
     paged_beam_phase(torch, results)
     serve_beam_kernel_phase(torch, results)
+    fp8_kernel_phase(torch, results)
     int4_phase(torch, results, gen)
     custom_phase(torch, results, gen)
     probes_phase(torch, results, gen)
@@ -1244,8 +1306,9 @@ def random_whisper_blobs(torch, dev, gen, n_layer, d, weight,
 def megakernel_phase(torch, results, gen):
     """Kernel 3, the whole-step decode megakernel, at large-v2 shapes
     (32 layers, d 1280, a self cache of 448 at sequence 44, int8 cross
-    cache of 1500), with int8 panels over a bf16 self cache and (kv8) an
-    int8 one with per-layer scales, with int4 panels (groups of 128, and
+    cache of 1500), with int8 panels over a bf16 self cache, (kv8) an
+    int8 one with per-layer scales and an e4m3 one (its unused columns the
+    NaN byte), with int4 panels (groups of 128, and
     per channel) and with bf16 panels: for each, one layer against the
     plain version, then all 32; the steps also timed in turns.  The int4
     modes' one layer takes every byte value (-8 in both nibbles
@@ -1264,9 +1327,16 @@ def megakernel_phase(torch, results, gen):
                          device=dev).bfloat16()
     self8 = torch.clamp(torch.round(self16.float() * (127 / 4)), -128,
                         127).to(torch.int8)
+    # the e4m3 self cache of the same values at the scale 4 / 448, its
+    # columns past the valid ones (43 at sequence 44) the NaN byte
+    self_f8, s8 = to_e4m3(torch, self16, 4.0)
+    nan_past(torch, self_f8, torch.tensor([n - 1]))
     modes = {"decoder_megakernel": (self16, blobs),
              "decoder_megakernel_int8_self": (
-                 self8, blobs._replace(kv_oq=1 / step, kv_qo=step))}
+                 self8, blobs._replace(kv_oq=1 / step, kv_qo=step)),
+             "decoder_megakernel_e4m3_self": (
+                 self_f8, blobs._replace(kv_oq=(1 / s8).repeat(L),
+                                         kv_qo=s8.repeat(L)))}
     for mode, weight in (("decoder_megakernel_int4", "int4"),
                          ("decoder_megakernel_int4_pc", "int4_pc"),
                          ("decoder_megakernel_bf16", "bf16")):
@@ -1278,6 +1348,8 @@ def megakernel_phase(torch, results, gen):
               f"{time.time() - t:.1f} s")
     what_of = {"decoder_megakernel": "int8 panels",
                "decoder_megakernel_int8_self": "int8 panels, int8 self cache",
+               "decoder_megakernel_e4m3_self":
+                   "int8 panels, e4m3 self cache",
                "decoder_megakernel_int4": "int4 panels, groups of 128",
                "decoder_megakernel_int4_pc": "int4 panels, per channel",
                "decoder_megakernel_bf16": "bf16 panels"}
@@ -1323,12 +1395,16 @@ def megakernel_phase(torch, results, gen):
                   f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
                   f"{errs[n_layer][1]:.3e}")
             check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
-                  self_c.dtype and max(errs[n_layer]) < tol,
+                  self_c.dtype and within_gate(torch, errs[n_layer], fresh,
+                                               n_layer, tol),
                   f"{what}, {n_layer} layer(s), matches plain (rel {tol:g})")
-            if self_c.dtype == torch.int8 and n_layer == 1:
-                # one layer: the same bf16 values are quantised on both sides
-                check(torch.equal(fresh, fresh_p), f"{what}, 1 layer: the "
-                      "fresh int8 K/V equal the plain version's")
+            if self_c.element_size() == 1 and n_layer == 1:
+                # one layer: the same bf16 values are quantised on both
+                # sides (compared as bytes: e4m3 has no equality kernel)
+                check(torch.equal(fresh.view(torch.uint8),
+                                  fresh_p.view(torch.uint8)),
+                      f"{what}, 1 layer: the fresh {self_c.dtype} K/V equal "
+                      "the plain version's")
         ms, wall = time_ms(torch, lambda i: run(mode, L), iters=20)
         # the plain version launches some 300 kernels a layer, more than
         # the launch queue holds for 32 layers: its 32 layers are timed as
@@ -1478,12 +1554,14 @@ def llama_blobs(torch, dev, gen, n_layer, weight):
 
 
 def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
-                    params):
+                    params, e4m3_rows=()):
     """The megakernel's decoder-only rows ``rows`` ({row: panels' weight
     type}) at ``shape`` = (L, d, H, Hkv, S, n, start): each row's blobs
     from ``blobs_of(weight)``, one layer and all L against the plain
     version over a seeded bf16 self cache of Hkv heads (at sequence n from
-    ``start``; ``kw`` the call's modes), the step timed (and the plain
+    ``start``; ``kw`` the call's modes; the rows of ``e4m3_rows`` over
+    the same values as an e4m3 cache at the scale 4 / 448, its columns
+    past the valid ones the NaN byte), the step timed (and the plain
     version layer by layer), its bound from ``params`` (the model's
     weights a step), then the rows' steps in turns."""
     from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
@@ -1501,25 +1579,32 @@ def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
     seq_host = seq.cpu()
     kw_plain = {k: v for k, v in kw.items() if k != "gated"}
     kw_plain["start_index"] = start_t.cpu()
+    cache8, s8 = to_e4m3(torch, cache, 4.0)
+    nan_past(torch, cache8, torch.tensor([n - 1]))
+    caches = {row: cache8 if row in e4m3_rows else cache for row in rows}
     modes = {}
     for row, weight in rows.items():
         t = time.time()
         modes[row] = blobs_of(weight)
+        if row in e4m3_rows:
+            modes[row] = modes[row]._replace(
+                kv_oq=(1 / s8).repeat(L), kv_qo=s8.repeat(L))
         torch.cuda.synchronize()
         print(f"{what} megakernel blobs, {weight} panels: packed and "
               f"tiled in {time.time() - t:.1f} s")
 
     def run(row, n_layer, plain=False):
         b = mk.blob_layers(modes[row], 0, n_layer)
+        c = caches[row][:n_layer]
         if plain:
             return mk.plain_fused_decoder_stack(
-                x, b, cache[:n_layer], seq_host, scale, **kw_plain)
-        return mk.fused_decoder_stack(x, b, cache[:n_layer], seq, scale,
-                                      **kw)
+                x, b, c, seq_host, scale, **kw_plain)
+        return mk.fused_decoder_stack(x, b, c, seq, scale, **kw)
 
     for row, blobs in modes.items():
         weight = "int8" if blobs.wblob.dtype == torch.int8 else "bf16"
-        label = f"{what} megakernel, {weight} panels"
+        label = f"{what} megakernel, {weight} panels" + (
+            ", e4m3 self cache" if row in e4m3_rows else "")
         errs = {}
         for n_layer, tol in ((1, 1e-2), (L, 5e-2)):
             hid, fresh = run(row, n_layer)
@@ -1530,8 +1615,9 @@ def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
                   f"hidden {errs[n_layer][0]:.3e}, fresh K/V "
                   f"{errs[n_layer][1]:.3e}")
             check(bool(torch.isfinite(hid).all()) and fresh.dtype ==
-                  torch.bfloat16 and fresh.shape == (n_layer, 2, Hkv, D)
-                  and max(errs[n_layer]) < tol,
+                  caches[row].dtype and fresh.shape == (n_layer, 2, Hkv, D)
+                  and within_gate(torch, errs[n_layer], fresh, n_layer,
+                                  tol),
                   f"{label}, {n_layer} layer(s), matches plain (rel {tol:g})")
         ms, wall = time_ms(torch, lambda i: run(row, L), iters=20)
         hid_box = [x]
@@ -1539,8 +1625,8 @@ def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
         def plain_layer(i):
             b = mk.blob_layers(blobs, i, i + 1)
             hid_box[0] = mk.plain_fused_decoder_stack(
-                hid_box[0] if i else x, b, cache[i:i + 1], seq_host, scale,
-                **kw_plain)[0]
+                hid_box[0] if i else x, b, caches[row][i:i + 1], seq_host,
+                scale, **kw_plain)[0]
 
         t = time.perf_counter()
         run(row, L, plain=True)
@@ -1561,12 +1647,14 @@ def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
         # the norms' parameters, the valid cache columns, the row in and
         # out and the fresh K/V
         item = blobs.wblob.element_size()
+        c_item = caches[row].element_size()
         n_cols = sum(params["cols"])
         n_bytes = (params["weights"] * item
                    + (L * n_cols * 4 if item == 1 else 0)
                    + L * params["norm_rows"] * d * 4
-                   + L * 2 * Hkv * D * (n - 1 - start) * 2
-                   + 2 * d * 2 + L * 2 * Hkv * D * 2 + 8)
+                   + L * 2 * Hkv * D * (n - 1 - start) * c_item
+                   + 2 * d * 2 + L * 2 * Hkv * D * c_item + 8
+                   + (L * 8 if c_item == 1 else 0))
         b_ms, b_by = bound(n_bytes, 2 * params["weights"]
                            + L * 4 * H * D * (n - start),
                            PEAK_FP32_CUDA_CORES)
@@ -1587,10 +1675,10 @@ def megakernel_rows(torch, results, gen, what, rows, shape, blobs_of, kw,
     for row in list(modes) * 2:
         turns.append(time_ms(torch, lambda i: run(row, L), iters=20)[0])
     print(f"{what} megakernel step in turns, "
-          + " / ".join(rows.values()) + " panels: "
+          + " / ".join(rows) + ": "
           + ", ".join(f"{t * 1e3:.1f}" for t in turns) + " us")
-    results[list(rows)[-1]]["in_turns_ms"] = {
-        w: turns[i::len(rows)] for i, w in enumerate(rows.values())}
+    for i, row in enumerate(rows):
+        results[row]["in_turns_ms"] = turns[i::len(rows)]
 
 
 def decode_attention_row(torch, results, gen, row, shape, starts):
@@ -1664,13 +1752,15 @@ def llama_kernel_phase(torch, results, gen):
     megakernel_rows(
         torch, results, gen, "LLaMA-1B",
         {"decoder_megakernel_llama": "bf16",
-         "decoder_megakernel_llama_woq8": "int8"},
+         "decoder_megakernel_llama_woq8": "int8",
+         "decoder_megakernel_llama_e4m3": "bf16"},
         (L, d, H, H, S, n, start),
         lambda weight: llama_blobs(torch, dev, gen, L, weight),
         dict(act="silu", norm="rmsnorm", gated=True,
              rope=mk.Rotary(n - 1, D, 10000.0, True)),
         dict(weights=L * (4 * d * d + 3 * d * ffn),
-             cols=(3 * d, d, 2 * ffn, d), norm_rows=2))
+             cols=(3 * d, d, 2 * ffn, d), norm_rows=2),
+        e4m3_rows=("decoder_megakernel_llama_e4m3",))
     # kernel 1 at head dim 128: the batch-8 path's self call (16 heads of
     # 128, a bf16 cache of 84, every row at sequence 74 from start 4, the
     # fresh K/V), 16 layers
@@ -1721,20 +1811,24 @@ def glm_kernel_phase(torch, results, gen):
          LLAMA_S, LLAMA_SEQ), [64 - p for p in GLM_PROMPTS])
 
 
-def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
+def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None,
+                 kscale=None):
     """Time the beam entry at a path's shapes (groups of beams, the rows
     grouped by group), rotating over the cache's layers: its time, its
     plain version's (some 40 kernels a call, so 10 calls fit in the launch
     queue behind the spin), and the library's, SDPA over the K/V gathered
     through the table beforehand with the fresh column appended (the
     gather, one layer, timed on its own); its bound.  ``seq`` is ``n`` for every beam, ``start`` the first
-    valid column for all (None: 0)."""
+    valid column for all (None: 0); ``kscale`` a quantised cache's dequant
+    scale (its K/V dequantised to bf16 before the gather, which is not
+    timed)."""
     L, _, _, H, D, S = cache.shape
     bw = ind.shape[1]
     scale = D ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lo = 0 if start is None else int(start[0])
-    kw = dict(fresh_kv=fresh, beam_indirection=ind, start_index=start)
+    kw = dict(fresh_kv=fresh, beam_indirection=ind, start_index=start,
+              kv_quant_orig_scale=kscale)
     ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
         cache, i % L, q, seq, scale, **kw))
     plain_ms, _ = time_ms(torch, lambda i: da.plain_beam_decode_attention(
@@ -1745,9 +1839,13 @@ def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
         idx = ind.long() + torch.arange(g, device=q.device)[:, None, None] \
             * bw
         c = cache[layer]
+        f = fresh
+        if kscale is not None:
+            c = (c.float() * kscale).bfloat16()
+            f = tuple((t.float() * kscale).bfloat16() for t in fresh)
         kv = torch.gather(c, 0, idx.reshape(g * bw, 1, 1, 1, S).expand(
             c.shape))[..., lo:n - 1]                      # [bw,2,H,D,n-1-lo]
-        return tuple(torch.cat([kv[:, j], fresh[j]], dim=-1).transpose(
+        return tuple(torch.cat([kv[:, j], f[j]], dim=-1).transpose(
             -1, -2).contiguous() for j in (0, 1))          # [bw,H,keys,D]
 
     gather_ms, _ = time_ms(torch, lambda i: gather_kv(i % L), iters=10)
@@ -1769,7 +1867,8 @@ def beam_numbers(torch, da, cache, q, seq, fresh, ind, n, start=None):
     pairs = table_pairs(torch, ind, lo, n - 1)
     rows = q.shape[0]
     rest = (rows * H * D * 2 + 2 * rows * H * D * item + rows * cols * 4
-            + rows * 4 * (1 if start is None else 2) + rows * H * D * 2)
+            + rows * 4 * (1 if start is None else 2) + rows * H * D * 2
+            + (4 if kscale is not None else 0))
     flops = 4 * rows * H * D * (cols + 1)
     n_bytes = 2 * H * D * item * pairs + rest
     b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_TENSOR)
@@ -2555,6 +2654,335 @@ def serve_beam_kernel_phase(torch, results):
         max_abs_err=float((out.float() - ref32).abs().max()),
         rel_err_vs_plain=(e16, e32),
         **beam_numbers(torch, da, cache, q, seq, fresh, ind, n))
+
+
+# -- the fp8 (e4m3) modes of the attention kernels -----------------------------
+
+def to_e4m3(torch, x, amax):
+    """x as e4m3 values at the per-tensor scale amax / 448 (the saturating
+    cast of the port's cache writes): (values, dequant scale tensor)."""
+    from eddie_wang_hackathon2023_tpu_torch.ops.attention import (
+        FP8, quantize_cache_values)
+    s = torch.tensor([amax / 448.0], device=x.device)
+    return quantize_cache_values(x, FP8, 1.0 / s), s
+
+
+def nan_past(torch, cache, cols):
+    """A seq-minor e4m3 cache [L, B, 2, H, D, S] with each row b's
+    columns at and past ``cols[b]`` set to the NaN byte 0x7F, in place:
+    no kernel may read them into a result."""
+    pos = torch.arange(cache.shape[-1], device=cache.device)
+    mask = pos[None, :] >= cols.reshape(-1, 1).to(pos.device)
+    cache.view(torch.uint8).masked_fill_(
+        mask[None, :, None, None, None, :], 0x7F)
+    return cache
+
+
+def nan_slots(torch, pool, table, seq):
+    """A token-major e4m3 pool [L, N, 2, Hkv, T, D] with every token slot
+    that no row's length covers through its table set to the NaN byte,
+    in place."""
+    N, T = pool.shape[1], pool.shape[4]
+    MB = table.shape[1]
+    pos = torch.arange(MB * T, device=pool.device)
+    blk = table.long()[:, pos // T]                        # [B, MB * T]
+    live = (pos[None, :] < seq.long()[:, None]) & (blk >= 0)
+    covered = torch.zeros((N, T), dtype=torch.bool, device=pool.device)
+    covered[blk[live], (pos % T)[None, :].expand_as(blk)[live]] = True
+    pool.view(torch.uint8).masked_fill_(
+        ~covered[None, :, None, None, :, None], 0x7F)
+    return pool
+
+
+def within_gate(torch, errs, fresh, n_layer, tol):
+    """Whether a megakernel step's (hidden, fresh K/V) relative errors
+    ``errs`` against its plain version pass at ``n_layer`` layers: both
+    under ``tol``.  Over an e4m3 self cache past one layer, the layers'
+    bf16 drift moves a value across an e4m3 rounding boundary: the fresh
+    K/V under tol plus one step at the top of the range (32 of 448; an
+    e4m3 step is 1/8 of a value where int8's is 1/127 of the largest),
+    and the hidden state, which such flips feed, under 2 tol."""
+    if fresh.dtype != torch.float8_e4m3fn or n_layer == 1:
+        return max(errs) < tol
+    return errs[0] < 2 * tol and errs[1] < tol + 32 / 448
+
+
+def e4m3_row(torch, results, row, what, call, plain, plain32, lib, n_bytes,
+             flops, peak, extra=None, plain_iters=10):
+    """One e4m3 row: the kernel (``call(i)``, layer i rotating) against
+    its plain version in bf16 and fp32 (``plain(i)``, ``plain32(i)``) at
+    layer 0, the output finite (the unused columns hold NaN bytes), then
+    the kernel, the plain version and the library call ``lib(i)`` (or
+    None) timed; the bound from the bytes and operations given."""
+    out, ref, ref32 = call(0), plain(0), plain32(0)
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    print(f"{what}: rel err vs plain bf16 {e16:.3e}, vs fp32 {e32:.3e}")
+    check(bool(torch.isfinite(out).all()) and e16 < 2e-2 and e32 < 1e-2,
+          f"{what}: finite over NaN bytes past the lengths, matches plain "
+          "(rel 2e-2 bf16, 1e-2 fp32)")
+    ms, wall = time_ms(torch, call)
+    plain_ms, _ = time_ms(torch, plain, iters=plain_iters)
+    lib_ms = None if lib is None else time_ms(torch, lib)[0]
+    b_ms, b_by = bound(n_bytes, flops, peak)
+    print(f"{what}: {ms * 1e3:.2f} us (bound {b_ms * 1e3:.3f} us, {b_by}, "
+          f"{n_bytes / 1e6:.3f} MB); plain {plain_ms * 1e3:.2f} us; library "
+          + ("none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"))
+    results[row] = dict(
+        max_abs_err=float((out.float() - ref32.float()).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, rel_err_vs_plain=(e16, e32), **(extra or {}))
+    return out
+
+
+def fp8_kernel_phase(torch, results):
+    """The e4m3 modes of the attention kernels at their paths' shapes, each
+    over an e4m3 cache or pool whose unused columns or slots hold the NaN
+    byte 0x7F, against its plain version (bf16 and fp32), timed beside it
+    and, as the int8 rows, SDPA on K/V dequantised to bf16 beforehand
+    (gathered through the table for the paged and beam entries); the
+    bounds count the bytes as int8's.  Kernel 1: the fp8_scanned path's
+    self call (Whisper large-v2, 20 heads of 64, a cache of 448 at
+    sequence 44, the fresh K/V; also held bit-equal to its step-by-step
+    version, as the bf16 and int8 modes are); its beam entry at the
+    dense_fp8_beam cell's shape; the grouped kernel at the decoder_fp8
+    path's (SantaCoder-1B, 16 query heads over one KV head of 128, 8 rows
+    at sequence 70 from start 4); the paged kernel's three entries at the
+    serve cells' (8 rows, 16 KV heads of 64, blocks of 32).  Its own
+    generator keeps the other phases' draws as they were."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def bf16(x, s):
+        return (x.float() * s).bfloat16()
+
+    # kernel 1, the self call over an e4m3 cache
+    L, H, D, S, n = 32, 20, 64, 448, 44
+    scale = D ** -0.5
+    cache, ks = to_e4m3(torch, randn(L, 1, 2, H, D, S), 4.0)
+    fresh = tuple(to_e4m3(torch, randn(1, H, D, 1), 4.0)[0]
+                  for _ in range(2))
+    nan_past(torch, cache, torch.tensor([n - 1]))
+    q = randn(1, H, 1, D).bfloat16()
+    seq = torch.full((1,), n, dtype=torch.int32, device=dev)
+    kw = dict(kv_quant_orig_scale=ks, fresh_kv=fresh)
+    k_sd, v_sd = (torch.cat([bf16(cache[:, :, j, :, :, :n - 1], ks),
+                             bf16(fresh[j], ks)[None].expand(L, -1, -1, -1,
+                                                             -1)],
+                            dim=-1).transpose(-1, -2).contiguous()
+                  for j in (0, 1))
+    out = e4m3_row(
+        torch, results, "decode_attention_e4m3_self",
+        f"decode attention (e4m3 self, S={S}, seq {n}, fresh)",
+        lambda i: da.fused_decode_attention(cache, i % L, q, seq, scale,
+                                            **kw),
+        lambda i: da.plain_decode_attention(cache, i % L, q, seq, scale,
+                                            **kw),
+        lambda i: da.plain_decode_attention(cache, i % L, q.float(), seq,
+                                            scale, **kw),
+        lambda i: sdpa(q, k_sd[i % L], v_sd[i % L], scale=scale),
+        2 * H * D * (n - 1) + 2 * H * D + 2 * 2 * H * D + 8, 4 * H * D * n,
+        PEAK_FP32_CUDA_CORES, extra=split_of(da, S))
+    del k_sd, v_sd
+    split = da.plain_split_decode_attention(
+        cache, 0, q, seq, scale, splits=da.decode_splits(S), **kw)
+    check(torch.equal(out, split), "kernel 1 over e4m3 equals its "
+          "step-by-step version (plain_split_decode_attention) bit for bit")
+    del cache
+
+    # the beam entry at the dense_fp8_beam cell's shape
+    Lb, G, W, Hb, Db, Sb = 24, SERVE_SLOTS, SERVE_BEAM, 16, 64, SERVE_MAX_SEQ
+    nb = SERVE_PROMPT + SERVE_NEW // 2
+    bcache, bks = to_e4m3(torch, randn(Lb, G * W, 2, Hb, Db, Sb), 4.0)
+    nan_past(torch, bcache, torch.full((G * W,), nb - 1))
+    bfresh = tuple(to_e4m3(torch, randn(G * W, Hb, Db, 1), 4.0)[0]
+                   for _ in range(2))
+    bq = randn(G * W, Hb, 1, Db).bfloat16()
+    ind = torch.randint(0, W, (G, W, Sb), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ind[..., :SERVE_PROMPT] = 0
+    bseq = torch.full((G * W,), nb, dtype=torch.int32, device=dev)
+    bkw = dict(kv_quant_orig_scale=bks, fresh_kv=bfresh,
+               beam_indirection=ind)
+    bout = da.fused_decode_attention(bcache, 3, bq, bseq, Db ** -0.5, **bkw)
+    bref = da.plain_beam_decode_attention(bcache, 3, bq, bseq, Db ** -0.5,
+                                          **bkw)
+    bref32 = da.plain_beam_decode_attention(bcache, 3, bq.float(), bseq,
+                                            Db ** -0.5, **bkw)
+    torch.cuda.synchronize()
+    e16, e32 = rel_err(bout, bref), rel_err(bout, bref32)
+    print(f"beam decode (e4m3, dense_fp8_beam shape): rel err vs plain bf16 "
+          f"{e16:.3e}, vs fp32 {e32:.3e}")
+    check(bool(torch.isfinite(bout).all()) and e16 < 2e-2 and e32 < 1e-2,
+          "beam decode attention over e4m3 (NaN bytes past the lengths) "
+          "matches plain (rel 2e-2 bf16, 1e-2 fp32)")
+    results["beam_decode_attention_e4m3"] = dict(
+        max_abs_err=float((bout.float() - bref32).abs().max()),
+        rel_err_vs_plain=(e16, e32),
+        **beam_numbers(torch, da, bcache, bq, bseq, bfresh, ind, nb,
+                       kscale=bks))
+    del bcache
+
+    # the grouped kernel at the decoder_fp8 path's shape
+    Lg, B, Hkv, rep, Dg = KV8_DEC_DEPTH, DEC_BATCH, 1, 16, 128
+    Sg, ng, st = 64 + DEC_NEW, 70, 4
+    gcache, gks = to_e4m3(torch, randn(Lg, B, 2, Hkv, Dg, Sg), 4.0)
+    nan_past(torch, gcache, torch.full((B,), ng - 1))
+    gfresh = tuple(to_e4m3(torch, randn(B, Hkv, Dg, 1), 4.0)[0]
+                   for _ in range(2))
+    gq = randn(B, Hkv * rep, 1, Dg).bfloat16()
+    gseq = torch.full((B,), ng, dtype=torch.int32, device=dev)
+    gstart = torch.full((B,), st, dtype=torch.int32, device=dev)
+    gkw = dict(kv_quant_orig_scale=gks, fresh_kv=gfresh, start_index=gstart)
+    gk, gv = (torch.stack([torch.cat([
+        bf16(gcache[i, :, j, :, :, :ng - 1], gks), bf16(gfresh[j], gks)],
+        dim=-1).transpose(-1, -2).contiguous() for i in range(Lg)])
+        for j in (0, 1))
+    mask = (torch.arange(ng, device=dev)[None, :] >= gstart[:, None])[
+        :, None, None, :]
+    valid = ng - 1 - st
+    e4m3_row(
+        torch, results, "gqa_decode_attention_e4m3",
+        f"grouped decode (e4m3, {Hkv} KV head x {rep}, D {Dg}, S {Sg}, seq "
+        f"{ng}, start {st})",
+        lambda i: da.fused_decode_attention(gcache, i % Lg, gq, gseq,
+                                            Dg ** -0.5, **gkw),
+        lambda i: da.plain_gqa_decode_attention(gcache, i % Lg, gq, gseq,
+                                                Dg ** -0.5, **gkw),
+        lambda i: da.plain_gqa_decode_attention(gcache, i % Lg, gq.float(),
+                                                gseq, Dg ** -0.5, **gkw),
+        lambda i: sdpa(gq, gk[i % Lg], gv[i % Lg], attn_mask=mask,
+                       scale=Dg ** -0.5, enable_gqa=True),
+        2 * B * Hkv * Dg * valid + 2 * B * Hkv * Dg
+        + B * Hkv * rep * Dg * 2 * 2 + 2 * B * 4 + 4,
+        4 * B * Hkv * rep * Dg * (valid + 1), PEAK_BF16_TENSOR,
+        extra=dict(splits=da.gqa_splits(Sg),
+                   slice=da.gqa_slice_width(Sg, da.gqa_splits(Sg))))
+    del gcache, gk, gv
+
+    # the paged kernel's entries at the serve cells' shapes
+    Lp, N, T, MB, Hp, Dp = 24, 32, SERVE_BLOCK, SERVE_MAX_SEQ // \
+        SERVE_BLOCK, 16, 64
+    pool, pks = to_e4m3(torch, randn(Lp, N, 2, Hp, T, Dp), 4.0)
+    pq = randn(SERVE_SLOTS, Hp, 1, Dp).bfloat16()
+    pseq = torch.randint(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
+                         (SERVE_SLOTS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    table = torch.randperm(N, generator=gen, device=dev).to(
+        torch.int32).reshape(SERVE_SLOTS, MB)
+    table = torch.where(torch.arange(MB, device=dev)[None, :]
+                        < ((pseq + T - 1) // T)[:, None], table, -1)
+    nan_slots(torch, pool, table, pseq)
+
+    def gathered(p, layer, tab):
+        """one layer's K and V of pool ``p`` through ``tab``, dequantised,
+        [B, H, MB T, D] bf16 (e4m3 gathered as its bytes)"""
+        u = p.view(torch.uint8)[layer][tab.long().clamp(min=0)]
+        blocks = bf16(u.view(p.dtype), pks)
+        b, mb, _, h, t, d = blocks.shape
+        return tuple(blocks[:, :, j].transpose(1, 2).reshape(
+            b, h, mb * t, d).contiguous() for j in (0, 1))
+
+    pk, pv = (torch.stack(t) for t in zip(*(gathered(pool, i, table)
+                                             for i in range(Lp))))
+    pmask = (torch.arange(MB * T, device=dev)[None, :]
+             < pseq[:, None])[:, None, None, :]
+    tok = int(pseq.sum())
+    e4m3_row(
+        torch, results, "paged_decode_attention_e4m3",
+        "paged decode (e4m3, 16 KV heads of 64, T 32, seq 61-80)",
+        lambda i: da.fused_paged_decode_attention(
+            pool, i % Lp, pq, table, pseq, Dp ** -0.5, pks),
+        lambda i: da.plain_paged_decode_attention(
+            pool, i % Lp, pq, table, pseq, Dp ** -0.5, pks),
+        lambda i: da.plain_paged_decode_attention(
+            pool, i % Lp, pq.float(), table, pseq, Dp ** -0.5, pks),
+        lambda i: sdpa(pq, pk[i % Lp], pv[i % Lp], attn_mask=pmask,
+                       scale=Dp ** -0.5),
+        tok * 2 * Hp * Dp + 2 * SERVE_SLOTS * Hp * Dp * 2
+        + SERVE_SLOTS * MB * 4 + SERVE_SLOTS * 4 + 4,
+        4 * Hp * Dp * tok, PEAK_FP32_CUDA_CORES,
+        extra=dict(plan=da.paged_plan(MB, T, 1)))
+    del pk, pv
+
+    # the window entry: prompt chunks and decode windows (window_cases'
+    # rows) over an e4m3 pool of their own (at the same scale)
+    del pool
+    wpool, wq, wtable, wseq, woff, _ = window_cases(torch, gen, dev, Lp, N,
+                                                    Hp, 1, Dp, False)
+    pool = nan_slots(torch, to_e4m3(torch, wpool, 4.0)[0], wtable, wseq)
+    del wpool
+    W = wq.shape[2]
+    wk, wv = (torch.stack(t) for t in zip(*(gathered(pool, i, wtable)
+                                             for i in range(Lp))))
+    key = torch.arange(MB * T, device=dev)
+    wmask = ((key[None, None, :] < wseq[:, None, None])
+             & (key[None, None, :] <= woff[:, None, None]
+                + torch.arange(W, device=dev)[None, :, None]))[:, None]
+    wtok = int(wseq.sum())
+    e4m3_row(
+        torch, results, "paged_window_attention_e4m3",
+        f"paged window (e4m3, 16 KV heads of 64, windows of {W})",
+        lambda i: da.fused_paged_window_attention(
+            pool, i % Lp, wq, wtable, wseq, woff, Dp ** -0.5, pks),
+        lambda i: da.plain_paged_window_attention(
+            pool, i % Lp, wq, wtable, wseq, woff, Dp ** -0.5, pks),
+        lambda i: da.plain_paged_window_attention(
+            pool, i % Lp, wq.float(), wtable, wseq, woff, Dp ** -0.5, pks),
+        lambda i: sdpa(wq, wk[i % Lp], wv[i % Lp], attn_mask=wmask,
+                       scale=Dp ** -0.5),
+        wtok * 2 * Hp * Dp + 2 * SERVE_SLOTS * Hp * W * Dp * 2
+        + SERVE_SLOTS * (MB + 2) * 4 + 4,
+        4 * Hp * Dp * W * wtok, PEAK_BF16_TENSOR)
+    del wk, wv, pool
+
+    # the beam entry at the paged_fp8_beam cell's shape
+    n_blocks = SERVE_SLOTS * (1 + SERVE_BEAM * (MB - 1))
+    bpool, bq2, btable, bseq2, bind, _ = serve_beam_case(torch, gen, dev, Lp,
+                                                         n_blocks, False)
+    bpool, bpks = to_e4m3(torch, bpool, 4.0)
+    nan_slots(torch, bpool, btable, bseq2)
+    pool = bpool
+
+    def beam_gathered(layer):
+        """each row's K and V, position s from the chain of the beam that
+        the indirection names, [B, H, MB T, D]"""
+        k_r, v_r = gathered(pool, layer, btable)       # [B, H, MB T, D]
+        g, w, s = bind.shape
+        src = (torch.arange(g, device=dev)[:, None, None] * w
+               + bind.long()).reshape(g * w, s)[:, :MB * T]
+        pos = torch.arange(MB * T, device=dev)[None, :]
+        return tuple(x[src, :, pos].transpose(1, 2).contiguous()
+                     for x in (k_r, v_r))
+
+    bk, bv = (torch.stack(t) for t in zip(*(beam_gathered(i)
+                                             for i in range(Lp))))
+    bmask = (torch.arange(MB * T, device=dev)[None, :]
+             < bseq2[:, None])[:, None, None, :]
+    pairs = paged_pairs(torch, btable, bseq2, bind, T)
+    e4m3_row(
+        torch, results, "paged_beam_attention_e4m3",
+        f"paged beam (e4m3, {SERVE_SLOTS} slots of {SERVE_BEAM} beams, 16 "
+        "heads of 64)",
+        lambda i: da.fused_paged_beam_attention(
+            pool, i % Lp, bq2, btable, bseq2, bind, Dp ** -0.5, bpks),
+        lambda i: da.plain_paged_beam_attention(
+            pool, i % Lp, bq2, btable, bseq2, bind, Dp ** -0.5, bpks),
+        lambda i: da.plain_paged_beam_attention(
+            pool, i % Lp, bq2.float(), btable, bseq2, bind, Dp ** -0.5,
+            bpks),
+        lambda i: sdpa(bq2, bk[i % Lp], bv[i % Lp], attn_mask=bmask,
+                       scale=Dp ** -0.5),
+        pairs * 2 * Hp * Dp + 2 * bq2.shape[0] * Hp * Dp * 2
+        + bq2.shape[0] * (MB + 1) * 4 + bind.numel() * 4 + 4,
+        4 * Hp * Dp * int(bseq2.sum()), PEAK_FP32_CUDA_CORES,
+        extra=dict(pool_pairs=pairs))
+    del bk, bv, pool, bpool
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -3587,10 +4015,13 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
     dtype = getattr(torch, config.dtype)
     sqenc = "sqenc" in recipe
     kv8 = dec.blocks[0].attn.use_int8_kv_cache
+    fp8 = dec.blocks[0].attn.use_fp8_kv_cache
+    self_dtype = dec.blocks[0].attn.kv_cache_dtype
     check(kv8 == ("kv8" in recipe.split("+"))
-          and (dec.new_kv_cache(1, 4).dtype == torch.int8) == kv8,
-          f"[{label}] the decoder's self cache is "
-          + ("int8" if kv8 else str(dtype)))
+          and dec.new_kv_cache(1, 4).dtype == self_dtype
+          and self_dtype == (torch.int8 if kv8 else torch.float8_e4m3fn
+                             if fp8 else dtype),
+          f"[{label}] the decoder's self cache is {self_dtype}")
     pipe = whisper_pipeline(built, decode_megakernel, beam_size=beam)
     rows = pipe.beam                     # decoder rows per utterance
     blobs = pipe._megakernel_blobs(rows)
@@ -3649,6 +4080,7 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
             check(counts["decoder_megakernel"] == steps
                   and counts["decode_attention_int8"] == 0
                   and counts["decode_attention_bf16"] == 0
+                  and counts["decode_attention_e4m3"] == 0
                   and counts["out_proj_gemv"] == 0,
                   f"[{label}] one megakernel launch per decode step, no "
                   "decode-attention or GEMV launch in the decode loop")
@@ -3660,14 +4092,18 @@ def main_path(torch, np, config=None, device="cuda", decode_megakernel=None,
             check(counts["decode_attention_int8"]
                   == n_layer * steps + (n_self if kv8 else 0)
                   and counts["decode_attention_bf16"]
-                  == (0 if kv8 else n_self)
+                  == (0 if kv8 or fp8 else n_self)
+                  and counts["decode_attention_e4m3"]
+                  == (n_self if fp8 else 0)
                   and counts["out_proj_gemv"]
                   == (0 if dec_int4 else 2 * n_layer * steps)
                   and counts["decoder_megakernel"] == 0,
                   f"[{label}] decode kernels launched 2 x {n_layer} per "
                   "decode step"
                   + ("" if dec_int4 else f" (+ 2 x {n_layer} GEMV)")
-                  + (", the self calls over the int8 cache" if kv8 else ""))
+                  + (", the self calls over the int8 cache" if kv8 else "")
+                  + (", the self calls over the e4m3 cache" if fp8
+                     else ""))
         # int4 linears: six a decoder layer in the prompt prefill and (layer
         # by layer) in each decode step, four an encoder layer
         want = ((6 * n_layer * (1 if mk_on else 1 + steps) if dec_int4
@@ -3976,7 +4412,85 @@ def kv8_paths(torch, np, built, device="cuda"):
                                       label="kv8_scanned", built=kv,
                                       slope=False)
     e2e["self_kv_steps"] = [float(scales.min()), float(scales.max())]
+    e2e["self_kv_amax"] = [float(a) for a in scales * 127]
     return e2e, counts, scan_e2e, scan_counts
+
+
+def fp8_built(torch, np, built, amax):
+    """``built`` (from :func:`build_whisper`) with its decoder rebuilt on
+    the same weights (shared, not copied) with an e4m3 self cache: the
+    recipe's decoder mode with ``set_fp8_kv_cache()``, each layer's scales
+    1 / s and s, s = ``fp8_scales_from_amax`` of the layer's ``amax`` (the
+    value the kv8 calibration measures)."""
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import Recipe
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import \
+        WhisperDecoder
+    from eddie_wang_hackathon2023_tpu_torch.quantization.fp8_layers import \
+        fp8_scales_from_amax
+    dec = built["dec"]
+    dev = dec.positional_embedding.device
+    mode = Recipe.parse(built["recipe"]).decoder.set_fp8_kv_cache()
+    with torch.device("meta"):
+        f8 = WhisperDecoder(built["config"], mode,
+                            quantize_lm_head=dec.quantize_lm_head)
+    s = np.asarray([fp8_scales_from_amax(a) for a in amax],
+                   np.float32).reshape(-1, 1)
+    state = dict(dec.state_dict())
+    for i, (oq, qo) in enumerate(zip(1.0 / s, s)):
+        state[f"blocks.{i}.attn.kv_orig_quant_scale"] = torch.from_numpy(
+            oq).to(dev)
+        state[f"blocks.{i}.attn.kv_quant_orig_scale"] = torch.from_numpy(
+            qo).to(dev)
+    f8.load_state_dict(state, assign=True)
+    return {**built, "dec": f8.eval()}
+
+
+def self_kv_amax(torch, np, built, device):
+    """The per-layer amax of the self cache that ``calibrate_int8_kv``
+    measures (its steps times 127) on ``built``'s pipeline over the
+    seeded mel."""
+    from eddie_wang_hackathon2023_tpu_torch.quantization.calibration import \
+        calibrate_int8_kv
+    on_card = torch.device(device).type == "cuda"
+    pipe = whisper_pipeline(built, None if on_card else True)
+    return calibrate_int8_kv(pipe, [built["mel"][0]]) * 127
+
+
+def fp8_path(torch, np, built, amax, main, device="cuda"):
+    """The fp8 path on the main path's model: its decoder rebuilt with an
+    e4m3 self cache (:func:`fp8_built`, scales from the kv8 calibration's
+    per-layer ``amax``) through :func:`main_path` with the megakernel (its
+    e4m3 self mode, one launch a step), then the main and fp8
+    transcriptions in turns, beside the main path's numbers ``main`` with
+    the share of its tokens equal to the main path's.  Returns (numbers,
+    counts)."""
+    on_card = torch.device(device).type == "cuda"
+    f8 = fp8_built(torch, np, built, amax)
+    dm = None if on_card else True
+    e2e, counts = main_path(torch, np, device=device, decode_megakernel=dm,
+                            label="fp8", built=f8, slope=on_card)
+    pipes = dict(main=whisper_pipeline(built, dm),
+                 fp8=whisper_pipeline(f8, dm))
+    walls = dict(main=[], fp8=[])
+    for p in pipes.values():
+        p.transcribe(built["mel"])
+    for _ in range(3):
+        for name, p in pipes.items():
+            walls[name].append(wall_s(torch, torch.device(device),
+                                      lambda p=p: p.transcribe(built["mel"])))
+    del pipes, f8
+    same = float(np.mean([a == m for a, m in zip(e2e["tokens"],
+                                                 main["tokens"])]))
+    print("[fp8] in turns with main: " + "; ".join(
+        f"{name} " + ", ".join(f"{t * 1e3:.1f}" for t in w)
+        + f" ms an utterance (best {1 / min(w):.4f} utt/s)"
+        for name, w in walls.items())
+        + f"; tokens equal to main's {same:.3f}")
+    e2e.update(in_turns_ms_per_utt={k: [t * 1e3 for t in w]
+                                    for k, w in walls.items()},
+               tokens_equal_main=same, self_kv_amax=[float(a)
+                                                     for a in amax])
+    return e2e, counts
 
 
 def long_audio(np, config):
@@ -4227,14 +4741,17 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
                                            np.random.default_rng(SEED))
     state = quantize_state(float_state, c)
     kv8 = c.quant_mode.has_int8_kv_cache()
-    if kv8:
+    fp8 = c.quant_mode.has_fp8_kv_cache()
+    if kv8 or fp8:
         t = np.asarray(kv_scales, np.float32).reshape(-1, 1)
         state["blocks.attention.kv_orig_quant_scale"] = 1.0 / t
         state["blocks.attention.kv_quant_orig_scale"] = t
     model = from_jax_state(state, c, device=device)
     del state
-    check((model.new_kv_cache(1, 4).dtype == torch.int8) == kv8,
-          f"[{label}] the KV cache is " + ("int8" if kv8 else c.dtype))
+    want_dtype = (torch.int8 if kv8 else torch.float8_e4m3fn if fp8
+                  else getattr(torch, c.dtype))
+    check(model.new_kv_cache(1, 4).dtype == want_dtype,
+          f"[{label}] the KV cache is {want_dtype}")
     sync()
     print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
           f"{c.num_heads} query heads over {c.num_kv_heads} KV head(s) of "
@@ -4287,9 +4804,10 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
           and bool(np.isfinite(cum).all()),
           f"[{label}] tokens in range, finite log-probabilities")
     if on_card:
-        want = {"gqa_decode_attention": c.num_layers * steps}
-        what = f"grouped decode kernel launched {c.num_layers} times per " \
-            "decode step"
+        gqa = "gqa_decode_attention_e4m3" if fp8 else "gqa_decode_attention"
+        want = {gqa: c.num_layers * steps}
+        what = f"grouped decode kernel ({gqa}) launched {c.num_layers} " \
+            "times per decode step"
         if c.quant_mode.is_int4_weight_only():
             # the four linears of each layer, in the prefill and each step
             want["int4_quant_matmul"] = 4 * c.num_layers * (steps + 1)
@@ -4313,7 +4831,7 @@ def decoder_path(torch, np, config=None, device="cuda", label="decoder",
 
     lk, lp = replay(False), replay(True)
     kv_amax = None
-    if not kv8:
+    if not (kv8 or fp8):
         # the cache after the prefill: its per-layer amax (kv8's scales)
         with torch.inference_mode():
             cache = model.new_kv_cache(DEC_BATCH, bucket_length(DEC_PROMPT))
@@ -4402,6 +4920,35 @@ def random_model(torch, config, device):
                 x += 1.0
             p.copy_(x)
     return model.eval()
+
+
+def fp8_model(torch, np, model, config, device, seed=SEED):
+    """``model`` (float weights, shared, not copied) with an e4m3 KV
+    cache: each layer's scale ``fp8_scales_from_amax`` of the layer's amax
+    of the float cache after a prefill of DEC_PROMPT seeded tokens."""
+    import dataclasses
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder import \
+        DecoderLMHead
+    from eddie_wang_hackathon2023_tpu_torch.quantization.fp8_layers import \
+        fp8_scales_from_amax
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, config.vocab_size, (1, DEC_PROMPT))).long().to(device)
+    with torch.inference_mode():
+        cache = model.new_kv_cache(1, DEC_PROMPT)
+        model(ids, cache, 0, DEC_PROMPT)
+        amax = cache.float().abs().amax(dim=(1, 2, 3, 4, 5)).cpu().numpy()
+    del cache
+    with torch.device("meta"):
+        f8 = DecoderLMHead(dataclasses.replace(
+            config, quant_mode=config.quant_mode.set_fp8_kv_cache()))
+    state = dict(model.state_dict())
+    for i, a in enumerate(amax):
+        s = torch.tensor([fp8_scales_from_amax(a)], device=device)
+        state[f"blocks.{i}.attention.kv_orig_quant_scale"] = 1 / s
+        state[f"blocks.{i}.attention.kv_quant_orig_scale"] = s
+    f8.load_state_dict(state, assign=True)
+    return f8.eval()
 
 
 def woq8_model(torch, model, config):
@@ -4642,8 +5189,10 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
     with random weights made on the device, as ``benchmarks/benchmark.py
     -m llama_1b`` runs it (:func:`session_paths`): at batch 1 with float
     weights (``llama``: each decode step one launch of the megakernel over
-    bf16 panels), at batch 1 under woq8 (``llama_woq8``: int8 panels), and
-    at batch DEC_BATCH layer by layer (``llama_b8``: kernel 1 at head dim
+    bf16 panels), at batch 1 under woq8 (``llama_woq8``: int8 panels), at
+    batch 1 over an e4m3 KV cache (``llama_fp8``: the float weights, each
+    decode step one launch of the megakernel's e4m3 self mode;
+    :func:`fp8_model`), and at batch DEC_BATCH layer by layer (``llama_b8``: kernel 1 at head dim
     128 once a layer a step); the bf16 batch-1 session also beside the
     same session layer by layer.  A smaller ``config`` and the CPU
     rehearse it (the plain versions; launches not checked).  Returns
@@ -4652,6 +5201,7 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
     t0 = time.time()
     fmodel = random_model(torch, c, device)
     qmodel = woq8_model(torch, fmodel, c)
+    f8model = fp8_model(torch, np, fmodel, c, device)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     print(f"[{label}] {c.num_layers} layers of width {c.hidden_size}, "
@@ -4660,10 +5210,10 @@ def llama_path(torch, np, config=None, device="cuda", label="llama"):
           f"models built on the {torch.device(device).type} in "
           f"{time.time() - t0:.1f} s")
     runs = (("llama", fmodel, 1), ("llama_woq8", qmodel, 1),
-            ("llama_b8", fmodel, DEC_BATCH))
+            ("llama_fp8", f8model, 1), ("llama_b8", fmodel, DEC_BATCH))
     e2e, counts = session_paths(torch, np, c, runs, label, device, 2,
                                 compare=("llama",))
-    del fmodel, qmodel
+    del fmodel, qmodel, f8model
     return e2e, counts
 
 
@@ -5247,6 +5797,15 @@ SERVE_MODES = {
                              chunk_width=16, max_beam_width=SERVE_BEAM,
                              beams=SERVE_BEAM),
     "paged_kv8": dict(paged=True, kv8=True),
+    # the e4m3 cache (fp8_serve_model): the pool, mixed admission over it,
+    # beams over it and over the dense slot cache
+    "paged_fp8": dict(paged=True, fp8=True),
+    "paged_fp8_mixed": dict(paged=True, mixed_admission=True,
+                            chunk_width=16, fp8=True),
+    "paged_fp8_beam": dict(paged=True, max_beam_width=SERVE_BEAM,
+                           beams=SERVE_BEAM, fp8=True),
+    "dense_fp8_beam": dict(paged=False, max_beam_width=SERVE_BEAM,
+                           beams=SERVE_BEAM, fp8=True),
 }
 # the recorded calls each cell replays teacher-forced: its opening calls
 # (the admissions, or the mixed ticks that feed the prompts) and this many
@@ -5275,12 +5834,16 @@ def live_logits(torch, logits, widx, seq):
     return logits[rows, lane][seq > 0]
 
 
-def kv8_serve_model(torch, np, state, c, model, prompts, device):
+def kv8_serve_model(torch, np, state, c, model, prompts, device,
+                    fp8=False):
     """The serve model with an int8 KV cache (``kv8``): its weights
     (``state``, the JAX layout), each layer's scales from the seed as
     ``tests/test_torch_kv8.py`` makes the decoder-only model's: amax / 127
     of the float model's cache after a prefill of the first SERVE_SLOTS
-    prompts."""
+    prompts.  With ``fp8``, an e4m3 KV cache at the scales
+    ``fp8_scales_from_amax`` of the same amax."""
+    from eddie_wang_hackathon2023_tpu_torch.quantization.fp8_layers import \
+        fp8_scales_from_amax
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
@@ -5290,10 +5853,13 @@ def kv8_serve_model(torch, np, state, c, model, prompts, device):
     cache = model.new_kv_cache(SERVE_SLOTS, SERVE_PROMPT)
     with torch.inference_mode():
         model(ids, cache, 0, SERVE_PROMPT)
-    t = (cache.float().abs().amax(dim=(1, 2, 3, 4, 5)) / 127).cpu().numpy()
-    t = t.reshape(-1, 1).astype(np.float32)
+    amax = cache.float().abs().amax(dim=(1, 2, 3, 4, 5)).cpu().numpy()
+    t = np.asarray([fp8_scales_from_amax(a) for a in amax] if fp8
+                   else amax / 127, np.float32).reshape(-1, 1)
     del cache
-    cfg = dataclasses.replace(c, quant_mode=c.quant_mode.set_int8_kv_cache())
+    cfg = dataclasses.replace(c, quant_mode=(
+        c.quant_mode.set_fp8_kv_cache() if fp8
+        else c.quant_mode.set_int8_kv_cache()))
     return from_jax_state({**state,
                            "blocks.attention.kv_orig_quant_scale": 1.0 / t,
                            "blocks.attention.kv_quant_orig_scale": t},
@@ -5307,11 +5873,12 @@ def serve_modes_path(torch, np, config=None, device="cuda",
     ``ContinuousBatchingManager`` in each cell of SERVE_MODES at the serve
     path's sizes (SERVE_SLOTS slots, SERVE_REQUESTS requests of
     SERVE_PROMPT + SERVE_NEW tokens, max_seq_len SERVE_MAX_SEQ, blocks of
-    SERVE_BLOCK, ``end_id=-1``): a warm-up drain that records every model
-    call, then one timed drain, each of the serve path's prompts and on a
-    manager of its own (one seed).  The beam cells' requests each ask for
+    SERVE_BLOCK, ``end_id=-1``): a warm-up drain of the first wave
+    (SERVE_SLOTS requests; a sampled cell's of all of them) that records
+    every model call, then one timed drain of every request, each of the
+    serve path's prompts and on a manager of its own (one seed).  The beam cells' requests each ask for
     SERVE_BEAM beams of a manager of that width; the kv8 cell's model is
-    :func:`kv8_serve_model`.  Each cell: every request served with
+    :func:`kv8_serve_model`, the fp8 cells' its e4m3 twin.  Each cell: every request served with
     SERVE_NEW tokens in range; on the card the launch counts (dense:
     kernel 1, or its beam entry, once a layer a decode step and kernel 2's
     causal mode once a layer an admission; paged: the paged kernel, or its
@@ -5345,11 +5912,17 @@ def serve_modes_path(torch, np, config=None, device="cuda",
     model = from_jax_state(state, c, device=device)
     prompts = serve_prompts(np, c)
     model_kv8 = kv8_serve_model(torch, np, state, c, model, prompts, device)
+    model_fp8 = kv8_serve_model(torch, np, state, c, model, prompts, device,
+                                fp8=True)
     del state
     sync(torch, device)
     print(f"[serve_modes] {c.num_layers} layers of width {c.hidden_size}, "
           f"built in {time.time() - t0:.1f} s; cells {list(SERVE_MODES)}")
     mods = (da, fa, mk)
+
+    def model_of(opts):
+        return (model_kv8 if opts.get("kv8") else model_fp8
+                if opts.get("fp8") else model)
 
     def manager(opts):
         top_p = opts.get("top_p", 0.0)
@@ -5357,21 +5930,22 @@ def serve_modes_path(torch, np, config=None, device="cuda",
                              top_p=top_p, random_seed=SEED)
               if top_p > 0 else SamplingConfig(end_id=-1, pad_id=0))
         kw = {k: v for k, v in opts.items()
-              if k not in ("top_p", "beams", "kv8")}
+              if k not in ("top_p", "beams", "kv8", "fp8")}
         return ContinuousBatchingManager(
-            model_kv8 if opts.get("kv8") else model, sc,
+            model_of(opts), sc,
             max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
             tokens_per_block=SERVE_BLOCK, device=device, **kw)
 
-    def drain(mgr, beams):
-        """One drain of the prompts, timed as serve_bench.py times it:
-        ({request: tokens}, {request: pull-to-first-response s}, wall s).
-        ``beams``: each request's beam width (1: the manager's sampling)."""
+    def drain(mgr, beams, n=SERVE_REQUESTS):
+        """One drain of the first ``n`` prompts, timed as serve_bench.py
+        times it: ({request: tokens}, {request: pull-to-first-response
+        s}, wall s).  ``beams``: each request's beam width (1: the
+        manager's sampling)."""
         own = (SamplingConfig(end_id=-1, pad_id=0, num_beams=beams)
                if beams > 1 else None)
         queue = [InferenceRequest(i, p, max_new_tokens=SERVE_NEW, end_id=-1,
                                   sampling=own)
-                 for i, p in enumerate(prompts)]
+                 for i, p in enumerate(prompts[:n])]
         done, admitted_at, first_tok = {}, {}, {}
 
         def pull(n):
@@ -5400,7 +5974,8 @@ def serve_modes_path(torch, np, config=None, device="cuda",
         label = f"serve_modes/{cell}"
         sampled = opts.get("top_p", 0.0) > 0
         beams = opts.get("beams", 1)
-        mdl = model_kv8 if opts.get("kv8") else model
+        mdl = model_of(opts)
+        fp8 = opts.get("fp8", False)
         # warm-up, recording every model call for the replay below
         mgr = manager(opts)
         calls = []
@@ -5420,7 +5995,11 @@ def serve_modes_path(torch, np, config=None, device="cuda",
                 args[3].clone(), None if ind is None else ind.clone()))
         hook = mdl.register_forward_pre_hook(record, with_kwargs=True)
         try:
-            warm, _, _ = drain(mgr, beams)
+            # the first wave of requests holds the calls the replay
+            # takes; a sampled cell's warm-up drains all of them, for the
+            # check that two drains of one seed agree
+            warm, _, _ = drain(mgr, beams,
+                               SERVE_REQUESTS if sampled else SERVE_SLOTS)
         finally:
             hook.remove()
         native = type(mgr.sched).__name__
@@ -5448,17 +6027,27 @@ def serve_modes_path(torch, np, config=None, device="cuda",
         L = c.num_layers
         if opts.get("kv8"):
             check(mgr.pool.dtype == torch.int8, f"[{label}] the pool is int8")
+        if fp8:
+            kv = mgr.pool if opts["paged"] else mgr.cache
+            check(kv.dtype == torch.float8_e4m3fn,
+                  f"[{label}] the {'pool' if opts['paged'] else 'cache'} is "
+                  "e4m3")
         if on_card:
-            step_kernel = ("beam_decode_attention" if beams > 1
+            # the e4m3 modes count apart; an e4m3 slot cache's admission
+            # prefill attends over the cache it has written (plain
+            # PyTorch, as the JAX layer's XLA), not through kernel 2
+            e4 = "_e4m3" if fp8 else ""
+            step_kernel = ("beam_decode_attention" + e4 if beams > 1
                            else "decode_attention_bf16")
             if opts["paged"]:
                 step_kernel = ("paged_beam_attention" if beams > 1
-                               else "paged_decode_attention")
+                               else "paged_decode_attention") + e4
             want = ({step_kernel: L * mgr.decode_steps,
-                     "flash_attention_causal": L * mgr.prefills}
+                     "flash_attention_causal": 0 if fp8
+                     else L * mgr.prefills}
                     if not opts["paged"] else
                     {step_kernel: L * mgr.decode_steps,
-                     "paged_window_attention": L * mgr.mixed_ticks})
+                     "paged_window_attention" + e4: L * mgr.mixed_ticks})
             want = {k: v for k, v in want.items() if v}
             check({k: v for k, v in n.items() if v} == want,
                   f"[{label}] launches {want}, no other attention kernel "
@@ -5856,6 +6445,8 @@ def paths(torch, np, results, config=None, device="cuda",
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
         BENCH_RECIPE, whisper_config)
     from eddie_wang_hackathon2023_tpu_torch.quantization import QuantMode
+    from eddie_wang_hackathon2023_tpu_torch.quantization.fp8_layers import \
+        fp8_scales_from_amax
     on_card = torch.device(device).type == "cuda"
     # each path's wall seconds, for the script's time limit
     laps, t_lap = {}, [time.time()]
@@ -5876,6 +6467,9 @@ def paths(torch, np, results, config=None, device="cuda",
     kv8_e2e, kv8_counts, kv8s_e2e, kv8s_counts = kv8_paths(torch, np, built,
                                                            device=device)
     lap("kv8")
+    fp8_e2e, fp8_counts = fp8_path(torch, np, built, kv8_e2e["self_kv_amax"],
+                                   main_e2e, device=device)
+    lap("fp8")
     print("[kv8] beside main in this run: " + ", ".join(
         f"{k} {kv8_e2e.get(k)} vs {main_e2e.get(k)}"
         for k in ("utt_per_s", "slope_ms_per_token", "decoder_step_ms",
@@ -5893,10 +6487,21 @@ def paths(torch, np, results, config=None, device="cuda",
         n_text_layer=min(SCANNED_DEPTH, config.n_text_layer))
     print(f"[scanned] the layer-by-layer path runs at depth "
           f"{cut.n_audio_layer}+{cut.n_text_layer} (widths unchanged)")
+    scan_built = build_whisper(torch, np, cut, device, SCANNED_RECIPE,
+                               "scanned")
     scan_e2e, scan_counts = main_path(
-        torch, np, config=cut, device=device, decode_megakernel=False,
-        recipe=SCANNED_RECIPE, label="scanned")
+        torch, np, device=device, decode_megakernel=False, label="scanned",
+        built=scan_built)
     lap("scanned")
+    # the same model with an e4m3 self cache, layer by layer: kernel 1's
+    # self calls over it (the scales from its own calibration)
+    fp8s_e2e, fp8s_counts = main_path(
+        torch, np, device=device, decode_megakernel=False,
+        label="fp8_scanned", slope=False, built=fp8_built(
+            torch, np, scan_built, self_kv_amax(torch, np, scan_built,
+                                                device)))
+    del scan_built
+    lap("fp8_scanned")
     woq4s_e2e, woq4s_counts = woq4_scanned_path(torch, np, cut, device)
     lap("woq4_scanned")
     # the megakernel asked for as on the main path: at batch BEAM_SIZE the
@@ -5936,6 +6541,18 @@ def paths(torch, np, results, config=None, device="cuda",
         kv_scales=np.asarray(dec_e2e["kv_amax_after_prefill"][:depth],
                              np.float32) / 127)
     lap("decoder_kv8")
+    # the same with an e4m3 KV cache: each layer's scale
+    # fp8_scales_from_amax of the same amax; the grouped kernel reads it
+    fp8_dec_e2e, fp8_dec_counts = decoder_path(
+        torch, np, config=dataclasses.replace(
+            dec_cfg, num_layers=depth,
+            quant_mode=dec_cfg.quant_mode.set_fp8_kv_cache()),
+        device=device, label="decoder_fp8", float_state={
+            k: v[:depth] if k.startswith("blocks.") else v
+            for k, v in float_state.items()},
+        kv_scales=[fp8_scales_from_amax(a)
+                   for a in dec_e2e["kv_amax_after_prefill"][:depth]])
+    lap("decoder_fp8")
     santa_e2e, santa_counts = santacoder_path(
         torch, np, float_state, config=dataclasses.replace(
             dec_cfg, quant_mode=QuantMode(0)), device=device)
@@ -5979,6 +6596,8 @@ def paths(torch, np, results, config=None, device="cuda",
                   long=long_counts, best_of=best_counts,
                   gen_beam=gen_beam_counts, bloom=bloom_counts,
                   chatglm=glm_counts, woq4_scanned=woq4s_counts,
+                  fp8=fp8_counts, fp8_scanned=fp8s_counts,
+                  decoder_fp8=fp8_dec_counts,
                   **var_counts, **llama_counts, **santa_counts,
                   **modes_counts)
     for name in KERNELS:
@@ -5996,6 +6615,7 @@ def paths(torch, np, results, config=None, device="cuda",
                 kv8_scanned=kv8s_e2e, decoder_kv8=kv8_dec_e2e,
                 long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
                 bloom=bloom_e2e, chatglm=glm_e2e, woq4_scanned=woq4s_e2e,
+                fp8=fp8_e2e, fp8_scanned=fp8s_e2e, decoder_fp8=fp8_dec_e2e,
                 **var_e2e, **llama_e2e, **santa_e2e,
                 serve_modes=modes_e2e, path_seconds=laps)
 

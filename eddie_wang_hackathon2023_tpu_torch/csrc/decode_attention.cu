@@ -5,7 +5,13 @@
 // pallas_decode_attention.py:45 `_kernel` (entry `fused_decode_attention`,
 // :767), in the modes the Whisper decode path uses: bf16 or int8 cache,
 // per-tensor dequant scale, fresh K/V of the current token, start-index
-// mask, and the int8 out-projection epilogue (:62-95).
+// mask, and the int8 out-projection epilogue (:62-95).  The fp8 (e4m3)
+// cache (the TPU kernel's `quant` over float8_e4m3fn, :863) is a third
+// instantiation of each entry, over the type e4m3_t of e4m3.cuh: its bytes
+// copied as int8's are (the same tiles, plans and splits), decoded exactly
+// by cvt.rn.f16x2.e4m3x2 where int8's are by a byte permute, dequantised
+// by the same kscale; a masked column is selected away, as every mode here
+// does (pv_term, the beam entry's V masks), since an e4m3 byte may be NaN.
 //
 // Bound: bytes.  One query row per (batch, head) reads the valid columns of
 // one layer's K and V; the arithmetic is 4*D flops per column.  K/V are
@@ -110,6 +116,8 @@
 
 #include <type_traits>
 
+#include "e4m3.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -151,6 +159,9 @@ __device__ __forceinline__ float4 cols4(const int8_t* p) {
                      __int_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - bias,
                      __int_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - bias);
 }
+__device__ __forceinline__ float4 cols4(const e4m3_t* p) {
+  return e4m3x4_to_float4(*reinterpret_cast<const uint32_t*>(p));
+}
 __device__ __forceinline__ float4 cols4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(u.x << 16),
@@ -165,6 +176,11 @@ __device__ __forceinline__ void cp_async_cols(int8_t* dst, const int8_t* src) {
                    static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async_cols(e4m3_t* dst,
+                                              const e4m3_t* src) {
+  cp_async_cols(reinterpret_cast<int8_t*>(dst),
+                reinterpret_cast<const int8_t*>(src));
+}
 __device__ __forceinline__ void cp_async_cols(__nv_bfloat16* dst,
                                               const __nv_bfloat16* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
@@ -173,8 +189,8 @@ __device__ __forceinline__ void cp_async_cols(__nv_bfloat16* dst,
 }
 
 // P*V's term for one column: a masked column (p == 0) adds nothing, even
-// when its value is not finite (0 * inf would be NaN).  p is a bf16 value
-// and v an int8 or bf16 one, so the product is exact.
+// when its value is not finite (0 * inf or 0 * NaN would be NaN).  p is a
+// bf16 value and v an int8, e4m3 or bf16 one, so the product is exact.
 __device__ __forceinline__ float pv_term(float p, float v) {
   return p != 0.f ? __fmul_rn(p, v) : 0.f;
 }
@@ -513,6 +529,11 @@ __device__ __forceinline__ void copy_cols(int8_t* dst, const int8_t* src,
   else if (cc == 4) cp_async_cols(dst, src);
   else *dst = *src;
 }
+__device__ __forceinline__ void copy_cols(e4m3_t* dst, const e4m3_t* src,
+                                          int cc) {
+  copy_cols(reinterpret_cast<int8_t*>(dst),
+            reinterpret_cast<const int8_t*>(src), cc);
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -575,6 +596,16 @@ __device__ __forceinline__ void k_frags(uint32_t (&b)[4], const int8_t* kt,
     b[2 * t + 1] = pack_bf16((float)c[8 * P], (float)c[9 * P]);
   }
 }
+__device__ __forceinline__ void k_frags(uint32_t (&b)[4], const e4m3_t* kt,
+                                        int P, int kk, int js, int lane) {
+  const int d = kk + (lane & 3) * 2, col = js + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const e4m3_t* c = kt + d * P + col + 8 * t;
+    b[2 * t] = pack_bf16(to_f(c[0]), to_f(c[P]));
+    b[2 * t + 1] = pack_bf16(to_f(c[8 * P]), to_f(c[9 * P]));
+  }
+}
 // P*V's B fragments for d dn .. dn + 15 (two n-tiles) and columns ks ..
 // ks + 15 of a [Dp][P] V panel: (k = column, n = d), its own layout
 __device__ __forceinline__ void v_frags(uint32_t (&b)[4],
@@ -591,6 +622,21 @@ __device__ __forceinline__ void v_frags(uint32_t (&b)[4], const int8_t* vt,
     const int8_t* r = vt + (dn + 8 * t + (lane >> 2)) * P + col;
     b[2 * t] = pack_bf16((float)r[0], (float)r[1]);
     b[2 * t + 1] = pack_bf16((float)r[8], (float)r[9]);
+  }
+}
+
+// (e4m3: columns col, col + 1 are one 2-byte pair, col even)
+__device__ __forceinline__ void v_frags(uint32_t (&b)[4], const e4m3_t* vt,
+                                        int P, int dn, int ks, int lane) {
+  const int col = ks + (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const e4m3_t* r = vt + (dn + 8 * t + (lane >> 2)) * P + col;
+    const float2 a = e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(r));
+    const float2 c =
+        e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(r + 8));
+    b[2 * t] = pack_bf16(a.x, a.y);
+    b[2 * t + 1] = pack_bf16(c.x, c.y);
   }
 }
 
@@ -1449,18 +1495,24 @@ int launch_beam(const void* q, const void* cache, int layer, int B, int H,
 extern "C" {
 
 // One cluster launch: grid (H, B, splits), cluster (1, 1, splits), splits
-// in [1, 8] (the wrapper's `decode_splits(S)`); the cache holds B rows.
-// Returns the launch's CUDA error (0 = launched).
-int decode_attention(const void* q, const void* cache, int cache_is_int8,
+// in [1, 8] (the wrapper's `decode_splits(S)`); the cache holds B rows, of
+// kind 0 (bf16), 1 (int8) or 2 (e4m3).  Returns the launch's CUDA error
+// (0 = launched).
+int decode_attention(const void* q, const void* cache, int kind,
                      int layer, int B, int H, int D, int S,
                      int splits, const int* seq_len, const int* start,
                      const float* kscale, float scale, const void* fresh_k,
                      const void* fresh_v, void* out, void* stream) {
   if (D > kMaxD || S % 4 || splits < 1 || splits > kMaxSplits
-      || (fresh_k == nullptr) != (fresh_v == nullptr))
+      || (fresh_k == nullptr) != (fresh_v == nullptr) || kind < 0
+      || kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return cache_is_int8
+  if (kind == 2)
+    return launch_split<e4m3_t>(q, cache, layer, B, H, D, S, splits, seq_len,
+                                start, kscale, scale, fresh_k, fresh_v, out,
+                                st);
+  return kind == 1
       ? launch_split<int8_t>(q, cache, layer, B, H, D, S, splits, seq_len,
                              start, kscale, scale, fresh_k, fresh_v, out, st)
       : launch_split<__nv_bfloat16>(q, cache, layer, B, H, D, S, splits,
@@ -1478,9 +1530,10 @@ int decode_attention(const void* q, const void* cache, int cache_is_int8,
 // splits of the group's source rows (1 to bw), splits * rs blocks a
 // cluster (at most 8), each block's rows staged `rows` at a time (1 to
 // ceil(bw / rs)), the panels fitting in shared memory.  Any other plan is
-// refused.  One cluster launch; returns its CUDA error (0 = launched).
+// refused.  The cache's kind as decode_attention's.  One cluster launch;
+// returns its CUDA error (0 = launched).
 int beam_decode_attention(const void* q, const void* cache,
-                          int cache_is_int8, int layer, int B, int H, int D,
+                          int kind, int layer, int B, int H, int D,
                           int S, int splits, int W, int cols, int rounds,
                           int rs, int rows,
                           const int* seq_len, const int* start,
@@ -1495,10 +1548,14 @@ int beam_decode_attention(const void* q, const void* cache,
       (long long)splits * W < S || (long long)(splits - 1) * W >= S ||
       cols < 16 || cols % 16 || cols > kBeamMaxCols ||
       rounds != (W + cols - 1) / cols || rows < 1 ||
-      rows > (bw + rs - 1) / rs)
+      rows > (bw + rs - 1) / rs || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return cache_is_int8
+  if (kind == 2)
+    return launch_beam<e4m3_t>(q, cache, layer, B, H, D, S, splits, W, cols,
+                               rs, rows, seq_len, start, kscale, scale,
+                               fresh_k, fresh_v, ind, bw, out, st);
+  return kind == 1
       ? launch_beam<int8_t>(q, cache, layer, B, H, D, S, splits, W, cols, rs,
                             rows, seq_len, start, kscale, scale, fresh_k,
                             fresh_v, ind, bw, out, st)

@@ -45,6 +45,17 @@
 // cross-attention: int8, int4 or bf16 weights, chosen at run time) are
 // built into two libraries from this file, in parallel.
 //
+// The fp8 self cache (the TPU kernel's `self_fp8`, :533-539, 554): the
+// self cache's type is e4m3_t (e4m3.cuh); the fresh K and V leave as e4m3,
+// each value times the layer's kv_oq in fp32, rounded by the saturating
+// cvt.rn.satfinite.e4m3x2.f32, and the fresh column's score and value use
+// the values stored (decoded back exactly), as a write and a read would
+// give them; the cache's columns (decoded by cvt.rn.f16x2.e4m3x2, exact)
+// and the fresh one are scaled by kv_qo as int8's are.  The e4m3
+// instantiations of each set are built apart, into a library of their own
+// (MEGA_SELF_E4M3), in parallel with the others, whose code is as it was
+// without the macro.
+//
 // The int4 panels of Whisper's set (the TPU kernel's `w4`, :441-498): the
 // tiles hold each column's K rows as nibbles, a 4-byte word 8 rows (nibble
 // p row 2p, nibble p + 4 row 2p + 1, each the value plus 8, 0..15), so that
@@ -155,6 +166,8 @@
 
 #include <type_traits>
 
+#include "e4m3.cuh"
+
 // the GEMV stages of a layer, in order (the gated MLP's gate rides the
 // fc1 stage: its item holds the fc and gate columns)
 enum Stage { kQkv = 0, kDense, kCrossQ, kCrossDense, kFc1, kFc2, kStages };
@@ -169,10 +182,10 @@ struct MegaArgs {
   const float* flat_scale;     // [L, nflat, d]: dense (, cross-dense), fc1..
   const float* flat_bias;      // (, gate..), fc2
   const float* ln_par;         // [L, 2 n_ln, d]: weight, bias of each norm
-  const void* self_cache;      // [L, 1, 2, Hkv, D, S] bf16 or int8
+  const void* self_cache;      // [L, 1, 2, Hkv, D, S] bf16, int8 or e4m3
   const void* cross_cache;     // [L, 1, 2, H, D, Sc] int8 or bf16, or null
   const float* cross_scale;    // [L] or null
-  const float* kv_oq;          // [L] the int8 self cache's quantise and
+  const float* kv_oq;          // [L] the quantised self cache's quantise and
   const float* kv_qo;          // dequantise scales (null for bf16)
   const int* seq_len;          // [1], including the fresh token
   const int* start;            // [1] the first key column, or null (0)
@@ -191,7 +204,9 @@ struct MegaArgs {
   int n_layer, d, n_head, n_kv_head, head_dim, s_self, s_cross, nq, nflat,
       nf, n_ln;
   int f_dense, f_crossdense, f_fc1, f_gate, f_fc2;
-  int with_cross, cross_int8, self_int8, weight_bf16;
+  int with_cross, cross_int8;
+  int self_kind;               // 0 bf16, 1 int8, 2 e4m3 (MEGA_SELF_E4M3)
+  int weight_bf16;
   int norm_rms;                // 0: LayerNorm, 1: RMSNorm
   int act;                     // 0 tanh GELU, 1 ReLU, 2 erf GELU, 3 SiLU
   int gated, parallel;
@@ -839,12 +854,19 @@ __device__ void gemv_stage(const MegaArgs& a, Ring& r, int l, int g,
         }
         if (g == kQkv && n >= a.d + dkv) {  // v: [L, 2, Hkv, D]
           const size_t f = ((size_t)l * 2 + 1) * dkv + n - (a.d + dkv);
-          if (a.self_int8) {
+#ifdef MEGA_SELF_E4M3
+          // this library's self caches are all e4m3: the stored value
+          const e4m3_t q8 = to_e4m3(__fmul_rn(v, __ldg(a.kv_oq + l)));
+          v = to_f(q8);
+          static_cast<e4m3_t*>(a.fresh)[f] = q8;
+#else
+          if (a.self_kind) {
             v = quant_kv(v, __ldg(a.kv_oq + l));
             static_cast<int8_t*>(a.fresh)[f] = (int8_t)v;
           } else {
             static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(v);
           }
+#endif
         }
         __stcg(out + n, v);
       }
@@ -941,6 +963,13 @@ __device__ __forceinline__ void word_f(uint32_t w, const int8_t*, float* f) {
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     f[e] = (float)(int8_t)(w >> (8 * e));
+}
+__device__ __forceinline__ void word_f(uint32_t w, const e4m3_t*, float* f) {
+  const float4 v = e4m3x4_to_float4(w);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
 }
 
 // One attention item: q ([HD] of q_src, rotated with a rotary step, then
@@ -1086,7 +1115,7 @@ __device__ void finish_head(const MegaArgs& a, int l, const float* att_h,
   constexpr int kAtt = HD + 2;
   const int tid = threadIdx.x, lane = tid & 31;
   const bool self = qkv != nullptr;
-  const bool qself = self && sizeof(CT) == 1;   // the int8 self cache
+  const bool qself = self && sizeof(CT) == 1;   // an int8 or e4m3 cache
   float* wts = fin + 4;                      // [kMaxSplits]
   float pv[kMaxSplits];
   float vf = 0.f, kf = 0.f, kp = 0.f;
@@ -1117,8 +1146,14 @@ __device__ void finish_head(const MegaArgs& a, int l, const float* att_h,
     const size_t f = (size_t)l * 2 * dkv + hk * HD + tid;
     const bool writes = h == hk * rep;
     if (qself) {
-      kf = quant_kv(kf, __ldg(a.kv_oq + l));
-      if (writes) static_cast<int8_t*>(a.fresh)[f] = (int8_t)kf;
+      if constexpr (std::is_same<CT, e4m3_t>::value) {
+        const e4m3_t q8 = to_e4m3(__fmul_rn(kf, __ldg(a.kv_oq + l)));
+        kf = to_f(q8);
+        if (writes) static_cast<e4m3_t*>(a.fresh)[f] = q8;
+      } else {
+        kf = quant_kv(kf, __ldg(a.kv_oq + l));
+        if (writes) static_cast<int8_t*>(a.fresh)[f] = (int8_t)kf;
+      }
     } else if (writes) {
       static_cast<__nv_bfloat16*>(a.fresh)[f] = __float2bfloat16(kf);
     }
@@ -1548,12 +1583,17 @@ int launch_whisper(const MegaArgs* a, void* stream) {
   if (!kPieced<WT>)
     for (int g = 0; g < kStages; ++g)
       if (a->piece_c[g] != a->item_c[g]) return (int)cudaErrorInvalidValue;
-  if (a->self_int8)
+#ifdef MEGA_SELF_E4M3
+  return a->cross_int8 ? launch<int8_t, e4m3_t, WT, 64>(a, stream)
+                       : launch<__nv_bfloat16, e4m3_t, WT, 64>(a, stream);
+#else
+  if (a->self_kind)
     return a->cross_int8 ? launch<int8_t, int8_t, WT, 64>(a, stream)
                          : launch<__nv_bfloat16, int8_t, WT, 64>(a, stream);
   return a->cross_int8 ? launch<int8_t, __nv_bfloat16, WT, 64>(a, stream)
                        : launch<__nv_bfloat16, __nv_bfloat16, WT, 64>(
                              a, stream);
+#endif
 }
 #else
 // the decoder-only set: no cross cache (its type is a placeholder)
@@ -1584,19 +1624,29 @@ int decoder_megakernel(const MegaArgs* a, void* stream) {
        (a->with_cross || a->head_dim != 128)) ||
       a->nf < 1 ||
       a->d > kPer * kThreads || a->nf * a->d > kMaxFc ||
-      a->s_self % (a->self_int8 ? 4 : 2) ||
-      (a->self_int8 && (!a->kv_oq || !a->kv_qo)) ||
+      a->s_self % (a->self_kind ? 4 : 2) ||
+      (a->self_kind && (!a->kv_oq || !a->kv_qo)) ||
+#ifdef MEGA_SELF_E4M3
+      a->self_kind != 2 ||
+#else
+      a->self_kind < 0 || a->self_kind > 1 ||
+#endif
       (a->rope_dim && (!a->inv_freq || a->rope_dim % 2 ||
                        a->rope_dim > a->head_dim)) ||
       a->act < 0 || a->act > 3 || a->n_ln < 1 || a->n_ln > 3)
     return (int)cudaErrorInvalidValue;
 #ifdef MEGA_DECODER_ONLY
   if (a->with_cross || a->weight_int4) return (int)cudaErrorInvalidValue;
+#ifdef MEGA_SELF_E4M3
+  return a->weight_bf16 ? launch_hd<e4m3_t, __nv_bfloat16>(a, stream)
+                        : launch_hd<e4m3_t, int8_t>(a, stream);
+#else
   if (a->weight_bf16)
-    return a->self_int8 ? launch_hd<int8_t, __nv_bfloat16>(a, stream)
+    return a->self_kind ? launch_hd<int8_t, __nv_bfloat16>(a, stream)
                         : launch_hd<__nv_bfloat16, __nv_bfloat16>(a, stream);
-  return a->self_int8 ? launch_hd<int8_t, int8_t>(a, stream)
+  return a->self_kind ? launch_hd<int8_t, int8_t>(a, stream)
                       : launch_hd<__nv_bfloat16, int8_t>(a, stream);
+#endif
 #else
   // Whisper's set: LayerNorm, tanh GELU, the sequential residual, no RoPE
   if (!a->with_cross || (a->weight_bf16 && a->weight_int4) ||

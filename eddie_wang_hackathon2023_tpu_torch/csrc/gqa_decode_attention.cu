@@ -5,10 +5,14 @@
 // :518; entry `fused_decode_attention`, :767, when the query has more heads
 // than the cache): the rep = H / Hkv query heads of one KV head share that
 // head's cache, which is read once for all of them and never repeated.
-// Modes: bf16 or int8 cache with its per-tensor dequant scale, the fresh
+// Modes: bf16, int8 or fp8 (e4m3, the TPU kernel's `quant` over
+// float8_e4m3fn, :527) cache with its per-tensor dequant scale, the fresh
 // K/V of the current token (deferred write), the start-index mask of
-// left-padded prompts, any rep, head dim up to 128, any S.  fp8 caches and
-// the K-step tail are refused by the wrapper.
+// left-padded prompts, any rep, head dim up to 128, any S.  The K-step
+// tail is refused by the wrapper.  An e4m3 cache (e4m3_t, e4m3.cuh) is
+// staged as int8's bytes are and decoded exactly by cvt.rn.f16x2.e4m3x2
+// into the bf16 fragments; V's masked columns are zeroed before P*V, as
+// for every kind (patch()), so a NaN byte there is never read.
 //
 // Numerics, as the TPU kernel's (:443-515): the scores are bf16 q times
 // bf16 K (an int8 cache converted exactly) summed in fp32, then multiplied
@@ -75,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "e4m3.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -116,6 +122,10 @@ __device__ __forceinline__ void cp_async4(__nv_bfloat16* dst,
 __device__ __forceinline__ void cp_async4(int8_t* dst, const int8_t* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(e4m3_t* dst, const e4m3_t* src) {
+  cp_async4(reinterpret_cast<int8_t*>(dst),
+            reinterpret_cast<const int8_t*>(src));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -235,6 +245,11 @@ __device__ __forceinline__ void zero(int8_t* p) {
   else *p = 0;
 }
 
+template <int kW>
+__device__ __forceinline__ void zero(e4m3_t* p) {
+  zero<kW>(reinterpret_cast<int8_t*>(p));
+}
+
 // Columns [col0 + j_lo, col0 + j_hi) of K (and V) into the tiles: a group
 // that lies below S and (unless `all`) meets the valid range [lo, hi) is
 // copied, by cp.async (kW = 4) or a load and a store (kW = 1); every other
@@ -315,6 +330,18 @@ __device__ __forceinline__ void k_frags(uint32_t (&b)[4], const int8_t* kt,
   }
 }
 
+__device__ __forceinline__ void k_frags(uint32_t (&b)[4], const e4m3_t* kt,
+                                        int kk, int js, int lane) {
+  constexpr int P = tile_pitch<e4m3_t>();
+  const int d = kk + (lane & 3) * 2, key = js + (lane >> 2);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const e4m3_t* c = kt + d * P + key + 8 * t;
+    b[2 * t] = pack_bf16(to_f(c[0]), to_f(c[P]));
+    b[2 * t + 1] = pack_bf16(to_f(c[8 * P]), to_f(c[9 * P]));
+  }
+}
+
 // S's B fragment for the one n-tile of keys js .. js + 7 (the fresh key's
 // column and the padding past it)
 __device__ __forceinline__ void k_frag8(uint32_t (&b)[2],
@@ -330,6 +357,14 @@ __device__ __forceinline__ void k_frag8(uint32_t (&b)[2], const int8_t* kt,
   const int8_t* c = kt + (kk + (lane & 3) * 2) * P + js + (lane >> 2);
   b[0] = pack_bf16((float)c[0], (float)c[P]);
   b[1] = pack_bf16((float)c[8 * P], (float)c[9 * P]);
+}
+
+__device__ __forceinline__ void k_frag8(uint32_t (&b)[2], const e4m3_t* kt,
+                                       int kk, int js, int lane) {
+  constexpr int P = tile_pitch<e4m3_t>();
+  const e4m3_t* c = kt + (kk + (lane & 3) * 2) * P + js + (lane >> 2);
+  b[0] = pack_bf16(to_f(c[0]), to_f(c[P]));
+  b[1] = pack_bf16(to_f(c[8 * P]), to_f(c[9 * P]));
 }
 
 // P*V's B fragments for d dn .. dn + 15 (two n-tiles) and keys ks .. ks + 15
@@ -350,6 +385,22 @@ __device__ __forceinline__ void v_frags(uint32_t (&b)[4], const int8_t* vt,
     const int8_t* r = vt + (dn + 8 * t + (lane >> 2)) * P + key;
     b[2 * t] = pack_bf16((float)r[0], (float)r[1]);
     b[2 * t + 1] = pack_bf16((float)r[8], (float)r[9]);
+  }
+}
+
+// (e4m3: keys key, key + 1 are one 2-byte pair, key even)
+__device__ __forceinline__ void v_frags(uint32_t (&b)[4], const e4m3_t* vt,
+                                        int dn, int ks, int lane) {
+  constexpr int P = tile_pitch<e4m3_t>();
+  const int key = ks + (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const e4m3_t* r = vt + (dn + 8 * t + (lane >> 2)) * P + key;
+    const float2 a = e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(r));
+    const float2 c =
+        e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(r + 8));
+    b[2 * t] = pack_bf16(a.x, a.y);
+    b[2 * t + 1] = pack_bf16(c.x, c.y);
   }
 }
 
@@ -796,13 +847,13 @@ int launch(const void* q, const void* cache, int layer, int B, int Hkv,
 extern "C" {
 
 // q [B, Hkv*rep, D] bf16 (head h = kv*rep + g); cache [L, B, 2, Hkv, D, S]
-// bf16 or int8; splits in [1, 8] (the wrapper's `gqa_splits(S)`) and W the
+// of kind 0 (bf16), 1 (int8) or 2 (e4m3); splits in [1, 8] (the wrapper's `gqa_splits(S)`) and W the
 // columns of each block's slice (its `gqa_slice_width(S, splits)`: a
 // multiple of 16, the slices covering S); seq_len [B] int32 counts the fresh
 // token; start [B] int32 or null; kscale one fp32 or null; fresh_k/fresh_v
 // [B, Hkv, D] in cache dtype or null; out [B, Hkv*rep*D] bf16.  One cluster
 // launch.  Returns its CUDA error (0 = launched).
-int gqa_decode_attention(const void* q, const void* cache, int cache_is_int8,
+int gqa_decode_attention(const void* q, const void* cache, int kind,
                          int layer, int B, int Hkv, int rep, int D, int S,
                          int splits, int W, const int* seq_len,
                          const int* start, const float* kscale, float scale,
@@ -811,10 +862,14 @@ int gqa_decode_attention(const void* q, const void* cache, int cache_is_int8,
   if (D < 1 || D > kMaxD || rep < 1 || rep > kMaxRep || S < 1 || Hkv < 1 ||
       B < 1 || B > 65535 || splits < 1 || splits > kMaxSplits || W < 16 ||
       W % 16 != 0 || (long long)splits * W < S ||
-      (fresh_k == nullptr) != (fresh_v == nullptr))
+      (fresh_k == nullptr) != (fresh_v == nullptr) || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (cache_is_int8)
+  if (kind == 2)
+    return launch<e4m3_t>(q, cache, layer, B, Hkv, rep, D, S, splits, W,
+                          seq_len, start, kscale, scale, fresh_k, fresh_v,
+                          out, st);
+  if (kind == 1)
     return launch<int8_t>(q, cache, layer, B, Hkv, rep, D, S, splits, W,
                           seq_len, start, kscale, scale, fresh_k, fresh_v,
                           out, st);

@@ -6,9 +6,13 @@
 // block-table row names, with no gathered [B, max_blocks * T, ...] copy.
 // The current token's K/V is already in the pool (serving appends before it
 // reads), so there is no fresh operand.  Modes: bf16 or int8 pool with its
-// per-tensor dequant scale, MQA/GQA (the rep = H / Hkv query heads of one
-// KV head share that head's blocks), head dim a multiple of 16 up to 128,
-// any T and table width.  fp8 pools are refused by the wrapper.
+// per-tensor dequant scale, or an fp8 (e4m3) pool with the same scale (the
+// TPU kernel's `quant` over float8_e4m3fn, :696; e4m3_t of e4m3.cuh, its
+// bytes staged as int8's, each word decoded exactly by cvt.rn.f16x2.e4m3x2),
+// MQA/GQA (the rep = H / Hkv query heads of one KV head share that head's
+// blocks), head dim a multiple of 16 up to 128, any T and table width.
+// Every entry reads only tokens below the row's length, so a NaN byte past
+// it (e4m3 0x7F) is never read.
 //
 // Numerics, as the TPU kernel's: scores q·k in fp32 times scale * kscale,
 // positions >= seq masked; the unnormalised P enters P·V rounded to bf16
@@ -102,6 +106,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "e4m3.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -150,6 +156,14 @@ __device__ __forceinline__ void word_vals(uint32_t w, float (&f)[4], int8_t) {
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     f[e] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) - bias;
+}
+
+__device__ __forceinline__ void word_vals(uint32_t w, float (&f)[4], e4m3_t) {
+  const float4 v = e4m3x4_to_float4(w);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
 }
 
 // -- the cluster's messages (as kernel 1's, csrc/decode_attention.cu) --------
@@ -937,7 +951,7 @@ int launch_window(const void* q, const void* pool, int layer, int N, int Hkv,
 extern "C" {
 
 // q [B, Hkv*rep, D] bf16 (head h = kv*rep + g); pool [L, N, 2, Hkv, T, D]
-// bf16 or int8, contiguous, 16-byte aligned; table [B, MB] int32 (-1
+// of kind 0 (bf16), 1 (int8) or 2 (e4m3), contiguous, 16-byte aligned; table [B, MB] int32 (-1
 // padded); seq_len [B] int32 counts the current token (already in the
 // pool); kscale one fp32 or null; out [B, Hkv*rep, D] bf16.  The plan is
 // the wrapper's `paged_plan`: `splits` blocks a cluster (1-8), each
@@ -946,7 +960,7 @@ extern "C" {
 // ceil(width / (32 * warps)) rounds, `heads` query heads a block (1 or
 // 2).  Any other plan is refused.  Returns the launch's CUDA error
 // (0 = launched).
-int paged_decode_attention(const void* q, const void* pool, int pool_is_int8,
+int paged_decode_attention(const void* q, const void* pool, int kind,
                            int layer, int N, int Hkv, int rep, int T, int D,
                            int B, int MB, const int* table,
                            const int* seq_len, const float* kscale,
@@ -960,10 +974,14 @@ int paged_decode_attention(const void* q, const void* pool, int pool_is_int8,
       width % kWarp || (long long)splits * width < (long long)MB * T ||
       (long long)(splits - 1) * width >= (long long)MB * T || !pow2_warps ||
       rounds != (width + warps * kWarp - 1) / (warps * kWarp) ||
-      !pow2_heads)
+      !pow2_heads || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (pool_is_int8)
+  if (kind == 2)
+    return launch_heads<e4m3_t>(heads, q, pool, layer, N, Hkv, rep, T, D, B,
+                                MB, table, seq_len, kscale, scale, splits,
+                                width, warps, out, st);
+  if (kind == 1)
     return launch_heads<int8_t>(heads, q, pool, layer, N, Hkv, rep, T, D, B,
                                 MB, table, seq_len, kscale, scale, splits,
                                 width, warps, out, st);
@@ -978,7 +996,7 @@ int paged_decode_attention(const void* q, const void* pool, int pool_is_int8,
 // g * bw + w is read through the table row g * bw + ind[g, w, s] (0 past
 // S_ind); the plan is the wrapper's `paged_plan` at rep 1 (heads 1).
 // Returns the launch's CUDA error (0 = launched).
-int paged_beam_attention(const void* q, const void* pool, int pool_is_int8,
+int paged_beam_attention(const void* q, const void* pool, int kind,
                          int layer, int N, int H, int T, int D, int B,
                          int MB, const int* table, const int* seq_len,
                          const int* ind, int bw, int S_ind,
@@ -991,10 +1009,15 @@ int paged_beam_attention(const void* q, const void* pool, int pool_is_int8,
       splits < 1 || splits > kMaxSplits || width < kWarp || width % kWarp ||
       (long long)splits * width < (long long)MB * T ||
       (long long)(splits - 1) * width >= (long long)MB * T || !pow2_warps ||
-      rounds != (width + warps * kWarp - 1) / (warps * kWarp))
+      rounds != (width + warps * kWarp - 1) / (warps * kWarp) || kind < 0 ||
+      kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (pool_is_int8)
+  if (kind == 2)
+    return launch<e4m3_t, 1, true>(q, pool, layer, N, H, 1, T, D, B, MB,
+                                   table, seq_len, kscale, scale, splits,
+                                   width, warps, ind, bw, S_ind, out, st);
+  if (kind == 1)
     return launch<int8_t, 1, true>(q, pool, layer, N, H, 1, T, D, B, MB,
                                    table, seq_len, kscale, scale, splits,
                                    width, warps, ind, bw, S_ind, out, st);
@@ -1008,7 +1031,7 @@ int paged_beam_attention(const void* q, const void* pool, int pool_is_int8,
 // tokens (already in the pool); offset [B] int32: query token i of row b
 // attends keys <= offset[b] + i (and < seq_len[b]); out [B, Hkv*rep, W, D]
 // bf16.  Returns the launch's CUDA error (0 = launched).
-int paged_window_attention(const void* q, const void* pool, int pool_is_int8,
+int paged_window_attention(const void* q, const void* pool, int kind,
                            int layer, int N, int Hkv, int rep, int T, int D,
                            int B, int MB, int W, const int* table,
                            const int* seq_len, const int* offset,
@@ -1018,10 +1041,14 @@ int paged_window_attention(const void* q, const void* pool, int pool_is_int8,
       (long long)Hkv * (((long long)W * rep + kWinRows - 1) / kWinRows);
   if (D < 16 || D > kMaxD || D % 16 || rep < 1 || rep > kMaxRep ||
       Hkv < 1 || T < 1 || N < 1 || MB < 1 || B < 1 || B > 65535 || W < 1 ||
-      layer < 0 || blocks_x > 0x7fffffffLL)
+      layer < 0 || blocks_x > 0x7fffffffLL || kind < 0 || kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (pool_is_int8)
+  if (kind == 2)
+    return launch_window<e4m3_t>(q, pool, layer, N, Hkv, rep, T, D, B, MB, W,
+                                 table, seq_len, offset, kscale, scale, out,
+                                 st);
+  if (kind == 1)
     return launch_window<int8_t>(q, pool, layer, N, Hkv, rep, T, D, B, MB, W,
                                  table, seq_len, offset, kscale, scale, out,
                                  st);

@@ -38,14 +38,17 @@ Modes, as in the JAX package:
   window (as the paged one) into the cache and then over it with the
   per-row causal offsets, in plain PyTorch as the JAX layer runs it in
   XLA.
-With ``use_int8_kv_cache`` (the ``kv8`` recipe) the self cache is int8
-with the per-tensor scales ``kv_orig_quant_scale`` (every write: the
+With ``use_int8_kv_cache`` (the ``kv8`` recipe) the self cache is int8,
+with ``use_fp8_kv_cache`` e4m3 (the saturating cast), either with the
+per-tensor scales ``kv_orig_quant_scale`` (every write: the
 prefill's and the fresh K/V of a decode step) and ``kv_quant_orig_scale``
 (every read, the fresh column's too, as a write-then-read would give it);
 a prefill then attends over the quantised cache it has just written, as
 the JAX layer does (its flash fast path is off under a quantised cache,
-``layers/attention.py:669-697``).  An int8 paged pool is quantised and read
-with the same scales (the JAX layer's :471-473, :496-535).
+``layers/attention.py:669-697``).  An int8 or e4m3 paged pool is quantised
+and read with the same scales (the JAX layer's :471-473, :496-535; the
+JAX pool writes and reads e4m3 unscaled, a fault of the reference, which
+this port does not copy).
 Single-token decode over the stacked cache goes through the decode kernel
 (:func:`..ops.decode_attention.fused_decode_attention`; its grouped mode
 when the cache has fewer heads), with the int8 out-projection fused when
@@ -83,7 +86,7 @@ import torch
 from torch import nn
 
 from ..functional import apply_rope, causal_bias
-from ..ops.attention import (append_kv_stacked,
+from ..ops.attention import (FP8, append_kv_stacked,
                              beam_indirect_decode_attention,
                              cached_decode_attention, cast_kv_for_cache,
                              layer_kv_views, multihead_attention)
@@ -201,6 +204,7 @@ class Attention(nn.Module):
                  quant_mode: QuantMode = QuantMode(0),
                  num_kv_heads: Optional[int] = None,
                  use_int8_kv_cache: bool = False,
+                 use_fp8_kv_cache: bool = False,
                  rotary_embedding_dim: int = 0,
                  neox_rotary_style: bool = True,
                  glm_2d_rope: bool = False, alibi: bool = False,
@@ -217,6 +221,9 @@ class Attention(nn.Module):
         self.causal = causal
         self.dtype = dtype
         self.use_int8_kv_cache = use_int8_kv_cache
+        self.use_fp8_kv_cache = use_fp8_kv_cache
+        if use_int8_kv_cache and use_fp8_kv_cache:
+            raise ValueError("an int8 or an fp8 KV cache, not both")
         self.rotary_embedding_dim = rotary_embedding_dim
         self.neox_rotary_style = neox_rotary_style
         self.glm_2d_rope = glm_2d_rope
@@ -227,9 +234,10 @@ class Attention(nn.Module):
         # under query-key layer scaling
         self.norm_factor = math.sqrt(self.attention_head_size) * (
             num_layers if apply_query_key_layer_scaling else 1)
-        # the int8 self cache's per-tensor scales (the JAX layer's [1] fp32
-        # parameters, scale_y_quant_orig semantics): quantise, dequantise
-        if use_int8_kv_cache:
+        # the int8 or e4m3 self cache's per-tensor scales (the JAX layer's
+        # [1] fp32 parameters, scale_y_quant_orig semantics): quantise,
+        # dequantise
+        if self.quantized_kv_cache:
             self.kv_orig_quant_scale = frozen((1,), torch.float32)
             self.kv_quant_orig_scale = frozen((1,), torch.float32)
         else:
@@ -253,6 +261,16 @@ class Attention(nn.Module):
         self.dense = row_cls(hidden_size, hidden_size, bias=bias, dtype=dtype)
 
     @property
+    def quantized_kv_cache(self) -> bool:
+        return self.use_int8_kv_cache or self.use_fp8_kv_cache
+
+    @property
+    def kv_cache_dtype(self) -> torch.dtype:
+        """The self cache's element type: int8, e4m3 or the layer's."""
+        return (torch.int8 if self.use_int8_kv_cache
+                else FP8 if self.use_fp8_kv_cache else self.dtype)
+
+    @property
     def scale(self) -> float:
         return 1.0 / self.norm_factor
 
@@ -268,12 +286,11 @@ class Attention(nn.Module):
 
     def new_kv_cache(self, batch: int, max_len: int,
                      device=None) -> torch.Tensor:
-        """A zeroed self cache [B, 2, Hkv, head_dim, S] (seq-minor), in the
-        layer's dtype, or int8 with ``use_int8_kv_cache``."""
+        """A zeroed self cache [B, 2, Hkv, head_dim, S] (seq-minor), in
+        :attr:`kv_cache_dtype`."""
         return torch.zeros((batch, 2, self.num_attention_kv_heads,
                             self.attention_head_size, max_len),
-                           dtype=torch.int8 if self.use_int8_kv_cache
-                           else self.dtype, device=device)
+                           dtype=self.kv_cache_dtype, device=device)
 
     def _decode_proj_operands(self, batch: int):
         """(weight, scale, bias) of an int8 weight-only dense layer for the
@@ -320,7 +337,7 @@ class Attention(nn.Module):
                beam_indirection=None):
         """Self-attention over the block pool (the JAX layer's paged
         branch, ``layers/attention.py:474-551``): q [B, H, L, D], k/v
-        [B, Hkv, L, D]; an int8 pool quantises every write with
+        [B, Hkv, L, D]; an int8 or e4m3 pool quantises every write with
         ``kv_orig_quant_scale`` and every kernel reads it with
         ``kv_quant_orig_scale``.  ``beam_indirection`` [groups, beams, S]
         (a single-token step): each position read through the chain of the
@@ -474,10 +491,10 @@ class Attention(nn.Module):
                     kv_quant_orig_scale=self.kv_quant_orig_scale,
                     start_index=attention_start, bias=alibi_bias)
                 out = self.dense(self._merge_heads(ctx))
-            elif (attention_start is not None or self.use_int8_kv_cache
+            elif (attention_start is not None or self.quantized_kv_cache
                     or self.alibi or not self.causal or l == 1
                     or torch.is_tensor(cache_write_index)):
-                # left-padded prompts, an int8 cache, ALiBi, a
+                # left-padded prompts, a quantised cache, ALiBi, a
                 # bidirectional prompt, one token or a window at per-row
                 # columns: attend over the cache just written
                 # (dequantised), keys below the start masked, causal from

@@ -54,8 +54,10 @@ positions [B, 2, T], ``pos0 = min(p, plen - 2)`` and ``pos1 = max(p -
 plen + 2, 0)`` with ``plen`` the true prompt lengths (``context_lengths``,
 which :attr:`DecoderLMHead.needs_context_lengths` asks the session for),
 the deepnorm residual ``x = ln(x) alpha + attn; y = ln2(x); x = y alpha +
-mlp(y)`` and the bidirectional prompt.  An fp8 KV cache and the K-step
-tail are not ported and raise ``NotImplementedError``; the megakernel is
+mlp(y)`` and the bidirectional prompt.  An fp8 (e4m3) KV cache is the
+int8 cache's twin: the same per-layer scales around the saturating cast.
+The K-step tail is not ported and raises ``NotImplementedError``; the
+megakernel is
 not taken for per-row columns (the JAX model's gate, :365).
 Beam search passes a ``beam_indirection`` [groups, beams, S] table to the
 single-token step, which every layer's self-attention reads the cache
@@ -148,7 +150,6 @@ def _check_ported(c: DecoderConfig) -> None:
                                          "glm_rope"),
         f"norm={c.norm!r}": c.norm not in ("layernorm", "rmsnorm"),
         f"hidden_act={c.hidden_act!r}": c.hidden_act not in ACT2FN,
-        "an fp8 KV cache": c.quant_mode.has_fp8_kv_cache(),
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -203,6 +204,7 @@ class DecoderBlock(nn.Module):
             bias=c.attn_bias, dtype=dtype, quant_mode=c.quant_mode,
             num_kv_heads=c.num_kv_heads,
             use_int8_kv_cache=c.quant_mode.has_int8_kv_cache(),
+            use_fp8_kv_cache=c.quant_mode.has_fp8_kv_cache(),
             rotary_embedding_dim=rotary_dim(c),
             neox_rotary_style=c.neox_rotary_style,
             glm_2d_rope=c.position_embedding == "glm_rope",
@@ -267,7 +269,8 @@ class DecoderLMHead(nn.Module):
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
         """Zeroed stacked cache [n_layer, B, 2, Hkv, head_dim, S] (int8
-        with an int8 KV cache in the config's quant mode)."""
+        or e4m3 with an int8 or fp8 KV cache in the config's quant
+        mode)."""
         c = self.config
         per_layer = self.blocks[0].attention.new_kv_cache(
             batch, max_len or c.max_position_embeddings, device="meta")
@@ -280,12 +283,12 @@ class DecoderLMHead(nn.Module):
         """Zeroed stacked block pool [n_layer, N + 1, 2, Hkv, T, head_dim]
         for paged serving (N blocks and the sink of the dropped writes,
         :func:`..ops.paged_attention.new_block_pool`), in the dtype of the
-        model's KV cache (int8 with an int8 KV cache), on its device."""
+        model's KV cache (int8 or e4m3 with an int8 or fp8 KV cache), on
+        its device."""
         c = self.config
         return new_block_pool(num_blocks, c.num_kv_heads, tokens_per_block,
-                              c.head_dim, dtype=torch.int8
-                              if c.quant_mode.has_int8_kv_cache()
-                              else self.dtype,
+                              c.head_dim,
+                              dtype=self.blocks[0].attention.kv_cache_dtype,
                               num_layers=c.num_layers,
                               device=self.vocab_embedding.weight.device)
 

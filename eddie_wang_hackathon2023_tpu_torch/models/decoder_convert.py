@@ -27,7 +27,9 @@ def quantize_state(state: Dict[str, np.ndarray], config: DecoderConfig
     """The float state dict quantised for ``config.quant_mode`` (int8 or
     int4 weight-only, int4 in groups of 128 rows where a linear's
     in-features allow, else per channel; without weight quantisation it is
-    returned as it is)."""
+    returned as it is).  An int8 or e4m3 KV cache's scales
+    (``blocks.attention.kv_orig_quant_scale`` / ``kv_quant_orig_scale``)
+    pass through."""
     if not config.quant_mode.is_weight_only():
         return dict(state)
     return weight_only_quantize_state(state, DECODER_LINEARS,

@@ -141,8 +141,10 @@ def encoder_state_dict(sd, config: WhisperConfig) -> Dict[str, np.ndarray]:
 def decoder_state_dict(sd, config: WhisperConfig,
                        int8_kv_scales=None) -> Dict[str, np.ndarray]:
     """``int8_kv_scales``: optional [n_layer] per-layer dequantise steps
-    of the int8 self cache (``calibrate_int8_kv``: amax / 127), stored as
-    ``1 / t`` and ``t`` under the attention's ``kv_orig_quant_scale`` and
+    of the int8 self cache (``calibrate_int8_kv``: amax / 127), or the
+    e4m3 self cache's scales (``quantization.fp8_layers.
+    fp8_scales_from_amax`` of the same amax), stored as ``1 / t`` and ``t``
+    under the attention's ``kv_orig_quant_scale`` and
     ``kv_quant_orig_scale``, [n_layer, 1] each."""
     c = config
     blocks = _stack_blocks([

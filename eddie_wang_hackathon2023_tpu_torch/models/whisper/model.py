@@ -44,12 +44,11 @@ class ResidualAttentionBlock(nn.Module):
                  quant_mode: QuantMode = QuantMode(0),
                  causal: bool = False):
         super().__init__()
-        if quant_mode.has_fp8_kv_cache():
-            raise NotImplementedError("quantised self-KV is not ported yet")
         self.attn_ln = LayerNorm(n_state, dtype=dtype)
         self.attn = Attention(n_state, n_head, causal=causal, dtype=dtype,
                               quant_mode=quant_mode,
-                              use_int8_kv_cache=quant_mode.has_int8_kv_cache())
+                              use_int8_kv_cache=quant_mode.has_int8_kv_cache(),
+                              use_fp8_kv_cache=quant_mode.has_fp8_kv_cache())
         self.cross_attention = cross_attention
         if cross_attention:
             self.cross_attn_ln = LayerNorm(n_state, dtype=dtype)
@@ -197,13 +196,13 @@ class WhisperDecoder(nn.Module):
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
         """Zeroed stacked cache [n_layer, B, 2, H, head_dim, S], int8
-        under ``kv8`` (the JAX package's ``model.py:283-288``)."""
+        under ``kv8``, e4m3 under an fp8 KV cache (the JAX package's
+        ``model.py:283-288``)."""
         c = self.config
-        kv8 = self.blocks[0].attn.use_int8_kv_cache
         return torch.zeros(
             (c.n_text_layer, batch, 2, c.n_text_head, c.head_dim,
              max_len or c.n_text_ctx),
-            dtype=torch.int8 if kv8 else self.dtype,
+            dtype=self.blocks[0].attn.kv_cache_dtype,
             device=self.positional_embedding.device)
 
     def megakernel_eligible(self, device=None) -> bool:
@@ -215,8 +214,9 @@ class WhisperDecoder(nn.Module):
         float (the fused equal-heads QKV and plain linears: bf16 panels
         with unit scales).  On a CUDA ``device`` (default: the weights'
         device) also the types the kernel takes: bf16 activations (the self
-        cache is bf16 or, under ``kv8``, int8; the cross cache, made in the
-        same dtype or int8, follows) and heads of 64."""
+        cache is bf16, int8 under ``kv8`` or e4m3 under an fp8 KV cache;
+        the cross cache, made in the same dtype or int8, follows) and heads
+        of 64."""
         from ...layers.attention import QKVLinear
         from ...layers.linear import Linear, RowLinear
         from ...ops.decoder_layer import HEAD_DIM, woq_block_eligible

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``) and loaded with ``ctypes``.  A
 library may be another's source built with macros of its own
-(:data:`DEFINES`: the megakernel's decoder-only set).  The library name
+(:data:`DEFINES`: the megakernel's decoder-only set, and each set's e4m3
+self-cache instantiations).  The library name
 carries a hash of the source and the flags, so an edited source is
 rebuilt.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
@@ -92,7 +93,14 @@ SIGNATURES = {
 # or built from another library's source with macros of its own
 SOURCES: Dict[str, Path] = {name: CSRC / f"{name}.cu" for name in SIGNATURES}
 SOURCES["decoder_stack"] = CSRC / "decoder_layer.cu"
-DEFINES: Dict[str, list] = {"decoder_stack": ["-DMEGA_DECODER_ONLY"]}
+# each set's e4m3 self-cache instantiations, a library apart
+for _name in ("decoder_layer_fp8", "decoder_stack_fp8"):
+    SIGNATURES[_name] = dict(SIGNATURES["decoder_layer"])
+    SOURCES[_name] = CSRC / "decoder_layer.cu"
+DEFINES: Dict[str, list] = {
+    "decoder_stack": ["-DMEGA_DECODER_ONLY"],
+    "decoder_layer_fp8": ["-DMEGA_SELF_E4M3"],
+    "decoder_stack_fp8": ["-DMEGA_DECODER_ONLY", "-DMEGA_SELF_E4M3"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
@@ -122,6 +130,9 @@ def _flags(name: str) -> list:
 
 def _lib_path(name: str) -> Path:
     src = SOURCES[name].read_bytes()
+    # the headers beside the source (csrc/e4m3.cuh) are part of it
+    for header in sorted(SOURCES[name].parent.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -31,26 +31,61 @@ def _mm_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.float(), b.float())
 
 
+# the fp8 (e4m3) cache's element type and its largest finite value
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0
+# the cache kinds the kernels take (their C entries' ``kind`` argument)
+CACHE_KINDS = {torch.bfloat16: 0, torch.int8: 1, FP8: 2}
+
+
+def is_quantized_cache(dtype: torch.dtype) -> bool:
+    """An int8 or fp8 (e4m3) cache: written through
+    ``kv_orig_quant_scale``, read through ``kv_quant_orig_scale``."""
+    return dtype in (torch.int8, FP8)
+
+
+def cache_kind(dtype: torch.dtype) -> int:
+    """The kernels' cache kind: 0 bf16, 1 int8, 2 e4m3."""
+    if dtype not in CACHE_KINDS:
+        raise TypeError(f"cache dtype {dtype}: bf16, int8 or float8_e4m3fn")
+    return CACHE_KINDS[dtype]
+
+
 def quantize_cache_values(kv: torch.Tensor, cache_dtype: torch.dtype,
                           kv_orig_quant_scale=None) -> torch.Tensor:
     """Cast fresh K/V values into the cache dtype: int8 with
-    round-half-away and clip to [-128, 127]; float dtypes pass through."""
+    round-half-away and clip to [-128, 127]; e4m3 by the saturating cast
+    (values past +-448 give +-448, as Hopper's ``cvt.rn.satfinite`` and
+    the JAX package's ``quantize_fp8``; the JAX cache cast itself gives NaN
+    there); float dtypes pass through."""
     if cache_dtype == torch.int8:
         assert kv_orig_quant_scale is not None
         scaled = kv.float() * kv_orig_quant_scale
         return torch.clamp(round_half_away(scaled), -128, 127).to(torch.int8)
-    if cache_dtype.is_floating_point and cache_dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV cache is not ported yet")
+    if cache_dtype == FP8:
+        assert kv_orig_quant_scale is not None
+        scaled = kv.float() * kv_orig_quant_scale
+        return torch.clamp(scaled, -FP8_MAX, FP8_MAX).to(FP8)
     return kv.to(cache_dtype)
 
 
 def dequantize_cache_values(x: torch.Tensor, kv_quant_orig_scale,
                             out_dtype: torch.dtype) -> torch.Tensor:
-    """Inverse of :func:`quantize_cache_values` for int8 caches."""
-    if x.dtype == torch.int8:
+    """Inverse of :func:`quantize_cache_values` for int8 and e4m3
+    caches."""
+    if is_quantized_cache(x.dtype):
         assert kv_quant_orig_scale is not None
         return (x.float() * kv_quant_orig_scale).to(out_dtype)
     return x.to(out_dtype)
+
+
+def masked_values(v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """v with its masked positions set to 0 where v is an e4m3 cache's
+    read: an e4m3 byte may be NaN, and a masked probability of 0 times NaN
+    would poison P.V (int8 and float caches hold finite values, and pass
+    through)."""
+    return torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                             device=v.device))
 
 
 def length_mask_bias(lengths: torch.Tensor, max_len: int,
@@ -94,7 +129,12 @@ def put_columns(cache: torch.Tensor, new: torch.Tensor,
     the end are sent to the nearest column inside with the value that
     column gets anyway (its own lane's, or what it held), so every store
     to one column carries one value and the order of the stores does not
-    matter."""
+    matter.  An e4m3 cache is written through its bytes (uint8 views:
+    torch gathers no float8 values)."""
+    if cache.dtype == FP8:
+        put_columns(cache.view(torch.uint8), new.view(torch.uint8),
+                    write_index)
+        return
     b, s, n = cache.shape[0], cache.shape[-1], new.shape[-1]
     dev = cache.device
     wi = write_index.to(device=dev, dtype=torch.long).reshape(b, 1)
@@ -182,8 +222,10 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
     i attends keys <= causal_offset + i; None: no causal mask (the
     bidirectional prefill of GLM).  ``bias`` [1, H, 1, S] fp32 (ALiBi) is
     added to the scaled scores before the mask; it takes no deferred write
-    (``fresh_kv``) and no GQA, as in the JAX package.  int8 caches are
-    dequantised with the per-tensor ``kv_quant_orig_scale``.
+    (``fresh_kv``) and no GQA, as in the JAX package.  int8 and e4m3
+    caches are dequantised with the per-tensor ``kv_quant_orig_scale``; an
+    e4m3 cache's masked columns are left out of P.V
+    (:func:`masked_values`).
 
     MQA/GQA (the JAX package's ``ops/attention.py:264-317``): a cache with
     fewer KV heads than q is read without repeating its heads.  One KV head
@@ -211,7 +253,8 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
     s_max = k.shape[3]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if k.dtype == torch.int8:
+    fp8 = k.dtype == FP8
+    if is_quantized_cache(k.dtype):
         k = dequantize_cache_values(k, kv_quant_orig_scale, q.dtype)
         v = dequantize_cache_values(v, kv_quant_orig_scale, q.dtype)
     scores = _mm_f32("bhqd,bhds->bhqs", q, k) * scale
@@ -227,6 +270,8 @@ def cached_decode_attention(q: torch.Tensor, cache, seq_len,
         start = torch.as_tensor(start_index, dtype=torch.int32,
                                 device=q.device).reshape(-1, 1, 1, 1)
         valid = valid & (kpos >= start)
+    if fp8:                                 # [B, 1, 1, S] over [B, H, D, S]
+        v = masked_values(v, valid)
     qpos = torch.arange(lq, device=q.device)[None, None, :, None] % lq_t
     if lq_t > 1 and causal_offset is not None:
         # causal within the appended block; grouped rows share a token
@@ -281,8 +326,8 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
     own (no indirection).  ``bias`` [1, H, 1, S] fp32 (ALiBi, over the
     absolute column) is added to the scaled scores; with it the current
     token is read from the cache (its column written, the table pointing
-    at the row's own), not from ``fresh_kv``.  int8 caches are
-    dequantised; fp8 raises."""
+    at the row's own), not from ``fresh_kv``.  int8 and e4m3 caches are
+    dequantised."""
     b, h, lq, d = q.shape
     if lq != 1:
         raise ValueError("beam-indirect attention is a one-token decode op")
@@ -294,8 +339,6 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
             "beams over MQA/GQA caches are not ported (the JAX package's "
             "beam_indirect_decode_attention reshapes such a cache with the "
             "query head count and raises TypeError)")
-    if k.dtype.is_floating_point and k.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV cache is not ported yet")
     s_max = k.shape[3]
     bg, bw, s_ind = indirection.shape
     if bg * bw != b:
@@ -303,7 +346,8 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
                          "query rows")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if k.dtype == torch.int8:
+    fp8 = k.dtype == FP8
+    if is_quantized_cache(k.dtype):
         k = dequantize_cache_values(k, kv_quant_orig_scale, q.dtype)
         v = dequantize_cache_values(v, kv_quant_orig_scale, q.dtype)
     ind = indirection
@@ -333,6 +377,9 @@ def beam_indirect_decode_attention(q: torch.Tensor, cache, seq_len,
                                 device=q.device).reshape(-1, 1, 1, 1)
         valid = valid & (kpos >= start)
     scores = torch.where(valid, scores, torch.full_like(scores, NEG))
+    if fp8:              # every row's columns past the group's length
+        v5 = masked_values(v5, valid.expand(b, 1, 1, s_max).reshape(
+            bg, bw, 1, 1, s_max))
 
     def pv(p):                              # p [B, H, 1, S] -> [B, H, 1, D]
         p_m = torch.where(sel[:, :, :, None, :],

@@ -17,8 +17,12 @@ cluster of :func:`gqa_splits` blocks of :func:`gqa_slice_width` columns,
 both passed to the kernel); on
 a CPU tensor it runs the plain version, :func:`plain_decode_attention`
 (``cached_decode_attention`` followed by ``weight_only_quant_matmul``, or
-``beam_indirect_decode_attention``).  The tail, fp8 and group-shared-cache
-modes of the TPU kernel are not ported and raise ``NotImplementedError``.
+``beam_indirect_decode_attention``).  Every entry takes a bf16, int8 or
+fp8 (e4m3) cache (the C entries' cache kind 0, 1 or 2, each kind its own
+instantiation); an e4m3 byte is decoded exactly by ``cvt.rn.f16x2.e4m3x2``
+and its masked columns are selected away, never multiplied by 0 (the byte
+0x7F is NaN).  The tail and group-shared-cache modes of the TPU kernel are
+not ported and raise ``NotImplementedError``.
 Without beams the attention kernel splits the sequence over a thread-block
 cluster of :func:`decode_splits` blocks; :func:`plain_split_decode_attention`
 repeats its arithmetic step by step (the card tests hold the kernel equal
@@ -50,8 +54,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import (NEG, beam_indirect_decode_attention,
-                        cached_decode_attention, layer_kv_views)
+from .attention import (FP8, NEG, beam_indirect_decode_attention,
+                        cache_kind, cached_decode_attention,
+                        is_quantized_cache, layer_kv_views)
 from .int4_quant_matmul import _sm_count
 from .paged_attention import paged_decode_attention
 from .quant_matmul import weight_only_quant_matmul
@@ -59,11 +64,21 @@ from .quant_matmul import weight_only_quant_matmul
 # launches of each CUDA kernel, counted where the wrapper launches it (the
 # attention kernel per cache dtype: each dtype is its own instantiation; the
 # beam entry, the grouped kernel and the paged kernel, whose main paths have
-# a bf16 cache, count both of their dtypes)
+# a bf16 cache, count their bf16 and int8 modes together and their e4m3
+# mode apart)
 launches = {"decode_attention_bf16": 0, "decode_attention_int8": 0,
+            "decode_attention_e4m3": 0,
             "out_proj_gemv": 0, "beam_decode_attention": 0,
-            "gqa_decode_attention": 0, "paged_decode_attention": 0,
-            "paged_window_attention": 0, "paged_beam_attention": 0}
+            "beam_decode_attention_e4m3": 0,
+            "gqa_decode_attention": 0, "gqa_decode_attention_e4m3": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_e4m3": 0,
+            "paged_window_attention": 0, "paged_window_attention_e4m3": 0,
+            "paged_beam_attention": 0, "paged_beam_attention_e4m3": 0}
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    """One launch of entry ``name`` over a cache of ``dtype``."""
+    launches[name + "_e4m3" if dtype == FP8 else name] += 1
 
 
 # kernel 1 without beams splits the S columns of the cache over a cluster
@@ -336,8 +351,10 @@ def plain_split_decode_attention(full_cache, layer_idx: int, q, seq_len,
     them; the slices added in rank order; then the fresh column.  Every
     product and sum is rounded where the kernel rounds it, so on the card
     the kernel equals this function bit for bit.  q [B, H, 1, D] (bf16 or
-    fp32) over a cache [L, B, 2, H, D, S] (bf16, int8 or fp32), no beams,
-    no grouped heads; returns [B, H, 1, D] in q's dtype."""
+    fp32) over a cache [L, B, 2, H, D, S] (bf16, int8, e4m3 or fp32), no
+    beams, no grouped heads; returns [B, H, 1, D] in q's dtype.  A masked
+    column's term is selected away, so what it holds (an e4m3 NaN) does
+    not matter."""
     _, B, _, H, D, S = full_cache.shape
     f32, dev = torch.float32, q.device
     kscale = (torch.ones((), dtype=f32, device=dev)
@@ -413,10 +430,11 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
                            beam_indirection=None) -> torch.Tensor:
     """One-token attention against layer ``layer_idx`` of the stacked cache.
 
-    full_cache [L, B, 2, H, D, S] bf16 or int8 (seq-minor); q [B, H, 1, D];
-    seq_len [B] integer tensor on q's device: valid length INCLUDING the
-    current token.  ``kv_quant_orig_scale``: per-tensor int8 dequant scale (a 0-d
-    or [1] fp32 tensor, read on the device).  ``fresh_kv`` (k, v)
+    full_cache [L, B, 2, H, D, S] bf16, int8 or e4m3 (seq-minor); q
+    [B, H, 1, D]; seq_len [B] integer tensor on q's device: valid length
+    INCLUDING the current token.  ``kv_quant_orig_scale``: per-tensor
+    dequant scale of an int8 or e4m3 cache (a 0-d or [1] fp32 tensor, read
+    on the device).  ``fresh_kv`` (k, v)
     [B, H, D, 1] in cache dtype: the current token's K/V, not in the cache
     yet.  ``start_index`` [B]: keys below it are masked.  ``proj`` (weight
     int8 [L, H*D, N] or [H*D, N], scale [N] fp32, bias [N] or None): the
@@ -455,10 +473,7 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         raise NotImplementedError("group-shared caches are not ported")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"decode kernel takes bf16 q, got {q.dtype}")
-    if full_cache.dtype.is_floating_point and full_cache.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
-    if full_cache.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"decode kernel cache dtype {full_cache.dtype}")
+    kind = cache_kind(full_cache.dtype)
     if not full_cache.is_contiguous() or (S % 4 and not grouped):
         raise ValueError("decode kernel needs a contiguous cache with S a "
                          "multiple of 4")
@@ -487,17 +502,16 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         fk, fv = (t.contiguous() for t in fresh_kv)
         if fk.dtype != full_cache.dtype or fk.shape != (B, H, D, 1):
             raise ValueError("fresh K/V must be [B,H,D,1] in cache dtype")
-    is_int8 = full_cache.dtype == torch.int8
     ctx = torch.empty((B, Hq * D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     if grouped:
         splits = gqa_splits(S)
         _build.check(_build.load("gqa_decode_attention").gqa_decode_attention(
-            _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
+            _ptr(q), _ptr(full_cache), kind, int(layer_idx), B, H,
             Hq // H, D, S, splits, gqa_slice_width(S, splits), _ptr(seq_t),
             _ptr(start_t), _ptr(ks_t), float(scale), _ptr(fk), _ptr(fv),
             _ptr(ctx), stream), "gqa_decode_attention")
-        launches["gqa_decode_attention"] += 1
+        _count("gqa_decode_attention", full_cache.dtype)
         return ctx.view(B, Hq, 1, D)
     lib = _build.load("decode_attention")
     if beam_indirection is not None:
@@ -516,21 +530,21 @@ def fused_decode_attention(full_cache, layer_idx: int, q, seq_len,
         if ind.data_ptr() % 16:          # the kernel copies 16 bytes at once
             ind = ind.clone()
         _build.check(lib.beam_decode_attention(
-            _ptr(q), _ptr(full_cache), int(is_int8), int(layer_idx), B, H,
+            _ptr(q), _ptr(full_cache), kind, int(layer_idx), B, H,
             D, S, plan["splits"], plan["width"], plan["cols"],
             plan["rounds"], plan["rs"], plan["rows"], _ptr(seq_t), _ptr(start_t),
             _ptr(ks_t), float(scale), _ptr(fk), _ptr(fv), _ptr(ind), bw,
             _ptr(ctx), stream), "beam_decode_attention")
-        launches["beam_decode_attention"] += 1
+        _count("beam_decode_attention", full_cache.dtype)
         return ctx.view(B, H, 1, D)
     _build.check(lib.decode_attention(
-        _ptr(q), _ptr(full_cache), int(is_int8),
+        _ptr(q), _ptr(full_cache), kind,
         int(layer_idx), B, H, D, S, decode_splits(S), _ptr(seq_t),
         _ptr(start_t), _ptr(ks_t),
         float(scale), _ptr(fk), _ptr(fv), _ptr(ctx), stream),
         "decode_attention")
-    launches["decode_attention_int8" if is_int8 else
-             "decode_attention_bf16"] += 1
+    launches[("decode_attention_bf16", "decode_attention_int8",
+              "decode_attention_e4m3")[kind]] += 1
     if proj is None:
         return ctx.view(B, H, 1, D)
     return out_proj_gemv(ctx, layer_idx, *proj)
@@ -615,8 +629,9 @@ def plain_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
 
 def _check_paged_args(full_pool, layer_idx: int, q, block_table, seq_len,
                       kv_quant_orig_scale):
-    """The paged entries' input checks on the card (both take the same
-    pool, table and lengths); returns the fp32 dequant scale or None."""
+    """The paged entries' input checks on the card (all take the same
+    pool, table and lengths); returns (the pool's cache kind, the fp32
+    dequant scale or None)."""
     L, N, two, Hkv, T, D = full_pool.shape
     B, H = q.shape[0], q.shape[1]
     if q.dim() != 4 or q.shape[3] != D or H % Hkv:
@@ -625,8 +640,7 @@ def _check_paged_args(full_pool, layer_idx: int, q, block_table, seq_len,
             "multiple of Hkv")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"paged decode kernel takes bf16 q, got {q.dtype}")
-    if full_pool.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"paged decode kernel pool dtype {full_pool.dtype}")
+    kind = cache_kind(full_pool.dtype)
     if (not full_pool.is_contiguous() or full_pool.data_ptr() % 16
             or D % 16 or D > 128 or two != 2):
         raise ValueError("paged decode kernel needs a contiguous, 16-byte "
@@ -648,10 +662,11 @@ def _check_paged_args(full_pool, layer_idx: int, q, block_table, seq_len,
                                device=dev).reshape(-1)
         if ks_t.numel() != 1:
             raise ValueError("kv_quant_orig_scale must be one value")
-        return ks_t
-    if full_pool.dtype == torch.int8:
-        raise ValueError("an int8 pool needs kv_quant_orig_scale")
-    return None
+        return kind, ks_t
+    if is_quantized_cache(full_pool.dtype):
+        raise ValueError(f"a {full_pool.dtype} pool needs "
+                         "kv_quant_orig_scale")
+    return kind, None
 
 
 def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
@@ -659,18 +674,15 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
                                  kv_quant_orig_scale=None) -> torch.Tensor:
     """One-token attention off layer ``layer_idx`` of the stacked block pool.
 
-    full_pool [L, N, 2, Hkv, T, D] bf16 or int8 (token-major); q
+    full_pool [L, N, 2, Hkv, T, D] bf16, int8 or e4m3 (token-major); q
     [B, H, 1, D]; block_table [B, max_blocks] integer, -1 padded; seq_len
     [B] integer: the valid length INCLUDING the current token, whose K/V is
     already in the pool.  MQA/GQA: H = rep * Hkv, query head h reads KV head
-    h // rep.  ``kv_quant_orig_scale``: the int8 pool's per-tensor dequant
+    h // rep.  ``kv_quant_orig_scale``: the quantised pool's per-tensor dequant
     scale (a 0-d or [1] fp32 tensor).  Returns [B, H, 1, D].  The kernel
     takes any batch (the JAX layer's batch gate came from a TPU
     measurement).  A row with seq_len 0 gives zeros on the card (the plain
-    version's context of a fully masked row is of no use either).  fp8
-    pools raise."""
-    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV pools are not ported yet")
+    version's context of a fully masked row is of no use either)."""
     if not q.is_cuda:
         return plain_paged_decode_attention(full_pool, layer_idx, q,
                                             block_table, seq_len, scale,
@@ -681,10 +693,9 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
         raise NotImplementedError(
             f"q {tuple(q.shape)}: the single-token entry takes one query "
             "token a row (the window entry takes more)")
-    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
-                             kv_quant_orig_scale)
+    kind, ks_t = _check_paged_args(full_pool, layer_idx, q, block_table,
+                                   seq_len, kv_quant_orig_scale)
     dev = q.device
-    is_int8 = full_pool.dtype == torch.int8
     # operands held in locals until the launch is enqueued (see above)
     q = q.contiguous()
     table_t = block_table.to(torch.int32).contiguous()
@@ -694,12 +705,12 @@ def fused_paged_decode_attention(full_pool, layer_idx: int, q, block_table,
     MB = table_t.shape[1]
     plan = paged_plan(MB, T, H // Hkv)
     _build.check(_build.load("paged_decode_attention").paged_decode_attention(
-        _ptr(q), _ptr(full_pool), int(is_int8), int(layer_idx), N, Hkv,
+        _ptr(q), _ptr(full_pool), kind, int(layer_idx), N, Hkv,
         H // Hkv, T, D, B, MB, _ptr(table_t), _ptr(seq_t), _ptr(ks_t),
         float(scale), plan["splits"], plan["width"], plan["warps"],
         plan["rounds"], plan["heads"], _ptr(out), stream),
         "paged_decode_attention")
-    launches["paged_decode_attention"] += 1
+    _count("paged_decode_attention", full_pool.dtype)
     return out
 
 
@@ -721,25 +732,23 @@ def fused_paged_window_attention(full_pool, layer_idx: int, q, block_table,
     """W query tokens a row off layer ``layer_idx`` of the stacked block
     pool (mixed context+generation admission).
 
-    full_pool [L, N, 2, Hkv, T, D] bf16 or int8; q [B, H, W, D];
+    full_pool [L, N, 2, Hkv, T, D] bf16, int8 or e4m3; q [B, H, W, D];
     block_table [B, max_blocks] integer, -1 padded; seq_len [B]: the valid
     length INCLUDING the window's tokens, whose K/V is already in the pool;
     causal_offset [B]: query token i of row b attends keys <= causal_offset
-    [b] + i.  MQA/GQA and the int8 scale as the single-token entry takes
+    [b] + i.  MQA/GQA and the scale as the single-token entry takes
     them.  Returns [B, H, W, D].  One launch of the window entry of
     ``csrc/paged_decode_attention.cu`` (any W, any table width); a row
     with no valid key gives zeros on the card (the plain version's is of
-    no use either).  fp8 pools raise."""
-    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV pools are not ported yet")
+    no use either)."""
     if not q.is_cuda:
         return plain_paged_window_attention(full_pool, layer_idx, q,
                                             block_table, seq_len,
                                             causal_offset, scale,
                                             kv_quant_orig_scale)
     L, N, two, Hkv, T, D = full_pool.shape
-    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
-                             kv_quant_orig_scale)
+    kind, ks_t = _check_paged_args(full_pool, layer_idx, q, block_table,
+                                   seq_len, kv_quant_orig_scale)
     B, H, W = q.shape[0], q.shape[1], q.shape[2]
     dev = q.device
     if (not torch.is_tensor(causal_offset) or causal_offset.shape != (B,)
@@ -753,11 +762,11 @@ def fused_paged_window_attention(full_pool, layer_idx: int, q, block_table,
     out = torch.empty((B, H, W, D), dtype=torch.bfloat16, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     _build.check(_build.load("paged_decode_attention").paged_window_attention(
-        _ptr(q), _ptr(full_pool), int(full_pool.dtype == torch.int8),
+        _ptr(q), _ptr(full_pool), kind,
         int(layer_idx), N, Hkv, H // Hkv, T, D, B, table_t.shape[1], W,
         _ptr(table_t), _ptr(seq_t), _ptr(off_t), _ptr(ks_t), float(scale),
         _ptr(out), stream), "paged_window_attention")
-    launches["paged_window_attention"] += 1
+    _count("paged_window_attention", full_pool.dtype)
     return out
 
 
@@ -779,7 +788,7 @@ def fused_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
     """One-token beam-search attention off layer ``layer_idx`` of the
     stacked block pool.
 
-    full_pool [L, N, 2, H, T, D] bf16 or int8; q [B, H, 1, D] (equal
+    full_pool [L, N, 2, H, T, D] bf16, int8 or e4m3; q [B, H, 1, D] (equal
     heads); block_table [B, max_blocks] integer, -1 padded, the rows
     grouped by slot (row g * W + w, each beam's own chain, shared prompt
     blocks in every beam's row); seq_len [B] as the single-token entry
@@ -789,9 +798,7 @@ def fused_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
     past S through row g * W).  Returns [B, H, 1, D].  One launch of the
     beam entry of ``csrc/paged_decode_attention.cu`` with
     :func:`paged_plan` at rep 1; a row with seq_len 0 gives zeros on the
-    card.  MQA/GQA pools and fp8 raise."""
-    if full_pool.dtype.is_floating_point and full_pool.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV pools are not ported yet")
+    card.  MQA/GQA pools raise."""
     if not q.is_cuda:
         return plain_paged_beam_attention(full_pool, layer_idx, q,
                                           block_table, seq_len,
@@ -799,8 +806,8 @@ def fused_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
                                           kv_quant_orig_scale)
     L, N, two, Hkv, T, D = full_pool.shape
     B, H = q.shape[0], q.shape[1]
-    ks_t = _check_paged_args(full_pool, layer_idx, q, block_table, seq_len,
-                             kv_quant_orig_scale)
+    kind, ks_t = _check_paged_args(full_pool, layer_idx, q, block_table,
+                                   seq_len, kv_quant_orig_scale)
     if H != Hkv:
         raise NotImplementedError(
             "paged beams over MQA/GQA pools are not ported (the JAX "
@@ -825,10 +832,10 @@ def fused_paged_beam_attention(full_pool, layer_idx: int, q, block_table,
     MB = table_t.shape[1]
     plan = paged_plan(MB, T, 1)
     _build.check(_build.load("paged_decode_attention").paged_beam_attention(
-        _ptr(q), _ptr(full_pool), int(full_pool.dtype == torch.int8),
+        _ptr(q), _ptr(full_pool), kind,
         int(layer_idx), N, H, T, D, B, MB, _ptr(table_t), _ptr(seq_t),
         _ptr(ind_t), ind_t.shape[1], ind_t.shape[2], _ptr(ks_t),
         float(scale), plan["splits"], plan["width"], plan["warps"],
         plan["rounds"], _ptr(out), stream), "paged_beam_attention")
-    launches["paged_beam_attention"] += 1
+    _count("paged_beam_attention", full_pool.dtype)
     return out

@@ -24,13 +24,18 @@ Counterpart of the JAX package's ``ops/pallas_decoder_layer.py``
   head h reading KV head h // rep of a cache of Hkv heads, the fresh K/V
   [L, 2, Hkv, D];
 
-both over a float or int8 self cache with the fresh token's K/V (int8:
-the fresh K/V quantised with the blobs' per-layer ``kv_oq``, the cache and
-the fresh column dequantised with ``kv_qo``, as the TPU kernel's
-``self_quant`` mode), keys below the start index masked.  On a CUDA
+both over a float, int8 or fp8 (e4m3) self cache with the fresh token's
+K/V (int8: the fresh K/V quantised with the blobs' per-layer ``kv_oq``,
+the cache and the fresh column dequantised with ``kv_qo``, as the TPU
+kernel's ``self_quant`` mode; e4m3: the same scales around the saturating
+cast, the fresh column's score and value taken from the values it stores,
+as the TPU kernel's ``self_fp8`` mode), keys below the start index
+masked.  On a CUDA
 tensor the wrapper makes ONE cooperative launch of the kernel of
 ``csrc/decoder_layer.cu`` (the decoder-only set and Whisper's set, one
-library for each of its weight types, are libraries built from it), which
+and their e4m3 self-cache instantiations, are four libraries built from
+it: ``decoder_stack``, ``decoder_layer``, ``decoder_stack_fp8`` and
+``decoder_layer_fp8``, :func:`library_name`), which
 reads its GEMV weights from the blobs' ``tiles`` (:func:`megakernel_tiles`,
 cut by :func:`megakernel_plan` for the card's SM count); on a CPU tensor
 it runs the plain version, :func:`plain_fused_decoder_stack`, which runs
@@ -41,8 +46,8 @@ cross-attention (the JAX package keeps decoder-only int4 off its
 megakernel, ``woq_block_eligible(allow_int4=False)``), a group that does
 not divide d/2, group scales on int8 or float panels, the gated MLP with
 cross-attention (the JAX kernel refuses it too), the grouped mode with
-cross-attention or at head dim 64 (the JAX kernel refuses both), fp8
-self-KV, the K-step tail and batch > 1.
+cross-attention or at head dim 64 (the JAX kernel refuses both), an fp8
+cross cache (no JAX path makes one), the K-step tail and batch > 1.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ import torch
 from ..functional import (ACT2FN, apply_rope, layer_norm, matmul_fp32,
                           rms_norm, rope_angles, rope_freqs, round_half_away)
 from . import _build
-from .attention import NEG
+from .attention import FP8, NEG, cache_kind, quantize_cache_values
 from .quant_matmul import unpack_int4
 
 # launches of the CUDA kernel, counted where the wrapper launches it
@@ -671,8 +676,7 @@ def _check_modes(x, blobs: MegakernelBlobs, self_cache, cross_cache,
          "group-wise scales on int8 or float panels"),
         (bool(int4) and (d % int4 or (d // 2) % group),
          f"int4 groups of {group} rows that do not divide d/2 = {d // 2}"),
-        (self_cache.dtype != torch.int8 and self_cache.element_size() == 1,
-         "fp8 self-KV"),
+        (with_cross and cross_cache.dtype == FP8, "an fp8 cross cache"),
         (self_cache.shape[3] * head_dim != d
          and (with_cross or head_dim != 128),
          "the grouped (MQA/GQA) mode with cross-attention or heads other "
@@ -746,10 +750,12 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                               rope: Optional[Rotary] = None):
     """The plain PyTorch version of :func:`fused_decoder_stack`: the
     kernel's stages, attention slices and rounding points, layer by
-    layer.  With an int8 self cache the fresh K/V are quantised with
-    ``blobs.kv_oq`` as :func:`..ops.attention.quantize_cache_values` does,
-    and the self-attention is scaled by ``blobs.kv_qo`` as the TPU kernel
-    scales it (``pallas_decoder_layer.py:554,740-743``).  RoPE rotates q
+    layer.  With an int8 or e4m3 self cache the fresh K/V are quantised
+    with ``blobs.kv_oq`` as :func:`..ops.attention.quantize_cache_values`
+    does (e4m3: the saturating cast, the stored values kept in fp32 for
+    the fresh column, ``pallas_decoder_layer.py:533-539``), and the
+    self-attention is scaled by ``blobs.kv_qo`` as the TPU kernel scales
+    it (``pallas_decoder_layer.py:554,740-743``).  RoPE rotates q
     and the fresh k (rounded to the activation type) before the
     attention and the int8 cache's quantisation; keys below the start
     index are masked; the gated MLP (from the blobs' layout) multiplies
@@ -758,7 +764,7 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     heads): k and v from the blobs' ``kvblob``, query head h reads KV head
     h // rep, the fresh K/V [L, 2, Hkv, D]."""
     adt = x.dtype
-    quant = self_cache.dtype == torch.int8
+    quant = self_cache.dtype in (torch.int8, FP8)
     L, _, _, Hkv, D, S = self_cache.shape
     d = x.shape[-1]
     H = d // D
@@ -853,10 +859,15 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         if rot is not None:
             q, k_f = (apply_rope(t[None], *rot, rope.neox)[0]
                       for t in (q, k_f))
-        if quant:
+        if self_cache.dtype == torch.int8:
             # the integers the cache write would store, kept in fp32
             k_f, v_f = (torch.clamp(round_half_away(
                 t.float() * blobs.kv_oq[layer].float()), -128, 127)
+                for t in (k_f, v_f))
+        elif quant:
+            # the e4m3 values the cache write would store, kept in fp32
+            k_f, v_f = (quantize_cache_values(
+                t, FP8, blobs.kv_oq[layer].float()).float()
                 for t in (k_f, v_f))
         fresh[layer, 0], fresh[layer, 1] = k_f, v_f
         kc, vc = self_cache[layer, 0, 0], self_cache[layer, 0, 1]
@@ -901,6 +912,16 @@ def plain_fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     return x, fresh
 
 
+def library_name(with_cross: bool, self_dtype: torch.dtype) -> str:
+    """The library of csrc/decoder_layer.cu that holds the kernel for a
+    set (Whisper's, with cross-attention, or the decoder-only one) and a
+    self-cache type: the e4m3 instantiations are built apart
+    (``-DMEGA_SELF_E4M3``, :data:`._build.DEFINES`), in parallel with the
+    others, whose machine code they leave as it was."""
+    name = "decoder_layer" if with_cross else "decoder_stack"
+    return name + "_fp8" if self_dtype == FP8 else name
+
+
 class _MegaArgs(ctypes.Structure):
     """The kernel's ``MegaArgs`` (csrc/decoder_layer.cu), field by field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
@@ -913,7 +934,7 @@ class _MegaArgs(ctypes.Structure):
             "n_layer", "d", "n_head", "n_kv_head", "head_dim", "s_self",
             "s_cross", "nq",
             "nflat", "nf", "n_ln", "f_dense", "f_crossdense", "f_fc1",
-            "f_gate", "f_fc2", "with_cross", "cross_int8", "self_int8",
+            "f_gate", "f_fc2", "with_cross", "cross_int8", "self_kind",
             "weight_bf16", "norm_rms", "act", "gated", "parallel",
             "rope_dim", "rope_neox", "write_index", "ring_bytes")]
         + [(n, ctypes.c_int * len(GEMV_STAGES))
@@ -943,10 +964,11 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
     blobs packed without cross-attention, ``gated`` as packed); ``rope``:
     the step's :class:`Rotary`.  Returns (hidden [1, d] before the final
     norm, fresh K/V [L, 2, Hkv, D] in the cache dtype, k rotated); the cache
-    is not written.  On the card: bf16 x, a bf16 or int8 self cache, int8
-    or bf16 panels (or, with cross-attention, int4), head dim 64 (128 too
-    without cross-attention), and one cooperative launch (a refused launch
-    raises; nothing falls back)."""
+    is not written.  On the card: bf16 x, a bf16, int8 or e4m3 self cache,
+    int8 or bf16 panels (or, with cross-attention, int4), head dim 64 (128
+    too without cross-attention), and one cooperative launch of
+    :func:`library_name`'s library (a refused launch raises; nothing falls
+    back)."""
     _check_modes(x, blobs, self_cache, cross_cache, head_dim, tail_kv, act,
                  norm, gated)
     if not x.is_cuda:
@@ -965,13 +987,13 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
                                   f"{HEAD_DIMS} ({HEAD_DIM} with "
                                   f"cross-attention), got {D}")
     if x.dtype != torch.bfloat16 or self_cache.dtype not in (
-            torch.bfloat16, torch.int8):
-        raise TypeError("megakernel takes bf16 activations and a bf16 or "
-                        "int8 self cache")
+            torch.bfloat16, torch.int8, FP8):
+        raise TypeError("megakernel takes bf16 activations and a bf16, "
+                        "int8 or e4m3 self cache")
     if blobs.wblob.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel panels of {blobs.wblob.dtype}: int8 "
                         "or bf16")
-    self_int8 = self_cache.dtype == torch.int8
+    self_kind = cache_kind(self_cache.dtype)
     if with_cross and cross_cache.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"megakernel cross cache dtype {cross_cache.dtype}")
     _, gated, nf = blob_layout(blobs)
@@ -1004,7 +1026,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
             or tuple(tiles.shape) != (L, plan["layer_bytes"] // itemsize)):
         raise ValueError("megakernel blobs need the tiles of this card's "
                          "plan: build them with megakernel_tiles(blobs)")
-    kv_scales = (blobs.kv_oq, blobs.kv_qo) if self_int8 else ()
+    kv_scales = (blobs.kv_oq, blobs.kv_qo) if self_kind else ()
     operands = (self_cache, tiles, *blobs[1:6], *kv_scales) + (
         (cross_cache,) if with_cross else ())
     for t in operands:
@@ -1064,7 +1086,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         blobs.flat_scale.shape[1], nf, blobs.ln_par.shape[1] // 2,
         slots["dense"], slots["crossdense"], slots["fc1"], slots["gate"],
         slots["fc2"], int(with_cross),
-        int(with_cross and cross_cache.dtype == torch.int8), int(self_int8),
+        int(with_cross and cross_cache.dtype == torch.int8), self_kind,
         int(blobs.wblob.dtype == torch.bfloat16), int(norm == "rmsnorm"),
         ACTIVATIONS.index(act), int(gated), int(parallel), rope_dim,
         int(rope.neox) if rope_dim else 0,
@@ -1073,7 +1095,7 @@ def fused_decoder_stack(x, blobs: MegakernelBlobs, self_cache, seq_len,
         ints("piece_c"), float(scale), float(eps), int(int4 is not None),
         int4 or 0)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    lib = _build.load("decoder_layer" if with_cross else "decoder_stack")
+    lib = _build.load(library_name(with_cross, self_cache.dtype))
     _build.check(lib.decoder_megakernel(ctypes.byref(args), stream),
                  "decoder_megakernel (cooperative launch)")
     launches["decoder_megakernel"] += 1

@@ -35,7 +35,9 @@ from typing import Optional
 
 import torch
 
-from .attention import NEG, _mm_f32, quantize_cache_values
+from .attention import (FP8, NEG, _mm_f32, dequantize_cache_values,
+                        is_quantized_cache, masked_values,
+                        quantize_cache_values)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +118,10 @@ def paged_append_kv(pool, k_new, v_new, block_table, write_pos,
     block_table [B, max_blocks] int32
     write_pos   [B] integer tensor (or an int): the token position this
                 write lands at.  An int8 pool quantises with
-                ``kv_orig_quant_scale`` and round-half-away.
+                ``kv_orig_quant_scale`` and round-half-away, an e4m3 pool
+                with the same scale and the saturating cast (the JAX pool
+                casts e4m3 without the scale, ``ops/paged_attention.py``
+                :76-81: a fault of the reference, not copied).
     ``slots``: the :class:`TokenSlots` of these tables and positions, when
     the caller has found them already."""
     pool_l = pool if layer_idx is None else pool[layer_idx]
@@ -193,9 +198,12 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     slot reads block 0, masked), masked positions at -1e30, fp32 scores and
     softmax, probabilities cast to the value dtype before P·V, fp32
     accumulation (a row with no valid key averages every gathered key, as
-    there; its output is of no use).  An int8 pool is dequantised to q's
-    dtype with ``kv_quant_orig_scale``.  MQA/GQA: query head h reads KV
-    head h // (H / Hkv).
+    there; its output is of no use).  An int8 or e4m3 pool is dequantised
+    to q's dtype with ``kv_quant_orig_scale`` (the JAX XLA read casts e4m3
+    without it, ``:131-137``, while its TPU kernel scales it; the port
+    scales it in both); an e4m3 pool's positions past a row's length are
+    left out of P.V (:func:`.attention.masked_values`).  MQA/GQA: query
+    head h reads KV head h // (H / Hkv).
 
     ``beam_indirection`` [Bg, W, S] (B = Bg * W rows grouped by slot, Lq
     1): paged beam search.  Every beam row appends into its own private
@@ -213,8 +221,6 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     n, _, hk, t, _ = pool.shape
     if h % hk:
         raise ValueError(f"{h} query heads over {hk} KV heads")
-    if pool.dtype.is_floating_point and pool.dtype.itemsize == 1:
-        raise NotImplementedError("fp8 KV pools are not ported yet")
     max_blocks = block_table.shape[1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
@@ -222,20 +228,19 @@ def paged_decode_attention(q, pool, block_table, seq_len,
     blocks = pool[table]                     # [B, max_blocks, 2, Hkv, T, D]
     k, v = (blocks[:, :, i].transpose(1, 2).reshape(b, hk, max_blocks * t, d)
             for i in (0, 1))
-    if pool.dtype == torch.int8:
-        if kv_quant_orig_scale is None:
-            raise ValueError("an int8 pool needs kv_quant_orig_scale")
-        k = (k.float() * kv_quant_orig_scale).to(q.dtype)
-        v = (v.float() * kv_quant_orig_scale).to(q.dtype)
-    else:
-        k, v = k.to(q.dtype), v.to(q.dtype)
+    if is_quantized_cache(pool.dtype) and kv_quant_orig_scale is None:
+        raise ValueError(f"a {pool.dtype} pool needs kv_quant_orig_scale")
+    k, v = (dequantize_cache_values(x, kv_quant_orig_scale, q.dtype)
+            for x in (k, v))
+    kpos = torch.arange(max_blocks * t, device=q.device)[None, None, None, :]
+    seq = torch.as_tensor(seq_len, device=q.device).reshape(-1, 1, 1, 1)
+    if pool.dtype == FP8:                   # [B, 1, 1, S] over [B, Hkv, S, D]
+        v = masked_values(v, (kpos < seq).transpose(2, 3))
     if beam_indirection is not None:
         return _beam_read(q, k, v, seq_len, scale, beam_indirection)
     if hk != h:
         k, v = (x.repeat_interleave(h // hk, dim=1) for x in (k, v))
     scores = _mm_f32("bhqd,bhkd->bhqk", q, k) * scale
-    kpos = torch.arange(max_blocks * t, device=q.device)[None, None, None, :]
-    seq = torch.as_tensor(seq_len, device=q.device).reshape(-1, 1, 1, 1)
     valid = kpos < seq
     if lq > 1:
         qpos = torch.arange(lq, device=q.device)[None, None, :, None]

@@ -229,11 +229,19 @@ def test_beam_attention_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):      # GQA: 4 query heads
         pdec.fused_decode_attention(cache, 0, q.repeat(1, 2, 1, 1), 4, 0.25,
                                     fresh_kv=fresh, beam_indirection=ind)
+    # an fp8 (e4m3) cache is ported: the beam read of e4m3 values equals
+    # the read of the same values in fp32
     fp8 = torch.float8_e4m3fn
-    with pytest.raises(NotImplementedError):      # fp8 cache (A9)
-        pdec.fused_decode_attention(cache.to(fp8), 0, q, 4, 0.25,
-                                    fresh_kv=tuple(t.to(fp8) for t in fresh),
-                                    beam_indirection=ind)
+    g = torch.Generator().manual_seed(0)
+    c8, f8 = (torch.randn(t.shape, generator=g).to(fp8)
+              for t in (cache, fresh[0]))
+    out = pdec.fused_decode_attention(c8, 0, q + 1, 4, 0.25,
+                                      kv_quant_orig_scale=torch.tensor(1.0),
+                                      fresh_kv=(f8, f8), beam_indirection=ind)
+    ref = pdec.fused_decode_attention(c8.float(), 0, q + 1, 4, 0.25,
+                                      fresh_kv=(f8.float(),) * 2,
+                                      beam_indirection=ind)
+    assert torch.isfinite(out).all() and torch.equal(out, ref)
 
 
 # -- (c) the Whisper beam pipeline, token-exact ----------------------------

@@ -112,6 +112,67 @@ def _rel(out, ref):
     return float((out.float() - ref).abs().max() / ref.abs().max())
 
 
+F8 = torch.float8_e4m3fn
+
+
+def _kv(g, dev, shape, dtype):
+    """Seeded cache values: int8 codes, e4m3 values of N(0, 1) at the scale
+    4 / 448 (up to +-448), or bf16 N(0, 1)."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+    x = torch.randn(shape, generator=g, device=dev)
+    if dtype == F8:
+        return (x * 112).clamp(-448, 448).to(F8)
+    return x.bfloat16()
+
+
+def _ks(dtype, dev):
+    """The dequant-scale kwargs of a cache of ``dtype`` made by _kv."""
+    step = {torch.int8: 1 / 40.0, F8: 4 / 448.0}.get(dtype)
+    return ({} if step is None else
+            dict(kv_quant_orig_scale=torch.tensor(step, device=dev)))
+
+
+def _f32(t):
+    """A cache operand for the fp32 plain version: quantised ones as they
+    are (the plain version dequantises them), float ones in fp32."""
+    return t if t.element_size() == 1 else t.float()
+
+
+def _counter(name, dtype):
+    return name + "_e4m3" if dtype == F8 else name
+
+
+def _nan_past(cache, cols):
+    """A seq-minor e4m3 cache [L, B, 2, H, D, S] with each row b's columns
+    at and past cols[b] the NaN byte 0x7F, in place (other dtypes as they
+    are): no kernel may let them into a result."""
+    if cache.dtype == F8:
+        pos = torch.arange(cache.shape[-1], device=cache.device)
+        cols = torch.as_tensor(cols, device=cache.device).reshape(-1, 1)
+        cache.view(torch.uint8).masked_fill_(
+            (pos[None, :] >= cols)[None, :, None, None, None, :], 0x7F)
+    return cache
+
+
+def _nan_unread(pool, table, seq):
+    """A token-major e4m3 pool [L, N, 2, Hkv, T, D] with every token slot
+    that no row's length covers through its table the NaN byte, in place
+    (other dtypes as they are)."""
+    if pool.dtype == F8:
+        N, T, MB = pool.shape[1], pool.shape[4], table.shape[1]
+        pos = torch.arange(MB * T, device=pool.device)
+        blk = table.long().to(pool.device)[:, pos // T]
+        live = (pos[None, :] < seq.long().to(pool.device)[:, None]) & (
+            blk >= 0)
+        covered = torch.zeros((N, T), dtype=torch.bool, device=pool.device)
+        covered[blk[live], (pos % T)[None, :].expand_as(blk)[live]] = True
+        pool.view(torch.uint8).masked_fill_(
+            ~covered[None, :, None, None, :, None], 0x7F)
+    return pool
+
+
 @pytest.mark.parametrize("kind", ["int8_cross_proj", "bf16_fresh_start"])
 def test_decode_kernel_matches_plain(dev, kind):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -266,6 +327,13 @@ _SPLIT_CASES = {
                              [0, 0, 0], True, 128),
     "int8_300_d40": (torch.int8, 300, [300, 151, 152], [0, 150, 0], False,
                      40),
+    # the e4m3 cache (its columns past each row's length the NaN byte): the
+    # cross-like edges, the fp8 self call at the cache's edges, starts
+    "e4m3_1500_edges": (F8, 1500, [1, 4, 255, 256, 257, 1499, 1500], None,
+                        False, 64),
+    "e4m3_448_self_edges": (F8, 448, [447, 224, 223, 0, 43], None, True, 64),
+    "e4m3_1500_starts_fresh": (F8, 1500, [700, 1500, 0, 300, 1500],
+                               [260, 300, 0, 400, 0], True, 64),
 }
 
 
@@ -285,6 +353,10 @@ def test_decode_split_kernel_equals_plain_split(dev, case):
                                   device=dev, dtype=torch.int8)
                     for _ in range(2))
         kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    elif dtype == F8:
+        cache = _nan_past(_kv(g, dev, (2, B, 2, H, D, S), F8), lens)
+        fkv = tuple(_kv(g, dev, (B, H, D, 1), F8) for _ in range(2))
+        kw = _ks(F8, dev)
     else:
         cache = torch.randn(2, B, 2, H, D, S, generator=g,
                             device=dev).bfloat16() * 2
@@ -300,12 +372,13 @@ def test_decode_split_kernel_equals_plain_split(dev, case):
     assert splits == {1500: 6, 448: 2, 2600: 8, 300: 2}[S]
     before = dict(da.launches)
     out = da.fused_decode_attention(cache, 1, q, seq, 0.125, **kw)
-    name = "decode_attention_" + ("int8" if dtype == torch.int8 else "bf16")
+    name = "decode_attention_" + {torch.int8: "int8", F8: "e4m3"}.get(
+        dtype, "bf16")
     assert da.launches[name] == before[name] + 1
     assert sum(da.launches.values()) == sum(before.values()) + 1
     split = da.plain_split_decode_attention(cache, 1, q, seq, 0.125,
                                             splits=splits, **kw)
-    f32 = (lambda t: t) if dtype == torch.int8 else (lambda t: t.float())
+    f32 = _f32
     kw32 = {k: (tuple(f32(t) for t in v) if k == "fresh_kv" else v)
             for k, v in kw.items()}
     ref = da.plain_decode_attention(f32(cache), 1, q.float(), seq, 0.125,
@@ -338,12 +411,15 @@ def _gathered(cache, ind):
     idx = torch.nn.functional.pad(ind.long(), (0, S - s_ind))
     idx = (idx + torch.arange(g, device=ind.device)[:, None, None] * bw)
     idx = idx.reshape(1, B, 1, 1, 1, S).expand(L, B, 2, H, D, S)
+    if cache.dtype == F8:             # gathered as its bytes
+        return torch.gather(cache.view(torch.uint8), 1, idx).view(F8)
     return torch.gather(cache, 1, idx)
 
 
 @pytest.mark.parametrize("cache_dtype,groups",
                          [(torch.bfloat16, 1), (torch.int8, 1),
-                          (torch.bfloat16, 2), (torch.int8, 2)])
+                          (torch.bfloat16, 2), (torch.int8, 2), (F8, 1),
+                          (F8, 2)])
 def test_beam_kernel_matches_plain(dev, cache_dtype, groups):
     """Beam width 5, a table whose rows change from position to position,
     group-uniform lengths (the second group longer, with a start index):
@@ -360,6 +436,10 @@ def test_beam_kernel_matches_plain(dev, cache_dtype, groups):
                                     device=dev, dtype=torch.int8)
                       for _ in range(2))
         kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    elif cache_dtype == F8:
+        cache = _kv(g, dev, (L, B, 2, H, D, S), F8)
+        fresh = tuple(_kv(g, dev, (B, H, D, 1), F8) for _ in range(2))
+        kw = _ks(F8, dev)
     else:
         cache = torch.randn(L, B, 2, H, D, S, generator=g,
                             device=dev).bfloat16()
@@ -369,15 +449,17 @@ def test_beam_kernel_matches_plain(dev, cache_dtype, groups):
     ind = torch.randint(0, bw, (groups, bw, S), generator=g, device=dev,
                         dtype=torch.int32)
     seq = torch.tensor([44, 300][:groups], device=dev).repeat_interleave(bw)
+    _nan_past(cache, seq - 1)
     if groups == 2:
         kw["start_index"] = torch.tensor([0, 9], device=dev) \
             .repeat_interleave(bw)
-    before = da.launches["beam_decode_attention"]
+    name = _counter("beam_decode_attention", cache_dtype)
+    before = da.launches[name]
     out = da.fused_decode_attention(cache, 1, q, seq, D ** -0.5,
                                     fresh_kv=fresh, beam_indirection=ind,
                                     **kw)
-    assert da.launches["beam_decode_attention"] == before + 1
-    f32 = (lambda t: t) if cache_dtype == torch.int8 else (lambda t: t.float())
+    assert da.launches[name] == before + 1
+    f32 = _f32
     fresh32 = tuple(f32(t) for t in fresh)
     ref = da.plain_beam_decode_attention(
         f32(cache), 1, q.float(), seq, D ** -0.5, fresh_kv=fresh32,
@@ -390,6 +472,7 @@ def test_beam_kernel_matches_plain(dev, cache_dtype, groups):
         fresh_kv=fresh32, **kw)
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (B, H, 1, D)
+    assert bool(torch.isfinite(out).all())
     assert _rel(out, ref) < 1e-2
     assert _rel(out, ref16) < 2e-2
     assert _rel(out, ref_gather) < 1e-2
@@ -442,11 +525,13 @@ def test_beam_kernel_refuses_what_it_does_not_take(dev):
     fresh = (torch.zeros(bw, H, D, 1, device=dev).bfloat16(),) * 2
     seq = torch.full((bw,), 4, dtype=torch.int32, device=dev)
     ind = torch.zeros(1, bw, S, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):       # fp8 cache
-        fp8 = torch.float8_e4m3fn
-        da.fused_decode_attention(cache.to(fp8), 0, q, seq, 0.125,
-                                  fresh_kv=tuple(t.to(fp8) for t in fresh),
-                                  beam_indirection=ind)
+    # an fp8 (e4m3) cache is taken (test_beam_kernel_matches_plain)
+    before = da.launches["beam_decode_attention_e4m3"]
+    da.fused_decode_attention(cache.to(F8), 0, q, seq, 0.125,
+                              fresh_kv=tuple(t.to(F8) for t in fresh),
+                              beam_indirection=ind,
+                              kv_quant_orig_scale=torch.ones(1, device=dev))
+    assert da.launches["beam_decode_attention_e4m3"] == before + 1
     with pytest.raises(NotImplementedError):       # GQA: 4 query heads
         da.fused_decode_attention(cache, 0, q.repeat(1, 2, 1, 1), seq, 0.125,
                                   fresh_kv=fresh, beam_indirection=ind)
@@ -928,16 +1013,21 @@ def test_megakernel_hundred_launches_in_a_row(dev):
     assert _rel(outs[0][0], hid_p) < 3e-2
 
 
-def _kv8_case(dev, n_layer, seed):
+def _kv8_case(dev, n_layer, seed, fp8=False):
     """The megakernel's int8 self mode: _mk_case's blobs with per-layer
     self-KV steps (their fresh K/V reach about 4: steps 4 / 127), the
     self cache the bf16 case's values quantised at those steps, as a kv8
-    cache of the same K/V holds them."""
+    cache of the same K/V holds them.  With ``fp8`` its e4m3 mode: the
+    scale 4 / 448, the cache the same values cast to e4m3."""
     blobs, x, cache, cross, cscale = _mk_case(dev, n_layer, torch.int8,
                                               seed)
-    step = torch.full((n_layer,), 4 / 127, device=dev)
-    self8 = torch.clamp(torch.round(cache.float() * (127 / 4)), -128,
-                        127).to(torch.int8)
+    if fp8:
+        step = torch.full((n_layer,), 4 / 448, device=dev)
+        self8 = (cache.float() * 112).clamp(-448, 448).to(F8)
+    else:
+        step = torch.full((n_layer,), 4 / 127, device=dev)
+        self8 = torch.clamp(torch.round(cache.float() * (127 / 4)), -128,
+                            127).to(torch.int8)
     return (blobs._replace(kv_oq=1 / step, kv_qo=step), x, self8, cross,
             cscale)
 
@@ -991,9 +1081,55 @@ def test_megakernel_int8_self_two_calls_bit_equal(dev):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("seq", [1, 44, 448])
+@pytest.mark.parametrize("n_layer,tol", [(1, 1e-2), (2, 2e-2), (32, 5e-2)])
+def test_megakernel_e4m3_self_matches_plain(dev, n_layer, tol, seq):
+    """The e4m3 self cache (the ``decoder_layer_fp8`` library) as the int8
+    one: its columns past the valid ones the NaN byte; on one layer the
+    fresh e4m3 K/V equal to the plain version's byte for byte (the same
+    bf16 values through the same saturating cast); after it a layer's
+    input differs from the plain version's by bf16 roundings, which move
+    a value across an e4m3 rounding boundary (a step is 1/8 of a value,
+    int8's 1/127 of the largest): on 2 layers within one step on under 5%
+    of the values, the hidden state within the bf16 mode's gates; on 32
+    layers the fresh K/V within the bf16 mode's gate plus one step at the
+    top of the range (32 of 448), the hidden state, which such flips
+    feed, within twice its gate; two calls bit-equal."""
+    blobs, x, self8, cross, cscale = _kv8_case(dev, n_layer, seed=seq,
+                                               fp8=True)
+    _nan_past(self8, [max(seq - 1, 0)])
+    seq_t = torch.tensor([seq], dtype=torch.int32, device=dev)
+    before = mk.launches["decoder_megakernel"]
+    hid, fresh = mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                                        cross_cache=cross,
+                                        cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before + 1
+    hid_p, fresh_p = mk.plain_fused_decoder_stack(
+        x, blobs, self8, seq_t.cpu(), 0.125, cross, cscale)
+    again = mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                                   cross_cache=cross, cross_scale=cscale)
+    torch.cuda.synchronize()
+    assert fresh.dtype == fresh_p.dtype == F8
+    assert bool(torch.isfinite(hid).all())
+    assert _rel(hid, hid_p) < (tol if n_layer < 32 else 2 * tol)
+    assert torch.equal(again[0], hid)
+    assert torch.equal(again[1].view(torch.uint8), fresh.view(torch.uint8))
+    f, fp = fresh.float(), fresh_p.float()
+    if n_layer == 1:
+        assert torch.equal(fresh.view(torch.uint8), fresh_p.view(torch.uint8))
+    elif n_layer == 2:
+        assert bool(((f - fp).abs()
+                     <= torch.maximum(f.abs(), fp.abs()) / 8).all())
+        assert float((f != fp).float().mean()) < 0.05
+    else:
+        assert _rel(f, fp) < tol + 32 / 448
+    assert float(f.abs().max()) > 64            # the scale's range is used
+
+
 def test_megakernel_int8_self_refuses_what_it_does_not_take(dev):
     """An int8 self cache of S not a multiple of 4 (the kernel reads 4
-    columns a word), and an fp8 one, raise before a launch."""
+    columns a word) raises before a launch, and so does an e4m3 cross
+    cache; an e4m3 self cache is taken (its own library)."""
     blobs, x, self8, cross, cscale = _kv8_case(dev, 1, seed=2)
     seq_t = torch.tensor([44], dtype=torch.int32, device=dev)
     before = mk.launches["decoder_megakernel"]
@@ -1002,10 +1138,12 @@ def test_megakernel_int8_self_refuses_what_it_does_not_take(dev):
                                seq_t, 0.125, cross_cache=cross,
                                cross_scale=cscale)
     with pytest.raises(NotImplementedError):
-        mk.fused_decoder_stack(x, blobs, self8.to(torch.float8_e4m3fn),
-                               seq_t, 0.125, cross_cache=cross,
-                               cross_scale=cscale)
+        mk.fused_decoder_stack(x, blobs, self8, seq_t, 0.125,
+                               cross_cache=cross.to(F8), cross_scale=cscale)
     assert mk.launches["decoder_megakernel"] == before
+    mk.fused_decoder_stack(x, blobs, self8.float().to(F8), seq_t, 0.125,
+                           cross_cache=cross, cross_scale=cscale)
+    assert mk.launches["decoder_megakernel"] == before + 1
 
 
 def test_megakernel_refuses_blobs_without_tiles(dev):
@@ -1114,9 +1252,8 @@ def _dec_run(dev, mode, blobs, n_layer, d, self_dtype, seq, start, seed,
     g = torch.Generator(device=dev).manual_seed(seed)
     H = kv_heads or d // head_dim
     x = torch.randn(1, d, generator=g, device=dev).bfloat16()
-    if self_dtype == torch.int8:
-        cache = torch.randint(-127, 128, (n_layer, 1, 2, H, head_dim, S),
-                              generator=g, device=dev, dtype=torch.int8)
+    if self_dtype in (torch.int8, F8):
+        cache = _kv(g, dev, (n_layer, 1, 2, H, head_dim, S), self_dtype)
     else:
         cache = torch.randn(n_layer, 1, 2, H, head_dim, S, generator=g,
                             device=dev).bfloat16()
@@ -1182,6 +1319,27 @@ def test_decoder_only_megakernel_int8_self(dev, mode, weight):
     assert _rel(hid, hid_p) < 1e-2
     again = _dec_run(dev, mode, blobs, 1, 256, torch.int8, 70, 4, seed=5)
     assert torch.equal(again[0], hid) and torch.equal(again[1], fresh)
+
+
+@pytest.mark.parametrize("weight", ["int8", "bf16"])
+@pytest.mark.parametrize("mode", ["llama", "gptj"])
+def test_decoder_only_megakernel_e4m3_self(dev, mode, weight):
+    """An e4m3 self cache (the ``decoder_stack_fp8`` library) under the
+    decoder-only modes: the rotated fresh K cast in the kernel; on one
+    layer the e4m3 fresh K/V within one e4m3 step of the plain version's
+    (RoPE's cosf against torch's), nearly all equal, the hidden state
+    within 1e-2; two calls bit-equal."""
+    blobs = _dec_blobs(dev, mode, 1, 256, weight, seed=3, kv_step=4 / 448)
+    hid, fresh, hid_p, fresh_p = _dec_run(dev, mode, blobs, 1, 256, F8, 70,
+                                          4, seed=5)
+    assert fresh.dtype == F8
+    f, fp = fresh.float(), fresh_p.float()
+    assert bool(((f - fp).abs() <= fp.abs() / 8).all())
+    assert float((f == fp).float().mean()) > 0.95
+    assert _rel(hid, hid_p) < 1e-2
+    again = _dec_run(dev, mode, blobs, 1, 256, F8, 70, 4, seed=5)
+    assert torch.equal(again[0], hid)
+    assert torch.equal(again[1].view(torch.uint8), fresh.view(torch.uint8))
 
 
 @pytest.mark.parametrize("S,seq,start", [(2088, 2081, 136),
@@ -1437,7 +1595,7 @@ _GQA_CHUNK = da.gqa_slice_width(2063, da.gqa_splits(2063))
 
 
 @pytest.mark.parametrize("hkv", [1, 2, 4])
-@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16, F8])
 def test_gqa_kernel_matches_plain(dev, cache_dtype, hkv):
     """16 query heads over 1, 2 or 4 KV heads, S = 2063 (not a multiple of
     4), per-row lengths at the slice edges (nothing cached, one slice and
@@ -1454,6 +1612,10 @@ def test_gqa_kernel_matches_plain(dev, cache_dtype, hkv):
                                     device=dev, dtype=torch.int8)
                       for _ in range(2))
         ks = torch.tensor(1 / 40.0, device=dev)
+    elif cache_dtype == F8:
+        cache = _kv(g, dev, (L, B, 2, hkv, D, S), F8)
+        fresh = tuple(_kv(g, dev, (B, hkv, D, 1), F8) for _ in range(2))
+        ks = _ks(F8, dev)["kv_quant_orig_scale"]
     else:
         cache = torch.randn(L, B, 2, hkv, D, S, generator=g,
                             device=dev).bfloat16()
@@ -1465,11 +1627,13 @@ def test_gqa_kernel_matches_plain(dev, cache_dtype, hkv):
     start = torch.tensor([0, 3, min(ch, S - 40), 5], dtype=torch.int32,
                          device=dev)
     kw = dict(kv_quant_orig_scale=ks, start_index=start)
-    before = da.launches["gqa_decode_attention"]
+    _nan_past(cache, seq - 1)
+    name = _counter("gqa_decode_attention", cache_dtype)
+    before = da.launches[name]
     out = da.fused_decode_attention(cache, 1, q, seq, 0.125, fresh_kv=fresh,
                                     **kw)
-    assert da.launches["gqa_decode_attention"] == before + 1
-    f32 = (lambda t: t) if cache_dtype == torch.int8 else (lambda t: t.float())
+    assert da.launches[name] == before + 1
+    f32 = _f32
     ref = da.plain_gqa_decode_attention(f32(cache), 1, q.float(), seq, 0.125,
                                         fresh_kv=tuple(map(f32, fresh)), **kw)
     ref16 = da.plain_gqa_decode_attention(cache, 1, q, seq, 0.125,
@@ -1656,18 +1820,19 @@ def test_gqa_kernel_ignores_non_finite_masked_columns(dev):
 
 
 def test_gqa_kernel_refuses_what_it_does_not_take(dev):
-    """fp8 caches and the K-step tail raise instead of falling back; the
-    grouped mode needs the fresh K/V and takes no out-projection, as the
-    JAX dispatch asserts."""
+    """The K-step tail raises instead of falling back; the grouped mode
+    needs the fresh K/V and takes no out-projection, as the JAX dispatch
+    asserts.  An fp8 (e4m3) cache is taken (test_gqa_kernel_matches_plain):
+    one launch of its e4m3 mode."""
     q = torch.zeros(2, 4, 1, 64, device=dev).bfloat16()
     cache = torch.zeros(1, 2, 2, 1, 64, 16, device=dev).bfloat16()
     fresh = (torch.zeros(2, 1, 64, 1, device=dev).bfloat16(),) * 2
     seq = torch.tensor([3, 5], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        da.fused_decode_attention(cache.to(torch.float8_e4m3fn), 0, q, seq,
-                                  0.125, fresh_kv=tuple(
-                                      t.to(torch.float8_e4m3fn)
-                                      for t in fresh))
+    before = da.launches["gqa_decode_attention_e4m3"]
+    da.fused_decode_attention(cache.to(F8), 0, q, seq, 0.125, fresh_kv=tuple(
+        t.to(F8) for t in fresh), kv_quant_orig_scale=torch.ones(
+            1, device=dev))
+    assert da.launches["gqa_decode_attention_e4m3"] == before + 1
     with pytest.raises(NotImplementedError):
         da.fused_decode_attention(cache, 0, q, seq, 0.125, fresh_kv=fresh,
                                   tail_kv=(cache, 0))
@@ -1691,6 +1856,8 @@ def _paged_inputs(g, dev, hkv, rep, D, T, seq, pool_dtype, L=2, N=64):
         pool = torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
         kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    elif pool_dtype == F8:
+        pool, kw = _kv(g, dev, shape, F8), _ks(F8, dev)
     else:
         pool = torch.randn(shape, generator=g, device=dev).bfloat16()
         kw = {}
@@ -1708,7 +1875,7 @@ def _paged_inputs(g, dev, hkv, rep, D, T, seq, pool_dtype, L=2, N=64):
 
 
 @pytest.mark.parametrize("shape", ["serve", "mqa", "gqa"])
-@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16, F8])
 def test_paged_kernel_matches_plain(dev, pool_dtype, shape):
     """Serve shapes (16 KV heads of 64, T 32), MQA (one KV head under 16
     query heads of 128, T 32) and GQA (4 KV heads x 4, T 16); lengths 0,
@@ -1721,11 +1888,13 @@ def test_paged_kernel_matches_plain(dev, pool_dtype, shape):
     seq = [0, 1, T - 1, T, T + 1, 2 * T + 5, 9 * T]
     pool, q, table, seq_t, kw = _paged_inputs(g, dev, hkv, rep, D, T, seq,
                                               pool_dtype)
-    before = da.launches["paged_decode_attention"]
+    _nan_unread(pool, table, seq_t)
+    name = _counter("paged_decode_attention", pool_dtype)
+    before = da.launches[name]
     out = da.fused_paged_decode_attention(pool, 1, q, table, seq_t, 0.125,
                                           **kw)
-    assert da.launches["paged_decode_attention"] == before + 1
-    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    assert da.launches[name] == before + 1
+    f32 = _f32
     ref = da.plain_paged_decode_attention(f32(pool), 1, q.float(), table,
                                           seq_t, 0.125, **kw)
     ref16 = da.plain_paged_decode_attention(pool, 1, q, table, seq_t, 0.125,
@@ -1950,16 +2119,16 @@ def test_paged_step_does_not_wait_for_the_device(dev):
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(dev):
-    """fp8 pools, non-bf16 q, float32 pools, head dims that are not a
-    multiple of 16, a table on another device, an int8 pool without its
-    scale and several query tokens raise instead of falling back."""
+    """Non-bf16 q, float32 pools, head dims that are not a multiple of 16,
+    a table on another device, an int8 or e4m3 pool without its scale and
+    several query tokens raise instead of falling back."""
     pool = torch.zeros(1, 4, 2, 1, 8, 64, device=dev).bfloat16()
     q = torch.zeros(2, 4, 1, 64, device=dev).bfloat16()
     table = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=dev)
     seq = torch.tensor([3, 5], dtype=torch.int32, device=dev)
     fpd = da.fused_paged_decode_attention
-    with pytest.raises(NotImplementedError):
-        fpd(pool.to(torch.float8_e4m3fn), 0, q, table, seq, 0.125)
+    with pytest.raises(ValueError):
+        fpd(pool.to(F8), 0, q, table, seq, 0.125)
     with pytest.raises(TypeError):
         fpd(pool, 0, q.float(), table, seq, 0.125)
     with pytest.raises(TypeError):
@@ -2783,7 +2952,7 @@ def test_whisper_sampling_repeats_with_a_seed(dev, whisper_2_layers,
 # -- the paged kernel's window entry and the dense serving tick --------------
 
 @pytest.mark.parametrize("shape", ["serve", "mqa", "gqa"])
-@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16, F8])
 def test_paged_window_kernel_matches_plain(dev, pool_dtype, shape):
     """The window entry (mixed admission) at the serve shape (16 KV heads
     of 64, T 32), MQA (one KV head under 16 query heads of 128: 16 tiles
@@ -2806,11 +2975,13 @@ def test_paged_window_kernel_matches_plain(dev, pool_dtype, shape):
                     device=dev).bfloat16()
     seq_t = torch.tensor(seq, dtype=torch.int32, device=dev)
     off_t = torch.tensor(off, dtype=torch.int32, device=dev)
-    before = da.launches["paged_window_attention"]
+    _nan_unread(pool, table, seq_t)
+    name = _counter("paged_window_attention", pool_dtype)
+    before = da.launches[name]
     out = da.fused_paged_window_attention(pool, 1, q, table, seq_t, off_t,
                                           0.125, **kw)
-    assert da.launches["paged_window_attention"] == before + 1
-    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    assert da.launches[name] == before + 1
+    f32 = _f32
     ref = da.plain_paged_window_attention(f32(pool), 1, q.float(), table,
                                           seq_t, off_t, 0.125, **kw)
     ref16 = da.plain_paged_window_attention(pool, 1, q, table, seq_t, off_t,
@@ -2907,6 +3078,8 @@ def _paged_beam_inputs(g, dev, pool_dtype, groups, bw, H, D, T, seqs, N=96):
         pool = torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
         kw = dict(kv_quant_orig_scale=torch.tensor(1 / 40.0, device=dev))
+    elif pool_dtype == F8:
+        pool, kw = _kv(g, dev, shape, F8), _ks(F8, dev)
     else:
         pool = torch.randn(shape, generator=g, device=dev).bfloat16()
         kw = {}
@@ -2934,7 +3107,7 @@ def _paged_beam_inputs(g, dev, pool_dtype, groups, bw, H, D, T, seqs, N=96):
 @pytest.mark.parametrize("T,seqs", [(32, [61, 80, 0, 33, 1, 64]),
                                     (16, [5, 16, 17, 47, 150])])
 @pytest.mark.parametrize("bw", [3, 4])
-@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", [torch.int8, torch.bfloat16, F8])
 def test_paged_beam_kernel_matches_plain(dev, pool_dtype, bw, T, seqs):
     """The paged kernel's beam entry (beams over the pool) against its
     plain version: 16 heads of 64 (heads of 128 at T 16), beams of 3 and
@@ -2948,11 +3121,13 @@ def test_paged_beam_kernel_matches_plain(dev, pool_dtype, bw, T, seqs):
     g = torch.Generator(device=dev).manual_seed(31)
     pool, q, table, seq, ind, kw = _paged_beam_inputs(
         g, dev, pool_dtype, len(seqs), bw, H, D, T, seqs)
-    before = da.launches["paged_beam_attention"]
+    _nan_unread(pool, table, seq)
+    name = _counter("paged_beam_attention", pool_dtype)
+    before = da.launches[name]
     out = da.fused_paged_beam_attention(pool, 1, q, table, seq, ind, 0.125,
                                         **kw)
-    assert da.launches["paged_beam_attention"] == before + 1
-    f32 = (lambda t: t) if pool_dtype == torch.int8 else (lambda t: t.float())
+    assert da.launches[name] == before + 1
+    f32 = _f32
     ref = da.plain_paged_beam_attention(f32(pool), 1, q.float(), table, seq,
                                         ind, 0.125, **kw)
     ref16 = da.plain_paged_beam_attention(pool, 1, q, table, seq, ind, 0.125,

@@ -362,18 +362,19 @@ def test_chip_smoke_decoder_path_on_cpu():
     dict(quant_mode=QuantMode.use_weight_only().set_fp8_kv_cache())],
     ids=lambda o: next(iter(o)))
 def test_unported_decoder_options_raise(option):
-    """fp8 still raises.  Bloom's and ChatGLM-6B's options are ported (held
+    """An fp8 (e4m3) KV cache is ported (held against the JAX package in
+    tests/test_torch_fp8_serving.py): it builds, its cache is e4m3, and it
+    runs as the options below do.  Bloom's and ChatGLM-6B's options are
+    ported (held
     against the JAX package in tests/test_torch_families_b.py): on the MQA
     model each builds and a left-padded prefill and one step give finite
     logits (GLM's positions with the true prompt lengths).  RoPE, RMSNorm,
     the gated MLP, the parallel residual and a separate LM head are ported
     (tests/test_torch_families.py)."""
     config = DecoderConfig(**{**MQA, **option}, dtype="float32")
-    if config.quant_mode.has_fp8_kv_cache():
-        with pytest.raises(NotImplementedError):
-            DecoderLMHead(config)
-        return
     model = DecoderLMHead(config)
+    if config.quant_mode.has_fp8_kv_cache():
+        assert model.new_kv_cache(1, 8).dtype == torch.float8_e4m3fn
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in model.parameters():

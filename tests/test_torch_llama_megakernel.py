@@ -174,17 +174,18 @@ def test_packer_bit_equal_to_jax(mode, dtype):
 
 # -- the plain megakernel against the JAX kernel --------------------------------
 
-def _against_jax(mode, s_self, seq, start, self_int8=False):
+def _against_jax(mode, s_self, seq, start, self_int8=False, self_fp8=False):
     """(hidden, JAX hidden, fresh, JAX fresh) of one step on seeded
-    inputs."""
+    inputs (an e4m3 cache and fresh K/V as float32 values)."""
     from eddie_wang_hackathon2023_tpu.ops.pallas_decoder_layer import (
         fused_decoder_stack as j_fds, make_rope_matrix,
         pack_decoder_blobs as j_pack)
     head_dim, _, call, rot, _ = MODES[mode]
     st, kw = _mode_state(mode)
     h = D // head_dim
-    if self_int8:
-        steps = np.asarray([[0.011], [0.013]], np.float32)
+    if self_int8 or self_fp8:
+        steps = np.asarray([[0.011], [0.013]] if self_int8
+                           else [[0.02], [0.025]], np.float32)
         st = {**st, "attention.kv_orig_quant_scale": 1 / steps,
               "attention.kv_quant_orig_scale": steps}
     rs = np.random.RandomState(seq)
@@ -192,6 +193,10 @@ def _against_jax(mode, s_self, seq, start, self_int8=False):
     if self_int8:
         cache = rs.randint(-128, 128, (L, 1, 2, h, head_dim, s_self)).astype(
             np.int8)
+    elif self_fp8:
+        cache = torch.from_numpy((rs.randn(L, 1, 2, h, head_dim, s_self)
+                                  * 30).astype(np.float32)).to(
+            torch.float8_e4m3fn).float().numpy()
     else:
         cache = (rs.randn(L, 1, 2, h, head_dim, s_self) * 0.5).astype(
             np.float32)
@@ -202,19 +207,28 @@ def _against_jax(mode, s_self, seq, start, self_int8=False):
         jrope = make_rope_matrix(jnp.asarray(pos), head_dim, rot[0], 10000.0,
                                  rot[1], 128 // head_dim)[None]
         prope = mk.Rotary(widx, rot[0], 10000.0, rot[1])
-    hj, fj = j_fds(jnp.asarray(x), j_pack(st, **kw), jnp.asarray(cache),
+    jcache = jnp.asarray(cache)
+    pcache = torch.from_numpy(cache)
+    if self_fp8:
+        jcache = jcache.astype(jnp.float8_e4m3fn)
+        pcache = pcache.to(torch.float8_e4m3fn)
+    hj, fj = j_fds(jnp.asarray(x), j_pack(st, **kw), jcache,
                    jnp.asarray([seq], jnp.int32), head_dim ** -0.5,
                    start_index=jnp.asarray([start], jnp.int32),
                    head_dim=head_dim, rope_mat=jrope, interpret=True, **call)
     mk.reset_launches()
     hp, fp = mk.fused_decoder_stack(
         torch.from_numpy(x), mk.pack_decoder_blobs(st, **kw),
-        torch.from_numpy(cache), torch.tensor([seq], dtype=torch.int32),
+        pcache, torch.tensor([seq], dtype=torch.int32),
         head_dim ** -0.5, start_index=torch.tensor([start],
                                                    dtype=torch.int32),
         head_dim=head_dim, rope=prope, **call)
     assert mk.launches["decoder_megakernel"] == 0       # plain on the CPU
     assert hp.shape == (1, D) and fp.shape == (L, 2, h, head_dim)
+    if self_fp8:
+        assert fp.dtype == torch.float8_e4m3fn
+        return (hp.numpy(), np.asarray(hj), fp.float().numpy(),
+                np.asarray(fj.astype(jnp.float32)))
     return hp.numpy(), np.asarray(hj), fp.numpy(), np.asarray(fj)
 
 
@@ -589,11 +603,24 @@ def test_decoder_only_tiles_round_trip(gated, itemsize):
             assert not got[..., cols:].any()
 
 
+@pytest.mark.parametrize("mode", ["llama_woq8", "gptj"])
+def test_plain_matches_jax_kernel_fp8_self(mode):
+    """An e4m3 self cache with per-layer scales (the JAX kernel's
+    ``self_fp8``): the fresh K/V within one e4m3 step of JAX's (the
+    rotated k by a matrix product on the JAX side), nearly all equal, the
+    hidden state within the float tolerance."""
+    hid, hid_j, fresh, fresh_j = _against_jax(mode, 160, 70, 4,
+                                              self_fp8=True)
+    assert np.isfinite(fresh).all() and np.abs(fresh).max() > 32
+    close = np.abs(fresh - fresh_j) <= np.abs(fresh_j) / 8
+    assert close.all() and (fresh == fresh_j).mean() > 0.99
+    np.testing.assert_allclose(hid, hid_j, rtol=RTOL, atol=ATOL)
+
+
 # -- what stays refused ---------------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["batch2", "tail", "int4_panels",
-                                  "group_scales", "fp8_self_kv",
-                                  "gated_cross"])
+                                  "group_scales", "gated_cross"])
 def test_modes_still_outside_the_port_raise(mode):
     st, kw = _mode_state("llama")
     blobs = mk.pack_decoder_blobs(st, **kw)
@@ -609,8 +636,6 @@ def test_modes_still_outside_the_port_raise(mode):
         blobs = blobs._replace(wblob=blobs.wblob[:, :, :D // 2])
     elif mode == "group_scales":
         blobs = blobs._replace(gscale=torch.ones(L, 13, 2, D))
-    elif mode == "fp8_self_kv":
-        cache = cache.to(torch.float8_e4m3fn)
     elif mode == "gated_cross":
         call["cross_cache"] = torch.zeros(L, 1, 2, 2, 128, 16)
     with pytest.raises(NotImplementedError):
@@ -659,7 +684,9 @@ def test_chip_smoke_llama_path_on_cpu(one_cpu_thread):
         num_layers=2, num_heads=2, num_kv_heads=2, ffn_hidden_size=688,
         max_position_embeddings=128)
     e2e, counts = smoke.llama_path(torch, np, config=config, device="cpu")
-    assert sorted(counts) == ["llama", "llama_b8", "llama_woq8"]
+    assert sorted(counts) == ["llama", "llama_b8", "llama_fp8",
+                              "llama_woq8"]
+    assert e2e["llama_fp8"]["megakernel"]
     assert all(set(c.values()) == {0} for c in counts.values())
     assert e2e["llama"]["megakernel"] and e2e["llama_woq8"]["megakernel"]
     assert not e2e["llama_b8"]["megakernel"]

@@ -455,8 +455,10 @@ def _mode_call(mode):
     elif mode == "gated":
         # with cross-attention (the JAX kernel refuses it too)
         kw[mode] = True
-    elif mode == "fp8_self_kv":
-        cache = cache.to(torch.float8_e4m3fn)
+    elif mode == "fp8_cross":
+        # an e4m3 cross cache (the e4m3 self cache is ported:
+        # tests/test_torch_fp8.py)
+        kw["cross_cache"] = cross.to(torch.float8_e4m3fn)
     elif mode == "gqa":
         cache = torch.zeros(L, 1, 2, 1, HD, 16)
     elif mode == "int4_group_past_half":
@@ -472,7 +474,7 @@ def _mode_call(mode):
     mk.fused_decoder_stack(x, blobs, cache, seq, SCALE, **kw)
 
 
-@pytest.mark.parametrize("mode", ["batch2", "tail", "gated", "fp8_self_kv",
+@pytest.mark.parametrize("mode", ["batch2", "tail", "gated", "fp8_cross",
                                   "gqa", "int4_group_past_half",
                                   "int4_decoder_only"])
 def test_modes_outside_the_port_raise(mode):

@@ -545,8 +545,9 @@ def test_unported_sampling_raises(sampling):
 
 
 def test_unported_paged_modes_raise():
-    """fp8 pools (the writes and the attention), paged beams over MQA/GQA
-    pools, and several query tokens without their causal offsets raise.
+    """Paged beams over MQA/GQA pools and several query tokens without
+    their causal offsets raise; an fp8 pool without its scale raises and,
+    with it, is written and read.
     The mixed windows are ported: a window's attention with per-row
     offsets, and a prompt/decode window through the model; so are
     left-padded prompts over the pool and paged beams over equal heads
@@ -555,11 +556,22 @@ def test_unported_paged_modes_raise():
     q = torch.zeros(2, 4, 1, 16)
     table = torch.tensor([[0, 1], [2, -1]])
     seq = torch.tensor([3, 2])
+    # an fp8 (e4m3) pool is ported (tests/test_torch_fp8*.py): a write is
+    # the scaled saturating cast, a read dequantises with the scale
     fp8 = pool.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError):
-        pdec.fused_paged_decode_attention(fp8, 0, q, table, seq, 0.25)
-    with pytest.raises(NotImplementedError):
-        ppa.paged_append_kv(fp8[0], q[:, :1], q[:, :1], table, seq - 1)
+    kv = torch.arange(32.0).reshape(2, 1, 1, 16) * 40
+    ppa.paged_append_kv(fp8[0], kv, kv, table, seq - 1,
+                        kv_orig_quant_scale=torch.tensor([0.5]))
+    assert fp8[0, 0, 0, 0, 2].float().tolist() == (
+        (kv[0, 0, 0] * 0.5).clamp(max=448).to(fp8.dtype).float().tolist())
+    one = torch.tensor(1.0)
+    out = pdec.fused_paged_decode_attention(fp8, 0, q + 1, table, seq, 0.25,
+                                            kv_quant_orig_scale=one)
+    ref = pdec.fused_paged_decode_attention(fp8.float(), 0, q + 1, table,
+                                            seq, 0.25)
+    assert torch.isfinite(out).all() and torch.equal(out, ref)
+    with pytest.raises(ValueError):                 # the scale is needed
+        ppa.paged_decode_attention(q, fp8[0], table, seq)
     out = ppa.paged_decode_attention(q, pool[0], table, seq,
                                      causal_offset=seq)
     assert out.shape == q.shape and bool(torch.isfinite(out).all())

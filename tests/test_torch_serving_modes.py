@@ -490,7 +490,9 @@ def test_chip_smoke_serve_modes_path_on_cpu(one_cpu_thread):
     kernel is launched from CPU tensors, and a greedy cell's tokens are
     compared with the reference given; the beam cells (4 beams a request:
     dense, paged, paged under mixed admission) give the dense beam cell's
-    best sequences, and the int8 pool cell serves from an int8 pool."""
+    best sequences, the int8 pool cell serves from an int8 pool, and the
+    e4m3 cells (the pool, mixed admission, beams over the pool and the
+    dense slot cache) from an e4m3 one."""
     path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
@@ -522,6 +524,12 @@ def test_chip_smoke_serve_modes_path_on_cpu(one_cpu_thread):
     assert e2e["paged_beam_mixed"]["prefills"] == 0
     assert e2e["paged_beam_mixed"]["mixed_ticks"] >= 8 * 4
     assert e2e["paged_kv8"]["beam_equal_to_dense_beam"] is None
+    # the e4m3 cells: the pool, mixed admission over it, beams over it and
+    # over the dense slot cache
+    assert e2e["paged_fp8_mixed"]["mixed_ticks"] == 8 * 4
+    for cell in ("paged_fp8_beam", "dense_fp8_beam"):
+        assert e2e[cell]["decode_steps"] == e2e[cell]["decode_ticks"]
+        assert e2e[cell]["beam_equal_to_dense_beam"] is not None
 
 
 def _tiny_model(smoke, config):

@@ -243,7 +243,9 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     ``test_torch_mqa_megakernel.py`` and the bloom and chatglm paths in
     ``test_torch_families_b.py``, the serve_modes path in
     ``test_torch_serving_modes.py``, the woq4, float and woq4_scanned paths
-    in ``test_torch_whisper_woq4.py``, and all fourteen are stubbed here):
+    in ``test_torch_whisper_woq4.py``, the fp8 path in
+    ``test_torch_fp8.py``, and all fifteen are stubbed here; the
+    fp8_scanned and decoder_fp8 paths run):
     model
     builds (the bench recipe with the megakernel decode; the recipe without
     sqenc on the scanned and beam paths), transcription (greedy, and beam
@@ -270,7 +272,11 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     monkeypatch.setattr(smoke, "serve_modes_path", lambda *a, **k: (
         {}, {"serve_paged_mixed": {"paged_window_attention": 0},
              "serve_paged_beam": {"paged_beam_attention": 0},
-             "serve_dense_beam": {"beam_decode_attention": 0}}))
+             "serve_dense_beam": {"beam_decode_attention": 0},
+             "serve_paged_fp8": {"paged_decode_attention_e4m3": 0},
+             "serve_paged_fp8_mixed": {"paged_window_attention_e4m3": 0},
+             "serve_paged_fp8_beam": {"paged_beam_attention_e4m3": 0},
+             "serve_dense_fp8_beam": {"beam_decode_attention_e4m3": 0}}))
     monkeypatch.setattr(smoke, "custom_path", lambda *a, **k: (
         {}, {"flash_attention_causal": 0, "custom_fmha": 0,
              "custom_fmha_f32": 0}))
@@ -278,7 +284,10 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
         {}, {"probe_flat_gemv": 0, "probe_hm_gemv": 0, "probe_relayout": 0,
              "probe_pair_proj": 0}))
     monkeypatch.setattr(smoke, "kv8_paths", lambda *a, **k: (
-        {}, {"decoder_megakernel": 0}, {}, {"decode_attention_int8": 0}))
+        {"self_kv_amax": [1.0]}, {"decoder_megakernel": 0}, {},
+        {"decode_attention_int8": 0}))
+    monkeypatch.setattr(smoke, "fp8_path", lambda *a, **k: (
+        {}, {"decoder_megakernel": 0}))
     monkeypatch.setattr(smoke, "whisper_variant_paths", lambda *a, **k: (
         {}, {"woq4": {"decoder_megakernel": 0},
              "float": {"decoder_megakernel": 0}}))
@@ -291,6 +300,7 @@ def test_chip_smoke_main_path_on_cpu(one_cpu_thread, monkeypatch):
     monkeypatch.setattr(smoke, "llama_path", lambda *a, **k: (
         {}, {"llama": {"decoder_megakernel": 0},
              "llama_woq8": {"decoder_megakernel": 0},
+             "llama_fp8": {"decoder_megakernel": 0},
              "llama_b8": {"decode_attention_bf16": 0}}))
     monkeypatch.setattr(smoke, "santacoder_path", lambda *a, **k: (
         {}, {"santacoder": {"decoder_megakernel": 0},

@@ -36,7 +36,9 @@ int8 and a bf16 cache, the int4 matmul at SantaCoder-1B's four linears
 (groups of 128) at M 8 and M 512, rotating over weights past the L2, and
 the decode megakernel's step at Whisper large-v2 (32 layers, d 1280, int8
 panels, int8 cross cache of 1500, sequence 44, over a bf16 and over an
-int8 self cache; ``chip_smoke.py``'s seeded blobs, each checkout's own
+int8 self cache and, where the checkout builds its e4m3 library, over an
+e4m3 one (else its int8 self step stands in: the e4m3 step against the
+int8 one in turns); ``chip_smoke.py``'s seeded blobs, each checkout's own
 weight layout) and, where both checkouts build its decoder-only set
 (OTHER's argument structure filled from this one's by field name, where it
 has no field this one lacks), at LLaMA-1B (16 layers, bf16 and int8
@@ -141,14 +143,17 @@ def libraries(torch_build, roots):
         out = os.path.join(HERE, "build", "ab", tag)
         os.makedirs(out, exist_ok=True)
         sources = dict(SOURCES)
-        # the megakernel's decoder-only set, where the checkout has one
-        if "decoder_stack" in build_table(root).SIGNATURES:
-            sources["decoder_stack"] = SOURCES["decoder_layer"]
+        table = build_table(root)
+        # the megakernel's decoder-only set and each set's e4m3 self-cache
+        # library, where the checkout has them (built with its own macros)
+        for name in ("decoder_stack", "decoder_layer_fp8"):
+            if name in table.SIGNATURES:
+                sources[name] = SOURCES["decoder_layer"]
         for name, src in sources.items():
             lib_path = os.path.join(out, f"lib{name}.so")
             procs[tag, name] = (lib_path, subprocess.Popen(
                 ["/usr/local/cuda/bin/nvcc", *torch_build.NVCC_FLAGS,
-                 *getattr(torch_build, "DEFINES", {}).get(name, []), "-o",
+                 *getattr(table, "DEFINES", {}).get(name, []), "-o",
                  lib_path, os.path.join(root, src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {tag: {} for tag in roots}
@@ -503,6 +508,11 @@ def main(argv=None):
     mself8 = torch.clamp(torch.round(mself.float() * (127 / 4)), -128,
                          127).to(torch.int8)
     moq = (1 / mstep).contiguous()
+    # the e4m3 self cache: the same values at the scale 4 / 448
+    mstep_f8 = torch.full((ml,), 4 / 448, device=dev)
+    mself_f8 = (mself.float() * 112).clamp(-448, 448).to(
+        torch.float8_e4m3fn)
+    moq_f8 = (1 / mstep_f8).contiguous()
     mcross = torch.randint(-127, 128, (ml, 1, 2, mh, 64, msc), generator=g,
                            device=dev, dtype=torch.int8)
     mcs = torch.full((ml,), 1 / 40.0, device=dev)
@@ -514,7 +524,7 @@ def main(argv=None):
     # the barrier, then (this checkout's) the heads' counters
     mbar = torch.zeros(2 + 2 * ml * mh, dtype=torch.int32, device=dev)
 
-    def mega_args(who, self8=False):
+    def mega_args(who, self8=False, f8=False):
         defs = mk_defs[who]
         pan, slots = defs["_panels"](mnf), defs["_flat_slots"](mnf)
         plan = (defs["megakernel_plan"](md, mnf, sms)
@@ -523,7 +533,8 @@ def main(argv=None):
                     pair_scale=blobs.pair_scale, pair_bias=blobs.pair_bias,
                     flat_scale=blobs.flat_scale, flat_bias=blobs.flat_bias,
                     ln_par=blobs.ln_par,
-                    self_cache=mself8 if self8 else mself, cross_cache=mcross,
+                    self_cache=(mself_f8 if f8 else mself8 if self8
+                                else mself), cross_cache=mcross,
                     cross_scale=mcs, seq_len=mseq, hid=mhid, fresh=mfresh,
                     part_a=mbufs[0], part_b=mbufs[1], act_a=mbufs[0],
                     act_b=mbufs[1], att=mbufs[2], ctx=mbufs[3],
@@ -536,9 +547,12 @@ def main(argv=None):
                     f_dense=slots["dense"], f_crossdense=slots["crossdense"],
                     f_fc1=slots["fc1"], f_fc2=slots["fc2"], cross_int8=1,
                     ring_bytes=0, scale=64 ** -0.5, eps=1e-5,
-                    # the int8 self mode (kv8), or the bf16 step
-                    self_int8=int(self8), kv_oq=moq if self8 else None,
-                    kv_qo=mstep if self8 else None,
+                    # the int8 self mode (kv8), the e4m3 one, or the bf16
+                    # step (a checkout names the field self_int8 or
+                    # self_kind)
+                    self_int8=int(self8), self_kind=2 if f8 else int(self8),
+                    kv_oq=moq_f8 if f8 else moq if self8 else None,
+                    kv_qo=mstep_f8 if f8 else mstep if self8 else None,
                     # this checkout's decoder-only modes, off: Whisper's
                     # step (cross-attention, LayerNorm, tanh GELU, int8
                     # panels, heads of 64)
@@ -565,6 +579,11 @@ def main(argv=None):
 
     margs = {who: mega_args(who) for who in roots}
     margs8 = {who: mega_args(who, self8=True) for who in roots}
+    # the e4m3 self step where the checkout has its library, else its int8
+    # self step (the e4m3 mode against the int8 one, in turns)
+    has_f8 = {who: "decoder_layer_fp8" in libs[who] for who in roots}
+    margs_f8 = {who: mega_args(who, f8=True) if has_f8[who]
+                else margs8[who] for who in roots}
 
     def mega(who, i):
         mbar.zero_()                 # counters per call, as the wrapper's
@@ -576,6 +595,12 @@ def main(argv=None):
         return libs[who]["decoder_layer"].decoder_megakernel(
             ctypes.byref(margs8[who]), stream())
 
+    def mega_f8(who, i):
+        mbar.zero_()
+        lib = libs[who]["decoder_layer_fp8" if has_f8[who]
+                        else "decoder_layer"]
+        return lib.decoder_megakernel(ctypes.byref(margs_f8[who]), stream())
+
     for name, k, n in smoke.INT4_SHAPES:
         cases.append((f"int4 {name} M 8 (K {k}, N {n}, groups of 128)",
                       int4(8, k, n)))
@@ -586,6 +611,9 @@ def main(argv=None):
                   mega))
     cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross, "
                   "int8 self cache", mega8))
+    cases.append(("megakernel step, large-v2 32 layers, seq 44, int8 cross, "
+                  "e4m3 self cache (a checkout without the e4m3 mode: its "
+                  "int8 self cache)", mega_f8))
     # the decoder-only set at LLaMA-1B's step (chip_smoke.py's kernel
     # phase: 16 layers, bf16 and int8 panels, a bf16 self cache of 84 at
     # sequence 74 from start 4, RoPE), where both checkouts have it: this
@@ -647,8 +675,9 @@ def main(argv=None):
         # KV head, LayerNorm, GELU, biases (chip_smoke's kernel phase)
         sd, sh, sl = smoke.SANTA_D, smoke.SANTA_HEADS, smoke.SANTA_LAYERS
         sx = torch.randn((1, sd), generator=g, device=dev).bfloat16()
-        scache = torch.randn((sl, 1, 2, 1, sd // sh, smoke.LLAMA_S),
-                             generator=g, device=dev).bfloat16()
+        # (its own name: kernel 1's self case reads ``scache`` when it runs)
+        santa_cache = torch.randn((sl, 1, 2, 1, sd // sh, smoke.LLAMA_S),
+                                  generator=g, device=dev).bfloat16()
         skw = dict(start_index=lkw["start_index"], head_dim=sd // sh,
                    act="gelu", norm="layernorm")
         for weight in ("bf16", "int8"):
@@ -657,7 +686,7 @@ def main(argv=None):
                                            True)
             cases.append((f"megakernel step, SantaCoder-1B 24 layers (MQA), "
                           f"{weight} panels, seq 74",
-                          stack_run(sblobs, sx, scache, skw)))
+                          stack_run(sblobs, sx, santa_cache, skw)))
     for what, fn in cases:
         if opts.only not in what:
             continue

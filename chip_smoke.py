@@ -36,7 +36,11 @@
    its step-by-step version, and its beam entry), the grouped kernel, the
    paged kernel's three entries and both megakernel sets are held the
    same way, each over an e4m3 cache whose unused columns hold the NaN
-   byte 0x7F, the megakernel's e4m3 step in turns with the others.
+   byte 0x7F, the megakernel's e4m3 step in turns with the others.  Then
+   the kernels at the shapes a tensor-parallel shard (tp 2) gives them:
+   kernel 1 at 10 heads (int8 cross at S 1500, bf16 self at S 448),
+   kernel 2 at [1, 10, 1536, 64], the paged kernel over 8 KV heads and
+   the int4 kernel at the row-parallel K 640 and 2560.
 3. Drives the main path: Whisper large-v2 at full width (32+32 layers,
    random weights from a seed) with the bench recipe
    ``woq8+ckv8+lmq8+sqenc``, greedy transcription of a seeded 30 s mel,
@@ -55,7 +59,8 @@
    cache (recipe ``woq8+kv8+ckv8+lmq8+sqenc``), transcribed through the
    megakernel's int8 self mode (one launch a step; utt/s, the slope, the
    step's wall, busy and idle share) and layer by layer at full depth
-   (kernel 1's self calls over the int8 cache), each replayed against the
+   (kernel 1's self calls over the int8 cache) with the depth cut to 8+8
+   (the first layers of the same weights), each replayed against the
    plain scanned path; then the fp8 path: the same decoder over an e4m3
    self cache (scales ``fp8_scales_from_amax`` of the calibration's amax)
    through the megakernel's e4m3 self mode, in turns with main.  Then on the same model the detect, long and
@@ -97,9 +102,9 @@
    utt/s, the decode slope (not for beams), the decoder step's wall and
    device-busy time and peak memory.  Last the decoder path: SantaCoder-1B
    (24 layers, d 2048, 16 query heads of 128 over one KV head, vocab
-   49152) at full width and depth with random weights, recipe ``woq8``,
-   greedy generation of 20 tokens for 8 prompts of 60 tokens (bucketed to
-   64, left-padded) through the port's ``GenerationSession``, as the JAX
+   49152) at full size with random weights, recipe ``woq8``, greedy
+   generation of 20 tokens for 8 prompts of 60 tokens (bucketed to 64,
+   left-padded) through the port's ``GenerationSession``, as the JAX
    package's ``benchmarks/benchmark.py -m santacoder_1b --quant woq8`` runs
    it; each decode step runs the grouped decode kernel once per layer.
    Prints tokens/s, the decode step's wall and device-busy time and peak
@@ -146,7 +151,26 @@
    it; each decode tick runs the paged decode kernel once per layer.  Its
    teacher-forced check replays the recorded prefills and first ticks on a
    fresh pool.  Prints serve_bench's metrics (best of 3 runs), the tick's
-   wall and device-busy time and peak memory.  Then the serve_modes path:
+   wall and device-busy time and peak memory.  Then the tensor-parallel
+   paths, two ranks spawned on the one card with gloo (NCCL refuses two
+   ranks on a device), each holding its shard (``parallel.shard_state`` of
+   the state the parent saved once) and calling the collectives itself:
+   tp (the scanned path's model and mel at tp 2, its vocab padded to a
+   multiple of 2: greedy, 40 tokens, layer by layer, no megakernel;
+   kernel 1 and kernel 2 launched on each rank; the single rank's calls
+   replayed on each rank, every call's logits within TP_LOGITS_TOL, the
+   tokens equal to the scanned path's up to a tie within that band; the
+   step's wall and its share in collectives), tp_woq4 (its decoder made
+   anew with int4 weights: the int4 kernel at K 640 and 2560; the single
+   rank's calls replayed against a single-rank int4 decoder of the same
+   state, within TP_LOGITS_TOL), serve_tp (the serve path's first 16
+   requests at tp 2 over a pool of 8 KV heads a rank, each output equal
+   to the serve path's up to a tie within the band; the serve path's
+   recorded prefills and ticks replayed against its logits, within
+   TP_LOGITS_TOL) and ring (ring attention over the two ranks, causal and not,
+   within 2e-5 of one-device attention; gloo's send and receive take no
+   CUDA tensor, so the ring's exchange stages through the host).  Then
+   the serve_modes path:
    the same model and requests (built once more) through five cells of
    ``serve_bench.py``, each a warm-up drain and one timed drain: the dense
    slot cache greedy (each decode step kernel 1 once a layer, each
@@ -391,6 +415,30 @@ KERNELS = {
     "custom_fmha_f32": dict(
         route="cuda", source="examples/custom_kernel_torch/fmha.cu",
         replaces="examples/custom_kernel/pallas_fmha.py:23"),
+    # the kernels at the shapes a tensor-parallel shard (tp 2) gives them:
+    # kernel 1 at 10 heads of Whisper large-v2 (int8 cross at S 1500, bf16
+    # self at S 448), kernel 2 at [1, 10, 1536, 64], the paged kernel over
+    # 8 KV heads (GPT-350M serving), the int4 kernel at K 640 (the
+    # attention's row-parallel out-projection; K 2560 in its shapes)
+    "decode_attention_int8_tp": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
+    "decode_attention_bf16_tp": dict(
+        route="cuda", source=f"{PKG}/csrc/decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:45"),
+    "flash_attention_tp": dict(
+        route="cuda", source=f"{PKG}/csrc/flash_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/flash_attention.py:89"),
+    "paged_decode_attention_tp": dict(
+        route="cuda", source=f"{PKG}/csrc/paged_decode_attention.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_decode_attention.py:612"),
+    "int4_quant_matmul_tp": dict(
+        route="cuda", source=f"{PKG}/csrc/int4_quant_matmul.cu",
+        replaces="eddie_wang_hackathon2023_tpu/ops/"
+                 "pallas_quant_matmul.py:25"),
     # the megakernel design probes of benchmarks/ (tools/megakernel_probes.py)
     "probe_flat_gemv": dict(
         route="cuda", source="tools/megakernel_probes.cu",
@@ -424,8 +472,10 @@ KERNELS = {
 # e4m3 rows: fp8 (the main path's model over an e4m3 self cache through
 # the megakernel), fp8_scanned (the scanned path's model layer by layer),
 # decoder_fp8, llama_fp8 and the serve_modes cells paged_fp8,
-# paged_fp8_mixed, paged_fp8_beam and dense_fp8_beam; the bloom path runs
-# no TPU kernel and so drives no row
+# paged_fp8_mixed, paged_fp8_beam and dense_fp8_beam; the tensor-parallel
+# paths drive the tp rows (rank 0's counts): tp (Whisper at tp 2, layer by
+# layer), tp_woq4 (its int4 decoder) and serve_tp (GPT-350M paged serving
+# at tp 2); the bloom path runs no TPU kernel and so drives no row
 PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "decoder_megakernel_llama": "llama",
            "decoder_megakernel_llama_woq8": "llama_woq8",
@@ -460,7 +510,11 @@ PATH_OF = {"decoder_megakernel": "main", "flash_attention_f32": "main",
            "gqa_decode_attention_e4m3": "decoder_fp8",
            "paged_decode_attention_e4m3": "serve_paged_fp8",
            "paged_window_attention_e4m3": "serve_paged_fp8_mixed",
-           "paged_beam_attention_e4m3": "serve_paged_fp8_beam"}
+           "paged_beam_attention_e4m3": "serve_paged_fp8_beam",
+           "decode_attention_int8_tp": "tp",
+           "decode_attention_bf16_tp": "tp", "flash_attention_tp": "tp",
+           "paged_decode_attention_tp": "serve_tp",
+           "int4_quant_matmul_tp": "tp_woq4"}
 PROBE_SCRIPTS = ("megakernel_probe", "megakernel_probe2", "megakernel_probe3")
 # the launch counter of a row named otherwise
 COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
@@ -479,7 +533,12 @@ COUNTER_OF = {"decode_attention_int8_b5": "decode_attention_int8",
               "decode_attention_int8_self": "decode_attention_int8",
               "decoder_megakernel_e4m3_self": "decoder_megakernel",
               "decoder_megakernel_llama_e4m3": "decoder_megakernel",
-              "decode_attention_e4m3_self": "decode_attention_e4m3"}
+              "decode_attention_e4m3_self": "decode_attention_e4m3",
+              "decode_attention_int8_tp": "decode_attention_int8",
+              "decode_attention_bf16_tp": "decode_attention_bf16",
+              "flash_attention_tp": "flash_attention",
+              "paged_decode_attention_tp": "paged_decode_attention",
+              "int4_quant_matmul_tp": "int4_quant_matmul"}
 # the long path: windows of seeded audio (2.5: 75 s on large-v2, windows
 # of 30, 30 and 15 s); the best_of path's sampled rows an utterance
 LONG_WINDOWS = 2.5
@@ -1215,6 +1274,7 @@ def kernel_phases(torch, results):
     serve_beam_kernel_phase(torch, results)
     fp8_kernel_phase(torch, results)
     int4_phase(torch, results, gen)
+    tp_kernel_phase(torch, results, gen)
     custom_phase(torch, results, gen)
     probes_phase(torch, results, gen)
 
@@ -3753,13 +3813,16 @@ def plain_kernels():
          la.fused_paged_beam_attention, iq.quant_matmul_int4) = saved
 
 
-def build_whisper(torch, np, config, device, recipe, label):
+def build_whisper(torch, np, config, device, recipe, label,
+                  keep_states=False):
     """Whisper for ``recipe`` on ``device`` with seeded random weights (the
     static cross-KV scales calibrated on the seeded mel's encoder output),
     and that mel: dict(config, recipe, enc, dec, ckv, mel, mel_t,
     dec_float), ``dec_float`` the decoder's float state (numpy, on the
     host), from which :func:`decoder_built` makes the decoder of another
-    recipe."""
+    recipe; with ``keep_states`` also ``states``, the recipe's (encoder,
+    decoder, cross-KV) states in the JAX layout, numpy (the tp path's
+    ranks shard them)."""
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
         cross_kv_from_jax_state, from_jax_state, quantize_states)
     from eddie_wang_hackathon2023_tpu_torch.models.whisper.convert import (
@@ -3782,6 +3845,7 @@ def build_whisper(torch, np, config, device, recipe, label):
     del enc_f
     enc, dec, _ = from_jax_state(enc_q, dec_q, ckv_f, config, recipe=no_ckv,
                                  device=device)
+    kept = (enc_q, dec_q) if keep_states else None
     del enc_q, dec_q
     mel = np.random.default_rng(SEED + 1).standard_normal(
         (1, config.n_mels, 2 * config.n_audio_ctx), dtype=np.float32)
@@ -3791,6 +3855,9 @@ def build_whisper(torch, np, config, device, recipe, label):
     scales = calibrate_cross_kv_scales(ckv_f, [xa.float()], device=device)
     ckv = cross_kv_from_jax_state({**ckv_f, "kv_scale": scales}, config,
                                   recipe=recipe, device=device)
+    extra = {}
+    if keep_states:
+        extra["states"] = (*kept, {**ckv_f, "kv_scale": scales})
     del ckv_f
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -3798,7 +3865,7 @@ def build_whisper(torch, np, config, device, recipe, label):
           f" layers of width {config.n_text_state}, built in "
           f"{time.time() - t0:.1f} s")
     return dict(config=config, recipe=recipe, enc=enc, dec=dec, ckv=ckv,
-                mel=mel, mel_t=mel_t, dec_float=dec_f)
+                mel=mel, mel_t=mel_t, dec_float=dec_f, **extra)
 
 
 def decoder_built(torch, np, built, recipe):
@@ -4361,14 +4428,43 @@ def kv8_built(torch, np, built, scales):
     return {**built, "dec": kv.eval(), "recipe": KV8_RECIPE}
 
 
+def cut_built(torch, built, depth):
+    """``built`` (from :func:`build_whisper`) cut to its first ``depth``
+    encoder and decoder layers: the same weights (shared, not copied),
+    the cross-KV's layers sliced alike, the widths unchanged."""
+    import copy
+    import dataclasses
+    c = built["config"]
+    c = dataclasses.replace(c, n_audio_layer=min(depth, c.n_audio_layer),
+                            n_text_layer=min(depth, c.n_text_layer))
+
+    def shallow(mod):
+        m = copy.copy(mod)
+        m._modules, m._parameters = dict(mod._modules), dict(mod._parameters)
+        m._buffers = dict(mod._buffers)
+        m.config = c
+        return m
+    enc, dec, ckv = (shallow(built[k]) for k in ("enc", "dec", "ckv"))
+    enc.blocks = torch.nn.ModuleList(list(enc.blocks)[:c.n_audio_layer])
+    dec.blocks = torch.nn.ModuleList(list(dec.blocks)[:c.n_text_layer])
+    for name in ("kv_weight", "v_bias", "kv_scale"):
+        p = getattr(ckv, name)
+        if p is not None:
+            setattr(ckv, name, torch.nn.Parameter(p[:c.n_text_layer],
+                                                  requires_grad=False))
+    return {**built, "config": c, "enc": enc, "dec": dec, "ckv": ckv}
+
+
 def kv8_paths(torch, np, built, device="cuda"):
     """The kv8 paths on the main path's model (``built``): the self-KV
     steps calibrated by ``calibrate_int8_kv`` on the main pipeline (the
     bench recipe, a bf16 self cache) over the seeded mel, the decoder
     rebuilt with them (:func:`kv8_built`), then :func:`main_path` through
     the megakernel (its int8 self mode; label ``kv8``) and layer by layer
-    at full depth (kernel 1 over the int8 cache; ``kv8_scanned``, no
-    slope); between them the main and kv8 transcriptions in turns.
+    with the depth cut to SCANNED_DEPTH (the first layers of the same
+    weights: kernel 1 over the int8 cache at the same widths and S;
+    ``kv8_scanned``, no slope); between them the main and kv8
+    transcriptions in turns.
     Returns (kv8 numbers, counts, kv8_scanned numbers, counts)."""
     from eddie_wang_hackathon2023_tpu_torch.quantization.calibration import \
         calibrate_int8_kv
@@ -4407,9 +4503,13 @@ def kv8_paths(torch, np, built, device="cuda"):
         for name, w in walls.items()))
     e2e["in_turns_ms_per_utt"] = {k: [t * 1e3 for t in w]
                                   for k, w in walls.items()}
+    cut = cut_built(torch, kv, SCANNED_DEPTH)
+    print(f"[kv8_scanned] layer by layer at depth "
+          f"{cut['config'].n_audio_layer}+{cut['config'].n_text_layer} "
+          "(widths unchanged)")
     scan_e2e, scan_counts = main_path(torch, np, device=device,
                                       decode_megakernel=False,
-                                      label="kv8_scanned", built=kv,
+                                      label="kv8_scanned", built=cut,
                                       slope=False)
     e2e["self_kv_steps"] = [float(scales.min()), float(scales.max())]
     e2e["self_kv_amax"] = [float(a) for a in scales * 127]
@@ -5592,7 +5692,7 @@ def gpt_350m_config():
 
 
 def serve_path(torch, np, config=None, device="cuda", label="serve",
-               outputs=None):
+               outputs=None, recorded=None):
     """The serve path on ``device``: ``config`` (default GPT-350M) with
     random weights from the seed behind the port's
     ``ContinuousBatchingManager`` (SERVE_SLOTS slots, a block-paged pool of
@@ -5603,7 +5703,9 @@ def serve_path(torch, np, config=None, device="cuda", label="serve",
     counted), the teacher-forced check and the tick's timing.  A smaller
     ``config`` and the CPU rehearse it without a card (the launch counts
     are then not checked).  ``outputs``, a dict, receives the warm-up run's
-    tokens by request (its prompts are :func:`serve_prompts`).  Returns
+    tokens by request (its prompts are :func:`serve_prompts`);
+    ``recorded``, a dict, the teacher-forced check's calls (on the host),
+    the kernel path's logits of them and the pool's blocks.  Returns
     (numbers, launch counts)."""
     from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
         from_jax_state
@@ -5748,6 +5850,11 @@ def serve_path(torch, np, config=None, device="cuda", label="serve",
     check(bool(torch.isfinite(lk).all()), f"[{label}] logits finite")
     check(e_lg < 5e-2, f"[{label}] teacher-forced logits agree (rel 5e-2 of "
           "max |logit|)")
+    if recorded is not None:
+        recorded.update(
+            calls=[tuple(a.cpu() if torch.is_tensor(a) else a for a in
+                         calls[j]) for j in range(SERVE_SLOTS + n_check)],
+            logits=lk.float().cpu(), num_blocks=mgr.num_blocks)
 
     step_info = (step_timing(torch, model, replay_call(model.new_paged_pool(
         mgr.num_blocks, SERVE_BLOCK)), label, first=SERVE_SLOTS)
@@ -6414,9 +6521,771 @@ def probes_path(torch, device="cuda", panels=None):
     return dict(wall_s=time.perf_counter() - t), dict(mp.launches)
 
 
+# -- tensor, data and sequence parallelism (2 ranks on one card, gloo) -------
+
+# the tp path's ranks: Whisper at tp TP_SIZE on one card; gloo, asked for
+# explicitly (NCCL refuses two ranks on one device)
+TP_SIZE = 2
+TP_BACKEND = "gloo"
+# the tp path's woq4 run: the decoder made anew for WOQ4_TP_RECIPE from
+# the scanned path's float state, beside the woq8 encoder and cross-KV
+# (the int4 kernel at the row-parallel K of tp 2: 640 and 2560)
+WOQ4_TP_RECIPE = "woq4+ckv8+lmq8"
+WOQ4_TP_TOKENS = 8
+# the serve_tp path: the serve path's first requests, served at tp 2
+SERVE_TP_REQUESTS = 16
+# the ring path: sequence-parallel attention over the ranks
+RING_SHAPE = (1, 16, 4096, 64)
+# the logits at tp 2 against the single rank's on the same tokens: the
+# ranks' partial sums are added in fp32 and rounded to bf16 once, where
+# one rank rounds its own sum once, so the two differ by bf16 roundings
+# carried through the layers (the port's kernel path and its plain path
+# differ as much); rel of the largest |logit|.  Where greedy tokens part,
+# the two tokens' logits must lie within this band of each other (a tie
+# the logits' agreement cannot decide)
+TP_LOGITS_TOL = 2e-2
+
+
+def tp_kernel_phase(torch, results, gen):
+    """The kernels at the shapes a tp-2 shard gives them: kernel 1 at 10
+    heads of Whisper large-v2 (the int8 cross call at S 1500 and the bf16
+    self call at S 448, no out-projection: its epilogue is off under
+    tensor parallelism), kernel 2's bf16 entry at [1, 10, 1536, 64] valid
+    1500 (the encoder's), the paged kernel over 8 KV heads (GPT-350M's
+    serve shape at tp 2) and the int4 kernel at the row-parallel K of tp 2
+    (640: the attention's out-projections; 2560: fc2), each against its
+    plain version, timed beside it and beside one PyTorch call."""
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, H, D = 32, 20 // TP_SIZE, 64
+    scale = D ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    # kernel 1, cross: int8 [L, 1, 2, 10, 64, 1500], per-layer scales
+    S = 1500
+    cross = torch.randint(-127, 128, (L, 1, 2, H, D, S), generator=gen,
+                          device=dev, dtype=torch.int8)
+    cscale = torch.full((L,), 1 / 40.0, device=dev)
+    q = randn(1, H, 1, D)
+    s_full = torch.full((1,), S, dtype=torch.int32, device=dev)
+    out = da.fused_decode_attention(cross, 3, q, s_full, scale,
+                                    kv_quant_orig_scale=cscale[3])
+    ref = da.plain_decode_attention(cross, 3, q, s_full, scale,
+                                    kv_quant_orig_scale=cscale[3])
+    ref32 = da.plain_decode_attention(cross, 3, q.float(), s_full, scale,
+                                      kv_quant_orig_scale=cscale[3])
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    check(e16 < 2e-2 and e32 < 1e-2, f"[tp kernels] kernel 1, int8 cross at "
+          f"{H} heads, S {S}: rel err {e16:.3e} vs plain bf16, {e32:.3e} vs "
+          "fp32 (2e-2, 1e-2)")
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        cross, i % L, q, s_full, scale, kv_quant_orig_scale=cscale[i % L]))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
+        cross, i % L, q, s_full, scale, kv_quant_orig_scale=cscale[i % L]))
+    kd = cross.float().mul(1 / 40.0).to(torch.bfloat16)
+    k_sd = kd[:, :, 0].transpose(-1, -2).contiguous()
+    v_sd = kd[:, :, 1].transpose(-1, -2).contiguous()
+    del kd
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % L], v_sd[i % L],
+                                              scale=scale))
+    del k_sd, v_sd, cross
+    b_ms, b_by = bound(2 * H * D * S + 2 * 2 * H * D + 4, 4 * H * D * S,
+                       PEAK_FP32_CUDA_CORES)
+    print(f"[tp kernels] kernel 1 int8 cross at {H} heads: {ms * 1e3:.2f} us"
+          f" (bound {b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f}"
+          f" us; SDPA {lib_ms * 1e3:.2f} us; splits {da.decode_splits(S)}")
+    results["decode_attention_int8_tp"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, heads=H, **split_of(da, S))
+
+    # kernel 1, self: bf16 [L, 1, 2, 10, 64, 448] at 44 valid columns, the
+    # fresh K/V as its own operand (the deferred write)
+    S2, n = 448, 44
+    self_cache = randn(L, 1, 2, H, D, S2)
+    fresh = tuple(randn(1, H, D, 1) for _ in range(2))
+    seq = torch.full((1,), n, dtype=torch.int32, device=dev)
+    out = da.fused_decode_attention(self_cache, 7, q, seq, scale,
+                                    fresh_kv=fresh)
+    ref = da.plain_decode_attention(self_cache, 7, q, seq, scale,
+                                    fresh_kv=fresh)
+    ref32 = da.plain_decode_attention(self_cache.float(), 7, q.float(), seq,
+                                      scale, fresh_kv=tuple(
+                                          t.float() for t in fresh))
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    check(e16 < 2e-2 and e32 < 1e-2, f"[tp kernels] kernel 1, bf16 self at "
+          f"{H} heads, S {S2}, seq {n}: rel err {e16:.3e} vs plain bf16, "
+          f"{e32:.3e} vs fp32 (2e-2, 1e-2)")
+    ms, wall = time_ms(torch, lambda i: da.fused_decode_attention(
+        self_cache, i % L, q, seq, scale, fresh_kv=fresh))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_decode_attention(
+        self_cache, i % L, q, seq, scale, fresh_kv=fresh))
+    k_sd, v_sd = (torch.cat(
+        [self_cache[:, :, j, :, :, :n - 1],
+         fresh[j][None].expand(L, -1, -1, -1, -1)],
+        dim=-1).transpose(-1, -2).contiguous() for j in (0, 1))
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(q, k_sd[i % L], v_sd[i % L],
+                                              scale=scale))
+    del k_sd, v_sd, self_cache
+    b_ms, b_by = bound(2 * H * D * n * 2 + 2 * 2 * H * D, 4 * H * D * n,
+                       PEAK_FP32_CUDA_CORES)
+    print(f"[tp kernels] kernel 1 bf16 self at {H} heads: {ms * 1e3:.2f} us "
+          f"(bound {b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f} "
+          f"us; SDPA {lib_ms * 1e3:.2f} us")
+    results["decode_attention_bf16_tp"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, heads=H, **split_of(da, S2))
+
+    # kernel 2's bf16 entry at the tp-2 encoder's [1, 10, 1536, 64], valid
+    # 1500, q/k/v strided views of the fused QKV output
+    Lq, valid = 1536, 1500
+    qkv = randn(1, Lq, 3, H, D)
+    qs, ks, vs = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o = fa.flash_mha(qs, ks, vs, scale=scale, kv_valid_len=valid)
+    o_ref = fa.plain_flash_mha(qs, ks, vs, scale=scale, kv_valid_len=valid)
+    o_ref32 = fa.plain_flash_mha(qs.float(), ks.float(), vs.float(),
+                                 scale=scale, kv_valid_len=valid)
+    e16, e32 = rel_err(o, o_ref), rel_err(o, o_ref32)
+    check(e16 < 2e-2 and e32 < 1e-2, f"[tp kernels] kernel 2 [1,{H},{Lq},"
+          f"{D}] valid {valid}: rel err {e16:.3e} vs plain bf16, {e32:.3e} "
+          "vs fp32 (2e-2, 1e-2)")
+    ms, wall = time_ms(torch, lambda i: fa.flash_mha(
+        qs, ks, vs, scale=scale, kv_valid_len=valid))
+    plain_ms, _ = time_ms(torch, lambda i: fa.plain_flash_mha(
+        qs, ks, vs, scale=scale, kv_valid_len=valid), iters=10)
+    kc, vc = ks[:, :, :valid].contiguous(), vs[:, :, :valid].contiguous()
+    qc = qs.contiguous()
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(qc, kc, vc, scale=scale))
+    del qkv, qs, ks, vs, kc, vc, qc
+    b_ms, b_by = bound(4 * H * Lq * D * 2, 4 * H * Lq * valid * D,
+                       PEAK_BF16_TENSOR)
+    grid = hopper_grid_of(torch, fa, 1, H, Lq)
+    print(f"[tp kernels] kernel 2 at {H} heads: {ms * 1e3:.2f} us (bound "
+          f"{b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f} us; "
+          f"SDPA {lib_ms * 1e3:.2f} us; grid {grid['grid']}, "
+          f"{grid['waves']:.3f} waves")
+    results["flash_attention_tp"] = dict(
+        max_abs_err=float((o.float() - o_ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, heads=H, **grid)
+
+    # the paged kernel at the serve path's shape over 8 KV heads of 64
+    Lp, N, T, B = 24, 32, SERVE_BLOCK, SERVE_SLOTS
+    MB, hkv, d = SERVE_MAX_SEQ // SERVE_BLOCK, 16 // TP_SIZE, 64
+    pool = randn(Lp, N, 2, hkv, T, d)
+    qp = randn(B, hkv, 1, d)
+    seqp = torch.randint(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
+                         (B,), generator=gen, device=dev, dtype=torch.int32)
+    table = torch.randperm(N, generator=gen, device=dev).to(
+        torch.int32).reshape(B, MB)
+    need = (seqp + T - 1) // T
+    table = torch.where(torch.arange(MB, device=dev)[None, :] < need[:, None],
+                        table, -1)
+    out = da.fused_paged_decode_attention(pool, Lp - 1, qp, table, seqp,
+                                          d ** -0.5)
+    ref = da.plain_paged_decode_attention(pool, Lp - 1, qp, table, seqp,
+                                          d ** -0.5)
+    ref32 = da.plain_paged_decode_attention(pool.float(), Lp - 1,
+                                            qp.float(), table, seqp,
+                                            d ** -0.5)
+    e16, e32 = rel_err(out, ref), rel_err(out, ref32)
+    check(e16 < 2e-2 and e32 < 1e-2, f"[tp kernels] paged kernel over {hkv}"
+          f" KV heads: rel err {e16:.3e} vs plain bf16, {e32:.3e} vs fp32 "
+          "(2e-2, 1e-2)")
+    ms, wall = time_ms(torch, lambda i: da.fused_paged_decode_attention(
+        pool, i % Lp, qp, table, seqp, d ** -0.5))
+    plain_ms, _ = time_ms(torch, lambda i: da.plain_paged_decode_attention(
+        pool, i % Lp, qp, table, seqp, d ** -0.5), iters=10)
+
+    def gathered(layer):
+        blocks = pool[layer][table.long().clamp(min=0)]
+        return tuple(blocks[:, :, j].transpose(1, 2).reshape(
+            B, hkv, MB * T, d).contiguous() for j in (0, 1))
+    k_g, v_g = (torch.stack(t) for t in zip(*(gathered(i)
+                                               for i in range(Lp))))
+    mask = (torch.arange(MB * T, device=dev)[None, :]
+            < seqp[:, None])[:, None, None, :]
+    lib_ms, _ = time_ms(torch, lambda i: sdpa(
+        qp, k_g[i % Lp], v_g[i % Lp], attn_mask=mask, scale=d ** -0.5))
+    del k_g, v_g, pool
+    n_bytes = (int(seqp.sum()) * 2 * hkv * d * 2 + 2 * B * hkv * d * 2
+               + B * MB * 4 + B * 4)
+    b_ms, b_by = bound(n_bytes, 4 * hkv * d * int(seqp.sum()),
+                       PEAK_FP32_CUDA_CORES)
+    plan = da.paged_plan(MB, T, 1)
+    print(f"[tp kernels] paged kernel at {hkv} KV heads: {ms * 1e3:.2f} us "
+          f"(bound {b_ms * 1e3:.3f} us, {b_by}); plain {plain_ms * 1e3:.2f} "
+          f"us; SDPA on the gathered K/V {lib_ms * 1e3:.2f} us; plan {plan}")
+    results["paged_decode_attention_tp"] = dict(
+        max_abs_err=float((out.float() - ref32).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        host_call_ms=wall, heads=hkv, plan=plan)
+
+    # the int4 kernel at the row-parallel K of tp 2 (groups of 128), M 1
+    errs = {}
+    for name, k, n_out in (("dense_tp", 1280 // TP_SIZE, 1280),
+                           ("fc2_tp", 5120 // TP_SIZE, 1280)):
+        qw = torch.randint(-128, 128, (k // 2, n_out), generator=gen,
+                           device=dev, dtype=torch.int8)
+        sc = (torch.rand((k // INT4_GROUP, n_out), generator=gen,
+                         device=dev) + 0.5) / (4.6 * k ** 0.5)
+        x = randn(1, k)
+        got = iq.quant_matmul_int4(x, qw, sc)
+        want = iq.plain_quant_matmul_int4(x.float(), qw, sc)
+        e = rel_err(got, want)
+        check(e < 1e-2, f"[tp kernels] int4 kernel {name} (K {k}, N {n_out},"
+              f" M 1): rel err {e:.3e} vs fp32 plain (1e-2)")
+        errs[name] = float((got.float() - want).abs().max())
+    shapes = int4_timings(torch, gen, (("dense_tp", 1280 // TP_SIZE, 1280),
+                                       ("fc2_tp", 5120 // TP_SIZE, 1280)),
+                          (1,))
+    row = shapes["dense_tp M1"]
+    results["int4_quant_matmul_tp"] = dict(
+        max_abs_err=errs["dense_tp"],
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "host_call_ms", "plan")},
+        shapes=shapes)
+
+
+def pad_vocab_rows(np, state, rows):
+    """A Whisper decoder state (the JAX layout) with its vocab padded to
+    ``rows`` by zero rows (the tied embedding, and the int8 LM head with
+    the scale its quantiser gives a zero row), so that it shards over the
+    tp ranks; the padded logits are sliced off."""
+    out = dict(state)
+    for key in ("token_embedding.weight", "lm_head_qweight",
+                "lm_head_scale"):
+        if key in out:
+            v = np.asarray(out[key])
+            extra = np.full((rows - v.shape[0],) + v.shape[1:],
+                            1e-8 / 127.0 if key == "lm_head_scale" else 0,
+                            v.dtype)
+            out[key] = np.concatenate([v, extra])
+    return out
+
+
+def save_state(np, dirname, state):
+    """Each array of ``state`` as ``<dirname>/<key>.npy`` (the ranks map
+    them, :func:`load_state`)."""
+    os.makedirs(dirname, exist_ok=True)
+    for k, v in state.items():
+        np.save(os.path.join(dirname, k + ".npy"), np.asarray(v))
+
+
+def load_state(np, dirname):
+    """The arrays :func:`save_state` wrote, memory-mapped."""
+    return {f[:-len(".npy")]: np.load(os.path.join(dirname, f),
+                                      mmap_mode="r")
+            for f in sorted(os.listdir(dirname)) if f.endswith(".npy")}
+
+
+def tp_rank_jobs(rank, world, device, state_dir, config, serve_config,
+                 sample_len, ring_shape, ref_calls, ref_outputs,
+                 serve_replay):
+    """One rank of the tp, tp_woq4, serve_tp and ring paths (spawned by
+    :func:`tp_paths`, ``torch.distributed`` initialised over ``world``
+    ranks): each job's numbers, launch counts and outputs.  ``ref_calls``:
+    the single rank's decoder calls (tokens, cache column, length), which
+    the tp and tp_woq4 paths replay teacher-forced; ``ref_outputs``: the
+    serve path's tokens by request, whose prefix serve_tp replays where its
+    output parts from them; ``serve_replay``: the serve path's recorded
+    calls (:func:`serve_path`), which serve_tp replays teacher-forced."""
+    import numpy as np
+    import torch
+
+    from eddie_wang_hackathon2023_tpu_torch.models.decoder_convert import \
+        from_jax_state as decoder_from_jax_state
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import \
+        from_jax_state
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import \
+        WhisperDecoder
+    from eddie_wang_hackathon2023_tpu_torch.models._state import \
+        unstack_blocks
+    from eddie_wang_hackathon2023_tpu_torch.ops import decode_attention as da
+    from eddie_wang_hackathon2023_tpu_torch.ops import decoder_layer as mk
+    from eddie_wang_hackathon2023_tpu_torch.ops import flash_attention as fa
+    from eddie_wang_hackathon2023_tpu_torch.ops import int4_quant_matmul as iq
+    from eddie_wang_hackathon2023_tpu_torch.ops.paged_attention import \
+        PagedCacheState
+    from eddie_wang_hackathon2023_tpu_torch.ops.ring_attention import \
+        ring_attention
+    from eddie_wang_hackathon2023_tpu_torch.parallel import (
+        Mapping, collectives, parallelize, shard_state)
+    from eddie_wang_hackathon2023_tpu_torch.runtime import (
+        ContinuousBatchingManager, InferenceRequest, SamplingConfig)
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import Recipe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    mods = (da, fa, mk, iq)
+    m = Mapping(tp_size=world)
+    out = dict(rank=rank, backend=torch.distributed.get_backend(),
+               layout=f"dp {m.dp_size} x tp {m.tp_size}, tp rank "
+                      f"{m.tp_rank}, device {dev}")
+    # gloo takes CUDA tensors in all_reduce and all_gather; send_recv
+    # stages them through the host (parallel/collectives.py)
+    staged = ["send_recv"] if on_card and out["backend"] == "gloo" else []
+
+    # tp: Whisper at tp `world`, the scanned path's recipe and state
+    t0 = time.time()
+    st = {k: load_state(np, os.path.join(state_dir, k))
+          for k in ("enc", "dec", "ckv", "dec_woq4")}
+    mel = np.load(os.path.join(state_dir, "mel.npy"))
+    enc, dec, ckv = from_jax_state(st["enc"], st["dec"], st["ckv"], config,
+                                   recipe=SCANNED_RECIPE, device=dev,
+                                   mapping=m)
+    built = dict(config=config, enc=enc, dec=dec, ckv=ckv)
+    pipe = whisper_pipeline(built, None, sample_len=sample_len)
+    gated = pipe._megakernel_blobs(1) is None
+    # one transcription, counted and timed (the rank's first: it loads the
+    # kernels the parent built)
+    sync(torch, dev)
+    t = time.perf_counter()
+    res, counts = counted(torch, dev, mods, lambda: pipe.transcribe(mel)[0])
+    utt_s = time.perf_counter() - t
+    with torch.inference_mode():
+        # the single rank's calls replayed teacher-forced: every step's
+        # logits on the same tokens; the decode steps timed from a
+        # synchronised start to a synchronised end, with the collectives'
+        # host time inside them
+        cross = pipe.precompute_cross_kv(pipe.get_audio_features(mel))
+        cache = dec.new_kv_cache(1)
+        tf = []
+        for i, (tok, widx, seq) in enumerate(ref_calls):
+            if i == 1:
+                sync(torch, dev)
+                collectives.reset()
+                t = time.perf_counter()
+            lg, cache = dec(torch.from_numpy(tok).to(dev), cache, cross,
+                            widx, seq)
+            tf.append(lg[0, -1].float())
+        sync(torch, dev)
+        steps_s = time.perf_counter() - t
+        n_steps = len(ref_calls) - 1
+        coll = dict(seconds=collectives.total_seconds(),
+                    calls=dict(collectives.calls))
+        logits = torch.stack(tf).cpu()
+        # the device time of this rank's kernels a step (the profiler, 8
+        # replayed steps on a fresh cache; both ranks share the one card)
+        kern_ms = top = None
+        if on_card:
+            n_prof = min(8, n_steps)
+            cache = dec.new_kv_cache(1)
+
+            def replay(lo, hi):
+                for tok, widx, seq in ref_calls[lo:hi]:
+                    dec(torch.from_numpy(tok).to(dev), cache, cross, widx,
+                        seq)
+                sync(torch, dev)
+            replay(0, 1)
+            kern_ms, top = kernel_breakdown(
+                torch, lambda: replay(1, 1 + n_prof), n_prof, top=5)
+    out["tp"] = dict(
+        tokens=[int(x) for x in res.tokens], logits=logits.numpy(),
+        counts=nonzero(counts), megakernel_gated=gated,
+        eligible=dec.megakernel_eligible(),
+        self_heads=dec.blocks[0].attn.num_attention_heads,
+        vocab_rows=dec.token_embedding.weight.shape[0],
+        cross_heads=int(cross[0].shape[3]),
+        step_ms=steps_s / n_steps * 1e3,
+        collective_share=coll["seconds"] / steps_s,
+        collective_calls_per_step={k: v / n_steps for k, v in
+                                   coll["calls"].items() if v},
+        kernel_ms_per_step=kern_ms, top_kernels_ms_per_step=top,
+        ms_per_utt=utt_s * 1e3, staged=staged,
+        seconds=time.time() - t0)
+    del pipe
+
+    # tp_woq4: the decoder made anew for WOQ4_TP_RECIPE (int4 in groups of
+    # 128, the row-parallel K 640 and 2560 at tp 2) beside the same
+    # encoder and cross-KV
+    t0 = time.time()
+    r = Recipe.parse(WOQ4_TP_RECIPE)
+    with torch.device(dev):
+        dec4 = WhisperDecoder(config, r.decoder, quantize_lm_head=r.lm_head)
+    parallelize(dec4, m)
+    dec4.load_state_dict(unstack_blocks(shard_state(st["dec_woq4"], dec4)))
+    pipe4 = whisper_pipeline({**built, "dec": dec4.eval()}, None,
+                             sample_len=WOQ4_TP_TOKENS)
+    res4, counts4 = counted(torch, dev, mods,
+                            lambda: pipe4.transcribe(mel)[0])
+    with torch.inference_mode():
+        # the single rank's first calls replayed teacher-forced
+        cache, tf = dec4.new_kv_cache(1), []
+        for tok, widx, seq in ref_calls[:WOQ4_TP_TOKENS]:
+            lg, cache = dec4(torch.from_numpy(tok).to(dev), cache, cross,
+                             widx, seq)
+            tf.append(lg[0, -1].float())
+    out["tp_woq4"] = dict(
+        tokens=[int(x) for x in res4.tokens], counts=nonzero(counts4),
+        logits=torch.stack(tf).cpu().numpy(),
+        row_k=[dec4.blocks[0].attn.dense.in_features,
+               dec4.blocks[0].mlp2.in_features],
+        seconds=time.time() - t0)
+    del pipe4, dec4, enc, dec, ckv, built, st, cross
+
+    # serve_tp: GPT-350M paged serving (the serve path's settings and first
+    # requests), every rank its seeded state, sharded
+    t0 = time.time()
+    c = serve_config
+    model = decoder_from_jax_state(random_decoder_state(
+        torch, np, c, np.random.default_rng(SEED)), c, device=dev,
+        mapping=m)
+    prompts = serve_prompts(np, c)[:SERVE_TP_REQUESTS]
+    served = {}
+
+    def drain():
+        queue = [InferenceRequest(i, p, max_new_tokens=SERVE_NEW, end_id=-1)
+                 for i, p in enumerate(prompts)]
+        served.clear()
+        ContinuousBatchingManager(
+            model, SamplingConfig(end_id=-1, pad_id=0),
+            max_batch_size=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+            paged=True, tokens_per_block=SERVE_BLOCK, device=dev,
+            get_inference_requests=lambda n: [
+                queue.pop(0) for _ in range(min(n, len(queue)))],
+            send_response=lambda q: served.__setitem__(
+                q.request_id, [int(x) for x in q.output_ids])
+            if q.finished else None).run()
+    sync(torch, dev)
+    t = time.perf_counter()
+    _, scounts = counted(torch, dev, mods, drain)
+    swall = time.perf_counter() - t
+    # where an output parts from the single rank's: this rank's logits of
+    # the two tokens after the common prefix (one prefill of the prompt
+    # and the prefix)
+    parted = {}
+    with torch.inference_mode():
+        for i, want in ref_outputs.items():
+            got = served.get(i, [])
+            d = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+            if d is None:
+                continue
+            ids = torch.from_numpy(np.concatenate(
+                [prompts[i], np.asarray(want[:d], np.int32)])).long()
+            ids = ids[None].to(dev)
+            lg, _ = model(ids, model.new_kv_cache(1, SERVE_MAX_SEQ), 0,
+                          ids.shape[1])
+            lg = lg[0, -1].float()
+            parted[i] = dict(at=d, margin=float(lg[got[d]] - lg[want[d]]),
+                             band=TP_LOGITS_TOL * float(lg.abs().max()))
+        # the serve path's recorded prefills and ticks, teacher-forced on
+        # a fresh pool of this rank's heads
+        pool, tf = model.new_paged_pool(serve_replay["num_blocks"],
+                                        SERVE_BLOCK), []
+        for tok, table, widx, seq in serve_replay["calls"]:
+            lg, _ = model(tok.to(dev), PagedCacheState(pool, table.to(dev)),
+                          *(a.to(dev) if torch.is_tensor(a) else a
+                            for a in (widx, seq)))
+            tf.append(lg[:, -1] if lg.shape[1] == 1
+                      else lg[:, int(seq[0]) - 1])
+    out["serve_tp"] = dict(
+        outputs=dict(served), counts=nonzero(scounts), parted=parted,
+        logits=torch.cat(tf).float().cpu().numpy(),
+        kv_heads=model.blocks[0].attention.num_attention_kv_heads,
+        tokens_per_s=SERVE_TP_REQUESTS * SERVE_NEW / swall,
+        seconds=time.time() - t0)
+    del model
+
+    # ring: sequence-parallel attention, q/k/v made from the seed on the
+    # host (the same on every rank), this rank's rows on the device
+    t0 = time.time()
+    g = torch.Generator().manual_seed(SEED)
+    b, h, s, d = ring_shape
+    q, k, v = (torch.randn((b, h, s, d), generator=g) for _ in range(3))
+    rows = slice(m.tp_rank * s // world, (m.tp_rank + 1) * s // world)
+    ql, kl, vl = (x[:, :, rows].to(dev) for x in (q, k, v))
+    ring = {}
+    for causal in (False, True):
+        o = ring_attention(ql, kl, vl, m.tp, causal=causal)
+        sync(torch, dev)
+        collectives.reset()
+        t = time.perf_counter()
+        ring_attention(ql, kl, vl, m.tp, causal=causal)
+        sync(torch, dev)
+        ring[causal] = dict(out=o.cpu().numpy(), ms=(time.perf_counter() - t)
+                            * 1e3, send_recv_ms=collectives.seconds[
+                                "send_recv"] * 1e3)
+    out["ring"] = dict(ring=ring, kv_rows=int(kl.shape[2]),
+                       staged=staged,
+                       seconds=time.time() - t0)
+    return out
+
+
+def tp_paths(torch, np, scan_built, scan_tokens, serve_outputs,
+             serve_replay, device="cuda", serve_config=None,
+             sample_len=SAMPLE_LEN, ring_shape=RING_SHAPE):
+    """The tp, tp_woq4, serve_tp and ring paths: TP_SIZE ranks spawned on
+    ``device`` (on a card every rank on the one card, ``TP_BACKEND``
+    asked for), each running :func:`tp_rank_jobs`.  ``scan_built`` (the
+    scanned path's model, from :func:`build_whisper` with its states) gives
+    the state every rank shards (its vocab padded to a multiple of
+    TP_SIZE, as the JAX package's dry run pads it, so that the embedding
+    and the LM head shard), saved once under ``build/tp_state`` and
+    memory-mapped by the ranks; its tokens ``scan_tokens`` and its first
+    decode step's logits are what the tp path must give; ``serve_outputs``
+    (the serve path's tokens by request) and ``serve_replay`` (its
+    recorded calls and their logits, :func:`serve_path`) what serve_tp must
+    give; a single-rank decoder of the woq4 state gives tp_woq4's logits.
+    Returns ({path: numbers}, {path: rank 0's launch counts})."""
+    import dataclasses
+    import shutil
+
+    from eddie_wang_hackathon2023_tpu_torch.models._state import \
+        unstack_blocks
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
+        Recipe, quantize_states)
+    from eddie_wang_hackathon2023_tpu_torch.models.whisper.model import \
+        WhisperDecoder
+    from eddie_wang_hackathon2023_tpu_torch.parallel import spawn_ranks
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t0 = time.time()
+    state_dir = os.path.join(HERE, "build", "tp_state")
+    shutil.rmtree(state_dir, ignore_errors=True)
+    enc_q, dec_q, ckv_s = scan_built["states"]
+    no_ckv = "+".join(p for p in WOQ4_TP_RECIPE.split("+") if p != "ckv8")
+    _, dec4, _ = quantize_states({}, scan_built["dec_float"], {}, no_ckv)
+    config = dataclasses.replace(scan_built["config"],
+                                 vocab_pad_multiple=TP_SIZE)
+    dec_q, dec4 = (pad_vocab_rows(np, st, config.padded_vocab)
+                   for st in (dec_q, dec4))
+    for name, st in (("enc", enc_q), ("dec", dec_q), ("ckv", ckv_s),
+                     ("dec_woq4", dec4)):
+        save_state(np, os.path.join(state_dir, name), st)
+    np.save(os.path.join(state_dir, "mel.npy"), scan_built["mel"])
+    # the single rank's decoder calls and their logits (the scanned path's
+    # model, its recorded calls replayed), and the same calls' logits
+    # through a single-rank decoder of the woq4 state
+    pipe = whisper_pipeline(scan_built, False, sample_len=sample_len)
+    calls = recorded_calls(scan_built["dec"],
+                           lambda: pipe.transcribe(scan_built["mel"]))
+    r4 = Recipe.parse(WOQ4_TP_RECIPE)
+    with torch.device(dev):
+        d4 = WhisperDecoder(config, r4.decoder, quantize_lm_head=r4.lm_head)
+    d4.load_state_dict(unstack_blocks(dec4))
+    with torch.inference_mode():
+        ref_logits = replay_logits(torch, scan_built["dec"], calls, 1, False,
+                                   len(calls))[:, 0].float().cpu()
+        ref4_logits = replay_logits(torch, d4.eval(), calls, 1, False,
+                                    WOQ4_TP_TOKENS)[:, 0].float().cpu()
+    ref_calls = [(tok.cpu().numpy(), widx, seq)
+                 for (tok, _, _, widx, seq), _ in calls]
+    ref_outputs = {i: serve_outputs[i] for i in range(SERVE_TP_REQUESTS)}
+    del pipe, calls, d4, dec4
+    print(f"[tp] {TP_SIZE} ranks on {dev} ({TP_BACKEND}), state saved in "
+          f"{time.time() - t0:.1f} s")
+    t = time.time()
+    ranks = spawn_ranks(tp_rank_jobs, TP_SIZE, state_dir, config,
+                        serve_config or gpt_350m_config(), sample_len,
+                        ring_shape, ref_calls, ref_outputs, serve_replay,
+                        backend=TP_BACKEND, device=device, timeout=900)
+    shutil.rmtree(state_dir, ignore_errors=True)
+    spawn_s = time.time() - t
+    for r in ranks:
+        print(f"[tp] rank {r['rank']}: backend {r['backend']}, "
+              f"{r['layout']}")
+    r0 = ranks[0]
+    staged = r0["tp"]["staged"]
+    staged_note = (f"staged through the host: {staged}" if staged
+                   else "nothing staged through the host")
+
+    # tp: everything printed first, then checked
+    tp = [r["tp"] for r in ranks]
+    checks = []
+    for r, x in zip(ranks, tp):
+        lg = torch.from_numpy(x["logits"])
+        first = rel_err(lg[:2], ref_logits[:2])
+        every = rel_err(lg, ref_logits)
+        agree = float((lg.argmax(-1) == ref_logits.argmax(-1)).float()
+                      .mean())
+        diff = [i for i, (a, b) in enumerate(zip(x["tokens"], scan_tokens))
+                if a != b]
+        parted = None
+        if diff:
+            # the tokens part where this rank's logits of the two tokens
+            # (the prefix before is common: the replayed call's logits are
+            # the rank's own) lie within the band
+            d = diff[0]
+            parted = dict(at=d, margin=float(lg[d, x["tokens"][d]]
+                                             - lg[d, scan_tokens[d]]),
+                          band=TP_LOGITS_TOL * float(lg[d].abs().max()))
+        x.update(first_step_rel_err=first, teacher_forced_rel_err=every,
+                 teacher_forced_argmax_agreement=agree,
+                 tokens_equal=sum(a == b for a, b in zip(x["tokens"],
+                                                          scan_tokens)),
+                 parted=parted)
+        print(f"[tp] rank {r['rank']}: {len(x['tokens'])} tokens, launches "
+              f"{x['counts']}, {x['self_heads']} heads a rank (cross cache "
+              f"{x['cross_heads']}), {x['vocab_rows']} vocab rows a rank; "
+              f"the single rank's calls replayed: prompt and first step's "
+              f"logits rel err {first:.3e} (tolerance {TP_LOGITS_TOL}), all "
+              f"{len(lg)} calls' {every:.3e}, argmax agreement {agree:.3f}; "
+              + ("tokens equal the single rank's" if not diff else
+                 f"{x['tokens_equal']} of {len(scan_tokens)} tokens equal "
+                 f"the single rank's, parting at index {parted['at']}, "
+                 f"where this rank's logits of its token and the single "
+                 f"rank's differ by {parted['margin']:.4f} (band "
+                 f"{parted['band']:.4f}): {x['tokens']} vs "
+                 f"{list(scan_tokens)}"))
+        checks.append((not diff or abs(parted["margin"]) <= parted["band"],
+                       f"[tp] rank {r['rank']}'s tokens equal the "
+                       "single-rank scanned path's up to a tie within "
+                       f"the logits' band ({TP_LOGITS_TOL})"))
+        checks.append((first < TP_LOGITS_TOL, f"[tp] rank {r['rank']}'s "
+                       f"first-step logits within {TP_LOGITS_TOL} of the "
+                       "single rank's"))
+        checks.append((every < TP_LOGITS_TOL, f"[tp] rank {r['rank']}'s "
+                       f"logits of all {len(lg)} replayed calls within "
+                       f"{TP_LOGITS_TOL} of the single rank's"))
+        checks.append((x["megakernel_gated"] and not x["eligible"],
+                       "[tp] a sharded decoder takes no megakernel"))
+        if on_card:
+            c = x["counts"]
+            checks.append((c.get("decode_attention_int8", 0) > 0
+                           and c.get("decode_attention_bf16", 0) > 0
+                           and c.get("flash_attention", 0) > 0
+                           and not c.get("out_proj_gemv")
+                           and not c.get("decoder_megakernel"),
+                           f"[tp] rank {r['rank']}: kernel 1 (self and "
+                           "cross) and kernel 2 launched, no GEMV epilogue, "
+                           "no megakernel"))
+    checks.append((tp[0]["tokens"] == tp[1]["tokens"]
+                   and np.array_equal(tp[0]["logits"], tp[1]["logits"]),
+                   "[tp] the ranks agree (tokens and logits bit for bit)"))
+    for r, x in zip(ranks, tp):
+        step, kern = x["step_ms"], x["kernel_ms_per_step"]
+        coll_ms = step * x["collective_share"]
+        print(f"[tp] rank {r['rank']}'s decode step {step:.3f} ms wall: "
+              f"collectives {coll_ms:.3f} ms, "
+              + ("its kernels not measured (no device time traced)"
+                 if kern is None else
+                 f"its kernels {kern:.3f} ms on the device, the rest "
+                 f"{step - coll_ms - kern:.3f} ms (host work, the card "
+                 f"idle for this rank); top kernels "
+                 + ", ".join(f"{v * 1e3:.1f} us {k[:48]}" for k, v in
+                             x["top_kernels_ms_per_step"].items())))
+    print(f"[tp] decode step {tp[0]['step_ms']:.3f} ms a step (wall), "
+          f"{tp[0]['collective_share']:.3f} of it in collectives "
+          f"({TP_BACKEND}, {staged_note}; calls a step "
+          f"{tp[0]['collective_calls_per_step']}); "
+          f"{tp[0]['ms_per_utt']:.1f} ms an utterance (the rank's first); "
+          f"{tp[0]['seconds']:.1f} s")
+    # tp_woq4
+    w4 = [r["tp_woq4"] for r in ranks]
+    checks.append((w4[0]["tokens"] == w4[1]["tokens"]
+                   and np.array_equal(w4[0]["logits"], w4[1]["logits"]),
+                   "[tp_woq4] the ranks agree (tokens and logits bit for "
+                   "bit)"))
+    for r, x in zip(ranks, w4):
+        x["rel_err"] = rel_err(torch.from_numpy(x.pop("logits")),
+                               ref4_logits)
+        print(f"[tp_woq4] rank {r['rank']}: launches {x['counts']}, "
+              f"row-parallel K {x['row_k']}; the single rank's first "
+              f"{len(ref4_logits)} calls replayed: logits rel err "
+              f"{x['rel_err']:.3e} against a single-rank woq4 decoder "
+              f"(tolerance {TP_LOGITS_TOL})")
+        checks.append((x["rel_err"] < TP_LOGITS_TOL,
+                       f"[tp_woq4] rank {r['rank']}'s logits within "
+                       f"{TP_LOGITS_TOL} of the single-rank woq4 "
+                       "decoder's"))
+        if on_card:
+            checks.append((x["counts"].get("int4_quant_matmul", 0) > 0,
+                           f"[tp_woq4] rank {r['rank']}: the int4 kernel "
+                           "launched"))
+    print(f"[tp_woq4] {WOQ4_TP_TOKENS} tokens; {w4[0]['seconds']:.1f} s")
+    # serve_tp
+    sv = [r["serve_tp"] for r in ranks]
+    checks.append((sv[0]["outputs"] == sv[1]["outputs"]
+                   and np.array_equal(sv[0]["logits"], sv[1]["logits"]),
+                   "[serve_tp] the ranks agree (outputs and replayed "
+                   "logits bit for bit)"))
+    for r, x in zip(ranks, sv):
+        x["rel_err"] = rel_err(torch.from_numpy(x.pop("logits")),
+                               serve_replay["logits"])
+        n = len(serve_replay["calls"])
+        print(f"[serve_tp] rank {r['rank']}: the serve path's {n} recorded "
+              f"calls replayed: logits rel err {x['rel_err']:.3e} "
+              f"(tolerance {TP_LOGITS_TOL})")
+        checks.append((x["rel_err"] < TP_LOGITS_TOL,
+                       f"[serve_tp] rank {r['rank']}'s logits of the serve "
+                       f"path's {n} recorded calls within {TP_LOGITS_TOL} "
+                       "of the single rank's"))
+    same = sum(sv[0]["outputs"].get(i) == t for i, t in ref_outputs.items())
+    parted = sv[0]["parted"]
+    print(f"[serve_tp] {same} of {SERVE_TP_REQUESTS} outputs equal the "
+          f"single-rank serve path's; the others part where this rank's "
+          "logits of the two tokens differ by (margin / band) "
+          + ", ".join(f"{p['margin']:.4f} / {p['band']:.4f} at {p['at']}"
+                      for p in parted.values())
+          + f"; {sv[0]['kv_heads']} KV heads a rank; launches "
+          f"{sv[0]['counts']}; {sv[0]['tokens_per_s']:.1f} tokens/s; "
+          f"{sv[0]['seconds']:.1f} s")
+    checks.append((same + len(parted) == SERVE_TP_REQUESTS
+                   and all(abs(p["margin"]) <= p["band"]
+                           for p in parted.values()),
+                   "[serve_tp] every output equals the single-rank serve "
+                   "path's up to a tie within the logits' band "
+                   f"({TP_LOGITS_TOL})"))
+    if on_card:
+        for r, x in zip(ranks, sv):
+            checks.append((x["counts"].get("paged_decode_attention", 0) > 0,
+                           f"[serve_tp] rank {r['rank']}: the paged kernel "
+                           "launched"))
+    # ring
+    g = torch.Generator().manual_seed(SEED)
+    b, h, s, d = ring_shape
+    q, k, v = (torch.randn((b, h, s, d), generator=g).to(dev)
+               for _ in range(3))
+    ring_errs = {}
+    for causal in (False, True):
+        sc = q @ k.transpose(-1, -2) * d ** -0.5
+        if causal:
+            sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                           device=dev).triu(1), float("-inf"))
+        ref = (torch.softmax(sc, dim=-1) @ v).cpu()
+        got = torch.cat([torch.from_numpy(r["ring"]["ring"][causal]["out"])
+                         for r in ranks], dim=2)
+        ring_errs[causal] = float((got - ref).abs().max())
+        checks.append((ring_errs[causal] < 2e-5, f"[ring] causal={causal}: "
+                       f"max abs err {ring_errs[causal]:.3e} vs one-device "
+                       "attention (2e-5)"))
+    rr = r0["ring"]
+    print(f"[ring] {ring_shape} fp32 over {TP_SIZE} ranks, {rr['kv_rows']} "
+          f"K/V rows a rank: max abs err {ring_errs}; "
+          + "; ".join(f"causal={c} {rr['ring'][c]['ms']:.2f} ms (send/recv "
+                      f"{rr['ring'][c]['send_recv_ms']:.2f} ms)"
+                      for c in (False, True))
+          + f"; {staged_note}; {rr['seconds']:.1f} s")
+    print(f"[tp] ranks spawned and joined in {spawn_s:.1f} s; the tp paths "
+          f"took {time.time() - t0:.1f} s")
+    for ok, what in checks:
+        check(ok, what)
+    e2e = dict(
+        tp=dict({k: v for k, v in tp[0].items() if k not in ("logits",)},
+                backend=TP_BACKEND),
+        tp_woq4=w4[0], serve_tp={k: v for k, v in sv[0].items()
+                                 if k != "outputs"},
+        ring=dict(max_abs_err={str(c): e for c, e in ring_errs.items()},
+                  ms={str(c): rr["ring"][c]["ms"] for c in (False, True)},
+                  seconds=rr["seconds"]),
+        tp_spawn_seconds=spawn_s)
+    counts = dict(tp=tp[0]["counts"], tp_woq4=w4[0]["counts"],
+                  serve_tp=sv[0]["counts"])
+    return e2e, counts
+
+
 def paths(torch, np, results, config=None, device="cuda",
           decoder_config=None, serve_config=None, gen_beam_config=None,
-          llama_config=None, bloom_config=None, chatglm_config=None):
+          llama_config=None, bloom_config=None, chatglm_config=None,
+          tp=None):
     """The main path (full depth, bench recipe, megakernel decode), then
     the custom path on the main path's model, then the kv8 paths on it
     (:func:`kv8_paths`), then the detect, long and best_of paths on it
@@ -6438,8 +7307,11 @@ def paths(torch, np, results, config=None, device="cuda",
     dense slot cache, sampling, mixed admission and steps_per_tick, each
     greedy cell beside the serve path's tokens) and the gen_beam path with
     ``gen_beam_config`` (default GPT-350M at beam_bench.py's widths).
-    Each kernel's launches come from the path that drives it, and must be
-    above 0 there on the card."""
+    With ``tp`` (default: on a card) the tensor-parallel paths after the
+    serve path (:func:`tp_paths`: the scanned path's model at tp 2, its
+    woq4 decoder, the serve path's first requests at tp 2, ring
+    attention).  Each kernel's launches come from the path that drives it,
+    and must be above 0 there on the card."""
     import dataclasses
 
     from eddie_wang_hackathon2023_tpu_torch.models.whisper import (
@@ -6448,6 +7320,7 @@ def paths(torch, np, results, config=None, device="cuda",
     from eddie_wang_hackathon2023_tpu_torch.quantization.fp8_layers import \
         fp8_scales_from_amax
     on_card = torch.device(device).type == "cuda"
+    tp = on_card if tp is None else tp
     # each path's wall seconds, for the script's time limit
     laps, t_lap = {}, [time.time()]
 
@@ -6488,7 +7361,7 @@ def paths(torch, np, results, config=None, device="cuda",
     print(f"[scanned] the layer-by-layer path runs at depth "
           f"{cut.n_audio_layer}+{cut.n_text_layer} (widths unchanged)")
     scan_built = build_whisper(torch, np, cut, device, SCANNED_RECIPE,
-                               "scanned")
+                               "scanned", keep_states=tp)
     scan_e2e, scan_counts = main_path(
         torch, np, device=device, decode_megakernel=False, label="scanned",
         built=scan_built)
@@ -6500,7 +7373,8 @@ def paths(torch, np, results, config=None, device="cuda",
         label="fp8_scanned", slope=False, built=fp8_built(
             torch, np, scan_built, self_kv_amax(torch, np, scan_built,
                                                 device)))
-    del scan_built
+    if not tp:
+        del scan_built
     lap("fp8_scanned")
     woq4s_e2e, woq4s_counts = woq4_scanned_path(torch, np, cut, device)
     lap("woq4_scanned")
@@ -6572,10 +7446,20 @@ def paths(torch, np, results, config=None, device="cuda",
     glm_e2e, glm_counts = chatglm_path(torch, np, config=chatglm_config,
                                        device=device)
     lap("chatglm")
-    serve_tokens = {}
+    serve_tokens, serve_replay = {}, {}
     serve_e2e, serve_counts = serve_path(torch, np, config=serve_config,
-                                         device=device, outputs=serve_tokens)
+                                         device=device, outputs=serve_tokens,
+                                         recorded=serve_replay)
     lap("serve")
+    # without the tp paths their rows count no launch
+    tp_e2e, tp_counts = {}, dict(tp={}, tp_woq4={}, serve_tp={})
+    if tp:
+        tp_e2e, tp_counts = tp_paths(torch, np, scan_built,
+                                     scan_e2e["tokens"], serve_tokens,
+                                     serve_replay, device=device,
+                                     serve_config=serve_config)
+        del scan_built
+        lap("tp")
     modes_e2e, modes_counts = serve_modes_path(
         torch, np, config=serve_config, device=device,
         reference=serve_tokens)
@@ -6599,9 +7483,9 @@ def paths(torch, np, results, config=None, device="cuda",
                   fp8=fp8_counts, fp8_scanned=fp8s_counts,
                   decoder_fp8=fp8_dec_counts,
                   **var_counts, **llama_counts, **santa_counts,
-                  **modes_counts)
+                  **modes_counts, **tp_counts)
     for name in KERNELS:
-        n = counts[PATH_OF[name]][COUNTER_OF.get(name, name)]
+        n = counts[PATH_OF[name]].get(COUNTER_OF.get(name, name), 0)
         results.setdefault(name, {}).update(launches=n, path=PATH_OF[name])
         if on_card:
             check(n > 0, f"{name} launched on the {PATH_OF[name]} path")
@@ -6616,7 +7500,7 @@ def paths(torch, np, results, config=None, device="cuda",
                 long=long_e2e, best_of=best_e2e, gen_beam=gen_beam_e2e,
                 bloom=bloom_e2e, chatglm=glm_e2e, woq4_scanned=woq4s_e2e,
                 fp8=fp8_e2e, fp8_scanned=fp8s_e2e, decoder_fp8=fp8_dec_e2e,
-                **var_e2e, **llama_e2e, **santa_e2e,
+                **var_e2e, **llama_e2e, **santa_e2e, **tp_e2e,
                 serve_modes=modes_e2e, path_seconds=laps)
 
 

@@ -131,6 +131,9 @@ class QKVLinear(nn.Module):
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = head_dim
         hk = self.num_kv_heads
+        # the separate-KV layout (a tensor-parallel shard may hold as many
+        # KV heads as query heads and keep it)
+        self.separate_kv = hk != num_heads
         if hk == num_heads:
             self.weight = frozen((3, num_heads, head_dim, hidden_size), dtype)
             self.bias = (frozen((3, num_heads, head_dim), dtype) if bias
@@ -144,7 +147,7 @@ class QKVLinear(nn.Module):
     def forward(self, x: torch.Tensor):
         b, l, hidden = x.shape
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
-        if hk == h:
+        if not self.separate_kv:
             w = self.weight.reshape(3 * h * d, hidden)
             qkv = torch.matmul(x, w.t()).reshape(b, l, 3, h, d)
             if self.bias is not None:
@@ -190,7 +193,12 @@ def linear_classes(quant_mode: QuantMode, dtype):
 
 
 class Attention(nn.Module):
-    """``num_kv_heads`` < ``num_attention_heads``: MQA/GQA self-attention
+    """Under tensor parallelism (``parallel.sharding.shard_attention``)
+    the layer runs its rank's ``num_attention_heads`` query heads (from
+    ``head_offset``) and the KV heads they read, its QKV projection
+    column-parallel on those heads and ``dense`` row-parallel; its caches
+    hold the rank's KV heads.
+    ``num_kv_heads`` < ``num_attention_heads``: MQA/GQA self-attention
     (the separate-KV QKV layout, a cache of ``num_kv_heads`` heads, the
     grouped mode of the decode kernel); the query heads of one KV head are
     consecutive.  ``flash_prefill_rows``: the fewest query rows of a causal
@@ -212,6 +220,8 @@ class Attention(nn.Module):
                  apply_query_key_layer_scaling: bool = False,
                  flash_prefill_rows: int = MIN_FLASH_LEN):
         super().__init__()
+        self.tp = None
+        self.head_offset = 0
         self.flash_prefill_rows = flash_prefill_rows
         self.hidden_size = hidden_size
         self.num_attention_heads = num_attention_heads
@@ -295,11 +305,13 @@ class Attention(nn.Module):
     def _decode_proj_operands(self, batch: int):
         """(weight, scale, bias) of an int8 weight-only dense layer for the
         fused out-projection at batch 1 with equal heads; None otherwise
-        (an int4 dense layer runs on its own, as in the JAX package,
+        (an int4 dense layer runs on its own, and so does a
+        tensor-parallel one, which the epilogue would neither reduce nor
+        give its bias once, as in the JAX package's ``_woq8_unsharded``,
         ``layers/attention.py:95-99``)."""
         d = self.dense
         if (batch != 1 or not isinstance(d, WeightOnlyQuantLinear)
-                or d.bits != 8
+                or d.bits != 8 or d.tp is not None
                 or self.num_attention_kv_heads != self.num_attention_heads):
             return None
         return d.qweight, d.per_channel_scale, d.bias

@@ -1,5 +1,7 @@
 """MLP blocks (the JAX package's ``layers/mlp.py``: ``MLP`` and
-``GatedMLP``)."""
+``GatedMLP``).  Under tensor parallelism (``parallel.sharding.shard_mlp``,
+where the tp size divides the ffn width) ``fc`` and the gate are
+column-parallel and ``proj`` row-parallel: one all-reduce a block."""
 from __future__ import annotations
 
 import torch

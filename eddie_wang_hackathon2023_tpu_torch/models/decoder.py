@@ -83,6 +83,7 @@ from ..functional import (ACT2FN, alibi_slopes, generate_alibi_biases,
 from ..layers import (MLP, Attention, Embedding, GatedMLP, LayerNorm,
                       Linear, QKVLinear, RmsNorm, RowLinear)
 from ..ops.attention import write_fresh_kv
+from ..parallel import collectives
 from ..ops.paged_attention import (PagedCacheState, PagedKV,
                                    new_block_pool, token_slots)
 from ..quantization.mode import QuantMode
@@ -266,6 +267,15 @@ class DecoderLMHead(nn.Module):
             self.lm_head = Linear(c.hidden_size, c.padded_vocab,
                                   bias=c.lm_head_bias, dtype=self.dtype)
 
+    def tp_shard(self, tp) -> None:
+        """``parallel.sharding.parallelize``'s hook: a separate LM head is
+        column-parallel over the vocab, its rows gathered (where the tp
+        size divides the vocab)."""
+        from ..parallel.sharding import shard_linear
+        if not self.config.tie_word_embeddings \
+                and self.config.padded_vocab % tp.size == 0:
+            shard_linear(self.lm_head, tp, "col", gather_output=True)
+
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
         """Zeroed stacked cache [n_layer, B, 2, Hkv, head_dim, S] (int8
@@ -286,7 +296,9 @@ class DecoderLMHead(nn.Module):
         model's KV cache (int8 or e4m3 with an int8 or fp8 KV cache), on
         its device."""
         c = self.config
-        return new_block_pool(num_blocks, c.num_kv_heads, tokens_per_block,
+        return new_block_pool(num_blocks,
+                              self.blocks[0].attention.num_attention_kv_heads,
+                              tokens_per_block,
                               c.head_dim,
                               dtype=self.blocks[0].attention.kv_cache_dtype,
                               num_layers=c.num_layers,
@@ -311,8 +323,12 @@ class DecoderLMHead(nn.Module):
         (:func:`..ops.decoder_layer.kernel_takes`: bf16 activations, heads
         of 64 or 128)."""
         from ..ops.decoder_layer import kernel_takes, woq_block_eligible
+        from ..parallel.sharding import tp_active
         from ..quantization.layers import WeightOnlyQuantQKVLinear
         c = self.config
+        if tp_active(self):
+            # the JAX package's params_cross_device_sharded gate
+            return False
         if c.position_embedding not in ("learned", "none", "rope"):
             return False
         if rotary_dim(c) % 2:
@@ -460,8 +476,12 @@ class DecoderLMHead(nn.Module):
         alibi = None
         if c.position_embedding == "alibi":
             # the bias over the cache's columns, once for every layer
-            alibi = generate_alibi_biases(alibi_slopes(c.num_heads, dev),
-                                          kv_cache.shape[-1])
+            # (under tensor parallelism the slopes of the rank's heads)
+            attn = self.blocks[0].attention
+            slopes = alibi_slopes(c.num_heads, dev)[
+                :, attn.head_offset:
+                attn.head_offset + attn.num_attention_heads]
+            alibi = generate_alibi_biases(slopes, kv_cache.shape[-1])
         if t == 1 and alibi is not None:
             # an ALiBi step: each layer writes its column, then attends
             # with the bias (through the beam table where there is one)
@@ -588,6 +608,9 @@ class DecoderLMHead(nn.Module):
         c = self.config
         if c.tie_word_embeddings:
             logits = matmul_fp32(x, self.vocab_embedding.weight.t())
+            if logits.shape[-1] != c.padded_vocab:
+                # vocab-parallel: every rank's rows, in rank order
+                logits = collectives.all_gather(logits, self.mapping.tp)
         else:
             logits = self.lm_head(x).float()
         if c.padded_vocab != c.vocab_size:

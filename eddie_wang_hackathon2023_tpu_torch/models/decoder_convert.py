@@ -37,12 +37,19 @@ def quantize_state(state: Dict[str, np.ndarray], config: DecoderConfig
 
 
 def from_jax_state(state: Dict[str, np.ndarray], config: DecoderConfig,
-                   device=None) -> DecoderLMHead:
+                   device=None, mapping=None) -> DecoderLMHead:
     """The port's model for ``config``, loaded from ``state`` (the JAX
     layout, already quantised for ``config.quant_mode``).  Runs on the CUDA
-    card unless ``device`` says otherwise."""
+    card unless ``device`` says otherwise.  ``mapping`` (a
+    :class:`..parallel.Mapping`): this rank's tensor-parallel shard
+    (``parallel.parallelize``), loaded with its shard of ``state``
+    (``parallel.shard_state``)."""
+    from ..parallel.sharding import parallelize, shard_state
     device = resolve_device(device)
     with torch.device(device):
         model = DecoderLMHead(config)
+    if mapping is not None:
+        parallelize(model, mapping)
+        state = shard_state(state, model)
     model.load_state_dict(unstack_blocks(state))
     return model.eval()

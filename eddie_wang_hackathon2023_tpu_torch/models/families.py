@@ -542,12 +542,13 @@ def pad_vocab_state(state: Dict[str, np.ndarray], config: DecoderConfig
 
 
 def build_from_hf(family: str, hf_model, dtype: str = "float32",
-                  device=None, **kw):
+                  device=None, mapping=None, **kw):
     """(the port's ``DecoderLMHead`` with the weights of ``hf_model``, its
     ``DecoderConfig``): any object with the HF ``config`` attribute and
     ``state_dict()`` (a transformers model, not imported here), mapped by
     the family's mapper and quantised for ``kw``'s ``quant_mode``.  Runs on
-    the CUDA card unless ``device`` says otherwise."""
+    the CUDA card unless ``device`` says otherwise; ``mapping``: this
+    rank's tensor-parallel shard."""
     from .decoder_convert import from_jax_state, quantize_state
     if family not in FAMILIES:
         raise NotImplementedError(f"family {family!r} is not ported")
@@ -555,4 +556,4 @@ def build_from_hf(family: str, hf_model, dtype: str = "float32",
     config = cfg_fn(hf_model.config, dtype=dtype, **kw)
     state = pad_vocab_state(map_fn(hf_model.state_dict(), config), config)
     return from_jax_state(quantize_state(state, config), config,
-                          device=device), config
+                          device=device, mapping=mapping), config

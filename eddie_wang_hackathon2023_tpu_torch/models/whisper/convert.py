@@ -267,31 +267,50 @@ def quantize_states(enc_sd, dec_sd, ckv_sd, recipe: str = BENCH_RECIPE,
 
 
 def from_jax_state(enc_state, dec_state, ckv_state, config: WhisperConfig,
-                   recipe: str = "", device=None
+                   recipe: str = "", device=None, mapping=None
                    ) -> Tuple[WhisperEncoder, WhisperDecoder, CrossAttnKV]:
     """Build the port's (encoder, decoder, cross-KV) modules from state
     dicts in the JAX package's layout, quantised for ``recipe`` (by
     :func:`quantize_states` or by the JAX package's surgery).  Runs on the
-    CUDA card unless ``device`` says otherwise."""
+    CUDA card unless ``device`` says otherwise.  ``mapping`` (a
+    :class:`...parallel.Mapping`): this rank's tensor-parallel shard of
+    each module (``parallel.parallelize``), loaded with its shard of the
+    full states (``parallel.shard_state``)."""
+    from ...parallel.sharding import parallelize, shard_state
     device = resolve_device(device)
     r = Recipe.parse(recipe)
     with torch.device(device):
         enc = WhisperEncoder(config, r.encoder)
         dec = WhisperDecoder(config, r.decoder, quantize_lm_head=r.lm_head)
+    if mapping is not None:
+        parallelize(enc, mapping)
+        parallelize(dec, mapping)
+        enc_state = shard_state(enc_state, enc)
+        dec_state = shard_state(dec_state, dec)
     enc.load_state_dict(unstack_blocks(enc_state))
     dec.load_state_dict(unstack_blocks(dec_state))
-    ckv = cross_kv_from_jax_state(ckv_state, config, recipe, device)
+    ckv = cross_kv_from_jax_state(
+        ckv_state, config, recipe, device,
+        cross_attn=dec.blocks[0].cross_attn if mapping is not None else None)
     return enc.eval(), dec.eval(), ckv
 
 
 def cross_kv_from_jax_state(ckv_state, config: WhisperConfig,
-                            recipe: str = "", device=None) -> CrossAttnKV:
+                            recipe: str = "", device=None,
+                            cross_attn=None) -> CrossAttnKV:
     """The cross-KV module alone (see :func:`from_jax_state`); with
-    ``ckv8`` the state holds the calibrated ``kv_scale``."""
+    ``ckv8`` the state holds the calibrated ``kv_scale``.  ``cross_attn``:
+    the decoder's cross attention under tensor parallelism (a layer's; all
+    shard alike), whose heads the module makes
+    (:meth:`CrossAttnKV.shard_like`)."""
+    from ...parallel.sharding import shard_state
     device = resolve_device(device)
     r = Recipe.parse(recipe)
     with torch.device(device):
         ckv = CrossAttnKV(config, int8_output=r.ckv8)
+    if cross_attn is not None:
+        ckv.shard_like(cross_attn)
+        ckv_state = shard_state(ckv_state, ckv)
     ckv_t = {
         "kv_weight": torch.from_numpy(np.stack(
             [np.asarray(ckv_state["blocks.k_linear.weight"], np.float32),

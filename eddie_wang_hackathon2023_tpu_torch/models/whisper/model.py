@@ -9,6 +9,18 @@ Single-token decode steps take one of the JAX package's two paths: the
 scanned path (``model.py:394-447``), with the fresh K/V of every layer
 stored after the layer loop, or, given the packed weight image at batch 1,
 the whole-step megakernel (``model.py:359-393``, ``ops/decoder_layer.py``).
+
+Tensor parallelism (``parallel.sharding.parallelize``): every block's
+attention runs its rank's heads (its caches, self and cross, hold them),
+its MLP splits ``mlp1`` by columns and ``mlp2`` by rows; convolutions,
+norms and positions stay whole.  ``CrossAttnKV`` makes the heads of the
+cross cache that the decoder's cross attention reads, from their rows of
+the stacked projection (the static per-layer int8 scales replicated).
+The decoder's token embedding and its int8 LM head are vocab-parallel:
+each rank computes its vocab rows' logits, the ranks' logits are
+gathered and sliced to ``n_vocab``, so every rank reads the same logits.
+A sharded decoder is never megakernel-eligible (the JAX package's
+``params_cross_device_sharded`` gate): it decodes layer by layer.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from ...layers import Attention, Conv1d, Embedding, LayerNorm
 from ...layers.attention import linear_classes
 from ...layers.linear import frozen
 from ...ops.attention import write_fresh_kv
+from ...parallel import collectives
 from ...quantization.mode import QuantMode
 from .config import WhisperConfig
 
@@ -34,6 +47,12 @@ ENCODER_LINEARS = ("blocks.attn.qkv", "blocks.attn.dense", "blocks.mlp1",
                    "blocks.mlp2")
 DECODER_LINEARS = ENCODER_LINEARS + ("blocks.cross_attn.q_linear",
                                      "blocks.cross_attn.dense")
+
+
+def _shard_block_mlps(blocks, tp) -> None:
+    from ...parallel.sharding import shard_mlp
+    for b in blocks:
+        shard_mlp([b.mlp1], b.mlp2, tp)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -101,6 +120,10 @@ class WhisperEncoder(nn.Module):
             for _ in range(c.n_audio_layer))
         self.ln_post = LayerNorm(c.n_audio_state, dtype=dtype)
 
+    def tp_shard(self, tp) -> None:
+        """``parallel.sharding.parallelize``'s hook: each block's MLP."""
+        _shard_block_mlps(self.blocks, tp)
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = gelu(self.conv1(mel))
         x = gelu(self.conv2(x))
@@ -140,20 +163,51 @@ class CrossAttnKV(nn.Module):
         self.kv_scale = (frozen((c.n_text_layer,), torch.float32)
                          if int8_output else None)
 
+    def shard_like(self, cross_attn) -> None:
+        """Make the heads that ``cross_attn`` reads (the decoder's cross
+        attention, made by ``parallel.parallelize``): the rows of its
+        rank's heads where it was sharded, all of them where it stayed
+        whole.  The decoder's rules decide; this module follows them."""
+        from ...parallel.sharding import _resize
+        if cross_attn.tp is None:
+            return
+        hd = self.config.head_dim
+        heads = cross_attn.head_offset + np.arange(
+            cross_attn.num_attention_heads)
+        rows = (heads[:, None] * hd + np.arange(hd)).reshape(-1)
+        _resize(self, "kv_weight", 2, rows)
+        _resize(self, "v_bias", 1, rows)
+
+    def tp_state_index(self):
+        """The split of the JAX layout's stacked ``k_linear`` / ``v_linear``
+        keys (``[L, d, d]``, ``[L, d]``), for ``shard_state``."""
+        ix = self.__dict__.get("_tp_index", {})
+        if "kv_weight" not in ix:
+            return {}
+        rows = ix["kv_weight"][1]
+        return {"blocks.k_linear.weight": (1, rows, False),
+                "blocks.v_linear.weight": (1, rows, False),
+                "blocks.v_linear.bias": (1, rows, False)}
+
     def forward(self, xa: torch.Tensor):
-        """xa [B, S, d] -> [L, B, 2, H, head_dim, S] (seq-minor), plus the
-        [L] fp32 dequant scales when int8."""
+        """xa [B, S, d] -> [L, B, 2, H, head_dim, S] (seq-minor; H the
+        rank's heads under tensor parallelism), plus the [L] fp32 dequant
+        scales when int8."""
         c = self.config
         b, s, d = xa.shape
-        n_layer = self.kv_weight.shape[0]
-        h, hd = c.n_text_head, c.head_dim
+        n_layer, _, dout, _ = self.kv_weight.shape
+        hd = c.head_dim
+        h = dout // hd
         if b == 1:
             # one stacked GEMM whose natural output is the seq-minor layout:
             # out[L*2*d, S] = W[L*2*d, d] @ xa^T
-            kv = torch.matmul(self.kv_weight.reshape(n_layer * 2 * d, d),
-                              xa[0].t()).reshape(n_layer, 1, 2, d, s)
+            kv = torch.matmul(self.kv_weight.reshape(n_layer * 2 * dout, d),
+                              xa[0].t()).reshape(n_layer, 1, 2, dout, s)
         else:
-            kv = torch.einsum("bsi,ltoi->lbtos", xa, self.kv_weight)
+            # the einsum's result is a strided view; the decode kernel
+            # takes the seq-minor cache contiguous
+            kv = torch.einsum("bsi,ltoi->lbtos", xa,
+                              self.kv_weight).contiguous()
         bias = F.pad(self.v_bias[:, None, :], (0, 0, 1, 0))  # zero K bias
         kv = kv + bias[:, None, :, :, None].to(kv.dtype)
         if not self.int8_output:
@@ -193,14 +247,27 @@ class WhisperDecoder(nn.Module):
             for _ in range(c.n_text_layer))
         self.ln = LayerNorm(c.n_text_state, dtype=self.dtype)
 
+    def tp_shard(self, tp) -> None:
+        """``parallel.sharding.parallelize``'s hook: each block's MLP and
+        the int8 LM head's vocab rows (where the tp size divides them)."""
+        from ...parallel.sharding import _chunk, _resize
+        _shard_block_mlps(self.blocks, tp)
+        v = self.config.padded_vocab
+        if self.quantize_lm_head and v % tp.size == 0:
+            rows = _chunk(v, tp)
+            _resize(self, "lm_head_qweight", 0, rows)
+            _resize(self, "lm_head_scale", 0, rows)
+
     def new_kv_cache(self, batch: int, max_len: Optional[int] = None
                      ) -> torch.Tensor:
-        """Zeroed stacked cache [n_layer, B, 2, H, head_dim, S], int8
-        under ``kv8``, e4m3 under an fp8 KV cache (the JAX package's
-        ``model.py:283-288``)."""
+        """Zeroed stacked cache [n_layer, B, 2, H, head_dim, S] (H the
+        rank's heads under tensor parallelism), int8 under ``kv8``, e4m3
+        under an fp8 KV cache (the JAX package's ``model.py:283-288``)."""
         c = self.config
+        attn = self.blocks[0].attn
         return torch.zeros(
-            (c.n_text_layer, batch, 2, c.n_text_head, c.head_dim,
+            (c.n_text_layer, batch, 2, attn.num_attention_kv_heads,
+             c.head_dim,
              max_len or c.n_text_ctx),
             dtype=self.blocks[0].attn.kv_cache_dtype,
             device=self.positional_embedding.device)
@@ -216,13 +283,17 @@ class WhisperDecoder(nn.Module):
         device) also the types the kernel takes: bf16 activations (the self
         cache is bf16, int8 under ``kv8`` or e4m3 under an fp8 KV cache;
         the cross cache, made in the same dtype or int8, follows) and heads
-        of 64."""
+        of 64.  Never for a tensor-parallel shard (the JAX package's
+        ``params_cross_device_sharded`` gate)."""
         from ...layers.attention import QKVLinear
         from ...layers.linear import Linear, RowLinear
         from ...ops.decoder_layer import HEAD_DIM, woq_block_eligible
+        from ...parallel.sharding import tp_active
         from ...quantization.layers import WeightOnlyQuantQKVLinear
         c = self.config
         b = self.blocks[0]
+        if tp_active(self):
+            return False
         if device is None:
             device = self.positional_embedding.device
         if torch.device(device).type == "cuda" and (
@@ -332,6 +403,9 @@ class WhisperDecoder(nn.Module):
             logits = logits * self.lm_head_scale[None, None, :]
         else:
             logits = matmul_fp32(x, self.token_embedding.weight.t())
+        if logits.shape[-1] != c.padded_vocab:
+            # vocab-parallel: every rank's rows, in rank order
+            logits = collectives.all_gather(logits, self.mapping.tp)
         if c.padded_vocab != c.n_vocab:
             logits = logits[..., :c.n_vocab]
         return logits

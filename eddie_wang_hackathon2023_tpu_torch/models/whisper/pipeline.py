@@ -28,6 +28,15 @@ expand jointly by cumulative log-probability; the KV cache stays put and a
 ``[n_audio, beam, n_text_ctx]`` cache-indirection table, advanced each
 step, tells the decode attention which row wrote each position; tokens and
 the timestamp-filter state are reordered by parent.
+
+Tensor and data parallelism: with a decoder sharded by
+``parallel.parallelize`` every rank of a tensor-parallel group runs the
+encoder, the cross K/V and the loop (layer by layer: a shard never takes
+the megakernel) on its heads; the filters and the argmax read the
+gathered logits, which are the same on every rank, so every rank takes
+the same token.  Over data-parallel ranks :meth:`WhisperPipeline.transcribe`
+splits the batch (rank d of the ``dp`` group takes the d-th equal part)
+and returns every rank's results, gathered in batch order.
 """
 from __future__ import annotations
 
@@ -134,6 +143,13 @@ class WhisperPipeline:
         self.encoder = encoder
         self.decoder = decoder
         self.cross_kv = cross_kv
+        heads = cross_kv.kv_weight.shape[2] // config.head_dim
+        if heads != decoder.blocks[0].cross_attn.num_attention_heads:
+            raise ValueError(
+                f"the cross-KV makes {heads} heads a rank, the decoder's "
+                "cross attention reads "
+                f"{decoder.blocks[0].cross_attn.num_attention_heads}: they "
+                "were sharded apart")
         self.options = options
         self.device = decoder.positional_embedding.device
         self.decode_megakernel = (self.device.type == "cuda"
@@ -495,7 +511,29 @@ class WhisperPipeline:
                    ) -> List[DecodingResult]:
         """A batch of 30 s mel windows [B, n_mels, 3000] -> results: encode,
         cross-KV, language detection, then the decode loop (``seed``: the
-        sampling noise's)."""
+        sampling noise's).  With data-parallel ranks (the decoder's
+        ``mapping``) each rank transcribes its part of the batch and every
+        rank returns all the results."""
+        mapping = getattr(self.decoder, "mapping", None)
+        if mapping is None or not mapping.dp.active:
+            return self._transcribe(mel, seed, keep_audio_features)
+        import torch.distributed as dist
+        mel = torch.as_tensor(mel)
+        if mel.dim() == 2:
+            mel = mel[None]
+        n, dp = mel.shape[0], mapping.dp
+        if n % dp.size:
+            raise ValueError(f"a batch of {n} over {dp.size} data-parallel "
+                             "ranks")
+        part = n // dp.size
+        mine = self._transcribe(mel[dp.rank * part:(dp.rank + 1) * part],
+                                seed, keep_audio_features)
+        every = [None] * dp.size
+        dist.all_gather_object(every, mine, group=dp.group)
+        return [r for rows in every for r in rows]
+
+    def _transcribe(self, mel, seed: int, keep_audio_features: bool
+                    ) -> List[DecodingResult]:
         xa = self.get_audio_features(mel)
         cross_kv = self.precompute_cross_kv(xa)
         languages, _ = self.detect_language(xa, cross_kv)

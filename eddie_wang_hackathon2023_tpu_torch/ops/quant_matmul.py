@@ -69,8 +69,8 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 
 def weight_only_quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
-                             scales: torch.Tensor,
-                             bits: int = 8) -> torch.Tensor:
+                             scales: torch.Tensor, bits: int = 8,
+                             fp32: bool = False) -> torch.Tensor:
     """x [..., K] @ a weight-only quantised [K, N] -> [..., N] in x's
     dtype.  int8 (``bits`` 8, scales [N]): the weight is cast (not scaled)
     to the activation dtype, the product is accumulated in fp32, the
@@ -78,13 +78,18 @@ def weight_only_quant_matmul(x: torch.Tensor, qweight: torch.Tensor,
     result is rounded once to x's dtype, as in the JAX package
     (``preferred_element_type=float32``).  int4 (``bits`` 4, ``qweight``
     packed [K/2, N], scales [N] or [G, N]): the TPU kernel's function,
-    :func:`.int4_quant_matmul.quant_matmul_int4`."""
+    :func:`.int4_quant_matmul.quant_matmul_int4`.  ``fp32``: the result in
+    fp32, for a row-parallel partial that the ranks sum before the one
+    rounding (int8: the scaled accumulator, not rounded; int4: the
+    kernel's output, rounded to x's dtype as the kernel writes it, then
+    widened)."""
     if bits == 4:
         from .int4_quant_matmul import quant_matmul_int4
-        return quant_matmul_int4(x, qweight, scales)
+        out = quant_matmul_int4(x, qweight, scales)
+        return out.float() if fp32 else out
     if bits != 8:
         raise ValueError(f"{bits}-bit weights: only 8 and 4 exist")
     if scales.dim() != 1:
         raise ValueError("int8 weights take per-channel scales [N]")
-    acc = matmul_fp32(x, qweight.to(x.dtype))
-    return (acc * scales.float()).to(x.dtype)
+    acc = matmul_fp32(x, qweight.to(x.dtype)) * scales.float()
+    return acc if fp32 else acc.to(x.dtype)

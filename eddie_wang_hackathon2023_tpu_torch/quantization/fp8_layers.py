@@ -4,16 +4,18 @@ forward rounds the activations and the weight to e4m3 with their
 per-tensor scaling factors (the saturating cast), dequantises both to fp32
 and multiplies them with fp32 accumulation, so the numerics are real e4m3
 rounding while the product runs in fp32.  Plain PyTorch: no kernel of the
-JAX package sits behind these layers (XLA runs their graph there).  The
-JAX layers' tensor-parallel options (``gather_output``, the row layer's
-sharded in-features) wait for the port's tensor parallelism."""
+JAX package sits behind these layers (XLA runs their graph there).  Under
+tensor parallelism (JAX ``fp8_layers.py:63-97``) ``FP8Linear`` splits its
+out-features and ``FP8RowLinear`` its in-features (the fp32 partial
+products summed over the group before the cast, the bias after); the
+per-tensor scales are replicated."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ..functional import ACT2FN
-from ..layers.linear import frozen
+from ..layers.linear import TensorParallel, frozen
 from ..ops.attention import FP8, FP8_MAX
 
 
@@ -41,9 +43,10 @@ def fp8_scales_from_amax(amax: float) -> float:
     return max(float(amax), 1e-8) / FP8_MAX
 
 
-class FP8Linear(nn.Module):
+class FP8Linear(TensorParallel, nn.Module):
     """y = qdq(x) qdq(W)^T + b, weight [out, in], the fp32 product cast to
     x's dtype, then the bias in that dtype."""
+    TP_DIMS = {"col": {"weight": 0, "bias": 0}, "row": {"weight": 1}}
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype=torch.float32):
@@ -58,10 +61,7 @@ class FP8Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xq = fp8_qdq(x, self.activation_scaling_factor)
         wq = fp8_qdq(self.weight, self.weights_scaling_factor)
-        y = torch.matmul(xq, wq.t()).to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        return self.tp_finish(torch.matmul(xq, wq.t()), x.dtype)
 
 
 class FP8RowLinear(FP8Linear):

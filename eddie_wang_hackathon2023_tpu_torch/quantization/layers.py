@@ -2,7 +2,18 @@
 ``quantization/layers.py:25-151``): int8 qweight [in, out] K-major with one
 fp32 scale per output channel, or int4 (``bits`` 4) packed [in/2, out]
 with per-channel scales [out] or, with ``group_size`` G, group scales
-[in/G, out]."""
+[in/G, out].
+
+Tensor parallelism (``layers.linear.TensorParallel``): column-parallel
+layers hold their rank's output columns of ``qweight``, of the scales and
+of the bias; row-parallel ones their rank's K rows (an int4 weight
+re-packed over them) and, grouped, the scales' rows of those K rows (JAX
+``quantization/layers.py:47-63,112-127``); the per-channel scale is
+applied before the all-reduce (it is linear in the sum), the bias after.
+The ranks sum fp32 partials: int8's fp32 accumulator, scaled; int4's the
+kernel's output, which the kernel rounds to the activation dtype on each
+rank (one rounding a rank, where the unsharded kernel rounds once).
+The fused QKV projection holds the output columns of its rank's heads."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..layers.linear import frozen
+from ..layers.linear import TensorParallel, frozen
 from ..ops.quant_matmul import weight_only_quant_matmul
 
 
@@ -26,7 +37,9 @@ def _quant_params(in_features: int, out_features: int, bits: int,
             frozen(scale, torch.float32))
 
 
-class WeightOnlyQuantLinear(nn.Module):
+class WeightOnlyQuantLinear(TensorParallel, nn.Module):
+    TP_DIMS = {"col": {"qweight": 1, "per_channel_scale": -1, "bias": 0},
+               "row": {"qweight": 0, "per_channel_scale": 0}}
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, dtype=torch.float32, bits: int = 8,
@@ -42,15 +55,16 @@ class WeightOnlyQuantLinear(nn.Module):
         self.bias = frozen((out_features,), dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # row-parallel: the ranks sum fp32 partials
         out = weight_only_quant_matmul(x, self.qweight,
-                                       self.per_channel_scale, self.bits)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return out
+                                       self.per_channel_scale, self.bits,
+                                       fp32=self.row_parallel)
+        return self.tp_finish(out, x.dtype)
 
 
 class WeightOnlyQuantRowLinear(WeightOnlyQuantLinear):
-    """Row-parallel variant in the JAX package; the same function here."""
+    """Row-parallel variant in the JAX package; the same function
+    unsharded."""
 
 
 class WeightOnlyQuantQKVLinear(nn.Module):
@@ -73,6 +87,9 @@ class WeightOnlyQuantQKVLinear(nn.Module):
         self.bits = bits
         self.group_size = group_size if bits == 4 else 0
         hk = self.num_kv_heads
+        # the separate-KV layout (a tensor-parallel shard may hold as many
+        # KV heads as query heads and keep it)
+        self.separate_kv = hk != num_heads
         if num_heads % hk:
             raise ValueError(f"{num_heads} heads over {hk} KV heads")
         equal = hk == num_heads
@@ -91,7 +108,7 @@ class WeightOnlyQuantQKVLinear(nn.Module):
         h, hk, hd = self.num_heads, self.num_kv_heads, self.head_dim
         out = weight_only_quant_matmul(x, self.qweight,
                                        self.per_channel_scale, self.bits)
-        if hk == h:
+        if not self.separate_kv:
             qkv = out.reshape(b, l, 3, h, hd)
             if self.bias is not None:
                 qkv = qkv + self.bias.to(qkv.dtype)
